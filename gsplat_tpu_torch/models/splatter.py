@@ -1,11 +1,13 @@
 """Scene container + render pipeline (PyTorch port of ``Splatter``).
 
-The forward of ``gsplat_tpu/models/splatter.py``: project → cull → bin →
+The render of ``gsplat_tpu/models/splatter.py``: project → cull → bin →
 depth-sort → composite → assemble, then clip and centre-crop.  Cameras of
 one intrinsics group are stacked into tensors once; a render selects one by
-index.  The compositor follows the tensors' device: the CUDA kernel for
-CUDA tensors, its plain PyTorch version for CPU tensors
-(``ops/rasterize.composite_tiles``).
+index.  The compositor follows the tensors' device: the CUDA kernels for
+CUDA tensors, their plain PyTorch versions for CPU tensors
+(``ops/rasterize.composite_tiles``).  ``render_padded`` and
+``render_cropped`` are differentiable in the table's parameters (the train
+step's forward); ``Splatter.render`` runs without gradients.
 """
 
 from __future__ import annotations

@@ -22,8 +22,15 @@ Shapes are dynamic: the pair count is read back once per call (the
 index is int64; ``tile_start`` is handed to the kernel as int32, which
 holds any pair count that fits in device memory at 44 bytes a pair.
 
-Forward only: the backward (per-pair cotangents summed per gaussian)
-arrives with the training slice.
+Backward: the port's form of ``_pack_sorted_bwd`` (``gsplat_tpu/ops/
+binning.py:1363-1535``) is autograd through the two row gathers
+``geom_n[src]`` and ``color_n[src]``: each per-pair cotangent row is summed
+into its gaussian's row (an ``index_put_`` with ``accumulate=True``, the
+TPU's avoided scatter).  On CUDA PyTorch computes it by sorting the indices,
+which is deterministic (it is not on PyTorch's list of nondeterministic
+operations).  The ordering and the tile rectangles read detached copies,
+so depth gets no gradient (``:1340-1342``, ``:1534``); column 7 gets zero
+because the compositor never reads it.
 """
 
 from __future__ import annotations
@@ -116,10 +123,11 @@ def pack_sorted(spec: BinningSpec, geom_n: torch.Tensor,
     K, T = spec.max_tiles_per_gaussian, spec.n_tiles
 
     # ---- depth order -----------------------------------------------------
+    depth = depth.detach()
     depth_key = torch.where(visible, depth,
                             torch.full_like(depth, float("inf")))
     order = torch.sort(depth_key, stable=True).indices          # (N,)
-    geom_o = geom_n[order]
+    geom_o = geom_n.detach()[order]     # ordering and bboxes: no gradient
     vis_o = visible[order]
 
     # ---- per-gaussian tile rectangles, K cap -----------------------------
@@ -158,7 +166,7 @@ def pack_sorted(spec: BinningSpec, geom_n: torch.Tensor,
         tile_sorted, torch.arange(T + 1, device=dev, dtype=tile.dtype))
 
     return PackedPairs(
-        geom=geom_n[src],
+        geom=geom_n[src],           # the differentiable gathers
         color=color_n[src],
         tile_start=tile_start.to(torch.int32),
         n_pairs=torch.tensor(tile.shape[0], device=dev),

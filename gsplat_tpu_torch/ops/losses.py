@@ -3,14 +3,18 @@
 The same definitions as ``gsplat_tpu/ops/losses.py``: SSIM with an 11x11
 gaussian window (sigma 1.5, k1 0.01, k2 0.03) over the valid region, the
 algorithm of torchmetrics' ``StructuralSimilarityIndexMeasure``.  The
-separable blur is two banded matmuls, as in JAX.  They run in full float32:
-``ssim`` turns off TF32 for its matmuls (``allow_tf32 = False``, the
-PyTorch default) and restores the caller's setting afterwards, since TF32
-keeps only ~3 decimal digits.
+separable blur is two banded matmuls, as in JAX.  They run in full float32,
+forward and backward: :class:`_BandedBlur` is an autograd function whose
+forward and backward each turn TF32 off for their matmuls (``allow_tf32 =
+False``, the PyTorch default) and restore the caller's setting afterwards,
+since TF32 keeps only ~3 decimal digits.  The backward runs later, inside
+``loss.backward()``, so a setting that held only during the forward would
+not reach it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -46,6 +50,43 @@ def _band_matrix(n: int, kernel_size: int, sigma: float) -> np.ndarray:
     return band
 
 
+@functools.lru_cache(maxsize=16)
+def _band(n: int, kernel_size: int, sigma: float, device) -> torch.Tensor:
+    """The band matrix as a tensor on ``device``, built once: a fresh copy
+    per call is a pageable host-to-device copy, which stalls the host."""
+    return torch.from_numpy(_band_matrix(n, kernel_size, sigma)).to(device)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class _BandedBlur(torch.autograd.Function):
+    """(N, H, W) → (N, H', W'): x ·_H bh ·_W bw, full float32 both ways.
+    The band matrices are constants and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, bh, bw):
+        ctx.save_for_backward(bh, bw)
+        with _full_f32_matmul():
+            y = torch.matmul(x.transpose(1, 2), bh)              # (N, W, H')
+            return torch.matmul(y.transpose(1, 2), bw)           # (N, H', W')
+
+    @staticmethod
+    def backward(ctx, gz):
+        bh, bw = ctx.saved_tensors
+        with _full_f32_matmul():
+            gy = torch.matmul(gz, bw.T)                          # (N, H', W)
+            gx = torch.matmul(gy.transpose(1, 2), bh.T)          # (N, W, H)
+        return gx.transpose(1, 2), None, None
+
+
 def ssim(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0,
          kernel_size: int = 11, sigma: float = 1.5,
          layout: str = "hwc") -> torch.Tensor:
@@ -63,16 +104,10 @@ def ssim(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0,
     p = pred.to(torch.float32)
     t = target.to(torch.float32)
     c, h, w = p.shape
-    bw = torch.tensor(_band_matrix(w, kernel_size, sigma), device=p.device)
-    bh = torch.tensor(_band_matrix(h, kernel_size, sigma), device=p.device)
+    bw = _band(w, kernel_size, sigma, p.device)
+    bh = _band(h, kernel_size, sigma, p.device)
     x = torch.cat([p, t, p * p, t * t, p * t], dim=0)            # (5C, H, W)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        y = torch.matmul(x.transpose(1, 2), bh)                  # (5C, W, H')
-        z = torch.matmul(y.transpose(1, 2), bw)                  # (5C, H', W')
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    z = _BandedBlur.apply(x, bh, bw)                             # (5C, H', W')
     mu_p, mu_t = z[:c], z[c:2 * c]
     mu_pp = z[2 * c:3 * c] - mu_p * mu_p
     mu_tt = z[3 * c:4 * c] - mu_t * mu_t

@@ -13,6 +13,9 @@ same order so the two agree to float32 rounding:
 
 Everything stays at table size with a ``visible`` mask; binning compacts.
 Elementwise throughout, so a float32 matmul mode (TF32) can never touch it.
+Gradients come from autograd, as JAX's come from autodiff: the (a, b, b, d)
+stack sums the b and c cotangents, and ``trunc_exp`` carries the clamped
+gradient of the reference.
 """
 
 from __future__ import annotations
@@ -24,10 +27,22 @@ import torch
 EPS = 1e-4  # reference splatter.py:19
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return grad * torch.exp(torch.clamp(x, -1.0, 1.0))
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """exp (reference renderer.py:91-102).  Forward only: the clamped
-    gradient of the JAX custom JVP arrives with the training slice."""
-    return torch.exp(x)
+    """exp with gradient exp(clamp(x, -1, 1)) (reference renderer.py:91-102;
+    the JAX custom JVP of ``gsplat_tpu/ops/projection.py:34-43``)."""
+    return _TruncExp.apply(x)
 
 
 def activate_scale(scale: torch.Tensor, scale_activation: str) -> torch.Tensor:

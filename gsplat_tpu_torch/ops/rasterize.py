@@ -1,20 +1,33 @@
-"""Tiled front-to-back alpha compositing: the CUDA kernel and its plain twin.
+"""Tiled front-to-back alpha compositing: the CUDA kernels and their plain
+twins, forward and backward.
 
 The JAX package composites chunk-aligned pair buffers with the Pallas TPU
-kernel ``_fwd_kernel`` (``gsplat_tpu/ops/rasterize.py:437-528``) or with
-``composite_chunks_jnp``.  Here the pairs arrive grouped by tile
-(``ops/binning.pack_sorted``) and one contract has two implementations:
+kernels ``_fwd_kernel`` / ``_bwd_kernel`` (``gsplat_tpu/ops/rasterize.py:
+437-690``) behind the custom VJP ``_raster_pallas`` (``:823-877``), or with
+``composite_chunks_jnp`` and autodiff.  Here the pairs arrive grouped by tile
+(``ops/binning.pack_sorted``) and each direction has one contract with two
+implementations:
 
-- :func:`composite_tiles_torch` — plain PyTorch, vectorised over tiles: it
-  steps over "the j-th chunk of every tile", with an exclusive cumprod of
-  (1 − α) inside each chunk and the transmittance carried between chunks;
-- :func:`composite_tiles` — the wrapper.  On a CPU tensor it runs the plain
-  version; on a CUDA tensor it launches ``csrc/rasterize_fwd.cu`` or raises.
+- forward: :func:`composite_tiles_torch`, plain PyTorch vectorised over
+  tiles (it steps over "the j-th chunk of every tile", with an exclusive
+  cumprod of (1 − α) inside each chunk and the transmittance carried between
+  chunks), and the kernel ``csrc/rasterize_fwd.cu``;
+- backward: :func:`composite_tiles_bwd_torch`, the JAX backward's own
+  formulas chunk by chunk (recompute α and T, d_alpha by the suffix-color
+  identity, the analytic 2-D gaussian derivatives), and the kernel
+  ``csrc/rasterize_bwd.cu``.
+
+:class:`CompositeTiles` ties them together as one ``torch.autograd.Function``
+and :func:`composite_tiles` calls it.  The tensors' device picks the route:
+CPU tensors run the plain versions, CUDA tensors launch the kernels or raise.
 
 Contract: ``geom (P, 8)`` f32, ``color (P, 3)`` f32, ``tile_start (T+1,)``
 int32 → ``out (T, 4, Px)`` f32, rows 0–2 composited color and row 3 the
-accumulated weight Σw, the TPU kernel's row layout.  Weight normalisation
-happens outside, in :func:`assemble_image`, as in JAX.
+accumulated weight Σw, the TPU kernel's row layout.  The backward takes the
+``(T, 4, Px)`` cotangent (row 3 is nonzero under weight normalisation) and
+returns per-pair ``grad_geom (P, 8)`` (column 7 zero) and ``grad_color
+(P, 3)``.  Weight normalisation happens outside, in :func:`assemble_image`,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -93,48 +106,81 @@ def _check_inputs(geom, color, tile_start, spec: RasterSpec):
                          f"{tuple(tile_start.shape)}")
 
 
+def _check_bwd_inputs(out, grad_out, spec: RasterSpec):
+    shape = (spec.n_tiles, 4, spec.px)
+    for name, x in (("out", out), ("grad_out", grad_out)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+
+
+def _tile_chunks(tile_start: torch.Tensor, spec: RasterSpec):
+    """Yield ``(act, pos, valid)`` for chunk j = 0, 1, … of every tile that
+    still has pairs there: tile ids (A,), pair rows (A, G) (0 where not
+    valid) and the (A, G) mask of real pairs."""
+    dev = tile_start.device
+    g_len = spec.chunk_size
+    start = tile_start[:-1].to(torch.int64)
+    count = tile_start[1:].to(torch.int64) - start
+    n_steps = math.ceil(int(count.max()) / g_len) if spec.n_tiles else 0
+    gidx = torch.arange(g_len, device=dev)
+    for j in range(n_steps):
+        act = torch.nonzero(count > j * g_len).squeeze(1)
+        pos = start[act, None] + j * g_len + gidx[None, :]          # (A, G)
+        valid = pos < (start[act] + count[act])[:, None]
+        yield act, torch.where(valid, pos, torch.zeros_like(pos)), valid
+
+
+def _chunk_alpha(g: torch.Tensor, pxc: torch.Tensor, pyc: torch.Tensor):
+    """(A, G, 8) pair geometry and (A, 1, Px) pixel centres → the (A, G, Px)
+    α and prob planes, and the terms the backward reuses
+    (``rasterize.py:228-248``, same float32 arithmetic)."""
+    gx, gy = g[..., 0:1], g[..., 1:2]
+    a, b, cc, d = g[..., 2:3], g[..., 3:4], g[..., 4:5], g[..., 5:6]
+    opa = g[..., 6:7]
+    dx = pxc - gx                                               # (A, G, Px)
+    dy = pyc - gy
+    det = a * d - b * cc
+    pn = 2.0 * det + DET_EPS
+    pm = -(d * dx * dx - (b + cc) * dx * dy + a * dy * dy)
+    prob = torch.exp(pm / pn)
+    alpha = torch.clamp_max(prob * opa, ALPHA_MAX)
+    return alpha, prob, (dx, dy, a, b, cc, d, opa, pm, pn)
+
+
+def _chunk_weights(alpha, valid, trans_act):
+    """Mask dead slots, then the exclusive transmittance T, the live mask
+    T ≥ 1e-4 and the weights w = α·T of one chunk step.  Transmittance is
+    monotone, so carrying the full product and masking is exactly the
+    per-pixel break of the CUDA kernels."""
+    alpha = torch.where(valid[..., None], alpha, torch.zeros_like(alpha))
+    one_m = 1.0 - alpha
+    incl = torch.cumprod(one_m, dim=1)
+    excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
+    t_before = excl * trans_act[:, None, :]
+    live = t_before >= STOP_THRESH
+    w = torch.where(live, alpha * t_before, torch.zeros_like(alpha))
+    return one_m, t_before, live, w
+
+
 def composite_tiles_torch(geom: torch.Tensor, color: torch.Tensor,
                           tile_start: torch.Tensor,
                           spec: RasterSpec) -> torch.Tensor:
     """Plain PyTorch compositor (the kernel's contract and yardstick)."""
     _check_inputs(geom, color, tile_start, spec)
     dev = geom.device
-    t_all, px, g_len = spec.n_tiles, spec.px, spec.chunk_size
+    t_all, px = spec.n_tiles, spec.px
     out = torch.zeros((t_all, 4, px), dtype=torch.float32, device=dev)
-    start = tile_start[:-1].to(torch.int64)
-    count = tile_start[1:].to(torch.int64) - start
-    n_steps = math.ceil(int(count.max()) / g_len) if t_all else 0
     pxc_all, pyc_all = _tile_pixel_coords(
         spec, torch.arange(t_all, device=dev))
     trans = torch.ones((t_all, px), dtype=torch.float32, device=dev)
-    gidx = torch.arange(g_len, device=dev)
-    for j in range(n_steps):
-        # tiles that still have pairs at chunk j
-        act = torch.nonzero(count > j * g_len).squeeze(1)
-        pos = start[act, None] + j * g_len + gidx[None, :]          # (A, G)
-        valid = pos < (start[act] + count[act])[:, None]
-        pos = torch.where(valid, pos, torch.zeros_like(pos))
+    for act, pos, valid in _tile_chunks(tile_start, spec):
         g = geom[pos]                                               # (A, G, 8)
         c = color[pos]                                              # (A, G, 3)
-        gx, gy = g[..., 0:1], g[..., 1:2]
-        a, b, cc, d = g[..., 2:3], g[..., 3:4], g[..., 4:5], g[..., 5:6]
-        opa = g[..., 6:7]
-        dx = pxc_all[act][:, None, :] - gx                      # (A, G, Px)
-        dy = pyc_all[act][:, None, :] - gy
-        det = a * d - b * cc
-        pn = 2.0 * det + DET_EPS
-        pm = -(d * dx * dx - (b + cc) * dx * dy + a * dy * dy)
-        prob = torch.exp(pm / pn)
-        alpha = torch.clamp_max(prob * opa, ALPHA_MAX)
-        alpha = torch.where(valid[..., None], alpha, torch.zeros_like(alpha))
-        one_m = 1.0 - alpha
-        incl = torch.cumprod(one_m, dim=1)
-        excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
-        t_before = excl * trans[act][:, None, :]
-        # transmittance is monotone, so carrying the full product and
-        # masking is exactly the per-pixel break of the CUDA kernel
-        live = t_before >= STOP_THRESH
-        w = torch.where(live, alpha * t_before, torch.zeros_like(alpha))
+        alpha, _, _ = _chunk_alpha(g, pxc_all[act][:, None, :],
+                                   pyc_all[act][:, None, :])
+        one_m, t_before, _, w = _chunk_weights(alpha, valid, trans[act])
         for ch in range(3):
             out[act, ch] += (w * c[..., ch:ch + 1]).sum(dim=1)
         out[act, 3] += w.sum(dim=1)
@@ -142,56 +188,126 @@ def composite_tiles_torch(geom: torch.Tensor, color: torch.Tensor,
     return out
 
 
-_LIB = None
+def composite_tiles_bwd_torch(geom: torch.Tensor, color: torch.Tensor,
+                              tile_start: torch.Tensor, out: torch.Tensor,
+                              grad_out: torch.Tensor, spec: RasterSpec):
+    """Plain PyTorch backward of the compositor (the backward kernel's
+    contract and yardstick) → per-pair ``(grad_geom (P, 8), grad_color
+    (P, 3))``.
 
+    The JAX backward's own formulas (``rasterize.py:585-644``), not autograd
+    through the forward: each chunk step recomputes α, T and ``live`` as
+    :func:`composite_tiles_torch` does, then
 
-def _fwd_library():
-    global _LIB
-    if _LIB is None:
-        lib = load_kernel_library("rasterize_fwd")
-        lib.rasterize_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ctypes.c_void_p]
-        lib.rasterize_fwd.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+      d_alpha = gc_dot·T − (gdotout − c_incl_dot) / (1 − α + 1e-7)
 
-
-def composite_tiles(geom: torch.Tensor, color: torch.Tensor,
-                    tile_start: torch.Tensor,
-                    spec: RasterSpec) -> torch.Tensor:
-    """Composite every tile: (T, 4, Px) rows [r, g, b, Σw].
-
-    CPU tensors run :func:`composite_tiles_torch`.  CUDA tensors launch the
-    Hopper kernel ``csrc/rasterize_fwd.cu`` (built at first use), which
-    replaces ``gsplat_tpu/ops/rasterize.py::_fwd_kernel``; a build or launch
-    failure raises.  Any other device raises.  ``composite_tiles.launches``
-    counts kernel launches.
+    where ``gc_dot = Σ_c g_c·C_c`` with Σw as a 4th color ≡ 1, ``gdotout =
+    Σ_c g_c·out_c`` and ``c_incl_dot`` the inclusive running sum of
+    ``w·gc_dot`` (carried between chunks).  d_alpha is zero where the pair
+    is dead or the 0.9999 clamp is active; then come d_opa, the analytic
+    ∂prob/∂(x, y, a, b, c, d) and ``grad_color = Σ_px g·w``.  Its working
+    memory is one chunk step's (A, G, Px) planes.  Column 7 is zero.
     """
-    devices = {geom.device, color.device, tile_start.device}
-    if devices == {torch.device("cpu")}:
-        return composite_tiles_torch(geom, color, tile_start, spec)
-    if len(devices) != 1 or geom.device.type != "cuda":
-        raise ValueError(
-            "composite_tiles runs on CPU tensors (plain version) or on CUDA "
-            f"tensors of one device (kernel); got {sorted(map(str, devices))}")
     _check_inputs(geom, color, tile_start, spec)
+    _check_bwd_inputs(out, grad_out, spec)
+    dev = geom.device
+    t_all, px = spec.n_tiles, spec.px
+    grad_geom = torch.zeros_like(geom)
+    grad_color = torch.zeros_like(color)
+    pxc_all, pyc_all = _tile_pixel_coords(
+        spec, torch.arange(t_all, device=dev))
+    trans = torch.ones((t_all, px), dtype=torch.float32, device=dev)
+    carry = torch.zeros((t_all, px), dtype=torch.float32, device=dev)
+    gdotout = (grad_out[:, 0] * out[:, 0] + grad_out[:, 1] * out[:, 1]
+               + grad_out[:, 2] * out[:, 2] + grad_out[:, 3] * out[:, 3])
+    for act, pos, valid in _tile_chunks(tile_start, spec):
+        g = geom[pos]                                               # (A, G, 8)
+        c = color[pos]                                              # (A, G, 3)
+        alpha, prob, aux = _chunk_alpha(g, pxc_all[act][:, None, :],
+                                        pyc_all[act][:, None, :])
+        dx, dy, a, b, cc, d, opa, pm, pn = aux
+        one_m, t_before, live, w = _chunk_weights(alpha, valid, trans[act])
+        gout = grad_out[act][:, :, None, :]                     # (A, 4, 1, Px)
+        gc_dot = (gout[:, 0] * c[..., 0:1] + gout[:, 1] * c[..., 1:2]
+                  + gout[:, 2] * c[..., 2:3] + gout[:, 3])      # (A, G, Px)
+        c_incl = carry[act][:, None, :] + torch.cumsum(w * gc_dot, dim=1)
+        d_alpha = gc_dot * t_before \
+            - (gdotout[act][:, None, :] - c_incl) / (one_m + ALPHA_EPS)
+        # dead pairs, and no gradient through the 0.9999 clamp
+        keep = live & valid[..., None] & (prob * opa < ALPHA_MAX)
+        d_alpha = torch.where(keep, d_alpha, torch.zeros_like(d_alpha))
+        d_prob = d_alpha * opa
+        inv_pn2 = 1.0 / (pn * pn)
+        dp = (prob / pn * (2.0 * d * dx - (b + cc) * dy),
+              prob / pn * (2.0 * a * dy - (b + cc) * dx),
+              prob * ((-dy * dy) * pn - (2.0 * d) * pm) * inv_pn2,
+              prob * ((dx * dy) * pn - (-2.0 * cc) * pm) * inv_pn2,
+              prob * ((dx * dy) * pn - (-2.0 * b) * pm) * inv_pn2,
+              prob * ((-dx * dx) * pn - (2.0 * a) * pm) * inv_pn2)
+        rows = [(d_prob * x).sum(dim=2) for x in dp]
+        rows.append((d_alpha * prob).sum(dim=2))                # d_opa
+        rows += [(gout[:, ch] * w).sum(dim=2) for ch in range(3)]
+        rows = torch.stack(rows, dim=2)                         # (A, G, 10)
+        rows_ok, pos_ok = rows[valid], pos[valid]
+        grad_geom[pos_ok, :7] = rows_ok[:, :7]
+        grad_color[pos_ok] = rows_ok[:, 7:]
+        carry[act] = c_incl[:, -1]
+        trans[act] = t_before[:, -1] * one_m[:, -1]
+    return grad_geom, grad_color
+
+
+def _check_device(name, tensors):
+    """True for CPU tensors (plain version); False for CUDA tensors of one
+    device (kernel); raises for anything else."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(
+            f"{name} runs on CPU tensors (plain version) or on CUDA tensors "
+            f"of one device (kernel); got {sorted(map(str, devices))}")
+    return False
+
+
+def _check_kernel_inputs(name, spec: RasterSpec, *tensors):
     if spec.px > 1024:
         raise ValueError(f"tile of {spec.px} pixels exceeds the kernel's "
                          "one-thread-per-pixel limit of 1024")
-    if not (geom.is_contiguous() and color.is_contiguous()
-            and tile_start.is_contiguous()):
-        raise ValueError("composite_tiles needs contiguous tensors")
-    if geom.data_ptr() % 16:
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    if tensors[0].data_ptr() % 16:
         raise ValueError("geom must be 16-byte aligned (float4 loads)")
+
+
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C signatures of csrc/<name>.cu: pointers, grid ints, focals, stream
+_SIGNATURES = {
+    "rasterize_fwd": [_PTR] * 4 + [_INT] * 6 + [_FLOAT] * 2 + [_PTR],
+    "rasterize_bwd": [_PTR] * 7 + [_INT] * 6 + [_FLOAT] * 2 + [_PTR],
+}
+
+
+def _kernel(name: str):
+    """The C entry point ``name`` of ``csrc/<name>.cu``, built and loaded
+    at first use (``ops/cuda_build``)."""
+    fn = getattr(load_kernel_library(name), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _composite_fwd(geom, color, tile_start, spec: RasterSpec):
+    """The forward wrapper: plain version on the CPU, kernel on CUDA."""
+    if _check_device("composite_tiles", (geom, color, tile_start)):
+        return composite_tiles_torch(geom, color, tile_start, spec)
+    _check_inputs(geom, color, tile_start, spec)
+    _check_kernel_inputs("composite_tiles", spec, geom, color, tile_start)
     out = torch.empty((spec.n_tiles, 4, spec.px), dtype=torch.float32,
                       device=geom.device)
-    lib = _fwd_library()
+    launch = _kernel("rasterize_fwd")
     with torch.cuda.device(geom.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rasterize_fwd(
+        rc = launch(
             geom.data_ptr(), color.data_ptr(), tile_start.data_ptr(),
             out.data_ptr(), spec.n_tiles, spec.n_tile_x, spec.tile_h,
             spec.tile_w, spec.padded_w, spec.padded_h, spec.focal_x,
@@ -200,6 +316,88 @@ def composite_tiles(geom: torch.Tensor, color: torch.Tensor,
         raise RuntimeError(f"rasterize_fwd launch failed: CUDA error {rc}")
     composite_tiles.launches += 1
     return out
+
+
+def composite_tiles_bwd(geom: torch.Tensor, color: torch.Tensor,
+                        tile_start: torch.Tensor, out: torch.Tensor,
+                        grad_out: torch.Tensor, spec: RasterSpec):
+    """Backward of :func:`composite_tiles` → per-pair ``(grad_geom (P, 8),
+    grad_color (P, 3))``, from the forward's ``out`` and its cotangent
+    ``grad_out``, both ``(T, 4, Px)``.
+
+    CPU tensors run :func:`composite_tiles_bwd_torch`.  CUDA tensors launch
+    the Hopper kernel ``csrc/rasterize_bwd.cu`` (built at first use), which
+    replaces ``gsplat_tpu/ops/rasterize.py::_bwd_kernel``; a build or launch
+    failure raises.  The outputs start as zeros, so the rows of pairs the
+    kernel never reaches (every pixel of their tile stopped before them)
+    read zero.  ``composite_tiles_bwd.launches`` counts kernel launches.
+    """
+    if _check_device("composite_tiles_bwd",
+                     (geom, color, tile_start, out, grad_out)):
+        return composite_tiles_bwd_torch(geom, color, tile_start, out,
+                                         grad_out, spec)
+    _check_inputs(geom, color, tile_start, spec)
+    _check_bwd_inputs(out, grad_out, spec)
+    _check_kernel_inputs("composite_tiles_bwd", spec, geom, color,
+                         tile_start, out, grad_out)
+    if spec.px % 32:
+        raise ValueError(f"tile of {spec.px} pixels is not a whole number "
+                         "of 32-thread warps")
+    grad_geom = torch.zeros_like(geom)
+    grad_color = torch.zeros_like(color)
+    launch = _kernel("rasterize_bwd")
+    with torch.cuda.device(geom.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(
+            geom.data_ptr(), color.data_ptr(), tile_start.data_ptr(),
+            out.data_ptr(), grad_out.data_ptr(), grad_geom.data_ptr(),
+            grad_color.data_ptr(), spec.n_tiles, spec.n_tile_x, spec.tile_h,
+            spec.tile_w, spec.padded_w, spec.padded_h, spec.focal_x,
+            spec.focal_y, stream)
+    if rc != 0:
+        raise RuntimeError(f"rasterize_bwd launch failed: CUDA error {rc}")
+    composite_tiles_bwd.launches += 1
+    return grad_geom, grad_color
+
+
+composite_tiles_bwd.launches = 0
+
+
+class CompositeTiles(torch.autograd.Function):
+    """The compositor with its backward, the counterpart of the custom VJP
+    ``_raster_pallas`` (``rasterize.py:823-877``).  The forward saves the
+    pairs and its output; the backward maps the ``(T, 4, Px)`` cotangent to
+    per-pair gradients with :func:`composite_tiles_bwd`.  ``tile_start``
+    and ``spec`` get none."""
+
+    @staticmethod
+    def forward(ctx, geom, color, tile_start, spec):
+        out = _composite_fwd(geom, color, tile_start, spec)
+        ctx.spec = spec
+        ctx.save_for_backward(geom, color, tile_start, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        geom, color, tile_start, out = ctx.saved_tensors
+        grad_geom, grad_color = composite_tiles_bwd(
+            geom, color, tile_start, out, grad_out.contiguous(), ctx.spec)
+        return grad_geom, grad_color, None, None
+
+
+def composite_tiles(geom: torch.Tensor, color: torch.Tensor,
+                    tile_start: torch.Tensor,
+                    spec: RasterSpec) -> torch.Tensor:
+    """Composite every tile: (T, 4, Px) rows [r, g, b, Σw], differentiable
+    in ``geom`` and ``color`` through :class:`CompositeTiles`.
+
+    CPU tensors run :func:`composite_tiles_torch`.  CUDA tensors launch the
+    Hopper kernel ``csrc/rasterize_fwd.cu`` (built at first use), which
+    replaces ``gsplat_tpu/ops/rasterize.py::_fwd_kernel``; a build or launch
+    failure raises.  Any other device raises.  ``composite_tiles.launches``
+    counts kernel launches.
+    """
+    return CompositeTiles.apply(geom, color, tile_start, spec)
 
 
 composite_tiles.launches = 0
@@ -220,6 +418,7 @@ def assemble_image(tiles_color: torch.Tensor, tiles_accw: torch.Tensor,
 
 
 def rasterize(packed: PackedPairs, spec: RasterSpec) -> torch.Tensor:
-    """Packed pairs → (3, padded_h, padded_w) image."""
+    """Packed pairs → (3, padded_h, padded_w) image, differentiable in the
+    pairs' geometry and color."""
     out = composite_tiles(packed.geom, packed.color, packed.tile_start, spec)
     return assemble_image(out[:, :3], out[:, 3], spec)

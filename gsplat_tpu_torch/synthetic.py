@@ -107,3 +107,48 @@ def synthetic_cameras(m: int, width: int, height: int, focal: float,
         "images": images,
         "grid": grid,
     }
+
+
+def image_space_pairs(seed: int, n: int = 420, n_tile_x: int = 4,
+                      n_tile_y: int = 3, focal: float = 40.0, wide=True,
+                      crowd: int | None = None):
+    """Image-space gaussians on a small grid of 16-px tiles, for checking
+    the compositor (numpy arrays, the inputs of ``pack_sorted``).
+
+    The gaussians lie in the left three tile columns only (the right column
+    stays empty); ``crowd`` of them (default n // 2) crowd into tile (0, 0),
+    which then holds more pairs than the crowd (> 128 by default; 372 with
+    n=640, crowd=320, two 256-pair kernel batches); a few wide ones cover
+    more than K tiles, some are invisible and one has a degenerate
+    (det <= 0) covariance.  Returns
+    ``geom (n, 8)``, ``color (n, 3)``, ``depth (n,)``, ``visible (n,)`` and
+    the grid geometry as ``BinningSpec`` keywords.
+    """
+    rng = np.random.default_rng(seed)
+    crowd = n // 2 if crowd is None else crowd
+    tile = 16
+    w, h = n_tile_x * tile, n_tile_y * tile
+    px = np.where(np.arange(n) < crowd, rng.uniform(3, 13, n),
+                  rng.uniform(3, 35, n))
+    py = np.where(np.arange(n) < crowd, rng.uniform(3, 13, n),
+                  rng.uniform(3, h - 3, n))
+    sig = rng.uniform(0.8, 4.0, (n, 2))
+    if wide:
+        sig[:8] = [14.0, 9.0]                   # bbox > K tiles
+    theta = rng.uniform(0, np.pi, n)
+    ct, st = np.cos(theta), np.sin(theta)
+    rot = np.stack([np.stack([ct, -st], -1), np.stack([st, ct], -1)], -2)
+    cov = np.einsum("nij,nj,nkj->nik", rot, (sig / focal) ** 2, rot)
+    cov = cov.reshape(n, 4)
+    cov[9] = [1e-3, 2e-3, 2e-3, 1e-3]           # det < 0
+    mean2d = np.stack([(px - w / 2) / focal, (py - h / 2) / focal], 1)
+    geom = np.concatenate([mean2d, cov, rng.uniform(0.05, 0.99, (n, 1)),
+                           np.zeros((n, 1))], 1).astype(np.float32)
+    color = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    depth = rng.uniform(1.0, 10.0, n).astype(np.float32)
+    depth[20:30] = depth[10]                    # ties keep table order
+    visible = rng.uniform(size=n) > 0.1
+    geo = dict(n_tile_x=n_tile_x, n_tile_y=n_tile_y,
+               tile_len_x=tile / focal, tile_len_y=tile / focal,
+               leftmost=-w / 2 / focal, topmost=-h / 2 / focal)
+    return geom, color, depth, visible, geo

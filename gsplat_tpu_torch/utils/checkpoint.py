@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gsplat_tpu_torch.models.gaussians import GaussianTable, table_from_numpy
+from gsplat_tpu_torch.train import AdamState, TrainState
 from gsplat_tpu_torch.utils.so3 import inverse_sigmoid
 
 KEYS = ("pos", "opa", "rgb", "quat", "scale")
@@ -80,3 +81,25 @@ def table_from_jax_arrays(d: dict, device) -> GaussianTable:
     arrays["live"] = np.asarray(d["live"], bool)
     n_live = int(d["n_live"]) if "n_live" in d else int(arrays["live"].sum())
     return table_from_numpy(arrays, n_live, device)
+
+
+def train_state_from_jax_arrays(st, device) -> TrainState:
+    """The JAX package's ``TrainState`` with numpy leaves (``params``,
+    ``live``, ``opt.mu``/``opt.nu``/``opt.t``, ``accum_grad``,
+    ``grad_counter``; e.g. ``jax.tree.map(np.asarray, state)``) → the
+    port's ``TrainState`` on ``device``, values unchanged, so both packages
+    can step from one optimizer state."""
+    def f32(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+    def group(d):
+        return {k: f32(v) for k, v in d.items()}
+
+    return TrainState(
+        params=group(st.params),
+        live=torch.from_numpy(np.array(st.live, bool)).to(device),
+        opt=AdamState(mu=group(st.opt.mu), nu=group(st.opt.nu),
+                      t=torch.tensor(int(st.opt.t), dtype=torch.int32,
+                                     device=device)),
+        accum_grad=f32(st.accum_grad),
+        grad_counter=f32(st.grad_counter))
