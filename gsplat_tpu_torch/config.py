@@ -7,7 +7,9 @@ static-shape budgets (``visible_rows``, ``col_caps``, ``pad_rows``,
 ``fused_pack``, ``bf16_pack``, ``quant_depth``, ``cull_sublsb``,
 ``gather_*``, ``post_align``, ``px_split``, ``packed_bf16``, ``use_pallas``).
 The port works on dynamic shapes and picks its compositor from the tensor's
-device, so none of those would do anything here and they are left out.
+device, so none of those would do anything here and they are left out; the
+render preset that ``packed_bf16`` switched on is chosen by
+``fast_drawing`` where JAX's viewer chose it.
 
 Every field kept has the same name and default as in the JAX config; a test
 (``tests/test_torch_geometry.py``) holds the two in step.
@@ -31,8 +33,9 @@ class SplatConfig:
     tile_culling_dist_thresh: float = 0.5
     tile_culling_prob_thresh: float = 0.05
     scale_activation: str = "abs"           # abs | exp
-    # selects the half-precision render preset, which the port does not
-    # have yet: render surfaces raise rather than render f32 in its place
+    # render-only surfaces (viewer.render_offscreen) draw RGB models through
+    # the bf16 render preset (bf16 pair values, tile-relative positions, f32
+    # math); SH models keep the f32 route, as in JAX's Fast Mode
     fast_drawing: bool = True
     render_downsample: int = 4
 

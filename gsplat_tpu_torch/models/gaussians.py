@@ -2,8 +2,9 @@
 
 The layout of ``gsplat_tpu/models/gaussians.py``: five parameter tensors
 padded to a ``capacity`` with a ``live`` mask, so a table built from the
-same numpy arrays holds the same values in both packages.  RGB only for
-now; adaptive density control arrives with the training slice.
+same numpy arrays holds the same values in both packages.  ``rgb`` holds 3
+color logits, or 27 SH coefficients when the model uses SH color.
+Adaptive density control is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import math
 import numpy as np
 import torch
 
+from gsplat_tpu_torch.ops.sh import initialize_sh
 from gsplat_tpu_torch.utils.so3 import inverse_sigmoid
 
 PARAM_KEYS = ("pos", "rgb", "opa", "quat", "scale")
@@ -22,7 +24,7 @@ PARAM_KEYS = ("pos", "rgb", "opa", "quat", "scale")
 @dataclasses.dataclass
 class GaussianTable:
     pos: torch.Tensor     # (N, 3)
-    rgb: torch.Tensor     # (N, 3) color logits
+    rgb: torch.Tensor     # (N, 3) color logits or (N, 27) SH coefficients
     opa: torch.Tensor     # (N,)  logits
     quat: torch.Tensor    # (N, 4) wxyz, unnormalized
     scale: torch.Tensor   # (N, 3) raw (abs-activated or log)
@@ -72,14 +74,12 @@ def init_from_points(
     """COLMAP point cloud → initial gaussian table.
 
     Mirrors reference scene init (``splatter.py:373-406``): color logits via
-    inverse sigmoid of rgb/255, opacity logits at a constant, identity
-    quaternions, isotropic scales set to the mean distance of the 3 nearest
-    neighbours times ``scale_init_value`` (log-space for the exp
-    activation), via a KD-tree.
+    inverse sigmoid of rgb/255 (with ``use_sh_coeff``, the DC terms of 27
+    SH coefficients, ``ops/sh.initialize_sh``), opacity logits at a
+    constant, identity quaternions, isotropic scales set to the mean
+    distance of the 3 nearest neighbours times ``scale_init_value``
+    (log-space for the exp activation), via a KD-tree.
     """
-    if use_sh_coeff:
-        raise NotImplementedError(
-            "SH color is not ported yet (ROADMAP queue 1 item 2)")
     from scipy.spatial import cKDTree
 
     n = points.shape[0]
@@ -98,13 +98,16 @@ def init_from_points(
         out[:n] = x
         return out
 
+    rgb = rgb_logit.astype(np.float32)
+    if use_sh_coeff:
+        rgb = initialize_sh(torch.from_numpy(rgb)).numpy()
     quat = np.zeros((cap, 4), np.float32)
     quat[:, 0] = 1.0
     live = np.zeros((cap,), bool)
     live[:n] = True
     arrays = {
         "pos": pad(points.astype(np.float32)),
-        "rgb": pad(rgb_logit.astype(np.float32)),
+        "rgb": pad(rgb),
         "opa": pad(np.full((n,), inverse_sigmoid(opa_init_value), np.float32)),
         "quat": quat,
         "scale": pad(np.repeat(mean3[:, None], 3, axis=1).astype(np.float32)),

@@ -7,7 +7,10 @@ index.  The compositor follows the tensors' device: the CUDA kernels for
 CUDA tensors, their plain PyTorch versions for CPU tensors
 (``ops/rasterize.composite_tiles``).  ``render_padded`` and
 ``render_cropped`` are differentiable in the table's parameters (the train
-step's forward); ``Splatter.render`` runs without gradients.
+step's forward), except through the render-only bf16 preset (``preset``);
+``Splatter.render`` runs without gradients.  With ``cfg.use_sh_coeff`` the
+table's ``rgb`` holds 27 SH coefficients, evaluated per pixel from the
+camera's ``sh_vecs``.
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ import torch
 from gsplat_tpu_torch.config import SplatConfig
 from gsplat_tpu_torch.models.camera import TileGrid, ray_info
 from gsplat_tpu_torch.models.gaussians import GaussianTable, init_from_points
-from gsplat_tpu_torch.ops.binning import BinningSpec, pack_sorted
+from gsplat_tpu_torch.ops.binning import BinningSpec, pack_preset, pack_sorted
 from gsplat_tpu_torch.ops.projection import project_gaussians
-from gsplat_tpu_torch.ops.rasterize import RasterSpec, rasterize
+from gsplat_tpu_torch.ops.rasterize import RasterSpec, rasterize, \
+    rasterize_preset
+from gsplat_tpu_torch.ops.sh import SH_DIM
 from gsplat_tpu_torch.utils.colmap import camera_focals, read_cameras_binary, \
     read_images_binary, read_points3d_arrays
 from gsplat_tpu_torch.utils.so3 import quat_to_rotmat_np
@@ -111,7 +116,8 @@ def load_scene_camera_groups(colmap_path, image_path, render_downsample,
 
 
 def make_specs(grid: TileGrid, cfg: SplatConfig):
-    """Binning + raster specs of one camera grid."""
+    """Binning + raster specs of one camera grid; the raster spec's
+    ``color_dim`` is 27 with ``cfg.use_sh_coeff``, else 3."""
     method = cfg.tile_culling_method
     if method == "dist":
         thresh = (grid.tile_geo_length_x / cfg.tile_culling_dist_thresh) ** 2
@@ -128,23 +134,20 @@ def make_specs(grid: TileGrid, cfg: SplatConfig):
         tile_h=grid.tile_h, tile_w=grid.tile_w,
         focal_x=grid.focal_x, focal_y=grid.focal_y,
         chunk_size=cfg.chunk_size,
-        weight_normalize=cfg.render_weight_normalize)
+        weight_normalize=cfg.render_weight_normalize,
+        color_dim=3 * SH_DIM if cfg.use_sh_coeff else 3)
     return bspec, rspec
 
 
-def _check_rgb(cfg: SplatConfig):
-    if cfg.use_sh_coeff:
-        raise NotImplementedError(
-            "SH color is not ported yet (ROADMAP queue 1 item 2)")
-
-
 def render_padded(params: dict, live, w2c_rot, w2c_tran, grid: TileGrid,
-                  cfg: SplatConfig, bspec: BinningSpec, rspec: RasterSpec):
+                  cfg: SplatConfig, bspec: BinningSpec, rspec: RasterSpec,
+                  sh_vecs=None, preset: bool = False):
     """Table params → padded (3, Hp, Wp) image and diagnostics.
 
+    ``sh_vecs`` (4, 3) is the camera's RayInfo, needed with SH color.
+    ``preset`` renders through the bf16 render preset (RGB, render-only).
     ``aux`` carries the visibility mask and the binning counters.
     """
-    _check_rgb(cfg)
     proj = project_gaussians(
         params["pos"], params["quat"], params["scale"],
         w2c_rot, w2c_tran,
@@ -155,11 +158,15 @@ def render_padded(params: dict, live, w2c_rot, w2c_tran, grid: TileGrid,
     )
     visible = proj.visible & live
     opa = torch.sigmoid(params["opa"])
-    color = torch.sigmoid(params["rgb"])
+    color = params["rgb"] if cfg.use_sh_coeff \
+        else torch.sigmoid(params["rgb"])
     geom_n = torch.cat([proj.mean2d, proj.cov2d, opa[:, None],
                         torch.zeros_like(opa)[:, None]], dim=1)
     packed = pack_sorted(bspec, geom_n, color, proj.depth, visible)
-    img = rasterize(packed, rspec)
+    if preset:
+        img = rasterize_preset(pack_preset(bspec, packed), rspec)
+    else:
+        img = rasterize(packed, rspec, sh_vecs)
     aux = {
         "visible": visible,
         "n_pairs": packed.n_pairs,
@@ -170,10 +177,11 @@ def render_padded(params: dict, live, w2c_rot, w2c_tran, grid: TileGrid,
     return img, aux
 
 
-def render_cropped(params, live, w2c_rot, w2c_tran, grid, cfg, bspec, rspec):
+def render_cropped(params, live, w2c_rot, w2c_tran, grid, cfg, bspec, rspec,
+                   sh_vecs=None, preset: bool = False):
     """Padded render, clamped to [0, 1] and centre-cropped → (3, H, W)."""
     img, aux = render_padded(params, live, w2c_rot, w2c_tran, grid, cfg,
-                             bspec, rspec)
+                             bspec, rspec, sh_vecs, preset)
     img = torch.clamp(img, 0.0, 1.0)
     t, l = grid.crop_top, grid.crop_left
     return img[:, t:t + grid.height, l:l + grid.width], aux
@@ -184,7 +192,6 @@ class Splatter:
 
     def __init__(self, colmap_path, image_path, cfg: SplatConfig,
                  load_ckpt=None, test=False, device="cpu"):
-        _check_rgb(cfg)
         if load_ckpt is not None:
             from gsplat_tpu_torch.utils.checkpoint import load_checkpoint
             table = load_checkpoint(load_ckpt,
@@ -195,6 +202,7 @@ class Splatter:
                 os.path.join(colmap_path, "points3D.bin"))
             table = init_from_points(
                 points, rgbs,
+                use_sh_coeff=cfg.use_sh_coeff,
                 opa_init_value=cfg.opa_init_value,
                 scale_init_value=cfg.scale_init_value,
                 scale_activation=cfg.scale_activation,
@@ -212,7 +220,6 @@ class Splatter:
                    camera_groups: list) -> "Splatter":
         """A Splatter over an in-memory table and cameras (synthetic
         scenes)."""
-        _check_rgb(cfg)
         self = cls.__new__(cls)
         self._setup(cfg, table, camera_groups)
         return self
@@ -238,7 +245,7 @@ class Splatter:
         img, _ = render_cropped(
             self.table.params(), self.table.live,
             self.cameras.w2c_rot[camera_id], self.cameras.w2c_tran[camera_id],
-            grid, self.cfg, bspec, rspec)
+            grid, self.cfg, bspec, rspec, self.cameras.sh_vecs[camera_id])
         return img
 
     def ground_truth(self, camera_id: int) -> torch.Tensor:

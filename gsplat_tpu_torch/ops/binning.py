@@ -31,6 +31,12 @@ which is deterministic (it is not on PyTorch's list of nondeterministic
 operations).  The ordering and the tile rectangles read detached copies,
 so depth gets no gradient (``:1340-1342``, ``:1534``); column 7 gets zero
 because the compositor never reads it.
+
+The render preset (JAX's ``packed_bf16``, the viewer's Fast Mode) takes the
+same pairs in the same order and rounds each pair's values to bf16, with
+the position made relative to its tile's centre (:func:`pack_preset`).  The
+TPU's i32 pairing of two bf16 values, its pad-free ``post_align`` sort and
+the in-kernel realign are sort-cost mechanics the port leaves out.
 """
 
 from __future__ import annotations
@@ -70,6 +76,15 @@ class PackedPairs(NamedTuple):
     n_clipped: torch.Tensor   # ()  pairs dropped by the per-gaussian K cap
     n_visible: torch.Tensor   # ()  frustum-visible gaussians
     n_max_tiles: torch.Tensor  # () max tiles covered by any gaussian
+
+
+class PresetPairs(NamedTuple):
+    """The render preset's pairs: :class:`PackedPairs` rows in bf16."""
+
+    geom: torch.Tensor        # (P, 8) bf16 [x - tcx, y - tcy, a, b, c, d,
+                              #              opa, 0]; one 16-byte row
+    color: torch.Tensor       # (P, 4) bf16 [r, g, b, 0]; one 8-byte row
+    tile_start: torch.Tensor  # (T+1,) int32, as in PackedPairs
 
 
 def _tile_bbox_rows(spec: BinningSpec, cx, cy, a, b, c, d, visible):
@@ -174,3 +189,34 @@ def pack_sorted(spec: BinningSpec, geom_n: torch.Tensor,
         n_visible=visible.sum(),
         n_max_tiles=n_max_tiles,
     )
+
+
+def pack_preset(spec: BinningSpec, packed: PackedPairs) -> PresetPairs:
+    """The render preset's pairs, from :func:`pack_sorted`'s (same pairs,
+    same order): x and y minus the centre of the pair's tile, then a, b, c,
+    d, opa and r, g, b, rounded to bf16 (round to nearest even, as
+    ``_pack2_bf16``, ``gsplat_tpu/ops/binning.py:678-689``).
+
+    The tile centre is the packer's (``:1011-1014``): ``leftmost +
+    (tile_x + 0.5)·tile_len_x`` in f32, before the rounding.  RGB only.
+    """
+    g = packed.geom
+    p, dev = g.shape[0], g.device
+    if packed.color.shape[1] != 3:
+        raise ValueError("the render preset is RGB only (JAX's Fast Mode "
+                         "keeps SH on the f32 route)")
+    counts = (packed.tile_start[1:] - packed.tile_start[:-1]).to(torch.int64)
+    tile = torch.repeat_interleave(torch.arange(spec.n_tiles, device=dev),
+                                   counts, output_size=p)
+    tx = (tile % spec.n_tile_x).to(torch.float32)
+    ty = torch.div(tile, spec.n_tile_x, rounding_mode="floor").to(
+        torch.float32)
+    tcx = spec.leftmost + (tx + 0.5) * spec.tile_len_x
+    tcy = spec.topmost + (ty + 0.5) * spec.tile_len_y
+    zero = torch.zeros_like(g[:, :1])
+    geom = torch.cat([(g[:, 0] - tcx)[:, None], (g[:, 1] - tcy)[:, None],
+                      g[:, 2:7], zero], dim=1)
+    color = torch.cat([packed.color, zero], dim=1)
+    return PresetPairs(geom=geom.to(torch.bfloat16),
+                       color=color.to(torch.bfloat16),
+                       tile_start=packed.tile_start)

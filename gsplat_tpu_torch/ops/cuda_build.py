@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``gsplat_tpu_torch/csrc``.
 
-Each kernel source is a plain ``extern "C"`` translation unit.  At first use
-it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
-under ``gsplat_tpu_torch/_build/`` (listed in ``.gitignore``), keyed by a
-hash of the source and the flags, and loaded with ``ctypes``.  A second
+Each kernel source is a plain ``extern "C"`` translation unit (with the
+shared ``*.cuh`` headers beside it).  At first use it is compiled with
+``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``gsplat_tpu_torch/_build/`` (listed in ``.gitignore``), keyed by a hash of
+the source, the headers and the flags, and loaded with ``ctypes``.  A second
 process finds the library already built; a changed source builds anew.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
@@ -53,7 +54,8 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = lib_path.with_suffix(".log")

@@ -13,6 +13,7 @@ import torch
 
 from gsplat_tpu_torch.models.camera import TileGrid, ray_info
 from gsplat_tpu_torch.models.gaussians import GaussianTable, table_from_numpy
+from gsplat_tpu_torch.ops.sh import C0, SH_DIM, initialize_sh
 from gsplat_tpu_torch.utils.so3 import inverse_sigmoid, quat_to_rotmat_np
 
 
@@ -20,16 +21,15 @@ def synthetic_table(n: int, capacity_round: int = 65536, use_sh=False,
                     seed: int = 0, depth_range=(2.0, 8.0),
                     frustum=(0.65, 0.45), scale_px=2.5, focal=1000.0,
                     opa=0.5, headroom: float = 1.15, ball=None,
-                    device="cpu") -> GaussianTable:
+                    sh_ampl: float = 0.0, device="cpu") -> GaussianTable:
     """Random gaussian table.
 
     Default layout fills the frustum of a camera at the origin looking +z.
     ``ball=(cx, cy, cz, r, view_dist)`` instead fills a sphere (orbit-camera
-    scenes); ``view_dist`` sets the on-screen splat size.
+    scenes); ``view_dist`` sets the on-screen splat size.  ``use_sh`` gives
+    27 SH coefficients with the colors as DC terms; ``sh_ampl`` > 0 adds
+    random degree-1/2 coefficients (view-dependent color).
     """
-    if use_sh:
-        raise NotImplementedError(
-            "SH color is not ported yet (ROADMAP queue 1 item 2)")
     rng = np.random.default_rng(seed)
     if ball is not None:
         cx, cy, cz, r, view_dist = ball
@@ -50,6 +50,12 @@ def synthetic_table(n: int, capacity_round: int = 65536, use_sh=False,
     quat = rng.normal(size=(n, 4)).astype(np.float32)
     rgb01 = rng.uniform(0.05, 0.95, (n, 3))
     rgb = (-np.log(1.0 / rgb01 - 1.0)).astype(np.float32)
+    if use_sh:
+        rgb = initialize_sh(torch.from_numpy(rgb)).numpy()
+        if sh_ampl:
+            hi = rng.normal(0.0, sh_ampl, (n, 3, 9)).astype(np.float32)
+            hi[:, :, 0] = 0.0
+            rgb = rgb + hi.reshape(n, 27)
 
     cap = max(int(np.ceil(n * headroom / capacity_round)) * capacity_round,
               capacity_round)
@@ -152,3 +158,22 @@ def image_space_pairs(seed: int, n: int = 420, n_tile_x: int = 4,
                tile_len_x=tile / focal, tile_len_y=tile / focal,
                leftmost=-w / 2 / focal, topmost=-h / 2 / focal)
     return geom, color, depth, visible, geo
+
+
+def image_space_sh(seed: int, color: np.ndarray, geo: dict,
+                   focal: float = 40.0, ampl: float = 0.35):
+    """SH color for the gaussians of :func:`image_space_pairs`: (n, 27)
+    coefficients whose DC terms give their ``color`` and whose higher bands
+    are random (σ = ``ampl``), and the ``sh_vecs`` (4, 3) of a camera at
+    the origin looking +z over the same grid."""
+    rng = np.random.default_rng(seed + 1000)
+    n = color.shape[0]
+    c = np.clip(color, 0.02, 0.98)
+    coef = rng.normal(0.0, ampl, (n, 3, SH_DIM))
+    coef[:, :, 0] = np.log(c / (1.0 - c)) / C0
+    tile = 16
+    shv = np.stack(list(ray_info(
+        np.eye(3), np.zeros(3), geo["n_tile_y"] * tile,
+        geo["n_tile_x"] * tile, focal, focal).values()))
+    return (coef.reshape(n, 3 * SH_DIM).astype(np.float32),
+            shv.astype(np.float32))

@@ -11,8 +11,10 @@ The counterparts of ``gsplat_tpu/train.py:38-155`` and ``:293-310``:
 - ``lrs_at``: the Trainer's per-group learning rates at an iteration;
 - ``make_eval_step``: one camera rendered, then PSNR and SSIM.
 
-Gradients flow through the hand-written backward rasterizer on CUDA tensors
-and through its plain twin on CPU tensors (``ops/rasterize.CompositeTiles``).
+Gradients flow through the hand-written backward rasterizers (RGB or SH) on
+CUDA tensors and through their plain twin on CPU tensors
+(``ops/rasterize.CompositeTiles``).  With SH color the ``rgb`` group is the
+(N, 27) coefficient table, and each step reads its camera's ``sh_vecs``.
 The K-step ``window_scan`` (TPU dispatch batching), densification and the
 Trainer with its CLI are not ported yet.
 """
@@ -93,13 +95,14 @@ def lrs_at(tcfg: TrainConfig, i_iter: int, device="cpu") -> torch.Tensor:
 
 
 def make_loss_fn(grid, cfg, tcfg: TrainConfig, bspec, rspec):
-    """Loss closure: (params, live, rot, tran, gt) → (loss, (metrics, aux,
-    img)).  The metrics are detached."""
+    """Loss closure: (params, live, rot, tran, gt, shv) → (loss, (metrics,
+    aux, img)); ``shv`` is the camera's ``sh_vecs`` (4, 3), needed with SH
+    color.  The metrics are detached."""
     ssim_w = tcfg.ssim_weight
 
-    def loss_fn(params, live, rot, tran, gt):
+    def loss_fn(params, live, rot, tran, gt, shv=None):
         img, aux = render_cropped(params, live, rot, tran, grid, cfg,
-                                  bspec, rspec)
+                                  bspec, rspec, shv)
         l1 = l1_loss(img, gt)
         if ssim_w > 0:
             s = ssim(img, gt, data_range=1.0, layout="chw")
@@ -149,7 +152,7 @@ def make_train_step(splat: Splatter, tcfg: TrainConfig, group: int = 0):
                   for k in GROUP_ORDER}
         with torch.enable_grad():
             loss, (metrics, aux, _img) = loss_fn(params, st.live, rot, tran,
-                                                 gt)
+                                                 gt, cams.sh_vecs[cam_idx])
             grads = dict(zip(GROUP_ORDER, torch.autograd.grad(
                 loss, [params[k] for k in GROUP_ORDER], allow_unused=True,
                 materialize_grads=True)))
@@ -188,7 +191,7 @@ def make_eval_step(splat: Splatter, group: int = 0):
         tran = cams.w2c_tran[cam_idx]
         gt = cams.images[cam_idx].to(torch.float32) / 255.0
         img, _ = render_cropped(params, live, rot, tran, grid, cfg,
-                                bspec, rspec)
+                                bspec, rspec, cams.sh_vecs[cam_idx])
         return img, psnr(img, gt, data_range=1.0), \
             ssim(img, gt, data_range=1.0, layout="chw")
 

@@ -136,8 +136,13 @@ def test_init_from_points_matches(act):
     for k in TABLE_KEYS:
         np.testing.assert_array_equal(getattr(t, k).numpy(),
                                       np.asarray(getattr(j, k)), err_msg=k)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        t_init(pts, rgb, use_sh_coeff=True)
+    # SH: the color logits become the DC terms of 27 coefficients
+    t = t_init(pts, rgb, use_sh_coeff=True, **kw)
+    j = j_init(pts, rgb, use_sh_coeff=True, **kw)
+    assert t.rgb.shape == (t.capacity, 27)
+    for k in TABLE_KEYS:
+        np.testing.assert_array_equal(getattr(t, k).numpy(),
+                                      np.asarray(getattr(j, k)), err_msg=k)
 
 
 @pytest.mark.parametrize("ext", [".npz", ".pth"])

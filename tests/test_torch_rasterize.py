@@ -27,7 +27,7 @@ from gsplat_tpu_torch.ops import cuda_build
 from gsplat_tpu_torch.ops.binning import BinningSpec as TSpec
 from gsplat_tpu_torch.ops.binning import pack_sorted as t_pack
 from gsplat_tpu_torch.ops.rasterize import RasterSpec as TRSpec
-from gsplat_tpu_torch.ops.rasterize import (composite_tiles,
+from gsplat_tpu_torch.ops.rasterize import (LAUNCHES, composite_tiles,
                                             composite_tiles_torch, rasterize)
 from gsplat_tpu_torch.ops.rasterize_ref import rasterize_oracle as t_oracle
 
@@ -128,12 +128,12 @@ def test_wrapper_runs_plain_version_on_cpu():
     geom, color, depth, visible, geo = _scene(2, False)
     _, tspec, trs, _ = _specs(geo, 6, 0.05, False)
     packed = t_pack(tspec, *_t(geom, color, depth, visible))
-    before = composite_tiles.launches
+    before = dict(LAUNCHES)
     out = composite_tiles(packed.geom, packed.color, packed.tile_start, trs)
     ref = composite_tiles_torch(packed.geom, packed.color, packed.tile_start,
                                 trs)
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
-    assert composite_tiles.launches == before     # no kernel on the CPU
+    assert LAUNCHES == before                     # no kernel on the CPU
 
 
 def test_wrapper_refuses_other_devices():
@@ -145,11 +145,11 @@ def test_wrapper_refuses_other_devices():
         (torch.zeros(4, 8), torch.zeros(4, 3, **meta),
          torch.zeros(3, dtype=torch.int32)),
     ]
-    before = composite_tiles.launches
+    before = dict(LAUNCHES)
     for geom, color, start in cases:
         with pytest.raises(ValueError, match="CPU tensors"):
             composite_tiles(geom, color, start, trs)
-    assert composite_tiles.launches == before
+    assert LAUNCHES == before
 
 
 def test_input_checks():

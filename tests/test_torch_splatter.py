@@ -20,6 +20,7 @@ from gsplat_tpu.viewer import render_offscreen as j_offscreen
 
 from gsplat_tpu_torch.config import SplatConfig as TCfg
 from gsplat_tpu_torch.models.splatter import Splatter as TSplatter
+from gsplat_tpu_torch.models.splatter import render_cropped as t_render_cropped
 from gsplat_tpu_torch.train import make_eval_step as t_eval_step
 from gsplat_tpu_torch.viewer import camera_to_w2c as t_cam_to_w2c
 from gsplat_tpu_torch.viewer import render_offscreen as t_offscreen
@@ -96,8 +97,23 @@ def test_render_offscreen_matches_jax(splats):
 
 
 def test_render_offscreen_preset_raises(splats):
+    # fast=True and the default (cfg.fast_drawing) render the bf16 preset,
+    # close to the f32 route; training through the preset raises
     _, ts = splats
-    w2c = np.eye(4, dtype=np.float32)
+    w2c = t_cam_to_w2c(np.array([0.99, 0.05, -0.08, 0.02]),
+                       np.array([0.1, -0.05, -0.2]))
+    f32 = t_offscreen(ts, w2c, 64, 48, 60.0, 60.0, fast=False)
     for fast in (True, None):   # None resolves to cfg.fast_drawing (True)
-        with pytest.raises(NotImplementedError, match="queue 2 item 4"):
-            t_offscreen(ts, w2c, 64, 48, 60.0, 60.0, fast=fast)
+        img = t_offscreen(ts, w2c, 64, 48, 60.0, 60.0, fast=fast)
+        assert img.shape == (48, 64, 3) and np.abs(img - f32).max() > 0
+        mse = float(((img - f32) ** 2).mean())
+        assert 10 * np.log10(1.0 / mse) > 40     # test_fused_pack.py:290
+    grid = ts.cameras.grid
+    bspec, rspec = ts.specs(grid)
+    params = {k: v.clone().requires_grad_() for k, v in
+              ts.table.params().items()}
+    img, _ = t_render_cropped(params, ts.table.live, ts.cameras.w2c_rot[0],
+                              ts.cameras.w2c_tran[0], grid, ts.cfg, bspec,
+                              rspec, preset=True)
+    with pytest.raises(NotImplementedError, match="render-only"):
+        img.sum().backward()
