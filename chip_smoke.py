@@ -7,13 +7,13 @@ Run from the repository root, with no arguments:
 
 It builds the rasterizer kernels (gsplat_tpu_torch/csrc/rasterize_fwd.cu and
 rasterize_bwd.cu, one nvcc each, in parallel, for sm_90a into
-gsplat_tpu_torch/_build/), five entry points: the f32 RGB forward and
+gsplat_tpu_torch/_build/), six entry points: the f32 RGB forward and
 backward, the SH forward and backward (27 coefficients) and the bf16 render
-preset's forward.  It holds each against its plain PyTorch version on a
-tiny input, on a small scene (a tile of more than 256 pairs, an empty tile,
-near-opaque, weight normalisation) and on one full-size view.  Then it
-drives the port's paths on the bench scene (506,627 gaussians, 1297x840,
-bench.py:84) through their entry points:
+preset's forward, RGB and SH.  It holds each against its plain PyTorch
+version on a tiny input, on a small scene (a tile of more than 256 pairs, an
+empty tile, near-opaque, weight normalisation) and on one full-size view.
+Then it drives the port's paths on the bench scene (506,627 gaussians,
+1297x840, bench.py:84) through their entry points:
 
 - RGB serving: 8 evaluation requests (make_eval_step: image, PSNR, SSIM)
   and 2 headless renders at 1024x656 (render_offscreen with the default
@@ -24,7 +24,15 @@ bench.py:84) through their entry points:
 - SH serving, on the same scene with 27 SH coefficients (random degree-1/2
   bands, sh_ampl 0.35): 4 evaluation requests and 1 render_offscreen at
   sh_order=2 (SH keeps the f32 route in Fast Mode);
-- SH training: 12 steps of make_train_step over 4 cameras.
+- SH training: 12 steps of make_train_step over 4 cameras;
+- SH preset serving: 2 evaluation requests through the bf16 render preset
+  (make_eval_step(preset=True)), held above 38 dB from the f32 SH image;
+- the Trainer: Trainer.train over iterations 600-660 of the RGB scene (every
+  8th camera a test camera, a densify event every 20 steps from 620, the
+  first one growing the table), with its TEST evaluation and checkpoint;
+  then adaptive_control on the card against the CPU, a save_full/load_full
+  round trip, and the CLI (python -m gsplat_tpu_torch.train) on a small
+  COLMAP scene it writes with PNG images.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  It checks every output, compares one train step through the
@@ -33,7 +41,11 @@ the preset's PSNR against the f32 render, times the routes per stage with
 CUDA events, and prints:
 
 - a JSON line {"kernels": [...]} with each entry point's launches on the
-  paths, its max abs difference from the plain version and both times;
+  paths, its max abs difference from the plain version, its time and the
+  plain version's, and its bound: the least time the card could take for
+  the same work at view 0 (bytes over 3.35 TB/s, or the pair-pixel
+  evaluations made before each pixel's stop times the flops of one, over
+  67 TFLOP/s of f32; the larger);
 - the card's name and power limit (nvidia-smi);
 - last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -43,7 +55,11 @@ line; so does a machine without CUDA.  Nothing here imports JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import struct
 import subprocess
 import sys
 import time
@@ -75,6 +91,13 @@ SH_EVAL_IDS = (0, 12, 24, 36)
 # 12 steps; the first and the last 4 see the same 4 views
 SH_TRAIN_ORDER = SH_EVAL_IDS * 2 + SH_EVAL_IDS[2:] + SH_EVAL_IDS[:2]
 JAX_PRESET_PSNR = 66.03   # BENCH_r05.json: JAX on a TPU v5e, image quality
+SH_PRESET_PSNR = 38.0     # tests/test_fused_pack.py:326, JAX's bound
+SH_PRESET_IDS = (0, 12)
+# the Trainer path: iterations 600..660 with a densify event every 20 steps
+# (620, 640, 660); 16 cameras, every 8th a test camera
+TRAIN_START, TRAIN_END, N_ADAPTIVE = 600, 661, 20
+TRAINER_CAMS = 16
+CAPACITY_ROUND = 65536    # SplatConfig's default bucket
 DEVICE = "cuda:0"   # one card
 _FWD, _BWD = "gsplat_tpu_torch/csrc/rasterize_fwd.cu", \
     "gsplat_tpu_torch/csrc/rasterize_bwd.cu"
@@ -82,9 +105,25 @@ KERNELS = {         # entry point → (source, the TPU kernel it replaces)
     "rasterize_fwd": (_FWD, "gsplat_tpu/ops/rasterize.py:437"),
     "rasterize_fwd_sh": (_FWD, "gsplat_tpu/ops/rasterize.py:459"),
     "rasterize_fwd_preset": (_FWD, "gsplat_tpu/ops/rasterize.py:475"),
+    "rasterize_fwd_preset_sh": (_FWD, "gsplat_tpu/ops/rasterize.py:298"),
     "rasterize_bwd": (_BWD, "gsplat_tpu/ops/rasterize.py:531"),
     "rasterize_bwd_sh": (_BWD, "gsplat_tpu/ops/rasterize.py:646"),
 }
+# The least time of a kernel: the larger of its bytes (each input read once,
+# each output written once) over HBM and its flops over the f32 CUDA-core
+# peak; NVIDIA H100 SXM data sheet, at 700 W.
+HBM_BYTES_S, F32_FLOPS_S = 3.35e12, 67e12
+# f32 operations of one pair-pixel evaluation, counted from the plain twins'
+# formulas (ops/rasterize.py), an exp and a division one each; the
+# backward's per-pair sums one add a term.  Forward: the 2-D gaussian (~19),
+# alpha, w and the accumulation of 3 colors and w (~9); SH adds 3 channels
+# of 9 FMAs and a sigmoid (63).  Backward: the forward again (~20), d_alpha
+# by the suffix identity (~15), the 6 geometry partials (~36) and the 10
+# sums (~19); SH adds the colors (63), d logits (9) and 27 coefficient
+# sums (54).
+FLOPS_PER_EVAL = {"rasterize_fwd": 28, "rasterize_fwd_preset": 28,
+                  "rasterize_fwd_sh": 91, "rasterize_fwd_preset_sh": 91,
+                  "rasterize_bwd": 90, "rasterize_bwd_sh": 216}
 GROUPS = {"xy": (0, 2), "cov": (2, 6), "opa": (6, 7)}   # grad_geom columns
 
 
@@ -321,7 +360,7 @@ def ground_truth_splat(table, cams, cfg, bspec, rspec, eval_ids,
     return Splatter.from_scene(cfg, table, [SceneCameras(
         w2c_rot=cams["w2c_rot"], w2c_tran=cams["w2c_tran"],
         sh_vecs=cams["sh_vecs"], images=images, grid=grid,
-        names=[f"cam{i:02d}" for i in range(N_CAMS)])])
+        names=[f"cam{i:02d}" for i in range(images.shape[0])])])
 
 
 def offscreen_poses(cams, cids):
@@ -566,6 +605,226 @@ def time_fn(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def count_evaluations(rz, geom, tile_start, spec, relative=False):
+    """Pair-pixel evaluations the kernels make on these pairs: a pixel
+    evaluates every pair of its tile until its transmittance drops below
+    1e-4 (the per-pixel stop), counted with the plain forward's own steps;
+    ``relative`` for the preset's tile-relative centres."""
+    import torch
+
+    dev = geom.device
+    tiles = torch.arange(spec.n_tiles, device=dev)
+    pxc_all, pyc_all = rz._tile_pixel_coords(spec, tiles, relative)
+    trans = torch.ones((spec.n_tiles, spec.px), device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        for act, pos, valid in rz._tile_chunks(tile_start, spec):
+            alpha, _, _ = rz._chunk_alpha(geom[pos].float(),
+                                          pxc_all[act][:, None, :],
+                                          pyc_all[act][:, None, :])
+            one_m, t_before, live, _ = rz._chunk_weights(alpha, valid,
+                                                         trans[act])
+            total += (live & valid[..., None]).sum()
+            trans[act] = t_before[:, -1] * one_m[:, -1]
+    return int(total)
+
+
+def kernel_bound(name, n_evals, tensors):
+    """→ (bound ms, "bytes" or "operations"): ``tensors`` are the kernel's
+    inputs and outputs, each counted once."""
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors
+                  if t is not None)
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_evals * FLOPS_PER_EVAL[name] / F32_FLOPS_S * 1e3
+    print(f"  {name} bound: {n_bytes / 1e6:.1f} MB ({t_bytes:.4f} ms), "
+          f"{n_evals} evaluations x {FLOPS_PER_EVAL[name]} flops "
+          f"({t_ops:.4f} ms)", flush=True)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                 else "operations")
+
+
+def write_colmap_scene(root, n_points=120, n_cameras=9, w=64, h=48,
+                       focal=60.0, downsample=4, seed=0):
+    """A small COLMAP scene (PINHOLE cameras, sparse/0/*.bin) whose images
+    (images_<downsample>/*.png) the port's plain renderer draws from
+    gaussians at the points, written by the port's PNG writer; the layout
+    of the JAX package's test fixture (tests/fixtures.py::make_scene)."""
+    import torch
+
+    from gsplat_tpu_torch.models.camera import TileGrid
+    from gsplat_tpu_torch.models.gaussians import table_from_numpy
+    from gsplat_tpu_torch.models.splatter import make_specs, render_cropped
+    from gsplat_tpu_torch.config import SplatConfig
+    from gsplat_tpu_torch.utils.image_io import write_png
+    from gsplat_tpu_torch.utils.so3 import inverse_sigmoid
+
+    rng = np.random.default_rng(seed)
+    sparse = os.path.join(root, "sparse", "0")
+    img_dir = os.path.join(root, f"images_{downsample}")
+    os.makedirs(sparse, exist_ok=True)
+    os.makedirs(img_dir, exist_ok=True)
+    z = rng.uniform(2.0, 4.0, n_points)
+    xyz = np.stack([rng.uniform(-0.35, 0.35, n_points) * z,
+                    rng.uniform(-0.28, 0.28, n_points) * z, z], axis=1)
+    rgb = (rng.uniform(0.2, 0.9, (n_points, 3)) * 255).astype(np.uint8)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 1, w * downsample, h * downsample))
+        f.write(struct.pack("<dddd", focal * downsample, focal * downsample,
+                            w * downsample / 2, h * downsample / 2))
+    poses = [(np.array([0.08 * (i - n_cameras / 2),
+                        0.04 * ((i % 2) - 0.5), 0.0]), f"img_{i:03d}.png")
+             for i in range(n_cameras)]
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", n_cameras))
+        for i, (off, name) in enumerate(poses):
+            f.write(struct.pack("<idddddddi", i + 1, 1.0, 0.0, 0.0, 0.0,
+                                *(-off), 1))
+            f.write(name.encode() + b"\x00" + struct.pack("<Q", 0))
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", n_points))
+        for i, (p, c) in enumerate(zip(xyz, rgb)):
+            f.write(struct.pack("<QdddBBBd", i + 1, *p, *c, 0.5))
+            f.write(struct.pack("<Q", 2) + struct.pack("<iiii", 1, i, 2, i))
+    # ground truth: opaque-ish isotropic gaussians at the points
+    quat = np.tile(np.float32([1, 0, 0, 0]), (n_points, 1))
+    table = table_from_numpy({
+        "pos": xyz.astype(np.float32),
+        "rgb": -np.log(255.0 / np.clip(rgb, 1, 254) - 1).astype(np.float32),
+        "opa": np.full(n_points, inverse_sigmoid(0.8), np.float32),
+        "quat": quat, "scale": np.full((n_points, 3), 0.06, np.float32),
+        "live": np.ones(n_points, bool)}, n_points, "cpu")
+    grid = TileGrid(width=w, height=h, focal_x=focal, focal_y=focal)
+    cfg = SplatConfig()
+    bspec, rspec = make_specs(grid, cfg)
+    with torch.no_grad():
+        for off, name in poses:
+            img, _ = render_cropped(
+                table.params(), table.live, torch.eye(3),
+                torch.from_numpy(-off.astype(np.float32)), grid, cfg, bspec,
+                rspec)
+            write_png(os.path.join(img_dir, name),
+                      (img.permute(1, 2, 0).numpy() * 255).astype(np.uint8))
+
+
+def quantile_norm(table, cfg, q):
+    """A quantile of the live gaussians' scale norms, to 3 digits (no
+    gaussian sits on it to the last bit)."""
+    import torch
+
+    from gsplat_tpu_torch.ops.projection import activate_scale
+
+    sn = activate_scale(table.scale[table.live], cfg.scale_activation)
+    return float(f"{float(torch.quantile(sn.norm(dim=-1)[::4], q)):.3g}")
+
+
+def trainer_path(rz, dev):
+    """Trainer.train over iterations 600..660 on the RGB bench scene:
+    → (the trainer, its launches, the per-step records)."""
+    import torch
+
+    from gsplat_tpu_torch.config import SplatConfig, TrainConfig
+    from gsplat_tpu_torch.models.splatter import make_specs
+    from gsplat_tpu_torch.synthetic import synthetic_cameras, synthetic_table
+    from gsplat_tpu_torch.train import Trainer
+
+    # the table one bucket up from its gaussians (524,288 slots, 0.97
+    # full), as a trained table that densification filled would be
+    table = synthetic_table(N_GAUSS, capacity_round=CAPACITY_ROUND,
+                            focal=FOCAL, scale_px=2.5, frustum=(0.85, 0.55),
+                            headroom=1.0, device=dev)
+    cams = synthetic_cameras(TRAINER_CAMS, WIDTH, HEIGHT, FOCAL, device=dev)
+    cfg = SplatConfig(capacity_round=CAPACITY_ROUND)
+    bspec, rspec = make_specs(cams["grid"], cfg)
+    splat = ground_truth_splat(table, cams, cfg, bspec, rspec,
+                               range(TRAINER_CAMS), rz.composite_tiles_torch)
+    # split every gaussian whose scale is in the top 6% and whose position
+    # gradient is not zero (grad_thresh 1e-9, far below the default 2e-4):
+    # the first event proposes more gaussians than the table has slots
+    split_thresh = quantile_norm(table, cfg, 0.94)
+    exp = os.path.join("chiprun_out", "chip_smoke_trainer")
+    tcfg = TrainConfig(n_adaptive_control=N_ADAPTIVE, grad_thresh=1e-9,
+                       split_thresh=split_thresh, exp=exp)
+    tr = Trainer(splat, tcfg)
+    check(len(tr.test_split) == TRAINER_CAMS // 8, "test split")
+    records, events = [], []
+    step = tr.train_step
+    densify = tr._densify
+
+    def timed_step(i):
+        before = dict(rz.LAUNCHES)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        m = step(i)
+        e1.record()
+        torch.cuda.synchronize()
+        records.append({"i": i, "ms": e0.elapsed_time(e1),
+                        "loss": float(m["loss"]),
+                        "n_pairs": int(m["n_pairs"]),
+                        "launches": {k: rz.LAUNCHES[k] - before[k]
+                                     for k in before}})
+        return m
+
+    def checked_densify(i, ac, in_reset):
+        n0, cap0 = tr.splat.table.n_live, tr.splat.table.capacity
+        densify(i, ac, in_reset)
+        st, tbl = tr.last_densify, tr.splat.table
+        events.append({"i": i, "n_live_before": n0, "capacity_before": cap0,
+                       "n_live": tbl.n_live, "capacity": tbl.capacity,
+                       "n_deleted": st.n_deleted, "n_cloned": st.n_cloned,
+                       "n_split": st.n_split, "n_wanted": st.n_wanted,
+                       "adam_t": int(tr.state.opt.t)})
+        print(f"  densify @{i}: {json.dumps(events[-1])}", flush=True)
+
+    tr.train_step, tr._densify = timed_step, checked_densify
+    log = io.StringIO()
+    reset_launches(rz)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        tr.train(n_iters=TRAIN_END, metrics_every=20, start=TRAIN_START)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(log.getvalue(), end="", flush=True)
+    launches = dict(rz.LAUNCHES)
+    print(f"{len(records)} steps in {wall:.3f} s wall (TEST evaluation and "
+          f"checkpoint included); kernel launches {json.dumps(launches)}",
+          flush=True)
+    tr.train_step, tr._densify = step, densify
+    return tr, launches, records, events, log.getvalue()
+
+
+def check_trainer(tr, launches, records, events, log):
+    check([r["i"] for r in records] == list(range(TRAIN_START, TRAIN_END)),
+          "trainer steps")
+    check([e["i"] for e in events] == list(range(TRAIN_START + N_ADAPTIVE,
+                                                 TRAIN_END, N_ADAPTIVE)),
+          f"densify events at {[e['i'] for e in events]}")
+    for e in events:
+        check(e["n_live"] == e["n_wanted"] == e["n_live_before"]
+              - e["n_deleted"] + e["n_cloned"] + e["n_split"],
+              f"densify @{e['i']}: n_live is not keep + clone + split")
+        check(e["adam_t"] == 0, f"densify @{e['i']}: Adam not restarted")
+    first = events[0]
+    check(first["n_split"] >= 0.01 * first["n_live_before"],
+          "fewer than 1% of the gaussians split")
+    check(first["capacity"] > first["capacity_before"],
+          "the first densify did not grow the table")
+    check(all(np.isfinite(r["loss"]) for r in records), "non-finite loss")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(rasterize_fwd=1, rasterize_bwd=1)
+    for r in records:
+        check(r["launches"] == want,
+              f"step {r['i']}: launches {r['launches']}")
+    check("TEST @600:" in log, "no TEST line")
+    # beyond the steps: TEST at 600 (per test camera its metrics, a warm-up
+    # and 3 timed renders) and the render saved with the checkpoint
+    want.update(rasterize_fwd=len(records) + 5 * len(tr.test_split) + 1,
+                rasterize_bwd=len(records))
+    check(launches == want, f"trainer launches {launches} != {want}")
+    check(os.path.exists(os.path.join(tr.tcfg.exp, "ckpt.npz")),
+          "the Trainer wrote no checkpoint")
+
+
 def main() -> int:
     import torch
 
@@ -582,8 +841,10 @@ def main() -> int:
     from gsplat_tpu_torch.ops.binning import pack_preset
     from gsplat_tpu_torch.ops.losses import psnr
     from gsplat_tpu_torch.synthetic import synthetic_cameras, synthetic_table
-    from gsplat_tpu_torch.train import (init_train_state, make_eval_step,
-                                        make_train_step)
+    from gsplat_tpu_torch.models.gaussians import adaptive_control
+    from gsplat_tpu_torch.train import (Trainer, init_train_state,
+                                        make_eval_step, make_train_step)
+    from gsplat_tpu_torch.train import main as train_main
     from gsplat_tpu_torch.viewer import render_offscreen
 
     check("jax" not in sys.modules, "the port pulled in jax")
@@ -663,6 +924,15 @@ def main() -> int:
     print(f"  rasterize_fwd_preset: max abs diff {err:.3e}", flush=True)
     check(err <= TOL, f"tiny preset launch disagrees: {err}")
     note_err("rasterize_fwd_preset", err)
+    c16_sh = torch.cat([c_sh, torch.zeros_like(c_sh[:, :5])], 1).to(
+        torch.bfloat16)
+    out_k = rz.composite_tiles_preset(g16, c16_sh, s, tiny_sh, shv_t)
+    torch.cuda.synchronize()
+    err = float((out_k - rz.composite_tiles_preset_torch(
+        g16, c16_sh, s, tiny_sh, shv_t)).abs().max())
+    print(f"  rasterize_fwd_preset_sh: max abs diff {err:.3e}", flush=True)
+    check(err <= TOL, f"tiny SH preset launch disagrees: {err}")
+    note_err("rasterize_fwd_preset_sh", err)
 
     # ---- 3. kernels against the plain versions: small scene ---------------
     phase("kernels vs plain: small scene")
@@ -708,18 +978,19 @@ def main() -> int:
                                              rspec_s, shv)
                 check(all(torch.equal(x, y) for x, y in zip(ref, nan)),
                       f"{bwd}: NaN in empty tiles' rows reached a pair")
-            if not sh:
-                pp = pack_preset(bspec_s, packed)
-                a = rz.composite_tiles_preset(pp.geom, pp.color,
-                                              pp.tile_start, rspec_s)
-                b = rz.composite_tiles_preset_torch(pp.geom, pp.color,
-                                                    pp.tile_start, rspec_s)
-                torch.cuda.synchronize()
-                d = float((a - b).abs().max())
-                print(f"  rasterize_fwd_preset opaque={opaque}: max abs "
-                      f"{d:.3e}", flush=True)
-                check(d <= TOL, "small scene: preset kernel disagrees")
-                note_err("rasterize_fwd_preset", d)
+            pre = "rasterize_fwd_preset_sh" if sh else "rasterize_fwd_preset"
+            pp = pack_preset(bspec_s, packed)
+            a = rz.composite_tiles_preset(pp.geom, pp.color, pp.tile_start,
+                                          rspec_s, shv)
+            b = rz.composite_tiles_preset_torch(pp.geom, pp.color,
+                                                pp.tile_start, rspec_s, shv)
+            torch.cuda.synchronize()
+            d = float((a - b).abs().max())
+            print(f"  {pre} opaque={opaque}: max abs {d:.3e}", flush=True)
+            check(d <= TOL, f"small scene: {pre} disagrees")
+            check(bool((a[counts == 0] == 0).all()),
+                  f"small scene: {pre} wrote nonzero empty tiles")
+            note_err(pre, d)
 
     phase("scene: bench.py synthetic table")
     t0 = time.perf_counter()
@@ -890,6 +1161,20 @@ def main() -> int:
 
     time_alone(("rasterize_fwd", "rasterize_bwd", "rasterize_fwd_preset"),
                int(pk0.n_pairs))
+    bounds = {}
+    n_ev = count_evaluations(rz, pk0.geom, pk0.tile_start, rspec)
+    n_ev_p = count_evaluations(rz, pp0.geom, pp0.tile_start, rspec, True)
+    print(f"  view 0: {n_ev} pair-pixel evaluations ({n_ev_p} on the "
+          f"preset's pairs) of {int(pk0.n_pairs) * rspec.px} pair-pixels",
+          flush=True)
+    bounds["rasterize_fwd"] = kernel_bound("rasterize_fwd", n_ev, (
+        pk0.geom, pk0.color, pk0.tile_start, out_k))
+    bounds["rasterize_bwd"] = kernel_bound("rasterize_bwd", n_ev, (
+        pk0.geom, pk0.color, pk0.tile_start, out_k, go0, pk0.geom,
+        pk0.color))
+    bounds["rasterize_fwd_preset"] = kernel_bound(
+        "rasterize_fwd_preset", n_ev_p, (pp0.geom, pp0.color,
+                                         pp0.tile_start, out_pk))
     del alone, splat, eval_step, train_step, state0, results, stats
     del table, params, pk0, pp0, out_k, out_pk, go0
     torch.cuda.empty_cache()
@@ -934,7 +1219,28 @@ def main() -> int:
     check(max(rel.values()) <= FULL_REL_L2,
           f"full-size view: SH backward disagrees ({rel})")
     note_err("rasterize_bwd_sh", err)
-    del mid0, out_p
+    pp_sh = pack_preset(bspec, pk0)
+    with torch.no_grad():
+        out_pks = rz.composite_tiles_preset(pp_sh.geom, pp_sh.color,
+                                            pp_sh.tile_start, rspec, shv0)
+        out_pps = rz.composite_tiles_preset_torch(
+            pp_sh.geom, pp_sh.color, pp_sh.tile_start, rspec, shv0)
+    torch.cuda.synchronize()
+    d = float((out_pks - out_pps).abs().max())
+    print(f"  rasterize_fwd_preset_sh: max abs {d:.3e}", flush=True)
+    check(d <= TOL, "full-size view: SH preset kernel disagrees")
+    note_err("rasterize_fwd_preset_sh", d)
+    n_ev = count_evaluations(rz, pk0.geom, pk0.tile_start, rspec)
+    n_ev_p = count_evaluations(rz, pp_sh.geom, pp_sh.tile_start, rspec, True)
+    bounds["rasterize_fwd_sh"] = kernel_bound("rasterize_fwd_sh", n_ev, (
+        pk0.geom, pk0.color, pk0.tile_start, shv0, out_k))
+    bounds["rasterize_bwd_sh"] = kernel_bound("rasterize_bwd_sh", n_ev, (
+        pk0.geom, pk0.color, pk0.tile_start, shv0, out_k, go0, pk0.geom,
+        pk0.color))
+    bounds["rasterize_fwd_preset_sh"] = kernel_bound(
+        "rasterize_fwd_preset_sh", n_ev_p, (pp_sh.geom, pp_sh.color,
+                                            pp_sh.tile_start, shv0, out_pks))
+    del mid0, out_p, out_pps
     torch.cuda.empty_cache()
 
     phase("SH ground truth: jittered table, plain route")
@@ -969,6 +1275,27 @@ def main() -> int:
     print(f"  sh_order=2 vs all bands: max abs {band:.3e}", flush=True)
     check(band > 1e-3, "sh_order=2 masked nothing")
 
+    phase("SH preset serving path: 2 eval requests through the bf16 render "
+          "preset (make_eval_step(preset=True))")
+    preset_step = make_eval_step(splat, preset=True)
+    torch.cuda.synchronize()
+    reset_launches(rz)
+    pres = [preset_step(params, live, cid) for cid in SH_PRESET_IDS]
+    torch.cuda.synchronize()
+    sh_preset = dict(rz.LAUNCHES)
+    print(f"kernel launches {json.dumps(sh_preset)}", flush=True)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(rasterize_fwd_preset_sh=len(pres))
+    check(sh_preset == want, f"SH preset launches {sh_preset} != {want}")
+    check_eval(pres, SH_PRESET_IDS)
+    check(SH_EVAL_IDS[0] == SH_PRESET_IDS[0] == 0, "camera 0")
+    sh_preset_psnr = float(psnr(pres[0][0], results[0][0], 1.0))
+    print(f"  SH preset vs SH f32 PSNR at camera 0: {sh_preset_psnr:.2f} dB "
+          f"(bound > {SH_PRESET_PSNR}, tests/test_fused_pack.py:326)",
+          flush=True)
+    check(sh_preset_psnr > SH_PRESET_PSNR,
+          "SH preset image far from the f32 SH render")
+
     state0 = init_train_state(params, live)
     _, sh_train = train_burst(rz, "SH", train_step, eval_step, state0,
                               SH_TRAIN_ORDER, lrs)
@@ -998,10 +1325,129 @@ def main() -> int:
             lambda: rz.composite_tiles_bwd_torch(*args, out_k, go0, rspec,
                                                  shv0)),
     }
-    time_alone(("rasterize_fwd_sh", "rasterize_bwd_sh"), int(pk0.n_pairs))
+    psargs = (pp_sh.geom, pp_sh.color, pp_sh.tile_start)
+    alone["rasterize_fwd_preset_sh"] = (
+        lambda: rz.composite_tiles_preset(*psargs, rspec, shv0),
+        lambda: rz.composite_tiles_preset_torch(*psargs, rspec, shv0))
+    time_alone(("rasterize_fwd_sh", "rasterize_bwd_sh",
+                "rasterize_fwd_preset_sh"), int(pk0.n_pairs))
+    del alone, splat, eval_step, preset_step, train_step, state0, results
+    del pres, table, params, live, pk0, pp_sh, out_k, out_pks, go0, psargs
+    del args
+    torch.cuda.empty_cache()
+
+    # ---- 10. the Trainer, densification, full state, CLI ------------------
+    phase(f"Trainer path: Trainer.train, iterations {TRAIN_START}-"
+          f"{TRAIN_END - 1}, RGB bench scene, {TRAINER_CAMS} cameras")
+    tr, trainer_launches, records, events, log = trainer_path(rz, dev)
+    check_trainer(tr, trainer_launches, records, events, log)
+    first = events[0]["i"]
+    for label, rows in (
+            (f"before the first densify ({TRAIN_START + 1}-{first - 1})",
+             [r for r in records if TRAIN_START < r["i"] < first]),
+            (f"after it ({first + 1}-{first + N_ADAPTIVE - 1})",
+             [r for r in records if first < r["i"] < first + N_ADAPTIVE]),
+            ("densify steps (the step and its event)",
+             [r for r in records if r["i"] in [e["i"] for e in events]])):
+        print(f"  Trainer step ms {label}: mean "
+              f"{np.mean([r['ms'] for r in rows]):.3f} (min "
+              f"{np.min([r['ms'] for r in rows]):.3f}, max "
+              f"{np.max([r['ms'] for r in rows]):.3f}); mean n_pairs "
+              f"{np.mean([r['n_pairs'] for r in rows]):.0f}; "
+              f"{len(rows)} steps", flush=True)
+    ev = tr.evaluate()
+    print(f"  evaluate(): {json.dumps(ev)}", flush=True)
+    check(np.isfinite(ev["psnr"]) and 0 < ev["ssim"] <= 1 and ev["fps"] > 0,
+          "evaluate() out of range")
+
+    phase("densify: adaptive_control on the card vs the CPU, same inputs")
+    tbl = tr.splat.table
+    rng = np.random.default_rng(5)
+    grad = torch.from_numpy(np.abs(rng.normal(0, 3e-4, (tbl.capacity, 3)))
+                            .astype(np.float32))
+    eps = torch.from_numpy(rng.normal(size=(tbl.capacity, 2, 3))
+                           .astype(np.float32))
+    # about half the gradients pass grad_thresh; the larger half of those
+    # split, the smaller clone, and the top 1% of scales are deleted
+    kw = dict(taus=quantile_norm(tbl, tr.splat.cfg, 0.5),
+              delete_thresh=quantile_norm(tbl, tr.splat.cfg, 0.99),
+              grad_thresh=2e-4, clone_dt=0.01, use_clone=True, use_split=True)
+    tg, sg = adaptive_control(tbl, grad.to(dev), eps.to(dev), **kw)
+    tc, sc = adaptive_control(tbl.to("cpu"), grad, eps, **kw)
+    print(f"  card {sg}\n  cpu  {sc}", flush=True)
+    check(sg == sc and sc.n_split > 0 and sc.n_cloned > 0
+          and sc.n_deleted > 0, "densify stats differ or miss a branch")
+    check(torch.equal(tg.live.cpu(), tc.live), "densify live masks differ")
+    worst = 0.0
+    for k in ("pos", "rgb", "opa", "quat", "scale"):
+        a, b = getattr(tg, k).cpu(), getattr(tc, k)
+        err = float(((a - b).abs() / (b.abs() + b.abs().max())).max())
+        worst = max(worst, err)
+    print(f"  params: max |card - cpu| / (|cpu| + max|cpu|) {worst:.3e}",
+          flush=True)
+    check(worst <= 1e-6, "densify params differ beyond 1e-6 relative")
+    del tg, tc, grad, eps
+
+    phase("full state: save_full -> load_full on the card")
+    path = os.path.join(tr.tcfg.exp, "full_state.npz")
+    tr.save_full(path, TRAIN_END)
+    st0 = tr.state
+    tr2 = Trainer(tr.splat, tr.tcfg)
+    check(tr2.load_full(path) == TRAIN_END, "load_full iteration")
+    st1 = tr2.state
+
+    def bits(x):
+        # the bits, NaN included: the dead slots that densification leaves
+        # (zero quaternions, as in JAX) carry NaN parameters after a step
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    def same_state(s0, s1):
+        return all(torch.equal(bits(getattr(s0, f)), bits(getattr(s1, f)))
+                   for f in ("live", "accum_grad", "grad_counter")) \
+            and torch.equal(s0.opt.t, s1.opt.t) and all(
+                torch.equal(bits(d0[k]), bits(d1[k])) for d0, d1 in (
+                    (s0.params, s1.params), (s0.opt.mu, s1.opt.mu),
+                    (s0.opt.nu, s1.opt.nu)) for k in d0)
+
+    check(same_state(st0, st1), "load_full did not restore the state bit "
+          "for bit")
+    cam = int(tr.train_split[0])
+    step = tr2._train_step_for(0)
+    a, ma = step(st0, cam, tr2.lrs_at(TRAIN_END))
+    b, mb = step(st1, cam, tr2.lrs_at(TRAIN_END))
+    check(float(ma["loss"]) == float(mb["loss"]) and same_state(a, b),
+          "the next step differs after load_full")
+    print(f"  {os.path.getsize(path) / 1e6:.1f} MB; state bit-identical; "
+          f"next step identical (loss {float(ma['loss']):.6f})", flush=True)
+    del tr, tr2, st0, st1, a, b, step, tbl
+    torch.cuda.empty_cache()
+
+    phase("CLI: gsplat_tpu_torch.train.main on a COLMAP scene with PNGs")
+    root = os.path.join("chiprun_out", "chip_smoke_cli")
+    write_colmap_scene(os.path.join(root, "scene"))
+    exp = os.path.join(root, "exp")
+    log = io.StringIO()
+    reset_launches(rz)
+    with contextlib.redirect_stdout(log):
+        train_main(["--data", os.path.join(root, "scene"), "--n_iters", "41",
+                    "--n_iters_warmup", "5", "--n_iters_test", "20",
+                    "--exp", exp, "--metrics_every", "10", "--lr", "0.01",
+                    "--capacity_round", "256", "--device", DEVICE])
+    torch.cuda.synchronize()
+    cli = dict(rz.LAUNCHES)
+    print(log.getvalue(), end="")
+    print(f"kernel launches {json.dumps(cli)}", flush=True)
+    check("TEST @20:" in log.getvalue() and "TEST @40:" in log.getvalue(),
+          "the CLI printed no TEST line")
+    check(os.path.exists(os.path.join(exp, "ckpt.npz")),
+          "the CLI wrote no ckpt.npz")
+    check(cli["rasterize_bwd"] == 41 and cli["rasterize_fwd"] > 41,
+          f"CLI launches {cli}")
 
     paths = {"RGB serving": serve, "RGB training": train,
-             "SH serving": sh_serve, "SH training": sh_train}
+             "SH serving": sh_serve, "SH training": sh_train,
+             "SH preset serving": sh_preset, "Trainer": trainer_launches,
+             "CLI": cli}
     print("launches by path: " + json.dumps(paths), flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": repl,
@@ -1009,7 +1455,10 @@ def main() -> int:
         "launches_by_path": {k: p[name] for k, p in paths.items()},
         "max_abs_err": max_err[name],
         "ms": float(np.mean(times[name]["kernel"])),
-        "plain_ms": float(np.mean(times[name]["plain"]))}
+        "plain_ms": float(np.mean(times[name]["plain"])),
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        # no single PyTorch call composites tiles
+        "library_ms": None}
         for name, (src, repl) in KERNELS.items()]}), flush=True)
     print(smi, flush=True)              # card name, power limit
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,15 @@
 A trimmed copy of ``gsplat_tpu/config.py`` rather than an import of it, so
 the port stands alone beside the JAX package.  The JAX config also carries
 static-shape budgets (``visible_rows``, ``col_caps``, ``pad_rows``,
-``pair_capacity``/``pair_factor``) and TPU layout switches (``plane_mode``,
+``pair_capacity``/``pair_factor``), ``TrainConfig.dp`` (multi-device
+training, not ported yet) and TPU layout switches (``plane_mode``,
 ``fused_pack``, ``bf16_pack``, ``quant_depth``, ``cull_sublsb``,
 ``gather_*``, ``post_align``, ``px_split``, ``packed_bf16``, ``use_pallas``).
 The port works on dynamic shapes and picks its compositor from the tensor's
 device, so none of those would do anything here and they are left out; the
 render preset that ``packed_bf16`` switched on is chosen by
-``fast_drawing`` where JAX's viewer chose it.
+``fast_drawing`` where JAX's viewer chose it, and by the ``preset``
+argument of ``Splatter.render`` and ``train.make_eval_step`` elsewhere.
 
 Every field kept has the same name and default as in the JAX config; a test
 (``tests/test_torch_geometry.py``) holds the two in step.
@@ -43,6 +45,11 @@ class SplatConfig:
     # beyond the first K of a gaussian's bbox (row-major) are dropped and
     # counted in ``n_clipped``, exactly as in the JAX package.
     max_tiles_per_gaussian: int = 6
+    # Bounds of the trainer's K growth (train.bounded_k_growth): a hard
+    # ceiling, and a budget of candidate rows (capacity · K) that a
+    # degenerate splat covering thousands of tiles must not push K past.
+    max_tiles_cap: int = 64
+    max_plane_rows: int = 16_777_216
     # Pairs per step of the plain compositor (composite_tiles_torch walks
     # the j-th chunk of every tile at once).
     chunk_size: int = 128
@@ -50,6 +57,10 @@ class SplatConfig:
     tile_w: int = 16
     # gaussian table capacity is rounded up to a multiple of this
     capacity_round: int = 65536
+    # Hard ceiling on table capacity (0 = none).  At the ceiling,
+    # densification proposals that do not fit are dropped; without one the
+    # trainer grows the table and runs the control again.
+    max_capacity: int = 0
 
     @property
     def tile_px(self) -> int:

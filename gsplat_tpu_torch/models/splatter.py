@@ -24,7 +24,8 @@ import torch
 
 from gsplat_tpu_torch.config import SplatConfig
 from gsplat_tpu_torch.models.camera import TileGrid, ray_info
-from gsplat_tpu_torch.models.gaussians import GaussianTable, init_from_points
+from gsplat_tpu_torch.models.gaussians import GaussianTable, grow_capacity, \
+    init_from_points
 from gsplat_tpu_torch.ops.binning import BinningSpec, pack_preset, pack_sorted
 from gsplat_tpu_torch.ops.projection import project_gaussians
 from gsplat_tpu_torch.ops.rasterize import RasterSpec, rasterize, \
@@ -32,6 +33,7 @@ from gsplat_tpu_torch.ops.rasterize import RasterSpec, rasterize, \
 from gsplat_tpu_torch.ops.sh import SH_DIM
 from gsplat_tpu_torch.utils.colmap import camera_focals, read_cameras_binary, \
     read_images_binary, read_points3d_arrays
+from gsplat_tpu_torch.utils.image_io import read_png
 from gsplat_tpu_torch.utils.so3 import quat_to_rotmat_np
 
 
@@ -51,17 +53,33 @@ class SceneCameras:
         return self.w2c_rot.shape[0]
 
 
+def read_image(fn: str) -> np.ndarray:
+    """An image file → (H, W, 3) uint8 RGB: PNG by the port's own reader
+    (``utils/image_io``), any other format by ``cv2`` where it is
+    installed."""
+    if fn.lower().endswith(".png"):
+        return read_png(fn)
+    try:
+        import cv2
+    except ImportError:
+        raise RuntimeError(
+            f"{fn}: only PNG images load without cv2, which is not "
+            "installed") from None
+    im = cv2.imread(fn)
+    if im is None:
+        raise RuntimeError(f"{fn}: cv2 could not read the image")
+    return cv2.cvtColor(im, cv2.COLOR_BGR2RGB)
+
+
 def load_scene_camera_groups(colmap_path, image_path, render_downsample,
                              tile_h=16, tile_w=16, load_images=True,
-                             device="cpu"):
+                             device="cuda"):
     """COLMAP sparse dir + image dir → list of SceneCameras groups.
 
     Images sorted by COLMAP image id, skipped when the file is missing;
     cameras grouped by their (resolution, focal) signature, largest group
     first (``gsplat_tpu/models/splatter.py:61-127``).
     """
-    import cv2
-
     cameras = read_cameras_binary(os.path.join(colmap_path, "cameras.bin"))
     images_info = read_images_binary(os.path.join(colmap_path, "images.bin"))
 
@@ -79,7 +97,7 @@ def load_scene_camera_groups(colmap_path, image_path, render_downsample,
         fy /= render_downsample
         im = None
         if load_images:
-            im = cv2.cvtColor(cv2.imread(fn), cv2.COLOR_BGR2RGB)
+            im = read_image(fn)
             h, w = im.shape[:2]
         key = (w, h, round(fx, 6), round(fy, 6))
         b = buckets.setdefault(key, {"rots": [], "trans": [], "imgs": [],
@@ -145,8 +163,9 @@ def render_padded(params: dict, live, w2c_rot, w2c_tran, grid: TileGrid,
     """Table params → padded (3, Hp, Wp) image and diagnostics.
 
     ``sh_vecs`` (4, 3) is the camera's RayInfo, needed with SH color.
-    ``preset`` renders through the bf16 render preset (RGB, render-only).
-    ``aux`` carries the visibility mask and the binning counters.
+    ``preset`` renders through the bf16 render preset (RGB or SH,
+    render-only).  ``aux`` carries the visibility mask and the binning
+    counters.
     """
     proj = project_gaussians(
         params["pos"], params["quat"], params["scale"],
@@ -164,7 +183,7 @@ def render_padded(params: dict, live, w2c_rot, w2c_tran, grid: TileGrid,
                         torch.zeros_like(opa)[:, None]], dim=1)
     packed = pack_sorted(bspec, geom_n, color, proj.depth, visible)
     if preset:
-        img = rasterize_preset(pack_preset(bspec, packed), rspec)
+        img = rasterize_preset(pack_preset(bspec, packed), rspec, sh_vecs)
     else:
         img = rasterize(packed, rspec, sh_vecs)
     aux = {
@@ -191,7 +210,10 @@ class Splatter:
     """Scene + model container: a gaussian table and its cameras."""
 
     def __init__(self, colmap_path, image_path, cfg: SplatConfig,
-                 load_ckpt=None, test=False, device="cpu"):
+                 load_ckpt=None, test=False, device="cuda"):
+        self.colmap_path = colmap_path
+        self.image_path = image_path
+        self.test_only = test
         if load_ckpt is not None:
             from gsplat_tpu_torch.utils.checkpoint import load_checkpoint
             table = load_checkpoint(load_ckpt,
@@ -219,8 +241,10 @@ class Splatter:
     def from_scene(cls, cfg: SplatConfig, table: GaussianTable,
                    camera_groups: list) -> "Splatter":
         """A Splatter over an in-memory table and cameras (synthetic
-        scenes)."""
+        scenes); it has no image pyramid to switch."""
         self = cls.__new__(cls)
+        self.colmap_path = self.image_path = None
+        self.test_only = False
         self._setup(cfg, table, camera_groups)
         return self
 
@@ -232,20 +256,56 @@ class Splatter:
         self._specs_cache = {}
 
     def specs(self, grid: TileGrid | None = None):
+        """The grid's binning and raster specs, rebuilt when K
+        (``cfg.max_tiles_per_gaussian``) grows."""
         grid = grid or self.cameras.grid
-        if grid not in self._specs_cache:
-            self._specs_cache[grid] = make_specs(grid, self.cfg)
-        return self._specs_cache[grid]
+        key = (grid, self.cfg.max_tiles_per_gaussian)
+        if key not in self._specs_cache:
+            self._specs_cache[key] = make_specs(grid, self.cfg)
+        return self._specs_cache[key]
+
+    def switch_resolution(self, downsample_factor: int):
+        """Swap to another image pyramid level (``gsplat_tpu/models/
+        splatter.py:490-505``): ``images_<old>`` becomes ``images_<new>``
+        in the image path and the cameras and images are loaded again, on
+        the table's device.  No-op when already at the target factor."""
+        if downsample_factor == self.cfg.render_downsample:
+            return
+        old = self.cfg.render_downsample
+        self.image_path = self.image_path.replace(
+            f"images_{old}", f"images_{downsample_factor}")
+        self.cfg.render_downsample = downsample_factor
+        self.camera_groups = load_scene_camera_groups(
+            self.colmap_path, self.image_path, downsample_factor,
+            tile_h=self.cfg.tile_h, tile_w=self.cfg.tile_w,
+            load_images=not self.test_only, device=self.table.device)
+        self.cameras = self.camera_groups[0]
+        self._specs_cache.clear()
+
+    def maybe_grow(self) -> bool:
+        """Grow the table's capacity when more than 88% of it is live
+        (``gsplat_tpu/models/splatter.py:507-517``); True if grown."""
+        n = self.table.n_live
+        if n > 0.88 * self.table.capacity:
+            mc = int(self.cfg.max_capacity or 0)
+            if mc and self.table.capacity >= mc:
+                return False                      # saturated at the ceiling
+            self.table = grow_capacity(self.table, self.cfg.capacity_round,
+                                       max_capacity=mc)
+            return True
+        return False
 
     @torch.no_grad()
-    def render(self, camera_id: int) -> torch.Tensor:
-        """Single-camera render → (3, H, W) channel-major."""
+    def render(self, camera_id: int, preset: bool = False) -> torch.Tensor:
+        """Single-camera render → (3, H, W) channel-major; ``preset``
+        renders through the bf16 render preset (JAX's ``packed_bf16``)."""
         grid = self.cameras.grid
         bspec, rspec = self.specs(grid)
         img, _ = render_cropped(
             self.table.params(), self.table.live,
             self.cameras.w2c_rot[camera_id], self.cameras.w2c_tran[camera_id],
-            grid, self.cfg, bspec, rspec, self.cameras.sh_vecs[camera_id])
+            grid, self.cfg, bspec, rspec, self.cameras.sh_vecs[camera_id],
+            preset)
         return img
 
     def ground_truth(self, camera_id: int) -> torch.Tensor:

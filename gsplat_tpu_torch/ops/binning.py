@@ -83,7 +83,9 @@ class PresetPairs(NamedTuple):
 
     geom: torch.Tensor        # (P, 8) bf16 [x - tcx, y - tcy, a, b, c, d,
                               #              opa, 0]; one 16-byte row
-    color: torch.Tensor       # (P, 4) bf16 [r, g, b, 0]; one 8-byte row
+    color: torch.Tensor       # (P, 4) bf16 [r, g, b, 0]; one 8-byte row, or
+                              # (P, 32) bf16: 27 SH coefficients and 5
+                              # zeros, one 64-byte row
     tile_start: torch.Tensor  # (T+1,) int32, as in PackedPairs
 
 
@@ -198,13 +200,17 @@ def pack_preset(spec: BinningSpec, packed: PackedPairs) -> PresetPairs:
     ``_pack2_bf16``, ``gsplat_tpu/ops/binning.py:678-689``).
 
     The tile centre is the packer's (``:1011-1014``): ``leftmost +
-    (tile_x + 0.5)·tile_len_x`` in f32, before the rounding.  RGB only.
+    (tile_x + 0.5)·tile_len_x`` in f32, before the rounding.  RGB colors
+    become ``(P, 4)`` [r, g, b, 0]; 27 SH coefficients become ``(P, 32)``,
+    in their order, then 5 zeros (JAX pads them to 32 too, ``:1026-1030``,
+    in its own pairing of two bf16 values to an i32).
     """
     g = packed.geom
     p, dev = g.shape[0], g.device
-    if packed.color.shape[1] != 3:
-        raise ValueError("the render preset is RGB only (JAX's Fast Mode "
-                         "keeps SH on the f32 route)")
+    c_dim = packed.color.shape[1]
+    if c_dim not in (3, 27):
+        raise ValueError(f"preset colors are RGB (3) or SH (27), got "
+                         f"{c_dim}")
     counts = (packed.tile_start[1:] - packed.tile_start[:-1]).to(torch.int64)
     tile = torch.repeat_interleave(torch.arange(spec.n_tiles, device=dev),
                                    counts, output_size=p)
@@ -216,7 +222,8 @@ def pack_preset(spec: BinningSpec, packed: PackedPairs) -> PresetPairs:
     zero = torch.zeros_like(g[:, :1])
     geom = torch.cat([(g[:, 0] - tcx)[:, None], (g[:, 1] - tcy)[:, None],
                       g[:, 2:7], zero], dim=1)
-    color = torch.cat([packed.color, zero], dim=1)
+    color = torch.cat([packed.color, zero.expand(p, 1 if c_dim == 3 else 5)],
+                      dim=1)
     return PresetPairs(geom=geom.to(torch.bfloat16),
                        color=color.to(torch.bfloat16),
                        tile_start=packed.tile_start)

@@ -18,7 +18,8 @@ implementations:
   identity, the analytic 2-D gaussian derivatives), and the kernels
   ``rasterize_bwd`` / ``rasterize_bwd_sh`` of ``csrc/rasterize_bwd.cu``;
 - the render preset (JAX's ``packed_bf16``): :func:`composite_tiles_preset_
-  torch` and the kernel ``rasterize_fwd_preset``, forward only.
+  torch` and the kernels ``rasterize_fwd_preset`` (RGB) and
+  ``rasterize_fwd_preset_sh`` (SH), forward only.
 
 :class:`CompositeTiles` ties the f32 directions together as one
 ``torch.autograd.Function`` and :func:`composite_tiles` calls it.  The
@@ -152,6 +153,10 @@ def _check_inputs(geom, color, tile_start, spec: RasterSpec, sh_vecs=None):
                          f"{spec.color_dim}), got {tuple(geom.shape)} and "
                          f"{tuple(color.shape)}")
     _check_tile_start(tile_start, spec)
+    _check_sh_vecs(spec, sh_vecs)
+
+
+def _check_sh_vecs(spec: RasterSpec, sh_vecs):
     if spec.color_dim != 3:
         if sh_vecs is None:
             raise ValueError("SH color (color_dim 27) needs the camera's "
@@ -178,18 +183,24 @@ def _check_bwd_inputs(out, grad_out, spec: RasterSpec):
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
 
 
-def _check_preset_inputs(geom, color, tile_start, spec: RasterSpec):
+PRESET_SH_COLS = 32   # 27 SH coefficients and 5 zeros: one 64-byte row
+
+
+def _check_preset_inputs(geom, color, tile_start, spec: RasterSpec,
+                         sh_vecs=None):
     p = geom.shape[0]
     if geom.dtype != torch.bfloat16 or color.dtype != torch.bfloat16:
         raise TypeError(f"preset geom/color must be bfloat16, got "
                         f"{geom.dtype}/{color.dtype}")
-    if spec.color_dim != 3:
-        raise ValueError("the render preset is RGB only (JAX's Fast Mode "
-                         "keeps SH on the f32 route, viewer.py:95-100)")
-    if geom.shape != (p, 8) or color.shape != (p, 4):
-        raise ValueError(f"expected preset geom (P, 8) and color (P, 4), got "
-                         f"{tuple(geom.shape)} and {tuple(color.shape)}")
+    if spec.color_dim not in (3, 3 * SH_DIM):
+        raise ValueError(f"color_dim must be 3 or 27, got {spec.color_dim}")
+    cols = 4 if spec.color_dim == 3 else PRESET_SH_COLS
+    if geom.shape != (p, 8) or color.shape != (p, cols):
+        raise ValueError(f"expected preset geom (P, 8) and color (P, {cols}),"
+                         f" got {tuple(geom.shape)} and "
+                         f"{tuple(color.shape)}")
     _check_tile_start(tile_start, spec)
+    _check_sh_vecs(spec, sh_vecs)
 
 
 def _tile_chunks(tile_start: torch.Tensor, spec: RasterSpec):
@@ -300,18 +311,23 @@ def composite_tiles_torch(geom: torch.Tensor, color: torch.Tensor,
 
 
 def composite_tiles_preset_torch(geom: torch.Tensor, color: torch.Tensor,
-                                 tile_start: torch.Tensor,
-                                 spec: RasterSpec) -> torch.Tensor:
+                                 tile_start: torch.Tensor, spec: RasterSpec,
+                                 sh_vecs: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
     """Plain PyTorch compositor of the render preset (JAX's ``packed_bf16``
     route, ``rasterize.py:184-192,285-300``): bf16 pairs ``geom (P, 8)``
-    [x − tile centre x, y − tile centre y, a, b, c, d, opa, 0] and ``color
-    (P, 4)`` [r, g, b, 0] (``ops/binning.pack_preset``), widened to f32 and
-    composited against tile-relative pixel centres; the math and the
-    accumulation are f32.  Same output as :func:`composite_tiles_torch`."""
-    _check_preset_inputs(geom, color, tile_start, spec)
+    [x − tile centre x, y − tile centre y, a, b, c, d, opa, 0] and ``color``
+    (``ops/binning.pack_preset``): ``(P, 4)`` [r, g, b, 0], or ``(P, 32)``,
+    27 SH coefficients and 5 zeros, with the camera's ``sh_vecs``.  The
+    values are widened to f32 and composited against tile-relative pixel
+    centres; the SH basis takes the absolute pixel ids, as on the f32 route
+    (``_sh_pixel_basis``).  The math and the accumulation are f32.  Same
+    output as :func:`composite_tiles_torch`."""
+    _check_preset_inputs(geom, color, tile_start, spec, sh_vecs)
     return _composite_plain(geom.to(torch.float32),
-                            color[:, :3].to(torch.float32), tile_start, spec,
-                            True, None)
+                            color[:, :spec.color_dim].to(torch.float32),
+                            tile_start, spec, True,
+                            _shb_all(spec, sh_vecs, geom.device))
 
 
 def composite_tiles_bwd_torch(geom: torch.Tensor, color: torch.Tensor,
@@ -426,6 +442,7 @@ KERNELS = {
     "rasterize_fwd": ("rasterize_fwd", 5),
     "rasterize_fwd_sh": ("rasterize_fwd", 5),
     "rasterize_fwd_preset": ("rasterize_fwd", 5),
+    "rasterize_fwd_preset_sh": ("rasterize_fwd", 5),
     "rasterize_bwd": ("rasterize_bwd", 8),
     "rasterize_bwd_sh": ("rasterize_bwd", 8),
 }
@@ -556,20 +573,23 @@ class CompositeTilesPreset(torch.autograd.Function):
     (``rasterize.py:847-850``): its backward raises."""
 
     @staticmethod
-    def forward(ctx, geom, color, tile_start, spec):
+    def forward(ctx, geom, color, tile_start, spec, sh_vecs):
+        sh = spec.color_dim != 3
         if _check_device("composite_tiles_preset",
-                         (geom, color, tile_start)):
+                         (geom, color, tile_start, sh_vecs if sh else None)):
             return composite_tiles_preset_torch(geom, color, tile_start,
-                                                spec)
-        _check_preset_inputs(geom, color, tile_start, spec)
+                                                spec, sh_vecs)
+        _check_preset_inputs(geom, color, tile_start, spec, sh_vecs)
+        shv = sh_vecs.contiguous() if sh else None
         _check_kernel_inputs("composite_tiles_preset", spec, geom, color,
                              tile_start)
-        if color.data_ptr() % 8:
-            raise ValueError("preset color must be 8-byte aligned")
+        if color.data_ptr() % (16 if sh else 8):
+            raise ValueError("preset color rows must be 16-byte (SH) or "
+                             "8-byte (RGB) aligned")
         out = torch.empty((spec.n_tiles, 4, spec.px), dtype=torch.float32,
                           device=geom.device)
-        _launch("rasterize_fwd_preset", spec, geom, color, tile_start, None,
-                out)
+        _launch("rasterize_fwd_preset_sh" if sh else "rasterize_fwd_preset",
+                spec, geom, color, tile_start, shv, out)
         return out
 
     @staticmethod
@@ -580,18 +600,20 @@ class CompositeTilesPreset(torch.autograd.Function):
 
 
 def composite_tiles_preset(geom: torch.Tensor, color: torch.Tensor,
-                           tile_start: torch.Tensor,
-                           spec: RasterSpec) -> torch.Tensor:
+                           tile_start: torch.Tensor, spec: RasterSpec,
+                           sh_vecs: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """Composite the render preset's bf16 pairs (``ops/binning.PresetPairs``)
     → (T, 4, Px) f32 rows [r, g, b, Σw].
 
     CPU tensors run :func:`composite_tiles_preset_torch`.  CUDA tensors
-    launch ``rasterize_fwd_preset`` of ``csrc/rasterize_fwd.cu``, which
-    replaces the ``packed_bf16`` variant of ``gsplat_tpu/ops/rasterize.py::
-    _fwd_kernel``; a build or launch failure raises.  Backward through it
-    raises (render-only).
+    launch ``rasterize_fwd_preset`` (RGB) or ``rasterize_fwd_preset_sh``
+    (SH, with ``sh_vecs`` read on the device) of ``csrc/rasterize_fwd.cu``,
+    which replace the ``packed_bf16`` variants of ``gsplat_tpu/ops/
+    rasterize.py::_fwd_kernel``; a build or launch failure raises.
+    Backward through it raises (render-only).
     """
-    return CompositeTilesPreset.apply(geom, color, tile_start, spec)
+    return CompositeTilesPreset.apply(geom, color, tile_start, spec, sh_vecs)
 
 
 def assemble_image(tiles_color: torch.Tensor, tiles_accw: torch.Tensor,
@@ -617,9 +639,10 @@ def rasterize(packed: PackedPairs, spec: RasterSpec,
     return assemble_image(out[:, :3], out[:, 3], spec)
 
 
-def rasterize_preset(pairs: PresetPairs, spec: RasterSpec) -> torch.Tensor:
+def rasterize_preset(pairs: PresetPairs, spec: RasterSpec,
+                     sh_vecs: torch.Tensor | None = None) -> torch.Tensor:
     """The render preset's pairs → (3, padded_h, padded_w) image
     (render-only)."""
     out = composite_tiles_preset(pairs.geom, pairs.color, pairs.tile_start,
-                                 spec)
+                                 spec, sh_vecs)
     return assemble_image(out[:, :3], out[:, 3], spec)

@@ -21,7 +21,7 @@ def synthetic_table(n: int, capacity_round: int = 65536, use_sh=False,
                     seed: int = 0, depth_range=(2.0, 8.0),
                     frustum=(0.65, 0.45), scale_px=2.5, focal=1000.0,
                     opa=0.5, headroom: float = 1.15, ball=None,
-                    sh_ampl: float = 0.0, device="cpu") -> GaussianTable:
+                    sh_ampl: float = 0.0, device="cuda") -> GaussianTable:
     """Random gaussian table.
 
     Default layout fills the frustum of a camera at the origin looking +z.
@@ -80,7 +80,7 @@ def synthetic_table(n: int, capacity_round: int = 65536, use_sh=False,
 
 def synthetic_cameras(m: int, width: int, height: int, focal: float,
                       tile_h=16, tile_w=16, seed: int = 0,
-                      with_images=True, device="cpu"):
+                      with_images=True, device="cuda"):
     """Ring of slightly perturbed cameras near the origin looking +z."""
     rng = np.random.default_rng(seed)
     grid = TileGrid(width=width, height=height, focal_x=focal, focal_y=focal,

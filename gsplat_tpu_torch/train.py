@@ -1,6 +1,6 @@
-"""The train step and the evaluation step of one camera group.
+"""Training: the train and evaluation steps, the Trainer and its CLI.
 
-The counterparts of ``gsplat_tpu/train.py:38-155`` and ``:293-310``:
+The counterparts of ``gsplat_tpu/train.py``:
 
 - ``AdamState``/``init_adam``/``adam_update``: dense Adam with one learning
   rate per parameter group, written out with JAX's own float32 arithmetic
@@ -9,25 +9,41 @@ The counterparts of ``gsplat_tpu/train.py:38-155`` and ``:293-310``:
   and opacity regularizers) and ``make_train_step`` (loss, backward, Adam,
   the max/mean |∇pos| accumulation for densification);
 - ``lrs_at``: the Trainer's per-group learning rates at an iteration;
-- ``make_eval_step``: one camera rendered, then PSNR and SSIM.
+- ``make_eval_step``: one camera rendered, then PSNR and SSIM;
+- ``bounded_k_growth`` and ``Trainer`` (``:313-846``): the camera splits,
+  the schedule, adaptive density control with capacity growth, opacity
+  resets, test/evaluate, checkpoints and the training loop, on one device;
+- ``build_argparser``/``configs_from_args``/``main`` (``:853-1058``): the
+  CLI, ``python -m gsplat_tpu_torch.train --data <scene>``.
 
 Gradients flow through the hand-written backward rasterizers (RGB or SH) on
 CUDA tensors and through their plain twin on CPU tensors
 (``ops/rasterize.CompositeTiles``).  With SH color the ``rgb`` group is the
 (N, 27) coefficient table, and each step reads its camera's ``sh_vecs``.
-The K-step ``window_scan`` (TPU dispatch batching), densification and the
-Trainer with its CLI are not ported yet.
+Left out: the K-step ``window_scan``/``train_window`` (TPU dispatch
+batching: ``Trainer.train`` takes one ``train_step`` a step), the static
+budget retunes (the port has no static budgets) and ``--dp`` (multi-GPU,
+not ported yet).
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import os
+import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from gsplat_tpu_torch.config import TrainConfig
+from gsplat_tpu_torch.config import SplatConfig, TrainConfig
+from gsplat_tpu_torch.models.gaussians import adaptive_control, \
+    grow_capacity, reset_opacity
 from gsplat_tpu_torch.models.splatter import Splatter, render_cropped
 from gsplat_tpu_torch.ops.losses import l1_loss, psnr, ssim
+from gsplat_tpu_torch.utils.image_io import write_png
+from gsplat_tpu_torch.utils.timer import StageTimer
 
 GROUP_ORDER = ("opa", "rgb", "pos", "scale", "quat")  # train.py:56-62
 
@@ -85,7 +101,7 @@ def init_train_state(params: dict, live: torch.Tensor) -> TrainState:
                           device=live.device))
 
 
-def lrs_at(tcfg: TrainConfig, i_iter: int, device="cpu") -> torch.Tensor:
+def lrs_at(tcfg: TrainConfig, i_iter: int, device="cuda") -> torch.Tensor:
     """(5,) float32 learning rates in ``GROUP_ORDER`` at iteration
     ``i_iter`` (the Trainer's ``lrs_at``, ``gsplat_tpu/train.py:429-433``)."""
     base = tcfg.group_lrs()
@@ -178,7 +194,9 @@ def make_train_step(splat: Splatter, tcfg: TrainConfig, group: int = 0):
     return train_step
 
 
-def make_eval_step(splat: Splatter, group: int = 0):
+def make_eval_step(splat: Splatter, group: int = 0, preset: bool = False):
+    """The evaluation step of one camera group; ``preset`` renders through
+    the bf16 render preset (JAX's ``cfg.packed_bf16``), RGB or SH."""
     cfg = splat.cfg
     cams = splat.camera_groups[group]
     grid = cams.grid
@@ -191,8 +209,505 @@ def make_eval_step(splat: Splatter, group: int = 0):
         tran = cams.w2c_tran[cam_idx]
         gt = cams.images[cam_idx].to(torch.float32) / 255.0
         img, _ = render_cropped(params, live, rot, tran, grid, cfg,
-                                bspec, rspec, cams.sh_vecs[cam_idx])
+                                bspec, rspec, cams.sh_vecs[cam_idx], preset)
         return img, psnr(img, gt, data_range=1.0), \
             ssim(img, gt, data_range=1.0, layout="chw")
 
     return eval_step
+
+
+def bounded_k_growth(cfg: SplatConfig, capacity: int, need: int) -> int:
+    """The next K (tiles a gaussian may cover) when the clip guard fires
+    (``gsplat_tpu/train.py:313-338``): ×1.5 rounded even, at least +2, up
+    to the observed coverage ``need`` but at most 2× per event, capped by
+    ``cfg.max_tiles_cap`` and by the row budget ``cfg.max_plane_rows`` on
+    ``capacity · K`` (JAX's dense bound: the port has no column caps).
+    Returns the current K when no bounded growth is possible."""
+    k = cfg.max_tiles_per_gaussian
+    k_new = max(k + 2, (int(k * 1.5) + 1) // 2 * 2,
+                min((need + 1) // 2 * 2, 2 * k))
+    k_new = min(k_new, max(int(cfg.max_tiles_cap), k))
+    while k_new > k and capacity * k_new > cfg.max_plane_rows:
+        k_new -= 2
+    return max(k_new, k)
+
+
+class Trainer:
+    """The training loop on one device (``gsplat_tpu/train.py:341-846``,
+    reference ``train.py:16-291``), on the device of the Splatter's
+    table."""
+
+    def __init__(self, splat: Splatter, tcfg: TrainConfig):
+        self.splat = splat
+        self.tcfg = tcfg
+        self.device = splat.table.device
+        # flat camera index over all intrinsics groups (group-major); every
+        # 8th is a test camera (reference train.py:68)
+        self.flat_cams = [(g, i)
+                          for g, grp in enumerate(splat.camera_groups)
+                          for i in range(grp.n_cameras)]
+        n_cam = len(self.flat_cams)
+        self.test_split = np.arange(0, n_cam, 8)
+        self.train_split = np.array(
+            sorted(set(range(n_cam)) - set(self.test_split.tolist())))
+        self.rng = np.random.default_rng(tcfg.seed)     # camera draws
+        self.noise = torch.Generator(device=self.device)  # split samples
+        self.noise.manual_seed(tcfg.seed)
+        self.state = init_train_state(splat.table.params(), splat.table.live)
+        self._step_cache = {}
+        self._eval_cache = {}
+        self._last_metrics = None
+        self.last_densify = None      # DensifyStats of the latest event
+        self.history = {"l1": [], "ssim": [], "psnr": []}
+
+    def _train_step_for(self, g: int):
+        if g not in self._step_cache:
+            self._step_cache[g] = make_train_step(self.splat, self.tcfg,
+                                                  group=g)
+        return self._step_cache[g]
+
+    def _eval_step_for(self, g: int):
+        if g not in self._eval_cache:
+            self._eval_cache[g] = make_eval_step(self.splat, group=g)
+        return self._eval_cache[g]
+
+    def _rebuild_after_capacity_change(self):
+        self._step_cache.clear()
+        self._eval_cache.clear()
+
+    def lrs_at(self, i_iter: int) -> torch.Tensor:
+        return lrs_at(self.tcfg, i_iter, self.device)
+
+    def _sync_table_from_state(self):
+        """Write the optimizer-side params back into the splat table."""
+        live = self.state.live
+        self.splat.table = dataclasses.replace(
+            self.splat.table, **self.state.params, live=live,
+            n_live=int(live.sum()))
+
+    # per-iteration event predicates (reference train.py:87-91)
+    def _pre_clear(self, i: int) -> bool:
+        t = self.tcfg
+        return (i > 600 and
+                (i + t.grad_accum_iters - 1) % t.n_adaptive_control == 0)
+
+    def _has_post_event(self, i: int) -> bool:
+        t = self.tcfg
+        return ((i % t.n_opa_reset == 0 and i > 0)
+                or (i > 600 and i % t.n_adaptive_control == 0))
+
+    def _post_step(self, i_iter: int):
+        t = self.tcfg
+        reset_opa = i_iter % t.n_opa_reset == 0 and i_iter > 0
+        in_reset = (i_iter >= t.n_opa_reset
+                    and i_iter % t.n_opa_reset < t.reset_interval)
+        ac_delete = i_iter > 600 and i_iter % t.n_adaptive_control == 0
+        ac = (i_iter > 600 and i_iter < t.adaptive_control_end_iter
+              and i_iter % t.n_adaptive_control == 0)
+        if ac or ac_delete:
+            self._densify(i_iter, ac, in_reset)
+        if reset_opa:
+            self._sync_table_from_state()
+            self.splat.table = reset_opacity(self.splat.table)
+            self.state = self.state._replace(
+                params=self.splat.table.params())
+
+    def train_step(self, i_iter: int):
+        """One step at iteration ``i_iter`` on a camera drawn from the
+        train split, then the iteration's host events → the step's
+        metrics."""
+        t = self.tcfg
+        if self._pre_clear(i_iter):
+            self.state = self.state._replace(
+                accum_grad=torch.zeros_like(self.state.accum_grad),
+                grad_counter=torch.zeros_like(self.state.grad_counter))
+        g, cam = self.flat_cams[int(self.rng.choice(self.train_split))]
+        step = self._train_step_for(g)
+        with StageTimer("train_step", debug=t.debug, device=self.device):
+            self.state, metrics = step(self.state, cam, self.lrs_at(i_iter))
+        self._last_metrics = metrics
+        self._post_step(i_iter)
+        return metrics
+
+    def _split_noise(self, capacity: int) -> torch.Tensor:
+        """The standard normal noise of the split samples, (capacity, 2,
+        3), from the trainer's generator."""
+        return torch.randn((capacity, 2, 3), generator=self.noise,
+                           device=self.device)
+
+    def _densify(self, i_iter: int, ac: bool, in_reset: bool):
+        """Adaptive density control at ``i_iter`` (``gsplat_tpu/train.py:
+        544-633``): delete, clone and split, growing the table when the
+        proposals overflow it, then the K guard and a fresh Adam."""
+        t = self.tcfg
+        cfg = self.splat.cfg
+        self._sync_table_from_state()
+        grad_avg = self.state.accum_grad / (
+            self.state.grad_counter[:, None] + 1e-3)
+        use_clone = t.use_clone and ac and not in_reset
+        use_split = t.use_split and ac and not in_reset
+
+        def run_control(tbl, grads):
+            return adaptive_control(
+                tbl, grads, self._split_noise(tbl.capacity),
+                taus=t.split_thresh, delete_thresh=t.delete_thresh,
+                grad_thresh=t.grad_thresh, clone_dt=t.clone_dt,
+                use_clone=use_clone, use_split=use_split,
+                scale_activation=cfg.scale_activation,
+                grad_aggregation=t.grad_aggregation)
+
+        pre_table = self.splat.table
+        new_table, stats = run_control(pre_table, grad_avg)
+        mc = int(cfg.max_capacity or 0)
+        grown = False
+        if stats.overflowed and not (mc and pre_table.capacity >= mc):
+            # The reference never drops proposals (torch.cat grows the
+            # tensors, splatter.py:225-228): grow the pre-control table to
+            # fit them and run the control again.  At a max_capacity
+            # ceiling the clamped result stands.
+            pre_table = grow_capacity(pre_table, cfg.capacity_round,
+                                      min_capacity=int(stats.n_wanted * 1.1)
+                                      + 1, max_capacity=mc)
+            pad_n = pre_table.capacity - grad_avg.shape[0]
+            if pad_n > 0:
+                grad_avg = torch.cat([grad_avg, grad_avg.new_zeros(pad_n, 3)])
+            new_table, stats = run_control(pre_table, grad_avg)
+            grown = True
+        self.splat.table = new_table
+        grown = self.splat.maybe_grow() or grown
+        retuned = False
+        if self._last_metrics is not None:
+            # K guard: grow K when the per-gaussian tile cap clips more than
+            # 0.5% of the pairs
+            m = self._last_metrics
+            n_clip, n_pairs = int(m["n_clipped"]), max(int(m["n_pairs"]), 1)
+            if n_clip > 0.005 * n_pairs:
+                k_new = bounded_k_growth(cfg, self.splat.table.capacity,
+                                         int(m["n_max_tiles"]))
+                if k_new > cfg.max_tiles_per_gaussian:
+                    cfg.max_tiles_per_gaussian = k_new
+                    retuned = True
+        if grown or retuned:
+            self._rebuild_after_capacity_change()
+        tbl = self.splat.table
+        self.state = init_train_state(tbl.params(), tbl.live)  # a new Adam
+        self.last_densify = stats
+        if t.debug:
+            print(f"[densify @{i_iter}] del={stats.n_deleted} "
+                  f"clone={stats.n_cloned} split={stats.n_split} "
+                  f"n_live={tbl.n_live} capacity={tbl.capacity}")
+
+    # ------------------------------------------------------------------
+    def test(self, camera_id: int, group: int = 0):
+        img, p, s = self._eval_step_for(group)(
+            self.state.params, self.state.live, camera_id)
+        return {"image": img, "psnr": float(p), "ssim": float(s)}
+
+    @torch.no_grad()
+    def evaluate(self, fps_repeats: int = 3):
+        """Test-split PSNR and SSIM means, and render FPS: the test cameras
+        rendered ``fps_repeats`` times after one warm-up pass, timed by CUDA
+        events on the card (``time.perf_counter`` on the CPU).  ``fps`` is
+        the render alone (project, pack, composite, crop), without the
+        metrics."""
+        psnrs, ssims = [], []
+        by_group = {}
+        for fid in self.test_split:
+            g, cid = self.flat_cams[fid]
+            by_group.setdefault(g, []).append(cid)
+        params, live = self.state.params, self.state.live
+        n_frames, seconds = 0, 0.0
+        for g, cids in by_group.items():
+            step = self._eval_step_for(g)
+            for cid in cids:
+                _, p, s = step(params, live, cid)
+                psnrs.append(float(p))
+                ssims.append(float(s))
+            cams = self.splat.camera_groups[g]
+            bspec, rspec = self.splat.specs(cams.grid)
+
+            def render(cid):
+                return render_cropped(params, live, cams.w2c_rot[cid],
+                                      cams.w2c_tran[cid], cams.grid,
+                                      self.splat.cfg, bspec, rspec,
+                                      cams.sh_vecs[cid])[0]
+
+            for cid in cids:                            # warm-up
+                render(cid)
+            with StageTimer("evaluate_render", device=self.device) as st:
+                for _ in range(fps_repeats):
+                    for cid in cids:
+                        render(cid)
+            n_frames += fps_repeats * len(cids)
+            seconds += st.interval
+        m = self._last_metrics or {}
+        return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)),
+                "fps": n_frames / max(seconds, 1e-9), "fps_frames": n_frames,
+                "n_pairs": int(m.get("n_pairs", 0))}
+
+    def save(self, path=None):
+        from gsplat_tpu_torch.utils.checkpoint import save_checkpoint
+
+        self._sync_table_from_state()
+        path = path or os.path.join(self.tcfg.exp, "ckpt.npz")
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        save_checkpoint(self.splat.table, path)
+
+    def save_full(self, path: str, i_iter: int):
+        """The whole training state (params, live mask, Adam moments and
+        step, accumulators, K) in JAX's ``save_full`` format, so training
+        resumes where it stopped (``gsplat_tpu/train.py:698-721``)."""
+        from gsplat_tpu_torch.utils.checkpoint import save_full_state
+
+        self._sync_table_from_state()
+        save_full_state(path, self.state, i_iter,
+                        self.splat.cfg.max_tiles_per_gaussian)
+
+    def load_full(self, path: str) -> int:
+        """Restore a :meth:`save_full` file, the port's or JAX's (whose TPU
+        budget keys are ignored) → the saved iteration."""
+        from gsplat_tpu_torch.utils.checkpoint import load_full_state
+
+        self.state, i_iter, k = load_full_state(path, self.device)
+        if k is not None:
+            self.splat.cfg.max_tiles_per_gaussian = k
+        self._sync_table_from_state()
+        self._rebuild_after_capacity_change()
+        return i_iter
+
+    def save_render(self, i_iter: int, camera_id: int = 0):
+        """Write a render of camera ``camera_id`` to
+        ``{exp}/imgs/train_{i_iter}.png`` (reference train.py:223-228)."""
+        img, _, _ = self._eval_step_for(0)(self.state.params,
+                                           self.state.live, camera_id)
+        arr = (img.clamp(0, 1).permute(1, 2, 0).cpu().numpy() * 255
+               ).astype(np.uint8)
+        d = os.path.join(self.tcfg.exp, "imgs")
+        os.makedirs(d, exist_ok=True)
+        write_png(os.path.join(d, f"train_{i_iter}.png"), arr)
+
+    # ------------------------------------------------------------------
+    def _is_host_boundary(self, i: int) -> bool:
+        """Steps after which the loop logs or acts on the host."""
+        t = self.tcfg
+        return (self._has_post_event(i)
+                or (i == 400 and t.render_downsample_start
+                    != t.render_downsample)
+                or bool(t.n_iters_test and i % t.n_iters_test == 0 and i > 0)
+                or bool(t.n_save_train_img
+                        and i % t.n_save_train_img == 0 and i > 0))
+
+    def train(self, n_iters=None, metrics_every=20, log=print, start=0):
+        """Iterations ``start`` … ``n_iters`` − 1, one ``train_step`` each.
+        Every ``metrics_every`` steps and at every host event it logs the
+        last step's metrics; at iteration 400 it moves to the target image
+        pyramid level, and it evaluates and saves on the TEST and save
+        cadences (``gsplat_tpu/train.py:775-846``)."""
+        t = self.tcfg
+        n_iters = n_iters or t.n_iters
+        if (start > 400 and t.render_downsample_start != t.render_downsample
+                and self.splat.cfg.render_downsample != t.render_downsample):
+            # resumed past the iter-400 pyramid switch: the fresh Splatter
+            # was built at the warm-start level, apply the switch again
+            self.splat.switch_resolution(t.render_downsample)
+            self._rebuild_after_capacity_change()
+        t_start = time.perf_counter()
+        i = start
+        while i < n_iters:
+            j = i
+            while (not t.debug and j < n_iters - 1
+                   and j - i + 1 < metrics_every
+                   and not self._is_host_boundary(j)):
+                j += 1
+            for k in range(i, j + 1):
+                metrics = self.train_step(k)
+            l1, p = float(metrics["l1"]), float(metrics["psnr"])
+            self.history["l1"].append(l1)
+            self.history["psnr"].append(p)
+            its = (j + 1 - start) / (time.perf_counter() - t_start)
+            log(f"iter {j}: l1={l1:.4f} psnr={p:.2f} "
+                f"pairs={int(metrics['n_pairs'])} {its:.1f} it/s")
+            if (j == 400 and t.render_downsample_start
+                    != t.render_downsample):
+                # reference train.py:233-234: the target pyramid level after
+                # a coarse warm start
+                self.splat.switch_resolution(t.render_downsample)
+                self._rebuild_after_capacity_change()
+            if t.n_iters_test and j % t.n_iters_test == 0 and j > 0:
+                ev = self.evaluate()
+                log(f"TEST @{j}: psnr={ev['psnr']:.4f} ssim={ev['ssim']:.4f} "
+                    f"fps={ev['fps']:.1f}")
+            if t.n_save_train_img and j % t.n_save_train_img == 0 and j > 0:
+                self.save()
+                self.save_render(j)
+            if t.debug and j % 100 == 0 and j > 0:
+                StageTimer.show_recorder()
+            i = j + 1
+        return self.history
+
+
+# ---------------------------------------------------------------------------
+# CLI (flag parity with reference train.py:296-361)
+# ---------------------------------------------------------------------------
+
+def build_argparser():
+    """The flags of ``gsplat_tpu/train.py:853-976`` whose fields the port
+    keeps, and ``--device``.  The TPU layout flags (``--use_pallas``,
+    ``--fused_pack``, ``--gather_colors``, ``--gather_geom``,
+    ``--quant_depth``, ``--bf16_pack``, ``--cull_sublsb``, ``--pad_rows``)
+    and ``--dp`` are not flags here: argparse rejects them."""
+    p = argparse.ArgumentParser(
+        description="3D gaussian splatting on one GPU (PyTorch + CUDA)")
+    t = TrainConfig()
+    s = SplatConfig()
+    p.add_argument("--n_iters", type=int, default=t.n_iters)
+    p.add_argument("--n_iters_warmup", type=int, default=t.n_iters_warmup)
+    p.add_argument("--n_iters_test", type=int, default=t.n_iters_test)
+    p.add_argument("--n_history_track", type=int, default=t.n_history_track)
+    p.add_argument("--n_save_train_img", type=int, default=t.n_save_train_img)
+    p.add_argument("--n_adaptive_control", type=int,
+                   default=t.n_adaptive_control)
+    p.add_argument("--render_downsample_start", type=int, default=4)
+    p.add_argument("--render_downsample", type=int, default=4)
+    p.add_argument("--jacobian_track", type=int, default=0,
+                   help="accepted for reference-CLI parity; the projection "
+                        "backward is autograd, there is no separate "
+                        "jacobian to track")
+    p.add_argument("--data", type=str, default=t.data)
+    p.add_argument("--scale_init_value", type=float,
+                   default=s.scale_init_value)
+    p.add_argument("--opa_init_value", type=float, default=s.opa_init_value)
+    p.add_argument("--tile_culling_method", type=str, default="prob2",
+                   choices=["dist", "prob", "prob2"])
+    p.add_argument("--tile_culling_dist_thresh", type=float, default=0.5)
+    p.add_argument("--tile_culling_prob_thresh", type=float, default=0.05)
+    p.add_argument("--lr", type=float, default=t.lr)
+    p.add_argument("--lr_factor_for_scale", type=float, default=1.0)
+    p.add_argument("--lr_factor_for_rgb", type=float, default=10.0)
+    p.add_argument("--lr_factor_for_opa", type=float, default=10.0)
+    p.add_argument("--lr_factor_for_quat", type=float, default=1.0)
+    p.add_argument("--lr_decay", type=str, default="exp",
+                   choices=["none", "official", "exp"])
+    p.add_argument("--delete_thresh", type=float, default=t.delete_thresh)
+    p.add_argument("--n_opa_reset", type=int, default=t.n_opa_reset)
+    p.add_argument("--reset_interval", type=int, default=t.reset_interval)
+    p.add_argument("--split_thresh", type=float, default=t.split_thresh)
+    p.add_argument("--ssim_weight", type=float, default=t.ssim_weight)
+    p.add_argument("--debug", type=int, default=0)
+    p.add_argument("--use_sh_coeff", type=int, default=0)
+    p.add_argument("--scale_reg", type=float, default=0.0)
+    p.add_argument("--opa_reg", type=float, default=0.0)
+    p.add_argument("--seed", type=int, default=t.seed)
+    p.add_argument("--ckpt", type=str, default="")
+    p.add_argument("--scale_activation", type=str, default="abs",
+                   choices=["abs", "exp"])
+    p.add_argument("--fast_drawing", type=int, default=1,
+                   help="render-only surfaces (render_offscreen) draw RGB "
+                        "models through the bf16 render preset; training "
+                        "math is always f32")
+    p.add_argument("--exp", type=str, default="default")
+    p.add_argument("--grad_accum_iters", type=int, default=t.grad_accum_iters)
+    p.add_argument("--grad_accum_method", type=str, default="max",
+                   choices=["mean", "max"])
+    p.add_argument("--grad_thresh", type=float, default=t.grad_thresh)
+    p.add_argument("--use_clone", type=int, default=0)
+    p.add_argument("--use_split", type=int, default=1)
+    p.add_argument("--clone_dt", type=float, default=t.clone_dt)
+    p.add_argument("--grad_aggregation", type=str, default="max",
+                   choices=["max", "mean"])
+    p.add_argument("--adaptive_control_end_iter", type=int,
+                   default=t.adaptive_control_end_iter)
+    p.add_argument("--chunk_size", type=int, default=128,
+                   help="pairs per step of the plain (CPU) compositor")
+    p.add_argument("--max_tiles_per_gaussian", type=int, default=6)
+    p.add_argument("--max_tiles_cap", type=int, default=64,
+                   help="hard ceiling for automatic K growth")
+    p.add_argument("--max_plane_rows", type=int, default=16_777_216,
+                   help="bound of capacity · K for K growth")
+    p.add_argument("--capacity_round", type=int, default=65536,
+                   help="gaussian table capacity bucket (smaller for tiny "
+                        "scenes)")
+    p.add_argument("--max_capacity", type=int, default=0,
+                   help="hard table-capacity ceiling (0 = none); at the "
+                        "ceiling densify proposals that do not fit are "
+                        "dropped")
+    p.add_argument("--metrics_every", type=int, default=20)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="device of the table, the images and the kernels "
+                        "(cuda, cuda:N, or cpu for the plain versions)")
+    p.add_argument("--gui", type=int, default=0)
+    p.add_argument("--test", type=int, default=0)
+    p.add_argument("--gui_port", type=int, default=6789)
+    return p
+
+
+def configs_from_args(a) -> tuple[SplatConfig, TrainConfig]:
+    scfg = SplatConfig(
+        use_sh_coeff=bool(a.use_sh_coeff),
+        opa_init_value=a.opa_init_value,
+        scale_init_value=a.scale_init_value,
+        tile_culling_method=a.tile_culling_method,
+        tile_culling_dist_thresh=a.tile_culling_dist_thresh,
+        tile_culling_prob_thresh=a.tile_culling_prob_thresh,
+        scale_activation=a.scale_activation,
+        fast_drawing=bool(a.fast_drawing),
+        # start at the warm-up pyramid level; the trainer switches to
+        # render_downsample at iteration 400 (reference train.py:233-234)
+        render_downsample=a.render_downsample_start,
+        max_tiles_per_gaussian=a.max_tiles_per_gaussian,
+        max_tiles_cap=a.max_tiles_cap,
+        max_plane_rows=a.max_plane_rows,
+        chunk_size=a.chunk_size,
+        capacity_round=a.capacity_round,
+        max_capacity=a.max_capacity,
+    )
+    tcfg = TrainConfig(
+        n_iters=a.n_iters, n_iters_warmup=a.n_iters_warmup,
+        n_iters_test=a.n_iters_test, n_history_track=a.n_history_track,
+        n_save_train_img=a.n_save_train_img,
+        n_adaptive_control=a.n_adaptive_control,
+        render_downsample_start=a.render_downsample_start,
+        render_downsample=a.render_downsample,
+        lr=a.lr, lr_factor_for_scale=a.lr_factor_for_scale,
+        lr_factor_for_rgb=a.lr_factor_for_rgb,
+        lr_factor_for_opa=a.lr_factor_for_opa,
+        lr_factor_for_quat=a.lr_factor_for_quat, lr_decay=a.lr_decay,
+        delete_thresh=a.delete_thresh, n_opa_reset=a.n_opa_reset,
+        reset_interval=a.reset_interval, split_thresh=a.split_thresh,
+        grad_accum_iters=a.grad_accum_iters,
+        grad_accum_method=a.grad_accum_method, grad_thresh=a.grad_thresh,
+        use_clone=bool(a.use_clone), use_split=bool(a.use_split),
+        clone_dt=a.clone_dt, grad_aggregation=a.grad_aggregation,
+        adaptive_control_end_iter=a.adaptive_control_end_iter,
+        ssim_weight=a.ssim_weight, scale_reg=a.scale_reg, opa_reg=a.opa_reg,
+        seed=a.seed, exp=a.exp, data=a.data,
+        ckpt=a.ckpt or None, debug=bool(a.debug),
+    )
+    return scfg, tcfg
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    if args.gui:
+        raise SystemExit("--gui 1: the viewer server is not ported to "
+                         "gsplat_tpu_torch yet; for headless rendering use "
+                         "gsplat_tpu_torch.viewer.render_offscreen")
+    if args.test:
+        raise SystemExit(
+            "--test 1 requires --gui 1 (reference train.py:395 asserts the "
+            "same); for headless rendering use "
+            "gsplat_tpu_torch.viewer.render_offscreen")
+    np.random.seed(args.seed)
+    scfg, tcfg = configs_from_args(args)
+    data_path = os.path.join(args.data, "sparse", "0")
+    img_path = os.path.join(args.data,
+                            f"images_{args.render_downsample_start}")
+    splat = Splatter(data_path, img_path, scfg, load_ckpt=tcfg.ckpt,
+                     device=args.device)
+    trainer = Trainer(splat, tcfg)
+    trainer.train(metrics_every=args.metrics_every)
+    trainer.save()
+
+
+if __name__ == "__main__":
+    main()

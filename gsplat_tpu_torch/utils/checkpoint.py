@@ -4,7 +4,9 @@
 The same files as ``gsplat_tpu/utils/checkpoint.py``: the five raw parameter
 arrays ``{pos, opa, rgb, quat, scale}`` of the live rows, written as a
 compressed ``.npz`` or with ``torch.save`` as ``.pth``.  Loading pads them
-back into a fixed-capacity table.
+back into a fixed-capacity table.  The Trainer's whole state (``Trainer.
+save_full``/``load_full``) uses the keys of JAX's ``save_full``
+(``gsplat_tpu/train.py:698-750``), so either package resumes the other's.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from gsplat_tpu_torch.models.gaussians import GaussianTable, table_from_numpy
-from gsplat_tpu_torch.train import AdamState, TrainState
+from gsplat_tpu_torch.train import GROUP_ORDER, AdamState, TrainState
 from gsplat_tpu_torch.utils.so3 import inverse_sigmoid
 
 KEYS = ("pos", "opa", "rgb", "quat", "scale")
@@ -62,7 +64,7 @@ def _from_arrays(arrays: dict, capacity_round: int, device,
 
 
 def load_checkpoint(path: str, capacity_round: int = 65536,
-                    device="cpu") -> GaussianTable:
+                    device="cuda") -> GaussianTable:
     if str(path).endswith(".pth"):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         arrays = {k: ckpt[k].detach().float().numpy() for k in KEYS}
@@ -103,3 +105,41 @@ def train_state_from_jax_arrays(st, device) -> TrainState:
                                      device=device)),
         accum_grad=f32(st.accum_grad),
         grad_counter=f32(st.grad_counter))
+
+
+def save_full_state(path: str, st: TrainState, i_iter: int, k: int):
+    """The whole training state as JAX's ``save_full`` writes it: params
+    ``p_*``, Adam moments ``mu_*``/``nu_*`` and ``adam_t``, ``live``, the
+    accumulators, ``i_iter`` and K (``cfg_k``).  JAX's TPU budget keys are
+    written unset (-1, 0, empty), which JAX reads as "no budget"."""
+    def np_(x):
+        return x.detach().cpu().numpy()
+
+    np.savez_compressed(
+        path, i_iter=i_iter, live=np_(st.live),
+        accum_grad=np_(st.accum_grad), grad_counter=np_(st.grad_counter),
+        adam_t=np.int32(int(st.opt.t)),
+        cfg_pair_capacity=np.int64(-1), cfg_visible_rows=np.int64(0),
+        cfg_col_caps=np.zeros((0,), np.int64), cfg_k=np.int64(k),
+        **{f"p_{k_}": np_(v) for k_, v in st.params.items()},
+        **{f"mu_{k_}": np_(v) for k_, v in st.opt.mu.items()},
+        **{f"nu_{k_}": np_(v) for k_, v in st.opt.nu.items()})
+
+
+def load_full_state(path: str, device) -> tuple[TrainState, int, int]:
+    """A ``save_full`` file, the port's or JAX's → (TrainState on
+    ``device``, the saved iteration, K or None where the file has none).
+    The TPU budget keys are ignored."""
+    with np.load(path) as z:
+        def t(key, dtype=torch.float32):
+            return torch.from_numpy(np.array(z[key])).to(device, dtype)
+
+        st = TrainState(
+            params={k: t(f"p_{k}") for k in GROUP_ORDER},
+            live=t("live", torch.bool),
+            opt=AdamState(mu={k: t(f"mu_{k}") for k in GROUP_ORDER},
+                          nu={k: t(f"nu_{k}") for k in GROUP_ORDER},
+                          t=t("adam_t", torch.int32)),
+            accum_grad=t("accum_grad"), grad_counter=t("grad_counter"))
+        return st, int(z["i_iter"]), \
+            int(z["cfg_k"]) if "cfg_k" in z else None

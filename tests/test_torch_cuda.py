@@ -14,6 +14,7 @@ import torch
 
 from gsplat_tpu_torch import synthetic
 from gsplat_tpu_torch.config import SplatConfig, TrainConfig
+from gsplat_tpu_torch.models.gaussians import adaptive_control
 from gsplat_tpu_torch.models.splatter import (SceneCameras, Splatter,
                                               make_specs, render_cropped)
 from gsplat_tpu_torch.ops.binning import BinningSpec, pack_preset, \
@@ -25,8 +26,8 @@ from gsplat_tpu_torch.ops.rasterize import (LAUNCHES, RasterSpec,
                                             composite_tiles_preset,
                                             composite_tiles_preset_torch,
                                             composite_tiles_torch)
-from gsplat_tpu_torch.train import (GROUP_ORDER, init_train_state,
-                                    make_train_step)
+from gsplat_tpu_torch.train import (GROUP_ORDER, init_train_state, lrs_at,
+                                    make_eval_step, make_train_step)
 from gsplat_tpu_torch.viewer import render_offscreen
 
 from torch_helpers import (BIG_CROWD, TILE, assert_close_cols,
@@ -95,8 +96,9 @@ def test_kernel_rejects_bad_inputs(cuda):
 @pytest.mark.cuda
 def test_render_on_cuda_matches_cpu(cuda):
     table = synthetic.synthetic_table(3000, capacity_round=4096, focal=100.0,
-                                      scale_px=3.0, frustum=(0.85, 0.55))
-    cams = synthetic.synthetic_cameras(2, 160, 112, 100.0)
+                                      scale_px=3.0, frustum=(0.85, 0.55),
+                                      device="cpu")
+    cams = synthetic.synthetic_cameras(2, 160, 112, 100.0, device="cpu")
     cfg = SplatConfig()
     bspec, rspec = make_specs(cams["grid"], cfg)
     imgs = []
@@ -166,8 +168,9 @@ def test_composite_tiles_keeps_the_graph_on_cuda(cuda):
 @pytest.mark.cuda
 def test_train_step_on_cuda_matches_cpu(cuda):
     table = synthetic.synthetic_table(3000, capacity_round=4096, focal=100.0,
-                                      scale_px=3.0, frustum=(0.85, 0.55))
-    cams = synthetic.synthetic_cameras(2, 160, 112, 100.0)
+                                      scale_px=3.0, frustum=(0.85, 0.55),
+                                      device="cpu")
+    cams = synthetic.synthetic_cameras(2, 160, 112, 100.0, device="cpu")
     results = []
     for dev in ("cpu", cuda):
         t = table.to(dev)
@@ -269,11 +272,92 @@ def test_preset_kernel_matches_plain_version(cuda, opaque):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("opaque", [False, True])
+def test_preset_sh_kernel_matches_plain_version(cuda, opaque):
+    packed, rspec, shv = _packed(cuda, opaque=opaque, sh=True, **BIG_CROWD)
+    counts = torch.diff(packed.tile_start)
+    assert int(counts.max()) > 256 and int((counts == 0).sum()) > 0
+    spec = BinningSpec(**image_space_pairs(0, focal=40.0, **BIG_CROWD)[4],
+                       max_tiles_per_gaussian=6)
+    pp = pack_preset(spec, packed)
+    assert pp.color.shape == (packed.geom.shape[0], 32)
+    before = LAUNCHES["rasterize_fwd_preset_sh"]
+    out = composite_tiles_preset(pp.geom, pp.color, pp.tile_start, rspec, shv)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rasterize_fwd_preset_sh"] == before + 1
+    ref = composite_tiles_preset_torch(pp.geom, pp.color, pp.tile_start,
+                                       rspec, shv)
+    torch.testing.assert_close(out, ref, atol=TOL, rtol=0)
+    assert (out[(counts == 0)] == 0).all()
+    # it is not the f32 SH route, but close to it
+    f32 = composite_tiles_torch(packed.geom, packed.color, packed.tile_start,
+                                rspec, shv)
+    assert 0 < float((out - f32).abs().max()) < 0.05
+
+
+@pytest.mark.cuda
+def test_defaults_put_the_port_on_the_card(cuda):
+    table = synthetic.synthetic_table(300, capacity_round=128)
+    cams = synthetic.synthetic_cameras(1, 48, 32, 40.0)
+    assert table.device.type == "cuda" and cams["images"].is_cuda
+    assert lrs_at(TrainConfig(), 500).is_cuda
+
+
+@pytest.mark.cuda
+def test_eval_step_preset_sh_on_cuda_matches_cpu(cuda):
+    table = synthetic.synthetic_table(3000, capacity_round=4096, focal=100.0,
+                                      scale_px=3.0, frustum=(0.85, 0.55),
+                                      use_sh=True, sh_ampl=0.35,
+                                      device="cpu")
+    cams = synthetic.synthetic_cameras(2, 160, 112, 100.0, device="cpu")
+    imgs = []
+    for dev in ("cpu", cuda):
+        t = table.to(dev)
+        splat = Splatter.from_scene(SplatConfig(use_sh_coeff=True), t, [
+            SceneCameras(w2c_rot=cams["w2c_rot"].to(dev),
+                         w2c_tran=cams["w2c_tran"].to(dev),
+                         sh_vecs=cams["sh_vecs"].to(dev),
+                         images=cams["images"].to(dev), grid=cams["grid"],
+                         names=["a", "b"])])
+        before = LAUNCHES["rasterize_fwd_preset_sh"]
+        img, p, s = make_eval_step(splat, preset=True)(t.params(), t.live, 1)
+        assert LAUNCHES["rasterize_fwd_preset_sh"] - before == (
+            0 if dev == "cpu" else 1)
+        imgs.append(img.cpu())
+    torch.testing.assert_close(imgs[1], imgs[0], atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_adaptive_control_on_cuda_matches_cpu(cuda):
+    table = synthetic.synthetic_table(3000, capacity_round=1024, focal=100.0,
+                                      scale_px=3.0, frustum=(0.85, 0.55),
+                                      device="cpu")
+    rng = np.random.default_rng(3)
+    grad = torch.from_numpy(np.abs(rng.normal(0, 3e-4, (table.capacity, 3)))
+                            .astype(np.float32))
+    eps = torch.from_numpy(rng.normal(size=(table.capacity, 2, 3))
+                           .astype(np.float32))
+    kw = dict(taus=0.2, delete_thresh=0.5, grad_thresh=2e-4, clone_dt=0.01,
+              use_clone=True, use_split=True)
+    (tc, sc), (tg, sg) = (adaptive_control(table.to(d), grad.to(d),
+                                           eps.to(d), **kw)
+                          for d in ("cpu", cuda))
+    assert sc == sg and sc.n_split > 0 and sc.n_cloned > 0
+    assert sc.n_deleted > 0 and sc.overflowed
+    assert torch.equal(tg.live.cpu(), tc.live) and tg.n_live == tc.n_live
+    for k in ("pos", "rgb", "opa", "quat", "scale"):
+        a, b = getattr(tg, k).cpu(), getattr(tc, k)
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 *
+                                   float(b.abs().max()), msg=k)
+
+
+@pytest.mark.cuda
 def test_sh_train_step_and_offscreen_on_cuda_match_cpu(cuda):
     table = synthetic.synthetic_table(3000, capacity_round=4096, focal=100.0,
                                       scale_px=3.0, frustum=(0.85, 0.55),
-                                      use_sh=True, sh_ampl=0.35)
-    cams = synthetic.synthetic_cameras(2, 160, 112, 100.0)
+                                      use_sh=True, sh_ampl=0.35,
+                                      device="cpu")
+    cams = synthetic.synthetic_cameras(2, 160, 112, 100.0, device="cpu")
     w2c = np.eye(4, dtype=np.float32)
     results = []
     for dev in ("cpu", cuda):
@@ -301,8 +385,9 @@ def test_sh_train_step_and_offscreen_on_cuda_match_cpu(cuda):
 @pytest.mark.cuda
 def test_offscreen_preset_on_cuda_matches_cpu(cuda):
     table = synthetic.synthetic_table(3000, capacity_round=4096, focal=100.0,
-                                      scale_px=3.0, frustum=(0.85, 0.55))
-    cams = synthetic.synthetic_cameras(1, 160, 112, 100.0)
+                                      scale_px=3.0, frustum=(0.85, 0.55),
+                                      device="cpu")
+    cams = synthetic.synthetic_cameras(1, 160, 112, 100.0, device="cpu")
     w2c = np.eye(4, dtype=np.float32)
     frames = []
     for dev in ("cpu", cuda):

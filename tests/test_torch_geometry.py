@@ -41,6 +41,8 @@ def test_config_fields_subset_with_equal_defaults(cls):
     tf = {f.name: f for f in dataclasses.fields(getattr(tcfg, cls))}
     jf = {f.name: f for f in dataclasses.fields(getattr(jcfg, cls))}
     assert set(tf) <= set(jf), set(tf) - set(jf)
+    if cls == "SplatConfig":    # the densification and K-growth bounds
+        assert {"max_capacity", "max_tiles_cap", "max_plane_rows"} <= set(tf)
     tdef, jdef = getattr(tcfg, cls)(), getattr(jcfg, cls)()
     for name in tf:
         assert getattr(tdef, name) == getattr(jdef, name), name
@@ -130,14 +132,14 @@ def test_init_from_points_matches(act):
     rgb = rng.integers(0, 255, (300, 3)).astype(np.uint8)
     kw = dict(opa_init_value=0.4, scale_init_value=0.7,
               scale_activation=act, capacity_round=128)
-    t = t_init(pts, rgb, **kw)
+    t = t_init(pts, rgb, device="cpu", **kw)
     j = j_init(pts, rgb, **kw)
     assert t.n_live == int(j.n_live) and t.capacity == j.capacity
     for k in TABLE_KEYS:
         np.testing.assert_array_equal(getattr(t, k).numpy(),
                                       np.asarray(getattr(j, k)), err_msg=k)
     # SH: the color logits become the DC terms of 27 coefficients
-    t = t_init(pts, rgb, use_sh_coeff=True, **kw)
+    t = t_init(pts, rgb, use_sh_coeff=True, device="cpu", **kw)
     j = j_init(pts, rgb, use_sh_coeff=True, **kw)
     assert t.rgb.shape == (t.capacity, 27)
     for k in TABLE_KEYS:
@@ -156,7 +158,7 @@ def test_checkpoints_cross_load(tmp_path, ext):
     # JAX writes, the port reads
     jpath = str(tmp_path / f"j{ext}")
     jckpt.save_checkpoint(jt, jpath)
-    t = tckpt.load_checkpoint(jpath, capacity_round=128)
+    t = tckpt.load_checkpoint(jpath, capacity_round=128, device="cpu")
     ref = jckpt.load_checkpoint(jpath, capacity_round=128)
     for k in TABLE_KEYS:
         np.testing.assert_array_equal(getattr(t, k).numpy(),

@@ -10,7 +10,11 @@ JAX's preset image within atol 1e-5 (the bound of
 Pallas kernel in interpret mode.  Then: preset vs f32 PSNR above 40 dB
 (``test_fused_pack.py:290``), backward through the preset raises, and
 ``render_offscreen`` with the default config renders the preset for RGB and
-the f32 SH route for SH, where ``sh_order`` masks the bands.
+the f32 SH route for SH, where ``sh_order`` masks the bands.  The same for
+the SH preset (27 coefficients, padded to 32): pair values bit for bit,
+images within 1e-5 of JAX's jnp and Pallas-interpret routes, above 38 dB
+from the f32 SH image (``test_fused_pack.py:326``), backward raises, and
+``make_eval_step(preset=True)`` against JAX's ``packed_bf16`` eval step.
 """
 
 import jax  # noqa: F401  (conftest pins JAX to the CPU)
@@ -21,6 +25,7 @@ import torch
 
 from gsplat_tpu import synthetic as jsyn
 from gsplat_tpu.config import SplatConfig as JCfg
+from gsplat_tpu.models.splatter import SceneCameras as JCams
 from gsplat_tpu.models.splatter import Splatter as JSplatter
 from gsplat_tpu.ops.binning import BinningSpec as JSpec
 from gsplat_tpu.ops.binning import pack_sorted as j_pack
@@ -28,6 +33,7 @@ from gsplat_tpu.ops.binning import unpack2_bf16
 from gsplat_tpu.ops.rasterize import RasterSpec as JRSpec
 from gsplat_tpu.ops.rasterize import (composite_chunks_jnp,
                                       composite_chunks_pallas)
+from gsplat_tpu.train import make_eval_step as j_eval_step
 from gsplat_tpu.viewer import render_offscreen as j_offscreen
 
 from gsplat_tpu_torch import synthetic as tsyn
@@ -42,6 +48,7 @@ from gsplat_tpu_torch.ops.rasterize import (LAUNCHES, composite_tiles_preset,
                                             composite_tiles_preset_torch,
                                             composite_tiles_torch, rasterize,
                                             rasterize_preset)
+from gsplat_tpu_torch.train import make_eval_step as t_eval_step
 from gsplat_tpu_torch.viewer import render_offscreen as t_offscreen
 
 from torch_helpers import BIG_CROWD, TILE, image_space_pairs
@@ -143,6 +150,97 @@ def test_preset_matches_jax(opaque):
     assert np.abs(img - f32).max() > 0        # it is not the f32 route
 
 
+def _sh_scene(seed, opaque=False):
+    geom, color, depth, visible, geo = _scene(seed, opaque, **BIG_CROWD)
+    coef, shv = tsyn.image_space_sh(seed, color, geo, FOCAL)
+    return geom, coef, depth, visible, geo, shv
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_preset_sh_pairs_match_jax_bitwise(seed):
+    geom, coef, depth, visible, geo, _ = _sh_scene(seed)
+    (gb, cb), meta = _jax_preset(geom, coef, depth, visible, geo)
+    assert cb.shape[0] == 16               # 27 → 32 coefficients, paired
+    jg = np.asarray(unpack2_bf16(gb)).T    # x y a b c d opa 0
+    jc = np.asarray(unpack2_bf16(cb)).T    # the 32 coefficients in order
+    packed, pp = _t_preset(geom, coef, depth, visible, geo)
+    assert pp.geom.dtype == pp.color.dtype == torch.bfloat16
+    assert pp.color.shape == (packed.geom.shape[0], 32)
+    assert (pp.color[:, 27:] == 0).all() and (pp.geom[:, 7] == 0).all()
+    ts = packed.tile_start.numpy()
+    n_tiles = geo["n_tile_x"] * geo["n_tile_y"]
+    rows = {t: [] for t in range(n_tiles)}
+    for c, (t, ln) in enumerate(zip(np.asarray(meta.chunk_tile),
+                                    np.asarray(meta.chunk_len))):
+        if t < n_tiles:
+            rows[t].append(np.concatenate(
+                [jg[c * 128:c * 128 + ln], jc[c * 128:c * 128 + ln]], 1))
+    assert int(meta.n_pairs) == int(packed.n_pairs)
+    for t in range(n_tiles):
+        j = np.concatenate(rows[t]) if rows[t] \
+            else np.zeros((0, 40), np.float32)
+        mine = np.concatenate(
+            [pp.geom[ts[t]:ts[t + 1]].float().numpy(),
+             pp.color[ts[t]:ts[t + 1]].float().numpy()], 1)
+        # the values, not JAX's i32 pairing of them
+        np.testing.assert_array_equal(mine.view(np.int32), j.view(np.int32),
+                                      err_msg=f"tile {t}")
+
+
+@pytest.mark.parametrize("opaque", [False, True])
+def test_preset_sh_matches_jax(opaque):
+    geom, coef, depth, visible, geo, shv = _sh_scene(0, opaque)
+    (gb, cb), meta = _jax_preset(geom, coef, depth, visible, geo)
+    packed, pp = _t_preset(geom, coef, depth, visible, geo)
+    n_tiles = geo["n_tile_x"] * geo["n_tile_y"]
+    trs = TRSpec(geo["n_tile_x"], geo["n_tile_y"], TILE, TILE, FOCAL, FOCAL,
+                 color_dim=27)
+    jrs = JRSpec(geo["n_tile_x"], geo["n_tile_y"], TILE, TILE, FOCAL, FOCAL,
+                 128, 27, channel_major=True, packed_bf16=True)
+    tshv = torch.from_numpy(shv)
+    before = dict(LAUNCHES)
+    out = composite_tiles_preset(pp.geom, pp.color, pp.tile_start, trs, tshv)
+    assert LAUNCHES == before                 # the plain route on the CPU
+    out = out.numpy()
+    ok = np.asarray(meta.tile_ok)[:n_tiles]
+    col_j, w_j = composite_chunks_jnp((gb, cb), meta.chunk_tile,
+                                      meta.chunk_first, meta.chunk_len, jrs,
+                                      sh_vecs=jnp.asarray(shv))
+    col_p, w_p = composite_chunks_pallas(
+        (gb, cb), meta.chunk_tile, meta.chunk_first, meta.chunk_last,
+        meta.chunk_len, jrs, sh_vecs=jnp.asarray(shv), interpret=True,
+        tile_ok=meta.tile_ok)
+    for col, w in ((col_j, w_j), (col_p, w_p)):
+        col = np.where(ok[:, None, None], np.asarray(col)[:n_tiles, :3], 0.0)
+        w = np.where(ok[:, None], np.asarray(w)[:n_tiles], 0.0)
+        # the same pairs, pixel centres and basis: the RGB preset's bound
+        np.testing.assert_allclose(out[:, :3], col, atol=1e-5)
+        np.testing.assert_allclose(out[:, 3], w, atol=1e-5)
+    # against the f32 SH route on the same pairs: JAX's bound,
+    # tests/test_fused_pack.py:326
+    f32 = rasterize(packed, trs, tshv).numpy()
+    img = rasterize_preset(pp, trs, tshv).numpy()
+    mse = float(((img - f32) ** 2).mean())
+    assert 10 * np.log10(1.0 / mse) > 38
+    assert np.abs(img - f32).max() > 0
+
+
+def test_preset_sh_backward_raises():
+    geom, coef, depth, visible, geo, shv = _sh_scene(2)
+    spec = TSpec(**geo, max_tiles_per_gaussian=K)
+    trs = TRSpec(geo["n_tile_x"], geo["n_tile_y"], TILE, TILE, FOCAL, FOCAL,
+                 color_dim=27)
+    c = torch.from_numpy(coef).requires_grad_()
+    pp = pack_preset(spec, t_pack(spec, torch.from_numpy(geom), c,
+                                  torch.from_numpy(depth),
+                                  torch.from_numpy(visible)))
+    img = rasterize_preset(pp, trs, torch.from_numpy(shv))
+    assert img.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="render-only"):
+        img.sum().backward()
+    assert c.grad is None
+
+
 def test_preset_backward_raises():
     geom, color, depth, visible, geo = _scene(2)
     spec = TSpec(**geo, max_tiles_per_gaussian=K)
@@ -165,10 +263,15 @@ def test_preset_wrapper_checks():
     with pytest.raises(TypeError, match="bfloat16"):
         composite_tiles_preset(torch.zeros(0, 8), torch.zeros(0, 4, **bf),
                                start, trs)
-    with pytest.raises(ValueError, match="RGB only"):
+    # SH takes (P, 32) colors and the camera's sh_vecs
+    sh = trs._replace(color_dim=27)
+    with pytest.raises(ValueError, match=r"color \(P, 32\)"):
         composite_tiles_preset(torch.zeros(0, 8, **bf),
-                               torch.zeros(0, 4, **bf), start,
-                               trs._replace(color_dim=27))
+                               torch.zeros(0, 4, **bf), start, sh,
+                               torch.zeros(4, 3))
+    with pytest.raises(ValueError, match="sh_vecs"):
+        composite_tiles_preset(torch.zeros(0, 8, **bf),
+                               torch.zeros(0, 32, **bf), start, sh)
     with pytest.raises(ValueError, match="CPU tensors"):
         composite_tiles_preset(torch.zeros(0, 8, **bf),
                                torch.zeros(0, 4, device="meta", **bf),
@@ -176,8 +279,8 @@ def test_preset_wrapper_checks():
     geom, color, depth, visible, geo = _scene(0)
     spec = TSpec(**geo, max_tiles_per_gaussian=K)
     packed = t_pack(spec, *map(torch.from_numpy, (
-        geom, np.zeros((geom.shape[0], 27), np.float32), depth, visible)))
-    with pytest.raises(ValueError, match="RGB only"):
+        geom, np.zeros((geom.shape[0], 5), np.float32), depth, visible)))
+    with pytest.raises(ValueError, match="RGB .3. or SH .27."):
         pack_preset(spec, packed)
     out = composite_tiles_preset(torch.zeros(0, 8, **bf),
                                  torch.zeros(0, 4, **bf), start, trs)
@@ -196,8 +299,9 @@ def _splatters(use_sh):
                               use_sh=use_sh, sh_ampl=0.35 if use_sh else 0.0)
     tt = tsyn.synthetic_table(N, capacity_round=256, focal=SCENE_FOCAL,
                               scale_px=3.0, frustum=(0.85, 0.55),
-                              use_sh=use_sh, sh_ampl=0.35 if use_sh else 0.0)
-    tc = tsyn.synthetic_cameras(1, W, H, SCENE_FOCAL)
+                              use_sh=use_sh, sh_ampl=0.35 if use_sh else 0.0,
+                              device="cpu")
+    tc = tsyn.synthetic_cameras(1, W, H, SCENE_FOCAL, device="cpu")
     # JAX's Fast Mode needs the column-compacted plane (viewer.py:95); its
     # depth quantisation stays off, as the port keeps exact depth order, and
     # so does its bf16 SH payload (bf16_pack, which also contracts the SH
@@ -248,3 +352,27 @@ def test_render_offscreen_default_sh_and_sh_order():
     np.testing.assert_array_equal(imgs[3], imgs[None])
     assert np.abs(imgs[1] - imgs[None]).max() > 0.01
     assert np.abs(imgs[2] - imgs[1]).max() > 0.01
+
+
+def test_eval_step_preset_sh_matches_jax():
+    # make_eval_step(preset=True) on an SH Splatter against JAX's
+    # make_eval_step with cfg.packed_bf16 (jnp route, exact depth ranks)
+    js, ts = _splatters(True)
+    jc = jsyn.synthetic_cameras(1, W, H, SCENE_FOCAL)
+    js.cfg = JCfg(plane_mode="colcap", quant_depth=0, packed_bf16=True,
+                  use_pallas=False, capacity_round=256, use_sh_coeff=True)
+    js.camera_groups = [JCams(w2c_rot=jc["w2c_rot"], w2c_tran=jc["w2c_tran"],
+                              sh_vecs=jc["sh_vecs"], images=jc["images"],
+                              grid=jc["grid"], names=["c0"])]
+    ji, jp, jss = j_eval_step(js)(js.table.params(), js.table.live, 0)
+    before = dict(LAUNCHES)
+    ti, tp, tss = t_eval_step(ts, preset=True)(ts.table.params(),
+                                               ts.table.live, 0)
+    assert LAUNCHES == before
+    np.testing.assert_allclose(ti.numpy(), np.asarray(ji), atol=1e-5)
+    np.testing.assert_allclose(float(tp), float(jp), rtol=1e-5)
+    np.testing.assert_allclose(float(tss), float(jss), rtol=1e-5)
+    torch.testing.assert_close(ts.render(0, preset=True), ti, atol=0, rtol=0)
+    f32, _, _ = t_eval_step(ts)(ts.table.params(), ts.table.live, 0)
+    mse = float(((ti - f32) ** 2).mean())
+    assert 38 < 10 * np.log10(1.0 / mse) < 200     # close, not the f32 image

@@ -42,8 +42,9 @@ def jax_scene():
 def test_synthetic_scene_bit_identical(jax_scene):
     jt, jc = jax_scene
     tt = tsyn.synthetic_table(N, capacity_round=256, focal=FOCAL,
-                              scale_px=3.0, frustum=(0.85, 0.55))
-    tc = tsyn.synthetic_cameras(3, W, H, FOCAL)
+                              scale_px=3.0, frustum=(0.85, 0.55),
+                              device="cpu")
+    tc = tsyn.synthetic_cameras(3, W, H, FOCAL, device="cpu")
     assert tt.n_live == int(jt.n_live) and tt.capacity == jt.capacity
     for k in TABLE_KEYS:
         np.testing.assert_array_equal(getattr(tt, k).numpy(),
@@ -54,7 +55,7 @@ def test_synthetic_scene_bit_identical(jax_scene):
     assert dataclasses.asdict(tc["grid"]) == dataclasses.asdict(jc["grid"])
     # the other defaults and the ball layout too
     a = tsyn.synthetic_table(300, capacity_round=128, seed=3,
-                             ball=(0.0, 0.0, 4.0, 1.0, 4.0))
+                             ball=(0.0, 0.0, 4.0, 1.0, 4.0), device="cpu")
     b = jsyn.synthetic_table(300, capacity_round=128, seed=3,
                              ball=(0.0, 0.0, 4.0, 1.0, 4.0))
     for k in TABLE_KEYS:

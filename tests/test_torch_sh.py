@@ -285,8 +285,8 @@ def scenes():
     jc = jsyn.synthetic_cameras(3, W, H, SCENE_FOCAL)
     tt = tsyn.synthetic_table(N, capacity_round=256, focal=SCENE_FOCAL,
                               scale_px=3.0, frustum=(0.85, 0.55),
-                              use_sh=True, sh_ampl=SH_AMPL)
-    tc = tsyn.synthetic_cameras(3, W, H, SCENE_FOCAL)
+                              use_sh=True, sh_ampl=SH_AMPL, device="cpu")
+    tc = tsyn.synthetic_cameras(3, W, H, SCENE_FOCAL, device="cpu")
     return jt, jc, tt, tc
 
 
@@ -418,7 +418,7 @@ def test_checkpoints_carry_sh(scenes, tmp_path, ext):
     # JAX writes, the port reads; the port writes, JAX reads
     jpath, tpath = str(tmp_path / f"j{ext}"), str(tmp_path / f"t{ext}")
     jckpt.save_checkpoint(jt, jpath)
-    t = tckpt.load_checkpoint(jpath, capacity_round=256)
+    t = tckpt.load_checkpoint(jpath, capacity_round=256, device="cpu")
     tckpt.save_checkpoint(tt, tpath)
     j = jckpt.load_checkpoint(tpath, capacity_round=256)
     assert t.rgb.shape == (t.capacity, 27)

@@ -49,7 +49,8 @@ def splats(tmp_path_factory):
     ckpt = os.path.join(root, "ckpt.npz")
     j_save(tbl, ckpt)
     js = JSplatter(colmap, images, jcfg, load_ckpt=ckpt)
-    ts = TSplatter(colmap, images, TCfg(capacity_round=256), load_ckpt=ckpt)
+    ts = TSplatter(colmap, images, TCfg(capacity_round=256), load_ckpt=ckpt,
+                   device="cpu")
     return js, ts
 
 

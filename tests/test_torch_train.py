@@ -204,7 +204,7 @@ def test_lrs_at_matches_jax():
         kw = dict(lr=0.003, n_iters=7001, n_iters_warmup=300, lr_decay=decay)
         jt = types.SimpleNamespace(tcfg=JTCfg(**kw))
         for i in (0, 1, 150, 300, 301, 2500, 7000):
-            t = lrs_at(TTCfg(**kw), i)
+            t = lrs_at(TTCfg(**kw), i, device="cpu")
             assert t.dtype == torch.float32 and t.shape == (5,)
             np.testing.assert_array_equal(t.numpy(),
                                           np.asarray(JTrainer.lrs_at(jt, i)))
@@ -218,7 +218,7 @@ def scenes():
     jt = jsyn.synthetic_table(N, capacity_round=256, focal=FOCAL,
                               scale_px=3.0, frustum=(0.85, 0.55))
     jc = jsyn.synthetic_cameras(3, W, H, FOCAL)
-    tc = tsyn.synthetic_cameras(3, W, H, FOCAL)
+    tc = tsyn.synthetic_cameras(3, W, H, FOCAL, device="cpu")
     table = table_from_jax_arrays(
         {k: np.asarray(getattr(jt, k)) for k in TABLE_KEYS}, device="cpu")
     return jt, jc, table, tc
