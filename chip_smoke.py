@@ -35,7 +35,8 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   COLMAP scene it writes with PNG images.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after.  It checks every output, compares one train step through the
+after.  It checks every output, that two launches of each backward kernel
+on view 0 give the same bits, compares one train step through the
 kernels with one assembled from the plain versions (RGB and SH), measures
 the preset's PSNR against the f32 render, times the routes per stage with
 CUDA events, and prints:
@@ -200,6 +201,21 @@ def bwd_compare(rz, packed, out, go, rspec, shv=None):
     rel["color"] = float((gc - rc).norm() / rc.norm().clamp_min(1e-30))
     err = max(float((gg - rg).abs().max()), float((gc - rc).abs().max()))
     return err, ratio, rel
+
+
+def bwd_repeats(rz, name, packed, out, go, rspec, shv=None):
+    """Two launches of a backward kernel on the same inputs give the same
+    bits (one writer per row, a fixed summation order)."""
+    import torch
+
+    a = rz.composite_tiles_bwd(packed.geom, packed.color, packed.tile_start,
+                               out, go, rspec, shv)
+    b = rz.composite_tiles_bwd(packed.geom, packed.color, packed.tile_start,
+                               out, go, rspec, shv)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"{name}: two launches on the same inputs differ")
+    print(f"  {name}: two launches bit-identical", flush=True)
 
 
 def staged_frame(params, live, rot, tran, grid, cfg, bspec, rspec,
@@ -1028,6 +1044,7 @@ def main() -> int:
     check(max(rel.values()) <= FULL_REL_L2,
           f"full-size view: backward kernel disagrees ({rel})")
     note_err("rasterize_bwd", err)
+    bwd_repeats(rz, "rasterize_bwd", pk0, out_k, go0, rspec)
     with torch.no_grad():
         _, midp = staged_frame(params, live, cams["w2c_rot"][0],
                                cams["w2c_tran"][0], grid, cfg, bspec, rspec,
@@ -1219,6 +1236,7 @@ def main() -> int:
     check(max(rel.values()) <= FULL_REL_L2,
           f"full-size view: SH backward disagrees ({rel})")
     note_err("rasterize_bwd_sh", err)
+    bwd_repeats(rz, "rasterize_bwd_sh", pk0, out_k, go0, rspec, shv0)
     pp_sh = pack_preset(bspec, pk0)
     with torch.no_grad():
         out_pks = rz.composite_tiles_preset(pp_sh.geom, pp_sh.color,

@@ -426,8 +426,8 @@ def _check_device(name, tensors):
 
 def _check_kernel_inputs(name, spec: RasterSpec, *tensors):
     if spec.px > 1024:
-        raise ValueError(f"tile of {spec.px} pixels exceeds the kernel's "
-                         "one-thread-per-pixel limit of 1024")
+        raise ValueError(f"tile of {spec.px} pixels exceeds the kernels' "
+                         "limit of 1024 (the forward's one thread a pixel)")
     if not all(t.is_contiguous() for t in tensors if t is not None):
         raise ValueError(f"{name} needs contiguous tensors")
     if tensors[0].data_ptr() % 16:
@@ -519,9 +519,6 @@ def composite_tiles_bwd(geom: torch.Tensor, color: torch.Tensor,
     shv = sh_vecs.contiguous() if sh else None
     _check_kernel_inputs("composite_tiles_bwd", spec, geom, color,
                          tile_start, out, grad_out)
-    if spec.px % 32:
-        raise ValueError(f"tile of {spec.px} pixels is not a whole number "
-                         "of 32-thread warps")
     grad_geom = torch.zeros_like(geom)
     grad_color = torch.zeros_like(color)
     _launch("rasterize_bwd_sh" if sh else "rasterize_bwd", spec, geom, color,

@@ -117,30 +117,34 @@ def synthetic_cameras(m: int, width: int, height: int, focal: float,
 
 def image_space_pairs(seed: int, n: int = 420, n_tile_x: int = 4,
                       n_tile_y: int = 3, focal: float = 40.0, wide=True,
-                      crowd: int | None = None):
-    """Image-space gaussians on a small grid of 16-px tiles, for checking
-    the compositor (numpy arrays, the inputs of ``pack_sorted``).
+                      crowd: int | None = None, tile: int = 16):
+    """Image-space gaussians on a small grid of square tiles of ``tile``
+    pixels (16 by default), for checking the compositor (numpy arrays, the
+    inputs of ``pack_sorted``).
 
     The gaussians lie in the left three tile columns only (the right column
     stays empty); ``crowd`` of them (default n // 2) crowd into tile (0, 0),
     which then holds more pairs than the crowd (> 128 by default; 372 with
-    n=640, crowd=320, two 256-pair kernel batches); a few wide ones cover
-    more than K tiles, some are invisible and one has a degenerate
-    (det <= 0) covariance.  Returns
-    ``geom (n, 8)``, ``color (n, 3)``, ``depth (n,)``, ``visible (n,)`` and
-    the grid geometry as ``BinningSpec`` keywords.
+    n=640, crowd=320 on 16-px tiles, two 256-pair batches of the forward
+    kernel); a few wide ones cover more than K tiles, some are invisible
+    and one has a degenerate (det <= 0) covariance.  Positions and sizes
+    are drawn for 16-px tiles and scaled by ``tile / 16``, so the scene
+    keeps its shape in tiles.  Returns ``geom (n, 8)``, ``color (n, 3)``,
+    ``depth (n,)``, ``visible (n,)`` and the grid geometry as
+    ``BinningSpec`` keywords.
     """
     rng = np.random.default_rng(seed)
     crowd = n // 2 if crowd is None else crowd
-    tile = 16
+    s = tile / 16
     w, h = n_tile_x * tile, n_tile_y * tile
     px = np.where(np.arange(n) < crowd, rng.uniform(3, 13, n),
-                  rng.uniform(3, 35, n))
+                  rng.uniform(3, 35, n)) * s
     py = np.where(np.arange(n) < crowd, rng.uniform(3, 13, n),
-                  rng.uniform(3, h - 3, n))
+                  rng.uniform(3, h / s - 3, n)) * s
     sig = rng.uniform(0.8, 4.0, (n, 2))
     if wide:
         sig[:8] = [14.0, 9.0]                   # bbox > K tiles
+    sig = sig * s
     theta = rng.uniform(0, np.pi, n)
     ct, st = np.cos(theta), np.sin(theta)
     rot = np.stack([np.stack([ct, -st], -1), np.stack([st, ct], -1)], -2)
@@ -161,17 +165,16 @@ def image_space_pairs(seed: int, n: int = 420, n_tile_x: int = 4,
 
 
 def image_space_sh(seed: int, color: np.ndarray, geo: dict,
-                   focal: float = 40.0, ampl: float = 0.35):
+                   focal: float = 40.0, ampl: float = 0.35, tile: int = 16):
     """SH color for the gaussians of :func:`image_space_pairs`: (n, 27)
     coefficients whose DC terms give their ``color`` and whose higher bands
     are random (σ = ``ampl``), and the ``sh_vecs`` (4, 3) of a camera at
-    the origin looking +z over the same grid."""
+    the origin looking +z over the same grid of ``tile``-px tiles."""
     rng = np.random.default_rng(seed + 1000)
     n = color.shape[0]
     c = np.clip(color, 0.02, 0.98)
     coef = rng.normal(0.0, ampl, (n, 3, SH_DIM))
     coef[:, :, 0] = np.log(c / (1.0 - c)) / C0
-    tile = 16
     shv = np.stack(list(ray_info(
         np.eye(3), np.zeros(3), geo["n_tile_y"] * tile,
         geo["n_tile_x"] * tile, focal, focal).values()))

@@ -30,8 +30,9 @@ from gsplat_tpu_torch.train import (GROUP_ORDER, init_train_state, lrs_at,
                                     make_eval_step, make_train_step)
 from gsplat_tpu_torch.viewer import render_offscreen
 
-from torch_helpers import (BIG_CROWD, TILE, assert_close_cols,
-                           image_space_pairs)
+from torch_helpers import (BIG_CROWD, RAGGED_COUNTS, TILE,
+                           assert_close_cols, image_space_pairs,
+                           ragged_pairs)
 
 TOL = 2e-4   # max abs: summation order, and pairs either side of T = 1e-4
 
@@ -43,18 +44,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def _packed(device, seed=0, opaque=False, focal=40.0, sh=False, **kw):
-    """The small scene packed on ``device``; with ``sh``, SH color
-    (``synthetic.image_space_sh``) and also its sh_vecs."""
+def _packed(device, seed=0, opaque=False, focal=40.0, sh=False, tile=TILE,
+            **kw):
+    """The small scene on ``tile``-px tiles packed on ``device``; with
+    ``sh``, SH color (``synthetic.image_space_sh``) and also its sh_vecs."""
     geom, color, depth, visible, geo = image_space_pairs(seed, focal=focal,
-                                                         **kw)
+                                                         tile=tile, **kw)
     if opaque:
         geom[:, 6] = np.minimum(geom[:, 6] * 10.0, 0.999)
     spec = BinningSpec(**geo, max_tiles_per_gaussian=6)
-    rspec = RasterSpec(geo["n_tile_x"], geo["n_tile_y"], TILE, TILE, focal,
+    rspec = RasterSpec(geo["n_tile_x"], geo["n_tile_y"], tile, tile, focal,
                        focal, color_dim=27 if sh else 3)
     if sh:
-        color, shv = synthetic.image_space_sh(seed, color, geo, focal)
+        color, shv = synthetic.image_space_sh(seed, color, geo, focal,
+                                              tile=tile)
     args = [torch.from_numpy(a).to(device)
             for a in (geom, color, depth, visible)]
     if sh:
@@ -112,40 +115,86 @@ def test_render_on_cuda_matches_cpu(cuda):
     torch.testing.assert_close(imgs[1], imgs[0], atol=TOL, rtol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("wn", [False, True])
-@pytest.mark.parametrize("opaque", [False, True])
-def test_bwd_kernel_matches_plain_version(cuda, opaque, wn):
-    packed, rspec = _packed(cuda, opaque=opaque, **BIG_CROWD)
-    counts = torch.diff(packed.tile_start)
-    assert int(counts.max()) > 256 and int((counts == 0).sum()) > 0
-    out = composite_tiles_torch(packed.geom, packed.color, packed.tile_start,
-                                rspec)
+def _check_bwd(cuda, geom, color, tile_start, rspec, shv, wn):
+    """The backward kernel against its plain version on ``cuda`` tensors,
+    launched twice; then NaN in the empty tiles' rows."""
+    sh = shv is not None
+    counts = torch.diff(tile_start)
+    out = composite_tiles_torch(geom, color, tile_start, rspec, shv)
     rng = np.random.default_rng(7)
     go = torch.from_numpy(rng.normal(size=tuple(out.shape)).astype(
         np.float32)).to(cuda)
     if not wn:
         go[:, 3] = 0.0
-    before = LAUNCHES["rasterize_bwd"]
-    gg, gc = composite_tiles_bwd(packed.geom, packed.color, packed.tile_start,
-                                 out, go, rspec)
+    name = "rasterize_bwd_sh" if sh else "rasterize_bwd"
+    before = LAUNCHES[name]
+    gg, gc = composite_tiles_bwd(geom, color, tile_start, out, go, rspec, shv)
     torch.cuda.synchronize()
-    assert LAUNCHES["rasterize_bwd"] == before + 1
-    rg, rc = composite_tiles_bwd_torch(packed.geom, packed.color,
-                                       packed.tile_start, out, go, rspec)
+    assert LAUNCHES[name] == before + 1
+    rg, rc = composite_tiles_bwd_torch(geom, color, tile_start, out, go,
+                                       rspec, shv)
+    assert gc.shape == color.shape
     # per pair, the bound of tests/test_rasterize.py:96 with its atol taken
     # relative to each column's largest gradient
     assert_close_cols(gg.cpu(), rg.cpu(), 3e-4, 2e-3, "grad_geom")
-    assert_close_cols(gc.cpu(), rc.cpu(), 3e-4, 2e-3, "grad_color")
+    assert_close_cols(gc.cpu(), rc.cpu(), 3e-4, 2e-3,
+                      "grad_sh" if sh else "grad_color")
     assert (gg[:, 7] == 0).all()
+    # one writer per row and a fixed summation order: the same bits again
+    again = composite_tiles_bwd(geom, color, tile_start, out, go, rspec, shv)
+    assert torch.equal(again[0], gg) and torch.equal(again[1], gc)
     # empty tiles own no rows: NaN in their out / grad_out rows (the TPU's
     # unwritten-rows fault) must reach no pair
     empty = counts == 0
+    assert bool(empty.any())
     out[empty] = float("nan")
     go[empty] = float("nan")
-    gg2, gc2 = composite_tiles_bwd(packed.geom, packed.color,
-                                   packed.tile_start, out, go, rspec)
+    gg2, gc2 = composite_tiles_bwd(geom, color, tile_start, out, go, rspec,
+                                   shv)
     assert torch.equal(gg2, gg) and torch.equal(gc2, gc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 8])
+@pytest.mark.parametrize("wn", [False, True])
+@pytest.mark.parametrize("opaque", [False, True])
+def test_bwd_kernel_matches_plain_version(cuda, opaque, wn, tile):
+    # 16x16 tiles: 4 pixels a thread, two warps; 8x8: one warp, whose
+    # threads' last two pixel slots lie past the tile
+    packed, rspec = _packed(cuda, opaque=opaque, tile=tile, **BIG_CROWD)
+    counts = torch.diff(packed.tile_start)
+    assert int(counts.max()) > 256 and int((counts == 0).sum()) > 0
+    _check_bwd(cuda, packed.geom, packed.color, packed.tile_start, rspec,
+               None, wn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 8])
+@pytest.mark.parametrize("wn", [False, True])
+@pytest.mark.parametrize("opaque", [False, True])
+def test_sh_bwd_kernel_matches_plain_version(cuda, opaque, wn, tile):
+    packed, rspec, shv = _packed(cuda, opaque=opaque, sh=True, tile=tile,
+                                 **BIG_CROWD)
+    counts = torch.diff(packed.tile_start)
+    assert int(counts.max()) > 256 and int((counts == 0).sum()) > 0
+    _check_bwd(cuda, packed.geom, packed.color, packed.tile_start, rspec,
+               shv, wn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 12])
+@pytest.mark.parametrize("sh", [False, True])
+def test_bwd_kernel_ragged_tiles(cuda, sh, tile):
+    # tiles of one pair, of one more than a staged batch and of one more
+    # than a reduction round, and an empty one; 12x12 tiles (144 pixels)
+    # leave pixel slots past the tile in both warps
+    geom, color, start, geo, shv = ragged_pairs(0, tile, sh=sh)
+    assert list(np.diff(start)) == list(RAGGED_COUNTS)
+    rspec = RasterSpec(geo["n_tile_x"], geo["n_tile_y"], tile, tile, 40.0,
+                       40.0, color_dim=color.shape[1])
+    _check_bwd(cuda, *(torch.from_numpy(a).to(cuda)
+                       for a in (geom, color, start)), rspec,
+               None if shv is None else torch.from_numpy(shv).to(cuda), True)
 
 
 @pytest.mark.cuda
@@ -206,40 +255,6 @@ def test_sh_kernel_matches_plain_version(cuda, opaque):
                                 rspec, shv)
     torch.testing.assert_close(out, ref, atol=TOL, rtol=0)
     assert (out[(counts == 0)] == 0).all()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("wn", [False, True])
-@pytest.mark.parametrize("opaque", [False, True])
-def test_sh_bwd_kernel_matches_plain_version(cuda, opaque, wn):
-    packed, rspec, shv = _packed(cuda, opaque=opaque, sh=True, **BIG_CROWD)
-    counts = torch.diff(packed.tile_start)
-    out = composite_tiles_torch(packed.geom, packed.color, packed.tile_start,
-                                rspec, shv)
-    rng = np.random.default_rng(7)
-    go = torch.from_numpy(rng.normal(size=tuple(out.shape)).astype(
-        np.float32)).to(cuda)
-    if not wn:
-        go[:, 3] = 0.0
-    before = LAUNCHES["rasterize_bwd_sh"]
-    gg, gc = composite_tiles_bwd(packed.geom, packed.color, packed.tile_start,
-                                 out, go, rspec, shv)
-    torch.cuda.synchronize()
-    assert LAUNCHES["rasterize_bwd_sh"] == before + 1
-    rg, rc = composite_tiles_bwd_torch(packed.geom, packed.color,
-                                       packed.tile_start, out, go, rspec, shv)
-    assert gc.shape == (packed.geom.shape[0], 27)
-    # the RGB backward's per-pair bound (test_bwd_kernel_matches_plain_version)
-    assert_close_cols(gg.cpu(), rg.cpu(), 3e-4, 2e-3, "grad_geom")
-    assert_close_cols(gc.cpu(), rc.cpu(), 3e-4, 2e-3, "grad_sh")
-    assert (gg[:, 7] == 0).all()
-    # NaN in the empty tiles' out / grad_out rows must reach no pair
-    empty = counts == 0
-    out[empty] = float("nan")
-    go[empty] = float("nan")
-    gg2, gc2 = composite_tiles_bwd(packed.geom, packed.color,
-                                   packed.tile_start, out, go, rspec, shv)
-    assert torch.equal(gg2, gg) and torch.equal(gc2, gc)
 
 
 @pytest.mark.cuda
