@@ -11,7 +11,8 @@ gsplat_tpu_torch/_build/), six entry points: the f32 RGB forward and
 backward, the SH forward and backward (27 coefficients) and the bf16 render
 preset's forward, RGB and SH.  It holds each against its plain PyTorch
 version on a tiny input, on a small scene (a tile of more than 256 pairs, an
-empty tile, near-opaque, weight normalisation) and on one full-size view.
+empty tile, near-opaque, weight normalisation; the forward kernels on 16x16
+and 12x12 tiles) and on one full-size view, whose pairs a tile it prints.
 Then it drives the port's paths on the bench scene (506,627 gaussians,
 1297x840, bench.py:84) through their entry points:
 
@@ -34,9 +35,12 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   round trip, and the CLI (python -m gsplat_tpu_torch.train) on a small
   COLMAP scene it writes with PNG images.
 
+It also holds the forward kernels' split division (csrc/fast_div.cuh)
+against the compiler's IEEE x / y, bit for bit, on 2^34 operand pairs.
+
 Each path runs with the launch counts set to 0 just before it and read just
-after.  It checks every output, that two launches of each backward kernel
-on view 0 give the same bits, compares one train step through the
+after.  It checks every output, that two launches of each kernel on view 0
+give the same bits, compares one train step through the
 kernels with one assembled from the plain versions (RGB and SH), measures
 the preset's PSNR against the f32 render, times the routes per stage with
 CUDA events, and prints:
@@ -79,6 +83,8 @@ TOL = 2e-4          # forward kernels vs plain, max abs on tile rows (the
 # and pixels on the other side of the 1e-4 stop
 BWD_ATOL, BWD_RTOL = 3e-4, 2e-3
 FULL_REL_L2 = 1e-3  # backward at full size: relative L2 per column group
+# the forward's split division against x / y: operand pairs a seed, seeds
+DIV_CHECK_N, DIV_CHECK_SEEDS = 1 << 32, 4
 N_GAUSS, WIDTH, HEIGHT, FOCAL = 506_627, 1297, 840, 1000.0   # bench.py:84
 N_CAMS = 48
 EVAL_IDS = (0, 6, 12, 18, 24, 30, 36, 42)
@@ -137,11 +143,12 @@ def phase(name):
     print(f"== {name}", flush=True)
 
 
-def small_scene(device, opaque=False, sh=False):
+def small_scene(device, opaque=False, sh=False, tile=16):
     """The image-space scene of tests/test_torch_cuda.py on 4x3 tiles of
-    16 px: tile (0, 0) holds more than 256 pairs (two kernel batches) and
-    the right tile column stays empty.  → (packed, rspec, bspec, sh_vecs);
-    with ``sh``, SH color (synthetic.image_space_sh), else sh_vecs None."""
+    ``tile`` px: tile (0, 0) holds more than 256 pairs (several kernel
+    batches) and the right tile column stays empty.  → (packed, rspec,
+    bspec, sh_vecs); with ``sh``, SH color (synthetic.image_space_sh), else
+    sh_vecs None."""
     import torch
 
     from gsplat_tpu_torch.ops.binning import BinningSpec, pack_sorted
@@ -150,16 +157,16 @@ def small_scene(device, opaque=False, sh=False):
 
     focal = 40.0
     geom, color, depth, visible, geo = image_space_pairs(
-        0, n=640, crowd=320, focal=focal)
+        0, n=640, crowd=320, focal=focal, tile=tile)
     if opaque:
         geom[:, 6] = np.minimum(geom[:, 6] * 10.0, 0.999)
     shv = None
     if sh:
-        color, shv = image_space_sh(0, color, geo, focal)
+        color, shv = image_space_sh(0, color, geo, focal, tile=tile)
         shv = torch.from_numpy(shv).to(device)
     bspec = BinningSpec(**geo, max_tiles_per_gaussian=6)
-    rspec = RasterSpec(geo["n_tile_x"], geo["n_tile_y"], 16, 16, focal, focal,
-                       color_dim=27 if sh else 3)
+    rspec = RasterSpec(geo["n_tile_x"], geo["n_tile_y"], tile, tile, focal,
+                       focal, color_dim=27 if sh else 3)
     arrays = [torch.from_numpy(a).to(device)
               for a in (geom, color, depth, visible)]
     return pack_sorted(bspec, *arrays), rspec, bspec, shv
@@ -216,6 +223,33 @@ def bwd_repeats(rz, name, packed, out, go, rspec, shv=None):
     check(all(torch.equal(x, y) for x, y in zip(a, b)),
           f"{name}: two launches on the same inputs differ")
     print(f"  {name}: two launches bit-identical", flush=True)
+
+
+def fwd_repeats(name, composite, *args):
+    """Two launches of a forward kernel on the same inputs give the same
+    bits (each pixel sums its pairs in order in one thread)."""
+    import torch
+
+    a = composite(*args)
+    b = composite(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+          f"{name}: two launches on the same inputs differ")
+    print(f"  {name}: two launches bit-identical", flush=True)
+
+
+def pair_histogram(tile_start):
+    """Print the pairs a tile of one view: max, p99, median, mean and a
+    histogram in bins of 32 pairs."""
+    import torch
+
+    counts = torch.diff(tile_start).cpu().numpy()
+    edges = np.arange(0, int(counts.max()) + 33, 32)
+    hist, _ = np.histogram(counts, bins=edges)
+    print(f"  pairs a tile over {counts.size} tiles: max {counts.max()}  "
+          f"p99 {np.percentile(counts, 99):.0f}  median "
+          f"{np.median(counts):.0f}  mean {counts.mean():.1f}; tiles by "
+          f"[32 k, 32 k + 32): {hist.tolist()}", flush=True)
 
 
 def staged_frame(params, live, rot, tran, grid, cfg, bspec, rspec,
@@ -884,12 +918,16 @@ def main() -> int:
     # ---- 2. build the kernels (one nvcc per source, in parallel) ----------
     phase("build")
     t0 = time.perf_counter()
-    sources = sorted({src for src, _ in rz.KERNELS.values()})
+    # the kernels' sources, and the self-check of the forward's split
+    # division (csrc/fast_div_check.cu)
+    sources = sorted({src for src, _ in rz.KERNELS.values()}
+                     | {"fast_div_check"})
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cuda_build.load_kernel_library, sources))
     for name in KERNELS:
         rz._kernel(name)
-    print(f"built {len(sources)} libraries ({len(KERNELS)} entry points) in "
+    print(f"built {len(sources)} libraries ({len(KERNELS)} entry points and "
+          f"the division check) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for src in sources:
         info = cuda_build.BUILD_INFO[src]
@@ -900,6 +938,17 @@ def main() -> int:
                 print(f"    ptxas: {kernel}")
             elif "registers" in line or "spill" in line or "smem" in line:
                 print(f"    ptxas: {line.strip()}")
+
+    phase("split division (csrc/fast_div.cuh) vs the compiler's x / y")
+    taken = differ = left = 0
+    for seed in range(1, 1 + DIV_CHECK_SEEDS):
+        t, d, lft = rz.fast_division_check(DIV_CHECK_N, seed, dev)
+        taken, differ, left = taken + t, differ + d, left + lft
+    print(f"  {taken} quotients taken by the split division, {differ} "
+          f"differ from x / y in any bit; {left} left to the division",
+          flush=True)
+    check(differ == 0 and taken > 0 and left > 0,
+          "the split division differs from x / y")
 
     phase("tiny launches: kernel vs plain")
     tiny = rz.RasterSpec(2, 1, 16, 16, 20.0, 20.0)
@@ -951,62 +1000,66 @@ def main() -> int:
     note_err("rasterize_fwd_preset_sh", err)
 
     # ---- 3. kernels against the plain versions: small scene ---------------
-    phase("kernels vs plain: small scene")
-    for opaque in (False, True):
-        for sh in (False, True):
-            packed, rspec_s, bspec_s, shv = small_scene(dev, opaque, sh)
-            fwd = "rasterize_fwd_sh" if sh else "rasterize_fwd"
-            counts = torch.diff(packed.tile_start)
-            check(int(counts.max()) > 256 and int((counts == 0).sum()) > 0,
-                  "small scene needs a tile of > 256 pairs and an empty tile")
-            a = rz.composite_tiles(packed.geom, packed.color,
-                                   packed.tile_start, rspec_s, shv)
-            b = rz.composite_tiles_torch(packed.geom, packed.color,
-                                         packed.tile_start, rspec_s, shv)
-            torch.cuda.synchronize()
-            d = (a - b).abs()
-            print(f"  {fwd} opaque={opaque}: max abs {float(d.max()):.3e}  "
-                  f"mean abs {float(d.mean()):.3e}  (max pairs per tile "
-                  f"{int(counts.max())})", flush=True)
-            check(float(d.max()) <= TOL, f"small scene: {fwd} disagrees")
-            check(bool((a[counts == 0] == 0).all()),
-                  f"small scene: {fwd} wrote nonzero empty tiles")
-            note_err(fwd, d.max())
-            for wn in (False, True):
-                go = cotangent(1 + wn, tuple(a.shape), dev, wn)
-                err, ratio, rel = bwd_compare(rz, packed, b, go, rspec_s, shv)
-                bwd = fwd.replace("fwd", "bwd")
-                print(f"  {bwd} opaque={opaque} weight_normalize={wn}: max "
-                      f"abs {err:.3e} ({ratio:.3f} of the per-pair bound); "
-                      f"rel L2 {json.dumps(rel)}", flush=True)
-                check(ratio <= 1.0, f"small scene: {bwd} disagrees")
-                note_err(bwd, err)
-                # NaN in the empty tiles' rows must reach no pair
-                empty = counts == 0
-                b2, go2 = b.clone(), go.clone()
-                b2[empty] = float("nan")
-                go2[empty] = float("nan")
-                ref = rz.composite_tiles_bwd(packed.geom, packed.color,
-                                             packed.tile_start, b, go,
-                                             rspec_s, shv)
-                nan = rz.composite_tiles_bwd(packed.geom, packed.color,
-                                             packed.tile_start, b2, go2,
-                                             rspec_s, shv)
-                check(all(torch.equal(x, y) for x, y in zip(ref, nan)),
-                      f"{bwd}: NaN in empty tiles' rows reached a pair")
-            pre = "rasterize_fwd_preset_sh" if sh else "rasterize_fwd_preset"
-            pp = pack_preset(bspec_s, packed)
-            a = rz.composite_tiles_preset(pp.geom, pp.color, pp.tile_start,
-                                          rspec_s, shv)
-            b = rz.composite_tiles_preset_torch(pp.geom, pp.color,
-                                                pp.tile_start, rspec_s, shv)
-            torch.cuda.synchronize()
-            d = float((a - b).abs().max())
-            print(f"  {pre} opaque={opaque}: max abs {d:.3e}", flush=True)
-            check(d <= TOL, f"small scene: {pre} disagrees")
-            check(bool((a[counts == 0] == 0).all()),
-                  f"small scene: {pre} wrote nonzero empty tiles")
-            note_err(pre, d)
+    phase("kernels vs plain: small scene (16x16 tiles; the forward kernels "
+          "also on 12x12)")
+    for tile, opaque, sh in [(t, o, h) for t in (16, 12) for o in (False, True)
+                             for h in (False, True)]:
+        packed, rspec_s, bspec_s, shv = small_scene(dev, opaque, sh, tile)
+        fwd = "rasterize_fwd_sh" if sh else "rasterize_fwd"
+        counts = torch.diff(packed.tile_start)
+        check(int(counts.max()) > 256 and int((counts == 0).sum()) > 0,
+              "small scene needs a tile of > 256 pairs and an empty tile")
+        a = rz.composite_tiles(packed.geom, packed.color,
+                               packed.tile_start, rspec_s, shv)
+        b = rz.composite_tiles_torch(packed.geom, packed.color,
+                                     packed.tile_start, rspec_s, shv)
+        torch.cuda.synchronize()
+        d = (a - b).abs()
+        print(f"  {fwd} {tile}x{tile} opaque={opaque}: max abs "
+              f"{float(d.max()):.3e}  mean abs {float(d.mean()):.3e}  "
+              f"(max pairs per tile {int(counts.max())})", flush=True)
+        check(float(d.max()) <= TOL, f"small scene: {fwd} disagrees")
+        check(bool((a[counts == 0] == 0).all()),
+              f"small scene: {fwd} wrote nonzero empty tiles")
+        note_err(fwd, d.max())
+        # the backward kernels here on 16x16 tiles (the card tests take
+        # 8x8 and 12x12 tiles)
+        for wn in ((False, True) if tile == 16 else ()):
+            go = cotangent(1 + wn, tuple(a.shape), dev, wn)
+            err, ratio, rel = bwd_compare(rz, packed, b, go, rspec_s, shv)
+            bwd = fwd.replace("fwd", "bwd")
+            print(f"  {bwd} opaque={opaque} weight_normalize={wn}: max "
+                  f"abs {err:.3e} ({ratio:.3f} of the per-pair bound); "
+                  f"rel L2 {json.dumps(rel)}", flush=True)
+            check(ratio <= 1.0, f"small scene: {bwd} disagrees")
+            note_err(bwd, err)
+            # NaN in the empty tiles' rows must reach no pair
+            empty = counts == 0
+            b2, go2 = b.clone(), go.clone()
+            b2[empty] = float("nan")
+            go2[empty] = float("nan")
+            ref = rz.composite_tiles_bwd(packed.geom, packed.color,
+                                         packed.tile_start, b, go,
+                                         rspec_s, shv)
+            nan = rz.composite_tiles_bwd(packed.geom, packed.color,
+                                         packed.tile_start, b2, go2,
+                                         rspec_s, shv)
+            check(all(torch.equal(x, y) for x, y in zip(ref, nan)),
+                  f"{bwd}: NaN in empty tiles' rows reached a pair")
+        pre = "rasterize_fwd_preset_sh" if sh else "rasterize_fwd_preset"
+        pp = pack_preset(bspec_s, packed)
+        a = rz.composite_tiles_preset(pp.geom, pp.color, pp.tile_start,
+                                      rspec_s, shv)
+        b = rz.composite_tiles_preset_torch(pp.geom, pp.color,
+                                            pp.tile_start, rspec_s, shv)
+        torch.cuda.synchronize()
+        d = float((a - b).abs().max())
+        print(f"  {pre} {tile}x{tile} opaque={opaque}: max abs {d:.3e}",
+              flush=True)
+        check(d <= TOL, f"small scene: {pre} disagrees")
+        check(bool((a[counts == 0] == 0).all()),
+              f"small scene: {pre} wrote nonzero empty tiles")
+        note_err(pre, d)
 
     phase("scene: bench.py synthetic table")
     t0 = time.perf_counter()
@@ -1036,6 +1089,10 @@ def main() -> int:
           f"{float(d.max()):.3e}  mean abs {float(d.mean()):.3e}", flush=True)
     check(float(d.max()) <= TOL, "full-size view: forward kernel disagrees")
     note_err("rasterize_fwd", d.max())
+    pair_histogram(pk0.tile_start)
+    with torch.no_grad():
+        fwd_repeats("rasterize_fwd", rz.composite_tiles, pk0.geom, pk0.color,
+                    pk0.tile_start, rspec)
     go0 = cotangent(3, tuple(out_k.shape), dev)
     with torch.no_grad():
         err, ratio, rel = bwd_compare(rz, pk0, out_k, go0, rspec)
@@ -1057,6 +1114,8 @@ def main() -> int:
     print(f"  rasterize_fwd_preset: max abs {d:.3e}", flush=True)
     check(d <= TOL, "full-size view: preset kernel disagrees")
     note_err("rasterize_fwd_preset", d)
+    fwd_repeats("rasterize_fwd_preset", rz.composite_tiles_preset, pp0.geom,
+                pp0.color, pp0.tile_start, rspec)
     # the preset's image quality against the f32 render, padded images
     # clipped to [0, 1] as bench.py:233-245 scores it
     preset_psnr = float(psnr(torch.clamp(midp["padded"], 0, 1),
@@ -1227,6 +1286,9 @@ def main() -> int:
           f"{float(d.max()):.3e}  mean abs {float(d.mean()):.3e}", flush=True)
     check(float(d.max()) <= TOL, "full-size view: SH forward disagrees")
     note_err("rasterize_fwd_sh", d.max())
+    with torch.no_grad():
+        fwd_repeats("rasterize_fwd_sh", rz.composite_tiles, pk0.geom,
+                    pk0.color, pk0.tile_start, rspec, shv0)
     go0 = cotangent(4, tuple(out_k.shape), dev)
     with torch.no_grad():
         err, ratio, rel = bwd_compare(rz, pk0, out_k, go0, rspec, shv0)
@@ -1248,6 +1310,8 @@ def main() -> int:
     print(f"  rasterize_fwd_preset_sh: max abs {d:.3e}", flush=True)
     check(d <= TOL, "full-size view: SH preset kernel disagrees")
     note_err("rasterize_fwd_preset_sh", d)
+    fwd_repeats("rasterize_fwd_preset_sh", rz.composite_tiles_preset,
+                pp_sh.geom, pp_sh.color, pp_sh.tile_start, rspec, shv0)
     n_ev = count_evaluations(rz, pk0.geom, pk0.tile_start, rspec)
     n_ev_p = count_evaluations(rz, pp_sh.geom, pp_sh.tile_start, rspec, True)
     bounds["rasterize_fwd_sh"] = kernel_bound("rasterize_fwd_sh", n_ev, (

@@ -427,7 +427,9 @@ def _check_device(name, tensors):
 def _check_kernel_inputs(name, spec: RasterSpec, *tensors):
     if spec.px > 1024:
         raise ValueError(f"tile of {spec.px} pixels exceeds the kernels' "
-                         "limit of 1024 (the forward's one thread a pixel)")
+                         "limit of 1024 (the backward's launch, "
+                         "csrc/rasterize_bwd.cu: a block of up to 256 "
+                         "threads of 4 pixels or 512 of 2)")
     if not all(t.is_contiguous() for t in tensors if t is not None):
         raise ValueError(f"{name} needs contiguous tensors")
     if tensors[0].data_ptr() % 16:
@@ -474,6 +476,25 @@ def _launch(name: str, spec: RasterSpec, *tensors):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+
+
+def fast_division_check(n: int, seed: int, device) -> tuple[int, int, int]:
+    """Hold ``csrc/fast_div.cuh``'s split division, which the forward
+    kernels use for pm / pn, against the compiler's IEEE x / y on ``n``
+    operand pairs drawn from ``seed``, on the card (``csrc/
+    fast_div_check.cu``) → (quotients the split division takes, those that
+    differ from x / y in any bit, those it leaves to the division)."""
+    fn = load_kernel_library("fast_div_check").fast_div_check
+    fn.argtypes = [ctypes.c_ulonglong, ctypes.c_ulonglong, _PTR, _PTR]
+    fn.restype = ctypes.c_int
+    counts = torch.zeros(3, dtype=torch.int64, device=device)
+    with torch.cuda.device(counts.device):
+        rc = fn(n, seed, counts.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fast_div_check launch failed: CUDA error {rc}")
+    taken, differ, left = (int(v) for v in counts.cpu())
+    return taken, differ, left
 
 
 def _composite_fwd(geom, color, tile_start, spec: RasterSpec, sh_vecs):

@@ -125,7 +125,7 @@ def image_space_pairs(seed: int, n: int = 420, n_tile_x: int = 4,
     The gaussians lie in the left three tile columns only (the right column
     stays empty); ``crowd`` of them (default n // 2) crowd into tile (0, 0),
     which then holds more pairs than the crowd (> 128 by default; 372 with
-    n=640, crowd=320 on 16-px tiles, two 256-pair batches of the forward
+    n=640, crowd=320 on 16-px tiles, six 64-pair batches of either
     kernel); a few wide ones cover more than K tiles, some are invisible
     and one has a degenerate (det <= 0) covariance.  Positions and sizes
     are drawn for 16-px tiles and scaled by ``tile / 16``, so the scene

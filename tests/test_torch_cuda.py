@@ -8,6 +8,8 @@ installed (the conftest imports JAX, hence ``--noconftest``):
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -25,12 +27,13 @@ from gsplat_tpu_torch.ops.rasterize import (LAUNCHES, RasterSpec,
                                             composite_tiles_bwd_torch,
                                             composite_tiles_preset,
                                             composite_tiles_preset_torch,
-                                            composite_tiles_torch)
+                                            composite_tiles_torch,
+                                            fast_division_check)
 from gsplat_tpu_torch.train import (GROUP_ORDER, init_train_state, lrs_at,
                                     make_eval_step, make_train_step)
 from gsplat_tpu_torch.viewer import render_offscreen
 
-from torch_helpers import (BIG_CROWD, RAGGED_COUNTS, TILE,
+from torch_helpers import (BIG_CROWD, FWD_BATCH, RAGGED_COUNTS, TILE,
                            assert_close_cols, image_space_pairs,
                            ragged_pairs)
 
@@ -308,6 +311,100 @@ def test_preset_sh_kernel_matches_plain_version(cuda, opaque):
     f32 = composite_tiles_torch(packed.geom, packed.color, packed.tile_start,
                                 rspec, shv)
     assert 0 < float((out - f32).abs().max()) < 0.05
+
+
+@pytest.mark.cuda
+def test_fast_division_matches_ieee(cuda):
+    # the forward kernels' split pm / pn (csrc/fast_div.cuh) against the
+    # compiler's x / y, bit for bit, on operands either side of its range
+    taken, differ, left = fast_division_check(1 << 28, 7, cuda)
+    assert differ == 0
+    assert taken > (1 << 26) and left > (1 << 24)
+    assert taken + left == 1 << 28
+
+
+FWD_ENTRY_POINTS = ("rasterize_fwd", "rasterize_fwd_sh",
+                    "rasterize_fwd_preset", "rasterize_fwd_preset_sh")
+
+
+def _fwd_pairs(cuda, name, opaque, tile, ragged):
+    """The pairs of forward entry point ``name`` on ``cuda``: the big-crowd
+    scene packed on ``tile``-px tiles, or the ragged scene; bf16 for the
+    presets.  → (geom, color, tile_start, rspec, sh_vecs or None)."""
+    sh = name.endswith("_sh")
+    if ragged:
+        geom, color, start, geo, shv = ragged_pairs(0, tile, sh=sh)
+    else:
+        geom, color, depth, visible, geo = image_space_pairs(
+            0, focal=40.0, tile=tile, **BIG_CROWD)
+        shv = None
+        if sh:
+            color, shv = synthetic.image_space_sh(0, color, geo, 40.0,
+                                                  tile=tile)
+    if opaque:
+        geom[:, 6] = np.minimum(geom[:, 6] * 10.0, 0.999)
+    spec = BinningSpec(**geo, max_tiles_per_gaussian=6)
+    if ragged:
+        pairs = types.SimpleNamespace(
+            **{k: torch.from_numpy(a).to(cuda) for k, a in (
+                ("geom", geom), ("color", color), ("tile_start", start))})
+    else:
+        pairs = pack_sorted(spec, *[torch.from_numpy(a).to(cuda)
+                                    for a in (geom, color, depth, visible)])
+    if "preset" in name:
+        pairs = pack_preset(spec, pairs)
+    rspec = RasterSpec(geo["n_tile_x"], geo["n_tile_y"], tile, tile, 40.0,
+                       40.0, color_dim=27 if sh else 3)
+    return (pairs.geom, pairs.color, pairs.tile_start, rspec,
+            None if shv is None else torch.from_numpy(shv).to(cuda))
+
+
+def _check_fwd(name, geom, color, tile_start, rspec, shv):
+    """A forward kernel against its plain version: within TOL, empty tiles
+    exactly zero, and a second launch on the same inputs gives the same
+    bits."""
+    preset = "preset" in name
+    kernel = composite_tiles_preset if preset else composite_tiles
+    plain = composite_tiles_preset_torch if preset else composite_tiles_torch
+    before = LAUNCHES[name]
+    out = kernel(geom, color, tile_start, rspec, shv)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    ref = plain(geom, color, tile_start, rspec, shv)
+    torch.testing.assert_close(out, ref, atol=TOL, rtol=0)
+    counts = torch.diff(tile_start)
+    assert bool((counts == 0).any()) and bool((out[counts == 0] == 0).all())
+    assert float(out[:, 3].max()) > 0
+    again = kernel(geom, color, tile_start, rspec, shv)
+    assert torch.equal(again, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 8, 12])
+@pytest.mark.parametrize("opaque", [False, True])
+@pytest.mark.parametrize("name", FWD_ENTRY_POINTS)
+def test_fwd_kernels_on_tile_shapes(cuda, name, opaque, tile):
+    # 16x16 tiles: two warps (RGB, 4 pixels a thread) or four (SH, 2); 8x8:
+    # one warp whose threads' last pixel slots lie past the tile; 12x12
+    # (144 pixels): slots past the tile in the last warp; > 256 pairs in
+    # tile (0, 0), several staged batches
+    geom, color, start, rspec, shv = _fwd_pairs(cuda, name, opaque, tile,
+                                                False)
+    assert int(torch.diff(start).max()) > 256
+    _check_fwd(name, geom, color, start, rspec, shv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 12])
+@pytest.mark.parametrize("opaque", [False, True])
+@pytest.mark.parametrize("name", FWD_ENTRY_POINTS)
+def test_fwd_kernels_ragged_tiles(cuda, name, opaque, tile):
+    # tiles of one pair, of one more than a staged batch, none, and 33
+    geom, color, start, rspec, shv = _fwd_pairs(cuda, name, opaque, tile,
+                                                True)
+    assert torch.diff(start).tolist() == list(RAGGED_COUNTS)
+    assert FWD_BATCH + 1 in RAGGED_COUNTS
+    _check_fwd(name, geom, color, start, rspec, shv)
 
 
 @pytest.mark.cuda

@@ -10,14 +10,15 @@ from gsplat_tpu_torch.synthetic import image_space_pairs  # noqa: F401
 from gsplat_tpu_torch.synthetic import image_space_sh
 
 TILE = 16
-# a crowd whose tile holds more than 256 pairs: two batches of the forward
-# kernel (one pair a thread), six of the backward's
+# a crowd whose tile holds more than 256 pairs: six staged batches of
+# either kernel
 BIG_CROWD = dict(n=640, crowd=320)
 # csrc/rasterize_bwd.cu stages kBatch = 64 pairs at a time and sums them in
-# rounds of kSub = 32
+# rounds of kSub = 32; csrc/rasterize_fwd.cu stages kBatch = 64 pairs too
 BWD_BATCH, BWD_ROUND = 64, 32
+FWD_BATCH = 64
 # pairs per tile of ragged_pairs' 2 x 2 grid: one pair, one more than a
-# staged batch, none, one more than a round
+# staged batch (of either kernel), none, one more than a round
 RAGGED_COUNTS = (1, BWD_BATCH + 1, 0, BWD_ROUND + 1)
 
 
