@@ -33,7 +33,20 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   first one growing the table), with its TEST evaluation and checkpoint;
   then adaptive_control on the card against the CPU, a save_full/load_full
   round trip, and the CLI (python -m gsplat_tpu_torch.train) on a small
-  COLMAP scene it writes with PNG images.
+  COLMAP scene it writes with PNG images;
+- the at-scale run, in a temporary directory: the garden_hard scene built
+  at its published size (scripts/make_synth_scene: 1.2M SH ground-truth
+  gaussians rendered to 56 views at 1297x840, a 140k-point init), its oracle
+  ceiling held within 0.05 dB of JAX's 42.82; scripts/run_garden_7k over
+  iterations 0-1000 of the 7001-iteration schedule (RGB; densify events at
+  700-1000, the capacity growth and K growth of JAX's run; the train step
+  then timed by stage on that table), with every logged l1 finite, n_live <=
+  capacity <= 524,288 and K <= 40 at each event and the capacity grown;
+  a load_full of its last full_state.npz into a fresh Trainer, bit for bit,
+  and the next step's loss from both; then 101 iterations with SH color.
+  It prints the scene build's seconds, it/s and pairs a view before and
+  after the K growth, the peak memory and the TEST PSNR/SSIM beside the
+  committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's.
 
 It also holds the forward kernels' split division (csrc/fast_div.cuh)
 against the compiler's IEEE x / y, bit for bit, on 2^34 operand pairs.
@@ -64,9 +77,10 @@ import contextlib
 import io
 import json
 import os
-import struct
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -105,6 +119,21 @@ SH_PRESET_IDS = (0, 12)
 TRAIN_START, TRAIN_END, N_ADAPTIVE = 600, 661, 20
 TRAINER_CAMS = 16
 CAPACITY_ROUND = 65536    # SplatConfig's default bucket
+# the at-scale run: the garden_hard scene at its published size (1.2M SH GT
+# gaussians, 56 views at 1297x840, a 140k-point init, a 524,288-slot
+# ceiling), run_garden_7k over iterations 0-1000 (densify events at 700-1000,
+# where JAX's K grew), then a short SH leg; only the iterations are cut, the
+# learning-rate schedule stays the 7001-iteration run's (--stop_at)
+FULL_ITERS, AT_SCALE_ITERS, AT_SCALE_SH_ITERS = 7001, 1001, 101
+AT_SCALE_MAX_CAPACITY, AT_SCALE_K_CAP = 524288, 40
+# the JAX package's run of this scene on a TPU v5e: the oracle ceiling
+# (runs/7k_hard_r5/summary.json) and its TEST lines (train.log:5-33),
+# iteration → (PSNR, SSIM)
+JAX_CEILING = 42.82
+JAX_TEST = {200: (16.0360, 0.4268), 400: (14.7038, 0.4273),
+            600: (13.8436, 0.4207), 800: (15.6991, 0.3894),
+            1000: (16.8923, 0.4209)}
+PORT_RUN = "runs/torch_7k_hard_rgb/summary.json"   # the port's 7k RGB run
 DEVICE = "cuda:0"   # one card
 _FWD, _BWD = "gsplat_tpu_torch/csrc/rasterize_fwd.cu", \
     "gsplat_tpu_torch/csrc/rasterize_bwd.cu"
@@ -697,14 +726,17 @@ def write_colmap_scene(root, n_points=120, n_cameras=9, w=64, h=48,
                        focal=60.0, downsample=4, seed=0):
     """A small COLMAP scene (PINHOLE cameras, sparse/0/*.bin) whose images
     (images_<downsample>/*.png) the port's plain renderer draws from
-    gaussians at the points, written by the port's PNG writer; the layout
-    of the JAX package's test fixture (tests/fixtures.py::make_scene)."""
+    gaussians at the points, written by the port's COLMAP and PNG writers;
+    the layout of the JAX package's test fixture
+    (tests/fixtures.py::make_scene)."""
     import torch
 
     from gsplat_tpu_torch.models.camera import TileGrid
     from gsplat_tpu_torch.models.gaussians import table_from_numpy
     from gsplat_tpu_torch.models.splatter import make_specs, render_cropped
     from gsplat_tpu_torch.config import SplatConfig
+    from gsplat_tpu_torch.utils.colmap import write_cameras_binary, \
+        write_images_binary, write_points3d_binary
     from gsplat_tpu_torch.utils.image_io import write_png
     from gsplat_tpu_torch.utils.so3 import inverse_sigmoid
 
@@ -717,25 +749,16 @@ def write_colmap_scene(root, n_points=120, n_cameras=9, w=64, h=48,
     xyz = np.stack([rng.uniform(-0.35, 0.35, n_points) * z,
                     rng.uniform(-0.28, 0.28, n_points) * z, z], axis=1)
     rgb = (rng.uniform(0.2, 0.9, (n_points, 3)) * 255).astype(np.uint8)
-    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
-        f.write(struct.pack("<Q", 1))
-        f.write(struct.pack("<iiQQ", 1, 1, w * downsample, h * downsample))
-        f.write(struct.pack("<dddd", focal * downsample, focal * downsample,
-                            w * downsample / 2, h * downsample / 2))
+    write_cameras_binary(os.path.join(sparse, "cameras.bin"), 1,
+                         w * downsample, h * downsample, focal * downsample,
+                         focal * downsample)
     poses = [(np.array([0.08 * (i - n_cameras / 2),
                         0.04 * ((i % 2) - 0.5), 0.0]), f"img_{i:03d}.png")
              for i in range(n_cameras)]
-    with open(os.path.join(sparse, "images.bin"), "wb") as f:
-        f.write(struct.pack("<Q", n_cameras))
-        for i, (off, name) in enumerate(poses):
-            f.write(struct.pack("<idddddddi", i + 1, 1.0, 0.0, 0.0, 0.0,
-                                *(-off), 1))
-            f.write(name.encode() + b"\x00" + struct.pack("<Q", 0))
-    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
-        f.write(struct.pack("<Q", n_points))
-        for i, (p, c) in enumerate(zip(xyz, rgb)):
-            f.write(struct.pack("<QdddBBBd", i + 1, *p, *c, 0.5))
-            f.write(struct.pack("<Q", 2) + struct.pack("<iiii", 1, i, 2, i))
+    write_images_binary(os.path.join(sparse, "images.bin"),
+                        [((1.0, 0.0, 0.0, 0.0), -off, name)
+                         for off, name in poses], 1)
+    write_points3d_binary(os.path.join(sparse, "points3D.bin"), xyz, rgb)
     # ground truth: opaque-ish isotropic gaussians at the points
     quat = np.tile(np.float32([1, 0, 0, 0]), (n_points, 1))
     table = table_from_numpy({
@@ -873,6 +896,410 @@ def check_trainer(tr, launches, records, events, log):
     check(launches == want, f"trainer launches {launches} != {want}")
     check(os.path.exists(os.path.join(tr.tcfg.exp, "ckpt.npz")),
           "the Trainer wrote no checkpoint")
+
+
+def record_steps():
+    """Patch Trainer.train_step (the class) to record each step's host time
+    and pair count → (records, undo)."""
+    from gsplat_tpu_torch.train import Trainer
+
+    step = Trainer.train_step
+    records = []
+
+    def timed_step(self, i):
+        t0 = time.perf_counter()
+        m = step(self, i)
+        # n_pairs stays a device scalar until the run ends: no extra sync
+        records.append((i, time.perf_counter() - t0, m["n_pairs"]))
+        return m
+
+    def undo():
+        Trainer.train_step = step
+
+    Trainer.train_step = timed_step
+    return records, undo
+
+
+def densify_events(log):
+    """The densify events of a run_garden_7k log: its lines "densify @i:
+    n_live=.. capacity=.. K=.." → [{i, n_live, capacity, k, k_before}],
+    k_before from the previous event or the "scene loaded" line."""
+    events, k = [], None
+    for line in log.splitlines():
+        if line.startswith(("scene loaded:", "densify @")):
+            f = dict(kv.split("=") for kv in line.split(":", 1)[1].split()
+                     if "=" in kv)
+            if line.startswith("densify @"):
+                events.append({"i": int(line[9:line.index(":")]),
+                               "n_live": int(f["n_live"]),
+                               "capacity": int(f["capacity"]),
+                               "k": int(f["K"]), "k_before": k})
+            k = int(f["K"])
+    return events
+
+
+def run_7k(rz, argv):
+    """run_garden_7k.main with the launch counts reset first and its output
+    captured → (summary, trainer, launches, step records, log text)."""
+    import torch
+
+    from gsplat_tpu_torch.scripts import run_garden_7k
+
+    records, undo = record_steps()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches(rz)
+    try:
+        with contextlib.redirect_stdout(out):
+            summary, tr = run_garden_7k.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    launches = dict(rz.LAUNCHES)
+    records = [(i, dt, int(n)) for i, dt, n in records]
+    return summary, tr, launches, records, out.getvalue()
+
+
+def logged_l1(log):
+    return [float(line.split("l1=")[1].split()[0])
+            for line in log.splitlines() if line.startswith("iter ")]
+
+
+def step_rate(records, lo, hi):
+    """Steps lo..hi-1: (it/s from the steps' host times, mean pairs)."""
+    rows = [r for r in records if lo <= r[0] < hi]
+    if not rows:
+        return float("nan"), float("nan")
+    return len(rows) / sum(r[1] for r in rows), \
+        float(np.mean([r[2] for r in rows]))
+
+
+def heaviest_view(params, live, views, grid, cfg):
+    """The index of the view with the most pairs (projection and pack
+    only); ``views`` are (rotation, translation, SH vectors) triples."""
+    import torch
+
+    from gsplat_tpu_torch.models.splatter import make_specs
+
+    bspec, rspec = make_specs(grid, cfg)
+
+    def blank(geom, color, tile_start, spec, shv):
+        return torch.zeros((spec.n_tiles, 4, spec.px), device=geom.device)
+
+    pairs = []
+    with torch.no_grad():
+        for rot, tran, shv in views:
+            _, mid = staged_frame(params, live, rot, tran, grid, cfg, bspec,
+                                  rspec, blank, shv=shv)
+            pairs.append(int(mid["packed"].n_pairs))
+    return int(np.argmax(pairs))
+
+
+def at_scale_kernels(rz, label, params, live, view, grid, cfg, seed,
+                     backward=True):
+    """One view of an at-scale table: the forward kernel (and the backward,
+    with ``backward``) against its plain version on the same pairs, the
+    pairs a tile, and each kernel alone against its plain version and its
+    bound.  ``view`` is (rotation, translation, SH vectors) → {kernel:
+    {n_pairs, max_abs_err, ms, plain_ms, bound_ms, bound_by}}."""
+    import torch
+
+    from gsplat_tpu_torch.models.splatter import make_specs
+
+    bspec, rspec = make_specs(grid, cfg)
+    rot, tran, shv = view
+    shv = shv if cfg.use_sh_coeff else None
+    fwd = "rasterize_fwd_sh" if cfg.use_sh_coeff else "rasterize_fwd"
+    with torch.no_grad():
+        _, mid = staged_frame(params, live, rot, tran, grid, cfg, bspec,
+                              rspec, rz.composite_tiles, shv=shv)
+        pk, out = mid["packed"], mid["out"]
+        plain = rz.composite_tiles_torch(pk.geom, pk.color, pk.tile_start,
+                                         rspec, shv)
+    torch.cuda.synchronize()
+    n_pairs = int(pk.n_pairs)
+    d = float((out - plain).abs().max())
+    print(f"  {label}: {fwd}, n_pairs {n_pairs}: max abs {d:.3e}",
+          flush=True)
+    check(d <= TOL, f"{label}: {fwd} disagrees with the plain forward")
+    del plain, mid
+    pair_histogram(pk.tile_start)
+    args = (pk.geom, pk.color, pk.tile_start)
+    n_ev = count_evaluations(rz, pk.geom, pk.tile_start, rspec)
+    rows = {fwd: {"n_pairs": n_pairs, "max_abs_err": d, "bound": kernel_bound(
+        fwd, n_ev, (*args, shv, out)), "fns": (
+        lambda: rz.composite_tiles(*args, rspec, shv),
+        lambda: rz.composite_tiles_torch(*args, rspec, shv))}}
+    if backward:
+        bwd = fwd.replace("fwd", "bwd")
+        go = cotangent(seed, tuple(out.shape), out.device)
+        with torch.no_grad():
+            err, ratio, rel = bwd_compare(rz, pk, out, go, rspec, shv)
+        print(f"  {label}: {bwd}: max abs {err:.3e} ({ratio:.3f} of the "
+              f"per-pair bound); rel L2 {json.dumps(rel)}", flush=True)
+        check(ratio <= 1.0, f"{label}: {bwd} outside the per-pair bound")
+        check(max(rel.values()) <= FULL_REL_L2,
+              f"{label}: {bwd} disagrees ({rel})")
+        rows[bwd] = {"n_pairs": n_pairs, "max_abs_err": err,
+                     "bound": kernel_bound(bwd, n_ev, (*args, shv, out, go,
+                                                       pk.geom, pk.color)),
+                     "fns": (lambda: rz.composite_tiles_bwd(
+                         *args, out, go, rspec, shv),
+                         lambda: rz.composite_tiles_bwd_torch(
+                         *args, out, go, rspec, shv))}
+    with torch.no_grad():
+        for name, row in rows.items():
+            kernel, plain = row.pop("fns")
+            row["ms"], row["plain_ms"] = time_fn(kernel, 20), \
+                time_fn(plain, 1)
+            row["bound_ms"], row["bound_by"] = row.pop("bound")
+            print(f"  {name} alone ({label}, {n_pairs} pairs): kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+                  flush=True)
+    return rows
+
+
+def trainer_views(splat):
+    """The Trainer's cameras as (rotation, translation, SH vectors)."""
+    sc = splat.cameras
+    return [(sc.w2c_rot[c], sc.w2c_tran[c], sc.sh_vecs[c])
+            for c in range(sc.w2c_rot.shape[0])]
+
+
+def at_scale_path(rz, dev):
+    """The at-scale run on garden_hard: the scene built at its published
+    size, run_garden_7k over iterations 0..AT_SCALE_ITERS - 1 (RGB), a
+    resume check from its full state, and a short SH leg; after each leg
+    its kernels on the heaviest view of its table against their plain
+    versions.  → (launches by leg: scene build, RGB run, SH run; {leg:
+    at_scale_kernels rows})."""
+    import dataclasses
+
+    import torch
+
+    from gsplat_tpu_torch.models.splatter import Splatter
+    from gsplat_tpu_torch.scripts import make_synth_scene
+    from gsplat_tpu_torch.train import Trainer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_garden_hard_")
+    try:
+        scene = os.path.join(root, "scene")
+        preset = make_synth_scene.PRESETS["garden_hard"]
+        phase(f"at-scale scene: garden_hard ({preset['n_gt']} SH GT "
+              f"gaussians, {preset['n_cams']} views at {preset['w']}x"
+              f"{preset['h']}, {preset['n_points']} init points)")
+        torch.cuda.synchronize()
+        reset_launches(rz)
+        built = make_synth_scene.main(scene, device=DEVICE,
+                                      log=lambda msg: None, **preset)
+        torch.cuda.synchronize()
+        build = dict(rz.LAUNCHES)
+        pairs = np.array([v["n_pairs"] for v in built["views"]])
+        clipped = np.array([v["n_clipped"] for v in built["views"]])
+        ceiling = built["oracle_ceiling_psnr"]
+        print(f"  built in {built['seconds']:.1f} s; GT pairs a view: min "
+              f"{pairs.min()} mean {pairs.mean():.0f} max {pairs.max()}; "
+              f"clipped a view: mean {clipped.mean():.0f} max "
+              f"{clipped.max()}; oracle ceiling {ceiling:.4f} dB (JAX "
+              f"{JAX_CEILING}); kernel launches {json.dumps(build)}",
+              flush=True)
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(rasterize_fwd_sh=preset["n_cams"])
+        check(build == want, f"scene build launches {build} != {want}")
+        check(abs(ceiling - JAX_CEILING) <= 0.05,
+              f"oracle ceiling {ceiling:.4f} dB, JAX {JAX_CEILING}")
+        gv = int(np.argmax(pairs))
+        phase(f"at-scale kernels vs plain: the GT table, view {gv} (the "
+              f"most pairs)")
+        gt = built["table"]
+        scale_rows = {"scene build": at_scale_kernels(
+            rz, f"GT view {gv}", gt.params(), gt.live,
+            make_synth_scene.view_inputs(*built["poses"][gv][:2],
+                                         built["grid"], DEVICE),
+            built["grid"], built["cfg"], seed=5, backward=False)}
+        del built, gt
+        torch.cuda.empty_cache()
+
+        phase(f"at-scale RGB run: run_garden_7k, iterations 0-"
+              f"{AT_SCALE_ITERS - 1}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        exp = os.path.join(root, "rgb")
+        t0 = time.perf_counter()
+        summary, tr, rgb, records, log = run_7k(rz, [
+            "--scene", scene, "--exp", exp, "--n_iters", str(FULL_ITERS),
+            "--stop_at", str(AT_SCALE_ITERS), "--use_sh_coeff", "0",
+            "--device", DEVICE])
+        wall = time.perf_counter() - t0
+        print(log, end="")
+        print(f"{len(records)} steps in {wall:.1f} s wall; kernel launches "
+              f"{json.dumps(rgb)}", flush=True)
+        check([r[0] for r in records] == list(range(AT_SCALE_ITERS)),
+              "at-scale steps")
+        check(all(np.isfinite(x) for x in logged_l1(log))
+              and len(logged_l1(log)) >= AT_SCALE_ITERS // 50,
+              "at-scale RGB: a logged l1 is not finite")
+        n_test = len(tr.test_split)
+        tests = summary["test_trajectory"]
+        want = dict.fromkeys(KERNELS, 0)
+        # a step each; per TEST and the final evaluate() 5 renders a test
+        # camera (metrics, warm-up, 3 timed); the render saved at 1000
+        want.update(rasterize_fwd=AT_SCALE_ITERS + 5 * n_test
+                    * (len(tests) + 1) + 1, rasterize_bwd=AT_SCALE_ITERS)
+        check(rgb == want, f"at-scale RGB launches {rgb} != {want}")
+        events = densify_events(log)
+        check([[e["i"], e["n_live"], e["capacity"]] for e in events]
+              == [list(t) for t in summary["capacity_trajectory"][1:]],
+              "densify log lines and capacity trajectory differ")
+        check([e["i"] for e in events] == list(range(700, AT_SCALE_ITERS,
+                                                     100)),
+              f"densify events at {[e['i'] for e in events]}")
+        cap0 = summary["capacity_trajectory"][0][2]
+        for e in events:
+            print(f"  densify @{e['i']}: {json.dumps(e)}", flush=True)
+            check(e["n_live"] <= e["capacity"] <= AT_SCALE_MAX_CAPACITY,
+                  f"densify @{e['i']}: n_live {e['n_live']} capacity "
+                  f"{e['capacity']}")
+            check(e["k"] <= AT_SCALE_K_CAP, f"densify @{e['i']}: K {e['k']}")
+        check(max(e["capacity"] for e in events) > cap0,
+              "the table's capacity never grew")
+        grew = [e["i"] for e in events if e["k"] > e["k_before"]]
+        cut = grew[0] if grew else AT_SCALE_ITERS
+        (r0, p0), (r1, p1) = step_rate(records, 1, cut), \
+            step_rate(records, cut + 1, AT_SCALE_ITERS)
+        print(f"  K {events[0]['k_before']} -> "
+              f"{tr.splat.cfg.max_tiles_per_gaussian} (grew at {grew}); "
+              f"steps 1-{cut - 1}: {r0:.2f} it/s at {p0:.0f} pairs a view; "
+              f"steps {cut + 1}-{AT_SCALE_ITERS - 1}:"
+              f" {r1:.2f} it/s at {p1:.0f} pairs a view (max "
+              f"{max(r[2] for r in records)}); wall "
+              f"{summary['it_per_s_incl_compiles']:.2f} it/s with the "
+              f"build, TESTs and saves; peak memory "
+              f"{summary['peak_mem_gib']:.2f} GiB", flush=True)
+        # the committed 7001-iteration run of this scene, same schedule
+        full = {}
+        if os.path.exists(PORT_RUN):
+            with open(PORT_RUN) as f:
+                full = {t[0]: t[1:] for t in json.load(f)["test_trajectory"]}
+        print(f"  TEST (iteration: PSNR / SSIM here | {PORT_RUN} | JAX on a "
+              f"TPU v5e):", flush=True)
+        nan2 = (float("nan"), float("nan"))
+        for it, p, s in tests:
+            (fp, fs), (jp, js) = full.get(it, nan2), JAX_TEST.get(it, nan2)
+            print(f"    {it:5d}: {p:.4f} / {s:.4f} | {fp:.4f} / {fs:.4f} | "
+                  f"{jp:.4f} / {js:.4f}", flush=True)
+            check(np.isfinite(p) and 0 < s <= 1, f"TEST @{it} out of range")
+        check([t[0] for t in tests] == sorted(JAX_TEST),
+              f"TEST iterations {[t[0] for t in tests]}")
+        print(f"  final evaluate(): psnr {summary['final_psnr']:.4f} ssim "
+              f"{summary['final_ssim']:.4f} fps {summary['final_fps']:.1f}; "
+              f"{summary['n_gaussians']} gaussians", flush=True)
+
+        sc = tr.splat.cameras
+        phase(f"at-scale kernels vs plain: iteration {AT_SCALE_ITERS - 1}'s "
+              f"table, the view with the most pairs")
+        views = trainer_views(tr.splat)
+        v = heaviest_view(tr.state.params, tr.state.live, views, sc.grid,
+                          tr.splat.cfg)
+        scale_rows["RGB run"] = at_scale_kernels(
+            rz, f"view {v}", tr.state.params, tr.state.live, views[v],
+            sc.grid, tr.splat.cfg, seed=6)
+        torch.cuda.empty_cache()
+
+        phase(f"at-scale timing: the train step on iteration "
+              f"{AT_SCALE_ITERS - 1}'s table (CUDA events, after warm-up)")
+        cams = {"w2c_rot": sc.w2c_rot, "w2c_tran": sc.w2c_tran,
+                "sh_vecs": sc.sh_vecs, "images": sc.images, "grid": sc.grid}
+        bspec, rspec = tr.splat.specs(sc.grid)
+        time_steps("at-scale RGB", tr._train_step_for(0), tr.state, cams,
+                   [int(c) for c in tr.train_split[:8]], tr.splat.cfg,
+                   tr.tcfg, bspec, rspec, tr.lrs_at(AT_SCALE_ITERS),
+                   rz.composite_tiles)
+
+        phase("at-scale resume: load_full of the last full_state.npz into a "
+              "fresh Trainer")
+        path = os.path.join(exp, "full_state.npz")
+        cfg = dataclasses.replace(tr.splat.cfg, max_tiles_per_gaussian=6)
+        fresh = Trainer(Splatter(os.path.join(scene, "sparse", "0"),
+                                 os.path.join(scene, "images_4"), cfg,
+                                 device=DEVICE), tr.tcfg)
+        check(fresh.load_full(path) == AT_SCALE_ITERS - 1,
+              "load_full iteration")
+        check(fresh.splat.cfg.max_tiles_per_gaussian
+              == tr.splat.cfg.max_tiles_per_gaussian, "K not restored")
+        check(fresh.splat.table.capacity == tr.splat.table.capacity
+              and fresh.splat.table.n_live == tr.splat.table.n_live,
+              "table not restored")
+        check(same_state(tr.state, fresh.state),
+              "load_full did not restore the state bit for bit")
+        cam = int(tr.train_split[0])
+        lrs = tr.lrs_at(AT_SCALE_ITERS)
+        a, ma = tr._train_step_for(0)(tr.state, cam, lrs)
+        b, mb = fresh._train_step_for(0)(fresh.state, cam, lrs)
+        check(float(ma["loss"]) == float(mb["loss"]),
+              "the next step's loss differs after load_full")
+        print(f"  {os.path.getsize(path) / 1e6:.1f} MB; state bit-identical;"
+              f" next step (camera {cam}) loss {float(ma['loss']):.6f} from "
+              f"both, states after it bit-identical: {same_state(a, b)}",
+              flush=True)
+        del tr, fresh, a, b, ma, mb
+        torch.cuda.empty_cache()
+
+        phase(f"at-scale SH leg: run_garden_7k --use_sh_coeff 1, iterations "
+              f"0-{AT_SCALE_SH_ITERS - 1}")
+        summary, tr, sh, records, log = run_7k(rz, [
+            "--scene", scene, "--exp", os.path.join(root, "sh"),
+            "--n_iters", str(FULL_ITERS), "--stop_at",
+            str(AT_SCALE_SH_ITERS), "--use_sh_coeff", "1",
+            "--device", DEVICE, "--n_iters_test", str(AT_SCALE_SH_ITERS - 1)])
+        print(log, end="")
+        rate, mean_pairs = step_rate(records, 1, AT_SCALE_SH_ITERS)
+        print(f"kernel launches {json.dumps(sh)}; {rate:.2f} it/s at "
+              f"{mean_pairs:.0f} pairs a view", flush=True)
+        check(all(np.isfinite(x) for x in logged_l1(log)),
+              "at-scale SH: a logged l1 is not finite")
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(rasterize_fwd_sh=AT_SCALE_SH_ITERS + 5 * len(
+            tr.test_split) * 2, rasterize_bwd_sh=AT_SCALE_SH_ITERS)
+        check(sh == want, f"at-scale SH launches {sh} != {want}")
+        check(np.isfinite(summary["final_psnr"]), "SH leg: final PSNR")
+        path = os.path.join(root, "sh", "full_state.npz")
+        print(f"  full_state.npz {os.path.getsize(path) / 1e6:.1f} MB at "
+              f"{tr.splat.table.capacity} slots", flush=True)
+        phase(f"at-scale kernels vs plain: iteration {AT_SCALE_SH_ITERS - 1}"
+              f"'s SH table, the view with the most pairs")
+        views = trainer_views(tr.splat)
+        v = heaviest_view(tr.state.params, tr.state.live, views,
+                          tr.splat.cameras.grid, tr.splat.cfg)
+        scale_rows["SH run"] = at_scale_kernels(
+            rz, f"view {v}", tr.state.params, tr.state.live, views[v],
+            tr.splat.cameras.grid, tr.splat.cfg, seed=7)
+        del tr, views
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return (build, rgb, sh), scale_rows
+
+
+def bits(x):
+    """The bits of a tensor, NaN included: the dead slots that
+    densification leaves (zero quaternions, as in JAX) carry NaN parameters
+    after a step."""
+    import torch
+
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def same_state(s0, s1):
+    """Two TrainStates equal bit for bit."""
+    import torch
+
+    return all(torch.equal(bits(getattr(s0, f)), bits(getattr(s1, f)))
+               for f in ("live", "accum_grad", "grad_counter")) \
+        and torch.equal(s0.opt.t, s1.opt.t) and all(
+            torch.equal(bits(d0[k]), bits(d1[k])) for d0, d1 in (
+                (s0.params, s1.params), (s0.opt.mu, s1.opt.mu),
+                (s0.opt.nu, s1.opt.nu)) for k in d0)
 
 
 def main() -> int:
@@ -1478,19 +1905,6 @@ def main() -> int:
     check(tr2.load_full(path) == TRAIN_END, "load_full iteration")
     st1 = tr2.state
 
-    def bits(x):
-        # the bits, NaN included: the dead slots that densification leaves
-        # (zero quaternions, as in JAX) carry NaN parameters after a step
-        return x.view(torch.int32) if x.dtype == torch.float32 else x
-
-    def same_state(s0, s1):
-        return all(torch.equal(bits(getattr(s0, f)), bits(getattr(s1, f)))
-                   for f in ("live", "accum_grad", "grad_counter")) \
-            and torch.equal(s0.opt.t, s1.opt.t) and all(
-                torch.equal(bits(d0[k]), bits(d1[k])) for d0, d1 in (
-                    (s0.params, s1.params), (s0.opt.mu, s1.opt.mu),
-                    (s0.opt.nu, s1.opt.nu)) for k in d0)
-
     check(same_state(st0, st1), "load_full did not restore the state bit "
           "for bit")
     cam = int(tr.train_split[0])
@@ -1526,10 +1940,20 @@ def main() -> int:
     check(cli["rasterize_bwd"] == 41 and cli["rasterize_fwd"] > 41,
           f"CLI launches {cli}")
 
+    # ---- 11. the at-scale run ----------------------------------------------
+    (scene_build, at_scale_rgb, at_scale_sh), scale_rows = at_scale_path(
+        rz, dev)
+    at_scale = {name: {} for name in KERNELS}
+    for leg, rows in scale_rows.items():
+        for name, row in rows.items():
+            note_err(name, row["max_abs_err"])
+            at_scale[name][leg] = row
+
     paths = {"RGB serving": serve, "RGB training": train,
              "SH serving": sh_serve, "SH training": sh_train,
              "SH preset serving": sh_preset, "Trainer": trainer_launches,
-             "CLI": cli}
+             "CLI": cli, "at-scale scene build": scene_build,
+             "at-scale RGB run": at_scale_rgb, "at-scale SH run": at_scale_sh}
     print("launches by path: " + json.dumps(paths), flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": repl,
@@ -1540,7 +1964,9 @@ def main() -> int:
         "plain_ms": float(np.mean(times[name]["plain"])),
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         # no single PyTorch call composites tiles
-        "library_ms": None}
+        "library_ms": None,
+        # the same, on the heaviest view of each at-scale leg's table
+        "at_scale": at_scale[name]}
         for name, (src, repl) in KERNELS.items()]}), flush=True)
     print(smi, flush=True)              # card name, power limit
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
-"""COLMAP sparse-reconstruction readers (binary + text).
+"""COLMAP sparse-reconstruction readers (binary + text) and binary writers.
 
 Functional parity with the reference readers (reference ``utils.py:111``
 read_cameras_binary, ``:181`` read_images_binary, ``:259`` read_points3d_binary
 and the text variants), re-written around whole-file buffers and
 ``struct.unpack_from`` instead of per-field ``fid.read`` calls — the reference
 issues one syscall per scalar, which is slow for multi-million-point scenes.
+The writers (``write_cameras_binary``, ``write_images_binary``,
+``write_points3d_binary``) write the bytes of the JAX package's test-fixture
+writers (``tests/fixtures.py:14-38``), which its scene generator uses.
 
 A copy of ``gsplat_tpu/utils/colmap.py`` (numpy only; the JAX package's
 ``utils`` ``__init__`` imports jax, so the port keeps its own).  The optional
@@ -205,6 +208,42 @@ def read_points3d_arrays(path: _PathT):
         pos[i] = (x, y, z)
         rgb[i] = (r, g, b)
     return pos.astype(np.float32), rgb
+
+
+# ---------------------------------------------------------------------------
+# binary writers (the layouts the readers above parse)
+# ---------------------------------------------------------------------------
+
+def write_cameras_binary(path: _PathT, cam_id: int, w: int, h: int,
+                         fx: float, fy: float):
+    """One PINHOLE camera (model id 1: fx, fy, cx = w/2, cy = h/2)."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", cam_id, 1, w, h))
+        f.write(struct.pack("<dddd", fx, fy, w / 2, h / 2))
+
+
+def write_images_binary(path: _PathT, poses, cam_id: int):
+    """``poses``: a list of (qvec wxyz, tvec, name), ids from 1, all on
+    camera ``cam_id``, without 2-D points."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(poses)))
+        for i, (q, t, name) in enumerate(poses):
+            f.write(struct.pack("<idddddddi", i + 1, *q, *t, cam_id))
+            f.write(name.encode() + b"\x00")
+            f.write(struct.pack("<Q", 0))
+
+
+def write_points3d_binary(path: _PathT, xyz, rgb):
+    """Points with ids from 1, error 0.5 and a track of two entries (images
+    1 and 2 at point index i), as the JAX package's fixtures write them."""
+    head = struct.Struct("<QdddBBBd")
+    track = struct.Struct("<Qiiii")
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)))
+        f.write(b"".join(head.pack(i + 1, *p, *c, 0.5)
+                         + track.pack(2, 1, i, 2, i)
+                         for i, (p, c) in enumerate(zip(xyz, rgb))))
 
 
 # ---------------------------------------------------------------------------

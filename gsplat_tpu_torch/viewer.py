@@ -3,7 +3,8 @@
 ``render_offscreen`` is ``gsplat_tpu/viewer.py:62-161``: any pose,
 resolution and focal, with optional near/far clip planes applied through the
 live mask, the SH order slider's band mask, and the Fast Mode render preset.
-The viser server (``run_viewer``) is not ported yet.
+``_rotmat_to_quat`` turns a rotation into a COLMAP quaternion.  The viser
+server (``run_viewer``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -83,3 +84,23 @@ def render_offscreen(splat, w2c: np.ndarray, width: int, height: int,
     img, _ = render_cropped(params, live, rot, tran, grid, cfg, bspec, rspec,
                             shv, preset)
     return img.permute(1, 2, 0).cpu().numpy()
+
+
+def _rotmat_to_quat(r: np.ndarray) -> np.ndarray:
+    """3x3 rotation → wxyz quaternion (``gsplat_tpu/viewer.py:310-326``;
+    camera poses of the scene generator and the viewer's frustum markers)."""
+    w = np.sqrt(max(0.0, 1.0 + r[0, 0] + r[1, 1] + r[2, 2])) / 2
+    if w < 1e-8:
+        # a half-turn: the branch of the largest diagonal element
+        i = int(np.argmax([r[0, 0], r[1, 1], r[2, 2]]))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = np.sqrt(max(0.0, 1.0 + r[i, i] - r[j, j] - r[k, k])) * 2
+        q = np.zeros(4)
+        q[0] = (r[k, j] - r[j, k]) / s
+        q[1 + i] = s / 4
+        q[1 + j] = (r[j, i] + r[i, j]) / s
+        q[1 + k] = (r[k, i] + r[i, k]) / s
+        return q
+    return np.array([w, (r[2, 1] - r[1, 2]) / (4 * w),
+                     (r[0, 2] - r[2, 0]) / (4 * w),
+                     (r[1, 0] - r[0, 1]) / (4 * w)])

@@ -513,3 +513,37 @@ def test_offscreen_preset_on_cuda_matches_cpu(cuda):
         launched = LAUNCHES["rasterize_fwd_preset"] - before
         assert launched == (0 if dev == "cpu" else 1)
     np.testing.assert_allclose(frames[1], frames[0], atol=TOL)
+
+
+@pytest.mark.cuda
+def test_scene_generator_on_cuda_matches_cpu(cuda, tmp_path):
+    # the garden_hard kind of scene at a small size: orbit cameras, SH
+    # ground truth with view-dependent bands, sensor noise
+    from gsplat_tpu_torch.scripts import make_synth_scene
+    from gsplat_tpu_torch.utils.image_io import read_png
+
+    kw = dict(n_gt=20_000, n_points=2_000, n_cams=4, w=160, h=120,
+              focal=150.0, capacity_round=4096, scale_px=1.6, opa=0.6,
+              orbit=True, use_sh=True, sh_ampl=0.35, noise_std=2.0)
+    dirs = {d: str(tmp_path / str(d)) for d in ("cpu", "cuda")}
+    before = LAUNCHES["rasterize_fwd_sh"]
+    built = {d: make_synth_scene.main(p, device=d, log=lambda msg: None,
+                                      **kw) for d, p in dirs.items()}
+    assert LAUNCHES["rasterize_fwd_sh"] - before == kw["n_cams"]
+    assert [v["n_pairs"] for v in built["cuda"]["views"]] == \
+        [v["n_pairs"] for v in built["cpu"]["views"]]
+    differ = 0
+    for i in range(kw["n_cams"]):
+        a, b = (read_png(f"{dirs[d]}/images_4/img_{i:03d}.png").astype(int)
+                for d in ("cpu", "cuda"))
+        # the kernel and the plain forward differ by at most TOL: a value
+        # next to a rounding boundary lands 1 LSB apart
+        assert np.abs(a - b).max() <= 1
+        differ += int((a != b).sum())
+    assert differ <= 1e-3 * kw["n_cams"] * kw["w"] * kw["h"] * 3
+    assert abs(built["cuda"]["oracle_ceiling_psnr"]
+               - built["cpu"]["oracle_ceiling_psnr"]) <= 0.01
+    for name in ("cameras.bin", "images.bin", "points3D.bin"):
+        with open(f"{dirs['cpu']}/sparse/0/{name}", "rb") as f, \
+                open(f"{dirs['cuda']}/sparse/0/{name}", "rb") as g:
+            assert f.read() == g.read(), name
