@@ -28,6 +28,22 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
 - SH training: 12 steps of make_train_step over 4 cameras;
 - SH preset serving: 2 evaluation requests through the bf16 render preset
   (make_eval_step(preset=True)), held above 38 dB from the f32 SH image;
+- the viewer server: run_viewer through the fake viser server of
+  tests/torch_helpers.py, a client dragging its camera over the 8 eval poses
+  at the Resolution slider's default (1024x688), f32 and Fast Mode, each
+  pushed frame bit-identical to render_offscreen of its request's pose and
+  timed with and without the double buffer, and a frame's stages (render,
+  pinned copy, push) timed alone; the Near and Far sliders
+  culling to black; the SH Order slider on the SH scene; live training, 3
+  loop iterations of 10 Trainer steps;
+- data-parallel training: two gloo ranks (processes) on the one card, one
+  make_dp_train_step on cameras 0 and 6, both ranks' states bit-identical
+  and the params within 1e-5 (relative L2) of one process averaging both
+  cameras' gradients, the step and its all-reduce timed; an NCCL group of
+  one rank; main --dp with more ranks than GPUs raises;
+- bands: make_tile_sharded_render of the bench view at 832 rows (840 raises,
+  naming 832), 2 and 4 bands (RGB) and 2 (SH) within 2e-4 of the one image
+  at tiny culling settings, timed against it;
 - the Trainer: Trainer.train over iterations 600-660 of the RGB scene (every
   8th camera a test camera, a densify event every 20 steps from 620, the
   first one growing the table), with its TEST evaluation and checkpoint;
@@ -134,6 +150,22 @@ JAX_TEST = {200: (16.0360, 0.4268), 400: (14.7038, 0.4273),
             600: (13.8436, 0.4207), 800: (15.6991, 0.3894),
             1000: (16.8923, 0.4209)}
 PORT_RUN = "runs/torch_7k_hard_rgb/summary.json"   # the port's 7k RGB run
+# the viewer server (run_viewer through the fake viser server of
+# tests/torch_helpers.py): the Resolution slider's default at the camera
+# aspect 1.5 (1024x688 by snap_resolution), the bench camera's horizontal
+# field of view, the 8 eval poses; live training 3 loop iterations at the
+# default period of 10
+VIEWER_RES, VIEWER_ASPECT = 1024, 1.5
+VIEWER_FOV = float(2 * np.arctan(WIDTH / 2 / FOCAL))
+LIVE_LOOPS, LIVE_PERIOD = 3, 10
+# data-parallel training: two gloo ranks on the one card, cameras 0 and 6
+DP_CAMS = (0, 6)
+DP_TIMED_STEPS, ALL_REDUCE_REPS = 5, 10
+# band rendering: 840 px is 53 tile rows, which neither 2 nor 4 bands divide
+# (make_tile_sharded_render raises naming 832 and 896); 832 is 52 rows.  The
+# tiny culling settings make bands equal the one image to float tolerance
+BAND_HEIGHT, BAND_COUNTS = 832, (2, 4)
+TINY_CULL = dict(tile_culling_prob_thresh=1e-6, max_tiles_per_gaussian=64)
 DEVICE = "cuda:0"   # one card
 _FWD, _BWD = "gsplat_tpu_torch/csrc/rasterize_fwd.cu", \
     "gsplat_tpu_torch/csrc/rasterize_bwd.cu"
@@ -1302,6 +1334,500 @@ def same_state(s0, s1):
                 (s0.opt.nu, s1.opt.nu)) for k in d0)
 
 
+def test_helpers():
+    """tests/torch_helpers.py (no JAX there): the fake viser server that
+    drives run_viewer without viser or a browser."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_helpers
+
+    return torch_helpers
+
+
+def viewer_camera(pose):
+    """A fake client's pose → (w2c, W, H, focal_x, focal_y) as run_viewer
+    computes them at the Resolution slider's default."""
+    from gsplat_tpu_torch.viewer import camera_to_w2c, snap_resolution
+
+    w, h, fov = snap_resolution(VIEWER_RES, VIEWER_ASPECT, VIEWER_FOV)
+    return camera_to_w2c(*pose), w, h, w / 2 / np.tan(fov / 2), \
+        h / 2 / np.tan(fov / 2)
+
+
+def viewer_run(rz, splat, poses, values=None, trainer=None, loops=None):
+    """run_viewer with a fake server whose client drags its camera through
+    ``poses`` (one frame each), the launch counts reset just before →
+    (server, launches, wall s)."""
+    import torch
+
+    from gsplat_tpu_torch.viewer import run_viewer
+
+    th = test_helpers()
+    srv = th.FakeServer(values={"Resolution": VIEWER_RES, **(values or {})},
+                        poses=poses, camera=th.FakeCamera(
+                            aspect=VIEWER_ASPECT, fov=VIEWER_FOV))
+    torch.cuda.synchronize()
+    reset_launches(rz)
+    t0 = time.perf_counter()
+    run_viewer(splat, server=srv, trainer=trainer,
+               max_iters=loops or len(poses))
+    torch.cuda.synchronize()
+    return srv, dict(rz.LAUNCHES), time.perf_counter() - t0
+
+
+def offscreen_of(splat, srv, pose, fast, device_out=False):
+    """render_offscreen of a pose with the server's slider values."""
+    from gsplat_tpu_torch.viewer import render_offscreen
+
+    c = srv.controls
+    return render_offscreen(splat, *viewer_camera(pose),
+                            near=float(c["Near"].value),
+                            far=float(c["Far"].value),
+                            sh_order=int(c["SH Order"].value), fast=fast,
+                            device_out=device_out)
+
+
+def viewer_path(rz, splat, label, fast):
+    """run_viewer over the 8 eval poses on one route: every pushed frame is
+    render_offscreen's of its request's pose bit for bit, in order; then
+    the frame time with the double buffer (run_viewer) and without it (a
+    blocking render_offscreen and push a frame), in turns, and a frame's
+    stages alone → (launches of the checked run, {"double buffer": ms a
+    frame, "blocking": ...})."""
+    import torch
+
+    from gsplat_tpu_torch.viewer import _to_host
+
+    th = test_helpers()
+    sc = splat.cameras
+    poses = [th.c2w_pose(w2c) for w2c in offscreen_poses(
+        {"w2c_rot": sc.w2c_rot, "w2c_tran": sc.w2c_tran}, EVAL_IDS)]
+    values = {"Fast Mode (bf16)": fast}
+    viewer_run(rz, splat, poses[:2], values)              # warm-up
+    srv, launches, wall = viewer_run(rz, splat, poses, values)
+    name = "rasterize_fwd_preset" if fast else "rasterize_fwd"
+    want = dict.fromkeys(KERNELS, 0)
+    want[name] = len(poses)
+    check(launches == want, f"{label} launches {launches} != {want}")
+    frames = srv.client.images
+    check(len(frames) == len(poses), f"{label}: {len(frames)} frames pushed")
+    _, w, h, _, _ = viewer_camera(poses[0])
+    for k, (pose, img) in enumerate(zip(poses, frames)):
+        check(img.shape == (h, w, 3) and img.dtype == np.float32,
+              f"{label}: frame {k} {img.shape} {img.dtype}")
+        check(np.array_equal(img, offscreen_of(splat, srv, pose, fast)),
+              f"{label}: pushed frame {k} is not request {k}'s render")
+    check(all(np.abs(a - b).max() > 1e-3 for a, b in zip(frames, frames[1:])),
+          f"{label}: consecutive poses gave the same frame")
+    check_frames(frames, (h, w, 3))
+    fps = srv.controls["FPS"].value
+    client = th.FakeClient()
+
+    def blocking():
+        t0 = time.perf_counter()
+        for pose in poses:
+            img = offscreen_of(splat, srv, pose, fast)
+            client.set_background_image(img.astype(np.float32))
+        return time.perf_counter() - t0
+
+    def stages():
+        """A frame's stages one after another, each waited for: the render
+        (device_out), the pinned copy to the host, the push."""
+        t = dict.fromkeys(("render", "copy", "push"), 0.0)
+        for pose in poses:
+            t0 = time.perf_counter()
+            img = offscreen_of(splat, srv, pose, fast, device_out=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            host, _ = _to_host(img)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            client.set_background_image(host.numpy().astype(np.float32))
+            t3 = time.perf_counter()
+            for k, a, b in (("render", t0, t1), ("copy", t1, t2),
+                            ("push", t2, t3)):
+                t[k] += 1e3 * (b - a) / len(poses)
+        return t
+
+    walls = {"double buffer": [wall], "blocking": []}
+    for route in ("blocking", "blocking", "double buffer"):
+        walls[route].append(blocking() if route == "blocking" else
+                            viewer_run(rz, splat, poses, values)[2])
+    ms = {r: [1e3 * x / len(poses) for x in v] for r, v in walls.items()}
+    split = [stages() for _ in range(2)]
+    print(f"  {label}: {len(poses)} frames at {w}x{h}, each bit-identical "
+          f"to render_offscreen of its pose; FPS readout {fps}; ms a frame "
+          f"(host clock, a fake push without viser's JPEG encode or "
+          f"websocket): double buffer "
+          f"{'/'.join(f'{x:.3f}' for x in ms['double buffer'])}, blocking "
+          f"{'/'.join(f'{x:.3f}' for x in ms['blocking'])}; stages alone "
+          + ", ".join(f"{k} {'/'.join(f'{s[k]:.3f}' for s in split)}"
+                      for k in split[0]), flush=True)
+    return launches, {r: float(np.mean(v)) for r, v in ms.items()}
+
+
+def viewer_culling(rz, splat):
+    """Near and Far sliders that cull everything push a black frame; the
+    default ones do not."""
+    th = test_helpers()
+    pose = th.c2w_pose(offscreen_poses(
+        {"w2c_rot": splat.cameras.w2c_rot,
+         "w2c_tran": splat.cameras.w2c_tran}, (0,))[0])
+    for values in ({"Far": 1e-3}, {"Near": 1e6}, {}):
+        srv, _, _ = viewer_run(rz, splat, [pose], values)
+        img = srv.client.images[0]
+        black = not img.any()
+        check(black == bool(values), f"viewer {values or 'defaults'}: "
+              f"frame max {img.max():.3g}")
+        print(f"  viewer sliders {values or 'default'}: frame max "
+              f"{img.max():.4f}", flush=True)
+
+
+def viewer_sh_path(rz, splat):
+    """The SH Order slider on the SH scene (rasterize_fwd_sh, Fast Mode
+    keeps SH on f32): order 1 against the default 3 → launches."""
+    th = test_helpers()
+    pose = th.c2w_pose(offscreen_poses(
+        {"w2c_rot": splat.cameras.w2c_rot,
+         "w2c_tran": splat.cameras.w2c_tran}, (1,))[0])
+    srv3, l3, _ = viewer_run(rz, splat, [pose])
+    srv1, l1, _ = viewer_run(rz, splat, [pose], {"SH Order": 1})
+    want = dict.fromkeys(KERNELS, 0)
+    want["rasterize_fwd_sh"] = 1
+    check(l3 == l1 == want, f"viewer SH launches {l3} {l1} != {want}")
+    f3, f1 = srv3.client.images[0], srv1.client.images[0]
+    check(np.array_equal(f3, offscreen_of(splat, srv3, pose, True)),
+          "viewer SH frame is not render_offscreen's")
+    band = float(np.abs(f3 - f1).max())
+    print(f"  viewer SH Order 1 vs 3: max abs {band:.3e}", flush=True)
+    check(band > 1e-3, "the SH Order slider changed nothing")
+    return {k: l3[k] + l1[k] for k in l3}
+
+
+def viewer_training_path(rz, splat):
+    """run_viewer with a Trainer over a copy of the RGB scene: LIVE_LOOPS
+    loop iterations at the default period → launches."""
+    import torch
+
+    from gsplat_tpu_torch.config import SplatConfig, TrainConfig
+    from gsplat_tpu_torch.models.splatter import Splatter
+    from gsplat_tpu_torch.train import Trainer
+
+    th = test_helpers()
+    live = Splatter.from_scene(SplatConfig(), splat.table,
+                               splat.camera_groups)
+    tr = Trainer(live, TrainConfig())
+    step, losses = tr.train_step, []
+
+    def recorded(i):
+        m = step(i)
+        losses.append(m["loss"])
+        return m
+
+    tr.train_step = recorded
+    pose = th.c2w_pose(offscreen_poses(
+        {"w2c_rot": splat.cameras.w2c_rot,
+         "w2c_tran": splat.cameras.w2c_tran}, (0,))[0])
+    srv, launches, wall = viewer_run(rz, live, [pose], trainer=tr,
+                                     loops=LIVE_LOOPS)
+    losses = [float(x) for x in losses]
+    n = LIVE_LOOPS * LIVE_PERIOD
+    print(f"  {n} steps and {len(srv.client.images)} frames in {wall:.3f} s"
+          f" wall; loss {losses[0]:.5f} -> {losses[-1]:.5f}; kernel "
+          f"launches {json.dumps(launches)}", flush=True)
+    check(tr._gui_iter == n and len(losses) == n,
+          f"live training: _gui_iter {tr._gui_iter}, {len(losses)} steps")
+    check(all(np.isfinite(losses)), "live training: a loss is not finite")
+    check(len(srv.client.images) == LIVE_LOOPS, "live training frames")
+    check(torch.equal(live.table.pos, tr.state.params["pos"]),
+          "the viewer's table is not the trained one")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(rasterize_fwd=n, rasterize_bwd=n,
+                rasterize_fwd_preset=LIVE_LOOPS)
+    check(launches == want, f"live training launches {launches} != {want}")
+    return launches
+
+
+def state_leaves(st):
+    return [st.live, st.accum_grad, st.grad_counter, st.opt.t] + [
+        d[k] for d in (st.params, st.opt.mu, st.opt.nu) for k in sorted(d)]
+
+
+def dp_rank(rank, world, store, gt, out):
+    """A rank of the data-parallel phase, on the one card with gloo: the
+    bench scene (its ground truth ``gt`` for DP_CAMS from the parent), one
+    checked make_dp_train_step on camera DP_CAMS[rank], then the step and
+    the all-reduce timed; its result (or its exception) goes to ``out``."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.config import SplatConfig, TrainConfig
+    from gsplat_tpu_torch.models.splatter import SceneCameras, Splatter
+    from gsplat_tpu_torch.ops import rasterize as rz
+    from gsplat_tpu_torch.parallel.data_parallel import make_dp_train_step
+    from gsplat_tpu_torch.synthetic import synthetic_cameras, synthetic_table
+    from gsplat_tpu_torch.train import COUNTERS, GROUP_ORDER, \
+        init_train_state
+
+    torch.cuda.set_device(DEVICE)
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            world_size=world, rank=rank)
+    try:
+        table = synthetic_table(N_GAUSS, focal=FOCAL, scale_px=2.5,
+                                frustum=(0.85, 0.55), device=DEVICE)
+        cams = synthetic_cameras(N_CAMS, WIDTH, HEIGHT, FOCAL, device=DEVICE)
+        for cid, img in gt.items():
+            cams["images"][cid] = torch.from_numpy(img).to(DEVICE)
+        splat = Splatter.from_scene(SplatConfig(), table, [SceneCameras(
+            w2c_rot=cams["w2c_rot"], w2c_tran=cams["w2c_tran"],
+            sh_vecs=cams["sh_vecs"], images=cams["images"],
+            grid=cams["grid"], names=[str(i) for i in range(N_CAMS)])])
+        step = make_dp_train_step(splat, TrainConfig(ssim_weight=0.1))
+        st0 = init_train_state(table.params(), table.live)
+        lrs = torch.full((5,), LR, device=DEVICE)
+        cam = DP_CAMS[rank]
+        torch.cuda.synchronize()
+        reset_launches(rz)
+        st, m = step(st0, cam, lrs)
+        torch.cuda.synchronize()
+        res = {"launches": dict(rz.LAUNCHES), "loss": float(m["loss"]),
+               "counters": {k: int(m[k]) for k in COUNTERS}}
+        digest = hashlib.sha256()
+        for leaf in state_leaves(st):
+            digest.update(bits(leaf).cpu().numpy().tobytes())
+        res["digest"] = digest.hexdigest()
+        if rank == 0:
+            res["params"] = {k: st.params[k].cpu().numpy()
+                             for k in GROUP_ORDER}
+        del st
+        ms = []
+        for _ in range(DP_TIMED_STEPS + 1):      # the first is a warm-up
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(st0, cam, lrs)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        # the step's all-reduce alone: the same buffer size (5 groups' grads
+        # and 4 metrics; "max" accumulation sends no visibility count)
+        buf = torch.zeros(sum(v.numel() for v in st0.params.values()) + 4,
+                          device=DEVICE)
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(ALL_REDUCE_REPS):
+            dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        res.update(step_ms=ms[1:], buffer_floats=buf.numel(),
+                   all_reduce_ms=1e3 * (time.perf_counter() - t0)
+                   / ALL_REDUCE_REPS)
+        out.put((rank, res))
+    except BaseException as e:         # reported to the parent, re-raised
+        out.put((rank, RuntimeError(f"rank {rank}: {e!r}")))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_path(rz, splat):
+    """Data-parallel training on the one card: two gloo ranks (processes)
+    one make_dp_train_step on cameras DP_CAMS, both ranks' states
+    bit-identical, the params against one process averaging both cameras'
+    gradients, the counters the larger camera's; then an NCCL group of 1
+    rank, and main's --dp with more ranks than GPUs → {path: launches}."""
+    import multiprocessing as mp
+
+    import torch
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.config import TrainConfig
+    from gsplat_tpu_torch.parallel.data_parallel import make_dp_train_step
+    from gsplat_tpu_torch.train import COUNTERS, GROUP_ORDER, apply_grads, \
+        init_train_state, make_grad_fn, make_train_step
+    from gsplat_tpu_torch.train import main as train_main
+
+    gt = {c: splat.cameras.images[c].cpu().numpy() for c in DP_CAMS}
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    store = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    procs = [ctx.Process(target=dp_rank, args=(
+        r, len(DP_CAMS), os.path.join(store, "gloo"), gt, out))
+        for r in range(len(DP_CAMS))]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        got = dict(out.get(timeout=600) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=120)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(store, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for r in sorted(got):
+        if isinstance(got[r], BaseException):
+            raise got[r]
+    check(all(p.exitcode == 0 for p in procs),
+          f"rank exit codes {[p.exitcode for p in procs]}")
+    r0, r1 = got[0], got[1]
+    check(r0["digest"] == r1["digest"],
+          "the two ranks' states differ after the step")
+    check(r0["loss"] == r1["loss"] and r0["counters"] == r1["counters"],
+          "the two ranks' metrics differ")
+    tcfg = TrainConfig(ssim_weight=0.1)
+    st0 = init_train_state(splat.table.params(), splat.table.live)
+    lrs = torch.full((5,), LR, device=DEVICE)
+    grad_fn = make_grad_fn(splat, tcfg)
+    per_cam = [grad_fn(st0, c) for c in DP_CAMS]
+    mean = {k: sum(g[k] for g, _, _ in per_cam) / len(per_cam)
+            for k in GROUP_ORDER}
+    ref = apply_grads(st0, mean, None, lrs, tcfg)
+    rel = {k: float(np.linalg.norm(r0["params"][k]
+                                   - ref.params[k].cpu().numpy())
+                    / np.linalg.norm(ref.params[k].cpu().numpy()))
+           for k in GROUP_ORDER}
+    loss = float(np.mean([float(m["loss"]) for _, m, _ in per_cam]))
+    counters = {k: max(int(aux[k]) for _, _, aux in per_cam)
+                for k in COUNTERS}
+    print(f"  2 gloo ranks on {DEVICE} ({wall:.1f} s with the processes' "
+          f"start): states bit-identical ({r0['digest'][:12]}); loss "
+          f"{r0['loss']:.7f} (one process {loss:.7f}); params rel L2 vs one "
+          f"process averaging cameras {DP_CAMS}: {json.dumps(rel)}; "
+          f"counters {json.dumps(r0['counters'])}", flush=True)
+    check(max(rel.values()) <= 1e-5, f"data-parallel params differ: {rel}")
+    check(abs(r0["loss"] / loss - 1) <= 1e-5, "data-parallel loss differs")
+    check(r0["counters"] == counters,
+          f"counters {r0['counters']} != the larger camera's {counters}")
+    for r in (r0, r1):
+        print(f"  rank step ms {' '.join(f'{x:.3f}' for x in r['step_ms'])}"
+              f"; all-reduce of {r['buffer_floats']} floats "
+              f"({4 * r['buffer_floats'] / 1e6:.1f} MB) "
+              f"{r['all_reduce_ms']:.3f} ms", flush=True)
+    paths = {"data-parallel step, 2 gloo ranks": {
+        k: r0["launches"][k] + r1["launches"][k] for k in KERNELS}}
+
+    phase("data-parallel step: an NCCL group of 1 rank vs make_train_step")
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        store, "nccl"), world_size=1, rank=0)
+    try:
+        one = make_train_step(splat, tcfg)(st0, DP_CAMS[0], lrs)[0]
+        torch.cuda.synchronize()
+        reset_launches(rz)
+        st, _ = make_dp_train_step(splat, tcfg)(st0, DP_CAMS[0], lrs)
+        torch.cuda.synchronize()
+        paths["data-parallel step, NCCL 1 rank"] = dict(rz.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    rel = {k: float((st.params[k] - one.params[k]).norm()
+                    / one.params[k].norm()) for k in GROUP_ORDER}
+    print(f"  params rel L2 {json.dumps(rel)}; bit-identical "
+          f"{same_state(st, one)}", flush=True)
+    check(max(rel.values()) <= 1e-5, f"NCCL step differs: {rel}")
+    for path, launches in paths.items():
+        want = dict.fromkeys(KERNELS, 0)
+        n = len(DP_CAMS) if "gloo" in path else 1
+        want.update(rasterize_fwd=n, rasterize_bwd=n)
+        check(launches == want, f"{path} launches {launches} != {want}")
+
+    n = torch.cuda.device_count() + 1
+    try:
+        train_main(["--data", "none", "--dp", str(n)])
+        msg = None
+    except SystemExit as e:
+        msg = str(e)
+    print(f"  main --dp {n}: {msg}", flush=True)
+    check(msg is not None and f"{n - 1} visible" in msg,
+          "main --dp with more ranks than GPUs did not raise naming the "
+          "count")
+    return paths
+
+
+def bands_path(rz, splat, sh_splat):
+    """Band rendering of the bench view: the ValueError at 840 px, then 2
+    and 4 bands at BAND_HEIGHT against the one image at the tiny culling
+    settings (RGB; SH 2 bands), the default settings' difference printed,
+    and the band renders timed against the one image → launches."""
+    import torch
+
+    from gsplat_tpu_torch.config import SplatConfig
+    from gsplat_tpu_torch.models.camera import TileGrid
+    from gsplat_tpu_torch.models.splatter import make_specs, render_padded
+    from gsplat_tpu_torch.parallel.tile_parallel import \
+        make_tile_sharded_render
+
+    try:
+        make_tile_sharded_render(splat.cameras.grid, splat.cfg, 4)
+        msg = None
+    except ValueError as e:
+        msg = str(e)
+    print(f"  4 bands at {HEIGHT} px: {msg}", flush=True)
+    check(msg is not None and f"height {BAND_HEIGHT}" in msg,
+          "4 bands of 840 px did not raise naming 832")
+    grid = TileGrid(WIDTH, BAND_HEIGHT, FOCAL, FOCAL)
+
+    def view(sp):
+        c = sp.cameras
+        return (sp.table.params(), sp.table.live, c.w2c_rot[0],
+                c.w2c_tran[0], c.sh_vecs[0])
+
+    def full(sp, cfg):
+        bspec, rspec = make_specs(grid, cfg)
+        *args, shv = view(sp)
+        return render_padded(*args, grid, cfg, bspec, rspec, shv)[0]
+
+    tiny = SplatConfig(**TINY_CULL)
+    tiny_sh = SplatConfig(use_sh_coeff=True, **TINY_CULL)
+    renders = {n: make_tile_sharded_render(grid, tiny, n)
+               for n in BAND_COUNTS}
+    sh_render = make_tile_sharded_render(grid, tiny_sh, 2)
+    with torch.no_grad():
+        ref, ref_sh = full(splat, tiny), full(sh_splat, tiny_sh)
+        torch.cuda.synchronize()
+        reset_launches(rz)
+        imgs = {n: r(*view(splat)) for n, r in renders.items()}
+        img_sh = sh_render(*view(sh_splat))
+        torch.cuda.synchronize()
+    launches = dict(rz.LAUNCHES)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(rasterize_fwd=sum(BAND_COUNTS), rasterize_fwd_sh=2)
+    check(launches == want, f"band launches {launches} != {want}")
+    for label, img, r in [(f"{n} bands", imgs[n], ref) for n in imgs] + [
+            ("2 SH bands", img_sh, ref_sh)]:
+        d = float((img - r).abs().max())
+        print(f"  {label} at {WIDTH}x{BAND_HEIGHT}, tiny culling: max abs "
+              f"{d:.3e} from the one image", flush=True)
+        check(img.shape == r.shape and d <= TOL,
+              f"{label} differ from the one image: {d}")
+    dflt = SplatConfig()
+    times = {"one image": []}
+    with torch.no_grad():
+        one = full(splat, dflt)
+        fns = {"one image": lambda: full(splat, dflt)}
+        for n in BAND_COUNTS:
+            r = make_tile_sharded_render(grid, dflt, n)
+            d = float((r(*view(splat)) - one).abs().max())
+            print(f"  {n} bands, default culling: max abs {d:.3e} from the "
+                  f"one image", flush=True)
+            fns[f"{n} bands"] = (lambda r=r: r(*view(splat)))
+            times[f"{n} bands"] = []
+        for name in list(fns) + list(fns)[::-1]:
+            times[name].append(time_fn(fns[name], 10))
+    print("  render ms at default culling (CUDA events, 10 renders; bands "
+          "one after another on the card): " + "; ".join(
+              f"{k} {'/'.join(f'{x:.3f}' for x in v)}"
+              for k, v in times.items()), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1322,7 +1848,7 @@ def main() -> int:
     from gsplat_tpu_torch.train import (Trainer, init_train_state,
                                         make_eval_step, make_train_step)
     from gsplat_tpu_torch.train import main as train_main
-    from gsplat_tpu_torch.viewer import render_offscreen
+    from gsplat_tpu_torch.viewer import render_offscreen, snap_resolution
 
     check("jax" not in sys.modules, "the port pulled in jax")
     check(set(KERNELS) == set(rz.KERNELS), "KERNELS out of step with the "
@@ -1678,6 +2204,7 @@ def main() -> int:
     bounds["rasterize_fwd_preset"] = kernel_bound(
         "rasterize_fwd_preset", n_ev_p, (pp0.geom, pp0.color,
                                          pp0.tile_start, out_pk))
+    rgb_splat = splat     # the viewer, data-parallel and band phases
     del alone, splat, eval_step, train_step, state0, results, stats
     del table, params, pk0, pp0, out_k, out_pk, go0
     torch.cuda.empty_cache()
@@ -1840,12 +2367,36 @@ def main() -> int:
         lambda: rz.composite_tiles_preset_torch(*psargs, rspec, shv0))
     time_alone(("rasterize_fwd_sh", "rasterize_bwd_sh",
                 "rasterize_fwd_preset_sh"), int(pk0.n_pairs))
+    sh_splat = splat
     del alone, splat, eval_step, preset_step, train_step, state0, results
     del pres, table, params, live, pk0, pp_sh, out_k, out_pks, go0, psargs
     del args
     torch.cuda.empty_cache()
 
-    # ---- 10. the Trainer, densification, full state, CLI ------------------
+    # ---- 10. the viewer server, data-parallel training, bands -------------
+    w, h, _ = snap_resolution(VIEWER_RES, VIEWER_ASPECT, VIEWER_FOV)
+    phase(f"viewer path: run_viewer (fake viser server), {len(EVAL_IDS)} "
+          f"frames over the eval poses at {w}x{h}, f32 and Fast Mode")
+    viewer_f32, viewer_ms = viewer_path(rz, rgb_splat, "viewer f32", False)
+    viewer_fast, viewer_fast_ms = viewer_path(rz, rgb_splat,
+                                              "viewer Fast Mode", True)
+    viewer_culling(rz, rgb_splat)
+    phase("viewer path: the SH Order slider on the SH scene")
+    viewer_sh = viewer_sh_path(rz, sh_splat)
+    phase(f"viewer path: live training, {LIVE_LOOPS} loop iterations at "
+          f"period {LIVE_PERIOD}")
+    viewer_train = viewer_training_path(rz, rgb_splat)
+    phase(f"data-parallel step: 2 gloo ranks on one card, cameras "
+          f"{DP_CAMS}")
+    dp = dp_path(rz, rgb_splat)
+    phase(f"bands: make_tile_sharded_render, {BAND_COUNTS} bands")
+    bands = bands_path(rz, rgb_splat, sh_splat)
+    print(f"  viewer ms a frame: f32 {json.dumps(viewer_ms)}, Fast Mode "
+          f"{json.dumps(viewer_fast_ms)}", flush=True)
+    del rgb_splat, sh_splat
+    torch.cuda.empty_cache()
+
+    # ---- 11. the Trainer, densification, full state, CLI ------------------
     phase(f"Trainer path: Trainer.train, iterations {TRAIN_START}-"
           f"{TRAIN_END - 1}, RGB bench scene, {TRAINER_CAMS} cameras")
     tr, trainer_launches, records, events, log = trainer_path(rz, dev)
@@ -1940,7 +2491,7 @@ def main() -> int:
     check(cli["rasterize_bwd"] == 41 and cli["rasterize_fwd"] > 41,
           f"CLI launches {cli}")
 
-    # ---- 11. the at-scale run ----------------------------------------------
+    # ---- 12. the at-scale run ----------------------------------------------
     (scene_build, at_scale_rgb, at_scale_sh), scale_rows = at_scale_path(
         rz, dev)
     at_scale = {name: {} for name in KERNELS}
@@ -1951,8 +2502,11 @@ def main() -> int:
 
     paths = {"RGB serving": serve, "RGB training": train,
              "SH serving": sh_serve, "SH training": sh_train,
-             "SH preset serving": sh_preset, "Trainer": trainer_launches,
-             "CLI": cli, "at-scale scene build": scene_build,
+             "SH preset serving": sh_preset, "viewer f32": viewer_f32,
+             "viewer Fast Mode": viewer_fast, "viewer SH": viewer_sh,
+             "viewer live training": viewer_train, **dp, "bands": bands,
+             "Trainer": trainer_launches, "CLI": cli,
+             "at-scale scene build": scene_build,
              "at-scale RGB run": at_scale_rgb, "at-scale SH run": at_scale_sh}
     print("launches by path: " + json.dumps(paths), flush=True)
     print(json.dumps({"kernels": [{

@@ -3,8 +3,7 @@
 A trimmed copy of ``gsplat_tpu/config.py`` rather than an import of it, so
 the port stands alone beside the JAX package.  The JAX config also carries
 static-shape budgets (``visible_rows``, ``col_caps``, ``pad_rows``,
-``pair_capacity``/``pair_factor``), ``TrainConfig.dp`` (multi-device
-training, not ported yet) and TPU layout switches (``plane_mode``,
+``pair_capacity``/``pair_factor``) and TPU layout switches (``plane_mode``,
 ``fused_pack``, ``bf16_pack``, ``quant_depth``, ``cull_sublsb``,
 ``gather_*``, ``post_align``, ``px_split``, ``packed_bf16``, ``use_pallas``).
 The port works on dynamic shapes and picks its compositor from the tensor's
@@ -112,6 +111,9 @@ class TrainConfig:
     data: str = "colmap_garden/"
     ckpt: Optional[str] = None
     debug: bool = False
+    # data-parallel training: ranks of the default process group, one
+    # camera each per step (parallel/data_parallel.py); 0 or 1 = one device
+    dp: int = 0
 
     adam_b1: float = 0.9
     adam_b2: float = 0.99                   # reference train.py:63 betas=(0.9, 0.99)

@@ -12,18 +12,21 @@ The counterparts of ``gsplat_tpu/train.py``:
 - ``make_eval_step``: one camera rendered, then PSNR and SSIM;
 - ``bounded_k_growth`` and ``Trainer`` (``:313-846``): the camera splits,
   the schedule, adaptive density control with capacity growth, opacity
-  resets, test/evaluate, checkpoints and the training loop, on one device;
+  resets, test/evaluate, checkpoints and the training loop, on one device
+  or, with ``TrainConfig.dp`` > 1, as one rank of a data-parallel group
+  (``parallel/data_parallel.py``);
 - ``build_argparser``/``configs_from_args``/``main`` (``:853-1058``): the
-  CLI, ``python -m gsplat_tpu_torch.train --data <scene>``.
+  CLI, ``python -m gsplat_tpu_torch.train --data <scene>``; ``--gui 1``
+  serves the scene (``viewer.run_viewer``), ``--dp N`` trains on N ranks.
 
 Gradients flow through the hand-written backward rasterizers (RGB or SH) on
 CUDA tensors and through their plain twin on CPU tensors
 (``ops/rasterize.CompositeTiles``).  With SH color the ``rgb`` group is the
 (N, 27) coefficient table, and each step reads its camera's ``sh_vecs``.
 Left out: the K-step ``window_scan``/``train_window`` (TPU dispatch
-batching: ``Trainer.train`` takes one ``train_step`` a step), the static
-budget retunes (the port has no static budgets) and ``--dp`` (multi-GPU,
-not ported yet).
+batching: ``Trainer.train`` and the viewer's live training take one
+``train_step`` a step) and the static budget retunes (the port has no
+static budgets).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -142,25 +146,19 @@ def make_loss_fn(grid, cfg, tcfg: TrainConfig, bspec, rspec):
     return loss_fn
 
 
-def make_train_step(splat: Splatter, tcfg: TrainConfig, group: int = 0):
-    """The train step of one camera group: ``train_step(state, cam_idx,
-    lrs) → (new state, metrics)``.
-
-    Loss, gradients of every parameter group (autograd; the rasterizer's
-    backward is ``ops/rasterize.CompositeTiles``), Adam, and the |∇pos|
-    accumulation for densification (``gsplat_tpu/train.py:132-139``).  The
-    metrics are 0-d tensors: the loss terms, the binning counters
-    (``n_pairs``, ``n_clipped``, ``n_visible``, ``n_max_tiles``) and the
-    per-group ``grad_mean``.  The input state is not modified.
-    """
+def make_grad_fn(splat: Splatter, tcfg: TrainConfig, group: int = 0):
+    """The loss and its gradients on one camera of a group:
+    ``grad_fn(state, cam_idx) → (grads, metrics, aux)``, with the gradient
+    of every parameter group (autograd; the rasterizer's backward is
+    ``ops/rasterize.CompositeTiles``), the detached loss metrics and the
+    render's visibility mask and binning counters."""
     cfg = splat.cfg
     cams = splat.camera_groups[group]
     grid = cams.grid
     bspec, rspec = splat.specs(grid)
-    b1, b2, eps = tcfg.adam_b1, tcfg.adam_b2, tcfg.adam_eps
     loss_fn = make_loss_fn(grid, cfg, tcfg, bspec, rspec)
 
-    def train_step(st: TrainState, cam_idx: int, lrs):
+    def grad_fn(st: TrainState, cam_idx: int):
         rot = cams.w2c_rot[cam_idx]
         tran = cams.w2c_tran[cam_idx]
         gt = cams.images[cam_idx].to(torch.float32) / 255.0
@@ -172,24 +170,59 @@ def make_train_step(splat: Splatter, tcfg: TrainConfig, group: int = 0):
             grads = dict(zip(GROUP_ORDER, torch.autograd.grad(
                 loss, [params[k] for k in GROUP_ORDER], allow_unused=True,
                 materialize_grads=True)))
-        with torch.no_grad():
-            new_params, new_opt = adam_update(st.params, grads, st.opt, lrs,
-                                              b1, b2, eps)
-            pg = torch.abs(grads["pos"])
-            if tcfg.grad_accum_method == "mean":
-                accum = st.accum_grad + pg
-                counter = st.grad_counter + aux["visible"].to(torch.float32)
-            else:  # max
-                accum = torch.maximum(st.accum_grad, pg)
-                counter = torch.ones_like(st.grad_counter)
-            metrics = dict(metrics, n_pairs=aux["n_pairs"],
-                           n_clipped=aux["n_clipped"],
-                           n_max_tiles=aux["n_max_tiles"],
-                           n_visible=aux["n_visible"],
-                           grad_mean={k: torch.mean(torch.abs(grads[k]))
-                                      for k in GROUP_ORDER})
-        return TrainState(new_params, st.live, new_opt, accum,
-                          counter), metrics
+        return grads, metrics, aux
+
+    return grad_fn
+
+
+@torch.no_grad()
+def apply_grads(st: TrainState, grads: dict, visible: torch.Tensor, lrs,
+                tcfg: TrainConfig) -> TrainState:
+    """Adam and the |∇pos| accumulation for densification
+    (``gsplat_tpu/train.py:132-139``): ``visible`` is the float visibility
+    count the "mean" method adds up.  The input state is not modified."""
+    new_params, new_opt = adam_update(st.params, grads, st.opt, lrs,
+                                      tcfg.adam_b1, tcfg.adam_b2,
+                                      tcfg.adam_eps)
+    pg = torch.abs(grads["pos"])
+    if tcfg.grad_accum_method == "mean":
+        accum = st.accum_grad + pg
+        counter = st.grad_counter + visible
+    else:  # max
+        accum = torch.maximum(st.accum_grad, pg)
+        counter = torch.ones_like(st.grad_counter)
+    return TrainState(new_params, st.live, new_opt, accum, counter)
+
+
+COUNTERS = ("n_pairs", "n_clipped", "n_max_tiles", "n_visible")
+
+
+@torch.no_grad()
+def step_metrics(metrics: dict, counters: dict, grads: dict) -> dict:
+    """A step's metrics: the loss terms, the binning counters and the
+    per-group mean |gradient|."""
+    return dict(metrics, **{k: counters[k] for k in COUNTERS},
+                grad_mean={k: torch.mean(torch.abs(grads[k]))
+                           for k in GROUP_ORDER})
+
+
+def make_train_step(splat: Splatter, tcfg: TrainConfig, group: int = 0):
+    """The train step of one camera group: ``train_step(state, cam_idx,
+    lrs) → (new state, metrics)``.
+
+    Loss and gradients (:func:`make_grad_fn`), then Adam and the |∇pos|
+    accumulation (:func:`apply_grads`).  The metrics are 0-d tensors: the
+    loss terms, the binning counters (``n_pairs``, ``n_clipped``,
+    ``n_visible``, ``n_max_tiles``) and the per-group ``grad_mean``.  The
+    input state is not modified.
+    """
+    grad_fn = make_grad_fn(splat, tcfg, group)
+
+    def train_step(st: TrainState, cam_idx: int, lrs):
+        grads, metrics, aux = grad_fn(st, cam_idx)
+        new = apply_grads(st, grads, aux["visible"].to(torch.float32), lrs,
+                          tcfg)
+        return new, step_metrics(metrics, aux, grads)
 
     return train_step
 
@@ -233,14 +266,33 @@ def bounded_k_growth(cfg: SplatConfig, capacity: int, need: int) -> int:
 
 
 class Trainer:
-    """The training loop on one device (``gsplat_tpu/train.py:341-846``,
-    reference ``train.py:16-291``), on the device of the Splatter's
-    table."""
+    """The training loop (``gsplat_tpu/train.py:341-846``, reference
+    ``train.py:16-291``), on the device of the Splatter's table.
+
+    With ``tcfg.dp`` > 1 it is one rank of a data-parallel group: the
+    default process group must be initialized with that world size.  Every
+    rank then draws the same ``dp`` cameras a step from the same seeded
+    generator (JAX's (K, D) camera plane, ``:526-531``) and takes the one
+    at its rank; the step averages the gradients over the ranks
+    (``parallel/data_parallel.make_dp_train_step``); after each host event
+    rank 0's state is broadcast, and only rank 0 writes files.
+    """
 
     def __init__(self, splat: Splatter, tcfg: TrainConfig):
         self.splat = splat
         self.tcfg = tcfg
         self.device = splat.table.device
+        self.rank, self.world = 0, 1
+        if tcfg.dp and tcfg.dp > 1:
+            import torch.distributed as dist
+
+            if not dist.is_initialized() \
+                    or dist.get_world_size() != tcfg.dp:
+                raise RuntimeError(
+                    f"TrainConfig.dp={tcfg.dp} needs an initialized default "
+                    f"process group of {tcfg.dp} ranks "
+                    "(torch.distributed.init_process_group)")
+            self.rank, self.world = dist.get_rank(), tcfg.dp
         # flat camera index over all intrinsics groups (group-major); every
         # 8th is a test camera (reference train.py:68)
         self.flat_cams = [(g, i)
@@ -250,10 +302,15 @@ class Trainer:
         self.test_split = np.arange(0, n_cam, 8)
         self.train_split = np.array(
             sorted(set(range(n_cam)) - set(self.test_split.tolist())))
+        self._group_train = {}   # group → its train cameras' local ids
+        for fi in self.train_split:
+            g, i = self.flat_cams[fi]
+            self._group_train.setdefault(g, []).append(i)
         self.rng = np.random.default_rng(tcfg.seed)     # camera draws
         self.noise = torch.Generator(device=self.device)  # split samples
         self.noise.manual_seed(tcfg.seed)
         self.state = init_train_state(splat.table.params(), splat.table.live)
+        self._replicate_state()
         self._step_cache = {}
         self._eval_cache = {}
         self._last_metrics = None
@@ -262,8 +319,14 @@ class Trainer:
 
     def _train_step_for(self, g: int):
         if g not in self._step_cache:
-            self._step_cache[g] = make_train_step(self.splat, self.tcfg,
-                                                  group=g)
+            if self.world > 1:
+                from gsplat_tpu_torch.parallel.data_parallel import \
+                    make_dp_train_step
+                self._step_cache[g] = make_dp_train_step(
+                    self.splat, self.tcfg, group=g)
+            else:
+                self._step_cache[g] = make_train_step(self.splat, self.tcfg,
+                                                      group=g)
         return self._step_cache[g]
 
     def _eval_step_for(self, g: int):
@@ -284,6 +347,25 @@ class Trainer:
         self.splat.table = dataclasses.replace(
             self.splat.table, **self.state.params, live=live,
             n_live=int(live.sum()))
+
+    def _replicate_state(self):
+        """Data-parallel: every rank takes rank 0's state, K and table (no
+        op on one device).  JAX's replicated sharding kept the replicas
+        equal (``_replicate_state``, ``gsplat_tpu/train.py:388-394``); here
+        it is a broadcast after each event that rebuilds the state."""
+        if self.world == 1:
+            return
+        from gsplat_tpu_torch.parallel.data_parallel import replicate_state
+
+        cfg = self.splat.cfg
+        cap = self.state.live.shape[0]
+        self.state, k = replicate_state(self.state,
+                                        cfg.max_tiles_per_gaussian)
+        self._sync_table_from_state()
+        if k != cfg.max_tiles_per_gaussian \
+                or cap != self.state.live.shape[0]:
+            cfg.max_tiles_per_gaussian = k
+            self._rebuild_after_capacity_change()
 
     # per-iteration event predicates (reference train.py:87-91)
     def _pre_clear(self, i: int) -> bool:
@@ -311,6 +393,21 @@ class Trainer:
             self.splat.table = reset_opacity(self.splat.table)
             self.state = self.state._replace(
                 params=self.splat.table.params())
+        if ac or ac_delete or reset_opa:
+            self._replicate_state()
+
+    def _draw_camera(self):
+        """→ (group, camera id) of this step.  Data-parallel: one camera a
+        rank, all from the same generator on every rank, the first from the
+        train split and the rest from its group's train cameras (JAX's
+        ``train_window``, ``gsplat_tpu/train.py:524-531``); this rank's."""
+        g, cam = self.flat_cams[int(self.rng.choice(self.train_split))]
+        if self.world > 1:
+            pool = self._group_train[g]
+            cams = [cam] + [int(self.rng.choice(pool))
+                            for _ in range(self.world - 1)]
+            cam = cams[self.rank]
+        return g, cam
 
     def train_step(self, i_iter: int):
         """One step at iteration ``i_iter`` on a camera drawn from the
@@ -321,7 +418,7 @@ class Trainer:
             self.state = self.state._replace(
                 accum_grad=torch.zeros_like(self.state.accum_grad),
                 grad_counter=torch.zeros_like(self.state.grad_counter))
-        g, cam = self.flat_cams[int(self.rng.choice(self.train_split))]
+        g, cam = self._draw_camera()
         step = self._train_step_for(g)
         with StageTimer("train_step", debug=t.debug, device=self.device):
             self.state, metrics = step(self.state, cam, self.lrs_at(i_iter))
@@ -392,7 +489,7 @@ class Trainer:
         tbl = self.splat.table
         self.state = init_train_state(tbl.params(), tbl.live)  # a new Adam
         self.last_densify = stats
-        if t.debug:
+        if t.debug and self.rank == 0:
             print(f"[densify @{i_iter}] del={stats.n_deleted} "
                   f"clone={stats.n_cloned} split={stats.n_split} "
                   f"n_live={tbl.n_live} capacity={tbl.capacity}")
@@ -537,7 +634,8 @@ class Trainer:
                 ev = self.evaluate()
                 log(f"TEST @{j}: psnr={ev['psnr']:.4f} ssim={ev['ssim']:.4f} "
                     f"fps={ev['fps']:.1f}")
-            if t.n_save_train_img and j % t.n_save_train_img == 0 and j > 0:
+            if (t.n_save_train_img and j % t.n_save_train_img == 0 and j > 0
+                    and self.rank == 0):
                 self.save()
                 self.save_render(j)
             if t.debug and j % 100 == 0 and j > 0:
@@ -555,7 +653,7 @@ def build_argparser():
     keeps, and ``--device``.  The TPU layout flags (``--use_pallas``,
     ``--fused_pack``, ``--gather_colors``, ``--gather_geom``,
     ``--quant_depth``, ``--bf16_pack``, ``--cull_sublsb``, ``--pad_rows``)
-    and ``--dp`` are not flags here: argparse rejects them."""
+    are not flags here: argparse rejects them."""
     p = argparse.ArgumentParser(
         description="3D gaussian splatting on one GPU (PyTorch + CUDA)")
     t = TrainConfig()
@@ -635,9 +733,16 @@ def build_argparser():
     p.add_argument("--device", type=str, default="cuda",
                    help="device of the table, the images and the kernels "
                         "(cuda, cuda:N, or cpu for the plain versions)")
-    p.add_argument("--gui", type=int, default=0)
-    p.add_argument("--test", type=int, default=0)
+    p.add_argument("--gui", type=int, default=0,
+                   help="serve the scene in the viser viewer instead of "
+                        "training")
+    p.add_argument("--test", type=int, default=0,
+                   help="with --gui 1: load the cameras without images")
     p.add_argument("--gui_port", type=int, default=6789)
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel ranks, one camera each a step: rank "
+                        "r on cuda:r (NCCL), or with --device cpu on the "
+                        "CPU (gloo); 0 or 1 = one device")
     return p
 
 
@@ -681,32 +786,94 @@ def configs_from_args(a) -> tuple[SplatConfig, TrainConfig]:
         adaptive_control_end_iter=a.adaptive_control_end_iter,
         ssim_weight=a.ssim_weight, scale_reg=a.scale_reg, opa_reg=a.opa_reg,
         seed=a.seed, exp=a.exp, data=a.data,
-        ckpt=a.ckpt or None, debug=bool(a.debug),
+        ckpt=a.ckpt or None, debug=bool(a.debug), dp=a.dp,
     )
     return scfg, tcfg
 
 
+def _load_splat(args, scfg, tcfg, device) -> Splatter:
+    data_path = os.path.join(args.data, "sparse", "0")
+    img_path = os.path.join(args.data,
+                            f"images_{args.render_downsample_start}")
+    return Splatter(data_path, img_path, scfg, load_ckpt=tcfg.ckpt,
+                    test=bool(args.test), device=device)
+
+
+def _train(args, device, log=print):
+    """Build the scene and train it; rank 0 (or the one device) saves."""
+    np.random.seed(args.seed)
+    scfg, tcfg = configs_from_args(args)
+    trainer = Trainer(_load_splat(args, scfg, tcfg, device), tcfg)
+    trainer.train(metrics_every=args.metrics_every, log=log)
+    if trainer.rank == 0:
+        trainer.save()
+    return trainer
+
+
+def _dp_worker(rank: int, args, init_method: str, threads: int):
+    """Rank ``rank`` of ``main``'s ``--dp`` group: cuda:rank with NCCL, or
+    the CPU with gloo; it checks at the end that the replicas are equal."""
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.parallel.data_parallel import replicas_equal
+
+    if args.device == "cpu":
+        device, backend = "cpu", "gloo"
+        torch.set_num_threads(threads)
+    else:
+        device, backend = f"cuda:{rank}", "nccl"
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=args.dp, rank=rank)
+    try:
+        trainer = _train(args, device,
+                         log=print if rank == 0 else (lambda msg: None))
+        if not replicas_equal(trainer.state):
+            raise RuntimeError("data-parallel replicas differ after "
+                               "training")
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_data_parallel(args):
+    """``--dp N``: N ranks started with ``torch.multiprocessing`` (spawn),
+    meeting at a file store in a temporary directory."""
+    n = args.dp
+    if args.device != "cpu":
+        if args.device != "cuda":
+            raise SystemExit(f"--dp {n} puts rank r on cuda:r: pass "
+                             f"--device cuda or --device cpu, not "
+                             f"{args.device}")
+        visible = torch.cuda.device_count()
+        if visible < n:
+            raise SystemExit(f"--dp {n} needs {n} GPUs, one a rank; "
+                             f"{visible} visible")
+    threads = max(1, torch.get_num_threads() // n)
+    with tempfile.TemporaryDirectory() as d:
+        torch.multiprocessing.spawn(
+            _dp_worker, nprocs=n, join=True,
+            args=(args, "file://" + os.path.join(d, "store"), threads))
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.gui:
-        raise SystemExit("--gui 1: the viewer server is not ported to "
-                         "gsplat_tpu_torch yet; for headless rendering use "
-                         "gsplat_tpu_torch.viewer.render_offscreen")
-    if args.test:
+    if args.test and not args.gui:
         raise SystemExit(
             "--test 1 requires --gui 1 (reference train.py:395 asserts the "
             "same); for headless rendering use "
             "gsplat_tpu_torch.viewer.render_offscreen")
-    np.random.seed(args.seed)
-    scfg, tcfg = configs_from_args(args)
-    data_path = os.path.join(args.data, "sparse", "0")
-    img_path = os.path.join(args.data,
-                            f"images_{args.render_downsample_start}")
-    splat = Splatter(data_path, img_path, scfg, load_ckpt=tcfg.ckpt,
-                     device=args.device)
-    trainer = Trainer(splat, tcfg)
-    trainer.train(metrics_every=args.metrics_every)
-    trainer.save()
+    if args.gui:
+        from gsplat_tpu_torch.viewer import run_viewer
+
+        np.random.seed(args.seed)
+        scfg, tcfg = configs_from_args(args)
+        run_viewer(_load_splat(args, scfg, tcfg, args.device),
+                   port=args.gui_port)
+        return
+    if args.dp > 1:
+        _train_data_parallel(args)
+        return
+    _train(args, args.device)
 
 
 if __name__ == "__main__":

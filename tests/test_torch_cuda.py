@@ -34,6 +34,7 @@ from gsplat_tpu_torch.train import (GROUP_ORDER, init_train_state, lrs_at,
 from gsplat_tpu_torch.viewer import render_offscreen
 
 from torch_helpers import (BIG_CROWD, FWD_BATCH, RAGGED_COUNTS, TILE,
+                           FakeServer,
                            assert_close_cols, image_space_pairs,
                            ragged_pairs)
 
@@ -547,3 +548,58 @@ def test_scene_generator_on_cuda_matches_cpu(cuda, tmp_path):
         with open(f"{dirs['cpu']}/sparse/0/{name}", "rb") as f, \
                 open(f"{dirs['cuda']}/sparse/0/{name}", "rb") as g:
             assert f.read() == g.read(), name
+
+
+def _card_splat(cuda, **cfg_kw):
+    table = synthetic.synthetic_table(3000, capacity_round=4096, focal=100.0,
+                                      scale_px=3.0, frustum=(0.85, 0.55),
+                                      device=cuda)
+    cams = synthetic.synthetic_cameras(1, 160, 128, 100.0, device=cuda)
+    return Splatter.from_scene(SplatConfig(**cfg_kw), table, [SceneCameras(
+        w2c_rot=cams["w2c_rot"], w2c_tran=cams["w2c_tran"],
+        sh_vecs=cams["sh_vecs"], images=None, grid=cams["grid"],
+        names=["a"])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+def test_viewer_frame_is_render_offscreens(cuda, fast):
+    # the pushed frame (pinned copy, event, double buffer) is the render of
+    # its camera bit for bit
+    from gsplat_tpu_torch.viewer import (camera_to_w2c, run_viewer,
+                                         snap_resolution)
+
+    splat = _card_splat(cuda)
+    name = "rasterize_fwd_preset" if fast else "rasterize_fwd"
+    srv = FakeServer(values={"Resolution": 256, "Fast Mode (bf16)": fast})
+    before = LAUNCHES[name]
+    run_viewer(splat, server=srv, max_iters=1)
+    assert LAUNCHES[name] - before == 1 and len(srv.client.images) == 1
+    w, h, fov = snap_resolution(256, 1.5, 1.0)
+    cam = srv.client.camera
+    ref = render_offscreen(splat, camera_to_w2c(cam.wxyz, cam.position), w,
+                           h, w / 2 / np.tan(fov / 2), h / 2 / np.tan(fov / 2),
+                           near=0.3, far=1000.0, sh_order=3, fast=fast)
+    img = srv.client.images[0]
+    assert img.shape == (h, w, 3) and img.max() > 0.1
+    np.testing.assert_array_equal(img, ref)
+
+
+@pytest.mark.cuda
+def test_bands_on_cuda_match_the_full_render(cuda):
+    from gsplat_tpu_torch.models.splatter import render_padded
+    from gsplat_tpu_torch.parallel.tile_parallel import \
+        make_tile_sharded_render
+
+    splat = _card_splat(cuda, tile_culling_prob_thresh=1e-6,
+                        max_tiles_per_gaussian=64)
+    c = splat.cameras
+    args = (splat.table.params(), splat.table.live, c.w2c_rot[0],
+            c.w2c_tran[0])
+    before = LAUNCHES["rasterize_fwd"]
+    bands = make_tile_sharded_render(c.grid, splat.cfg, 2)(*args)
+    assert LAUNCHES["rasterize_fwd"] - before == 2
+    bspec, rspec = splat.specs(c.grid)
+    full, _ = render_padded(*args, c.grid, splat.cfg, bspec, rspec)
+    assert bands.shape == full.shape == (3, 128, 160)
+    torch.testing.assert_close(bands, full, atol=TOL, rtol=0)

@@ -240,15 +240,48 @@ def test_cli_trains_tests_and_saves(scene, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--gui", "1"], ["--test", "1"], ["--use_pallas", "0"],
+    ["--test", "1"], ["--use_pallas", "0"],
     ["--fused_pack", "1"], ["--gather_colors", "1"], ["--gather_geom", "0"],
     ["--quant_depth", "0"], ["--bf16_pack", "0"], ["--cull_sublsb", "0"],
-    ["--pad_rows", "-1"], ["--dp", "2"]])
+    ["--pad_rows", "-1"]])
 def test_cli_rejects_what_the_port_leaves_out(flags, capsys):
     with pytest.raises(SystemExit) as e:
         main(["--data", "nowhere", "--device", "cpu"] + flags)
-    if flags[0] == "--gui":
-        assert "viewer server is not ported" in str(e.value)
+    if flags[0] == "--test":
+        assert "--test 1 requires --gui 1" in str(e.value)
+
+
+def test_cli_gui_without_viser_exits_naming_it(scene, monkeypatch):
+    # --gui 1 loads the scene, then serves it: without viser it exits
+    monkeypatch.setitem(sys.modules, "viser", None)
+    with pytest.raises(SystemExit, match="viser is not installed"):
+        main(["--data", scene, "--gui", "1", "--test", "1", "--device",
+              "cpu", "--capacity_round", "256"])
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:1"])
+def test_cli_dp_needs_a_gpu_a_rank(device, monkeypatch):
+    # no fallback to fewer devices or to gloo on the card
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--dp 2 .*(1 visible|cuda:1)"):
+        main(["--data", "nowhere", "--dp", "2", "--device", device])
+
+
+def test_cli_dp_trains_on_the_cpu(scene, tmp_path, capfd):
+    # 2 gloo ranks; the opacity reset at 10 is a host event (rank 0's state
+    # broadcast); each rank checks at the end that the replicas are equal
+    exp = str(tmp_path / "exp")
+    main(["--data", scene, "--n_iters", "21", "--n_iters_warmup", "5",
+          "--n_iters_test", "20", "--exp", exp, "--metrics_every", "10",
+          "--lr", "0.01", "--capacity_round", "256", "--n_opa_reset", "10",
+          "--device", "cpu", "--dp", "2"])
+    out = capfd.readouterr().out
+    assert out.count("TEST @20:") == 1          # rank 0 alone reports
+    l1 = [float(x.split("l1=")[1].split()[0]) for x in out.splitlines()
+          if x.startswith("iter ")]
+    assert len(l1) == 3 and np.isfinite(l1).all()
+    with np.load(os.path.join(exp, "ckpt.npz")) as z:
+        assert z["pos"].shape == (100, 3)
 
 
 def test_entry_points_default_to_the_card():

@@ -1,4 +1,6 @@
-"""Shared image-space scenes for the gsplat_tpu_torch parity tests.
+"""Shared image-space scenes and a fake viser server for the
+gsplat_tpu_torch tests (no JAX here: the card tests and ``chip_smoke.py``
+import this file).
 
 ``image_space_pairs`` lives in ``gsplat_tpu_torch.synthetic`` so that
 ``chip_smoke.py`` checks the kernels on the same scenes as the tests.
@@ -66,3 +68,111 @@ def assert_close_cols(a, b, atol_frac, rtol, what=""):
         + rtol * np.abs(b)
     worst = (np.abs(a - b) / np.maximum(bound, 1e-30)).max()
     assert (np.abs(a - b) <= bound).all(), f"{what}: {worst:.3g} x bound"
+
+
+# ---- a fake viser server (tests/test_viewer.py:97-171) ---------------------
+
+class FakeControl:
+    """A GUI control: a value, a name, a disabled flag and callbacks."""
+
+    def __init__(self, value=None):
+        self.value = value
+        self.disabled = False
+        self.name = ""
+        self._cbs = []
+
+    def on_update(self, fn):
+        self._cbs.append(fn)
+        return fn
+
+    on_click = on_update
+
+    def fire(self):
+        for fn in self._cbs:
+            fn(None)
+
+
+class FakeCamera:
+    """A client's camera: a c2w quaternion and position, aspect, fov."""
+
+    def __init__(self, wxyz=(1.0, 0.0, 0.0, 0.0), position=(0.0, 0.0, 0.0),
+                 aspect=1.5, fov=1.0):
+        self.wxyz = np.asarray(wxyz, np.float64)
+        self.position = np.asarray(position, np.float64)
+        self.aspect = aspect
+        self.fov = fov
+        self.up_direction = None
+        self._cbs = []
+
+    def on_update(self, fn):
+        self._cbs.append(fn)
+        return fn
+
+    def move(self, wxyz, position):
+        """Set the pose and fire the camera's callbacks (a user's drag)."""
+        self.wxyz = np.asarray(wxyz, np.float64)
+        self.position = np.asarray(position, np.float64)
+        for fn in self._cbs:
+            fn(None)
+
+
+class FakeClient:
+    def __init__(self, camera=None):
+        self.camera = camera or FakeCamera()
+        self.images = []      # the pushed frames, (H, W, 3) float32
+
+    def set_background_image(self, img, format="jpeg"):
+        self.images.append(np.asarray(img))
+
+
+class FakeServer:
+    """The part of ``viser.ViserServer`` that ``run_viewer`` uses, with one
+    client.  ``values`` sets a control's value when it is added (as if the
+    user had moved it before the first frame); ``poses`` (c2w wxyz,
+    position) moves the client's camera to the next pose each time the
+    viewer asks for its clients to render a frame."""
+
+    def __init__(self, values=None, camera=None, poses=()):
+        self.controls = {}
+        self.values = dict(values or {})
+        self.client = FakeClient(camera)
+        self.poses = list(poses)
+        self._connect_cbs = []
+
+    def _add(self, name, value):
+        c = FakeControl(self.values.get(name, value))
+        self.controls[name] = c
+        return c
+
+    def add_gui_slider(self, name, min, max, step, initial_value,
+                       disabled=False):
+        c = self._add(name, initial_value)
+        c.disabled = disabled
+        return c
+
+    def add_gui_button(self, name):
+        return self._add(name, None)
+
+    def add_gui_checkbox(self, name, initial_value=False):
+        return self._add(name, initial_value)
+
+    def add_gui_text(self, name, initial_value="", disabled=False):
+        return self._add(name, initial_value)
+
+    def on_client_connect(self, fn):
+        self._connect_cbs.append(fn)
+        fn(self.client)
+        return fn
+
+    def get_clients(self):
+        if self.poses:
+            self.client.camera.move(*self.poses.pop(0))
+        return {0: self.client}
+
+
+def c2w_pose(w2c):
+    """A 4x4 w2c → the (wxyz, position) of a viser camera at that pose."""
+    from gsplat_tpu_torch.viewer import _rotmat_to_quat
+
+    c2w = np.linalg.inv(np.asarray(w2c, np.float64))
+    return _rotmat_to_quat(c2w[:3, :3]), c2w[:3, 3]
