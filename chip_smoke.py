@@ -7,7 +7,8 @@ Run from the repository root, with no arguments:
 
 It builds the rasterizer kernels (gsplat_tpu_torch/csrc/rasterize_fwd.cu and
 rasterize_bwd.cu, one nvcc each, in parallel, for sm_90a into
-gsplat_tpu_torch/_build/), six entry points: the f32 RGB forward and
+gsplat_tpu_torch/_build/; beside them the native COLMAP reader,
+csrc/colmap_reader.cpp, with the system C++ compiler), six entry points: the f32 RGB forward and
 backward, the SH forward and backward (27 coefficients) and the bf16 render
 preset's forward, RGB and SH.  It holds each against its plain PyTorch
 version on a tiny input, on a small scene (a tile of more than 256 pairs, an
@@ -53,7 +54,9 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
 - the at-scale run, in a temporary directory: the garden_hard scene built
   at its published size (scripts/make_synth_scene: 1.2M SH ground-truth
   gaussians rendered to 56 views at 1297x840, a 140k-point init), its oracle
-  ceiling held within 0.05 dB of JAX's 42.82; scripts/run_garden_7k over
+  ceiling held within 0.05 dB of JAX's 42.82; its points3D.bin read by the
+  native COLMAP reader and by the Python parser, the same 140,000 points bit
+  for bit; scripts/run_garden_7k over
   iterations 0-1000 of the 7001-iteration schedule (RGB; densify events at
   700-1000, the capacity growth and K growth of JAX's run; the train step
   then timed by stage on that table), with every logged l1 finite, n_live <=
@@ -65,7 +68,9 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's.
 
 It also holds the forward kernels' split division (csrc/fast_div.cuh)
-against the compiler's IEEE x / y, bit for bit, on 2^34 operand pairs.
+against the compiler's IEEE x / y, bit for bit, on 2^34 operand pairs, and
+prints the tile boxes of the bench scene's view 0 on the card beside the
+same boxes computed on the CPU.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  It checks every output, that two launches of each kernel on view 0
@@ -853,14 +858,14 @@ def trainer_path(rz, dev):
     tr = Trainer(splat, tcfg)
     check(len(tr.test_split) == TRAINER_CAMS // 8, "test split")
     records, events = [], []
-    step = tr.train_step
+    step = tr._step
     densify = tr._densify
 
-    def timed_step(i):
+    def timed_step(i, group=None):
         before = dict(rz.LAUNCHES)
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         e0.record()
-        m = step(i)
+        g, m = step(i, group)
         e1.record()
         torch.cuda.synchronize()
         records.append({"i": i, "ms": e0.elapsed_time(e1),
@@ -868,7 +873,7 @@ def trainer_path(rz, dev):
                         "n_pairs": int(m["n_pairs"]),
                         "launches": {k: rz.LAUNCHES[k] - before[k]
                                      for k in before}})
-        return m
+        return g, m
 
     def checked_densify(i, ac, in_reset):
         n0, cap0 = tr.splat.table.n_live, tr.splat.table.capacity
@@ -881,7 +886,7 @@ def trainer_path(rz, dev):
                        "adam_t": int(tr.state.opt.t)})
         print(f"  densify @{i}: {json.dumps(events[-1])}", flush=True)
 
-    tr.train_step, tr._densify = timed_step, checked_densify
+    tr._step, tr._densify = timed_step, checked_densify
     log = io.StringIO()
     reset_launches(rz)
     t0 = time.perf_counter()
@@ -894,7 +899,7 @@ def trainer_path(rz, dev):
     print(f"{len(records)} steps in {wall:.3f} s wall (TEST evaluation and "
           f"checkpoint included); kernel launches {json.dumps(launches)}",
           flush=True)
-    tr.train_step, tr._densify = step, densify
+    tr._step, tr._densify = step, densify
     return tr, launches, records, events, log.getvalue()
 
 
@@ -931,24 +936,25 @@ def check_trainer(tr, launches, records, events, log):
 
 
 def record_steps():
-    """Patch Trainer.train_step (the class) to record each step's host time
-    and pair count → (records, undo)."""
+    """Patch Trainer._step (the class; Trainer.train takes its steps
+    through it) to record each step's host time and pair count →
+    (records, undo)."""
     from gsplat_tpu_torch.train import Trainer
 
-    step = Trainer.train_step
+    step = Trainer._step
     records = []
 
-    def timed_step(self, i):
+    def timed_step(self, i, group=None):
         t0 = time.perf_counter()
-        m = step(self, i)
+        g, m = step(self, i, group)
         # n_pairs stays a device scalar until the run ends: no extra sync
         records.append((i, time.perf_counter() - t0, m["n_pairs"]))
-        return m
+        return g, m
 
     def undo():
-        Trainer.train_step = step
+        Trainer._step = step
 
-    Trainer.train_step = timed_step
+    Trainer._step = timed_step
     return records, undo
 
 
@@ -1092,6 +1098,73 @@ def at_scale_kernels(rz, label, params, live, view, grid, cfg, seed,
     return rows
 
 
+def tile_boxes_check(params, live, cams, cfg, bspec):
+    """View 0's projection on the card, its tile boxes computed on the card
+    and, from the same projected values, on the CPU; prints the pairs of
+    both and the gaussians whose box differs.  The CPU counts JAX's and the
+    TPU's 1,002,683; on the card one gaussian's box edge sits at a tile
+    boundary where PyTorch's CUDA division by a Python number (a multiply
+    by the reciprocal) rounds the other way (ROADMAP §3)."""
+    import torch
+
+    from gsplat_tpu_torch.ops.binning import _tile_bbox_rows
+    from gsplat_tpu_torch.ops.projection import project_gaussians
+
+    phase("tile boxes of view 0: the card beside the CPU")
+    grid = cams["grid"]
+    with torch.no_grad():
+        proj = project_gaussians(
+            params["pos"], params["quat"], params["scale"],
+            cams["w2c_rot"][0], cams["w2c_tran"][0], near=cfg.near,
+            half_width=grid.width * 1.2 / 2 / grid.focal_x,
+            half_height=grid.height * 1.2 / 2 / grid.focal_y,
+            scale_activation=cfg.scale_activation)
+        rows = (proj.mean2d[:, 0], proj.mean2d[:, 1], *proj.cov2d.unbind(1),
+                proj.visible & live)
+        card = _tile_bbox_rows(bspec, *rows)
+        cpu = _tile_bbox_rows(bspec, *(r.cpu() for r in rows))
+    k = bspec.max_tiles_per_gaussian
+    pairs = [int(torch.clamp_max(b[2] * b[3], k).sum()) for b in (card, cpu)]
+    differ = torch.zeros_like(cpu[0], dtype=torch.bool)
+    for a, b in zip(card, cpu):
+        differ |= a.cpu() != b
+    print(f"  pairs {pairs[0]} on the card, {pairs[1]} on the CPU; "
+          f"gaussians whose box differs: "
+          f"{torch.nonzero(differ).flatten().tolist()}", flush=True)
+
+
+def colmap_reader_check(path, n_points):
+    """The port's native COLMAP reader (``csrc/colmap_reader.cpp``) against
+    its Python parser on one ``points3D.bin``: the same points bit for bit
+    (the file's doubles narrowed to f32)."""
+    from gsplat_tpu_torch.ops import cuda_build
+    from gsplat_tpu_torch.utils import colmap
+
+    phase(f"native COLMAP reader vs the Python parser: {n_points} points")
+    t0 = time.perf_counter()
+    pos, rgb = colmap.read_points3d_arrays(path)
+    t_native = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        buf = f.read()
+    t0 = time.perf_counter()
+    pts = colmap._read_points3d_binary_python(buf)
+    t_python = time.perf_counter() - t0
+    xyz = np.stack([p.xyz for p in pts.values()]).astype(np.float32)
+    col = np.stack([p.rgb for p in pts.values()]).astype(np.uint8)
+    lib = cuda_build.BUILD_INFO["colmap_reader"]["path"]
+    print(f"  {len(buf)} bytes; native {pos.shape[0]} points in "
+          f"{t_native * 1e3:.1f} ms ({lib}), Python {len(pts)} in "
+          f"{t_python * 1e3:.1f} ms; positions equal "
+          f"{np.array_equal(pos, xyz)}, colors equal "
+          f"{np.array_equal(rgb, col)}", flush=True)
+    check(pos.shape == (n_points, 3) and len(pts) == n_points,
+          f"COLMAP reader: {pos.shape[0]} / {len(pts)} points, want "
+          f"{n_points}")
+    check(np.array_equal(pos, xyz) and np.array_equal(rgb, col),
+          "the native COLMAP reader differs from the Python parser")
+    check("/gsplat_tpu/" not in lib, f"the reader came from {lib}")
+
+
 def trainer_views(splat):
     """The Trainer's cameras as (rotation, translation, SH vectors)."""
     sc = splat.cameras
@@ -1141,6 +1214,8 @@ def at_scale_path(rz, dev):
         check(build == want, f"scene build launches {build} != {want}")
         check(abs(ceiling - JAX_CEILING) <= 0.05,
               f"oracle ceiling {ceiling:.4f} dB, JAX {JAX_CEILING}")
+        colmap_reader_check(os.path.join(scene, "sparse", "0",
+                                         "points3D.bin"), preset["n_points"])
         gv = int(np.argmax(pairs))
         phase(f"at-scale kernels vs plain: the GT table, view {gv} (the "
               f"most pairs)")
@@ -1872,16 +1947,21 @@ def main() -> int:
     phase("build")
     t0 = time.perf_counter()
     # the kernels' sources, and the self-check of the forward's split
-    # division (csrc/fast_div_check.cu)
+    # division (csrc/fast_div_check.cu); beside them the host COLMAP reader
+    # (csrc/colmap_reader.cpp, the system C++ compiler)
     sources = sorted({src for src, _ in rz.KERNELS.values()}
                      | {"fast_div_check"})
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        reader = pool.submit(cuda_build.load_host_library, "colmap_reader")
         list(pool.map(cuda_build.load_kernel_library, sources))
+        reader.result()
     for name in KERNELS:
         rz._kernel(name)
-    print(f"built {len(sources)} libraries ({len(KERNELS)} entry points and "
-          f"the division check) in "
+    print(f"built {len(sources) + 1} libraries ({len(KERNELS)} entry points, "
+          f"the division check and the COLMAP reader) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    info = cuda_build.BUILD_INFO["colmap_reader"]
+    print(f"  colmap_reader: {info['path']} (c++ {info['seconds']:.2f} s)")
     for src in sources:
         info = cuda_build.BUILD_INFO[src]
         print(f"  {src}: {info['path']} (nvcc {info['seconds']:.2f} s)")
@@ -2027,6 +2107,7 @@ def main() -> int:
     print(f"{N_GAUSS} gaussians (capacity {table.capacity}), {N_CAMS} "
           f"cameras {WIDTH}x{HEIGHT}, {grid.n_tile_x}x{grid.n_tile_y} tiles; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tile_boxes_check(params, live, cams, cfg, bspec)
 
     phase("kernels vs plain: full-size view")
     with torch.no_grad():

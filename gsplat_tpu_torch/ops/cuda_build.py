@@ -1,13 +1,17 @@
-"""Build and load the hand-written CUDA kernels of ``gsplat_tpu_torch/csrc``.
+"""Build and load the native libraries of ``gsplat_tpu_torch/csrc``: the
+hand-written CUDA kernels and the host C++ COLMAP reader.
 
-Each kernel source is a plain ``extern "C"`` translation unit (with the
-shared ``*.cuh`` headers beside it).  At first use it is compiled with
-``nvcc`` for Hopper (``sm_90a``) into a shared library under
+Each source is a plain ``extern "C"`` translation unit.  At first use a
+kernel (with the shared ``*.cuh`` headers beside it) is compiled with
+``nvcc`` for Hopper (``sm_90a``), and ``colmap_reader.cpp`` with the system
+C++ compiler (``$CXX``, else ``c++``), into a shared library under
 ``gsplat_tpu_torch/_build/`` (listed in ``.gitignore``), keyed by a hash of
-the source, the headers and the flags, and loaded with ``ctypes``.  A second
-process finds the library already built; a changed source builds anew.
+the source, the headers and the flags, written by an atomic rename, and
+loaded with ``ctypes``.  A second process finds the library already built;
+concurrent processes never load a half-written one; a changed source builds
+anew.
 
-There is no fallback: a missing ``nvcc`` or a failed build raises.
+There is no fallback: a missing compiler or a failed build raises.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ BUILD_DIR = PKG_DIR / "_build"
 # registers, shared memory and spills into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# gsplat_tpu/native/Makefile's flags
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
 
 _LIBS: dict = {}
 # name -> {"path", "seconds" (0.0 when the library was already built), "log"}
@@ -49,29 +55,41 @@ def find_nvcc() -> str:
         "first use and need the CUDA toolkit")
 
 
-def load_kernel_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
+def find_cxx() -> str:
+    """Path of the host C++ compiler: ``$CXX``, else ``c++`` or ``g++`` on
+    PATH."""
+    for exe in (os.environ.get("CXX"), "c++", "g++"):
+        path = exe and shutil.which(exe)
+        if path:
+            return path
+    raise RuntimeError(
+        "no C++ compiler ($CXX, c++, g++): gsplat_tpu_torch's COLMAP reader "
+        "is compiled from gsplat_tpu_torch/csrc/colmap_reader.cpp at first "
+        "use")
+
+
+def _build(name: str, src: Path, deps: bytes, flags, find) -> ctypes.CDLL:
+    """Compile ``src`` unless a library of the same source, ``deps`` and
+    ``flags`` is built, load it and record it in ``BUILD_INFO``."""
     if name in _LIBS:
         return _LIBS[name]
-    src = CSRC_DIR / f"{name}.cu"
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + deps
+                            + " ".join(flags).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = lib_path.with_suffix(".log")
     seconds = 0.0
     if not lib_path.exists():
-        nvcc = find_nvcc()
+        compiler = find()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [compiler, *flags, "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}) building {src}:\n"
-                f"{proc.stdout}{proc.stderr}")
+                f"{compiler} failed (exit {proc.returncode}) building {src}:"
+                f"\n{proc.stdout}{proc.stderr}")
         log_path.write_text(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib_path)   # atomic: a concurrent process never sees
                                     # a half-written library
@@ -81,3 +99,17 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
         "log": log_path.read_text() if log_path.exists() else ""}
     _LIBS[name] = lib
     return lib
+
+
+def load_kernel_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` with nvcc if needed and return the loaded
+    library."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    return _build(name, CSRC_DIR / f"{name}.cu", headers, NVCC_FLAGS,
+                  find_nvcc)
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cpp`` with the host C++ compiler if needed and
+    return the loaded library."""
+    return _build(name, CSRC_DIR / f"{name}.cpp", b"", CXX_FLAGS, find_cxx)

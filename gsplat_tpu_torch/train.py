@@ -24,9 +24,10 @@ CUDA tensors and through their plain twin on CPU tensors
 (``ops/rasterize.CompositeTiles``).  With SH color the ``rgb`` group is the
 (N, 27) coefficient table, and each step reads its camera's ``sh_vecs``.
 Left out: the K-step ``window_scan``/``train_window`` (TPU dispatch
-batching: ``Trainer.train`` and the viewer's live training take one
-``train_step`` a step) and the static budget retunes (the port has no
-static budgets).
+batching: ``Trainer.train`` and the viewer's live training take one step at
+a time; ``Trainer.train`` keeps the window's semantics, the last step's
+losses and the window max of the binning counters) and the static budget
+retunes (the port has no static budgets).
 """
 
 from __future__ import annotations
@@ -195,6 +196,17 @@ def apply_grads(st: TrainState, grads: dict, visible: torch.Tensor, lrs,
 
 
 COUNTERS = ("n_pairs", "n_clipped", "n_max_tiles", "n_visible")
+
+
+def window_metrics(window: dict | None, metrics: dict) -> dict:
+    """Fold a step's metrics into its window's: the step's losses and the
+    max of each binning counter over the window's steps (``window_scan``,
+    ``gsplat_tpu/train.py:211-221``: an overflow in any step of the window
+    reaches the K guard, not only one on its last step)."""
+    if window is None:
+        return metrics
+    return dict(metrics, **{k: torch.maximum(window[k], metrics[k])
+                            for k in COUNTERS})
 
 
 @torch.no_grad()
@@ -396,12 +408,17 @@ class Trainer:
         if ac or ac_delete or reset_opa:
             self._replicate_state()
 
-    def _draw_camera(self):
-        """→ (group, camera id) of this step.  Data-parallel: one camera a
-        rank, all from the same generator on every rank, the first from the
-        train split and the rest from its group's train cameras (JAX's
-        ``train_window``, ``gsplat_tpu/train.py:524-531``); this rank's."""
-        g, cam = self.flat_cams[int(self.rng.choice(self.train_split))]
+    def _draw_camera(self, group: int | None = None):
+        """→ (group, camera id) of this step: from the train split, or with
+        ``group`` from that group's train cameras (the later steps of a
+        window, which keeps one group: JAX's ``train_window``,
+        ``gsplat_tpu/train.py:524-535``).  Data-parallel: one camera a rank,
+        all from the same generator on every rank, the rest from the first
+        one's group (JAX's (K, D) camera plane); this rank's."""
+        if group is None:
+            g, cam = self.flat_cams[int(self.rng.choice(self.train_split))]
+        else:
+            g, cam = group, int(self.rng.choice(self._group_train[group]))
         if self.world > 1:
             pool = self._group_train[g]
             cams = [cam] + [int(self.rng.choice(pool))
@@ -409,19 +426,25 @@ class Trainer:
             cam = cams[self.rank]
         return g, cam
 
-    def train_step(self, i_iter: int):
-        """One step at iteration ``i_iter`` on a camera drawn from the
-        train split, then the iteration's host events → the step's
-        metrics."""
-        t = self.tcfg
+    def _step(self, i_iter: int, group: int | None = None):
+        """The step of iteration ``i_iter`` on a camera drawn as
+        :meth:`_draw_camera` draws it, without its host events → (the
+        camera's group, the step's metrics)."""
         if self._pre_clear(i_iter):
             self.state = self.state._replace(
                 accum_grad=torch.zeros_like(self.state.accum_grad),
                 grad_counter=torch.zeros_like(self.state.grad_counter))
-        g, cam = self._draw_camera()
+        g, cam = self._draw_camera(group)
         step = self._train_step_for(g)
-        with StageTimer("train_step", debug=t.debug, device=self.device):
+        with StageTimer("train_step", debug=self.tcfg.debug,
+                        device=self.device):
             self.state, metrics = step(self.state, cam, self.lrs_at(i_iter))
+        return g, metrics
+
+    def train_step(self, i_iter: int):
+        """One step at iteration ``i_iter``, then the iteration's host
+        events → the step's metrics."""
+        _, metrics = self._step(i_iter)
         self._last_metrics = metrics
         self._post_step(i_iter)
         return metrics
@@ -595,11 +618,14 @@ class Trainer:
                         and i % t.n_save_train_img == 0 and i > 0))
 
     def train(self, n_iters=None, metrics_every=20, log=print, start=0):
-        """Iterations ``start`` … ``n_iters`` − 1, one ``train_step`` each.
-        Every ``metrics_every`` steps and at every host event it logs the
-        last step's metrics; at iteration 400 it moves to the target image
-        pyramid level, and it evaluates and saves on the TEST and save
-        cadences (``gsplat_tpu/train.py:775-846``)."""
+        """Iterations ``start`` … ``n_iters`` − 1 in windows of at most
+        ``metrics_every`` steps that end at every host event, as JAX's
+        ``train_window``s do (``gsplat_tpu/train.py:775-846``): one step at a
+        time, then the host events of the window's last iteration, read
+        with the window's metrics (:func:`window_metrics`: the densify's K
+        guard sees the window max of the binning counters).  Each window is
+        logged; at iteration 400 it moves to the target image pyramid level,
+        and it evaluates and saves on the TEST and save cadences."""
         t = self.tcfg
         n_iters = n_iters or t.n_iters
         if (start > 400 and t.render_downsample_start != t.render_downsample
@@ -616,8 +642,12 @@ class Trainer:
                    and j - i + 1 < metrics_every
                    and not self._is_host_boundary(j)):
                 j += 1
-            for k in range(i, j + 1):
-                metrics = self.train_step(k)
+            g, metrics = None, None
+            for k in range(i, j + 1):   # no host event before j
+                g, m = self._step(k, g)
+                metrics = window_metrics(metrics, m)
+            self._last_metrics = metrics
+            self._post_step(j)
             l1, p = float(metrics["l1"]), float(metrics["psnr"])
             self.history["l1"].append(l1)
             self.history["psnr"].append(p)

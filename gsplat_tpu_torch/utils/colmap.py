@@ -10,18 +10,19 @@ The writers (``write_cameras_binary``, ``write_images_binary``,
 writers (``tests/fixtures.py:14-38``), which its scene generator uses.
 
 A copy of ``gsplat_tpu/utils/colmap.py`` (numpy only; the JAX package's
-``utils`` ``__init__`` imports jax, so the port keeps its own).  The optional
-native C++ fast path for ``points3D.bin`` is the JAX package's shared
-library ``gsplat_tpu/native/libcolmap_reader.so``, loaded through ctypes
-only when that file exists (``make -C gsplat_tpu/native`` builds it);
-otherwise the pure-Python parser runs.
+``utils`` ``__init__`` imports jax, so the port keeps its own).
+``read_points3d_arrays`` parses ``points3D.bin`` with the port's native C++
+reader, ``csrc/colmap_reader.cpp`` (a copy of the JAX package's), built at
+first use with the system C++ compiler into ``gsplat_tpu_torch/_build/``
+(``ops/cuda_build.load_host_library``) and loaded through ctypes; a failed
+build raises.  ``read_points3d_binary``, which returns the tracks the native
+reader skips, parses in Python.
 
 File formats follow COLMAP ``src/base/reconstruction.cc``.
 """
 
 from __future__ import annotations
 
-import os
 import struct
 from dataclasses import dataclass
 from pathlib import Path
@@ -177,37 +178,22 @@ def _read_points3d_binary_python(buf: bytes) -> Dict[int, Point3D]:
 
 
 def read_points3d_binary(path: _PathT) -> Dict[int, Point3D]:
-    buf = Path(path).read_bytes()
-    native = _native_points3d(buf)
-    if native is not None:
-        return native
-    return _read_points3d_binary_python(buf)
+    return _read_points3d_binary_python(Path(path).read_bytes())
 
 
 def read_points3d_arrays(path: _PathT):
-    """Fast path: return (pos [N,3] f32, rgb [N,3] u8) without per-point dicts.
+    """(pos [N,3] f32, rgb [N,3] u8) of a ``points3D.bin`` through the
+    native reader, without per-point dicts; raises on a malformed file.
 
     The training pipeline only consumes xyz+rgb (reference splatter.py:373-381
     loops the dict but only reads .xyz/.rgb); this avoids building N Python
     objects for multi-million point scenes.
     """
-    buf = Path(path).read_bytes()
-    arrays = _native_points3d_arrays(buf)
-    if arrays is not None:
-        return arrays
-    (n_points,) = struct.unpack_from("<Q", buf, 0)
-    pos = np.empty((n_points, 3), np.float64)
-    rgb = np.empty((n_points, 3), np.uint8)
-    off = 8
-    header = struct.Struct("<QdddBBBd")
-    for i in range(n_points):
-        _, x, y, z, r, g, b, _err = header.unpack_from(buf, off)
-        off += header.size
-        (track_len,) = struct.unpack_from("<Q", buf, off)
-        off += 8 + 8 * track_len
-        pos[i] = (x, y, z)
-        rgb[i] = (r, g, b)
-    return pos.astype(np.float32), rgb
+    arrays = _native_points3d_arrays(Path(path).read_bytes())
+    if arrays is None:
+        raise ValueError(f"{path}: not a COLMAP points3D.bin (truncated or "
+                         "malformed)")
+    return arrays
 
 
 # ---------------------------------------------------------------------------
@@ -328,48 +314,31 @@ def read_model(sparse_dir: _PathT):
 # native (C++) fast path
 # ---------------------------------------------------------------------------
 
-_NATIVE = None
-
-
 def _load_native():
-    global _NATIVE
-    if _NATIVE is not None:
-        return _NATIVE
+    """The port's native reader (``csrc/colmap_reader.cpp``), built at first
+    use; raises when it cannot be built."""
     import ctypes
 
-    so = os.path.join(os.path.dirname(__file__), "..", "..", "gsplat_tpu",
-                      "native", "libcolmap_reader.so")
-    so = os.path.abspath(so)
-    if not os.path.exists(so):
-        # do NOT cache: the library may be built later in the process
-        # (e.g. a test fixture running `make` after this module was first
-        # imported); a stat per scene load is free
-        return False
-    try:
-        lib = ctypes.CDLL(so)
-        lib.count_points3d.restype = ctypes.c_longlong
-        lib.count_points3d.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
-        lib.parse_points3d.restype = ctypes.c_int
-        lib.parse_points3d.argtypes = [
-            ctypes.c_char_p, ctypes.c_longlong,
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_longlong),
-        ]
-        _NATIVE = lib
-    except OSError:
-        # do NOT cache the failure: a partially written .so (concurrent
-        # `make` in a fixture) fails CDLL now but may load fine later —
-        # only a successful load is cached (mirrors the missing-file path)
-        return False
-    return _NATIVE
+    from gsplat_tpu_torch.ops.cuda_build import load_host_library
+
+    lib = load_host_library("colmap_reader")
+    lib.count_points3d.restype = ctypes.c_longlong
+    lib.count_points3d.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
+    lib.parse_points3d.restype = ctypes.c_int
+    lib.parse_points3d.argtypes = [
+        ctypes.c_char_p, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_longlong),
+    ]
+    return lib
 
 
 def _native_points3d_arrays(buf: bytes):
+    """(pos (N, 3) f32, rgb (N, 3) u8) of a ``points3D.bin`` buffer, or None
+    when the buffer is malformed."""
     import ctypes
 
     lib = _load_native()
-    if not lib:
-        return None
     n = lib.count_points3d(buf, len(buf))
     if n < 0:
         return None
@@ -387,12 +356,3 @@ def _native_points3d_arrays(buf: bytes):
     if ok != 0:
         return None
     return pos, rgb
-
-
-def _native_points3d(buf: bytes):
-    arrays = _native_points3d_arrays(buf)
-    if arrays is None:
-        return None
-    # Track data is not returned by the native fast path; fall back to the
-    # python parser when full Point3D records (tracks) are requested.
-    return None

@@ -54,7 +54,7 @@ setup(
     packages=find_packages(include=["gsplat_tpu", "gsplat_tpu.*",
                                     "gsplat_tpu_torch*"]),
     package_data={"gsplat_tpu.native": ["*.so", "*.cpp", "Makefile"],
-                  "gsplat_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "gsplat_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy", "opencv-python"],
     cmdclass={"build_native": BuildNative, "build_py": BuildPyWithNative},

@@ -87,3 +87,22 @@ def test_pack_all_invisible():
     assert (out.tile_start == 0).all()
     assert int(out.n_pairs) == int(out.n_visible) == 0
     assert int(out.n_max_tiles) == 0
+
+
+def test_tile_boxes_at_tile_boundaries_match_jax():
+    # box edges a few ulps either side of a tile boundary: the floor of
+    # each quotient decides the box, so the division must round as JAX's
+    from gsplat_tpu.ops.binning import _tile_bbox_rows as j_rows
+    from gsplat_tpu_torch.ops.binning import _tile_bbox_rows as t_rows
+    from torch_helpers import bbox_boundary_rows
+
+    geo, *rows = bbox_boundary_rows(0)
+    j = j_rows(JSpec(**geo, max_tiles_per_gaussian=6, slot_capacity=128,
+                     chunk_size=128), *map(jnp.asarray, rows))
+    t = t_rows(TSpec(**geo, max_tiles_per_gaussian=6),
+               *map(torch.from_numpy, rows))
+    for jv, tv in zip(j, t):
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    # the rows straddle boundaries: neighbouring quotients floor apart
+    x0 = t[0].numpy()
+    assert len(np.unique(x0)) > 40 and (t[2].numpy() >= 1).all()

@@ -58,6 +58,36 @@ def ragged_pairs(seed, tile, focal=40.0, sh=False):
     return geom, color, tile_start, geo, shv
 
 
+def bbox_boundary_rows(seed, n=20000):
+    """Rows of ``_tile_bbox_rows`` ("dist" culling, a fixed radius) whose
+    four box edges fall within a few ulps of a tile boundary of the bench
+    grid (82 x 53 tiles of 16 / 1000): (spec fields, cx, cy, a, b, c, d,
+    visible), f32.  A quotient just below a whole number floors one tile
+    lower than its neighbour just above, so a division that rounds
+    differently moves the box."""
+    rng = np.random.default_rng(seed)
+    geo = dict(n_tile_x=82, n_tile_y=53, tile_len_x=0.016, tile_len_y=0.016,
+               leftmost=-0.6485, topmost=-0.42, method="dist",
+               thresh=0.0004)
+    r = np.float32(np.sqrt(geo["thresh"]))
+
+    def centres(left, n_tiles):
+        k = rng.integers(1, n_tiles - 2, n)
+        edge = (k * np.float64(0.016) + left + r).astype(np.float32)
+        steps = rng.integers(-4, 5, n)
+        for s in (-1, 1):               # a few ulps either way
+            for _ in range(4):
+                edge = np.where(steps * s > 0, np.nextafter(
+                    edge, np.float32(s * np.inf)), edge)
+                steps = steps - s * (steps * s > 0)
+        return edge
+
+    cx, cy = centres(geo["leftmost"], 82), centres(geo["topmost"], 53)
+    cov = rng.uniform(1e-6, 1e-5, (4, n)).astype(np.float32)
+    cov[1:3] = 0.0
+    return geo, cx, cy, *cov, np.ones(n, bool)
+
+
 def assert_close_cols(a, b, atol_frac, rtol, what=""):
     """|a − b| ≤ atol_frac·colmax(b) + rtol·|b|, column by column: gradients
     of the focal-normalised covariance reach ~1e3 on these scenes while
