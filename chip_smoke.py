@@ -8,12 +8,13 @@ Run from the repository root, with no arguments:
 It builds the rasterizer kernels (gsplat_tpu_torch/csrc/rasterize_fwd.cu and
 rasterize_bwd.cu, one nvcc each, in parallel, for sm_90a into
 gsplat_tpu_torch/_build/; beside them the native COLMAP reader,
-csrc/colmap_reader.cpp, with the system C++ compiler), six entry points: the f32 RGB forward and
-backward, the SH forward and backward (27 coefficients) and the bf16 render
-preset's forward, RGB and SH.  It holds each against its plain PyTorch
-version on a tiny input, on a small scene (a tile of more than 256 pairs, an
-empty tile, near-opaque, weight normalisation; the forward kernels on 16x16
-and 12x12 tiles) and on one full-size view, whose pairs a tile it prints.
+csrc/colmap_reader.cpp, with the system C++ compiler), six entry points:
+the f32 RGB forward and backward, the SH forward and backward (27
+coefficients) and the bf16 render preset's forward, RGB and SH.  It holds
+each against its plain PyTorch version on a tiny input, on a small scene (a
+tile of more than 256 pairs, an empty tile, near-opaque, weight
+normalisation; the forward kernels on 16x16 and 12x12 tiles) and on one
+full-size view, whose pairs a tile it prints.
 Then it drives the port's paths on the bench scene (506,627 gaussians,
 1297x840, bench.py:84) through their entry points:
 
@@ -69,8 +70,11 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
 
 It also holds the forward kernels' split division (csrc/fast_div.cuh)
 against the compiler's IEEE x / y, bit for bit, on 2^34 operand pairs, and
-prints the tile boxes of the bench scene's view 0 on the card beside the
-same boxes computed on the CPU.
+the tile boxes of the bench scene's view 0 on the card to the same boxes
+computed on the CPU, every one equal.  On the at-scale tables the forward is
+held to its plain version pixel by pixel, within a bound that grows with the
+pairs the pixel evaluates (fwd_bound), and the tile with the largest
+difference is composited in f64 beside both.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  It checks every output, that two launches of each kernel on view 0
@@ -721,18 +725,20 @@ def time_fn(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def count_evaluations(rz, geom, tile_start, spec, relative=False):
-    """Pair-pixel evaluations the kernels make on these pairs: a pixel
-    evaluates every pair of its tile until its transmittance drops below
-    1e-4 (the per-pixel stop), counted with the plain forward's own steps;
-    ``relative`` for the preset's tile-relative centres."""
+def evaluations(rz, geom, tile_start, spec, relative=False):
+    """Pair-pixel evaluations the kernels make on these pairs, per pixel
+    (T, Px): a pixel evaluates every pair of its tile until its
+    transmittance drops below 1e-4 (the per-pixel stop), counted with the
+    plain forward's own steps; ``relative`` for the preset's tile-relative
+    centres."""
     import torch
 
     dev = geom.device
     tiles = torch.arange(spec.n_tiles, device=dev)
     pxc_all, pyc_all = rz._tile_pixel_coords(spec, tiles, relative)
     trans = torch.ones((spec.n_tiles, spec.px), device=dev)
-    total = torch.zeros((), dtype=torch.int64, device=dev)
+    n_pix = torch.zeros((spec.n_tiles, spec.px), dtype=torch.int64,
+                        device=dev)
     with torch.no_grad():
         for act, pos, valid in rz._tile_chunks(tile_start, spec):
             alpha, _, _ = rz._chunk_alpha(geom[pos].float(),
@@ -740,9 +746,89 @@ def count_evaluations(rz, geom, tile_start, spec, relative=False):
                                           pyc_all[act][:, None, :])
             one_m, t_before, live, _ = rz._chunk_weights(alpha, valid,
                                                          trans[act])
-            total += (live & valid[..., None]).sum()
+            n_pix[act] += (live & valid[..., None]).sum(1)
             trans[act] = t_before[:, -1] * one_m[:, -1]
-    return int(total)
+    return n_pix
+
+
+def fwd_bound(n_pix):
+    """The forward kernel's bound against its plain version at a pixel that
+    evaluates ``n_pix`` pairs: ``TOL + 3·n·u``, u = 2^-24.  Both composite
+    the same pairs in the same order in f32 but round in another order: the
+    kernel multiplies T by (1 - α) a pair at a time and sums w·c with FMAs,
+    the plain version takes a cumprod inside 128-pair chunks and sums each
+    chunk as a tree.  After i pairs each one's T carries at most i·u
+    relative rounding error (i products), and each sum of its n terms at
+    most n·u of Σ|w·c|, which is at most 1 (colors and Σw lie in [0, 1],
+    Σw = 1 - T); so to first order the two differ by at most (2n + n)·u
+    beyond ``TOL``, which holds the small-tile differences: the exp's
+    rounding, and a pair whose T meets 1e-4 on one side only, which adds
+    at most its w·c < 1e-4 (tests/test_rasterize.py:40-41)."""
+    return TOL + 3.0 * n_pix.double() * 2.0 ** -24
+
+
+def fwd_check(label, name, out, plain, n_pix):
+    """The forward kernel's ``out`` against the plain version's, each pixel
+    within :func:`fwd_bound` of the pairs it evaluates → (max abs, the
+    worst pixel's (tile, pixel))."""
+    import torch
+
+    d = (out - plain).abs().amax(1)                                 # (T, Px)
+    ratio = d.double() / fwd_bound(n_pix)
+    worst = int(torch.argmax(d))
+    w_ratio = int(torch.argmax(ratio))
+    t, p = divmod(worst, d.shape[1])
+    tr, pr = divmod(w_ratio, d.shape[1])
+    print(f"  {label}: {name} max abs {float(d.max()):.3e} at tile {t} "
+          f"pixel {p} ({int(n_pix[t, p])} pairs evaluated, bound "
+          f"{float(fwd_bound(n_pix[t, p])):.3e}); worst ratio to the bound "
+          f"{float(ratio.max()):.3f} at tile {tr} pixel {pr} "
+          f"({int(n_pix[tr, pr])} pairs); most pairs a pixel evaluates "
+          f"{int(n_pix.max())}", flush=True)
+    check(float(ratio.max()) <= 1.0,
+          f"{label}: {name} outside its per-pixel bound")
+    return float(d.max()), (t, p)
+
+
+def tile_f64(rz, geom, color, tile_start, spec, tile, pixel, out, plain):
+    """One RGB tile composited in f64 from the same f32 pairs (the value
+    both f32 versions round): prints each one's largest distance from it,
+    and at ``pixel`` the kernel's difference from the plain version beside
+    the f64 weight·color of the pairs on either side of the plain version's
+    stop (a pixel whose T meets 1e-4 on one side only)."""
+    import torch
+
+    lo, hi = int(tile_start[tile]), int(tile_start[tile + 1])
+    g, c = geom[lo:hi].double()[None], color[lo:hi].double()
+    pxc, pyc = rz._tile_pixel_coords(
+        spec, torch.tensor([tile], device=geom.device))
+    alpha, _, _ = rz._chunk_alpha(g, pxc.double()[:, None, :],
+                                  pyc.double()[:, None, :])
+    one_m = 1.0 - alpha[0]                                       # (G, Px)
+    t_before = torch.cat([torch.ones_like(one_m[:1]),
+                          torch.cumprod(one_m, 0)[:-1]])
+    live = t_before >= rz.STOP_THRESH
+    w = torch.where(live, alpha[0] * t_before, torch.zeros_like(one_m))
+    ref = torch.stack([(w * c[:, ch, None]).sum(0) for ch in range(3)]
+                      + [w.sum(0)])                              # (4, Px)
+    for who, x in (("kernel", out), ("plain", plain)):
+        e = (x[tile].double() - ref).abs()
+        print(f"  tile {tile} ({hi - lo} pairs) in f64: {who} max abs "
+              f"{float(e.max()):.3e} from it, {float(e[:, pixel].max()):.3e}"
+              f" at pixel {pixel}", flush=True)
+    n = int(live[:, pixel].sum())
+    wc = torch.cat([c, torch.ones_like(c[:, :1])], 1) \
+        * (alpha[0][:, pixel] * t_before[:, pixel])[:, None]   # (G, 4)
+    diff = (out[tile, :, pixel] - plain[tile, :, pixel]).double()
+
+    def fmt(v):
+        return "[" + ", ".join(f"{float(x):+.3e}" for x in v) + "]"
+
+    print(f"  pixel {pixel}: kernel - plain {fmt(diff)}; f64 evaluates "
+          f"{n} pairs; pair {n - 1}: T {float(t_before[n - 1, pixel]):.6e}, "
+          f"w·c {fmt(wc[n - 1])}" + (
+              f"; pair {n}: T {float(t_before[n, pixel]):.6e}, w·c "
+              f"{fmt(wc[n])}" if n < hi - lo else ""), flush=True)
 
 
 def kernel_bound(name, n_evals, tensors):
@@ -1056,14 +1142,16 @@ def at_scale_kernels(rz, label, params, live, view, grid, cfg, seed,
                                          rspec, shv)
     torch.cuda.synchronize()
     n_pairs = int(pk.n_pairs)
-    d = float((out - plain).abs().max())
-    print(f"  {label}: {fwd}, n_pairs {n_pairs}: max abs {d:.3e}",
-          flush=True)
-    check(d <= TOL, f"{label}: {fwd} disagrees with the plain forward")
+    print(f"  {label}: {fwd}, n_pairs {n_pairs}", flush=True)
+    n_pix = evaluations(rz, pk.geom, pk.tile_start, rspec)
+    d, (tile, pixel) = fwd_check(label, fwd, out, plain, n_pix)
+    if shv is None:
+        tile_f64(rz, pk.geom, pk.color, pk.tile_start, rspec, tile, pixel,
+                 out, plain)
     del plain, mid
     pair_histogram(pk.tile_start)
     args = (pk.geom, pk.color, pk.tile_start)
-    n_ev = count_evaluations(rz, pk.geom, pk.tile_start, rspec)
+    n_ev = int(n_pix.sum())
     rows = {fwd: {"n_pairs": n_pairs, "max_abs_err": d, "bound": kernel_bound(
         fwd, n_ev, (*args, shv, out)), "fns": (
         lambda: rz.composite_tiles(*args, rspec, shv),
@@ -1099,18 +1187,16 @@ def at_scale_kernels(rz, label, params, live, view, grid, cfg, seed,
 
 
 def tile_boxes_check(params, live, cams, cfg, bspec):
-    """View 0's projection on the card, its tile boxes computed on the card
-    and, from the same projected values, on the CPU; prints the pairs of
-    both and the gaussians whose box differs.  The CPU counts JAX's and the
-    TPU's 1,002,683; on the card one gaussian's box edge sits at a tile
-    boundary where PyTorch's CUDA division by a Python number (a multiply
-    by the reciprocal) rounds the other way (ROADMAP §3)."""
+    """View 0's tile boxes on the card against the CPU's from the same
+    projected values: every box equal (the CPU counts JAX's and the TPU's
+    1,002,683 pairs), so the card's division rounds as theirs
+    (``ops/binning.div_rn``)."""
     import torch
 
     from gsplat_tpu_torch.ops.binning import _tile_bbox_rows
     from gsplat_tpu_torch.ops.projection import project_gaussians
 
-    phase("tile boxes of view 0: the card beside the CPU")
+    phase("tile boxes of view 0: the card against the CPU")
     grid = cams["grid"]
     with torch.no_grad():
         proj = project_gaussians(
@@ -1131,6 +1217,8 @@ def tile_boxes_check(params, live, cams, cfg, bspec):
     print(f"  pairs {pairs[0]} on the card, {pairs[1]} on the CPU; "
           f"gaussians whose box differs: "
           f"{torch.nonzero(differ).flatten().tolist()}", flush=True)
+    check(not bool(differ.any()), "the card's tile boxes differ from the "
+          "CPU's")
 
 
 def colmap_reader_check(path, n_points):
@@ -2272,8 +2360,9 @@ def main() -> int:
     time_alone(("rasterize_fwd", "rasterize_bwd", "rasterize_fwd_preset"),
                int(pk0.n_pairs))
     bounds = {}
-    n_ev = count_evaluations(rz, pk0.geom, pk0.tile_start, rspec)
-    n_ev_p = count_evaluations(rz, pp0.geom, pp0.tile_start, rspec, True)
+    n_ev = int(evaluations(rz, pk0.geom, pk0.tile_start, rspec).sum())
+    n_ev_p = int(evaluations(rz, pp0.geom, pp0.tile_start, rspec,
+                             True).sum())
     print(f"  view 0: {n_ev} pair-pixel evaluations ({n_ev_p} on the "
           f"preset's pairs) of {int(pk0.n_pairs) * rspec.px} pair-pixels",
           flush=True)
@@ -2347,8 +2436,9 @@ def main() -> int:
     note_err("rasterize_fwd_preset_sh", d)
     fwd_repeats("rasterize_fwd_preset_sh", rz.composite_tiles_preset,
                 pp_sh.geom, pp_sh.color, pp_sh.tile_start, rspec, shv0)
-    n_ev = count_evaluations(rz, pk0.geom, pk0.tile_start, rspec)
-    n_ev_p = count_evaluations(rz, pp_sh.geom, pp_sh.tile_start, rspec, True)
+    n_ev = int(evaluations(rz, pk0.geom, pk0.tile_start, rspec).sum())
+    n_ev_p = int(evaluations(rz, pp_sh.geom, pp_sh.tile_start, rspec,
+                             True).sum())
     bounds["rasterize_fwd_sh"] = kernel_bound("rasterize_fwd_sh", n_ev, (
         pk0.geom, pk0.color, pk0.tile_start, shv0, out_k))
     bounds["rasterize_bwd_sh"] = kernel_bound("rasterize_bwd_sh", n_ev, (

@@ -89,13 +89,24 @@ class PresetPairs(NamedTuple):
     tile_start: torch.Tensor  # (T+1,) int32, as in PackedPairs
 
 
+def div_rn(x: torch.Tensor, y: float) -> torch.Tensor:
+    """``x / y`` rounded as one IEEE division, on every device.
+
+    PyTorch divides a CUDA tensor by a Python number as a multiply by the
+    number's f32 reciprocal, which can round one ulp away from the quotient
+    (and a floor of it a whole tile away); the CPU, JAX and the kernels
+    (``__fdiv_rn``) divide.  A divisor on the tensor's device takes the
+    division on both."""
+    return x / torch.full((), y, dtype=x.dtype, device=x.device)
+
+
 def _tile_bbox_rows(spec: BinningSpec, cx, cy, a, b, c, d, visible):
     """Per-gaussian covered tile rectangle [x0, x0+rw) x [y0, y0+rh).
 
     The arithmetic of ``gsplat_tpu/ops/binning.py::_tile_bbox_rows`` step
     for step (the floor/clip truncation decides which tiles a gaussian
-    reaches, so the two must agree bit for bit); "dist" uses a fixed
-    radius around the center.
+    reaches, so the two must agree bit for bit, on the card too:
+    :func:`div_rn`); "dist" uses a fixed radius around the center.
     """
     det = a * d - b * c
     det_ok = det > 0
@@ -108,10 +119,12 @@ def _tile_bbox_rows(spec: BinningSpec, cx, cy, a, b, c, d, visible):
         shift_x = torch.full_like(a, r)
         shift_y = torch.full_like(a, r)
         det_ok = torch.ones_like(det_ok)
-    x0 = torch.floor((cx - shift_x - spec.leftmost) / spec.tile_len_x)
-    x1 = torch.floor((cx + shift_x - spec.leftmost) / spec.tile_len_x) + 1.0
-    y0 = torch.floor((cy - shift_y - spec.topmost) / spec.tile_len_y)
-    y1 = torch.floor((cy + shift_y - spec.topmost) / spec.tile_len_y) + 1.0
+    x0 = torch.floor(div_rn(cx - shift_x - spec.leftmost, spec.tile_len_x))
+    x1 = torch.floor(div_rn(cx + shift_x - spec.leftmost,
+                            spec.tile_len_x)) + 1.0
+    y0 = torch.floor(div_rn(cy - shift_y - spec.topmost, spec.tile_len_y))
+    y1 = torch.floor(div_rn(cy + shift_y - spec.topmost,
+                            spec.tile_len_y)) + 1.0
     x0 = torch.clamp(x0, 0, spec.n_tile_x).to(torch.int64)
     x1 = torch.clamp(x1, 0, spec.n_tile_x).to(torch.int64)
     y0 = torch.clamp(y0, 0, spec.n_tile_y).to(torch.int64)

@@ -6,7 +6,8 @@ kernel (with the shared ``*.cuh`` headers beside it) is compiled with
 ``nvcc`` for Hopper (``sm_90a``), and ``colmap_reader.cpp`` with the system
 C++ compiler (``$CXX``, else ``c++``), into a shared library under
 ``gsplat_tpu_torch/_build/`` (listed in ``.gitignore``), keyed by a hash of
-the source, the headers and the flags, written by an atomic rename, and
+the source, the headers, the flags and the compiler's resolved path, written
+by an atomic rename, and
 loaded with ``ctypes``.  A second process finds the library already built;
 concurrent processes never load a half-written one; a changed source builds
 anew.
@@ -69,17 +70,17 @@ def find_cxx() -> str:
 
 
 def _build(name: str, src: Path, deps: bytes, flags, find) -> ctypes.CDLL:
-    """Compile ``src`` unless a library of the same source, ``deps`` and
-    ``flags`` is built, load it and record it in ``BUILD_INFO``."""
-    if name in _LIBS:
-        return _LIBS[name]
-    digest = hashlib.sha256(src.read_bytes() + deps
-                            + " ".join(flags).encode()).hexdigest()[:16]
+    """Compile ``src`` unless a library of the same source, ``deps``,
+    ``flags`` and compiler (the file ``find`` resolves to) is built, load
+    it and record it in ``BUILD_INFO``."""
+    compiler = find()
+    digest = hashlib.sha256(
+        src.read_bytes() + deps + " ".join(flags).encode()
+        + os.path.realpath(compiler).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = lib_path.with_suffix(".log")
     seconds = 0.0
     if not lib_path.exists():
-        compiler = find()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         cmd = [compiler, *flags, "-o", str(tmp), str(src)]
@@ -103,13 +104,17 @@ def _build(name: str, src: Path, deps: bytes, flags, find) -> ctypes.CDLL:
 
 def load_kernel_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` with nvcc if needed and return the loaded
-    library."""
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
-    return _build(name, CSRC_DIR / f"{name}.cu", headers, NVCC_FLAGS,
-                  find_nvcc)
+    library.  Every launch calls this: once loaded, it touches no file."""
+    if name not in _LIBS:
+        headers = b"".join(h.read_bytes()
+                           for h in sorted(CSRC_DIR.glob("*.cuh")))
+        _build(name, CSRC_DIR / f"{name}.cu", headers, NVCC_FLAGS, find_nvcc)
+    return _LIBS[name]
 
 
 def load_host_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cpp`` with the host C++ compiler if needed and
     return the loaded library."""
-    return _build(name, CSRC_DIR / f"{name}.cpp", b"", CXX_FLAGS, find_cxx)
+    if name not in _LIBS:
+        _build(name, CSRC_DIR / f"{name}.cpp", b"", CXX_FLAGS, find_cxx)
+    return _LIBS[name]

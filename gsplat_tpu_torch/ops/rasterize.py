@@ -51,7 +51,7 @@ from typing import NamedTuple
 
 import torch
 
-from gsplat_tpu_torch.ops.binning import PackedPairs, PresetPairs
+from gsplat_tpu_torch.ops.binning import PackedPairs, PresetPairs, div_rn
 from gsplat_tpu_torch.ops.cuda_build import load_kernel_library
 from gsplat_tpu_torch.ops.sh import SH_DIM, sh_basis
 
@@ -107,20 +107,21 @@ def _tile_pixel_ids(spec: RasterSpec, tiles: torch.Tensor):
 def _tile_pixel_coords(spec: RasterSpec, tiles: torch.Tensor,
                        relative: bool = False):
     """Focal-normalized pixel centres on the padded grid → (len(tiles), Px)
-    each (rasterize.py:174-193, same float32 arithmetic).  ``relative``
+    each (rasterize.py:174-193, same float32 arithmetic, divided as the
+    kernels divide on the card too: ``binning.div_rn``).  ``relative``
     (the render preset) subtracts the tile centre by JAX's own formula,
     which rounds differently from the packer's (``ops/binning.
     pack_preset``); each side keeps its own."""
     id_x, id_y = _tile_pixel_ids(spec, tiles)
-    pxc = (id_x + 0.5 - spec.padded_w / 2) / spec.focal_x
-    pyc = (id_y + 0.5 - spec.padded_h / 2) / spec.focal_y
+    pxc = div_rn(id_x + 0.5 - spec.padded_w / 2, spec.focal_x)
+    pyc = div_rn(id_y + 0.5 - spec.padded_h / 2, spec.focal_y)
     if relative:
         tx = (tiles % spec.n_tile_x)[:, None]
         ty = torch.div(tiles, spec.n_tile_x, rounding_mode="floor")[:, None]
-        tcx = ((tx * spec.tile_w + spec.tile_w / 2 - spec.padded_w / 2)
-               / spec.focal_x)
-        tcy = ((ty * spec.tile_h + spec.tile_h / 2 - spec.padded_h / 2)
-               / spec.focal_y)
+        tcx = div_rn(tx * spec.tile_w + spec.tile_w / 2 - spec.padded_w / 2,
+                     spec.focal_x)
+        tcy = div_rn(ty * spec.tile_h + spec.tile_h / 2 - spec.padded_h / 2,
+                     spec.focal_y)
         pxc, pyc = pxc - tcx, pyc - tcy
     return pxc, pyc
 

@@ -106,3 +106,25 @@ def test_tile_boxes_at_tile_boundaries_match_jax():
     # the rows straddle boundaries: neighbouring quotients floor apart
     x0 = t[0].numpy()
     assert len(np.unique(x0)) > 40 and (t[2].numpy() >= 1).all()
+
+
+def test_tile_boxes_divide_where_a_reciprocal_multiply_differs():
+    # a CUDA tensor / Python number multiplies by the f32 reciprocal; on
+    # these rows that floors hundreds of box edges a tile away from the
+    # division, so the card test of the same rows
+    # (test_torch_cuda.py::test_tile_boxes_on_cuda_match_cpu) can see it
+    from gsplat_tpu_torch.ops.binning import _tile_bbox_rows as t_rows
+    from gsplat_tpu_torch.ops.binning import div_rn
+    from torch_helpers import bbox_boundary_rows
+
+    geo, *rows = bbox_boundary_rows(0)
+    spec = TSpec(**geo, max_tiles_per_gaussian=6)
+    cx = torch.from_numpy(rows[0])
+    num = cx - float(np.sqrt(spec.thresh)) - spec.leftmost
+    inv = torch.tensor(np.float32(1) / np.float32(spec.tile_len_x))
+    divided = torch.floor(div_rn(num, spec.tile_len_x))
+    assert torch.equal(divided, torch.floor(num / spec.tile_len_x))
+    multiplied = torch.floor(num * inv)
+    assert int((multiplied != divided).sum()) > 100
+    x0 = t_rows(spec, *map(torch.from_numpy, rows))[0]
+    assert torch.equal(x0, divided.clamp(0, spec.n_tile_x).long())

@@ -119,6 +119,25 @@ def test_loader_builds_its_own_library(tmp_path, monkeypatch):
     assert len(ran) == 1
 
 
+def test_changed_compiler_builds_anew(tmp_path, monkeypatch):
+    # the library is keyed by the compiler too: another compiler file (here
+    # a wrapper of the same one) builds its own library beside the first
+    _fresh_build(monkeypatch, tmp_path / "_build")
+    first = colmap._load_native()
+    path0 = cuda_build.BUILD_INFO["colmap_reader"]["path"]
+    wrapper = tmp_path / "cxx"
+    wrapper.write_text(f"#!/bin/sh\nexec {cuda_build.find_cxx()} \"$@\"\n")
+    wrapper.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "find_cxx", lambda: str(wrapper))
+    monkeypatch.delitem(cuda_build._LIBS, "colmap_reader")
+    second = colmap._load_native()
+    info = cuda_build.BUILD_INFO["colmap_reader"]
+    assert info["path"] != path0 and info["seconds"] > 0
+    assert str(wrapper) in info["log"]
+    for lib in (first, second):
+        assert lib.count_points3d(struct.pack("<Q", 0), 8) == 0
+
+
 def test_failed_build_raises(tmp_path, monkeypatch):
     _fresh_build(monkeypatch, tmp_path / "_build")
     monkeypatch.setattr(cuda_build, "find_cxx", lambda: "false")

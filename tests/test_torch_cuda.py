@@ -19,9 +19,10 @@ from gsplat_tpu_torch.config import SplatConfig, TrainConfig
 from gsplat_tpu_torch.models.gaussians import adaptive_control
 from gsplat_tpu_torch.models.splatter import (SceneCameras, Splatter,
                                               make_specs, render_cropped)
-from gsplat_tpu_torch.ops.binning import BinningSpec, pack_preset, \
-    pack_sorted
+from gsplat_tpu_torch.ops.binning import (BinningSpec, _tile_bbox_rows,
+                                          pack_preset, pack_sorted)
 from gsplat_tpu_torch.ops.rasterize import (LAUNCHES, RasterSpec,
+                                            _tile_pixel_coords,
                                             composite_tiles,
                                             composite_tiles_bwd,
                                             composite_tiles_bwd_torch,
@@ -35,8 +36,8 @@ from gsplat_tpu_torch.viewer import render_offscreen
 
 from torch_helpers import (BIG_CROWD, FWD_BATCH, RAGGED_COUNTS, TILE,
                            FakeServer,
-                           assert_close_cols, image_space_pairs,
-                           ragged_pairs)
+                           assert_close_cols, bbox_boundary_rows,
+                           image_space_pairs, ragged_pairs)
 
 TOL = 2e-4   # max abs: summation order, and pairs either side of T = 1e-4
 
@@ -68,6 +69,36 @@ def _packed(device, seed=0, opaque=False, focal=40.0, sh=False, tile=TILE,
         return pack_sorted(spec, *args), rspec, torch.from_numpy(shv).to(
             device)
     return pack_sorted(spec, *args), rspec
+
+
+@pytest.mark.cuda
+def test_tile_boxes_on_cuda_match_cpu(cuda):
+    # box edges a few ulps either side of a tile boundary: the card must
+    # floor the same quotients as the CPU (and JAX), so it must divide, not
+    # multiply by the reciprocal as a CUDA tensor / Python number does
+    geo, *rows = bbox_boundary_rows(0)
+    spec = BinningSpec(**geo, max_tiles_per_gaussian=6)
+    cpu = _tile_bbox_rows(spec, *map(torch.from_numpy, rows))
+    card = _tile_bbox_rows(spec, *(torch.from_numpy(r).to(cuda)
+                                   for r in rows))
+    for name, c, k in zip(("x0", "y0", "rw", "rh"), cpu, card):
+        assert torch.equal(k.cpu(), c), \
+            f"{name}: {int((k.cpu() != c).sum())} boxes differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relative", [False, True])
+def test_pixel_centres_on_cuda_match_cpu(cuda, relative):
+    # the plain twin's pixel centres on the bench grid: divided on the card
+    # as on the CPU and in the kernels, where a reciprocal multiply moves
+    # more than half of them by an ulp
+    spec = RasterSpec(82, 53, 16, 16, 1000.0, 1000.0)
+    tiles = torch.arange(spec.n_tiles)
+    cpu = _tile_pixel_coords(spec, tiles, relative)
+    card = _tile_pixel_coords(spec, tiles.to(cuda), relative)
+    for c, k in zip(cpu, card):
+        assert torch.equal(k.cpu(), c), \
+            f"{int((k.cpu() != c).sum())} pixel centres differ"
 
 
 @pytest.mark.cuda

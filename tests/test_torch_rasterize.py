@@ -179,3 +179,44 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.load_kernel_library("rasterize_fwd")
     assert not (tmp_path / "_build").exists()
+
+
+def test_pixel_centres_divide_where_a_reciprocal_multiply_differs():
+    # a CUDA tensor / Python number multiplies by the f32 reciprocal: on the
+    # bench grid that moves 56% of the plain twin's pixel centres by an ulp
+    # from the kernels' division, so the card test of the same grid
+    # (test_torch_cuda.py::test_pixel_centres_on_cuda_match_cpu) can see it
+    from gsplat_tpu_torch.ops.rasterize import (_tile_pixel_coords,
+                                                _tile_pixel_ids)
+
+    spec = TRSpec(82, 53, 16, 16, 1000.0, 1000.0)
+    tiles = torch.arange(spec.n_tiles)
+    pxc, _ = _tile_pixel_coords(spec, tiles)
+    id_x, _ = _tile_pixel_ids(spec, tiles)
+    num = id_x + 0.5 - spec.padded_w / 2
+    assert torch.equal(pxc, num / spec.focal_x)
+    inv = torch.tensor(np.float32(1) / np.float32(spec.focal_x))
+    assert int((num * inv != pxc).sum()) > pxc.numel() // 2
+
+
+def test_a_loaded_kernel_library_touches_no_file(monkeypatch):
+    # every launch asks for its library: once loaded, no header is read,
+    # no directory listed and no compiler looked up again
+    lib = object()
+    monkeypatch.setitem(cuda_build._LIBS, "rasterize_fwd", lib)
+
+    class Refuse:
+        def __getattr__(self, name):
+            raise AssertionError(f"the loaded library went back to the "
+                                 f"disk ({name})")
+
+        def __truediv__(self, other):
+            return self.__getattr__(f"/ {other}")
+
+    def refuse(*a, **kw):
+        raise AssertionError("the loaded library looked up a compiler")
+
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", Refuse())
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", Refuse())
+    monkeypatch.setattr(cuda_build.shutil, "which", refuse)
+    assert cuda_build.load_kernel_library("rasterize_fwd") is lib

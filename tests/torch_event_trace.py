@@ -1,9 +1,10 @@
 """Where the port and JAX's f32 route part at a densify event, step by step,
-on the CPU: the first event of ``tests/torch_long_parity.py``'s ``mid``
-scene, from one shared state.
+on the CPU: an event of ``tests/torch_long_parity.py``'s ``mid`` scene,
+from one shared state.
 
 JAX's ``jax_f32`` trainer (dense plane, f32) trains iterations 0 … START − 1
-through ``Trainer.train``; its state, K and camera generator are carried into
+through ``Trainer.train`` (``--drive step``: ``train_step(i)``, as the
+harness's step drive does); its state, K and camera generator are carried into
 the port (``utils/checkpoint.train_state_from_jax_arrays``).  Both then take
 ``train_step(i)`` for i = START … EVENT − 1 on the same cameras, and the
 script prints, per step, the l1 of both, JAX's dropped pairs (``n_dropped``:
@@ -16,11 +17,17 @@ alone gives them (the port's ``train_step``); then both densify at EVENT
 masks' agreement, n_live, capacity, K, and each test view rendered right
 after the event: PSNR from both, JAX's dropped pairs in that render, and the
 image's max difference, with JAX's pair budget as it stands and with it
-lifted above any view's pairs.  ``--lift 1`` starts from
+lifted above any view's pairs.  At the event it also prints how far the
+two packages' ``adaptive_control`` inputs are apart and in which slots their
+delete / clone / split decisions differ, with those slots' |∇pos| over
+``grad_thresh`` (a decision that differs shifts every compacted row after
+it, so the params after the event are compared slot by slot only as a
+bound).  ``--lift 1`` starts from
 ``jax_f32_nobudget`` instead (the harness's budget-free JAX trainer).  Not
 a pytest test (~15 min to event 700, ~2 GB):
 
-    python tests/torch_event_trace.py [--start 600 --event 700 --lift 0]
+    python tests/torch_event_trace.py [--start 600 --event 700 --lift 0 \
+        --drive train]
 """
 
 import argparse
@@ -49,6 +56,7 @@ from gsplat_tpu.models.splatter import render_cropped as j_render  # noqa
 from gsplat_tpu_torch.config import SplatConfig, TrainConfig  # noqa: E402
 from gsplat_tpu_torch.models.splatter import Splatter  # noqa: E402
 from gsplat_tpu_torch.models.splatter import render_cropped  # noqa: E402
+import gsplat_tpu_torch.train as ttrain  # noqa: E402
 from gsplat_tpu_torch.train import Trainer  # noqa: E402
 from gsplat_tpu_torch.utils.checkpoint import \
     train_state_from_jax_arrays  # noqa: E402
@@ -63,11 +71,44 @@ def rel(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
+def capture(store, name, control):
+    """Wrap an ``adaptive_control``: keep the table and averaged gradient of
+    its latest call under ``store[name]``."""
+    def wrapped(table, grad, *args, **kw):
+        store[name] = (table, grad)
+        return control(table, grad, *args, **kw)
+    return wrapped
+
+
+def decisions(table, grad, t, cfg):
+    """The delete / clone / split masks of ``adaptive_control``'s steps 1-2
+    (``gsplat_tpu_torch/models/gaussians.py``) on either package's inputs,
+    computed the port's way → (masks, each slot's |∇pos| statistic)."""
+    from gsplat_tpu_torch.ops.projection import activate_scale
+    from gsplat_tpu_torch.utils.so3 import inverse_sigmoid
+
+    def f(x):
+        return torch.from_numpy(np.array(x))
+
+    s = activate_scale(f(table.scale), cfg.scale_activation)
+    norm = torch.sqrt((s * s).sum(-1))
+    keep = f(table.live) & (f(table.opa).reshape(-1) > inverse_sigmoid(0.02)) \
+        & (norm < t.delete_thresh)
+    g = f(grad).abs()
+    g = g.amax(-1) if t.grad_aggregation == "max" else g.mean(-1)
+    dense = keep & (g > t.grad_thresh)
+    return {"keep": keep, "clone": dense & (norm <= t.split_thresh),
+            "split": dense & (norm > t.split_thresh)}, g
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--start", type=int, default=600)
     ap.add_argument("--event", type=int, default=700)
     ap.add_argument("--scene", default="")
+    ap.add_argument("--drive", choices=("train", "step"), default="train",
+                    help="how JAX reaches START: Trainer.train (the harness's "
+                         "--drive train) or train_step(i) (--drive step)")
     ap.add_argument("--lift", type=int, default=0,
                     help="1: JAX's pair budget lifted as the harness's "
                          "jax_f32_nobudget lifts it (so no pair drops)")
@@ -90,8 +131,13 @@ def main(argv=None):
         plane_mode="dense", use_pallas=False, **skw)), JTCfg(**tkw))
     if a.lift:
         H.lift_budget(jt)
-    jt.train(a.start, metrics_every=H.METRICS_EVERY, log=lambda s: None)
-    print(f"jax_f32{'_nobudget' if a.lift else ''} trained 0-{a.start - 1}: "
+    if a.drive == "train":
+        jt.train(a.start, metrics_every=H.METRICS_EVERY, log=lambda s: None)
+    else:
+        for i in range(a.start):
+            jt.train_step(i)
+    print(f"jax_f32{'_nobudget' if a.lift else ''} trained 0-{a.start - 1} "
+          f"(drive {a.drive}): "
           f"n_live "
           f"{int(jt.splat.table.n_live)}, K "
           f"{jt.splat.cfg.max_tiles_per_gaussian}, pair budget "
@@ -137,7 +183,12 @@ def main(argv=None):
         if i == a.event - H.METRICS_EVERY:
             window = {"jax": {}, "port": {}}   # the window that ends at EVENT
 
-    # the event: its own step, then the densify (train_step(EVENT))
+    # the event: its own step, then the densify (train_step(EVENT)), each
+    # package's adaptive_control inputs kept
+    inputs = {}
+    jtrain.adaptive_control = capture(inputs, "jax", jtrain.adaptive_control)
+    ttrain.adaptive_control = capture(inputs, "port",
+                                      ttrain.adaptive_control)
     live0 = np.asarray(jt.state.live)
     jm, tm = jt.train_step(a.event), tt.train_step(a.event)
     for name, m in (("jax", jm), ("port", tm)):
@@ -156,11 +207,33 @@ def main(argv=None):
           f"{tt.splat.table.capacity}; K {jt.splat.cfg.max_tiles_per_gaussian}"
           f" / {tt.splat.cfg.max_tiles_per_gaussian}; pair budget "
           f"{jt.splat.cfg.pair_capacity}")
+    # the decisions from each package's inputs: which slots they differ in,
+    # and how near the threshold those slots' gradients are
+    (jtab, jgrad), (ttab, tgrad) = inputs["jax"], inputs["port"]
+    lv_in = np.array(jtab.live)
+    gap = {k: rel(np.array(getattr(ttab, k))[lv_in],
+                  np.array(getattr(jtab, k))[lv_in])
+           for k in ("pos", "opa", "scale")}
+    print(f"  inputs (live rows before the event): |grad| rel "
+          f"{rel(np.array(tgrad)[lv_in], np.array(jgrad)[lv_in]):.2e}; "
+          + "; ".join(f"{k} rel {v:.2e}" for k, v in gap.items()))
+    jm_, jg = decisions(jtab, jgrad, jt.tcfg, jt.splat.cfg)
+    tm_, tg = decisions(ttab, tgrad, tt.tcfg, tt.splat.cfg)
+    for k in jm_:
+        diff = torch.nonzero(jm_[k] != tm_[k]).flatten()
+        ratio = [f"{float(jg[i]) / jt.tcfg.grad_thresh:.4f}/"
+                 f"{float(tg[i]) / jt.tcfg.grad_thresh:.4f}"
+                 for i in diff[:6]]
+        print(f"  decision {k}: {int(jm_[k].sum())} jax, {int(tm_[k].sum())} "
+              f"port, {len(diff)} slots differ" + (
+                  f" (|grad| / grad_thresh jax/port: {', '.join(ratio)})"
+                  if len(diff) else ""))
     live = tl
     for k in jt.state.params:
         d = rel(tt.state.params[k].numpy()[live],
                 np.asarray(jt.state.params[k])[live])
-        print(f"  params {k}: rel {d:.2e}")
+        print(f"  params {k}: rel {d:.2e} slot by slot (a decision that "
+              f"differs shifts every compacted row after it)")
 
     # each test view right after the event, with JAX's budget as it stands
     # and lifted

@@ -4,7 +4,7 @@ reference's fast config, ``gsplat_tpu_torch/scripts/run_garden_7k.py``, on
 its 7001-iteration schedule) on a ``garden_hard``-kind scene, every densify
 event included.
 
-Four trainers take the same camera draws (one numpy generator each, same
+Six trainers take the same camera draws (one numpy generator each, same
 seed) and the same split noise (JAX's keys, fed to the port):
 
 - ``jax_f32``: the JAX package on its dense plane, f32 throughout (the
@@ -22,6 +22,8 @@ seed) and the same split noise (JAX's keys, fed to the port):
   chunk a tile, and never retuned down, so that no pair is dropped: the
   port's semantics, which has no budgets (the records list every step or
   window that still dropped one);
+- ``jax_f32_nobudget_twin``: ``jax_f32_nobudget`` with the one-ulp move of
+  ``jax_f32_twin``, the noise floor of the budget-free route;
 - ``port``: ``gsplat_tpu_torch`` on the CPU (the plain compositor).
 
 ``--drive step`` calls ``train_step(i)`` for every iteration; ``--drive
@@ -36,7 +38,7 @@ test-split PSNR after the event, and applies the decision rule of PERF.md:
 the port agrees with ``jax_f32`` if, at every event, its live count is
 within max(3%, 2 × |twin − jax_f32|) of ``jax_f32``'s and its test PSNR
 within max(0.3 dB, 2 × the twin's gap).  The same rule is applied against
-``jax_f32_nobudget``, with the same twin's gaps.
+``jax_f32_nobudget``, with the gaps of its own twin.
 
 Scenes (``SCENES``): ``tiny`` (3,000 GT gaussians, 9 views at 64x48, an
 8,192-slot ceiling it fills at 1100) and ``mid`` (14,000 GT gaussians, 24
@@ -75,7 +77,10 @@ ROOT = os.path.dirname(HERE)
 sys.path[:0] = [HERE, ROOT]
 
 TRAINERS = ("jax_f32", "jax_f32_twin", "jax_default", "jax_f32_nobudget",
-            "port")
+            "jax_f32_nobudget_twin", "port")
+# each reference of the decision rule and the twin that gives its noise floor
+RULES = (("jax_f32", "jax_f32_twin"),
+         ("jax_f32_nobudget", "jax_f32_nobudget_twin"))
 GRAD_THRESH_MID = 8e-5
 SCENES = {
     # tests/test_torch_scene_tools.py's scene
@@ -166,7 +171,7 @@ def make_trainer(name, paths, size):
     else:
         cfg = JCfg(plane_mode="dense", use_pallas=False, **skw)
     splat = JSplatter(*paths, cfg)
-    if name == "jax_f32_twin":
+    if name.endswith("_twin"):
         pos = np.asarray(splat.table.pos)
         splat.table = splat.table._replace(pos=jnp.asarray(
             np.nextafter(pos, np.float32(np.inf))))
@@ -181,7 +186,7 @@ def make_trainer(name, paths, size):
 
     jtrain.adaptive_control = recorded
     tr = jtrain.Trainer(splat, JTCfg(**tkw))
-    if name == "jax_f32_nobudget":
+    if name.startswith("jax_f32_nobudget"):
         lift_budget(tr)
 
     def stats():
@@ -374,34 +379,36 @@ def table(recs, size, n_iters):
                   f"most {max(r['n_dropped'] for r in drops)}")
 
     # the decision rule (PERF.md §6), at every event all three reached
-    for ref_name in ("jax_f32", "jax_f32_nobudget"):
-        rule = [n for n in (ref_name, "jax_f32_twin", "port") if n in names]
-        if len(rule) < 3 or "jax_f32" not in names:
+    for ref_name, twin in RULES:
+        rule = [n for n in (ref_name, twin, "port") if n in names]
+        if len(rule) < 3:
             continue
-        print(f"\nrule: port vs {ref_name} within max(3%, 2|twin - jax_f32|)"
-              " live, max(0.3 dB, 2 x |twin - jax_f32|) test PSNR")
+        print(f"\nrule: port vs {ref_name} within max(3%, 2|{twin} - "
+              f"{ref_name}|) live, max(0.3 dB, 2 x the same gap) test PSNR")
         print("event   twin dn   port dn   bound  | twin dPSNR port dPSNR "
               " bound | verdict")
-        first_part = None
+        first_part, parts = None, []
         for i in events:
-            if not all(i in ev[n] for n in rule + ["jax_f32"]):
+            if not all(i in ev[n] for n in rule):
                 continue
-            ref, tw, po, f32 = (ev[n][i] for n in rule + ["jax_f32"])
-            dn_t = abs(tw["n_live"] - f32["n_live"])
+            ref, tw, po = (ev[n][i] for n in rule)
+            dn_t = abs(tw["n_live"] - ref["n_live"])
             dn_p = abs(po["n_live"] - ref["n_live"])
             bound_n = max(0.03 * ref["n_live"], 2 * dn_t)
-            dp_t = abs(tw["psnr"] - f32["psnr"])
+            dp_t = abs(tw["psnr"] - ref["psnr"])
             dp_p = abs(po["psnr"] - ref["psnr"])
             bound_p = max(0.3, 2 * dp_t)
             ok = dn_p <= bound_n and dp_p <= bound_p
-            if not ok and first_part is None:
-                first_part = i
+            if not ok:
+                parts.append(i)
+                first_part = i if first_part is None else first_part
             print(f"{i:5d} {dn_t:9d} {dn_p:9d} {bound_n:9.1f} | "
                   f"{dp_t:10.4f} {dp_p:10.4f} {bound_p:6.3f} | "
                   f"{'agrees' if ok else 'PARTS'}")
         print(f"verdict: the port agrees with {ref_name} at every event"
               if first_part is None else
-              f"verdict: the port parts from {ref_name} at {first_part}")
+              f"verdict: the port parts from {ref_name} at {first_part} "
+              f"(events {parts})")
 
     failed = 0
     if size == "mid":
