@@ -8,7 +8,8 @@ Run from the repository root, with no arguments:
 It builds the rasterizer kernels (gsplat_tpu_torch/csrc/rasterize_fwd.cu and
 rasterize_bwd.cu, one nvcc each, in parallel, for sm_90a into
 gsplat_tpu_torch/_build/; beside them the native COLMAP reader,
-csrc/colmap_reader.cpp, with the system C++ compiler), six entry points:
+csrc/colmap_reader.cpp, and the JPEG codec, csrc/jpeg_codec.cpp, with the
+system C++ compiler), six entry points:
 the f32 RGB forward and backward, the SH forward and backward (27
 coefficients) and the bf16 render preset's forward, RGB and SH.  It holds
 each against its plain PyTorch version on a tiny input, on a small scene (a
@@ -63,7 +64,15 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   then timed by stage on that table), with every logged l1 finite, n_live <=
   capacity <= 524,288 and K <= 40 at each event and the capacity grown;
   a load_full of its last full_state.npz into a fresh Trainer, bit for bit,
-  and the next step's loss from both; then 101 iterations with SH color.
+  and the next step's loss from both; then 101 iterations with SH color;
+  then the real-capture (JPEG) leg: the 56 views encoded with the port's
+  write_jpeg into a JPEG copy of the scene, decoded and held to their PNGs
+  (PSNR), loaded through Splatter on the card (each image read_jpeg's),
+  run_garden_7k over iterations 0-200 from the JPEGs with its last logged
+  l1 within a stated bound of the PNG run's (JPEG_L1_DRIFT), the image
+  pyramid (python -m gsplat_tpu_torch.downsample --factor 2: 56 JPEGs at
+  648x420) and the committed codec fixtures of tests/torch_jpeg/ bit for
+  bit, with the codec's host seconds beside the CPU's model.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's.
@@ -151,6 +160,14 @@ CAPACITY_ROUND = 65536    # SplatConfig's default bucket
 # learning-rate schedule stays the 7001-iteration run's (--stop_at)
 FULL_ITERS, AT_SCALE_ITERS, AT_SCALE_SH_ITERS = 7001, 1001, 101
 AT_SCALE_MAX_CAPACITY, AT_SCALE_K_CAP = 524288, 40
+# The real-capture (JPEG) leg: run_garden_7k iterations (TEST @200 inside),
+# and the bound on its last logged l1 against the PNG leg's at the same
+# iteration: |l1_jpeg - l1_png| <= d + JPEG_L1_DRIFT * l1_png, d the largest
+# per-view mean |JPEG - PNG| of the ground truth (the triangle inequality's
+# share for one render) and JPEG_L1_DRIFT the trajectories' drift apart over
+# 200 steps toward targets that differ by d (stated, with its reason,
+# before the leg's first run on the card: PERF.md §6)
+JPEG_ITERS, JPEG_L1_DRIFT = 201, 0.1
 # the JAX package's run of this scene on a TPU v5e: the oracle ceiling
 # (runs/7k_hard_r5/summary.json) and its TEST lines (train.log:5-33),
 # iteration → (PSNR, SSIM)
@@ -1089,6 +1106,13 @@ def logged_l1(log):
             for line in log.splitlines() if line.startswith("iter ")]
 
 
+def l1_by_iteration(log):
+    """{iteration: l1} of a Trainer log's ``iter N: l1=...`` lines."""
+    return {int(line.split()[1].rstrip(":")):
+            float(line.split("l1=")[1].split()[0])
+            for line in log.splitlines() if line.startswith("iter ")}
+
+
 def step_rate(records, lo, hi):
     """Steps lo..hi-1: (it/s from the steps' host times, mean pairs)."""
     rows = [r for r in records if lo <= r[0] < hi]
@@ -1326,6 +1350,7 @@ def at_scale_path(rz, dev):
             "--stop_at", str(AT_SCALE_ITERS), "--use_sh_coeff", "0",
             "--device", DEVICE])
         wall = time.perf_counter() - t0
+        png_log = log
         print(log, end="")
         print(f"{len(records)} steps in {wall:.1f} s wall; kernel launches "
               f"{json.dumps(rgb)}", flush=True)
@@ -1471,9 +1496,177 @@ def at_scale_path(rz, dev):
             tr.splat.cameras.grid, tr.splat.cfg, seed=7)
         del tr, views
         torch.cuda.empty_cache()
+        jpeg = jpeg_capture_path(rz, scene, root, png_log)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return (build, rgb, sh), scale_rows
+    return (build, rgb, sh, jpeg), scale_rows
+
+
+def cpu_model():
+    """The host CPU as /proc/cpuinfo names it: vendor, family, model and
+    model name (a virtual machine may say "unknown" there), and the cores
+    this process sees."""
+    fields = {}
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                if not key:
+                    break                      # the first processor only
+                fields.setdefault(key, value.strip())
+    return (f"{fields.get('vendor_id', '?')} family "
+            f"{fields.get('cpu family', '?')} model {fields.get('model', '?')}"
+            f" ({fields.get('model name', '?')}), {os.cpu_count()} cores")
+
+
+def jpeg_capture_path(rz, scene, root, png_log):
+    """The real-capture phase on garden_hard's 56 views: (a) each PNG view
+    encoded with write_jpeg into a JPEG scene (images_4/img_XXX.JPG, the
+    level run_garden_7k reads, and a sparse copy whose images.bin names
+    them); (b) the JPEGs decoded and held to their PNGs (PSNR), then loaded
+    through Splatter on the card; (c) run_garden_7k over iterations
+    0..JPEG_ITERS - 1 of the RGB schedule from the JPEG scene, its last
+    logged l1 beside the PNG leg's; (d) the image pyramid (python -m
+    gsplat_tpu_torch.downsample --factor 2) over the 56 JPEGs; (e) the
+    committed codec fixtures (tests/torch_jpeg/) bit for bit and byte for
+    byte.  → the run's kernel launches."""
+    import torch
+
+    from gsplat_tpu_torch.config import SplatConfig
+    from gsplat_tpu_torch.models.splatter import Splatter
+    from gsplat_tpu_torch.utils.image_io import read_jpeg, read_png, \
+        write_jpeg
+
+    host = cpu_model()
+    phase(f"real capture (JPEG): garden_hard's views through write_jpeg, "
+          f"read_jpeg, Splatter, run_garden_7k and downsample (host: {host})")
+    torch.cuda.synchronize()
+    reset_launches(rz)
+    jscene = os.path.join(root, "scene_jpeg")
+    src = os.path.join(scene, "images_4")
+    dst = os.path.join(jscene, "images_4")
+    sparse = os.path.join(jscene, "sparse", "0")
+    os.makedirs(dst)
+    os.makedirs(sparse)
+    for name in ("cameras.bin", "points3D.bin"):
+        shutil.copyfile(os.path.join(scene, "sparse", "0", name),
+                        os.path.join(sparse, name))
+    with open(os.path.join(scene, "sparse", "0", "images.bin"), "rb") as f:
+        images_bin = f.read()
+    pngs = sorted(n for n in os.listdir(src) if n.endswith(".png"))
+    check(images_bin.count(b".png\x00") == len(pngs) == 56,
+          f"{len(pngs)} PNG views, images.bin names "
+          f"{images_bin.count(b'.png' + bytes(1))}")
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(images_bin.replace(b".png\x00", b".JPG\x00"))
+    # (a) encode, (b) decode, each view timed alone
+    views, enc_s, dec_s, psnrs, dmean = {}, [], [], [], []
+    for name in pngs:
+        img = read_png(os.path.join(src, name))
+        jpg = os.path.join(dst, name[:-4] + ".JPG")
+        t0 = time.perf_counter()
+        write_jpeg(jpg, img)
+        enc_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        dec = read_jpeg(jpg)
+        dec_s.append(time.perf_counter() - t0)
+        check(dec.shape == img.shape and img.shape[2] == 3,
+              f"{jpg}: decoded {dec.shape}, the PNG {img.shape}")
+        diff = dec.astype(np.float64) - img
+        mse = float(np.mean(diff * diff)) / 255.0 ** 2
+        psnrs.append(10 * np.log10(1.0 / max(mse, 1e-20)))
+        dmean.append(float(np.mean(np.abs(diff))) / 255.0)
+        views[name[:-4] + ".JPG"] = dec
+    size = sum(os.path.getsize(os.path.join(dst, n)) for n in views)
+    h, w = img.shape[:2]
+    print(f"  encode {sum(enc_s):.3f} s ({np.mean(enc_s) * 1e3:.2f} ms a "
+          f"view), decode {sum(dec_s):.3f} s ({np.mean(dec_s) * 1e3:.2f} ms a"
+          f" view), {len(views)} views at {w}x{h}, {size / 1e6:.2f}"
+          f" MB of JPEG; PSNR against the PNG: min {min(psnrs):.3f} mean "
+          f"{np.mean(psnrs):.3f} dB; mean |JPEG - PNG| max {max(dmean):.5f}"
+          f" (host: {host})", flush=True)
+    check(min(psnrs) > 30, f"a JPEG view at {min(psnrs):.2f} dB")
+    t0 = time.perf_counter()
+    splat = Splatter(sparse, dst, SplatConfig(), device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cams = splat.cameras
+    check(len(splat.camera_groups) == 1 and cams.n_cameras == len(views)
+          and cams.images.device.type == "cuda", "JPEG scene cameras")
+    for i, name in enumerate(cams.names):
+        check(torch.equal(cams.images[i].permute(1, 2, 0).cpu(),
+                          torch.from_numpy(views[name])),
+              f"{name}: Splatter's image is not read_jpeg's")
+    print(f"  Splatter loaded the JPEG scene on the card in {load_s:.3f} s "
+          f"({cams.n_cameras} views, {splat.table.n_live} gaussians); each"
+          f" image read_jpeg's bit for bit", flush=True)
+    check(sum(rz.LAUNCHES.values()) == 0, f"launches {dict(rz.LAUNCHES)}")
+    del splat, cams
+    torch.cuda.empty_cache()
+    # (c) training from the JPEG scene
+    summary, tr, launches, records, log = run_7k(rz, [
+        "--scene", jscene, "--exp", os.path.join(root, "jpeg"), "--n_iters",
+        str(FULL_ITERS), "--stop_at", str(JPEG_ITERS), "--use_sh_coeff", "0",
+        "--device", DEVICE])
+    print(log, end="")
+    check([r[0] for r in records] == list(range(JPEG_ITERS)), "JPEG steps")
+    l1 = l1_by_iteration(log)
+    check(len(l1) >= JPEG_ITERS // 50 and all(np.isfinite(list(l1.values()))),
+          "JPEG leg: a logged l1 is not finite")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(rasterize_fwd=JPEG_ITERS + 5 * len(tr.test_split) * (
+        len(summary["test_trajectory"]) + 1), rasterize_bwd=JPEG_ITERS)
+    check(launches == want, f"JPEG leg launches {launches} != {want}")
+    png = l1_by_iteration(png_log)
+    both = set(l1) & set(png)
+    check(bool(both), "the JPEG and PNG legs logged no l1 at one iteration")
+    last = max(both)
+    bound = max(dmean) + JPEG_L1_DRIFT * png[last]
+    rate, pairs = step_rate(records, 1, JPEG_ITERS)
+    print(f"  iteration {last}: l1 {l1[last]:.4f} from JPEG, {png[last]:.4f}"
+          f" from PNG, |difference| {abs(l1[last] - png[last]):.4f} <= bound "
+          f"{bound:.4f}; TEST {summary['test_trajectory']}; {rate:.2f} it/s "
+          f"at {pairs:.0f} pairs a view; kernel launches "
+          f"{json.dumps(launches)}", flush=True)
+    check(abs(l1[last] - png[last]) <= bound,
+          f"JPEG leg l1 {l1[last]} vs PNG {png[last]}: beyond {bound}")
+    del tr
+    torch.cuda.empty_cache()
+    # (d) the image pyramid over the JPEGs
+    pyramid = os.path.join(root, "images_8_jpeg")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gsplat_tpu_torch.downsample", "--src", dst,
+         "--dst", pyramid, "--factor", "2"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    down_s = time.perf_counter() - t0
+    check(proc.returncode == 0 and not proc.stderr,
+          f"downsample exit {proc.returncode}: {proc.stderr[-2000:]}")
+    outs = sorted(os.listdir(pyramid))
+    check(outs == sorted(views), f"downsample wrote {outs[:3]}...")
+    # cv2's INTER_AREA size: the nearest integer, ties to even
+    half = (int(np.rint(h / 2)), int(np.rint(w / 2)))
+    check((h, w) != (840, 1297) or half == (420, 648), f"half size {half}")
+    for name in outs:
+        small = read_jpeg(os.path.join(pyramid, name))
+        check(small.shape == (*half, 3), f"{name}: {small.shape}")
+    print(f"  downsample --factor 2: {len(outs)} JPEGs at {half[1]}x"
+          f"{half[0]} in {down_s:.3f} s (one process, its start included; "
+          f"host: {host})", flush=True)
+    # (e) the committed fixtures, the codec as the local compiler builds it
+    helpers_dir = os.path.dirname(test_helpers().__file__)
+    sys.path.insert(0, helpers_dir)
+    import torch_make_jpeg_fixtures
+
+    got = torch_make_jpeg_fixtures.check(scratch=root)
+    print(f"  committed fixtures (tests/torch_jpeg/): {json.dumps(got)}",
+          flush=True)
+    check(all(got.values()) and len(got) == 7,
+          f"codec fixtures differ: {got}")
+    check(dict(rz.LAUNCHES) == launches, "launches after the JPEG leg")
+    return launches
 
 
 def bits(x):
@@ -2035,21 +2228,25 @@ def main() -> int:
     phase("build")
     t0 = time.perf_counter()
     # the kernels' sources, and the self-check of the forward's split
-    # division (csrc/fast_div_check.cu); beside them the host COLMAP reader
-    # (csrc/colmap_reader.cpp, the system C++ compiler)
+    # division (csrc/fast_div_check.cu); beside them the host libraries
+    # (csrc/colmap_reader.cpp, csrc/jpeg_codec.cpp; the system C++ compiler)
     sources = sorted({src for src, _ in rz.KERNELS.values()}
                      | {"fast_div_check"})
-    with ThreadPoolExecutor(len(sources) + 1) as pool:
-        reader = pool.submit(cuda_build.load_host_library, "colmap_reader")
+    host_libs = ("colmap_reader", "jpeg_codec")
+    with ThreadPoolExecutor(len(sources) + len(host_libs)) as pool:
+        hosts = [pool.submit(cuda_build.load_host_library, name)
+                 for name in host_libs]
         list(pool.map(cuda_build.load_kernel_library, sources))
-        reader.result()
+        for h in hosts:
+            h.result()
     for name in KERNELS:
         rz._kernel(name)
-    print(f"built {len(sources) + 1} libraries ({len(KERNELS)} entry points, "
-          f"the division check and the COLMAP reader) in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    info = cuda_build.BUILD_INFO["colmap_reader"]
-    print(f"  colmap_reader: {info['path']} (c++ {info['seconds']:.2f} s)")
+    print(f"built {len(sources) + len(host_libs)} libraries ({len(KERNELS)} "
+          f"entry points, the division check, the COLMAP reader and the JPEG"
+          f" codec) in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name in host_libs:
+        info = cuda_build.BUILD_INFO[name]
+        print(f"  {name}: {info['path']} (c++ {info['seconds']:.2f} s)")
     for src in sources:
         info = cuda_build.BUILD_INFO[src]
         print(f"  {src}: {info['path']} (nvcc {info['seconds']:.2f} s)")
@@ -2663,8 +2860,8 @@ def main() -> int:
           f"CLI launches {cli}")
 
     # ---- 12. the at-scale run ----------------------------------------------
-    (scene_build, at_scale_rgb, at_scale_sh), scale_rows = at_scale_path(
-        rz, dev)
+    (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg), scale_rows = \
+        at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -2678,7 +2875,8 @@ def main() -> int:
              "viewer live training": viewer_train, **dp, "bands": bands,
              "Trainer": trainer_launches, "CLI": cli,
              "at-scale scene build": scene_build,
-             "at-scale RGB run": at_scale_rgb, "at-scale SH run": at_scale_sh}
+             "at-scale RGB run": at_scale_rgb, "at-scale SH run": at_scale_sh,
+             "at-scale JPEG run": at_scale_jpeg}
     print("launches by path: " + json.dumps(paths), flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": repl,

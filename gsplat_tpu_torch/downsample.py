@@ -1,17 +1,22 @@
 """Offline image-pyramid prep (the JAX package's root ``downsample.py``):
-every PNG of ``--src`` shrunk by a whole-number ``--factor`` into ``--dst``.
+every image of ``--src`` shrunk by a whole-number ``--factor`` into ``--dst``
+under its own name.
 
     python -m gsplat_tpu_torch.downsample --src colmap_garden/images_2 \\
         --dst colmap_garden/images_4 --factor 2
 
 The JAX script resizes with ``cv2.resize(..., INTER_AREA)``; the port has no
-cv2 and averages each ``factor`` x ``factor`` block itself (PNG in and out
-through ``utils/image_io``).  The output is ``round(H / factor)`` by
-``round(W / factor)``, as cv2 sizes it; a block cut off by the image's edge
+cv2 and averages each ``factor`` x ``factor`` block itself.  Images are read
+by their signature and written by their name's extension, as cv2 reads and
+writes them (``utils/image_io``): a ``.jpg`` / ``.jpeg`` / ``.jpe`` name gets
+the bytes of ``cv2.imwrite``'s default JPEG, a ``.png`` name an 8-bit PNG.
+The output is ``round(H / factor)`` by ``round(W / factor)``, as cv2 sizes
+it; a block cut off by the image's edge
 averages the pixels it holds.  Means are rounded as cv2 rounds them: half
 to even, except whole 2 x 2 blocks, which its fast path rounds half up.
-Files that are not PNG are skipped, as the JAX script skips files cv2
-cannot read.
+A file that is neither a PNG nor a JPEG (or that does not decode) is
+skipped, as the JAX script skips files cv2 cannot read, and so is a name of
+another extension; each skipped file is named on stderr.
 """
 
 from __future__ import annotations
@@ -19,10 +24,15 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+import sys
 
 import numpy as np
 
-from gsplat_tpu_torch.utils.image_io import read_png, write_png
+from gsplat_tpu_torch.utils.image_io import read_image, write_jpeg, \
+    write_png
+
+_WRITERS = {".jpg": write_jpeg, ".jpeg": write_jpeg, ".jpe": write_jpeg,
+            ".png": write_png}
 
 
 def downsample_area(img: np.ndarray, factor) -> np.ndarray:
@@ -55,7 +65,7 @@ def downsample_area(img: np.ndarray, factor) -> np.ndarray:
 
 def build_argparser():
     p = argparse.ArgumentParser(
-        description="shrink every PNG of a folder by a whole-number factor")
+        description="shrink every image of a folder by a whole-number factor")
     p.add_argument("--src", default="colmap_garden/images_2")
     p.add_argument("--dst", default="colmap_garden/images_4")
     p.add_argument("--factor", type=float, default=2.0)
@@ -69,11 +79,19 @@ def main(argv=None):
                          f"{a.factor}")
     os.makedirs(a.dst, exist_ok=True)
     for fn in sorted(glob.glob(os.path.join(a.src, "*"))):
-        if not fn.lower().endswith(".png"):
+        name = os.path.basename(fn)
+        writer = _WRITERS.get(os.path.splitext(name)[1].lower())
+        if writer is None:
+            print(f"skipped {fn}: not a .jpg/.jpeg/.jpe/.png name",
+                  file=sys.stderr)
             continue
-        write_png(os.path.join(a.dst, os.path.basename(fn)),
-                  downsample_area(read_png(fn), a.factor))
-        print(os.path.basename(fn))
+        try:
+            img = read_image(fn)
+        except (OSError, RuntimeError, ValueError) as e:
+            print(f"skipped {fn}: {e}", file=sys.stderr)
+            continue
+        writer(os.path.join(a.dst, name), downsample_area(img, a.factor))
+        print(name)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gsplat_tpu_torch.ops.binning import div_rn
 from gsplat_tpu_torch.ops.projection import activate_scale
 from gsplat_tpu_torch.ops.sh import initialize_sh
 from gsplat_tpu_torch.utils.so3 import inverse_sigmoid, quat_to_rotmat
@@ -166,7 +167,7 @@ def adaptive_control(table: GaussianTable, grad: torch.Tensor,
 
     # 3. split shrink and two-point sampling pos + (R S) eps
     if scale_activation == "abs":
-        new_scale = torch.where(split[:, None], table.scale / 1.6,
+        new_scale = torch.where(split[:, None], div_rn(table.scale, 1.6),
                                 table.scale)
     else:
         new_scale = torch.where(split[:, None], table.scale - math.log(1.6),

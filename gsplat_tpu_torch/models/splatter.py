@@ -26,14 +26,15 @@ from gsplat_tpu_torch.config import SplatConfig
 from gsplat_tpu_torch.models.camera import TileGrid, ray_info
 from gsplat_tpu_torch.models.gaussians import GaussianTable, grow_capacity, \
     init_from_points
-from gsplat_tpu_torch.ops.binning import BinningSpec, pack_preset, pack_sorted
+from gsplat_tpu_torch.ops.binning import BinningSpec, div_rn, pack_preset, \
+    pack_sorted
 from gsplat_tpu_torch.ops.projection import project_gaussians
 from gsplat_tpu_torch.ops.rasterize import RasterSpec, rasterize, \
     rasterize_preset
 from gsplat_tpu_torch.ops.sh import SH_DIM
 from gsplat_tpu_torch.utils.colmap import camera_focals, read_cameras_binary, \
     read_images_binary, read_points3d_arrays
-from gsplat_tpu_torch.utils.image_io import read_png
+from gsplat_tpu_torch.utils.image_io import read_image
 from gsplat_tpu_torch.utils.so3 import quat_to_rotmat_np
 
 
@@ -53,22 +54,10 @@ class SceneCameras:
         return self.w2c_rot.shape[0]
 
 
-def read_image(fn: str) -> np.ndarray:
-    """An image file → (H, W, 3) uint8 RGB: PNG by the port's own reader
-    (``utils/image_io``), any other format by ``cv2`` where it is
-    installed."""
-    if fn.lower().endswith(".png"):
-        return read_png(fn)
-    try:
-        import cv2
-    except ImportError:
-        raise RuntimeError(
-            f"{fn}: only PNG images load without cv2, which is not "
-            "installed") from None
-    im = cv2.imread(fn)
-    if im is None:
-        raise RuntimeError(f"{fn}: cv2 could not read the image")
-    return cv2.cvtColor(im, cv2.COLOR_BGR2RGB)
+def gt_to_float(image: torch.Tensor) -> torch.Tensor:
+    """A (3, H, W) uint8 image → f32 in [0, 1], divided by 255 (not
+    multiplied by its reciprocal) on every device, as JAX divides."""
+    return div_rn(image.to(torch.float32), 255.0)
 
 
 def load_scene_camera_groups(colmap_path, image_path, render_downsample,
@@ -310,4 +299,4 @@ class Splatter:
 
     def ground_truth(self, camera_id: int) -> torch.Tensor:
         """GT image as stored: channel-major (3, H, W) float in [0, 1]."""
-        return self.cameras.images[camera_id].to(torch.float32) / 255.0
+        return gt_to_float(self.cameras.images[camera_id])

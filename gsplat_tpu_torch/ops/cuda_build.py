@@ -1,9 +1,10 @@
 """Build and load the native libraries of ``gsplat_tpu_torch/csrc``: the
-hand-written CUDA kernels and the host C++ COLMAP reader.
+hand-written CUDA kernels and the host C++ libraries (the COLMAP reader,
+the JPEG codec).
 
 Each source is a plain ``extern "C"`` translation unit.  At first use a
 kernel (with the shared ``*.cuh`` headers beside it) is compiled with
-``nvcc`` for Hopper (``sm_90a``), and ``colmap_reader.cpp`` with the system
+``nvcc`` for Hopper (``sm_90a``), and a host ``*.cpp`` with the system
 C++ compiler (``$CXX``, else ``c++``), into a shared library under
 ``gsplat_tpu_torch/_build/`` (listed in ``.gitignore``), keyed by a hash of
 the source, the headers, the flags and the compiler's resolved path, written
@@ -64,9 +65,9 @@ def find_cxx() -> str:
         if path:
             return path
     raise RuntimeError(
-        "no C++ compiler ($CXX, c++, g++): gsplat_tpu_torch's COLMAP reader "
-        "is compiled from gsplat_tpu_torch/csrc/colmap_reader.cpp at first "
-        "use")
+        "no C++ compiler ($CXX, c++, g++): gsplat_tpu_torch's host libraries "
+        "(the COLMAP reader, the JPEG codec) are compiled from "
+        "gsplat_tpu_torch/csrc/*.cpp at first use")
 
 
 def _build(name: str, src: Path, deps: bytes, flags, find) -> ctypes.CDLL:

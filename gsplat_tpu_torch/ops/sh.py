@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from gsplat_tpu_torch.ops.binning import div_rn
+
 SH_DIM = 9
 C0 = 0.28209479177387814
 C1 = 0.4886025119029199
@@ -45,5 +47,5 @@ def initialize_sh(rgb_logits: torch.Tensor) -> torch.Tensor:
     n = rgb_logits.shape[0]
     coeff = torch.zeros((n, 3, SH_DIM), dtype=rgb_logits.dtype,
                         device=rgb_logits.device)
-    coeff[:, :, 0] = rgb_logits / C0
+    coeff[:, :, 0] = div_rn(rgb_logits, C0)
     return coeff.reshape(n, 3 * SH_DIM)

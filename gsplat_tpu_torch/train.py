@@ -45,7 +45,9 @@ import torch
 from gsplat_tpu_torch.config import SplatConfig, TrainConfig
 from gsplat_tpu_torch.models.gaussians import adaptive_control, \
     grow_capacity, reset_opacity
-from gsplat_tpu_torch.models.splatter import Splatter, render_cropped
+from gsplat_tpu_torch.models.splatter import Splatter, gt_to_float, \
+    render_cropped
+from gsplat_tpu_torch.ops.binning import sqrt_rn
 from gsplat_tpu_torch.ops.losses import l1_loss, psnr, ssim
 from gsplat_tpu_torch.utils.image_io import write_png
 from gsplat_tpu_torch.utils.timer import StageTimer
@@ -66,22 +68,50 @@ def init_adam(params: dict) -> AdamState:
                      t=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+# (beta, device) -> the f32 table of bias_correction
+_BIAS_CORRECTIONS: dict = {}
+
+
+def bias_correction(b: float, t: torch.Tensor) -> torch.Tensor:
+    """Adam's ``1 − b**t`` in f32 for step counts ``t`` (an int tensor), the
+    same bits on every device.  CUDA's ``powf`` rounds some of these one ulp
+    away from the CPU's, so the values are computed once on the CPU, each as
+    the 0-d expression the CPU evaluates, up to the first ``t`` at which
+    ``1 − b**t`` rounds to 1 (it stays 1 after), and looked up on ``t``'s
+    device."""
+    key = (b, t.device)
+    if key not in _BIAS_CORRECTIONS:
+        vals = []
+        for i in range(1 << 20):
+            vals.append(1.0 - b ** torch.tensor(float(i)))
+            if float(vals[-1]) == 1.0:
+                break
+        else:
+            raise ValueError(f"Adam beta {b}: 1 - beta**t is not 1 in f32 "
+                             f"by t = 2**20")
+        _BIAS_CORRECTIONS[key] = torch.stack(vals).to(t.device)
+    table = _BIAS_CORRECTIONS[key]
+    return table[t.clamp(max=table.numel() - 1).long()]
+
+
 def adam_update(params: dict, grads: dict, state: AdamState, lrs, b1: float,
                 b2: float, eps: float):
     """Dense Adam with per-group learning rates (``lrs``: (5,) in
     ``GROUP_ORDER``) → (new params, new AdamState); new tensors, nothing is
     updated in place.  The expressions of ``gsplat_tpu/train.py:53-66``:
-    ``(mu/bc1)/(sqrt(nu/bc2) + eps)`` with ``bc = 1 − b**t``."""
+    ``(mu/bc1)/(sqrt(nu/bc2) + eps)`` with ``bc = 1 − b**t``, the same
+    bits on every device: ``bc`` from ``bias_correction``, a tensor on the
+    state's device (so each division is an IEEE one), the root
+    ``sqrt_rn``."""
     t = state.t + 1
-    tf = t.to(torch.float32)
-    bc1 = 1.0 - b1 ** tf
-    bc2 = 1.0 - b2 ** tf
+    bc1 = bias_correction(b1, t)
+    bc2 = bias_correction(b2, t)
     new_p, new_mu, new_nu = {}, {}, {}
     for i, k in enumerate(GROUP_ORDER):
         g = grads[k]
         mu = b1 * state.mu[k] + (1 - b1) * g
         nu = b2 * state.nu[k] + (1 - b2) * g * g
-        update = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+        update = (mu / bc1) / (sqrt_rn(nu / bc2) + eps)
         new_p[k] = params[k] - lrs[i] * update
         new_mu[k], new_nu[k] = mu, nu
     return new_p, AdamState(mu=new_mu, nu=new_nu, t=t)
@@ -162,7 +192,7 @@ def make_grad_fn(splat: Splatter, tcfg: TrainConfig, group: int = 0):
     def grad_fn(st: TrainState, cam_idx: int):
         rot = cams.w2c_rot[cam_idx]
         tran = cams.w2c_tran[cam_idx]
-        gt = cams.images[cam_idx].to(torch.float32) / 255.0
+        gt = gt_to_float(cams.images[cam_idx])
         params = {k: st.params[k].detach().requires_grad_(True)
                   for k in GROUP_ORDER}
         with torch.enable_grad():
@@ -252,7 +282,7 @@ def make_eval_step(splat: Splatter, group: int = 0, preset: bool = False):
         """→ (image (3, H, W), PSNR, SSIM), the metrics as 0-d tensors."""
         rot = cams.w2c_rot[cam_idx]
         tran = cams.w2c_tran[cam_idx]
-        gt = cams.images[cam_idx].to(torch.float32) / 255.0
+        gt = gt_to_float(cams.images[cam_idx])
         img, _ = render_cropped(params, live, rot, tran, grid, cfg,
                                 bspec, rspec, cams.sh_vecs[cam_idx], preset)
         return img, psnr(img, gt, data_range=1.0), \

@@ -17,7 +17,8 @@ from gsplat_tpu.ops.binning import pack_sorted as j_pack
 from gsplat_tpu_torch.ops.binning import BinningSpec as TSpec
 from gsplat_tpu_torch.ops.binning import pack_sorted as t_pack
 
-from torch_helpers import TILE, image_space_pairs
+from torch_helpers import DIVISION_SITES, TILE, division_rows, \
+    image_space_pairs
 
 torch.set_num_threads(1)
 
@@ -128,3 +129,31 @@ def test_tile_boxes_divide_where_a_reciprocal_multiply_differs():
     assert int((multiplied != divided).sum()) > 100
     x0 = t_rows(spec, *map(torch.from_numpy, rows))[0]
     assert torch.equal(x0, divided.clamp(0, spec.n_tile_x).long())
+
+
+@pytest.mark.parametrize("site", DIVISION_SITES)
+def test_divisions_differ_under_a_reciprocal(site):
+    # the rows of each division the port routes through div_rn (the ground
+    # truth's / 255, Adam's bias corrections, the split's / 1.6, the SH
+    # init's / C0): a multiply by the f32 reciprocal, what a CUDA tensor /
+    # Python number computes, moves some of them by an ulp, so the card
+    # test of the same rows (test_torch_cuda.py::
+    # test_divisions_on_cuda_match_cpu) can see a site that multiplies
+    from gsplat_tpu_torch.ops.binning import div_rn
+
+    x, y = division_rows(site)
+    x = torch.from_numpy(x)
+    divided = div_rn(x, y)
+    assert torch.equal(divided, x / torch.tensor(y, dtype=torch.float32))
+    inv = torch.tensor(np.float32(1) / np.float32(y))
+    assert int((x * inv != divided).sum()) > 0
+
+
+def test_sqrt_rn_is_the_correctly_rounded_root():
+    # Adam's sqrt(nu / bc2): the correctly rounded f32 root (numpy's, JAX's
+    # and CUDA's), which PyTorch's f32 sqrt on the CPU is not everywhere
+    from gsplat_tpu_torch.ops.binning import sqrt_rn
+
+    x = np.random.default_rng(5).uniform(0, 10, 1 << 16).astype(np.float32)
+    np.testing.assert_array_equal(sqrt_rn(torch.from_numpy(x)).numpy(),
+                                  np.sqrt(x))

@@ -16,9 +16,12 @@ import torch
 
 from gsplat_tpu_torch import synthetic
 from gsplat_tpu_torch.config import SplatConfig, TrainConfig
+import dataclasses
+
 from gsplat_tpu_torch.models.gaussians import adaptive_control
 from gsplat_tpu_torch.models.splatter import (SceneCameras, Splatter,
-                                              make_specs, render_cropped)
+                                              gt_to_float, make_specs,
+                                              render_cropped)
 from gsplat_tpu_torch.ops.binning import (BinningSpec, _tile_bbox_rows,
                                           pack_preset, pack_sorted)
 from gsplat_tpu_torch.ops.rasterize import (LAUNCHES, RasterSpec,
@@ -30,12 +33,14 @@ from gsplat_tpu_torch.ops.rasterize import (LAUNCHES, RasterSpec,
                                             composite_tiles_preset_torch,
                                             composite_tiles_torch,
                                             fast_division_check)
-from gsplat_tpu_torch.train import (GROUP_ORDER, init_train_state, lrs_at,
+from gsplat_tpu_torch.ops.sh import initialize_sh
+from gsplat_tpu_torch.train import (GROUP_ORDER, AdamState, adam_update,
+                                    bias_correction, init_train_state, lrs_at,
                                     make_eval_step, make_train_step)
 from gsplat_tpu_torch.viewer import render_offscreen
 
-from torch_helpers import (BIG_CROWD, FWD_BATCH, RAGGED_COUNTS, TILE,
-                           FakeServer,
+from torch_helpers import (BIG_CROWD, DIVISION_SITES, FWD_BATCH,
+                           RAGGED_COUNTS, TILE, FakeServer, division_rows,
                            assert_close_cols, bbox_boundary_rows,
                            image_space_pairs, ragged_pairs)
 
@@ -99,6 +104,61 @@ def test_pixel_centres_on_cuda_match_cpu(cuda, relative):
     for c, k in zip(cpu, card):
         assert torch.equal(k.cpu(), c), \
             f"{int((k.cpu() != c).sum())} pixel centres differ"
+
+
+def _division_site(site, device):
+    """The port's own code at one division site, on ``device``, fed the
+    rows of ``torch_helpers.division_rows`` → the tensors it computes."""
+    x, y = division_rows(site)
+    if site == "ground_truth":
+        img = torch.from_numpy(x.astype(np.uint8)).reshape(1, 16, 16)
+        return [gt_to_float(img.expand(3, 16, 16).contiguous().to(device))]
+    if site == "adam":
+        rows = torch.from_numpy(x.reshape(-1, 4)).to(device)
+        params = {k: rows + i for i, k in enumerate(GROUP_ORDER)}
+        grads = {k: rows * (i + 1) for i, k in enumerate(GROUP_ORDER)}
+        state = AdamState(mu={k: rows for k in GROUP_ORDER},
+                          nu={k: rows * rows for k in GROUP_ORDER},
+                          t=torch.tensor(2, dtype=torch.int32, device=device))
+        p, st = adam_update(params, grads, state,
+                            torch.full((5,), 1e-3, device=device), 0.9,
+                            0.999, 1e-15)
+        # and the bias corrections themselves, where CUDA's powf differs
+        steps = torch.arange(20001, dtype=torch.int32, device=device)
+        return [p[k] for k in GROUP_ORDER] + [
+            st.mu[k] for k in GROUP_ORDER] + [
+            bias_correction(b, steps) for b in (0.9, 0.99, 0.999)]
+    if site == "split_scale":
+        table = synthetic.synthetic_table(3000, capacity_round=1024,
+                                          focal=100.0, scale_px=3.0,
+                                          frustum=(0.85, 0.55), device="cpu")
+        table = dataclasses.replace(table, scale=torch.from_numpy(
+            x.reshape(-1, 3)[:table.capacity]).clone())
+        rng = np.random.default_rng(3)
+        grad = torch.from_numpy(np.abs(rng.normal(
+            0, 3e-4, (table.capacity, 3))).astype(np.float32))
+        eps = torch.from_numpy(rng.normal(size=(table.capacity, 2, 3))
+                               .astype(np.float32))
+        out, stats = adaptive_control(
+            table.to(device), grad.to(device), eps.to(device), taus=0.2,
+            delete_thresh=0.5, grad_thresh=2e-4, clone_dt=0.01,
+            use_clone=True, use_split=True)
+        assert stats.n_split > 0
+        return [out.scale, out.live]
+    return [initialize_sh(torch.from_numpy(x.reshape(-1, 3)).to(device))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", DIVISION_SITES)
+def test_divisions_on_cuda_match_cpu(cuda, site):
+    # each division by a Python number on the image and training path goes
+    # through binning.div_rn: bit for bit the CPU's quotient (and JAX's),
+    # on rows where a reciprocal multiply moves some by an ulp
+    # (test_torch_binning.py::test_divisions_differ_under_a_reciprocal)
+    for i, (c, k) in enumerate(zip(_division_site(site, "cpu"),
+                                   _division_site(site, cuda))):
+        assert torch.equal(k.cpu(), c), \
+            f"{site}[{i}]: {int((k.cpu() != c).sum())} values differ"
 
 
 @pytest.mark.cuda

@@ -342,3 +342,16 @@ def test_train_step_matches_jax(scenes, use_pallas, wn, accum, n_steps):
     assert _rel_l2(st.accum_grad, jst.accum_grad) < 1e-5
     np.testing.assert_allclose(st.grad_counter.numpy(),
                                np.asarray(jst.grad_counter), atol=0)
+
+
+@pytest.mark.parametrize("b", [0.9, 0.99, 0.999])
+def test_bias_correction_is_the_cpu_expression(b):
+    # the table behind adam_update's 1 - b**t (the same bits on the card,
+    # test_torch_cuda.py::test_divisions_on_cuda_match_cpu[adam]) holds the
+    # 0-d f32 expression the CPU evaluates, and 1 past its end
+    from gsplat_tpu_torch.train import bias_correction
+
+    steps = torch.arange(0, 20001, 7, dtype=torch.int32)
+    want = torch.stack([1.0 - b ** s.to(torch.float32) for s in steps])
+    assert torch.equal(bias_correction(b, steps), want)
+    assert float(bias_correction(b, torch.tensor(10 ** 6))) == 1.0

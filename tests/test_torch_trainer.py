@@ -325,6 +325,70 @@ def test_png_io_matches_cv2(tmp_path):
         cv2.imread(str(tmp_path / "w.png"))[..., ::-1], img)
 
 
+def _png_variant(kind, img, tmp_path):
+    """A PNG of ``kind`` holding ``img``'s content → its path."""
+    import zlib
+    import struct
+
+    Image = pytest.importorskip("PIL.Image")
+    cv2 = pytest.importorskip("cv2")
+    path = str(tmp_path / f"{kind}.png")
+    rng = np.random.default_rng(1)
+    g = img[..., 1]
+    if kind == "gray8":
+        Image.fromarray(g, "L").save(path)
+    elif kind == "gray_alpha":
+        Image.fromarray(np.stack([g, img[..., 0]], 2), "LA").save(path)
+    elif kind in ("palette8", "palette_trns", "palette4"):
+        n = 16 if kind == "palette4" else 256
+        pal = rng.integers(0, 256, (n, 3), dtype=np.uint8)
+        im = Image.fromarray(g if n == 256 else g % n, "P")
+        im.putpalette(pal.flatten().tolist())
+        kw = {"bits": 4} if kind == "palette4" else {}
+        if kind == "palette_trns":
+            kw["transparency"] = bytes(range(256))
+        im.save(path, **kw)
+    elif kind == "gray1":
+        Image.fromarray(g > 127).save(path)
+    elif kind in ("gray2", "gray4"):        # written by hand: 2 or 4 bits
+        depth = int(kind[-1])
+        vals = g >> (8 - depth)
+        rows = b""
+        for r in vals:
+            bits = "".join(format(int(x), f"0{depth}b") for x in r)
+            bits += "0" * (-len(bits) % 8)
+            rows += b"\x00" + int(bits, 2).to_bytes(len(bits) // 8, "big")
+
+        def chunk(k, b):
+            return (struct.pack(">I", len(b)) + k + b
+                    + struct.pack(">I", zlib.crc32(k + b)))
+        h, w = g.shape
+        with open(path, "wb") as f:
+            f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+                ">IIBBBBB", w, h, depth, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+    elif kind in ("rgb16", "rgba16", "gray16"):
+        v = rng.integers(0, 65536, img.shape[:2] + (
+            {"rgb16": 3, "rgba16": 4, "gray16": 1}[kind],), dtype=np.uint16)
+        cv2.imwrite(path, v[..., 0] if kind == "gray16" else v)
+    return path
+
+
+@pytest.mark.parametrize("kind", ["gray8", "gray_alpha", "palette8",
+                                  "palette_trns", "palette4", "gray1",
+                                  "gray2", "gray4", "rgb16", "rgba16",
+                                  "gray16"])
+def test_png_variants_match_cv2(tmp_path, kind):
+    # what a capture pipeline may hold: cv2.imread(IMREAD_COLOR) replicates
+    # gray, looks up the palette, drops alpha and keeps 16-bit samples'
+    # high byte; read_png must give the same pixels
+    cv2 = pytest.importorskip("cv2")
+    img = np.random.default_rng(0).integers(0, 256, (13, 21, 3),
+                                            dtype=np.uint8)
+    path = _png_variant(kind, img, tmp_path)
+    np.testing.assert_array_equal(read_png(path), cv2.imread(path)[..., ::-1])
+
+
 def test_stage_timer_records_on_the_cpu():
     StageTimer.reset()
     for _ in range(3):
@@ -339,20 +403,26 @@ def test_stage_timer_records_on_the_cpu():
 
 
 def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
-    # the card's machine has no cv2: PNGs load through utils/image_io, any
-    # other format raises an error naming the file
+    # the card's machine has no cv2: PNGs and JPEGs load through
+    # utils/image_io, equal to what JAX reads with cv2; a file that is
+    # neither raises an error naming it
+    cv2 = pytest.importorskip("cv2")
     from gsplat_tpu_torch.models.splatter import load_scene_camera_groups, \
         read_image
 
     ref = _j_splat(scene).cameras.images      # JAX reads them with cv2
+    jpg = tmp_path / "photo.jpg"
+    cv2.imwrite(str(jpg), np.asarray(ref[0]).transpose(1, 2, 0)[..., ::-1])
+    want = cv2.cvtColor(cv2.imread(str(jpg)), cv2.COLOR_BGR2RGB)
     monkeypatch.setitem(sys.modules, "cv2", None)
     groups = load_scene_camera_groups(*_paths(scene), 4, device="cpu")
     assert groups[0].images.shape == (9, 3, 48, 64)
     np.testing.assert_array_equal(groups[0].images.numpy(), np.asarray(ref))
-    jpg = tmp_path / "photo.jpg"
-    jpg.write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(RuntimeError, match="photo.jpg.*cv2"):
-        read_image(str(jpg))
+    np.testing.assert_array_equal(read_image(str(jpg)), want)
+    other = tmp_path / "photo.webp"
+    other.write_bytes(b"RIFF\x00\x00\x00\x00WEBP")
+    with pytest.raises(RuntimeError, match="photo.webp.*not a PNG or JPEG"):
+        read_image(str(other))
 
 
 def test_densify_k_guard_grows_k(scene):

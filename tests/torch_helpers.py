@@ -88,6 +88,32 @@ def bbox_boundary_rows(seed, n=20000):
     return geo, cx, cy, *cov, np.ones(n, bool)
 
 
+DIVISION_SITES = ("ground_truth", "adam", "split_scale", "sh_init")
+
+
+def division_rows(site):
+    """The operands of one division the port makes on the card by a Python
+    number (or a CPU scalar) → (x, y): ``x`` a float32 array, ``y`` the
+    divisor as the site has it.  Shared by the CPU test that shows a
+    reciprocal multiply moves these rows
+    (``test_torch_binning.py::test_divisions_differ_under_a_reciprocal``)
+    and the card test that holds the port's site to the CPU bit for bit
+    (``test_torch_cuda.py::test_divisions_on_cuda_match_cpu``)."""
+    rng = np.random.default_rng(7)
+    if site == "ground_truth":           # every 8-bit value, / 255
+        return np.arange(256, dtype=np.float32), 255.0
+    if site == "adam":                   # mu after t steps, / (1 - 0.9^t)
+        t = 3
+        return (rng.normal(0, 1e-3, 4096).astype(np.float32),
+                float(np.float32(1.0) - np.float32(0.9) ** np.float32(t)))
+    if site == "split_scale":            # gaussian scales, / 1.6
+        return rng.uniform(1e-3, 0.3, 3 * 4096).astype(np.float32), 1.6
+    if site == "sh_init":                # color logits, / C0
+        from gsplat_tpu_torch.ops.sh import C0
+        return rng.normal(0, 2.0, 3 * 4096).astype(np.float32), C0
+    raise ValueError(site)
+
+
 def assert_close_cols(a, b, atol_frac, rtol, what=""):
     """|a − b| ≤ atol_frac·colmax(b) + rtol·|b|, column by column: gradients
     of the focal-normalised covariance reach ~1e3 on these scenes while
