@@ -75,7 +75,22 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   bit, with the codec's host seconds beside the CPU's model.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
-  committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's.
+  committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
+- the port's bench as users run it: python -m gsplat_tpu_torch.bench four
+  times (BENCH_RUNS: 506,627 gaussians RGB and SH and 2.4M RGB with every
+  phase, 2.4M SH rendering), each echoed, each exactly one JSON line
+  without an error, ending at its last phase, every number finite, the RGB
+  preset above 40 dB from the f32 image, the burst's PSNR above the
+  untouched table's, and each kernel of its path launched;
+- the bench table at 2.4M gaussians, RGB and SH: view 0's visible
+  gaussians and pairs equal to JAX's (JAX_2M4), and each kernel that the
+  bench's 2.4M runs launch (rasterize_fwd, rasterize_bwd and
+  rasterize_fwd_preset on the RGB table, rasterize_fwd_sh on the SH one)
+  there against its plain version (the bench_2m4 rows of the kernels line);
+- the stage profiler (gsplat_tpu_torch/scripts/profile_trace.py) on the
+  bench scene's RGB train step and on the at-scale step on iteration
+  1000's table: device time by category, the gaps between launches, and
+  the idle time without the profiler.
 
 It also holds the forward kernels' split division (csrc/fast_div.cuh)
 against the compiler's IEEE x / y, bit for bit, on 2^34 operand pairs, and
@@ -193,6 +208,28 @@ DP_TIMED_STEPS, ALL_REDUCE_REPS = 5, 10
 BAND_HEIGHT, BAND_COUNTS = 832, (2, 4)
 TINY_CULL = dict(tile_culling_prob_thresh=1e-6, max_tiles_per_gaussian=64)
 DEVICE = "cuda:0"   # one card
+# the port's bench as users run it (python -m gsplat_tpu_torch.bench): four
+# runs, (label, arguments, the last phase it records); its repeat cap
+# (bench.MAX_REPS_CARD) is the first thing to cut if the call outgrows its
+# time limit
+BENCH_RUNS = (
+    ("506k RGB", ["--phase", "all"], "psnr_burst"),
+    ("506k SH", ["--use_sh_coeff", "1", "--phase", "all"], "psnr_burst"),
+    ("2.4M RGB", ["--n_gauss", "2400000", "--phase", "all"], "psnr_burst"),
+    ("2.4M SH", ["--n_gauss", "2400000", "--use_sh_coeff", "1", "--phase",
+                 "render"], "render"),
+)
+PRESET_PSNR = 40.0      # RGB preset vs f32 (tests/test_fused_pack.py:290)
+# the reference quality config's scale: view 0 of the bench table at 2.4M
+# gaussians, JAX's (n_visible, n_pairs) on the CPU
+# (tests/torch_pair_count_check.py --n_gauss 2400000, where the port on the
+# CPU counts the same).  JAX's tune_budgets on the TPU counted 4,763,470
+# pairs and 2,013,472 visible (runs/r5b_render_2m4.log; it reads camera 0,
+# gsplat_tpu/synthetic.py:139): one fewer, a gaussian one ulp inside the
+# frustum's y edge (#736264 or #2222183, y/z = 0.50399995 against 0.504,
+# no tile) that the TPU's division puts on the edge
+N_2M4, JAX_2M4, TPU_2M4_VISIBLE = 2_400_000, (2_013_473, 4_763_470), \
+    2_013_472
 _FWD, _BWD = "gsplat_tpu_torch/csrc/rasterize_fwd.cu", \
     "gsplat_tpu_torch/csrc/rasterize_bwd.cu"
 KERNELS = {         # entry point → (source, the TPU kernel it replaces)
@@ -1144,12 +1181,13 @@ def heaviest_view(params, live, views, grid, cfg):
 
 
 def at_scale_kernels(rz, label, params, live, view, grid, cfg, seed,
-                     backward=True):
+                     backward=True, preset=False):
     """One view of an at-scale table: the forward kernel (and the backward,
-    with ``backward``) against its plain version on the same pairs, the
-    pairs a tile, and each kernel alone against its plain version and its
-    bound.  ``view`` is (rotation, translation, SH vectors) → {kernel:
-    {n_pairs, max_abs_err, ms, plain_ms, bound_ms, bound_by}}."""
+    with ``backward``; the RGB preset's forward on the bf16 preset pairs,
+    with ``preset``) against its plain version on the same pairs, the pairs
+    a tile, and each kernel alone against its plain version and its bound.
+    ``view`` is (rotation, translation, SH vectors) → {kernel: {n_pairs,
+    max_abs_err, ms, plain_ms, bound_ms, bound_by}}."""
     import torch
 
     from gsplat_tpu_torch.models.splatter import make_specs
@@ -1197,6 +1235,29 @@ def at_scale_kernels(rz, label, params, live, view, grid, cfg, seed,
                          *args, out, go, rspec, shv),
                          lambda: rz.composite_tiles_bwd_torch(
                          *args, out, go, rspec, shv))}
+    if preset:
+        check(shv is None, f"{label}: the preset check is RGB only")
+        pre = "rasterize_fwd_preset"
+        with torch.no_grad():
+            _, mid = staged_frame(params, live, rot, tran, grid, cfg, bspec,
+                                  rspec, rz.composite_tiles_preset,
+                                  preset=True)
+            pp, out_p = mid["pairs"], mid["out"]
+            plain = rz.composite_tiles_preset_torch(pp.geom, pp.color,
+                                                    pp.tile_start, rspec)
+        torch.cuda.synchronize()
+        n_pix_p = evaluations(rz, pp.geom, pp.tile_start, rspec,
+                              relative=True)
+        d_p, _ = fwd_check(label, pre, out_p, plain, n_pix_p)
+        del plain, mid
+        p_args = (pp.geom, pp.color, pp.tile_start)
+        rows[pre] = {"n_pairs": n_pairs, "max_abs_err": d_p,
+                     "bound": kernel_bound(pre, int(n_pix_p.sum()),
+                                           (*p_args, out_p)),
+                     "fns": (lambda: rz.composite_tiles_preset(*p_args,
+                                                               rspec),
+                             lambda: rz.composite_tiles_preset_torch(
+                                 *p_args, rspec))}
     with torch.no_grad():
         for name, row in rows.items():
             kernel, plain = row.pop("fns")
@@ -1435,6 +1496,14 @@ def at_scale_path(rz, dev):
                    [int(c) for c in tr.train_split[:8]], tr.splat.cfg,
                    tr.tcfg, bspec, rspec, tr.lrs_at(AT_SCALE_ITERS),
                    rz.composite_tiles)
+        phase(f"at-scale profile: the train step on iteration "
+              f"{AT_SCALE_ITERS - 1}'s table (torch.profiler)")
+        t0 = time.perf_counter()
+        step, cam = tr._train_step_for(0), int(tr.train_split[0])
+        lrs = tr.lrs_at(AT_SCALE_ITERS)
+        profile_step(f"at-scale RGB train step, camera {cam}",
+                     lambda: step(tr.state, cam, lrs))
+        print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
 
         phase("at-scale resume: load_full of the last full_state.npz into a "
               "fresh Trainer")
@@ -1502,24 +1571,6 @@ def at_scale_path(rz, dev):
     return (build, rgb, sh, jpeg), scale_rows
 
 
-def cpu_model():
-    """The host CPU as /proc/cpuinfo names it: vendor, family, model and
-    model name (a virtual machine may say "unknown" there), and the cores
-    this process sees."""
-    fields = {}
-    with contextlib.suppress(OSError):
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                key, _, value = line.partition(":")
-                key = key.strip()
-                if not key:
-                    break                      # the first processor only
-                fields.setdefault(key, value.strip())
-    return (f"{fields.get('vendor_id', '?')} family "
-            f"{fields.get('cpu family', '?')} model {fields.get('model', '?')}"
-            f" ({fields.get('model name', '?')}), {os.cpu_count()} cores")
-
-
 def jpeg_capture_path(rz, scene, root, png_log):
     """The real-capture phase on garden_hard's 56 views: (a) each PNG view
     encoded with write_jpeg into a JPEG scene (images_4/img_XXX.JPG, the
@@ -1533,12 +1584,13 @@ def jpeg_capture_path(rz, scene, root, png_log):
     byte.  → the run's kernel launches."""
     import torch
 
+    from gsplat_tpu_torch.bench import host_cpu
     from gsplat_tpu_torch.config import SplatConfig
     from gsplat_tpu_torch.models.splatter import Splatter
     from gsplat_tpu_torch.utils.image_io import read_jpeg, read_png, \
         write_jpeg
 
-    host = cpu_model()
+    host = host_cpu()
     phase(f"real capture (JPEG): garden_hard's views through write_jpeg, "
           f"read_jpeg, Splatter, run_garden_7k and downsample (host: {host})")
     torch.cuda.synchronize()
@@ -1667,6 +1719,141 @@ def jpeg_capture_path(rz, scene, root, png_log):
           f"codec fixtures differ: {got}")
     check(dict(rz.LAUNCHES) == launches, "launches after the JPEG leg")
     return launches
+
+
+def finite(x):
+    """Every number in a JSON value is finite."""
+    if isinstance(x, dict):
+        return all(finite(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(finite(v) for v in x)
+    if isinstance(x, (int, float)) and not isinstance(x, bool):
+        return bool(np.isfinite(x))
+    return True
+
+
+def bench_path():
+    """The port's bench as users run it: ``python -m gsplat_tpu_torch.bench``
+    once for each of BENCH_RUNS, on the card.  Each prints exactly one JSON
+    line without an ``error`` key, ends at its last phase, with every number
+    finite, the RGB preset above PRESET_PSNR from the f32 image and the
+    burst's PSNR above the untouched table's; each kernel of its path
+    launched → {label: (the JSON line, seconds)}."""
+    rows = {}
+    for label, argv, last in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gsplat_tpu_torch.bench", "--device",
+             DEVICE, *argv],
+            capture_output=True, text=True, timeout=900)
+        sec = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+        for ln in proc.stderr.splitlines():
+            if ln.startswith("#"):
+                print(f"  bench {label} {ln}", flush=True)
+        print(f"  bench {label} ({' '.join(argv)}), {sec:.1f} s: "
+              f"{lines[-1] if lines else '(no line)'}", flush=True)
+        if proc.returncode or len(lines) != 1:
+            print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+        check(proc.returncode == 0, f"bench {label}: rc {proc.returncode}")
+        check(len(lines) == 1, f"bench {label}: {len(lines)} stdout lines")
+        out = json.loads(lines[0])
+        check("error" not in out, f"bench {label}: {out.get('error')}")
+        check(out["phase_done"] == last,
+              f"bench {label}: phase_done {out['phase_done']} != {last}")
+        check(finite(out), f"bench {label}: a number is not finite")
+        sh = out["color"] == "sh27"
+        if not sh and last != "train":
+            check(out["preset_vs_f32_psnr"] > PRESET_PSNR,
+                  f"bench {label}: preset {out['preset_vs_f32_psnr']} dB")
+        if last == "psnr_burst":
+            check(out["psnr_after_burst"] > out["psnr_before_burst"],
+                  f"bench {label}: the burst's PSNR did not rise")
+        want = ["rasterize_fwd_sh" if sh else "rasterize_fwd"]
+        if not sh:
+            want.append("rasterize_fwd_preset")
+        if last == "psnr_burst":
+            want.append("rasterize_bwd_sh" if sh else "rasterize_bwd")
+        check(all(out["launches"].get(k, 0) > 0 for k in want),
+              f"bench {label}: launches {out['launches']}, want {want}")
+        rows[label] = (out, sec)
+    return rows
+
+
+def bench_2m4_view0(rz, dev):
+    """View 0 of the bench table at 2.4M gaussians, RGB then SH, each table
+    freed before the next: its visible gaussians and pairs equal to JAX's;
+    on the RGB table rasterize_fwd, rasterize_bwd and rasterize_fwd_preset
+    (on the preset's bf16 pairs), on the SH table rasterize_fwd_sh (the
+    bench's 2.4M SH run only renders), each against its plain version there
+    (at_scale_kernels: per-pixel and per-pair bounds, pairs a tile, times
+    against plain and bound) → their rows."""
+    import torch
+
+    from gsplat_tpu_torch.config import SplatConfig
+    from gsplat_tpu_torch.models.splatter import make_specs, render_padded
+    from gsplat_tpu_torch.synthetic import synthetic_cameras, synthetic_table
+
+    cams = synthetic_cameras(N_CAMS, WIDTH, HEIGHT, FOCAL, with_images=False,
+                             device=dev)
+    grid = cams["grid"]
+    view = (cams["w2c_rot"][0], cams["w2c_tran"][0], cams["sh_vecs"][0])
+    rows = {}
+    for use_sh in (False, True):
+        label = f"2.4M {'SH' if use_sh else 'RGB'} view 0"
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        table = synthetic_table(N_2M4, focal=FOCAL, scale_px=2.5,
+                                use_sh=use_sh, frustum=(0.85, 0.55),
+                                device=dev)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        cfg = SplatConfig(use_sh_coeff=use_sh)
+        bspec, rspec = make_specs(grid, cfg)
+        params, live = table.params(), table.live
+        with torch.no_grad():
+            _, aux = render_padded(params, live, view[0], view[1], grid, cfg,
+                                   bspec, rspec, view[2])
+        counts = (int(aux["n_visible"]), int(aux["n_pairs"]))
+        print(f"  {label}: {N_2M4} gaussians (capacity {table.capacity}), "
+              f"the table built on the host in {built:.2f} s; n_visible "
+              f"{counts[0]} n_pairs {counts[1]} n_clipped "
+              f"{int(aux['n_clipped'])} (JAX on the CPU: n_visible "
+              f"{JAX_2M4[0]} n_pairs {JAX_2M4[1]}; on the TPU n_visible "
+              f"{TPU_2M4_VISIBLE}, runs/r5b_render_2m4.log)", flush=True)
+        check(counts == JAX_2M4, f"{label}: {counts} != JAX's {JAX_2M4}")
+        rows.update(at_scale_kernels(rz, label, params, live, view, grid,
+                                     cfg, seed=8, backward=not use_sh,
+                                     preset=not use_sh))
+        print(f"  {label}: peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+              flush=True)
+        del table, params, live, aux
+        torch.cuda.empty_cache()
+    return rows
+
+
+def profile_step(label, fn):
+    """``profile_trace.trace_and_attribute`` on ``fn`` (3 calls after a
+    warm-up): the device time by category, the host gaps between launches,
+    the top ops, and the categories plus the gaps checked against the
+    traced window → the attribution."""
+    from gsplat_tpu_torch.scripts import profile_trace as pt
+
+    res = pt.trace_and_attribute(fn, device=DEVICE)
+    pt.report(res, label, top_ops=15, log=lambda m: print("  " + m))
+    total = sum(res["categories"].values()) + res["gaps_ms"]
+    check(abs(total - res["window_ms"]) <= 1e-6 * res["window_ms"],
+          f"{label}: categories and gaps {total} != window "
+          f"{res['window_ms']}")
+    check(any(k.startswith("kernel ") for k in res["categories"]),
+          f"{label}: no hand kernel in the trace")
+    print("  profile " + json.dumps({
+        "label": label, "reps": res["reps"],
+        "untraced_ms": res["untraced_ms"], "window_ms": res["window_ms"],
+        "gaps_ms": res["gaps_ms"], "categories": res["categories"]}),
+        flush=True)
+    return res
 
 
 def bits(x):
@@ -2868,6 +3055,33 @@ def main() -> int:
             note_err(name, row["max_abs_err"])
             at_scale[name][leg] = row
 
+    # ---- 13. the bench, the 2.4M scale, the profiler ---------------------
+    torch.cuda.empty_cache()
+    phase(f"bench: python -m gsplat_tpu_torch.bench, {len(BENCH_RUNS)} runs")
+    t0 = time.perf_counter()
+    bench = bench_path()
+    print(f"  bench phase {time.perf_counter() - t0:.1f} s", flush=True)
+    phase(f"bench scale {N_2M4}: view 0 against JAX, its kernels vs plain")
+    t0 = time.perf_counter()
+    reset_launches(rz)
+    rows_2m4 = bench_2m4_view0(rz, dev)
+    for name, row in rows_2m4.items():
+        note_err(name, row["max_abs_err"])
+    torch.cuda.empty_cache()
+    print(f"  2.4M phase {time.perf_counter() - t0:.1f} s", flush=True)
+    phase("profile: the bench scene's RGB train step, view 0 "
+          "(torch.profiler)")
+    t0 = time.perf_counter()
+    from gsplat_tpu_torch.bench import build_scene
+    from gsplat_tpu_torch.scripts import profile_trace
+    scene = build_scene(N_GAUSS, WIDTH, HEIGHT, FOCAL, profile_trace.M_CAMS,
+                        False, dev)
+    _, bench_step = profile_trace.view0_fns(*scene)
+    profile_step("bench scene RGB train step, view 0", bench_step)
+    del scene, bench_step
+    torch.cuda.empty_cache()
+    print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
+
     paths = {"RGB serving": serve, "RGB training": train,
              "SH serving": sh_serve, "SH training": sh_train,
              "SH preset serving": sh_preset, "viewer f32": viewer_f32,
@@ -2876,7 +3090,10 @@ def main() -> int:
              "Trainer": trainer_launches, "CLI": cli,
              "at-scale scene build": scene_build,
              "at-scale RGB run": at_scale_rgb, "at-scale SH run": at_scale_sh,
-             "at-scale JPEG run": at_scale_jpeg}
+             "at-scale JPEG run": at_scale_jpeg,
+             **{f"bench {label}": {name: out["launches"].get(name, 0)
+                                   for name in KERNELS}
+                for label, (out, _) in bench.items()}}
     print("launches by path: " + json.dumps(paths), flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": repl,
@@ -2889,7 +3106,9 @@ def main() -> int:
         # no single PyTorch call composites tiles
         "library_ms": None,
         # the same, on the heaviest view of each at-scale leg's table
-        "at_scale": at_scale[name]}
+        "at_scale": at_scale[name],
+        # the same, at view 0 of the bench table at 2.4M gaussians
+        "bench_2m4": rows_2m4.get(name)}
         for name, (src, repl) in KERNELS.items()]}), flush=True)
     print(smi, flush=True)              # card name, power limit
     print(json.dumps({"ok": True, "device": {

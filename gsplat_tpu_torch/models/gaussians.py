@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gsplat_tpu_torch.ops.binning import div_rn
+from gsplat_tpu_torch.ops.binning import div_rn, sqrt_rn
 from gsplat_tpu_torch.ops.projection import activate_scale
 from gsplat_tpu_torch.ops.sh import initialize_sh
 from gsplat_tpu_torch.utils.so3 import inverse_sigmoid, quat_to_rotmat
@@ -152,7 +152,7 @@ def adaptive_control(table: GaussianTable, grad: torch.Tensor,
     """
     cap = table.capacity
     s_act = activate_scale(table.scale, scale_activation)
-    scale_norm = torch.sqrt((s_act * s_act).sum(dim=-1))
+    scale_norm = sqrt_rn((s_act * s_act).sum(dim=-1))
 
     # 1. delete: low opacity or oversized
     keep = table.live & (table.opa > inverse_sigmoid(0.02)) \
@@ -172,7 +172,7 @@ def adaptive_control(table: GaussianTable, grad: torch.Tensor,
     else:
         new_scale = torch.where(split[:, None], table.scale - math.log(1.6),
                                 table.scale)
-    q = table.quat / (torch.sqrt((table.quat * table.quat).sum(
+    q = table.quat / (sqrt_rn((table.quat * table.quat).sum(
         dim=-1, keepdim=True)) + 1e-12)
     rs = quat_to_rotmat(q) * s_act[:, None, :]
     # (R S) eps written out in f32, so no matmul setting (TF32) reaches it

@@ -100,15 +100,34 @@ def div_rn(x: torch.Tensor, y: float) -> torch.Tensor:
     return x / torch.full((), y, dtype=x.dtype, device=x.device)
 
 
+class _SqrtRN(torch.autograd.Function):
+    """The correctly rounded root with JAX's gradient, ``g * (0.5 / ans)``
+    (``sqrt_p``'s JVP), where PyTorch's own rule rounds ``g / (2 ans)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        if x.device.type == "cuda":
+            ans = torch.sqrt(x)
+        else:
+            ans = torch.sqrt(x.double()).to(x.dtype)
+        ctx.save_for_backward(ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, g):
+        (ans,) = ctx.saved_tensors
+        return g * (torch.full((), 0.5, dtype=ans.dtype,
+                               device=ans.device) / ans)
+
+
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """``sqrt(x)`` rounded as one IEEE square root, on every device.
 
     PyTorch's f32 square root on the CPU rounds ~0.7% of values one ulp
     away from the correctly rounded root that CUDA, numpy and JAX give;
-    there the f64 root, rounded to f32, is the f32 root."""
-    if x.device.type == "cuda":
-        return torch.sqrt(x)
-    return torch.sqrt(x.double()).to(x.dtype)
+    there the f64 root, rounded to f32, is the f32 root.  Every square
+    root of the port goes through here."""
+    return _SqrtRN.apply(x)
 
 
 def _tile_bbox_rows(spec: BinningSpec, cx, cy, a, b, c, d, visible):
@@ -123,8 +142,8 @@ def _tile_bbox_rows(spec: BinningSpec, cx, cy, a, b, c, d, visible):
     det_ok = det > 0
     if spec.method in ("prob2", "prob"):
         log_t = -2.0 * math.log(spec.thresh)
-        shift_x = torch.sqrt(torch.clamp_min(a * log_t, 0.0))
-        shift_y = torch.sqrt(torch.clamp_min(d * log_t, 0.0))
+        shift_x = sqrt_rn(torch.clamp_min(a * log_t, 0.0))
+        shift_y = sqrt_rn(torch.clamp_min(d * log_t, 0.0))
     else:  # "dist"
         r = math.sqrt(spec.thresh)
         shift_x = torch.full_like(a, r)

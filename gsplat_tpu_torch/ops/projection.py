@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from gsplat_tpu_torch.ops.binning import sqrt_rn
+
 EPS = 1e-4  # reference splatter.py:19
 
 
@@ -72,6 +74,12 @@ class ProjectedGaussians(NamedTuple):
     visible: torch.Tensor  # (N,)   bool frustum/near mask
 
 
+def normalize_quat(quat: torch.Tensor) -> torch.Tensor:
+    """``quat / ‖quat‖`` with the correctly rounded f32 norm and JAX's
+    gradient through it (``gsplat_tpu/ops/projection.py:113``)."""
+    return quat / sqrt_rn((quat * quat).sum(dim=-1, keepdim=True))
+
+
 def project_gaussians(
     pos: torch.Tensor,
     quat: torch.Tensor,
@@ -88,7 +96,7 @@ def project_gaussians(
     Callers pass raw parameters: quaternion normalization and the scale
     activation happen here (reference splatter.py:519-524).
     """
-    quat = quat / torch.sqrt((quat * quat).sum(dim=-1, keepdim=True))
+    quat = normalize_quat(quat)
     s = activate_scale(scale, scale_activation)
 
     p_c = world_to_camera(pos, w2c_rot, w2c_tran)
@@ -98,7 +106,7 @@ def project_gaussians(
 
     xi = x / zs
     yi = y / zs
-    norm = torch.sqrt(x * x + y * y + z * z)
+    norm = sqrt_rn(x * x + y * y + z * z)
     visible = near_ok & (torch.abs(xi) < half_width) \
         & (torch.abs(yi) < half_height)
 

@@ -51,7 +51,8 @@ from typing import NamedTuple
 
 import torch
 
-from gsplat_tpu_torch.ops.binning import PackedPairs, PresetPairs, div_rn
+from gsplat_tpu_torch.ops.binning import PackedPairs, PresetPairs, div_rn, \
+    sqrt_rn
 from gsplat_tpu_torch.ops.cuda_build import load_kernel_library
 from gsplat_tpu_torch.ops.sh import SH_DIM, sh_basis
 
@@ -135,8 +136,8 @@ def _sh_pixel_basis(spec: RasterSpec, tiles: torch.Tensor,
     fx, fy = _tile_pixel_ids(spec, tiles)
     comps = [sh_vecs[1, k] + fx * sh_vecs[2, k] + fy * sh_vecs[3, k]
              - sh_vecs[0, k] for k in range(3)]
-    n = torch.sqrt(comps[0] * comps[0] + comps[1] * comps[1]
-                   + comps[2] * comps[2])
+    n = sqrt_rn(comps[0] * comps[0] + comps[1] * comps[1]
+                + comps[2] * comps[2])
     inv = 1.0 / (n + 1e-7)                                        # cu:858
     dirs = torch.stack([c * inv for c in comps], dim=-1)          # (A, Px, 3)
     return sh_basis(dirs).permute(0, 2, 1)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from gsplat_tpu_torch.ops.binning import sqrt_rn
 from gsplat_tpu_torch.ops.sh import sh_basis
 
 STOP_THRESH = 1e-4  # gaussian.cu:906
@@ -51,7 +52,7 @@ def rasterize_oracle(mean2d, cov2d, opa, color, h: int, w: int,
                           device=mean2d.device)[:, None, None]
         d = (sh_vecs["lefttop"] + ix * sh_vecs["dx"] + iy * sh_vecs["dy"]
              - sh_vecs["rays_o"])
-        d = d / (torch.linalg.norm(d, dim=-1, keepdim=True) + 1e-7)
+        d = d / (sqrt_rn((d * d).sum(dim=-1, keepdim=True)) + 1e-7)
         shb = sh_basis(d)                                    # (h, w, 9)
     accum = torch.ones((h, w), dtype=torch.float32, device=mean2d.device)
     col = torch.zeros((3, h, w), dtype=torch.float32, device=mean2d.device)

@@ -39,12 +39,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import tempfile
 import time
 
 import torch
 
+from gsplat_tpu_torch.bench import device_name
 from gsplat_tpu_torch.models.splatter import Splatter
 from gsplat_tpu_torch.scripts.make_synth_scene import PRESETS
 from gsplat_tpu_torch.scripts.make_synth_scene import main as make_scene
@@ -91,22 +91,6 @@ def build_argparser():
                     help="device of the scene build and the training (cuda, "
                          "cuda:N, or cpu)")
     return ap
-
-
-def device_name(device) -> str:
-    """The card's name and power limit as nvidia-smi prints them, or the
-    device type where there is no card."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        return dev.type
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "-i", str(idx), "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip()
-    except (OSError, subprocess.SubprocessError):
-        return torch.cuda.get_device_name(idx) + ", power limit unknown"
 
 
 def main(argv=None):

@@ -31,6 +31,7 @@ import torch
 
 from gsplat_tpu_torch.models.camera import TileGrid, ray_info
 from gsplat_tpu_torch.models.splatter import make_specs, render_cropped
+from gsplat_tpu_torch.ops.binning import sqrt_rn
 from gsplat_tpu_torch.ops.projection import world_to_camera
 from gsplat_tpu_torch.ops.sh import SH_DIM
 from gsplat_tpu_torch.utils.so3 import quat_to_rotmat_np
@@ -116,7 +117,7 @@ def render_offscreen(splat, w2c: np.ndarray, width: int, height: int,
         if near is not None:
             live = live & (p_c[:, 2] > near)
         if far is not None:
-            live = live & (torch.sqrt((p_c * p_c).sum(dim=-1)) < far)
+            live = live & (sqrt_rn((p_c * p_c).sum(dim=-1)) < far)
     img, _ = render_cropped(params, live, rot, tran, grid, cfg, bspec, rspec,
                             shv, preset)
     if device_out:

@@ -694,3 +694,27 @@ def test_bands_on_cuda_match_the_full_render(cuda):
     full, _ = render_padded(*args, c.grid, splat.cfg, bspec, rspec)
     assert bands.shape == full.shape == (3, 128, 160)
     torch.testing.assert_close(bands, full, atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bench_runs_on_the_card(cuda, capsys, monkeypatch):
+    # python -m gsplat_tpu_torch.bench at a small size: one JSON line, no
+    # error, every phase, the kernels of its path launched
+    import json
+
+    from gsplat_tpu_torch import bench
+
+    monkeypatch.setattr(bench, "CARD", dict(
+        n_gauss=20_000, w=320, h=240, focal=260.0, m_cams=4, k_small=2,
+        k_big=4))
+    monkeypatch.setattr(bench, "MAX_REPS_CARD", 3)
+    assert bench.main(["--device", "cuda"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert "error" not in out and out["phase_done"] == "psnr_burst"
+    assert out["backend"] == "cuda" and out["value"] > 0
+    assert out["preset_vs_f32_psnr"] > 40
+    assert out["psnr_after_burst"] > out["psnr_before_burst"]
+    for name in ("rasterize_fwd", "rasterize_fwd_preset", "rasterize_bwd"):
+        assert out["launches"].get(name, 0) > 0, name

@@ -11,9 +11,12 @@ cover or visibility differs, with the projected values that decide it.  On
 the H100 the port counts 1,002,681 pairs there and the TPU 1,002,683
 (``BENCH_r05.json``).  With ``--device cuda`` (no jax needed: the card's
 machine has none) it holds the port on the card against the port on the
-CPU instead.  Not a pytest test (~15 s, ~3 GB):
+CPU instead.  ``--n_gauss`` sets the table's size (the reference's
+quality-config scale is 2,400,000: JAX's ``tune_budgets`` counted 2,013,472
+visible and 4,763,470 pairs there, ``runs/r5b_render_2m4.log``).  Not a
+pytest test (~15 s, ~3 GB at 506,627; ~15 GB at 2.4M):
 
-    python tests/torch_pair_count_check.py [--device cuda]
+    python tests/torch_pair_count_check.py [--device cuda] [--n_gauss N]
 """
 
 import os
@@ -36,7 +39,7 @@ from gsplat_tpu_torch.ops.projection import project_gaussians  # noqa: E402
 N, W, H, FOCAL, CAMS = 506_627, 1297, 840, 1000.0, 48
 
 
-def jax_cover(kw):
+def jax_cover(kw, n=N):
     """(visible, cover, mean2d, cov2d) of view 0 through the JAX package on
     the CPU."""
     import jax
@@ -50,7 +53,7 @@ def jax_cover(kw):
     from gsplat_tpu.ops import binning as jbin
     from gsplat_tpu.ops.projection import project_gaussians as j_project
 
-    jt = jsyn.synthetic_table(N, focal=FOCAL, scale_px=2.5,
+    jt = jsyn.synthetic_table(n, focal=FOCAL, scale_px=2.5,
                               frustum=(0.85, 0.55))
     jc = jsyn.synthetic_cameras(CAMS, W, H, FOCAL, with_images=False)
     jbspec, _ = j_make_specs(jc["grid"], jt.capacity, JCfg(), 3)
@@ -64,10 +67,10 @@ def jax_cover(kw):
     return vis, np.asarray(rw, np.int64) * np.asarray(rh, np.int64), m, cv
 
 
-def port_cover(kw, device):
+def port_cover(kw, device, n=N):
     """(visible, cover, mean2d, cov2d) of view 0 through the port on
     ``device``."""
-    tt = tsyn.synthetic_table(N, focal=FOCAL, scale_px=2.5,
+    tt = tsyn.synthetic_table(n, focal=FOCAL, scale_px=2.5,
                               frustum=(0.85, 0.55), device=device)
     tc = tsyn.synthetic_cameras(CAMS, W, H, FOCAL, with_images=False,
                                 device=device)
@@ -88,6 +91,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cpu",
                     help="cpu: JAX vs the port; cuda: the port on the card "
                          "vs the port on the CPU")
+    ap.add_argument("--n_gauss", type=int, default=N)
     a = ap.parse_args(argv)
     torch.set_num_threads(4)
     cfg = SplatConfig()
@@ -96,9 +100,11 @@ def main(argv=None):
               half_height=H * 1.2 / 2 / FOCAL,
               scale_activation=cfg.scale_activation)
     ref_name = "jax (CPU)" if a.device == "cpu" else "port (CPU)"
-    ref = jax_cover(kw) if a.device == "cpu" else port_cover(kw, "cpu")
-    out = port_cover(kw, a.device)
+    ref = jax_cover(kw, a.n_gauss) if a.device == "cpu" \
+        else port_cover(kw, "cpu", a.n_gauss)
+    out = port_cover(kw, a.device, a.n_gauss)
     name = f"port ({a.device})"
+    print(f"{a.n_gauss:,} gaussians, view 0")
     for n, (vis, cover, _, _) in ((ref_name, ref), (name, out)):
         print(f"{n:11s}: n_visible {int(vis.sum()):,}  pairs "
               f"{int(np.minimum(cover, K).sum()):,}  (K = {K})")
