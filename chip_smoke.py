@@ -8,8 +8,9 @@ Run from the repository root, with no arguments:
 It builds the rasterizer kernels (gsplat_tpu_torch/csrc/rasterize_fwd.cu and
 rasterize_bwd.cu, one nvcc each, in parallel, for sm_90a into
 gsplat_tpu_torch/_build/; beside them the native COLMAP reader,
-csrc/colmap_reader.cpp, and the JPEG codec, csrc/jpeg_codec.cpp, with the
-system C++ compiler), six entry points:
+csrc/colmap_reader.cpp, the JPEG codec, csrc/jpeg_codec.cpp, and the TIFF
+strip codecs, csrc/tiff_codec.cpp, with the system C++ compiler), six entry
+points:
 the f32 RGB forward and backward, the SH forward and backward (27
 coefficients) and the bf16 render preset's forward, RGB and SH.  It holds
 each against its plain PyTorch version on a tiny input, on a small scene (a
@@ -72,7 +73,17 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   l1 within a stated bound of the PNG run's (JPEG_L1_DRIFT), the image
   pyramid (python -m gsplat_tpu_torch.downsample --factor 2: 56 JPEGs at
   648x420) and the committed codec fixtures of tests/torch_jpeg/ bit for
-  bit, with the codec's host seconds beside the CPU's model.
+  bit, with the codec's host seconds beside the CPU's model; then the other
+  formats (image_io's TIFF, BMP and PNM readers and writers): the 56 views
+  through write_tiff into a TIFF copy of the scene and a few through
+  write_bmp and write_pnm, each format's encode and decode seconds a view
+  (and a committed arithmetic-coded JPEG's), the TIFF scene through
+  Splatter with every ground-truth tensor equal to the PNG scene's,
+  run_garden_7k over iterations 0-200 from the PNG scene and from the TIFF
+  scene with every logged l1, PSNR, pair count and TEST line equal, the
+  pyramid over the TIFFs equal to the PNGs', and the committed fixtures of
+  tests/torch_images/ (arithmetic, lossless, CMYK and cut-short JPEG, Adam7
+  PNG, TIFF, BMP, PNM) bit for bit.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -1566,9 +1577,10 @@ def at_scale_path(rz, dev):
         del tr, views
         torch.cuda.empty_cache()
         jpeg = jpeg_capture_path(rz, scene, root, png_log)
+        png_leg, tiff_leg = image_formats_path(rz, scene, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return (build, rgb, sh, jpeg), scale_rows
+    return (build, rgb, sh, jpeg, png_leg, tiff_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -1719,6 +1731,210 @@ def jpeg_capture_path(rz, scene, root, png_log):
           f"codec fixtures differ: {got}")
     check(dict(rz.LAUNCHES) == launches, "launches after the JPEG leg")
     return launches
+
+
+# The other formats' leg: BMP and PNM copies of this many views (TIFF: all)
+FORMAT_VIEWS = 6
+# a committed 1297x840 arithmetic-coded JPEG (progressive, restarts), for
+# the decode seconds of that kind on the card's host
+ARITH_VIEW = "tests/torch_images/timing_arith_1297x840.jpg"
+
+
+def _trainer_lines(log):
+    """A run_garden_7k log's lines without their clocks: each ``iter`` line's
+    iteration, l1, PSNR and pairs, each ``TEST`` line's PSNR and SSIM."""
+    out = []
+    for line in log.splitlines():
+        if line.startswith("iter "):
+            out.append(" ".join(line.split()[:5]))
+        elif line.startswith("TEST "):
+            out.append(" ".join(line.split()[:4]))
+    return out
+
+
+def image_formats_path(rz, scene, root):
+    """The real-capture phase's other formats (utils/image_io beyond PNG and
+    JPEG) on garden_hard's 56 views: (a) each PNG view through write_tiff
+    into a TIFF scene (images_4/img_XXX.tif and a sparse copy whose
+    images.bin names them), FORMAT_VIEWS through write_bmp and write_pnm,
+    each decoded back equal to its PNG, every format's encode and decode
+    seconds a view timed, and the committed arithmetic-coded view decoded;
+    (b) the PNG and the TIFF scene through Splatter on the card, every
+    ground-truth tensor equal; (c) run_garden_7k over iterations
+    0..JPEG_ITERS - 1 of the RGB schedule from each scene, the logged l1,
+    PSNR, pair and TEST lines, the per-step pair counts and the final
+    PSNR/SSIM equal (the input is lossless and the step deterministic);
+    (d) the pyramid (python -m gsplat_tpu_torch.downsample --factor 2) over
+    the TIFFs, equal to the PNGs' (downsample_area); (e) the committed
+    fixtures of tests/torch_images/ bit for bit and byte for byte.
+    → (the PNG leg's launches, the TIFF leg's)."""
+    import torch
+
+    from gsplat_tpu_torch.bench import host_cpu
+    from gsplat_tpu_torch.config import SplatConfig
+    from gsplat_tpu_torch.downsample import downsample_area
+    from gsplat_tpu_torch.models.splatter import Splatter
+    from gsplat_tpu_torch.utils import image_io
+
+    host = host_cpu()
+    phase(f"real capture (TIFF, BMP, PNM): garden_hard's views through "
+          f"write_tiff, read_tiff, Splatter, run_garden_7k and downsample "
+          f"(host: {host})")
+    torch.cuda.synchronize()
+    reset_launches(rz)
+    tscene = os.path.join(root, "scene_tiff")
+    src = os.path.join(scene, "images_4")
+    dst = os.path.join(tscene, "images_4")
+    sparse = os.path.join(tscene, "sparse", "0")
+    other = os.path.join(root, "bmp_pnm")
+    for d in (dst, sparse, other):
+        os.makedirs(d)
+    for name in ("cameras.bin", "points3D.bin"):
+        shutil.copyfile(os.path.join(scene, "sparse", "0", name),
+                        os.path.join(sparse, name))
+    with open(os.path.join(scene, "sparse", "0", "images.bin"), "rb") as f:
+        images_bin = f.read()
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(images_bin.replace(b".png\x00", b".tif\x00"))
+    pngs = sorted(n for n in os.listdir(src) if n.endswith(".png"))
+    check(len(pngs) == 56, f"{len(pngs)} PNG views")
+    # (a) each format written and read back, each view timed alone
+    secs = {k: [] for k in ("png read", "tiff write", "tiff read",
+                            "bmp write", "bmp read", "ppm write", "ppm read")}
+    views = {}
+    for i, name in enumerate(pngs):
+        t0 = time.perf_counter()
+        img = image_io.read_png(os.path.join(src, name))
+        secs["png read"].append(time.perf_counter() - t0)
+        views[name] = img
+        formats = [("tiff", os.path.join(dst, name[:-4] + ".tif"),
+                    image_io.write_tiff)]
+        if i < FORMAT_VIEWS:
+            formats += [("bmp", os.path.join(other, name[:-4] + ".bmp"),
+                         image_io.write_bmp),
+                        ("ppm", os.path.join(other, name[:-4] + ".ppm"),
+                         image_io.write_pnm)]
+        for kind, path, writer in formats:
+            t0 = time.perf_counter()
+            writer(path, img)
+            secs[f"{kind} write"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            back = image_io.read_image(path)
+            secs[f"{kind} read"].append(time.perf_counter() - t0)
+            check(back.shape == img.shape and np.array_equal(back, img),
+                  f"{path}: read back differs from its PNG")
+    h, w = img.shape[:2]
+    arith = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         ARITH_VIEW)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dec = image_io.read_image(arith)
+        secs.setdefault("arithmetic JPEG read", []).append(
+            time.perf_counter() - t0)
+    check(dec.shape == (840, 1297, 3), f"{ARITH_VIEW}: {dec.shape}")
+    size = sum(os.path.getsize(os.path.join(dst, n)) for n in os.listdir(dst))
+    print(f"  {len(views)} views at {w}x{h}, {size / 1e6:.2f} MB of LZW "
+          f"TIFF; each read back equal to its PNG.  Seconds a view (mean, "
+          f"min, max; host: {host}):", flush=True)
+    for k, v in secs.items():
+        print(f"    {k:22s} {np.mean(v):.4f} {min(v):.4f} {max(v):.4f} "
+              f"({len(v)} views)", flush=True)
+    print("image format seconds: " + json.dumps(
+        {k: float(np.mean(v)) for k, v in secs.items()}), flush=True)
+    # (b) the two scenes on the card
+    cams = {}
+    for kind, (sp, im) in {"png": (os.path.join(scene, "sparse", "0"), src),
+                           "tiff": (sparse, dst)}.items():
+        t0 = time.perf_counter()
+        splat = Splatter(sp, im, SplatConfig(), device=DEVICE)
+        torch.cuda.synchronize()
+        print(f"  Splatter loaded the {kind.upper()} scene on the card in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        cams[kind] = splat.cameras
+        del splat
+    a, b = cams["png"], cams["tiff"]
+    check(a.n_cameras == b.n_cameras == 56
+          and b.images.device.type == torch.device(DEVICE).type
+          and [n[:-4] for n in a.names] == [n[:-4] for n in b.names],
+          "TIFF scene cameras")
+    for i, name in enumerate(b.names):
+        check(torch.equal(a.images[i], b.images[i]),
+              f"{name}: the TIFF scene's ground truth is not the PNG's")
+    for field in ("w2c_rot", "w2c_tran"):
+        check(torch.equal(getattr(a, field), getattr(b, field)), field)
+    print(f"  every ground-truth tensor of the TIFF scene equal to the PNG "
+          f"scene's ({b.n_cameras} views)", flush=True)
+    check(sum(rz.LAUNCHES.values()) == 0, f"launches {dict(rz.LAUNCHES)}")
+    del cams, a, b
+    torch.cuda.empty_cache()
+    # (c) training from each scene
+    runs = {}
+    for kind, sc in (("png", scene), ("tiff", tscene)):
+        summary, tr, launches, records, log = run_7k(rz, [
+            "--scene", sc, "--exp", os.path.join(root, f"leg_{kind}"),
+            "--n_iters", str(FULL_ITERS), "--stop_at", str(JPEG_ITERS),
+            "--use_sh_coeff", "0", "--device", DEVICE])
+        check([r[0] for r in records] == list(range(JPEG_ITERS)),
+              f"{kind} leg steps")
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(rasterize_fwd=JPEG_ITERS + 5 * len(tr.test_split) * (
+            len(summary["test_trajectory"]) + 1), rasterize_bwd=JPEG_ITERS)
+        check(launches == want, f"{kind} leg launches {launches} != {want}")
+        runs[kind] = (summary, launches, [r[2] for r in records],
+                      _trainer_lines(log))
+        rate, pairs = step_rate(records, 1, JPEG_ITERS)
+        print(f"  {kind.upper()} leg: {rate:.2f} it/s at {pairs:.0f} pairs "
+              f"a view; {' | '.join(runs[kind][3])}", flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    (ps, pl, pp, plines), (ts, tl, tp, tlines) = runs["png"], runs["tiff"]
+    check(bool(plines) and any(x.startswith("TEST") for x in plines),
+          "the PNG leg logged no TEST line")
+    check(tlines == plines, f"TIFF leg lines {tlines} != PNG {plines}")
+    check(tp == pp, "the TIFF leg's pairs a step differ from the PNG leg's")
+    check((ts["final_psnr"], ts["final_ssim"]) == (ps["final_psnr"],
+                                                   ps["final_ssim"]),
+          f"final PSNR/SSIM {ts['final_psnr']} {ts['final_ssim']} vs "
+          f"{ps['final_psnr']} {ps['final_ssim']}")
+    check(tl == pl, f"launches {tl} vs {pl}")
+    print(f"  the TIFF leg equals the PNG leg: {len(tlines)} logged lines, "
+          f"{JPEG_ITERS} steps' pair counts, final PSNR {ts['final_psnr']} "
+          f"SSIM {ts['final_ssim']}; launches {json.dumps(tl)}", flush=True)
+    # (d) the pyramid over the TIFFs against the PNGs'
+    pyramid = os.path.join(root, "images_8_tiff")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gsplat_tpu_torch.downsample", "--src", dst,
+         "--dst", pyramid, "--factor", "2"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    down_s = time.perf_counter() - t0
+    check(proc.returncode == 0 and not proc.stderr,
+          f"downsample exit {proc.returncode}: {proc.stderr[-2000:]}")
+    outs = sorted(os.listdir(pyramid))
+    check(outs == sorted(n[:-4] + ".tif" for n in pngs),
+          f"downsample wrote {outs[:3]}...")
+    for name in outs:
+        small = image_io.read_tiff(os.path.join(pyramid, name))
+        check(np.array_equal(small, downsample_area(views[name[:-4] + ".png"],
+                                                    2)),
+              f"{name}: the TIFF pyramid differs from the PNG's")
+    print(f"  downsample --factor 2: {len(outs)} TIFFs at {small.shape[1]}x"
+          f"{small.shape[0]} in {down_s:.3f} s, each equal to the PNG's "
+          f"pyramid (host: {host})", flush=True)
+    # (e) the committed fixtures
+    helpers_dir = os.path.dirname(test_helpers().__file__)
+    sys.path.insert(0, helpers_dir)
+    import torch_make_image_fixtures as fx
+
+    got = fx.check(scratch=root)
+    bad = [k for k, v in got.items() if not v]
+    print(f"  committed fixtures (tests/torch_images/): {len(got)} files, "
+          f"{len(got) - len(bad)} as cv2 reads (or refuses) them; "
+          f"{json.dumps(got)}", flush=True)
+    check(not bad and len(got) == len(fx.CASES) + len(fx.REFUSED)
+          + len(fx.ENCODED), f"image fixtures differ: {bad}")
+    return pl, tl
 
 
 def finite(x):
@@ -2416,10 +2632,11 @@ def main() -> int:
     t0 = time.perf_counter()
     # the kernels' sources, and the self-check of the forward's split
     # division (csrc/fast_div_check.cu); beside them the host libraries
-    # (csrc/colmap_reader.cpp, csrc/jpeg_codec.cpp; the system C++ compiler)
+    # (csrc/colmap_reader.cpp, csrc/jpeg_codec.cpp, csrc/tiff_codec.cpp;
+    # the system C++ compiler)
     sources = sorted({src for src, _ in rz.KERNELS.values()}
                      | {"fast_div_check"})
-    host_libs = ("colmap_reader", "jpeg_codec")
+    host_libs = ("colmap_reader", "jpeg_codec", "tiff_codec")
     with ThreadPoolExecutor(len(sources) + len(host_libs)) as pool:
         hosts = [pool.submit(cuda_build.load_host_library, name)
                  for name in host_libs]
@@ -2429,8 +2646,8 @@ def main() -> int:
     for name in KERNELS:
         rz._kernel(name)
     print(f"built {len(sources) + len(host_libs)} libraries ({len(KERNELS)} "
-          f"entry points, the division check, the COLMAP reader and the JPEG"
-          f" codec) in {time.perf_counter() - t0:.2f} s", flush=True)
+          f"entry points, the division check, the COLMAP reader, the JPEG "
+          f"and TIFF codecs) in {time.perf_counter() - t0:.2f} s", flush=True)
     for name in host_libs:
         info = cuda_build.BUILD_INFO[name]
         print(f"  {name}: {info['path']} (c++ {info['seconds']:.2f} s)")
@@ -3047,8 +3264,8 @@ def main() -> int:
           f"CLI launches {cli}")
 
     # ---- 12. the at-scale run ----------------------------------------------
-    (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg), scale_rows = \
-        at_scale_path(rz, dev)
+    (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg, at_scale_png,
+     at_scale_tiff), scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -3091,6 +3308,8 @@ def main() -> int:
              "at-scale scene build": scene_build,
              "at-scale RGB run": at_scale_rgb, "at-scale SH run": at_scale_sh,
              "at-scale JPEG run": at_scale_jpeg,
+             "at-scale PNG 0-200 run": at_scale_png,
+             "at-scale TIFF run": at_scale_tiff,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

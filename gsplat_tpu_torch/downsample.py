@@ -9,14 +9,18 @@ The JAX script resizes with ``cv2.resize(..., INTER_AREA)``; the port has no
 cv2 and averages each ``factor`` x ``factor`` block itself.  Images are read
 by their signature and written by their name's extension, as cv2 reads and
 writes them (``utils/image_io``): a ``.jpg`` / ``.jpeg`` / ``.jpe`` name gets
-the bytes of ``cv2.imwrite``'s default JPEG, a ``.png`` name an 8-bit PNG.
+the bytes of ``cv2.imwrite``'s default JPEG, a ``.png`` name an 8-bit PNG,
+``.tif`` / ``.tiff`` cv2's LZW TIFF, ``.bmp`` / ``.dib`` its 24-bit BMP and
+``.ppm`` / ``.pnm`` its binary PPM.  cv2 writes no color ``.pgm`` or
+``.pbm`` (the JAX script's ``imwrite`` returns False there), so the port
+writes none either and names the file on stderr.
 The output is ``round(H / factor)`` by ``round(W / factor)``, as cv2 sizes
 it; a block cut off by the image's edge
 averages the pixels it holds.  Means are rounded as cv2 rounds them: half
 to even, except whole 2 x 2 blocks, which its fast path rounds half up.
-A file that is neither a PNG nor a JPEG (or that does not decode) is
-skipped, as the JAX script skips files cv2 cannot read, and so is a name of
-another extension; each skipped file is named on stderr.
+A file that does not decode is skipped, as the JAX script skips files cv2
+cannot read, and so is a name of an extension the port does not write;
+each skipped file is named on stderr.
 """
 
 from __future__ import annotations
@@ -28,11 +32,13 @@ import sys
 
 import numpy as np
 
-from gsplat_tpu_torch.utils.image_io import read_image, write_jpeg, \
-    write_png
+from gsplat_tpu_torch.utils.image_io import read_image, write_bmp, \
+    write_jpeg, write_png, write_pnm, write_tiff
 
 _WRITERS = {".jpg": write_jpeg, ".jpeg": write_jpeg, ".jpe": write_jpeg,
-            ".png": write_png}
+            ".png": write_png, ".tif": write_tiff, ".tiff": write_tiff,
+            ".bmp": write_bmp, ".dib": write_bmp, ".ppm": write_pnm,
+            ".pnm": write_pnm, ".pgm": write_pnm, ".pbm": write_pnm}
 
 
 def downsample_area(img: np.ndarray, factor) -> np.ndarray:
@@ -82,15 +88,19 @@ def main(argv=None):
         name = os.path.basename(fn)
         writer = _WRITERS.get(os.path.splitext(name)[1].lower())
         if writer is None:
-            print(f"skipped {fn}: not a .jpg/.jpeg/.jpe/.png name",
-                  file=sys.stderr)
+            print(f"skipped {fn}: not a name of an extension the port "
+                  f"writes ({' '.join(sorted(_WRITERS))})", file=sys.stderr)
             continue
         try:
             img = read_image(fn)
         except (OSError, RuntimeError, ValueError) as e:
             print(f"skipped {fn}: {e}", file=sys.stderr)
             continue
-        writer(os.path.join(a.dst, name), downsample_area(img, a.factor))
+        try:
+            writer(os.path.join(a.dst, name), downsample_area(img, a.factor))
+        except ValueError as e:       # a color .pgm / .pbm: cv2 writes none
+            print(f"not written {name}: {e}", file=sys.stderr)
+            continue
         print(name)
 
 

@@ -1,6 +1,6 @@
 """Build and load the native libraries of ``gsplat_tpu_torch/csrc``: the
 hand-written CUDA kernels and the host C++ libraries (the COLMAP reader,
-the JPEG codec).
+the JPEG and TIFF codecs).
 
 Each source is a plain ``extern "C"`` translation unit.  At first use a
 kernel (with the shared ``*.cuh`` headers beside it) is compiled with
@@ -66,7 +66,7 @@ def find_cxx() -> str:
             return path
     raise RuntimeError(
         "no C++ compiler ($CXX, c++, g++): gsplat_tpu_torch's host libraries "
-        "(the COLMAP reader, the JPEG codec) are compiled from "
+        "(the COLMAP reader, the JPEG and TIFF codecs) are compiled from "
         "gsplat_tpu_torch/csrc/*.cpp at first use")
 
 

@@ -404,8 +404,8 @@ def test_stage_timer_records_on_the_cpu():
 
 def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     # the card's machine has no cv2: PNGs and JPEGs load through
-    # utils/image_io, equal to what JAX reads with cv2; a file that is
-    # neither raises an error naming it
+    # utils/image_io, equal to what JAX reads with cv2; a format the port
+    # does not read yet raises an error naming the file and the format
     cv2 = pytest.importorskip("cv2")
     from gsplat_tpu_torch.models.splatter import load_scene_camera_groups, \
         read_image
@@ -421,7 +421,7 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     np.testing.assert_array_equal(read_image(str(jpg)), want)
     other = tmp_path / "photo.webp"
     other.write_bytes(b"RIFF\x00\x00\x00\x00WEBP")
-    with pytest.raises(RuntimeError, match="photo.webp.*not a PNG or JPEG"):
+    with pytest.raises(RuntimeError, match="photo.webp.*WebP.*not read yet"):
         read_image(str(other))
 
 
