@@ -9,7 +9,8 @@ It builds the rasterizer kernels (gsplat_tpu_torch/csrc/rasterize_fwd.cu and
 rasterize_bwd.cu, one nvcc each, in parallel, for sm_90a into
 gsplat_tpu_torch/_build/; beside them the native COLMAP reader,
 csrc/colmap_reader.cpp, the JPEG codec, csrc/jpeg_codec.cpp, and the TIFF
-strip codecs, csrc/tiff_codec.cpp, with the system C++ compiler), six entry
+strip codecs, csrc/tiff_codec.cpp, and the WebP codec, csrc/webp_codec.cpp,
+with the system C++ compiler), six entry
 points:
 the f32 RGB forward and backward, the SH forward and backward (27
 coefficients) and the bf16 render preset's forward, RGB and SH.  It holds
@@ -74,16 +75,18 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   pyramid (python -m gsplat_tpu_torch.downsample --factor 2: 56 JPEGs at
   648x420) and the committed codec fixtures of tests/torch_jpeg/ bit for
   bit, with the codec's host seconds beside the CPU's model; then the other
-  formats (image_io's TIFF, BMP and PNM readers and writers): the 56 views
-  through write_tiff into a TIFF copy of the scene and a few through
-  write_bmp and write_pnm, each format's encode and decode seconds a view
-  (and a committed arithmetic-coded JPEG's), the TIFF scene through
-  Splatter with every ground-truth tensor equal to the PNG scene's,
-  run_garden_7k over iterations 0-200 from the PNG scene and from the TIFF
-  scene with every logged l1, PSNR, pair count and TEST line equal, the
-  pyramid over the TIFFs equal to the PNGs', and the committed fixtures of
+  formats (image_io's TIFF, WebP, BMP and PNM readers and writers): the 56
+  views through write_tiff and write_webp into a TIFF and a WebP copy of
+  the scene and a few through write_bmp and write_pnm, each format's
+  encode and decode seconds a view (and a committed arithmetic-coded
+  JPEG's and a committed lossy WebP's, whose decode must hash as cv2's),
+  the TIFF and WebP scenes through Splatter with every ground-truth tensor
+  equal to the PNG scene's, run_garden_7k over iterations 0-200 from the
+  PNG scene and from the TIFF and WebP scenes with every logged l1, PSNR,
+  pair count and TEST line equal, the pyramids over the TIFFs and the
+  WebPs equal to the PNGs', and the committed fixtures of
   tests/torch_images/ (arithmetic, lossless, CMYK and cut-short JPEG, Adam7
-  PNG, TIFF, BMP, PNM) bit for bit.
+  PNG, TIFF, BMP, PNM, WebP) bit for bit.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -1577,10 +1580,10 @@ def at_scale_path(rz, dev):
         del tr, views
         torch.cuda.empty_cache()
         jpeg = jpeg_capture_path(rz, scene, root, png_log)
-        png_leg, tiff_leg = image_formats_path(rz, scene, root)
+        png_leg, tiff_leg, webp_leg = image_formats_path(rz, scene, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return (build, rgb, sh, jpeg, png_leg, tiff_leg), scale_rows
+    return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -1738,6 +1741,7 @@ FORMAT_VIEWS = 6
 # a committed 1297x840 arithmetic-coded JPEG (progressive, restarts), for
 # the decode seconds of that kind on the card's host
 ARITH_VIEW = "tests/torch_images/timing_arith_1297x840.jpg"
+LOSSY_WEBP_VIEW = "tests/torch_images/timing_lossy_1297x840.webp"
 
 
 def _trainer_lines(log):
@@ -1752,22 +1756,45 @@ def _trainer_lines(log):
     return out
 
 
+def _format_scene(scene, root, name, ext):
+    """An empty copy of the scene for images of extension ``ext``: its
+    sparse model, whose images.bin names them → (scene, images_4,
+    sparse/0)."""
+    fscene = os.path.join(root, name)
+    dst = os.path.join(fscene, "images_4")
+    sparse = os.path.join(fscene, "sparse", "0")
+    for d in (dst, sparse):
+        os.makedirs(d)
+    for n in ("cameras.bin", "points3D.bin"):
+        shutil.copyfile(os.path.join(scene, "sparse", "0", n),
+                        os.path.join(sparse, n))
+    with open(os.path.join(scene, "sparse", "0", "images.bin"), "rb") as f:
+        images_bin = f.read()
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(images_bin.replace(b".png\x00", ext.encode() + b"\x00"))
+    return fscene, dst, sparse
+
+
 def image_formats_path(rz, scene, root):
     """The real-capture phase's other formats (utils/image_io beyond PNG and
     JPEG) on garden_hard's 56 views: (a) each PNG view through write_tiff
-    into a TIFF scene (images_4/img_XXX.tif and a sparse copy whose
-    images.bin names them), FORMAT_VIEWS through write_bmp and write_pnm,
-    each decoded back equal to its PNG, every format's encode and decode
-    seconds a view timed, and the committed arithmetic-coded view decoded;
-    (b) the PNG and the TIFF scene through Splatter on the card, every
-    ground-truth tensor equal; (c) run_garden_7k over iterations
-    0..JPEG_ITERS - 1 of the RGB schedule from each scene, the logged l1,
-    PSNR, pair and TEST lines, the per-step pair counts and the final
-    PSNR/SSIM equal (the input is lossless and the step deterministic);
-    (d) the pyramid (python -m gsplat_tpu_torch.downsample --factor 2) over
-    the TIFFs, equal to the PNGs' (downsample_area); (e) the committed
-    fixtures of tests/torch_images/ bit for bit and byte for byte.
-    → (the PNG leg's launches, the TIFF leg's)."""
+    and write_webp into a TIFF and a WebP scene (images_4/img_XXX.tif /
+    .webp and sparse copies whose images.bin names them), FORMAT_VIEWS
+    through write_bmp and write_pnm, each decoded back equal to its PNG,
+    every format's encode and decode seconds a view timed, and the
+    committed arithmetic-coded JPEG and lossy WebP views decoded (the
+    WebP's pixels held to the SHA-256 of cv2's decode); (b) the PNG, TIFF
+    and WebP scenes through Splatter on the card, every ground-truth tensor
+    equal; (c) run_garden_7k over iterations 0..JPEG_ITERS - 1 of the RGB
+    schedule from each scene, the logged l1, PSNR, pair and TEST lines, the
+    per-step pair counts and the final PSNR/SSIM equal (the input is
+    lossless and the step deterministic); (d) the pyramid (python -m
+    gsplat_tpu_torch.downsample --factor 2) over the TIFFs and over the
+    WebPs, equal to the PNGs' (downsample_area); (e) the committed fixtures
+    of tests/torch_images/ bit for bit and byte for byte.
+    → (the PNG leg's launches, the TIFF leg's, the WebP leg's)."""
+    import hashlib
+
     import torch
 
     from gsplat_tpu_torch.bench import host_cpu
@@ -1776,39 +1803,37 @@ def image_formats_path(rz, scene, root):
     from gsplat_tpu_torch.models.splatter import Splatter
     from gsplat_tpu_torch.utils import image_io
 
+    helpers_dir = os.path.dirname(test_helpers().__file__)
+    sys.path.insert(0, helpers_dir)
+    import torch_make_image_fixtures as fx
+
     host = host_cpu()
-    phase(f"real capture (TIFF, BMP, PNM): garden_hard's views through "
-          f"write_tiff, read_tiff, Splatter, run_garden_7k and downsample "
-          f"(host: {host})")
+    phase(f"real capture (TIFF, WebP, BMP, PNM): garden_hard's views "
+          f"through write_tiff, write_webp, read_image, Splatter, "
+          f"run_garden_7k and downsample (host: {host})")
     torch.cuda.synchronize()
     reset_launches(rz)
-    tscene = os.path.join(root, "scene_tiff")
     src = os.path.join(scene, "images_4")
-    dst = os.path.join(tscene, "images_4")
-    sparse = os.path.join(tscene, "sparse", "0")
+    scenes = {"tiff": _format_scene(scene, root, "scene_tiff", ".tif"),
+              "webp": _format_scene(scene, root, "scene_webp", ".webp")}
     other = os.path.join(root, "bmp_pnm")
-    for d in (dst, sparse, other):
-        os.makedirs(d)
-    for name in ("cameras.bin", "points3D.bin"):
-        shutil.copyfile(os.path.join(scene, "sparse", "0", name),
-                        os.path.join(sparse, name))
-    with open(os.path.join(scene, "sparse", "0", "images.bin"), "rb") as f:
-        images_bin = f.read()
-    with open(os.path.join(sparse, "images.bin"), "wb") as f:
-        f.write(images_bin.replace(b".png\x00", b".tif\x00"))
+    os.makedirs(other)
     pngs = sorted(n for n in os.listdir(src) if n.endswith(".png"))
     check(len(pngs) == 56, f"{len(pngs)} PNG views")
     # (a) each format written and read back, each view timed alone
     secs = {k: [] for k in ("png read", "tiff write", "tiff read",
-                            "bmp write", "bmp read", "ppm write", "ppm read")}
+                            "webp write", "webp read", "bmp write",
+                            "bmp read", "ppm write", "ppm read")}
     views = {}
     for i, name in enumerate(pngs):
         t0 = time.perf_counter()
         img = image_io.read_png(os.path.join(src, name))
         secs["png read"].append(time.perf_counter() - t0)
         views[name] = img
-        formats = [("tiff", os.path.join(dst, name[:-4] + ".tif"),
-                    image_io.write_tiff)]
+        formats = [(kind, os.path.join(scenes[kind][1], name[:-4] + ext),
+                    writer) for kind, ext, writer in (
+                        ("tiff", ".tif", image_io.write_tiff),
+                        ("webp", ".webp", image_io.write_webp))]
         if i < FORMAT_VIEWS:
             formats += [("bmp", os.path.join(other, name[:-4] + ".bmp"),
                          image_io.write_bmp),
@@ -1824,27 +1849,38 @@ def image_formats_path(rz, scene, root):
             check(back.shape == img.shape and np.array_equal(back, img),
                   f"{path}: read back differs from its PNG")
     h, w = img.shape[:2]
-    arith = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         ARITH_VIEW)
-    for _ in range(3):
-        t0 = time.perf_counter()
-        dec = image_io.read_image(arith)
-        secs.setdefault("arithmetic JPEG read", []).append(
-            time.perf_counter() - t0)
-    check(dec.shape == (840, 1297, 3), f"{ARITH_VIEW}: {dec.shape}")
-    size = sum(os.path.getsize(os.path.join(dst, n)) for n in os.listdir(dst))
-    print(f"  {len(views)} views at {w}x{h}, {size / 1e6:.2f} MB of LZW "
-          f"TIFF; each read back equal to its PNG.  Seconds a view (mean, "
-          f"min, max; host: {host}):", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    for label, view in (("arithmetic JPEG read", ARITH_VIEW),
+                        ("lossy WebP read", LOSSY_WEBP_VIEW)):
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dec = image_io.read_image(os.path.join(here, view))
+            secs.setdefault(label, []).append(time.perf_counter() - t0)
+        check(dec.shape == (840, 1297, 3), f"{view}: {dec.shape}")
+    digest = hashlib.sha256(np.ascontiguousarray(dec).tobytes()).hexdigest()
+    check(digest == fx.TIMING_WEBP_SHA256,
+          f"{LOSSY_WEBP_VIEW}: decode SHA-256 {digest} is not cv2's "
+          f"{fx.TIMING_WEBP_SHA256}")
+    sizes = {kind: sum(os.path.getsize(os.path.join(d, n))
+                       for n in os.listdir(d))
+             for kind, d in (("png", src), ("tiff", scenes["tiff"][1]),
+                             ("webp", scenes["webp"][1]))}
+    print(f"  {len(views)} views at {w}x{h}: {sizes['png'] / 1e6:.2f} MB of "
+          f"PNG, {sizes['tiff'] / 1e6:.2f} MB of LZW TIFF, "
+          f"{sizes['webp'] / 1e6:.2f} MB of lossless WebP (write_webp); each "
+          f"read back equal to its PNG; the lossy WebP view's decode is "
+          f"cv2's (SHA-256 {digest[:16]}...).  Seconds a view (mean, min, "
+          f"max; host: {host}):", flush=True)
     for k, v in secs.items():
         print(f"    {k:22s} {np.mean(v):.4f} {min(v):.4f} {max(v):.4f} "
               f"({len(v)} views)", flush=True)
     print("image format seconds: " + json.dumps(
         {k: float(np.mean(v)) for k, v in secs.items()}), flush=True)
-    # (b) the two scenes on the card
+    # (b) the three scenes on the card
     cams = {}
     for kind, (sp, im) in {"png": (os.path.join(scene, "sparse", "0"), src),
-                           "tiff": (sparse, dst)}.items():
+                           **{k: (v[2], v[1]) for k, v in scenes.items()}
+                           }.items():
         t0 = time.perf_counter()
         splat = Splatter(sp, im, SplatConfig(), device=DEVICE)
         torch.cuda.synchronize()
@@ -1852,24 +1888,28 @@ def image_formats_path(rz, scene, root):
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         cams[kind] = splat.cameras
         del splat
-    a, b = cams["png"], cams["tiff"]
-    check(a.n_cameras == b.n_cameras == 56
-          and b.images.device.type == torch.device(DEVICE).type
-          and [n[:-4] for n in a.names] == [n[:-4] for n in b.names],
-          "TIFF scene cameras")
-    for i, name in enumerate(b.names):
-        check(torch.equal(a.images[i], b.images[i]),
-              f"{name}: the TIFF scene's ground truth is not the PNG's")
-    for field in ("w2c_rot", "w2c_tran"):
-        check(torch.equal(getattr(a, field), getattr(b, field)), field)
-    print(f"  every ground-truth tensor of the TIFF scene equal to the PNG "
-          f"scene's ({b.n_cameras} views)", flush=True)
+    a = cams["png"]
+    for kind in scenes:
+        b = cams[kind]
+        check(a.n_cameras == b.n_cameras == 56
+              and b.images.device.type == torch.device(DEVICE).type
+              and [n[:-4] for n in a.names]
+              == [n.rsplit(".", 1)[0] for n in b.names],
+              f"{kind.upper()} scene cameras")
+        for i, name in enumerate(b.names):
+            check(torch.equal(a.images[i], b.images[i]),
+                  f"{name}: the {kind.upper()} scene's ground truth is not "
+                  f"the PNG's")
+        for field in ("w2c_rot", "w2c_tran"):
+            check(torch.equal(getattr(a, field), getattr(b, field)), field)
+        print(f"  every ground-truth tensor of the {kind.upper()} scene "
+              f"equal to the PNG scene's ({b.n_cameras} views)", flush=True)
     check(sum(rz.LAUNCHES.values()) == 0, f"launches {dict(rz.LAUNCHES)}")
     del cams, a, b
     torch.cuda.empty_cache()
     # (c) training from each scene
     runs = {}
-    for kind, sc in (("png", scene), ("tiff", tscene)):
+    for kind, sc in (("png", scene), *((k, v[0]) for k, v in scenes.items())):
         summary, tr, launches, records, log = run_7k(rz, [
             "--scene", sc, "--exp", os.path.join(root, f"leg_{kind}"),
             "--n_iters", str(FULL_ITERS), "--stop_at", str(JPEG_ITERS),
@@ -1887,54 +1927,56 @@ def image_formats_path(rz, scene, root):
               f"a view; {' | '.join(runs[kind][3])}", flush=True)
         del tr
         torch.cuda.empty_cache()
-    (ps, pl, pp, plines), (ts, tl, tp, tlines) = runs["png"], runs["tiff"]
+    ps, pl, pp, plines = runs["png"]
     check(bool(plines) and any(x.startswith("TEST") for x in plines),
           "the PNG leg logged no TEST line")
-    check(tlines == plines, f"TIFF leg lines {tlines} != PNG {plines}")
-    check(tp == pp, "the TIFF leg's pairs a step differ from the PNG leg's")
-    check((ts["final_psnr"], ts["final_ssim"]) == (ps["final_psnr"],
-                                                   ps["final_ssim"]),
-          f"final PSNR/SSIM {ts['final_psnr']} {ts['final_ssim']} vs "
-          f"{ps['final_psnr']} {ps['final_ssim']}")
-    check(tl == pl, f"launches {tl} vs {pl}")
-    print(f"  the TIFF leg equals the PNG leg: {len(tlines)} logged lines, "
-          f"{JPEG_ITERS} steps' pair counts, final PSNR {ts['final_psnr']} "
-          f"SSIM {ts['final_ssim']}; launches {json.dumps(tl)}", flush=True)
-    # (d) the pyramid over the TIFFs against the PNGs'
-    pyramid = os.path.join(root, "images_8_tiff")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "gsplat_tpu_torch.downsample", "--src", dst,
-         "--dst", pyramid, "--factor", "2"],
-        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-        text=True, timeout=600)
-    down_s = time.perf_counter() - t0
-    check(proc.returncode == 0 and not proc.stderr,
-          f"downsample exit {proc.returncode}: {proc.stderr[-2000:]}")
-    outs = sorted(os.listdir(pyramid))
-    check(outs == sorted(n[:-4] + ".tif" for n in pngs),
-          f"downsample wrote {outs[:3]}...")
-    for name in outs:
-        small = image_io.read_tiff(os.path.join(pyramid, name))
-        check(np.array_equal(small, downsample_area(views[name[:-4] + ".png"],
-                                                    2)),
-              f"{name}: the TIFF pyramid differs from the PNG's")
-    print(f"  downsample --factor 2: {len(outs)} TIFFs at {small.shape[1]}x"
-          f"{small.shape[0]} in {down_s:.3f} s, each equal to the PNG's "
-          f"pyramid (host: {host})", flush=True)
+    for kind in scenes:
+        ts, tl, tp, tlines = runs[kind]
+        up = kind.upper()
+        check(tlines == plines, f"{up} leg lines {tlines} != PNG {plines}")
+        check(tp == pp, f"the {up} leg's pairs a step differ from the PNG "
+              f"leg's")
+        check((ts["final_psnr"], ts["final_ssim"]) == (ps["final_psnr"],
+                                                       ps["final_ssim"]),
+              f"{up} final PSNR/SSIM {ts['final_psnr']} {ts['final_ssim']} "
+              f"vs {ps['final_psnr']} {ps['final_ssim']}")
+        check(tl == pl, f"{up} launches {tl} vs {pl}")
+        print(f"  the {up} leg equals the PNG leg: {len(tlines)} logged "
+              f"lines, {JPEG_ITERS} steps' pair counts, final PSNR "
+              f"{ts['final_psnr']} SSIM {ts['final_ssim']}; launches "
+              f"{json.dumps(tl)}", flush=True)
+    # (d) the pyramid over the TIFFs and over the WebPs against the PNGs'
+    for kind, ext in (("tiff", ".tif"), ("webp", ".webp")):
+        pyramid = os.path.join(root, f"images_8_{kind}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gsplat_tpu_torch.downsample", "--src",
+             scenes[kind][1], "--dst", pyramid, "--factor", "2"],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        down_s = time.perf_counter() - t0
+        check(proc.returncode == 0 and not proc.stderr,
+              f"downsample exit {proc.returncode}: {proc.stderr[-2000:]}")
+        outs = sorted(os.listdir(pyramid))
+        check(outs == sorted(n[:-4] + ext for n in pngs),
+              f"downsample wrote {outs[:3]}...")
+        for name in outs:
+            small = image_io.read_image(os.path.join(pyramid, name))
+            check(np.array_equal(small, downsample_area(
+                views[name[:-len(ext)] + ".png"], 2)),
+                f"{name}: the {kind.upper()} pyramid differs from the PNG's")
+        print(f"  downsample --factor 2: {len(outs)} {kind.upper()}s at "
+              f"{small.shape[1]}x{small.shape[0]} in {down_s:.3f} s, each "
+              f"equal to the PNG's pyramid (host: {host})", flush=True)
     # (e) the committed fixtures
-    helpers_dir = os.path.dirname(test_helpers().__file__)
-    sys.path.insert(0, helpers_dir)
-    import torch_make_image_fixtures as fx
-
     got = fx.check(scratch=root)
     bad = [k for k, v in got.items() if not v]
     print(f"  committed fixtures (tests/torch_images/): {len(got)} files, "
           f"{len(got) - len(bad)} as cv2 reads (or refuses) them; "
           f"{json.dumps(got)}", flush=True)
     check(not bad and len(got) == len(fx.CASES) + len(fx.REFUSED)
-          + len(fx.ENCODED), f"image fixtures differ: {bad}")
-    return pl, tl
+          + len(fx.ENCODED) + len(fx.ROUND_TRIP),
+          f"image fixtures differ: {bad}")
+    return pl, runs["tiff"][1], runs["webp"][1]
 
 
 def finite(x):
@@ -2632,11 +2674,11 @@ def main() -> int:
     t0 = time.perf_counter()
     # the kernels' sources, and the self-check of the forward's split
     # division (csrc/fast_div_check.cu); beside them the host libraries
-    # (csrc/colmap_reader.cpp, csrc/jpeg_codec.cpp, csrc/tiff_codec.cpp;
-    # the system C++ compiler)
+    # (csrc/colmap_reader.cpp, csrc/jpeg_codec.cpp, csrc/tiff_codec.cpp,
+    # csrc/webp_codec.cpp; the system C++ compiler)
     sources = sorted({src for src, _ in rz.KERNELS.values()}
                      | {"fast_div_check"})
-    host_libs = ("colmap_reader", "jpeg_codec", "tiff_codec")
+    host_libs = ("colmap_reader", "jpeg_codec", "tiff_codec", "webp_codec")
     with ThreadPoolExecutor(len(sources) + len(host_libs)) as pool:
         hosts = [pool.submit(cuda_build.load_host_library, name)
                  for name in host_libs]
@@ -2646,8 +2688,9 @@ def main() -> int:
     for name in KERNELS:
         rz._kernel(name)
     print(f"built {len(sources) + len(host_libs)} libraries ({len(KERNELS)} "
-          f"entry points, the division check, the COLMAP reader, the JPEG "
-          f"and TIFF codecs) in {time.perf_counter() - t0:.2f} s", flush=True)
+          f"entry points, the division check, the COLMAP reader, the JPEG, "
+          f"TIFF and WebP codecs) in {time.perf_counter() - t0:.2f} s",
+          flush=True)
     for name in host_libs:
         info = cuda_build.BUILD_INFO[name]
         print(f"  {name}: {info['path']} (c++ {info['seconds']:.2f} s)")
@@ -3265,7 +3308,7 @@ def main() -> int:
 
     # ---- 12. the at-scale run ----------------------------------------------
     (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg, at_scale_png,
-     at_scale_tiff), scale_rows = at_scale_path(rz, dev)
+     at_scale_tiff, at_scale_webp), scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -3310,6 +3353,7 @@ def main() -> int:
              "at-scale JPEG run": at_scale_jpeg,
              "at-scale PNG 0-200 run": at_scale_png,
              "at-scale TIFF run": at_scale_tiff,
+             "at-scale WebP run": at_scale_webp,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

@@ -456,32 +456,31 @@ struct Decoder {
         }
     }
 
-    // OpenCV's ExifReader: a TIFF header, IFD0, tag 0x0112 (SHORT)
+    // OpenCV's ExifReader: little-endian after "II", big-endian otherwise;
+    // the TIFF mark 42; IFD0's entries in order up to tag 0x0112, whose
+    // value it returns (1-8; 1 otherwise, and where a read runs past the
+    // segment)
     static int exif_orientation(const u8* t, size_t n) {
-        if (n < 8) return 1;
-        bool le;
-        if (t[0] == 'I' && t[1] == 'I') le = true;
-        else if (t[0] == 'M' && t[1] == 'M') le = false;
-        else return 1;
+        const bool le = n >= 2 && t[0] == 'I' && t[1] == 'I';
+        bool past = false;
         auto r16 = [&](size_t o) -> int {
+            if (o + 1 >= n) {
+                past = true;
+                return 0;
+            }
             return le ? t[o] | (t[o + 1] << 8) : (t[o] << 8) | t[o + 1];
         };
-        auto r32 = [&](size_t o) -> uint32_t {
-            return le ? uint32_t(t[o]) | (uint32_t(t[o + 1]) << 8) |
-                            (uint32_t(t[o + 2]) << 16) |
-                            (uint32_t(t[o + 3]) << 24)
-                      : (uint32_t(t[o]) << 24) | (uint32_t(t[o + 1]) << 16) |
-                            (uint32_t(t[o + 2]) << 8) | uint32_t(t[o + 3]);
-        };
-        size_t ifd = r32(4);
-        if (ifd + 2 > n) return 1;
-        int count = r16(ifd);
-        for (int i = 0; i < count; i++) {
-            size_t e = ifd + 2 + size_t(i) * 12;
-            if (e + 12 > n) return 1;
-            if (r16(e) == 0x0112) {
-                int v = r16(e + 8);
-                return (v >= 1 && v <= 8) ? v : 1;
+        if (r16(2) != 42 || past || 4 + 3 >= n) return 1;
+        const size_t ifd = le ? size_t(t[4]) | (size_t(t[5]) << 8) |
+                                    (size_t(t[6]) << 16) | (size_t(t[7]) << 24)
+                              : (size_t(t[4]) << 24) | (size_t(t[5]) << 16) |
+                                    (size_t(t[6]) << 8) | size_t(t[7]);
+        const int count = r16(ifd);
+        for (int i = 0; i < count && !past; i++) {
+            const size_t e = ifd + 2 + size_t(i) * 12;
+            if (r16(e) == 0x0112 && !past) {
+                const int v = r16(e + 8);
+                return (!past && v >= 1 && v <= 8) ? v : 1;
             }
         }
         return 1;

@@ -10,10 +10,12 @@ cv2 and averages each ``factor`` x ``factor`` block itself.  Images are read
 by their signature and written by their name's extension, as cv2 reads and
 writes them (``utils/image_io``): a ``.jpg`` / ``.jpeg`` / ``.jpe`` name gets
 the bytes of ``cv2.imwrite``'s default JPEG, a ``.png`` name an 8-bit PNG,
-``.tif`` / ``.tiff`` cv2's LZW TIFF, ``.bmp`` / ``.dib`` its 24-bit BMP and
-``.ppm`` / ``.pnm`` its binary PPM.  cv2 writes no color ``.pgm`` or
-``.pbm`` (the JAX script's ``imwrite`` returns False there), so the port
-writes none either and names the file on stderr.
+``.tif`` / ``.tiff`` cv2's LZW TIFF, ``.bmp`` / ``.dib`` its 24-bit BMP,
+``.ppm`` / ``.pnm`` its binary PPM and ``.webp`` a lossless (VP8L) WebP,
+the kind cv2 writes by default (its pixels, not libwebp's bytes).  cv2
+writes no color ``.pgm`` or ``.pbm`` (the JAX script's ``imwrite`` returns
+False there), so the port writes none either and names the file on
+stderr.
 The output is ``round(H / factor)`` by ``round(W / factor)``, as cv2 sizes
 it; a block cut off by the image's edge
 averages the pixels it holds.  Means are rounded as cv2 rounds them: half
@@ -33,12 +35,13 @@ import sys
 import numpy as np
 
 from gsplat_tpu_torch.utils.image_io import read_image, write_bmp, \
-    write_jpeg, write_png, write_pnm, write_tiff
+    write_jpeg, write_png, write_pnm, write_tiff, write_webp
 
 _WRITERS = {".jpg": write_jpeg, ".jpeg": write_jpeg, ".jpe": write_jpeg,
             ".png": write_png, ".tif": write_tiff, ".tiff": write_tiff,
             ".bmp": write_bmp, ".dib": write_bmp, ".ppm": write_pnm,
-            ".pnm": write_pnm, ".pgm": write_pnm, ".pbm": write_pnm}
+            ".pnm": write_pnm, ".pgm": write_pnm, ".pbm": write_pnm,
+            ".webp": write_webp}
 
 
 def downsample_area(img: np.ndarray, factor) -> np.ndarray:

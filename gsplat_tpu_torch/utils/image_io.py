@@ -5,9 +5,10 @@ pyramids with ``cv2``; the port reads and writes the same files without it,
 so a scene loads where ``cv2`` is not installed.  Every reader returns what
 ``cv2.imread(path, IMREAD_COLOR)`` then ``COLOR_BGR2RGB`` gives, bit for bit
 (the behaviour of cv2 5.0.0 as built with libjpeg-turbo 3.1.2, libpng,
-libtiff 4.7.1, OpenCV's own BMP and PNM decoders), and every writer the
-bytes of ``cv2.imwrite``'s defaults.  ``read_image`` picks the reader by the
-file's signature, as cv2's ``findDecoder`` does.
+libtiff 4.7.1, libwebp 1.6, OpenCV's own BMP and PNM decoders), and every
+writer the bytes of ``cv2.imwrite``'s defaults, except the WebP writer,
+held to pixels.  ``read_image`` picks the reader by the file's signature,
+as cv2's ``findDecoder`` does.
 
 PNG (the standard library's ``zlib`` and ``struct``): gray (1-16 bits),
 gray with alpha, palette, RGB and RGBA at 8 or 16 bits, interlaced (Adam7)
@@ -22,6 +23,11 @@ files cut short (decoded as libjpeg decodes them, with a warning).
 TIFF (``csrc/tiff_codec.cpp`` for LZW and PackBits, ``zlib`` for Deflate,
 the JPEG codec for JPEG strips; the directory is parsed here), BMP and PNM
 (numpy).
+
+WebP (``csrc/webp_codec.cpp`` for the VP8L and VP8 bitstreams and the ALPH
+chunk; the RIFF container, libwebp's demuxer rules and EXIF are parsed
+here): lossless, lossy, alpha, extended and animated files; ``write_webp``
+writes lossless VP8L with the port's own small encoder.
 """
 
 from __future__ import annotations
@@ -946,9 +952,473 @@ def write_tiff(path, img: np.ndarray):
         f.write(bytes(body + entries + extra))
 
 
+# ------------------------------------------------------------------- WebP
+
+WEBP_SIGNATURE = (b"RIFF", b"WEBP")          # bytes 0-3 and 8-11
+_WEBP_MAX_PAYLOAD = 0xFFFFFFFF - 8 - 1       # libwebp's MAX_CHUNK_PAYLOAD
+_WEBP_MAX_AREA = 1 << 32
+_VP8X_ANIMATION, _VP8X_EXIF = 0x02, 0x08
+
+
+def _load_webp_codec():
+    """The port's WebP codec (``csrc/webp_codec.cpp``), built at first use;
+    raises when it cannot be built."""
+    import ctypes
+
+    from gsplat_tpu_torch.ops.cuda_build import load_host_library
+
+    lib = load_host_library("webp_codec")
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    ll = ctypes.c_longlong
+    lib.webp_decode_vp8l.restype = ctypes.c_int
+    lib.webp_decode_vp8l.argtypes = [ctypes.c_char_p, ll, ctypes.c_int,
+                                     ctypes.c_int, u8p, u8p, ctypes.c_char_p,
+                                     ctypes.c_int]
+    lib.webp_decode_vp8.restype = ctypes.c_int
+    lib.webp_decode_vp8.argtypes = [ctypes.c_char_p, ll, ll, ctypes.c_char_p,
+                                    ll, ctypes.c_int, ctypes.c_int, u8p, u8p,
+                                    ctypes.c_char_p, ctypes.c_int]
+    lib.webp_encode_vp8l.restype = ll
+    lib.webp_encode_vp8l.argtypes = [u8p, ctypes.c_int, ctypes.c_int, u8p, ll]
+    return lib
+
+
+def _uint_le(data, pos: int, size: int) -> int:
+    return int.from_bytes(data[pos:pos + size], "little")
+
+
+def _webp_info(payload: bytes, lossless: bool, chunk_size: int):
+    """libwebp's VP8GetInfo / VP8LGetInfo on a bitstream: (width, height)
+    or None where they fail."""
+    if lossless:
+        if len(payload) < 5 or payload[0] != 0x2F or payload[4] >> 5:
+            return None
+        bits = _uint_le(payload, 1, 4)
+        return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+    if len(payload) < 10 or payload[3:6] != b"\x9d\x01\x2a":
+        return None
+    bits = _uint_le(payload, 0, 3)
+    if bits & 1 or (bits >> 1) & 7 > 3 or not (bits >> 4) & 1 or \
+            bits >> 5 >= chunk_size:
+        return None
+    w, h = _uint_le(payload, 6, 2) & 0x3FFF, _uint_le(payload, 8, 2) & 0x3FFF
+    return (w, h) if w and h else None
+
+
+def _webp_bitstream(data: bytes, path):
+    """WebPDecode's header walk (ParseHeadersInternal, all data present)
+    over a file, or over an animation frame's chunks: → (payload offset,
+    declared payload size, lossless, (width, height), ALPH payload or None).
+    Raises ``RuntimeError`` naming the file where libwebp fails."""
+    def bad(what):
+        return RuntimeError(f"{path}: {what}")
+
+    n, pos, riff_size, found_vp8x = len(data), 0, 0, False
+    if n < 12:
+        raise bad("WebP file cut short")
+    if data[:4] == b"RIFF":
+        if data[8:12] != b"WEBP":
+            raise bad("not a WebP file")
+        riff_size = _uint_le(data, 4, 4)
+        if riff_size < 12 or riff_size > _WEBP_MAX_PAYLOAD:
+            raise bad(f"bad RIFF size {riff_size}")
+        if riff_size > n - 8:
+            raise bad(f"WebP file cut short (RIFF size {riff_size}, "
+                      f"{n - 8} bytes)")
+        pos = 12
+    canvas = None
+    if n - pos < 8:
+        raise bad("WebP file cut short")
+    if data[pos:pos + 4] == b"VP8X":
+        if _uint_le(data, pos + 4, 4) != 10:
+            raise bad("bad VP8X chunk size")
+        if n - pos < 18:
+            raise bad("WebP file cut short")
+        canvas = (1 + _uint_le(data, pos + 12, 3),
+                  1 + _uint_le(data, pos + 15, 3))
+        if canvas[0] * canvas[1] >= _WEBP_MAX_AREA:
+            raise bad("WebP canvas too large")
+        if _uint_le(data, pos + 8, 4) & _VP8X_ANIMATION:
+            raise bad("animated WebP")
+        pos += 18
+        found_vp8x = True
+    if n - pos < 4:
+        raise bad("WebP file cut short")
+    alpha = None
+    if (riff_size and found_vp8x) or (not riff_size and not found_vp8x
+                                      and data[pos:pos + 4] == b"ALPH"):
+        total = 22                        # "WEBP" + the VP8X chunk
+        while True:                       # ParseOptionalChunks
+            if n - pos < 8:
+                raise bad("WebP file cut short before its image chunk")
+            size = _uint_le(data, pos + 4, 4)
+            if size > _WEBP_MAX_PAYLOAD:
+                raise bad("bad WebP chunk size")
+            disk = (8 + size + 1) & ~1
+            total += disk
+            if riff_size and total > riff_size:
+                raise bad(f"WebP chunk {data[pos:pos + 4]!r} runs past the "
+                          f"RIFF size")
+            if data[pos:pos + 4] in (b"VP8 ", b"VP8L"):
+                break
+            if n - pos < disk:
+                raise bad("WebP file cut short before its image chunk")
+            if data[pos:pos + 4] == b"ALPH":
+                alpha = data[pos + 8:pos + 8 + size]
+            pos += disk
+    if n - pos < 8:
+        raise bad("WebP file cut short")
+    tag = data[pos:pos + 4]
+    if tag in (b"VP8 ", b"VP8L"):
+        size = _uint_le(data, pos + 4, 4)
+        if riff_size >= 12 and size > riff_size - 12:
+            raise bad(f"WebP {tag.decode()} chunk larger than its RIFF")
+        if size > n - pos - 8:
+            raise bad(f"WebP {tag.decode()} chunk cut short")
+        pos += 8
+        lossless = tag == b"VP8L"
+    else:                                 # a bare bitstream
+        size = n - pos
+        lossless = size >= 5 and data[pos] == 0x2F and not data[pos + 4] >> 5
+    if size > _WEBP_MAX_PAYLOAD:
+        raise bad("bad WebP chunk size")
+    if n - pos < (5 if lossless else 10):
+        raise bad("WebP image chunk cut short")
+    info = _webp_info(data[pos:pos + 10], lossless, size)
+    if info is None:
+        raise bad(f"bad {'VP8L' if lossless else 'VP8'} header")
+    if canvas is not None and canvas != info:
+        raise bad(f"WebP image {info[0]}x{info[1]} differs from its canvas "
+                  f"{canvas[0]}x{canvas[1]}")
+    return pos, size, lossless, info, alpha
+
+
+def _webp_decode(data: bytes, path):
+    """A still WebP (or an animation frame's chunks) → ((H, W, 3) uint8
+    RGB, (H, W) uint8 alpha or None), as WebPDecode decodes it: the
+    bitstream read to the end of ``data``, an ALPH chunk decoded (and
+    required valid) beside a VP8 image, a VP8L image's own alpha."""
+    import ctypes
+
+    pos, size, lossless, (w, h), alph = _webp_bitstream(data, path)
+    lib = _load_webp_codec()
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    rgb = np.empty((h, w, 3), np.uint8)
+    alpha = np.empty((h, w), np.uint8) if lossless or alph is not None \
+        else None
+    aptr = alpha.ctypes.data_as(u8p) if alpha is not None else None
+    body = data[pos:]
+    if lossless:
+        rc = lib.webp_decode_vp8l(body, len(body), w, h,
+                                  rgb.ctypes.data_as(u8p), aptr, err, _ERRLEN)
+    else:
+        rc = lib.webp_decode_vp8(body, len(body), size, alph,
+                                 -1 if alph is None else len(alph), w, h,
+                                 rgb.ctypes.data_as(u8p), aptr, err, _ERRLEN)
+    if rc != 0:
+        raise RuntimeError(f"{path}: {err.value.decode()}")
+    return rgb, alpha
+
+
+class _WebPDemux:
+    """libwebp's WebPDemux over a whole file (demux.c: ReadHeader,
+    ParseSingleImage, ParseVP8X with its chunks and ANMF frames, then
+    IsValidSimpleFormat / IsValidExtendedFormat), as far as cv2's reading
+    depends on it: ``valid``, the canvas, the frames (x, y, width, height,
+    (start, end) of their ALPH-to-image bytes) and the first EXIF chunk
+    stored (only under the VP8X EXIF flag)."""
+
+    def __init__(self, data: bytes):
+        self.data, self.frames, self.exif = data, [], None
+        self.canvas, self.flags, self.ext = (0, 0), 0, False
+        self.valid = self._parse()
+
+    def _parse(self) -> bool:
+        d = self.data
+        if len(d) < 20 or d[:4] != b"RIFF" or d[8:12] != b"WEBP":
+            return False
+        riff = _uint_le(d, 4, 4)
+        if riff < 8 or riff > _WEBP_MAX_PAYLOAD or len(d) < riff + 8:
+            return False                  # (a partial file is refused)
+        self.end, self.pos = riff + 8, 12
+        tag = d[12:16]
+        if tag in (b"VP8 ", b"VP8L"):
+            ok = self._single_image()
+        elif tag == b"VP8X":
+            ok = self._vp8x()
+        else:
+            return False
+        return ok and self._valid_format()
+
+    def _left(self) -> int:
+        return self.end - self.pos
+
+    def _store_frame(self, frame: dict, min_size: int = 0) -> bool:
+        """StoreFrame: an optional ALPH and a VP8/VP8L chunk; False where
+        libwebp's parse fails (or needs data the file does not hold)."""
+        d = self.data
+        if self._left() < 8 or self._left() < min_size:
+            return False
+        alpha_chunks = image_chunks = 0
+        while True:
+            start = self.pos
+            tag, size = d[start:start + 4], _uint_le(d, start + 4, 4)
+            if size > _WEBP_MAX_PAYLOAD:
+                return False
+            padded = size + (size & 1)
+            self.pos += 8
+            if padded > self._left():
+                return False
+            if tag == b"ALPH" and alpha_chunks == 0:
+                alpha_chunks = 1
+                frame["alpha"] = start
+                self.pos += padded
+            elif tag in (b"VP8 ", b"VP8L") and image_chunks == 0:
+                if tag == b"VP8L" and alpha_chunks:
+                    return False          # VP8L carries its own alpha
+                info = _webp_info(d[start + 8:start + 8 + min(padded, 10)],
+                                  tag == b"VP8L", size) \
+                    if 8 + padded >= 12 else None
+                if info is None:
+                    return False
+                image_chunks = 1
+                frame["size"] = info
+                frame["image"] = (start, start + 8 + padded)
+                self.pos += padded
+            else:
+                self.pos -= 8             # back up: the frame ends here
+                break
+            if self.pos == self.end:
+                break
+            if self._left() < 8:
+                return False
+        return True
+
+    def _single_image(self) -> bool:
+        if self.frames or self._left() < 8:
+            return False
+        frame = {"x": 0, "y": 0}
+        if not self._store_frame(frame):
+            return False
+        if "image" not in frame:
+            return False                  # an ALPH without its image
+        if not self.ext:
+            self.canvas = frame["size"]
+        self.frames.append(frame)
+        return True
+
+    def _vp8x(self) -> bool:
+        d = self.data
+        if self._left() < 8:
+            return False
+        self.ext = True
+        size = _uint_le(d, self.pos + 4, 4)
+        if size > _WEBP_MAX_PAYLOAD or size < 10:
+            return False
+        size += size & 1
+        self.pos += 8
+        if size > self._left():
+            return False
+        self.flags = d[self.pos]
+        self.canvas = (1 + _uint_le(d, self.pos + 4, 3),
+                       1 + _uint_le(d, self.pos + 7, 3))
+        if self.canvas[0] * self.canvas[1] >= _WEBP_MAX_AREA:
+            return False
+        self.pos += size
+        if self._left() < 8:
+            return False
+        animation = bool(self.flags & _VP8X_ANIMATION)
+        anim_chunks = 0
+        while True:
+            start = self.pos
+            tag, size = d[start:start + 4], _uint_le(d, start + 4, 4)
+            if size > _WEBP_MAX_PAYLOAD:
+                return False
+            padded = size + (size & 1)
+            if padded > self._left() - 8:
+                return False
+            if tag == b"VP8X":
+                return False
+            if tag in (b"ALPH", b"VP8 ", b"VP8L"):
+                if anim_chunks or animation or not self._single_image():
+                    return False
+            elif tag == b"ANIM":
+                if padded < 6:
+                    return False
+                if anim_chunks == 0:
+                    anim_chunks = 1
+                self.pos += 8 + padded
+            elif tag == b"ANMF":
+                if anim_chunks == 0 or not self._anmf(padded):
+                    return False
+            else:
+                if tag == b"EXIF" and self.flags & _VP8X_EXIF and \
+                        self.exif is None:
+                    self.exif = d[start + 8:start + 8 + size]
+                self.pos += 8 + padded
+            if self.pos == self.end:
+                return True
+            if self._left() < 8:
+                return False
+
+    def _anmf(self, padded: int) -> bool:
+        d = self.data
+        self.pos += 8
+        if padded < 16 or self._left() < 16:
+            return False
+        p = self.pos
+        frame = {"x": 2 * _uint_le(d, p, 3), "y": 2 * _uint_le(d, p + 3, 3)}
+        if (1 + _uint_le(d, p + 6, 3)) * (1 + _uint_le(d, p + 9, 3)) \
+                >= _WEBP_MAX_AREA:
+            return False
+        self.pos += 16
+        start = self.pos
+        if not self._store_frame(frame, padded - 16):
+            return False
+        if self.pos - start > padded - 16:
+            return False
+        if "image" not in frame or not self.flags & _VP8X_ANIMATION:
+            return False
+        self.frames.append(frame)
+        return True
+
+    def _valid_format(self) -> bool:
+        cw, ch = self.canvas
+        if cw <= 0 or ch <= 0 or not self.frames:
+            return False
+        if self.ext and self.flags & ~0x3E:
+            return False
+        animation = self.ext and bool(self.flags & _VP8X_ANIMATION)
+        for f in self.frames:
+            fw, fh = f["size"]
+            if not animation and len(self.frames) > 1:
+                return False
+            if not animation and (f["x"], f["y"], fw, fh) != (0, 0, cw, ch):
+                return False
+            if f["x"] + fw > cw or f["y"] + fh > ch:
+                return False
+        return True
+
+    def frame_bytes(self, frame: dict) -> bytes:
+        """GetFramePayload: from the ALPH chunk (if any) to the image
+        chunk's end."""
+        start = frame.get("alpha", frame["image"][0])
+        return self.data[start:frame["image"][1]]
+
+
+def _exif_orientation(t: bytes) -> int:
+    """OpenCV's ExifReader on an EXIF chunk: little-endian after ``II``,
+    big-endian otherwise; the TIFF mark 42; IFD0's entries in order up to
+    tag 0x0112, whose value it returns (1-8; 1 otherwise, and where a read
+    runs past the chunk)."""
+    e = "<" if t[:2] == b"II" else ">"
+
+    def u16(o):
+        if o + 1 >= len(t):
+            raise IndexError(o)
+        return struct.unpack_from(e + "H", t, o)[0]
+
+    try:
+        if u16(2) != 42 or 4 + 3 >= len(t):
+            return 1
+        ifd = struct.unpack_from(e + "I", t, 4)[0]
+        for i in range(u16(ifd)):
+            entry = ifd + 2 + 12 * i
+            if u16(entry) == 0x0112:
+                value = u16(entry + 8)
+                return value if 1 <= value <= 8 else 1
+    except IndexError:
+        pass
+    return 1
+
+
+def _decode_webp_file(path):
+    """A WebP file → ((H, W, 3) uint8 RGB, (H, W) uint8 alpha or None), as
+    cv2 decodes it: a still image by WebPDecode, an animation (the VP8X
+    animation flag) by WebPAnimDecoder's first frame on a transparent black
+    canvas; the EXIF orientation of the demuxed file's first EXIF chunk
+    applied."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) < 32:            # OpenCV reads a 32-byte header first
+        raise RuntimeError(f"{path}: WebP file of {len(data)} bytes, "
+                           f"shorter than cv2's 32-byte header")
+    if data[12:16] == b"VP8X":
+        if _uint_le(data, 16, 4) != 10:
+            raise RuntimeError(f"{path}: bad VP8X chunk size")
+        cw, ch = 1 + _uint_le(data, 24, 3), 1 + _uint_le(data, 27, 3)
+        if cw > 1 << 20 or ch > 1 << 20 or cw * ch > 1 << 30:
+            raise RuntimeError(f"{path}: a {cw}x{ch} WebP canvas, past "
+                               f"cv2's image size limits")
+    demux = _WebPDemux(data)
+    animated = data[12:16] == b"VP8X" and data[20] & _VP8X_ANIMATION
+    if animated:
+        if not demux.valid:
+            raise RuntimeError(f"{path}: invalid animated WebP (its frames "
+                               f"or chunks do not parse)")
+        first = demux.frames[0]
+        rgb1, alpha1 = _webp_decode(demux.frame_bytes(first), path)
+        cw, ch = demux.canvas
+        rgb = np.zeros((ch, cw, 3), np.uint8)
+        alpha = np.zeros((ch, cw), np.uint8)
+        fh, fw = rgb1.shape[:2]
+        rgb[first["y"]:first["y"] + fh, first["x"]:first["x"] + fw] = rgb1
+        alpha[first["y"]:first["y"] + fh, first["x"]:first["x"] + fw] = \
+            255 if alpha1 is None else alpha1
+    else:
+        rgb, alpha = _webp_decode(data, path)
+    orientation = _exif_orientation(demux.exif) \
+        if demux.valid and demux.exif else 1
+    rgb = _apply_orientation(rgb, orientation)
+    if alpha is not None:
+        alpha = _apply_orientation(alpha[..., None], orientation)[..., 0]
+    return rgb, alpha
+
+
+def read_webp(path) -> np.ndarray:
+    """A WebP file → (H, W, 3) uint8 RGB, bit for bit what
+    ``cv2.imread(path)[..., ::-1]`` gives (libwebp's default decoding, the
+    port's own VP8L and VP8 decoders in ``csrc/webp_codec.cpp``): lossless
+    and lossy, alpha (an ALPH chunk or VP8L's own) decoded and dropped,
+    extended (VP8X) files with their EXIF orientation, an animation's first
+    frame on its canvas (black outside the frame).  Raises ``RuntimeError``
+    naming the file where cv2 returns None (a file cut short, a chunk size
+    past the RIFF, a corrupt bitstream or ALPH chunk, ...)."""
+    return _decode_webp_file(path)[0]
+
+
+def write_webp(path, img: np.ndarray):
+    """(H, W, 3) uint8 RGB → a lossless (VP8L) WebP, what
+    ``cv2.imwrite(name.webp, bgr)`` writes by default.  The bytes are the
+    port's small encoder's (subtract-green, a predictor a 32x32 tile, LZ77
+    against the left and upper pixels); the pixels any decoder reads back
+    are the input's."""
+    import ctypes
+
+    img = _rgb_u8(img, "write_webp")
+    height, width = img.shape[:2]
+    if width > 16384 or height > 16384:
+        raise ValueError(f"{path}: {width}x{height} is past WebP's 16384 "
+                         f"pixel limit")
+    lib = _load_webp_codec()
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    cap = img.size + img.size // 8 + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.webp_encode_vp8l(img.ctypes.data_as(u8p), width, height,
+                                 out.ctypes.data_as(u8p), cap)
+        if n >= 0:
+            break
+        cap = -2 - n
+    body = out[:n].tobytes() + b"\x00" * (n & 1)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 12 + len(body)) + b"WEBPVP8L"
+                + struct.pack("<I", n) + body)
+
+
 # Formats cv2 reads and the port does not yet: (signature test, name)
 _UNPORTED = (
-    (lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP", "WebP"),
     (lambda h: h[:6] in (b"GIF87a", b"GIF89a"), "GIF"),
     (lambda h: h[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n"
      or h[:4] == b"\xff\x4f\xff\x51", "JPEG 2000"),
@@ -966,12 +1436,11 @@ def read_image(fn: str) -> np.ndarray:
     """An image file → (H, W, 3) uint8 RGB, what ``cv2.imread`` then
     ``COLOR_BGR2RGB`` gives the JAX package.  The format is the file's
     signature, not its extension (as for ``cv2.imread``): PNG, JPEG, TIFF
-    (``II*\\0``, ``MM\\0*``), BMP (``BM``) and PNM (``P1``-``P6``) through
-    the port's own readers.  A format cv2 reads that the port does not yet
-    (WebP, GIF, JPEG 2000, AVIF, Radiance HDR, PFM, PAM, Sun raster,
-    BigTIFF), and
-    any other file, raises ``RuntimeError`` naming the file and the
-    format."""
+    (``II*\\0``, ``MM\\0*``), BMP (``BM``), PNM (``P1``-``P6``) and WebP
+    (``RIFF....WEBP``) through the port's own readers.  A format cv2 reads
+    that the port does not yet (GIF, JPEG 2000, AVIF, Radiance HDR, PFM,
+    PAM, Sun raster, BigTIFF), and any other file, raises ``RuntimeError``
+    naming the file and the format."""
     with open(fn, "rb") as f:
         head = f.read(32)
     if head.startswith(PNG_SIGNATURE):
@@ -982,6 +1451,8 @@ def read_image(fn: str) -> np.ndarray:
         return read_tiff(fn)
     if head.startswith(b"BM"):
         return read_bmp(fn)
+    if head[:4] == WEBP_SIGNATURE[0] and head[8:12] == WEBP_SIGNATURE[1]:
+        return read_webp(fn)
     if head[:1] == b"P" and head[1:2] in (b"1", b"2", b"3", b"4", b"5",
                                           b"6") and head[2:3].isspace():
         return read_pnm(fn)

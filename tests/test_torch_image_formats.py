@@ -2,9 +2,11 @@
 (``utils/image_io``: interlaced PNG, TIFF through ``csrc/tiff_codec.cpp``,
 BMP, PNM) against cv2, the JAX package's reader and writer: decodes bit for
 bit, encodes byte for byte; the committed fixtures of ``tests/torch_images/``
-(``tests/torch_make_image_fixtures.py``) where cv2 is absent; scenes of each
-format loaded by JAX's ``Splatter`` (cv2) and the port's (cv2 made
-unimportable); the port's pyramid against JAX's ``downsample.py``.
+(``tests/torch_make_image_fixtures.py``, WebP's too) where cv2 is absent;
+scenes of each format (WebP lossless and lossy too) loaded by JAX's
+``Splatter`` (cv2) and the port's (cv2 made unimportable); the port's
+pyramid against JAX's ``downsample.py``.  WebP's own tests are in
+``tests/test_torch_webp.py``.
 
 The cv2 tests take cv2 with ``pytest.importorskip`` inside a fixture (PIL
 where it writes the file); the fixture tests need neither.
@@ -65,10 +67,12 @@ def fixture_results(tmp_path_factory):
     return fx.check(scratch=str(tmp_path_factory.mktemp("fx")))
 
 
-@pytest.mark.parametrize("name", fx.CASES + fx.REFUSED + fx.ENCODED)
+@pytest.mark.parametrize("name", fx.CASES + fx.REFUSED + fx.ENCODED
+                         + fx.ROUND_TRIP)
 def test_committed_fixture(fixture_results, name):
     # no cv2 here: each file against cv2's recorded decode (REFUSED: the
-    # port raises naming the file; ENCODED: the writer's bytes are cv2's)
+    # port raises naming the file; ENCODED: the writer's bytes are cv2's;
+    # ROUND_TRIP: the writer's file reads back as its source)
     assert fixture_results[name] is True
 
 
@@ -399,7 +403,7 @@ def test_pnm_writer_matches_cv2_bytes(cv2, tmp_path, ext):
 # ----------------------------------------------------- unported formats
 
 
-_UNPORTED = {"webp": "WebP", "gif": "GIF", "jp2": "JPEG 2000",
+_UNPORTED = {"gif": "GIF", "jp2": "JPEG 2000",
              "avif": "AVIF", "hdr": "Radiance HDR", "pfm": "PFM",
              "pam": "PAM", "ras": "Sun raster"}
 
@@ -442,7 +446,10 @@ def test_not_an_image_raises_naming_the_file(tmp_path):
 # ------------------------------------------------------ scenes, pyramid
 
 
-_SCENE_FORMATS = {"tiff": ".tif", "bmp": ".bmp", "pnm": ".ppm"}
+_SCENE_FORMATS = {"tiff": ".tif", "bmp": ".bmp", "pnm": ".ppm",
+                  "webp": ".webp", "webp_lossy": ".webp"}
+# cv2.imwrite's parameters where a scene is not written with its defaults
+_SCENE_PARAMS = {"webp_lossy": ("IMWRITE_WEBP_QUALITY", 90)}
 
 
 @pytest.fixture(scope="module")
@@ -456,14 +463,20 @@ def capture_scene(tmp_path_factory):
     return root
 
 
-def _convert_scene(cv2, root, dst, ext):
-    """A copy of the JPG scene whose views cv2 rewrote as ``ext``."""
+def _convert_scene(cv2, root, dst, fmt):
+    """A copy of the JPG scene whose views cv2 rewrote as format ``fmt``
+    (``_SCENE_FORMATS``)."""
+    ext = _SCENE_FORMATS[fmt]
+    params = []
+    if fmt in _SCENE_PARAMS:
+        name, value = _SCENE_PARAMS[fmt]
+        params = [getattr(cv2, name), value]
     shutil.copytree(root / "sparse", dst / "sparse")
     images = dst / "images_1"
     images.mkdir()
     for name in sorted(os.listdir(root / "images_1")):
         img = cv2.imread(str(root / "images_1" / name))
-        assert cv2.imwrite(str(images / (name[:-4] + ext)), img)
+        assert cv2.imwrite(str(images / (name[:-4] + ext)), img, params)
     path = dst / "sparse" / "0" / "images.bin"
     path.write_bytes(path.read_bytes().replace(b".jpg\x00",
                                                ext.encode() + b"\x00"))
@@ -478,7 +491,7 @@ def test_scene_loads_as_jax_loads_it(cv2, capture_scene, tmp_path, fmt):
     from gsplat_tpu_torch.config import SplatConfig as TCfg
     from gsplat_tpu_torch.models.splatter import Splatter as TSplatter
 
-    paths = _convert_scene(cv2, capture_scene, tmp_path, _SCENE_FORMATS[fmt])
+    paths = _convert_scene(cv2, capture_scene, tmp_path, fmt)
     jsplat = JSplatter(*paths, JCfg(plane_mode="dense", use_pallas=False,
                                     capacity_round=256, render_downsample=1))
     with mock.patch.dict(sys.modules, {"cv2": None}):
@@ -496,12 +509,13 @@ def test_scene_loads_as_jax_loads_it(cv2, capture_scene, tmp_path, fmt):
                                       np.asarray(jg.images))
 
 
-@pytest.mark.parametrize("fmt", ["tiff", "bmp"])
+@pytest.mark.parametrize("fmt", ["tiff", "bmp", "webp"])
 def test_downsample_matches_jax_script(cv2, capture_scene, tmp_path, fmt):
     # the JAX root downsample.py (cv2) and the port's module over a folder
-    # of one format: the same files, byte for byte
-    _, src = _convert_scene(cv2, capture_scene, tmp_path / "scene",
-                            _SCENE_FORMATS[fmt])
+    # of one format: the same files, byte for byte (WebP: the same pixels,
+    # as cv2 and the port decode them, since libwebp's lossless encoder
+    # chooses its bytes by searching)
+    _, src = _convert_scene(cv2, capture_scene, tmp_path / "scene", fmt)
     for script, dst in ((["downsample.py"], "jax"),
                         (["-m", "gsplat_tpu_torch.downsample"], "port")):
         subprocess.run([sys.executable, *script, "--src", src, "--dst",
@@ -510,5 +524,12 @@ def test_downsample_matches_jax_script(cv2, capture_scene, tmp_path, fmt):
     names = sorted(os.listdir(tmp_path / "jax"))
     assert names == sorted(os.listdir(tmp_path / "port")) and len(names) == 7
     for name in names:
-        assert (tmp_path / "jax" / name).read_bytes() == \
-            (tmp_path / "port" / name).read_bytes(), name
+        jax_file, port_file = tmp_path / "jax" / name, tmp_path / "port" / name
+        if fmt != "webp":
+            assert jax_file.read_bytes() == port_file.read_bytes(), name
+            continue
+        assert port_file.read_bytes()[12:16] == b"VP8L", name
+        want = cv2.imread(str(jax_file))[..., ::-1]
+        for got in (cv2.imread(str(port_file))[..., ::-1],
+                    read_image(str(port_file)), read_image(str(jax_file))):
+            np.testing.assert_array_equal(got, want, err_msg=name)

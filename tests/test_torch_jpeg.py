@@ -22,6 +22,7 @@ import pytest
 from gsplat_tpu_torch.utils.image_io import read_image, read_jpeg, \
     write_jpeg, write_png
 
+import torch_make_image_fixtures as ifx
 import torch_make_jpeg_fixtures as fixtures
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -103,6 +104,22 @@ def test_exif_orientation_matches_cv2(cv2, tmp_path, orientation):
 _ENCODE = [((1, 1), "noise"), ((9, 17), "noise"), ((17, 9), "smooth"),
            ((45, 61), "noise"), ((45, 61), "smooth"), ((37, 53), "smooth"),
            ((840, 1297), "smooth")]
+
+
+@pytest.mark.parametrize("case", list(ifx.exif_edge_cases()))
+def test_exif_reader_edge_cases_match_cv2(cv2, tmp_path, case):
+    # OpenCV's ExifReader: big-endian unless "II", the TIFF mark 42, the
+    # first orientation entry, reads bounded by the segment
+    payload, orientation = ifx.exif_edge_cases()[case]
+    img = ifx.fixture_image(20, 30, seed=2)
+    data = cv2.imencode(".jpg", img[..., ::-1])[1].tobytes()
+    body = b"Exif\x00\x00" + payload
+    path = tmp_path / "exif.jpg"
+    path.write_bytes(data[:2] + b"\xff\xe1" + (len(body) + 2).to_bytes(
+        2, "big") + body + data[2:])
+    got = read_jpeg(str(path))
+    np.testing.assert_array_equal(got, cv2.imread(str(path))[..., ::-1])
+    assert got.shape[:2] == ((30, 20) if orientation > 4 else (20, 30))
 
 
 @pytest.mark.parametrize("size,kind", _ENCODE,
@@ -228,8 +245,6 @@ def test_read_image_goes_by_signature(tmp_path):
 @pytest.fixture(scope="module")
 def jpeg_tools(tmp_path_factory):
     pytest.importorskip("PIL")
-    import torch_make_image_fixtures as ifx
-
     try:
         return ifx._jpeg_tools(str(tmp_path_factory.mktemp("jpegw")))
     except (OSError, IndexError, subprocess.CalledProcessError) as err:

@@ -403,7 +403,7 @@ def test_stage_timer_records_on_the_cpu():
 
 
 def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
-    # the card's machine has no cv2: PNGs and JPEGs load through
+    # the card's machine has no cv2: PNGs, JPEGs and WebPs load through
     # utils/image_io, equal to what JAX reads with cv2; a format the port
     # does not read yet raises an error naming the file and the format
     cv2 = pytest.importorskip("cv2")
@@ -411,17 +411,21 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
         read_image
 
     ref = _j_splat(scene).cameras.images      # JAX reads them with cv2
-    jpg = tmp_path / "photo.jpg"
-    cv2.imwrite(str(jpg), np.asarray(ref[0]).transpose(1, 2, 0)[..., ::-1])
+    view = np.asarray(ref[0]).transpose(1, 2, 0)[..., ::-1]
+    jpg, webp = tmp_path / "photo.jpg", tmp_path / "photo.webp"
+    cv2.imwrite(str(jpg), view)
+    cv2.imwrite(str(webp), view, [cv2.IMWRITE_WEBP_QUALITY, 90])
     want = cv2.cvtColor(cv2.imread(str(jpg)), cv2.COLOR_BGR2RGB)
+    want_webp = cv2.cvtColor(cv2.imread(str(webp)), cv2.COLOR_BGR2RGB)
     monkeypatch.setitem(sys.modules, "cv2", None)
     groups = load_scene_camera_groups(*_paths(scene), 4, device="cpu")
     assert groups[0].images.shape == (9, 3, 48, 64)
     np.testing.assert_array_equal(groups[0].images.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(read_image(str(jpg)), want)
-    other = tmp_path / "photo.webp"
-    other.write_bytes(b"RIFF\x00\x00\x00\x00WEBP")
-    with pytest.raises(RuntimeError, match="photo.webp.*WebP.*not read yet"):
+    np.testing.assert_array_equal(read_image(str(webp)), want_webp)
+    other = tmp_path / "photo.gif"
+    other.write_bytes(b"GIF89a" + bytes(26))
+    with pytest.raises(RuntimeError, match="photo.gif.*GIF.*not read yet"):
         read_image(str(other))
 
 

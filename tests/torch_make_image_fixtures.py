@@ -3,22 +3,28 @@ port's readers take beyond plain PNG and JPEG, each with cv2's decode of it,
 so that ``utils/image_io.read_image`` can be held to cv2 where cv2 is not
 installed (the tier-1 tests, the card's machine).
 
-    python tests/torch_make_image_fixtures.py   # needs cv2, PIL, gcc and
-                                                # the system libjpeg
+    python tests/torch_make_image_fixtures.py          # needs cv2, PIL,
+                                                       # gcc, the system
+                                                       # libjpeg and libwebp
+    python tests/torch_make_image_fixtures.py --webp   # the WebP ones alone
 
 Each ``<name>.<ext>`` has ``<name>.want.png``, ``cv2.imread``'s decode of
 it (as RGB).  ``REFUSED`` names the files cv2 does not read (its
 ``imread`` gives None): the port must raise naming them.  ``enc_src.png``
 has ``enc_src.bmp``, ``enc_src.ppm`` and ``enc_src.tif``, the bytes of
-``cv2.imwrite``'s defaults.
+``cv2.imwrite``'s defaults; ``ROUND_TRIP`` names what the port writes and
+must read back as ``enc_src.png`` (WebP).
 
 The writers: a small C program, built here, over the system libjpeg-turbo
 (arithmetic-coded JPEG with DAC conditioning, YCCK, 2 components) and over
-Pillow's bundled libjpeg-turbo 3 (lossless and 12-bit JPEG); PIL (CMYK
-JPEG, BMP); ``cv2.imwrite`` (TIFF compressions, 16-bit TIFF, BMP, PNM);
-bytes written here (Adam7 PNG, tiled / planar / big-endian / palette TIFF,
-RLE BMP, PNM text files, a hierarchical frame) and cuts of the files
-written.  ``check(folder)`` imports neither cv2 nor PIL.
+Pillow's bundled libjpeg-turbo 3 (lossless and 12-bit JPEG); another over
+the system libwebp's encoder (lossy WebP options cv2 and PIL do not
+expose, palettes, alpha); PIL (CMYK JPEG, BMP, lossless WebP);
+``cv2.imwrite`` (TIFF compressions, 16-bit TIFF, BMP, PNM, WebP); bytes
+written here (Adam7 PNG, tiled / planar / big-endian / palette TIFF, RLE
+BMP, PNM text files, a hierarchical frame, WebP containers: VP8X, ALPH,
+EXIF, ICCP, ANIM / ANMF) and cuts and corruptions of the files written.
+``check(folder)`` imports neither cv2 nor PIL.
 """
 
 from __future__ import annotations
@@ -60,14 +66,33 @@ CASES = [
     "pnm_p1.pbm", "pnm_p4.pbm",
     *[f"pnm_{kind}_{maxval}.{'pgm' if kind in ('p2', 'p5') else 'ppm'}"
       for kind in ("p2", "p3", "p5", "p6") for maxval in (255, 7, 1000)],
+    # WebP
+    "webp_lossless.webp", "webp_lossless_m6.webp", "webp_lossless_pal2.webp",
+    "webp_lossless_pal4.webp", "webp_lossless_pal16.webp",
+    "webp_lossless_pal256.webp", "webp_lossless_alpha.webp",
+    "webp_near_lossless.webp", "webp_lossy.webp", "webp_lossy_parts4.webp",
+    "webp_lossy_simple_filter.webp", "webp_lossy_no_filter.webp",
+    "webp_lossy_sharp_yuv.webp", "webp_lossy_alpha_raw.webp",
+    "webp_lossy_alpha_lossless.webp", "webp_lossy_alpha_gradient.webp",
+    "webp_exif_orientation6.webp", "webp_iccp.webp",
+    "webp_animated_offset.webp",
 ]
 REFUSED = ["jpeg_12bit.jpg", "jpeg_hierarchical.jpg", "jpeg_2comp.jpg",
            "jpeg_lossless_gray.jpg", "tiff_gray_alpha.tif",
-           "tiff_palette2.tif"]
+           "tiff_palette2.tif", "webp_cut.webp", "webp_chunk_past_riff.webp",
+           "webp_bad_alph.webp", "webp_frame_outside_canvas.webp"]
 ENCODED = ["enc_src.bmp", "enc_src.ppm", "enc_src.tif"]
+# written by the port and read back (the WebP writer is held to pixels,
+# not to cv2's bytes: libwebp's lossless encoder searches its options)
+ROUND_TRIP = ["enc_src.webp"]
 # a full-size view for the decode seconds of an arithmetic-coded JPEG
 # (chip_smoke.py); no decode beside it, the tests hold it to cv2
 TIMING = "timing_arith_1297x840.jpg"
+# the same view through cv2.imwrite at IMWRITE_WEBP_QUALITY 90, and the
+# SHA-256 of cv2's decode of it (RGB, row-major bytes)
+TIMING_WEBP = "timing_lossy_1297x840.webp"
+TIMING_WEBP_SHA256 = ("92e73568b2ca4c0d9cb0eff6028f7e05"
+                      "6f6712ac41c261c4264e8593f9dcf279")
 
 _JPEGW = r"""
 #include <stdio.h>
@@ -131,6 +156,53 @@ int main(int argc, char **argv) {
     else jpeg_write_scanlines(&ci, &row, 1);
   }
   jpeg_finish_compress(&ci);
+  fclose(o);
+  return 0;
+}
+"""
+
+
+_WEBPW = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <webp/encode.h>
+/* webpw OUT RAW W H C [FIELD VALUE]...: RAW holds H*W*C bytes (C = 3 or
+   4); each FIELD a member of WebPConfig. */
+int main(int argc, char **argv) {
+  const char *out = argv[1], *raw = argv[2];
+  int W = atoi(argv[3]), H = atoi(argv[4]), C = atoi(argv[5]);
+  size_t n = (size_t)W * H * C;
+  unsigned char *buf = malloc(n);
+  FILE *f = fopen(raw, "rb");
+  if (!f || fread(buf, 1, n, f) != n) return 2;
+  fclose(f);
+  WebPConfig cfg;
+  if (!WebPConfigInit(&cfg)) return 3;
+  for (int i = 6; i + 1 < argc; i += 2) {
+    const char *k = argv[i];
+    double v = atof(argv[i + 1]);
+#define F(name) else if (!strcmp(k, #name)) cfg.name = v;
+    if (0) {}
+    F(lossless) F(quality) F(method) F(segments) F(sns_strength)
+    F(filter_strength) F(filter_sharpness) F(filter_type) F(autofilter)
+    F(alpha_compression) F(alpha_filtering) F(alpha_quality) F(pass)
+    F(preprocessing) F(partitions) F(near_lossless) F(exact) F(use_sharp_yuv)
+    else return 4;
+  }
+  if (!WebPValidateConfig(&cfg)) return 5;
+  WebPPicture pic;
+  if (!WebPPictureInit(&pic)) return 3;
+  pic.width = W; pic.height = H; pic.use_argb = 1;
+  if (!(C == 4 ? WebPPictureImportRGBA(&pic, buf, W * 4)
+               : WebPPictureImportRGB(&pic, buf, W * 3))) return 6;
+  WebPMemoryWriter wr;
+  WebPMemoryWriterInit(&wr);
+  pic.writer = WebPMemoryWrite;
+  pic.custom_ptr = &wr;
+  if (!WebPEncode(&cfg, &pic)) return 7;
+  FILE *o = fopen(out, "wb");
+  fwrite(wr.mem, 1, wr.size, o);
   fclose(o);
   return 0;
 }
@@ -211,6 +283,205 @@ def _cut(data: bytes, fraction: float) -> bytes:
         if end > at:
             return data[:max(at, start + 1)]
     raise ValueError("no scan data past the cut")
+
+
+# ------------------------------------------------------------ WebP writers
+
+
+def _webp_tool(tmp: str):
+    """A C writer over the system libwebp's encoder (``encode.h``,
+    ``-lwebp``): ``write(path, (H, W, 3|4) uint8, field, value, ...)`` with
+    any WebPConfig fields (lossy options cv2 and PIL do not expose)."""
+    src = os.path.join(tmp, "webpw.c")
+    with open(src, "w") as f:
+        f.write(_WEBPW)
+    tool = os.path.join(tmp, "webpw")
+    subprocess.run(["gcc", "-O1", "-o", tool, src, "-lwebp"], check=True,
+                   capture_output=True)
+
+    def write(path, arr, *opts):
+        arr = np.ascontiguousarray(arr, np.uint8)
+        raw = os.path.join(tmp, "in.raw")
+        arr.tofile(raw)
+        h, w = arr.shape[:2]
+        subprocess.run([tool, str(path), raw, str(w), str(h),
+                        str(arr.shape[2]), *map(str, opts)], check=True)
+    return write
+
+
+def webp_chunks(data: bytes) -> list:
+    """A RIFF WebP's top-level chunks: [(tag, payload)]."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        out.append((data[pos:pos + 4], data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def webp_chunk(tag: bytes, payload: bytes) -> bytes:
+    return tag + struct.pack("<I", len(payload)) + payload + \
+        b"\x00" * (len(payload) & 1)
+
+
+def webp_riff(body: bytes) -> bytes:
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def webp_vp8x(flags: int, w: int, h: int) -> bytes:
+    """A VP8X chunk (flags: 0x20 ICC, 0x10 alpha, 0x08 EXIF, 0x04 XMP,
+    0x02 animation) for a w x h canvas."""
+    return webp_chunk(b"VP8X", struct.pack("<I", flags)
+                      + (w - 1).to_bytes(3, "little")
+                      + (h - 1).to_bytes(3, "little"))
+
+
+def webp_exif(orientation: int, endian: str = "<") -> bytes:
+    """A TIFF-structured EXIF payload: IFD0 with tag 0x0112 only."""
+    return ((b"II*\x00" if endian == "<" else b"MM\x00*")
+            + struct.pack(endian + "IH", 8, 1)
+            + struct.pack(endian + "HHIHH", 0x0112, 3, 1, orientation, 0)
+            + bytes(4))
+
+
+def exif_edge_cases() -> dict:
+    """EXIF payloads that OpenCV's ExifReader reads in its own way: name ->
+    (payload, the orientation cv2 applies)."""
+    six = webp_exif(6)
+    two = six[:8] + struct.pack("<H", 2) + struct.pack(
+        "<HHIHH", 0x0112, 3, 1, 3, 0) + struct.pack(
+        "<HHIHH", 0x0112, 3, 1, 6, 0) + bytes(4)
+    return {
+        "intel": (six, 6),
+        "motorola": (webp_exif(6, ">"), 6),
+        "mark_43": (six.replace(b"II*\x00", b"II+\x00"), 1),
+        "xx_read_big_endian": (b"XX" + webp_exif(6, ">")[2:], 6),
+        "im_read_big_endian": (b"IM" + webp_exif(6, ">")[2:], 6),
+        "entry_cut_after_value": (six[:20], 6),
+        "entry_cut_in_value": (six[:19], 1),
+        "value_9": (webp_exif(9), 1),
+        "first_of_two": (two, 3),
+    }
+
+
+def webp_anmf(x: int, y: int, w: int, h: int, frame: bytes,
+              flags: int = 0) -> bytes:
+    """An ANMF chunk: a frame at (x, y) (even), w x h, 100 ms, holding
+    ``frame`` (its ALPH / VP8 / VP8L chunks)."""
+    return webp_chunk(b"ANMF", (x // 2).to_bytes(3, "little")
+                      + (y // 2).to_bytes(3, "little")
+                      + (w - 1).to_bytes(3, "little")
+                      + (h - 1).to_bytes(3, "little")
+                      + (100).to_bytes(3, "little") + bytes([flags]) + frame)
+
+
+def webp_anim(canvas_w: int, canvas_h: int, frames: list,
+              flags: int = 0x02) -> bytes:
+    """An animated WebP: VP8X, ANIM (opaque white background, looping),
+    then the ANMF chunks ``frames``."""
+    return webp_riff(webp_vp8x(flags, canvas_w, canvas_h)
+                     + webp_chunk(b"ANIM", struct.pack("<IH", 0xFFFFFFFF, 0))
+                     + b"".join(frames))
+
+
+def generate_webp(folder: str = FOLDER):
+    """The WebP fixtures (of CASES, REFUSED and TIMING_WEBP); returns the
+    SHA-256 of cv2's decode of the timing view."""
+    import hashlib
+
+    import cv2
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(13)
+    img = fixture_image(seed=4)
+    p = lambda name: os.path.join(folder, name)       # noqa: E731
+    alpha = (np.arange(W)[None, :, None] * 6 + np.arange(H)[:, None, None]
+             * 2).astype(np.uint8) + np.zeros((H, W, 1), np.uint8)
+    rgba = np.concatenate([img, alpha], axis=2)
+
+    def chunks_of(path):
+        with open(path, "rb") as f:
+            return webp_chunks(f.read())
+
+    def save(name, data):
+        with open(p(name), "wb") as f:
+            f.write(data)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        webpw = _webp_tool(tmp)
+        t = lambda name: os.path.join(tmp, name)      # noqa: E731
+        # lossless
+        cv2.imwrite(p("webp_lossless.webp"), img[..., ::-1])
+        Image.fromarray(img).save(p("webp_lossless_m6.webp"), lossless=True,
+                                  method=6, quality=100)
+        for ncol in (2, 4, 16, 256):
+            pal = rng.integers(0, 256, (ncol, 3)).astype(np.uint8)
+            webpw(p(f"webp_lossless_pal{ncol}.webp"),
+                  pal[rng.integers(0, ncol, (H, W))], "lossless", 1,
+                  "method", 4)
+        webpw(p("webp_lossless_alpha.webp"), rgba, "lossless", 1, "exact", 1)
+        webpw(p("webp_near_lossless.webp"), img, "lossless", 1,
+              "near_lossless", 40)
+        # lossy
+        webpw(p("webp_lossy.webp"), img, "quality", 80)
+        webpw(p("webp_lossy_parts4.webp"), img, "quality", 70, "partitions",
+              2, "segments", 4, "sns_strength", 90)
+        webpw(p("webp_lossy_simple_filter.webp"), img, "quality", 60,
+              "filter_type", 0, "filter_strength", 70, "filter_sharpness", 4)
+        webpw(p("webp_lossy_no_filter.webp"), img, "quality", 75,
+              "filter_strength", 0, "segments", 1)
+        webpw(p("webp_lossy_sharp_yuv.webp"), img, "quality", 85,
+              "use_sharp_yuv", 1)
+        webpw(p("webp_lossy_alpha_raw.webp"), rgba, "quality", 80,
+              "alpha_compression", 0, "alpha_filtering", 1)
+        webpw(p("webp_lossy_alpha_lossless.webp"), rgba, "quality", 80,
+              "alpha_compression", 1, "alpha_filtering", 2)
+        # a raw ALPH chunk under the gradient filter (bits 2-3 = 3)
+        webpw(t("lossy.webp"), img, "quality", 80)
+        vp8 = chunks_of(t("lossy.webp"))[0][1]
+        save("webp_lossy_alpha_gradient.webp", webp_riff(
+            webp_vp8x(0x10, W, H)
+            + webp_chunk(b"ALPH", b"\x0c" + rgba[..., 3].tobytes())
+            + webp_chunk(b"VP8 ", vp8)))
+        # extended: EXIF orientation, ICC profile
+        save("webp_exif_orientation6.webp", webp_riff(
+            webp_vp8x(0x08, W, H) + webp_chunk(b"VP8 ", vp8)
+            + webp_chunk(b"EXIF", webp_exif(6))))
+        save("webp_iccp.webp", webp_riff(
+            webp_vp8x(0x20, W, H) + webp_chunk(b"ICCP", bytes(range(61)))
+            + webp_chunk(b"VP8 ", vp8)))
+        # animated: a first frame smaller than the canvas, at an offset
+        small = fixture_image(12, 16, seed=5)
+        webpw(t("small.webp"), np.concatenate(
+            [small, np.full((12, 16, 1), 128, np.uint8)], 2), "quality", 90)
+        first = b"".join(webp_chunk(k, v) for k, v in
+                         chunks_of(t("small.webp")) if k != b"VP8X")
+        second = webp_chunk(b"VP8 ", vp8)
+        save("webp_animated_offset.webp", webp_anim(
+            W, H, [webp_anmf(10, 6, 16, 12, first),
+                   webp_anmf(0, 0, W, H, second)], flags=0x12))
+        # refused: a file cut short, a chunk running past the RIFF, a
+        # corrupt ALPH (its lossless stream garbled), a frame outside the
+        # canvas
+        with open(p("webp_lossy.webp"), "rb") as f:
+            data = f.read()
+        save("webp_cut.webp", data[:len(data) * 2 // 3])
+        save("webp_chunk_past_riff.webp", data[:4] + struct.pack(
+            "<I", len(data) - 8 - 20) + data[8:])
+        alph = chunks_of(p("webp_lossy_alpha_lossless.webp"))[1][1]
+        junk = alph[:1] + bytes(rng.integers(0, 256, len(alph) - 1)
+                                .astype(np.uint8))
+        save("webp_bad_alph.webp", webp_riff(
+            webp_vp8x(0x10, W, H) + webp_chunk(b"ALPH", junk)
+            + webp_chunk(b"VP8 ", vp8)))
+        save("webp_frame_outside_canvas.webp", webp_anim(
+            W, H, [webp_anmf(30, 20, 16, 12, first)]))
+    # the timing view: the arithmetic JPEG's decode at quality 90
+    view = cv2.imread(p(TIMING))
+    cv2.imwrite(p(TIMING_WEBP), view, [cv2.IMWRITE_WEBP_QUALITY, 90])
+    dec = np.ascontiguousarray(cv2.imread(p(TIMING_WEBP))[..., ::-1])
+    return hashlib.sha256(dec.tobytes()).hexdigest()
 
 
 # ------------------------------------------------------------- PNG writer
@@ -673,10 +944,10 @@ def generate(folder: str = FOLDER):
             write_pnm_file(p(f"pnm_{kind}_{maxval}.{ext}"), kind.upper(),
                            vals, maxval)
 
-    for name in CASES:
-        want = cv2.imread(p(name))
-        assert want is not None, name
-        write_png(p(_want(name)), np.ascontiguousarray(want[..., ::-1]))
+    sha = generate_webp(folder)
+    if sha != TIMING_WEBP_SHA256:
+        print(f"TIMING_WEBP_SHA256 is now {sha!r}: update it")
+    _write_wants(CASES, folder)
     for name in REFUSED:
         assert cv2.imread(p(name)) is None, name
     src = fixture_image(23, 31, seed=9)
@@ -693,13 +964,14 @@ def check(folder: str = FOLDER, scratch: str | None = None) -> dict:
     """The port's readers against the committed outputs: name -> True where
     ``read_image`` is bit for bit cv2's decode; for ``REFUSED``, where it
     raises naming the file; for ``ENCODED``, where the port's writer gives
-    cv2's bytes.  ``scratch`` is a directory for the writers' files (a
+    cv2's bytes; for ``ROUND_TRIP``, where the port's file reads back as
+    its source.  ``scratch`` is a directory for the writers' files (a
     temporary one by default).  Warnings of cut-short files are expected
     and silenced."""
     import warnings
 
     from gsplat_tpu_torch.utils.image_io import read_image, read_png, \
-        write_bmp, write_pnm, write_tiff
+        write_bmp, write_pnm, write_tiff, write_webp
 
     out = {}
     for name in CASES:
@@ -723,12 +995,34 @@ def check(folder: str = FOLDER, scratch: str | None = None) -> dict:
             with open(path, "rb") as f, \
                     open(os.path.join(folder, name), "rb") as g:
                 out[name] = f.read() == g.read()
+        for name in ROUND_TRIP:
+            path = os.path.join(tmp, name)
+            write_webp(path, src)
+            back = read_image(path)
+            out[name] = back.shape == src.shape and bool((back == src).all())
     return out
+
+
+def _write_wants(names, folder: str = FOLDER):
+    import cv2
+
+    from gsplat_tpu_torch.utils.image_io import write_png
+
+    for name in names:
+        want = cv2.imread(os.path.join(folder, name))
+        assert want is not None, name
+        write_png(os.path.join(folder, _want(name)),
+                  np.ascontiguousarray(want[..., ::-1]))
 
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    if sys.argv[1:] == ["--webp"]:          # the WebP fixtures alone
+        sha = generate_webp()
+        _write_wants([n for n in CASES if n.endswith(".webp")])
+        print(f"TIMING_WEBP_SHA256 = {sha!r}")
+        sys.exit(0)
     generate()
     result = check()
     print(result)
