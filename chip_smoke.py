@@ -8,9 +8,10 @@ Run from the repository root, with no arguments:
 It builds the rasterizer kernels (gsplat_tpu_torch/csrc/rasterize_fwd.cu and
 rasterize_bwd.cu, one nvcc each, in parallel, for sm_90a into
 gsplat_tpu_torch/_build/; beside them the native COLMAP reader,
-csrc/colmap_reader.cpp, the JPEG codec, csrc/jpeg_codec.cpp, and the TIFF
-strip codecs, csrc/tiff_codec.cpp, and the WebP codec, csrc/webp_codec.cpp,
-with the system C++ compiler), six entry
+csrc/colmap_reader.cpp, the JPEG codec, csrc/jpeg_codec.cpp, the TIFF strip
+codecs, csrc/tiff_codec.cpp, the WebP codec, csrc/webp_codec.cpp, and the
+GIF and Radiance HDR codecs, csrc/gif_hdr_codec.cpp, with the system C++
+compiler), six entry
 points:
 the f32 RGB forward and backward, the SH forward and backward (27
 coefficients) and the bf16 render preset's forward, RGB and SH.  It holds
@@ -75,18 +76,24 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   pyramid (python -m gsplat_tpu_torch.downsample --factor 2: 56 JPEGs at
   648x420) and the committed codec fixtures of tests/torch_jpeg/ bit for
   bit, with the codec's host seconds beside the CPU's model; then the other
-  formats (image_io's TIFF, WebP, BMP and PNM readers and writers): the 56
-  views through write_tiff and write_webp into a TIFF and a WebP copy of
-  the scene and a few through write_bmp and write_pnm, each format's
-  encode and decode seconds a view (and a committed arithmetic-coded
-  JPEG's and a committed lossy WebP's, whose decode must hash as cv2's),
-  the TIFF and WebP scenes through Splatter with every ground-truth tensor
-  equal to the PNG scene's, run_garden_7k over iterations 0-200 from the
-  PNG scene and from the TIFF and WebP scenes with every logged l1, PSNR,
-  pair count and TEST line equal, the pyramids over the TIFFs and the
-  WebPs equal to the PNGs', and the committed fixtures of
-  tests/torch_images/ (arithmetic, lossless, CMYK and cut-short JPEG, Adam7
-  PNG, TIFF, BMP, PNM, WebP) bit for bit.
+  formats (image_io's TIFF, WebP, GIF, Radiance HDR, PFM, PAM, Sun raster,
+  BMP and PNM readers and writers): the 56 views through write_tiff,
+  write_webp, write_gif, write_hdr, write_pfm, write_pam and write_sunras
+  into one copy of the scene a format and a few through write_bmp and
+  write_pnm, each read back equal to its PNG (GIF: to gif_332, the plain
+  3-3-2 dither; HDR: to hdr_round_trip, the plain RGBE round trip), each
+  format's encode and decode seconds a view (and a committed
+  arithmetic-coded JPEG's and a committed lossy WebP's, whose decode must
+  hash as cv2's), every scene through Splatter with every ground-truth
+  tensor equal to what its read-back was held to, run_garden_7k over
+  iterations 0-200 from the PNG scene and from the TIFF and WebP scenes
+  with every logged l1, PSNR, pair count and TEST line equal, and from the
+  GIF scene with its last l1 within the JPEG leg's bound of the PNG
+  leg's, the pyramids over the TIFFs, the WebPs and the PFMs equal to the
+  PNGs' and over the GIFs write_gif's bytes of the area means, and the
+  committed fixtures of tests/torch_images/ (arithmetic, lossless, CMYK
+  and cut-short JPEG, Adam7 PNG, TIFF and BigTIFF, BMP, PNM, WebP, GIF,
+  HDR, PFM, PAM, Sun raster) bit for bit.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -1580,10 +1587,12 @@ def at_scale_path(rz, dev):
         del tr, views
         torch.cuda.empty_cache()
         jpeg = jpeg_capture_path(rz, scene, root, png_log)
-        png_leg, tiff_leg, webp_leg = image_formats_path(rz, scene, root)
+        png_leg, tiff_leg, webp_leg, gif_leg = image_formats_path(
+            rz, scene, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg), scale_rows
+    return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg,
+            gif_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -1777,22 +1786,29 @@ def _format_scene(scene, root, name, ext):
 
 def image_formats_path(rz, scene, root):
     """The real-capture phase's other formats (utils/image_io beyond PNG and
-    JPEG) on garden_hard's 56 views: (a) each PNG view through write_tiff
-    and write_webp into a TIFF and a WebP scene (images_4/img_XXX.tif /
-    .webp and sparse copies whose images.bin names them), FORMAT_VIEWS
-    through write_bmp and write_pnm, each decoded back equal to its PNG,
+    JPEG) on garden_hard's 56 views: (a) each PNG view through write_tiff,
+    write_webp, write_gif, write_hdr, write_pfm, write_pam and write_sunras
+    into one scene a format (images_4/img_XXX.<ext> and sparse copies whose
+    images.bin names them), FORMAT_VIEWS through write_bmp and write_pnm,
+    each decoded back: equal to its PNG (TIFF, WebP, PFM, PAM, Sun raster,
+    BMP, PPM), to gif_332 of it (GIF) and to hdr_round_trip of it (HDR);
     every format's encode and decode seconds a view timed, and the
     committed arithmetic-coded JPEG and lossy WebP views decoded (the
-    WebP's pixels held to the SHA-256 of cv2's decode); (b) the PNG, TIFF
-    and WebP scenes through Splatter on the card, every ground-truth tensor
-    equal; (c) run_garden_7k over iterations 0..JPEG_ITERS - 1 of the RGB
-    schedule from each scene, the logged l1, PSNR, pair and TEST lines, the
+    WebP's pixels held to the SHA-256 of cv2's decode); (b) every scene
+    through Splatter on the card, each ground-truth tensor equal to the PNG
+    scene's (to the GIF and HDR maps' for those scenes); (c) run_garden_7k
+    over iterations 0..JPEG_ITERS - 1 of the RGB schedule from the PNG,
+    TIFF and WebP scenes, the logged l1, PSNR, pair and TEST lines, the
     per-step pair counts and the final PSNR/SSIM equal (the input is
-    lossless and the step deterministic); (d) the pyramid (python -m
-    gsplat_tpu_torch.downsample --factor 2) over the TIFFs and over the
-    WebPs, equal to the PNGs' (downsample_area); (e) the committed fixtures
-    of tests/torch_images/ bit for bit and byte for byte.
-    → (the PNG leg's launches, the TIFF leg's, the WebP leg's)."""
+    lossless and the step deterministic), and from the GIF scene, its last
+    l1 within d + JPEG_L1_DRIFT · l1_png of the PNG leg's (d the largest
+    per-view mean |GIF - PNG|, the JPEG leg's rule); (d) the pyramid
+    (python -m gsplat_tpu_torch.downsample --factor 2) over the TIFFs, the
+    WebPs and the PFMs, equal to the PNGs' (downsample_area), and over the
+    GIFs, each file write_gif's bytes of downsample_area of its view;
+    (e) the committed fixtures of tests/torch_images/ bit for bit and byte
+    for byte.  → (the PNG leg's launches, the TIFF leg's, the WebP leg's,
+    the GIF leg's)."""
     import hashlib
 
     import torch
@@ -1807,15 +1823,26 @@ def image_formats_path(rz, scene, root):
     sys.path.insert(0, helpers_dir)
     import torch_make_image_fixtures as fx
 
+    # the scenes after TIFF's and WebP's: read back equal to the PNG, but
+    # GIF and HDR, held to their plain numpy maps (gif_332, hdr_round_trip)
+    new_formats = (("gif", ".gif", image_io.write_gif),
+                   ("hdr", ".hdr", image_io.write_hdr),
+                   ("pfm", ".pfm", image_io.write_pfm),
+                   ("pam", ".pam", image_io.write_pam),
+                   ("ras", ".ras", image_io.write_sunras))
     host = host_cpu()
-    phase(f"real capture (TIFF, WebP, BMP, PNM): garden_hard's views "
-          f"through write_tiff, write_webp, read_image, Splatter, "
-          f"run_garden_7k and downsample (host: {host})")
+    phase(f"real capture (TIFF, WebP, GIF, HDR, PFM, PAM, Sun raster, BMP, "
+          f"PNM): garden_hard's views through the writers, read_image, "
+          f"Splatter, run_garden_7k and downsample (host: {host})")
     torch.cuda.synchronize()
     reset_launches(rz)
     src = os.path.join(scene, "images_4")
     scenes = {"tiff": _format_scene(scene, root, "scene_tiff", ".tif"),
               "webp": _format_scene(scene, root, "scene_webp", ".webp")}
+    for kind, ext, _ in new_formats:
+        scenes[kind] = _format_scene(scene, root, f"scene_{kind}", ext)
+    exts = {"tiff": ".tif", "webp": ".webp",
+            **{kind: ext for kind, ext, _ in new_formats}}
     other = os.path.join(root, "bmp_pnm")
     os.makedirs(other)
     pngs = sorted(n for n in os.listdir(src) if n.endswith(".png"))
@@ -1824,16 +1851,33 @@ def image_formats_path(rz, scene, root):
     secs = {k: [] for k in ("png read", "tiff write", "tiff read",
                             "webp write", "webp read", "bmp write",
                             "bmp read", "ppm write", "ppm read")}
-    views = {}
+    for kind, _, _ in new_formats:
+        secs[f"{kind} write"], secs[f"{kind} read"] = [], []
+    secs["gif_332 (plain)"], secs["hdr_round_trip (plain)"] = [], []
+    views, held, gif_mean, worst = {}, {}, [], {"gif": 0, "hdr": 0}
     for i, name in enumerate(pngs):
         t0 = time.perf_counter()
         img = image_io.read_png(os.path.join(src, name))
         secs["png read"].append(time.perf_counter() - t0)
         views[name] = img
-        formats = [(kind, os.path.join(scenes[kind][1], name[:-4] + ext),
-                    writer) for kind, ext, writer in (
-                        ("tiff", ".tif", image_io.write_tiff),
-                        ("webp", ".webp", image_io.write_webp))]
+        t0 = time.perf_counter()
+        gif_want = image_io.gif_332(img)
+        secs["gif_332 (plain)"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        hdr_want = image_io.hdr_round_trip(img)
+        secs["hdr_round_trip (plain)"].append(time.perf_counter() - t0)
+        held[name] = {"gif": gif_want, "hdr": hdr_want}
+        for kind, want in held[name].items():
+            worst[kind] = max(worst[kind], int(np.abs(
+                want.astype(np.int64) - img).max()))
+        gif_mean.append(float(np.mean(np.abs(
+            gif_want.astype(np.float64) - img))) / 255.0)
+        formats = [(kind, os.path.join(scenes[kind][1], name[:-4]
+                                       + exts[kind]), writer)
+                   for kind, writer in (("tiff", image_io.write_tiff),
+                                        ("webp", image_io.write_webp))]
+        formats += [(kind, os.path.join(scenes[kind][1], name[:-4] + ext),
+                     writer) for kind, ext, writer in new_formats]
         if i < FORMAT_VIEWS:
             formats += [("bmp", os.path.join(other, name[:-4] + ".bmp"),
                          image_io.write_bmp),
@@ -1846,8 +1890,10 @@ def image_formats_path(rz, scene, root):
             t0 = time.perf_counter()
             back = image_io.read_image(path)
             secs[f"{kind} read"].append(time.perf_counter() - t0)
-            check(back.shape == img.shape and np.array_equal(back, img),
-                  f"{path}: read back differs from its PNG")
+            want = held[name].get(kind, img)
+            check(back.shape == img.shape and np.array_equal(back, want),
+                  f"{path}: read back differs from "
+                  f"{'its PNG' if kind not in held[name] else kind}")
     h, w = img.shape[:2]
     here = os.path.dirname(os.path.abspath(__file__))
     for label, view in (("arithmetic JPEG read", ARITH_VIEW),
@@ -1863,20 +1909,22 @@ def image_formats_path(rz, scene, root):
           f"{fx.TIMING_WEBP_SHA256}")
     sizes = {kind: sum(os.path.getsize(os.path.join(d, n))
                        for n in os.listdir(d))
-             for kind, d in (("png", src), ("tiff", scenes["tiff"][1]),
-                             ("webp", scenes["webp"][1]))}
-    print(f"  {len(views)} views at {w}x{h}: {sizes['png'] / 1e6:.2f} MB of "
-          f"PNG, {sizes['tiff'] / 1e6:.2f} MB of LZW TIFF, "
-          f"{sizes['webp'] / 1e6:.2f} MB of lossless WebP (write_webp); each "
-          f"read back equal to its PNG; the lossy WebP view's decode is "
-          f"cv2's (SHA-256 {digest[:16]}...).  Seconds a view (mean, min, "
-          f"max; host: {host}):", flush=True)
+             for kind, d in (("png", src), *((k, v[1])
+                                             for k, v in scenes.items()))}
+    print(f"  {len(views)} views at {w}x{h}, MB of each format's files: "
+          f"{json.dumps({k: round(v / 1e6, 3) for k, v in sizes.items()})}"
+          f" (bytes: {json.dumps(sizes)}); each read back equal to its PNG"
+          f" (GIF to gif_332, HDR to hdr_round_trip); largest |GIF - PNG| "
+          f"{worst['gif']}, |HDR - PNG| {worst['hdr']}, largest per-view "
+          f"mean |GIF - PNG| {max(gif_mean):.5f}; the lossy WebP view's "
+          f"decode is cv2's (SHA-256 {digest[:16]}...).  Seconds a view "
+          f"(mean, min, max; host: {host}):", flush=True)
     for k, v in secs.items():
-        print(f"    {k:22s} {np.mean(v):.4f} {min(v):.4f} {max(v):.4f} "
+        print(f"    {k:24s} {np.mean(v):.4f} {min(v):.4f} {max(v):.4f} "
               f"({len(v)} views)", flush=True)
     print("image format seconds: " + json.dumps(
         {k: float(np.mean(v)) for k, v in secs.items()}), flush=True)
-    # (b) the three scenes on the card
+    # (b) the scenes on the card
     cams = {}
     for kind, (sp, im) in {"png": (os.path.join(scene, "sparse", "0"), src),
                            **{k: (v[2], v[1]) for k, v in scenes.items()}
@@ -1890,26 +1938,35 @@ def image_formats_path(rz, scene, root):
         del splat
     a = cams["png"]
     for kind in scenes:
-        b = cams[kind]
+        b = cams.pop(kind)
         check(a.n_cameras == b.n_cameras == 56
               and b.images.device.type == torch.device(DEVICE).type
               and [n[:-4] for n in a.names]
               == [n.rsplit(".", 1)[0] for n in b.names],
               f"{kind.upper()} scene cameras")
         for i, name in enumerate(b.names):
-            check(torch.equal(a.images[i], b.images[i]),
+            png = a.names[i]
+            want = a.images[i] if kind not in held[png] else \
+                torch.from_numpy(held[png][kind]).permute(2, 0, 1).to(DEVICE)
+            check(torch.equal(b.images[i], want),
                   f"{name}: the {kind.upper()} scene's ground truth is not "
-                  f"the PNG's")
+                  f"what its read-back was held to")
         for field in ("w2c_rot", "w2c_tran"):
             check(torch.equal(getattr(a, field), getattr(b, field)), field)
+        held_to = "the PNG scene's" if kind not in held[png] else \
+            f"{kind}'s plain map"
         print(f"  every ground-truth tensor of the {kind.upper()} scene "
-              f"equal to the PNG scene's ({b.n_cameras} views)", flush=True)
+              f"equal to {held_to} ({b.n_cameras} views)", flush=True)
+        del b
     check(sum(rz.LAUNCHES.values()) == 0, f"launches {dict(rz.LAUNCHES)}")
-    del cams, a, b
+    del cams, a
     torch.cuda.empty_cache()
-    # (c) training from each scene
-    runs = {}
-    for kind, sc in (("png", scene), *((k, v[0]) for k, v in scenes.items())):
+    for kind in ("hdr", "pam", "ras"):          # not needed further
+        shutil.rmtree(scenes.pop(kind)[0])
+    # (c) training from the PNG, TIFF, WebP and GIF scenes
+    runs, logs = {}, {}
+    for kind, sc in (("png", scene), *((k, scenes[k][0])
+                                       for k in ("tiff", "webp", "gif"))):
         summary, tr, launches, records, log = run_7k(rz, [
             "--scene", sc, "--exp", os.path.join(root, f"leg_{kind}"),
             "--n_iters", str(FULL_ITERS), "--stop_at", str(JPEG_ITERS),
@@ -1922,6 +1979,7 @@ def image_formats_path(rz, scene, root):
         check(launches == want, f"{kind} leg launches {launches} != {want}")
         runs[kind] = (summary, launches, [r[2] for r in records],
                       _trainer_lines(log))
+        logs[kind] = log
         rate, pairs = step_rate(records, 1, JPEG_ITERS)
         print(f"  {kind.upper()} leg: {rate:.2f} it/s at {pairs:.0f} pairs "
               f"a view; {' | '.join(runs[kind][3])}", flush=True)
@@ -1930,7 +1988,7 @@ def image_formats_path(rz, scene, root):
     ps, pl, pp, plines = runs["png"]
     check(bool(plines) and any(x.startswith("TEST") for x in plines),
           "the PNG leg logged no TEST line")
-    for kind in scenes:
+    for kind in ("tiff", "webp"):
         ts, tl, tp, tlines = runs[kind]
         up = kind.upper()
         check(tlines == plines, f"{up} leg lines {tlines} != PNG {plines}")
@@ -1945,8 +2003,25 @@ def image_formats_path(rz, scene, root):
               f"lines, {JPEG_ITERS} steps' pair counts, final PSNR "
               f"{ts['final_psnr']} SSIM {ts['final_ssim']}; launches "
               f"{json.dumps(tl)}", flush=True)
-    # (d) the pyramid over the TIFFs and over the WebPs against the PNGs'
-    for kind, ext in (("tiff", ".tif"), ("webp", ".webp")):
+    l1, png = l1_by_iteration(logs["gif"]), l1_by_iteration(logs["png"])
+    check(len(l1) >= JPEG_ITERS // 50 and all(np.isfinite(list(l1.values()))),
+          "GIF leg: a logged l1 is not finite")
+    both = set(l1) & set(png)
+    check(bool(both), "the GIF and PNG legs logged no l1 at one iteration")
+    last = max(both)
+    bound = max(gif_mean) + JPEG_L1_DRIFT * png[last]
+    gs = runs["gif"][0]
+    print(f"  GIF leg, iteration {last}: l1 {l1[last]:.4f} from GIF, "
+          f"{png[last]:.4f} from PNG, |difference| "
+          f"{abs(l1[last] - png[last]):.4f} <= bound {bound:.4f}; final PSNR "
+          f"{gs['final_psnr']} SSIM {gs['final_ssim']} (PNG {ps['final_psnr']}"
+          f" {ps['final_ssim']}); launches {json.dumps(runs['gif'][1])}",
+          flush=True)
+    check(abs(l1[last] - png[last]) <= bound,
+          f"GIF leg l1 {l1[last]} vs PNG {png[last]}: beyond {bound}")
+    # (d) the pyramids against the PNGs' (GIF: write_gif's bytes)
+    for kind in ("tiff", "webp", "pfm", "gif"):
+        ext = exts[kind]
         pyramid = os.path.join(root, f"images_8_{kind}")
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -1960,13 +2035,23 @@ def image_formats_path(rz, scene, root):
         check(outs == sorted(n[:-4] + ext for n in pngs),
               f"downsample wrote {outs[:3]}...")
         for name in outs:
-            small = image_io.read_image(os.path.join(pyramid, name))
+            path = os.path.join(pyramid, name)
+            if kind == "gif":
+                ref = os.path.join(root, "pyramid_ref.gif")
+                image_io.write_gif(ref, downsample_area(image_io.read_gif(
+                    os.path.join(scenes[kind][1], name)), 2))
+                with open(ref, "rb") as f, open(path, "rb") as g:
+                    check(f.read() == g.read(), f"{name}: the GIF pyramid "
+                          f"file is not write_gif of the area mean")
+                continue
+            small = image_io.read_image(path)
             check(np.array_equal(small, downsample_area(
                 views[name[:-len(ext)] + ".png"], 2)),
                 f"{name}: the {kind.upper()} pyramid differs from the PNG's")
-        print(f"  downsample --factor 2: {len(outs)} {kind.upper()}s at "
-              f"{small.shape[1]}x{small.shape[0]} in {down_s:.3f} s, each "
-              f"equal to the PNG's pyramid (host: {host})", flush=True)
+        held_to = "write_gif of its area mean" if kind == "gif" else \
+            "equal to the PNG pyramid"
+        print(f"  downsample --factor 2: {len(outs)} {kind.upper()}s in "
+              f"{down_s:.3f} s, each {held_to} (host: {host})", flush=True)
     # (e) the committed fixtures
     got = fx.check(scratch=root)
     bad = [k for k, v in got.items() if not v]
@@ -1974,9 +2059,9 @@ def image_formats_path(rz, scene, root):
           f"{len(got) - len(bad)} as cv2 reads (or refuses) them; "
           f"{json.dumps(got)}", flush=True)
     check(not bad and len(got) == len(fx.CASES) + len(fx.REFUSED)
-          + len(fx.ENCODED) + len(fx.ROUND_TRIP),
+          + len(fx.GARBLED) + len(fx.ENCODED) + len(fx.ROUND_TRIP),
           f"image fixtures differ: {bad}")
-    return pl, runs["tiff"][1], runs["webp"][1]
+    return pl, runs["tiff"][1], runs["webp"][1], runs["gif"][1]
 
 
 def finite(x):
@@ -2675,10 +2760,11 @@ def main() -> int:
     # the kernels' sources, and the self-check of the forward's split
     # division (csrc/fast_div_check.cu); beside them the host libraries
     # (csrc/colmap_reader.cpp, csrc/jpeg_codec.cpp, csrc/tiff_codec.cpp,
-    # csrc/webp_codec.cpp; the system C++ compiler)
+    # csrc/webp_codec.cpp, csrc/gif_hdr_codec.cpp; the system C++ compiler)
     sources = sorted({src for src, _ in rz.KERNELS.values()}
                      | {"fast_div_check"})
-    host_libs = ("colmap_reader", "jpeg_codec", "tiff_codec", "webp_codec")
+    host_libs = ("colmap_reader", "jpeg_codec", "tiff_codec", "webp_codec",
+                 "gif_hdr_codec")
     with ThreadPoolExecutor(len(sources) + len(host_libs)) as pool:
         hosts = [pool.submit(cuda_build.load_host_library, name)
                  for name in host_libs]
@@ -2689,7 +2775,8 @@ def main() -> int:
         rz._kernel(name)
     print(f"built {len(sources) + len(host_libs)} libraries ({len(KERNELS)} "
           f"entry points, the division check, the COLMAP reader, the JPEG, "
-          f"TIFF and WebP codecs) in {time.perf_counter() - t0:.2f} s",
+          f"TIFF, WebP and GIF/HDR codecs) in "
+          f"{time.perf_counter() - t0:.2f} s",
           flush=True)
     for name in host_libs:
         info = cuda_build.BUILD_INFO[name]
@@ -3308,7 +3395,8 @@ def main() -> int:
 
     # ---- 12. the at-scale run ----------------------------------------------
     (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg, at_scale_png,
-     at_scale_tiff, at_scale_webp), scale_rows = at_scale_path(rz, dev)
+     at_scale_tiff, at_scale_webp, at_scale_gif), scale_rows = \
+        at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -3354,6 +3442,7 @@ def main() -> int:
              "at-scale PNG 0-200 run": at_scale_png,
              "at-scale TIFF run": at_scale_tiff,
              "at-scale WebP run": at_scale_webp,
+             "at-scale GIF run": at_scale_gif,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

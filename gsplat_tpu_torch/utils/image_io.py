@@ -5,10 +5,12 @@ pyramids with ``cv2``; the port reads and writes the same files without it,
 so a scene loads where ``cv2`` is not installed.  Every reader returns what
 ``cv2.imread(path, IMREAD_COLOR)`` then ``COLOR_BGR2RGB`` gives, bit for bit
 (the behaviour of cv2 5.0.0 as built with libjpeg-turbo 3.1.2, libpng,
-libtiff 4.7.1, libwebp 1.6, OpenCV's own BMP and PNM decoders), and every
-writer the bytes of ``cv2.imwrite``'s defaults, except the WebP writer,
-held to pixels.  ``read_image`` picks the reader by the file's signature,
-as cv2's ``findDecoder`` does.
+libtiff 4.7.1, libwebp 1.6, OpenCV's own BMP, PNM, GIF, Radiance HDR, PFM,
+PAM and Sun raster decoders), and every writer the bytes of
+``cv2.imwrite``'s defaults, except the WebP writer, held to pixels, and
+the Sun raster writer's last pad byte, which cv2 copies from past its
+image.  ``read_image`` picks the reader by the file's signature, as cv2's
+``findDecoder`` does.
 
 PNG (the standard library's ``zlib`` and ``struct``): gray (1-16 bits),
 gray with alpha, palette, RGB and RGBA at 8 or 16 bits, interlaced (Adam7)
@@ -20,19 +22,25 @@ JPEG (the port's own codec, ``csrc/jpeg_codec.cpp``): baseline, extended,
 progressive and arithmetic-coded frames, lossless ones, CMYK and YCCK, and
 files cut short (decoded as libjpeg decodes them, with a warning).
 
-TIFF (``csrc/tiff_codec.cpp`` for LZW and PackBits, ``zlib`` for Deflate,
-the JPEG codec for JPEG strips; the directory is parsed here), BMP and PNM
-(numpy).
+TIFF and BigTIFF (``csrc/tiff_codec.cpp`` for LZW and PackBits, ``zlib``
+for Deflate, the JPEG codec for JPEG strips; the directory is parsed here),
+BMP and PNM (numpy).
 
 WebP (``csrc/webp_codec.cpp`` for the VP8L and VP8 bitstreams and the ALPH
 chunk; the RIFF container, libwebp's demuxer rules and EXIF are parsed
 here): lossless, lossy, alpha, extended and animated files; ``write_webp``
 writes lossless VP8L with the port's own small encoder.
+
+GIF and Radiance HDR (``csrc/gif_hdr_codec.cpp`` for GIF's LZW, the GIF
+writer's Floyd-Steinberg dither onto its fixed 3-3-2 palette and HDR's
+run-length scanlines; the blocks, headers and colours here), PFM, PAM and
+Sun raster (numpy).
 """
 
 from __future__ import annotations
 
 import os
+import re
 import struct
 import zlib
 
@@ -621,11 +629,13 @@ def write_pnm(path, img: np.ndarray):
 
 # ------------------------------------------------------------------- TIFF
 
-TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*")
+TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
 # TIFF field type -> (struct code, bytes)
 _TIFF_TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4),
                5: ("II", 8), 6: ("b", 1), 7: ("B", 1), 8: ("h", 2),
                9: ("i", 4), 10: ("ii", 8), 11: ("f", 4), 12: ("d", 8)}
+# BigTIFF's own: LONG8, SLONG8, IFD8
+_BIGTIFF_TYPES = {16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
 # none, LZW, JPEG, Deflate, PackBits, Deflate (Adobe's code)
 _TIFF_COMPRESSIONS = (1, 5, 7, 8, 32773, 32946)
 
@@ -649,21 +659,37 @@ def _load_tiff_codec():
 
 def _tiff_directory(data: bytes, path):
     """The first IFD: (byte order, {tag: values}); UNDEFINED and ASCII
-    fields as bytes, the others as tuples."""
+    fields as bytes, the others as tuples.  A BigTIFF (version 43) has
+    8-byte offsets and counts, 20-byte entries with values of up to 8
+    bytes inline, and the LONG8, SLONG8 and IFD8 types."""
     e = "<" if data[:2] == b"II" else ">"
     try:
-        (ifd,) = struct.unpack_from(e + "I", data, 4)
-        (n,) = struct.unpack_from(e + "H", data, ifd)
+        big = struct.unpack_from(e + "H", data, 2)[0] == 43
+        if big:
+            size, zero = struct.unpack_from(e + "HH", data, 4)
+            if size != 8 or zero != 0:
+                raise ValueError(f"{path}: BigTIFF with {size}-byte offsets "
+                                 f"(and {zero}): libtiff reads only 8")
+            types = {**_TIFF_TYPES, **_BIGTIFF_TYPES}
+            (ifd,) = struct.unpack_from(e + "Q", data, 8)
+            (n,) = struct.unpack_from(e + "Q", data, ifd)
+            first, width, head, inline = ifd + 8, 20, "HHQ", 8
+        else:
+            types = _TIFF_TYPES
+            (ifd,) = struct.unpack_from(e + "I", data, 4)
+            (n,) = struct.unpack_from(e + "H", data, ifd)
+            first, width, head, inline = ifd + 2, 12, "HHI", 4
         tags = {}
         for i in range(n):
-            entry = ifd + 2 + 12 * i
-            tag, typ, count = struct.unpack_from(e + "HHI", data, entry)
-            if typ not in _TIFF_TYPES:
+            entry = first + width * i
+            tag, typ, count = struct.unpack_from(e + head, data, entry)
+            if typ not in types:
                 continue
-            code, size = _TIFF_TYPES[typ]
-            pos = entry + 8
-            if size * count > 4:
-                (pos,) = struct.unpack_from(e + "I", data, pos)
+            code, size = types[typ]
+            pos = entry + width - inline
+            if size * count > inline:
+                (pos,) = struct.unpack_from(e + ("Q" if big else "I"), data,
+                                            pos)
             if pos + size * count > len(data):
                 raise ValueError(f"{path}: TIFF tag {tag} points past the "
                                  f"end of the file")
@@ -712,7 +738,7 @@ def _tiff_jpeg_chunk(raw: bytes, tables, transform: int, path):
 
 
 def read_tiff(path) -> np.ndarray:
-    """The first image of a TIFF → (H, W, 3) uint8 RGB, what
+    """The first image of a TIFF or BigTIFF → (H, W, 3) uint8 RGB, what
     ``cv2.imread(path)[..., ::-1]`` gives (OpenCV's ``TiffDecoder``, which
     reads 8-bit output through libtiff's RGBA interface): II or MM, strips
     or tiles, chunky or planar; no compression, LZW, Deflate, PackBits or
@@ -1417,18 +1443,762 @@ def write_webp(path, img: np.ndarray):
                 + struct.pack("<I", n) + body)
 
 
+# ------------------------------------------------------------ image sizes
+
+
+_MAX_SIDE, _MAX_PIXELS = 1 << 20, 1 << 30    # cv2's CV_IO_MAX_IMAGE_*
+
+
+def _check_size(width: int, height: int, path, what: str):
+    """cv2's validateInputImageSize: imread raises past these limits."""
+    if not (0 < width <= _MAX_SIDE and 0 < height <= _MAX_SIDE
+            and width * height <= _MAX_PIXELS):
+        raise ValueError(f"{path}: a {width}x{height} {what}, outside cv2's "
+                         f"image size limits")
+
+
+def _round_saturate(x: np.ndarray) -> np.ndarray:
+    """cv2's float → uint8 conversion: round half to even, clamp to 0-255;
+    NaN and values whose rounding leaves int32 give 0 (the x86 conversion's
+    INT_MIN, then clamped)."""
+    x = np.asarray(x, np.float64)
+    r = np.rint(x)
+    bad = ~np.isfinite(r) | (r >= 2.0 ** 31) | (r < -(2.0 ** 31))
+    return np.where(bad, 0, np.clip(r, 0, 255)).astype(np.uint8)
+
+
+# -------------------------------------------------------------------- GIF
+
+GIF_SIGNATURES = (b"GIF87a", b"GIF89a")
+# cv2's GIF writer: the fixed 3-3-2 table, index R << 5 | G << 2 | B
+_GIF_LEVELS = ((np.arange(8) * 36).astype(np.uint8),
+               (np.arange(8) * 36).astype(np.uint8),
+               (np.arange(4) * 85).astype(np.uint8))
+GIF_PALETTE = np.stack([_GIF_LEVELS[0][np.arange(256) >> 5],
+                        _GIF_LEVELS[1][(np.arange(256) >> 2) & 7],
+                        _GIF_LEVELS[2][np.arange(256) & 3]], 1)
+_GIF_STATUS = {0: "its LZW data end before the frame is full, hold a code "
+                  "past the table, or go on past the full frame",
+               -1: "the file ends inside the frame's data",
+               -2: "an LZW string runs past the frame",
+               -3: "an LZW minimum code size outside 2-11"}
+
+
+def _load_gif_hdr_codec():
+    """The port's GIF and Radiance HDR codecs (``csrc/gif_hdr_codec.cpp``),
+    built at first use; raises when they cannot be built."""
+    import ctypes
+
+    from gsplat_tpu_torch.ops.cuda_build import load_host_library
+
+    lib = load_host_library("gif_hdr_codec")
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    ll = ctypes.c_longlong
+    lib.gif_lzw_decode.restype = ctypes.c_int
+    lib.gif_lzw_decode.argtypes = [ctypes.c_char_p, ll, ll, ctypes.c_int,
+                                   ctypes.c_int, u8p]
+    lib.gif_dither_332.restype = None
+    lib.gif_dither_332.argtypes = [u8p, ctypes.c_int, ctypes.c_int, u8p]
+    for fn in (lib.gif_lzw_encode, lib.hdr_write_pixels):
+        fn.restype = ll
+    lib.gif_lzw_encode.argtypes = [u8p, ll, u8p, ll]
+    lib.hdr_write_pixels.argtypes = [u8p, ctypes.c_int, ctypes.c_int, u8p,
+                                     ll]
+    lib.hdr_read_pixels.restype = ctypes.c_int
+    lib.hdr_read_pixels.argtypes = [ctypes.c_char_p, ll, ll, ctypes.c_int,
+                                    ctypes.c_int, u8p]
+    return lib
+
+
+class _Stream:
+    """cv2's RLByteStream over a file's bytes: a read past the end raises
+    (cv2's imread then gives None); a skip past it raises at the next
+    read."""
+
+    def __init__(self, data: bytes, path, pos: int = 0):
+        self.data, self.path, self.pos = data, path, pos
+
+    def byte(self) -> int:
+        if self.pos >= len(self.data):
+            raise RuntimeError(f"{self.path}: the file ends early (at byte "
+                               f"{self.pos})")
+        self.pos += 1
+        return self.data[self.pos - 1]
+
+    def word(self) -> int:                    # little-endian
+        lo = self.byte()
+        return lo | self.byte() << 8
+
+    def skip(self, n: int):
+        self.pos += n
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise RuntimeError(f"{self.path}: the file ends early (at byte "
+                               f"{len(self.data)})")
+        self.pos += n
+        return self.data[self.pos - n:self.pos]
+
+
+def _gif_walk(st: _Stream):
+    """GifDecoder::getFrameCount_: every block up to the trailer (0x3B) must
+    parse, or cv2's readHeader fails; the NETSCAPE2.0 application block as
+    cv2 parses it (a 3-byte sub-block of another application consumes only
+    2 bytes, its third read as the next length)."""
+    def sub_blocks():
+        n = st.byte()
+        while n:
+            st.skip(n)
+            n = st.byte()
+
+    b = st.byte()
+    while b != 0x3B:
+        if b == 0x2C:
+            st.skip(8)
+            flags = st.byte()
+            if flags & 0x80:
+                st.skip(3 << ((flags & 7) + 1))
+            st.skip(1)
+            sub_blocks()
+        elif b == 0x21:
+            label = st.byte()
+            if label == 0xFF:
+                netscape = False
+                n = st.byte()
+                while n:
+                    if n == 11:
+                        netscape = st.take(11) == b"NETSCAPE2.0"
+                    elif n == 3:
+                        if netscape and st.byte() == 1:
+                            st.word()
+                        else:
+                            st.skip(2)
+                    else:
+                        st.skip(n)
+                    n = st.byte()
+            elif label == 0xF9:
+                n = st.byte()
+                while n:
+                    if n == 4:
+                        st.skip(4)
+                    else:
+                        st.skip(n)
+                    n = st.byte()
+            else:
+                sub_blocks()
+        else:
+            raise RuntimeError(f"{st.path}: GIF block {b:#04x} at byte "
+                               f"{st.pos - 1}: neither an extension, an "
+                               f"image nor the trailer")
+        b = st.byte()
+
+
+def read_gif(path) -> np.ndarray:
+    """A GIF87a or GIF89a file → (H, W, 3) uint8 RGB, bit for bit what
+    ``cv2.imread(path)[..., ::-1]`` gives (cv2 5.0.0's own GifDecoder): the
+    first frame on the logical screen, the screen the global table's
+    background colour (black without a global table), the frame's pixels
+    from its local table, else the global one, else gray levels with index
+    1 white; a transparent index leaves the screen's colour; interlaced
+    frames; the LZW data as cv2 decodes it (``csrc/gif_hdr_codec.cpp``).
+    Raises ``RuntimeError`` naming the file where cv2 returns None (a file
+    cut short or with a block it cannot parse, a frame outside the screen,
+    an index past every table, LZW data that do not fill the frame, ...)."""
+    import ctypes
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:6] not in GIF_SIGNATURES:
+        raise RuntimeError(f"{path}: not a GIF87a or GIF89a file")
+    st = _Stream(data, path, 6)
+    width, height = st.word(), st.word()
+    if width <= 0 or height <= 0:
+        raise RuntimeError(f"{path}: a GIF screen of {width}x{height}")
+    flags, bg = st.byte(), st.byte()
+    st.byte()
+    gsize = 1 << ((flags & 7) + 1) if flags & 0x80 else 0
+    gtable = np.frombuffer(st.take(3 * gsize), np.uint8).reshape(-1, 3)
+    if gsize and bg >= gsize:
+        raise RuntimeError(f"{path}: GIF background index {bg} past its "
+                           f"{gsize}-colour table")
+    start = st.pos
+    _gif_walk(st)
+    _check_size(width, height, path, "GIF")
+    # readExtensions, then the first image
+    st.pos = start
+    transparent = None
+    b = st.byte()
+    while b == 0x21:
+        if st.byte() == 0xF9:
+            transparent = None
+            if st.byte() != 4:
+                raise RuntimeError(f"{path}: a graphic control extension "
+                                   f"not 4 bytes long")
+            gflags = st.byte()
+            if gflags & 0x10:
+                raise RuntimeError(f"{path}: GIF disposal method "
+                                   f"{(gflags >> 2) & 7}, past cv2's 0-3")
+            st.word()
+            index = st.byte()
+            transparent = index if gflags & 1 else None
+        n = st.byte()
+        while n:
+            st.skip(n)
+            n = st.byte()
+        b = st.byte()
+    if b != 0x2C:
+        raise RuntimeError(f"{path}: no GIF image (block {b:#04x})")
+    left, top, fw, fh = st.word(), st.word(), st.word(), st.word()
+    if fw <= 0 or fh <= 0 or left + fw > width or top + fh > height:
+        raise RuntimeError(f"{path}: GIF frame {fw}x{fh} at ({left}, {top}) "
+                           f"outside its {width}x{height} screen")
+    canvas = np.zeros((height, width, 3), np.uint8)
+    if bg < gsize:
+        canvas[:] = gtable[bg]
+    iflags = st.byte()
+    lsize = 1 << ((iflags & 7) + 1) if iflags & 0x80 else 0
+    ltable = np.frombuffer(st.take(3 * lsize), np.uint8).reshape(-1, 3)
+    lib = _load_gif_hdr_codec()
+    idx = np.empty(fw * fh, np.uint8)
+    rc = lib.gif_lzw_decode(data, len(data), st.pos, fw, fh,
+                            idx.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    if rc != 1:
+        raise RuntimeError(f"{path}: GIF image data that cv2 does not read: "
+                           f"{_GIF_STATUS[rc]}")
+    if iflags & 0x40:                          # the four interlace passes
+        rows = np.concatenate([np.arange(s, fh, k) for s, k in
+                               ((0, 8), (4, 8), (2, 4), (1, 2))])
+        frame = np.empty((fh, fw), np.uint8)
+        frame[rows] = idx.reshape(fh, fw)
+    else:
+        frame = idx.reshape(fh, fw)
+    if lsize == 0 and gsize == 0:
+        table = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+        table[1] = 255
+        tsize = 256
+    else:
+        tsize = max(lsize, gsize)
+        table = np.zeros((256, 3), np.uint8)
+        table[:gsize] = gtable
+        table[:lsize] = ltable
+    shown = np.ones(frame.shape, bool) if transparent is None \
+        else frame != transparent
+    if (frame[shown] >= tsize).any():
+        raise RuntimeError(f"{path}: a GIF index past its colour tables")
+    region = canvas[top:top + fh, left:left + fw]
+    region[shown] = table[frame[shown]]
+    return canvas
+
+
+def gif_332(img: np.ndarray) -> np.ndarray:
+    """The plain numpy version of the map ``write_gif`` applies, what
+    reading its file back gives: (H, W, 3) uint8 RGB → (H, W, 3) uint8 RGB
+    on the 3-3-2 palette, by the same float Floyd-Steinberg error diffusion
+    (``csrc/gif_hdr_codec.cpp``'s ``gif_dither_332``), computed along the
+    anti-diagonals t = x + 2y, whose pixels do not depend on each other:
+    pixel (y, x) sits at [t, y] of a skewed grid, where each anti-diagonal
+    is one slice."""
+    img = _rgb_u8(img, "gif_332")
+    h, w = img.shape[:2]
+    f32 = np.float32
+    n = w + 2 * (h - 1)
+    skew = np.zeros((n, h, 3), f32)
+    for y in range(h):
+        skew[2 * y:2 * y + w, y] = img[y]
+    # the shares of the errors, with room for those that fall outside
+    err = np.zeros((n + 3, h + 1, 3), f32)
+    out = np.empty((n, h, 3), np.uint8)
+    step = np.array([36, 36, 85], f32)
+    top = np.array([7, 7, 3], f32)      # every value float32, as the codec
+    for t in range(n):
+        y0, y1 = max(0, (t - w + 2) // 2), min(h - 1, t // 2) + 1
+        p = skew[t, y0:y1] + err[t, y0:y1]
+        # the nearest level is one of the two around p; a tie goes up
+        lo = np.clip(np.floor(p / step), 0, top - 1)
+        near_lo = np.abs(p - lo * step) < np.abs(p - (lo + 1) * step)
+        q = np.where(near_lo, lo, lo + 1) * step
+        out[t, y0:y1] = q
+        e = p - q
+        # each target's shares arrive in the order cv2 adds them: from
+        # the row above (down-right, down, down-left), then from the left
+        err[t + 1, y0 + 1:y1 + 1] += e * f32(3) / f32(16)
+        err[t + 1, y0:y1] += e * f32(7) / f32(16)
+        err[t + 2, y0 + 1:y1 + 1] += e * f32(5) / f32(16)
+        err[t + 3, y0 + 1:y1 + 1] += e / f32(16)
+    ys = np.arange(h)[:, None]
+    return out[2 * ys + np.arange(w)[None], ys]
+
+
+def write_gif(path, img: np.ndarray):
+    """(H, W, 3) uint8 RGB → the bytes of ``cv2.imwrite(name.gif, bgr)``
+    with its defaults: GIF89a, the fixed 3-3-2 global table, a NETSCAPE2.0
+    loop block (loop 0), a graphic control extension (disposal 3, delay
+    100), the frame's pixels Floyd-Steinberg dithered onto the table
+    (``gif_332``) and LZW-coded (``csrc/gif_hdr_codec.cpp``)."""
+    import ctypes
+
+    img = _rgb_u8(img, "write_gif")
+    height, width = img.shape[:2]
+    if width > 65535 or height > 65535:
+        raise ValueError(f"{path}: {width}x{height} is past GIF's 65535 "
+                         f"pixel limit")
+    lib = _load_gif_hdr_codec()
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    idx = np.empty((height, width), np.uint8)
+    lib.gif_dither_332(img.ctypes.data_as(u8p), width, height,
+                       idx.ctypes.data_as(u8p))
+    cap = idx.size * 2 + 4096
+    out = np.empty(cap, np.uint8)
+    n = lib.gif_lzw_encode(idx.ctypes.data_as(u8p), idx.size,
+                           out.ctypes.data_as(u8p), cap)
+    if n < 0:
+        raise ValueError(f"{path}: LZW encoding overflowed")
+    head = (b"GIF89a" + struct.pack("<HHBBB", width, height, 0xF7, 0, 0)
+            + GIF_PALETTE.tobytes()
+            + b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+            + b"\x21\xf9\x04\x0c\x64\x00\x00\x00"
+            + b"\x2c" + struct.pack("<HHHHB", 0, 0, width, height, 7)
+            + b"\x08")
+    with open(path, "wb") as f:
+        f.write(head + out[:n].tobytes() + b"\x3b")
+
+
+# ----------------------------------------------------------- Radiance HDR
+
+HDR_SIGNATURES = (b"#?RGBE", b"#?RADIANCE")
+_HDR_FORMAT = b"FORMAT=32-bit_rle_rgbe\n"
+_HDR_SIZE = re.compile(rb"-Y[ \t\n\v\f\r]*([+-]?\d+)[ \t\n\v\f\r]*"
+                       rb"\+X[ \t\n\v\f\r]*([+-]?\d+)")
+_HDR_STATUS = {-1: "the file ends inside its pixels",
+               -2: "a run-length scanline of another width",
+               -3: "a bad run in a scanline"}
+
+
+def read_hdr(path) -> np.ndarray:
+    """A Radiance RGBE file (``#?RADIANCE`` or ``#?RGBE``) → (H, W, 3) uint8
+    RGB, bit for bit what ``cv2.imread(path)[..., ::-1]`` gives (cv2's
+    HdrDecoder over rgbe.c): the header read as ``fgets`` lines of up to
+    127 bytes, ``FORMAT=32-bit_rle_rgbe`` required, then a blank line and
+    ``-Y H +X W`` (other orientations refused); flat or new-style
+    run-length scanlines (``csrc/gif_hdr_codec.cpp``); each value
+    m · 2^(e - 136) times 255 rounded half to even and saturated as cv2
+    converts a float (2^31 and more give 0).  Raises ``RuntimeError`` naming
+    the file where cv2 returns None."""
+    import ctypes
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(HDR_SIGNATURES):
+        raise RuntimeError(f"{path}: not a Radiance HDR file")
+    pos = 0
+
+    def fgets():
+        nonlocal pos
+        if pos >= len(data):
+            raise RuntimeError(f"{path}: Radiance header cut short")
+        end = data.find(b"\n", pos, pos + 127)
+        end = min(pos + 127, len(data)) if end < 0 else end + 1
+        line, pos = data[pos:end], end
+        return line.split(b"\x00", 1)[0]      # what strcmp sees
+
+    line = fgets()
+    while line != _HDR_FORMAT:
+        if line[:1] in (b"", b"\n"):
+            raise RuntimeError(f"{path}: Radiance header without "
+                               f"FORMAT=32-bit_rle_rgbe")
+        line = fgets()
+    if fgets() != b"\n":
+        raise RuntimeError(f"{path}: no blank line after the Radiance FORMAT")
+    m = _HDR_SIZE.match(fgets())
+    if m is None:
+        raise RuntimeError(f"{path}: Radiance resolution is not -Y H +X W "
+                           f"(cv2 reads no other orientation)")
+    height, width = int(m.group(1)), int(m.group(2))
+    if width <= 0 or height <= 0:
+        raise RuntimeError(f"{path}: a {width}x{height} Radiance image")
+    _check_size(width, height, path, "Radiance image")
+    lib = _load_gif_hdr_codec()
+    rgbe = np.empty((height, width, 4), np.uint8)
+    rc = lib.hdr_read_pixels(data, len(data), pos, width, height,
+                             rgbe.ctypes.data_as(ctypes.POINTER(
+                                 ctypes.c_uint8)))
+    if rc != 0:
+        raise RuntimeError(f"{path}: {_HDR_STATUS[rc]}")
+    return _rgbe_to_u8(rgbe)
+
+
+def _rgbe_to_u8(rgbe: np.ndarray) -> np.ndarray:
+    """rgbe.c's rgbe2float (m · 2^(e - 136), 0 where e is 0), times 255 and
+    converted as cv2 converts floats to bytes."""
+    e = rgbe[..., 3:].astype(np.int64)
+    val = rgbe[..., :3] * 255.0 * np.exp2(e - 136)
+    return _round_saturate(np.where(e > 0, val, 0.0))
+
+
+def hdr_round_trip(img: np.ndarray) -> np.ndarray:
+    """The plain numpy version of what ``write_hdr`` then ``read_hdr`` give
+    an (H, W, 3) uint8 RGB image: each pixel's RGBE encoding of v / 255,
+    decoded and converted back to bytes (within 2 of the input)."""
+    return _rgbe_to_u8(_float2rgbe(_rgb_u8(img, "hdr_round_trip")))
+
+
+def _float2rgbe(img: np.ndarray) -> np.ndarray:
+    """rgbe.c's float2rgbe on v / 255 (cv2 scales 8-bit input so): (H, W,
+    3) uint8 RGB → (H, W, 4) uint8 R, G, B, E."""
+    x = img.astype(np.float32) * np.float32(1 / 255.0)
+    v = x.max(axis=2)
+    mant, ex = np.frexp(v)
+    safe = np.where(v < 1e-32, np.float32(1), v)
+    scale = (mant.astype(np.float64) * 256.0 / safe).astype(np.float32)
+    out = np.empty(img.shape[:2] + (4,), np.uint8)
+    out[..., :3] = (x * scale[..., None]).astype(np.int32)
+    out[..., 3] = ex + 128
+    out[v < 1e-32] = 0
+    return out
+
+
+def write_hdr(path, img: np.ndarray):
+    """(H, W, 3) uint8 RGB → the bytes of ``cv2.imwrite(name.hdr, bgr)``
+    (or ``.pic``): ``#?RADIANCE``, ``FORMAT=32-bit_rle_rgbe``, ``-Y H +X
+    W``, each pixel rgbe.c's encoding of v / 255, new-style run-length
+    scanlines where 8 <= W <= 32767, else flat (``csrc/gif_hdr_codec.cpp``)."""
+    import ctypes
+
+    img = _rgb_u8(img, "write_hdr")
+    height, width = img.shape[:2]
+    rgbe = np.ascontiguousarray(_float2rgbe(img))
+    lib = _load_gif_hdr_codec()
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    cap = rgbe.size + rgbe.size // 64 + 4 * height + 64
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.hdr_write_pixels(rgbe.ctypes.data_as(u8p), width, height,
+                                 out.ctypes.data_as(u8p), cap)
+        if n >= 0:
+            break
+        cap = -2 - n
+    head = (b"#?RADIANCE\n" + _HDR_FORMAT
+            + f"\n-Y {height} +X {width}\n".encode())
+    with open(path, "wb") as f:
+        f.write(head + out[:n].tobytes())
+
+
+# -------------------------------------------------------------------- PFM
+
+_PFM_NUMBER = re.compile(
+    rb"[ \t\n\v\f\r]*[+-]?(?:0[xX](?:[0-9a-fA-F]+\.?[0-9a-fA-F]*|"
+    rb"\.[0-9a-fA-F]+)(?:[pP][+-]?\d+)?|(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?"
+    rb"|[iI][nN][fF](?:[iI][nN][iI][tT][yY])?|[nN][aA][nN])")
+_INT_PREFIX = re.compile(rb"[ \t\n\v\f\r]*([+-]?\d+)")
+
+
+def _atof(token: bytes) -> float:
+    """C's atof: the longest number at the start, else 0."""
+    m = _PFM_NUMBER.match(token)
+    if m is None:
+        return 0.0
+    text = m.group(0).strip().decode()
+    if text.lower().lstrip("+-").startswith("0x"):
+        return float.fromhex(text)
+    return float(text)
+
+
+def _atoi(token: bytes) -> int:
+    """C's atoi (glibc: strtol cut to int)."""
+    m = _INT_PREFIX.match(token)
+    if m is None:
+        return 0
+    v = max(-2 ** 63, min(2 ** 63 - 1, int(m.group(1))))
+    return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def read_pfm(path) -> np.ndarray:
+    """A colour PFM (``PF``) → (H, W, 3) uint8 RGB, bit for bit what
+    ``cv2.imread(path)[..., ::-1]`` gives (cv2's PFMDecoder): ``PF`` and a
+    line break, then width, height and scale, each the bytes up to one
+    whitespace byte read as C's atoi / atof; the scale's sign picks the byte
+    order (negative: little-endian); rows bottom-up; the floats times
+    1 / |scale| in float, then rounded half to even and saturated as cv2
+    converts them (NaN, infinities and 2^31 and more give 0).  A gray
+    ``Pf`` file raises, as cv2 returns None for it in colour."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:1] != b"P" or data[1:2] not in (b"F", b"f"):
+        raise RuntimeError(f"{path}: not a PFM file")
+    if data[2:3] != b"\n":
+        raise RuntimeError(f"{path}: no line break after the PFM magic")
+    if data[1:2] == b"f":
+        raise RuntimeError(f"{path}: a gray PFM (Pf), which cv2 does not "
+                           f"read in colour either")
+    pos = 3
+
+    def token() -> bytes:
+        nonlocal pos
+        out = bytearray()
+        while len(out) < 2048:
+            if pos >= len(data):
+                raise RuntimeError(f"{path}: PFM header cut short")
+            c = data[pos]
+            pos += 1
+            if c >= 128:
+                raise RuntimeError(f"{path}: a byte {c:#x} in the PFM header")
+            if c in b" \t\n\v\f\r":
+                break
+            out.append(c)
+        return bytes(out)
+
+    width, height, scale = _atoi(token()), _atoi(token()), _atof(token())
+    _check_size(width, height, path, "PFM")
+    if not abs(scale) > 0:
+        raise RuntimeError(f"{path}: PFM scale {scale}")
+    raw = data[pos:pos + width * height * 12]
+    if len(raw) < width * height * 12:
+        raise RuntimeError(f"{path}: PFM pixels cut short")
+    px = np.frombuffer(raw, ">f4" if scale > 0 else "<f4").astype(
+        np.float32).reshape(height, width, 3)[::-1]
+    with np.errstate(invalid="ignore", over="ignore"):
+        px = px * np.float32(1.0 / abs(scale))
+    return np.ascontiguousarray(_round_saturate(px))
+
+
+def write_pfm(path, img: np.ndarray):
+    """(H, W, 3) uint8 RGB → the bytes of ``cv2.imwrite(name.pfm, bgr)``:
+    ``PF``, ``W H``, ``-1`` (little-endian), the values as float32 RGB, rows
+    bottom-up."""
+    img = _rgb_u8(img, "write_pfm")
+    height, width = img.shape[:2]
+    body = img[::-1].astype("<f4").tobytes()
+    with open(path, "wb") as f:
+        f.write(f"PF\n{width} {height}\n-1\n".encode() + body)
+
+
+# -------------------------------------------------------------------- PAM
+
+_PAM_FIELDS = ("ENDHDR", "HEIGHT", "WIDTH", "DEPTH", "MAXVAL", "TUPLTYPE")
+# TUPLTYPE → (the number cv2 gives it, the depth it requires)
+_PAM_TUPLES = {"": (0, None), "BLACKANDWHITE": (1, 1), "GRAYSCALE": (2, 1),
+               "GRAYSCALE_ALPHA": (3, 2), "RGB": (4, 3), "RGB_ALPHA": (5, 4)}
+_PAM_NUMBER = re.compile(r"-?\d*")
+
+
+def _pam_number(value: str, path) -> int:
+    """cv2's ParseNumber: an optional minus and digits (none read as 0), at
+    most 2147483646; anything else raises."""
+    if _PAM_NUMBER.fullmatch(value) is None or value == "-":
+        raise RuntimeError(f"{path}: PAM header value {value!r} is not a "
+                           f"number")
+    v = int(value) if value.lstrip("-") else 0
+    if abs(v) > 0x7FFFFFFE:
+        raise RuntimeError(f"{path}: PAM header value {value} too large")
+    return v
+
+
+def read_pam(path) -> np.ndarray:
+    """A PAM (``P7``) → (H, W, 3) uint8 RGB, bit for bit what
+    ``cv2.imread(path)[..., ::-1]`` gives (cv2's PAMDecoder): the header's
+    fields in any order, comments and blank lines, each field once, the
+    values as cv2 parses them; ``TUPLTYPE`` BLACKANDWHITE, GRAYSCALE, RGB
+    or none (then told from DEPTH and MAXVAL as cv2 tells it); MAXVAL up to
+    65535, samples as they are (no scaling to 255), 16-bit ones cut to
+    their high byte, MAXVAL 1 read as bits (a row still takes W · DEPTH
+    bytes); an RGB file's bytes taken in cv2's order (B, G, R as stored).
+    Raises ``RuntimeError`` naming the file where cv2 returns None, and
+    ``ValueError`` for GRAYSCALE_ALPHA and RGB_ALPHA files wider than one
+    pixel, where cv2 fills only the first W / DEPTH pixels of each row and
+    leaves the rest unset."""
+    with open(path, "rb") as f:
+        data = f.read()
+    st = _Stream(data, path)
+    if st.byte() != ord("P") or st.byte() != ord("7") or \
+            st.byte() not in (10, 13):
+        raise RuntimeError(f"{path}: not a PAM file (P7 and a line break)")
+    space = b" \t\n\v\f\r"
+    fields, tuple_name = {}, ""
+
+    def bad(what):
+        return RuntimeError(f"{path}: PAM header: {what}")
+
+    while True:
+        c = st.byte()
+        while c in space:
+            c = st.byte()
+        if c == ord("#"):
+            while c not in (10, 13):
+                c = st.byte()
+            continue
+        ident = bytearray()
+        while c not in space and len(ident) < 8:
+            ident.append(c)
+            c = st.byte()
+        if c not in space:
+            raise bad(f"field name {bytes(ident)!r}... longer than 8 bytes")
+        name = bytes(ident).split(b"\0", 1)[0].decode("latin-1")   # C
+        if name not in _PAM_FIELDS:
+            raise bad(f"unknown field {name!r}")
+        value = bytearray()
+        if c not in (10, 13):
+            c = st.byte()
+            while c in space:
+                c = st.byte()
+            while c not in (10, 13):
+                if len(value) == 255:
+                    raise bad("a value longer than 255 bytes")
+                value.append(c)
+                c = st.byte()
+        value = bytes(value).rstrip(space).split(b"\0", 1)[0].decode(
+            "latin-1")
+        if name == "ENDHDR":
+            break
+        if name == "TUPLTYPE":
+            if value not in _PAM_TUPLES:
+                raise bad(f"TUPLTYPE {value!r}")
+            tuple_name = value
+            continue
+        if name in fields:
+            raise bad(f"{name} twice")
+        fields[name] = _pam_number(value, path)
+        if name == "MAXVAL" and fields[name] > 0xFFFF:
+            raise bad(f"MAXVAL {fields[name]}")
+    code, need = _PAM_TUPLES[tuple_name]
+    depth = fields.get("DEPTH")
+    if code and depth is None:
+        raise bad("no DEPTH")
+    if code and depth != need:
+        raise bad(f"TUPLTYPE {tuple_name} with DEPTH {depth}")
+    if any(k not in fields for k in ("HEIGHT", "WIDTH", "DEPTH", "MAXVAL")):
+        raise bad("a field missing")
+    maxval = fields["MAXVAL"]
+    if not code:
+        if (maxval, depth) == (1, 1):
+            code = 1
+        elif depth == 1 and maxval <= 255:
+            code = 2
+        elif depth == 3 and maxval <= 255:
+            code = 4
+        else:
+            raise bad(f"no TUPLTYPE, and DEPTH {depth} with MAXVAL {maxval}")
+    if not 1 <= depth <= 4:
+        raise bad(f"DEPTH {depth}")
+    width, height = fields["WIDTH"], fields["HEIGHT"]
+    _check_size(width, height, path, "PAM")
+    size = 2 if maxval > 255 else 1
+    stride = width * depth * size
+    raw = data[st.pos:st.pos + stride * height]
+    if len(raw) < stride * height:
+        raise RuntimeError(f"{path}: PAM samples cut short")
+    rows = np.frombuffer(raw, np.uint8).reshape(height, stride)
+    if maxval == 1:                            # bits, MSB first
+        bits = np.unpackbits(rows, axis=1)[:, :width]
+        return np.repeat((bits * np.uint8(255))[..., None], 3, axis=2)
+    px = rows[:, ::size].reshape(height, width, depth)    # the high byte
+    if depth == 3:
+        return np.ascontiguousarray(px[..., ::-1])
+    if depth == 1:
+        return np.repeat(px, 3, axis=2)
+    if width == 1:                 # the one pixel cv2 fills: gray or RGB
+        return np.ascontiguousarray(np.repeat(px[..., :1], 3, axis=2)
+                                    if depth == 2 else px[..., :3])
+    raise ValueError(f"{path}: a {tuple_name} PAM {width} pixels wide: cv2 "
+                     f"fills only the first {-(-width // depth)} pixels of "
+                     f"each row and leaves the rest unset, so the port "
+                     f"refuses it")
+
+
+def write_pam(path, img: np.ndarray):
+    """(H, W, 3) uint8 RGB → the bytes of ``cv2.imwrite(name.pam, bgr)``:
+    ``P7``, WIDTH, HEIGHT, DEPTH 3, MAXVAL 255, ENDHDR, then the samples in
+    cv2's order (B, G, R)."""
+    img = _rgb_u8(img, "write_pam")
+    height, width = img.shape[:2]
+    head = (f"P7\nWIDTH {width}\nHEIGHT {height}\nDEPTH 3\nMAXVAL 255\n"
+            f"ENDHDR\n").encode()
+    with open(path, "wb") as f:
+        f.write(head + img[..., ::-1].tobytes())
+
+
+# ------------------------------------------------------------- Sun raster
+
+SUNRAS_SIGNATURE = b"\x59\xa6\x6a\x95"
+
+
+def read_sunras(path) -> np.ndarray:
+    """A Sun raster file → (H, W, 3) uint8 RGB, bit for bit what
+    ``cv2.imread(path)[..., ::-1]`` gives (cv2's SunRasterDecoder): the old
+    and standard types (cv2 5.0.0 refuses the byte-encoded and RGB types:
+    its header test compares the image type with them, not the encoding),
+    depths 1, 8, 24 (B, G, R) and 32 (X, B, G, R); no colour map, or an
+    equal-RGB one of at most 3 · 2^depth bytes (then planar R, G, B thirds,
+    missing entries black); 1 bit and 8 bits without a map read as gray
+    levels (bit 1 white); rows padded to 2 bytes.  Raises ``RuntimeError``
+    naming the file where cv2 returns None."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != SUNRAS_SIGNATURE or len(data) < 32:
+        raise RuntimeError(f"{path}: not a Sun raster file (or cut short)")
+    width, height, depth, _, kind, maptype, maplen = struct.unpack(
+        ">7i", data[4:32])
+    palsize = 3 << depth if 0 < depth <= 8 else 0
+    if not (width > 0 and height > 0 and depth in (1, 8, 24, 32)
+            and kind in (0, 1)
+            and ((maptype == 0 and maplen == 0)
+                 or (maptype == 1 and 0 < maplen <= palsize
+                     and depth <= 8))):
+        raise RuntimeError(f"{path}: a Sun raster of depth {depth}, type "
+                           f"{kind}, map type {maptype} ({maplen} bytes): "
+                           f"cv2 does not read it")
+    _check_size(width, height, path, "Sun raster")
+    pos = 32
+    palette = np.zeros((256, 3), np.uint8)
+    if maplen:
+        cmap = data[pos:pos + maplen]
+        if len(cmap) < maplen:
+            raise RuntimeError(f"{path}: Sun raster colour map cut short")
+        n = maplen // 3
+        planes = np.frombuffer(cmap[:3 * n], np.uint8).reshape(3, n)
+        palette[:n] = planes.T
+        pos += maplen
+    elif depth <= 8:
+        levels = 1 << depth
+        palette[:levels] = (np.arange(levels) * 255 // (levels - 1))[:, None]
+    pitch = ((width * depth + 7) // 8 + 1) & ~1
+    raw = data[pos:pos + pitch * height]
+    if len(raw) < pitch * height:
+        raise RuntimeError(f"{path}: Sun raster pixels cut short")
+    rows = np.frombuffer(raw, np.uint8).reshape(height, pitch)
+    if depth == 1:
+        return palette[np.unpackbits(rows, axis=1)[:, :width]]
+    if depth == 8:
+        return palette[rows[:, :width]]
+    n = depth // 8
+    px = rows[:, :width * n].reshape(height, width, n)
+    return np.ascontiguousarray(px[..., :0:-1] if n == 4 else px[..., ::-1])
+
+
+def write_sunras(path, img: np.ndarray):
+    """(H, W, 3) uint8 RGB → the bytes of ``cv2.imwrite(name.ras, bgr)``
+    (or ``.sr``): a standard 24-bit raster without a map, B, G, R samples,
+    rows padded to 2 bytes.  cv2 copies each pad byte from past its row:
+    the next row's first byte, and for the last row a byte past the image,
+    which is not the file's to know; the port writes 0 there."""
+    img = _rgb_u8(img, "write_sunras")
+    height, width = img.shape[:2]
+    step = (width * 3 + 1) & ~1
+    flat = img[..., ::-1].reshape(-1)
+    rows = np.zeros((height, step), np.uint8)
+    rows[:, :width * 3] = flat.reshape(height, width * 3)
+    if step > width * 3 and height > 1:
+        rows[:-1, -1] = flat[width * 3::width * 3]
+    head = struct.pack(">8I", 0x59A66A95, width, height, 24, step * height,
+                       1, 0, 0)
+    with open(path, "wb") as f:
+        f.write(head + rows.tobytes())
+
+
 # Formats cv2 reads and the port does not yet: (signature test, name)
 _UNPORTED = (
-    (lambda h: h[:6] in (b"GIF87a", b"GIF89a"), "GIF"),
     (lambda h: h[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n"
      or h[:4] == b"\xff\x4f\xff\x51", "JPEG 2000"),
     (lambda h: h[4:8] == b"ftyp" and h[8:12] in (b"avif", b"avis"), "AVIF"),
-    (lambda h: h[:10] == b"#?RADIANCE" or h[:6] == b"#?RGBE",
-     "Radiance HDR"),
-    (lambda h: h[:2] in (b"PF", b"Pf") and h[2:3].isspace(), "PFM"),
-    (lambda h: h[:2] == b"P7" and h[2:3].isspace(), "PAM"),
-    (lambda h: h[:4] == b"\x59\xa6\x6a\x95", "Sun raster"),
-    (lambda h: h[:4] in (b"II+\x00", b"MM\x00+"), "BigTIFF"),
 )
 
 
@@ -1436,11 +2206,12 @@ def read_image(fn: str) -> np.ndarray:
     """An image file → (H, W, 3) uint8 RGB, what ``cv2.imread`` then
     ``COLOR_BGR2RGB`` gives the JAX package.  The format is the file's
     signature, not its extension (as for ``cv2.imread``): PNG, JPEG, TIFF
-    (``II*\\0``, ``MM\\0*``), BMP (``BM``), PNM (``P1``-``P6``) and WebP
-    (``RIFF....WEBP``) through the port's own readers.  A format cv2 reads
-    that the port does not yet (GIF, JPEG 2000, AVIF, Radiance HDR, PFM,
-    PAM, Sun raster, BigTIFF), and any other file, raises ``RuntimeError``
-    naming the file and the format."""
+    and BigTIFF (``II*\\0``, ``MM\\0*``, ``II+\\0``, ``MM\\0+``), BMP
+    (``BM``), PNM (``P1``-``P6``), WebP (``RIFF....WEBP``), GIF (``GIF``),
+    Radiance HDR (``#?RADIANCE``, ``#?RGBE``), PFM (``PF``, ``Pf``), PAM
+    (``P7``) and Sun raster through the port's own readers.  A format cv2
+    reads that the port does not yet (JPEG 2000, AVIF), and any other file,
+    raises ``RuntimeError`` naming the file and the format."""
     with open(fn, "rb") as f:
         head = f.read(32)
     if head.startswith(PNG_SIGNATURE):
@@ -1453,9 +2224,19 @@ def read_image(fn: str) -> np.ndarray:
         return read_bmp(fn)
     if head[:4] == WEBP_SIGNATURE[0] and head[8:12] == WEBP_SIGNATURE[1]:
         return read_webp(fn)
-    if head[:1] == b"P" and head[1:2] in (b"1", b"2", b"3", b"4", b"5",
-                                          b"6") and head[2:3].isspace():
-        return read_pnm(fn)
+    if head[:1] == b"P" and head[2:3].isspace():
+        if head[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6"):
+            return read_pnm(fn)
+        if head[1:2] in (b"F", b"f"):
+            return read_pfm(fn)
+        if head[1:2] == b"7":
+            return read_pam(fn)
+    if head[:3] == b"GIF":
+        return read_gif(fn)
+    if head.startswith(HDR_SIGNATURES):
+        return read_hdr(fn)
+    if head[:4] == SUNRAS_SIGNATURE:
+        return read_sunras(fn)
     for test, name in _UNPORTED:
         if test(head):
             raise RuntimeError(f"{fn}: a {name} image, which the port does "

@@ -2,11 +2,13 @@
 (``utils/image_io``: interlaced PNG, TIFF through ``csrc/tiff_codec.cpp``,
 BMP, PNM) against cv2, the JAX package's reader and writer: decodes bit for
 bit, encodes byte for byte; the committed fixtures of ``tests/torch_images/``
-(``tests/torch_make_image_fixtures.py``, WebP's too) where cv2 is absent;
-scenes of each format (WebP lossless and lossy too) loaded by JAX's
-``Splatter`` (cv2) and the port's (cv2 made unimportable); the port's
-pyramid against JAX's ``downsample.py``.  WebP's own tests are in
-``tests/test_torch_webp.py``.
+(``tests/torch_make_image_fixtures.py``, WebP's, GIF's, HDR's, PFM's,
+PAM's, Sun raster's and BigTIFF's too) where cv2 is absent; scenes of each
+format (WebP lossless and lossy, GIF, HDR, PFM, PAM, Sun raster and BigTIFF
+too) loaded by JAX's ``Splatter`` (cv2) and the port's (cv2 made
+unimportable); the port's pyramid against JAX's ``downsample.py``.  WebP's
+own tests are in ``tests/test_torch_webp.py``; GIF's, HDR's, PFM's, PAM's,
+Sun raster's and BigTIFF's in ``tests/test_torch_raster_formats.py``.
 
 The cv2 tests take cv2 with ``pytest.importorskip`` inside a fixture (PIL
 where it writes the file); the fixture tests need neither.
@@ -67,11 +69,12 @@ def fixture_results(tmp_path_factory):
     return fx.check(scratch=str(tmp_path_factory.mktemp("fx")))
 
 
-@pytest.mark.parametrize("name", fx.CASES + fx.REFUSED + fx.ENCODED
-                         + fx.ROUND_TRIP)
+@pytest.mark.parametrize("name", fx.CASES + fx.REFUSED + fx.GARBLED
+                         + fx.ENCODED + fx.ROUND_TRIP)
 def test_committed_fixture(fixture_results, name):
-    # no cv2 here: each file against cv2's recorded decode (REFUSED: the
-    # port raises naming the file; ENCODED: the writer's bytes are cv2's;
+    # no cv2 here: each file against cv2's recorded decode (REFUSED, and
+    # GARBLED, which cv2 reads only in part: the port raises naming the
+    # file; ENCODED: the writer's bytes are cv2's;
     # ROUND_TRIP: the writer's file reads back as its source)
     assert fixture_results[name] is True
 
@@ -403,9 +406,7 @@ def test_pnm_writer_matches_cv2_bytes(cv2, tmp_path, ext):
 # ----------------------------------------------------- unported formats
 
 
-_UNPORTED = {"gif": "GIF", "jp2": "JPEG 2000",
-             "avif": "AVIF", "hdr": "Radiance HDR", "pfm": "PFM",
-             "pam": "PAM", "ras": "Sun raster"}
+_UNPORTED = {"jp2": "JPEG 2000", "avif": "AVIF"}
 
 
 @pytest.mark.parametrize("ext", list(_UNPORTED))
@@ -414,8 +415,7 @@ def test_unported_formats_raise_naming_the_format(cv2, tmp_path, ext):
     # writes none): the port says it does not read the format yet
     path = tmp_path / f"view.{ext}"
     img = fx.fixture_image(12, 16, seed=1)
-    arr = img.astype(np.float32) / 255 if ext in ("hdr", "pfm") else img
-    if not cv2.imwrite(str(path), arr[..., ::-1]):
+    if not cv2.imwrite(str(path), img[..., ::-1]):
         assert ext == "jp2"
         path.write_bytes(b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(32))
     else:
@@ -423,16 +423,6 @@ def test_unported_formats_raise_naming_the_format(cv2, tmp_path, ext):
     with pytest.raises(RuntimeError,
                        match=f"view.{ext}: a {_UNPORTED[ext]} image.*not "
                              f"read yet"):
-        read_image(str(path))
-
-
-def test_bigtiff_raises_naming_the_format(cv2, tmp_path):
-    Image = pytest.importorskip("PIL.Image")
-    path = tmp_path / "view.tif"
-    Image.fromarray(fx.fixture_image(12, 16)).save(str(path), big_tiff=True)
-    assert path.read_bytes()[:4] == b"II+\x00"
-    assert cv2.imread(str(path)) is not None
-    with pytest.raises(RuntimeError, match="view.tif: a BigTIFF image"):
         read_image(str(path))
 
 
@@ -447,7 +437,9 @@ def test_not_an_image_raises_naming_the_file(tmp_path):
 
 
 _SCENE_FORMATS = {"tiff": ".tif", "bmp": ".bmp", "pnm": ".ppm",
-                  "webp": ".webp", "webp_lossy": ".webp"}
+                  "webp": ".webp", "webp_lossy": ".webp", "gif": ".gif",
+                  "hdr": ".hdr", "pfm": ".pfm", "pam": ".pam", "ras": ".ras",
+                  "bigtiff": ".tif"}
 # cv2.imwrite's parameters where a scene is not written with its defaults
 _SCENE_PARAMS = {"webp_lossy": ("IMWRITE_WEBP_QUALITY", 90)}
 
@@ -476,7 +468,10 @@ def _convert_scene(cv2, root, dst, fmt):
     images.mkdir()
     for name in sorted(os.listdir(root / "images_1")):
         img = cv2.imread(str(root / "images_1" / name))
-        assert cv2.imwrite(str(images / (name[:-4] + ext)), img, params)
+        out = images / (name[:-4] + ext)
+        assert cv2.imwrite(str(out), img, params)
+        if fmt == "bigtiff":          # cv2's TIFF in the BigTIFF layout
+            out.write_bytes(fx.to_bigtiff(out.read_bytes()))
     path = dst / "sparse" / "0" / "images.bin"
     path.write_bytes(path.read_bytes().replace(b".jpg\x00",
                                                ext.encode() + b"\x00"))
@@ -509,12 +504,15 @@ def test_scene_loads_as_jax_loads_it(cv2, capture_scene, tmp_path, fmt):
                                       np.asarray(jg.images))
 
 
-@pytest.mark.parametrize("fmt", ["tiff", "bmp", "webp"])
+@pytest.mark.parametrize("fmt", ["tiff", "bmp", "webp", "gif", "hdr", "pfm",
+                                 "pam", "ras"])
 def test_downsample_matches_jax_script(cv2, capture_scene, tmp_path, fmt):
     # the JAX root downsample.py (cv2) and the port's module over a folder
     # of one format: the same files, byte for byte (WebP: the same pixels,
     # as cv2 and the port decode them, since libwebp's lossless encoder
-    # chooses its bytes by searching)
+    # chooses its bytes by searching; the Sun raster views are an even
+    # number of pixels wide, so no row has the pad byte cv2 copies from
+    # past its image)
     _, src = _convert_scene(cv2, capture_scene, tmp_path / "scene", fmt)
     for script, dst in ((["downsample.py"], "jax"),
                         (["-m", "gsplat_tpu_torch.downsample"], "port")):

@@ -231,8 +231,9 @@ def test_read_image_goes_by_signature(tmp_path):
     np.testing.assert_array_equal(
         read_image(str(tmp_path / "jpeg_named.png")),
         read_jpeg(str(tmp_path / "jpeg_named.png")))
-    (tmp_path / "photo.tif").write_bytes(b"GIF89a")
-    with pytest.raises(RuntimeError, match="photo.tif.*GIF.*not read yet"):
+    (tmp_path / "photo.tif").write_bytes(b"\x00\x00\x00\x0cjP  \r\n\x87\n")
+    with pytest.raises(RuntimeError,
+                       match="photo.tif.*JPEG 2000.*not read yet"):
         read_image(str(tmp_path / "photo.tif"))
 
 
