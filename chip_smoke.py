@@ -9,9 +9,9 @@ It builds the rasterizer kernels (gsplat_tpu_torch/csrc/rasterize_fwd.cu and
 rasterize_bwd.cu, one nvcc each, in parallel, for sm_90a into
 gsplat_tpu_torch/_build/; beside them the native COLMAP reader,
 csrc/colmap_reader.cpp, the JPEG codec, csrc/jpeg_codec.cpp, the TIFF strip
-codecs, csrc/tiff_codec.cpp, the WebP codec, csrc/webp_codec.cpp, and the
-GIF and Radiance HDR codecs, csrc/gif_hdr_codec.cpp, with the system C++
-compiler), six entry
+codecs, csrc/tiff_codec.cpp, the WebP codec, csrc/webp_codec.cpp, the
+GIF and Radiance HDR codecs, csrc/gif_hdr_codec.cpp, and the JPEG 2000
+codec, csrc/jpeg2000_codec.cpp, with the system C++ compiler), six entry
 points:
 the f32 RGB forward and backward, the SH forward and backward (27
 coefficients) and the bf16 render preset's forward, RGB and SH.  It holds
@@ -77,23 +77,26 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   648x420) and the committed codec fixtures of tests/torch_jpeg/ bit for
   bit, with the codec's host seconds beside the CPU's model; then the other
   formats (image_io's TIFF, WebP, GIF, Radiance HDR, PFM, PAM, Sun raster,
-  BMP and PNM readers and writers): the 56 views through write_tiff,
-  write_webp, write_gif, write_hdr, write_pfm, write_pam and write_sunras
-  into one copy of the scene a format and a few through write_bmp and
-  write_pnm, each read back equal to its PNG (GIF: to gif_332, the plain
-  3-3-2 dither; HDR: to hdr_round_trip, the plain RGBE round trip), each
-  format's encode and decode seconds a view (and a committed
-  arithmetic-coded JPEG's and a committed lossy WebP's, whose decode must
-  hash as cv2's), every scene through Splatter with every ground-truth
-  tensor equal to what its read-back was held to, run_garden_7k over
-  iterations 0-200 from the PNG scene and from the TIFF and WebP scenes
-  with every logged l1, PSNR, pair count and TEST line equal, and from the
+  JPEG 2000, BMP and PNM readers and writers): the 56 views through
+  write_tiff, write_webp, write_gif, write_hdr, write_pfm, write_pam,
+  write_sunras and write_jpeg2000 into one copy of the scene a format and a
+  few through write_bmp and write_pnm, each read back equal to its PNG
+  (GIF: to gif_332, the plain 3-3-2 dither; HDR: to hdr_round_trip, the
+  plain RGBE round trip), each format's encode and decode seconds a view
+  (and a committed arithmetic-coded JPEG's, a committed lossy WebP's and
+  two committed JPEG 2000 views', cv2's rate-limited reversible file and
+  a 9/7 file in layers, tiles and precincts with SOP, EPH and PLT, whose
+  decodes must hash as cv2's), every scene through Splatter with every
+  ground-truth tensor equal to what its read-back was held to,
+  run_garden_7k over iterations 0-200 from the PNG scene and from the
+  TIFF, WebP and JPEG 2000 scenes with every logged l1, PSNR, pair count
+  and TEST line equal, and from the
   GIF scene with its last l1 within the JPEG leg's bound of the PNG
   leg's, the pyramids over the TIFFs, the WebPs and the PFMs equal to the
   PNGs' and over the GIFs write_gif's bytes of the area means, and the
   committed fixtures of tests/torch_images/ (arithmetic, lossless, CMYK
   and cut-short JPEG, Adam7 PNG, TIFF and BigTIFF, BMP, PNM, WebP, GIF,
-  HDR, PFM, PAM, Sun raster) bit for bit.
+  HDR, PFM, PAM, Sun raster, JPEG 2000) bit for bit.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -1587,11 +1590,11 @@ def at_scale_path(rz, dev):
         del tr, views
         torch.cuda.empty_cache()
         jpeg = jpeg_capture_path(rz, scene, root, png_log)
-        png_leg, tiff_leg, webp_leg, gif_leg = image_formats_path(
+        png_leg, tiff_leg, webp_leg, jp2_leg, gif_leg = image_formats_path(
             rz, scene, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg,
+    return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
             gif_leg), scale_rows
 
 
@@ -1751,6 +1754,11 @@ FORMAT_VIEWS = 6
 # the decode seconds of that kind on the card's host
 ARITH_VIEW = "tests/torch_images/timing_arith_1297x840.jpg"
 LOSSY_WEBP_VIEW = "tests/torch_images/timing_lossy_1297x840.webp"
+# committed 1297x840 JPEG 2000 views (torch_make_image_fixtures.TIMING_J2K):
+# cv2's writer at X1000 = 50, and a 9/7 file in 3 layers, RPCL, tiles,
+# precincts, SOP, EPH and PLT; each decode must hash as cv2's
+J2K_VIEWS = ("tests/torch_images/timing_rate_1297x840.jp2",
+             "tests/torch_images/timing_97_1297x840.jp2")
 
 
 def _trainer_lines(log):
@@ -1787,18 +1795,20 @@ def _format_scene(scene, root, name, ext):
 def image_formats_path(rz, scene, root):
     """The real-capture phase's other formats (utils/image_io beyond PNG and
     JPEG) on garden_hard's 56 views: (a) each PNG view through write_tiff,
-    write_webp, write_gif, write_hdr, write_pfm, write_pam and write_sunras
-    into one scene a format (images_4/img_XXX.<ext> and sparse copies whose
-    images.bin names them), FORMAT_VIEWS through write_bmp and write_pnm,
-    each decoded back: equal to its PNG (TIFF, WebP, PFM, PAM, Sun raster,
-    BMP, PPM), to gif_332 of it (GIF) and to hdr_round_trip of it (HDR);
-    every format's encode and decode seconds a view timed, and the
-    committed arithmetic-coded JPEG and lossy WebP views decoded (the
-    WebP's pixels held to the SHA-256 of cv2's decode); (b) every scene
+    write_webp, write_jpeg2000, write_gif, write_hdr, write_pfm, write_pam
+    and write_sunras into one scene a format (images_4/img_XXX.<ext> and
+    sparse copies whose images.bin names them), FORMAT_VIEWS through
+    write_bmp and write_pnm, each decoded back: equal to its PNG (TIFF,
+    WebP, JPEG 2000, PFM, PAM, Sun raster, BMP, PPM), to gif_332 of it
+    (GIF) and to hdr_round_trip of it (HDR); every format's encode and
+    decode seconds a view timed, and the committed arithmetic-coded JPEG,
+    lossy WebP and JPEG 2000 views decoded (the WebP's and the JPEG 2000
+    views' pixels held to the SHA-256 of cv2's decode); (b) every scene
     through Splatter on the card, each ground-truth tensor equal to the PNG
     scene's (to the GIF and HDR maps' for those scenes); (c) run_garden_7k
     over iterations 0..JPEG_ITERS - 1 of the RGB schedule from the PNG,
-    TIFF and WebP scenes, the logged l1, PSNR, pair and TEST lines, the
+    TIFF, WebP and JPEG 2000 scenes, the logged l1, PSNR, pair and TEST
+    lines, the
     per-step pair counts and the final PSNR/SSIM equal (the input is
     lossless and the step deterministic), and from the GIF scene, its last
     l1 within d + JPEG_L1_DRIFT · l1_png of the PNG leg's (d the largest
@@ -1808,7 +1818,7 @@ def image_formats_path(rz, scene, root):
     GIFs, each file write_gif's bytes of downsample_area of its view;
     (e) the committed fixtures of tests/torch_images/ bit for bit and byte
     for byte.  → (the PNG leg's launches, the TIFF leg's, the WebP leg's,
-    the GIF leg's)."""
+    the JPEG 2000 leg's, the GIF leg's)."""
     import hashlib
 
     import torch
@@ -1831,17 +1841,19 @@ def image_formats_path(rz, scene, root):
                    ("pam", ".pam", image_io.write_pam),
                    ("ras", ".ras", image_io.write_sunras))
     host = host_cpu()
-    phase(f"real capture (TIFF, WebP, GIF, HDR, PFM, PAM, Sun raster, BMP, "
-          f"PNM): garden_hard's views through the writers, read_image, "
+    phase(f"real capture (TIFF, WebP, JPEG 2000, GIF, HDR, PFM, PAM, Sun "
+          f"raster, BMP, PNM): garden_hard's views through the writers, "
+          f"read_image, "
           f"Splatter, run_garden_7k and downsample (host: {host})")
     torch.cuda.synchronize()
     reset_launches(rz)
     src = os.path.join(scene, "images_4")
     scenes = {"tiff": _format_scene(scene, root, "scene_tiff", ".tif"),
-              "webp": _format_scene(scene, root, "scene_webp", ".webp")}
+              "webp": _format_scene(scene, root, "scene_webp", ".webp"),
+              "jp2": _format_scene(scene, root, "scene_jp2", ".jp2")}
     for kind, ext, _ in new_formats:
         scenes[kind] = _format_scene(scene, root, f"scene_{kind}", ext)
-    exts = {"tiff": ".tif", "webp": ".webp",
+    exts = {"tiff": ".tif", "webp": ".webp", "jp2": ".jp2",
             **{kind: ext for kind, ext, _ in new_formats}}
     other = os.path.join(root, "bmp_pnm")
     os.makedirs(other)
@@ -1849,7 +1861,8 @@ def image_formats_path(rz, scene, root):
     check(len(pngs) == 56, f"{len(pngs)} PNG views")
     # (a) each format written and read back, each view timed alone
     secs = {k: [] for k in ("png read", "tiff write", "tiff read",
-                            "webp write", "webp read", "bmp write",
+                            "webp write", "webp read", "jp2 write",
+                            "jp2 read", "bmp write",
                             "bmp read", "ppm write", "ppm read")}
     for kind, _, _ in new_formats:
         secs[f"{kind} write"], secs[f"{kind} read"] = [], []
@@ -1875,7 +1888,8 @@ def image_formats_path(rz, scene, root):
         formats = [(kind, os.path.join(scenes[kind][1], name[:-4]
                                        + exts[kind]), writer)
                    for kind, writer in (("tiff", image_io.write_tiff),
-                                        ("webp", image_io.write_webp))]
+                                        ("webp", image_io.write_webp),
+                                        ("jp2", image_io.write_jpeg2000))]
         formats += [(kind, os.path.join(scenes[kind][1], name[:-4] + ext),
                      writer) for kind, ext, writer in new_formats]
         if i < FORMAT_VIEWS:
@@ -1907,6 +1921,20 @@ def image_formats_path(rz, scene, root):
     check(digest == fx.TIMING_WEBP_SHA256,
           f"{LOSSY_WEBP_VIEW}: decode SHA-256 {digest} is not cv2's "
           f"{fx.TIMING_WEBP_SHA256}")
+    j2k_shas = []
+    for label, view in zip(("JPEG 2000 rate-50 read", "JPEG 2000 9/7 read"),
+                           J2K_VIEWS):
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dec = image_io.read_image(os.path.join(here, view))
+            secs.setdefault(label, []).append(time.perf_counter() - t0)
+        sha = hashlib.sha256(np.ascontiguousarray(dec).tobytes()).hexdigest()
+        want = fx.TIMING_J2K[os.path.basename(view)]
+        check(dec.shape == (840, 1297, 3) and sha == want,
+              f"{view}: decode {dec.shape} SHA-256 {sha} is not cv2's {want}")
+        j2k_shas.append(sha[:16] + "...")
+    print(f"  the committed JPEG 2000 views decode as cv2 does (SHA-256 "
+          f"{', '.join(j2k_shas)})", flush=True)
     sizes = {kind: sum(os.path.getsize(os.path.join(d, n))
                        for n in os.listdir(d))
              for kind, d in (("png", src), *((k, v[1])
@@ -1963,10 +1991,10 @@ def image_formats_path(rz, scene, root):
     torch.cuda.empty_cache()
     for kind in ("hdr", "pam", "ras"):          # not needed further
         shutil.rmtree(scenes.pop(kind)[0])
-    # (c) training from the PNG, TIFF, WebP and GIF scenes
+    # (c) training from the PNG, TIFF, WebP, JPEG 2000 and GIF scenes
     runs, logs = {}, {}
-    for kind, sc in (("png", scene), *((k, scenes[k][0])
-                                       for k in ("tiff", "webp", "gif"))):
+    for kind, sc in (("png", scene), *((k, scenes[k][0]) for k in
+                                       ("tiff", "webp", "jp2", "gif"))):
         summary, tr, launches, records, log = run_7k(rz, [
             "--scene", sc, "--exp", os.path.join(root, f"leg_{kind}"),
             "--n_iters", str(FULL_ITERS), "--stop_at", str(JPEG_ITERS),
@@ -1988,7 +2016,8 @@ def image_formats_path(rz, scene, root):
     ps, pl, pp, plines = runs["png"]
     check(bool(plines) and any(x.startswith("TEST") for x in plines),
           "the PNG leg logged no TEST line")
-    for kind in ("tiff", "webp"):
+    shutil.rmtree(scenes.pop("jp2")[0])         # not needed further
+    for kind in ("tiff", "webp", "jp2"):
         ts, tl, tp, tlines = runs[kind]
         up = kind.upper()
         check(tlines == plines, f"{up} leg lines {tlines} != PNG {plines}")
@@ -2059,9 +2088,10 @@ def image_formats_path(rz, scene, root):
           f"{len(got) - len(bad)} as cv2 reads (or refuses) them; "
           f"{json.dumps(got)}", flush=True)
     check(not bad and len(got) == len(fx.CASES) + len(fx.REFUSED)
-          + len(fx.GARBLED) + len(fx.ENCODED) + len(fx.ROUND_TRIP),
-          f"image fixtures differ: {bad}")
-    return pl, runs["tiff"][1], runs["webp"][1], runs["gif"][1]
+          + len(fx.GARBLED) + len(fx.ENCODED) + len(fx.ENCODED_J2K)
+          + len(fx.ROUND_TRIP), f"image fixtures differ: {bad}")
+    return pl, runs["tiff"][1], runs["webp"][1], runs["jp2"][1], \
+        runs["gif"][1]
 
 
 def finite(x):
@@ -2760,11 +2790,12 @@ def main() -> int:
     # the kernels' sources, and the self-check of the forward's split
     # division (csrc/fast_div_check.cu); beside them the host libraries
     # (csrc/colmap_reader.cpp, csrc/jpeg_codec.cpp, csrc/tiff_codec.cpp,
-    # csrc/webp_codec.cpp, csrc/gif_hdr_codec.cpp; the system C++ compiler)
+    # csrc/webp_codec.cpp, csrc/gif_hdr_codec.cpp, csrc/jpeg2000_codec.cpp;
+    # the system C++ compiler)
     sources = sorted({src for src, _ in rz.KERNELS.values()}
                      | {"fast_div_check"})
     host_libs = ("colmap_reader", "jpeg_codec", "tiff_codec", "webp_codec",
-                 "gif_hdr_codec")
+                 "gif_hdr_codec", "jpeg2000_codec")
     with ThreadPoolExecutor(len(sources) + len(host_libs)) as pool:
         hosts = [pool.submit(cuda_build.load_host_library, name)
                  for name in host_libs]
@@ -2775,7 +2806,7 @@ def main() -> int:
         rz._kernel(name)
     print(f"built {len(sources) + len(host_libs)} libraries ({len(KERNELS)} "
           f"entry points, the division check, the COLMAP reader, the JPEG, "
-          f"TIFF, WebP and GIF/HDR codecs) in "
+          f"TIFF, WebP, GIF/HDR and JPEG 2000 codecs) in "
           f"{time.perf_counter() - t0:.2f} s",
           flush=True)
     for name in host_libs:
@@ -3395,7 +3426,8 @@ def main() -> int:
 
     # ---- 12. the at-scale run ----------------------------------------------
     (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg, at_scale_png,
-     at_scale_tiff, at_scale_webp, at_scale_gif), scale_rows = \
+     at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif), \
+        scale_rows = \
         at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
@@ -3442,6 +3474,7 @@ def main() -> int:
              "at-scale PNG 0-200 run": at_scale_png,
              "at-scale TIFF run": at_scale_tiff,
              "at-scale WebP run": at_scale_webp,
+             "at-scale JPEG 2000 run": at_scale_jp2,
              "at-scale GIF run": at_scale_gif,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}

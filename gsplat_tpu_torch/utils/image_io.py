@@ -6,7 +6,7 @@ so a scene loads where ``cv2`` is not installed.  Every reader returns what
 ``cv2.imread(path, IMREAD_COLOR)`` then ``COLOR_BGR2RGB`` gives, bit for bit
 (the behaviour of cv2 5.0.0 as built with libjpeg-turbo 3.1.2, libpng,
 libtiff 4.7.1, libwebp 1.6, OpenCV's own BMP, PNM, GIF, Radiance HDR, PFM,
-PAM and Sun raster decoders), and every writer the bytes of
+PAM and Sun raster decoders, OpenJPEG 2.5.3), and every writer the bytes of
 ``cv2.imwrite``'s defaults, except the WebP writer, held to pixels, and
 the Sun raster writer's last pad byte, which cv2 copies from past its
 image.  ``read_image`` picks the reader by the file's signature, as cv2's
@@ -35,6 +35,11 @@ GIF and Radiance HDR (``csrc/gif_hdr_codec.cpp`` for GIF's LZW, the GIF
 writer's Floyd-Steinberg dither onto its fixed 3-3-2 palette and HDR's
 run-length scanlines; the blocks, headers and colours here), PFM, PAM and
 Sun raster (numpy).
+
+JPEG 2000 (``csrc/jpeg2000_codec.cpp`` for the codestream: OpenJPEG 2.5.3's
+decoding, every Part-1 option; the JP2 boxes, palettes, channel
+definitions and cv2's colour rules here); ``write_jpeg2000`` writes cv2's
+lossless JP2 byte for byte.
 """
 
 from __future__ import annotations
@@ -2194,10 +2199,446 @@ def write_sunras(path, img: np.ndarray):
         f.write(head + rows.tobytes())
 
 
+# -------------------------------------------------------------- JPEG 2000
+
+JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+J2K_SIGNATURE = b"\xff\x4f\xff\x51"
+_J2K_ERRLEN = 256
+# OpenJPEG's colour spaces from the colr box's EnumCS (opj_jp2_decode)
+_J2K_ENUMCS = {16: "srgb", 17: "gray", 18: "sycc", 24: "eycc", 12: "cmyk"}
+
+
+def _load_jpeg2000_codec():
+    """The port's JPEG 2000 codec (``csrc/jpeg2000_codec.cpp``), built at
+    first use; raises when it cannot be built."""
+    import ctypes
+
+    from gsplat_tpu_torch.ops.cuda_build import load_host_library
+
+    lib = load_host_library("jpeg2000_codec")
+    ll, vp, cp = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_char_p
+    llp = ctypes.POINTER(ll)
+    lib.j2k_header.restype = ctypes.c_int
+    lib.j2k_header.argtypes = [cp, ll, ctypes.c_uint, ctypes.c_uint, llp, llp,
+                               ctypes.c_int, cp, ctypes.c_int]
+    lib.j2k_decode.restype = vp
+    lib.j2k_decode.argtypes = [cp, ll, ctypes.c_uint, ctypes.c_uint, cp,
+                               ctypes.c_int]
+    lib.j2k_comp_info.restype = None
+    lib.j2k_comp_info.argtypes = [vp, ctypes.c_int, llp]
+    lib.j2k_comp_data.restype = None
+    lib.j2k_comp_data.argtypes = [vp, ctypes.c_int, vp]
+    lib.j2k_free.restype = None
+    lib.j2k_free.argtypes = [vp]
+    lib.j2k_encode_lossless.restype = ll
+    lib.j2k_encode_lossless.argtypes = [vp, ctypes.c_int, ctypes.c_int, vp,
+                                        ll]
+    return lib
+
+
+class _JP2:
+    """What OpenJPEG's JP2 reader (opj_jp2_read_header_procedure and its box
+    handlers) keeps of a file's boxes, and where its codestream starts."""
+
+    def __init__(self):
+        self.state = set()          # signature, ftyp, header, unknown
+        self.ihdr = None            # (h, w, numcomps)
+        self.has_ihdr = self.has_jp2h = self.has_colr = False
+        self.enumcs = 0
+        self.pclr = None            # entries (NE, NPC)
+        self.cmap = None            # [(cmp, mtyp, pcol)]
+        self.cdef = None            # [(cn, typ, asoc)]
+        self.codestream = None
+
+    def sub_box(self, kind: bytes, body: bytes, path):
+        if kind == b"ihdr":
+            if self.ihdr is not None:
+                return              # "Ignoring ihdr box"
+            if len(body) != 14:
+                raise RuntimeError(f"{path}: a JP2 ihdr box of {len(body)} "
+                                   f"bytes, not 14")
+            h, w, nc = struct.unpack(">IIH", body[:10])
+            if nc - 1 >= 16384 or h < 1 or w < 1 or nc < 1:
+                raise RuntimeError(f"{path}: JP2 ihdr values w {w} h {h} "
+                                   f"numcomps {nc}")
+            self.ihdr = (h, w, nc)
+            self.has_ihdr = True
+        elif kind == b"colr":
+            if len(body) < 3:
+                raise RuntimeError(f"{path}: a JP2 colr box under 3 bytes")
+            if self.has_colr:
+                return              # only the first colr box counts
+            meth = body[0]
+            if meth == 1:
+                if len(body) < 7:
+                    raise RuntimeError(f"{path}: an enumerated JP2 colr box "
+                                       f"under 7 bytes")
+                self.enumcs = struct.unpack(">I", body[3:7])[0]
+                self.has_colr = True
+            elif meth == 2:
+                self.has_colr = True    # an ICC profile: cv2 ignores it
+        elif kind == b"bpcc":
+            numcomps = self.ihdr[2] if self.ihdr else 0
+            if len(body) != numcomps:
+                raise RuntimeError(f"{path}: a JP2 bpcc box of {len(body)} "
+                                   f"bytes for {numcomps} components")
+        elif kind == b"pclr":
+            if self.pclr is not None or len(body) < 3:
+                raise RuntimeError(f"{path}: a second or short JP2 pclr box")
+            ne, npc = struct.unpack(">HB", body[:3])
+            if ne == 0 or ne > 1024 or npc == 0:
+                raise RuntimeError(f"{path}: a JP2 pclr box of {ne} entries "
+                                   f"and {npc} columns")
+            if len(body) < 3 + npc:
+                raise RuntimeError(f"{path}: a short JP2 pclr box")
+            sizes = [(b & 0x7F) + 1 for b in body[3:3 + npc]]
+            pos = 3 + npc
+            entries = np.zeros((ne, npc), np.int64)
+            for j in range(ne):
+                for i in range(npc):
+                    n = min((sizes[i] + 7) >> 3, 4)
+                    if len(body) < pos + n:
+                        raise RuntimeError(f"{path}: a short JP2 pclr box")
+                    entries[j, i] = int.from_bytes(body[pos:pos + n], "big")
+                    pos += n
+            self.pclr = entries
+        elif kind == b"cmap":
+            if self.pclr is None:
+                raise RuntimeError(f"{path}: a JP2 cmap box before its pclr")
+            if self.cmap is not None:
+                raise RuntimeError(f"{path}: a second JP2 cmap box")
+            npc = self.pclr.shape[1]
+            if len(body) < 4 * npc:
+                raise RuntimeError(f"{path}: a short JP2 cmap box")
+            self.cmap = [struct.unpack(">HBB", body[4 * i:4 * i + 4])
+                         for i in range(npc)]
+        elif kind == b"cdef":
+            if self.cdef is not None or len(body) < 2:
+                raise RuntimeError(f"{path}: a second or short JP2 cdef box")
+            n = struct.unpack(">H", body[:2])[0]
+            if n == 0 or len(body) < 2 + 6 * n:
+                raise RuntimeError(f"{path}: a JP2 cdef box of {n} entries "
+                                   f"in {len(body)} bytes")
+            self.cdef = [list(struct.unpack(">HHH", body[2 + 6 * i:8 + 6 * i]))
+                         for i in range(n)]
+
+    def jp2h(self, body: bytes, path):
+        if "ftyp" not in self.state:
+            raise RuntimeError(f"{path}: a JP2 jp2h box before ftyp")
+        has_ihdr = False
+        while body:
+            if len(body) < 8:
+                raise RuntimeError(f"{path}: a JP2 header box of "
+                                   f"{len(body)} bytes")
+            length, kind = struct.unpack(">I4s", body[:8])
+            head = 8
+            if length == 1:
+                if len(body) < 16 or body[8:12] != b"\0\0\0\0":
+                    raise RuntimeError(f"{path}: a JP2 XL box OpenJPEG "
+                                       f"does not read")
+                length, head = struct.unpack(">I", body[12:16])[0], 16
+            if length == 0 or length < head or length > len(body):
+                raise RuntimeError(f"{path}: a JP2 header box of length "
+                                   f"{length}")
+            self.sub_box(kind, body[head:length], path)
+            has_ihdr |= kind == b"ihdr"
+            body = body[length:]
+        if not has_ihdr:
+            raise RuntimeError(f"{path}: a JP2 jp2h box without ihdr")
+        self.state.add("header")
+        self.has_jp2h = True
+
+    def parse(self, data: bytes, path):
+        pos = 0
+        while len(data) - pos >= 8:
+            length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+            head = 8
+            if length == 0:
+                length = len(data) - pos
+            elif length == 1:
+                if len(data) - pos < 16:
+                    break
+                if data[pos + 8:pos + 12] != b"\0\0\0\0":
+                    raise RuntimeError(f"{path}: a JP2 box past 2^32 bytes")
+                length = struct.unpack(">I", data[pos + 12:pos + 16])[0]
+                head = 16
+            if kind == b"jp2c":
+                if "header" not in self.state:
+                    raise RuntimeError(f"{path}: the JP2 codestream box "
+                                       f"comes before jp2h")
+                self.codestream = data[pos + head:]
+                return
+            if length < head:
+                raise RuntimeError(f"{path}: a JP2 box of length {length}")
+            size = length - head
+            body = data[pos + head:pos + head + size]
+            top = kind in (b"jP  ", b"ftyp", b"jp2h")
+            img = kind in (b"ihdr", b"colr", b"bpcc", b"pclr", b"cmap",
+                           b"cdef")
+            if top or img:
+                if img and "header" not in self.state:
+                    if len(data) - pos - head < size:     # the skip fails
+                        raise RuntimeError(f"{path}: a JP2 box runs past "
+                                           f"the file")
+                    self.state.add("unknown")
+                    pos += length
+                    continue
+                if size > len(data) - pos - head:
+                    raise RuntimeError(f"{path}: a JP2 box of {size} bytes "
+                                       f"past the file's end")
+                if kind == b"jP  ":
+                    if self.state:
+                        raise RuntimeError(f"{path}: a JP2 signature box not "
+                                           f"first")
+                    if body != b"\r\n\x87\n":
+                        raise RuntimeError(f"{path}: a bad JP2 signature box")
+                    self.state.add("signature")
+                elif kind == b"ftyp":
+                    if self.state != {"signature"}:
+                        raise RuntimeError(f"{path}: the JP2 ftyp box not "
+                                           f"second")
+                    if size < 8 or (size - 8) % 4:
+                        raise RuntimeError(f"{path}: a JP2 ftyp box of "
+                                           f"{size} bytes")
+                    self.state.add("ftyp")
+                elif kind == b"jp2h":
+                    self.jp2h(body, path)
+                else:
+                    self.sub_box(kind, body, path)
+            else:
+                if "signature" not in self.state or "ftyp" not in self.state:
+                    raise RuntimeError(f"{path}: a JP2 file whose first boxes "
+                                       f"are not jP and ftyp")
+                self.state.add("unknown")
+                if len(data) - pos - head < size:
+                    raise RuntimeError(f"{path}: a JP2 box runs past the file")
+            pos += length
+        self.codestream = b""          # no codestream: "Expected a SOC marker"
+
+
+def _jp2_check_color(jp2: _JP2, comps: list, path):
+    """opj_jp2_check_color, on the decoded components."""
+    pclr = jp2.pclr if jp2.cmap is not None else None
+    if jp2.cdef is not None:
+        nr = pclr.shape[1] if pclr is not None else len(comps)
+        for cn, _, asoc in jp2.cdef:
+            if cn >= nr or (asoc != 65535 and asoc > 0 and asoc - 1 >= nr):
+                raise RuntimeError(f"{path}: a JP2 cdef channel past the "
+                                   f"{nr} channels")
+        for k in range(nr - 1, -1, -1):
+            if not any(cn == k for cn, _, _ in jp2.cdef):
+                raise RuntimeError(f"{path}: incomplete JP2 channel "
+                                   f"definitions")
+    if pclr is not None:
+        npc = pclr.shape[1]
+        cmap = jp2.cmap
+        sane = all(c < len(comps) for c, _, _ in cmap)
+        used = [False] * npc
+        for i, (_, mtyp, pcol) in enumerate(cmap):
+            if mtyp not in (0, 1) or pcol >= npc \
+                    or (used[pcol] and mtyp == 1) \
+                    or (mtyp == 0 and pcol != 0) or (mtyp == 1 and pcol != i):
+                sane = False
+            else:
+                used[pcol] = True
+        if any(not used[i] and cmap[i][1] != 0 for i in range(npc)):
+            sane = False
+        if sane and len(comps) == 1 and not all(used):
+            jp2.cmap = [(c, 1, i) for i, (c, _, _) in enumerate(cmap)]
+        if not sane:
+            raise RuntimeError(f"{path}: a JP2 cmap box OpenJPEG refuses")
+
+
+def _jp2_apply(jp2: _JP2, comps: list) -> list:
+    """opj_jp2_apply_pclr then opj_jp2_apply_cdef's channel swaps (cv2 reads
+    neither the new precisions nor the alpha flags).  A component is a
+    dict: data (int32 plane), dx, dy, x0, y0, w, h."""
+    if jp2.pclr is not None and jp2.cmap is not None:
+        entries = jp2.pclr
+        top = entries.shape[0] - 1
+        new = []
+        for cmp, mtyp, pcol in jp2.cmap:
+            c = dict(comps[cmp])
+            src = comps[cmp]["data"]
+            if mtyp == 0:
+                c["data"] = src.copy()
+            else:
+                c["data"] = entries[np.clip(src, 0, top), pcol].astype(
+                    np.uint32).view(np.int32)
+            new.append(c)
+        comps = new
+    if jp2.cdef is not None:
+        info = [list(e) for e in jp2.cdef]
+        for i, (cn, typ, asoc) in enumerate(info):
+            acn = asoc - 1
+            if cn >= len(comps) or asoc in (0, 65535) or acn >= len(comps):
+                continue
+            if cn != acn and typ == 0:
+                comps[cn], comps[acn] = comps[acn], comps[cn]
+                for e in info[i + 1:]:
+                    if e[0] == cn:
+                        e[0] = acn
+                    elif e[0] == acn:
+                        e[0] = cn
+    return comps
+
+
+def _yuv_to_rgb(y, u, v) -> np.ndarray:
+    """cv2.cvtColor(COLOR_YUV2BGR) on uint8 planes (its 14-bit fixed point
+    coefficients 2.032, -0.395, -0.581, 1.140), returned as RGB."""
+    y, u, v = (p.astype(np.int64) for p in (y, u, v))
+    u, v = u - 128, v - 128
+
+    def descale(x):
+        return (x + (1 << 13)) >> 14
+    b = y + descale(u * 33292)
+    g = y + descale(u * -6472 + v * -9519)
+    r = y + descale(v * 18678)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def _j2k_error(path, err, what: str) -> RuntimeError:
+    """The codec's refusal: OpenJPEG's reason, or a kind the port does not
+    decode yet (its message starts ``unported: ``)."""
+    msg = err.value.decode(errors="replace")
+    if msg.startswith("unported: "):
+        return RuntimeError(f"{path}: a JPEG 2000 codestream with {msg[10:]}"
+                            f", which the port does not read yet (cv2 does)")
+    return RuntimeError(f"{path}: {what} cv2 does not read: {msg}")
+
+
+def _decode_jpeg2000_bytes(data: bytes, path):
+    """A JP2 file or a raw codestream → (H, W, 3) uint8 RGB, as cv2 5.0.0's
+    Jpeg2KOpjDecoder reads it (OpenJPEG's decode, then cv2's rules)."""
+    import ctypes
+
+    jp2 = None
+    if data.startswith(JP2_SIGNATURE):
+        jp2 = _JP2()
+        jp2.parse(data, path)
+        if not jp2.has_jp2h or not jp2.has_ihdr:
+            raise RuntimeError(f"{path}: a JP2 file without jp2h and ihdr")
+        cs = jp2.codestream
+        ihdr_h, ihdr_w = jp2.ihdr[:2]
+    else:
+        cs, ihdr_w, ihdr_h = data, 0, 0
+    lib = _load_jpeg2000_codec()
+    err = ctypes.create_string_buffer(_J2K_ERRLEN)
+    info = (ctypes.c_longlong * 5)()
+    head = (ctypes.c_longlong * 16)()
+    if not lib.j2k_header(cs, len(cs), ihdr_w, ihdr_h, info, head, 4, err,
+                          _J2K_ERRLEN):
+        raise _j2k_error(path, err, "a JPEG 2000 header")
+    # cv2's readHeader
+    x0, y0, x1, y1, numcomps = list(info)
+    if not 1 <= numcomps <= 4:
+        raise RuntimeError(f"{path}: a JPEG 2000 image of {numcomps} "
+                           f"components (cv2 reads 1-4)")
+    precs = [head[4 * c] for c in range(numcomps)]
+    if any(head[4 * c + 1] for c in range(numcomps)):
+        raise RuntimeError(f"{path}: signed JPEG 2000 components, which cv2 "
+                           f"does not read")
+    max_prec = max(precs)
+    if max_prec < 8:
+        raise RuntimeError(f"{path}: JPEG 2000 samples of {max_prec} bits "
+                           f"(cv2 reads 8 and more)")
+    try:
+        _check_size(x1 - x0, y1 - y0, path, "JPEG 2000 image")
+    except ValueError as e:
+        raise RuntimeError(str(e)) from None
+    handle = lib.j2k_decode(cs, len(cs), ihdr_w, ihdr_h, err, _J2K_ERRLEN)
+    if not handle:
+        raise _j2k_error(path, err, "JPEG 2000 data")
+    try:
+        comps = []
+        ci = (ctypes.c_longlong * 6)()
+        for c in range(numcomps):
+            lib.j2k_comp_info(handle, c, ci)
+            cx0, cy0, w, h, dx, dy = list(ci)
+            plane = np.empty(w * h, np.int32)
+            lib.j2k_comp_data(handle, c, plane.ctypes.data)
+            comps.append(dict(data=plane.reshape(h, w), dx=dx, dy=dy, x0=cx0,
+                              y0=cy0, w=w, h=h))
+    finally:
+        lib.j2k_free(handle)
+    space = "unknown"
+    if jp2 is not None:
+        _jp2_check_color(jp2, comps, path)
+        space = _J2K_ENUMCS.get(jp2.enumcs, "unknown")
+        comps = _jp2_apply(jp2, comps)
+    # cv2's readData
+    if space in ("eycc", "cmyk"):
+        raise RuntimeError(f"{path}: a JPEG 2000 colour space ({space}) cv2 "
+                           f"does not convert")
+    for c in comps:
+        if (c["dx"], c["dy"], c["x0"], c["y0"], c["w"], c["h"]) != \
+                (1, 1, 0, 0, x1 - x0, y1 - y0):
+            raise RuntimeError(f"{path}: JPEG 2000 components subsampled or "
+                               f"offset, which cv2 does not read")
+    shift = max_prec - 8
+
+    def u8(c):
+        return (c["data"] >> shift).astype(np.uint8)
+    if space == "gray":
+        g = u8(comps[0])
+        return np.stack([g, g, g], -1)
+    if len(comps) < 3:
+        raise RuntimeError(f"{path}: {len(comps)} JPEG 2000 components in "
+                           f"a {'sYCC' if space == 'sycc' else 'sRGB'} image "
+                           f"(cv2 converts 3 or 4)")
+    if space == "sycc":
+        return _yuv_to_rgb(u8(comps[0]), u8(comps[1]), u8(comps[2]))
+    return np.stack([u8(comps[0]), u8(comps[1]), u8(comps[2])], -1)
+
+
+def read_jpeg2000(path) -> np.ndarray:
+    """A JPEG 2000 file (JP2 or a raw codestream) → (H, W, 3) uint8 RGB, bit
+    for bit what ``cv2.imread(path)[..., ::-1]`` gives (cv2 5.0.0 with
+    OpenJPEG 2.5.3; the port's own decoder in ``csrc/jpeg2000_codec.cpp``,
+    the JP2 boxes parsed here): every progression, code-block style and
+    transform of Part 1, tiles and tile-parts, layers cut by a rate, ROI,
+    palettes (pclr/cmap) and channel definitions (cdef); a gray image
+    copied into three channels, sYCC through cv2's YUV → BGR, samples past
+    8 bits cut to their top 8, alpha dropped.  Raises ``RuntimeError``
+    naming the file where cv2 returns None (a file cut short, signed or
+    offset or subsampled components, a raw gray codestream, 2 or more than
+    4 components, fewer than 8 bits, CMYK or e-sYCC, a corrupt box or
+    codestream), and for the kinds the port does not decode yet (HT
+    code-blocks, Part 2 markers)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return _decode_jpeg2000_bytes(data, path)
+
+
+def write_jpeg2000(path, img: np.ndarray):
+    """(H, W, 3) uint8 RGB → the bytes ``cv2.imwrite(name.jp2, bgr,
+    [IMWRITE_JPEG2000_COMPRESSION_X1000, 1000])`` writes: lossless JP2 (one
+    tile, 5 levels of the 5/3 transform, 64x64 code-blocks, one layer, no
+    component transform), which reads back equal to ``img``.  Raises
+    ``ValueError`` where that ``imwrite`` fails: a side under 32 pixels,
+    too small for OpenJPEG's 6 resolutions."""
+    import ctypes
+
+    img = _rgb_u8(img, "write_jpeg2000")
+    height, width = img.shape[:2]
+    if width < 32 or height < 32:
+        raise ValueError(f"{path}: a {width}x{height} image, too small for "
+                         f"the 5 wavelet levels of cv2's JPEG 2000 writer")
+    lib = _load_jpeg2000_codec()
+    cap = img.size + img.size // 4 + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.j2k_encode_lossless(img.ctypes.data, width, height,
+                                    out.ctypes.data, cap)
+        if n >= 0:
+            break
+        cap = -n
+    with open(path, "wb") as f:
+        f.write(out[:n].tobytes())
+
+
 # Formats cv2 reads and the port does not yet: (signature test, name)
 _UNPORTED = (
-    (lambda h: h[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n"
-     or h[:4] == b"\xff\x4f\xff\x51", "JPEG 2000"),
     (lambda h: h[4:8] == b"ftyp" and h[8:12] in (b"avif", b"avis"), "AVIF"),
 )
 
@@ -2209,8 +2650,9 @@ def read_image(fn: str) -> np.ndarray:
     and BigTIFF (``II*\\0``, ``MM\\0*``, ``II+\\0``, ``MM\\0+``), BMP
     (``BM``), PNM (``P1``-``P6``), WebP (``RIFF....WEBP``), GIF (``GIF``),
     Radiance HDR (``#?RADIANCE``, ``#?RGBE``), PFM (``PF``, ``Pf``), PAM
-    (``P7``) and Sun raster through the port's own readers.  A format cv2
-    reads that the port does not yet (JPEG 2000, AVIF), and any other file,
+    (``P7``), Sun raster and JPEG 2000 (the JP2 signature box, or a raw
+    codestream's ``FF 4F FF 51``) through the port's own readers.  A format
+    cv2 reads that the port does not yet (AVIF), and any other file,
     raises ``RuntimeError`` naming the file and the format."""
     with open(fn, "rb") as f:
         head = f.read(32)
@@ -2237,6 +2679,8 @@ def read_image(fn: str) -> np.ndarray:
         return read_hdr(fn)
     if head[:4] == SUNRAS_SIGNATURE:
         return read_sunras(fn)
+    if head.startswith(JP2_SIGNATURE) or head.startswith(J2K_SIGNATURE):
+        return read_jpeg2000(fn)
     for test, name in _UNPORTED:
         if test(head):
             raise RuntimeError(f"{fn}: a {name} image, which the port does "

@@ -70,17 +70,27 @@ def fixture_results(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", fx.CASES + fx.REFUSED + fx.GARBLED
-                         + fx.ENCODED + fx.ROUND_TRIP)
+                         + fx.ENCODED + fx.ENCODED_J2K + fx.ROUND_TRIP)
 def test_committed_fixture(fixture_results, name):
     # no cv2 here: each file against cv2's recorded decode (REFUSED, and
     # GARBLED, which cv2 reads only in part: the port raises naming the
-    # file; ENCODED: the writer's bytes are cv2's;
+    # file; ENCODED, ENCODED_J2K: the writer's bytes are cv2's;
     # ROUND_TRIP: the writer's file reads back as its source)
     assert fixture_results[name] is True
 
 
 def test_committed_timing_view_matches_cv2(cv2):
     _same_as_cv2(cv2, os.path.join(fx.FOLDER, fx.TIMING))
+
+
+@pytest.mark.parametrize("name", list(fx.TIMING_J2K))
+def test_committed_jpeg2000_timing_views(name):
+    # no cv2 here: the decode's SHA-256 is the one recorded from cv2's
+    import hashlib
+
+    got = read_image(os.path.join(fx.FOLDER, name))
+    assert got.shape == (840, 1297, 3)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == fx.TIMING_J2K[name]
 
 
 # ----------------------------------------------------------- Adam7 PNG
@@ -406,20 +416,17 @@ def test_pnm_writer_matches_cv2_bytes(cv2, tmp_path, ext):
 # ----------------------------------------------------- unported formats
 
 
-_UNPORTED = {"jp2": "JPEG 2000", "avif": "AVIF"}
+_UNPORTED = {"avif": "AVIF"}
 
 
 @pytest.mark.parametrize("ext", list(_UNPORTED))
 def test_unported_formats_raise_naming_the_format(cv2, tmp_path, ext):
-    # a file cv2 writes and reads (a JPEG 2000 signature where this cv2
-    # writes none): the port says it does not read the format yet
+    # a file cv2 writes and reads: the port says it does not read the
+    # format yet
     path = tmp_path / f"view.{ext}"
     img = fx.fixture_image(12, 16, seed=1)
-    if not cv2.imwrite(str(path), img[..., ::-1]):
-        assert ext == "jp2"
-        path.write_bytes(b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(32))
-    else:
-        assert cv2.imread(str(path)) is not None
+    assert cv2.imwrite(str(path), img[..., ::-1])
+    assert cv2.imread(str(path)) is not None
     with pytest.raises(RuntimeError,
                        match=f"view.{ext}: a {_UNPORTED[ext]} image.*not "
                              f"read yet"):
@@ -439,9 +446,11 @@ def test_not_an_image_raises_naming_the_file(tmp_path):
 _SCENE_FORMATS = {"tiff": ".tif", "bmp": ".bmp", "pnm": ".ppm",
                   "webp": ".webp", "webp_lossy": ".webp", "gif": ".gif",
                   "hdr": ".hdr", "pfm": ".pfm", "pam": ".pam", "ras": ".ras",
-                  "bigtiff": ".tif"}
+                  "bigtiff": ".tif", "jp2": ".jp2", "jp2_lossless": ".jp2"}
 # cv2.imwrite's parameters where a scene is not written with its defaults
-_SCENE_PARAMS = {"webp_lossy": ("IMWRITE_WEBP_QUALITY", 90)}
+# (jp2: cv2's default, rate 4; jp2_lossless: its lossless setting)
+_SCENE_PARAMS = {"webp_lossy": ("IMWRITE_WEBP_QUALITY", 90),
+                 "jp2_lossless": ("IMWRITE_JPEG2000_COMPRESSION_X1000", 1000)}
 
 
 @pytest.fixture(scope="module")

@@ -231,9 +231,10 @@ def test_read_image_goes_by_signature(tmp_path):
     np.testing.assert_array_equal(
         read_image(str(tmp_path / "jpeg_named.png")),
         read_jpeg(str(tmp_path / "jpeg_named.png")))
-    (tmp_path / "photo.tif").write_bytes(b"\x00\x00\x00\x0cjP  \r\n\x87\n")
+    (tmp_path / "photo.tif").write_bytes(b"\x00\x00\x00\x1cftypavif"
+                                         + bytes(20))
     with pytest.raises(RuntimeError,
-                       match="photo.tif.*JPEG 2000.*not read yet"):
+                       match="photo.tif.*AVIF.*not read yet"):
         read_image(str(tmp_path / "photo.tif"))
 
 

@@ -423,10 +423,10 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     np.testing.assert_array_equal(groups[0].images.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(read_image(str(jpg)), want)
     np.testing.assert_array_equal(read_image(str(webp)), want_webp)
-    other = tmp_path / "photo.jp2"
-    other.write_bytes(b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(20))
+    other = tmp_path / "photo.avif"
+    other.write_bytes(b"\x00\x00\x00\x1cftypavif" + bytes(20))
     with pytest.raises(RuntimeError,
-                       match="photo.jp2.*JPEG 2000.*not read yet"):
+                       match="photo.avif.*AVIF.*not read yet"):
         read_image(str(other))
 
 

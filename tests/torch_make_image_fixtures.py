@@ -9,23 +9,32 @@ installed (the tier-1 tests, the card's machine).
     python tests/torch_make_image_fixtures.py --webp   # the WebP ones alone
     python tests/torch_make_image_fixtures.py --raster # GIF, HDR, PFM, PAM,
                                                        # Sun raster, BigTIFF
+    python tests/torch_make_image_fixtures.py --jpeg2000  # JPEG 2000 (also
+                                                       # the system
+                                                       # libopenjp2)
 
 Each ``<name>.<ext>`` has ``<name>.want.png``, ``cv2.imread``'s decode of
 it (as RGB).  ``REFUSED`` names the files cv2 does not read (its
 ``imread`` gives None): the port must raise naming them.  ``enc_src.png``
 has ``enc_src.bmp``, ``enc_src.ppm`` and ``enc_src.tif``, the bytes of
-``cv2.imwrite``'s defaults; ``ROUND_TRIP`` names what the port writes and
+``cv2.imwrite``'s defaults (``enc_j2k.jp2``, of ``enc_j2k_src.png``, its
+lossless JPEG 2000: ``ENCODED_J2K``); ``ROUND_TRIP`` names what the port
+writes and
 must read back as ``enc_src.png`` (WebP).
 
 The writers: a small C program, built here, over the system libjpeg-turbo
 (arithmetic-coded JPEG with DAC conditioning, YCCK, 2 components) and over
 Pillow's bundled libjpeg-turbo 3 (lossless and 12-bit JPEG); another over
 the system libwebp's encoder (lossy WebP options cv2 and PIL do not
-expose, palettes, alpha); PIL (CMYK JPEG, BMP, lossless WebP);
+expose, palettes, alpha); ctypes over the system libopenjp2's encoder
+(JPEG 2000 code-block styles, POC, ROI, tile-parts, TLM, SOP/EPH,
+precisions, signed and subsampled components); PIL (CMYK JPEG, BMP,
+lossless WebP, JPEG 2000);
 ``cv2.imwrite`` (TIFF compressions, 16-bit TIFF, BMP, PNM, WebP); bytes
 written here (Adam7 PNG, tiled / planar / big-endian / palette TIFF, RLE
 BMP, PNM text files, a hierarchical frame, WebP containers: VP8X, ALPH,
-EXIF, ICCP, ANIM / ANMF) and cuts and corruptions of the files written.
+EXIF, ICCP, ANIM / ANMF; JP2 boxes: pclr, cmap, cdef, colr) and cuts and
+corruptions of the files written.
 ``check(folder)`` imports neither cv2 nor PIL.
 """
 
@@ -138,6 +147,435 @@ TIMING = "timing_arith_1297x840.jpg"
 TIMING_WEBP = "timing_lossy_1297x840.webp"
 TIMING_WEBP_SHA256 = ("92e73568b2ca4c0d9cb0eff6028f7e05"
                       "6f6712ac41c261c4264e8593f9dcf279")
+
+
+# --------------------------------------------------------------- JPEG 2000
+
+
+# what cv2 5.0.0 reads; the JPEG 2000 files are made here, cv2 is the
+# oracle of their decode (see generate_jpeg2000)
+J2K_CASES = [
+    "j2k_cv2_lossless.jp2", "j2k_cv2_default.jp2", "j2k_cv2_x50.jp2",
+    "j2k_pil_rgb.jp2", "j2k_pil_97_layers.jp2", "j2k_pil_raw.j2k",
+    "j2k_pil_gray.jp2", "j2k_pil_rgba.jp2", "j2k_pil_gray16.jp2",
+    "j2k_pil_la.jp2", "j2k_bypass.j2k", "j2k_reset_termall.j2k",
+    "j2k_vsc_segsym.j2k", "j2k_pterm.j2k", "j2k_all_styles_97.j2k",
+    "j2k_roi.j2k", "j2k_poc.j2k", "j2k_tile_parts.j2k", "j2k_tlm.j2k",
+    "j2k_sop_eph.j2k", "j2k_prec12.j2k", "j2k_cblk_4x64.j2k",
+    "j2k_ppt.j2k", "j2k_ppm.j2k",
+    "j2k_pclr.jp2", "j2k_cdef_alpha_first.jp2", "j2k_sycc.jp2",
+    "j2k_icc.jp2", "j2k_gray_colr_rgb.jp2",
+]
+J2K_REFUSED = [
+    "j2k_raw_gray.j2k", "j2k_signed.j2k", "j2k_offset.j2k",
+    "j2k_cut_60.jp2", "j2k_5comp.j2k", "j2k_prec4.j2k",
+    "j2k_subsampled.j2k", "j2k_cmyk.jp2", "j2k_rgb_2comp.jp2",
+]
+CASES += J2K_CASES
+REFUSED += J2K_REFUSED
+# write_jpeg2000's bytes against cv2's lossless JP2 of ENCODED_J2K_SRC
+# (cv2's writer needs 32 pixels a side, more than enc_src.png has)
+ENCODED_J2K = ["enc_j2k.jp2"]
+ENCODED_J2K_SRC = "enc_j2k_src.png"
+# two full-size views of TIMING for chip_smoke's decode seconds, and the
+# SHA-256 of cv2's decode of each (RGB, row-major bytes): cv2's writer at
+# IMWRITE_JPEG2000_COMPRESSION_X1000 50 (reversible, cut by OpenJPEG's rate
+# allocation: truncated passes, mid-point reconstruction), and the 9/7
+# transform in 3 layers, RPCL, 512x512 tiles, 128x128 precincts, SOP, EPH
+# and PLT through the system libopenjp2
+TIMING_J2K = {
+    "timing_rate_1297x840.jp2": ("c31b47cabab35c8140ea000954ca2e06"
+                                 "fdb74fb239357d905801f7f790d86f30"),
+    "timing_97_1297x840.jp2": ("d81864d67a28513cc4fbb153c806a93c"
+                               "47f20df69f49885e450f4be40dd48ebf"),
+}
+
+_OPJ_LIB = "libopenjp2.so.7"
+_OPJ_PROG = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
+
+
+def _opj_types():
+    """openjpeg.h (2.5)'s encoder structures for ctypes."""
+    import ctypes as c
+
+    u32, i32 = c.c_uint32, c.c_int32
+
+    class Poc(c.Structure):
+        _fields_ = [(n, u32) for n in ("resno0", "compno0", "layno1",
+                                       "resno1", "compno1", "layno0",
+                                       "precno0", "precno1")] + \
+            [("prg1", c.c_int), ("prg", c.c_int), ("progorder", c.c_char * 5),
+             ("tile", u32)] + \
+            [(n, i32) for n in ("tx0", "tx1", "ty0", "ty1")] \
+            + [(n, u32) for n in (
+                "layS", "resS", "compS", "prcS", "layE", "resE", "compE",
+                "prcE", "txS", "txE", "tyS", "tyE", "dx", "dy", "lay_t",
+                "res_t", "comp_t", "prc_t", "tx0_t", "ty0_t")]
+
+    ci = c.c_int
+    path = c.c_char * 4096
+
+    class Params(c.Structure):
+        _fields_ = [
+            ("tile_size_on", ci), ("cp_tx0", ci), ("cp_ty0", ci),
+            ("cp_tdx", ci), ("cp_tdy", ci), ("cp_disto_alloc", ci),
+            ("cp_fixed_alloc", ci), ("cp_fixed_quality", ci),
+            ("cp_matrice", c.c_void_p), ("cp_comment", c.c_char_p),
+            ("csty", ci), ("prog_order", ci), ("POC", Poc * 32),
+            ("numpocs", u32), ("tcp_numlayers", ci),
+            ("tcp_rates", c.c_float * 100),
+            ("tcp_distoratio", c.c_float * 100),
+            ("numresolution", ci), ("cblockw_init", ci),
+            ("cblockh_init", ci), ("mode", ci), ("irreversible", ci),
+            ("roi_compno", ci), ("roi_shift", ci), ("res_spec", ci),
+            ("prcw_init", ci * 33), ("prch_init", ci * 33), ("infile", path),
+            ("outfile", path), ("index_on", ci), ("index", path),
+            ("image_offset_x0", ci), ("image_offset_y0", ci),
+            ("subsampling_dx", ci), ("subsampling_dy", ci),
+            ("decod_format", ci), ("cod_format", ci), ("jpwl_epc_on", ci),
+            ("jpwl_hprot_MH", ci), ("jpwl_hprot_TPH_tileno", ci * 16),
+            ("jpwl_hprot_TPH", ci * 16), ("jpwl_pprot_tileno", ci * 16),
+            ("jpwl_pprot_packno", ci * 16), ("jpwl_pprot", ci * 16),
+            ("jpwl_sens_size", ci), ("jpwl_sens_addr", ci),
+            ("jpwl_sens_range", ci), ("jpwl_sens_MH", ci),
+            ("jpwl_sens_TPH_tileno", ci * 16), ("jpwl_sens_TPH", ci * 16),
+            ("cp_cinema", ci), ("max_comp_size", ci), ("cp_rsiz", ci),
+            ("tp_on", c.c_char), ("tp_flag", c.c_char), ("tcp_mct", c.c_char),
+            ("jpip_on", ci), ("mct_data", c.c_void_p), ("max_cs_size", ci),
+            ("rsiz", c.c_uint16)]
+
+    class CmptParm(c.Structure):
+        _fields_ = [(n, u32) for n in ("dx", "dy", "w", "h", "x0", "y0",
+                                       "prec", "bpp", "sgnd")]
+
+    class Comp(c.Structure):
+        _fields_ = [(n, u32) for n in ("dx", "dy", "w", "h", "x0", "y0",
+                                       "prec", "bpp", "sgnd", "resno_decoded",
+                                       "factor")] + \
+            [("data", c.POINTER(i32)), ("alpha", c.c_uint16)]
+
+    class Image(c.Structure):
+        _fields_ = [("x0", u32), ("y0", u32), ("x1", u32), ("y1", u32),
+                    ("numcomps", u32), ("color_space", c.c_int),
+                    ("comps", c.POINTER(Comp)),
+                    ("icc_profile_buf", c.c_void_p),
+                    ("icc_profile_len", u32)]
+    return Params, CmptParm, Image
+
+
+def openjpeg_encode(planes, prec=8, sgnd=0, dx=None, dy=None, jp2=False,
+                    offset=(0, 0), tile=None, layers=None, numres=None,
+                    cblk=None, mode=0, irreversible=False, roi=None,
+                    precincts=None, prog="LRCP", pocs=None, csty=0, mct=None,
+                    tile_parts=None, extra=None) -> bytes:
+    """A codestream (or, with jp2, a JP2 file) from the system libopenjp2's
+    encoder (2.5.0 here; ctypes over openjpeg.h's structures): ``planes``
+    are the components' sample arrays; ``mode`` the code-block style bits
+    (1 BYPASS, 2 RESET, 4 TERMALL, 8 VSC, 16 PTERM, 32 SEGSYM); ``layers``
+    rates, one a layer (none: one lossless layer); ``pocs`` (resno0,
+    compno0, layno1, resno1, compno1, order) tuples; ``csty`` 2 SOP, 4 EPH;
+    ``tile_parts`` 'R', 'L' or 'C'; ``extra`` options such as 'PLT=YES' or
+    'TLM=YES'.  Raises when the library refuses the parameters."""
+    import ctypes as c
+
+    params_t, cmpt_t, image_t = _opj_types()
+    lib = c.CDLL(_OPJ_LIB)
+    lib.opj_image_create.restype = c.POINTER(image_t)
+    lib.opj_image_create.argtypes = [c.c_uint32, c.POINTER(cmpt_t), c.c_int]
+    lib.opj_create_compress.restype = c.c_void_p
+    lib.opj_setup_encoder.argtypes = [c.c_void_p, c.POINTER(params_t),
+                                      c.POINTER(image_t)]
+    lib.opj_encoder_set_extra_options.argtypes = [c.c_void_p,
+                                                  c.POINTER(c.c_char_p)]
+    lib.opj_stream_create_default_file_stream.restype = c.c_void_p
+    lib.opj_stream_create_default_file_stream.argtypes = [c.c_char_p, c.c_int]
+    lib.opj_start_compress.argtypes = [c.c_void_p, c.POINTER(image_t),
+                                       c.c_void_p]
+    for fn in ("opj_encode", "opj_end_compress"):
+        getattr(lib, fn).argtypes = [c.c_void_p, c.c_void_p]
+    lib.opj_stream_destroy.argtypes = [c.c_void_p]
+    lib.opj_destroy_codec.argtypes = [c.c_void_p]
+    lib.opj_image_destroy.argtypes = [c.POINTER(image_t)]
+    n = len(planes)
+    parms = (cmpt_t * n)()
+    each = lambda v, i: v[i] if isinstance(v, (list, tuple)) else v  # noqa
+    for i, pl in enumerate(planes):
+        parms[i].dx, parms[i].dy = (dx or [1] * n)[i], (dy or [1] * n)[i]
+        parms[i].h, parms[i].w = pl.shape
+        parms[i].x0, parms[i].y0 = offset
+        parms[i].prec = parms[i].bpp = each(prec, i)
+        parms[i].sgnd = each(sgnd, i)
+    img = lib.opj_image_create(n, parms, 0)
+    im = img.contents
+    im.x0, im.y0 = offset
+    im.x1 = offset[0] + (planes[0].shape[1] - 1) * (dx or [1])[0] + 1
+    im.y1 = offset[1] + (planes[0].shape[0] - 1) * (dy or [1])[0] + 1
+    for i, pl in enumerate(planes):
+        a = np.ascontiguousarray(pl, np.int32).ravel()
+        c.memmove(im.comps[i].data, a.ctypes.data, a.nbytes)
+    p = params_t()
+    lib.opj_set_default_encoder_parameters(c.byref(p))
+    if tile:
+        p.tile_size_on, (p.cp_tdx, p.cp_tdy) = 1, tile
+    p.image_offset_x0, p.image_offset_y0 = offset
+    p.cp_disto_alloc = 1
+    p.tcp_numlayers = len(layers) if layers else 1
+    for i, r in enumerate(layers or [0]):
+        p.tcp_rates[i] = r
+    side = int(min([*planes[0].shape, *(tile or ())]))
+    p.numresolution = numres or max(1, min(6, side.bit_length()))
+    if cblk:
+        p.cblockw_init, p.cblockh_init = cblk
+    p.mode, p.irreversible = mode, int(irreversible)
+    if roi:
+        p.roi_compno, p.roi_shift = roi
+    if precincts:
+        p.csty |= 1
+        p.res_spec = len(precincts)
+        for i, (pw, ph) in enumerate(precincts):
+            p.prcw_init[i], p.prch_init[i] = pw, ph
+    p.csty |= csty
+    p.prog_order = _OPJ_PROG[prog]
+    for i, (r0, c0, l1, r1, c1, order) in enumerate(pocs or ()):
+        q = p.POC[i]
+        q.tile, q.resno0, q.compno0, q.layno1, q.resno1, q.compno1 = \
+            1, r0, c0, l1, r1, c1
+        q.prg1, q.progorder = _OPJ_PROG[order], order.encode()
+    p.numpocs = len(pocs or ())
+    if mct is not None:
+        p.tcp_mct = bytes([mct])
+    if tile_parts:
+        p.tp_on, p.tp_flag = b"\x01", tile_parts.encode()
+    codec = lib.opj_create_compress(2 if jp2 else 0)
+    ok = lib.opj_setup_encoder(codec, c.byref(p), img)
+    if ok and extra:
+        opts = (c.c_char_p * (len(extra) + 1))(*[e.encode() for e in extra],
+                                               None)
+        ok = lib.opj_encoder_set_extra_options(codec, opts)
+    data = None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "out")
+        if ok:
+            st = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+            ok = lib.opj_start_compress(codec, img, st) and \
+                lib.opj_encode(codec, st) and lib.opj_end_compress(codec, st)
+            lib.opj_stream_destroy(st)
+            if ok:
+                with open(path, "rb") as f:
+                    data = f.read()
+    lib.opj_destroy_codec(codec)
+    lib.opj_image_destroy(img)
+    if data is None:
+        raise RuntimeError("libopenjp2 refused the encoding parameters")
+    return data
+
+
+def jp2_box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def jp2_file(codestream: bytes, numcomps: int, h: int, w: int, colr=16,
+             extra=b"", bpc=7, before=b"", after=b"",
+             ftyp=b"jp2 \0\0\0\0jp2 ") -> bytes:
+    """A JP2 file around a codestream: the signature, ftyp, jp2h (ihdr, an
+    enumerated colr unless colr is None, then ``extra`` boxes), boxes
+    ``before`` and ``after`` jp2h, then jp2c."""
+    ihdr = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, numcomps, bpc, 7,
+                                        0, 0))
+    col = b"" if colr is None else jp2_box(b"colr", b"\x01\0\0"
+                                           + struct.pack(">I", colr))
+    return (jp2_box(b"jP  ", b"\r\n\x87\n") + jp2_box(b"ftyp", ftyp) + before
+            + jp2_box(b"jp2h", ihdr + col + extra) + after
+            + jp2_box(b"jp2c", codestream))
+
+
+def jp2_pclr(entries: np.ndarray, sizes) -> bytes:
+    ne, npc = entries.shape
+    body = struct.pack(">HB", ne, npc) + bytes((s - 1) & 0x7F for s in sizes)
+    for row in entries:
+        for i, v in enumerate(row):
+            body += int(v).to_bytes(min((sizes[i] + 7) >> 3, 4), "big")
+    return jp2_box(b"pclr", body)
+
+
+def jp2_cmap(items) -> bytes:
+    return jp2_box(b"cmap", b"".join(struct.pack(">HBB", *it) for it in items))
+
+
+def jp2_cdef(items) -> bytes:
+    return jp2_box(b"cdef", struct.pack(">H", len(items)) + b"".join(
+        struct.pack(">HHH", *it) for it in items))
+
+
+def packed_headers(codestream: bytes, where: str, chunk: int = 65000) -> bytes:
+    """A codestream written with SOP and EPH markers (``csty=6``) with its
+    packet headers (each up to and with its EPH) moved out of the tile
+    data: into PPT markers of each tile-part (``where='ppt'``; Zppt counts
+    on over a tile's parts) or PPM markers of the main header (``'ppm'``;
+    an Nppm field never split between two markers, as OpenJPEG requires),
+    ``chunk`` bytes a marker at most.  The SOP markers stay before each
+    packet's body."""
+    def markers(code, segments, z=0):
+        out = b""
+        for seg in segments:
+            out += struct.pack(">HHB", code, 3 + len(seg), z) + seg
+            z += 1
+        return out, z
+
+    def split(data):
+        return [data[i:i + chunk] for i in range(0, max(len(data), 1), chunk)]
+    first = codestream.index(b"\xff\x90")
+    main, pos, parts, zppt, ppm = codestream[:first], first, [], {}, [b""]
+    while codestream[pos:pos + 2] == b"\xff\x90":
+        tile, psot = struct.unpack(">HI", codestream[pos + 4:pos + 10])
+        part = codestream[pos:pos + psot]
+        sod = part.index(b"\xff\x93")
+        data, heads, body = part[sod + 2:], b"", b""
+        sops = [i for i in range(len(data) - 1)
+                if data[i] == 0xFF and data[i + 1] == 0x91]
+        for k, start in enumerate(sops):
+            end = sops[k + 1] if k + 1 < len(sops) else len(data)
+            eph = data.index(b"\xff\x92", start + 6) + 2
+            heads += data[start + 6:eph]
+            body += data[start:start + 6] + data[eph:end]
+        header = part[12:sod]
+        if where == "ppt":
+            ppt, zppt[tile] = markers(0xFF61, split(heads), zppt.get(tile, 0))
+            header += ppt
+        else:
+            record = struct.pack(">I", len(heads)) + heads
+            if chunk - len(ppm[-1]) < 4:
+                ppm.append(b"")
+            room = chunk - len(ppm[-1])
+            ppm[-1] += record[:room]
+            ppm += split(record[room:]) if len(record) > room else []
+        new = header + b"\xff\x93" + body
+        parts.append(part[:6] + struct.pack(">I", 12 + len(new)) + part[10:12]
+                     + new)
+        pos += psot
+    if where == "ppm":
+        main += markers(0xFF60, ppm)[0]
+    return main + b"".join(parts) + codestream[pos:]
+
+
+def pil_jpeg2000(img: np.ndarray, **kw) -> bytes:
+    """PIL's JPEG 2000 file of ``img`` (its bundled OpenJPEG 2.5.4; a
+    uint16 array is PIL's I;16) with PIL's save options ``kw``."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG2000", **kw)
+    return buf.getvalue()
+
+
+def generate_jpeg2000(folder: str = FOLDER) -> dict:
+    """The JPEG 2000 fixtures of J2K_CASES, J2K_REFUSED, ENCODED_J2K and
+    TIMING_J2K; returns TIMING_J2K's SHA-256s."""
+    import hashlib
+
+    import cv2
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(15)
+    img = fixture_image(seed=6)
+    h, w = img.shape[:2]
+    pl = [img[..., k] for k in range(3)]
+    p = lambda name: os.path.join(folder, name)       # noqa: E731
+
+    def save(name, data):
+        with open(p(name), "wb") as f:
+            f.write(data)
+    big = fixture_image(40, 48, seed=7)
+    bgr = np.ascontiguousarray(big[..., ::-1])
+    x1000 = cv2.IMWRITE_JPEG2000_COMPRESSION_X1000
+    assert cv2.imwrite(p("j2k_cv2_lossless.jp2"), bgr, [x1000, 1000])
+    assert cv2.imwrite(p("j2k_cv2_default.jp2"), bgr)
+    assert cv2.imwrite(p("j2k_cv2_x50.jp2"), bgr, [x1000, 50])
+    save("j2k_pil_rgb.jp2", pil_jpeg2000(img))
+    save("j2k_pil_97_layers.jp2", pil_jpeg2000(
+        img, irreversible=True, quality_layers=[40, 20, 10],
+        progression="RPCL", tile_size=(16, 16), precinct_size=(16, 16),
+        codeblock_size=(8, 8), plt=True))
+    save("j2k_pil_raw.j2k", pil_jpeg2000(img, no_jp2=True, progression="CPRL",
+                                         num_resolutions=3, mct=1))
+    save("j2k_pil_gray.jp2", pil_jpeg2000(img[..., 1]))
+    save("j2k_pil_rgba.jp2", pil_jpeg2000(np.dstack([img, img[..., :1]])))
+    save("j2k_pil_gray16.jp2", pil_jpeg2000(
+        rng.integers(0, 65536, (h, w)).astype(np.uint16)))
+    save("j2k_pil_la.jp2", pil_jpeg2000(img[..., :2].copy()))
+    for name, kw in (
+            ("j2k_bypass.j2k", dict(mode=1, layers=[20, 8])),
+            ("j2k_reset_termall.j2k", dict(mode=2 | 4, layers=[20, 8])),
+            ("j2k_vsc_segsym.j2k", dict(mode=8 | 32)),
+            ("j2k_pterm.j2k", dict(mode=16, layers=[12])),
+            ("j2k_all_styles_97.j2k", dict(mode=63, irreversible=True,
+                                           layers=[20, 8])),
+            ("j2k_roi.j2k", dict(roi=(0, 5), layers=[10])),
+            ("j2k_poc.j2k", dict(layers=[20, 10], numres=3,
+                                 pocs=[(0, 0, 2, 2, 3, "RPCL"),
+                                       (0, 0, 2, 3, 3, "LRCP")])),
+            ("j2k_tile_parts.j2k", dict(tile=(16, 16), tile_parts="R",
+                                        layers=[20, 8])),
+            ("j2k_tlm.j2k", dict(tile=(16, 16), extra=["TLM=YES"])),
+            ("j2k_sop_eph.j2k", dict(csty=2 | 4, layers=[20, 8],
+                                     prog="PCRL")),
+            ("j2k_cblk_4x64.j2k", dict(cblk=(4, 64), mode=8))):
+        save(name, openjpeg_encode(pl, **kw))
+    sop_eph = openjpeg_encode(pl, csty=6, tile=(16, 16), layers=[20, 8])
+    save("j2k_ppt.j2k", packed_headers(sop_eph, "ppt", 100))
+    save("j2k_ppm.j2k", packed_headers(sop_eph, "ppm", 300))
+    save("j2k_prec12.j2k", openjpeg_encode([v.astype(int) * 16 + 7
+                                            for v in pl], prec=12))
+    idx = rng.integers(0, 20, (h, w))
+    cs = openjpeg_encode([idx])
+    save("j2k_pclr.jp2", jp2_file(cs, 1, h, w, extra=jp2_pclr(
+        rng.integers(0, 256, (20, 3)), [8, 8, 8]) + jp2_cmap(
+        [(0, 1, k) for k in range(3)])))
+    cs4 = openjpeg_encode(pl + [idx * 12])
+    save("j2k_cdef_alpha_first.jp2", jp2_file(cs4, 4, h, w, extra=jp2_cdef(
+        [(0, 1, 0), (1, 0, 1), (2, 0, 2), (3, 0, 3)])))
+    cs3 = openjpeg_encode(pl)
+    save("j2k_sycc.jp2", jp2_file(cs3, 3, h, w, colr=18))
+    save("j2k_icc.jp2", jp2_file(cs3, 3, h, w, colr=None, extra=jp2_box(
+        b"colr", b"\x02\0\0" + bytes(rng.integers(0, 256, 40, np.uint8)))))
+    save("j2k_gray_colr_rgb.jp2", jp2_file(cs3, 3, h, w, colr=17))
+    # what cv2 refuses
+    save("j2k_raw_gray.j2k", openjpeg_encode(pl[:1]))
+    save("j2k_signed.j2k", openjpeg_encode([v.astype(int) - 128 for v in pl],
+                                           sgnd=1))
+    save("j2k_offset.j2k", openjpeg_encode(pl, offset=(3, 5)))
+    whole = jp2_file(cs3, 3, h, w)
+    save("j2k_cut_60.jp2", whole[:len(whole) * 6 // 10])
+    save("j2k_5comp.j2k", openjpeg_encode(pl + pl[:2]))
+    save("j2k_prec4.j2k", openjpeg_encode([v >> 4 for v in pl], prec=4))
+    save("j2k_subsampled.j2k", openjpeg_encode(
+        [pl[0], pl[1][::2, ::2], pl[2][::2, ::2]], dx=[1, 2, 2], dy=[1, 2, 2]))
+    save("j2k_cmyk.jp2", jp2_file(openjpeg_encode(pl + pl[:1]), 4, h, w,
+                                  colr=12))
+    save("j2k_rgb_2comp.jp2", jp2_file(openjpeg_encode(pl[:2]), 2, h, w))
+    # write_jpeg2000 against cv2's bytes
+    from gsplat_tpu_torch.utils.image_io import write_png
+
+    src = fixture_image(37, 45, seed=10)
+    write_png(p(ENCODED_J2K_SRC), src)
+    assert cv2.imwrite(p(ENCODED_J2K[0]), np.ascontiguousarray(src[..., ::-1]),
+                       [x1000, 1000])
+    # the full-size timing views
+    view = cv2.imread(p(TIMING))
+    names = list(TIMING_J2K)
+    assert cv2.imwrite(p(names[0]), view, [x1000, 50])
+    rgb = view[..., ::-1]
+    save(names[1], openjpeg_encode(
+        [rgb[..., k] for k in range(3)], jp2=True, irreversible=True,
+        layers=[160, 80, 40], prog="RPCL", tile=(512, 512),
+        precincts=[(128, 128)] * 6, csty=2 | 4, extra=["PLT=YES"]))
+    shas = {}
+    for name in names:
+        dec = np.ascontiguousarray(cv2.imread(p(name))[..., ::-1])
+        shas[name] = hashlib.sha256(dec.tobytes()).hexdigest()
+    return shas
 
 _JPEGW = r"""
 #include <stdio.h>
@@ -1452,6 +1890,9 @@ def generate(folder: str = FOLDER):
     if sha != TIMING_WEBP_SHA256:
         print(f"TIMING_WEBP_SHA256 is now {sha!r}: update it")
     generate_raster(folder)
+    shas = generate_jpeg2000(folder)
+    if shas != TIMING_J2K:
+        print(f"TIMING_J2K is now {shas!r}: update it")
     _write_wants(CASES, folder)
     _check_cv2_refuses(folder)
     src = fixture_image(23, 31, seed=9)
@@ -1480,7 +1921,7 @@ def check(folder: str = FOLDER, scratch: str | None = None) -> dict:
     """The port's readers against the committed outputs: name -> True where
     ``read_image`` is bit for bit cv2's decode; for ``REFUSED``, where it
     raises naming the file (``GARBLED`` too, which cv2 reads only in part);
-    for ``ENCODED``, where the port's writer gives
+    for ``ENCODED`` and ``ENCODED_J2K``, where the port's writer gives
     cv2's bytes; for ``ROUND_TRIP``, where the port's file reads back as
     its source.  ``scratch`` is a directory for the writers' files (a
     temporary one by default).  Warnings of cut-short files are expected
@@ -1488,8 +1929,8 @@ def check(folder: str = FOLDER, scratch: str | None = None) -> dict:
     import warnings
 
     from gsplat_tpu_torch.utils.image_io import read_image, read_png, \
-        write_bmp, write_gif, write_hdr, write_pam, write_pfm, write_pnm, \
-        write_sunras, write_tiff, write_webp
+        write_bmp, write_gif, write_hdr, write_jpeg2000, write_pam, \
+        write_pfm, write_pnm, write_sunras, write_tiff, write_webp
 
     out = {}
     for name in CASES:
@@ -1512,6 +1953,13 @@ def check(folder: str = FOLDER, scratch: str | None = None) -> dict:
         for name in ENCODED:
             path = os.path.join(tmp, name)
             writers[os.path.splitext(name)[1]](path, src)
+            with open(path, "rb") as f, \
+                    open(os.path.join(folder, name), "rb") as g:
+                out[name] = f.read() == g.read()
+        for name in ENCODED_J2K:
+            path = os.path.join(tmp, name)
+            write_jpeg2000(path, read_png(os.path.join(folder,
+                                                       ENCODED_J2K_SRC)))
             with open(path, "rb") as f, \
                     open(os.path.join(folder, name), "rb") as g:
                 out[name] = f.read() == g.read()
@@ -1545,6 +1993,14 @@ if __name__ == "__main__":
         _check_cv2_refuses()
         result = check()
         print(result)
+        sys.exit(0 if all(result.values()) else 1)
+    if sys.argv[1:] == ["--jpeg2000"]:      # the JPEG 2000 fixtures alone
+        shas = generate_jpeg2000()
+        _write_wants(J2K_CASES)
+        _check_cv2_refuses()
+        print(f"TIMING_J2K = {shas!r}")
+        result = check()
+        print({k: v for k, v in result.items() if not v})
         sys.exit(0 if all(result.values()) else 1)
     if sys.argv[1:] == ["--webp"]:          # the WebP fixtures alone
         sha = generate_webp()
