@@ -93,10 +93,14 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   and TEST line equal, and from the
   GIF scene with its last l1 within the JPEG leg's bound of the PNG
   leg's, the pyramids over the TIFFs, the WebPs and the PFMs equal to the
-  PNGs' and over the GIFs write_gif's bytes of the area means, and the
-  committed fixtures of tests/torch_images/ (arithmetic, lossless, CMYK
-  and cut-short JPEG, Adam7 PNG, TIFF and BigTIFF, BMP, PNM, WebP, GIF,
-  HDR, PFM, PAM, Sun raster, JPEG 2000) bit for bit.
+  PNGs' and over the GIFs write_gif's bytes of the area means, over the
+  JPEG 2000 files cv2's default (rate-4) JP2 bytes of them, the pyramids
+  at a fractional (1.5) and an enlarging (0.5) factor over the PNGs equal
+  to downsample_area of the views, and the committed fixtures of
+  tests/torch_images/ (arithmetic, lossless, CMYK and cut-short JPEG,
+  Adam7 PNG, TIFF and BigTIFF, BMP, PNM, WebP, GIF, HDR, PFM, PAM, Sun
+  raster, JPEG 2000, cv2's rate-allocated JP2 bytes and INTER_AREA
+  resizes, at full size too) bit for bit.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -1814,11 +1818,15 @@ def image_formats_path(rz, scene, root):
     l1 within d + JPEG_L1_DRIFT · l1_png of the PNG leg's (d the largest
     per-view mean |GIF - PNG|, the JPEG leg's rule); (d) the pyramid
     (python -m gsplat_tpu_torch.downsample --factor 2) over the TIFFs, the
-    WebPs and the PFMs, equal to the PNGs' (downsample_area), and over the
-    GIFs, each file write_gif's bytes of downsample_area of its view;
-    (e) the committed fixtures of tests/torch_images/ bit for bit and byte
-    for byte.  → (the PNG leg's launches, the TIFF leg's, the WebP leg's,
-    the JPEG 2000 leg's, the GIF leg's)."""
+    WebPs and the PFMs, equal to the PNGs' (downsample_area), over the
+    GIFs, each file write_gif's bytes of downsample_area of its view, and
+    over the JPEG 2000 files, each write_jpeg2000's bytes of it at cv2's
+    default X1000 = 250 (rate 4); then --factor 1.5 and --factor 0.5 over
+    the PNGs, each file downsample_area of its view; (e) the committed
+    fixtures of tests/torch_images/ bit for bit and byte for byte, among
+    them the SHA-256 of cv2's rate-4 JP2 of the committed 1297x840 view,
+    which (a) also times.  → (the PNG leg's launches, the TIFF leg's, the
+    WebP leg's, the JPEG 2000 leg's, the GIF leg's)."""
     import hashlib
 
     import torch
@@ -1935,6 +1943,22 @@ def image_formats_path(rz, scene, root):
         j2k_shas.append(sha[:16] + "...")
     print(f"  the committed JPEG 2000 views decode as cv2 does (SHA-256 "
           f"{', '.join(j2k_shas)})", flush=True)
+    # cv2's default JP2 (X1000 = 250, rate 4) of the committed 1297x840
+    # view, byte for byte: its SHA-256 (torch_make_image_fixtures.TIMING_CV2)
+    garden = image_io.read_image(os.path.join(here, ARITH_VIEW))
+    rate4 = os.path.join(root, "rate4.jp2")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        image_io.write_jpeg2000(rate4, garden, 250)
+        secs.setdefault("jp2 rate-4 write", []).append(
+            time.perf_counter() - t0)
+    with open(rate4, "rb") as f:
+        rate4_bytes = f.read()
+    sha = hashlib.sha256(rate4_bytes).hexdigest()
+    check(sha == fx.TIMING_CV2["timing_default.jp2"],
+          f"the rate-4 JP2 of {ARITH_VIEW}: SHA-256 {sha} is not cv2's")
+    print(f"  the rate-4 JP2 of the committed view: {len(rate4_bytes)} bytes,"
+          f" cv2's (SHA-256 {sha[:16]}...)", flush=True)
     sizes = {kind: sum(os.path.getsize(os.path.join(d, n))
                        for n in os.listdir(d))
              for kind, d in (("png", src), *((k, v[1])
@@ -2016,7 +2040,6 @@ def image_formats_path(rz, scene, root):
     ps, pl, pp, plines = runs["png"]
     check(bool(plines) and any(x.startswith("TEST") for x in plines),
           "the PNG leg logged no TEST line")
-    shutil.rmtree(scenes.pop("jp2")[0])         # not needed further
     for kind in ("tiff", "webp", "jp2"):
         ts, tl, tp, tlines = runs[kind]
         up = kind.upper()
@@ -2048,8 +2071,9 @@ def image_formats_path(rz, scene, root):
           flush=True)
     check(abs(l1[last] - png[last]) <= bound,
           f"GIF leg l1 {l1[last]} vs PNG {png[last]}: beyond {bound}")
-    # (d) the pyramids against the PNGs' (GIF: write_gif's bytes)
-    for kind in ("tiff", "webp", "pfm", "gif"):
+    # (d) the pyramids against the PNGs' (GIF: write_gif's bytes, JP2:
+    # write_jpeg2000's at cv2's default X1000 = 250)
+    for kind in ("tiff", "webp", "pfm", "gif", "jp2"):
         ext = exts[kind]
         pyramid = os.path.join(root, f"images_8_{kind}")
         t0 = time.perf_counter()
@@ -2063,24 +2087,59 @@ def image_formats_path(rz, scene, root):
         outs = sorted(os.listdir(pyramid))
         check(outs == sorted(n[:-4] + ext for n in pngs),
               f"downsample wrote {outs[:3]}...")
+        nbytes = 0
         for name in outs:
             path = os.path.join(pyramid, name)
-            if kind == "gif":
-                ref = os.path.join(root, "pyramid_ref.gif")
-                image_io.write_gif(ref, downsample_area(image_io.read_gif(
-                    os.path.join(scenes[kind][1], name)), 2))
+            nbytes += os.path.getsize(path)
+            if kind in ("gif", "jp2"):
+                ref = os.path.join(root, "pyramid_ref" + ext)
+                if kind == "gif":
+                    image_io.write_gif(ref, downsample_area(
+                        image_io.read_gif(os.path.join(scenes[kind][1],
+                                                       name)), 2))
+                else:
+                    image_io.write_jpeg2000(ref, downsample_area(
+                        views[name[:-len(ext)] + ".png"], 2), 250)
                 with open(ref, "rb") as f, open(path, "rb") as g:
-                    check(f.read() == g.read(), f"{name}: the GIF pyramid "
-                          f"file is not write_gif of the area mean")
+                    check(f.read() == g.read(), f"{name}: the "
+                          f"{kind.upper()} pyramid file is not the writer's "
+                          f"bytes of the area mean")
                 continue
             small = image_io.read_image(path)
             check(np.array_equal(small, downsample_area(
                 views[name[:-len(ext)] + ".png"], 2)),
                 f"{name}: the {kind.upper()} pyramid differs from the PNG's")
-        held_to = "write_gif of its area mean" if kind == "gif" else \
-            "equal to the PNG pyramid"
-        print(f"  downsample --factor 2: {len(outs)} {kind.upper()}s in "
-              f"{down_s:.3f} s, each {held_to} (host: {host})", flush=True)
+        held_to = {"gif": "write_gif of its area mean",
+                   "jp2": "write_jpeg2000 of its area mean at X1000 250"
+                   }.get(kind, "equal to the PNG pyramid")
+        print(f"  downsample --factor 2: {len(outs)} {kind.upper()}s "
+              f"({nbytes} bytes) in {down_s:.3f} s, each {held_to} (host: "
+              f"{host})", flush=True)
+    shutil.rmtree(scenes.pop("jp2")[0])         # not needed further
+    # a fractional and an enlarging factor over the PNGs
+    for factor in (1.5, 0.5):
+        pyramid = os.path.join(root, f"images_png_f{factor}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gsplat_tpu_torch.downsample", "--src",
+             src, "--dst", pyramid, "--factor", str(factor)],
+            cwd=here, capture_output=True, text=True, timeout=600)
+        down_s = time.perf_counter() - t0
+        check(proc.returncode == 0 and not proc.stderr,
+              f"downsample --factor {factor} exit {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        outs = sorted(os.listdir(pyramid))
+        check(outs == pngs, f"downsample --factor {factor} wrote "
+              f"{outs[:3]}...")
+        for name in outs:
+            small = image_io.read_png(os.path.join(pyramid, name))
+            check(np.array_equal(small, downsample_area(views[name],
+                                                        factor)),
+                  f"{name}: the pyramid at {factor} is not downsample_area")
+        print(f"  downsample --factor {factor}: {len(outs)} PNGs at "
+              f"{small.shape[1]}x{small.shape[0]} in {down_s:.3f} s, each "
+              f"downsample_area of its view (host: {host})", flush=True)
+        shutil.rmtree(pyramid)
     # (e) the committed fixtures
     got = fx.check(scratch=root)
     bad = [k for k, v in got.items() if not v]
@@ -2089,6 +2148,7 @@ def image_formats_path(rz, scene, root):
           f"{json.dumps(got)}", flush=True)
     check(not bad and len(got) == len(fx.CASES) + len(fx.REFUSED)
           + len(fx.GARBLED) + len(fx.ENCODED) + len(fx.ENCODED_J2K)
+          + len(fx.ENCODED_J2K_RATE) + len(fx.RESIZED) + len(fx.TIMING_CV2)
           + len(fx.ROUND_TRIP), f"image fixtures differ: {bad}")
     return pl, runs["tiff"][1], runs["webp"][1], runs["jp2"][1], \
         runs["gif"][1]

@@ -18,11 +18,15 @@
 // FMA contraction is switched off (gcc on x86-64 emits none without
 // -march, but an aarch64 gcc would fuse c * (a + b) + x by default).
 //
-// Encoder: the codestream OpenJPEG 2.5.3 writes for cv2's lossless setting
-// (IMWRITE_JPEG2000_COMPRESSION_X1000 = 1000): one tile, 5 levels of the
-// reversible 5/3 transform, 64x64 code-blocks, LRCP, one layer holding
-// every coding pass, no component transform, the MQ coder flushed as
-// OpenJPEG flushes it.
+// Encoder: the codestream OpenJPEG 2.5.3 writes for cv2's
+// IMWRITE_JPEG2000_COMPRESSION_X1000 = x: one tile, 5 levels of the
+// reversible 5/3 transform, 64x64 code-blocks, LRCP, one layer, no
+// component transform, the MQ coder flushed as OpenJPEG flushes it.  At
+// x = 1000 the layer holds every coding pass; below it, at rate 1000 / x
+// (cv2's default x = 250), the passes OpenJPEG's rate allocation keeps:
+// each pass's rate and weighted distortion from tier-1, then the
+// threshold bisection over the rate-distortion slopes, sizing the packets
+// as tier-2 writes them, against the byte budget.
 //
 // Built at first use with the system C++ compiler
 // (ops/cuda_build.load_host_library).
@@ -33,6 +37,7 @@
 #pragma GCC optimize("fp-contract=off")
 #endif
 
+#include <cfloat>
 #include <climits>
 #include <cmath>
 #include <cstdint>
@@ -265,6 +270,12 @@ constexpr u32 F_NW = 1, F_N = 2, F_NE = 4, F_W = 8, F_E = 16, F_SW = 32,
 
 u8 g_zc[4][256];   // orientation (0 LL, 1 HL, 2 LH, 3 HH) x neighbour bits
 u8 g_sc[256];      // sign context | xor bit << 7, indexed by flags >> 4 & 0xFF
+// the encoder's distortion tables (OpenJPEG's lut_nmsedec_sig, _sig0, _ref,
+// _ref0): the squared error a pass removes from a coefficient, in units of
+// 2^-13, from its magnitude bits at and below the plane (7 bits, 6 below)
+constexpr int NMSE_BITS = 7, NMSE_FRAC = 6;
+i32 g_nmse_sig[1 << NMSE_BITS], g_nmse_sig0[1 << NMSE_BITS],
+    g_nmse_ref[1 << NMSE_BITS], g_nmse_ref0[1 << NMSE_BITS];
 bool g_luts = false;
 
 void init_luts() {
@@ -322,6 +333,19 @@ void init_luts() {
             ctx = vc == 1 ? 11 : (vc == 0 ? 12 : 13);
         }
         g_sc[i] = (u8)(ctx | (x << 7));
+    }
+    const double one = std::pow(2.0, NMSE_FRAC);
+    auto fix13 = [&](double e) {
+        int v = (int)(std::floor(e * one + 0.5) / one * 8192.0);
+        return v > 0 ? v : 0;
+    };
+    for (int i = 0; i < (1 << NMSE_BITS); i++) {
+        double t = i / one;
+        g_nmse_sig[i] = fix13(t * t - (t - 1.5) * (t - 1.5));
+        g_nmse_sig0[i] = fix13(t * t);
+        double u = t - 1.0, v = (i & (1 << (NMSE_BITS - 1))) ? t - 1.5 : t - 0.5;
+        g_nmse_ref[i] = fix13(u * u - v * v);
+        g_nmse_ref0[i] = fix13(u * u);
     }
     g_luts = true;
 }
@@ -2261,9 +2285,29 @@ struct MQEnc {
     }
 };
 
-// one code-block's coefficients (w x h, row-major) -> its MQ bytes and the
-// number of magnitude bit-planes; every pass, only the last terminated
-u32 t1_encode(const i32* coef, int w, int h, u32 orient, std::vector<u8>& out) {
+// one coding pass as OpenJPEG's rate allocation sees it: the bytes of the
+// code-block up to its end, the distortion removed up to its end
+struct EncPass {
+    u32 rate;
+    double dist;
+};
+
+// OpenJPEG's opj_dwt_norms: the 5/3 synthesis gains by orientation and
+// level (the level a band's resolution is below the top)
+const double kNorms53[4][10] = {
+    {1.000, 1.500, 2.750, 5.375, 10.68, 21.34, 42.67, 85.33, 170.7, 341.3},
+    {1.038, 1.592, 2.919, 5.703, 11.33, 22.64, 45.25, 90.48, 180.9},
+    {1.038, 1.592, 2.919, 5.703, 11.33, 22.64, 45.25, 90.48, 180.9},
+    {.7186, .9218, 1.586, 3.043, 6.019, 12.01, 24.00, 48.00, 96.00}};
+
+// one code-block's coefficients (w x h, row-major) -> its MQ bytes, the
+// number of magnitude bit-planes and each pass's rate and distortion
+// (opj_t1_encode_cblk: every pass, only the last terminated; a pass's rate
+// is the coder's byte count + 3, or its flushed count for the last, then
+// made non-decreasing and kept off a 0xFF; its distortion opj_t1_getwmsedec
+// of the pass's nmsedec, with the band's 5/3 norm and step 1)
+u32 t1_encode(const i32* coef, int w, int h, u32 orient, u32 level, std::vector<u8>& out,
+              std::vector<EncPass>& passes) {
     u32 mx = 0;
     for (int i = 0; i < w * h; i++) {
         u32 m = coef[i] < 0 ? (u32)(-(i64)coef[i]) : (u32)coef[i];
@@ -2271,6 +2315,7 @@ u32 t1_encode(const i32* coef, int w, int h, u32 orient, std::vector<u8>& out) {
     }
     u32 numbps = mx ? ufloorlog2(mx) + 1 : 0;
     out.clear();
+    passes.clear();
     if (!numbps) return 0;
     T1 t;
     t.setup(w, h);
@@ -2278,18 +2323,44 @@ u32 t1_encode(const i32* coef, int w, int h, u32 orient, std::vector<u8>& out) {
     reset_contexts(t.ctx);
     MQEnc mq;
     mq.init();
+    const double norm = kNorms53[orient][level];
     auto mag = [&](int x, int y) {
         i32 v = coef[(size_t)y * w + x];
         return v < 0 ? (u32)(-(i64)v) : (u32)v;
     };
     auto neg = [&](int x, int y) { return coef[(size_t)y * w + x] < 0 ? 1 : 0; };
+    i32 nmsedec = 0;
+    int bp = 0;
+    // OpenJPEG keeps the magnitudes with 6 fraction bits below bit 0
+    auto nmse_sig = [&](int x, int y) {
+        u32 m = mag(x, y) << NMSE_FRAC;
+        return bp > 0 ? g_nmse_sig[(m >> bp) & ((1 << NMSE_BITS) - 1)]
+                      : g_nmse_sig0[m & ((1 << NMSE_BITS) - 1)];
+    };
+    auto nmse_ref = [&](int x, int y) {
+        u32 m = mag(x, y) << NMSE_FRAC;
+        return bp > 0 ? g_nmse_ref[(m >> bp) & ((1 << NMSE_BITS) - 1)]
+                      : g_nmse_ref0[m & ((1 << NMSE_BITS) - 1)];
+    };
     auto code_sign = [&](int x, int y) {
         u8 lu = g_sc[sc_index(*t.fl(x, y))];
         int s = neg(x, y);
         mq.encode(t.ctx[lu & 0x7F], s ^ (lu >> 7));
+        nmsedec += nmse_sig(x, y);
         t.set_sig(x, y, s);
     };
-    for (int bp = (int)numbps - 1; bp >= 0; bp--) {
+    double cum = 0.0;
+    auto end_pass = [&](bool last) {
+        // (w1 · norm · step · 2^bp)^2 · nmsedec / 8192, w1 = step = 1
+        double wmse = norm * (double)(1 << bp);
+        wmse *= wmse * nmsedec / 8192.0;
+        cum += wmse;
+        // bytes out so far (bp less the fake byte) + 3, or the flushed count
+        u32 rate = last ? mq.flush() : (u32)((i64)mq.bp - 1 + 3);
+        passes.push_back({rate, cum});
+        nmsedec = 0;
+    };
+    for (bp = (int)numbps - 1; bp >= 0; bp--) {
         u32 one = 1u << bp;
         if (bp != (int)numbps - 1) {
             // significance propagation
@@ -2303,16 +2374,19 @@ u32 t1_encode(const i32* coef, int w, int h, u32 orient, std::vector<u8>& out) {
                         if (v) code_sign(x, y);
                         *t.fl(x, y) |= F_PI;
                     }
+            end_pass(false);
             // magnitude refinement
             for (int k = 0; k < h; k += 4)
                 for (int x = 0; x < w; x++)
                     for (int y = k; y < k + 4 && y < h; y++) {
                         u32& f = *t.fl(x, y);
                         if ((f & (F_SIG | F_PI)) != F_SIG) continue;
+                        nmsedec += nmse_ref(x, y);
                         int cx = (f & F_MU) ? CTX_MAG + 2 : ((f & F_NEIGH) ? CTX_MAG + 1 : CTX_MAG);
                         mq.encode(t.ctx[cx], (mag(x, y) & one) ? 1 : 0);
                         f |= F_MU;
                     }
+            end_pass(false);
         }
         // cleanup
         int full = h & ~3;
@@ -2345,9 +2419,18 @@ u32 t1_encode(const i32* coef, int w, int h, u32 orient, std::vector<u8>& out) {
                 }
                 for (int y = k; y < k + 4 && y < h; y++) *t.fl(x, y) &= ~F_PI;
             }
+        end_pass(bp == 0);
     }
-    u32 n = mq.flush();
+    u32 n = passes.back().rate;
     out.assign(mq.buf.begin() + 1, mq.buf.begin() + 1 + n);
+    // rates made non-decreasing from the end, then kept off a 0xFF
+    u32 last = n;
+    for (size_t i = passes.size(); i-- > 0;) {
+        if (passes[i].rate > last) passes[i].rate = last;
+        else last = passes[i].rate;
+    }
+    for (auto& p : passes)
+        if (out[p.rate - 1] == 0xFF) p.rate--;
     return numbps;
 }
 
@@ -2448,10 +2531,156 @@ void put32(std::vector<u8>& o, u32 v) {
 
 constexpr int ENC_LEVELS = 5, ENC_CBLK = 6;
 const char kComment[] = "Created by OpenJPEG version 2.5.3";
+// the JP2 boxes before the codestream: jP, ftyp, jp2h (ihdr, colr) and the
+// jp2c box's header
+constexpr u32 JP2_HEAD = 12 + 20 + 45 + 8;
+
+struct ECB {
+    i32 x0, y0, x1, y1;
+    u32 numbps = 0;
+    std::vector<u8> data;
+    std::vector<EncPass> passes;
+    u32 npass = 0;   // the passes in the layer
+};
+
+struct EBand {
+    u32 bandno, cw, ch, comp, level;
+    i32 x0, y0, offx, offy, numbps;
+    bool empty;
+    std::vector<ECB> cbs;
+};
+
+// the tile's packets for each code-block's npass (LRCP: resolution, then
+// component; one layer, one precinct a resolution), appended to out, or
+// with out null only counted (opj_t2_encode_packet; OpenJPEG writes no
+// empty packet: the first bit is always 1)
+size_t write_packets(const std::vector<EBand>& bands, u32 numres, u32 nc, std::vector<u8>* out) {
+    size_t total = 0, bi = 0;
+    std::vector<u8> hdr;
+    TagTreeW incl, imsb;
+    for (u32 r = 0; r < numres; r++) {
+        for (u32 c = 0; c < nc; c++) {
+            u32 nb = r == 0 ? 1 : 3;
+            const EBand* eb = &bands[bi];
+            bi += nb;
+            hdr.clear();
+            BioW bio(hdr);
+            bio.write(1, 1);
+            for (u32 b = 0; b < nb; b++) {
+                const EBand& e = eb[b];
+                if (e.empty) continue;
+                u32 ncb = e.cw * e.ch;
+                incl.build(e.cw, e.ch);
+                imsb.build(e.cw, e.ch);
+                for (u32 k = 0; k < ncb; k++) imsb.setvalue(k, e.numbps - (i32)e.cbs[k].numbps);
+                for (u32 k = 0; k < ncb; k++)
+                    if (e.cbs[k].npass) incl.setvalue(k, 0);
+                for (u32 k = 0; k < ncb; k++) {
+                    const ECB& cb = e.cbs[k];
+                    incl.encode(bio, k, 1);
+                    if (!cb.npass) continue;
+                    imsb.encode(bio, k, 999);
+                    u32 np = cb.npass;   // one segment: only the last pass terminates
+                    if (np == 1) bio.write(0, 1);
+                    else if (np == 2) bio.write(2, 2);
+                    else if (np <= 5) bio.write(0xC | (np - 3), 4);
+                    else if (np <= 36) bio.write(0x1E0 | (np - 6), 9);
+                    else bio.write(0xFF80 | (np - 37), 16);
+                    u32 len = cb.passes[np - 1].rate;
+                    // Lblock starts at 3: the comma code of its increment
+                    i32 inc = (i32)ufloorlog2(len) + 1 - (3 + (i32)ufloorlog2(np));
+                    if (inc < 0) inc = 0;
+                    for (i32 i = 0; i < inc; i++) bio.write(1, 1);
+                    bio.write(0, 1);
+                    bio.write(len, 3 + inc + (int)ufloorlog2(np));
+                }
+            }
+            bio.flush();
+            total += hdr.size();
+            if (out) out->insert(out->end(), hdr.begin(), hdr.end());
+            for (u32 b = 0; b < nb; b++)
+                for (const ECB& cb : eb[b].cbs) {
+                    if (!cb.npass) continue;
+                    u32 len = cb.passes[cb.npass - 1].rate;
+                    total += len;
+                    if (out) out->insert(out->end(), cb.data.begin(), cb.data.begin() + len);
+                }
+        }
+    }
+    return total;
+}
+
+// opj_tcd_makelayer for the one layer: in each code-block the passes up to
+// the last whose rate-distortion slope, taken from the last pass kept so
+// far, reaches thresh (all of them for thresh < 0).  Returns whether no
+// code-block's count changed.
+bool make_layer(std::vector<EBand>& bands, double thresh) {
+    bool same = true;
+    for (EBand& e : bands)
+        for (ECB& cb : e.cbs) {
+            u32 n = 0, total = (u32)cb.passes.size();
+            if (thresh < 0) {
+                n = total;
+            } else {
+                for (u32 p = 0; p < total; p++) {
+                    u32 dr = cb.passes[p].rate - (n ? cb.passes[n - 1].rate : 0);
+                    double dd = cb.passes[p].dist - (n ? cb.passes[n - 1].dist : 0.0);
+                    if (!dr) {
+                        if (dd != 0) n = p + 1;
+                        continue;
+                    }
+                    if (thresh - dd / dr < DBL_EPSILON) n = p + 1;
+                }
+            }
+            if (cb.npass != n) {
+                same = false;
+                cb.npass = n;
+            }
+        }
+    return same;
+}
+
+// OpenJPEG 2.5.3's opj_tcd_rateallocate for one layer of at most maxlen
+// bytes of packets: bisect the threshold between the least and the
+// greatest slope of any pass, sizing the packets (opj_t2_encode_packets in
+// THRESH_CALC mode) only where the layer changed, until the threshold moves
+// by no more than 5e-6 of itself; then keep the passes of the least
+// threshold that fitted.
+void rate_allocate(std::vector<EBand>& bands, u32 numres, u32 nc, u32 maxlen) {
+    double mn = DBL_MAX, mx = 0;
+    for (const EBand& e : bands)
+        for (const ECB& cb : e.cbs)
+            for (size_t p = 0; p < cb.passes.size(); p++) {
+                i32 dr = (i32)(cb.passes[p].rate - (p ? cb.passes[p - 1].rate : 0));
+                double dd = cb.passes[p].dist - (p ? cb.passes[p - 1].dist : 0.0);
+                if (dr == 0) continue;
+                double slope = dd / dr;
+                if (slope < mn) mn = slope;
+                if (slope > mx) mx = slope;
+            }
+    double lo = mn, hi = mx, thresh = 0, stable = 0;
+    bool last_ok = false;
+    for (int i = 0; i < 128; i++) {
+        double next = (lo + hi) / 2;
+        if (std::fabs(next - thresh) <= 0.5 * 1e-5 * thresh) break;
+        thresh = next;
+        // a layer unchanged since the last sizing fits as it did then
+        bool same = make_layer(bands, thresh) && i != 0;
+        if (!same) last_ok = write_packets(bands, numres, nc, nullptr) <= maxlen;
+        if (last_ok) {
+            hi = thresh;
+            stable = thresh;
+        } else {
+            lo = thresh;
+        }
+    }
+    make_layer(bands, stable == 0 ? thresh : stable);
+}
 
 // the JP2 file cv2.imwrite(x.jp2, bgr, [IMWRITE_JPEG2000_COMPRESSION_X1000,
-// 1000]) writes for an 8-bit colour image (R, G, B in the codestream)
-void encode_lossless(const u8* px, u32 w, u32 h, std::vector<u8>& file) {
+// x1000]) writes for an 8-bit colour image (R, G, B in the codestream):
+// every pass at 1000, else one layer at rate 1000 / x1000
+void encode_jp2(const u8* px, u32 w, u32 h, int x1000, std::vector<u8>& file) {
     const u32 nc = 3;
     init_luts();
     const u32 numres = ENC_LEVELS + 1;
@@ -2528,18 +2757,7 @@ void encode_lossless(const u8* px, u32 w, u32 h, std::vector<u8>& file) {
     put16(cs, 1);                    // Latin-1 text
     cs.insert(cs.end(), kComment, kComment + strlen(kComment));
     // the bands (LRCP order: resolution, component, band), their
-    // code-blocks coded in parallel, then the packets in order
-    struct CB {
-        i32 x0, y0, x1, y1;
-        u32 numbps = 0;
-        std::vector<u8> data;
-    };
-    struct EBand {
-        u32 bandno, cw, ch, comp;
-        i32 x0, y0, offx, offy, numbps;
-        bool empty;
-        std::vector<CB> cbs;
-    };
+    // code-blocks coded in parallel
     std::vector<EBand> bands;
     for (u32 r = 0; r < numres; r++) {
         u32 lev = numres - 1 - r;
@@ -2548,6 +2766,7 @@ void encode_lossless(const u8* px, u32 w, u32 h, std::vector<u8>& file) {
                 EBand e;
                 e.bandno = r == 0 ? 0 : b + 1;
                 e.comp = c;
+                e.level = lev;
                 i32 bx1, by1;
                 if (r == 0) {
                     e.x0 = 0;
@@ -2575,7 +2794,7 @@ void encode_lossless(const u8* px, u32 w, u32 h, std::vector<u8>& file) {
                 if (!e.empty) {
                     e.cbs.resize(e.cw * e.ch);
                     for (u32 k = 0; k < e.cw * e.ch; k++) {
-                        CB& cb = e.cbs[k];
+                        ECB& cb = e.cbs[k];
                         cb.x0 = std::max(tbx + (i32)(k % e.cw) * (1 << ENC_CBLK), e.x0);
                         cb.y0 = std::max(tby + (i32)(k / e.cw) * (1 << ENC_CBLK), e.y0);
                         cb.x1 = std::min(tbx + (i32)(k % e.cw + 1) * (1 << ENC_CBLK), bx1);
@@ -2590,7 +2809,7 @@ void encode_lossless(const u8* px, u32 w, u32 h, std::vector<u8>& file) {
         for (u32 k = 0; k < bands[i].cbs.size(); k++) jobs.push_back({i, k});
     parallel_for(jobs.size(), [&](size_t j) {
         EBand& e = bands[jobs[j].first];
-        CB& cb = e.cbs[jobs[j].second];
+        ECB& cb = e.cbs[jobs[j].second];
         const i32* d = planes[e.comp].data();
         int cw = cb.x1 - cb.x0, ch = cb.y1 - cb.y0;
         std::vector<i32> coef((size_t)cw * ch);
@@ -2598,62 +2817,23 @@ void encode_lossless(const u8* px, u32 w, u32 h, std::vector<u8>& file) {
             for (int x = 0; x < cw; x++)
                 coef[(size_t)y * cw + x] =
                     d[(size_t)(e.offy + cb.y0 - e.y0 + y) * w + (e.offx + cb.x0 - e.x0 + x)];
-        cb.numbps = t1_encode(coef.data(), cw, ch, e.bandno, cb.data);
+        cb.numbps = t1_encode(coef.data(), cw, ch, e.bandno, e.level, cb.data, cb.passes);
     });
-    std::vector<u8> tile;
-    size_t bi = 0;
-    for (u32 r = 0; r < numres; r++) {
-        for (u32 c = 0; c < nc; c++) {
-            u32 nb = r == 0 ? 1 : 3;
-            EBand* eb = &bands[bi];
-            bi += nb;
-            // the packet header
-            std::vector<u8> hdr;
-            BioW bio(hdr);
-            bool empty = true;
-            for (u32 b = 0; b < nb && empty; b++)
-                for (auto& cb : eb[b].cbs)
-                    if (cb.numbps) {
-                        empty = false;
-                        break;
-                    }
-            bio.write(empty ? 0 : 1, 1);
-            for (u32 b = 0; b < nb && !empty; b++) {
-                EBand& e = eb[b];
-                if (e.empty) continue;
-                u32 ncb = e.cw * e.ch;
-                TagTreeW incl, imsb;
-                incl.build(e.cw, e.ch);
-                imsb.build(e.cw, e.ch);
-                for (u32 k = 0; k < ncb; k++) imsb.setvalue(k, e.numbps - (i32)e.cbs[k].numbps);
-                for (u32 k = 0; k < ncb; k++)
-                    if (e.cbs[k].numbps) incl.setvalue(k, 0);
-                for (u32 k = 0; k < ncb; k++) {
-                    const CB& cb = e.cbs[k];
-                    incl.encode(bio, k, 1);
-                    if (!cb.numbps) continue;
-                    imsb.encode(bio, k, 999);
-                    u32 np = 3 * cb.numbps - 2;   // every pass, one segment
-                    if (np == 1) bio.write(0, 1);
-                    else if (np == 2) bio.write(2, 2);
-                    else if (np <= 5) bio.write(0xC | (np - 3), 4);
-                    else if (np <= 36) bio.write(0x1E0 | (np - 6), 9);
-                    else bio.write(0xFF80 | (np - 37), 16);
-                    u32 len = (u32)cb.data.size();
-                    // Lblock starts at 3: the comma code of its increment
-                    i32 inc = (i32)ufloorlog2(len) + 1 - (3 + (i32)ufloorlog2(np));
-                    if (inc < 0) inc = 0;
-                    for (i32 i = 0; i < inc; i++) bio.write(1, 1);
-                    bio.write(0, 1);
-                    bio.write(len, 3 + inc + (int)ufloorlog2(np));
-                }
-            }
-            bio.flush();
-            tile.insert(tile.end(), hdr.begin(), hdr.end());
-            for (u32 b = 0; b < nb && !empty; b++)
-                for (auto& cb : eb[b].cbs) tile.insert(tile.end(), cb.data.begin(), cb.data.end());
-        }
+    // the layer: cv2's rate 1000.f / x1000 (1 and below: every pass);
+    // OpenJPEG's budget (opj_j2k_update_rates) is the image's bytes over
+    // the rate, less every byte written before the tile, at least 30
+    x1000 = x1000 < 1 ? 1 : (x1000 > 1000 ? 1000 : x1000);
+    const float rate = 1000.f / (float)x1000;
+    if (rate <= 1.0f) {
+        make_layer(bands, -1.0);
+    } else {
+        float budget = (float)(((double)(nc * 8) * w * h) / (rate * 8.0f)) - 0.0f;
+        budget -= (float)(JP2_HEAD + cs.size());
+        if (budget < 30.0f) budget = 30.0f;
+        rate_allocate(bands, numres, nc, (u32)std::ceil((double)budget));
     }
+    std::vector<u8> tile;
+    write_packets(bands, numres, nc, &tile);
     put16(cs, M_SOT);
     put16(cs, 10);
     put16(cs, 0);
@@ -2763,13 +2943,13 @@ void j2k_comp_data(void* h, int c, int32_t* out) {
 
 void j2k_free(void* h) { delete static_cast<Decoder*>(h); }
 
-// cv2's lossless JP2 file for an (h, w, 3) uint8 RGB image.  Returns the
-// file's length, or minus it when it does not fit cap (call again with a
-// buffer that large).
-long long j2k_encode_lossless(const uint8_t* px, int w, int h, uint8_t* out,
-                              long long cap) {
+// cv2's JP2 file for an (h, w, 3) uint8 RGB image at
+// IMWRITE_JPEG2000_COMPRESSION_X1000 = x1000 (1000 lossless, cv2's default
+// 250).  Returns the file's length, or minus it when it does not fit cap
+// (call again with a buffer that large).
+long long j2k_encode(const uint8_t* px, int w, int h, int x1000, uint8_t* out, long long cap) {
     std::vector<u8> file;
-    encode_lossless(px, (u32)w, (u32)h, file);
+    encode_jp2(px, (u32)w, (u32)h, x1000, file);
     if ((long long)file.size() > cap) return -(long long)file.size();
     memcpy(out, file.data(), file.size());
     return (long long)file.size();

@@ -39,7 +39,8 @@ Sun raster (numpy).
 JPEG 2000 (``csrc/jpeg2000_codec.cpp`` for the codestream: OpenJPEG 2.5.3's
 decoding, every Part-1 option; the JP2 boxes, palettes, channel
 definitions and cv2's colour rules here); ``write_jpeg2000`` writes cv2's
-lossless JP2 byte for byte.
+JP2 byte for byte at any ``IMWRITE_JPEG2000_COMPRESSION_X1000``: lossless
+at 1000, else OpenJPEG's rate allocation (cv2's default is 250).
 """
 
 from __future__ import annotations
@@ -2230,9 +2231,9 @@ def _load_jpeg2000_codec():
     lib.j2k_comp_data.argtypes = [vp, ctypes.c_int, vp]
     lib.j2k_free.restype = None
     lib.j2k_free.argtypes = [vp]
-    lib.j2k_encode_lossless.restype = ll
-    lib.j2k_encode_lossless.argtypes = [vp, ctypes.c_int, ctypes.c_int, vp,
-                                        ll]
+    lib.j2k_encode.restype = ll
+    lib.j2k_encode.argtypes = [vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               vp, ll]
     return lib
 
 
@@ -2610,13 +2611,17 @@ def read_jpeg2000(path) -> np.ndarray:
     return _decode_jpeg2000_bytes(data, path)
 
 
-def write_jpeg2000(path, img: np.ndarray):
+def write_jpeg2000(path, img: np.ndarray, compression_x1000: int = 1000):
     """(H, W, 3) uint8 RGB → the bytes ``cv2.imwrite(name.jp2, bgr,
-    [IMWRITE_JPEG2000_COMPRESSION_X1000, 1000])`` writes: lossless JP2 (one
+    [IMWRITE_JPEG2000_COMPRESSION_X1000, compression_x1000])`` writes: one
     tile, 5 levels of the 5/3 transform, 64x64 code-blocks, one layer, no
-    component transform), which reads back equal to ``img``.  Raises
-    ``ValueError`` where that ``imwrite`` fails: a side under 32 pixels,
-    too small for OpenJPEG's 6 resolutions."""
+    component transform.  At 1000 the layer holds every coding pass (the
+    file reads back equal to ``img``); below it, OpenJPEG 2.5.3's rate
+    allocation keeps the passes that fit the image's bytes over the rate
+    ``1000 / compression_x1000`` (250, rate 4, is what ``cv2.imwrite``
+    writes with no parameters).  The value is clamped to 1-1000, as cv2
+    clamps it.  Raises ``ValueError`` where that ``imwrite`` fails: a side
+    under 32 pixels, too small for OpenJPEG's 6 resolutions."""
     import ctypes
 
     img = _rgb_u8(img, "write_jpeg2000")
@@ -2628,8 +2633,8 @@ def write_jpeg2000(path, img: np.ndarray):
     cap = img.size + img.size // 4 + 4096
     while True:
         out = np.empty(cap, np.uint8)
-        n = lib.j2k_encode_lossless(img.ctypes.data, width, height,
-                                    out.ctypes.data, cap)
+        n = lib.j2k_encode(img.ctypes.data, width, height,
+                           int(compression_x1000), out.ctypes.data, cap)
         if n >= 0:
             break
         cap = -n

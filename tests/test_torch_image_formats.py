@@ -70,11 +70,15 @@ def fixture_results(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", fx.CASES + fx.REFUSED + fx.GARBLED
-                         + fx.ENCODED + fx.ENCODED_J2K + fx.ROUND_TRIP)
+                         + fx.ENCODED + fx.ENCODED_J2K
+                         + list(fx.ENCODED_J2K_RATE) + list(fx.RESIZED)
+                         + list(fx.TIMING_CV2) + fx.ROUND_TRIP)
 def test_committed_fixture(fixture_results, name):
     # no cv2 here: each file against cv2's recorded decode (REFUSED, and
     # GARBLED, which cv2 reads only in part: the port raises naming the
-    # file; ENCODED, ENCODED_J2K: the writer's bytes are cv2's;
+    # file; ENCODED, ENCODED_J2K, ENCODED_J2K_RATE: the writer's bytes are
+    # cv2's; RESIZED: downsample_area's pixels are cv2.resize's;
+    # TIMING_CV2: the full-size bytes and pixels hash as cv2's;
     # ROUND_TRIP: the writer's file reads back as its source)
     assert fixture_results[name] is True
 
@@ -513,23 +517,41 @@ def test_scene_loads_as_jax_loads_it(cv2, capture_scene, tmp_path, fmt):
                                       np.asarray(jg.images))
 
 
+def _pyramids(cv2, capture_scene, tmp_path, fmt, factor):
+    """The JAX root downsample.py (cv2) and the port's module over a folder
+    of one format at ``factor`` → the file names both wrote."""
+    _, src = _convert_scene(cv2, capture_scene, tmp_path / "scene", fmt)
+    for script, dst in ((["downsample.py"], "jax"),
+                        (["-m", "gsplat_tpu_torch.downsample"], "port")):
+        subprocess.run([sys.executable, *script, "--src", src, "--dst",
+                        str(tmp_path / dst), "--factor", str(factor)],
+                       cwd=REPO, capture_output=True, text=True, check=True)
+    names = sorted(os.listdir(tmp_path / "port"))
+    stubs = sorted(set(os.listdir(tmp_path / "jax")) - set(names))
+    assert set(names) <= set(os.listdir(tmp_path / "jax"))
+    for name in stubs:
+        # where cv2's JP2 writer fails (a side under 32) it returns False
+        # but leaves the 77 bytes of JP2 boxes it wrote before the
+        # codestream, a file cv2 itself does not read; the port writes
+        # no file there
+        stub = tmp_path / "jax" / name
+        assert name.endswith(".jp2") and stub.stat().st_size == 77
+        assert cv2.imread(str(stub)) is None
+    return names
+
+
 @pytest.mark.parametrize("fmt", ["tiff", "bmp", "webp", "gif", "hdr", "pfm",
-                                 "pam", "ras"])
+                                 "pam", "ras", "jp2"])
 def test_downsample_matches_jax_script(cv2, capture_scene, tmp_path, fmt):
     # the JAX root downsample.py (cv2) and the port's module over a folder
     # of one format: the same files, byte for byte (WebP: the same pixels,
     # as cv2 and the port decode them, since libwebp's lossless encoder
     # chooses its bytes by searching; the Sun raster views are an even
     # number of pixels wide, so no row has the pad byte cv2 copies from
-    # past its image)
-    _, src = _convert_scene(cv2, capture_scene, tmp_path / "scene", fmt)
-    for script, dst in ((["downsample.py"], "jax"),
-                        (["-m", "gsplat_tpu_torch.downsample"], "port")):
-        subprocess.run([sys.executable, *script, "--src", src, "--dst",
-                        str(tmp_path / dst), "--factor", "2"],
-                       cwd=REPO, capture_output=True, text=True, check=True)
-    names = sorted(os.listdir(tmp_path / "jax"))
-    assert names == sorted(os.listdir(tmp_path / "port")) and len(names) == 7
+    # past its image; JP2: cv2's default, rate 4, and the 24x32 halves of
+    # the 48x64 views are not written, under 32 pixels a side: _pyramids)
+    names = _pyramids(cv2, capture_scene, tmp_path, fmt, 2)
+    assert len(names) == (4 if fmt == "jp2" else 7)
     for name in names:
         jax_file, port_file = tmp_path / "jax" / name, tmp_path / "port" / name
         if fmt != "webp":
@@ -540,3 +562,19 @@ def test_downsample_matches_jax_script(cv2, capture_scene, tmp_path, fmt):
         for got in (cv2.imread(str(port_file))[..., ::-1],
                     read_image(str(port_file)), read_image(str(jax_file))):
             np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("fmt,factor", [("tiff", 1.5), ("tiff", 2.25),
+                                        ("tiff", 0.5), ("tiff", 0.75),
+                                        ("jp2", 1.5), ("jp2", 0.5)])
+def test_downsample_fractional_matches_jax_script(cv2, capture_scene,
+                                                  tmp_path, fmt, factor):
+    # factors that are not whole (cv2's resizeArea_) and enlargements (its
+    # linear resize with INTER_AREA's weights): the same files, byte for
+    # byte (JP2: cv2's default rate-4 writer; at 1.5 the 32x43 thirds of
+    # the 48x64 views are written)
+    names = _pyramids(cv2, capture_scene, tmp_path, fmt, factor)
+    assert len(names) == 7
+    for name in names:
+        assert (tmp_path / "jax" / name).read_bytes() == \
+            (tmp_path / "port" / name).read_bytes(), name

@@ -333,18 +333,85 @@ def test_downsample_matches_cv2_inter_area(factor, tmp_path):
                          interpolation=cv2.INTER_AREA)
         out = read_png(str(dst / name))
         assert out.shape == ref.shape
-        # bound 1 LSB (a mean ending in .5 rounded the other way); measured
-        # 0 at both factors
-        assert np.abs(out.astype(int) - ref).max() <= 1, name
+        # bit for bit (cv2's whole-factor path: block means, half to even,
+        # whole 2 x 2 blocks half up)
+        np.testing.assert_array_equal(out, ref, err_msg=name)
 
 
-def test_downsample_refuses_other_factors():
+# sizes: odd sides, and widths x 3 channels that are not a multiple of the
+# 16 bytes of cv2's SIMD rows (its linear resize has a vector body and a
+# scalar tail)
+_AREA_SIZES = [(43, 67), (31, 29), (17, 129), (48, 64)]
+# fractional shrinks (resizeArea_; 2.0000001 and 2.9999999 are near a
+# whole number but not within DBL_EPSILON of it), enlargements (the linear
+# resize with INTER_AREA's weights) and whole factors (the block means)
+_AREA_FACTORS = [1.5, 2.25, 1 / 0.7, 3.3, 1.1, 2.0000001, 2.9999999,
+                 0.5, 0.75, 0.3, 2, 3, 4, 5, 6, 7, 8]
+
+
+@pytest.mark.parametrize("size", _AREA_SIZES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("factor", _AREA_FACTORS, ids=lambda f: f"{f:.7g}")
+def test_downsample_area_matches_cv2_resize(factor, size):
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.default_rng(size[0] * 1000 + size[1])
+    noise = rng.integers(0, 256, size + (3,), dtype=np.uint8)
+    ramp = np.clip(np.cumsum(rng.normal(0, 9, size + (3,)), axis=1) + 128,
+                   0, 255).astype(np.uint8)
+    for img in (noise, ramp):
+        ref = cv2.resize(img, None, fx=1 / factor, fy=1 / factor,
+                         interpolation=cv2.INTER_AREA)
+        out = downsample_area(img, factor)
+        assert out.dtype == np.uint8 and out.shape == ref.shape
+        np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("factor", [2, 3])
+def test_downsample_zero_side_fails_as_cv2_asserts(factor, tmp_path):
+    # a 1x3 image at factor 2 or 3 would be 0 rows high: cv2.resize asserts
+    # (!dsize.empty()) and the JAX script dies there, after the files
+    # before it; so does the port, naming the file
+    cv2 = pytest.importorskip("cv2")
+    tiny = np.arange(9, dtype=np.uint8).reshape(1, 3, 3)
+    with pytest.raises(cv2.error, match="dsize.empty"):
+        cv2.resize(tiny, None, fx=1 / factor, fy=1 / factor,
+                   interpolation=cv2.INTER_AREA)
+    with pytest.raises(ValueError, match="3x1 image"):
+        downsample_area(tiny, factor)
+    src = tmp_path / "src"
+    src.mkdir()
+    write_png(str(src / "a.png"), np.full((8, 8, 3), 7, np.uint8))
+    write_png(str(src / "b.png"), tiny)
+    write_png(str(src / "c.png"), np.full((8, 8, 3), 9, np.uint8))
+    for script, out in ((["downsample.py"], "jax"),
+                        (["-m", "gsplat_tpu_torch.downsample"], "port")):
+        proc = subprocess.run(
+            [sys.executable, *script, "--src", str(src), "--dst",
+             str(tmp_path / out), "--factor", str(factor)], cwd=REPO,
+            capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0, out
+        assert proc.stdout.split() == ["a.png"], out
+        assert sorted(os.listdir(tmp_path / out)) == ["a.png"], out
+    assert str(src / "b.png") in proc.stderr
+    np.testing.assert_array_equal(read_png(str(tmp_path / "jax" / "a.png")),
+                                  read_png(str(tmp_path / "port" / "a.png")))
+
+
+@pytest.mark.parametrize("factor", [0, -2, float("inf"), float("nan")])
+def test_downsample_fails_where_cv2_fails_on_the_factor(factor, tmp_path):
+    # JAX's 1 / 0 raises ZeroDivisionError; cv2.resize asserts a positive
+    # finite scale for the others
+    cv2 = pytest.importorskip("cv2")
     img = np.zeros((8, 8, 3), np.uint8)
-    for bad in (1.5, 0, 2.25):
-        with pytest.raises(ValueError, match="whole number"):
-            downsample_area(img, bad)
-    with pytest.raises(SystemExit):
-        downsample_main(["--src", "x", "--dst", "y", "--factor", "1.5"])
+    with pytest.raises((ZeroDivisionError, cv2.error)):
+        cv2.resize(img, None, fx=1 / factor, fy=1 / factor,
+                   interpolation=cv2.INTER_AREA)
+    with pytest.raises(ValueError, match="finite number > 0"):
+        downsample_area(img, factor)
+    with pytest.raises(SystemExit, match="--factor"):
+        downsample_main(["--src", str(tmp_path), "--dst",
+                         str(tmp_path / "dst"), "--factor", str(factor)])
+    assert not (tmp_path / "dst").exists()
 
 
 def test_scene_tools_leave_cv2_and_jax_unloaded():

@@ -12,15 +12,22 @@ installed (the tier-1 tests, the card's machine).
     python tests/torch_make_image_fixtures.py --jpeg2000  # JPEG 2000 (also
                                                        # the system
                                                        # libopenjp2)
+    python tests/torch_make_image_fixtures.py --pyramid  # cv2's rate-
+                                                       # allocated JP2 and
+                                                       # INTER_AREA answers
 
 Each ``<name>.<ext>`` has ``<name>.want.png``, ``cv2.imread``'s decode of
 it (as RGB).  ``REFUSED`` names the files cv2 does not read (its
 ``imread`` gives None): the port must raise naming them.  ``enc_src.png``
 has ``enc_src.bmp``, ``enc_src.ppm`` and ``enc_src.tif``, the bytes of
 ``cv2.imwrite``'s defaults (``enc_j2k.jp2``, of ``enc_j2k_src.png``, its
-lossless JPEG 2000: ``ENCODED_J2K``); ``ROUND_TRIP`` names what the port
-writes and
-must read back as ``enc_src.png`` (WebP).
+lossless JPEG 2000: ``ENCODED_J2K``; ``ENCODED_J2K_RATE``: its JP2 at
+X1000 250, 100 and 500, and one of ``enc_j2k_src2.png``);
+``RESIZED`` holds ``cv2.resize(..., INTER_AREA)`` of ``enc_j2k_src.png``
+at fractional and enlarging factors, and ``TIMING_CV2`` the SHA-256s of
+cv2's default JP2 bytes and of two resizes of the 1297x840 timing view;
+``ROUND_TRIP`` names what the port writes and must read back as
+``enc_src.png`` (WebP).
 
 The writers: a small C program, built here, over the system libjpeg-turbo
 (arithmetic-coded JPEG with DAC conditioning, YCCK, 2 components) and over
@@ -188,6 +195,34 @@ TIMING_J2K = {
                                  "fdb74fb239357d905801f7f790d86f30"),
     "timing_97_1297x840.jp2": ("d81864d67a28513cc4fbb153c806a93c"
                                "47f20df69f49885e450f4be40dd48ebf"),
+}
+
+# -------------------------------------------------------------- pyramid
+
+# write_jpeg2000's bytes against cv2's at OpenJPEG's rate allocation: name
+# -> (its source, IMWRITE_JPEG2000_COMPRESSION_X1000); 250 is cv2's
+# default, and enc_j2k_x500.jp2's source is one where OpenJPEG 2.5.0 (the
+# system library) and 2.5.3 (cv2's) keep different coding passes
+ENCODED_J2K_RATE = {"enc_j2k_x250.jp2": (ENCODED_J2K_SRC, 250),
+                    "enc_j2k_x100.jp2": (ENCODED_J2K_SRC, 100),
+                    "enc_j2k_x500.jp2": ("enc_j2k_src2.png", 500)}
+# downsample_area against cv2.resize(RESIZE_SRC, None, fx=1/f, fy=1/f,
+# interpolation=INTER_AREA): name -> f (fractional shrinks, enlargements)
+RESIZE_SRC = ENCODED_J2K_SRC
+RESIZED = {"area_f1.5.png": 1.5, "area_f2.25.png": 2.25,
+           "area_f1.43.png": 1 / 0.7, "area_f3.3.png": 3.3,
+           "area_f0.5.png": 0.5, "area_f0.75.png": 0.75,
+           "area_f0.3.png": 0.3}
+# the same at full size, on TIMING's decode: the SHA-256 of cv2's default
+# JP2 bytes (rate 4) and of cv2.resize's pixels (RGB, row-major) at 1.5
+# and 0.5
+TIMING_CV2 = {
+    "timing_default.jp2": ("06fdcf7640e733bdb9a0d7cb679d7b6a"
+                           "5d8704fd0a82a4155b8d28590d84ed3d"),
+    "timing_area_f1.5.png": ("b0d4340284a2bd81cea4bfad31c758c6"
+                             "82602767001b4ef64e2048ea39d38742"),
+    "timing_area_f0.5.png": ("ce10c062603fee58f827a90307287524"
+                             "fa9814fab6da3fbaa01f5d4241d486a4"),
 }
 
 _OPJ_LIB = "libopenjp2.so.7"
@@ -468,6 +503,45 @@ def pil_jpeg2000(img: np.ndarray, **kw) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, "JPEG2000", **kw)
     return buf.getvalue()
+
+
+def _timing_factor(name: str) -> float:
+    """timing_area_f<f>.png -> f"""
+    return float(name[len("timing_area_f"):-len(".png")])
+
+
+def generate_pyramid(folder: str = FOLDER) -> dict:
+    """The fixtures of ENCODED_J2K_RATE and RESIZED, from cv2; returns
+    TIMING_CV2's SHA-256s."""
+    import hashlib
+
+    import cv2
+
+    from gsplat_tpu_torch.utils.image_io import read_png, write_png
+
+    p = lambda name: os.path.join(folder, name)       # noqa: E731
+    write_png(p("enc_j2k_src2.png"), fixture_image(62, 82, seed=22))
+    x1000 = cv2.IMWRITE_JPEG2000_COMPRESSION_X1000
+    for name, (src, x) in ENCODED_J2K_RATE.items():
+        bgr = np.ascontiguousarray(read_png(p(src))[..., ::-1])
+        assert cv2.imwrite(p(name), bgr, [x1000, x])
+    src = read_png(p(RESIZE_SRC))
+    for name, f in RESIZED.items():
+        write_png(p(name), cv2.resize(src, None, fx=1 / f, fy=1 / f,
+                                      interpolation=cv2.INTER_AREA))
+    view = np.ascontiguousarray(cv2.imread(p(TIMING))[..., ::-1])
+    shas = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "default.jp2")
+        assert cv2.imwrite(path, np.ascontiguousarray(view[..., ::-1]))
+        with open(path, "rb") as f:
+            shas["timing_default.jp2"] = hashlib.sha256(f.read()).hexdigest()
+    for name in list(TIMING_CV2)[1:]:
+        f = _timing_factor(name)
+        small = cv2.resize(view, None, fx=1 / f, fy=1 / f,
+                           interpolation=cv2.INTER_AREA)
+        shas[name] = hashlib.sha256(small.tobytes()).hexdigest()
+    return shas
 
 
 def generate_jpeg2000(folder: str = FOLDER) -> dict:
@@ -1893,6 +1967,9 @@ def generate(folder: str = FOLDER):
     shas = generate_jpeg2000(folder)
     if shas != TIMING_J2K:
         print(f"TIMING_J2K is now {shas!r}: update it")
+    shas = generate_pyramid(folder)
+    if shas != TIMING_CV2:
+        print(f"TIMING_CV2 is now {shas!r}: update it")
     _write_wants(CASES, folder)
     _check_cv2_refuses(folder)
     src = fixture_image(23, 31, seed=9)
@@ -1921,13 +1998,18 @@ def check(folder: str = FOLDER, scratch: str | None = None) -> dict:
     """The port's readers against the committed outputs: name -> True where
     ``read_image`` is bit for bit cv2's decode; for ``REFUSED``, where it
     raises naming the file (``GARBLED`` too, which cv2 reads only in part);
-    for ``ENCODED`` and ``ENCODED_J2K``, where the port's writer gives
-    cv2's bytes; for ``ROUND_TRIP``, where the port's file reads back as
-    its source.  ``scratch`` is a directory for the writers' files (a
+    for ``ENCODED``, ``ENCODED_J2K`` and ``ENCODED_J2K_RATE``, where the
+    port's writer gives cv2's bytes; for ``RESIZED``, where
+    ``downsample_area`` gives cv2.resize's pixels; for ``TIMING_CV2``,
+    where the port's JP2 bytes and pyramids of TIMING's decode hash as
+    cv2's; for ``ROUND_TRIP``, where the port's file reads back as its
+    source.  ``scratch`` is a directory for the writers' files (a
     temporary one by default).  Warnings of cut-short files are expected
     and silenced."""
+    import hashlib
     import warnings
 
+    from gsplat_tpu_torch.downsample import downsample_area
     from gsplat_tpu_torch.utils.image_io import read_image, read_png, \
         write_bmp, write_gif, write_hdr, write_jpeg2000, write_pam, \
         write_pfm, write_pnm, write_sunras, write_tiff, write_webp
@@ -1963,6 +2045,27 @@ def check(folder: str = FOLDER, scratch: str | None = None) -> dict:
             with open(path, "rb") as f, \
                     open(os.path.join(folder, name), "rb") as g:
                 out[name] = f.read() == g.read()
+        for name, (source, x1000) in ENCODED_J2K_RATE.items():
+            path = os.path.join(tmp, name)
+            write_jpeg2000(path, read_png(os.path.join(folder, source)),
+                           x1000)
+            with open(path, "rb") as f, \
+                    open(os.path.join(folder, name), "rb") as g:
+                out[name] = f.read() == g.read()
+        resize_src = read_png(os.path.join(folder, RESIZE_SRC))
+        for name, factor in RESIZED.items():
+            got = downsample_area(resize_src, factor)
+            want = read_png(os.path.join(folder, name))
+            out[name] = got.shape == want.shape and bool((got == want).all())
+        view = read_image(os.path.join(folder, TIMING))
+        path = os.path.join(tmp, "timing_default.jp2")
+        write_jpeg2000(path, view, 250)
+        with open(path, "rb") as f:
+            data = {"timing_default.jp2": f.read()}
+        for name in list(TIMING_CV2)[1:]:
+            data[name] = downsample_area(view, _timing_factor(name)).tobytes()
+        for name, b in data.items():
+            out[name] = hashlib.sha256(b).hexdigest() == TIMING_CV2[name]
         for name in ROUND_TRIP:
             path = os.path.join(tmp, name)
             write_webp(path, src)
@@ -1999,6 +2102,12 @@ if __name__ == "__main__":
         _write_wants(J2K_CASES)
         _check_cv2_refuses()
         print(f"TIMING_J2K = {shas!r}")
+        result = check()
+        print({k: v for k, v in result.items() if not v})
+        sys.exit(0 if all(result.values()) else 1)
+    if sys.argv[1:] == ["--pyramid"]:       # the rate-allocated JP2 and
+        shas = generate_pyramid()           # INTER_AREA fixtures alone
+        print(f"TIMING_CV2 = {shas!r}")
         result = check()
         print({k: v for k, v in result.items() if not v})
         sys.exit(0 if all(result.values()) else 1)
