@@ -11,8 +11,8 @@ gsplat_tpu_torch/_build/; beside them the native COLMAP reader,
 csrc/colmap_reader.cpp, the JPEG codec, csrc/jpeg_codec.cpp, the TIFF strip
 codecs, csrc/tiff_codec.cpp, the WebP codec, csrc/webp_codec.cpp, the
 GIF and Radiance HDR codecs, csrc/gif_hdr_codec.cpp, and the JPEG 2000
-codec, csrc/jpeg2000_codec.cpp, with the system C++ compiler), six entry
-points:
+codec, csrc/jpeg2000_codec.cpp, and the AV1 decoder of the AVIF reader,
+csrc/avif_codec.cpp, with the system C++ compiler), six entry points:
 the f32 RGB forward and backward, the SH forward and backward (27
 coefficients) and the bf16 render preset's forward, RGB and SH.  It holds
 each against its plain PyTorch version on a tiny input, on a small scene (a
@@ -100,7 +100,14 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   tests/torch_images/ (arithmetic, lossless, CMYK and cut-short JPEG,
   Adam7 PNG, TIFF and BigTIFF, BMP, PNM, WebP, GIF, HDR, PFM, PAM, Sun
   raster, JPEG 2000, cv2's rate-allocated JP2 bytes and INTER_AREA
-  resizes, at full size too) bit for bit.
+  resizes, at full size too; AVIF from cv2 and Pillow) bit for bit; then
+  AVIF (the port's AV1 decoder): the committed AVIF views of the 1297x840
+  view (cv2's default, 10 and 12 bits, lossless, Pillow's tiles and 4:4:4)
+  decoded to the SHA-256 of cv2's decode and timed, and
+  make_synth_scene's mid preset built on the card and trained over
+  iterations 0-200 from its PNGs and from the committed cv2 AVIF copies of
+  its views, the AVIF leg's last l1 within the JPEG leg's bound of the PNG
+  leg's.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -1596,10 +1603,11 @@ def at_scale_path(rz, dev):
         jpeg = jpeg_capture_path(rz, scene, root, png_log)
         png_leg, tiff_leg, webp_leg, jp2_leg, gif_leg = image_formats_path(
             rz, scene, root)
+        mid_png_leg, avif_leg = avif_path(rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
-            gif_leg), scale_rows
+            gif_leg, mid_png_leg, avif_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -2149,9 +2157,146 @@ def image_formats_path(rz, scene, root):
     check(not bad and len(got) == len(fx.CASES) + len(fx.REFUSED)
           + len(fx.GARBLED) + len(fx.ENCODED) + len(fx.ENCODED_J2K)
           + len(fx.ENCODED_J2K_RATE) + len(fx.RESIZED) + len(fx.TIMING_CV2)
-          + len(fx.ROUND_TRIP), f"image fixtures differ: {bad}")
+          + len(fx.ROUND_TRIP) + len(fx.AVIF_UNPORTED) + len(fx.TIMING_AVIF),
+          f"image fixtures differ: {bad}")
     return pl, runs["tiff"][1], runs["webp"][1], runs["jp2"][1], \
         runs["gif"][1]
+
+
+# the committed AVIF views of tests/torch_images/ whose decodes chip_smoke
+# times (torch_make_image_fixtures.TIMING_AVIF holds every AVIF view's
+# SHA-256): cv2's default, 10-bit and 12-bit files of the 1297x840 view and
+# a lossless 320x208 crop of it
+AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
+              "timing_d12_1297x840.avif", "timing_lossless_320x208.avif")
+AVIF_REPS = 3
+
+
+def avif_path(rz, root):
+    """AVIF scenes on the card: (a) every committed AVIF view
+    (torch_make_image_fixtures.TIMING_AVIF: cv2's default, 10-bit, 12-bit
+    and lossless files of the 1297x840 view or a crop of it, Pillow's 4x2
+    tiles and 4:4:4) decoded by read_avif, each decode held to the SHA-256
+    of cv2's, AVIF_TIMED's over AVIF_REPS calls each (the line ``avif
+    decode seconds: {...}``); (b) make_synth_scene's mid preset (seed 0:
+    24 views at 640x416) built on the card, and a copy of it whose
+    images.bin names the committed AVIF_MID views, cv2's default AVIF of
+    the same preset's views built on a CPU; each view's mean |AVIF - PNG|;
+    (c) run_garden_7k over iterations 0..JPEG_ITERS - 1 of the RGB schedule
+    from the PNG scene and from the AVIF scene, the AVIF leg's last logged
+    l1 within d + JPEG_L1_DRIFT · l1_png of the PNG leg's (d the largest
+    per-view mean |AVIF - PNG|, the JPEG and GIF legs' rule), both legs'
+    it/s.  → (the PNG leg's launches, the AVIF leg's)."""
+    import hashlib
+
+    import torch
+
+    from gsplat_tpu_torch.bench import host_cpu
+    from gsplat_tpu_torch.scripts import make_synth_scene
+    from gsplat_tpu_torch.utils import image_io
+
+    t_phase = time.perf_counter()
+    helpers_dir = os.path.dirname(test_helpers().__file__)
+    sys.path.insert(0, helpers_dir)
+    import torch_make_image_fixtures as fx
+
+    host = host_cpu()
+    phase(f"AVIF: the committed views through read_avif, the mid scene "
+          f"from AVIF through run_garden_7k (host: {host})")
+    # (a) the committed views
+    secs, shas = {}, []
+    for name, want in fx.TIMING_AVIF.items():
+        path = os.path.join(fx.FOLDER, name)
+        reps = AVIF_REPS if name in AVIF_TIMED else 1
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            dec = image_io.read_avif(path)
+            dt = time.perf_counter() - t0
+            if name in AVIF_TIMED:
+                secs.setdefault(name, []).append(dt)
+        sha = hashlib.sha256(np.ascontiguousarray(dec).tobytes()).hexdigest()
+        check(sha == want, f"{name}: decode {dec.shape} SHA-256 {sha} is "
+              f"not cv2's {want}")
+        shas.append(f"{name} {dec.shape[1]}x{dec.shape[0]} "
+                    f"{sha[:12]}...")
+    print(f"  the committed AVIF views decode as cv2 does: "
+          f"{'; '.join(shas)}", flush=True)
+    for name, v in secs.items():
+        print(f"    read_avif {name:32s} {np.mean(v):.4f} {min(v):.4f} "
+              f"{max(v):.4f} s ({len(v)} calls)", flush=True)
+    print("avif decode seconds: " + json.dumps(
+        {k: float(np.mean(v)) for k, v in secs.items()}), flush=True)
+    # (b) the mid scene, from PNG and from the committed AVIFs
+    scene = os.path.join(root, "mid")
+    preset = make_synth_scene.PRESETS["mid"]
+    t0 = time.perf_counter()
+    make_synth_scene.main(scene, device=DEVICE, log=lambda msg: None,
+                          **preset)
+    torch.cuda.synchronize()
+    print(f"  mid scene built on the card in {time.perf_counter() - t0:.1f} "
+          f"s ({preset['n_cams']} views at {preset['w']}x{preset['h']})",
+          flush=True)
+    avif_scene, avif_images, _ = _format_scene(scene, root, "scene_avif",
+                                               ".avif")
+    src = os.path.join(scene, "images_4")
+    pngs = sorted(n for n in os.listdir(src) if n.endswith(".png"))
+    committed = os.path.join(fx.FOLDER, fx.AVIF_MID)
+    avifs = sorted(os.listdir(committed))
+    check(avifs == [n[:-4] + ".avif" for n in pngs] and len(pngs) == 24,
+          f"the committed mid AVIFs {avifs} do not name the views {pngs}")
+    means = []
+    for png, avif in zip(pngs, avifs):
+        shutil.copyfile(os.path.join(committed, avif),
+                        os.path.join(avif_images, avif))
+        a = image_io.read_avif(os.path.join(avif_images, avif))
+        b = image_io.read_png(os.path.join(src, png))
+        check(a.shape == b.shape, f"{avif}: {a.shape} vs the PNG's {b.shape}")
+        means.append(float(np.mean(np.abs(a.astype(np.float64) - b)))
+                     / 255.0)
+    size = sum(os.path.getsize(os.path.join(committed, n)) for n in avifs)
+    print(f"  {len(avifs)} AVIF views, {size} bytes; mean |AVIF - PNG| a "
+          f"view: min {min(means):.5f} max {max(means):.5f}", flush=True)
+    # (c) the two legs
+    runs = {}
+    for kind, sc in (("png", scene), ("avif", avif_scene)):
+        summary, tr, launches, records, log = run_7k(rz, [
+            "--scene", sc, "--preset", "mid", "--exp",
+            os.path.join(root, f"mid_{kind}"), "--n_iters", str(FULL_ITERS),
+            "--stop_at", str(JPEG_ITERS), "--use_sh_coeff", "0",
+            "--device", DEVICE])
+        check([r[0] for r in records] == list(range(JPEG_ITERS)),
+              f"mid {kind} leg steps")
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(rasterize_fwd=JPEG_ITERS + 5 * len(tr.test_split) * (
+            len(summary["test_trajectory"]) + 1), rasterize_bwd=JPEG_ITERS)
+        check(launches == want, f"mid {kind} leg launches {launches} != "
+              f"{want}")
+        rate, pairs = step_rate(records, 1, JPEG_ITERS)
+        runs[kind] = (summary, launches, log, rate)
+        print(f"  mid {kind.upper()} leg: {rate:.2f} it/s at {pairs:.0f} "
+              f"pairs a view; {' | '.join(_trainer_lines(log))}", flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    l1, png = (l1_by_iteration(runs[k][2]) for k in ("avif", "png"))
+    check(len(l1) >= JPEG_ITERS // 50 and all(np.isfinite(list(l1.values()))),
+          "AVIF leg: a logged l1 is not finite")
+    both = set(l1) & set(png)
+    check(bool(both), "the AVIF and PNG legs logged no l1 at one iteration")
+    last = max(both)
+    bound = max(means) + JPEG_L1_DRIFT * png[last]
+    ps, avs = runs["png"][0], runs["avif"][0]
+    print(f"  AVIF leg, iteration {last}: l1 {l1[last]:.4f} from AVIF, "
+          f"{png[last]:.4f} from PNG, |difference| "
+          f"{abs(l1[last] - png[last]):.4f} <= bound {bound:.4f}; final PSNR "
+          f"{avs['final_psnr']} SSIM {avs['final_ssim']} (PNG "
+          f"{ps['final_psnr']} {ps['final_ssim']}); it/s AVIF "
+          f"{runs['avif'][3]:.2f} PNG {runs['png'][3]:.2f}; launches "
+          f"{json.dumps(runs['avif'][1])}", flush=True)
+    check(abs(l1[last] - png[last]) <= bound,
+          f"AVIF leg l1 {l1[last]} vs PNG {png[last]}: beyond {bound}")
+    print(f"  the AVIF phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return runs["png"][1], runs["avif"][1]
 
 
 def finite(x):
@@ -2850,12 +2995,12 @@ def main() -> int:
     # the kernels' sources, and the self-check of the forward's split
     # division (csrc/fast_div_check.cu); beside them the host libraries
     # (csrc/colmap_reader.cpp, csrc/jpeg_codec.cpp, csrc/tiff_codec.cpp,
-    # csrc/webp_codec.cpp, csrc/gif_hdr_codec.cpp, csrc/jpeg2000_codec.cpp;
-    # the system C++ compiler)
+    # csrc/webp_codec.cpp, csrc/gif_hdr_codec.cpp, csrc/jpeg2000_codec.cpp,
+    # csrc/avif_codec.cpp; the system C++ compiler)
     sources = sorted({src for src, _ in rz.KERNELS.values()}
                      | {"fast_div_check"})
     host_libs = ("colmap_reader", "jpeg_codec", "tiff_codec", "webp_codec",
-                 "gif_hdr_codec", "jpeg2000_codec")
+                 "gif_hdr_codec", "jpeg2000_codec", "avif_codec")
     with ThreadPoolExecutor(len(sources) + len(host_libs)) as pool:
         hosts = [pool.submit(cuda_build.load_host_library, name)
                  for name in host_libs]
@@ -2866,7 +3011,7 @@ def main() -> int:
         rz._kernel(name)
     print(f"built {len(sources) + len(host_libs)} libraries ({len(KERNELS)} "
           f"entry points, the division check, the COLMAP reader, the JPEG, "
-          f"TIFF, WebP, GIF/HDR and JPEG 2000 codecs) in "
+          f"TIFF, WebP, GIF/HDR, JPEG 2000 and AVIF codecs) in "
           f"{time.perf_counter() - t0:.2f} s",
           flush=True)
     for name in host_libs:
@@ -3486,9 +3631,8 @@ def main() -> int:
 
     # ---- 12. the at-scale run ----------------------------------------------
     (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg, at_scale_png,
-     at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif), \
-        scale_rows = \
-        at_scale_path(rz, dev)
+     at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif, mid_png,
+     mid_avif), scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -3536,6 +3680,7 @@ def main() -> int:
              "at-scale WebP run": at_scale_webp,
              "at-scale JPEG 2000 run": at_scale_jp2,
              "at-scale GIF run": at_scale_gif,
+             "mid PNG 0-200 run": mid_png, "mid AVIF run": mid_avif,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

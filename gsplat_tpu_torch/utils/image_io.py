@@ -41,6 +41,11 @@ decoding, every Part-1 option; the JP2 boxes, palettes, channel
 definitions and cv2's colour rules here); ``write_jpeg2000`` writes cv2's
 JP2 byte for byte at any ``IMWRITE_JPEG2000_COMPRESSION_X1000``: lossless
 at 1000, else OpenJPEG's rate allocation (cv2's default is 250).
+
+AVIF (``csrc/avif_codec.cpp`` for the AV1 key frame: the specification's
+intra decoding process, every tool libaom's still-image encoder uses; the
+HEIF boxes as libavif parses them and libavif's and libyuv's YUV → RGB
+here).  The port writes no AVIF.
 """
 
 from __future__ import annotations
@@ -2642,10 +2647,542 @@ def write_jpeg2000(path, img: np.ndarray, compression_x1000: int = 1000):
         f.write(out[:n].tobytes())
 
 
-# Formats cv2 reads and the port does not yet: (signature test, name)
-_UNPORTED = (
-    (lambda h: h[4:8] == b"ftyp" and h[8:12] in (b"avif", b"avis"), "AVIF"),
-)
+AVIF_BRANDS = (b"avif", b"avis")
+_AVIF_ERRLEN = 256
+# libyuv 1924's full-range BT.601 constants (kYuvJPEGConstants): the U and V
+# weights in 1/64 and the Y gain and bias of its 6-bit fixed point
+_YUV_JPEG = dict(ub=113, ug=22, vg=46, vr=90, yg=16320, yb=32)
+# the versions libavif 1.4.2 reads of the full boxes it parses
+_AVIF_VERSIONS = {b"hdlr": (0,), b"pitm": (0, 1), b"iinf": (0, 1),
+                  b"iloc": (0, 1, 2), b"ispe": (0,), b"pixi": (0,)}
+# the property boxes libavif 1.4.2 parses (an unknown one marked essential
+# makes it refuse the item)
+_AVIF_KNOWN_PROPERTIES = (b"ispe", b"pixi", b"av1C", b"colr", b"auxC",
+                          b"clap", b"irot", b"imir", b"pasp", b"lsel",
+                          b"a1op", b"a1lx", b"clli", b"mdcv", b"cclv",
+                          b"amve", b"reve", b"ndwt", b"tmap", b"altt",
+                          b"sato")
+
+
+def _load_avif_codec():
+    """The port's AV1 decoder (``csrc/avif_codec.cpp``), built at first use;
+    raises when it cannot be built."""
+    import ctypes
+
+    from gsplat_tpu_torch.ops.cuda_build import load_host_library
+
+    lib = load_host_library("avif_codec")
+    ll, vp, cp = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_char_p
+    lib.av1_decode.restype = vp
+    lib.av1_decode.argtypes = [cp, ll, cp, ctypes.c_int]
+    lib.av1_info.restype = None
+    lib.av1_info.argtypes = [vp, ctypes.POINTER(ll)]
+    lib.av1_plane.restype = None
+    lib.av1_plane.argtypes = [vp, ctypes.c_int, vp]
+    lib.av1_free.restype = None
+    lib.av1_free.argtypes = [vp]
+    return lib
+
+
+def _avif_brands(head: bytes):
+    """The major and compatible brands of a leading ``ftyp`` box that lies
+    whole in ``head``, or None."""
+    if len(head) < 16 or head[4:8] != b"ftyp":
+        return None
+    size = int.from_bytes(head[:4], "big")
+    if size < 16 or size > len(head):
+        return None
+    return head[8:12], [head[i:i + 4] for i in range(16, size - 3, 4)]
+
+
+def is_avif(head: bytes) -> bool:
+    """What libavif's ``avifPeekCompatibleFileType`` answers for the first
+    bytes of a file (cv2's AVIF signature test): a whole ``ftyp`` box whose
+    major or compatible brands hold ``avif`` or ``avis``."""
+    brands = _avif_brands(head)
+    if brands is None:
+        return False
+    major, compat = brands
+    return major in AVIF_BRANDS or any(b in AVIF_BRANDS for b in compat)
+
+
+class _Heif:
+    """The boxes of an AVIF file (ISO/IEC 14496-12 and 23008-12) as libavif
+    1.4.2 parses a still image: ``ftyp``, ``meta`` (``hdlr``, ``pitm``,
+    ``iloc``, ``iinf``, ``iprp``, ``iref``, ``idat``) and ``mdat``."""
+
+    def __init__(self, data: bytes, path):
+        self.data, self.path = data, path
+        self.items = {}       # id -> dict(type, extents, method, assoc)
+        self.props = []       # ipco's boxes: (type, payload)
+        self.primary = None
+        self.idat = b""
+        self.refs = []        # (type, from, [to])
+
+    def bad(self, why: str) -> RuntimeError:
+        return RuntimeError(f"{self.path}: an AVIF file cv2 does not read: "
+                            f"{why}")
+
+    def unported(self, what: str) -> RuntimeError:
+        return RuntimeError(f"{self.path}: an AVIF file with {what}, which "
+                            f"the port does not read yet (cv2 does)")
+
+    def boxes(self, start: int, end: int, top: bool = False):
+        """(type, payload start, end) of the boxes of a span; at the top
+        level a box may run past the end of the file (libavif reads no
+        further than the items' extents), and ends there."""
+        d = self.data
+        pos = start
+        while pos < end:
+            if end - pos < 8:
+                raise self.bad("a box header cut short")
+            size, kind = struct.unpack_from(">I4s", d, pos)
+            hdr = 8
+            if size == 1:
+                if end - pos < 16:
+                    raise self.bad("a box header cut short")
+                size, = struct.unpack_from(">Q", d, pos + 8)
+                hdr = 16
+            elif size == 0:
+                size = end - pos
+            if top and kind != b"meta" and pos + size > end >= pos + hdr:
+                size = end - pos
+            if size < hdr or pos + size > end:
+                raise self.bad(f"a {kind.decode('latin-1')!r} box past the "
+                               f"end of its parent")
+            yield kind, pos + hdr, pos + size
+            pos += size
+
+    def parse(self):
+        d = self.data
+        seen_ftyp = seen_meta = False
+        for kind, s, e in self.boxes(0, len(d), top=True):
+            if not seen_ftyp:
+                if kind != b"ftyp":
+                    raise self.bad("the first box is not ftyp")
+                seen_ftyp = True
+                major = d[s:s + 4]
+                compat = [d[i:i + 4] for i in range(s + 8, e - 3, 4)]
+                if major == b"avis" or (b"avis" in compat and
+                                        b"avif" not in compat and
+                                        major != b"avif"):
+                    raise self.unported("an image sequence (avis)")
+                if major not in AVIF_BRANDS and not any(
+                        b in AVIF_BRANDS for b in compat):
+                    raise self.bad("no avif brand in ftyp")
+            elif kind == b"meta":
+                self.parse_meta(s, e)
+                seen_meta = True
+                break                 # libavif reads no further
+            elif kind == b"moov":
+                raise self.unported("an image sequence (moov)")
+        if not seen_meta:
+            raise self.bad("no meta box")
+
+    def parse_meta(self, s: int, e: int):
+        d = self.data
+        if e - s < 4 or d[s] != 0:
+            raise self.bad("a meta box of an unknown version")
+        first = True
+        for kind, bs, be in self.boxes(s + 4, e):
+            # libavif refuses a full box of a version it does not know
+            if kind in _AVIF_VERSIONS and (be == bs or d[bs] not in
+                                           _AVIF_VERSIONS[kind]):
+                raise self.bad(f"a {kind.decode('latin-1')} box of an "
+                               f"unknown version")
+            if first:
+                if kind != b"hdlr":
+                    raise self.bad("meta's first box is not hdlr")
+                if be - bs < 12 or d[bs + 8:bs + 12] != b"pict":
+                    raise self.bad("a handler other than pict")
+                if d[bs + 4:bs + 8] != bytes(4):
+                    raise self.bad("hdlr's pre_defined is not 0")
+                if b"\0" not in d[bs + 24:be]:
+                    raise self.bad("a handler name without its terminating "
+                                   "0")
+                first = False
+            elif kind == b"pitm":
+                v = d[bs]
+                self.primary = int.from_bytes(
+                    d[bs + 4:bs + (6 if v == 0 else 8)], "big")
+            elif kind == b"iloc":
+                self.parse_iloc(bs, be)
+            elif kind == b"iinf":
+                self.parse_iinf(bs, be)
+            elif kind == b"iprp":
+                self.parse_iprp(bs, be)
+            elif kind == b"iref":
+                self.parse_iref(bs, be)
+            elif kind == b"idat":
+                self.idat = d[bs:be]
+        if first:
+            raise self.bad("a meta box without hdlr")
+
+    def reader(self, pos: int, end: int):
+        d = self.data
+
+        def rd(n: int) -> int:
+            nonlocal pos
+            if pos + n > end:
+                raise self.bad("a box cut short")
+            v = int.from_bytes(d[pos:pos + n], "big") if n else 0
+            pos += n
+            return v
+        return rd
+
+    def parse_iloc(self, s: int, e: int):
+        rd = self.reader(s, e)
+        version = rd(1)
+        rd(3)
+        if version > 2:
+            raise self.bad(f"iloc version {version}")
+        a, b = rd(1), rd(1)
+        off_size, len_size, base_size = a >> 4, a & 15, b >> 4
+        idx_size = b & 15 if version in (1, 2) else 0
+        for n in (off_size, len_size, base_size, idx_size):
+            if n not in (0, 4, 8):
+                raise self.bad(f"iloc field size {n}")
+        count = rd(2 if version < 2 else 4)
+        for _ in range(count):
+            item = rd(2 if version < 2 else 4)
+            method = rd(2) & 15 if version in (1, 2) else 0
+            if method > 1:
+                raise self.unported("an item constructed from another item "
+                                    "(iloc construction method 2)")
+            rd(2)                     # data_reference_index, not read
+            base = rd(base_size)
+            extents = []
+            for _ in range(rd(2)):
+                if idx_size:
+                    rd(idx_size)
+                extents.append((base + rd(off_size), rd(len_size)))
+            if item in self.items and "extents" in self.items[item]:
+                raise self.bad(f"item {item} located twice")
+            self.items.setdefault(item, {}).update(extents=extents,
+                                                   method=method)
+
+    def parse_iinf(self, s: int, e: int):
+        d = self.data
+        version = d[s]
+        pos = s + 4 + (2 if version == 0 else 4)
+        count = int.from_bytes(d[s + 4:pos], "big")
+        entries = list(self.boxes(pos, e))
+        if len(entries) < count:
+            raise self.bad(f"iinf counts {count} entries and holds "
+                           f"{len(entries)}")
+        for kind, bs, be in entries[:count]:
+            if kind != b"infe":
+                continue
+            v = d[bs]
+            if v < 2:
+                raise self.bad(f"an infe box of version {v}")
+            rd = self.reader(bs + 4, be)
+            item = rd(2 if v == 2 else 4)
+            rd(2)
+            at = bs + 4 + (2 if v == 2 else 4) + 2
+            itype = d[at:at + 4]
+            if b"\0" not in d[at + 4:be]:
+                raise self.bad("an item name without its terminating 0")
+            self.items.setdefault(item, {})["type"] = itype
+
+    def parse_iprp(self, s: int, e: int):
+        d = self.data
+        for kind, bs, be in self.boxes(s, e):
+            if kind == b"ipco":
+                self.props = [(k, d[ps:pe]) for k, ps, pe
+                              in self.boxes(bs, be)]
+            elif kind == b"ipma":
+                rd = self.reader(bs, be)
+                version = rd(1)
+                if version > 1:
+                    raise self.bad(f"ipma version {version}")
+                flags = rd(3)
+                for _ in range(rd(4)):
+                    item = rd(2 if version < 1 else 4)
+                    assoc = []
+                    for _ in range(rd(1)):
+                        if flags & 1:
+                            v = rd(2)
+                            assoc.append((bool(v >> 15), v & 0x7FFF))
+                        else:
+                            v = rd(1)
+                            assoc.append((bool(v >> 7), v & 0x7F))
+                    self.items.setdefault(item, {})["assoc"] = assoc
+
+    def parse_iref(self, s: int, e: int):
+        d = self.data
+        version = d[s]
+        n = 2 if version == 0 else 4
+        for kind, bs, be in self.boxes(s + 4, e):
+            rd = self.reader(bs, be)
+            src = rd(n)
+            self.refs.append((kind, src, [rd(n) for _ in range(rd(2))]))
+
+    def item_data(self, item: dict) -> bytes:
+        src = self.idat if item["method"] == 1 else self.data
+        out = []
+        for off, length in item["extents"]:
+            if length == 0:                     # libavif's rule
+                raise self.bad("an item extent of length 0")
+            if off + length > len(src):
+                raise self.bad("an item's data past the end of the file")
+            out.append(src[off:off + length])
+        return b"".join(out)
+
+    def primary_item(self):
+        """The primary item's coded data and properties."""
+        if self.primary is None:
+            raise self.bad("no primary item (pitm)")
+        item = self.items.get(self.primary)
+        if item is None or "type" not in item:
+            raise self.bad("the primary item has no infe")
+        if item["type"] == b"grid":
+            raise self.unported("a grid image")
+        if item["type"] != b"av01":
+            raise self.bad(f"a primary item of type {item['type']!r}")
+        if "extents" not in item:
+            raise self.bad("the primary item has no location")
+        props = {}
+        for essential, idx in item.get("assoc", []):
+            if idx == 0:
+                continue
+            if idx > len(self.props):
+                raise self.bad("a property index past ipco's boxes")
+            kind, payload = self.props[idx - 1]
+            if kind in _AVIF_VERSIONS and (not payload or payload[0] not in
+                                           _AVIF_VERSIONS[kind]):
+                raise self.bad(f"a {kind.decode('latin-1')} box of an "
+                               f"unknown version")
+            if kind in (b"irot", b"imir") and not essential:
+                raise self.bad(f"a transformative property "
+                               f"{kind.decode('latin-1')!r} not marked "
+                               f"essential")
+            if kind not in _AVIF_KNOWN_PROPERTIES:
+                if essential:
+                    raise self.bad(f"an unknown essential property "
+                                   f"{kind.decode('latin-1')!r}")
+                continue
+            props.setdefault(kind, payload)
+        for kind, src, dst in self.refs:
+            if kind == b"auxl" and self.primary in dst:
+                raise self.unported("an alpha or other auxiliary image")
+        for kind, what in ((b"irot", "a rotation (irot)"),
+                           (b"imir", "a mirroring (imir)"),
+                           (b"clap", "a clean aperture (clap)")):
+            if kind in props:
+                raise self.unported(what)
+        if b"ispe" not in props:
+            raise self.bad("the primary item has no ispe")
+        if b"av1C" not in props:
+            raise self.bad("the primary item has no av1C")
+        return self.item_data(item), props
+
+
+def _avif_nclx(props: dict):
+    """(matrix, full range) from an nclx colr property, or None."""
+    colr = props.get(b"colr")
+    if colr is None or colr[:4] != b"nclx" or len(colr) < 11:
+        return None
+    _, _, matrix = struct.unpack_from(">HHH", colr, 4)
+    return matrix, bool(colr[10] >> 7)
+
+
+def _avif_check_properties(heif: _Heif, props: dict):
+    """libavif's checks of the properties: colr's reserved bits, av1C's
+    marker and version, pixi's channels and depths against av1C's."""
+    colr = props.get(b"colr")
+    if colr is not None and colr[:4] == b"nclx" and len(colr) >= 11 and \
+            colr[10] & 0x7F:
+        raise heif.bad("colr's reserved bits are not 0")
+    av1c = props[b"av1C"]
+    if len(av1c) < 4 or av1c[0] != 0x81:
+        raise heif.bad("an av1C box of another marker or version")
+    av1c_depth = 12 if av1c[2] & 0x20 else 10 if av1c[2] & 0x40 else 8
+    pixi = props.get(b"pixi")
+    if pixi is not None:
+        if len(pixi) < 5 or pixi[4] not in (1, 3) or \
+                len(pixi) < 5 + pixi[4]:
+            raise heif.bad("a pixi box of other than 1 or 3 channels")
+        if any(x != av1c_depth for x in pixi[5:5 + pixi[4]]):
+            raise heif.bad(f"pixi's depths {list(pixi[5:5 + pixi[4]])} "
+                           f"are not av1C's {av1c_depth} bits")
+    if av1c[2] & 0x10:          # libavif reads the luma alone: gray
+        raise heif.unported("av1C's monochrome (4:0:0) flag")
+
+
+def _up2_linear(c: np.ndarray, width: int) -> np.ndarray:
+    """libyuv's ScaleRowUp2_Linear_Any: each row of c twice as wide, as
+    wide as ``width``, with the 3:1 taps and the edge samples copied."""
+    out = np.empty(c.shape[:-1] + (width,), np.int32)
+    out[..., 0] = c[..., 0]
+    n = ((width - 1) & ~1) // 2
+    if n:
+        a, b = c[..., :n], c[..., 1:n + 1]
+        out[..., 1:1 + 2 * n:2] = (3 * a + b + 2) >> 2
+        out[..., 2:2 + 2 * n:2] = (a + 3 * b + 2) >> 2
+    out[..., width - 1] = c[..., (width - 1) // 2]
+    return out
+
+
+def upsample_420(c: np.ndarray, width: int, height: int) -> np.ndarray:
+    """A 4:2:0 chroma plane at full size as libyuv 1924's
+    I420ToARGBMatrixBilinear upsamples it (what libavif's default
+    ``AVIF_CHROMA_UPSAMPLING_AUTOMATIC`` reaches): the first row, and the
+    last of an even height, from one chroma row (3:1 across), every other
+    pair of rows from two (9:3:3:1), the edge columns 3:1 down only."""
+    c = c.astype(np.int32)
+    out = np.empty((height, width), np.int32)
+    out[0] = _up2_linear(c[0], width)
+    pairs = (height - 1) // 2
+    if pairs:
+        s, t = c[:pairs], c[1:pairs + 1]
+        n = ((width - 1) & ~1) // 2
+        d = np.empty((pairs, width), np.int32)
+        e = np.empty((pairs, width), np.int32)
+        d[:, 0] = (3 * s[:, 0] + t[:, 0] + 2) >> 2
+        e[:, 0] = (s[:, 0] + 3 * t[:, 0] + 2) >> 2
+        if n:
+            a, b = s[:, :n], s[:, 1:n + 1]
+            p, q = t[:, :n], t[:, 1:n + 1]
+            d[:, 1:1 + 2 * n:2] = (9 * a + 3 * b + 3 * p + q + 8) >> 4
+            d[:, 2:2 + 2 * n:2] = (3 * a + 9 * b + p + 3 * q + 8) >> 4
+            e[:, 1:1 + 2 * n:2] = (3 * a + b + 9 * p + 3 * q + 8) >> 4
+            e[:, 2:2 + 2 * n:2] = (a + 3 * b + 3 * p + 9 * q + 8) >> 4
+        k = (width - 1) // 2
+        d[:, width - 1] = (3 * s[:, k] + t[:, k] + 2) >> 2
+        e[:, width - 1] = (s[:, k] + 3 * t[:, k] + 2) >> 2
+        out[1:1 + 2 * pairs:2] = d
+        out[2:2 + 2 * pairs:2] = e
+    if height % 2 == 0 and height > 1:
+        out[height - 1] = _up2_linear(c[pairs], width)
+    return out
+
+
+def yuv_to_rgb_jpeg(y: np.ndarray, u: np.ndarray, v: np.ndarray
+                    ) -> np.ndarray:
+    """8-bit full-range BT.601 YUV (chroma at full size) → (H, W, 3) uint8
+    RGB in libyuv 1924's row arithmetic (``YuvPixel`` with
+    kYuvJPEGConstants: Y scaled by 0x0101 · 16320 >> 16, U and V in 1/64,
+    a 6-bit shift and a clamp)."""
+    k = _YUV_JPEG
+    y = y.astype(np.int32)
+    u = u.astype(np.int32)
+    v = v.astype(np.int32)
+    y1 = ((y * 0x0101).astype(np.int64) * k["yg"] >> 16).astype(np.int32)
+    b = y1 + u * k["ub"] - (k["ub"] * 128 - k["yb"])
+    g = y1 + (k["ug"] * 128 + k["vg"] * 128 + k["yb"]) - (u * k["ug"] +
+                                                          v * k["vg"])
+    r = y1 + v * k["vr"] - (k["vr"] * 128 - k["yb"])
+    return np.clip(np.stack([r, g, b], -1) >> 6, 0, 255).astype(np.uint8)
+
+
+def avif_planes_to_rgb(planes, depth: int, subx: int, suby: int,
+                       matrix: int, full_range: bool, path="image"):
+    """Decoded AV1 planes → (H, W, 3) uint8 RGB as cv2 5.0.0 gets them:
+    OpenCV asks libavif 1.4.2 for 8-bit BGR; libavif cuts samples past 8
+    bits to their top 8 and converts with libyuv (BT.601 and BT.470BG full
+    range), or takes its own identity path (GBR, matrix 0, 4:4:4: samples
+    past 8 bits scaled by 255 / max and rounded)."""
+    y, u, v = planes
+    height, width = y.shape
+    if not full_range:
+        raise RuntimeError(f"{path}: an AVIF image of limited-range YUV, "
+                           f"which the port does not read yet (cv2 does)")
+    if matrix == 0:
+        if subx or suby:
+            raise RuntimeError(f"{path}: an AVIF file cv2 does not read: "
+                               f"the identity matrix with subsampled chroma")
+        gbr = np.stack([v, y, u], -1).astype(np.int64)
+        if depth > 8:        # libavif's float path: round(x / max · 255)
+            top = (1 << depth) - 1
+            gbr = (gbr * 510 + top) // (2 * top)
+        return gbr.astype(np.uint8)
+    if depth > 8:
+        s = depth - 8
+        y, u, v = (np.minimum(p >> s, 255) for p in (y, u, v))
+    if matrix not in (5, 6):
+        raise RuntimeError(f"{path}: an AVIF image of matrix coefficients "
+                           f"{matrix}, which the port does not read yet "
+                           f"(cv2 does)")
+    if subx:
+        u = upsample_420(u, width, height)
+        v = upsample_420(v, width, height)
+    return yuv_to_rgb_jpeg(y, u, v)
+
+
+def decode_av1(obu: bytes, path="image"):
+    """The OBUs of an AV1 still image → ([Y, U, V] uint16 planes, info):
+    info is (width, height, bit depth, subsampling x, subsampling y,
+    monochrome, colour primaries, transfer, matrix, full range) from the
+    sequence header, then the tools the frame used (tile columns and rows,
+    128x128 superblocks, CDEF, quantizer matrices, lossless, delta q,
+    filter intra enabled)."""
+    import ctypes
+
+    lib = _load_avif_codec()
+    err = ctypes.create_string_buffer(_AVIF_ERRLEN)
+    handle = lib.av1_decode(obu, len(obu), err, _AVIF_ERRLEN)
+    if not handle:
+        msg = err.value.decode(errors="replace")
+        if msg.startswith("unported: "):
+            raise RuntimeError(f"{path}: an AVIF image with {msg[10:]}, "
+                               f"which the port does not read yet (cv2 "
+                               f"does)")
+        raise RuntimeError(f"{path}: AV1 data cv2 does not read: {msg}")
+    try:
+        info = (ctypes.c_longlong * 18)()
+        lib.av1_info(handle, info)
+        info = list(info)
+        width, height, _, subx, suby = info[:5]
+        planes = []
+        for p in range(3):
+            sx, sy = (subx, suby) if p else (0, 0)
+            plane = np.empty(((height + sy) >> sy, (width + sx) >> sx),
+                             np.uint16)
+            lib.av1_plane(handle, p, plane.ctypes.data)
+            planes.append(plane)
+    finally:
+        lib.av1_free(handle)
+    return planes, info
+
+
+def _decode_avif_bytes(data: bytes, path):
+    heif = _Heif(data, path)
+    heif.parse()
+    obu, props = heif.primary_item()
+    ispe = props[b"ispe"]
+    if len(ispe) < 12:
+        raise heif.bad("an ispe box cut short")
+    _avif_check_properties(heif, props)
+    planes, info = decode_av1(obu, path)
+    width, height, depth, subx, suby = info[:5]
+    if (width, height) != struct.unpack_from(">II", ispe, 4):
+        # libavif sizes its image by ispe and copies the frame into it
+        raise heif.unported(f"a {width}x{height} frame in an item whose "
+                            f"ispe differs")
+    nclx = _avif_nclx(props)
+    matrix, full = nclx if nclx is not None else (info[8], bool(info[9]))
+    return avif_planes_to_rgb(planes, depth, subx, suby, matrix, full, path)
+
+
+def read_avif(path) -> np.ndarray:
+    """An AVIF file → (H, W, 3) uint8 RGB, bit for bit what
+    ``cv2.imread(path)[..., ::-1]`` gives (cv2 5.0.0 with libavif 1.4.2,
+    libaom 3.14.1 and libyuv 1924): the container parsed here as libavif
+    parses a still image, the AV1 key frame decoded by the port's own
+    decoder (``csrc/avif_codec.cpp``), the YUV → RGB of libavif and libyuv.
+    Reads what cv2's and Pillow's writers make: 8, 10 and 12 bits, 4:2:0
+    and 4:4:4 (lossless too), any tiling, 64x64 or 128x128 superblocks,
+    CDEF, quantizer matrices.  Raises ``RuntimeError`` naming the file where
+    cv2 returns None, and naming the kind for what the port does not read
+    yet (image sequences, grids, alpha, rotations, mirrors, clean
+    apertures, screen content tools, loop restoration, superres, film
+    grain, segmentation, delta loop filter, 4:2:2, monochrome, full
+    sequence headers, matrices other than BT.601 and identity, limited
+    range)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return _decode_avif_bytes(data, path)
 
 
 def read_image(fn: str) -> np.ndarray:
@@ -2655,12 +3192,13 @@ def read_image(fn: str) -> np.ndarray:
     and BigTIFF (``II*\\0``, ``MM\\0*``, ``II+\\0``, ``MM\\0+``), BMP
     (``BM``), PNM (``P1``-``P6``), WebP (``RIFF....WEBP``), GIF (``GIF``),
     Radiance HDR (``#?RADIANCE``, ``#?RGBE``), PFM (``PF``, ``Pf``), PAM
-    (``P7``), Sun raster and JPEG 2000 (the JP2 signature box, or a raw
-    codestream's ``FF 4F FF 51``) through the port's own readers.  A format
-    cv2 reads that the port does not yet (AVIF), and any other file,
-    raises ``RuntimeError`` naming the file and the format."""
+    (``P7``), Sun raster, JPEG 2000 (the JP2 signature box, or a raw
+    codestream's ``FF 4F FF 51``) and AVIF (an ``ftyp`` box with the
+    ``avif`` or ``avis`` brand) through the port's own readers.  A kind of
+    AVIF the port does not read yet raises ``RuntimeError`` naming the file
+    and the kind; any other file raises naming the file."""
     with open(fn, "rb") as f:
-        head = f.read(32)
+        head = f.read(512)
     if head.startswith(PNG_SIGNATURE):
         return read_png(fn)
     if head.startswith(JPEG_SIGNATURE):
@@ -2686,9 +3224,7 @@ def read_image(fn: str) -> np.ndarray:
         return read_sunras(fn)
     if head.startswith(JP2_SIGNATURE) or head.startswith(J2K_SIGNATURE):
         return read_jpeg2000(fn)
-    for test, name in _UNPORTED:
-        if test(head):
-            raise RuntimeError(f"{fn}: a {name} image, which the port does "
-                               f"not read yet (cv2 does)")
+    if is_avif(head):
+        return read_avif(fn)
     raise RuntimeError(f"{fn}: not an image format that cv2 or the port "
                        f"reads")

@@ -72,14 +72,17 @@ def fixture_results(tmp_path_factory):
 @pytest.mark.parametrize("name", fx.CASES + fx.REFUSED + fx.GARBLED
                          + fx.ENCODED + fx.ENCODED_J2K
                          + list(fx.ENCODED_J2K_RATE) + list(fx.RESIZED)
-                         + list(fx.TIMING_CV2) + fx.ROUND_TRIP)
+                         + list(fx.TIMING_CV2) + fx.ROUND_TRIP
+                         + fx.AVIF_UNPORTED + list(fx.TIMING_AVIF))
 def test_committed_fixture(fixture_results, name):
     # no cv2 here: each file against cv2's recorded decode (REFUSED, and
     # GARBLED, which cv2 reads only in part: the port raises naming the
     # file; ENCODED, ENCODED_J2K, ENCODED_J2K_RATE: the writer's bytes are
     # cv2's; RESIZED: downsample_area's pixels are cv2.resize's;
     # TIMING_CV2: the full-size bytes and pixels hash as cv2's;
-    # ROUND_TRIP: the writer's file reads back as its source)
+    # ROUND_TRIP: the writer's file reads back as its source;
+    # AVIF_UNPORTED: the port raises naming the file and the kind it does
+    # not read yet; TIMING_AVIF: the full-size decodes hash as cv2's)
     assert fixture_results[name] is True
 
 
@@ -420,20 +423,26 @@ def test_pnm_writer_matches_cv2_bytes(cv2, tmp_path, ext):
 # ----------------------------------------------------- unported formats
 
 
-_UNPORTED = {"avif": "AVIF"}
+# kinds of a format cv2 reads that the port does not yet: extension ->
+# (the kind as the port names it, Pillow's save options that make it)
+_UNPORTED = {"avif": ("4:2:2 chroma", dict(subsampling="4:2:2"))}
 
 
 @pytest.mark.parametrize("ext", list(_UNPORTED))
 def test_unported_formats_raise_naming_the_format(cv2, tmp_path, ext):
-    # a file cv2 writes and reads: the port says it does not read the
-    # format yet
+    # a file Pillow writes and cv2 reads: the port says it does not read
+    # the kind yet (AVIF itself is read since the port's AV1 decoder)
+    pytest.importorskip("PIL.AvifImagePlugin")
+    from PIL import Image
+
+    kind, opts = _UNPORTED[ext]
     path = tmp_path / f"view.{ext}"
     img = fx.fixture_image(12, 16, seed=1)
-    assert cv2.imwrite(str(path), img[..., ::-1])
+    Image.fromarray(img).save(str(path), **opts)
     assert cv2.imread(str(path)) is not None
     with pytest.raises(RuntimeError,
-                       match=f"view.{ext}: a {_UNPORTED[ext]} image.*not "
-                             f"read yet"):
+                       match=f"view.{ext}: an {ext.upper()} image with "
+                             f"{kind}.*not read yet"):
         read_image(str(path))
 
 
@@ -450,11 +459,14 @@ def test_not_an_image_raises_naming_the_file(tmp_path):
 _SCENE_FORMATS = {"tiff": ".tif", "bmp": ".bmp", "pnm": ".ppm",
                   "webp": ".webp", "webp_lossy": ".webp", "gif": ".gif",
                   "hdr": ".hdr", "pfm": ".pfm", "pam": ".pam", "ras": ".ras",
-                  "bigtiff": ".tif", "jp2": ".jp2", "jp2_lossless": ".jp2"}
+                  "bigtiff": ".tif", "jp2": ".jp2", "jp2_lossless": ".jp2",
+                  "avif": ".avif", "avif_lossless": ".avif"}
 # cv2.imwrite's parameters where a scene is not written with its defaults
-# (jp2: cv2's default, rate 4; jp2_lossless: its lossless setting)
+# (jp2: cv2's default, rate 4; jp2_lossless: its lossless setting; avif:
+# cv2's default, quality 50)
 _SCENE_PARAMS = {"webp_lossy": ("IMWRITE_WEBP_QUALITY", 90),
-                 "jp2_lossless": ("IMWRITE_JPEG2000_COMPRESSION_X1000", 1000)}
+                 "jp2_lossless": ("IMWRITE_JPEG2000_COMPRESSION_X1000", 1000),
+                 "avif_lossless": ("IMWRITE_AVIF_QUALITY", 100)}
 
 
 @pytest.fixture(scope="module")
@@ -562,6 +574,23 @@ def test_downsample_matches_jax_script(cv2, capture_scene, tmp_path, fmt):
         for got in (cv2.imread(str(port_file))[..., ::-1],
                     read_image(str(port_file)), read_image(str(jax_file))):
             np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_downsample_skips_avif_names(cv2, capture_scene, tmp_path):
+    # the port reads AVIF but writes none (no AV1 encoder): each .avif
+    # name is skipped and named on stderr, where the JAX script writes
+    # cv2's AVIFs
+    _, src = _convert_scene(cv2, capture_scene, tmp_path / "scene", "avif")
+    run = subprocess.run([sys.executable, "-m", "gsplat_tpu_torch.downsample",
+                          "--src", src, "--dst", str(tmp_path / "port"),
+                          "--factor", "2"], cwd=REPO, capture_output=True,
+                         text=True, check=True)
+    names = sorted(os.listdir(src))
+    assert len(names) == 7 and all(n.endswith(".avif") for n in names)
+    assert not os.listdir(tmp_path / "port")
+    for name in names:
+        assert f"skipped {os.path.join(src, name)}: not a name of an " \
+               f"extension the port writes" in run.stderr, name
 
 
 @pytest.mark.parametrize("fmt,factor", [("tiff", 1.5), ("tiff", 2.25),

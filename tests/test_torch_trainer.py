@@ -403,9 +403,10 @@ def test_stage_timer_records_on_the_cpu():
 
 
 def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
-    # the card's machine has no cv2: PNGs, JPEGs and WebPs load through
-    # utils/image_io, equal to what JAX reads with cv2; a format the port
-    # does not read yet raises an error naming the file and the format
+    # the card's machine has no cv2: PNGs, JPEGs, WebPs and AVIFs load
+    # through utils/image_io, equal to what JAX reads with cv2; a kind the
+    # port does not read yet (here Pillow's 4:2:2 AVIF) raises an error
+    # naming the file and the kind
     cv2 = pytest.importorskip("cv2")
     from gsplat_tpu_torch.models.splatter import load_scene_camera_groups, \
         read_image
@@ -417,16 +418,22 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     cv2.imwrite(str(webp), view, [cv2.IMWRITE_WEBP_QUALITY, 90])
     want = cv2.cvtColor(cv2.imread(str(jpg)), cv2.COLOR_BGR2RGB)
     want_webp = cv2.cvtColor(cv2.imread(str(webp)), cv2.COLOR_BGR2RGB)
+    avif = tmp_path / "photo.avif"
+    cv2.imwrite(str(avif), view)
+    want_avif = cv2.cvtColor(cv2.imread(str(avif)), cv2.COLOR_BGR2RGB)
     monkeypatch.setitem(sys.modules, "cv2", None)
     groups = load_scene_camera_groups(*_paths(scene), 4, device="cpu")
     assert groups[0].images.shape == (9, 3, 48, 64)
     np.testing.assert_array_equal(groups[0].images.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(read_image(str(jpg)), want)
     np.testing.assert_array_equal(read_image(str(webp)), want_webp)
-    other = tmp_path / "photo.avif"
-    other.write_bytes(b"\x00\x00\x00\x1cftypavif" + bytes(20))
-    with pytest.raises(RuntimeError,
-                       match="photo.avif.*AVIF.*not read yet"):
+    np.testing.assert_array_equal(read_image(str(avif)), want_avif)
+    other = tmp_path / "photo_422.avif"
+    other.write_bytes(open(os.path.join(os.path.dirname(__file__),
+                                        "torch_images", "avif_pil_422.avif"),
+                           "rb").read())
+    with pytest.raises(RuntimeError, match="photo_422.avif: an AVIF image "
+                                           "with 4:2:2 chroma.*not read yet"):
         read_image(str(other))
 
 

@@ -1,0 +1,113 @@
+"""A wider sweep than the tier-1 tests of the port's AVIF reader against
+cv2, on the CPU (not collected by pytest; needs cv2 and Pillow):
+
+    python tests/torch_avif_sweep.py [--seconds 600] [--seed 0]
+
+Each file is random: a size (1-400 a side, log-uniform; one in twenty up
+to 1300), a content (a crop of the committed 1297x840 view, noise, a flat
+colour, smooth ramps) and a writer: cv2 at a random quality (0-100) and depth (8, 10 or 12 bits), or
+Pillow at a random quality with random libaom options (4:4:4, tile columns
+and rows, 64 or 128 superblocks, CDEF, quantizer matrices, aq and deltaq
+modes).  ``read_image`` must equal ``cv2.imread(path)[..., ::-1]`` bit for
+bit; a file of a tool the port does not decode yet (where a random option
+makes one) is counted apart.  Prints one JSON line of counts; exits 1 on any
+mismatch.
+"""
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import torch_avif_oracles as oracle  # noqa: E402
+
+from gsplat_tpu_torch.utils.image_io import read_image  # noqa: E402
+
+
+def random_file(rng):
+    """(bytes, a description) of one random AVIF file."""
+    top = 1300 if rng.random() < 0.05 else 400
+    h, w = (int(np.exp(rng.uniform(0, np.log(top)))) for _ in range(2))
+    kind = str(rng.choice(oracle.KINDS))
+    img = oracle.avif_image(kind, h, w, rng)
+    quality = int(rng.integers(0, 101))
+    if rng.random() < 0.6:
+        depth = int(rng.choice([8, 8, 10, 12]))
+        if depth > 8:
+            img = oracle.deepen(img, rng)
+        desc = dict(writer="cv2", quality=quality, depth=depth)
+        return oracle.cv2_avif(img, quality, None if depth == 8 else depth), \
+            (h, w, kind, desc)
+    adv = {}
+    if rng.random() < 0.5:
+        adv["tile-columns"] = str(int(rng.integers(0, 3)))
+    if rng.random() < 0.5:
+        adv["tile-rows"] = str(int(rng.integers(0, 2)))
+    if rng.random() < 0.4:
+        adv["sb-size"] = str(rng.choice(["64", "128"]))
+    for key in ("enable-cdef", "enable-qm", "deltaq-mode", "aq-mode"):
+        if rng.random() < 0.4:
+            adv[key] = str(int(rng.integers(0, 2)))
+    opts = dict(quality=quality, advanced=adv)
+    if rng.random() < 0.3:
+        opts["subsampling"] = "4:4:4"
+    return oracle.pillow_avif(img, **opts), (h, w, kind,
+                                             dict(writer="pillow", **opts))
+
+
+def main():
+    import cv2
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--seconds", type=float, default=600.0)
+    p.add_argument("--seed", type=int, default=0)
+    a = p.parse_args()
+    rng = np.random.default_rng(a.seed)
+    counts = dict(files=0, equal=0, both_refuse=0, not_yet=0, writer_fail=0,
+                  mismatch=0, cv2=0, pillow=0)
+    end = time.time() + a.seconds
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sweep.avif")
+        while time.time() < end:
+            try:
+                data, desc = random_file(rng)
+            except Exception:             # a writer refusing its options
+                counts["writer_fail"] += 1
+                continue
+            with open(path, "wb") as f:
+                f.write(data)
+            counts["files"] += 1
+            counts[desc[3]["writer"]] += 1
+            want = cv2.imread(path)
+            try:
+                got = read_image(path)
+            except RuntimeError as err:
+                if want is None:
+                    counts["both_refuse"] += 1
+                elif "not read yet" in str(err):
+                    counts["not_yet"] += 1
+                    print("not yet", desc, err, file=sys.stderr)
+                else:
+                    counts["mismatch"] += 1
+                    print("refused", desc, err, file=sys.stderr)
+                continue
+            if want is not None and got.shape == want.shape and \
+                    (got == want[..., ::-1]).all():
+                counts["equal"] += 1
+            else:
+                counts["mismatch"] += 1
+                print("mismatch", desc, file=sys.stderr)
+    print(json.dumps(counts))
+    return 1 if counts["mismatch"] else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

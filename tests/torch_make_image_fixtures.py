@@ -15,6 +15,7 @@ installed (the tier-1 tests, the card's machine).
     python tests/torch_make_image_fixtures.py --pyramid  # cv2's rate-
                                                        # allocated JP2 and
                                                        # INTER_AREA answers
+    python tests/torch_make_image_fixtures.py --avif   # AVIF (cv2, PIL)
 
 Each ``<name>.<ext>`` has ``<name>.want.png``, ``cv2.imread``'s decode of
 it (as RGB).  ``REFUSED`` names the files cv2 does not read (its
@@ -27,7 +28,11 @@ X1000 250, 100 and 500, and one of ``enc_j2k_src2.png``);
 at fractional and enlarging factors, and ``TIMING_CV2`` the SHA-256s of
 cv2's default JP2 bytes and of two resizes of the 1297x840 timing view;
 ``ROUND_TRIP`` names what the port writes and must read back as
-``enc_src.png`` (WebP).
+``enc_src.png`` (WebP).  ``AVIF_UNPORTED`` names AVIF files cv2 reads with
+a tool the port does not decode yet (it must raise naming them and saying
+so), ``TIMING_AVIF`` the SHA-256s of cv2's decodes of the full-size AVIF
+views, and ``AVIF_MID`` holds cv2's default AVIF copies of the 24 views of
+``make_synth_scene`` ``mid`` (seed 0), for chip_smoke's AVIF training leg.
 
 The writers: a small C program, built here, over the system libjpeg-turbo
 (arithmetic-coded JPEG with DAC conditioning, YCCK, 2 components) and over
@@ -224,6 +229,51 @@ TIMING_CV2 = {
     "timing_area_f0.5.png": ("ce10c062603fee58f827a90307287524"
                              "fa9814fab6da3fbaa01f5d4241d486a4"),
 }
+
+# -------------------------------------------------------------------- AVIF
+
+# cv2's AVIF writer (libavif 1.4.2 over libaom 3.14.1): its default
+# (quality 50), quality 90, lossless (100), 10 and 12 bits, and sizes down
+# to 1x1; Pillow's through libaom's options (4:4:4, 128x128 superblocks,
+# CDEF and quantizer matrices on); an unknown property not marked essential
+AVIF_CASES = [
+    "avif_cv2_default.avif", "avif_cv2_q90.avif", "avif_cv2_lossless.avif",
+    "avif_cv2_d10.avif", "avif_cv2_d12.avif", "avif_cv2_1x1.avif",
+    "avif_cv2_3x5.avif", "avif_cv2_17x33.avif", "avif_cv2_130x67.avif",
+    "avif_pil_444.avif", "avif_pil_sb128.avif", "avif_pil_cdef_qm.avif",
+    "avif_unknown_property.avif",
+]
+# libavif refuses: no ispe, an item past the end of the file, an unknown
+# essential property, a file cut short
+AVIF_REFUSED = ["avif_no_ispe.avif", "avif_iloc_past_end.avif",
+                "avif_essential_unknown.avif", "avif_cut.avif"]
+# cv2 reads them; the port does not yet: 4:2:2, 4:0:0, film grain, alpha,
+# a rotation
+AVIF_UNPORTED = ["avif_pil_422.avif", "avif_pil_400.avif",
+                 "avif_pil_grain.avif", "avif_pil_alpha.avif",
+                 "avif_irot.avif"]
+CASES += AVIF_CASES
+REFUSED += AVIF_REFUSED
+# full-size AVIF views for chip_smoke's decode seconds and the SHA-256 of
+# cv2's decode of each (RGB, row-major bytes): TIMING by cv2 at its
+# default, at 10 and 12 bits (from TIMING * 257 as uint16), a lossless
+# 320x208 crop of it, and Pillow's 4x2 tiles and 4:4:4 lossy
+TIMING_AVIF = {
+    "timing_default_1297x840.avif": ("bfd7f5cfbcc1f8e6d44dba6fdc4ccc94"
+                                     "6cbe3178ace04890bffad5c2baaf1a2c"),
+    "timing_d10_1297x840.avif": ("403273e7d95518516d5885524ba374bf"
+                                 "41ab23e9a12ef4d6acbf1d4bb9a7cd37"),
+    "timing_d12_1297x840.avif": ("785671f5201c43d621936a3ffa1479d7"
+                                 "86749dc9944d64f5ad803a5e262d9979"),
+    "timing_lossless_320x208.avif": ("04148d52351277e0b217d5404638c4b2"
+                                     "d9eabdb46da0c5e0ad41193d74cf5896"),
+    "timing_tiles_1297x840.avif": ("6beb4788f222f12f31438b39d1bb2d6b"
+                                   "9c13dce8e1df6f2019ddc913131e27be"),
+    "timing_444_1297x840.avif": ("cb8400f85c88678d8f2bfc91c7fb0db3"
+                                 "8eb27d010446d48a4a9a92888ae50d4c"),
+}
+# cv2's default AVIF copies of make_synth_scene --preset mid's 24 views
+AVIF_MID = "avif_mid"
 
 _OPJ_LIB = "libopenjp2.so.7"
 _OPJ_PROG = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
@@ -650,6 +700,88 @@ def generate_jpeg2000(folder: str = FOLDER) -> dict:
         dec = np.ascontiguousarray(cv2.imread(p(name))[..., ::-1])
         shas[name] = hashlib.sha256(dec.tobytes()).hexdigest()
     return shas
+
+def generate_avif(folder: str = FOLDER, mid_scene: str | None = None
+                  ) -> dict:
+    """The AVIF fixtures of AVIF_CASES, AVIF_REFUSED, AVIF_UNPORTED and
+    TIMING_AVIF (and, given the folder of make_synth_scene --preset mid,
+    AVIF_MID's views); returns TIMING_AVIF's SHA-256s."""
+    import hashlib
+
+    import cv2
+
+    import torch_avif_oracles as oracle
+
+    os.makedirs(folder, exist_ok=True)
+    p = lambda name: os.path.join(folder, name)       # noqa: E731
+
+    def save(name, data):
+        with open(p(name), "wb") as f:
+            f.write(data)
+    rng = np.random.default_rng(17)
+    bgr = np.ascontiguousarray(fixture_image(seed=11)[..., ::-1])
+    data = oracle.cv2_avif(bgr)
+    save("avif_cv2_default.avif", data)
+    save("avif_cv2_q90.avif", oracle.cv2_avif(bgr, 90))
+    save("avif_cv2_lossless.avif", oracle.cv2_avif(bgr, 100))
+    deep = oracle.deepen(bgr, rng)
+    save("avif_cv2_d10.avif", oracle.cv2_avif(deep, depth=10))
+    save("avif_cv2_d12.avif", oracle.cv2_avif(deep, depth=12))
+    for h, w in ((1, 1), (3, 5), (17, 33), (130, 67)):
+        save(f"avif_cv2_{h}x{w}.avif",
+             oracle.cv2_avif(oracle.avif_image("photo", h, w, rng)))
+    big = oracle.avif_image("photo", 72, 104, rng)
+    save("avif_pil_444.avif", oracle.pillow_avif(
+        big, **oracle.PILLOW_OPTIONS["444"]))
+    save("avif_pil_sb128.avif", oracle.pillow_avif(
+        big, **oracle.PILLOW_OPTIONS["sb128"]))
+    save("avif_pil_cdef_qm.avif", oracle.pillow_avif(
+        big, quality=50, advanced={"enable-cdef": "1", "enable-qm": "1"}))
+    zzzz = struct.pack(">I4s", 8, b"zzzz")
+    save("avif_unknown_property.avif",
+         oracle.insert_property(data, zzzz, False))
+    # what cv2 refuses
+    i = data.find(b"ispe")
+    save("avif_no_ispe.avif", data[:i] + b"xspe" + data[i + 4:])
+    past = bytearray(data)
+    struct.pack_into(">I", past, oracle.iloc_length_at(data), 100000)
+    save("avif_iloc_past_end.avif", bytes(past))
+    save("avif_essential_unknown.avif",
+         oracle.insert_property(data, zzzz, True))
+    save("avif_cut.avif", data[:len(data) - 20])
+    # what cv2 reads and the port does not yet
+    save("avif_pil_422.avif", oracle.pillow_avif(big, subsampling="4:2:2"))
+    save("avif_pil_400.avif", oracle.pillow_avif(big, subsampling="4:0:0"))
+    save("avif_pil_grain.avif", oracle.pillow_avif(
+        big, advanced={"film-grain-test": "1"}))
+    save("avif_pil_alpha.avif", oracle.pillow_avif(
+        np.dstack([big, big[..., :1]])))
+    save("avif_irot.avif", oracle.insert_property(
+        data, struct.pack(">I4sB", 9, b"irot", 1), True))
+    # the full-size views
+    view = cv2.imread(p(TIMING))
+    names = list(TIMING_AVIF)
+    save(names[0], oracle.cv2_avif(view))
+    save(names[1], oracle.cv2_avif(view.astype(np.uint16) * 257, depth=10))
+    save(names[2], oracle.cv2_avif(view.astype(np.uint16) * 257, depth=12))
+    save(names[3], oracle.cv2_avif(np.ascontiguousarray(
+        view[316:524, 488:808]), 100))
+    save(names[4], oracle.pillow_avif(view,
+                                      **oracle.PILLOW_OPTIONS["tiles_4x2"]))
+    save(names[5], oracle.pillow_avif(view, **oracle.PILLOW_OPTIONS["444"]))
+    shas = {}
+    for name in names:
+        dec = np.ascontiguousarray(cv2.imread(p(name))[..., ::-1])
+        shas[name] = hashlib.sha256(dec.tobytes()).hexdigest()
+    if mid_scene is not None:
+        src = os.path.join(mid_scene, "images_4")
+        dst = p(AVIF_MID)
+        os.makedirs(dst, exist_ok=True)
+        for name in sorted(os.listdir(src)):
+            save(os.path.join(AVIF_MID, name[:-4] + ".avif"),
+                 oracle.cv2_avif(cv2.imread(os.path.join(src, name))))
+    return shas
+
 
 _JPEGW = r"""
 #include <stdio.h>
@@ -1970,6 +2102,9 @@ def generate(folder: str = FOLDER):
     shas = generate_pyramid(folder)
     if shas != TIMING_CV2:
         print(f"TIMING_CV2 is now {shas!r}: update it")
+    shas = generate_avif(folder)
+    if shas != TIMING_AVIF:
+        print(f"TIMING_AVIF is now {shas!r}: update it")
     _write_wants(CASES, folder)
     _check_cv2_refuses(folder)
     src = fixture_image(23, 31, seed=9)
@@ -1986,7 +2121,7 @@ def _check_cv2_refuses(folder: str = FOLDER):
             assert cv2.imread(os.path.join(folder, name)) is None, name
         except cv2.error:                     # cv2's size check raises
             pass
-    for name in GARBLED:
+    for name in GARBLED + AVIF_UNPORTED:
         assert cv2.imread(os.path.join(folder, name)) is not None, name
 
 
@@ -2003,7 +2138,9 @@ def check(folder: str = FOLDER, scratch: str | None = None) -> dict:
     ``downsample_area`` gives cv2.resize's pixels; for ``TIMING_CV2``,
     where the port's JP2 bytes and pyramids of TIMING's decode hash as
     cv2's; for ``ROUND_TRIP``, where the port's file reads back as its
-    source.  ``scratch`` is a directory for the writers' files (a
+    source; for ``AVIF_UNPORTED``, where it raises naming the file and
+    saying it does not read the kind yet; for ``TIMING_AVIF``, where the
+    decode hashes as cv2's.  ``scratch`` is a directory for the writers' files (a
     temporary one by default).  Warnings of cut-short files are expected
     and silenced."""
     import hashlib
@@ -2027,6 +2164,15 @@ def check(folder: str = FOLDER, scratch: str | None = None) -> dict:
             out[name] = False
         except (ValueError, RuntimeError) as err:
             out[name] = name in str(err)
+    for name in AVIF_UNPORTED:
+        try:
+            read_image(os.path.join(folder, name))
+            out[name] = False
+        except RuntimeError as err:
+            out[name] = name in str(err) and "not read yet" in str(err)
+    for name, sha in TIMING_AVIF.items():
+        got = np.ascontiguousarray(read_image(os.path.join(folder, name)))
+        out[name] = hashlib.sha256(got.tobytes()).hexdigest() == sha
     src = read_png(os.path.join(folder, "enc_src.png"))
     writers = {".bmp": write_bmp, ".ppm": write_pnm, ".tif": write_tiff,
                ".gif": write_gif, ".hdr": write_hdr, ".pfm": write_pfm,
@@ -2108,6 +2254,15 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--pyramid"]:       # the rate-allocated JP2 and
         shas = generate_pyramid()           # INTER_AREA fixtures alone
         print(f"TIMING_CV2 = {shas!r}")
+        result = check()
+        print({k: v for k, v in result.items() if not v})
+        sys.exit(0 if all(result.values()) else 1)
+    if sys.argv[1:2] == ["--avif"]:         # the AVIF fixtures alone;
+        shas = generate_avif(               # --avif SCENE also writes the
+            mid_scene=(sys.argv[2:] or [None])[0])   # mid views' copies
+        _write_wants(AVIF_CASES)
+        _check_cv2_refuses()
+        print(f"TIMING_AVIF = {shas!r}")
         result = check()
         print({k: v for k, v in result.items() if not v})
         sys.exit(0 if all(result.values()) else 1)
