@@ -102,11 +102,13 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   raster, JPEG 2000, cv2's rate-allocated JP2 bytes and INTER_AREA
   resizes, at full size too; AVIF from cv2 and Pillow) bit for bit; then
   AVIF (the port's AV1 decoder): the committed AVIF views of the 1297x840
-  view (cv2's default, 10 and 12 bits, lossless, Pillow's tiles and 4:4:4)
-  decoded to the SHA-256 of cv2's decode and timed, and
-  make_synth_scene's mid preset built on the card and trained over
-  iterations 0-200 from its PNGs and from the committed cv2 AVIF copies of
-  its views, the AVIF leg's last l1 within the JPEG leg's bound of the PNG
+  view (cv2's default, 10 and 12 bits, lossless, Pillow's tiles, 4:4:4,
+  screen content, 4:2:2, 4:0:0 and RGBA) decoded to the SHA-256 of cv2's
+  decode and timed, the screen content view's palette and intra block
+  copy blocks counted, and make_synth_scene's mid preset built on the card
+  and trained over iterations 0-200 from its PNGs, from the committed cv2
+  AVIF copies of its views and from Pillow's screen-content 4:2:2 RGBA
+  copies, each AVIF leg's last l1 within the JPEG leg's bound of the PNG
   leg's.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
@@ -1603,11 +1605,11 @@ def at_scale_path(rz, dev):
         jpeg = jpeg_capture_path(rz, scene, root, png_log)
         png_leg, tiff_leg, webp_leg, jp2_leg, gif_leg = image_formats_path(
             rz, scene, root)
-        mid_png_leg, avif_leg = avif_path(rz, root)
+        mid_png_leg, avif_leg, avif_screen_leg = avif_path(rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
-            gif_leg, mid_png_leg, avif_leg), scale_rows
+            gif_leg, mid_png_leg, avif_leg, avif_screen_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -2166,27 +2168,36 @@ def image_formats_path(rz, scene, root):
 # the committed AVIF views of tests/torch_images/ whose decodes chip_smoke
 # times (torch_make_image_fixtures.TIMING_AVIF holds every AVIF view's
 # SHA-256): cv2's default, 10-bit and 12-bit files of the 1297x840 view and
-# a lossless 320x208 crop of it
+# a lossless 320x208 crop of it; Pillow's screen content (palette and intra
+# block copy), 4:2:2, 4:0:0 and RGBA (an alpha item) files of it
 AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
-              "timing_d12_1297x840.avif", "timing_lossless_320x208.avif")
+              "timing_d12_1297x840.avif", "timing_lossless_320x208.avif",
+              "timing_screen_1297x840.avif", "timing_422_1297x840.avif",
+              "timing_400_1297x840.avif", "timing_alpha_1297x840.avif")
 AVIF_REPS = 3
+# the view whose palette and intra block copy blocks the phase counts
+AVIF_SCREEN_VIEW = "timing_screen_1297x840.avif"
 
 
 def avif_path(rz, root):
     """AVIF scenes on the card: (a) every committed AVIF view
     (torch_make_image_fixtures.TIMING_AVIF: cv2's default, 10-bit, 12-bit
     and lossless files of the 1297x840 view or a crop of it, Pillow's 4x2
-    tiles and 4:4:4) decoded by read_avif, each decode held to the SHA-256
-    of cv2's, AVIF_TIMED's over AVIF_REPS calls each (the line ``avif
-    decode seconds: {...}``); (b) make_synth_scene's mid preset (seed 0:
-    24 views at 640x416) built on the card, and a copy of it whose
-    images.bin names the committed AVIF_MID views, cv2's default AVIF of
-    the same preset's views built on a CPU; each view's mean |AVIF - PNG|;
-    (c) run_garden_7k over iterations 0..JPEG_ITERS - 1 of the RGB schedule
-    from the PNG scene and from the AVIF scene, the AVIF leg's last logged
-    l1 within d + JPEG_L1_DRIFT · l1_png of the PNG leg's (d the largest
-    per-view mean |AVIF - PNG|, the JPEG and GIF legs' rule), both legs'
-    it/s.  → (the PNG leg's launches, the AVIF leg's)."""
+    tiles, 4:4:4, screen content, 4:2:2, 4:0:0 and RGBA) decoded by
+    read_avif, each decode held to the SHA-256 of cv2's, AVIF_TIMED's over
+    AVIF_REPS calls each (the line ``avif decode seconds: {...}``), and the
+    palette and intra block copy blocks of AVIF_SCREEN_VIEW counted by the
+    decoder (both above 0); (b) make_synth_scene's mid preset (seed 0: 24
+    views at 640x416) built on the card, and two copies of it whose
+    images.bin names the committed AVIF_MID views (cv2's default AVIF of the
+    same preset's views built on a CPU) and the committed AVIF_MID_SCREEN
+    views (Pillow's tune-content=screen, 4:2:2, with an alpha item); each
+    view's mean |AVIF - PNG|; (c) run_garden_7k over iterations
+    0..JPEG_ITERS - 1 of the RGB schedule from the PNG scene and from each
+    AVIF scene, each AVIF leg's last logged l1 within d + JPEG_L1_DRIFT ·
+    l1_png of the PNG leg's (d the largest per-view mean |AVIF - PNG| of
+    its views, the JPEG and GIF legs' rule), every leg's it/s.  → (the PNG
+    leg's launches, the cv2 AVIF leg's, the screen AVIF leg's)."""
     import hashlib
 
     import torch
@@ -2226,6 +2237,15 @@ def avif_path(rz, root):
               f"{max(v):.4f} s ({len(v)} calls)", flush=True)
     print("avif decode seconds: " + json.dumps(
         {k: float(np.mean(v)) for k, v in secs.items()}), flush=True)
+    with open(os.path.join(fx.FOLDER, AVIF_SCREEN_VIEW), "rb") as f:
+        heif = image_io._Heif(f.read(), AVIF_SCREEN_VIEW)
+    heif.parse()
+    info = image_io.decode_av1(heif.primary_item()[0])[1]
+    tools = dict(screen_content_tools=info[18], intrabc_allowed=info[19],
+                 palette_blocks=info[20], intrabc_blocks=info[21])
+    print(f"  {AVIF_SCREEN_VIEW}: {json.dumps(tools)}", flush=True)
+    check(tools["palette_blocks"] > 0 and tools["intrabc_blocks"] > 0,
+          f"{AVIF_SCREEN_VIEW} decoded no palette or IntraBC block: {tools}")
     # (b) the mid scene, from PNG and from the committed AVIFs
     scene = os.path.join(root, "mid")
     preset = make_synth_scene.PRESETS["mid"]
@@ -2236,29 +2256,37 @@ def avif_path(rz, root):
     print(f"  mid scene built on the card in {time.perf_counter() - t0:.1f} "
           f"s ({preset['n_cams']} views at {preset['w']}x{preset['h']})",
           flush=True)
-    avif_scene, avif_images, _ = _format_scene(scene, root, "scene_avif",
-                                               ".avif")
     src = os.path.join(scene, "images_4")
     pngs = sorted(n for n in os.listdir(src) if n.endswith(".png"))
-    committed = os.path.join(fx.FOLDER, fx.AVIF_MID)
-    avifs = sorted(os.listdir(committed))
-    check(avifs == [n[:-4] + ".avif" for n in pngs] and len(pngs) == 24,
-          f"the committed mid AVIFs {avifs} do not name the views {pngs}")
-    means = []
-    for png, avif in zip(pngs, avifs):
-        shutil.copyfile(os.path.join(committed, avif),
-                        os.path.join(avif_images, avif))
-        a = image_io.read_avif(os.path.join(avif_images, avif))
-        b = image_io.read_png(os.path.join(src, png))
-        check(a.shape == b.shape, f"{avif}: {a.shape} vs the PNG's {b.shape}")
-        means.append(float(np.mean(np.abs(a.astype(np.float64) - b)))
-                     / 255.0)
-    size = sum(os.path.getsize(os.path.join(committed, n)) for n in avifs)
-    print(f"  {len(avifs)} AVIF views, {size} bytes; mean |AVIF - PNG| a "
-          f"view: min {min(means):.5f} max {max(means):.5f}", flush=True)
-    # (c) the two legs
+    check(len(pngs) == 24, f"the mid scene has views {pngs}")
+    scenes, means = {"png": scene}, {}
+    for kind, folder in (("avif", fx.AVIF_MID),
+                         ("avif_screen", fx.AVIF_MID_SCREEN)):
+        sc, images, _ = _format_scene(scene, root, f"scene_{kind}", ".avif")
+        committed = os.path.join(fx.FOLDER, folder)
+        avifs = sorted(os.listdir(committed))
+        check(avifs == [n[:-4] + ".avif" for n in pngs],
+              f"the committed {folder} AVIFs {avifs} do not name the views "
+              f"{pngs}")
+        means[kind] = []
+        for png, avif in zip(pngs, avifs):
+            shutil.copyfile(os.path.join(committed, avif),
+                            os.path.join(images, avif))
+            a = image_io.read_avif(os.path.join(images, avif))
+            b = image_io.read_png(os.path.join(src, png))
+            check(a.shape == b.shape,
+                  f"{avif}: {a.shape} vs the PNG's {b.shape}")
+            means[kind].append(float(np.mean(np.abs(
+                a.astype(np.float64) - b))) / 255.0)
+        size = sum(os.path.getsize(os.path.join(committed, n))
+                   for n in avifs)
+        print(f"  {folder}: {len(avifs)} AVIF views, {size} bytes; mean "
+              f"|AVIF - PNG| a view: min {min(means[kind]):.5f} max "
+              f"{max(means[kind]):.5f}", flush=True)
+        scenes[kind] = sc
+    # (c) the three legs
     runs = {}
-    for kind, sc in (("png", scene), ("avif", avif_scene)):
+    for kind, sc in scenes.items():
         summary, tr, launches, records, log = run_7k(rz, [
             "--scene", sc, "--preset", "mid", "--exp",
             os.path.join(root, f"mid_{kind}"), "--n_iters", str(FULL_ITERS),
@@ -2277,26 +2305,31 @@ def avif_path(rz, root):
               f"pairs a view; {' | '.join(_trainer_lines(log))}", flush=True)
         del tr
         torch.cuda.empty_cache()
-    l1, png = (l1_by_iteration(runs[k][2]) for k in ("avif", "png"))
-    check(len(l1) >= JPEG_ITERS // 50 and all(np.isfinite(list(l1.values()))),
-          "AVIF leg: a logged l1 is not finite")
-    both = set(l1) & set(png)
-    check(bool(both), "the AVIF and PNG legs logged no l1 at one iteration")
-    last = max(both)
-    bound = max(means) + JPEG_L1_DRIFT * png[last]
-    ps, avs = runs["png"][0], runs["avif"][0]
-    print(f"  AVIF leg, iteration {last}: l1 {l1[last]:.4f} from AVIF, "
-          f"{png[last]:.4f} from PNG, |difference| "
-          f"{abs(l1[last] - png[last]):.4f} <= bound {bound:.4f}; final PSNR "
-          f"{avs['final_psnr']} SSIM {avs['final_ssim']} (PNG "
-          f"{ps['final_psnr']} {ps['final_ssim']}); it/s AVIF "
-          f"{runs['avif'][3]:.2f} PNG {runs['png'][3]:.2f}; launches "
-          f"{json.dumps(runs['avif'][1])}", flush=True)
-    check(abs(l1[last] - png[last]) <= bound,
-          f"AVIF leg l1 {l1[last]} vs PNG {png[last]}: beyond {bound}")
+    png = l1_by_iteration(runs["png"][2])
+    ps = runs["png"][0]
+    for kind in ("avif", "avif_screen"):
+        l1 = l1_by_iteration(runs[kind][2])
+        check(len(l1) >= JPEG_ITERS // 50 and
+              all(np.isfinite(list(l1.values()))),
+              f"{kind} leg: a logged l1 is not finite")
+        both = set(l1) & set(png)
+        check(bool(both), f"the {kind} and PNG legs logged no l1 at one "
+              f"iteration")
+        last = max(both)
+        bound = max(means[kind]) + JPEG_L1_DRIFT * png[last]
+        avs = runs[kind][0]
+        print(f"  {kind.upper()} leg, iteration {last}: l1 {l1[last]:.4f} "
+              f"from AVIF, {png[last]:.4f} from PNG, |difference| "
+              f"{abs(l1[last] - png[last]):.4f} <= bound {bound:.4f}; final "
+              f"PSNR {avs['final_psnr']} SSIM {avs['final_ssim']} (PNG "
+              f"{ps['final_psnr']} {ps['final_ssim']}); it/s AVIF "
+              f"{runs[kind][3]:.2f} PNG {runs['png'][3]:.2f}; launches "
+              f"{json.dumps(runs[kind][1])}", flush=True)
+        check(abs(l1[last] - png[last]) <= bound,
+              f"{kind} leg l1 {l1[last]} vs PNG {png[last]}: beyond {bound}")
     print(f"  the AVIF phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return runs["png"][1], runs["avif"][1]
+    return runs["png"][1], runs["avif"][1], runs["avif_screen"][1]
 
 
 def finite(x):
@@ -3632,7 +3665,7 @@ def main() -> int:
     # ---- 12. the at-scale run ----------------------------------------------
     (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg, at_scale_png,
      at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif, mid_png,
-     mid_avif), scale_rows = at_scale_path(rz, dev)
+     mid_avif, mid_avif_screen), scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -3681,6 +3714,7 @@ def main() -> int:
              "at-scale JPEG 2000 run": at_scale_jp2,
              "at-scale GIF run": at_scale_gif,
              "mid PNG 0-200 run": mid_png, "mid AVIF run": mid_avif,
+             "mid AVIF screen run": mid_avif_screen,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

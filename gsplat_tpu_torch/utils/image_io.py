@@ -2655,6 +2655,9 @@ _YUV_JPEG = dict(ub=113, ug=22, vg=46, vr=90, yg=16320, yb=32)
 # the versions libavif 1.4.2 reads of the full boxes it parses
 _AVIF_VERSIONS = {b"hdlr": (0,), b"pitm": (0, 1), b"iinf": (0, 1),
                   b"iloc": (0, 1, 2), b"ispe": (0,), b"pixi": (0,)}
+# the auxiliary types libavif takes for an alpha plane
+_AVIF_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+                    b"urn:mpeg:hevc:2015:auxid:1")
 # the property boxes libavif 1.4.2 parses (an unknown one marked essential
 # makes it refuse the item)
 _AVIF_KNOWN_PROPERTIES = (b"ispe", b"pixi", b"av1C", b"colr", b"auxC",
@@ -2942,6 +2945,22 @@ class _Heif:
             raise self.bad(f"a primary item of type {item['type']!r}")
         if "extents" not in item:
             raise self.bad("the primary item has no location")
+        props = self.properties(item)
+        for kind, what in ((b"irot", "a rotation (irot)"),
+                           (b"imir", "a mirroring (imir)"),
+                           (b"clap", "a clean aperture (clap)")):
+            if kind in props:
+                raise self.unported(what)
+        if b"ispe" not in props:
+            raise self.bad("the primary item has no ispe")
+        if b"av1C" not in props:
+            raise self.bad("the primary item has no av1C")
+        return self.item_data(item), props
+
+    def properties(self, item: dict, skip: bool = False):
+        """An item's properties by type (the first of a type), with
+        libavif's checks of their associations; with ``skip``, None where
+        libavif skips the item instead (an unknown essential property)."""
         props = {}
         for essential, idx in item.get("assoc", []):
             if idx == 0:
@@ -2959,23 +2978,60 @@ class _Heif:
                                f"essential")
             if kind not in _AVIF_KNOWN_PROPERTIES:
                 if essential:
+                    if skip:
+                        return None
                     raise self.bad(f"an unknown essential property "
                                    f"{kind.decode('latin-1')!r}")
                 continue
             props.setdefault(kind, payload)
+        return props
+
+    def alpha_item(self):
+        """The coded data and properties of the primary item's alpha, or
+        None: libavif's alpha item is the first item whose ``auxl``
+        reference (its last target) names the primary item and whose
+        ``auxC`` names the alpha URN, among the items it does not skip
+        (no data, an unknown essential property, a type other than av01
+        or grid, a thumbnail); other auxiliary items are not read.  cv2
+        reads 3 channels and drops the alpha, but refuses a file whose
+        alpha item is malformed or does not decode."""
+        targets = {}
         for kind, src, dst in self.refs:
-            if kind == b"auxl" and self.primary in dst:
-                raise self.unported("an alpha or other auxiliary image")
-        for kind, what in ((b"irot", "a rotation (irot)"),
-                           (b"imir", "a mirroring (imir)"),
-                           (b"clap", "a clean aperture (clap)")):
-            if kind in props:
-                raise self.unported(what)
-        if b"ispe" not in props:
-            raise self.bad("the primary item has no ispe")
-        if b"av1C" not in props:
-            raise self.bad("the primary item has no av1C")
-        return self.item_data(item), props
+            if dst and kind in (b"auxl", b"thmb"):
+                targets.setdefault(src, {})[kind] = dst[-1]
+            if kind == b"prem" and dst and src == self.primary:
+                # libavif then unpremultiplies the colour by the alpha
+                raise self.unported("a premultiplied alpha (prem)")
+        for iid, item in self.items.items():
+            refs = targets.get(iid, {})
+            if refs.get(b"auxl") != self.primary or b"thmb" in refs:
+                continue
+            if not sum(n for _, n in item.get("extents", ())):
+                continue
+            if item.get("type") not in (b"av01", b"grid"):
+                continue
+            props = self.properties(item, skip=True)
+            if props is None:
+                continue
+            auxc = props.get(b"auxC")
+            if auxc is None:
+                continue
+            if len(auxc) < 4 or auxc[0] != 0 or b"\0" not in auxc[4:]:
+                raise self.bad("an auxC box of another version or without "
+                               "its terminating 0")
+            if auxc[4:].split(b"\0")[0] not in _AVIF_ALPHA_URNS:
+                continue
+            if item["type"] == b"grid":
+                raise self.unported("a grid alpha image")
+            if b"av1C" not in props:
+                raise self.bad("the alpha item has no av1C")
+            for kind in (b"irot", b"imir", b"clap"):
+                if kind in props:
+                    raise self.bad(f"a transformative property "
+                                   f"{kind.decode('latin-1')!r} on the alpha "
+                                   f"item")
+            return self.item_data(item), props
+        return None
 
 
 def _avif_nclx(props: dict):
@@ -2987,9 +3043,10 @@ def _avif_nclx(props: dict):
     return matrix, bool(colr[10] >> 7)
 
 
-def _avif_check_properties(heif: _Heif, props: dict):
+def _avif_check_properties(heif: _Heif, props: dict) -> bool:
     """libavif's checks of the properties: colr's reserved bits, av1C's
-    marker and version, pixi's channels and depths against av1C's."""
+    marker and version, pixi's channels and depths against av1C's.
+    → av1C's monochrome flag (libavif then gives cv2 a gray image)."""
     colr = props.get(b"colr")
     if colr is not None and colr[:4] == b"nclx" and len(colr) >= 11 and \
             colr[10] & 0x7F:
@@ -3006,8 +3063,7 @@ def _avif_check_properties(heif: _Heif, props: dict):
         if any(x != av1c_depth for x in pixi[5:5 + pixi[4]]):
             raise heif.bad(f"pixi's depths {list(pixi[5:5 + pixi[4]])} "
                            f"are not av1C's {av1c_depth} bits")
-    if av1c[2] & 0x10:          # libavif reads the luma alone: gray
-        raise heif.unported("av1C's monochrome (4:0:0) flag")
+    return bool(av1c[2] & 0x10)
 
 
 def _up2_linear(c: np.ndarray, width: int) -> np.ndarray:
@@ -3076,13 +3132,35 @@ def yuv_to_rgb_jpeg(y: np.ndarray, u: np.ndarray, v: np.ndarray
     return np.clip(np.stack([r, g, b], -1) >> 6, 0, 255).astype(np.uint8)
 
 
+def avif_gray(y: np.ndarray, depth: int) -> np.ndarray:
+    """A gray AVIF (av1C's monochrome flag) → (H, W, 3) uint8 as cv2 5.0.0
+    reads it: OpenCV copies the luma plane itself, whatever colr says, and
+    converts samples past 8 bits with ``convertTo``'s scale of 2^(8 - depth)
+    (rounded half to even, saturated)."""
+    y = y.astype(np.int64)
+    if depth > 8:
+        s = depth - 8
+        q, r, half = y >> s, y & ((1 << s) - 1), 1 << (s - 1)
+        y = np.minimum(q + ((r > half) | ((r == half) & (q & 1 == 1))), 255)
+    return np.repeat(y.astype(np.uint8)[..., None], 3, -1)
+
+
 def avif_planes_to_rgb(planes, depth: int, subx: int, suby: int,
                        matrix: int, full_range: bool, path="image"):
     """Decoded AV1 planes → (H, W, 3) uint8 RGB as cv2 5.0.0 gets them:
     OpenCV asks libavif 1.4.2 for 8-bit BGR; libavif cuts samples past 8
     bits to their top 8 and converts with libyuv (BT.601 and BT.470BG full
-    range), or takes its own identity path (GBR, matrix 0, 4:4:4: samples
-    past 8 bits scaled by 255 / max and rounded)."""
+    range; 4:2:0 and 4:2:2 chroma upsampled bilinearly), or takes its own
+    identity path (GBR, matrix 0, 4:4:4: samples past 8 bits scaled by 255
+    / max and rounded).  A monochrome frame under a colour av1C: its luma
+    as gray at 8 bits, as libyuv's I400 conversion gives it."""
+    if len(planes) == 1:
+        if depth > 8 or not full_range:
+            raise RuntimeError(f"{path}: an AVIF image of a monochrome frame "
+                               f"under a colour av1C at {depth} bits or "
+                               f"limited range, which the port does not read "
+                               f"yet (cv2 does)")
+        return avif_gray(planes[0], 8)
     y, u, v = planes
     height, width = y.shape
     if not full_range:
@@ -3104,19 +3182,24 @@ def avif_planes_to_rgb(planes, depth: int, subx: int, suby: int,
         raise RuntimeError(f"{path}: an AVIF image of matrix coefficients "
                            f"{matrix}, which the port does not read yet "
                            f"(cv2 does)")
-    if subx:
+    if subx and suby:
         u = upsample_420(u, width, height)
         v = upsample_420(v, width, height)
+    elif subx:          # 4:2:2: libyuv's I422ToARGBMatrixLinear, rows alone
+        u = _up2_linear(u.astype(np.int32), width)
+        v = _up2_linear(v.astype(np.int32), width)
     return yuv_to_rgb_jpeg(y, u, v)
 
 
 def decode_av1(obu: bytes, path="image"):
-    """The OBUs of an AV1 still image → ([Y, U, V] uint16 planes, info):
-    info is (width, height, bit depth, subsampling x, subsampling y,
-    monochrome, colour primaries, transfer, matrix, full range) from the
-    sequence header, then the tools the frame used (tile columns and rows,
-    128x128 superblocks, CDEF, quantizer matrices, lossless, delta q,
-    filter intra enabled)."""
+    """The OBUs of an AV1 still image → ([Y, U, V] uint16 planes, or [Y]
+    for a monochrome frame, info): info is (width, height, bit depth,
+    subsampling x, subsampling y, monochrome, colour primaries, transfer,
+    matrix, full range) from the sequence header, then the tools the frame
+    used (tile columns and rows, 128x128 superblocks, CDEF, quantizer
+    matrices, lossless, delta q, filter intra enabled, screen content
+    tools, intra block copy allowed) and the palette and intra block copy
+    blocks decoded."""
     import ctypes
 
     lib = _load_avif_codec()
@@ -3130,12 +3213,12 @@ def decode_av1(obu: bytes, path="image"):
                                f"does)")
         raise RuntimeError(f"{path}: AV1 data cv2 does not read: {msg}")
     try:
-        info = (ctypes.c_longlong * 18)()
+        info = (ctypes.c_longlong * 22)()
         lib.av1_info(handle, info)
         info = list(info)
-        width, height, _, subx, suby = info[:5]
+        width, height, _, subx, suby, mono = info[:6]
         planes = []
-        for p in range(3):
+        for p in range(1 if mono else 3):
             sx, sy = (subx, suby) if p else (0, 0)
             plane = np.empty(((height + sy) >> sy, (width + sx) >> sx),
                              np.uint16)
@@ -3153,13 +3236,36 @@ def _decode_avif_bytes(data: bytes, path):
     ispe = props[b"ispe"]
     if len(ispe) < 12:
         raise heif.bad("an ispe box cut short")
-    _avif_check_properties(heif, props)
+    gray = _avif_check_properties(heif, props)
+    alpha = heif.alpha_item()
+    if alpha is not None:
+        _avif_check_properties(heif, alpha[1])
+        # an alpha without ispe takes the colour's (libavif's non-standard
+        # rule); its size must be the colour item's
+        aispe = alpha[1].get(b"ispe", ispe)
+        if len(aispe) < 12:
+            raise heif.bad("an ispe box cut short")
+        if aispe[4:12] != ispe[4:12]:
+            raise heif.bad("an alpha item of another size than the colour")
     planes, info = decode_av1(obu, path)
     width, height, depth, subx, suby = info[:5]
     if (width, height) != struct.unpack_from(">II", ispe, 4):
         # libavif sizes its image by ispe and copies the frame into it
         raise heif.unported(f"a {width}x{height} frame in an item whose "
                             f"ispe differs")
+    if alpha is not None:
+        # libavif decodes the alpha too (its frame fitted to the item's
+        # size), and refuses one that does not decode or whose depth is not
+        # the colour's
+        _, ainfo = decode_av1(alpha[0], path)
+        if ainfo[2] != depth:
+            raise heif.bad(f"a {ainfo[2]}-bit alpha frame for a {depth}-bit "
+                           f"image")
+    if gray:
+        if alpha is not None:
+            # OpenCV's reader asks for 2 channels and fails
+            raise heif.bad("a gray image with an alpha item")
+        return avif_gray(planes[0], depth)
     nclx = _avif_nclx(props)
     matrix, full = nclx if nclx is not None else (info[8], bool(info[9]))
     return avif_planes_to_rgb(planes, depth, subx, suby, matrix, full, path)
@@ -3171,15 +3277,17 @@ def read_avif(path) -> np.ndarray:
     libaom 3.14.1 and libyuv 1924): the container parsed here as libavif
     parses a still image, the AV1 key frame decoded by the port's own
     decoder (``csrc/avif_codec.cpp``), the YUV → RGB of libavif and libyuv.
-    Reads what cv2's and Pillow's writers make: 8, 10 and 12 bits, 4:2:0
-    and 4:4:4 (lossless too), any tiling, 64x64 or 128x128 superblocks,
-    CDEF, quantizer matrices.  Raises ``RuntimeError`` naming the file where
+    Reads what cv2's and Pillow's writers make: 8, 10 and 12 bits, 4:2:0,
+    4:2:2, 4:4:4 and 4:0:0 (gray: the luma as OpenCV copies it), lossless
+    too, any tiling, 64x64 or 128x128 superblocks, CDEF, quantizer
+    matrices, the screen content tools (palette, intra block copy), an
+    alpha item (decoded and checked as libavif does, then dropped as cv2's
+    3-channel read drops it).  Raises ``RuntimeError`` naming the file where
     cv2 returns None, and naming the kind for what the port does not read
-    yet (image sequences, grids, alpha, rotations, mirrors, clean
-    apertures, screen content tools, loop restoration, superres, film
-    grain, segmentation, delta loop filter, 4:2:2, monochrome, full
-    sequence headers, matrices other than BT.601 and identity, limited
-    range)."""
+    yet (film grain, image sequences, grids, rotations, mirrors, clean
+    apertures, a premultiplied alpha, loop restoration, superres,
+    segmentation, delta loop filter, full sequence headers, matrices other
+    than BT.601 and identity, limited range)."""
     with open(path, "rb") as f:
         data = f.read()
     return _decode_avif_bytes(data, path)
@@ -3194,9 +3302,12 @@ def read_image(fn: str) -> np.ndarray:
     Radiance HDR (``#?RADIANCE``, ``#?RGBE``), PFM (``PF``, ``Pf``), PAM
     (``P7``), Sun raster, JPEG 2000 (the JP2 signature box, or a raw
     codestream's ``FF 4F FF 51``) and AVIF (an ``ftyp`` box with the
-    ``avif`` or ``avis`` brand) through the port's own readers.  A kind of
-    AVIF the port does not read yet raises ``RuntimeError`` naming the file
-    and the kind; any other file raises naming the file."""
+    ``avif`` or ``avis`` brand) through the port's own readers (AVIF: every
+    chroma format, the screen content tools and the alpha item that cv2's
+    and Pillow's writers make; ``read_avif``).  A kind of AVIF the port does
+    not read yet (film grain, grids, sequences and the rarer kinds
+    ``read_avif`` lists) raises ``RuntimeError`` naming the file and the
+    kind; any other file raises naming the file."""
     with open(fn, "rb") as f:
         head = f.read(512)
     if head.startswith(PNG_SIGNATURE):

@@ -390,12 +390,9 @@ def test_obu_layouts_match_cv2(cv2, pil, tmp_path, layout, tiles):
 
 
 _REFUSED = {
-    "422": (dict(subsampling="4:2:2"), "4:2:2 chroma"),
-    "400": (dict(subsampling="4:0:0"), r"monochrome \(4:0:0\)"),
     "grain": (dict(advanced={"film-grain-test": "1"}), "film grain"),
-    "screen": (dict(advanced={"tune-content": "screen"}),
-               "screen content tools"),
-    "alpha": (dict(), "an alpha or other auxiliary image"),
+    # libaom's denoiser writes its noise model as film grain parameters
+    "denoise": (dict(advanced={"denoise-noise-level": "25"}), "film grain"),
 }
 
 
@@ -404,20 +401,36 @@ def test_unported_tools_raise_naming_the_feature(cv2, pil, tmp_path, kind):
     # files cv2 reads with a tool the port does not decode yet
     opts, feature = _REFUSED[kind]
     img = oracle.avif_image("photo", 96, 128, np.random.default_rng(8))
-    if kind == "alpha":
-        img = np.dstack([img, np.full(img.shape[:2], 128, np.uint8)])
     path = tmp_path / f"{kind}.avif"
     path.write_bytes(oracle.pillow_avif(img, **opts))
     assert cv2.imread(str(path)) is not None
-    try:
-        got = read_avif(str(path))
-    except RuntimeError as err:
-        assert f"{kind}.avif" in str(err) and "not read yet" in str(err)
-        assert re.search(feature, str(err)), str(err)
-        return
-    # a screen-content file whose frame header left the tools off decodes
-    assert kind == "screen"
-    np.testing.assert_array_equal(got, cv2.imread(str(path))[..., ::-1])
+    with pytest.raises(RuntimeError) as err:
+        read_avif(str(path))
+    assert f"{kind}.avif" in str(err.value)
+    assert "not read yet" in str(err.value)
+    assert re.search(feature, str(err.value)), str(err.value)
+
+
+_READ_SINCE = {
+    "422": dict(subsampling="4:2:2"),
+    "400": dict(subsampling="4:0:0"),
+    "screen": dict(advanced={"tune-content": "screen"}),
+    "alpha": dict(),
+}
+
+
+@pytest.mark.parametrize("kind", list(_READ_SINCE))
+def test_pillow_kinds_read_as_cv2(cv2, pil, tmp_path, kind):
+    # the files PR 17 refused (4:2:2, 4:0:0, screen content, an alpha
+    # item) read as cv2 reads them
+    img = oracle.avif_image("photo", 96, 128, np.random.default_rng(8))
+    if kind == "alpha":
+        img = np.dstack([img, np.full(img.shape[:2], 128, np.uint8)])
+    path = tmp_path / f"{kind}.avif"
+    path.write_bytes(oracle.pillow_avif(img, **_READ_SINCE[kind]))
+    want = cv2.imread(str(path))
+    assert want is not None
+    np.testing.assert_array_equal(read_avif(str(path)), want[..., ::-1])
 
 
 def _edits(data):

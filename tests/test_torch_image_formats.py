@@ -425,7 +425,7 @@ def test_pnm_writer_matches_cv2_bytes(cv2, tmp_path, ext):
 
 # kinds of a format cv2 reads that the port does not yet: extension ->
 # (the kind as the port names it, Pillow's save options that make it)
-_UNPORTED = {"avif": ("4:2:2 chroma", dict(subsampling="4:2:2"))}
+_UNPORTED = {"avif": ("film grain", dict(advanced={"film-grain-test": "1"}))}
 
 
 @pytest.mark.parametrize("ext", list(_UNPORTED))

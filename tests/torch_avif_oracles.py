@@ -10,9 +10,14 @@ bundled libraries through ctypes:
   even where it is not exported: the 1D inverse transforms
   (``av1_idct16``, ``av1_iadst8``, ...);
 * ``avif_image(kind, h, w, rng)``: the test contents (a crop of the
-  committed 1297x840 view, noise, a flat colour, smooth ramps);
+  committed 1297x840 view, noise, a flat colour, smooth ramps), and
+  ``screen_image``: text-like glyphs, flat blocks and a ramp, which libaom
+  codes with its screen content tools (palette, intra block copy);
 * ``cv2_avif`` and ``pillow_avif``: files written by cv2 (its qualities and
-  depths) and by Pillow (libaom's own options through ``advanced=``).
+  depths) and by Pillow (libaom's own options through ``advanced=``);
+* ``alpha_parts``, ``item_props`` and ``build_items``: a Pillow RGBA
+  file's colour and alpha items taken apart, and files of several items
+  written back with hand-edited properties and references.
 """
 
 from __future__ import annotations
@@ -140,6 +145,33 @@ def avif_image(kind: str, h: int, w: int, rng) -> np.ndarray:
     y0 = int(rng.integers(0, _VIEW.shape[0] - h + 1))
     x0 = int(rng.integers(0, _VIEW.shape[1] - w + 1))
     return _VIEW[y0:y0 + h, x0:x0 + w].copy()
+
+
+SCREEN_KINDS = ("text", "blocks", "ramp")
+
+
+def screen_image(kind: str, h: int, w: int, rng) -> np.ndarray:
+    """(h, w, 3) uint8 BGR content of the kinds that make libaom's encoder
+    use its screen content tools: text-like rows of a few repeated glyphs
+    (intra block copy and palette), 16x16 blocks of a few colours
+    (palette), a smooth ramp (Pillow's default then turns the tools on for
+    large images)."""
+    if kind == "ramp":
+        y, x = np.mgrid[:h, :w]
+        return np.stack([x * 255 // max(w - 1, 1), y * 255 // max(h - 1, 1),
+                         np.full((h, w), 128)], -1).astype(np.uint8)
+    ncol = int(rng.integers(2, 9))
+    pal = rng.integers(0, 256, (ncol, 3), dtype=np.uint8)
+    if kind == "blocks":
+        idx = rng.integers(0, ncol, ((h + 15) // 16, (w + 15) // 16))
+        return pal[np.kron(idx, np.ones((16, 16), int))[:h, :w]]
+    img = np.empty((h, w, 3), np.uint8)
+    img[:] = pal[0]
+    glyphs = rng.integers(0, ncol, (8, 6, 5))
+    for y in range(2, h - 7, 11):
+        for x in range(2, w - 5, 7):
+            img[y:y + 6, x:x + 5] = pal[glyphs[rng.integers(0, 8)]]
+    return img
 
 
 def cv2_avif(bgr: np.ndarray, quality=None, depth=None) -> bytes:
@@ -391,3 +423,81 @@ def obu(kind: int, payload: bytes) -> bytes:
         if not n:
             break
     return bytes([(kind << 3) | 2]) + size + payload
+
+
+def item_props(data: bytes, item_id: int):
+    """An item's associated property boxes (whole boxes, in order) and
+    whether each is essential, from a file with ipma version 0."""
+    s, e = find_box(data, (b"meta", b"iprp", b"ipco"))
+    props = [data[bs:be] for _, _, bs, be in boxes(data, s + 8, e)]
+    s, _ = find_box(data, (b"meta", b"iprp", b"ipma"))
+    assert data[s + 8] == 0 and not data[s + 11] & 1
+    pos = s + 16
+    for _ in range(struct.unpack_from(">I", data, s + 12)[0]):
+        iid, n = struct.unpack_from(">HB", data, pos)
+        assoc = [(bool(b >> 7), b & 0x7F) for b in data[pos + 3:pos + 3 + n]]
+        pos += 3 + n
+        if iid == item_id:
+            return [(props[i - 1], ess) for ess, i in assoc]
+    raise KeyError(item_id)
+
+
+def alpha_parts(data: bytes):
+    """(colour OBUs, colour properties, alpha OBUs, alpha properties) of a
+    file Pillow wrote from RGBA: item 1 the colour, item 2 its alpha."""
+    s, _ = find_box(data, (b"meta", b"iloc"))
+    assert data[s + 8] == 0 and data[s + 12:s + 14] == b"\x44\x00"
+    n = struct.unpack_from(">H", data, s + 14)[0]
+    pos, obu_of = s + 16, {}
+    for _ in range(n):
+        iid, _, count = struct.unpack_from(">HHH", data, pos)
+        assert count == 1
+        off, length = struct.unpack_from(">II", data, pos + 6)
+        obu_of[iid] = data[off:off + length]
+        pos += 14
+    return obu_of[1], item_props(data, 1), obu_of[2], item_props(data, 2)
+
+
+def build_items(items, refs, primary: int = 1) -> bytes:
+    """An AVIF file of several items: ``items`` is [(id, type, OBUs,
+    [(property box, essential)])], ``refs`` [(type, from, [to])]; the
+    property boxes shared by value, iloc version 0, ipma version 0, an
+    iref of version 0, the items' data in mdat in their order."""
+    ftyp = box(b"ftyp", b"avif" + bytes(4) + b"avifmif1miafMA1B")
+    hdlr = full_box(b"hdlr", 0, 0, bytes(4) + b"pict" + bytes(12) + b"\0")
+    pitm = full_box(b"pitm", 0, 0, struct.pack(">H", primary))
+    infes = b"".join(full_box(b"infe", 2, 0, struct.pack(">HH", iid, 0) +
+                              kind + b"\0") for iid, kind, _, _ in items)
+    iinf = full_box(b"iinf", 0, 0, struct.pack(">H", len(items)) + infes)
+    uniq = []
+    for _, _, _, props in items:
+        for prop, _ in props:
+            if prop not in uniq:
+                uniq.append(prop)
+    ipco = box(b"ipco", b"".join(uniq))
+    entries = b""
+    for iid, _, _, props in items:
+        entries += struct.pack(">HB", iid, len(props)) + bytes(
+            (0x80 if ess else 0) | (uniq.index(prop) + 1)
+            for prop, ess in props)
+    ipma = full_box(b"ipma", 0, 0, struct.pack(">I", len(items)) + entries)
+    iprp = box(b"iprp", ipco + ipma)
+    iref = full_box(b"iref", 0, 0, b"".join(
+        box(kind, struct.pack(">HH", src, len(dst)) +
+            b"".join(struct.pack(">H", t) for t in dst))
+        for kind, src, dst in refs)) if refs else b""
+
+    def iloc(first):
+        body, at = b"", first
+        for iid, _, obu, _ in items:
+            body += struct.pack(">HHHII", iid, 0, 1, at, len(obu))
+            at += len(obu)
+        return full_box(b"iloc", 0, 0, b"\x44\x00" +
+                        struct.pack(">H", len(items)) + body)
+    meta0 = full_box(b"meta", 0, 0, hdlr + pitm + iloc(0) + iinf + iprp +
+                     iref)
+    first = len(ftyp) + len(meta0) + 8
+    meta = full_box(b"meta", 0, 0, hdlr + pitm + iloc(first) + iinf + iprp +
+                    iref)
+    mdat = box(b"mdat", b"".join(obu for _, _, obu, _ in items))
+    return ftyp + meta + mdat

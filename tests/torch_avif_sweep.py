@@ -5,13 +5,18 @@ cv2, on the CPU (not collected by pytest; needs cv2 and Pillow):
 
 Each file is random: a size (1-400 a side, log-uniform; one in twenty up
 to 1300), a content (a crop of the committed 1297x840 view, noise, a flat
-colour, smooth ramps) and a writer: cv2 at a random quality (0-100) and depth (8, 10 or 12 bits), or
-Pillow at a random quality with random libaom options (4:4:4, tile columns
-and rows, 64 or 128 superblocks, CDEF, quantizer matrices, aq and deltaq
-modes).  ``read_image`` must equal ``cv2.imread(path)[..., ::-1]`` bit for
-bit; a file of a tool the port does not decode yet (where a random option
-makes one) is counted apart.  Prints one JSON line of counts; exits 1 on any
-mismatch.
+colour, smooth ramps; or screen content: text-like glyphs, flat blocks, a
+ramp) and a writer: cv2 at a random quality (0-100) and depth (8, 10 or 12
+bits), from colour or gray input (gray: a monochrome file), or Pillow at a
+random quality with random libaom options (4:4:4, 4:2:2 and 4:0:0, tile
+columns and rows, 64 or 128 superblocks, CDEF, quantizer matrices, aq and
+deltaq modes, ``tune-content=screen``, now and then film grain) from RGB or
+RGBA (an alpha item).
+``read_image`` must equal ``cv2.imread(path)[..., ::-1]`` bit for bit; a
+file of a kind the port does not decode yet (where a random option makes
+one) is counted apart, by kind.  Prints one JSON line of counts (and the
+files that used palette and intra block copy); exits 1 on any mismatch.
+``--keep DIR`` keeps each mismatching file there.
 """
 
 import argparse
@@ -29,6 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch_avif_oracles as oracle  # noqa: E402
 
+from gsplat_tpu_torch.utils import image_io  # noqa: E402
 from gsplat_tpu_torch.utils.image_io import read_image  # noqa: E402
 
 
@@ -36,17 +42,32 @@ def random_file(rng):
     """(bytes, a description) of one random AVIF file."""
     top = 1300 if rng.random() < 0.05 else 400
     h, w = (int(np.exp(rng.uniform(0, np.log(top)))) for _ in range(2))
-    kind = str(rng.choice(oracle.KINDS))
-    img = oracle.avif_image(kind, h, w, rng)
+    if rng.random() < 0.3:
+        kind = str(rng.choice(oracle.SCREEN_KINDS))
+        img = oracle.screen_image(kind, h, w, rng)
+    else:
+        kind = str(rng.choice(oracle.KINDS))
+        img = oracle.avif_image(kind, h, w, rng)
     quality = int(rng.integers(0, 101))
-    if rng.random() < 0.6:
+    if rng.random() < 0.5:
         depth = int(rng.choice([8, 8, 10, 12]))
+        gray = rng.random() < 0.15
+        if gray:
+            img = img[..., 1]
         if depth > 8:
             img = oracle.deepen(img, rng)
-        desc = dict(writer="cv2", quality=quality, depth=depth)
+        desc = dict(writer="cv2", quality=quality, depth=depth, gray=gray)
         return oracle.cv2_avif(img, quality, None if depth == 8 else depth), \
             (h, w, kind, desc)
+    if rng.random() < 0.2:
+        alpha = oracle.screen_image("blocks", h, w, rng)[..., :1]
+        img = np.concatenate([img, alpha], -1)
     adv = {}
+    if rng.random() < 0.3:
+        adv["tune-content"] = "screen"
+    if rng.random() < 0.03:         # film grain, which the port refuses
+        adv[str(rng.choice(["film-grain-test", "denoise-noise-level"]))] = \
+            str(int(rng.integers(1, 16)))
     if rng.random() < 0.5:
         adv["tile-columns"] = str(int(rng.integers(0, 3)))
     if rng.random() < 0.5:
@@ -57,10 +78,25 @@ def random_file(rng):
         if rng.random() < 0.4:
             adv[key] = str(int(rng.integers(0, 2)))
     opts = dict(quality=quality, advanced=adv)
-    if rng.random() < 0.3:
-        opts["subsampling"] = "4:4:4"
-    return oracle.pillow_avif(img, **opts), (h, w, kind,
-                                             dict(writer="pillow", **opts))
+    if rng.random() < 0.5:
+        opts["subsampling"] = str(rng.choice(["4:4:4", "4:2:2", "4:0:0"]))
+    return oracle.pillow_avif(img, **opts), (
+        h, w, kind, dict(writer="pillow", alpha=img.shape[2] == 4, **opts))
+
+
+def tools(data: bytes):
+    """decode_av1's info on a file's primary item."""
+    heif = image_io._Heif(data, "file")
+    heif.parse()
+    return image_io.decode_av1(heif.primary_item()[0])[1]
+
+
+def keep(folder, data: bytes, counts: dict):
+    if folder:
+        os.makedirs(folder, exist_ok=True)
+        name = os.path.join(folder, f"mismatch_{counts['mismatch']}.avif")
+        with open(name, "wb") as f:
+            f.write(data)
 
 
 def main():
@@ -69,10 +105,12 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--seconds", type=float, default=600.0)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--keep", default=None)
     a = p.parse_args()
     rng = np.random.default_rng(a.seed)
     counts = dict(files=0, equal=0, both_refuse=0, not_yet=0, writer_fail=0,
-                  mismatch=0, cv2=0, pillow=0)
+                  mismatch=0, cv2=0, pillow=0, palette=0, intrabc=0,
+                  not_yet_kinds={})
     end = time.time() + a.seconds
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sweep.avif")
@@ -94,16 +132,24 @@ def main():
                     counts["both_refuse"] += 1
                 elif "not read yet" in str(err):
                     counts["not_yet"] += 1
+                    why = str(err).split(": an AVIF ")[-1]
+                    kinds = counts["not_yet_kinds"]
+                    kinds[why] = kinds.get(why, 0) + 1
                     print("not yet", desc, err, file=sys.stderr)
                 else:
                     counts["mismatch"] += 1
+                    keep(a.keep, data, counts)
                     print("refused", desc, err, file=sys.stderr)
                 continue
             if want is not None and got.shape == want.shape and \
                     (got == want[..., ::-1]).all():
                 counts["equal"] += 1
+                info = tools(data)
+                counts["palette"] += info[20] > 0
+                counts["intrabc"] += info[21] > 0
             else:
                 counts["mismatch"] += 1
+                keep(a.keep, data, counts)
                 print("mismatch", desc, file=sys.stderr)
     print(json.dumps(counts))
     return 1 if counts["mismatch"] else 0

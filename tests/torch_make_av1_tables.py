@@ -64,6 +64,7 @@ class Elf:
             end = d.index(b"\0", strtab + name)
             self.sections[d[strtab + name:end].decode()] = (addr, off, size)
         self.symbols = {}
+        self.functions = {}
         if ".symtab" not in self.sections:
             sys.exit(f"{path} has no symbol table")
         _, so, sz = self.sections[".symtab"]
@@ -71,9 +72,10 @@ class Elf:
         for i in range(sz // 24):
             nm, info, _, _, val, size = struct.unpack_from("<IBBHQQ", d,
                                                            so + 24 * i)
-            if size and (info & 0xF) == 1:
+            if size and (info & 0xF) in (1, 2):
                 end = d.index(b"\0", sto + nm)
-                self.symbols[d[sto + nm:end].decode()] = (val, size)
+                into = self.symbols if (info & 0xF) == 1 else self.functions
+                into[d[sto + nm:end].decode()] = (val, size)
 
     def table(self, name: str, dtype, shape) -> np.ndarray:
         addr, size = self.symbols[name]
@@ -143,6 +145,60 @@ CFL_ALPHA = [
      32520, 32594, 32622, 32656, 32660]]
 
 
+# The screen content and inter-transform mode CDFs without a symbol
+# (libaom's default_palette_*_cdf, default_intrabc_cdf and
+# default_txfm_partition_cdf, folded into av1_init_mode_probs)
+PALETTE_Y_MODE = [[[31676], [3419], [1261]], [[31912], [2859], [980]],
+                  [[31823], [3400], [781]], [[32030], [3561], [904]],
+                  [[32309], [7337], [1462]], [[32265], [4015], [1521]],
+                  [[32450], [7946], [129]]]
+PALETTE_UV_MODE = [[32461], [21488]]
+PALETTE_Y_SIZE = [[7952, 13000, 18149, 21478, 25527, 29241],
+                  [7139, 11421, 16195, 19544, 23666, 28073],
+                  [7788, 12741, 17325, 20500, 24315, 28530],
+                  [8271, 14064, 18246, 21564, 25071, 28533],
+                  [12725, 19180, 21863, 24839, 27535, 30120],
+                  [9711, 14888, 16923, 21052, 25661, 27875],
+                  [14940, 20797, 21678, 24186, 27033, 28999]]
+PALETTE_UV_SIZE = [[8713, 19979, 27128, 29609, 31331, 32272],
+                   [5839, 15573, 23581, 26947, 29848, 31700],
+                   [4426, 11260, 17999, 21483, 25863, 29430],
+                   [3228, 9464, 14993, 18089, 22523, 27420],
+                   [3768, 8886, 13091, 17852, 22495, 27207],
+                   [2464, 8451, 12861, 21632, 25525, 28555],
+                   [1269, 5435, 10433, 18963, 21700, 25865]]
+INTRABC = [30531]
+TXFM_SPLIT = [[28581], [23846], [20847], [24315], [18196], [12133], [18791],
+              [10887], [11005], [27179], [20004], [11281], [26549], [19308],
+              [14224], [28015], [21546], [14400], [28165], [22401], [16088]]
+
+
+def check_blocks_in_library(elf: Elf, name: str, rows, pad: int):
+    """A table without a symbol, laid out as libaom stores it (each row its
+    inverse CDF padded to ``pad`` entries), occurs in the library's bytes:
+    every 16-byte piece of it (the compiler keeps such tables as vector
+    constants), or, for one or two rows, each row's value as an immediate
+    of av1_init_mode_probs."""
+    rows = np.asarray(rows, np.int64).reshape(-1, np.shape(rows)[-1])
+    lay = np.zeros((rows.shape[0], pad), np.int64)
+    lay[:, :rows.shape[1]] = 32768 - rows
+    blob = lay.astype("<u2").tobytes()
+    if len(blob) < 16:
+        addr, off, _ = elf.sections[".text"]
+        fn = elf.functions["av1_init_mode_probs"]
+        code = elf.data[off + fn[0] - addr:off + fn[0] - addr + fn[1]]
+        for row in lay:
+            if row[:1].astype("<u2").tobytes() not in code:
+                sys.exit(f"{name}: {list(32768 - row[:1])} is not in "
+                         f"av1_init_mode_probs")
+        return
+    for i in range(0, len(blob) - 15, 16):
+        if blob[i:i + 16] not in elf.data:
+            sys.exit(f"{name}: bytes {i}-{i + 15} are not in the library")
+    if blob[-16:] not in elf.data:
+        sys.exit(f"{name}: its last bytes are not in the library")
+
+
 def check_in_library(elf: Elf, name: str, rows):
     """Each row's inverse CDF (its first 8 values at most) occurs in the
     library's bytes, in .rodata or as immediates in .text."""
@@ -167,6 +223,11 @@ SPEC_ROWS = {
     "kTxbSkipCdf": ([31849, 32768, 0], None),
     "kPartitionW8Cdf": ([19132, 25510, 30392, 32768, 0], None),
     "kDcQLookup": ([4, 8, 8, 9, 10, 11, 12, 12], [21387]),
+    "kPaletteYColorCdf": ([28710, 32768, 0], None),
+    "kMvJointCdf": ([4096, 11264, 19328, 32768, 0], None),
+    "kMvClassCdf": ([28672, 30976, 31858, 32320, 32551, 32656, 32740, 32757,
+                     32762, 32767, 32768, 0], None),
+    "kInterTxTypeSet3Cdf": ([16384, 32768, 0], [748, 32768, 0]),
     "kAcQLookup": ([4, 8, 9, 10, 11, 12, 13, 14], [29247]),
 }
 
@@ -312,6 +373,47 @@ def collect(elf: Elf):
         sys.exit("av1_filter_intra_taps: an eighth tap")
     t["kFilterIntraTaps"] = ("int8_t", taps[..., :7])
     t["kModeToAngle"] = ("uint8_t", elf.table("mode_to_angle_map", u8, (13,)))
+    # screen content tools: palette and intra block copy
+    for name, rows, nsym, pad in (
+            ("kPaletteYModeCdf", PALETTE_Y_MODE, 2, 3),
+            ("kPaletteUvModeCdf", PALETTE_UV_MODE, 2, 3),
+            ("kPaletteYSizeCdf", PALETTE_Y_SIZE, 7, 8),
+            ("kPaletteUvSizeCdf", PALETTE_UV_SIZE, 7, 8),
+            ("kIntrabcCdf", INTRABC, 2, 3),
+            ("kTxfmSplitCdf", TXFM_SPLIT, 2, 3)):
+        check_blocks_in_library(elf, name, rows, pad)
+        t[name] = ("uint16_t", spec_cdf(rows, nsym))
+    for plane in ("y", "uv"):
+        icdf = elf.table(f"default_palette_{plane}_color_index_cdf", u16,
+                         (7, 5, 9))
+        out = np.zeros((7, 5, 9), np.int64)
+        for k in range(7):      # k + 2 colours
+            out[k, :, :k + 3] = cdf_from_icdf(icdf[k, :, :k + 3], k + 2)
+        t[f"kPalette{plane.capitalize()}ColorCdf"] = ("uint16_t", out)
+    t["kPaletteColorContext"] = ("int8_t", elf.table(
+        "av1_palette_color_index_context_lookup", "<i4", (9,)))
+    # the inter transform sets (intra block copy's blocks are inter blocks)
+    ext = elf.table("default_inter_ext_tx_cdf", u16, (4, 4, 17))
+    t["kInterTxTypeSet1Cdf"] = ("uint16_t", cdf_from_icdf(ext[1], 16))
+    t["kInterTxTypeSet2Cdf"] = ("uint16_t", cdf_from_icdf(ext[2, :, :13], 12))
+    t["kInterTxTypeSet3Cdf"] = ("uint16_t", cdf_from_icdf(ext[3, :, :3], 2))
+    t["kExtTxInv"] = ("uint8_t", elf.table("av1_ext_tx_inv", "<i4", (6, 16)))
+    t["kExtTxUsed"] = ("uint8_t", elf.table("av1_ext_tx_used", "<i4",
+                                            (6, 16)))
+    # the motion vector CDFs (nmv_context: joints, then per component
+    # classes, class0_fp, fp, sign, class0_hp, hp, class0, bits); a DV reads
+    # whole pels: the joints, signs, classes, class 0 bits and bits
+    nmv = elf.table("default_nmv_context", u16, (143,))
+    comp = [nmv[5 + 69 * c:5 + 69 * (c + 1)] for c in range(2)]
+    t["kMvJointCdf"] = ("uint16_t", cdf_from_icdf(nmv[:5], 4))
+    t["kMvClassCdf"] = ("uint16_t", np.stack([cdf_from_icdf(c[:12], 11)
+                                              for c in comp]))
+    t["kMvSignCdf"] = ("uint16_t", np.stack([cdf_from_icdf(c[27:30], 2)
+                                             for c in comp]))
+    t["kMvClass0Cdf"] = ("uint16_t", np.stack([cdf_from_icdf(c[36:39], 2)
+                                               for c in comp]))
+    t["kMvBitCdf"] = ("uint16_t", np.stack([cdf_from_icdf(
+        c[39:69].reshape(10, 3), 2) for c in comp]))
     for name, (_, arr) in t.items():
         check_rows(name, arr)
     return t, nz

@@ -31,8 +31,10 @@ cv2's default JP2 bytes and of two resizes of the 1297x840 timing view;
 ``enc_src.png`` (WebP).  ``AVIF_UNPORTED`` names AVIF files cv2 reads with
 a tool the port does not decode yet (it must raise naming them and saying
 so), ``TIMING_AVIF`` the SHA-256s of cv2's decodes of the full-size AVIF
-views, and ``AVIF_MID`` holds cv2's default AVIF copies of the 24 views of
-``make_synth_scene`` ``mid`` (seed 0), for chip_smoke's AVIF training leg.
+views, ``AVIF_MID`` holds cv2's default AVIF copies of the 24 views of
+``make_synth_scene`` ``mid`` (seed 0), and ``AVIF_MID_SCREEN`` Pillow's
+(tune-content=screen, 4:2:2, an alpha item), for chip_smoke's AVIF
+training legs (``--avif MID_SCENE`` writes both from the scene's folder).
 
 The writers: a small C program, built here, over the system libjpeg-turbo
 (arithmetic-coded JPEG with DAC conditioning, YCCK, 2 components) and over
@@ -235,29 +237,34 @@ TIMING_CV2 = {
 # cv2's AVIF writer (libavif 1.4.2 over libaom 3.14.1): its default
 # (quality 50), quality 90, lossless (100), 10 and 12 bits, and sizes down
 # to 1x1; Pillow's through libaom's options (4:4:4, 128x128 superblocks,
-# CDEF and quantizer matrices on); an unknown property not marked essential
+# CDEF and quantizer matrices on); an unknown property not marked essential;
+# Pillow's 4:2:2, 4:0:0 and RGBA (an alpha item), flat blocks of a few
+# colours under tune-content=screen (palette) and text-like rows (palette
+# and intra block copy)
 AVIF_CASES = [
     "avif_cv2_default.avif", "avif_cv2_q90.avif", "avif_cv2_lossless.avif",
     "avif_cv2_d10.avif", "avif_cv2_d12.avif", "avif_cv2_1x1.avif",
     "avif_cv2_3x5.avif", "avif_cv2_17x33.avif", "avif_cv2_130x67.avif",
     "avif_pil_444.avif", "avif_pil_sb128.avif", "avif_pil_cdef_qm.avif",
-    "avif_unknown_property.avif",
+    "avif_unknown_property.avif", "avif_pil_422.avif", "avif_pil_400.avif",
+    "avif_pil_alpha.avif", "avif_pil_palette.avif",
+    "avif_pil_intrabc.avif",
 ]
 # libavif refuses: no ispe, an item past the end of the file, an unknown
 # essential property, a file cut short
 AVIF_REFUSED = ["avif_no_ispe.avif", "avif_iloc_past_end.avif",
                 "avif_essential_unknown.avif", "avif_cut.avif"]
-# cv2 reads them; the port does not yet: 4:2:2, 4:0:0, film grain, alpha,
-# a rotation
-AVIF_UNPORTED = ["avif_pil_422.avif", "avif_pil_400.avif",
-                 "avif_pil_grain.avif", "avif_pil_alpha.avif",
-                 "avif_irot.avif"]
+# cv2 reads them; the port does not yet: film grain, a rotation
+AVIF_UNPORTED = ["avif_pil_grain.avif", "avif_irot.avif"]
 CASES += AVIF_CASES
 REFUSED += AVIF_REFUSED
 # full-size AVIF views for chip_smoke's decode seconds and the SHA-256 of
 # cv2's decode of each (RGB, row-major bytes): TIMING by cv2 at its
 # default, at 10 and 12 bits (from TIMING * 257 as uint16), a lossless
-# 320x208 crop of it, and Pillow's 4x2 tiles and 4:4:4 lossy
+# 320x208 crop of it, and Pillow's 4x2 tiles and 4:4:4 lossy; Pillow's
+# tune-content=screen of TIMING under a 320-row band of text-like glyphs
+# (palette and intra block copy), its 4:2:2 and 4:0:0, and TIMING with
+# SCREEN_ALPHA as an alpha item
 TIMING_AVIF = {
     "timing_default_1297x840.avif": ("bfd7f5cfbcc1f8e6d44dba6fdc4ccc94"
                                      "6cbe3178ace04890bffad5c2baaf1a2c"),
@@ -271,9 +278,40 @@ TIMING_AVIF = {
                                    "9c13dce8e1df6f2019ddc913131e27be"),
     "timing_444_1297x840.avif": ("cb8400f85c88678d8f2bfc91c7fb0db3"
                                  "8eb27d010446d48a4a9a92888ae50d4c"),
+    "timing_screen_1297x840.avif": ("eee79eb13752b48a2fb99df5e548a558"
+                                    "266d4bdea54463d5d80f0bf4e3101b3e"),
+    "timing_422_1297x840.avif": ("438da6f5cfecb7a565ed02dd948db377"
+                                 "8f75507e392cef0372fe6a1aedc8eba1"),
+    "timing_400_1297x840.avif": ("f0b1c32b47588c96e77cbdcf1f0a5644"
+                                 "e0291a34ab56fe48877c4b2e2b502476"),
+    "timing_alpha_1297x840.avif": ("127eac07f5789c01fb9aa2a6e8b9459b"
+                                   "71a900963f2b1fbdb9b1ad5adb078b70"),
 }
 # cv2's default AVIF copies of make_synth_scene --preset mid's 24 views
 AVIF_MID = "avif_mid"
+# Pillow's copies of the same views with tune-content=screen, 4:2:2 and
+# SCREEN_ALPHA as an alpha item
+AVIF_MID_SCREEN = "avif_mid_screen"
+AVIF_SCREEN_OPTS = dict(subsampling="4:2:2",
+                        advanced={"tune-content": "screen"})
+
+
+def screen_alpha(h: int, w: int) -> np.ndarray:
+    """(h, w) uint8: the alpha plane of the RGBA views, a diagonal ramp."""
+    y, x = np.mgrid[:h, :w]
+    return ((x + 2 * y) * 255 // max(w - 1 + 2 * (h - 1), 1)).astype(
+        np.uint8)
+
+
+def screen_view(view: np.ndarray) -> np.ndarray:
+    """The BGR view with its top 320 rows replaced by text-like glyphs."""
+    import torch_avif_oracles as oracle
+
+    out = view.copy()
+    band = min(320, view.shape[0])
+    out[:band] = oracle.screen_image("text", band, view.shape[1],
+                                     np.random.default_rng(18))
+    return out
 
 _OPJ_LIB = "libopenjp2.so.7"
 _OPJ_PROG = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
@@ -705,7 +743,8 @@ def generate_avif(folder: str = FOLDER, mid_scene: str | None = None
                   ) -> dict:
     """The AVIF fixtures of AVIF_CASES, AVIF_REFUSED, AVIF_UNPORTED and
     TIMING_AVIF (and, given the folder of make_synth_scene --preset mid,
-    AVIF_MID's views); returns TIMING_AVIF's SHA-256s."""
+    AVIF_MID's and AVIF_MID_SCREEN's views); returns TIMING_AVIF's
+    SHA-256s."""
     import hashlib
 
     import cv2
@@ -749,13 +788,20 @@ def generate_avif(folder: str = FOLDER, mid_scene: str | None = None
     save("avif_essential_unknown.avif",
          oracle.insert_property(data, zzzz, True))
     save("avif_cut.avif", data[:len(data) - 20])
-    # what cv2 reads and the port does not yet
     save("avif_pil_422.avif", oracle.pillow_avif(big, subsampling="4:2:2"))
     save("avif_pil_400.avif", oracle.pillow_avif(big, subsampling="4:0:0"))
-    save("avif_pil_grain.avif", oracle.pillow_avif(
-        big, advanced={"film-grain-test": "1"}))
     save("avif_pil_alpha.avif", oracle.pillow_avif(
         np.dstack([big, big[..., :1]])))
+    screen = {"tune-content": "screen"}
+    save("avif_pil_palette.avif", oracle.pillow_avif(
+        oracle.screen_image("blocks", 96, 128, np.random.default_rng(3)),
+        advanced=screen))
+    save("avif_pil_intrabc.avif", oracle.pillow_avif(
+        oracle.screen_image("text", 200, 300, np.random.default_rng(4)),
+        advanced=screen))
+    # what cv2 reads and the port does not yet
+    save("avif_pil_grain.avif", oracle.pillow_avif(
+        big, advanced={"film-grain-test": "1"}))
     save("avif_irot.avif", oracle.insert_property(
         data, struct.pack(">I4sB", 9, b"irot", 1), True))
     # the full-size views
@@ -769,17 +815,26 @@ def generate_avif(folder: str = FOLDER, mid_scene: str | None = None
     save(names[4], oracle.pillow_avif(view,
                                       **oracle.PILLOW_OPTIONS["tiles_4x2"]))
     save(names[5], oracle.pillow_avif(view, **oracle.PILLOW_OPTIONS["444"]))
+    save(names[6], oracle.pillow_avif(screen_view(view), advanced=screen))
+    save(names[7], oracle.pillow_avif(view, subsampling="4:2:2"))
+    save(names[8], oracle.pillow_avif(view, subsampling="4:0:0"))
+    save(names[9], oracle.pillow_avif(np.dstack([view, screen_alpha(
+        *view.shape[:2])])))
     shas = {}
     for name in names:
         dec = np.ascontiguousarray(cv2.imread(p(name))[..., ::-1])
         shas[name] = hashlib.sha256(dec.tobytes()).hexdigest()
     if mid_scene is not None:
         src = os.path.join(mid_scene, "images_4")
-        dst = p(AVIF_MID)
-        os.makedirs(dst, exist_ok=True)
+        for sub in (AVIF_MID, AVIF_MID_SCREEN):
+            os.makedirs(p(sub), exist_ok=True)
         for name in sorted(os.listdir(src)):
+            bgr = cv2.imread(os.path.join(src, name))
             save(os.path.join(AVIF_MID, name[:-4] + ".avif"),
-                 oracle.cv2_avif(cv2.imread(os.path.join(src, name))))
+                 oracle.cv2_avif(bgr))
+            rgba = np.dstack([bgr, screen_alpha(*bgr.shape[:2])])
+            save(os.path.join(AVIF_MID_SCREEN, name[:-4] + ".avif"),
+                 oracle.pillow_avif(rgba, **AVIF_SCREEN_OPTS))
     return shas
 
 
