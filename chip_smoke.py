@@ -103,13 +103,14 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   resizes, at full size too; AVIF from cv2 and Pillow) bit for bit; then
   AVIF (the port's AV1 decoder): the committed AVIF views of the 1297x840
   view (cv2's default, 10 and 12 bits, lossless, Pillow's tiles, 4:4:4,
-  screen content, 4:2:2, 4:0:0 and RGBA) decoded to the SHA-256 of cv2's
-  decode and timed, the screen content view's palette and intra block
-  copy blocks counted, and make_synth_scene's mid preset built on the card
-  and trained over iterations 0-200 from its PNGs, from the committed cv2
-  AVIF copies of its views and from Pillow's screen-content 4:2:2 RGBA
-  copies, each AVIF leg's last l1 within the JPEG leg's bound of the PNG
-  leg's.
+  screen content, 4:2:2, 4:0:0, RGBA, film grain, libaom's denoiser and a
+  3x2 grid) decoded to the SHA-256 of cv2's decode and timed, the screen
+  content view's palette and intra block copy blocks counted, and
+  make_synth_scene's mid preset built on the card and trained over
+  iterations 0-200 from its PNGs, from the committed cv2 AVIF copies of
+  its views, from Pillow's screen-content 4:2:2 RGBA copies and from
+  Pillow's film grain copies, each AVIF leg's last l1 within the JPEG
+  leg's bound of the PNG leg's.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -1605,11 +1606,13 @@ def at_scale_path(rz, dev):
         jpeg = jpeg_capture_path(rz, scene, root, png_log)
         png_leg, tiff_leg, webp_leg, jp2_leg, gif_leg = image_formats_path(
             rz, scene, root)
-        mid_png_leg, avif_leg, avif_screen_leg = avif_path(rz, root)
+        mid_png_leg, avif_leg, avif_screen_leg, avif_grain_leg = avif_path(
+            rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
-            gif_leg, mid_png_leg, avif_leg, avif_screen_leg), scale_rows
+            gif_leg, mid_png_leg, avif_leg, avif_screen_leg,
+            avif_grain_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -2169,35 +2172,46 @@ def image_formats_path(rz, scene, root):
 # times (torch_make_image_fixtures.TIMING_AVIF holds every AVIF view's
 # SHA-256): cv2's default, 10-bit and 12-bit files of the 1297x840 view and
 # a lossless 320x208 crop of it; Pillow's screen content (palette and intra
-# block copy), 4:2:2, 4:0:0 and RGBA (an alpha item) files of it
+# block copy), 4:2:2, 4:0:0, RGBA (an alpha item), film grain (libaom's
+# test vector 1) and denoiser files of it, and a 3x2 grid of Pillow's
+# 4:4:4 tiles of it
 AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_d12_1297x840.avif", "timing_lossless_320x208.avif",
               "timing_screen_1297x840.avif", "timing_422_1297x840.avif",
-              "timing_400_1297x840.avif", "timing_alpha_1297x840.avif")
+              "timing_400_1297x840.avif", "timing_alpha_1297x840.avif",
+              "timing_grain_1297x840.avif", "timing_denoise_1297x840.avif",
+              "timing_grid_1297x840.avif")
 AVIF_REPS = 3
 # the view whose palette and intra block copy blocks the phase counts
 AVIF_SCREEN_VIEW = "timing_screen_1297x840.avif"
+# the views whose film grain and grid the phase shows in use
+AVIF_GRAIN_VIEWS = ("timing_grain_1297x840.avif",
+                    "timing_denoise_1297x840.avif")
+AVIF_GRID_VIEW = "timing_grid_1297x840.avif"
 
 
 def avif_path(rz, root):
     """AVIF scenes on the card: (a) every committed AVIF view
     (torch_make_image_fixtures.TIMING_AVIF: cv2's default, 10-bit, 12-bit
     and lossless files of the 1297x840 view or a crop of it, Pillow's 4x2
-    tiles, 4:4:4, screen content, 4:2:2, 4:0:0 and RGBA) decoded by
-    read_avif, each decode held to the SHA-256 of cv2's, AVIF_TIMED's over
-    AVIF_REPS calls each (the line ``avif decode seconds: {...}``), and the
-    palette and intra block copy blocks of AVIF_SCREEN_VIEW counted by the
-    decoder (both above 0); (b) make_synth_scene's mid preset (seed 0: 24
-    views at 640x416) built on the card, and two copies of it whose
-    images.bin names the committed AVIF_MID views (cv2's default AVIF of the
-    same preset's views built on a CPU) and the committed AVIF_MID_SCREEN
-    views (Pillow's tune-content=screen, 4:2:2, with an alpha item); each
-    view's mean |AVIF - PNG|; (c) run_garden_7k over iterations
-    0..JPEG_ITERS - 1 of the RGB schedule from the PNG scene and from each
-    AVIF scene, each AVIF leg's last logged l1 within d + JPEG_L1_DRIFT ·
-    l1_png of the PNG leg's (d the largest per-view mean |AVIF - PNG| of
-    its views, the JPEG and GIF legs' rule), every leg's it/s.  → (the PNG
-    leg's launches, the cv2 AVIF leg's, the screen AVIF leg's)."""
+    tiles, 4:4:4, screen content, 4:2:2, 4:0:0, RGBA, film grain, the
+    denoiser, a grid) decoded by read_avif, each decode held to the SHA-256
+    of cv2's, AVIF_TIMED's over AVIF_REPS calls each (the line ``avif
+    decode seconds: {...}``), the palette and intra block copy blocks of
+    AVIF_SCREEN_VIEW counted by the decoder (both above 0), the grain of
+    AVIF_GRAIN_VIEWS applied and AVIF_GRID_VIEW's tiles counted; (b)
+    make_synth_scene's mid preset (seed 0: 24 views at 640x416) built on
+    the card, and three copies of it whose images.bin names the committed
+    AVIF_MID views (cv2's default AVIF of the same preset's views built on a
+    CPU), the committed AVIF_MID_SCREEN views (Pillow's tune-content=screen,
+    4:2:2, with an alpha item) and the committed AVIF_MID_GRAIN views
+    (Pillow's film grain: libaom's test vectors, its denoiser); each view's
+    mean |AVIF - PNG|; (c) run_garden_7k over iterations 0..JPEG_ITERS - 1
+    of the RGB schedule from the PNG scene and from each AVIF scene, each
+    AVIF leg's last logged l1 within d + JPEG_L1_DRIFT · l1_png of the PNG
+    leg's (d the largest per-view mean |AVIF - PNG| of its views, the JPEG
+    and GIF legs' rule), every leg's it/s.  → (the PNG leg's launches, the
+    cv2 AVIF leg's, the screen AVIF leg's, the grain AVIF leg's)."""
     import hashlib
 
     import torch
@@ -2246,6 +2260,21 @@ def avif_path(rz, root):
     print(f"  {AVIF_SCREEN_VIEW}: {json.dumps(tools)}", flush=True)
     check(tools["palette_blocks"] > 0 and tools["intrabc_blocks"] > 0,
           f"{AVIF_SCREEN_VIEW} decoded no palette or IntraBC block: {tools}")
+    for name in AVIF_GRAIN_VIEWS:
+        with open(os.path.join(fx.FOLDER, name), "rb") as f:
+            heif = image_io._Heif(f.read(), name)
+        heif.parse()
+        info = image_io.decode_av1(heif.primary_item()[0])[1]
+        check(info[22] == 1, f"{name}: no film grain applied")
+    with open(os.path.join(fx.FOLDER, AVIF_GRID_VIEW), "rb") as f:
+        heif = image_io._Heif(f.read(), AVIF_GRID_VIEW)
+    heif.parse()
+    tiles, _, grid = heif.primary_image()
+    print(f"  {', '.join(AVIF_GRAIN_VIEWS)}: film grain applied; "
+          f"{AVIF_GRID_VIEW}: a {grid[1]}x{grid[0]} grid of {len(tiles)} "
+          f"tiles", flush=True)
+    check(grid is not None and len(tiles) == 6,
+          f"{AVIF_GRID_VIEW} is not a grid of 6 tiles: {grid}")
     # (b) the mid scene, from PNG and from the committed AVIFs
     scene = os.path.join(root, "mid")
     preset = make_synth_scene.PRESETS["mid"]
@@ -2261,7 +2290,8 @@ def avif_path(rz, root):
     check(len(pngs) == 24, f"the mid scene has views {pngs}")
     scenes, means = {"png": scene}, {}
     for kind, folder in (("avif", fx.AVIF_MID),
-                         ("avif_screen", fx.AVIF_MID_SCREEN)):
+                         ("avif_screen", fx.AVIF_MID_SCREEN),
+                         ("avif_grain", fx.AVIF_MID_GRAIN)):
         sc, images, _ = _format_scene(scene, root, f"scene_{kind}", ".avif")
         committed = os.path.join(fx.FOLDER, folder)
         avifs = sorted(os.listdir(committed))
@@ -2284,7 +2314,7 @@ def avif_path(rz, root):
               f"|AVIF - PNG| a view: min {min(means[kind]):.5f} max "
               f"{max(means[kind]):.5f}", flush=True)
         scenes[kind] = sc
-    # (c) the three legs
+    # (c) the four legs
     runs = {}
     for kind, sc in scenes.items():
         summary, tr, launches, records, log = run_7k(rz, [
@@ -2307,7 +2337,7 @@ def avif_path(rz, root):
         torch.cuda.empty_cache()
     png = l1_by_iteration(runs["png"][2])
     ps = runs["png"][0]
-    for kind in ("avif", "avif_screen"):
+    for kind in ("avif", "avif_screen", "avif_grain"):
         l1 = l1_by_iteration(runs[kind][2])
         check(len(l1) >= JPEG_ITERS // 50 and
               all(np.isfinite(list(l1.values()))),
@@ -2329,7 +2359,8 @@ def avif_path(rz, root):
               f"{kind} leg l1 {l1[last]} vs PNG {png[last]}: beyond {bound}")
     print(f"  the AVIF phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return runs["png"][1], runs["avif"][1], runs["avif_screen"][1]
+    return runs["png"][1], runs["avif"][1], runs["avif_screen"][1], \
+        runs["avif_grain"][1]
 
 
 def finite(x):
@@ -3665,7 +3696,8 @@ def main() -> int:
     # ---- 12. the at-scale run ----------------------------------------------
     (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg, at_scale_png,
      at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif, mid_png,
-     mid_avif, mid_avif_screen), scale_rows = at_scale_path(rz, dev)
+     mid_avif, mid_avif_screen, mid_avif_grain), scale_rows = at_scale_path(
+        rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -3715,6 +3747,7 @@ def main() -> int:
              "at-scale GIF run": at_scale_gif,
              "mid PNG 0-200 run": mid_png, "mid AVIF run": mid_avif,
              "mid AVIF screen run": mid_avif_screen,
+             "mid AVIF grain run": mid_avif_grain,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

@@ -2677,13 +2677,18 @@ def _load_avif_codec():
     lib = load_host_library("avif_codec")
     ll, vp, cp = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_char_p
     lib.av1_decode.restype = vp
-    lib.av1_decode.argtypes = [cp, ll, cp, ctypes.c_int]
+    lib.av1_decode.argtypes = [cp, ll, ctypes.c_int, cp, ctypes.c_int]
     lib.av1_info.restype = None
     lib.av1_info.argtypes = [vp, ctypes.POINTER(ll)]
     lib.av1_plane.restype = None
     lib.av1_plane.argtypes = [vp, ctypes.c_int, vp]
     lib.av1_free.restype = None
     lib.av1_free.argtypes = [vp]
+    lib.av1_grain_params.restype = None
+    lib.av1_grain_params.argtypes = [vp, vp]
+    lib.av1_film_grain.restype = None
+    lib.av1_film_grain.argtypes = [vp] + [ctypes.c_int] * 6 + [
+        vp, ctypes.c_int, vp, vp, ctypes.c_int]
     return lib
 
 
@@ -2721,6 +2726,7 @@ class _Heif:
         self.primary = None
         self.idat = b""
         self.refs = []        # (type, from, [to])
+        self.alpha = None     # the alpha item's id, once found
 
     def bad(self, why: str) -> RuntimeError:
         return RuntimeError(f"{self.path}: an AVIF file cv2 does not read: "
@@ -2821,6 +2827,47 @@ class _Heif:
         if first:
             raise self.bad("a meta box without hdlr")
 
+    def signature_check(self, grids):
+        """Raises where OpenCV's own signature test refuses the file:
+        cv2's ``AvifDecoder::checkSignature`` runs libavif's
+        ``avifDecoderParse`` over the file's first 500 bytes alone and takes
+        the file if that parse succeeds or runs out of data.  It fails
+        where a top-level box header before ``meta`` is cut by the 500th
+        byte or lies past it (a box before ``meta`` running past it), and,
+        where the whole ``meta`` lies in those bytes, where the payload of
+        a grid item libavif reads then (``grids``: the primary and alpha
+        grid items) begins past them."""
+        d = self.data[:500]
+        n = len(d)
+        pos = 0
+        while True:
+            if pos >= n or n - pos < 8:
+                raise self.bad("a box header past OpenCV's 500-byte "
+                               "signature test")
+            size, kind = struct.unpack_from(">I4s", d, pos)
+            if size == 1:
+                if n - pos < 16:
+                    raise self.bad("a box header past OpenCV's 500-byte "
+                                   "signature test")
+                size, = struct.unpack_from(">Q", d, pos + 8)
+            if kind in (b"ftyp", b"meta") and (size == 0 or
+                                               pos + size > n):
+                return                    # libavif runs out of data
+            if kind == b"meta":
+                break
+            if size < 8:                  # to the end, before meta
+                raise self.bad("a box before meta running to the end")
+            pos += size
+        for item in grids:
+            if item.get("method") != 0:
+                continue
+            for off, length in item["extents"]:
+                if off > n:
+                    raise self.bad("a grid payload past OpenCV's 500-byte "
+                                   "signature test")
+                if off + length > n:
+                    return
+
     def reader(self, pos: int, end: int):
         d = self.data
 
@@ -2900,8 +2947,12 @@ class _Heif:
                 if version > 1:
                     raise self.bad(f"ipma version {version}")
                 flags = rd(3)
+                prev = -1
                 for _ in range(rd(4)):
                     item = rd(2 if version < 1 else 4)
+                    if item <= prev:
+                        raise self.bad("ipma's item IDs do not increase")
+                    prev = item
                     assoc = []
                     for _ in range(rd(1)):
                         if flags & 1:
@@ -2933,15 +2984,22 @@ class _Heif:
         return b"".join(out)
 
     def primary_item(self):
-        """The primary item's coded data and properties."""
+        """The primary item's coded data (a grid's first tile's) and
+        properties."""
+        tiles, props, _ = self.primary_image()
+        return tiles[0][0], props
+
+    def primary_image(self):
+        """The primary item as libavif takes it: ([(tile OBUs, tile
+        properties)], the item's properties, the grid (rows, columns,
+        output width, output height), or None for an ``av01`` item, whose
+        one tile is itself)."""
         if self.primary is None:
             raise self.bad("no primary item (pitm)")
         item = self.items.get(self.primary)
         if item is None or "type" not in item:
             raise self.bad("the primary item has no infe")
-        if item["type"] == b"grid":
-            raise self.unported("a grid image")
-        if item["type"] != b"av01":
+        if item["type"] not in (b"av01", b"grid"):
             raise self.bad(f"a primary item of type {item['type']!r}")
         if "extents" not in item:
             raise self.bad("the primary item has no location")
@@ -2953,9 +3011,85 @@ class _Heif:
                 raise self.unported(what)
         if b"ispe" not in props:
             raise self.bad("the primary item has no ispe")
+        tiles, grid = self.tiles(self.primary, item, props)
         if b"av1C" not in props:
             raise self.bad("the primary item has no av1C")
-        return self.item_data(item), props
+        # libavif takes one colr of each kind (nclx, ICC) and refuses more
+        kinds = [colr[:4] for colr in self.colrs(item)]
+        if kinds.count(b"nclx") > 1 or \
+                kinds.count(b"prof") + kinds.count(b"rICC") > 1:
+            raise self.bad("more than one colr of a kind")
+        return tiles, props, grid
+
+    def colrs(self, item: dict):
+        """The payloads of the colr properties associated with an item."""
+        return [self.props[idx - 1][1] for _, idx in item.get("assoc", [])
+                if 0 < idx <= len(self.props) and
+                self.props[idx - 1][0] == b"colr"]
+
+    def tiles(self, iid: int, item: dict, props: dict):
+        """([(OBUs, properties)] of an image item's tiles, its grid or
+        None).  A ``grid`` item (ISO/IEC 23008-12 6.6.2.3) as libavif 1.4.2
+        reads it: the ImageGrid payload (version 0, 16- or 32-bit sizes,
+        nothing after them, a size not 0 and within libavif's limits), its
+        ``dimg`` tiles in reference order, as many as rows x columns, each
+        an ``av01`` item without an unknown essential property; the first
+        tile's av1C is the grid's (added to ``props``)."""
+        if item["type"] != b"grid":
+            return [(self.item_data(item), props)], None
+        data = self.item_data(item)
+        if len(data) < 4 or data[0] != 0:
+            raise self.bad("a grid of another version")
+        rows, cols = data[2] + 1, data[3] + 1
+        n = 4 if data[1] & 1 else 2
+        if len(data) != 4 + 2 * n:
+            raise self.bad("an ImageGrid payload of another length")
+        out_w = int.from_bytes(data[4:4 + n], "big")
+        out_h = int.from_bytes(data[4 + n:4 + 2 * n], "big")
+        if not out_w or not out_h:
+            raise self.bad("a grid of no size")
+        if out_w * out_h > 16384 * 16384 or max(out_w, out_h) > 32768:
+            raise self.bad("a grid larger than libavif's limits")
+        # each dimg target's last reference names its grid and place
+        place = {}
+        for kind, src, dst in self.refs:
+            if kind == b"dimg":
+                for k, t in enumerate(dst):
+                    place[t] = (src, k)
+        order = {k: t for t, (src, k) in place.items() if src == iid}
+        count = sum(1 for src, _ in place.values() if src == iid)
+        if count != rows * cols or sorted(order) != list(range(count)):
+            raise self.bad(f"a {cols}x{rows} grid of {count} tiles")
+        ispe = props.get(b"ispe")
+        if ispe is not None and ispe[4:12] != struct.pack(">II", out_w,
+                                                           out_h):
+            raise self.bad("a grid whose ispe is not its output size")
+        tiles = []
+        for k in range(count):
+            tile = self.items.get(order[k], {})
+            if tile.get("type") != b"av01":
+                raise self.bad("a grid tile that is not an av01 item")
+            tprops = self.properties(tile, skip=True)
+            if tprops is None:
+                raise self.bad("a grid tile with an unknown essential "
+                               "property")
+            if "extents" not in tile:
+                raise self.bad("a grid tile without a location")
+            if b"ispe" not in tprops or len(tprops[b"ispe"]) < 12:
+                raise self.bad("a grid tile without its ispe")
+            tiles.append((self.item_data(tile), tprops))
+        if b"av1C" not in tiles[0][1]:
+            raise self.bad("a grid whose first tile has no av1C")
+        av1c = props.setdefault(b"av1C", tiles[0][1][b"av1C"])
+        for _, tprops in tiles:
+            # MIAF 7.3.9: the tiles' av1C fields (profile, level, tier,
+            # depth, monochrome, subsampling, sample position) agree
+            tav1c = tprops.get(b"av1C", b"")
+            if len(tav1c) < 4 or tav1c[1:3] != av1c[1:3]:
+                raise self.bad("grid tiles of differing or missing av1C")
+            if tprops[b"ispe"][4:12] != tiles[0][1][b"ispe"][4:12]:
+                raise self.bad("grid tiles of differing sizes (ispe)")
+        return tiles, (rows, cols, out_w, out_h)
 
     def properties(self, item: dict, skip: bool = False):
         """An item's properties by type (the first of a type), with
@@ -2987,9 +3121,10 @@ class _Heif:
         return props
 
     def alpha_item(self):
-        """The coded data and properties of the primary item's alpha, or
-        None: libavif's alpha item is the first item whose ``auxl``
-        reference (its last target) names the primary item and whose
+        """The tiles, properties and grid (as ``primary_image`` gives them)
+        of the primary item's alpha, or None (its id kept in ``alpha``):
+        libavif's alpha item is the first item whose ``auxl`` reference
+        (its last target) names the primary item and whose
         ``auxC`` names the alpha URN, among the items it does not skip
         (no data, an unknown essential property, a type other than av01
         or grid, a thumbnail); other auxiliary items are not read.  cv2
@@ -3021,8 +3156,8 @@ class _Heif:
                                "its terminating 0")
             if auxc[4:].split(b"\0")[0] not in _AVIF_ALPHA_URNS:
                 continue
-            if item["type"] == b"grid":
-                raise self.unported("a grid alpha image")
+            tiles, grid = self.tiles(iid, item, props)
+            self.alpha = iid
             if b"av1C" not in props:
                 raise self.bad("the alpha item has no av1C")
             for kind in (b"irot", b"imir", b"clap"):
@@ -3030,7 +3165,7 @@ class _Heif:
                     raise self.bad(f"a transformative property "
                                    f"{kind.decode('latin-1')!r} on the alpha "
                                    f"item")
-            return self.item_data(item), props
+            return tiles, props, grid
         return None
 
 
@@ -3191,20 +3326,24 @@ def avif_planes_to_rgb(planes, depth: int, subx: int, suby: int,
     return yuv_to_rgb_jpeg(y, u, v)
 
 
-def decode_av1(obu: bytes, path="image"):
+def decode_av1(obu: bytes, path="image", grain: bool = True):
     """The OBUs of an AV1 still image → ([Y, U, V] uint16 planes, or [Y]
     for a monochrome frame, info): info is (width, height, bit depth,
     subsampling x, subsampling y, monochrome, colour primaries, transfer,
     matrix, full range) from the sequence header, then the tools the frame
     used (tile columns and rows, 128x128 superblocks, CDEF, quantizer
     matrices, lossless, delta q, filter intra enabled, screen content
-    tools, intra block copy allowed) and the palette and intra block copy
-    blocks decoded."""
+    tools, intra block copy allowed), the palette and intra block copy
+    blocks decoded and whether film grain was applied; then where the
+    frame header lies (its OBU payload's offset in ``obu``, the bit of its
+    film grain fields, its bytes).  With ``grain`` False the planes are
+    the frame before its film grain."""
     import ctypes
 
     lib = _load_avif_codec()
     err = ctypes.create_string_buffer(_AVIF_ERRLEN)
-    handle = lib.av1_decode(obu, len(obu), err, _AVIF_ERRLEN)
+    handle = lib.av1_decode(obu, len(obu), 0 if grain else 1, err,
+                            _AVIF_ERRLEN)
     if not handle:
         msg = err.value.decode(errors="replace")
         if msg.startswith("unported: "):
@@ -3213,7 +3352,7 @@ def decode_av1(obu: bytes, path="image"):
                                f"does)")
         raise RuntimeError(f"{path}: AV1 data cv2 does not read: {msg}")
     try:
-        info = (ctypes.c_longlong * 22)()
+        info = (ctypes.c_longlong * 26)()
         lib.av1_info(handle, info)
         info = list(info)
         width, height, _, subx, suby, mono = info[:6]
@@ -3229,10 +3368,63 @@ def decode_av1(obu: bytes, path="image"):
     return planes, info
 
 
+def _avif_assemble(heif: _Heif, tiles, grid, path, alpha: bool = False):
+    """The decoded frame of an image item: its one tile's, or a grid's
+    tiles placed into one frame as libavif 1.4.2 places them → (planes,
+    info of the first tile with the item's size).  Each tile's frame must
+    have its ispe's size (libavif would scale it); a grid's tiles must
+    agree in size, depth, chroma format, range and CICP, cover the grid
+    with the last row and column overlapping its edge (MIAF 7.3.11.4.2),
+    be at least 64x64 and even where chroma is subsampled.  A lone alpha
+    frame of another size than its item's is fitted to it by libavif, and
+    not checked here (cv2 drops the alpha)."""
+    decoded = []
+    for obu, props in tiles:
+        planes, info = decode_av1(obu, path)
+        ispe = props.get(b"ispe")
+        if ispe is not None and len(ispe) < 12:
+            raise heif.bad("an ispe box cut short")
+        if ispe is not None and not (alpha and grid is None) and tuple(
+                info[:2]) != struct.unpack_from(">II", ispe, 4):
+            # libavif sizes its image by ispe and scales the frame to it
+            raise heif.unported(f"a {info[0]}x{info[1]} frame in an item "
+                                f"whose ispe differs")
+        decoded.append((planes, info))
+    if grid is None:
+        return decoded[0]
+    rows, cols, out_w, out_h = grid
+    planes0, info0 = decoded[0]
+    for _, info in decoded[1:]:
+        if info[:6] != info0[:6] or info[6:10] != info0[6:10]:
+            raise heif.bad("a grid of tiles that differ in size, depth, "
+                           "chroma, range or CICP")
+    tw, th, _, subx, suby = info0[:5]
+    if tw * cols < out_w or th * rows < out_h:
+        raise heif.bad("grid tiles that do not cover the image")
+    if tw * (cols - 1) >= out_w or th * (rows - 1) >= out_h:
+        raise heif.bad("grid tiles of a last row or column past the image")
+    if tw < 64 or th < 64:
+        raise heif.bad(f"{tw}x{th} grid tiles, under MIAF's 64")
+    if (subx and (out_w % 2 or tw % 2)) or (suby and (out_h % 2 or th % 2)):
+        raise heif.bad("odd grid sides where chroma is subsampled")
+    out = []
+    for p in range(len(planes0)):
+        sx, sy = (subx, suby) if p else (0, 0)
+        full = np.empty(((out_h + sy) >> sy, (out_w + sx) >> sx), np.uint16)
+        for k, (planes, _) in enumerate(decoded):
+            x, y = (k % cols) * tw, (k // cols) * th
+            w, h = min(tw, out_w - x), min(th, out_h - y)
+            full[y >> sy:(y >> sy) + ((h + sy) >> sy),
+                 x >> sx:(x >> sx) + ((w + sx) >> sx)] = \
+                planes[p][:(h + sy) >> sy, :(w + sx) >> sx]
+        out.append(full)
+    return out, [out_w, out_h] + list(info0[2:])
+
+
 def _decode_avif_bytes(data: bytes, path):
     heif = _Heif(data, path)
     heif.parse()
-    obu, props = heif.primary_item()
+    tiles, props, grid = heif.primary_image()
     ispe = props[b"ispe"]
     if len(ispe) < 12:
         raise heif.bad("an ispe box cut short")
@@ -3247,20 +3439,21 @@ def _decode_avif_bytes(data: bytes, path):
             raise heif.bad("an ispe box cut short")
         if aispe[4:12] != ispe[4:12]:
             raise heif.bad("an alpha item of another size than the colour")
-    planes, info = decode_av1(obu, path)
+    heif.signature_check([heif.items[i] for i in (heif.primary, heif.alpha)
+                          if i is not None and
+                          heif.items[i]["type"] == b"grid"])
+    planes, info = _avif_assemble(heif, tiles, grid, path)
     width, height, depth, subx, suby = info[:5]
-    if (width, height) != struct.unpack_from(">II", ispe, 4):
-        # libavif sizes its image by ispe and copies the frame into it
-        raise heif.unported(f"a {width}x{height} frame in an item whose "
-                            f"ispe differs")
     if alpha is not None:
         # libavif decodes the alpha too (its frame fitted to the item's
         # size), and refuses one that does not decode or whose depth is not
         # the colour's
-        _, ainfo = decode_av1(alpha[0], path)
+        _, ainfo = _avif_assemble(heif, alpha[0], alpha[2], path, True)
         if ainfo[2] != depth:
             raise heif.bad(f"a {ainfo[2]}-bit alpha frame for a {depth}-bit "
                            f"image")
+        if alpha[2] is not None and tuple(ainfo[:2]) != (width, height):
+            raise heif.bad("an alpha grid of another size than the colour")
     if gray:
         if alpha is not None:
             # OpenCV's reader asks for 2 channels and fails
@@ -3280,14 +3473,16 @@ def read_avif(path) -> np.ndarray:
     Reads what cv2's and Pillow's writers make: 8, 10 and 12 bits, 4:2:0,
     4:2:2, 4:4:4 and 4:0:0 (gray: the luma as OpenCV copies it), lossless
     too, any tiling, 64x64 or 128x128 superblocks, CDEF, quantizer
-    matrices, the screen content tools (palette, intra block copy), an
-    alpha item (decoded and checked as libavif does, then dropped as cv2's
-    3-channel read drops it).  Raises ``RuntimeError`` naming the file where
-    cv2 returns None, and naming the kind for what the port does not read
-    yet (film grain, image sequences, grids, rotations, mirrors, clean
-    apertures, a premultiplied alpha, loop restoration, superres,
-    segmentation, delta loop filter, full sequence headers, matrices other
-    than BT.601 and identity, limited range)."""
+    matrices, the screen content tools (palette, intra block copy), film
+    grain (synthesised as libaom's ``av1_add_film_grain`` does), an alpha
+    item (decoded and checked as libavif does, then dropped as cv2's
+    3-channel read drops it), and grid items (colour and alpha) with
+    libavif's grid rules.  Raises ``RuntimeError`` naming the file where
+    cv2 returns None (OpenCV's own 500-byte signature test included), and
+    naming the kind for what the port does not read yet (image sequences,
+    rotations, mirrors, clean apertures, a premultiplied alpha, loop
+    restoration, superres, segmentation, delta loop filter, full sequence
+    headers, matrices other than BT.601 and identity, limited range)."""
     with open(path, "rb") as f:
         data = f.read()
     return _decode_avif_bytes(data, path)
@@ -3303,9 +3498,9 @@ def read_image(fn: str) -> np.ndarray:
     (``P7``), Sun raster, JPEG 2000 (the JP2 signature box, or a raw
     codestream's ``FF 4F FF 51``) and AVIF (an ``ftyp`` box with the
     ``avif`` or ``avis`` brand) through the port's own readers (AVIF: every
-    chroma format, the screen content tools and the alpha item that cv2's
-    and Pillow's writers make; ``read_avif``).  A kind of AVIF the port does
-    not read yet (film grain, grids, sequences and the rarer kinds
+    chroma format, the screen content tools, film grain and the alpha item
+    that cv2's and Pillow's writers make, and grids; ``read_avif``).  A kind
+    of AVIF the port does not read yet (sequences and the rarer kinds
     ``read_avif`` lists) raises ``RuntimeError`` naming the file and the
     kind; any other file raises naming the file."""
     with open(fn, "rb") as f:

@@ -389,10 +389,25 @@ def test_obu_layouts_match_cv2(cv2, pil, tmp_path, layout, tiles):
 # ----------------------------------------------------------- refusals
 
 
+def _orientation(value: int):
+    from PIL import Image
+    exif = Image.Exif()
+    exif[0x0112] = value
+    return exif
+
+
+def _second_frame(img):
+    from PIL import Image
+    return [Image.fromarray(np.ascontiguousarray(img[::-1, :, ::-1]))]
+
+
+# kinds cv2 reads that the port does not yet: Pillow writes an EXIF
+# orientation as an essential irot, two frames as an image sequence
 _REFUSED = {
-    "grain": (dict(advanced={"film-grain-test": "1"}), "film grain"),
-    # libaom's denoiser writes its noise model as film grain parameters
-    "denoise": (dict(advanced={"denoise-noise-level": "25"}), "film grain"),
+    "irot": (lambda img: dict(exif=_orientation(6)), r"rotation \(irot\)"),
+    "avis": (lambda img: dict(save_all=True, duration=100,
+                              append_images=_second_frame(img)),
+             r"image sequence \(avis\)"),
 }
 
 
@@ -402,7 +417,7 @@ def test_unported_tools_raise_naming_the_feature(cv2, pil, tmp_path, kind):
     opts, feature = _REFUSED[kind]
     img = oracle.avif_image("photo", 96, 128, np.random.default_rng(8))
     path = tmp_path / f"{kind}.avif"
-    path.write_bytes(oracle.pillow_avif(img, **opts))
+    path.write_bytes(oracle.pillow_avif(img, **opts(img)))
     assert cv2.imread(str(path)) is not None
     with pytest.raises(RuntimeError) as err:
         read_avif(str(path))
@@ -416,13 +431,17 @@ _READ_SINCE = {
     "400": dict(subsampling="4:0:0"),
     "screen": dict(advanced={"tune-content": "screen"}),
     "alpha": dict(),
+    "grain": dict(advanced={"film-grain-test": "1"}),
+    # libaom's denoiser writes its noise model as film grain parameters
+    "denoise": dict(advanced={"denoise-noise-level": "25"}),
 }
 
 
 @pytest.mark.parametrize("kind", list(_READ_SINCE))
 def test_pillow_kinds_read_as_cv2(cv2, pil, tmp_path, kind):
-    # the files PR 17 refused (4:2:2, 4:0:0, screen content, an alpha
-    # item) read as cv2 reads them
+    # kinds the reader once refused (4:2:2, 4:0:0, screen content, an
+    # alpha item, film grain from libaom's test vectors and its denoiser)
+    # read as cv2 reads them
     img = oracle.avif_image("photo", 96, 128, np.random.default_rng(8))
     if kind == "alpha":
         img = np.dstack([img, np.full(img.shape[:2], 128, np.uint8)])

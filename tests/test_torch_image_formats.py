@@ -424,8 +424,9 @@ def test_pnm_writer_matches_cv2_bytes(cv2, tmp_path, ext):
 
 
 # kinds of a format cv2 reads that the port does not yet: extension ->
-# (the kind as the port names it, Pillow's save options that make it)
-_UNPORTED = {"avif": ("film grain", dict(advanced={"film-grain-test": "1"}))}
+# (the kind as the port names it, Pillow's save options that make it: an
+# EXIF orientation, which Pillow's AVIF writer turns into an irot)
+_UNPORTED = {"avif": (r"a rotation \(irot\)", dict(exif={0x0112: 6}))}
 
 
 @pytest.mark.parametrize("ext", list(_UNPORTED))
@@ -438,11 +439,15 @@ def test_unported_formats_raise_naming_the_format(cv2, tmp_path, ext):
     kind, opts = _UNPORTED[ext]
     path = tmp_path / f"view.{ext}"
     img = fx.fixture_image(12, 16, seed=1)
+    if "exif" in opts:
+        exif = Image.Exif()
+        exif.update(opts["exif"])
+        opts = dict(opts, exif=exif)
     Image.fromarray(img).save(str(path), **opts)
     assert cv2.imread(str(path)) is not None
     with pytest.raises(RuntimeError,
-                       match=f"view.{ext}: an {ext.upper()} image with "
-                             f"{kind}.*not read yet"):
+                       match=f"view.{ext}: an {ext.upper()} (image|file) "
+                             f"with {kind}.*not read yet"):
         read_image(str(path))
 
 

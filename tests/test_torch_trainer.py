@@ -405,9 +405,9 @@ def test_stage_timer_records_on_the_cpu():
 def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     # the card's machine has no cv2: PNGs, JPEGs, WebPs and AVIFs load
     # through utils/image_io, equal to what JAX reads with cv2 (Pillow's
-    # 4:2:2 AVIF too, against cv2's recorded decode); a kind the port does
-    # not read yet (here Pillow's film grain) raises an error naming the
-    # file and the kind
+    # 4:2:2 and film grain AVIFs and a grid too, against cv2's recorded
+    # decodes); a kind the port does not read yet (here an essential irot)
+    # raises an error naming the file and the kind
     cv2 = pytest.importorskip("cv2")
     from gsplat_tpu_torch.models.splatter import load_scene_camera_groups, \
         read_image
@@ -430,14 +430,15 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     np.testing.assert_array_equal(read_image(str(webp)), want_webp)
     np.testing.assert_array_equal(read_image(str(avif)), want_avif)
     images = os.path.join(os.path.dirname(__file__), "torch_images")
-    np.testing.assert_array_equal(
-        read_image(os.path.join(images, "avif_pil_422.avif")),
-        read_png(os.path.join(images, "avif_pil_422.want.png")))
-    other = tmp_path / "photo_grain.avif"
-    other.write_bytes(open(os.path.join(images, "avif_pil_grain.avif"),
+    for name in ("avif_pil_422", "avif_pil_grain", "avif_grid"):
+        np.testing.assert_array_equal(
+            read_image(os.path.join(images, name + ".avif")),
+            read_png(os.path.join(images, name + ".want.png")))
+    other = tmp_path / "photo_irot.avif"
+    other.write_bytes(open(os.path.join(images, "avif_irot.avif"),
                            "rb").read())
-    with pytest.raises(RuntimeError, match="photo_grain.avif: an AVIF image "
-                                           "with film grain.*not read yet"):
+    with pytest.raises(RuntimeError, match="photo_irot.avif: an AVIF file "
+                                           "with a rotation.*not read yet"):
         read_image(str(other))
 
 

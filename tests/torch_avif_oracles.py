@@ -17,7 +17,15 @@ bundled libraries through ctypes:
   depths) and by Pillow (libaom's own options through ``advanced=``);
 * ``alpha_parts``, ``item_props`` and ``build_items``: a Pillow RGBA
   file's colour and alpha items taken apart, and files of several items
-  written back with hand-edited properties and references.
+  written back with hand-edited properties and references;
+* ``libaom_film_grain``: libaom's own ``av1_add_film_grain`` by symbol on
+  given planes (``aom_image_t`` and ``aom_film_grain_t`` laid out as
+  libaom 3.14.1 lays them out), beside ``port_film_grain``, the codec's;
+  ``grain_test_vectors`` (libaom's ``film_grain_test_vectors``),
+  ``random_grain``, and ``with_grain``, an item's OBUs with its frame
+  header's film grain fields rewritten (``grain_bits``);
+* ``grid_avif``: grid images of tiles (``tile_item``, ``split_tiles``)
+  that cv2's and Pillow's writers make, with a grid alpha.
 """
 
 from __future__ import annotations
@@ -458,11 +466,12 @@ def alpha_parts(data: bytes):
     return obu_of[1], item_props(data, 1), obu_of[2], item_props(data, 2)
 
 
-def build_items(items, refs, primary: int = 1) -> bytes:
+def build_items(items, refs, primary: int = 1, pad: int = 0) -> bytes:
     """An AVIF file of several items: ``items`` is [(id, type, OBUs,
     [(property box, essential)])], ``refs`` [(type, from, [to])]; the
     property boxes shared by value, iloc version 0, ipma version 0, an
-    iref of version 0, the items' data in mdat in their order."""
+    iref of version 0, the items' data in mdat in their order; ``pad``
+    bytes of a ``free`` box at the end of meta."""
     ftyp = box(b"ftyp", b"avif" + bytes(4) + b"avifmif1miafMA1B")
     hdlr = full_box(b"hdlr", 0, 0, bytes(4) + b"pict" + bytes(12) + b"\0")
     pitm = full_box(b"pitm", 0, 0, struct.pack(">H", primary))
@@ -494,10 +503,369 @@ def build_items(items, refs, primary: int = 1) -> bytes:
             at += len(obu)
         return full_box(b"iloc", 0, 0, b"\x44\x00" +
                         struct.pack(">H", len(items)) + body)
+    free = box(b"free", bytes(pad - 8)) if pad else b""
     meta0 = full_box(b"meta", 0, 0, hdlr + pitm + iloc(0) + iinf + iprp +
-                     iref)
+                     iref + free)
     first = len(ftyp) + len(meta0) + 8
     meta = full_box(b"meta", 0, 0, hdlr + pitm + iloc(first) + iinf + iprp +
-                    iref)
+                    iref + free)
     mdat = box(b"mdat", b"".join(obu for _, _, obu, _ in items))
     return ftyp + meta + mdat
+
+
+# ---------------------------------------------------------- film grain
+
+# libaom 3.14.1's aom_film_grain_t: 161 ints, then the uint16 random seed
+GRAIN_SIZE = 648
+_GRAIN_INTS = 161
+_FMT = {(1, 1): 0x102, (1, 0): 0x105, (0, 0): 0x106}   # I420, I422, I444
+_HIGHBITDEPTH = 0x800
+
+
+def grain_fields(params: bytes) -> dict:
+    """The named fields of an aom_film_grain_t."""
+    v = struct.unpack("<161iH2x", params)
+    names = (["apply_grain", "update_parameters"] +
+             [f"y{i}" for i in range(28)] + ["num_y_points"] +
+             [f"cb{i}" for i in range(20)] + ["num_cb_points"] +
+             [f"cr{i}" for i in range(20)] + ["num_cr_points",
+                                               "scaling_shift",
+                                               "ar_coeff_lag"] +
+             [f"ary{i}" for i in range(24)] + [f"arcb{i}" for i in range(25)]
+             + [f"arcr{i}" for i in range(25)] +
+             ["ar_coeff_shift", "cb_mult", "cb_luma_mult", "cb_offset",
+              "cr_mult", "cr_luma_mult", "cr_offset", "overlap_flag",
+              "clip_to_restricted_range", "bit_depth",
+              "chroma_scaling_from_luma", "grain_scale_shift",
+              "random_seed"])
+    return dict(zip(names, v))
+
+
+def grain_test_vectors():
+    """libaom's 16 ``film_grain_test_vectors`` (its encoder's
+    ``film-grain-test`` 1-16), as aom_film_grain_t bytes."""
+    elf = Elf(_wheel_lib("libaom-*.so*"))
+    raw = elf.table("film_grain_test_vectors", "u1", (16, GRAIN_SIZE))
+    return [raw[i].tobytes() for i in range(16)]
+
+
+def random_grain(rng, depth: int, subx: int, suby: int, mono: bool) -> bytes:
+    """Random parameters of the ranges film_grain_params() codes, valid as
+    libaom's reader checks them."""
+    def points(n):
+        xs = np.sort(rng.choice(256, n, replace=False))
+        return [(int(x), int(rng.integers(0, 256))) for x in xs]
+    ny = int(rng.integers(0, 15))
+    csfl = 0 if mono else int(rng.random() < 0.25)
+    ncb = ncr = 0
+    if not (mono or csfl or (subx and suby and ny == 0)):
+        ncb = int(rng.integers(0, 11))
+        ncr = int(rng.integers(0, 11))
+        if subx and suby and (ncb == 0) != (ncr == 0):
+            ncr = ncb
+    lag = int(rng.integers(0, 4))
+    npos = 2 * lag * (lag + 1)
+    ints = [1, 1]
+    for n, cap in ((ny, 14), (ncb, 10), (ncr, 10)):
+        flat = [c for pt in points(n) for c in pt]
+        ints += flat + [0] * (2 * cap - len(flat)) + [n]
+    ints += [int(rng.integers(8, 12)), lag]
+    ary = [int(rng.integers(-128, 128)) for _ in range(npos)] if ny else []
+    ints += ary + [0] * (24 - len(ary))
+    for n in (ncb, ncr):
+        ar = [int(rng.integers(-128, 128)) for _ in range(npos + (ny > 0))] \
+            if (n or csfl) else []
+        ints += ar + [0] * (25 - len(ar))
+    ints += [int(rng.integers(6, 10))]
+    for n in (ncb, ncr):
+        ints += ([int(rng.integers(0, 256)), int(rng.integers(0, 256)),
+                  int(rng.integers(0, 512))] if n else [0, 0, 0])
+    ints += [int(rng.integers(0, 2)), int(rng.integers(0, 2)), depth, csfl,
+             int(rng.integers(0, 4))]
+    assert len(ints) == _GRAIN_INTS
+    return struct.pack("<161iH2x", *ints, int(rng.integers(0, 65536)))
+
+
+def with_depth(params: bytes, depth: int) -> bytes:
+    """The parameters with their bit_depth field set."""
+    d = bytearray(params)
+    struct.pack_into("<I", d, 4 * 158, depth)
+    return bytes(d)
+
+
+def _aom_image(planes, w, h, depth, subx, suby, mono, mc, hbd):
+    """An aom_image_t (libaom 3.14.1's layout) over padded planes."""
+    img = bytearray(168)
+    fmt = _FMT[(subx, suby)] | (_HIGHBITDEPTH if hbd else 0)
+    struct.pack_into("<7i", img, 0, fmt, 2, 2, mc, int(mono), 0, 1)
+    struct.pack_into("<11I", img, 28, w, h, depth, w, h, w, h,
+                     subx, suby, 0, 0)
+    struct.pack_into("<3Q3i", img, 64, *(p.ctypes.data for p in planes),
+                     *(p.strides[0] for p in planes))
+    struct.pack_into("<i", img, 112, 16 if hbd else 8)
+    return (ctypes.c_char * 168).from_buffer(img)
+
+
+def libaom_film_grain(params: bytes, planes, depth: int, subx: int,
+                      suby: int, mono: bool = False, mc: int = 1,
+                      hbd: bool = True):
+    """libaom's own ``av1_add_film_grain`` (by symbol) on a frame: planes
+    [Y, U, V] (uint16; uint8 for libaom's 8-bit path with ``hbd`` False) of
+    a w x h frame, each allocated with even sides (the copy libaom makes
+    reads them so) → the planes with grain, at the frame's sizes.  ``mc``
+    is the frame's matrix coefficients (0, the identity, changes the
+    chroma's restricted range)."""
+    h, w = planes[0].shape
+    we, he = w + (w & 1), h + (h & 1)
+    dt = np.uint16 if hbd else np.uint8
+    src, dst = [], []
+    if mono:        # libaom's monochrome frame keeps 4:2:0 chroma planes
+        subx = suby = 1
+        planes = list(planes) + [np.zeros((he >> 1, we >> 1), dt)] * 2
+    for p, a in enumerate(planes):
+        sx, sy = (subx, suby) if p else (0, 0)
+        pad = np.zeros((max(he >> sy, 1), max(we >> sx, 1)), dt)
+        pad[:a.shape[0], :a.shape[1]] = a
+        src.append(pad)
+        dst.append(np.zeros_like(pad))
+    fn = libaom_function("av1_add_film_grain", ctypes.c_int, ctypes.c_char_p,
+                         ctypes.c_void_p, ctypes.c_void_p)
+    simg = _aom_image(src, w, h, depth, subx, suby, mono, mc, hbd)
+    dimg = _aom_image(dst, w, h, depth, subx, suby, mono, mc, hbd)
+    if fn(params, ctypes.addressof(simg), ctypes.addressof(dimg)) != 0:
+        raise ValueError("av1_add_film_grain refused its input")
+    out = [d[:a.shape[0], :a.shape[1]].astype(np.uint16)
+           for d, a in zip(dst, planes)]
+    return out[:1] if mono else out
+
+
+def port_film_grain(params: bytes, planes, subx: int, suby: int,
+                    mono: bool = False, mc: int = 1):
+    """The port's synthesis alone (``av1_film_grain`` of the codec) on the
+    same frame."""
+    from gsplat_tpu_torch.utils import image_io
+    lib = image_io._load_avif_codec()
+    h, w = planes[0].shape
+    we, he = w + (w & 1), h + (h & 1)
+    pads = []
+    for p, a in enumerate(planes):
+        sx, sy = (subx, suby) if p else (0, 0)
+        pad = np.zeros((max(he >> sy, 1), max(we >> sx, 1)), np.uint16)
+        pad[:a.shape[0], :a.shape[1]] = a
+        pads.append(pad)
+    if mono:
+        pads += [np.zeros((1, 1), np.uint16)] * 2
+    lib.av1_film_grain(params, subx, suby, int(mono), int(mc == 0), w, h,
+                       pads[0].ctypes.data, pads[0].shape[1],
+                       pads[1].ctypes.data, pads[2].ctypes.data,
+                       pads[1].shape[1])
+    return [pd[:a.shape[0], :a.shape[1]] for pd, a in zip(pads, planes)]
+
+
+def port_grain_params(obu: bytes):
+    """(the frame's planes before its grain, the port's parsed grain
+    parameters as aom_film_grain_t bytes, info) of an item's OBUs."""
+    from gsplat_tpu_torch.utils import image_io
+    lib = image_io._load_avif_codec()
+    planes, info = image_io.decode_av1(obu, grain=False)
+    err = ctypes.create_string_buffer(256)
+    handle = lib.av1_decode(obu, len(obu), 1, err, 256)
+    out = ctypes.create_string_buffer(GRAIN_SIZE)
+    lib.av1_grain_params(handle, out)
+    lib.av1_free(handle)
+    return planes, out.raw, info
+
+
+def grain_dict(params: bytes) -> dict:
+    """aom_film_grain_t bytes → the fields film_grain_params() codes, as
+    lists: ``y``, ``cb``, ``cr`` the scaling points, ``ar_y``, ``ar_cb``,
+    ``ar_cr`` the coefficients (those coded for these counts)."""
+    f = grain_fields(params)
+    lag = f["ar_coeff_lag"]
+    npos = 2 * lag * (lag + 1)
+    out = dict(apply=f["apply_grain"], seed=f["random_seed"],
+               csfl=f["chroma_scaling_from_luma"],
+               scaling_shift=f["scaling_shift"], lag=lag,
+               ar_shift=f["ar_coeff_shift"], gss=f["grain_scale_shift"],
+               overlap=f["overlap_flag"],
+               clip=f["clip_to_restricted_range"])
+    for key, n in (("y", "num_y_points"), ("cb", "num_cb_points"),
+                   ("cr", "num_cr_points")):
+        out[key] = [(f[f"{key}{2 * i}"], f[f"{key}{2 * i + 1}"])
+                    for i in range(f[n])]
+    out["ar_y"] = [f[f"ary{i}"] for i in range(npos)]
+    nc = npos + (len(out["y"]) > 0)
+    out["ar_cb"] = [f[f"arcb{i}"] for i in range(nc)]
+    out["ar_cr"] = [f[f"arcr{i}"] for i in range(nc)]
+    for c in ("cb", "cr"):
+        out[c + "_mult"] = (f[c + "_mult"], f[c + "_luma_mult"],
+                            f[c + "_offset"])
+    return out
+
+
+def grain_bits(g: dict, mono: bool, subx: int, suby: int) -> str:
+    """film_grain_params() of a shown key frame as a string of bits, from
+    ``grain_dict``'s fields (the counts are the lists' lengths, so a list
+    may break the reader's rules)."""
+    out = []
+
+    def put(v, n):
+        out.append(format(v & ((1 << n) - 1), f"0{n}b"))
+    put(g["apply"], 1)
+    if not g["apply"]:
+        return "".join(out)
+    put(g["seed"], 16)
+    put(len(g["y"]), 4)
+    for x, s in g["y"]:
+        put(x, 8)
+        put(s, 8)
+    csfl = 0 if mono else g["csfl"]
+    if not mono:
+        put(csfl, 1)
+    ncb = ncr = 0
+    if not (mono or csfl or (subx and suby and not g["y"])):
+        for key in ("cb", "cr"):
+            put(len(g[key]), 4)
+            for x, s in g[key]:
+                put(x, 8)
+                put(s, 8)
+        ncb, ncr = len(g["cb"]), len(g["cr"])
+    put(g["scaling_shift"] - 8, 2)
+    put(g["lag"], 2)
+    npos = 2 * g["lag"] * (g["lag"] + 1)
+    if g["y"]:
+        for c in g["ar_y"][:npos]:
+            put(c + 128, 8)
+    nc = npos + (len(g["y"]) > 0)
+    for key, n in (("ar_cb", ncb), ("ar_cr", ncr)):
+        if n or csfl:
+            for c in g[key][:nc]:
+                put(c + 128, 8)
+    put(g["ar_shift"] - 6, 2)
+    put(g["gss"], 2)
+    for key, n in (("cb_mult", ncb), ("cr_mult", ncr)):
+        if n:
+            put(g[key][0], 8)
+            put(g[key][1], 8)
+            put(g[key][2], 9)
+    put(g["overlap"], 1)
+    put(g["clip"], 1)
+    return "".join(out)
+
+
+def _bits(data: bytes) -> str:
+    return "".join(format(b, "08b") for b in data)
+
+
+def _bytes(bits: str) -> bytes:
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def with_grain(stream: bytes, g) -> bytes:
+    """An item's OBUs (one sequence header and one frame OBU, as libaom
+    writes a still image) with the frame's film grain fields replaced by
+    ``g`` (``grain_dict`` fields, or None for none), the sequence header's
+    film_grain_params_present set to match."""
+    _, params, info = port_grain_params(stream)
+    mono, subx, suby = bool(info[5]), info[3], info[4]
+    gbit, hbytes = info[24:26]
+    had = False
+    parts = obus(stream)
+    out = b""
+    for kind, head, payload in parts:
+        if kind == 1:
+            bits = _bits(payload)
+            one = bits.rindex("1")           # trailing_one_bit
+            had = bits[one - 1] == "1"
+            bits = bits[:one - 1] + ("1" if g is not None else "0") + \
+                bits[one:]
+            payload = _bytes(bits)
+        elif kind == 6:
+            bits = _bits(payload[:hbytes])
+            old = ""
+            if had:
+                old = grain_bits(grain_dict(params), mono, subx, suby)
+                assert bits[gbit:gbit + len(old)] == old, "not re-encoded"
+            new = grain_bits(g, mono, subx, suby) if g is not None else ""
+            payload = _bytes(bits[:gbit] + new) + payload[hbytes:]
+        out += head + _leb(len(payload)) + payload
+    return out
+
+
+def _leb(n: int) -> bytes:
+    out = b""
+    while True:
+        byte = n & 0x7F
+        n >>= 7
+        out += bytes([byte | (0x80 if n else 0)])
+        if not n:
+            return out
+
+
+# --------------------------------------------------------------- grids
+
+
+def grid_payload(rows: int, cols: int, width: int, height: int,
+                 flags: int = 0, version: int = 0) -> bytes:
+    """An ImageGrid item's data (ISO/IEC 23008-12 6.6.2.3.2): 16-bit output
+    sizes, or 32-bit with flags bit 0."""
+    n = 4 if flags & 1 else 2
+    return bytes([version, flags, rows - 1, cols - 1]) + \
+        width.to_bytes(n, "big") + height.to_bytes(n, "big")
+
+
+def ispe_box(width: int, height: int) -> bytes:
+    return full_box(b"ispe", 0, 0, struct.pack(">II", width, height))
+
+
+def split_tiles(img: np.ndarray, rows: int, cols: int, tw: int, th: int):
+    """An image cut into rows x cols tiles of tw x th (the last row and
+    column padded by repeating the edge, as an encoder pads a grid)."""
+    img = img[:rows * th, :cols * tw]
+    h, w = img.shape[:2]
+    pad = np.pad(img, [(0, rows * th - h), (0, cols * tw - w)] +
+                 [(0, 0)] * (img.ndim - 2), mode="edge")
+    return [pad[r * th:(r + 1) * th, c * tw:(c + 1) * tw]
+            for r in range(rows) for c in range(cols)]
+
+
+def tile_item(data: bytes):
+    """(OBUs, [(property box, essential)]) of a one-item file's primary
+    item, to serve as a grid tile."""
+    obu, props = item_parts(data)
+    return obu, [(props[k], k == b"av1C")
+                 for k in (b"ispe", b"pixi", b"av1C", b"colr") if k in props]
+
+
+def grid_avif(tiles, rows: int, cols: int, width: int, height: int,
+              grid_props=None, payload=None, dimg=None, alpha=None,
+              pad: int = 512) -> bytes:
+    """A grid image: item 1 the grid (``grid_props`` [(box, essential)],
+    by default an ispe of the output size and the first tile's colr and
+    pixi), items 2.. its tiles ([(OBUs, props)] from ``tile_item``) in
+    ``dimg`` order (default the tiles' own); ``alpha`` another (tiles,
+    rows, cols) grid made the colour's alpha item.  The ``pad`` bytes of
+    free space in meta keep it past the 500 bytes of OpenCV's signature
+    test, whose parse would otherwise read the grid's payload."""
+    if grid_props is None:
+        first = dict((p[4:8], p) for p, _ in tiles[0][1])
+        grid_props = [(ispe_box(width, height), False)] + [
+            (first[k], False) for k in (b"pixi", b"colr") if k in first]
+    payload = payload or grid_payload(rows, cols, width, height)
+    items = [(1, b"grid", payload, grid_props)]
+    ids = list(range(2, 2 + len(tiles)))
+    items += [(i, b"av01", obu, props) for i, (obu, props) in zip(ids, tiles)]
+    refs = [(b"dimg", 1, ids if dimg is None else [ids[k] for k in dimg])]
+    if alpha is not None:
+        atiles, arows, acols = alpha
+        aid = 2 + len(tiles)
+        urn = b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha\0"
+        auxc = full_box(b"auxC", 0, 0, urn)
+        items.append((aid, b"grid", grid_payload(arows, acols, width, height),
+                      [(ispe_box(width, height), False), (auxc, False)]))
+        tids = list(range(aid + 1, aid + 1 + len(atiles)))
+        items += [(i, b"av01", obu, props)
+                  for i, (obu, props) in zip(tids, atiles)]
+        refs += [(b"dimg", aid, tids), (b"auxl", aid, [1])]
+    return build_items(items, refs, pad=pad)

@@ -10,8 +10,11 @@ ramp) and a writer: cv2 at a random quality (0-100) and depth (8, 10 or 12
 bits), from colour or gray input (gray: a monochrome file), or Pillow at a
 random quality with random libaom options (4:4:4, 4:2:2 and 4:0:0, tile
 columns and rows, 64 or 128 superblocks, CDEF, quantizer matrices, aq and
-deltaq modes, ``tune-content=screen``, now and then film grain) from RGB or
-RGBA (an alpha item).
+deltaq modes, ``tune-content=screen``, film grain in a quarter of the
+files: libaom's test vectors 1-16 or its denoiser) from RGB or RGBA (an
+alpha item).  One file in ten is a grid: 2-6 tiles of one writer's
+streams (the same options, cut from one image, 64 pixels a side at least)
+placed by a ``grid`` item, with a grid alpha where the tiles have one.
 ``read_image`` must equal ``cv2.imread(path)[..., ::-1]`` bit for bit; a
 file of a kind the port does not decode yet (where a random option makes
 one) is counted apart, by kind.  Prints one JSON line of counts (and the
@@ -65,9 +68,11 @@ def random_file(rng):
     adv = {}
     if rng.random() < 0.3:
         adv["tune-content"] = "screen"
-    if rng.random() < 0.03:         # film grain, which the port refuses
-        adv[str(rng.choice(["film-grain-test", "denoise-noise-level"]))] = \
-            str(int(rng.integers(1, 16)))
+    if rng.random() < 0.25:         # film grain: a test vector or the
+        if rng.random() < 0.75:     # denoiser's noise model
+            adv["film-grain-test"] = str(int(rng.integers(1, 17)))
+        else:
+            adv["denoise-noise-level"] = str(int(rng.integers(1, 51)))
     if rng.random() < 0.5:
         adv["tile-columns"] = str(int(rng.integers(0, 3)))
     if rng.random() < 0.5:
@@ -82,6 +87,50 @@ def random_file(rng):
         opts["subsampling"] = str(rng.choice(["4:4:4", "4:2:2", "4:0:0"]))
     return oracle.pillow_avif(img, **opts), (
         h, w, kind, dict(writer="pillow", alpha=img.shape[2] == 4, **opts))
+
+
+def random_grid(rng):
+    """(bytes, a description) of a random grid file: one writer's tiles
+    (random_file's, re-encoded from crops of one image) in a rows x
+    columns grid whose output size the last row and column overlap."""
+    rows, cols = int(rng.integers(1, 3)), int(rng.integers(1, 4))
+    if rows * cols == 1:
+        cols = 2
+    tw, th = (2 * int(rng.integers(32, 100)) for _ in range(2))
+    w = tw * (cols - 1) + 2 * int(rng.integers(1, tw // 2 + 1))
+    h = th * (rows - 1) + 2 * int(rng.integers(1, th // 2 + 1))
+    _, desc = random_file(rng)
+    # the same writer and options again, on each tile of one image
+    kind, opts = desc[2], desc[3]
+    img = (oracle.screen_image(kind, th * rows, tw * cols, rng)
+           if kind in oracle.SCREEN_KINDS else
+           oracle.avif_image(kind, th * rows, tw * cols, rng))
+    if opts["writer"] == "cv2":
+        if opts["gray"]:
+            img = img[..., 1]
+        if opts["depth"] > 8:
+            img = oracle.deepen(img, rng)
+        depth = None if opts["depth"] == 8 else opts["depth"]
+        write = lambda t: oracle.cv2_avif(t, opts["quality"], depth)  # noqa
+    else:
+        if opts["alpha"]:
+            img = np.concatenate([img, oracle.screen_image(
+                "blocks", th * rows, tw * cols, rng)[..., :1]], -1)
+        keys = ("quality", "advanced", "subsampling")
+        pil = {k: opts[k] for k in keys if k in opts}
+        write = lambda t: oracle.pillow_avif(t, **pil)  # noqa
+    files = [write(t) for t in oracle.split_tiles(img, rows, cols, tw, th)]
+    tiles = [oracle.tile_item(f) for f in files]
+    alpha = None
+    if opts["writer"] == "pillow" and opts["alpha"]:
+        alpha = []
+        for f in files:
+            _, _, aobu, aprops = oracle.alpha_parts(f)
+            alpha.append((aobu, [(b, e) for b, e in aprops
+                                 if b[4:8] != b"auxC"]))
+        alpha = (alpha, rows, cols)
+    return oracle.grid_avif(tiles, rows, cols, w, h, alpha=alpha), (
+        h, w, kind, dict(opts, grid=(rows, cols, tw, th)))
 
 
 def tools(data: bytes):
@@ -109,14 +158,15 @@ def main():
     a = p.parse_args()
     rng = np.random.default_rng(a.seed)
     counts = dict(files=0, equal=0, both_refuse=0, not_yet=0, writer_fail=0,
-                  mismatch=0, cv2=0, pillow=0, palette=0, intrabc=0,
-                  not_yet_kinds={})
+                  mismatch=0, cv2=0, pillow=0, grid=0, grain=0, palette=0,
+                  intrabc=0, not_yet_kinds={})
     end = time.time() + a.seconds
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sweep.avif")
         while time.time() < end:
             try:
-                data, desc = random_file(rng)
+                data, desc = random_grid(rng) if rng.random() < 0.1 else \
+                    random_file(rng)
             except Exception:             # a writer refusing its options
                 counts["writer_fail"] += 1
                 continue
@@ -124,6 +174,9 @@ def main():
                 f.write(data)
             counts["files"] += 1
             counts[desc[3]["writer"]] += 1
+            counts["grid"] += "grid" in desc[3]
+            grain = str(desc[3].get("advanced", {}))
+            counts["grain"] += "grain" in grain or "denoise" in grain
             want = cv2.imread(path)
             try:
                 got = read_image(path)

@@ -1,14 +1,16 @@
 """Writes the generated table block of
 ``gsplat_tpu_torch/csrc/avif_codec.cpp``: the constant tables of the AV1
 intra decoder (the default CDFs, the quantizer lookups and matrices, the
-default scans, the intra predictors' tables), read out of the libaom that
+default scans, the intra predictors' tables, film grain's Gaussian
+sequence), read out of the libaom that
 cv2's wheel bundles (``opencv_python.libs/libaom-*.so.3.*``).
 
     python tests/torch_make_av1_tables.py    # needs the opencv-python wheel
 
 That library keeps its ELF symbol table: each big table is a named object
 (``av1_default_coeff_base_multi_cdfs``, ``dc_qlookup_QTX``,
-``iwt_matrix_ref``, ``default_scan_8x4``, ...) read from ``.rodata`` at the
+``iwt_matrix_ref``, ``default_scan_8x4``, film grain's
+``gaussian_sequence``, ...) read from ``.rodata`` at the
 symbol's address.  The few small mode CDFs that the compiler folded into
 vector constants (angle delta, skip, delta q, transform depth, filter intra,
 CfL) have no symbol: they are written here with the specification's values,
@@ -229,6 +231,8 @@ SPEC_ROWS = {
                      32762, 32767, 32768, 0], None),
     "kInterTxTypeSet3Cdf": ([16384, 32768, 0], [748, 32768, 0]),
     "kAcQLookup": ([4, 8, 9, 10, 11, 12, 13, 14], [29247]),
+    "kGaussianSequence": ([56, 568, -180, 172, 124, -84, 172, -64],
+                          [428, -484]),
 }
 
 
@@ -414,6 +418,9 @@ def collect(elf: Elf):
                                                for c in comp]))
     t["kMvBitCdf"] = ("uint16_t", np.stack([cdf_from_icdf(
         c[39:69].reshape(10, 3), 2) for c in comp]))
+    # film grain: the specification's Gaussian_Sequence (libaom's ints)
+    t["kGaussianSequence"] = ("int16_t", elf.table("gaussian_sequence",
+                                                   "<i4", (2048,)))
     for name, (_, arr) in t.items():
         check_rows(name, arr)
     return t, nz

@@ -32,9 +32,11 @@ cv2's default JP2 bytes and of two resizes of the 1297x840 timing view;
 a tool the port does not decode yet (it must raise naming them and saying
 so), ``TIMING_AVIF`` the SHA-256s of cv2's decodes of the full-size AVIF
 views, ``AVIF_MID`` holds cv2's default AVIF copies of the 24 views of
-``make_synth_scene`` ``mid`` (seed 0), and ``AVIF_MID_SCREEN`` Pillow's
-(tune-content=screen, 4:2:2, an alpha item), for chip_smoke's AVIF
-training legs (``--avif MID_SCENE`` writes both from the scene's folder).
+``make_synth_scene`` ``mid`` (seed 0), ``AVIF_MID_SCREEN`` Pillow's
+(tune-content=screen, 4:2:2, an alpha item) and ``AVIF_MID_GRAIN``
+Pillow's with film grain (libaom's 16 test vectors, then its denoiser),
+for chip_smoke's AVIF training legs (``--avif MID_SCENE`` writes the three
+from the scene's folder).
 
 The writers: a small C program, built here, over the system libjpeg-turbo
 (arithmetic-coded JPEG with DAC conditioning, YCCK, 2 components) and over
@@ -240,7 +242,10 @@ TIMING_CV2 = {
 # CDEF and quantizer matrices on); an unknown property not marked essential;
 # Pillow's 4:2:2, 4:0:0 and RGBA (an alpha item), flat blocks of a few
 # colours under tune-content=screen (palette) and text-like rows (palette
-# and intra block copy)
+# and intra block copy); film grain (libaom's test vector 1, its denoiser,
+# and test vector 9 in an RGBA file's colour and alpha); grids of cv2's
+# tiles (2x2 of 4:2:0, a 3x1 of 4:4:4 with a grid alpha of Pillow's grain
+# tiles)
 AVIF_CASES = [
     "avif_cv2_default.avif", "avif_cv2_q90.avif", "avif_cv2_lossless.avif",
     "avif_cv2_d10.avif", "avif_cv2_d12.avif", "avif_cv2_1x1.avif",
@@ -248,14 +253,17 @@ AVIF_CASES = [
     "avif_pil_444.avif", "avif_pil_sb128.avif", "avif_pil_cdef_qm.avif",
     "avif_unknown_property.avif", "avif_pil_422.avif", "avif_pil_400.avif",
     "avif_pil_alpha.avif", "avif_pil_palette.avif",
-    "avif_pil_intrabc.avif",
+    "avif_pil_intrabc.avif", "avif_pil_grain.avif", "avif_pil_denoise.avif",
+    "avif_pil_grain_alpha.avif", "avif_grid.avif", "avif_grid_alpha.avif",
 ]
 # libavif refuses: no ispe, an item past the end of the file, an unknown
-# essential property, a file cut short
+# essential property, a file cut short; libaom's grain checks (15 luma
+# scaling points) and libavif's grid rules (a 2x2 grid of 3 tiles)
 AVIF_REFUSED = ["avif_no_ispe.avif", "avif_iloc_past_end.avif",
-                "avif_essential_unknown.avif", "avif_cut.avif"]
-# cv2 reads them; the port does not yet: film grain, a rotation
-AVIF_UNPORTED = ["avif_pil_grain.avif", "avif_irot.avif"]
+                "avif_essential_unknown.avif", "avif_cut.avif",
+                "avif_grain_15_points.avif", "avif_grid_3_tiles.avif"]
+# cv2 reads it; the port does not yet: a rotation
+AVIF_UNPORTED = ["avif_irot.avif"]
 CASES += AVIF_CASES
 REFUSED += AVIF_REFUSED
 # full-size AVIF views for chip_smoke's decode seconds and the SHA-256 of
@@ -264,7 +272,9 @@ REFUSED += AVIF_REFUSED
 # 320x208 crop of it, and Pillow's 4x2 tiles and 4:4:4 lossy; Pillow's
 # tune-content=screen of TIMING under a 320-row band of text-like glyphs
 # (palette and intra block copy), its 4:2:2 and 4:0:0, and TIMING with
-# SCREEN_ALPHA as an alpha item
+# SCREEN_ALPHA as an alpha item; Pillow's film grain (libaom's test vector
+# 1) and denoiser (noise level 25) at its default quality, and a 3x2 grid
+# of Pillow's 4:4:4 tiles of 433x420
 TIMING_AVIF = {
     "timing_default_1297x840.avif": ("bfd7f5cfbcc1f8e6d44dba6fdc4ccc94"
                                      "6cbe3178ace04890bffad5c2baaf1a2c"),
@@ -286,9 +296,19 @@ TIMING_AVIF = {
                                  "e0291a34ab56fe48877c4b2e2b502476"),
     "timing_alpha_1297x840.avif": ("127eac07f5789c01fb9aa2a6e8b9459b"
                                    "71a900963f2b1fbdb9b1ad5adb078b70"),
+    "timing_grain_1297x840.avif": ("35ef19fd17df6a60472dce192d368181"
+                                   "c48cdfe221142f09254b5fd9a96bd6b2"),
+    "timing_denoise_1297x840.avif": ("3f817b313b77b2b94306f6e5a4e312ce"
+                                     "0056ddbc19abf2d845c0b25eef2b3c9c"),
+    "timing_grid_1297x840.avif": ("6a9dcc009e160045f293cbb533cd2a52"
+                                  "fa6f0905ca0acb5a1850a873b7ea14fd"),
 }
 # cv2's default AVIF copies of make_synth_scene --preset mid's 24 views
 AVIF_MID = "avif_mid"
+# Pillow's copies of the same views with film grain: views 0-15 libaom's
+# test vectors 1-16, the rest its denoiser at AVIF_DENOISE
+AVIF_MID_GRAIN = "avif_mid_grain"
+AVIF_DENOISE = "25"
 # Pillow's copies of the same views with tune-content=screen, 4:2:2 and
 # SCREEN_ALPHA as an alpha item
 AVIF_MID_SCREEN = "avif_mid_screen"
@@ -743,8 +763,8 @@ def generate_avif(folder: str = FOLDER, mid_scene: str | None = None
                   ) -> dict:
     """The AVIF fixtures of AVIF_CASES, AVIF_REFUSED, AVIF_UNPORTED and
     TIMING_AVIF (and, given the folder of make_synth_scene --preset mid,
-    AVIF_MID's and AVIF_MID_SCREEN's views); returns TIMING_AVIF's
-    SHA-256s."""
+    AVIF_MID's, AVIF_MID_SCREEN's and AVIF_MID_GRAIN's views); returns
+    TIMING_AVIF's SHA-256s."""
     import hashlib
 
     import cv2
@@ -799,9 +819,35 @@ def generate_avif(folder: str = FOLDER, mid_scene: str | None = None
     save("avif_pil_intrabc.avif", oracle.pillow_avif(
         oracle.screen_image("text", 200, 300, np.random.default_rng(4)),
         advanced=screen))
-    # what cv2 reads and the port does not yet
     save("avif_pil_grain.avif", oracle.pillow_avif(
         big, advanced={"film-grain-test": "1"}))
+    save("avif_pil_denoise.avif", oracle.pillow_avif(
+        big, advanced={"denoise-noise-level": AVIF_DENOISE}))
+    save("avif_pil_grain_alpha.avif", oracle.pillow_avif(
+        np.dstack([big, big[..., 1:2]]), advanced={"film-grain-test": "9"}))
+    obu, props = oracle.item_parts(data)
+    g = oracle.grain_dict(oracle.port_grain_params(oracle.item_parts(
+        oracle.pillow_avif(big, advanced={"film-grain-test": "1"}))[0])[1])
+    g["y"] = [(16 * i, 5 + i) for i in range(15)]
+    save("avif_grain_15_points.avif", oracle.build_avif(
+        oracle.with_grain(obu, g), props))
+    tiles = [oracle.tile_item(oracle.cv2_avif(t)) for t in
+             oracle.split_tiles(big, 2, 2, 64, 64)]
+    save("avif_grid.avif", oracle.grid_avif(tiles, 2, 2, 104, 72))
+    save("avif_grid_3_tiles.avif", oracle.grid_avif(tiles, 2, 2, 104, 72,
+                                                    dimg=[0, 1, 2]))
+    wide = oracle.avif_image("photo", 64, 150, rng)
+    tiles = [oracle.tile_item(oracle.pillow_avif(t, subsampling="4:4:4"))
+             for t in oracle.split_tiles(wide, 1, 3, 64, 64)]
+    alpha = []
+    for t in oracle.split_tiles(wide, 1, 2, 80, 64):
+        _, _, aobu, aprops = oracle.alpha_parts(oracle.pillow_avif(
+            np.dstack([t, t[..., :1]]), advanced={"film-grain-test": "3"}))
+        alpha.append((aobu, [(b, e) for b, e in aprops
+                             if b[4:8] != b"auxC"]))
+    save("avif_grid_alpha.avif", oracle.grid_avif(tiles, 1, 3, 150, 64,
+                                                  alpha=(alpha, 1, 2)))
+    # what cv2 reads and the port does not yet
     save("avif_irot.avif", oracle.insert_property(
         data, struct.pack(">I4sB", 9, b"irot", 1), True))
     # the full-size views
@@ -820,21 +866,33 @@ def generate_avif(folder: str = FOLDER, mid_scene: str | None = None
     save(names[8], oracle.pillow_avif(view, subsampling="4:0:0"))
     save(names[9], oracle.pillow_avif(np.dstack([view, screen_alpha(
         *view.shape[:2])])))
+    save(names[10], oracle.pillow_avif(view, advanced={
+        "film-grain-test": "1"}))
+    save(names[11], oracle.pillow_avif(view, advanced={
+        "denoise-noise-level": AVIF_DENOISE}))
+    tiles = [oracle.tile_item(oracle.pillow_avif(t, subsampling="4:4:4"))
+             for t in oracle.split_tiles(view, 2, 3, 433, 420)]
+    save(names[12], oracle.grid_avif(tiles, 2, 3, view.shape[1],
+                                     view.shape[0]))
     shas = {}
     for name in names:
         dec = np.ascontiguousarray(cv2.imread(p(name))[..., ::-1])
         shas[name] = hashlib.sha256(dec.tobytes()).hexdigest()
     if mid_scene is not None:
         src = os.path.join(mid_scene, "images_4")
-        for sub in (AVIF_MID, AVIF_MID_SCREEN):
+        for sub in (AVIF_MID, AVIF_MID_SCREEN, AVIF_MID_GRAIN):
             os.makedirs(p(sub), exist_ok=True)
-        for name in sorted(os.listdir(src)):
+        for k, name in enumerate(sorted(os.listdir(src))):
             bgr = cv2.imread(os.path.join(src, name))
             save(os.path.join(AVIF_MID, name[:-4] + ".avif"),
                  oracle.cv2_avif(bgr))
             rgba = np.dstack([bgr, screen_alpha(*bgr.shape[:2])])
             save(os.path.join(AVIF_MID_SCREEN, name[:-4] + ".avif"),
                  oracle.pillow_avif(rgba, **AVIF_SCREEN_OPTS))
+            grain = {"film-grain-test": str(k + 1)} if k < 16 else {
+                "denoise-noise-level": AVIF_DENOISE}
+            save(os.path.join(AVIF_MID_GRAIN, name[:-4] + ".avif"),
+                 oracle.pillow_avif(bgr, advanced=grain))
     return shas
 
 
