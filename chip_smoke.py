@@ -1606,13 +1606,13 @@ def at_scale_path(rz, dev):
         jpeg = jpeg_capture_path(rz, scene, root, png_log)
         png_leg, tiff_leg, webp_leg, jp2_leg, gif_leg = image_formats_path(
             rz, scene, root)
-        mid_png_leg, avif_leg, avif_screen_leg, avif_grain_leg = avif_path(
-            rz, root)
+        mid_png_leg, avif_leg, avif_screen_leg, avif_grain_leg, \
+            avif_avis_leg = avif_path(rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
             gif_leg, mid_png_leg, avif_leg, avif_screen_leg,
-            avif_grain_leg), scale_rows
+            avif_grain_leg, avif_avis_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -2174,13 +2174,16 @@ def image_formats_path(rz, scene, root):
 # a lossless 320x208 crop of it; Pillow's screen content (palette and intra
 # block copy), 4:2:2, 4:0:0, RGBA (an alpha item), film grain (libaom's
 # test vector 1) and denoiser files of it, and a 3x2 grid of Pillow's
-# 4:4:4 tiles of it
+# 4:4:4 tiles of it; Pillow's two-frame image sequences (avis) of it at its
+# default, speed 3, speed 2 and aq-mode=1 (AVIS_TOOLS)
 AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_d12_1297x840.avif", "timing_lossless_320x208.avif",
               "timing_screen_1297x840.avif", "timing_422_1297x840.avif",
               "timing_400_1297x840.avif", "timing_alpha_1297x840.avif",
               "timing_grain_1297x840.avif", "timing_denoise_1297x840.avif",
-              "timing_grid_1297x840.avif")
+              "timing_grid_1297x840.avif", "timing_avis_1297x840.avif",
+              "timing_avis_s3_1297x840.avif", "timing_avis_s2_1297x840.avif",
+              "timing_avis_aq_1297x840.avif")
 AVIF_REPS = 3
 # the view whose palette and intra block copy blocks the phase counts
 AVIF_SCREEN_VIEW = "timing_screen_1297x840.avif"
@@ -2188,6 +2191,18 @@ AVIF_SCREEN_VIEW = "timing_screen_1297x840.avif"
 AVIF_GRAIN_VIEWS = ("timing_grain_1297x840.avif",
                     "timing_denoise_1297x840.avif")
 AVIF_GRID_VIEW = "timing_grid_1297x840.avif"
+# each image sequence view, the tools its first frame must be shown to use
+# (decode_av1's counts above 0): loop restoration's switchable frames and
+# self-guided units, 128x128 superblocks and 2x2 tiles at speed 3, Wiener
+# units at speed 2, blocks of two segment ids at aq-mode=1
+AVIS_TOOLS = {
+    "timing_avis_1297x840.avif": (),
+    "timing_avis_s3_1297x840.avif": ("switchable", "sgrproj_units",
+                                     "sb128", "tiles_2x2"),
+    "timing_avis_s2_1297x840.avif": ("wiener_units",),
+    "timing_avis_aq_1297x840.avif": ("segment_0_blocks",
+                                     "segment_1_blocks"),
+}
 
 
 def avif_path(rz, root):
@@ -2195,23 +2210,28 @@ def avif_path(rz, root):
     (torch_make_image_fixtures.TIMING_AVIF: cv2's default, 10-bit, 12-bit
     and lossless files of the 1297x840 view or a crop of it, Pillow's 4x2
     tiles, 4:4:4, screen content, 4:2:2, 4:0:0, RGBA, film grain, the
-    denoiser, a grid) decoded by read_avif, each decode held to the SHA-256
-    of cv2's, AVIF_TIMED's over AVIF_REPS calls each (the line ``avif
-    decode seconds: {...}``), the palette and intra block copy blocks of
-    AVIF_SCREEN_VIEW counted by the decoder (both above 0), the grain of
-    AVIF_GRAIN_VIEWS applied and AVIF_GRID_VIEW's tiles counted; (b)
-    make_synth_scene's mid preset (seed 0: 24 views at 640x416) built on
-    the card, and three copies of it whose images.bin names the committed
-    AVIF_MID views (cv2's default AVIF of the same preset's views built on a
-    CPU), the committed AVIF_MID_SCREEN views (Pillow's tune-content=screen,
-    4:2:2, with an alpha item) and the committed AVIF_MID_GRAIN views
-    (Pillow's film grain: libaom's test vectors, its denoiser); each view's
-    mean |AVIF - PNG|; (c) run_garden_7k over iterations 0..JPEG_ITERS - 1
-    of the RGB schedule from the PNG scene and from each AVIF scene, each
-    AVIF leg's last logged l1 within d + JPEG_L1_DRIFT · l1_png of the PNG
-    leg's (d the largest per-view mean |AVIF - PNG| of its views, the JPEG
-    and GIF legs' rule), every leg's it/s.  → (the PNG leg's launches, the
-    cv2 AVIF leg's, the screen AVIF leg's, the grain AVIF leg's)."""
+    denoiser, a grid, and Pillow's two-frame image sequences) decoded by
+    read_avif, each decode held to the SHA-256 of cv2's, AVIF_TIMED's over
+    AVIF_REPS calls each (the line ``avif decode seconds: {...}``), the
+    palette and intra block copy blocks of AVIF_SCREEN_VIEW counted by the
+    decoder (both above 0), the grain of AVIF_GRAIN_VIEWS applied,
+    AVIF_GRID_VIEW's tiles counted, and each sequence's first frame read
+    from its track with the tools of AVIS_TOOLS counted above 0 (loop
+    restoration units by type, blocks by segment id); (b) make_synth_scene's
+    mid preset (seed 0: 24 views at 640x416) built on the card, and four
+    copies of it whose images.bin names the committed AVIF_MID views (cv2's
+    default AVIF of the same preset's views built on a CPU), the committed
+    AVIF_MID_SCREEN views (Pillow's tune-content=screen, 4:2:2, with an
+    alpha item), the committed AVIF_MID_GRAIN views (Pillow's film grain:
+    libaom's test vectors, its denoiser) and the committed AVIF_MID_AVIS
+    views (Pillow's image sequences at speeds 2-4, some with aq-mode=1);
+    each view's mean |AVIF - PNG|; (c) run_garden_7k over iterations
+    0..JPEG_ITERS - 1 of the RGB schedule from the PNG scene and from each
+    AVIF scene, each AVIF leg's last logged l1 within d + JPEG_L1_DRIFT ·
+    l1_png of the PNG leg's (d the largest per-view mean |AVIF - PNG| of its
+    views, the JPEG and GIF legs' rule), every leg's it/s.  → (the PNG
+    leg's launches, the cv2 AVIF leg's, the screen AVIF leg's, the grain
+    AVIF leg's, the avis leg's)."""
     import hashlib
 
     import torch
@@ -2275,6 +2295,22 @@ def avif_path(rz, root):
           f"tiles", flush=True)
     check(grid is not None and len(tiles) == 6,
           f"{AVIF_GRID_VIEW} is not a grid of 6 tiles: {grid}")
+    for name, needs in AVIS_TOOLS.items():
+        with open(os.path.join(fx.FOLDER, name), "rb") as f:
+            heif = image_io._Heif(f.read(), name)
+        heif.parse()
+        check(heif.source == "tracks", f"{name}: not read from its track")
+        info = image_io.decode_av1(heif.track_image(
+            heif.colour_track()[0])[0])[1]
+        tools = dict(switchable=int(3 in info[26:29]),
+                     sgrproj_units=info[30], wiener_units=info[29],
+                     sb128=info[12], tiles_2x2=int(info[10:12] == [2, 2]),
+                     segment_0_blocks=info[32], segment_1_blocks=info[33])
+        print(f"  {name}: loop restoration types (Y, U, V) {info[26:29]}, "
+              f"{json.dumps(tools)}", flush=True)
+        check(all(tools[k] > 0 for k in needs),
+              f"{name}: the first frame used none of some of {needs}: "
+              f"{tools}")
     # (b) the mid scene, from PNG and from the committed AVIFs
     scene = os.path.join(root, "mid")
     preset = make_synth_scene.PRESETS["mid"]
@@ -2291,7 +2327,8 @@ def avif_path(rz, root):
     scenes, means = {"png": scene}, {}
     for kind, folder in (("avif", fx.AVIF_MID),
                          ("avif_screen", fx.AVIF_MID_SCREEN),
-                         ("avif_grain", fx.AVIF_MID_GRAIN)):
+                         ("avif_grain", fx.AVIF_MID_GRAIN),
+                         ("avif_avis", fx.AVIF_MID_AVIS)):
         sc, images, _ = _format_scene(scene, root, f"scene_{kind}", ".avif")
         committed = os.path.join(fx.FOLDER, folder)
         avifs = sorted(os.listdir(committed))
@@ -2337,7 +2374,7 @@ def avif_path(rz, root):
         torch.cuda.empty_cache()
     png = l1_by_iteration(runs["png"][2])
     ps = runs["png"][0]
-    for kind in ("avif", "avif_screen", "avif_grain"):
+    for kind in ("avif", "avif_screen", "avif_grain", "avif_avis"):
         l1 = l1_by_iteration(runs[kind][2])
         check(len(l1) >= JPEG_ITERS // 50 and
               all(np.isfinite(list(l1.values()))),
@@ -2360,7 +2397,7 @@ def avif_path(rz, root):
     print(f"  the AVIF phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return runs["png"][1], runs["avif"][1], runs["avif_screen"][1], \
-        runs["avif_grain"][1]
+        runs["avif_grain"][1], runs["avif_avis"][1]
 
 
 def finite(x):
@@ -3696,8 +3733,8 @@ def main() -> int:
     # ---- 12. the at-scale run ----------------------------------------------
     (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg, at_scale_png,
      at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif, mid_png,
-     mid_avif, mid_avif_screen, mid_avif_grain), scale_rows = at_scale_path(
-        rz, dev)
+     mid_avif, mid_avif_screen, mid_avif_grain,
+     mid_avif_avis), scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -3748,6 +3785,7 @@ def main() -> int:
              "mid PNG 0-200 run": mid_png, "mid AVIF run": mid_avif,
              "mid AVIF screen run": mid_avif_screen,
              "mid AVIF grain run": mid_avif_grain,
+             "mid AVIF avis run": mid_avif_avis,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

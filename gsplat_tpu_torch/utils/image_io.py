@@ -2689,6 +2689,10 @@ def _load_avif_codec():
     lib.av1_film_grain.restype = None
     lib.av1_film_grain.argtypes = [vp] + [ctypes.c_int] * 6 + [
         vp, ctypes.c_int, vp, vp, ctypes.c_int]
+    i = ctypes.c_int
+    lib.av1_lr_wiener.restype = lib.av1_lr_sgr.restype = None
+    lib.av1_lr_wiener.argtypes = [vp, i, vp, i, i, i, vp, i]
+    lib.av1_lr_sgr.argtypes = [vp, i, vp, i, i, i, i, vp, i]
     return lib
 
 
@@ -2716,8 +2720,11 @@ def is_avif(head: bytes) -> bool:
 
 class _Heif:
     """The boxes of an AVIF file (ISO/IEC 14496-12 and 23008-12) as libavif
-    1.4.2 parses a still image: ``ftyp``, ``meta`` (``hdlr``, ``pitm``,
-    ``iloc``, ``iinf``, ``iprp``, ``iref``, ``idat``) and ``mdat``."""
+    1.4.2 parses them: ``ftyp``, ``meta`` (``hdlr``, ``pitm``, ``iloc``,
+    ``iinf``, ``iprp``, ``iref``, ``idat``), ``moov`` (an image sequence's
+    tracks) and ``mdat``.  ``source`` is what libavif's
+    ``AVIF_DECODER_SOURCE_AUTO`` reads: ``"item"`` (the primary item) or
+    ``"tracks"`` (the colour track's first sample)."""
 
     def __init__(self, data: bytes, path):
         self.data, self.path = data, path
@@ -2727,6 +2734,9 @@ class _Heif:
         self.idat = b""
         self.refs = []        # (type, from, [to])
         self.alpha = None     # the alpha item's id, once found
+        self.tracks = []      # moov's trak boxes, as parse_trak reads them
+        self.source = "item"
+        self.cut = None       # a top-level box cut at the end of the file
 
     def bad(self, why: str) -> RuntimeError:
         return RuntimeError(f"{self.path}: an AVIF file cv2 does not read: "
@@ -2754,8 +2764,10 @@ class _Heif:
                 hdr = 16
             elif size == 0:
                 size = end - pos
-            if top and kind != b"meta" and pos + size > end >= pos + hdr:
+            if top and kind not in (b"meta", b"moov") and \
+                    pos + size > end >= pos + hdr:
                 size = end - pos
+                self.cut = kind
             if size < hdr or pos + size > end:
                 raise self.bad(f"a {kind.decode('latin-1')!r} box past the "
                                f"end of its parent")
@@ -2763,29 +2775,50 @@ class _Heif:
             pos += size
 
     def parse(self):
+        """libavif's ``avifParse``: ``ftyp`` first; then ``meta`` where the
+        brands hold ``avif`` and ``moov`` where they hold ``avis``, the
+        parse ending once it has what the brands need (a box it skips may
+        not run past the end before then); then the source by the major
+        brand: ``avis`` the tracks, ``avif`` the item, any other the tracks
+        where ``moov`` held any."""
         d = self.data
-        seen_ftyp = seen_meta = False
+        seen_ftyp = seen_meta = seen_moov = False
+        needs_meta = needs_moov = False
+        major = None
         for kind, s, e in self.boxes(0, len(d), top=True):
             if not seen_ftyp:
                 if kind != b"ftyp":
                     raise self.bad("the first box is not ftyp")
                 seen_ftyp = True
                 major = d[s:s + 4]
-                compat = [d[i:i + 4] for i in range(s + 8, e - 3, 4)]
-                if major == b"avis" or (b"avis" in compat and
-                                        b"avif" not in compat and
-                                        major != b"avif"):
-                    raise self.unported("an image sequence (avis)")
-                if major not in AVIF_BRANDS and not any(
-                        b in AVIF_BRANDS for b in compat):
+                brands = [major] + [d[i:i + 4] for i in range(s + 8, e - 3, 4)]
+                if not any(b in AVIF_BRANDS for b in brands):
                     raise self.bad("no avif brand in ftyp")
+                needs_meta = b"avif" in brands
+                needs_moov = b"avis" in brands
             elif kind == b"meta":
+                if seen_meta:
+                    raise self.bad("a second meta box")
                 self.parse_meta(s, e)
                 seen_meta = True
-                break                 # libavif reads no further
             elif kind == b"moov":
-                raise self.unported("an image sequence (moov)")
-        if not seen_meta:
+                if seen_moov:
+                    raise self.bad("a second moov box")
+                self.parse_moov(s, e)
+                seen_moov = True
+            elif needs_moov and not seen_moov and self.cut == kind:
+                # a box libavif skips runs past the end before moov
+                raise self.bad(f"a {kind.decode('latin-1')!r} box past the "
+                               f"end of the file before moov")
+            if (not needs_meta or seen_meta) and (not needs_moov or seen_moov):
+                break                 # libavif reads no further
+        if needs_moov and not seen_moov:
+            raise self.bad("an avis file without moov")
+        if needs_meta and not seen_meta:
+            raise self.bad("no meta box")
+        if major == b"avis" or (major != b"avif" and self.tracks):
+            self.source = "tracks"
+        elif not seen_meta:
             raise self.bad("no meta box")
 
     def parse_meta(self, s: int, e: int):
@@ -2827,6 +2860,238 @@ class _Heif:
         if first:
             raise self.bad("a meta box without hdlr")
 
+    # ------------------------------------------------ an image sequence
+
+    def parse_moov(self, s: int, e: int):
+        """``moov`` as libavif's ``avifParseMovieBox``: an ``mvhd`` of
+        version 0 or 1, and each ``trak``."""
+        d = self.data
+        seen_mvhd = False
+        for kind, bs, be in self.boxes(s, e):
+            if kind == b"mvhd":
+                if be == bs or d[bs] > 1:
+                    raise self.bad("an mvhd box of an unknown version")
+                seen_mvhd = True
+            elif kind == b"trak":
+                self.parse_trak(bs, be)
+        if not seen_mvhd:
+            raise self.bad("a moov box without mvhd")
+
+    def parse_trak(self, s: int, e: int):
+        """A ``trak`` as libavif's ``avifParseTrackBox``: one ``tkhd`` (its
+        id and its size, 16.16 fixed point, neither side 0), ``mdia``,
+        ``tref`` (``auxl`` and ``prem``: the first track each names),
+        ``edts`` and a ``meta`` parsed with an item file's rules."""
+        d = self.data
+        track = dict(id=None, aux_for=0, prem_by=0, stbl=None)
+        seen_edts = False
+        for kind, bs, be in self.boxes(s, e):
+            if kind == b"tkhd":
+                if track["id"] is not None:
+                    raise self.bad("a trak box with two tkhd boxes")
+                rd = self.reader(bs, be)
+                version = rd(1)
+                rd(3)
+                if version > 1:
+                    raise self.bad(f"a tkhd box of version {version}")
+                n = 8 if version == 1 else 4
+                rd(n)
+                rd(n)
+                track["id"] = rd(4)
+                rd(4)
+                track["duration"] = rd(n)
+                rd(52)
+                track["width"], track["height"] = rd(4) >> 16, rd(4) >> 16
+                if not track["width"] or not track["height"]:
+                    raise self.bad("a track of no size")
+                if track["width"] * track["height"] > 16384 * 16384 or \
+                        max(track["width"], track["height"]) > 32768:
+                    raise self.bad("a track larger than libavif's limits")
+            elif kind == b"mdia":
+                self.parse_mdia(track, bs, be)
+            elif kind == b"tref":
+                for rkind, rs, re_ in self.boxes(bs, be):
+                    if rkind in (b"auxl", b"prem"):
+                        if re_ - rs < 4:
+                            raise self.bad("a track reference cut short")
+                        track["aux_for" if rkind == b"auxl" else "prem_by"] = \
+                            int.from_bytes(d[rs:rs + 4], "big")
+            elif kind == b"edts":
+                if seen_edts:
+                    raise self.bad("a trak box with two edts boxes")
+                seen_edts = True
+                repeating = self.parse_edts(bs, be)
+            elif kind == b"meta":
+                _Heif(d, self.path).parse_meta(bs, be)
+        if track["id"] is None:
+            raise self.bad("a trak box without tkhd")
+        if seen_edts and repeating and track["duration"] == 0:
+            # libavif counts the repetitions over the track's duration
+            raise self.bad("a repeating track of duration 0")
+        self.tracks.append(track)
+
+    def parse_edts(self, s: int, e: int):
+        """``edts`` holds one ``elst``; a repeating one (flag 1) one entry
+        whose segment_duration is not 0.  → whether it repeats."""
+        seen = repeating = False
+        for kind, bs, be in self.boxes(s, e):
+            if kind != b"elst":
+                continue
+            if seen:
+                raise self.bad("an edts box with two elst boxes")
+            seen = True
+            rd = self.reader(bs, be)
+            version, flags = rd(1), rd(3)
+            repeating = bool(flags & 1)
+            if not repeating:
+                continue
+            if rd(4) != 1:
+                raise self.bad("a repeating elst of other than one entry")
+            if version > 1:
+                raise self.bad(f"an elst box of version {version}")
+            if not rd(8 if version == 1 else 4):
+                raise self.bad("an elst segment_duration of 0")
+        if not seen:
+            raise self.bad("an edts box without elst")
+        return repeating
+
+    def parse_mdia(self, track: dict, s: int, e: int):
+        """``mdia``: ``mdhd`` of version 0 or 1, ``minf``'s ``stbl``."""
+        d = self.data
+        for kind, bs, be in self.boxes(s, e):
+            if kind == b"mdhd":
+                if be == bs or d[bs] > 1:
+                    raise self.bad("an mdhd box of an unknown version")
+            elif kind == b"minf":
+                for mkind, ms, me in self.boxes(bs, be):
+                    if mkind == b"stbl":
+                        if track["stbl"] is not None:
+                            raise self.bad("a track with two stbl boxes")
+                        track["stbl"] = self.parse_stbl(ms, me)
+
+    def parse_stbl(self, s: int, e: int) -> dict:
+        """The sample table as libavif's ``avifParseSampleTableBox`` reads
+        it (every full box of version 0): ``stco``/``co64`` chunk offsets,
+        ``stsc`` (first chunks from 1, increasing), ``stsz``, ``stss``,
+        ``stts`` and ``stsd``'s sample entries with an ``av01`` entry's
+        properties after its 78-byte VisualSampleEntry."""
+        d = self.data
+        t = dict(chunks=[], stsc=[], size=0, sizes=[], entries=[])
+        for kind, bs, be in self.boxes(s, e):
+            if kind not in (b"stco", b"co64", b"stsc", b"stsz", b"stss",
+                            b"stts", b"stsd"):
+                continue
+            rd = self.reader(bs, be)
+            if rd(1) != 0:
+                raise self.bad(f"a {kind.decode('latin-1')} box of an "
+                               f"unknown version")
+            rd(3)
+            if kind in (b"stco", b"co64"):
+                n = 8 if kind == b"co64" else 4
+                t["chunks"] += [rd(n) for _ in range(rd(4))]
+            elif kind == b"stsc":
+                for i in range(rd(4)):
+                    first, per, _ = rd(4), rd(4), rd(4)
+                    if (i == 0 and first != 1) or \
+                            (i and first <= t["stsc"][-1][0]):
+                        raise self.bad("stsc's first chunks do not start at "
+                                       "1 and increase")
+                    t["stsc"].append((first, per))
+            elif kind == b"stsz":
+                t["size"], count = rd(4), rd(4)
+                if not t["size"]:
+                    t["sizes"] = [rd(4) for _ in range(count)]
+            elif kind == b"stss":       # sample numbers, each read
+                rd(4 * rd(4))
+            elif kind == b"stts":       # (count, delta) pairs, each read
+                rd(8 * rd(4))
+            else:
+                pos = bs + 8
+                count = int.from_bytes(d[bs + 4:bs + 8], "big")
+                entries = list(self.boxes(pos, be))
+                if len(entries) < count:
+                    raise self.bad(f"stsd counts {count} entries and holds "
+                                   f"{len(entries)}")
+                for ekind, es, ee in entries[:count]:
+                    props = None
+                    if ekind == b"av01":
+                        if ee - es < 78:
+                            raise self.bad("an av01 sample entry cut short")
+                        props = {}
+                        for pkind, ps, pe in self.boxes(es + 78, ee):
+                            payload = d[ps:pe]
+                            if pkind in _AVIF_VERSIONS and (
+                                    not payload or payload[0] not in
+                                    _AVIF_VERSIONS[pkind]):
+                                raise self.bad(f"a {pkind.decode('latin-1')}"
+                                               f" box of an unknown version")
+                            props.setdefault(pkind, payload)
+                    t["entries"].append((ekind, props))
+        return t
+
+    def samples(self, track: dict):
+        """The (offset, size) of each sample of a track, as libavif's
+        ``avifCodecDecodeInputFillFromSampleTable`` lays them out: chunk by
+        chunk, each chunk's count the last ``stsc`` entry whose first chunk
+        is at most its number (0 refused), sizes from ``stsz``; a sample
+        past the end of the file or of size 0 refused.  libavif takes the
+        first sample as a sync sample whatever ``stss`` says."""
+        t = track["stbl"]
+        out = []
+        for k, off in enumerate(t["chunks"]):
+            per = 0
+            for first, n in reversed(t["stsc"]):
+                if first <= k + 1:
+                    per = n
+                    break
+            if not per:
+                raise self.bad("a chunk of no samples")
+            for _ in range(per):
+                if t["size"]:
+                    size = t["size"]
+                elif len(out) < len(t["sizes"]):
+                    size = t["sizes"][len(out)]
+                else:
+                    raise self.bad("a sample table cut short")
+                if off + size > len(self.data):
+                    raise self.bad("a sample past the end of the file")
+                out.append((off, size))
+                off += size
+        if any(size == 0 for _, size in out):
+            raise self.bad("a sample of size 0")
+        return out
+
+    def usable(self, track: dict) -> bool:
+        """A track libavif's decoder takes: a sample table with chunks and
+        an ``av01`` sample entry."""
+        t = track["stbl"]
+        return bool(track["id"] and t and t["chunks"] and
+                    any(k == b"av01" for k, _ in t["entries"]))
+
+    def track_image(self, track: dict):
+        """(first sample's OBUs, its av01 entry's properties) of a track."""
+        props = next(p for k, p in track["stbl"]["entries"] if k == b"av01")
+        off, size = self.samples(track)[0]
+        return self.data[off:off + size], props
+
+    def colour_track(self):
+        """The colour track (libavif's: the first usable track that is not
+        auxiliary) and its alpha track (the first usable track whose
+        ``auxl`` names it) or None, each with every sample laid out."""
+        colour = next((t for t in self.tracks if self.usable(t) and
+                       not t["aux_for"]), None)
+        if colour is None:
+            raise self.bad("no AV1 colour track")
+        alpha = next((t for t in self.tracks if self.usable(t) and
+                      t["aux_for"] == colour["id"]), None)
+        if alpha is not None and colour["prem_by"] == alpha["id"]:
+            raise self.unported("a premultiplied alpha (prem)")
+        # libavif lays out every sample of both tracks before decoding
+        for t in (colour, alpha):
+            if t is not None:
+                self.samples(t)
+        return colour, alpha
+
     def signature_check(self, grids):
         """Raises where OpenCV's own signature test refuses the file:
         cv2's ``AvifDecoder::checkSignature`` runs libavif's
@@ -2836,10 +3101,13 @@ class _Heif:
         byte or lies past it (a box before ``meta`` running past it), and,
         where the whole ``meta`` lies in those bytes, where the payload of
         a grid item libavif reads then (``grids``: the primary and alpha
-        grid items) begins past them."""
+        grid items) begins past them.  An image sequence's parse goes on to
+        ``moov`` as the brands ask (Pillow's ``moov`` runs past the 500th
+        byte, and the parse runs out of data)."""
         d = self.data[:500]
         n = len(d)
         pos = 0
+        needs, seen = set(), set()
         while True:
             if pos >= n or n - pos < 8:
                 raise self.bad("a box header past OpenCV's 500-byte "
@@ -2850,11 +3118,17 @@ class _Heif:
                     raise self.bad("a box header past OpenCV's 500-byte "
                                    "signature test")
                 size, = struct.unpack_from(">Q", d, pos + 8)
-            if kind in (b"ftyp", b"meta") and (size == 0 or
-                                               pos + size > n):
+            if kind in (b"ftyp", b"meta", b"moov") and (size == 0 or
+                                                        pos + size > n):
                 return                    # libavif runs out of data
-            if kind == b"meta":
-                break
+            if pos == 0:
+                brands = [d[i:i + 4] for i in range(8, size - 3, 4)]
+                needs = {b"meta"} if b"avif" in brands else set()
+                needs |= {b"moov"} if b"avis" in brands else set()
+            elif kind in (b"meta", b"moov"):
+                seen.add(kind)
+                if needs <= seen:
+                    break
             if size < 8:                  # to the end, before meta
                 raise self.bad("a box before meta running to the end")
             pos += size
@@ -3327,8 +3601,9 @@ def avif_planes_to_rgb(planes, depth: int, subx: int, suby: int,
 
 
 def decode_av1(obu: bytes, path="image", grain: bool = True):
-    """The OBUs of an AV1 still image → ([Y, U, V] uint16 planes, or [Y]
-    for a monochrome frame, info): info is (width, height, bit depth,
+    """The OBUs of an AV1 image (a still item's, or a sequence's first
+    sample; of its frames, the last one shown) → ([Y, U, V] uint16 planes,
+    or [Y] for a monochrome frame, info): info is (width, height, bit depth,
     subsampling x, subsampling y, monochrome, colour primaries, transfer,
     matrix, full range) from the sequence header, then the tools the frame
     used (tile columns and rows, 128x128 superblocks, CDEF, quantizer
@@ -3336,8 +3611,11 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
     tools, intra block copy allowed), the palette and intra block copy
     blocks decoded and whether film grain was applied; then where the
     frame header lies (its OBU payload's offset in ``obu``, the bit of its
-    film grain fields, its bytes).  With ``grain`` False the planes are
-    the frame before its film grain."""
+    film grain fields, its bytes); then loop restoration's frame type of
+    each plane (0 none, 1 Wiener, 2 self-guided, 3 switchable), the Wiener
+    and self-guided units decoded, whether segmentation is enabled and the
+    blocks of each of the 8 segment ids.  With ``grain`` False the planes
+    are the frame before its film grain."""
     import ctypes
 
     lib = _load_avif_codec()
@@ -3352,7 +3630,7 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
                                f"does)")
         raise RuntimeError(f"{path}: AV1 data cv2 does not read: {msg}")
     try:
-        info = (ctypes.c_longlong * 26)()
+        info = (ctypes.c_longlong * 40)()
         lib.av1_info(handle, info)
         info = list(info)
         width, height, _, subx, suby, mono = info[:6]
@@ -3421,9 +3699,52 @@ def _avif_assemble(heif: _Heif, tiles, grid, path, alpha: bool = False):
     return out, [out_w, out_h] + list(info0[2:])
 
 
+def _avif_sequence(heif: _Heif, path):
+    """The first frame of an image sequence's colour track, as libavif
+    decodes it for cv2 → (planes, info, properties, gray); the alpha
+    track's first frame decoded and checked as an alpha item's."""
+    colour, alpha = heif.colour_track()
+    obu, props = heif.track_image(colour)
+    for kind, what in ((b"irot", "a rotation (irot)"),
+                       (b"imir", "a mirroring (imir)"),
+                       (b"clap", "a clean aperture (clap)")):
+        if kind in props:
+            raise heif.unported(what)
+    if b"av1C" not in props:
+        raise heif.bad("the colour track has no av1C")
+    gray = _avif_check_properties(heif, props)
+    if alpha is not None:
+        aobu, aprops = heif.track_image(alpha)
+        if b"av1C" not in aprops:
+            raise heif.bad("the alpha track has no av1C")
+        _avif_check_properties(heif, aprops)
+    heif.signature_check([])
+    planes, info = decode_av1(obu, path)
+    if tuple(info[:2]) != (colour["width"], colour["height"]):
+        raise heif.unported(f"a {info[0]}x{info[1]} frame in a track whose "
+                            f"tkhd differs")
+    if alpha is not None:
+        _, ainfo = decode_av1(aobu, path)
+        if ainfo[2] != info[2]:
+            raise heif.bad(f"a {ainfo[2]}-bit alpha frame for a {info[2]}-bit "
+                           f"image")
+    if gray and alpha is not None:
+        raise heif.bad("a gray image with an alpha track")
+    return planes, info, props, gray
+
+
 def _decode_avif_bytes(data: bytes, path):
     heif = _Heif(data, path)
     heif.parse()
+    if heif.source == "tracks":
+        planes, info, props, gray = _avif_sequence(heif, path)
+        depth, subx, suby = info[2:5]
+        if gray:
+            return avif_gray(planes[0], depth)
+        nclx = _avif_nclx(props)
+        matrix, full = nclx if nclx is not None else (info[8], bool(info[9]))
+        return avif_planes_to_rgb(planes, depth, subx, suby, matrix, full,
+                                  path)
     tiles, props, grid = heif.primary_image()
     ispe = props[b"ispe"]
     if len(ispe) < 12:
@@ -3468,21 +3789,25 @@ def read_avif(path) -> np.ndarray:
     """An AVIF file → (H, W, 3) uint8 RGB, bit for bit what
     ``cv2.imread(path)[..., ::-1]`` gives (cv2 5.0.0 with libavif 1.4.2,
     libaom 3.14.1 and libyuv 1924): the container parsed here as libavif
-    parses a still image, the AV1 key frame decoded by the port's own
-    decoder (``csrc/avif_codec.cpp``), the YUV → RGB of libavif and libyuv.
-    Reads what cv2's and Pillow's writers make: 8, 10 and 12 bits, 4:2:0,
-    4:2:2, 4:4:4 and 4:0:0 (gray: the luma as OpenCV copies it), lossless
-    too, any tiling, 64x64 or 128x128 superblocks, CDEF, quantizer
+    parses it (a still image's primary item, or an image sequence's colour
+    track, as libavif's ``AVIF_DECODER_SOURCE_AUTO`` picks), the AV1 key
+    frame decoded by the port's own decoder (``csrc/avif_codec.cpp``), the
+    YUV → RGB of libavif and libyuv.  Reads what cv2's and Pillow's
+    writers make: 8, 10 and 12 bits, 4:2:0, 4:2:2, 4:4:4 and 4:0:0 (gray:
+    the luma as OpenCV copies it), lossless too, any tiling, 64x64 or
+    128x128 superblocks, CDEF, loop restoration, segmentation, quantizer
     matrices, the screen content tools (palette, intra block copy), film
-    grain (synthesised as libaom's ``av1_add_film_grain`` does), an alpha
-    item (decoded and checked as libavif does, then dropped as cv2's
-    3-channel read drops it), and grid items (colour and alpha) with
-    libavif's grid rules.  Raises ``RuntimeError`` naming the file where
-    cv2 returns None (OpenCV's own 500-byte signature test included), and
-    naming the kind for what the port does not read yet (image sequences,
-    rotations, mirrors, clean apertures, a premultiplied alpha, loop
-    restoration, superres, segmentation, delta loop filter, full sequence
-    headers, matrices other than BT.601 and identity, limited range)."""
+    grain (synthesised as libaom's ``av1_add_film_grain`` does), full and
+    reduced sequence headers, an alpha item or track (decoded and checked
+    as libavif does, then dropped as cv2's 3-channel read drops it), grid
+    items (colour and alpha) with libavif's grid rules, and image
+    sequences (``avis``: the first frame).  Raises ``RuntimeError`` naming
+    the file where cv2 returns None (OpenCV's own 500-byte signature test
+    included), and naming the kind for what the port does not read yet
+    (rotations, mirrors, clean apertures, a premultiplied alpha, superres,
+    delta loop filter, frames other than a shown key frame first, a frame
+    libavif scales to its ispe or track size, matrices other than BT.601
+    and identity, limited range)."""
     with open(path, "rb") as f:
         data = f.read()
     return _decode_avif_bytes(data, path)
@@ -3499,10 +3824,10 @@ def read_image(fn: str) -> np.ndarray:
     codestream's ``FF 4F FF 51``) and AVIF (an ``ftyp`` box with the
     ``avif`` or ``avis`` brand) through the port's own readers (AVIF: every
     chroma format, the screen content tools, film grain and the alpha item
-    that cv2's and Pillow's writers make, and grids; ``read_avif``).  A kind
-    of AVIF the port does not read yet (sequences and the rarer kinds
-    ``read_avif`` lists) raises ``RuntimeError`` naming the file and the
-    kind; any other file raises naming the file."""
+    that cv2's and Pillow's writers make, grids and image sequences;
+    ``read_avif``).  A kind of AVIF the port does not read yet (the rarer
+    kinds ``read_avif`` lists) raises ``RuntimeError`` naming the file and
+    the kind; any other file raises naming the file."""
     with open(fn, "rb") as f:
         head = f.read(512)
     if head.startswith(PNG_SIGNATURE):

@@ -396,28 +396,32 @@ def _orientation(value: int):
     return exif
 
 
-def _second_frame(img):
-    from PIL import Image
-    return [Image.fromarray(np.ascontiguousarray(img[::-1, :, ::-1]))]
+def _scaled_track(img):
+    # an image sequence whose track header gives another size than its
+    # frames': libavif scales the frame to it
+    samples, props, w, h, _ = oracle.sequence_parts(
+        oracle.pillow_sequence(img))[0]
+    return oracle.build_sequence(samples, props, w, h,
+                                 tkhd_size=(w // 2, h // 2))
 
 
 # kinds cv2 reads that the port does not yet: Pillow writes an EXIF
-# orientation as an essential irot, two frames as an image sequence
+# orientation as an essential irot; a sequence's frame scaled to its track
 _REFUSED = {
-    "irot": (lambda img: dict(exif=_orientation(6)), r"rotation \(irot\)"),
-    "avis": (lambda img: dict(save_all=True, duration=100,
-                              append_images=_second_frame(img)),
-             r"image sequence \(avis\)"),
+    "irot": (lambda img: oracle.pillow_avif(img, exif=_orientation(6)),
+             r"rotation \(irot\)"),
+    "tkhd_scaled": (_scaled_track, r"a 128x96 frame in a track whose tkhd "
+                                   r"differs"),
 }
 
 
 @pytest.mark.parametrize("kind", list(_REFUSED))
 def test_unported_tools_raise_naming_the_feature(cv2, pil, tmp_path, kind):
     # files cv2 reads with a tool the port does not decode yet
-    opts, feature = _REFUSED[kind]
+    make, feature = _REFUSED[kind]
     img = oracle.avif_image("photo", 96, 128, np.random.default_rng(8))
     path = tmp_path / f"{kind}.avif"
-    path.write_bytes(oracle.pillow_avif(img, **opts(img)))
+    path.write_bytes(make(img))
     assert cv2.imread(str(path)) is not None
     with pytest.raises(RuntimeError) as err:
         read_avif(str(path))

@@ -869,3 +869,383 @@ def grid_avif(tiles, rows: int, cols: int, width: int, height: int,
                   for i, (obu, props) in zip(tids, atiles)]
         refs += [(b"dimg", aid, tids), (b"auxl", aid, [1])]
     return build_items(items, refs, pad=pad)
+
+
+# ------------------------------------------------------ image sequences
+
+
+def pillow_sequence(bgr: np.ndarray, frames: int = 2, **opts) -> bytes:
+    """Pillow's ``avis`` bytes of a BGR (or BGRA) image written ``frames``
+    times over (``save_all=True``; libavif encodes in libaom's good-quality
+    mode, whose ``speed`` and ``advanced`` options choose its tools)."""
+    from PIL import Image
+    img = Image.fromarray(np.ascontiguousarray(
+        bgr[..., [2, 1, 0, 3][:bgr.shape[2]]]))
+    buf = io.BytesIO()
+    img.save(buf, "AVIF", save_all=True, append_images=[img] * (frames - 1),
+             **opts)
+    return buf.getvalue()
+
+
+def _walk(data: bytes, start: int, end: int, path=()):
+    for kind, s, bs, be in boxes(data, start, end):
+        yield path + (kind,), s, be
+        if kind in (b"moov", b"trak", b"mdia", b"minf", b"stbl", b"edts",
+                    b"tref", b"dinf"):
+            yield from _walk(data, s, be, path + (kind,))
+
+
+def sequence_parts(data: bytes):
+    """[(samples, sample entry property boxes {kind: box}, width, height,
+    handler)] of each track of a Pillow ``avis`` file (one chunk a track,
+    ``stsz`` sizes, ``stco`` offsets)."""
+    tracks = []
+    for path, s, e in _walk(data, 0, len(data)):
+        kind = path[-1]
+        if kind == b"trak":
+            tracks.append(dict(props={}))
+        t = tracks[-1] if tracks else None
+        if kind == b"tkhd":
+            at = s + 4 + (32 if data[s] == 1 else 20) + 52
+            t["width"], t["height"] = (v >> 16 for v in struct.unpack_from(
+                ">II", data, at))
+        elif kind == b"hdlr" and path[-2] == b"mdia":
+            t["handler"] = data[s + 8:s + 12]
+        elif kind == b"stsz":
+            n = struct.unpack_from(">I", data, s + 8)[0]
+            t["sizes"] = struct.unpack_from(f">{n}I", data, s + 12)
+        elif kind == b"stco":
+            t["offset"] = struct.unpack_from(">I", data, s + 8)[0]
+        elif kind == b"stsd":
+            es = s + 8
+            assert data[es + 4:es + 8] == b"av01"
+            ee = es + struct.unpack_from(">I", data, es)[0]
+            for pk, _, bs, be in boxes(data, es + 8 + 78, ee):
+                t["props"][pk] = data[bs:be]
+    out = []
+    for t in tracks:
+        off, samples = t["offset"], []
+        for n in t["sizes"]:
+            samples.append(data[off:off + n])
+            off += n
+        out.append((samples, t["props"], t["width"], t["height"],
+                    t["handler"]))
+    return out
+
+
+def _track(tid: int, samples, props: dict, width: int, height: int,
+           offsets, *, handler=b"pict", aux_for=0, co64=False, chunks=None,
+           stss=(1,), edts=True, tkhd_size=None, entry=b"av01",
+           duration=None) -> bytes:
+    """A ``trak`` of samples laid out in chunks (samples a chunk; one chunk
+    of all by default) at the chunks' ``offsets``."""
+    chunks = chunks or [len(samples)]
+    w, h = tkhd_size or (width, height)
+    duration = 100 * len(samples) if duration is None else duration
+    tkhd = full_box(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, tid, 0,
+                                               duration) +
+                    bytes(8) + bytes(8) + struct.pack(
+                        ">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
+                        0x40000000) + struct.pack(">II", w << 16, h << 16))
+    out = tkhd
+    if aux_for:
+        out += box(b"tref", box(b"auxl", struct.pack(">I", aux_for)))
+    if edts:
+        out += box(b"edts", full_box(b"elst", 0, 1, struct.pack(
+            ">IIII", 1, 100 * len(samples), 0, 0x10000)))
+    mdhd = full_box(b"mdhd", 0, 0, struct.pack(">IIII", 0, 0, 1000,
+                                               100 * len(samples)) +
+                    struct.pack(">HH", 0x55C4, 0))
+    hdlr = full_box(b"hdlr", 0, 0, bytes(4) + handler + bytes(12) + b"\0")
+    vse = bytes(6) + struct.pack(">H", 1) + bytes(16) + struct.pack(
+        ">HHIIIH", width, height, 0x480000, 0x480000, 0, 1) + bytes(32) + \
+        struct.pack(">Hh", 24, -1)
+    stsd = full_box(b"stsd", 0, 0, struct.pack(">I", 1) + box(
+        entry, vse + b"".join(props[k] for k in (b"av1C", b"colr", b"pixi")
+                              if k in props)))
+    stts = full_box(b"stts", 0, 0, struct.pack(">III", 1, len(samples), 100))
+    runs = []
+    for k, n in enumerate(chunks):
+        if not runs or runs[-1][1] != n:
+            runs.append((k + 1, n))
+    stsc = full_box(b"stsc", 0, 0, struct.pack(">I", len(runs)) + b"".join(
+        struct.pack(">III", first, n, 1) for first, n in runs))
+    stsz = full_box(b"stsz", 0, 0, struct.pack(">II", 0, len(samples)) +
+                    b"".join(struct.pack(">I", len(x)) for x in samples))
+    if co64:
+        stco = full_box(b"co64", 0, 0, struct.pack(">I", len(offsets)) +
+                        b"".join(struct.pack(">Q", o) for o in offsets))
+    else:
+        stco = full_box(b"stco", 0, 0, struct.pack(">I", len(offsets)) +
+                        b"".join(struct.pack(">I", o) for o in offsets))
+    stss_box = full_box(b"stss", 0, 0, struct.pack(">I", len(stss)) +
+                        b"".join(struct.pack(">I", k) for k in stss)) \
+        if stss is not None else b""
+    stbl = box(b"stbl", stsd + stts + stsc + stsz + stco + stss_box)
+    dinf = box(b"dinf", full_box(b"dref", 0, 0, struct.pack(">I", 1) +
+                                 full_box(b"url ", 0, 1, b"")))
+    minf = box(b"minf", full_box(b"vmhd", 0, 1, bytes(8)) + dinf + stbl)
+    return box(b"trak", out + box(b"mdia", mdhd + hdlr + minf))
+
+
+def build_sequence(samples, props: dict, width: int, height: int, *,
+                   major=b"avis", compat=(b"avif", b"avis", b"msf1", b"iso8",
+                                          b"mif1", b"miaf", b"MA1B"),
+                   meta=True, item_sample=0, moov=True, moov_first=False,
+                   alpha=None, past_end=0, **track) -> bytes:
+    """An image sequence written here as Pillow lays one out (ftyp, meta
+    with a primary item whose extent is the sample ``item_sample``, moov,
+    mdat), with the layouts libavif meets: another major brand or
+    compatible brands, no meta or no moov, moov first, an alpha track
+    (``alpha``: (samples, properties), an ``auxl`` to track 1), a first
+    chunk ``past_end`` bytes past the file's end, and the track options of
+    ``_track`` (co64, chunks, stss, edts, tkhd_size, duration)."""
+    chunks = track.get("chunks") or [len(samples)]
+    ftyp = box(b"ftyp", major + bytes(4) + b"".join(compat))
+    parts = [samples] + ([alpha[0]] if alpha else [])
+    payload = b"".join(b"".join(p) for p in parts)
+
+    def layout(base):
+        # the offsets of each track's chunks and each sample's
+        offs, at = [], base
+        for k, ss in enumerate(parts):
+            cuts = chunks if k == 0 else [len(ss)]
+            chunk_offs, i = [], 0
+            for n in cuts:
+                chunk_offs.append(at + (past_end if k == 0 else 0))
+                at += sum(len(x) for x in ss[i:i + n])
+                i += n
+            offs.append(chunk_offs)
+        return offs
+
+    def build(base):
+        offs = layout(base)
+        sample_at = offs[0][0] + sum(len(x) for x in samples[:item_sample])
+        m = b""
+        if meta:
+            props_item = dict(props)
+            props_item[b"ispe"] = ispe_box(width, height)
+            m = build_avif(samples[item_sample], props_item)
+            # build_avif's meta, its extent moved to the sample
+            s = len(box(b"ftyp", b"avif" + bytes(4) + b"avifmif1miafMA1B"))
+            size = struct.unpack_from(">I", m, s)[0]
+            m = bytearray(m[s:s + size])
+            i = m.index(b"iloc") + 4 + 4 + 2 + 2 + 2 + 2 + 2
+            m[i:i + 4] = struct.pack(">I", sample_at)
+            m = bytes(m)
+        mv = b""
+        if moov:
+            mvhd = full_box(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, 1000,
+                                                       100 * len(samples)) +
+                            struct.pack(">IH", 0x10000, 0x100) + bytes(10) +
+                            struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0,
+                                        0, 0, 0x40000000) + bytes(24) +
+                            struct.pack(">I", 3))
+            trak = _track(1, samples, props, width, height, offs[0], **track)
+            if alpha:
+                trak += _track(2, alpha[0], alpha[1], width, height, offs[1],
+                               handler=b"auxv", aux_for=1)
+            mv = box(b"moov", mvhd + trak)
+        head = ftyp + (mv + m if moov_first else m + mv)
+        return head
+    head = build(0)
+    head = build(len(head) + 8)
+    return head + box(b"mdat", payload)
+
+
+def full_headers(stream: bytes, *, still: int = 1, timing: bool = False,
+                 decoder_model: bool = False, ops=((0, None),),
+                 frame_ids: bool = False, order_hint_bits: int = 7,
+                 display_delay: bool = False, extension=None,
+                 frame_kind: str = "0001") -> bytes:
+    """An item's OBUs of a reduced still-picture sequence header (cv2's and
+    Pillow's still images) rewritten with a full one: the timing and
+    decoder model info, the operating points ``ops`` ((idc, level or None
+    for the original's)), frame ids, order hints, screen content tools and
+    integer MVs chosen per frame; and the key frame's header rewritten as a
+    full sequence's: show_existing_frame, frame_type, show_frame, the frame
+    id and order hint, the decoder model's removal times, and
+    disable_frame_end_update_cdf; ``frame_kind`` the bits of
+    show_existing_frame, frame_type and show_frame (a shown key frame by
+    default; others leave the rest of the header as a key frame's).  With
+    ``extension`` (temporal id,
+    spatial id) every OBU but the sequence header carries an extension
+    header.  The file must have no film grain (its header ends at
+    decode_av1's grain bit)."""
+    _, _, info = port_grain_params(stream)
+    gbit, hbytes = info[24:26]
+    out = b""
+    en_superres = allow_sct = 0
+    for kind, head, payload in obus(stream):
+        bits = _bits(payload)
+        if kind == 1:
+            assert bits[4] == "1", "not a reduced sequence header"
+            level = bits[5:10]
+            p = 10
+            fwb = int(bits[p:p + 4], 2) + 1
+            fhb = int(bits[p + 4:p + 8], 2) + 1
+            p += 8 + fwb + fhb
+            sizes = bits[10:p]
+            tools = bits[p:p + 3]           # sb128, filter intra, edges
+            en_superres = int(bits[p + 3])
+            assert not en_superres
+            rest = bits[p + 3:bits.rindex("1")]
+            new = bits[:3] + str(still) + "0"
+            new += "1" if timing else "0"
+            if timing:
+                new += format(1, "032b") + format(25, "032b") + "0"
+                new += "1" if decoder_model else "0"
+                if decoder_model:
+                    new += format(9, "05b") + format(1, "032b") + \
+                        format(9, "05b") + format(9, "05b")
+            new += "1" if display_delay else "0"
+            new += format(len(ops) - 1, "05b")
+            for idc, lv in ops:
+                lv = level if lv is None else format(lv, "05b")
+                new += format(idc, "012b") + lv
+                if int(lv, 2) > 7:
+                    new += "0"
+                if decoder_model:
+                    new += "1" + "0" * 10 + "0" * 10 + "0"
+                if display_delay:
+                    new += "1" + format(3, "04b")
+            new += sizes
+            new += "1" + format(4, "04b") + format(2, "03b") if frame_ids \
+                else "0"
+            new += tools + "0000"
+            if order_hint_bits:
+                new += "1" + "00" + "1" + "1" + format(order_hint_bits - 1,
+                                                       "03b")
+            else:
+                new += "0" + "1" + "1"
+            payload = _bytes(new + rest + "1")
+        elif kind == 6:
+            p = 2
+            allow_sct = int(bits[1])
+            if allow_sct:
+                p += 1
+            if en_superres:
+                p += 1
+            if bits[p] == "1":
+                p += 32
+            p += 1
+            if allow_sct:
+                p += 1
+            new = frame_kind                        # a shown key frame
+            if timing and decoder_model:
+                new += "0" * 10                     # frame_presentation_time
+            # disable_cdf_update; allow_screen_content_tools and
+            # force_integer_mv chosen per frame: the reduced header's values
+            new += bits[:2] + (bits[2] if allow_sct else "")
+            if frame_ids:
+                new += "0" * 9
+            new += "0" + "0" * order_hint_bits      # size override, hint
+            if decoder_model:
+                new += "1" + "0" * 10 * len(ops)
+            new += bits[2 + allow_sct:p]            # sizes, render, intrabc
+            if bits[0] == "0":
+                new += "1"                          # no end update
+            new += bits[p:gbit]
+            payload = _bytes(new) + payload[hbytes:]
+        if extension is not None and kind != 1:
+            t, s = extension
+            head = bytes([(kind << 3) | 6, (t << 5) | (s << 3)])
+        else:
+            head = bytes([(kind << 3) | 2])
+        out += head + _leb(len(payload)) + payload
+    return out
+
+
+# ---------------------------------------------------- loop restoration
+
+# libaom's radii of each self-guided set (av1_sgr_params: r0, r1)
+SGR_RADII = [(2, 1)] * 10 + [(0, 1)] * 4 + [(2, 0)] * 2
+
+
+def libaom_wiener(src: np.ndarray, taps, depth: int) -> np.ndarray:
+    """libaom's own ``av1_wiener_convolve_add_src_c`` (8 bits) or
+    ``av1_highbd_wiener_convolve_add_src_c`` by symbol on a block: ``src``
+    (h + 7, w + 7) samples, the block at [3:-4, 3:-4] (the 8-tap filters
+    read 3 before and 4 after it); ``taps`` the outer three taps of the
+    vertical, then the horizontal filter → (h, w) uint16."""
+    h, w = src.shape[0] - 7, src.shape[1] - 7
+    hbd = depth > 8
+    dt = np.uint16 if hbd else np.uint8
+    s = np.ascontiguousarray(src.astype(dt))
+    dst = np.zeros((h, w), dt)
+    kernels = []
+    for t in taps:
+        k = np.zeros(8, np.int16)
+        k[0], k[1], k[2] = t
+        k[6], k[5], k[4] = t
+        k[3] = -2 * sum(t)
+        kernels.append(k)
+    round0 = 5 if depth == 12 else 3
+    params = struct.pack("<ii", round0, 14 - round0)
+    at = s.ctypes.data + (3 * s.shape[1] + 3) * s.itemsize
+    vp, pd, i = ctypes.c_void_p, ctypes.c_ssize_t, ctypes.c_int
+    if hbd:
+        fn = libaom_function("av1_highbd_wiener_convolve_add_src_c", None, vp,
+                             pd, vp, pd, vp, i, vp, i, i, i, ctypes.c_char_p,
+                             i)
+        fn(at >> 1, s.shape[1], dst.ctypes.data >> 1, w,
+           kernels[1].ctypes.data, 16, kernels[0].ctypes.data, 16, w, h,
+           params, depth)
+    else:
+        fn = libaom_function("av1_wiener_convolve_add_src_c", None, vp, pd,
+                             vp, pd, vp, i, vp, i, i, i, ctypes.c_char_p)
+        fn(at, s.shape[1], dst.ctypes.data, w, kernels[1].ctypes.data, 16,
+           kernels[0].ctypes.data, 16, w, h, params)
+    return dst.astype(np.uint16)
+
+
+def libaom_selfguided(src: np.ndarray, sgr_set: int, xqd, depth: int
+                      ) -> np.ndarray:
+    """libaom's own ``av1_apply_selfguided_restoration_c`` by symbol on a
+    block: ``src`` (h + 6, w + 6) samples, the block at [3:-3, 3:-3];
+    ``xqd`` the unit's two coded weights → (h, w) uint16."""
+    h, w = src.shape[0] - 6, src.shape[1] - 6
+    hbd = depth > 8
+    dt = np.uint16 if hbd else np.uint8
+    s = np.ascontiguousarray(src.astype(dt))
+    dst = np.zeros((h, w), dt)
+    tmp = np.zeros(1 << 20, np.int32)
+    xq = (ctypes.c_int * 2)(*xqd)
+    at = s.ctypes.data + (3 * s.shape[1] + 3) * s.itemsize
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    fn = libaom_function("av1_apply_selfguided_restoration_c", i, vp, i, i,
+                         i, i, vp, vp, i, vp, i, i)
+    rc = fn(at >> 1 if hbd else at, w, h, s.shape[1], sgr_set, xq,
+            dst.ctypes.data >> 1 if hbd else dst.ctypes.data, w,
+            tmp.ctypes.data, depth, int(hbd))
+    assert rc == 0
+    return dst.astype(np.uint16)
+
+
+def port_wiener(src: np.ndarray, taps, depth: int) -> np.ndarray:
+    """The codec's Wiener filter alone (``av1_lr_wiener``) on the block of
+    ``libaom_wiener``'s ``src``."""
+    from gsplat_tpu_torch.utils import image_io
+    lib = image_io._load_avif_codec()
+    h, w = src.shape[0] - 7, src.shape[1] - 7
+    s = np.ascontiguousarray(src.astype(np.uint16))
+    dst = np.zeros((h, w), np.uint16)
+    t = np.asarray(taps, np.int8)
+    lib.av1_lr_wiener(s.ctypes.data + (3 * s.shape[1] + 3) * 2, s.shape[1],
+                      dst.ctypes.data, w, w, h, t.ctypes.data, depth)
+    return dst
+
+
+def port_selfguided(src: np.ndarray, sgr_set: int, xqd, depth: int
+                    ) -> np.ndarray:
+    """The codec's self-guided filter alone (``av1_lr_sgr``) on the block
+    of ``libaom_selfguided``'s ``src``."""
+    from gsplat_tpu_torch.utils import image_io
+    lib = image_io._load_avif_codec()
+    h, w = src.shape[0] - 6, src.shape[1] - 6
+    s = np.ascontiguousarray(src.astype(np.uint16))
+    dst = np.zeros((h, w), np.uint16)
+    x = np.asarray(xqd, np.int8)
+    lib.av1_lr_sgr(s.ctypes.data + (3 * s.shape[1] + 3) * 2, s.shape[1],
+                   dst.ctypes.data, w, w, h, sgr_set, x.ctypes.data, depth)
+    return dst

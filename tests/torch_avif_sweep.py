@@ -15,10 +15,15 @@ files: libaom's test vectors 1-16 or its denoiser) from RGB or RGBA (an
 alpha item).  One file in ten is a grid: 2-6 tiles of one writer's
 streams (the same options, cut from one image, 64 pixels a side at least)
 placed by a ``grid`` item, with a grid alpha where the tiles have one.
+With ``--avis`` every file is instead an image sequence: Pillow's
+``save_all=True`` of two frames (the second a copy of the first, or the
+image flipped) at a random speed (1-9), quality, subsampling, ``aq-mode``
+and the options above, from RGB or RGBA (an alpha track).
 ``read_image`` must equal ``cv2.imread(path)[..., ::-1]`` bit for bit; a
 file of a kind the port does not decode yet (where a random option makes
 one) is counted apart, by kind.  Prints one JSON line of counts (and the
-files that used palette and intra block copy); exits 1 on any mismatch.
+files that used palette, intra block copy, loop restoration and
+segmentation); exits 1 on any mismatch.
 ``--keep DIR`` keeps each mismatching file there.
 """
 
@@ -89,6 +94,36 @@ def random_file(rng):
         h, w, kind, dict(writer="pillow", alpha=img.shape[2] == 4, **opts))
 
 
+def random_sequence(rng):
+    """(bytes, a description) of a random image sequence: random_file's
+    Pillow options, a speed and aq-mode, two frames."""
+    while True:
+        data, desc = random_file(rng)
+        if desc[3]["writer"] == "pillow":
+            break
+    h, w, kind, opts = desc
+    img = (oracle.screen_image(kind, h, w, rng) if kind in
+           oracle.SCREEN_KINDS else oracle.avif_image(kind, h, w, rng))
+    if opts["alpha"]:
+        img = np.concatenate([img, oracle.screen_image(
+            "blocks", h, w, rng)[..., :1]], -1)
+    pil = {k: opts[k] for k in ("quality", "advanced", "subsampling")
+           if k in opts}
+    pil["speed"] = int(rng.integers(1, 10))
+    if rng.random() < 0.4:
+        pil["advanced"] = dict(pil["advanced"], **{"aq-mode": "1"})
+    from PIL import Image
+    frames = [Image.fromarray(np.ascontiguousarray(
+        img[..., [2, 1, 0, 3][:img.shape[2]]]))]
+    frames.append(frames[0] if rng.random() < 0.5 else
+                  frames[0].transpose(Image.Transpose.FLIP_TOP_BOTTOM))
+    import io
+    buf = io.BytesIO()
+    frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:],
+                   **pil)
+    return buf.getvalue(), (h, w, kind, dict(opts, sequence=True, **pil))
+
+
 def random_grid(rng):
     """(bytes, a description) of a random grid file: one writer's tiles
     (random_file's, re-encoded from crops of one image) in a rows x
@@ -134,9 +169,13 @@ def random_grid(rng):
 
 
 def tools(data: bytes):
-    """decode_av1's info on a file's primary item."""
+    """decode_av1's info on a file's primary item, or its colour track's
+    first sample."""
     heif = image_io._Heif(data, "file")
     heif.parse()
+    if heif.source == "tracks":
+        return image_io.decode_av1(heif.track_image(
+            heif.colour_track()[0])[0])[1]
     return image_io.decode_av1(heif.primary_item()[0])[1]
 
 
@@ -155,18 +194,24 @@ def main():
     p.add_argument("--seconds", type=float, default=600.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--keep", default=None)
+    p.add_argument("--avis", action="store_true",
+                   help="image sequences only")
     a = p.parse_args()
     rng = np.random.default_rng(a.seed)
     counts = dict(files=0, equal=0, both_refuse=0, not_yet=0, writer_fail=0,
                   mismatch=0, cv2=0, pillow=0, grid=0, grain=0, palette=0,
-                  intrabc=0, not_yet_kinds={})
+                  intrabc=0, restoration=0, segmentation=0,
+                  not_yet_kinds={})
     end = time.time() + a.seconds
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sweep.avif")
         while time.time() < end:
             try:
-                data, desc = random_grid(rng) if rng.random() < 0.1 else \
-                    random_file(rng)
+                if a.avis:
+                    data, desc = random_sequence(rng)
+                else:
+                    data, desc = random_grid(rng) if rng.random() < 0.1 \
+                        else random_file(rng)
             except Exception:             # a writer refusing its options
                 counts["writer_fail"] += 1
                 continue
@@ -200,6 +245,8 @@ def main():
                 info = tools(data)
                 counts["palette"] += info[20] > 0
                 counts["intrabc"] += info[21] > 0
+                counts["restoration"] += any(info[26:29])
+                counts["segmentation"] += info[31] > 0
             else:
                 counts["mismatch"] += 1
                 keep(a.keep, data, counts)

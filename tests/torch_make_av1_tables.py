@@ -170,6 +170,15 @@ PALETTE_UV_SIZE = [[8713, 19979, 27128, 29609, 31331, 32272],
                    [2464, 8451, 12861, 21632, 25525, 28555],
                    [1269, 5435, 10433, 18963, 21700, 25865]]
 INTRABC = [30531]
+# loop restoration's and segmentation's (default_wiener_restore_cdf,
+# default_sgrproj_restore_cdf, default_switchable_restore_cdf and
+# default_spatial_pred_seg_tree_cdf)
+USE_WIENER = [11570]
+USE_SGRPROJ = [16855]
+RESTORATION_TYPE = [9413, 22581]
+SEGMENT_ID = [[5622, 7893, 16093, 18233, 27809, 28373, 32533],
+              [14274, 18230, 22557, 24935, 29980, 30851, 32344],
+              [27527, 28487, 28723, 28890, 32397, 32647, 32679]]
 TXFM_SPLIT = [[28581], [23846], [20847], [24315], [18196], [12133], [18791],
               [10887], [11005], [27179], [20004], [11281], [26549], [19308],
               [14224], [28015], [21546], [14400], [28165], [22401], [16088]]
@@ -231,6 +240,7 @@ SPEC_ROWS = {
                      32762, 32767, 32768, 0], None),
     "kInterTxTypeSet3Cdf": ([16384, 32768, 0], [748, 32768, 0]),
     "kAcQLookup": ([4, 8, 9, 10, 11, 12, 13, 14], [29247]),
+    "kSgrParams": ([2, 140, 1, 3236], [2, 22, 0, -1]),
     "kGaussianSequence": ([56, 568, -180, 172, 124, -84, 172, -64],
                           [428, -484]),
 }
@@ -384,9 +394,15 @@ def collect(elf: Elf):
             ("kPaletteYSizeCdf", PALETTE_Y_SIZE, 7, 8),
             ("kPaletteUvSizeCdf", PALETTE_UV_SIZE, 7, 8),
             ("kIntrabcCdf", INTRABC, 2, 3),
-            ("kTxfmSplitCdf", TXFM_SPLIT, 2, 3)):
+            ("kTxfmSplitCdf", TXFM_SPLIT, 2, 3),
+            ("kUseWienerCdf", USE_WIENER, 2, 3),
+            ("kUseSgrprojCdf", USE_SGRPROJ, 2, 3),
+            ("kRestorationTypeCdf", RESTORATION_TYPE, 3, 4)):
         check_blocks_in_library(elf, name, rows, pad)
         t[name] = ("uint16_t", spec_cdf(rows, nsym))
+    # kept as three rows of 16 bytes and immediates for the rest
+    check_in_library(elf, "kSegmentIdCdf", SEGMENT_ID)
+    t["kSegmentIdCdf"] = ("uint16_t", spec_cdf(SEGMENT_ID, 8))
     for plane in ("y", "uv"):
         icdf = elf.table(f"default_palette_{plane}_color_index_cdf", u16,
                          (7, 5, 9))
@@ -418,6 +434,10 @@ def collect(elf: Elf):
                                                for c in comp]))
     t["kMvBitCdf"] = ("uint16_t", np.stack([cdf_from_icdf(
         c[39:69].reshape(10, 3), 2) for c in comp]))
+    # the self-guided filter's Sgr_Params: r0, s0, r1, s1 (libaom's
+    # sgr_params_type keeps both radii, then both scales)
+    sgr = elf.table("av1_sgr_params", "<i4", (16, 2, 2))
+    t["kSgrParams"] = ("int16_t", sgr.transpose(0, 2, 1).reshape(16, 4))
     # film grain: the specification's Gaussian_Sequence (libaom's ints)
     t["kGaussianSequence"] = ("int16_t", elf.table("gaussian_sequence",
                                                    "<i4", (2048,)))

@@ -262,8 +262,15 @@ AVIF_CASES = [
 AVIF_REFUSED = ["avif_no_ispe.avif", "avif_iloc_past_end.avif",
                 "avif_essential_unknown.avif", "avif_cut.avif",
                 "avif_grain_15_points.avif", "avif_grid_3_tiles.avif"]
-# cv2 reads it; the port does not yet: a rotation
-AVIF_UNPORTED = ["avif_irot.avif"]
+# Pillow's two-frame image sequences (avis): libaom's good-quality mode at
+# speed 2 (loop restoration), speed 4 with aq-mode=1 (segmentation), an
+# RGBA one (an alpha track) and a 4:4:4 one at speed 3
+AVIS_CASES = ["avis_pil_s2.avif", "avis_pil_s4_aq.avif",
+              "avis_pil_alpha.avif", "avis_pil_444_s3.avif"]
+AVIF_CASES += AVIS_CASES
+# cv2 reads it; the port does not yet: a rotation, a sequence's frame that
+# libavif scales to its track header's size
+AVIF_UNPORTED = ["avif_irot.avif", "avis_tkhd_scaled.avif"]
 CASES += AVIF_CASES
 REFUSED += AVIF_REFUSED
 # full-size AVIF views for chip_smoke's decode seconds and the SHA-256 of
@@ -303,6 +310,27 @@ TIMING_AVIF = {
     "timing_grid_1297x840.avif": ("6a9dcc009e160045f293cbb533cd2a52"
                                   "fa6f0905ca0acb5a1850a873b7ea14fd"),
 }
+# Pillow's two-frame image sequences of TIMING (the second frame a copy of
+# the first), cv2's decode of each: its default (speed 6: the full headers
+# alone), speed 3 (switchable and self-guided loop restoration, 128x128
+# superblocks, 2x2 tiles), speed 2 (Wiener units too) and aq-mode=1
+# (segmentation); AVIS_OPTS holds each one's options
+AVIS_OPTS = {
+    "timing_avis_1297x840.avif": dict(),
+    "timing_avis_s3_1297x840.avif": dict(speed=3),
+    "timing_avis_s2_1297x840.avif": dict(speed=2),
+    "timing_avis_aq_1297x840.avif": dict(advanced={"aq-mode": "1"}),
+}
+TIMING_AVIF.update({
+    "timing_avis_1297x840.avif": ("da86f5983e6ed6a2b89820e6c55cfb00"
+                                  "04987b2e57be35d2a20cb6421bb86cd0"),
+    "timing_avis_s3_1297x840.avif": ("dac135648e016365f7f7e9f9a853042d"
+                                     "70f6710648c030757e2dce7268bb8ab3"),
+    "timing_avis_s2_1297x840.avif": ("2f3bfea530e13b4f834d2a581aac9736"
+                                     "b2d81212754a6eefa7980a004fb724f0"),
+    "timing_avis_aq_1297x840.avif": ("f7ff2d592a536f53365f7fe4d2bcc0be"
+                                     "86dbdfc5a45b262e01b484d56bc431ff"),
+})
 # cv2's default AVIF copies of make_synth_scene --preset mid's 24 views
 AVIF_MID = "avif_mid"
 # Pillow's copies of the same views with film grain: views 0-15 libaom's
@@ -314,6 +342,18 @@ AVIF_DENOISE = "25"
 AVIF_MID_SCREEN = "avif_mid_screen"
 AVIF_SCREEN_OPTS = dict(subsampling="4:2:2",
                         advanced={"tune-content": "screen"})
+# Pillow's two-frame image sequences of the same views (the second frame a
+# copy of the first): speeds 2, 3 and 4 in turn (loop restoration in every
+# view), aq-mode=1 (segmentation) in every view k where k % 3 == k // 3 % 3
+AVIF_MID_AVIS = "avif_mid_avis"
+
+
+def avis_mid_opts(k: int) -> dict:
+    """Pillow's options for the avis copy of mid view k."""
+    opts = dict(speed=2 + k % 3)
+    if k % 3 == k // 3 % 3:
+        opts["advanced"] = {"aq-mode": "1"}
+    return opts
 
 
 def screen_alpha(h: int, w: int) -> np.ndarray:
@@ -893,6 +933,53 @@ def generate_avif(folder: str = FOLDER, mid_scene: str | None = None
                 "denoise-noise-level": AVIF_DENOISE}
             save(os.path.join(AVIF_MID_GRAIN, name[:-4] + ".avif"),
                  oracle.pillow_avif(bgr, advanced=grain))
+    return shas
+
+
+def generate_avis(folder: str = FOLDER, mid_scene: str | None = None
+                  ) -> dict:
+    """The image sequence fixtures: AVIS_CASES, avis_tkhd_scaled.avif,
+    AVIS_OPTS's timing views (and, given the folder of make_synth_scene
+    --preset mid, AVIF_MID_AVIS's views); returns the timing views'
+    SHA-256s of cv2's decodes."""
+    import hashlib
+
+    import cv2
+
+    import torch_avif_oracles as oracle
+
+    p = lambda name: os.path.join(folder, name)       # noqa: E731
+
+    def save(name, data):
+        with open(p(name), "wb") as f:
+            f.write(data)
+    rng = np.random.default_rng(23)
+    big = oracle.avif_image("photo", 72, 104, rng)
+    save("avis_pil_s2.avif", oracle.pillow_sequence(oracle.avif_image(
+        "photo", 160, 208, np.random.default_rng(160)), speed=2))
+    save("avis_pil_s4_aq.avif", oracle.pillow_sequence(
+        big, speed=4, advanced={"aq-mode": "1"}))
+    save("avis_pil_alpha.avif", oracle.pillow_sequence(
+        np.dstack([big, big[..., 1:2]]), speed=4))
+    save("avis_pil_444_s3.avif", oracle.pillow_sequence(
+        big, speed=3, subsampling="4:4:4"))
+    samples, props, w, h, _ = oracle.sequence_parts(
+        oracle.pillow_sequence(big))[0]
+    save("avis_tkhd_scaled.avif", oracle.build_sequence(
+        samples, props, w, h, tkhd_size=(w // 2, h // 2)))
+    view = cv2.imread(p(TIMING))
+    shas = {}
+    for name, opts in AVIS_OPTS.items():
+        save(name, oracle.pillow_sequence(view, **opts))
+        dec = np.ascontiguousarray(cv2.imread(p(name))[..., ::-1])
+        shas[name] = hashlib.sha256(dec.tobytes()).hexdigest()
+    if mid_scene is not None:
+        src = os.path.join(mid_scene, "images_4")
+        os.makedirs(p(AVIF_MID_AVIS), exist_ok=True)
+        for k, name in enumerate(sorted(os.listdir(src))):
+            bgr = cv2.imread(os.path.join(src, name))
+            save(os.path.join(AVIF_MID_AVIS, name[:-4] + ".avif"),
+                 oracle.pillow_sequence(bgr, **avis_mid_opts(k)))
     return shas
 
 
@@ -2379,6 +2466,12 @@ if __name__ == "__main__":
         result = check()
         print({k: v for k, v in result.items() if not v})
         sys.exit(0 if all(result.values()) else 1)
+    if sys.argv[1:2] == ["--avis"]:         # the image sequences alone;
+        shas = generate_avis(               # --avis SCENE also writes the
+            mid_scene=(sys.argv[2:] or [None])[0])   # mid views' copies
+        _write_wants(AVIS_CASES)
+        print(f"AVIS SHA-256s for TIMING_AVIF = {shas!r}")
+        sys.exit(0)
     if sys.argv[1:] == ["--webp"]:          # the WebP fixtures alone
         sha = generate_webp()
         _write_wants([n for n in CASES if n.endswith(".webp")])
