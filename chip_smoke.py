@@ -1607,12 +1607,12 @@ def at_scale_path(rz, dev):
         png_leg, tiff_leg, webp_leg, jp2_leg, gif_leg = image_formats_path(
             rz, scene, root)
         mid_png_leg, avif_leg, avif_screen_leg, avif_grain_leg, \
-            avif_avis_leg = avif_path(rz, root)
+            avif_avis_leg, avif_colour_leg = avif_path(rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
             gif_leg, mid_png_leg, avif_leg, avif_screen_leg,
-            avif_grain_leg, avif_avis_leg), scale_rows
+            avif_grain_leg, avif_avis_leg, avif_colour_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -1819,8 +1819,9 @@ def image_formats_path(rz, scene, root):
     WebP, JPEG 2000, PFM, PAM, Sun raster, BMP, PPM), to gif_332 of it
     (GIF) and to hdr_round_trip of it (HDR); every format's encode and
     decode seconds a view timed, and the committed arithmetic-coded JPEG,
-    lossy WebP and JPEG 2000 views decoded (the WebP's and the JPEG 2000
-    views' pixels held to the SHA-256 of cv2's decode); (b) every scene
+    lossy WebP and JPEG 2000 views and the YCbCr and CIELab TIFF views
+    decoded (the WebP's, the JPEG 2000 views' and the TIFF views' pixels
+    held to the SHA-256 of cv2's decode); (b) every scene
     through Splatter on the card, each ground-truth tensor equal to the PNG
     scene's (to the GIF and HDR maps' for those scenes); (c) run_garden_7k
     over iterations 0..JPEG_ITERS - 1 of the RGB schedule from the PNG,
@@ -1956,6 +1957,21 @@ def image_formats_path(rz, scene, root):
         j2k_shas.append(sha[:16] + "...")
     print(f"  the committed JPEG 2000 views decode as cv2 does (SHA-256 "
           f"{', '.join(j2k_shas)})", flush=True)
+    # the committed YCbCr and CIELab TIFFs of the 1297x840 view (Pillow's,
+    # Deflate), each decode held to cv2's SHA-256
+    tiff_shas = []
+    for label, name in (("TIFF YCbCr read", "timing_ycbcr_1297x840.tif"),
+                        ("TIFF CIELab read", "timing_lab_1297x840.tif")):
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dec = image_io.read_image(os.path.join(fx.FOLDER, name))
+            secs.setdefault(label, []).append(time.perf_counter() - t0)
+        sha = hashlib.sha256(np.ascontiguousarray(dec).tobytes()).hexdigest()
+        check(dec.shape == (840, 1297, 3) and sha == fx.TIMING_TIFF[name],
+              f"{name}: decode {dec.shape} SHA-256 {sha} is not cv2's")
+        tiff_shas.append(sha[:16] + "...")
+    print(f"  the committed YCbCr and CIELab TIFF views decode as cv2 does "
+          f"(SHA-256 {', '.join(tiff_shas)})", flush=True)
     # cv2's default JP2 (X1000 = 250, rate 4) of the committed 1297x840
     # view, byte for byte: its SHA-256 (torch_make_image_fixtures.TIMING_CV2)
     garden = image_io.read_image(os.path.join(here, ARITH_VIEW))
@@ -2162,7 +2178,8 @@ def image_formats_path(rz, scene, root):
     check(not bad and len(got) == len(fx.CASES) + len(fx.REFUSED)
           + len(fx.GARBLED) + len(fx.ENCODED) + len(fx.ENCODED_J2K)
           + len(fx.ENCODED_J2K_RATE) + len(fx.RESIZED) + len(fx.TIMING_CV2)
-          + len(fx.ROUND_TRIP) + len(fx.AVIF_UNPORTED) + len(fx.TIMING_AVIF),
+          + len(fx.ROUND_TRIP) + len(fx.AVIF_UNPORTED) + len(fx.TIMING_AVIF)
+          + len(fx.TIMING_TIFF),
           f"image fixtures differ: {bad}")
     return pl, runs["tiff"][1], runs["webp"][1], runs["jp2"][1], \
         runs["gif"][1]
@@ -2175,7 +2192,9 @@ def image_formats_path(rz, scene, root):
 # block copy), 4:2:2, 4:0:0, RGBA (an alpha item), film grain (libaom's
 # test vector 1) and denoiser files of it, and a 3x2 grid of Pillow's
 # 4:4:4 tiles of it; Pillow's two-frame image sequences (avis) of it at its
-# default, speed 3, speed 2 and aq-mode=1 (AVIS_TOOLS)
+# default, speed 3, speed 2 and aq-mode=1 (AVIS_TOOLS); Pillow's files of it
+# with an ICC profile, limited range, a premultiplied alpha and an EXIF
+# orientation 6 (irot), and cv2's default file with a BT.709 limited nclx
 AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_d12_1297x840.avif", "timing_lossless_320x208.avif",
               "timing_screen_1297x840.avif", "timing_422_1297x840.avif",
@@ -2183,7 +2202,9 @@ AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_grain_1297x840.avif", "timing_denoise_1297x840.avif",
               "timing_grid_1297x840.avif", "timing_avis_1297x840.avif",
               "timing_avis_s3_1297x840.avif", "timing_avis_s2_1297x840.avif",
-              "timing_avis_aq_1297x840.avif")
+              "timing_avis_aq_1297x840.avif", "timing_icc_1297x840.avif",
+              "timing_limited_1297x840.avif", "timing_prem_1297x840.avif",
+              "timing_irot_1297x840.avif", "timing_bt709_1297x840.avif")
 AVIF_REPS = 3
 # the view whose palette and intra block copy blocks the phase counts
 AVIF_SCREEN_VIEW = "timing_screen_1297x840.avif"
@@ -2223,15 +2244,17 @@ def avif_path(rz, root):
     default AVIF of the same preset's views built on a CPU), the committed
     AVIF_MID_SCREEN views (Pillow's tune-content=screen, 4:2:2, with an
     alpha item), the committed AVIF_MID_GRAIN views (Pillow's film grain:
-    libaom's test vectors, its denoiser) and the committed AVIF_MID_AVIS
-    views (Pillow's image sequences at speeds 2-4, some with aq-mode=1);
+    libaom's test vectors, its denoiser), the committed AVIF_MID_AVIS
+    views (Pillow's image sequences at speeds 2-4, some with aq-mode=1) and
+    the committed AVIF_MID_COLOUR views (Pillow's ICC profile, EXIF
+    orientations 2, 3 and 6, limited range and premultiplied RGBA in turn);
     each view's mean |AVIF - PNG|; (c) run_garden_7k over iterations
     0..JPEG_ITERS - 1 of the RGB schedule from the PNG scene and from each
     AVIF scene, each AVIF leg's last logged l1 within d + JPEG_L1_DRIFT ·
     l1_png of the PNG leg's (d the largest per-view mean |AVIF - PNG| of its
     views, the JPEG and GIF legs' rule), every leg's it/s.  → (the PNG
     leg's launches, the cv2 AVIF leg's, the screen AVIF leg's, the grain
-    AVIF leg's, the avis leg's)."""
+    AVIF leg's, the avis leg's, the colour leg's)."""
     import hashlib
 
     import torch
@@ -2328,7 +2351,8 @@ def avif_path(rz, root):
     for kind, folder in (("avif", fx.AVIF_MID),
                          ("avif_screen", fx.AVIF_MID_SCREEN),
                          ("avif_grain", fx.AVIF_MID_GRAIN),
-                         ("avif_avis", fx.AVIF_MID_AVIS)):
+                         ("avif_avis", fx.AVIF_MID_AVIS),
+                         ("avif_colour", fx.AVIF_MID_COLOUR)):
         sc, images, _ = _format_scene(scene, root, f"scene_{kind}", ".avif")
         committed = os.path.join(fx.FOLDER, folder)
         avifs = sorted(os.listdir(committed))
@@ -2374,7 +2398,8 @@ def avif_path(rz, root):
         torch.cuda.empty_cache()
     png = l1_by_iteration(runs["png"][2])
     ps = runs["png"][0]
-    for kind in ("avif", "avif_screen", "avif_grain", "avif_avis"):
+    for kind in ("avif", "avif_screen", "avif_grain", "avif_avis",
+                 "avif_colour"):
         l1 = l1_by_iteration(runs[kind][2])
         check(len(l1) >= JPEG_ITERS // 50 and
               all(np.isfinite(list(l1.values()))),
@@ -2397,7 +2422,7 @@ def avif_path(rz, root):
     print(f"  the AVIF phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return runs["png"][1], runs["avif"][1], runs["avif_screen"][1], \
-        runs["avif_grain"][1], runs["avif_avis"][1]
+        runs["avif_grain"][1], runs["avif_avis"][1], runs["avif_colour"][1]
 
 
 def finite(x):
@@ -3733,8 +3758,8 @@ def main() -> int:
     # ---- 12. the at-scale run ----------------------------------------------
     (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg, at_scale_png,
      at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif, mid_png,
-     mid_avif, mid_avif_screen, mid_avif_grain,
-     mid_avif_avis), scale_rows = at_scale_path(rz, dev)
+     mid_avif, mid_avif_screen, mid_avif_grain, mid_avif_avis,
+     mid_avif_colour), scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -3786,6 +3811,7 @@ def main() -> int:
              "mid AVIF screen run": mid_avif_screen,
              "mid AVIF grain run": mid_avif_grain,
              "mid AVIF avis run": mid_avif_avis,
+             "mid AVIF colour run": mid_avif_colour,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

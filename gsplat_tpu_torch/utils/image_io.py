@@ -23,8 +23,8 @@ progressive and arithmetic-coded frames, lossless ones, CMYK and YCCK, and
 files cut short (decoded as libjpeg decodes them, with a warning).
 
 TIFF and BigTIFF (``csrc/tiff_codec.cpp`` for LZW and PackBits, ``zlib``
-for Deflate, the JPEG codec for JPEG strips; the directory is parsed here),
-BMP and PNM (numpy).
+for Deflate, the JPEG codec for JPEG strips; the directory, YCbCr and
+CIELab are read here), BMP and PNM (numpy).
 
 WebP (``csrc/webp_codec.cpp`` for the VP8L and VP8 bitstreams and the ALPH
 chunk; the RIFF container, libwebp's demuxer rules and EXIF are parsed
@@ -757,7 +757,9 @@ def read_tiff(path) -> np.ndarray:
     gray (white or black is zero, 16 bits cut to the high byte), RGB at 8
     or 16 bits (16 bits rounded to 8 as libtiff rounds them, an unassociated
     alpha multiplied in, the alpha then dropped), palettes of 1-8 bits,
-    8-bit CMYK; the orientation tag applied.  Raises ``ValueError`` naming
+    8-bit CMYK, 8-bit YCbCr (subsampled 1, 2 or 4 across, its
+    ReferenceBlackWhite and YCbCrCoefficients) and CIELab through libtiff's
+    tables; the orientation tag applied.  Raises ``ValueError`` naming
     the file and the tag for the rest (cv2 refuses some of them too: 2- and
     4-bit gray, gray with alpha, float samples)."""
     with open(path, "rb") as f:
@@ -814,11 +816,27 @@ def read_tiff(path) -> np.ndarray:
         if spp < 4 or bps != 8 or tag(332, 1) != 1:
             raise refuse(f"separated (tag 262 = 5) with {spp} samples of "
                          f"{bps} bits")
+    elif photo in (6, 8) and comp != 7:
+        what = "YCbCr" if photo == 6 else "CIELab"
+        # libtiff's RGBA interface reads separate planes of YCbCr alone
+        if spp != 3 or bps != 8 or (planar != 1 and photo == 8):
+            raise refuse(f"{what} (tag 262 = {photo}) with {spp} samples "
+                         f"of {bps} bits, planar {planar}")
     elif not (photo == 6 and comp == 7):
         raise refuse(f"tag 262 (Photometric {photo})")
     if comp == 7 and (bps != 8 or photo not in (1, 2, 6) or planar != 1):
         raise refuse(f"JPEG compression with tag 262 = {photo}, 258 = "
                      f"{bps}, 284 = {planar}")
+    # YCbCr's chroma subsampling (tag 530, default 2, 2): libtiff's RGBA
+    # interface reads 1, 2 or 4 across by at most as many down
+    sub = tuple(tags.get(530, (2, 2))[:2]) if photo == 6 and comp != 7 \
+        else (1, 1)
+    if sub not in ((1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (1, 2)) \
+            or (sub != (1, 1) and planar != 1):
+        raise refuse(f"YCbCr subsampling {sub} (tag 530), planar {planar}")
+    if sub != (1, 1) and predictor != 1:
+        raise ValueError(f"{path}: a TIFF of subsampled YCbCr under a "
+                         f"predictor, which the port does not read yet")
     tiled = 322 in tags
     if tiled:
         cw, ch = tag(322), tag(323)
@@ -856,6 +874,10 @@ def read_tiff(path) -> np.ndarray:
                                              path)
                     if photo == 1:
                         block = block[..., :1]
+                elif sub != (1, 1):
+                    block = _ycbcr_units(_tiff_chunk(
+                        lib, raw, comp, _ycbcr_unit_bytes(rows, cw, sub),
+                        path), rows, cw, sub)
                 else:
                     buf = _tiff_chunk(lib, raw, comp, rows * row_bytes, path)
                     if bps >= 8:
@@ -875,7 +897,13 @@ def read_tiff(path) -> np.ndarray:
                 w = min(cw, width - x0, block.shape[1])
                 sl = slice(plane, plane + 1) if planar == 2 else slice(None)
                 samples[y0:y0 + h, x0:x0 + w, sl] = block[:h, :w]
-    img = _tiff_rgb(samples, photo, bps, extra, tags.get(320), path)
+    if photo == 6 and comp != 7:
+        img = tiff_ycbcr_to_rgb(samples, _tiff_floats(tags.get(529)),
+                                _tiff_floats(tags.get(532)))
+    elif photo == 8:
+        img = tiff_cielab_to_rgb(samples, _tiff_floats(tags.get(318)))
+    else:
+        img = _tiff_rgb(samples, photo, bps, extra, tags.get(320), path)
     orientation = tag(274, 1)
     if orientation > 4 and width != height:
         raise ValueError(f"{path}: TIFF orientation {orientation} (tag 274) "
@@ -920,6 +948,167 @@ def _tiff_rgb(px: np.ndarray, photo: int, bps: int, extra, colormap,
             a = (a + 128) // 257
         rgb = (rgb * a + 127) // 255               # UaToAa
     return rgb.astype(np.uint8)
+
+
+def _ycbcr_unit_bytes(rows: int, cols: int, sub) -> int:
+    """The bytes of a chunk of subsampled 8-bit YCbCr: one data unit of
+    hs · vs luma samples, Cb and Cr for each hs x vs block."""
+    hs, vs = sub
+    return -(-rows // vs) * -(-cols // hs) * (hs * vs + 2)
+
+
+def _ycbcr_units(buf: bytes, rows: int, cols: int, sub) -> np.ndarray:
+    """A chunk of subsampled YCbCr data units → (rows, cols, 3) samples,
+    each block's Cb and Cr over all its pixels, as libtiff's
+    ``putcontig8bitYCbCrXYtile`` routines read them."""
+    hs, vs = sub
+    by, bx = -(-rows // vs), -(-cols // hs)
+    units = np.frombuffer(buf, np.uint8).reshape(by, bx, hs * vs + 2)
+    y = units[..., :hs * vs].reshape(by, bx, vs, hs).transpose(
+        0, 2, 1, 3).reshape(by * vs, bx * hs)
+    chroma = np.repeat(np.repeat(units[..., hs * vs:], vs, 0), hs, 1)
+    return np.dstack([y[..., None], chroma])[:rows, :cols]
+
+
+def _tiff_floats(values):
+    """A RATIONAL tag's values as libtiff reads them into floats (each
+    numerator over its denominator in double, then float; 0 over 0 is
+    0), or None where the tag is absent."""
+    if values is None:
+        return None
+    out = []
+    for num, den in zip(values[::2], values[1::2]):
+        out.append(np.float32(num / den if den else 0.0))
+    return out
+
+
+def _fix16(x: np.float32) -> int:
+    """libtiff's FIX: a float times 2^16 (in float), plus 0.5 in double,
+    truncated."""
+    return int(float(np.float32(x) * np.float32(65536)) + 0.5)
+
+
+def _code2v(c, rb, rw, cr) -> np.ndarray:
+    """libtiff's Code2V: (c - (int) RB) · CR / (RW - RB) in float, as
+    int32 after the clamp to ±4096 (CLAMPw)."""
+    f32 = np.float32
+    span = f32(rw) - f32(rb)
+    v = (np.asarray(c, np.int64) - int(f32(rb))).astype(np.float32) * \
+        f32(cr) / (span if span != 0 else f32(1))
+    v = np.where(v < f32(-4096), f32(-4096), np.where(v > f32(4096),
+                                                      f32(4096), v))
+    return np.trunc(v).astype(np.int64)
+
+
+def tiff_ycbcr_tables(luma=None, ref_bw=None) -> dict:
+    """The fixed-point tables of libtiff 4.7.1's ``TIFFYCbCrToRGBInit`` for
+    YCbCrCoefficients ``luma`` (tag 529, default 0.299, 0.587, 0.114) and
+    ReferenceBlackWhite ``ref_bw`` (tag 532, default 0, 255, 128, 255, 128,
+    255): ``Y_tab``, ``Cr_r_tab``, ``Cb_b_tab``, ``Cr_g_tab`` and
+    ``Cb_g_tab``, each indexed by the 8-bit sample."""
+    f32 = np.float32
+    lr, lg, lb = (f32(x) for x in (luma or (0.299, 0.587, 0.114)))
+    rbw = [f32(x) for x in (ref_bw or (0, 255, 128, 255, 128, 255))]
+
+    def clamp2(f):
+        return min(max(f, f32(0)), f32(2))
+    f1 = f32(2) - f32(2) * lr
+    f2 = lr * f1 / lg
+    f3 = f32(2) - f32(2) * lb
+    f4 = lb * f3 / lg
+    d1, d2 = _fix16(clamp2(f1)), -_fix16(clamp2(f2))
+    d3, d4 = _fix16(clamp2(f3)), -_fix16(clamp2(f4))
+    x = np.arange(256) - 128
+    cr = _code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127)
+    cb = _code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127)
+    half = 1 << 15
+    return dict(Y_tab=_code2v(x + 128, rbw[0], rbw[1], 255),
+                Cr_r_tab=(d1 * cr + half) >> 16,
+                Cb_b_tab=(d3 * cb + half) >> 16,
+                Cr_g_tab=d2 * cr, Cb_g_tab=d4 * cb + half)
+
+
+def tiff_ycbcr_to_rgb(px: np.ndarray, luma=None, ref_bw=None) -> np.ndarray:
+    """8-bit YCbCr samples (H, W, 3), unsubsampled, → RGB as libtiff's
+    RGBA interface gives them to OpenCV (``putcontig8bitYCbCr11tile``:
+    ``TIFFYCbCrtoRGB`` over ``tiff_ycbcr_tables``)."""
+    t = tiff_ycbcr_tables(luma, ref_bw)
+    y, cb, cr = (px[..., k].astype(np.int64) for k in range(3))
+    yv = t["Y_tab"][y]
+    rgb = np.stack([yv + t["Cr_r_tab"][cr],
+                    yv + ((t["Cb_g_tab"][cb] + t["Cr_g_tab"][cr]) >> 16),
+                    yv + t["Cb_b_tab"][cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+# libtiff's display_sRGB (tif_getimage.c): the XYZ → RGB matrix (light
+# output 100 at reference white, 1 for a black pixel, gamma 2.4); its
+# tables run over 1500 steps
+_SRGB_MATRIX = ((3.2410, -1.5374, -0.4986), (-0.9692, 1.8760, 0.0416),
+                (0.0556, -0.2040, 1.0570))
+_CIELAB_RANGE = 1500
+_CIELAB_TABLE = None
+
+
+def _cielab_table() -> np.ndarray:
+    """``TIFFCIELabToRGBInit``'s Yr2r (the same for the three guns of
+    display_sRGB): 255 · (i / 1500)^(1 / 2.4), the power in double, cast to
+    float, times 255 in float."""
+    global _CIELAB_TABLE
+    if _CIELAB_TABLE is None:
+        import math
+        gamma = 1.0 / float(np.float32(2.4))
+        _CIELAB_TABLE = np.array(
+            [np.float32(255) * np.float32(math.pow(i / _CIELAB_RANGE, gamma))
+             for i in range(_CIELAB_RANGE + 1)], np.float32)
+    return _CIELAB_TABLE
+
+
+def tiff_cielab_to_rgb(px: np.ndarray, white=None) -> np.ndarray:
+    """8-bit CIELab samples (H, W, 3: L unsigned, a and b signed) → RGB as
+    libtiff 4.7.1's RGBA interface gives them to OpenCV
+    (``putcontig8bitCIELab8``): ``TIFFCIELabToXYZ`` (through
+    ``TIFFCIELab16ToXYZ`` on L · 257, a · 256, b · 256) against the white
+    point of tag 318 (default D50), then ``TIFFXYZToRGB`` with
+    display_sRGB's matrix, clip and gamma table, all in float."""
+    f32 = np.float32
+    if white is None:   # libtiff's default: D50 as chromaticities
+        x0, y0, z0 = f32(96.4250), f32(100.0), f32(82.4680)
+        white = (x0 / (x0 + y0 + z0), y0 / (x0 + y0 + z0))
+    wx, wy = f32(white[0]), f32(white[1])
+    ref_y = f32(100)
+    ref_x = wx / wy * ref_y
+    ref_z = (f32(1) - wx - wy) / wy * ref_y
+    lum = (px[..., 0].astype(np.int64) * 257).astype(np.float32)
+    a = (px[..., 1].astype(np.int8).astype(np.int64) * 256).astype(
+        np.float32)
+    b = (px[..., 2].astype(np.int8).astype(np.int64) * 256).astype(
+        np.float32)
+    L = lum * f32(100) / f32(65535)
+    low = L < f32(8.856)
+    y_low = L * ref_y / f32(903.292)
+    cby = np.where(low, f32(7.787) * (y_low / ref_y) + f32(16) / f32(116),
+                   (L + f32(16)) / f32(116))
+    Y = np.where(low, y_low, ref_y * cby * cby * cby)
+
+    def cube(t, ref):
+        return np.where(t < f32(0.2069), ref * (t - f32(0.13793)) / f32(7.787),
+                        ref * t * t * t)
+    X = cube(a / f32(256) / f32(500) + cby, ref_x)
+    Z = cube(cby - b / f32(256) / f32(200), ref_z)
+    table = _cielab_table()
+    # the light output runs from 1 (a black pixel's residual) to 100
+    step = (f32(100) - f32(1)) / f32(_CIELAB_RANGE)
+    out = []
+    for row in _SRGB_MATRIX:
+        m = [f32(v) for v in row]
+        lum_c = m[0] * X + m[1] * Y + m[2] * Z
+        lum_c = np.minimum(np.maximum(lum_c, f32(1)), f32(100))
+        i = np.minimum(((lum_c - f32(1)) / step).astype(np.int64),
+                       _CIELAB_RANGE)
+        v = table[i]
+        out.append(np.minimum((v + f32(0.5)).astype(np.int64), 255))
+    return np.stack(out, -1).astype(np.uint8)
 
 
 def write_tiff(path, img: np.ndarray):
@@ -2649,9 +2838,27 @@ def write_jpeg2000(path, img: np.ndarray, compression_x1000: int = 1000):
 
 AVIF_BRANDS = (b"avif", b"avis")
 _AVIF_ERRLEN = 256
-# libyuv 1924's full-range BT.601 constants (kYuvJPEGConstants): the U and V
-# weights in 1/64 and the Y gain and bias of its 6-bit fixed point
-_YUV_JPEG = dict(ub=113, ug=22, vg=46, vr=90, yg=16320, yb=32)
+# libyuv 1924's YuvConstants that libavif 1.4.2 converts with, by kind and
+# full range: (ub, ug, vg, vr, yg, yb), the U and V weights in 1/64 and the
+# Y gain and bias of its 6-bit fixed point (kYuvJPEGConstants,
+# kYuvI601Constants, kYuvF709Constants, kYuvH709Constants,
+# kYuvV2020Constants, kYuv2020Constants)
+_LIBYUV_CONSTANTS = {
+    ("601", True): (113, 22, 46, 90, 16320, 32),
+    ("601", False): (128, 25, 52, 102, 18997, -1160),
+    ("709", True): (119, 12, 30, 101, 16320, 32),
+    ("709", False): (128, 14, 34, 115, 18997, -1160),
+    ("2020", True): (120, 11, 37, 94, 16320, 32),
+    ("2020", False): (128, 12, 42, 107, 19003, -1160),
+}
+# libavif's choice of table by matrix coefficients, and for chroma-derived
+# NCL (12) by colour primaries; other matrices take libavif's own path
+_LIBYUV_MATRICES = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
+_LIBYUV_PRIMARIES = {1: "709", 2: "709", 5: "601", 6: "601", 9: "2020"}
+# an item's first colr of each kind, as libavif keeps them apart
+_NCLX, _ICC = (b"colr", b"nclx"), (b"colr", b"ICC")
+# transformative properties, which must be marked essential (MIAF 7.3.9)
+_AVIF_TRANSFORMS = (b"clap", b"irot", b"imir")
 # the versions libavif 1.4.2 reads of the full boxes it parses
 _AVIF_VERSIONS = {b"hdlr": (0,), b"pitm": (0, 1), b"iinf": (0, 1),
                   b"iloc": (0, 1, 2), b"ispe": (0,), b"pixi": (0,)}
@@ -2734,6 +2941,7 @@ class _Heif:
         self.idat = b""
         self.refs = []        # (type, from, [to])
         self.alpha = None     # the alpha item's id, once found
+        self.prem_by = None   # the item the primary item's prem names
         self.tracks = []      # moov's trak boxes, as parse_trak reads them
         self.source = "item"
         self.cut = None       # a top-level box cut at the end of the file
@@ -3019,13 +3227,8 @@ class _Heif:
                             raise self.bad("an av01 sample entry cut short")
                         props = {}
                         for pkind, ps, pe in self.boxes(es + 78, ee):
-                            payload = d[ps:pe]
-                            if pkind in _AVIF_VERSIONS and (
-                                    not payload or payload[0] not in
-                                    _AVIF_VERSIONS[pkind]):
-                                raise self.bad(f"a {pkind.decode('latin-1')}"
-                                               f" box of an unknown version")
-                            props.setdefault(pkind, payload)
+                            self.check_property(pkind, d[ps:pe])
+                            _avif_add_property(props, pkind, d[ps:pe])
                     t["entries"].append((ekind, props))
         return t
 
@@ -3077,15 +3280,15 @@ class _Heif:
     def colour_track(self):
         """The colour track (libavif's: the first usable track that is not
         auxiliary) and its alpha track (the first usable track whose
-        ``auxl`` names it) or None, each with every sample laid out."""
+        ``auxl`` names it) or None, each with every sample laid out; the
+        alpha is premultiplied where the colour track's ``prem`` names
+        it."""
         colour = next((t for t in self.tracks if self.usable(t) and
                        not t["aux_for"]), None)
         if colour is None:
             raise self.bad("no AV1 colour track")
         alpha = next((t for t in self.tracks if self.usable(t) and
                       t["aux_for"] == colour["id"]), None)
-        if alpha is not None and colour["prem_by"] == alpha["id"]:
-            raise self.unported("a premultiplied alpha (prem)")
         # libavif lays out every sample of both tracks before decoding
         for t in (colour, alpha):
             if t is not None:
@@ -3209,12 +3412,34 @@ class _Heif:
                 raise self.bad("an item name without its terminating 0")
             self.items.setdefault(item, {})["type"] = itype
 
+    def check_property(self, kind: bytes, payload: bytes):
+        """libavif's parse of a property box, which refuses the file
+        whether or not an item uses the box: the versions it knows, colr's
+        nclx (its reserved bits 0), irot's and imir's reserved bits (0) and
+        clap's eight fields."""
+        name = kind.decode("latin-1")
+        if kind in _AVIF_VERSIONS and (not payload or payload[0] not in
+                                       _AVIF_VERSIONS[kind]):
+            raise self.bad(f"a {name} box of an unknown version")
+        if kind == b"colr" and payload[:4] == b"nclx" and (
+                len(payload) < 11 or payload[10] & 0x7F):
+            raise self.bad("an nclx colr cut short or with reserved bits "
+                           "set")
+        if kind in (b"irot", b"imir") and (not payload or payload[0] & (
+                0xFC if kind == b"irot" else 0xFE)):
+            raise self.bad(f"an {name} box cut short or with reserved bits "
+                           f"set")
+        if kind == b"clap" and len(payload) < 32:
+            raise self.bad("a clap box cut short")
+
     def parse_iprp(self, s: int, e: int):
         d = self.data
         for kind, bs, be in self.boxes(s, e):
             if kind == b"ipco":
                 self.props = [(k, d[ps:pe]) for k, ps, pe
                               in self.boxes(bs, be)]
+                for k, payload in self.props:
+                    self.check_property(k, payload)
             elif kind == b"ipma":
                 rd = self.reader(bs, be)
                 version = rd(1)
@@ -3236,6 +3461,16 @@ class _Heif:
                             v = rd(1)
                             assoc.append((bool(v >> 7), v & 0x7F))
                     self.items.setdefault(item, {})["assoc"] = assoc
+        # libavif refuses a transformative property not marked essential,
+        # whichever item it is associated with
+        for item in self.items.values():
+            for essential, idx in item.get("assoc", ()):
+                kind = self.props[idx - 1][0] if 0 < idx <= len(
+                    self.props) else None
+                if kind in _AVIF_TRANSFORMS and not essential:
+                    raise self.bad(f"a transformative property "
+                                   f"{kind.decode('latin-1')!r} not marked "
+                                   f"essential")
 
     def parse_iref(self, s: int, e: int):
         d = self.data
@@ -3277,12 +3512,9 @@ class _Heif:
             raise self.bad(f"a primary item of type {item['type']!r}")
         if "extents" not in item:
             raise self.bad("the primary item has no location")
+        # its transforms (irot, imir, clap) are parsed and not applied: cv2
+        # reads the image as coded
         props = self.properties(item)
-        for kind, what in ((b"irot", "a rotation (irot)"),
-                           (b"imir", "a mirroring (imir)"),
-                           (b"clap", "a clean aperture (clap)")):
-            if kind in props:
-                raise self.unported(what)
         if b"ispe" not in props:
             raise self.bad("the primary item has no ispe")
         tiles, grid = self.tiles(self.primary, item, props)
@@ -3366,9 +3598,10 @@ class _Heif:
         return tiles, (rows, cols, out_w, out_h)
 
     def properties(self, item: dict, skip: bool = False):
-        """An item's properties by type (the first of a type), with
-        libavif's checks of their associations; with ``skip``, None where
-        libavif skips the item instead (an unknown essential property)."""
+        """An item's properties by type (the first of a type; of colr, the
+        first nclx and the first ICC), with libavif's checks of their
+        associations; with ``skip``, None where libavif skips the item
+        instead (an unknown essential property)."""
         props = {}
         for essential, idx in item.get("assoc", []):
             if idx == 0:
@@ -3376,14 +3609,6 @@ class _Heif:
             if idx > len(self.props):
                 raise self.bad("a property index past ipco's boxes")
             kind, payload = self.props[idx - 1]
-            if kind in _AVIF_VERSIONS and (not payload or payload[0] not in
-                                           _AVIF_VERSIONS[kind]):
-                raise self.bad(f"a {kind.decode('latin-1')} box of an "
-                               f"unknown version")
-            if kind in (b"irot", b"imir") and not essential:
-                raise self.bad(f"a transformative property "
-                               f"{kind.decode('latin-1')!r} not marked "
-                               f"essential")
             if kind not in _AVIF_KNOWN_PROPERTIES:
                 if essential:
                     if skip:
@@ -3391,7 +3616,7 @@ class _Heif:
                     raise self.bad(f"an unknown essential property "
                                    f"{kind.decode('latin-1')!r}")
                 continue
-            props.setdefault(kind, payload)
+            _avif_add_property(props, kind, payload)
         return props
 
     def alpha_item(self):
@@ -3406,11 +3631,11 @@ class _Heif:
         alpha item is malformed or does not decode."""
         targets = {}
         for kind, src, dst in self.refs:
-            if dst and kind in (b"auxl", b"thmb"):
+            if dst and kind in (b"auxl", b"thmb", b"prem"):
                 targets.setdefault(src, {})[kind] = dst[-1]
-            if kind == b"prem" and dst and src == self.primary:
-                # libavif then unpremultiplies the colour by the alpha
-                raise self.unported("a premultiplied alpha (prem)")
+        # the colour is premultiplied where the primary item's prem names
+        # the alpha item (libavif's premByID)
+        self.prem_by = targets.get(self.primary, {}).get(b"prem")
         for iid, item in self.items.items():
             refs = targets.get(iid, {})
             if refs.get(b"auxl") != self.primary or b"thmb" in refs:
@@ -3443,23 +3668,34 @@ class _Heif:
         return None
 
 
-def _avif_nclx(props: dict):
-    """(matrix, full range) from an nclx colr property, or None."""
-    colr = props.get(b"colr")
-    if colr is None or colr[:4] != b"nclx" or len(colr) < 11:
-        return None
-    _, _, matrix = struct.unpack_from(">HHH", colr, 4)
-    return matrix, bool(colr[10] >> 7)
+def _avif_add_property(props: dict, kind: bytes, payload: bytes):
+    """Keeps the first property of each type, and of colr the first nclx
+    and the first ICC profile (``prof`` or ``rICC``) apart, as libavif reads
+    one colr of each kind: an nclx after an ICC colr still sets the
+    colour."""
+    if kind == b"colr":
+        if payload[:4] == b"nclx":
+            props.setdefault(_NCLX, payload)
+        elif payload[:4] in (b"prof", b"rICC"):
+            props.setdefault(_ICC, payload)
+    props.setdefault(kind, payload)
+
+
+def _avif_cicp(props: dict, info) -> tuple:
+    """(colour primaries, matrix, full range) libavif converts with: the
+    nclx colr's where the item or track has one, else the AV1 sequence
+    header's (``decode_av1``'s info)."""
+    colr = props.get(_NCLX)
+    if colr is None:
+        return info[6], info[8], bool(info[9])
+    primaries, _, matrix = struct.unpack_from(">HHH", colr, 4)
+    return primaries, matrix, bool(colr[10] >> 7)
 
 
 def _avif_check_properties(heif: _Heif, props: dict) -> bool:
-    """libavif's checks of the properties: colr's reserved bits, av1C's
-    marker and version, pixi's channels and depths against av1C's.
-    → av1C's monochrome flag (libavif then gives cv2 a gray image)."""
-    colr = props.get(b"colr")
-    if colr is not None and colr[:4] == b"nclx" and len(colr) >= 11 and \
-            colr[10] & 0x7F:
-        raise heif.bad("colr's reserved bits are not 0")
+    """libavif's checks of the properties: av1C's marker and version,
+    pixi's channels and depths against av1C's.  → av1C's monochrome flag
+    (libavif then gives cv2 a gray image)."""
     av1c = props[b"av1C"]
     if len(av1c) < 4 or av1c[0] != 0x81:
         raise heif.bad("an av1C box of another marker or version")
@@ -3523,22 +3759,23 @@ def upsample_420(c: np.ndarray, width: int, height: int) -> np.ndarray:
     return out
 
 
-def yuv_to_rgb_jpeg(y: np.ndarray, u: np.ndarray, v: np.ndarray
-                    ) -> np.ndarray:
-    """8-bit full-range BT.601 YUV (chroma at full size) → (H, W, 3) uint8
-    RGB in libyuv 1924's row arithmetic (``YuvPixel`` with
-    kYuvJPEGConstants: Y scaled by 0x0101 · 16320 >> 16, U and V in 1/64,
-    a 6-bit shift and a clamp)."""
-    k = _YUV_JPEG
-    y = y.astype(np.int32)
-    u = u.astype(np.int32)
-    v = v.astype(np.int32)
-    y1 = ((y * 0x0101).astype(np.int64) * k["yg"] >> 16).astype(np.int32)
-    b = y1 + u * k["ub"] - (k["ub"] * 128 - k["yb"])
-    g = y1 + (k["ug"] * 128 + k["vg"] * 128 + k["yb"]) - (u * k["ug"] +
-                                                          v * k["vg"])
-    r = y1 + v * k["vr"] - (k["vr"] * 128 - k["yb"])
-    return np.clip(np.stack([r, g, b], -1) >> 6, 0, 255).astype(np.uint8)
+def yuv_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray, constants,
+               depth: int = 8) -> np.ndarray:
+    """YUV (chroma at full size) → (H, W, 3) uint8 RGB in libyuv 1924's row
+    arithmetic with one of its YuvConstants (``_LIBYUV_CONSTANTS``): Y
+    widened to 16 bits (``YuvPixel``: y · 0x0101; ``YuvPixel10`` and
+    ``YuvPixel12`` for 10- and 12-bit samples: shifted up, their top bits
+    below), times the table's gain >> 16 plus its bias; U and V cut to 8
+    bits (saturated) less 128, in 1/64; a 6-bit shift and a clamp."""
+    ub, ug, vg, vr, yg, yb = constants
+    y = y.astype(np.int64)
+    y32 = y * 0x0101 if depth == 8 else \
+        (y << (16 - depth)) | (y >> (2 * depth - 16))
+    u, v = (np.minimum(c.astype(np.int64) >> (depth - 8), 255) - 128
+            for c in (u, v))
+    y1 = (y32 * yg >> 16) + yb
+    rgb = np.stack([y1 + v * vr, y1 - (u * ug + v * vg), y1 + u * ub], -1)
+    return np.clip(rgb >> 6, 0, 255).astype(np.uint8)
 
 
 def avif_gray(y: np.ndarray, depth: int) -> np.ndarray:
@@ -3554,15 +3791,94 @@ def avif_gray(y: np.ndarray, depth: int) -> np.ndarray:
     return np.repeat(y.astype(np.uint8)[..., None], 3, -1)
 
 
+def _avif_matrix(matrix: int, primaries: int, full: bool, depth: int,
+                 subx: int, suby: int, path):
+    """libavif 1.4.2's verdict on a colour image's matrix coefficients:
+    libyuv's constants where libavif converts through libyuv, None for
+    the identity matrix (GBR, libavif's own rounded path); raises where
+    cv2 gets no image (reserved and unsupported codes, the identity matrix
+    with subsampled chroma, YCgCo at limited range, YCgCo-Re other than
+    full-range 10-bit) and, naming the kind, where libavif converts on its
+    own built-in path, which the port does not copy (FCC, SMPTE 240, YCgCo,
+    ICtCp's neighbour 15, YCgCo-Re, chroma-derived NCL of other primaries,
+    the identity matrix at limited range)."""
+    refused = matrix in (3, 10, 11, 13, 14) or matrix > 16 or (
+        matrix == 16 and (not full or depth != 10)) or (
+        matrix == 8 and not full) or (matrix == 0 and (subx or suby))
+    if refused:
+        why = "the identity matrix with subsampled chroma" if matrix == 0 \
+            else f"matrix coefficients {matrix} at {depth} bits, " \
+                 f"{'full' if full else 'limited'} range"
+        raise RuntimeError(f"{path}: an AVIF file cv2 does not read: {why}")
+    if matrix == 0 and full:
+        return None
+    kind = _LIBYUV_PRIMARIES.get(primaries) if matrix == 12 else \
+        _LIBYUV_MATRICES.get(matrix)
+    if kind is None:
+        what = "the identity matrix at limited range" if matrix == 0 else \
+            f"matrix coefficients {matrix}" + (
+                f" under colour primaries {primaries}" if matrix == 12
+                else "")
+        raise RuntimeError(f"{path}: an AVIF image of {what}, which libavif "
+                           f"converts on its own path and the port does not "
+                           f"read yet (cv2 does)")
+    return _LIBYUV_CONSTANTS[kind, full]
+
+
+def _alpha_to_8(a: np.ndarray, depth: int) -> np.ndarray:
+    """libavif's ``avifReformatAlpha`` from ``depth`` bits to 8: a / max ·
+    255 rounded (never a tie at 10 or 12 bits)."""
+    top = (1 << depth) - 1
+    return ((a.astype(np.int64) * 510 + top) // (2 * top)).astype(np.uint8)
+
+
+def alpha_limited_to_full(a: np.ndarray, depth: int) -> np.ndarray:
+    """libavif's ``avifLimitedToFullY`` on a limited-range alpha plane (the
+    alpha frame's colour_range 0): (a - black) · max / (white - black),
+    rounded half up, clamped."""
+    lo, hi = {8: (16, 235), 10: (64, 940), 12: (256, 3760)}[depth]
+    num = (a.astype(np.int64) - lo) * ((1 << depth) - 1)
+    q = (2 * num + hi - lo) // (2 * (hi - lo))
+    return np.clip(q, 0, (1 << depth) - 1).astype(np.uint16)
+
+
+# libyuv's fixed_invtbl8: 1 / a in 8.8 fixed point (its low 16 bits)
+_UNATTENUATE = np.array([0, 0xFFFF] + [0x10000 // a for a in range(2, 255)] +
+                        [0x100], np.int64)
+
+
+def unattenuate(rgb: np.ndarray, a: np.ndarray) -> np.ndarray:
+    """libyuv 1924's ``ARGBUnattenuate`` (its AVX2 and SSE2 rows, what
+    libavif's ``avifRGBImageUnpremultiplyAlpha`` calls on 8-bit RGBA): each
+    channel c → (c · 257 · fixed_invtbl8[a]) >> 16, saturated as a signed
+    16-bit word to 0-255 (a result of 32768 up, alpha 1 under a bright
+    colour, packs to 0)."""
+    r = rgb.astype(np.int64) * 257 * _UNATTENUATE[a.astype(np.int64)][
+        ..., None] >> 16
+    return np.where(r >= 32768, 0, np.minimum(r, 255)).astype(np.uint8)
+
+
 def avif_planes_to_rgb(planes, depth: int, subx: int, suby: int,
-                       matrix: int, full_range: bool, path="image"):
+                       matrix: int, full_range: bool, path="image",
+                       primaries: int = 2, alpha=None,
+                       premultiplied: bool = False):
     """Decoded AV1 planes → (H, W, 3) uint8 RGB as cv2 5.0.0 gets them:
-    OpenCV asks libavif 1.4.2 for 8-bit BGR; libavif cuts samples past 8
-    bits to their top 8 and converts with libyuv (BT.601 and BT.470BG full
-    range; 4:2:0 and 4:2:2 chroma upsampled bilinearly), or takes its own
-    identity path (GBR, matrix 0, 4:4:4: samples past 8 bits scaled by 255
-    / max and rounded).  A monochrome frame under a colour av1C: its luma
-    as gray at 8 bits, as libyuv's I400 conversion gives it."""
+    OpenCV asks libavif 1.4.2 for 8-bit BGR (BGRA where the image has an
+    alpha, which it drops after).  libavif converts through libyuv with
+    the constants of ``_avif_matrix`` (BT.601, BT.709 and BT.2020 NCL, full
+    and limited range), samples past 8 bits cut to their top 8 first; where
+    an alpha is converted too, 10-bit images go through libyuv's own 10-bit
+    rows (I010/I210/I410AlphaToARGB: 4:2:0 and 4:2:2 chroma upsampled at 10
+    bits, alpha >> 2) and 12-bit 4:2:0 through I012ToARGBMatrix (chroma
+    repeated, alpha rounded); or libavif takes its own identity path (GBR,
+    matrix 0, 4:4:4: samples past 8 bits scaled by 255 / max and
+    rounded).  ``alpha``: the alpha plane at the colour's size and depth
+    (full range), and with ``premultiplied`` the colour is divided by it
+    as libyuv's ``ARGBUnattenuate`` divides (libavif's identity path past
+    8 bits divides in float itself).  4:2:0 and 4:2:2 chroma are
+    upsampled as libyuv's bilinear and linear filters do.  A monochrome
+    frame under a colour av1C: its luma as gray at 8 bits, as libyuv's
+    I400 conversion gives it."""
     if len(planes) == 1:
         if depth > 8 or not full_range:
             raise RuntimeError(f"{path}: an AVIF image of a monochrome frame "
@@ -3572,32 +3888,48 @@ def avif_planes_to_rgb(planes, depth: int, subx: int, suby: int,
         return avif_gray(planes[0], 8)
     y, u, v = planes
     height, width = y.shape
-    if not full_range:
-        raise RuntimeError(f"{path}: an AVIF image of limited-range YUV, "
-                           f"which the port does not read yet (cv2 does)")
-    if matrix == 0:
-        if subx or suby:
-            raise RuntimeError(f"{path}: an AVIF file cv2 does not read: "
-                               f"the identity matrix with subsampled chroma")
+    constants = _avif_matrix(matrix, primaries, full_range, depth, subx,
+                             suby, path)
+    a8 = None
+    if constants is None and depth > 8 and premultiplied:
+        # libavif's slow path, which divides by the alpha itself in float
+        top = np.float32((1 << depth) - 1)
+        gbr = np.stack([v, y, u], -1).astype(np.float32) / top
+        a = (alpha.astype(np.float32) / top)[..., None]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            c = np.where(a > 0, np.minimum(gbr / a, np.float32(1)),
+                         np.float32(0))
+        return np.floor(np.float32(0.5) + c * np.float32(255)).astype(
+            np.uint8)
+    if constants is None:
         gbr = np.stack([v, y, u], -1).astype(np.int64)
         if depth > 8:        # libavif's float path: round(x / max · 255)
             top = (1 << depth) - 1
             gbr = (gbr * 510 + top) // (2 * top)
-        return gbr.astype(np.uint8)
-    if depth > 8:
-        s = depth - 8
-        y, u, v = (np.minimum(p >> s, 255) for p in (y, u, v))
-    if matrix not in (5, 6):
-        raise RuntimeError(f"{path}: an AVIF image of matrix coefficients "
-                           f"{matrix}, which the port does not read yet "
-                           f"(cv2 does)")
-    if subx and suby:
-        u = upsample_420(u, width, height)
-        v = upsample_420(v, width, height)
-    elif subx:          # 4:2:2: libyuv's I422ToARGBMatrixLinear, rows alone
-        u = _up2_linear(u.astype(np.int32), width)
-        v = _up2_linear(v.astype(np.int32), width)
-    return yuv_to_rgb_jpeg(y, u, v)
+        rgb = gbr.astype(np.uint8)
+    else:
+        ydepth = 8           # libyuv's rows after libavif's downshift
+        if alpha is not None and depth == 10:
+            ydepth, a8 = 10, (alpha >> 2).astype(np.uint8)
+        elif alpha is not None and depth == 12 and subx and suby:
+            ydepth, a8 = 12, _alpha_to_8(alpha, depth)
+            u, v = (np.repeat(np.repeat(c, 2, 0), 2, 1)[:height, :width]
+                    for c in (u, v))
+            subx = suby = 0
+        if ydepth == 8 and depth > 8:
+            y, u, v = (np.minimum(p >> (depth - 8), 255) for p in (y, u, v))
+            if alpha is not None:
+                a8 = np.minimum(alpha >> (depth - 8), 255).astype(np.uint8)
+        if subx and suby:
+            u = upsample_420(u, width, height)
+            v = upsample_420(v, width, height)
+        elif subx:      # 4:2:2: libyuv's linear filter, rows alone
+            u = _up2_linear(u.astype(np.int32), width)
+            v = _up2_linear(v.astype(np.int32), width)
+        rgb = yuv_to_rgb(y, u, v, constants, ydepth)
+    if premultiplied:
+        rgb = unattenuate(rgb, alpha if a8 is None else a8)
+    return rgb
 
 
 def decode_av1(obu: bytes, path="image", grain: bool = True):
@@ -3701,15 +4033,12 @@ def _avif_assemble(heif: _Heif, tiles, grid, path, alpha: bool = False):
 
 def _avif_sequence(heif: _Heif, path):
     """The first frame of an image sequence's colour track, as libavif
-    decodes it for cv2 → (planes, info, properties, gray); the alpha
-    track's first frame decoded and checked as an alpha item's."""
+    decodes it for cv2 → (planes, info, properties, gray, alpha planes and
+    info or None, premultiplied); the alpha track's first frame decoded and
+    checked as an alpha item's.  The sample entry's transforms (irot,
+    imir, clap) are parsed and not applied, as cv2 reads the frame."""
     colour, alpha = heif.colour_track()
     obu, props = heif.track_image(colour)
-    for kind, what in ((b"irot", "a rotation (irot)"),
-                       (b"imir", "a mirroring (imir)"),
-                       (b"clap", "a clean aperture (clap)")):
-        if kind in props:
-            raise heif.unported(what)
     if b"av1C" not in props:
         raise heif.bad("the colour track has no av1C")
     gray = _avif_check_properties(heif, props)
@@ -3723,28 +4052,50 @@ def _avif_sequence(heif: _Heif, path):
     if tuple(info[:2]) != (colour["width"], colour["height"]):
         raise heif.unported(f"a {info[0]}x{info[1]} frame in a track whose "
                             f"tkhd differs")
+    decoded = None
     if alpha is not None:
-        _, ainfo = decode_av1(aobu, path)
-        if ainfo[2] != info[2]:
-            raise heif.bad(f"a {ainfo[2]}-bit alpha frame for a {info[2]}-bit "
-                           f"image")
+        decoded = decode_av1(aobu, path)
+        if decoded[1][2] != info[2]:
+            raise heif.bad(f"a {decoded[1][2]}-bit alpha frame for a "
+                           f"{info[2]}-bit image")
     if gray and alpha is not None:
         raise heif.bad("a gray image with an alpha track")
-    return planes, info, props, gray
+    prem = alpha is not None and colour["prem_by"] == alpha["id"]
+    return planes, info, props, gray, decoded, prem
+
+
+def _avif_alpha(heif: _Heif, decoded, info, prem: bool):
+    """The alpha plane the colour stage takes: the alpha frame's luma,
+    made full range where its frame says limited (libavif's
+    ``avifImageLimitedToFullAlpha``).  A premultiplied alpha whose frame
+    is not the colour's size (libavif scales it first) raises as a kind
+    the port does not read yet; an unpremultiplied one leaves the colour
+    as it is whatever its size, and only its presence counts."""
+    aplanes, ainfo = decoded
+    a = aplanes[0]
+    if tuple(ainfo[:2]) != tuple(info[:2]):
+        if prem:
+            raise heif.unported("a premultiplied alpha of another size "
+                                "than the colour")
+        a = np.zeros((info[1], info[0]), np.uint16)
+    if not ainfo[9]:
+        a = alpha_limited_to_full(a, ainfo[2])
+    return a
 
 
 def _decode_avif_bytes(data: bytes, path):
     heif = _Heif(data, path)
     heif.parse()
     if heif.source == "tracks":
-        planes, info, props, gray = _avif_sequence(heif, path)
+        planes, info, props, gray, decoded, prem = _avif_sequence(heif, path)
         depth, subx, suby = info[2:5]
         if gray:
             return avif_gray(planes[0], depth)
-        nclx = _avif_nclx(props)
-        matrix, full = nclx if nclx is not None else (info[8], bool(info[9]))
+        primaries, matrix, full = _avif_cicp(props, info)
+        alpha = None if decoded is None else _avif_alpha(heif, decoded,
+                                                         info, prem)
         return avif_planes_to_rgb(planes, depth, subx, suby, matrix, full,
-                                  path)
+                                  path, primaries, alpha, prem)
     tiles, props, grid = heif.primary_image()
     ispe = props[b"ispe"]
     if len(ispe) < 12:
@@ -3765,11 +4116,13 @@ def _decode_avif_bytes(data: bytes, path):
                           heif.items[i]["type"] == b"grid"])
     planes, info = _avif_assemble(heif, tiles, grid, path)
     width, height, depth, subx, suby = info[:5]
+    decoded = None
     if alpha is not None:
         # libavif decodes the alpha too (its frame fitted to the item's
         # size), and refuses one that does not decode or whose depth is not
         # the colour's
-        _, ainfo = _avif_assemble(heif, alpha[0], alpha[2], path, True)
+        decoded = _avif_assemble(heif, alpha[0], alpha[2], path, True)
+        ainfo = decoded[1]
         if ainfo[2] != depth:
             raise heif.bad(f"a {ainfo[2]}-bit alpha frame for a {depth}-bit "
                            f"image")
@@ -3780,9 +4133,11 @@ def _decode_avif_bytes(data: bytes, path):
             # OpenCV's reader asks for 2 channels and fails
             raise heif.bad("a gray image with an alpha item")
         return avif_gray(planes[0], depth)
-    nclx = _avif_nclx(props)
-    matrix, full = nclx if nclx is not None else (info[8], bool(info[9]))
-    return avif_planes_to_rgb(planes, depth, subx, suby, matrix, full, path)
+    primaries, matrix, full = _avif_cicp(props, info)
+    prem = alpha is not None and heif.prem_by == heif.alpha
+    a = None if decoded is None else _avif_alpha(heif, decoded, info, prem)
+    return avif_planes_to_rgb(planes, depth, subx, suby, matrix, full, path,
+                              primaries, a, prem)
 
 
 def read_avif(path) -> np.ndarray:
@@ -3799,15 +4154,18 @@ def read_avif(path) -> np.ndarray:
     matrices, the screen content tools (palette, intra block copy), film
     grain (synthesised as libaom's ``av1_add_film_grain`` does), full and
     reduced sequence headers, an alpha item or track (decoded and checked
-    as libavif does, then dropped as cv2's 3-channel read drops it), grid
-    items (colour and alpha) with libavif's grid rules, and image
-    sequences (``avis``: the first frame).  Raises ``RuntimeError`` naming
-    the file where cv2 returns None (OpenCV's own 500-byte signature test
-    included), and naming the kind for what the port does not read yet
-    (rotations, mirrors, clean apertures, a premultiplied alpha, superres,
-    delta loop filter, frames other than a shown key frame first, a frame
-    libavif scales to its ispe or track size, matrices other than BT.601
-    and identity, limited range)."""
+    as libavif does, then dropped as cv2's 3-channel read drops it; a
+    premultiplied one divided out first), grid items (colour and alpha)
+    with libavif's grid rules, and image sequences (``avis``: the first
+    frame); an nclx colr wherever it stands beside an ICC one, rotations,
+    mirrors and clean apertures (parsed, not applied, as cv2 reads the
+    image), BT.601, BT.709 and BT.2020 NCL at full and limited range.
+    Raises ``RuntimeError`` naming the file where cv2 returns None
+    (OpenCV's own 500-byte signature test included), and naming the kind
+    for what the port does not read yet (superres, delta loop filter,
+    frames other than a shown key frame first, a frame libavif scales to
+    its ispe or track size, matrices libavif converts on its own path,
+    a premultiplied alpha of another size than the colour)."""
     with open(path, "rb") as f:
         data = f.read()
     return _decode_avif_bytes(data, path)
@@ -3824,10 +4182,11 @@ def read_image(fn: str) -> np.ndarray:
     codestream's ``FF 4F FF 51``) and AVIF (an ``ftyp`` box with the
     ``avif`` or ``avis`` brand) through the port's own readers (AVIF: every
     chroma format, the screen content tools, film grain and the alpha item
-    that cv2's and Pillow's writers make, grids and image sequences;
-    ``read_avif``).  A kind of AVIF the port does not read yet (the rarer
-    kinds ``read_avif`` lists) raises ``RuntimeError`` naming the file and
-    the kind; any other file raises naming the file."""
+    that cv2's and Pillow's writers make, grids and image sequences, every
+    colour and orientation option of Pillow's; ``read_avif``).  A kind of
+    AVIF the port does not read yet (the rarer kinds ``read_avif`` lists)
+    raises ``RuntimeError`` naming the file and the kind; any other file
+    raises naming the file."""
     with open(fn, "rb") as f:
         head = f.read(512)
     if head.startswith(PNG_SIGNATURE):

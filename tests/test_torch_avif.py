@@ -192,9 +192,11 @@ def test_colour_stage_matches_cv2(cv2, tmp_path):
         path.write_bytes(data)
         heif = image_io._Heif(data, str(path))
         heif.parse()
-        matrix, full = image_io._avif_nclx(heif.primary_item()[1])
+        obu, props = heif.primary_item()
+        primaries, matrix, full = image_io._avif_cicp(
+            props, image_io.decode_av1(obu)[1])
         got = image_io.avif_planes_to_rgb(planes, depth, sx, sy, matrix,
-                                          full)
+                                          full, primaries=primaries)
         np.testing.assert_array_equal(got, cv2.imread(str(path))[..., ::-1],
                                       err_msg=name)
 
@@ -405,11 +407,14 @@ def _scaled_track(img):
                                  tkhd_size=(w // 2, h // 2))
 
 
-# kinds cv2 reads that the port does not yet: Pillow writes an EXIF
-# orientation as an essential irot; a sequence's frame scaled to its track
+# kinds cv2 reads that the port does not yet: Pillow's EXIF orientation
+# (an essential irot, read since) on a file whose nclx says SMPTE 240 (7),
+# which libavif converts on its own path; a sequence's frame scaled to its
+# track
 _REFUSED = {
-    "irot": (lambda img: oracle.pillow_avif(img, exif=_orientation(6)),
-             r"rotation \(irot\)"),
+    "irot": (lambda img: oracle.with_colr(
+        oracle.pillow_avif(img, exif=_orientation(6)),
+        [oracle.nclx(1, 13, 7, True)]), r"matrix coefficients 7"),
     "tkhd_scaled": (_scaled_track, r"a 128x96 frame in a track whose tkhd "
                                    r"differs"),
 }
@@ -483,18 +488,12 @@ def _edits(data):
 def test_hand_edited_containers(cv2, tmp_path, edit):
     # libavif's container rules: where cv2 returns None the port raises
     # naming the file; a rotation or mirror cv2 reads (it ignores it) the
-    # port refuses as not read yet
+    # port reads as cv2 does
     img = oracle.avif_image("photo", 48, 64, np.random.default_rng(9))
     data = _edits(oracle.cv2_avif(img))[edit]
     path = tmp_path / f"{edit}.avif"
     path.write_bytes(data)
-    if edit in ("irot", "imir"):
-        assert cv2.imread(str(path)) is not None
-        with pytest.raises(RuntimeError, match=f"{edit}.avif: .*{edit}.*not "
-                                               f"read yet"):
-            read_image(str(path))
-        return
-    assert _same_as_cv2(cv2, path) == (edit == "unknown")
+    assert _same_as_cv2(cv2, path) == (edit in ("unknown", "irot", "imir"))
 
 
 @pytest.mark.parametrize("cut", [8, 40, 120, 250, -40, -1])

@@ -552,8 +552,9 @@ def test_alpha_grids_match_cv2(cv2, pil, tmp_path, case):
 
 
 def test_grid_colour_from_the_grid_item(cv2, tmp_path):
-    # the grid's own colr decides the conversion; without one, the tiles'
-    # sequence header (cv2's tiles: BT.601 full range)
+    # the grid's own colr decides the conversion (here limited range over
+    # the tiles' full-range colr); without one, the tiles' sequence header
+    # (cv2's tiles: BT.601 full range)
     img = _view(120, 180, 6)
     t = _tiles(img, 2, 2, 96, 64)
     assert _same_as_cv2(cv2, tmp_path / "n.avif", oracle.grid_avif(
@@ -563,9 +564,11 @@ def test_grid_colour_from_the_grid_item(cv2, tmp_path):
     path = tmp_path / "l.avif"
     path.write_bytes(oracle.grid_avif(t, 2, 2, 180, 120, grid_props=[
         (oracle.ispe_box(180, 120), False), (limited, False)]))
-    assert cv2.imread(str(path)) is not None
-    with pytest.raises(RuntimeError, match="limited-range.*not read yet"):
-        read_image(str(path))
+    assert _same_as_cv2(cv2, path)
+    full = tmp_path / "f.avif"
+    full.write_bytes(oracle.grid_avif(t, 2, 2, 180, 120, grid_props=[
+        (oracle.ispe_box(180, 120), False)]))
+    assert not np.array_equal(read_image(str(path)), read_image(str(full)))
 
 
 def test_grid_payload_past_the_signature_window(cv2, tmp_path):

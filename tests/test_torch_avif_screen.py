@@ -399,14 +399,22 @@ def test_alpha_item_edits_match_cv2(cv2, pil, tmp_path, case):
 
 
 def test_premultiplied_alpha_raises_naming_the_kind(cv2, pil, tmp_path):
-    # a prem reference makes libavif unpremultiply the colour: cv2 reads
-    # it; the port names the kind
+    # a prem reference makes libavif unpremultiply the colour, which the
+    # port reads as cv2 does; over an alpha frame of another size than the
+    # colour (libavif scales it first) the port names the kind
     img = oracle.avif_image("photo", 40, 56, np.random.default_rng(22))
     c_obu, c_props, a_obu, a_props = oracle.alpha_parts(
         oracle.pillow_avif(np.dstack([img, img[..., :1]])))
     path = tmp_path / "prem.avif"
     path.write_bytes(oracle.build_items(
         [(1, b"av01", c_obu, c_props), (2, b"av01", a_obu, a_props)],
+        [(b"auxl", 2, [1]), (b"prem", 1, [2])]))
+    np.testing.assert_array_equal(read_avif(str(path)),
+                                  cv2.imread(str(path))[..., ::-1])
+    small = oracle.alpha_parts(oracle.pillow_avif(np.dstack(
+        [img[:20, :28], img[:20, :28, :1]])))[2]
+    path.write_bytes(oracle.build_items(
+        [(1, b"av01", c_obu, c_props), (2, b"av01", small, a_props)],
         [(b"auxl", 2, [1]), (b"prem", 1, [2])]))
     assert cv2.imread(str(path)) is not None
     with pytest.raises(RuntimeError, match="prem.avif: .*premultiplied.*not "

@@ -73,7 +73,8 @@ def fixture_results(tmp_path_factory):
                          + fx.ENCODED + fx.ENCODED_J2K
                          + list(fx.ENCODED_J2K_RATE) + list(fx.RESIZED)
                          + list(fx.TIMING_CV2) + fx.ROUND_TRIP
-                         + fx.AVIF_UNPORTED + list(fx.TIMING_AVIF))
+                         + fx.AVIF_UNPORTED + list(fx.TIMING_AVIF)
+                         + list(fx.TIMING_TIFF))
 def test_committed_fixture(fixture_results, name):
     # no cv2 here: each file against cv2's recorded decode (REFUSED, and
     # GARBLED, which cv2 reads only in part: the port raises naming the
@@ -82,7 +83,8 @@ def test_committed_fixture(fixture_results, name):
     # TIMING_CV2: the full-size bytes and pixels hash as cv2's;
     # ROUND_TRIP: the writer's file reads back as its source;
     # AVIF_UNPORTED: the port raises naming the file and the kind it does
-    # not read yet; TIMING_AVIF: the full-size decodes hash as cv2's)
+    # not read yet; TIMING_AVIF, TIMING_TIFF: the full-size decodes hash as
+    # cv2's)
     assert fixture_results[name] is True
 
 
@@ -424,30 +426,31 @@ def test_pnm_writer_matches_cv2_bytes(cv2, tmp_path, ext):
 
 
 # kinds of a format cv2 reads that the port does not yet: extension ->
-# (the kind as the port names it, Pillow's save options that make it: an
-# EXIF orientation, which Pillow's AVIF writer turns into an irot)
-_UNPORTED = {"avif": (r"a rotation \(irot\)", dict(exif={0x0112: 6}))}
+# (the kind as the port names it, Pillow's save options, the colr boxes
+# the file is written again with: an nclx of SMPTE 240, a matrix libavif
+# converts on its own path)
+_UNPORTED = {"avif": (r"matrix coefficients 7", dict(), (1, 13, 7, True))}
 
 
 @pytest.mark.parametrize("ext", list(_UNPORTED))
 def test_unported_formats_raise_naming_the_format(cv2, tmp_path, ext):
-    # a file Pillow writes and cv2 reads: the port says it does not read
-    # the kind yet (AVIF itself is read since the port's AV1 decoder)
+    # a file Pillow writes, its colr edited, and cv2 reads: the port says it
+    # does not read the kind yet (AVIF itself is read since the port's AV1
+    # decoder)
     pytest.importorskip("PIL.AvifImagePlugin")
+    import torch_avif_oracles as oracle
     from PIL import Image
 
-    kind, opts = _UNPORTED[ext]
+    kind, opts, nclx = _UNPORTED[ext]
     path = tmp_path / f"view.{ext}"
     img = fx.fixture_image(12, 16, seed=1)
-    if "exif" in opts:
-        exif = Image.Exif()
-        exif.update(opts["exif"])
-        opts = dict(opts, exif=exif)
     Image.fromarray(img).save(str(path), **opts)
+    path.write_bytes(oracle.with_colr(path.read_bytes(),
+                                      [oracle.nclx(*nclx)]))
     assert cv2.imread(str(path)) is not None
     with pytest.raises(RuntimeError,
                        match=f"view.{ext}: an {ext.upper()} (image|file) "
-                             f"with {kind}.*not read yet"):
+                             f"of {kind}.*not read yet"):
         read_image(str(path))
 
 

@@ -434,11 +434,12 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
         np.testing.assert_array_equal(
             read_image(os.path.join(images, name + ".avif")),
             read_png(os.path.join(images, name + ".want.png")))
-    other = tmp_path / "photo_irot.avif"
-    other.write_bytes(open(os.path.join(images, "avif_irot.avif"),
+    other = tmp_path / "photo_smpte240.avif"
+    other.write_bytes(open(os.path.join(images, "avif_smpte240.avif"),
                            "rb").read())
-    with pytest.raises(RuntimeError, match="photo_irot.avif: an AVIF file "
-                                           "with a rotation.*not read yet"):
+    with pytest.raises(RuntimeError, match="photo_smpte240.avif: an AVIF "
+                                           "image of matrix coefficients 7.*"
+                                           "not read yet"):
         read_image(str(other))
 
 

@@ -25,7 +25,14 @@ bundled libraries through ctypes:
   ``random_grain``, and ``with_grain``, an item's OBUs with its frame
   header's film grain fields rewritten (``grain_bits``);
 * ``grid_avif``: grid images of tiles (``tile_item``, ``split_tiles``)
-  that cv2's and Pillow's writers make, with a grid alpha.
+  that cv2's and Pillow's writers make, with a grid alpha;
+* the colour stage's: ``libavif_encode`` (libavif's own encoder on given
+  planes: 10- and 12-bit 4:2:2 and 4:4:4, 4:0:0 alpha frames, limited
+  range), ``libavif_bgra`` (libavif's ``avifImageYUVToRGB`` as cv2 asks
+  for it), ``libavif_symbol`` and ``libavif_table`` (libyuv's and
+  libavif's functions and tables by ELF symbol), ``nclx``, ``with_colr``,
+  ``alpha_file``, ``icc_profile`` and ``orientation_exif`` (hand-edited
+  colr boxes, alpha items, ``prem``, Pillow's ICC and EXIF options).
 """
 
 from __future__ import annotations
@@ -936,9 +943,11 @@ def sequence_parts(data: bytes):
 def _track(tid: int, samples, props: dict, width: int, height: int,
            offsets, *, handler=b"pict", aux_for=0, co64=False, chunks=None,
            stss=(1,), edts=True, tkhd_size=None, entry=b"av01",
-           duration=None) -> bytes:
+           duration=None, extra=(), prem_by=0) -> bytes:
     """A ``trak`` of samples laid out in chunks (samples a chunk; one chunk
-    of all by default) at the chunks' ``offsets``."""
+    of all by default) at the chunks' ``offsets``; ``extra``: more property
+    boxes after the sample entry's av1C, colr and pixi; ``prem_by``: the
+    track a ``prem`` reference names."""
     chunks = chunks or [len(samples)]
     w, h = tkhd_size or (width, height)
     duration = 100 * len(samples) if duration is None else duration
@@ -948,8 +957,11 @@ def _track(tid: int, samples, props: dict, width: int, height: int,
                         ">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0,
                         0x40000000) + struct.pack(">II", w << 16, h << 16))
     out = tkhd
-    if aux_for:
-        out += box(b"tref", box(b"auxl", struct.pack(">I", aux_for)))
+    if aux_for or prem_by:
+        out += box(b"tref", (box(b"auxl", struct.pack(">I", aux_for))
+                             if aux_for else b"") +
+                   (box(b"prem", struct.pack(">I", prem_by)) if prem_by
+                    else b""))
     if edts:
         out += box(b"edts", full_box(b"elst", 0, 1, struct.pack(
             ">IIII", 1, 100 * len(samples), 0, 0x10000)))
@@ -962,7 +974,7 @@ def _track(tid: int, samples, props: dict, width: int, height: int,
         struct.pack(">Hh", 24, -1)
     stsd = full_box(b"stsd", 0, 0, struct.pack(">I", 1) + box(
         entry, vse + b"".join(props[k] for k in (b"av1C", b"colr", b"pixi")
-                              if k in props)))
+                              if k in props) + b"".join(extra)))
     stts = full_box(b"stts", 0, 0, struct.pack(">III", 1, len(samples), 100))
     runs = []
     for k, n in enumerate(chunks):
@@ -1249,3 +1261,171 @@ def port_selfguided(src: np.ndarray, sgr_set: int, xqd, depth: int
     lib.av1_lr_sgr(s.ctypes.data + (3 * s.shape[1] + 3) * 2, s.shape[1],
                    dst.ctypes.data, w, w, h, sgr_set, x.ctypes.data, depth)
     return dst
+
+
+# ------------------------------------------------------- colour stage
+
+
+def libavif_encode(planes, depth: int, fmt: str, full: bool = True) -> bytes:
+    """libavif 1.4.2's AVIF bytes (its encoder over libaom, at its default
+    settings) of YUV planes given as they are (``fmt`` "444", "422", "420"
+    or "400"; chroma planes at their own size; any depth libavif takes):
+    the writer of 10- and 12-bit 4:2:2 and 4:4:4 colour and of 4:0:0
+    alpha frames, full or limited range, that no writer here exposes.
+    The nclx it writes says matrix 2 (unspecified)."""
+    lib = _libavif()
+    vp = ctypes.c_void_p
+    lib.avifImageCreate.restype = vp
+    lib.avifImageCreate.argtypes = [ctypes.c_uint32] * 3 + [ctypes.c_int]
+    lib.avifImageAllocatePlanes.argtypes = [vp, ctypes.c_int]
+    lib.avifEncoderCreate.restype = vp
+    lib.avifEncoderWrite.argtypes = [vp, vp, vp]
+    lib.avifEncoderDestroy.argtypes = [vp]
+    lib.avifRWDataFree.argtypes = [vp]
+    h, w = planes[0].shape
+    fmt_code = {"444": 1, "422": 2, "420": 3, "400": 4}[fmt]
+    img = lib.avifImageCreate(w, h, depth, fmt_code)
+    # avifImage: width, height, depth, yuvFormat, yuvRange, ...
+    ctypes.c_uint32.from_address(img + 16).value = 1 if full else 0
+    lib.avifImageAllocatePlanes(img, 1)          # AVIF_PLANES_YUV
+    ptrs = struct.unpack("QQQ", ctypes.string_at(img + 24, 24))
+    rows = struct.unpack("III", ctypes.string_at(img + 48, 12))
+    dtype = np.uint16 if depth > 8 else np.uint8
+    for p, plane in enumerate(planes):
+        ph = plane.shape[0]
+        dst = np.ctypeslib.as_array((ctypes.c_uint8 * (rows[p] * ph))
+                                    .from_address(ptrs[p])).reshape(ph, -1)
+        row = np.ascontiguousarray(plane.astype(dtype)).view(np.uint8)
+        dst[:, :row.shape[1]] = row
+    enc = lib.avifEncoderCreate()
+    out = ctypes.create_string_buffer(16)        # avifRWData
+    res = lib.avifEncoderWrite(enc, img, ctypes.addressof(out))
+    lib.avifEncoderDestroy(enc)
+    lib.avifImageDestroy(img)
+    assert res == 0, f"libavif's encoder failed ({res})"
+    ptr, n = struct.unpack("QQ", out.raw)
+    data = ctypes.string_at(ptr, n)
+    lib.avifRWDataFree(ctypes.addressof(out))
+    return data
+
+
+def libavif_bgra(data: bytes, premultiplied: bool = False,
+                 avoid_libyuv: bool = False) -> np.ndarray:
+    """(H, W, 4) uint8 BGRA as libavif 1.4.2 converts the file's image for
+    cv2 (``avifRGBImageSetDefaults``, 8 bits, BGRA: OpenCV's request for an
+    image with alpha), through libyuv unless ``avoid_libyuv``; with
+    ``premultiplied`` the RGB image is asked premultiplied (a premultiplied
+    file's colour then left as coded)."""
+    lib = _libavif()
+    vp = ctypes.c_void_p
+    lib.avifRGBImageSetDefaults.argtypes = [vp, vp]
+    lib.avifImageYUVToRGB.argtypes = [vp, vp]
+    dec = lib.avifDecoderCreate()
+    img = lib.avifImageCreateEmpty()
+    try:
+        res = lib.avifDecoderReadMemory(dec, img, data, len(data))
+        if res != 0:
+            raise ValueError(f"libavif refuses the file ({res})")
+        # avifRGBImage: width, height, depth, format, chromaUpsampling,
+        # chromaDownsampling, avoidLibYUV, ignoreAlpha, alphaPremultiplied,
+        # isFloat, maxThreads, pixels, rowBytes
+        rgb = ctypes.create_string_buffer(128)
+        lib.avifRGBImageSetDefaults(ctypes.addressof(rgb), img)
+        f = list(struct.unpack_from("11i", rgb.raw, 0))
+        w, h = f[0], f[1]
+        f[2], f[3], f[6], f[8] = 8, 4, int(avoid_libyuv), int(premultiplied)
+        buf = np.zeros((h, w, 4), np.uint8)
+        struct.pack_into("11i", rgb, 0, *f)
+        struct.pack_into("QI", rgb, 48, buf.ctypes.data, w * 4)
+        res = lib.avifImageYUVToRGB(img, ctypes.addressof(rgb))
+        if res != 0:
+            raise ValueError(f"libavif's conversion fails ({res})")
+        return buf
+    finally:
+        lib.avifImageDestroy(img)
+        lib.avifDecoderDestroy(dec)
+
+
+_AVIF_ELF = None
+
+
+def _avif_elf() -> Elf:
+    global _AVIF_ELF
+    if _AVIF_ELF is None:
+        _AVIF_ELF = Elf(_wheel_lib("libavif-*.so*"))
+    return _AVIF_ELF
+
+
+def libavif_symbol(name: str) -> int:
+    """The address of a function or table of the libavif that cv2's wheel
+    bundles, found by its ELF symbol (libyuv 1924 is linked into it:
+    ``ARGBUnattenuate``, ``I010AlphaToARGBMatrixFilter``,
+    ``kYuvI601Constants``, ``fixed_invtbl8``, ...)."""
+    elf = _avif_elf()
+    base = ctypes.cast(_libavif().avifVersion, ctypes.c_void_p).value - \
+        elf.functions["avifVersion"][0]
+    return base + (elf.functions.get(name) or elf.symbols[name])[0]
+
+
+def libavif_table(name: str, dtype, shape) -> np.ndarray:
+    """A constant table of cv2's libavif by its ELF symbol."""
+    return _avif_elf().table(name, dtype, shape)
+
+
+def nclx(primaries: int, transfer: int, matrix: int, full: bool) -> bytes:
+    """A ``colr`` box of colour type nclx."""
+    return box(b"colr", b"nclx" + struct.pack(">HHHB", primaries, transfer,
+                                              matrix, 0x80 if full else 0))
+
+
+ICC_PROFILE = None
+
+
+def icc_profile() -> bytes:
+    """Pillow's sRGB ICC profile (ImageCms), the one a photo's EXIF-tagged
+    JPEG carries into Pillow's ``info``."""
+    global ICC_PROFILE
+    if ICC_PROFILE is None:
+        from PIL import ImageCms
+        ICC_PROFILE = ImageCms.ImageCmsProfile(
+            ImageCms.createProfile("sRGB")).tobytes()
+    return ICC_PROFILE
+
+
+def orientation_exif(value: int):
+    """A Pillow Exif of one orientation tag, which Pillow's AVIF writer
+    turns into an ``irot`` (3, 6) or ``imir`` (2) and drops."""
+    from PIL import Image
+    exif = Image.Exif()
+    exif[0x0112] = value
+    return exif
+
+
+def with_colr(data: bytes, colrs) -> bytes:
+    """A one-item file (cv2's or Pillow's RGB) written again with its colr
+    boxes replaced by ``colrs`` (whole boxes, in order)."""
+    obu, _ = item_parts(data)
+    props = [(b, e) for b, e in item_props(data, 1) if b[4:8] != b"colr"]
+    return build_items([(1, b"av01", obu, props + [(c, False)
+                                                   for c in colrs])], [])
+
+
+ALPHA_AUXC = full_box(b"auxC", 0, 0,
+                      b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha\0")
+
+
+def alpha_file(colour: bytes, alpha: bytes, prem: bool,
+               extra_colour=(), extra_alpha=()) -> bytes:
+    """An RGBA file of two one-item files' OBUs: ``colour``'s item with its
+    properties (and ``extra_colour``), ``alpha``'s as its alpha item (its
+    colr dropped, an alpha auxC added; and ``extra_alpha``), a ``prem``
+    reference from the colour to the alpha where ``prem``."""
+    cobu, _ = item_parts(colour)
+    aobu, _ = item_parts(alpha)
+    cprops = item_props(colour, 1) + list(extra_colour)
+    aprops = [(b, e) for b, e in item_props(alpha, 1)
+              if b[4:8] != b"colr"] + [(ALPHA_AUXC, False)] + \
+        list(extra_alpha)
+    refs = [(b"auxl", 2, [1])] + ([(b"prem", 1, [2])] if prem else [])
+    return build_items([(1, b"av01", cobu, cprops),
+                        (2, b"av01", aobu, aprops)], refs)

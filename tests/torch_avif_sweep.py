@@ -23,7 +23,9 @@ and the options above, from RGB or RGBA (an alpha track).
 file of a kind the port does not decode yet (where a random option makes
 one) is counted apart, by kind.  Prints one JSON line of counts (and the
 files that used palette, intra block copy, loop restoration and
-segmentation); exits 1 on any mismatch.
+segmentation, and Pillow's files with limited range, an ICC profile, a
+premultiplied alpha and an EXIF orientation: a quarter, a fifth, half the
+RGBA ones and a fifth of the stills); exits 1 on any mismatch.
 ``--keep DIR`` keeps each mismatching file there.
 """
 
@@ -90,8 +92,33 @@ def random_file(rng):
     opts = dict(quality=quality, advanced=adv)
     if rng.random() < 0.5:
         opts["subsampling"] = str(rng.choice(["4:4:4", "4:2:2", "4:0:0"]))
-    return oracle.pillow_avif(img, **opts), (
+    # the colour and orientation options: limited range, an ICC profile,
+    # a premultiplied alpha, an EXIF orientation (stills: Pillow segfaults
+    # writing one into a sequence)
+    if rng.random() < 0.25:
+        opts["range"] = "limited"
+    if rng.random() < 0.2:
+        opts["icc"] = True
+    if img.shape[2] == 4 and rng.random() < 0.5:
+        opts["alpha_premultiplied"] = True
+    if rng.random() < 0.2:
+        opts["exif"] = int(rng.integers(1, 9))
+    return pillow_file(img, opts), (
         h, w, kind, dict(writer="pillow", alpha=img.shape[2] == 4, **opts))
+
+
+def pillow_options(opts: dict) -> dict:
+    """random_file's description → Pillow's save options."""
+    out = {k: v for k, v in opts.items() if k not in ("icc", "exif")}
+    if opts.get("icc"):
+        out["icc_profile"] = oracle.icc_profile()
+    if "exif" in opts:
+        out["exif"] = oracle.orientation_exif(opts["exif"])
+    return out
+
+
+def pillow_file(img, opts: dict) -> bytes:
+    return oracle.pillow_avif(img, **pillow_options(opts))
 
 
 def random_sequence(rng):
@@ -107,8 +134,10 @@ def random_sequence(rng):
     if opts["alpha"]:
         img = np.concatenate([img, oracle.screen_image(
             "blocks", h, w, rng)[..., :1]], -1)
-    pil = {k: opts[k] for k in ("quality", "advanced", "subsampling")
-           if k in opts}
+    pil = {k: opts[k] for k in ("quality", "advanced", "subsampling",
+                                "range", "alpha_premultiplied") if k in opts}
+    if opts.get("icc"):
+        pil["icc_profile"] = oracle.icc_profile()
     pil["speed"] = int(rng.integers(1, 10))
     if rng.random() < 0.4:
         pil["advanced"] = dict(pil["advanced"], **{"aq-mode": "1"})
@@ -121,6 +150,8 @@ def random_sequence(rng):
     buf = io.BytesIO()
     frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:],
                    **pil)
+    pil.pop("icc_profile", None)
+    opts = {k: v for k, v in opts.items() if k != "exif"}
     return buf.getvalue(), (h, w, kind, dict(opts, sequence=True, **pil))
 
 
@@ -151,9 +182,10 @@ def random_grid(rng):
         if opts["alpha"]:
             img = np.concatenate([img, oracle.screen_image(
                 "blocks", th * rows, tw * cols, rng)[..., :1]], -1)
-        keys = ("quality", "advanced", "subsampling")
+        keys = ("quality", "advanced", "subsampling", "range", "icc",
+                "alpha_premultiplied", "exif")
         pil = {k: opts[k] for k in keys if k in opts}
-        write = lambda t: oracle.pillow_avif(t, **pil)  # noqa
+        write = lambda t: pillow_file(t, pil)  # noqa
     files = [write(t) for t in oracle.split_tiles(img, rows, cols, tw, th)]
     tiles = [oracle.tile_item(f) for f in files]
     alpha = None
@@ -200,8 +232,8 @@ def main():
     rng = np.random.default_rng(a.seed)
     counts = dict(files=0, equal=0, both_refuse=0, not_yet=0, writer_fail=0,
                   mismatch=0, cv2=0, pillow=0, grid=0, grain=0, palette=0,
-                  intrabc=0, restoration=0, segmentation=0,
-                  not_yet_kinds={})
+                  intrabc=0, restoration=0, segmentation=0, limited=0,
+                  icc=0, premultiplied=0, exif=0, not_yet_kinds={})
     end = time.time() + a.seconds
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sweep.avif")
@@ -222,6 +254,11 @@ def main():
             counts["grid"] += "grid" in desc[3]
             grain = str(desc[3].get("advanced", {}))
             counts["grain"] += "grain" in grain or "denoise" in grain
+            counts["limited"] += desc[3].get("range") == "limited"
+            counts["icc"] += bool(desc[3].get("icc"))
+            counts["premultiplied"] += bool(desc[3].get(
+                "alpha_premultiplied"))
+            counts["exif"] += "exif" in desc[3]
             want = cv2.imread(path)
             try:
                 got = read_image(path)

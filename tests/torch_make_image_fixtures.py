@@ -268,10 +268,35 @@ AVIF_REFUSED = ["avif_no_ispe.avif", "avif_iloc_past_end.avif",
 AVIS_CASES = ["avis_pil_s2.avif", "avis_pil_s4_aq.avif",
               "avis_pil_alpha.avif", "avis_pil_444_s3.avif"]
 AVIF_CASES += AVIS_CASES
-# cv2 reads it; the port does not yet: a rotation, a sequence's frame that
-# libavif scales to its track header's size
-AVIF_UNPORTED = ["avif_irot.avif", "avis_tkhd_scaled.avif"]
-CASES += AVIF_CASES
+# the colour and orientation kinds of Pillow's save options and hand
+# edits: an ICC profile (a colr prof before the nclx) on a still and a
+# sequence, EXIF orientations 2, 3 and 6 (imir, irot), an irot on cv2's file
+# and an irot and imir in a sequence's sample entry, limited range (still
+# and sequence), a premultiplied alpha (still and sequence), cv2's file
+# with a colr prof then an nclx of BT.601 limited or BT.709 full (the
+# repaired fault's files), cv2's 10- and 12-bit files with BT.709 limited
+# and BT.2020 NCL full nclx, libavif's 10-bit 4:2:0 with a limited-range
+# premultiplied alpha and its 12-bit 4:2:0 with an alpha; TIFF YCbCr and
+# CIELab in each compression Pillow writes
+AVIF_COLOUR_CASES = [
+    "avif_pil_icc.avif", "avis_pil_icc.avif", "avif_pil_exif2.avif",
+    "avif_pil_exif3.avif", "avif_pil_exif6.avif", "avif_irot.avif",
+    "avis_irot_imir.avif", "avif_pil_limited.avif", "avis_pil_limited.avif",
+    "avif_pil_prem.avif", "avis_pil_prem.avif",
+    "avif_icc_nclx_601_limited.avif", "avif_icc_nclx_709_full.avif",
+    "avif_d10_709_limited.avif", "avif_d12_2020_full.avif",
+    "avif_d10_prem_limited_alpha.avif", "avif_d12_alpha.avif"]
+TIFF_COLOUR_CASES = [f"tiff_{kind}_{comp}.tif" for kind in ("ycbcr", "lab")
+                     for comp in ("none", "lzw", "deflate", "packbits")] + \
+    ["tiff_ycbcr_sub22.tif", "tiff_ycbcr_sub42.tif"]
+TIFF_COMPRESSIONS = {"none": None, "lzw": "tiff_lzw",
+                     "deflate": "tiff_adobe_deflate", "packbits": "packbits"}
+AVIF_CASES += AVIF_COLOUR_CASES
+# cv2 reads it; the port does not yet: a sequence's frame that libavif
+# scales to its track header's size, a matrix libavif converts on its own
+# path (SMPTE 240, 7)
+AVIF_UNPORTED = ["avis_tkhd_scaled.avif", "avif_smpte240.avif"]
+CASES += AVIF_CASES + TIFF_COLOUR_CASES
 REFUSED += AVIF_REFUSED
 # full-size AVIF views for chip_smoke's decode seconds and the SHA-256 of
 # cv2's decode of each (RGB, row-major bytes): TIMING by cv2 at its
@@ -331,6 +356,35 @@ TIMING_AVIF.update({
     "timing_avis_aq_1297x840.avif": ("f7ff2d592a536f53365f7fe4d2bcc0be"
                                      "86dbdfc5a45b262e01b484d56bc431ff"),
 })
+# Pillow's files of TIMING in this slice's colour and orientation kinds:
+# an ICC profile, limited range, RGBA with COLOUR_ALPHA premultiplied, an
+# EXIF orientation 6 (irot), and cv2's default file with its nclx edited to
+# BT.709 limited range; COLOUR_OPTS holds the options of Pillow's
+COLOUR_TIMING = {"timing_icc_1297x840.avif": "icc",
+                 "timing_limited_1297x840.avif": "limited",
+                 "timing_prem_1297x840.avif": "prem",
+                 "timing_irot_1297x840.avif": "exif6",
+                 "timing_bt709_1297x840.avif": "bt709"}
+TIMING_AVIF.update({
+    "timing_icc_1297x840.avif": ("127eac07f5789c01fb9aa2a6e8b9459b"
+                                 "71a900963f2b1fbdb9b1ad5adb078b70"),
+    "timing_limited_1297x840.avif": ("d62ed9f82bbb332695144a7b8b4d0834"
+                                     "506c065cc424b69a9938581593d8484f"),
+    "timing_prem_1297x840.avif": ("2ec74a7437dff19ae790d4cf7f97311b"
+                                  "df64487a9647cc06784464bfcc795b6f"),
+    "timing_irot_1297x840.avif": ("127eac07f5789c01fb9aa2a6e8b9459b"
+                                  "71a900963f2b1fbdb9b1ad5adb078b70"),
+    "timing_bt709_1297x840.avif": ("c53a7de0aef29679655105fda5974707"
+                                   "e3a32f66c50e26385390053745827e1d"),
+})
+# TIMING as Pillow's Deflate TIFF in YCbCr and in CIELab, the SHA-256 of
+# cv2's decode of each
+TIMING_TIFF = {
+    "timing_ycbcr_1297x840.tif": ("243a71ca2f0c156eadbea8f98c92ad92"
+                                  "8a114177b27876fc6813f1f08f4333cb"),
+    "timing_lab_1297x840.tif": ("46fcaa9377609cad742ab103348d1f44"
+                                "b5ef269cdac9430ed87bcfa072686d75"),
+}
 # cv2's default AVIF copies of make_synth_scene --preset mid's 24 views
 AVIF_MID = "avif_mid"
 # Pillow's copies of the same views with film grain: views 0-15 libaom's
@@ -346,6 +400,40 @@ AVIF_SCREEN_OPTS = dict(subsampling="4:2:2",
 # copy of the first): speeds 2, 3 and 4 in turn (loop restoration in every
 # view), aq-mode=1 (segmentation) in every view k where k % 3 == k // 3 % 3
 AVIF_MID_AVIS = "avif_mid_avis"
+
+
+# Pillow's copies of the same views in the colour and orientation kinds,
+# in turn by view (colour_mid_kind): an ICC profile, EXIF orientations 2, 3
+# and 6, limited range, RGBA with COLOUR_ALPHA premultiplied
+AVIF_MID_COLOUR = "avif_mid_colour"
+COLOUR_MID_KINDS = ("icc", "exif2", "exif3", "exif6", "limited", "prem")
+
+
+def colour_alpha(h: int, w: int) -> np.ndarray:
+    """(h, w) uint8: the alpha of the premultiplied views, 128-255 in a
+    diagonal ramp."""
+    y, x = np.mgrid[:h, :w]
+    return (128 + (x + 2 * y) * 127 // max(w - 1 + 2 * (h - 1), 1)).astype(
+        np.uint8)
+
+
+def colour_file(bgr: np.ndarray, kind: str, sequence: bool = False
+                ) -> bytes:
+    """Pillow's file (a two-frame sequence with ``sequence``) of a BGR view
+    in one of the colour and orientation kinds: "icc", "exif2", "exif3",
+    "exif6", "limited", "prem" (COLOUR_ALPHA premultiplied)."""
+    import torch_avif_oracles as oracle
+
+    write = oracle.pillow_sequence if sequence else oracle.pillow_avif
+    if kind == "icc":
+        return write(bgr, icc_profile=oracle.icc_profile())
+    if kind.startswith("exif"):
+        return write(bgr, exif=oracle.orientation_exif(int(kind[4:])))
+    if kind == "limited":
+        return write(bgr, range="limited")
+    assert kind == "prem", kind
+    return write(np.dstack([bgr, colour_alpha(*bgr.shape[:2])]),
+                 alpha_premultiplied=True)
 
 
 def avis_mid_opts(k: int) -> dict:
@@ -980,6 +1068,156 @@ def generate_avis(folder: str = FOLDER, mid_scene: str | None = None
             bgr = cv2.imread(os.path.join(src, name))
             save(os.path.join(AVIF_MID_AVIS, name[:-4] + ".avif"),
                  oracle.pillow_sequence(bgr, **avis_mid_opts(k)))
+    return shas
+
+
+def ycbcr_subsampled_tiff(px: np.ndarray, hs: int, vs: int, rps: int,
+                          compression: int = 1, planar: bool = False
+                          ) -> bytes:
+    """A TIFF of 8-bit YCbCr samples (H, W, 3) with chroma subsampling hs x
+    vs (tag 530), as no writer here makes one: strips of ``rps`` rows of
+    data units (hs · vs luma samples, then the block's Cb and Cr: the
+    top-left sample's), blocks past the edge padded with the edge's
+    samples; uncompressed or Deflate (8); with ``planar`` (1 x 1 only) the
+    three planes' strips one after another (tag 284 = 2)."""
+    h, w = px.shape[:2]
+    strips = []
+    for plane in range(3 if planar else 0):
+        for y0 in range(0, h, rps):
+            data = px[y0:y0 + rps, :, plane].tobytes()
+            strips.append(zlib.compress(data) if compression == 8 else data)
+    for y0 in range(0, 0 if planar else h, rps):
+        rows = px[y0:min(h, y0 + rps)]
+        unit = bytearray()
+        for by in range(0, rows.shape[0], vs):
+            for bx in range(0, w, hs):
+                for yy in range(vs):
+                    for xx in range(hs):
+                        unit.append(rows[min(by + yy, rows.shape[0] - 1),
+                                         min(bx + xx, w - 1), 0])
+                unit += bytes(rows[by, bx, 1:])
+        strips.append(zlib.compress(bytes(unit)) if compression == 8
+                      else bytes(unit))
+    tags = {256: (3, [w]), 257: (3, [h]), 258: (3, [8, 8, 8]),
+            259: (3, [compression]), 262: (3, [6]), 273: (4, None),
+            277: (3, [3]), 278: (3, [rps]), 279: (4, [len(x) for x in strips]),
+            284: (3, [2 if planar else 1]), 530: (3, [hs, vs])}
+    head = 8 + 2 + 12 * len(tags) + 4
+    extra = bytearray()
+    where = {}
+    data_at = head + 64 + 8 * len(strips)
+    offsets, at = [], data_at
+    for x in strips:
+        offsets.append(at)
+        at += len(x)
+    tags[273] = (4, offsets)
+    out = bytearray(b"II*\0" + struct.pack("<IH", 8, len(tags)))
+    for t in sorted(tags):
+        typ, vals = tags[t]
+        raw = struct.pack(f"<{len(vals)}{'H' if typ == 3 else 'I'}", *vals)
+        if len(raw) > 4:
+            where[t] = head + len(extra)
+            extra += raw
+            out += struct.pack("<HHII", t, typ, len(vals), where[t])
+        else:
+            out += struct.pack("<HHI", t, typ, len(vals)) + raw.ljust(4,
+                                                                    b"\0")
+    out += b"\0" * 4 + extra
+    out += b"\0" * (data_at - len(out))
+    return bytes(out) + b"".join(strips)
+
+
+def generate_colour(folder: str = FOLDER, mid_scene: str | None = None
+                    ) -> dict:
+    """The colour and orientation fixtures: AVIF_COLOUR_CASES,
+    TIFF_COLOUR_CASES, avif_smpte240.avif, COLOUR_TIMING's views and
+    TIMING_TIFF's (and, given the folder of make_synth_scene --preset mid,
+    AVIF_MID_COLOUR's views); returns the SHA-256s of cv2's decodes of the
+    timing views."""
+    import hashlib
+    import io
+
+    import cv2
+    from PIL import Image
+
+    import torch_avif_oracles as oracle
+
+    p = lambda name: os.path.join(folder, name)       # noqa: E731
+
+    def save(name, data):
+        with open(p(name), "wb") as f:
+            f.write(data)
+    rng = np.random.default_rng(29)
+    big = oracle.avif_image("photo", 72, 104, rng)
+    for kind in ("icc", "limited", "prem"):
+        save(f"avif_pil_{kind}.avif", colour_file(big, kind))
+        save(f"avis_pil_{kind}.avif", colour_file(big, kind, True))
+    for value in (2, 3, 6):
+        save(f"avif_pil_exif{value}.avif", colour_file(big, f"exif{value}"))
+    samples, props, w, h, _ = oracle.sequence_parts(
+        oracle.pillow_sequence(big))[0]
+    save("avis_irot_imir.avif", oracle.build_sequence(
+        samples, props, w, h, extra=[oracle.box(b"irot", b"\x01"),
+                                     oracle.box(b"imir", b"\x01")]))
+    cv2_file = oracle.cv2_avif(oracle.avif_image("photo", 48, 64, rng))
+    prof = oracle.box(b"colr", b"prof" + oracle.icc_profile())
+    save("avif_icc_nclx_601_limited.avif", oracle.with_colr(
+        cv2_file, [prof, oracle.nclx(1, 13, 6, False)]))
+    save("avif_icc_nclx_709_full.avif", oracle.with_colr(
+        cv2_file, [prof, oracle.nclx(1, 13, 1, True)]))
+    deep = oracle.deepen(big, rng)
+    save("avif_d10_709_limited.avif", oracle.with_colr(
+        oracle.cv2_avif(deep, depth=10), [oracle.nclx(1, 1, 1, False)]))
+    save("avif_d12_2020_full.avif", oracle.with_colr(
+        oracle.cv2_avif(deep, depth=12), [oracle.nclx(9, 16, 9, True)]))
+    for depth, prem, full in ((10, True, False), (12, False, True)):
+        yuv = deep.astype(np.int64) >> (16 - depth)
+        colour = oracle.libavif_encode([yuv[..., 0], yuv[::2, ::2, 1],
+                                        yuv[::2, ::2, 2]], depth, "420")
+        alpha = oracle.libavif_encode([rng.integers(
+            0, 1 << depth, big.shape[:2])], depth, "400", full)
+        name = f"avif_d{depth}_prem_limited_alpha.avif" if prem else \
+            f"avif_d{depth}_alpha.avif"
+        save(name, oracle.alpha_file(colour, alpha, prem))
+    save("avif_smpte240.avif", oracle.with_colr(
+        cv2_file, [oracle.nclx(1, 13, 7, True)]))
+    rgb = fixture_image(40, 56, seed=31)
+    for kind, mode in (("ycbcr", "YCbCr"), ("lab", "LAB")):
+        for comp, pil_comp in TIFF_COMPRESSIONS.items():
+            buf = io.BytesIO()
+            Image.fromarray(rgb).convert(mode).save(buf, "TIFF",
+                                                    compression=pil_comp)
+            save(f"tiff_{kind}_{comp}.tif", buf.getvalue())
+    for hs, vs in ((2, 2), (4, 2)):
+        save(f"tiff_ycbcr_sub{hs}{vs}.tif", ycbcr_subsampled_tiff(
+            rng.integers(0, 256, (37, 45, 3)).astype(np.uint8), hs, vs, 6))
+    # the full-size views
+    view = cv2.imread(p(TIMING))
+    shas = {}
+    for name, kind in COLOUR_TIMING.items():
+        if kind == "bt709":
+            save(name, oracle.with_colr(oracle.cv2_avif(view),
+                                        [oracle.nclx(1, 1, 1, False)]))
+        else:
+            save(name, colour_file(view, kind))
+    for name, mode in (("timing_ycbcr_1297x840.tif", "YCbCr"),
+                       ("timing_lab_1297x840.tif", "LAB")):
+        buf = io.BytesIO()
+        Image.fromarray(view[..., ::-1]).convert(mode).save(
+            buf, "TIFF", compression="tiff_adobe_deflate")
+        save(name, buf.getvalue())
+    for name in list(COLOUR_TIMING) + ["timing_ycbcr_1297x840.tif",
+                                       "timing_lab_1297x840.tif"]:
+        dec = np.ascontiguousarray(cv2.imread(p(name))[..., ::-1])
+        shas[name] = hashlib.sha256(dec.tobytes()).hexdigest()
+    if mid_scene is not None:
+        src = os.path.join(mid_scene, "images_4")
+        os.makedirs(p(AVIF_MID_COLOUR), exist_ok=True)
+        for k, name in enumerate(sorted(os.listdir(src))):
+            bgr = cv2.imread(os.path.join(src, name))
+            save(os.path.join(AVIF_MID_COLOUR, name[:-4] + ".avif"),
+                 colour_file(bgr, COLOUR_MID_KINDS[k % len(
+                     COLOUR_MID_KINDS)]))
     return shas
 
 
@@ -2370,7 +2608,7 @@ def check(folder: str = FOLDER, scratch: str | None = None) -> dict:
             out[name] = False
         except RuntimeError as err:
             out[name] = name in str(err) and "not read yet" in str(err)
-    for name, sha in TIMING_AVIF.items():
+    for name, sha in {**TIMING_AVIF, **TIMING_TIFF}.items():
         got = np.ascontiguousarray(read_image(os.path.join(folder, name)))
         out[name] = hashlib.sha256(got.tobytes()).hexdigest() == sha
     src = read_png(os.path.join(folder, "enc_src.png"))
@@ -2471,6 +2709,13 @@ if __name__ == "__main__":
             mid_scene=(sys.argv[2:] or [None])[0])   # mid views' copies
         _write_wants(AVIS_CASES)
         print(f"AVIS SHA-256s for TIMING_AVIF = {shas!r}")
+        sys.exit(0)
+    if sys.argv[1:2] == ["--colour"]:       # the colour and orientation
+        shas = generate_colour(             # kinds alone; --colour SCENE
+            mid_scene=(sys.argv[2:] or [None])[0])   # also the mid views
+        _write_wants(AVIF_COLOUR_CASES + TIFF_COLOUR_CASES)
+        _check_cv2_refuses()
+        print(f"colour SHA-256s for TIMING_AVIF and TIMING_TIFF = {shas!r}")
         sys.exit(0)
     if sys.argv[1:] == ["--webp"]:          # the WebP fixtures alone
         sha = generate_webp()
