@@ -109,8 +109,12 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   make_synth_scene's mid preset built on the card and trained over
   iterations 0-200 from its PNGs, from the committed cv2 AVIF copies of
   its views, from Pillow's screen-content 4:2:2 RGBA copies and from
-  Pillow's film grain copies, each AVIF leg's last l1 within the JPEG
-  leg's bound of the PNG leg's.
+  Pillow's film grain copies, image sequences and colour kinds, and from
+  copies in libaom's superres and delta loop filter and in the matrices
+  libavif converts on its own path (the views of those kinds and of a
+  frame libavif scales decoded to cv2's SHA-256 too, each shown using its
+  tool), each AVIF leg's last l1 within the JPEG leg's bound of the PNG
+  leg's.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -165,6 +169,7 @@ import io
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1607,12 +1612,14 @@ def at_scale_path(rz, dev):
         png_leg, tiff_leg, webp_leg, jp2_leg, gif_leg = image_formats_path(
             rz, scene, root)
         mid_png_leg, avif_leg, avif_screen_leg, avif_grain_leg, \
-            avif_avis_leg, avif_colour_leg = avif_path(rz, root)
+            avif_avis_leg, avif_colour_leg, avif_libavif_leg = \
+            avif_path(rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
             gif_leg, mid_png_leg, avif_leg, avif_screen_leg,
-            avif_grain_leg, avif_avis_leg, avif_colour_leg), scale_rows
+            avif_grain_leg, avif_avis_leg, avif_colour_leg,
+            avif_libavif_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -2194,7 +2201,10 @@ def image_formats_path(rz, scene, root):
 # 4:4:4 tiles of it; Pillow's two-frame image sequences (avis) of it at its
 # default, speed 3, speed 2 and aq-mode=1 (AVIS_TOOLS); Pillow's files of it
 # with an ICC profile, limited range, a premultiplied alpha and an EXIF
-# orientation 6 (irot), and cv2's default file with a BT.709 limited nclx
+# orientation 6 (irot), and cv2's default file with a BT.709 limited nclx;
+# libaom's superres (denominator 12) and delta loop filter files of it,
+# one in YCgCo (libavif's own path) and cv2's file of it at 1040x672 under
+# an ispe of 1297x840 (libavif scales it: LIBAVIF_TOOLS)
 AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_d12_1297x840.avif", "timing_lossless_320x208.avif",
               "timing_screen_1297x840.avif", "timing_422_1297x840.avif",
@@ -2204,7 +2214,10 @@ AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_avis_s3_1297x840.avif", "timing_avis_s2_1297x840.avif",
               "timing_avis_aq_1297x840.avif", "timing_icc_1297x840.avif",
               "timing_limited_1297x840.avif", "timing_prem_1297x840.avif",
-              "timing_irot_1297x840.avif", "timing_bt709_1297x840.avif")
+              "timing_irot_1297x840.avif", "timing_bt709_1297x840.avif",
+              "timing_superres_1297x840.avif",
+              "timing_deltalf_1297x840.avif", "timing_ycgco_1297x840.avif",
+              "timing_scaled_1297x840.avif")
 AVIF_REPS = 3
 # the view whose palette and intra block copy blocks the phase counts
 AVIF_SCREEN_VIEW = "timing_screen_1297x840.avif"
@@ -2223,6 +2236,20 @@ AVIS_TOOLS = {
     "timing_avis_s2_1297x840.avif": ("wiener_units",),
     "timing_avis_aq_1297x840.avif": ("segment_0_blocks",
                                      "segment_1_blocks"),
+}
+
+
+# each view of this slice's kinds and what its decode must show in use:
+# superres's denominator (8: none) and loop restoration units on the
+# upscaled frame; blocks with a nonzero delta loop filter level; YCgCo
+# (matrix 8), which libavif converts on its own path; a frame of another
+# size than its ispe (libavif scales it)
+LIBAVIF_TOOLS = {
+    "timing_superres_1297x840.avif": ("superres_denominator",
+                                      "restoration_units"),
+    "timing_deltalf_1297x840.avif": ("delta_lf_blocks",),
+    "timing_ycgco_1297x840.avif": ("libavif_path",),
+    "timing_scaled_1297x840.avif": ("scaled",),
 }
 
 
@@ -2247,14 +2274,17 @@ def avif_path(rz, root):
     libaom's test vectors, its denoiser), the committed AVIF_MID_AVIS
     views (Pillow's image sequences at speeds 2-4, some with aq-mode=1) and
     the committed AVIF_MID_COLOUR views (Pillow's ICC profile, EXIF
-    orientations 2, 3 and 6, limited range and premultiplied RGBA in turn);
-    each view's mean |AVIF - PNG|; (c) run_garden_7k over iterations
+    orientations 2, 3 and 6, limited range and premultiplied RGBA in turn)
+    and the committed AVIF_MID_LIBAVIF views (libaom's superres, its delta
+    loop filter, the matrices libavif converts itself, in turn); each
+    view's mean |AVIF - PNG|; (c) run_garden_7k over iterations
     0..JPEG_ITERS - 1 of the RGB schedule from the PNG scene and from each
     AVIF scene, each AVIF leg's last logged l1 within d + JPEG_L1_DRIFT ·
     l1_png of the PNG leg's (d the largest per-view mean |AVIF - PNG| of its
     views, the JPEG and GIF legs' rule), every leg's it/s.  → (the PNG
     leg's launches, the cv2 AVIF leg's, the screen AVIF leg's, the grain
-    AVIF leg's, the avis leg's, the colour leg's)."""
+    AVIF leg's, the avis leg's, the colour leg's, the libavif leg's).
+    LIBAVIF_TOOLS' views are shown using their tools."""
     import hashlib
 
     import torch
@@ -2334,6 +2364,25 @@ def avif_path(rz, root):
         check(all(tools[k] > 0 for k in needs),
               f"{name}: the first frame used none of some of {needs}: "
               f"{tools}")
+    for name, needs in LIBAVIF_TOOLS.items():
+        with open(os.path.join(fx.FOLDER, name), "rb") as f:
+            heif = image_io._Heif(f.read(), name)
+        heif.parse()
+        tiles, props, _ = heif.primary_image()
+        info = image_io.decode_av1(tiles[0][0])[1]
+        matrix = image_io._avif_cicp(props, info)[1]
+        tools = dict(superres_denominator=int(info[40] != 8) * info[40],
+                     coded_width=info[41],
+                     restoration_units=info[29] + info[30],
+                     delta_lf_blocks=info[44], matrix=matrix,
+                     libavif_path=int(image_io._avif_matrix(
+                         matrix, 1, True, info[2], 1, 1, name) ==
+                         "libavif"),
+                     scaled=int(tuple(info[:2]) != struct.unpack_from(
+                         ">II", props[b"ispe"], 4)))
+        print(f"  {name}: {json.dumps(tools)}", flush=True)
+        check(all(tools[k] > 0 for k in needs),
+              f"{name}: the decode used none of some of {needs}: {tools}")
     # (b) the mid scene, from PNG and from the committed AVIFs
     scene = os.path.join(root, "mid")
     preset = make_synth_scene.PRESETS["mid"]
@@ -2352,7 +2401,8 @@ def avif_path(rz, root):
                          ("avif_screen", fx.AVIF_MID_SCREEN),
                          ("avif_grain", fx.AVIF_MID_GRAIN),
                          ("avif_avis", fx.AVIF_MID_AVIS),
-                         ("avif_colour", fx.AVIF_MID_COLOUR)):
+                         ("avif_colour", fx.AVIF_MID_COLOUR),
+                         ("avif_libavif", fx.AVIF_MID_LIBAVIF)):
         sc, images, _ = _format_scene(scene, root, f"scene_{kind}", ".avif")
         committed = os.path.join(fx.FOLDER, folder)
         avifs = sorted(os.listdir(committed))
@@ -2399,7 +2449,7 @@ def avif_path(rz, root):
     png = l1_by_iteration(runs["png"][2])
     ps = runs["png"][0]
     for kind in ("avif", "avif_screen", "avif_grain", "avif_avis",
-                 "avif_colour"):
+                 "avif_colour", "avif_libavif"):
         l1 = l1_by_iteration(runs[kind][2])
         check(len(l1) >= JPEG_ITERS // 50 and
               all(np.isfinite(list(l1.values()))),
@@ -2422,7 +2472,8 @@ def avif_path(rz, root):
     print(f"  the AVIF phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return runs["png"][1], runs["avif"][1], runs["avif_screen"][1], \
-        runs["avif_grain"][1], runs["avif_avis"][1], runs["avif_colour"][1]
+        runs["avif_grain"][1], runs["avif_avis"][1], \
+        runs["avif_colour"][1], runs["avif_libavif"][1]
 
 
 def finite(x):
@@ -3759,7 +3810,7 @@ def main() -> int:
     (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg, at_scale_png,
      at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif, mid_png,
      mid_avif, mid_avif_screen, mid_avif_grain, mid_avif_avis,
-     mid_avif_colour), scale_rows = at_scale_path(rz, dev)
+     mid_avif_colour, mid_avif_libavif), scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -3812,6 +3863,7 @@ def main() -> int:
              "mid AVIF grain run": mid_avif_grain,
              "mid AVIF avis run": mid_avif_avis,
              "mid AVIF colour run": mid_avif_colour,
+             "mid AVIF libavif run": mid_avif_libavif,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

@@ -2855,6 +2855,23 @@ _LIBYUV_CONSTANTS = {
 # NCL (12) by colour primaries; other matrices take libavif's own path
 _LIBYUV_MATRICES = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
 _LIBYUV_PRIMARIES = {1: "709", 2: "709", 5: "601", 6: "601", 9: "2020"}
+# libavif 1.4.2's avifColorPrimariesTables (rX rY gX gY bX bY wX wY, as
+# float literals) and matrixCoefficientsTables (kr kb): what its own
+# conversion derives its coefficients from (avifCalcYUVCoefficients)
+_AVIF_PRIMARIES = {
+    1: "0.64 0.33 0.3 0.6 0.15 0.06 0.3127 0.329",
+    4: "0.67 0.33 0.21 0.71 0.14 0.08 0.31 0.316",
+    5: "0.64 0.33 0.29 0.6 0.15 0.06 0.3127 0.329",
+    6: "0.63 0.34 0.31 0.595 0.155 0.07 0.3127 0.329",
+    7: "0.63 0.34 0.31 0.595 0.155 0.07 0.3127 0.329",
+    8: "0.681 0.319 0.243 0.692 0.145 0.049 0.31 0.316",
+    9: "0.708 0.292 0.17 0.797 0.131 0.046 0.3127 0.329",
+    10: "1 0 0 1 0 0 0.3333 0.3333",
+    11: "0.68 0.32 0.265 0.69 0.15 0.06 0.314 0.351",
+    12: "0.68 0.32 0.265 0.69 0.15 0.06 0.3127 0.329",
+    22: "0.63 0.34 0.295 0.605 0.155 0.077 0.3127 0.329"}
+_AVIF_KR_KB = {1: "0.2126 0.0722", 4: "0.3 0.11", 5: "0.299 0.114",
+               6: "0.299 0.114", 7: "0.212 0.087", 9: "0.2627 0.0593"}
 # an item's first colr of each kind, as libavif keeps them apart
 _NCLX, _ICC = (b"colr", b"nclx"), (b"colr", b"ICC")
 # transformative properties, which must be marked essential (MIAF 7.3.9)
@@ -3374,8 +3391,10 @@ class _Heif:
             item = rd(2 if version < 2 else 4)
             method = rd(2) & 15 if version in (1, 2) else 0
             if method > 1:
-                raise self.unported("an item constructed from another item "
-                                    "(iloc construction method 2)")
+                # libavif reads an item's data from the file (0) or idat
+                # (1) alone: construction method 2 (from another item)
+                # and the reserved ones are refused
+                raise self.bad(f"an iloc construction method {method}")
             rd(2)                     # data_reference_index, not read
             base = rd(base_size)
             extents = []
@@ -3791,17 +3810,150 @@ def avif_gray(y: np.ndarray, depth: int) -> np.ndarray:
     return np.repeat(y.astype(np.uint8)[..., None], 3, -1)
 
 
+def avif_coefficients(matrix: int, primaries: int) -> tuple:
+    """(kr, kg, kb) float32 as libavif 1.4.2's ``avifCalcYUVCoefficients``
+    computes them: its table's kr and kb, for chroma-derived NCL (12) the
+    H.273 equations 32-37 on its primaries table (an unknown code takes
+    BT.709's), in its float operation order; BT.601's for any other code;
+    kg = 1 - kr - kb."""
+    f = np.float32
+    if matrix == 12:
+        rx, ry, gx, gy, bx, by, wx, wy = (f(v) for v in _AVIF_PRIMARIES.get(
+            primaries, _AVIF_PRIMARIES[1]).split())
+        rz, gz, bz, wz = (f(1) - (x + y) for x, y in ((rx, ry), (gx, gy),
+                                                      (bx, by), (wx, wy)))
+        den = wy * (rx * (gy * bz - by * gz) + gx * (by * rz - ry * bz) +
+                    bx * (ry * gz - gy * rz))
+        kr = ry * (wx * (gy * bz - by * gz) + wy * (bx * gz - gx * bz) +
+                   wz * (gx * by - bx * gy)) / den
+        kb = by * (wx * (ry * gz - gy * rz) + wy * (gx * rz - rx * gz) +
+                   wz * (rx * gy - gx * ry)) / den
+    else:
+        kr, kb = (f(v) for v in _AVIF_KR_KB.get(matrix, "0.299 0.114").split())
+    return kr, f(1) - kr - kb, kb
+
+
+def _avif_lut(depth: int, full: bool, chroma: bool) -> np.ndarray:
+    """libavif's unormFloatTableY (or UV): (cp - bias) / range in float32
+    for every code point."""
+    f = np.float32
+    if chroma:
+        bias, rng = 1 << (depth - 1), (1 << depth) - 1 if full else \
+            224 << (depth - 8)
+    else:
+        bias, rng = (0, (1 << depth) - 1) if full else \
+            (16 << (depth - 8), 219 << (depth - 8))
+    return (np.arange(1 << depth, dtype=f) - f(bias)) / f(rng)
+
+
+def _avif_bilinear(lut: np.ndarray, c: np.ndarray, width: int, height: int,
+                   subx: int, suby: int) -> np.ndarray:
+    """4:2:0 or 4:2:2 chroma at full size as libavif's
+    ``avifImageYUVAnyToRGBAnySlow`` upsamples it: its nearest sample and
+    the adjacent column, row and diagonal ones (an edge's repeated),
+    weighted 9, 3, 3, 1 / 16 in float32 in its order."""
+    f = np.float32
+    i = np.arange(width)
+    j = np.arange(height)
+    ci, cj = i >> subx, j >> suby
+    adj_c = np.where((i == 0) | ((i == width - 1) & (i % 2 == 1)), 0,
+                     np.where(i % 2 == 1, 1, -1))
+    if suby:
+        adj_r = np.where((j == 0) | ((j == height - 1) & (j % 2 == 1)), 0,
+                         np.where(j % 2 == 1, 1, -1))
+    else:
+        adj_r = np.zeros_like(j)
+    t = lut[c.astype(np.int64)]
+    a = t[cj[:, None], ci[None, :]]
+    b = t[cj[:, None], (ci + adj_c)[None, :]]
+    r = t[(cj + adj_r)[:, None], ci[None, :]]
+    d = t[(cj + adj_r)[:, None], (ci + adj_c)[None, :]]
+    return a * f(9 / 16) + b * f(3 / 16) + r * f(3 / 16) + d * f(1 / 16)
+
+
+def libavif_builtin_rgb(planes, depth: int, subx: int, suby: int,
+                        matrix: int, primaries: int, full: bool,
+                        alpha=None, premultiplied: bool = False
+                        ) -> np.ndarray:
+    """Decoded planes → (H, W, 3) uint8 RGB as libavif 1.4.2 converts them
+    on its own path, where libyuv has no constants for the matrix (FCC,
+    SMPTE 240, YCgCo, YCgCo-Re, 15, chroma-derived NCL of other primaries,
+    the identity matrix at limited range): the code points through its
+    float32 lookup tables (``_avif_lut``); 4:4:4 through its fast
+    ``avifImageYUV8ToRGB8Color`` / ``YUV16ToRGB8Color`` (a premultiplied
+    colour then divided by libyuv's ``ARGBUnattenuate`` with the alpha cut
+    to 8 bits as ``avifReformatAlpha`` cuts it), subsampled chroma, YCgCo
+    and the identity matrix through ``avifImageYUVAnyToRGBAnySlow`` (its
+    bilinear chroma, and its own float division by a premultiplied
+    alpha); a monochrome frame through the luma table alone; each value
+    stored as (uint8)(0.5 + c · 255), c clamped to [0, 1].  All in float32
+    in libavif's operation order."""
+    f = np.float32
+    top = (1 << depth) - 1
+    y = np.minimum(planes[0].astype(np.int64), top)
+    height, width = y.shape
+    Y = _avif_lut(depth, full, False)[y]
+    mode = {0: "identity", 8: "ycgco", 16: "ycgco_re"}.get(matrix, "yuv")
+    # the slow path (it divides by a premultiplied alpha itself)
+    slow = mode != "yuv" or (len(planes) == 3 and bool(subx or suby))
+    if len(planes) == 1:
+        R = G = B = Y
+    else:
+        # the identity matrix's chroma takes the luma table
+        lut = _avif_lut(depth, full, mode != "identity")
+        u, v = (np.minimum(p.astype(np.int64), top) for p in planes[1:])
+        if subx or suby:
+            Cb = _avif_bilinear(lut, u, width, height, subx, suby)
+            Cr = _avif_bilinear(lut, v, width, height, subx, suby)
+        else:
+            Cb, Cr = lut[u], lut[v]
+        if mode == "identity":
+            G, B, R = Y, Cb, Cr
+        elif mode == "ycgco":
+            t = Y - Cb
+            G, B, R = Y + Cb, t - Cr, t + Cr
+        elif mode == "ycgco_re":
+            # YCgCo-Re (depth 10 into 8-bit RGB): integer lifting on the
+            # rounded chroma, clamped to the RGB range
+            cg, co = (np.floor(c * f(top) + f(0.5)).astype(np.int64)
+                      for c in (Cb, Cr))              # avifRoundf
+            t = y - (cg >> 1)
+            G = np.clip(t + cg, 0, 255)
+            B = np.clip(t - (co >> 1), 0, 255)
+            R = np.clip(B + co, 0, 255)
+            G, B, R = (x.astype(f) / f(255) for x in (G, B, R))
+        else:
+            kr, kg, kb = avif_coefficients(matrix, primaries)
+            R = Y + (f(2) * (f(1) - kr)) * Cr
+            B = Y + (f(2) * (f(1) - kb)) * Cb
+            G = Y - ((f(2) * ((kr * (f(1) - kr) * Cr) +
+                              (kb * (f(1) - kb) * Cb))) / kg)
+    rgb = np.clip(np.stack([R, G, B], -1), f(0), f(1)).astype(f)
+    if premultiplied and slow:
+        a = np.clip(np.minimum(alpha.astype(np.int64), top).astype(f) /
+                    f(top), f(0), f(1))[..., None]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            rgb = np.where(a == 0, f(0), np.where(
+                a < 1, np.minimum(rgb / a, f(1)), rgb)).astype(f)
+        premultiplied = False
+    out = (f(0.5) + rgb * f(255)).astype(np.uint8)
+    if premultiplied:
+        out = unattenuate(out, _alpha_to_8(alpha, depth) if depth > 8
+                          else alpha)
+    return out
+
+
 def _avif_matrix(matrix: int, primaries: int, full: bool, depth: int,
                  subx: int, suby: int, path):
     """libavif 1.4.2's verdict on a colour image's matrix coefficients:
     libyuv's constants where libavif converts through libyuv, None for
-    the identity matrix (GBR, libavif's own rounded path); raises where
-    cv2 gets no image (reserved and unsupported codes, the identity matrix
-    with subsampled chroma, YCgCo at limited range, YCgCo-Re other than
-    full-range 10-bit) and, naming the kind, where libavif converts on its
-    own built-in path, which the port does not copy (FCC, SMPTE 240, YCgCo,
-    ICtCp's neighbour 15, YCgCo-Re, chroma-derived NCL of other primaries,
-    the identity matrix at limited range)."""
+    the identity matrix at full range (GBR, libavif's own rounded path),
+    "libavif" where libavif converts on its own built-in path
+    (``libavif_builtin_rgb``: FCC, SMPTE 240, YCgCo, 15, YCgCo-Re,
+    chroma-derived NCL of other primaries, the identity matrix at limited
+    range); raises where cv2 gets no image (reserved and unsupported
+    codes, the identity matrix with subsampled chroma, YCgCo at limited
+    range, YCgCo-Re other than full-range 10-bit)."""
     refused = matrix in (3, 10, 11, 13, 14) or matrix > 16 or (
         matrix == 16 and (not full or depth != 10)) or (
         matrix == 8 and not full) or (matrix == 0 and (subx or suby))
@@ -3815,14 +3967,334 @@ def _avif_matrix(matrix: int, primaries: int, full: bool, depth: int,
     kind = _LIBYUV_PRIMARIES.get(primaries) if matrix == 12 else \
         _LIBYUV_MATRICES.get(matrix)
     if kind is None:
-        what = "the identity matrix at limited range" if matrix == 0 else \
-            f"matrix coefficients {matrix}" + (
-                f" under colour primaries {primaries}" if matrix == 12
-                else "")
-        raise RuntimeError(f"{path}: an AVIF image of {what}, which libavif "
-                           f"converts on its own path and the port does not "
-                           f"read yet (cv2 does)")
+        return "libavif"
     return _LIBYUV_CONSTANTS[kind, full]
+
+
+# ------------------------------------------------- libyuv 1924's scaler
+# What libavif 1.4.2's avifImageScale runs: ScalePlane (8-bit samples) or
+# ScalePlane_12 / ScalePlane_16 (its own; the same values), box filter.
+# Each path is ported from libyuv's C rows, with the x86 rows where those
+# round otherwise (the 8-bit column filter's 7-bit fraction, the 3/4 and
+# 3/8 rows that average two rows first), row by row in libyuv's order.
+
+_K_BOX, _K_BILINEAR, _K_LINEAR, _K_NONE = 3, 2, 1, 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    """C's integer division (toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+def _fixed_div(num: int, div: int) -> int:
+    return _cdiv(num << 16, div)
+
+
+def _fixed_div1(num: int, div: int) -> int:
+    return _cdiv((num << 16) - 0x00010001, div - 1)
+
+
+def _centerstart(dx: int, s: int) -> int:
+    return -((-dx >> 1) + s) if dx < 0 else (dx >> 1) + s
+
+
+def _scale_filter_reduce(sw: int, sh: int, dw: int, dh: int, f: int) -> int:
+    if f == _K_BOX and (dw * 2 >= sw or dh * 2 >= sh):
+        f = _K_BILINEAR
+    if f == _K_BILINEAR:
+        if sh == 1 or dh == sh or dh * 3 == sh:
+            f = _K_LINEAR
+        if sw == 1:
+            f = _K_NONE
+    if f == _K_LINEAR and (sw == 1 or dw == sw or dw * 3 == sw):
+        f = _K_NONE
+    return f
+
+
+def _scale_slope(sw: int, sh: int, dw: int, dh: int, f: int):
+    x = y = dx = dy = 0
+    if dw == 1 and sw >= 32768:
+        dw = sw
+    if dh == 1 and sh >= 32768:
+        dh = sh
+    if f == _K_BOX:
+        dx, dy = _fixed_div(sw, dw), _fixed_div(sh, dh)
+    elif f in (_K_BILINEAR, _K_LINEAR):
+        if dw <= sw:
+            dx = _fixed_div(sw, dw)
+            x = _centerstart(dx, -32768)
+        elif sw > 1 and dw > 1:
+            dx = _fixed_div1(sw, dw)
+        if f == _K_LINEAR:
+            dy = _fixed_div(sh, dh)
+            y = dy >> 1
+        elif dh <= sh:
+            dy = _fixed_div(sh, dh)
+            y = _centerstart(dy, -32768)
+        elif sh > 1 and dh > 1:
+            dy = _fixed_div1(sh, dh)
+    else:
+        dx, dy = _fixed_div(sw, dw), _fixed_div(sh, dh)
+        x, y = _centerstart(dx, 0), _centerstart(dy, 0)
+    return x, y, dx, dy
+
+
+def _interpolate_row(a: np.ndarray, b: np.ndarray, f: int) -> np.ndarray:
+    """InterpolateRow: a · (256 - f) + b · f, rounded, in 8 bits of f."""
+    if f == 0:
+        return a.copy()
+    return (a * (256 - f) + b * f + 128) >> 8
+
+
+def _filter_cols(row: np.ndarray, dw: int, x: int, dx: int,
+                 hbd: bool) -> np.ndarray:
+    """ScaleFilterCols: each output blends two samples by its position's
+    fraction, 7 bits of it in the 8-bit x86 row (ScaleFilterCols_SSSE3),
+    16 in the C rows of 16-bit samples (ScaleFilterCols_16_C)."""
+    xs = x + dx * np.arange(dw, dtype=np.int64)
+    xi = xs >> 16
+    a = row[xi]
+    b = row[np.minimum(xi + 1, len(row) - 1)]
+    if hbd:
+        return a + ((((xs & 0xFFFF) * (b - a)) + 0x8000) >> 16)
+    f = (xs >> 9) & 0x7F
+    return (a * (128 - f) + b * f + 64) >> 7
+
+
+def _scale_cols(row: np.ndarray, dw: int, x: int, dx: int) -> np.ndarray:
+    return row[(x + dx * np.arange(dw, dtype=np.int64)) >> 16]
+
+
+def _down34_row(s: np.ndarray, t: np.ndarray, dw: int, kind: int,
+                hbd: bool) -> np.ndarray:
+    """ScaleRowDown34_0_Box (kind 0: rows 3 : 1) or _1_Box (kind 1: 1 : 1)
+    of rows s and t (t is s for a row filtered alone): the C rows filter
+    across then down; the x86 rows (the first multiple of 24 outputs of an
+    8-bit plane) average the rows first (pavgb) and filter across."""
+    out = np.empty(dw, np.int64)
+    n = 0 if hbd else dw - dw % 24
+
+    def across(r, m):
+        p0, p1, p2, p3 = r[0:4 * m:4], r[1:4 * m:4], r[2:4 * m:4], \
+            r[3:4 * m:4]
+        return ((p0 * 3 + p1 + 2) >> 2, (p1 + p2 + 1) >> 1,
+                (p2 + p3 * 3 + 2) >> 2)
+    if n:
+        v = (s[:4 * n // 3] + t[:4 * n // 3] + 1) >> 1
+        if kind == 0:
+            v = (s[:4 * n // 3] + v + 1) >> 1
+        for k, a in enumerate(across(v, n // 3)):
+            out[k:n:3] = a
+    m = (dw - n) // 3
+    if m:
+        sa = across(s[4 * n // 3:], m)
+        ta = across(t[4 * n // 3:], m)
+        for k in range(3):
+            out[n + k::3] = (sa[k] * 3 + ta[k] + 2) >> 2 if kind == 0 else \
+                (sa[k] + ta[k] + 1) >> 1
+    return out
+
+
+def _down38_row(rows, dw: int, hbd: bool) -> np.ndarray:
+    """ScaleRowDown38_3_Box (three rows) or _2_Box (two) → dw outputs of 8
+    → 3 samples: sums times 65536 / n >> 16; the x86 two-row row (the
+    first multiple of 6 outputs of an 8-bit plane) averages its rows first
+    (pavgb) and scales sums of 3 and 2 averages."""
+    out = np.empty(dw, np.int64)
+    n = 0 if hbd or len(rows) == 3 else dw - dw % 6
+    if n:
+        v = (rows[0] + rows[1] + 1) >> 1
+        m = n // 3
+        c = [v[k:8 * m:8] for k in range(8)]
+        out[0:n:3] = (c[0] + c[1] + c[2]) * (65536 // 3) >> 16
+        out[1:n:3] = (c[3] + c[4] + c[5]) * (65536 // 3) >> 16
+        out[2:n:3] = (c[6] + c[7]) * (65536 // 2) >> 16
+    m = (dw - n) // 3
+    if m:
+        k0 = 8 * n // 3
+        tot = sum(r[k0:] for r in rows)
+        c = [tot[k:8 * m:8] for k in range(8)]
+        h = len(rows)
+        out[n::3] = (c[0] + c[1] + c[2]) * (65536 // (3 * h)) >> 16
+        out[n + 1::3] = (c[3] + c[4] + c[5]) * (65536 // (3 * h)) >> 16
+        out[n + 2::3] = (c[6] + c[7]) * (65536 // (2 * h)) >> 16
+    return out
+
+
+def _scale_box(src: np.ndarray, dw: int, dh: int) -> np.ndarray:
+    """ScalePlaneBox: rows summed over each output's box of source rows,
+    then columns over its box, times 65536 / (width · height) >> 16."""
+    sh, sw = src.shape
+    x, y, dx, dy = _scale_slope(sw, sh, dw, dh, _K_BOX)
+    max_y = sh << 16
+    out = np.empty((dh, dw), np.int64)
+    xs = x + dx * np.arange(dw + 1, dtype=np.int64)
+    ix = xs[:-1] >> 16
+    for j in range(dh):
+        iy = y >> 16
+        y = min(y + dy, max_y)
+        bh = max((y >> 16) - iy, 1)
+        row = src[iy:iy + bh].sum(0)
+        cum = np.concatenate([[0], np.cumsum(row)])
+        if dx & 0xFFFF:
+            minbw = dx >> 16
+            tbl = (65536 // (max(minbw, 1) * bh),
+                   65536 // (max(minbw + 1, 1) * bh))
+            bw = np.maximum((xs[1:] >> 16) - ix, 1)
+            scale = np.where(bw - minbw == 0, tbl[0], tbl[1])
+            out[j] = (cum[ix + bw] - cum[ix]) * scale >> 16
+        else:
+            bw = max(dx >> 16, 1)
+            x0 = (x >> 16) + bw * np.arange(dw)
+            out[j] = (cum[x0 + bw] - cum[x0]) * (65536 // (bw * bh)) >> 16
+    return out
+
+
+def _scale_bilinear_down(src, dw, dh, f, hbd):
+    sh, sw = src.shape
+    x, y, dx, dy = _scale_slope(sw, sh, dw, dh, f)
+    max_y = (sh - 1) << 16
+    y = min(y, max_y)
+    out = np.empty((dh, dw), np.int64)
+    for j in range(dh):
+        yi = y >> 16
+        if f == _K_LINEAR:
+            row = src[yi]
+        else:
+            row = _interpolate_row(src[yi], src[min(yi + 1, sh - 1)],
+                                   (y >> 8) & 255)
+        out[j] = _filter_cols(row, dw, x, dx, hbd)
+        y = min(y + dy, max_y)
+    return out
+
+
+def _scale_bilinear_up(src, dw, dh, f, hbd):
+    sh, sw = src.shape
+    x, y, dx, dy = _scale_slope(sw, sh, dw, dh, f)
+    max_y = (sh - 1) << 16
+
+    def cols(r):
+        return _filter_cols(src[r], dw, x, dx, hbd) if f else \
+            _scale_cols(src[r], dw, x, dx)
+    y = min(y, max_y)
+    yi = y >> 16
+    s = yi
+    rows = [cols(s)]
+    if sh > 1:
+        s += 1
+    rows.append(cols(s))
+    if sh > 2:
+        s += 1
+    cur, lasty = 0, yi
+    out = np.empty((dh, dw), np.int64)
+    for j in range(dh):
+        yi = y >> 16
+        if yi != lasty:
+            if y > max_y:
+                y = max_y
+                yi = y >> 16
+                s = yi
+            if yi != lasty:
+                rows[cur] = cols(s)
+                cur ^= 1
+                lasty = yi
+                if y + 65536 < max_y:
+                    s += 1
+        a, b = rows[cur], rows[cur ^ 1]
+        out[j] = a if f == _K_LINEAR else _interpolate_row(a, b,
+                                                           (y >> 8) & 255)
+        y += dy
+    return out
+
+
+def libyuv_scale_plane(src: np.ndarray, dw: int, dh: int,
+                       hbd: bool) -> np.ndarray:
+    """libyuv 1924's ScalePlane (hbd False: 8-bit samples) or ScalePlane_12
+    / ScalePlane_16 (hbd) of a plane to dw x dh with the box filter, as
+    libavif's avifImageScale calls it."""
+    src = src.astype(np.int64)
+    sh, sw = src.shape
+    f = _scale_filter_reduce(sw, sh, dw, dh, _K_BOX)
+    if (dw, dh) == (sw, sh):
+        return src.copy()
+    if dw == sw and f != _K_BOX:
+        y, dy = 0, 0
+        if dh <= sh:
+            dy = _fixed_div(sh, dh)
+            y = _centerstart(dy, -32768)
+        elif sh > 1 and dh > 1:
+            dy = _fixed_div1(sh, dh)
+        max_y = ((sh - 1) << 16) - 1 if sh > 1 else 0
+        out = np.empty((dh, dw), np.int64)
+        for j in range(dh):
+            y = min(y, max_y)
+            yi = y >> 16
+            yf = (y >> 8) & 255 if f else 0
+            out[j] = _interpolate_row(src[yi], src[min(yi + 1, sh - 1)], yf)
+            y += dy
+        return out
+    if dw <= sw and dh <= sh:
+        if 4 * dw == 3 * sw and 4 * dh == 3 * sh:
+            # (the filter reduces to bilinear here, never to none)
+            stride = 0 if f == _K_LINEAR else 1
+            out, r = [], 0
+            for y in range(0, dh - 2, 3):
+                out.append(_down34_row(src[r], src[r + stride], dw, 0, hbd))
+                out.append(_down34_row(src[r + 1], src[r + 1 + stride], dw,
+                                       1, hbd))
+                out.append(_down34_row(src[r + 3], src[r + 3 - stride], dw,
+                                       0, hbd))
+                r += 4
+            if dh % 3 == 2:
+                out.append(_down34_row(src[r], src[r + stride], dw, 0, hbd))
+                out.append(_down34_row(src[r + 1], src[r + 1], dw, 1, hbd))
+            elif dh % 3 == 1:
+                out.append(_down34_row(src[r], src[r], dw, 0, hbd))
+            return np.stack(out)
+        if 2 * dw == sw and 2 * dh == sh:
+            return (src[0::2, 0::2] + src[0::2, 1::2] + src[1::2, 0::2] +
+                    src[1::2, 1::2] + 2) >> 2
+        if 8 * dw == 3 * sw and 8 * dh == 3 * sh:
+            stride = 0 if f == _K_LINEAR else 1
+            out, r = [], 0
+            for y in range(0, dh - 2, 3):
+                out.append(_down38_row([src[r + k * stride] for k in range(3)],
+                                       dw, hbd))
+                out.append(_down38_row([src[r + 3 + k * stride]
+                                        for k in range(3)], dw, hbd))
+                out.append(_down38_row([src[r + 6 + k * stride]
+                                        for k in range(2)], dw, hbd))
+                r += 8
+            if dh % 3 == 2:
+                out.append(_down38_row([src[r + k * stride] for k in range(3)],
+                                       dw, hbd))
+                out.append(_down38_row([src[r + 3]] * 3, dw, hbd))
+            elif dh % 3 == 1:
+                out.append(_down38_row([src[r]] * 3, dw, hbd))
+            return np.stack(out)
+        if 4 * dw == sw and 4 * dh == sh and f in (_K_BOX, _K_NONE):
+            blocks = src.reshape(dh, 4, dw, 4)
+            return (blocks.sum((1, 3)) + 8) >> 4
+    if f == _K_BOX and dh * 2 < sh:
+        return _scale_box(src, dw, dh)
+    if (dw + 1) // 2 == sw and f == _K_LINEAR:
+        if dh == 1:
+            return _up2_linear(src[(sh - 1) // 2][None], dw).astype(np.int64)
+        dy = _fixed_div(sh - 1, dh - 1)
+        rows = ((1 << 15) - 1 + dy * np.arange(dh, dtype=np.int64)) >> 16
+        return _up2_linear(src[rows], dw).astype(np.int64)
+    if (dh + 1) // 2 == sh and (dw + 1) // 2 == sw and \
+            f in (_K_BILINEAR, _K_BOX):
+        # ScalePlaneUp2_Bilinear (and _12, _16): upsample_420's rows
+        return upsample_420(src, dw, dh).astype(np.int64)
+    if f and dh > sh:
+        return _scale_bilinear_up(src, dw, dh, f, hbd)
+    if f:
+        return _scale_bilinear_down(src, dw, dh, f, hbd)
+    x, y, dx, dy = _scale_slope(sw, sh, dw, dh, _K_NONE)
+    rows = (y + dy * np.arange(dh, dtype=np.int64)) >> 16
+    return np.stack([_scale_cols(src[r], dw, x, dx) for r in rows])
 
 
 def _alpha_to_8(a: np.ndarray, depth: int) -> np.ndarray:
@@ -3880,16 +4352,33 @@ def avif_planes_to_rgb(planes, depth: int, subx: int, suby: int,
     frame under a colour av1C: its luma as gray at 8 bits, as libyuv's
     I400 conversion gives it."""
     if len(planes) == 1:
-        if depth > 8 or not full_range:
-            raise RuntimeError(f"{path}: an AVIF image of a monochrome frame "
-                               f"under a colour av1C at {depth} bits or "
-                               f"limited range, which the port does not read "
-                               f"yet (cv2 does)")
-        return avif_gray(planes[0], 8)
+        # libavif's libyuv path converts a 4:0:0 frame only into BGRA (an
+        # image with alpha; I400ToARGBMatrix, the identity matrix with
+        # BT.601's constants, samples past 8 bits cut to their top 8), its
+        # own luma table otherwise
+        constants = _avif_matrix(matrix, primaries, full_range, depth, 0, 0,
+                                 path)
+        if matrix == 0:
+            constants = _LIBYUV_CONSTANTS["601", full_range]
+        if alpha is None or constants == "libavif":
+            return libavif_builtin_rgb(planes, depth, 0, 0, matrix,
+                                       primaries, full_range, alpha,
+                                       premultiplied)
+        y = np.minimum(planes[0] >> (depth - 8), 255)
+        mid = np.full_like(y, 128)
+        rgb = yuv_to_rgb(y, mid, mid, constants)
+        if premultiplied:
+            rgb = unattenuate(rgb, _alpha_to_8(alpha, depth) if depth > 8
+                              else alpha)
+        return rgb
     y, u, v = planes
     height, width = y.shape
     constants = _avif_matrix(matrix, primaries, full_range, depth, subx,
                              suby, path)
+    if constants == "libavif":
+        return libavif_builtin_rgb(planes, depth, subx, suby, matrix,
+                                   primaries, full_range, alpha,
+                                   premultiplied)
     a8 = None
     if constants is None and depth > 8 and premultiplied:
         # libavif's slow path, which divides by the alpha itself in float
@@ -3946,8 +4435,12 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
     film grain fields, its bytes); then loop restoration's frame type of
     each plane (0 none, 1 Wiener, 2 self-guided, 3 switchable), the Wiener
     and self-guided units decoded, whether segmentation is enabled and the
-    blocks of each of the 8 segment ids.  With ``grain`` False the planes
-    are the frame before its film grain."""
+    blocks of each of the 8 segment ids; then superres's denominator (8:
+    none) and the coded width (the width above is the upscaled frame's),
+    whether the delta loop filter is present and multi, the blocks with a
+    nonzero delta and the frame header's bit of delta_lf_present (-1
+    without delta q).  With ``grain`` False the planes are the frame
+    before its film grain."""
     import ctypes
 
     lib = _load_avif_codec()
@@ -3962,7 +4455,7 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
                                f"does)")
         raise RuntimeError(f"{path}: AV1 data cv2 does not read: {msg}")
     try:
-        info = (ctypes.c_longlong * 40)()
+        info = (ctypes.c_longlong * 46)()
         lib.av1_info(handle, info)
         info = list(info)
         width, height, _, subx, suby, mono = info[:6]
@@ -3978,27 +4471,45 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
     return planes, info
 
 
-def _avif_assemble(heif: _Heif, tiles, grid, path, alpha: bool = False):
+def avif_scale(planes, info, width: int, height: int):
+    """libavif 1.4.2's ``avifImageScale`` of a decoded frame (its planes
+    and decode_av1's info) to width x height, as its decoder scales a
+    tile's frame to the tile's size (an item's ispe, a track's tkhd):
+    each plane through ``libyuv_scale_plane`` (box filter), chroma to its
+    subsampled size → (planes, info with the new size)."""
+    depth, subx, suby = info[2:5]
+    if (width, height) == tuple(info[:2]):
+        return planes, info
+    out = []
+    for p, plane in enumerate(planes):
+        sx, sy = (subx, suby) if p else (0, 0)
+        out.append(libyuv_scale_plane(plane, (width + sx) >> sx,
+                                      (height + sy) >> sy, depth > 8
+                                      ).astype(np.uint16))
+    return out, [width, height] + list(info[2:])
+
+
+def _avif_assemble(heif: _Heif, tiles, grid, path, size=None):
     """The decoded frame of an image item: its one tile's, or a grid's
     tiles placed into one frame as libavif 1.4.2 places them → (planes,
-    info of the first tile with the item's size).  Each tile's frame must
-    have its ispe's size (libavif would scale it); a grid's tiles must
-    agree in size, depth, chroma format, range and CICP, cover the grid
-    with the last row and column overlapping its edge (MIAF 7.3.11.4.2),
-    be at least 64x64 and even where chroma is subsampled.  A lone alpha
-    frame of another size than its item's is fitted to it by libavif, and
-    not checked here (cv2 drops the alpha)."""
+    info of the first tile with the item's size).  libavif scales each
+    tile's frame to its size (``avif_scale``): a grid tile's ispe, a lone
+    item's ``size`` (its ispe, an alpha item's taken from its colour's
+    where it has none); a grid's tiles must then agree in size, depth,
+    chroma format, range and CICP, cover the grid with the last row and
+    column overlapping its edge (MIAF 7.3.11.4.2), be at least 64x64 and
+    even where chroma is subsampled."""
     decoded = []
     for obu, props in tiles:
         planes, info = decode_av1(obu, path)
         ispe = props.get(b"ispe")
         if ispe is not None and len(ispe) < 12:
             raise heif.bad("an ispe box cut short")
-        if ispe is not None and not (alpha and grid is None) and tuple(
-                info[:2]) != struct.unpack_from(">II", ispe, 4):
-            # libavif sizes its image by ispe and scales the frame to it
-            raise heif.unported(f"a {info[0]}x{info[1]} frame in an item "
-                                f"whose ispe differs")
+        want = size if grid is None else None
+        if want is None and ispe is not None:
+            want = struct.unpack_from(">II", ispe, 4)
+        if want is not None:
+            planes, info = avif_scale(planes, info, *want)
         decoded.append((planes, info))
     if grid is None:
         return decoded[0]
@@ -4048,13 +4559,13 @@ def _avif_sequence(heif: _Heif, path):
             raise heif.bad("the alpha track has no av1C")
         _avif_check_properties(heif, aprops)
     heif.signature_check([])
-    planes, info = decode_av1(obu, path)
-    if tuple(info[:2]) != (colour["width"], colour["height"]):
-        raise heif.unported(f"a {info[0]}x{info[1]} frame in a track whose "
-                            f"tkhd differs")
+    # libavif scales each track's frame to its tkhd's size
+    planes, info = avif_scale(*decode_av1(obu, path), colour["width"],
+                              colour["height"])
     decoded = None
     if alpha is not None:
-        decoded = decode_av1(aobu, path)
+        decoded = avif_scale(*decode_av1(aobu, path), alpha["width"],
+                             alpha["height"])
         if decoded[1][2] != info[2]:
             raise heif.bad(f"a {decoded[1][2]}-bit alpha frame for a "
                            f"{info[2]}-bit image")
@@ -4064,20 +4575,16 @@ def _avif_sequence(heif: _Heif, path):
     return planes, info, props, gray, decoded, prem
 
 
-def _avif_alpha(heif: _Heif, decoded, info, prem: bool):
-    """The alpha plane the colour stage takes: the alpha frame's luma,
-    made full range where its frame says limited (libavif's
-    ``avifImageLimitedToFullAlpha``).  A premultiplied alpha whose frame
-    is not the colour's size (libavif scales it first) raises as a kind
-    the port does not read yet; an unpremultiplied one leaves the colour
-    as it is whatever its size, and only its presence counts."""
+def _avif_alpha(heif: _Heif, decoded, info):
+    """The alpha plane the colour stage takes: the alpha frame's luma
+    (scaled to its item's or track's size), made full range where its
+    frame says limited (libavif's ``avifImageLimitedToFullAlpha``).
+    libavif refuses an alpha still of another size than the colour (a
+    track's tkhd of another size than the colour track's)."""
     aplanes, ainfo = decoded
     a = aplanes[0]
     if tuple(ainfo[:2]) != tuple(info[:2]):
-        if prem:
-            raise heif.unported("a premultiplied alpha of another size "
-                                "than the colour")
-        a = np.zeros((info[1], info[0]), np.uint16)
+        raise heif.bad("an alpha of another size than the colour")
     if not ainfo[9]:
         a = alpha_limited_to_full(a, ainfo[2])
     return a
@@ -4092,8 +4599,7 @@ def _decode_avif_bytes(data: bytes, path):
         if gray:
             return avif_gray(planes[0], depth)
         primaries, matrix, full = _avif_cicp(props, info)
-        alpha = None if decoded is None else _avif_alpha(heif, decoded,
-                                                         info, prem)
+        alpha = None if decoded is None else _avif_alpha(heif, decoded, info)
         return avif_planes_to_rgb(planes, depth, subx, suby, matrix, full,
                                   path, primaries, alpha, prem)
     tiles, props, grid = heif.primary_image()
@@ -4114,14 +4620,16 @@ def _decode_avif_bytes(data: bytes, path):
     heif.signature_check([heif.items[i] for i in (heif.primary, heif.alpha)
                           if i is not None and
                           heif.items[i]["type"] == b"grid"])
-    planes, info = _avif_assemble(heif, tiles, grid, path)
+    planes, info = _avif_assemble(heif, tiles, grid, path,
+                                  struct.unpack_from(">II", ispe, 4))
     width, height, depth, subx, suby = info[:5]
     decoded = None
     if alpha is not None:
         # libavif decodes the alpha too (its frame fitted to the item's
         # size), and refuses one that does not decode or whose depth is not
         # the colour's
-        decoded = _avif_assemble(heif, alpha[0], alpha[2], path, True)
+        decoded = _avif_assemble(heif, alpha[0], alpha[2], path,
+                                 struct.unpack_from(">II", aispe, 4))
         ainfo = decoded[1]
         if ainfo[2] != depth:
             raise heif.bad(f"a {ainfo[2]}-bit alpha frame for a {depth}-bit "
@@ -4135,7 +4643,7 @@ def _decode_avif_bytes(data: bytes, path):
         return avif_gray(planes[0], depth)
     primaries, matrix, full = _avif_cicp(props, info)
     prem = alpha is not None and heif.prem_by == heif.alpha
-    a = None if decoded is None else _avif_alpha(heif, decoded, info, prem)
+    a = None if decoded is None else _avif_alpha(heif, decoded, info)
     return avif_planes_to_rgb(planes, depth, subx, suby, matrix, full, path,
                               primaries, a, prem)
 
@@ -4159,13 +4667,19 @@ def read_avif(path) -> np.ndarray:
     with libavif's grid rules, and image sequences (``avis``: the first
     frame); an nclx colr wherever it stands beside an ICC one, rotations,
     mirrors and clean apertures (parsed, not applied, as cv2 reads the
-    image), BT.601, BT.709 and BT.2020 NCL at full and limited range.
+    image), BT.601, BT.709 and BT.2020 NCL at full and limited range
+    through libyuv, and the matrices libavif converts on its own path
+    (FCC, SMPTE 240, YCgCo, 15, YCgCo-Re, chroma-derived NCL of other
+    primaries, the identity matrix at limited range:
+    ``libavif_builtin_rgb``); superres and the delta loop filter; frames
+    libavif scales to their item's ispe or their track's tkhd
+    (``avif_scale``: libyuv's box filter), alphas too; a monochrome frame
+    under a colour av1C at any depth and range; scalability metadata.
     Raises ``RuntimeError`` naming the file where cv2 returns None
-    (OpenCV's own 500-byte signature test included), and naming the kind
-    for what the port does not read yet (superres, delta loop filter,
-    frames other than a shown key frame first, a frame libavif scales to
-    its ispe or track size, matrices libavif converts on its own path,
-    a premultiplied alpha of another size than the colour)."""
+    (OpenCV's own 500-byte signature test included; an iloc construction
+    method 2), and naming the kind for what the port does not read yet
+    (frames other than a shown key frame first: an intra-only frame, a
+    hidden key frame, inter frames)."""
     with open(path, "rb") as f:
         data = f.read()
     return _decode_avif_bytes(data, path)
@@ -4183,10 +4697,12 @@ def read_image(fn: str) -> np.ndarray:
     ``avif`` or ``avis`` brand) through the port's own readers (AVIF: every
     chroma format, the screen content tools, film grain and the alpha item
     that cv2's and Pillow's writers make, grids and image sequences, every
-    colour and orientation option of Pillow's; ``read_avif``).  A kind of
-    AVIF the port does not read yet (the rarer kinds ``read_avif`` lists)
-    raises ``RuntimeError`` naming the file and the kind; any other file
-    raises naming the file."""
+    colour and orientation option of Pillow's, superres and the delta loop
+    filter, every matrix libavif converts, frames it scales;
+    ``read_avif``).  A kind of AVIF the port does not read yet (frames
+    other than a shown key frame first, as ``read_avif`` lists) raises
+    ``RuntimeError`` naming the file and the kind; any other file raises
+    naming the file."""
     with open(fn, "rb") as f:
         head = f.read(512)
     if head.startswith(PNG_SIGNATURE):

@@ -407,27 +407,45 @@ def _scaled_track(img):
                                  tkhd_size=(w // 2, h // 2))
 
 
-# kinds cv2 reads that the port does not yet: Pillow's EXIF orientation
-# (an essential irot, read since) on a file whose nclx says SMPTE 240 (7),
-# which libavif converts on its own path; a sequence's frame scaled to its
-# track
+def _frame_kind(kind):
+    # cv2's still image as a full sequence's frame of another kind
+    # (torch_avif_oracles.frame_of_kind): an intra-only frame first, or a
+    # hidden key frame that a show_existing_frame header shows
+    def make(img):
+        obu, props = oracle.item_parts(oracle.cv2_avif(img))
+        return oracle.build_avif(oracle.frame_of_kind(obu, kind), props)
+    return make
+
+
+# cv2 reads each of these; the port does not yet where a feature is given:
+# an intra-only frame first and a hidden key frame (AV1 frames other than
+# a shown key frame first); the port reads the others as cv2 does:
+# Pillow's EXIF orientation (an essential irot) on a file whose nclx says
+# SMPTE 240 (7), which libavif converts on its own path, and a sequence's
+# frame scaled to its track
 _REFUSED = {
     "irot": (lambda img: oracle.with_colr(
         oracle.pillow_avif(img, exif=_orientation(6)),
-        [oracle.nclx(1, 13, 7, True)]), r"matrix coefficients 7"),
-    "tkhd_scaled": (_scaled_track, r"a 128x96 frame in a track whose tkhd "
-                                   r"differs"),
+        [oracle.nclx(1, 13, 7, True)]), None),
+    "tkhd_scaled": (_scaled_track, None),
+    "intra_only": (_frame_kind("intra_only"), r"an intra-only frame"),
+    "hidden_key": (_frame_kind("hidden_key"), r"a hidden key frame"),
 }
 
 
 @pytest.mark.parametrize("kind", list(_REFUSED))
 def test_unported_tools_raise_naming_the_feature(cv2, pil, tmp_path, kind):
-    # files cv2 reads with a tool the port does not decode yet
+    # files cv2 reads with a tool the port does not decode yet raise
+    # naming the file and the tool; those read since equal cv2's decode
     make, feature = _REFUSED[kind]
     img = oracle.avif_image("photo", 96, 128, np.random.default_rng(8))
     path = tmp_path / f"{kind}.avif"
     path.write_bytes(make(img))
-    assert cv2.imread(str(path)) is not None
+    want = cv2.imread(str(path))
+    assert want is not None
+    if feature is None:
+        np.testing.assert_array_equal(read_avif(str(path)), want[..., ::-1])
+        return
     with pytest.raises(RuntimeError) as err:
         read_avif(str(path))
     assert f"{kind}.avif" in str(err.value)

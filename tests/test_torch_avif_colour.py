@@ -92,8 +92,8 @@ def test_icc_profile_then_nclx_reads_as_cv2(cv2, pil, tmp_path, form):
 def test_nclx_after_hand_made_icc_colr(cv2, tmp_path, nclx):
     # cv2's file with a colr prof and then an nclx: the nclx's matrix and
     # range are the colour's (before the repair the port decoded these by
-    # the stream's BT.601 full range: max abs diff 20 and 17), or a matrix
-    # libavif converts on its own path raises as not read yet
+    # the stream's BT.601 full range: max abs diff 20 and 17), SMPTE 240
+    # through libavif's own path (libavif_builtin_rgb) too
     data = oracle.cv2_avif(_view(2, 48, 64))
     for order in ("icc_first", "nclx_first"):
         colrs = [oracle.box(b"colr", b"prof" + oracle.icc_profile()),
@@ -102,7 +102,7 @@ def test_nclx_after_hand_made_icc_colr(cv2, tmp_path, nclx):
             colrs = colrs[::-1]
         got = _verdict(cv2, tmp_path / f"{order}.avif",
                        oracle.with_colr(data, colrs))
-        assert got == ("not read yet" if nclx[2] == 7 else "equal")
+        assert got == "equal"
 
 
 @pytest.mark.parametrize("colrs", [
@@ -364,7 +364,8 @@ def test_track_alpha_of_its_own_range_and_prem(cv2, pil, tmp_path):
 def test_premultiplied_alpha_of_another_size_not_read_yet(cv2, pil,
                                                           tmp_path):
     # libavif scales an alpha frame of another size than its item's before
-    # dividing by it; the port does not copy the scaler
+    # dividing by it (avif_scale, libyuv's box filter); the port reads the
+    # file as cv2 reads it
     rgba = np.dstack([_view(15, 48, 64), np.full((48, 64), 160, np.uint8)])
     colour = oracle.pillow_avif(rgba, alpha_premultiplied=True)
     cobu, cprops, _, aprops = oracle.alpha_parts(colour)
@@ -374,8 +375,7 @@ def test_premultiplied_alpha_of_another_size_not_read_yet(cv2, pil,
     data = oracle.build_items([(1, b"av01", cobu, cprops),
                                (2, b"av01", aobu, aprops)],
                               [(b"auxl", 2, [1]), (b"prem", 1, [2])])
-    assert _verdict(cv2, tmp_path / "small_alpha.avif",
-                    data) == "not read yet"
+    assert _verdict(cv2, tmp_path / "small_alpha.avif", data) == "equal"
 
 
 # ------------------------------------------------ stages by symbol

@@ -208,14 +208,15 @@ def test_container_layouts_match_cv2(cv2, pil, tmp_path, layout):
 
 
 def test_track_scaled_is_not_read_yet(cv2, pil, tmp_path):
-    # libavif scales a frame to its track header's size; cv2 reads it
+    # libavif scales a frame to its track header's size (avif_scale); the
+    # port reads it as cv2 does
     samples, props, w, h = _two_frames()
     path = tmp_path / "scaled.avif"
     path.write_bytes(oracle.build_sequence(samples, props, w, h,
                                            tkhd_size=(64, 48)))
     assert cv2.imread(str(path)).shape == (48, 64, 3)
-    with pytest.raises(RuntimeError, match="scaled.avif.*not read yet"):
-        read_avif(str(path))
+    np.testing.assert_array_equal(read_avif(str(path)),
+                                  cv2.imread(str(path))[..., ::-1])
 
 
 # ----------------------------------------- loop restoration, by symbol

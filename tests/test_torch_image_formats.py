@@ -426,31 +426,31 @@ def test_pnm_writer_matches_cv2_bytes(cv2, tmp_path, ext):
 
 
 # kinds of a format cv2 reads that the port does not yet: extension ->
-# (the kind as the port names it, Pillow's save options, the colr boxes
-# the file is written again with: an nclx of SMPTE 240, a matrix libavif
-# converts on its own path)
-_UNPORTED = {"avif": (r"matrix coefficients 7", dict(), (1, 13, 7, True))}
+# (the kind as the port names it, Pillow's save options, the edit the file
+# is written again with: its frame made an intra-only frame, an AV1 frame
+# other than a shown key frame first)
+_UNPORTED = {"avif": (r"with an intra-only frame", dict(), "intra_only")}
 
 
 @pytest.mark.parametrize("ext", list(_UNPORTED))
 def test_unported_formats_raise_naming_the_format(cv2, tmp_path, ext):
-    # a file Pillow writes, its colr edited, and cv2 reads: the port says it
-    # does not read the kind yet (AVIF itself is read since the port's AV1
-    # decoder)
+    # a file Pillow writes, edited, and cv2 reads: the port says it does
+    # not read the kind yet
     pytest.importorskip("PIL.AvifImagePlugin")
     import torch_avif_oracles as oracle
     from PIL import Image
 
-    kind, opts, nclx = _UNPORTED[ext]
+    kind, opts, frame = _UNPORTED[ext]
     path = tmp_path / f"view.{ext}"
     img = fx.fixture_image(12, 16, seed=1)
     Image.fromarray(img).save(str(path), **opts)
-    path.write_bytes(oracle.with_colr(path.read_bytes(),
-                                      [oracle.nclx(*nclx)]))
+    obu, props = oracle.item_parts(path.read_bytes())
+    path.write_bytes(oracle.build_avif(oracle.frame_of_kind(obu, frame),
+                                       props))
     assert cv2.imread(str(path)) is not None
     with pytest.raises(RuntimeError,
                        match=f"view.{ext}: an {ext.upper()} (image|file) "
-                             f"of {kind}.*not read yet"):
+                             f"{kind}.*not read yet"):
         read_image(str(path))
 
 

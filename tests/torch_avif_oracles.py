@@ -1004,14 +1004,16 @@ def build_sequence(samples, props: dict, width: int, height: int, *,
                    major=b"avis", compat=(b"avif", b"avis", b"msf1", b"iso8",
                                           b"mif1", b"miaf", b"MA1B"),
                    meta=True, item_sample=0, moov=True, moov_first=False,
-                   alpha=None, past_end=0, **track) -> bytes:
+                   alpha=None, past_end=0, alpha_tkhd_size=None,
+                   **track) -> bytes:
     """An image sequence written here as Pillow lays one out (ftyp, meta
     with a primary item whose extent is the sample ``item_sample``, moov,
     mdat), with the layouts libavif meets: another major brand or
     compatible brands, no meta or no moov, moov first, an alpha track
-    (``alpha``: (samples, properties), an ``auxl`` to track 1), a first
-    chunk ``past_end`` bytes past the file's end, and the track options of
-    ``_track`` (co64, chunks, stss, edts, tkhd_size, duration)."""
+    (``alpha``: (samples, properties), an ``auxl`` to track 1; its tkhd's
+    size ``alpha_tkhd_size``), a first chunk ``past_end`` bytes past the
+    file's end, and the track options of ``_track`` (co64, chunks, stss,
+    edts, tkhd_size, duration, prem_by)."""
     chunks = track.get("chunks") or [len(samples)]
     ftyp = box(b"ftyp", major + bytes(4) + b"".join(compat))
     parts = [samples] + ([alpha[0]] if alpha else [])
@@ -1056,7 +1058,8 @@ def build_sequence(samples, props: dict, width: int, height: int, *,
             trak = _track(1, samples, props, width, height, offs[0], **track)
             if alpha:
                 trak += _track(2, alpha[0], alpha[1], width, height, offs[1],
-                               handler=b"auxv", aux_for=1)
+                               handler=b"auxv", aux_for=1,
+                               tkhd_size=alpha_tkhd_size)
             mv = box(b"moov", mvhd + trak)
         head = ftyp + (mv + m if moov_first else m + mv)
         return head
@@ -1079,7 +1082,11 @@ def full_headers(stream: bytes, *, still: int = 1, timing: bool = False,
     id and order hint, the decoder model's removal times, and
     disable_frame_end_update_cdf; ``frame_kind`` the bits of
     show_existing_frame, frame_type and show_frame (a shown key frame by
-    default; others leave the rest of the header as a key frame's).  With
+    default; others leave the rest of the header as a key frame's), or
+    "intra_only" (a shown intra-only frame: error_resilient_mode and
+    refresh_frame_flags written too) or "hidden_key" (a key frame not
+    shown, showable, refreshing slot 0, then a frame header OBU whose
+    show_existing_frame shows it): frames ``frame_of_kind`` makes.  With
     ``extension`` (temporal id,
     spatial id) every OBU but the sequence header carries an extension
     header.  The file must have no film grain (its header ends at
@@ -1143,9 +1150,16 @@ def full_headers(stream: bytes, *, still: int = 1, timing: bool = False,
             p += 1
             if allow_sct:
                 p += 1
-            new = frame_kind                        # a shown key frame
-            if timing and decoder_model:
+            kind_bits = {"intra_only": "0101", "hidden_key": "0000"}.get(
+                frame_kind, frame_kind)
+            shown = kind_bits[3] == "1"
+            new = kind_bits                         # a shown key frame
+            if timing and decoder_model and shown:
                 new += "0" * 10                     # frame_presentation_time
+            if frame_kind == "hidden_key":
+                new += "1"                          # showable_frame
+            if frame_kind in ("intra_only", "hidden_key"):
+                new += "0"                          # error_resilient_mode
             # disable_cdf_update; allow_screen_content_tools and
             # force_integer_mv chosen per frame: the reduced header's values
             new += bits[:2] + (bits[2] if allow_sct else "")
@@ -1154,6 +1168,8 @@ def full_headers(stream: bytes, *, still: int = 1, timing: bool = False,
             new += "0" + "0" * order_hint_bits      # size override, hint
             if decoder_model:
                 new += "1" + "0" * 10 * len(ops)
+            if frame_kind in ("intra_only", "hidden_key"):
+                new += "00000001"                   # refresh_frame_flags
             new += bits[2 + allow_sct:p]            # sizes, render, intrabc
             if bits[0] == "0":
                 new += "1"                          # no end update
@@ -1165,7 +1181,24 @@ def full_headers(stream: bytes, *, still: int = 1, timing: bool = False,
         else:
             head = bytes([(kind << 3) | 2])
         out += head + _leb(len(payload)) + payload
+        if kind == 6 and frame_kind == "hidden_key":
+            # show_existing_frame of slot 0 (frame_to_show_map_idx), the
+            # presentation time and frame id where the header has them
+            bits = "1" + "000"
+            if timing and decoder_model:
+                bits += "0" * 10
+            if frame_ids:
+                bits += "0" * 9
+            out += bytes([(3 << 3) | 2]) + _leb(1) + _bytes(bits + "1")
     return out
+
+
+def frame_of_kind(stream: bytes, kind: str) -> bytes:
+    """cv2's still item OBUs as a full sequence (still_picture 0) whose
+    frame is of another kind: "intra_only" (an intra-only frame first) or
+    "hidden_key" (a hidden key frame a show_existing_frame header shows);
+    cv2 reads both (``full_headers``)."""
+    return full_headers(stream, still=0, frame_kind=kind)
 
 
 # ---------------------------------------------------- loop restoration
@@ -1429,3 +1462,382 @@ def alpha_file(colour: bytes, alpha: bytes, prem: bool,
     refs = [(b"auxl", 2, [1])] + ([(b"prem", 1, [2])] if prem else [])
     return build_items([(1, b"av01", cobu, cprops),
                         (2, b"av01", aobu, aprops)], refs)
+
+
+# ------------------------------------------- libaom's encoder, by hand
+
+_AOM_ENC = None
+# AV1E_SET_* control ids of libaom 3.14.1 (aomcx.h), which the library's
+# encoder_ctrl_maps pairs with its ctrl_set_* functions
+AOM_CONTROLS = {"cpu-used": 13, "cq-level": 25, "tile-columns": 33,
+                "tile-rows": 34, "color-range": 52, "enable-cdef": 58,
+                "enable-restoration": 59, "enable-superres": 102,
+                "deltaq-mode": 107, "deltalf-mode": 108}
+
+
+def _aom_encoder():
+    global _AOM_ENC
+    if _AOM_ENC is None:
+        lib = ctypes.CDLL(_wheel_lib("libaom-*.so*"))
+        lib.aom_codec_av1_cx.restype = ctypes.c_void_p
+        lib.aom_codec_get_cx_data.restype = ctypes.c_void_p
+        lib.aom_codec_error_detail.restype = ctypes.c_char_p
+        lib.aom_img_alloc.restype = ctypes.c_void_p
+        lib.aom_img_free.argtypes = [ctypes.c_void_p]
+        lib.aom_codec_set_option.argtypes = [ctypes.c_void_p,
+                                             ctypes.c_char_p, ctypes.c_char_p]
+        _AOM_ENC = lib
+    return _AOM_ENC
+
+
+def aom_control_ids() -> dict:
+    """{ctrl_set_* function name: control id} read out of the loaded
+    libaom's ``encoder_ctrl_maps`` (the check behind ``AOM_CONTROLS``)."""
+    libaom_function("aom_codec_version", ctypes.c_int)   # loads _AOM
+    _, base, syms = _AOM
+    names = {base + v: k for k, v in syms.items() if k.startswith("ctrl_")}
+    elf = Elf(_wheel_lib("libaom-*.so*"))
+    tab = base + elf.symbols["encoder_ctrl_maps"][0]
+    out = {}
+    for i in range(1024):
+        cid, fn = struct.unpack("<i4xQ", ctypes.string_at(tab + 16 * i, 16))
+        if cid == -1 or fn == 0:
+            break
+        out[names.get(fn, hex(fn))] = cid
+    return out
+
+
+def libaom_encode(planes, depth: int, subx: int, suby: int, *,
+                  usage: int = 2, superres=None, controls=None) -> bytes:
+    """One frame's OBUs (a temporal unit: temporal delimiter, sequence
+    header, frame) from libaom 3.14.1's own encoder (``aom_codec_av1_cx``,
+    the library cv2's wheel bundles) driven here through its C API, with
+    the options ``avifenc -a`` passes and Pillow's ``advanced`` refuses:
+    ``superres`` = (mode, denominator, key-frame denominator) sets the
+    config's ``rc_superres_*`` fields (mode 1 fixed, 2 random, 3 by q, 4
+    auto); ``controls`` {name of ``AOM_CONTROLS``: int} (``deltaq-mode``,
+    ``deltalf-mode``, ``cq-level``, ...).  ``usage`` 2 is all-intra (what
+    libavif takes for a still image), 0 good quality (its sequences).
+    planes: [Y, U, V] at their own sizes, any depth 8/10/12."""
+    lib = _aom_encoder()
+    iface = ctypes.c_void_p(lib.aom_codec_av1_cx())
+    h, w = planes[0].shape
+    cfg = ctypes.create_string_buffer(4096)
+    assert lib.aom_codec_enc_config_default(iface, cfg, usage) == 0
+    # aom_codec_enc_cfg_t: g_usage, g_threads, g_profile, g_w, g_h,
+    # g_limit, forced max w/h, g_bit_depth, g_input_bit_depth, timebase,
+    # error resilient, pass, lag, dropframe, resize mode/den/kf den,
+    # superres mode/den/kf den/qthresh/kf qthresh, rc_end_usage
+    f = list(struct.unpack_from("<25I", cfg.raw, 0))
+    f[2] = 2 if depth == 12 or (subx and not suby) else 1 if not subx else 0
+    f[3], f[4], f[5] = w, h, 1
+    f[8] = f[9] = depth
+    f[14] = 0
+    if superres is not None:
+        f[19], f[20], f[21] = superres
+    f[24] = 3                                   # AOM_Q
+    struct.pack_into("<25I", cfg, 0, *f)
+    ctx = ctypes.create_string_buffer(256)
+    hbd = depth > 8
+    res = lib.aom_codec_enc_init_ver(ctx, iface, cfg,
+                                     0x40000 if hbd else 0, 25)
+    assert res == 0, f"aom_codec_enc_init_ver: {res}"
+    img = None
+    try:
+        for name, value in {"cq-level": 30, **(controls or {})}.items():
+            res = lib.aom_codec_control(ctx, AOM_CONTROLS[name],
+                                        ctypes.c_int(value))
+            assert res == 0, f"{name}: {lib.aom_codec_error_detail(ctx)}"
+        fmt = {(1, 1): 0x102, (1, 0): 0x105, (0, 0): 0x106}[(subx, suby)]
+        img = lib.aom_img_alloc(None, fmt | (0x800 if hbd else 0), w, h, 16)
+        ptrs = struct.unpack("<3Q", ctypes.string_at(img + 64, 24))
+        strides = struct.unpack("<3i", ctypes.string_at(img + 88, 12))
+        for p, a in enumerate(planes):
+            a = np.ascontiguousarray(a.astype(np.uint16 if hbd else np.uint8))
+            for r in range(a.shape[0]):
+                ctypes.memmove(ptrs[p] + r * strides[p], a[r].ctypes.data,
+                               a[r].nbytes)
+        out = b""
+        for frame in (ctypes.c_void_p(img), None):
+            res = lib.aom_codec_encode(ctx, frame, ctypes.c_int64(0),
+                                       ctypes.c_ulong(1), ctypes.c_long(0))
+            assert res == 0, lib.aom_codec_error_detail(ctx)
+            it = ctypes.c_void_p(0)
+            while True:
+                pkt = lib.aom_codec_get_cx_data(ctx, ctypes.byref(it))
+                if not pkt:
+                    break
+                if struct.unpack("<i", ctypes.string_at(pkt, 4))[0] == 0:
+                    buf, n = struct.unpack("<QQ", ctypes.string_at(pkt + 8,
+                                                                   16))
+                    out += ctypes.string_at(buf, n)
+        return out
+    finally:
+        if img:
+            lib.aom_img_free(img)
+        lib.aom_codec_destroy(ctx)
+
+
+def av1c_box(depth: int, subx: int, suby: int, mono: bool = False,
+             profile=None) -> bytes:
+    """An av1C box (no config OBUs) of a stream's sequence header fields."""
+    if profile is None:
+        profile = 2 if depth == 12 or (subx and not suby) else \
+            1 if not subx and not mono else 0
+    return box(b"av1C", bytes([
+        0x81, profile << 5, (int(depth > 8) << 6) | (int(depth == 12) << 5) |
+        (int(mono) << 4) | (subx << 3) | (suby << 2), 0]))
+
+
+def pixi_box(depth: int, channels: int = 3) -> bytes:
+    return full_box(b"pixi", 0, 0, bytes([channels] + [depth] * channels))
+
+
+def encoded_avif(planes, depth: int, subx: int, suby: int, *,
+                 colr=None, **kw) -> bytes:
+    """``libaom_encode``'s frame as a one-item AVIF (``build_avif``): ispe
+    of the planes' size, pixi, av1C and an nclx (BT.601 full range unless
+    ``colr``)."""
+    h, w = planes[0].shape
+    stream = libaom_encode(planes, depth, subx, suby, **kw)
+    props = {b"ispe": ispe_box(w, h), b"pixi": pixi_box(depth),
+             b"av1C": av1c_box(depth, subx, suby),
+             b"colr": colr or nclx(1, 13, 6, True)}
+    return build_avif(stream, props)
+
+
+# ------------------------------------- libavif's own colour and scaling
+
+# avifPixelFormat of 4:4:4, 4:2:2, 4:2:0 (subsampling x, y)
+_FMT_CODE = {(0, 0): 1, (1, 0): 2, (1, 1): 3}
+
+
+def libavif_image(planes, depth: int, subx: int = 1, suby: int = 1, *,
+                  matrix: int = 6, primaries: int = 1, full: bool = True,
+                  alpha=None, premultiplied: bool = False) -> int:
+    """An avifImage (libavif 1.4.2's layout: width, height, depth,
+    yuvFormat, yuvRange, ...; yuvPlanes at 24, yuvRowBytes at 48,
+    alphaPlane at 64, alphaRowBytes at 72, alphaPremultiplied at 80,
+    colorPrimaries, transfer and matrixCoefficients at 104) holding the
+    given planes ([Y] alone: 4:0:0), with an alpha plane where ``alpha``
+    is given.  Free it with ``_libavif().avifImageDestroy``."""
+    lib = _libavif()
+    vp = ctypes.c_void_p
+    lib.avifImageCreate.restype = vp
+    lib.avifImageCreate.argtypes = [ctypes.c_uint32] * 3 + [ctypes.c_int]
+    lib.avifImageAllocatePlanes.argtypes = [vp, ctypes.c_int]
+    h, w = planes[0].shape
+    fmt = 4 if len(planes) == 1 else _FMT_CODE[(subx, suby)]
+    img = lib.avifImageCreate(w, h, depth, fmt)
+    ctypes.c_uint32.from_address(img + 16).value = 1 if full else 0
+    struct.pack_into("<3H", (ctypes.c_char * 6).from_address(img + 104), 0,
+                     primaries, 13, matrix)
+    lib.avifImageAllocatePlanes(img, 1 | (2 if alpha is not None else 0))
+    dtype = np.uint16 if depth > 8 else np.uint8
+    ptrs = struct.unpack("<3Q", ctypes.string_at(img + 24, 24))
+    rows = struct.unpack("<3I", ctypes.string_at(img + 48, 12))
+    fill = [(ptrs[p], rows[p], a) for p, a in enumerate(planes)]
+    if alpha is not None:
+        aptr, arow = struct.unpack("<QI", ctypes.string_at(img + 64, 12))
+        fill.append((aptr, arow, alpha))
+        ctypes.c_int.from_address(img + 80).value = int(premultiplied)
+    for ptr, row, a in fill:
+        ph = a.shape[0]
+        dst = np.ctypeslib.as_array((ctypes.c_uint8 * (row * ph))
+                                    .from_address(ptr)).reshape(ph, -1)
+        src = np.ascontiguousarray(a.astype(dtype)).view(np.uint8)
+        dst[:, :src.shape[1]] = src
+    return img
+
+
+def _image_planes(img: int):
+    """([Y, U, V] or [Y], alpha or None) read back out of an avifImage."""
+    w, h, depth, fmt = struct.unpack("<4I", ctypes.string_at(img, 16))
+    ptrs = struct.unpack("<3Q", ctypes.string_at(img + 24, 24))
+    rows = struct.unpack("<3I", ctypes.string_at(img + 48, 12))
+    aptr, arow = struct.unpack("<QI", ctypes.string_at(img + 64, 12))
+    sub = {1: (0, 0), 2: (1, 0), 3: (1, 1), 4: (1, 1)}[fmt]
+    nb = 2 if depth > 8 else 1
+
+    def plane(ptr, row, pw, ph):
+        raw = np.frombuffer(ctypes.string_at(ptr, row * ph), np.uint8)
+        raw = raw.reshape(ph, row)[:, :pw * nb].copy()
+        return (raw.view("<u2") if nb == 2 else raw).astype(np.uint16)
+    out = []
+    for p in range(1 if fmt == 4 else 3):
+        sx, sy = sub if p else (0, 0)
+        out.append(plane(ptrs[p], rows[p], (w + sx) >> sx, (h + sy) >> sy))
+    return out, (plane(aptr, arow, w, h) if aptr else None)
+
+
+def libavif_yuv_to_rgb(planes, depth: int, subx: int = 1, suby: int = 1,
+                       *, channels: int = 3, avoid_libyuv: bool = False,
+                       **kw) -> np.ndarray:
+    """(H, W, channels) uint8 BGR(A) as libavif 1.4.2's
+    ``avifImageYUVToRGB`` converts the given planes for cv2 (8-bit BGR, or
+    BGRA for an image with alpha; the chroma upsampling left automatic);
+    ``kw`` as ``libavif_image``'s.  Raises ValueError where it fails."""
+    lib = _libavif()
+    vp = ctypes.c_void_p
+    lib.avifRGBImageSetDefaults.argtypes = [vp, vp]
+    lib.avifImageYUVToRGB.argtypes = [vp, vp]
+    img = libavif_image(planes, depth, subx, suby, **kw)
+    try:
+        h, w = planes[0].shape
+        rgb = ctypes.create_string_buffer(128)
+        lib.avifRGBImageSetDefaults(ctypes.addressof(rgb), img)
+        f = list(struct.unpack_from("11i", rgb.raw, 0))
+        f[2], f[3], f[6] = 8, 4 if channels == 4 else 3, int(avoid_libyuv)
+        buf = np.zeros((h, w, channels), np.uint8)
+        struct.pack_into("11i", rgb, 0, *f)
+        struct.pack_into("QI", rgb, 48, buf.ctypes.data, w * channels)
+        res = lib.avifImageYUVToRGB(img, ctypes.addressof(rgb))
+        if res != 0:
+            raise ValueError(f"libavif's conversion fails ({res})")
+        return buf
+    finally:
+        lib.avifImageDestroy(img)
+
+
+def libavif_coefficients(matrix: int, primaries: int):
+    """(kr, kg, kb) as libavif's own ``avifCalcYUVCoefficients`` (a local
+    symbol) computes them for an image of these codes."""
+    img = libavif_image([np.zeros((2, 2), np.uint16)] * 3, 8, 0, 0,
+                        matrix=matrix, primaries=primaries)
+    try:
+        out = (ctypes.c_float * 3)()
+        fn = ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_void_p, ctypes.c_void_p)(
+            libavif_symbol("avifCalcYUVCoefficients"))
+        fn(img, ctypes.addressof(out), ctypes.addressof(out) + 4,
+           ctypes.addressof(out) + 8)
+        return np.array(out[:], np.float32)
+    finally:
+        _libavif().avifImageDestroy(img)
+
+
+def libavif_tables():
+    """libavif's avifColorPrimariesTables ({code: 8 float32 chromaticities})
+    and matrixCoefficientsTables ({code: (kr, kb)}), read by symbol."""
+    elf = _avif_elf()
+    n = int(elf.table("avifColorPrimariesTableSize", "<i4", (1,))[0])
+    m = int(elf.table("avifMatrixCoefficientsTableSize", "<i4", (1,))[0])
+    raw = elf.table("avifColorPrimariesTables", "u1", (48 * n,)).tobytes()
+    prim = {struct.unpack_from("<H", raw, 48 * i)[0]:
+            np.frombuffer(raw, "<f4", 8, 48 * i + 16) for i in range(n)}
+    raw = elf.table("matrixCoefficientsTables", "u1", (24 * m,)).tobytes()
+    mat = {struct.unpack_from("<H", raw, 24 * i)[0]:
+           tuple(np.frombuffer(raw, "<f4", 2, 24 * i + 16))
+           for i in range(m)}
+    return prim, mat
+
+
+def libavif_scale(planes, depth: int, subx: int, suby: int, width: int,
+                  height: int, alpha=None):
+    """libavif 1.4.2's ``avifImageScale`` (libyuv's ScalePlane,
+    ScalePlane_12 or ScalePlane_16, box filter) of the planes (and alpha)
+    to width x height → (planes, alpha); raises ValueError where it
+    fails."""
+    lib = _libavif()
+    lib.avifImageScale.argtypes = [ctypes.c_void_p, ctypes.c_uint32,
+                                   ctypes.c_uint32, ctypes.c_void_p]
+    img = libavif_image(planes, depth, subx, suby, alpha=alpha)
+    try:
+        diag = ctypes.create_string_buffer(1024)
+        res = lib.avifImageScale(img, width, height, ctypes.addressof(diag))
+        if res != 0:
+            raise ValueError(f"avifImageScale fails ({res})")
+        return _image_planes(img)
+    finally:
+        lib.avifImageDestroy(img)
+
+
+def libyuv_scale_plane(plane: np.ndarray, width: int, height: int,
+                       bits: int = 8, filtering: int = 3) -> np.ndarray:
+    """libyuv 1924's ``ScalePlane`` (bits 8), ``ScalePlane_12`` or
+    ``ScalePlane_16`` (uint16 samples) by symbol, filter mode 3 (box)
+    unless given."""
+    name = {8: "ScalePlane", 12: "ScalePlane_12", 16: "ScalePlane_16"}[bits]
+    fn = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int)(libavif_symbol(name))
+    dtype = np.uint8 if bits == 8 else np.uint16
+    src = np.ascontiguousarray(plane.astype(dtype))
+    dst = np.zeros((height, width), dtype)
+    fn(src.ctypes.data, src.shape[1], src.shape[1], src.shape[0],
+       dst.ctypes.data, width, width, height, filtering)
+    return dst
+
+
+# --------------------------------------- superres and delta LF by symbol
+
+
+def libaom_upscale_rows(src: np.ndarray, width: int, upscaled: int,
+                        denom: int, ss_x: int, depth: int, hbd: bool = True,
+                        tile_sbs=None, sb_log2: int = 4) -> np.ndarray:
+    """libaom's own ``av1_upscale_normative_rows`` (by symbol) on the rows
+    of a plane: ``src`` holds the plane's coded samples up to its 8-aligned
+    coded width, ``width`` and ``upscaled`` are the frame's luma widths,
+    ``tile_sbs`` the tile columns' widths in superblocks (one column by
+    default).  AV1_COMMON and SequenceHeader are laid out as libaom 3.14.1
+    reads them there (width at 0x38, superres_upscaled_width 0x48, the
+    denominator 0x50, mi_cols 0x218, seq_params 0x6088, tiles.cols 0x60a0,
+    tiles.col_start_sb 0x60dc; mib_size_log2 0x24, bit_depth 0x48,
+    use_highbitdepth 0x4c, subsampling_x 0x60): rows of ``upscaled``
+    samples (its plane's)."""
+    mi_cols = 2 * ((width + 7) >> 3)
+    sb_cols = (mi_cols + (1 << sb_log2) - 1) >> sb_log2
+    tile_sbs = tile_sbs or [sb_cols]
+    assert sum(tile_sbs) == sb_cols
+    cm = ctypes.create_string_buffer(0x7000)
+    seq = ctypes.create_string_buffer(0x100)
+    struct.pack_into("<i", cm, 0x38, width)
+    struct.pack_into("<i", cm, 0x48, upscaled)
+    struct.pack_into("<B", cm, 0x50, denom)
+    struct.pack_into("<i", cm, 0x218, mi_cols)
+    struct.pack_into("<Q", cm, 0x6088, ctypes.addressof(seq))
+    struct.pack_into("<i", cm, 0x60a0, len(tile_sbs))
+    starts = np.concatenate([[0], np.cumsum(tile_sbs)]).astype(np.int32)
+    struct.pack_into(f"<{len(starts)}i", cm, 0x60dc, *starts)
+    struct.pack_into("<i", seq, 0x24, sb_log2)
+    struct.pack_into("<I", seq, 0x48, depth)
+    struct.pack_into("<B", seq, 0x4c, int(hbd))
+    struct.pack_into("<i", seq, 0x60, ss_x)
+    rows, aligned = src.shape
+    uw = (upscaled + ss_x) >> ss_x
+    pad = 16
+    dt = np.uint16 if hbd else np.uint8
+    buf = np.zeros((rows, aligned + 2 * pad), dt)
+    buf[:, pad:pad + aligned] = src
+    dst = np.zeros((rows, uw + 2 * pad), dt)
+    sp = buf.ctypes.data + pad * buf.itemsize
+    dp = dst.ctypes.data + pad * dst.itemsize
+    if hbd:             # libaom's CONVERT_TO_BYTEPTR
+        sp, dp = sp >> 1, dp >> 1
+    libaom_function("av1_rtcd", None)()     # its run-time CPU dispatch
+    fn = libaom_function("av1_upscale_normative_rows", None, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int)
+    fn(ctypes.addressof(cm), sp, buf.shape[1], dp, dst.shape[1],
+       1 if ss_x else 0, rows)
+    return dst[:, pad:pad + uw].astype(np.uint16)
+
+
+def libaom_delta_lf(data: bytes, n: int, disable_update: bool = False):
+    """n reduced delta loop filter levels as libaom's own
+    ``read_delta_lflevel`` reads them (its ``.part.0``: the reader and the
+    CDF; by symbol), from an ``aom_reader_init`` reader over data with one
+    CDF at its default (``AOM_CDF4(28160, 32120, 32677)``, inverse form),
+    adapting unless ``disable_update``."""
+    reader = ctypes.create_string_buffer(256)
+    init = libaom_function("aom_reader_init", ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_char_p, ctypes.c_size_t)
+    assert init(ctypes.addressof(reader), data, len(data)) == 0
+    reader[0x38] = 0 if disable_update else 1     # allow_update_cdf
+    cdf = (ctypes.c_uint16 * 5)(32768 - 28160, 32768 - 32120, 32768 - 32677,
+                                0, 0)
+    fn = libaom_function("read_delta_lflevel.part.0", ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_void_p)
+    return [fn(ctypes.addressof(reader), ctypes.addressof(cdf))
+            for _ in range(n)]

@@ -27,6 +27,20 @@ segmentation, and Pillow's files with limited range, an ICC profile, a
 premultiplied alpha and an EXIF orientation: a quarter, a fifth, half the
 RGBA ones and a fifth of the stills); exits 1 on any mismatch.
 ``--keep DIR`` keeps each mismatching file there.
+
+With ``--libavif`` every file is instead one of the kinds of libavif's own
+path, its scaling and libaom's superres and delta loop filter
+(``random_libavif``): libaom's own encoder (``libaom_encode``, in a forked
+child, since the library can corrupt its heap) at 8, 10 or 12 bits in any
+chroma format with superres at a random denominator (9-16) in 70% of the
+files and ``deltaq-mode`` 2, 3 or 6 with ``deltalf-mode`` in half
+(delta_lf_multi set by hand in a tenth of those), tile columns, loop
+restoration, both usages, film grain in a tenth; cv2's and libavif's
+encoder's files with a hand-edited nclx (any matrix 0-20, primaries, range;
+libavif's 4:4:4 and 4:2:2 with an alpha, premultiplied or not); files
+whose frames libavif scales (an item's ispe, an alpha item's, a grid's
+tiles, a sequence's colour and alpha tkhd); and monochrome frames under a
+colour av1C.  Files the writer refuses or crashes on are counted apart.
 """
 
 import argparse
@@ -200,6 +214,166 @@ def random_grid(rng):
         h, w, kind, dict(opts, grid=(rows, cols, tw, th)))
 
 
+_SUB = {"420": (1, 1), "422": (1, 0), "444": (0, 0)}
+
+
+def _planes(img, depth, fmt, rng):
+    a = oracle.deepen(img, rng).astype(np.int64) >> (16 - depth)
+    sx, sy = _SUB[fmt]
+    return [a[..., 0], a[::1 + sy, ::1 + sx, 1], a[::1 + sy, ::1 + sx, 2]]
+
+
+def _forked(fn, *args, **kw):
+    """fn(*args, **kw) (bytes) in a forked child, or None where it fails or
+    the child dies."""
+    rfd, wfd = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(rfd)
+        try:
+            data = fn(*args, **kw)
+            with os.fdopen(wfd, "wb") as f:
+                f.write(data)
+            os._exit(0)
+        except BaseException:
+            os._exit(3)
+    os.close(wfd)
+    with os.fdopen(rfd, "rb") as f:
+        data = f.read()
+    _, status = os.waitpid(pid, 0)
+    return data if status == 0 else None
+
+
+def _scaled(data, rng):
+    """A one-item file again with a random ispe."""
+    obu, _ = oracle.item_parts(data)
+    w, h = (int(np.exp(rng.uniform(0, np.log(600)))) for _ in range(2))
+    props = [(oracle.ispe_box(w, h) if b[4:8] == b"ispe" else b, e)
+             for b, e in oracle.item_props(data, 1)]
+    return oracle.build_items([(1, b"av01", obu, props)], []), (w, h)
+
+
+def random_libavif(rng):
+    """(bytes or None where the writer failed, a description) of one file
+    of ``--libavif``'s kinds."""
+    h, w = (int(np.exp(rng.uniform(0, np.log(400)))) for _ in range(2))
+    img = oracle.avif_image(str(rng.choice(oracle.KINDS)), h, w, rng)
+    depth = int(rng.choice([8, 10, 12]))
+    fmt = str(rng.choice(["420", "422", "444"]))
+    pick = rng.random()
+    if pick < 0.45:                 # libaom: superres, delta loop filter
+        kw, ctl = {}, {"cq-level": int(rng.integers(0, 64)),
+                       "enable-restoration": int(rng.integers(0, 2))}
+        if rng.random() < 0.7:
+            d = int(rng.integers(9, 17))
+            kw["superres"] = (1, d, d)
+        if rng.random() < 0.5:
+            ctl.update({"deltaq-mode": int(rng.choice([2, 3, 6])),
+                        "deltalf-mode": 1})
+        # libaom's cpu-used 7 corrupts its own heap with deltalf-mode
+        ctl["cpu-used"] = int(rng.choice([4, 5, 6, 8, 9] if
+                                         "deltalf-mode" in ctl else
+                                         range(4, 10)))
+        if rng.random() < 0.3:
+            ctl["tile-columns"] = int(rng.integers(0, 3))
+        usage = int(rng.choice([0, 2]))
+        data = _forked(oracle.encoded_avif, _planes(img, depth, fmt, rng),
+                       depth, *_SUB[fmt], usage=usage, controls=ctl, **kw)
+        desc = dict(writer="libaom", depth=depth, fmt=fmt, usage=usage,
+                    **kw, **ctl)
+        if data is not None and rng.random() < 0.15:
+            stream, props = oracle.item_parts(data)
+            try:
+                info = image_io.decode_av1(stream)[1]
+            except RuntimeError:
+                info = None
+            if info is not None and info[42] and rng.random() < 0.6:
+                bit = 8 * info[23] + info[45] + 3     # delta_lf_multi
+                edit = bytearray(data)
+                edit[len(data) - len(stream) + bit // 8] |= \
+                    0x80 >> (bit % 8)
+                data, desc["multi"] = bytes(edit), True
+            elif info is not None:
+                g = oracle.grain_dict(oracle.grain_test_vectors()[
+                    int(rng.integers(0, 16))])
+                data = oracle.build_avif(oracle.with_grain(stream, g), props)
+                desc["grain"] = True
+        return data, (h, w, fmt, desc)
+    nclx = (int(rng.choice(list(range(0, 26)) + [int(rng.integers(
+        0, 65536))])) if rng.random() < 0.5 else 1, 13,
+        int(rng.integers(0, 21)), bool(rng.integers(0, 2)))
+    if pick < 0.7:                  # colr edits on cv2's and libavif's
+        alpha = None
+        if rng.random() < 0.5:
+            data = oracle.cv2_avif(img if depth == 8 else
+                                   oracle.deepen(img, rng) >> (16 - depth),
+                                   int(rng.integers(0, 101)),
+                                   None if depth == 8 else depth)
+        else:
+            data = oracle.libavif_encode(_planes(img, depth, fmt, rng),
+                                         depth, fmt, nclx[3])
+            if rng.random() < 0.4:
+                alpha = oracle.libavif_encode([rng.integers(
+                    0, 1 << depth, (h, w))], depth, "400")
+        data = oracle.with_colr(data, [oracle.nclx(*nclx)])
+        prem = False
+        if alpha is not None:
+            prem = bool(rng.integers(0, 2))
+            data = oracle.alpha_file(data, alpha, prem)
+        return data, (h, w, fmt, dict(writer="colr", nclx=nclx,
+                                      alpha=alpha is not None, prem=prem))
+    if pick < 0.9:                  # frames libavif scales
+        which = rng.random()
+        if which < 0.5:
+            data, size = _scaled(oracle.cv2_avif(
+                img if depth == 8 else oracle.deepen(img, rng) >>
+                (16 - depth), int(rng.integers(0, 101)),
+                None if depth == 8 else depth), rng)
+            return data, (h, w, fmt, dict(writer="scaled", ispe=size))
+        rgba = np.dstack([img, rng.integers(0, 256, (h, w)).astype(
+            np.uint8)])
+        prem = bool(rng.integers(0, 2))
+        if which < 0.75:
+            cobu, cprops, _, _ = oracle.alpha_parts(oracle.pillow_avif(
+                rgba, alpha_premultiplied=prem))
+            ah, aw = (int(np.exp(rng.uniform(0, np.log(300))))
+                      for _ in range(2))
+            _, _, aobu, aprops = oracle.alpha_parts(oracle.pillow_avif(
+                np.dstack([oracle.avif_image("photo", ah, aw, rng),
+                           rng.integers(0, 256, (ah, aw)).astype(np.uint8)
+                           ])))
+            aprops = [(b, e) for b, e in aprops if b[4:8] != b"ispe"]
+            if rng.random() < 0.8:
+                aprops.append((oracle.ispe_box(w, h), False))
+            refs = [(b"auxl", 2, [1])] + ([(b"prem", 1, [2])] if prem
+                                          else [])
+            return oracle.build_items([(1, b"av01", cobu, cprops),
+                                       (2, b"av01", aobu, aprops)], refs), \
+                (h, w, fmt, dict(writer="alpha_scaled", prem=prem,
+                                 alpha=(aw, ah)))
+        (samples, props, sw, sh, _), (asamples, aprops, *_) = \
+            oracle.sequence_parts(oracle.pillow_sequence(rgba))[:2]
+        tk = tuple(int(np.exp(rng.uniform(0, np.log(500))))
+                   for _ in range(2))
+        atk = tk if rng.random() < 0.7 else None
+        return oracle.build_sequence(
+            samples, props, sw, sh, tkhd_size=tk, alpha=(asamples, aprops),
+            alpha_tkhd_size=atk, prem_by=2 if prem else 0), \
+            (h, w, fmt, dict(writer="tkhd_scaled", tkhd=tk, alpha_tkhd=atk,
+                             prem=prem))
+    # a monochrome frame under a colour av1C
+    gray = img[..., 1]
+    data = bytearray(oracle.cv2_avif(
+        gray if depth == 8 else gray.astype(np.uint16) << (depth - 8),
+        int(rng.integers(0, 101)), None if depth == 8 else depth))
+    s, e = oracle.find_box(bytes(data), (b"meta", b"iprp", b"ipco"))
+    at = [bs for k, _, bs, _ in oracle.boxes(bytes(data), s + 8, e)
+          if k == b"av1C"][0]
+    data[at + 2] &= ~0x10
+    return oracle.with_colr(bytes(data), [oracle.nclx(*nclx)]), \
+        (h, w, "400", dict(writer="mono_frame", nclx=nclx, depth=depth))
+
+
 def tools(data: bytes):
     """decode_av1's info on a file's primary item, or its colour track's
     first sample."""
@@ -228,10 +402,14 @@ def main():
     p.add_argument("--keep", default=None)
     p.add_argument("--avis", action="store_true",
                    help="image sequences only")
+    p.add_argument("--libavif", action="store_true",
+                   help="libavif's own path, scaling, superres, delta LF")
     a = p.parse_args()
     rng = np.random.default_rng(a.seed)
     counts = dict(files=0, equal=0, both_refuse=0, not_yet=0, writer_fail=0,
-                  mismatch=0, cv2=0, pillow=0, grid=0, grain=0, palette=0,
+                  mismatch=0, cv2=0, pillow=0, libaom=0, colr=0, scaled=0,
+                  alpha_scaled=0, tkhd_scaled=0, mono_frame=0, superres=0,
+                  delta_lf=0, grid=0, grain=0, palette=0,
                   intrabc=0, restoration=0, segmentation=0, limited=0,
                   icc=0, premultiplied=0, exif=0, not_yet_kinds={})
     end = time.time() + a.seconds
@@ -239,7 +417,11 @@ def main():
         path = os.path.join(tmp, "sweep.avif")
         while time.time() < end:
             try:
-                if a.avis:
+                if a.libavif:
+                    data, desc = random_libavif(rng)
+                    if data is None:
+                        raise RuntimeError("the writer failed")
+                elif a.avis:
                     data, desc = random_sequence(rng)
                 else:
                     data, desc = random_grid(rng) if rng.random() < 0.1 \
@@ -253,7 +435,8 @@ def main():
             counts[desc[3]["writer"]] += 1
             counts["grid"] += "grid" in desc[3]
             grain = str(desc[3].get("advanced", {}))
-            counts["grain"] += "grain" in grain or "denoise" in grain
+            counts["grain"] += "grain" in grain or "denoise" in grain or \
+                bool(desc[3].get("grain"))
             counts["limited"] += desc[3].get("range") == "limited"
             counts["icc"] += bool(desc[3].get("icc"))
             counts["premultiplied"] += bool(desc[3].get(
@@ -284,6 +467,8 @@ def main():
                 counts["intrabc"] += info[21] > 0
                 counts["restoration"] += any(info[26:29])
                 counts["segmentation"] += info[31] > 0
+                counts["superres"] += info[40] != 8
+                counts["delta_lf"] += info[42] > 0
             else:
                 counts["mismatch"] += 1
                 keep(a.keep, data, counts)

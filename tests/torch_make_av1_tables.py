@@ -223,6 +223,8 @@ def check_in_library(elf: Elf, name: str, rows):
 
 # (first row, last row) of each table as the specification prints them
 SPEC_ROWS = {
+    "kUpscaleFilter": ([0, 0, 0, 128, 0, 0, 0, 0, 0, 0, -1, 128, 2, -1, 0, 0],
+                       None),
     "kKfYModeCdf": ([15588, 17027, 19338, 20218, 20682, 21110, 21825, 23244,
                      24189, 28165, 29093, 30466, 32768, 0],
                     [7618, 8288, 9859, 10509, 15386, 18657, 22903, 28776, 29180,
@@ -441,6 +443,10 @@ def collect(elf: Elf):
     # film grain: the specification's Gaussian_Sequence (libaom's ints)
     t["kGaussianSequence"] = ("int16_t", elf.table("gaussian_sequence",
                                                    "<i4", (2048,)))
+    # superres: the normative upscaling filter (the specification's
+    # Upscale_Filter), 64 phases of 8 taps
+    t["kUpscaleFilter"] = ("int16_t", elf.table(
+        "av1_resize_filter_normative", i16, (64, 8)))
     for name, (_, arr) in t.items():
         check_rows(name, arr)
     return t, nz

@@ -292,10 +292,39 @@ TIFF_COLOUR_CASES = [f"tiff_{kind}_{comp}.tif" for kind in ("ycbcr", "lab")
 TIFF_COMPRESSIONS = {"none": None, "lzw": "tiff_lzw",
                      "deflate": "tiff_adobe_deflate", "packbits": "packbits"}
 AVIF_CASES += AVIF_COLOUR_CASES
-# cv2 reads it; the port does not yet: a sequence's frame that libavif
-# scales to its track header's size, a matrix libavif converts on its own
-# path (SMPTE 240, 7)
-AVIF_UNPORTED = ["avis_tkhd_scaled.avif", "avif_smpte240.avif"]
+# the kinds of libavif's own path, its scaling and libaom's superres and
+# delta loop filter (generate_libavif): superres at 8, 10 and 12 bits
+# (4:2:0 with loop restoration, 4:4:4, 4:2:2) and in two tile columns,
+# the delta loop filter (alone and with superres), the matrices libavif
+# converts itself (SMPTE 240 as cv2 writes it and premultiplied, FCC,
+# YCgCo, 15, YCgCo-Re at 10 bits, chroma-derived NCL of SMPTE 431 and
+# EBU 3213 primaries, the identity matrix at limited range), a monochrome frame under a colour av1C (10 bits, limited range,
+# 12 bits with an alpha), frames libavif scales (an item up and down, at
+# 12 bits, a premultiplied alpha, grid tiles, a sequence's colour and
+# alpha tracks by their tkhd), a scalability metadata OBU
+AVIF_LIBAVIF_CASES = [
+    "avif_superres_d8.avif", "avif_superres_d10_444.avif",
+    "avif_superres_d12_422.avif", "avif_superres_tiles.avif",
+    "avif_deltalf.avif", "avif_deltalf_superres_d10.avif",
+    "avif_smpte240.avif", "avif_smpte240_prem_d10.avif", "avif_fcc.avif",
+    "avif_ycgco.avif", "avif_m15.avif", "avif_ycgco_re_d10.avif",
+    "avif_cdncl_p11.avif", "avif_cdncl_p22_limited.avif",
+    "avif_identity_limited.avif",
+    "avif_mono_frame_d10.avif", "avif_mono_frame_limited.avif",
+    "avif_mono_frame_alpha_d12.avif",
+    "avif_ispe_up.avif", "avif_ispe_down.avif", "avif_ispe_d12.avif",
+    "avif_alpha_scaled_prem.avif", "avif_grid_scaled.avif",
+    "avis_tkhd_scaled.avif", "avis_alpha_tkhd_scaled.avif",
+    "avif_scalability.avif"]
+AVIF_CASES += AVIF_LIBAVIF_CASES
+# libavif refuses an item built from another item (construction method 2);
+# libaom refuses avif_deltalf.avif with delta_lf_multi set by hand (its
+# encoder never sets it: the symbols then read by four filters' CDFs end
+# past the tile's trailing bit)
+AVIF_REFUSED += ["avif_iloc_method2.avif", "avif_deltalf_multi.avif"]
+# cv2 reads it; the port does not yet: an intra-only frame first, a hidden
+# key frame that a show_existing_frame header shows
+AVIF_UNPORTED = ["avif_intra_only.avif", "avif_hidden_key.avif"]
 CASES += AVIF_CASES + TIFF_COLOUR_CASES
 REFUSED += AVIF_REFUSED
 # full-size AVIF views for chip_smoke's decode seconds and the SHA-256 of
@@ -385,6 +414,25 @@ TIMING_TIFF = {
     "timing_lab_1297x840.tif": ("46fcaa9377609cad742ab103348d1f44"
                                 "b5ef269cdac9430ed87bcfa072686d75"),
 }
+# full-size views of this slice's kinds (generate_libavif): libaom's
+# superres (denominator 12, loop restoration) and delta loop filter
+# (deltaq-mode 3) of TIMING, cv2's default file of it with a YCgCo nclx
+# (libavif's own path, its bilinear chroma), and cv2's file of TIMING at
+# 1040x672 under an ispe of 1297x840 (libavif scales it)
+LIBAVIF_TIMING = ("timing_superres_1297x840.avif",
+                  "timing_deltalf_1297x840.avif",
+                  "timing_ycgco_1297x840.avif",
+                  "timing_scaled_1297x840.avif")
+TIMING_AVIF.update({
+    "timing_superres_1297x840.avif": ("7b5f5755701e0cb899f9af83b2b5cda1"
+                                      "adbef4075a4a763a57f92191ddb0947e"),
+    "timing_deltalf_1297x840.avif": ("e75e1f0d1ac5077244b145a92be32511"
+                                     "4fb97f083dad6498ebb4a9cae4850f02"),
+    "timing_ycgco_1297x840.avif": ("f0bf2b82f569b4520ceb447ebcd17b84"
+                                   "f64dc6ec5a5fc3b83980f7daeba888ae"),
+    "timing_scaled_1297x840.avif": ("9384b685b395e7a94c945d2c20fefe87"
+                                    "154ce5b8cf5d9ec85d7d98b9442682a3"),
+})
 # cv2's default AVIF copies of make_synth_scene --preset mid's 24 views
 AVIF_MID = "avif_mid"
 # Pillow's copies of the same views with film grain: views 0-15 libaom's
@@ -407,6 +455,12 @@ AVIF_MID_AVIS = "avif_mid_avis"
 # and 6, limited range, RGBA with COLOUR_ALPHA premultiplied
 AVIF_MID_COLOUR = "avif_mid_colour"
 COLOUR_MID_KINDS = ("icc", "exif2", "exif3", "exif6", "limited", "prem")
+# copies of the same views in this slice's kinds, in turn by view
+# (libavif_mid_file): libaom's superres (denominators 9-16), its delta
+# loop filter, cv2's default file with an nclx libavif converts itself
+# (SMPTE 240, YCgCo, FCC in turn)
+AVIF_MID_LIBAVIF = "avif_mid_libavif"
+LIBAVIF_MID_KINDS = ("superres", "deltalf", "libavif")
 
 
 def colour_alpha(h: int, w: int) -> np.ndarray:
@@ -1218,6 +1272,235 @@ def generate_colour(folder: str = FOLDER, mid_scene: str | None = None
             save(os.path.join(AVIF_MID_COLOUR, name[:-4] + ".avif"),
                  colour_file(bgr, COLOUR_MID_KINDS[k % len(
                      COLOUR_MID_KINDS)]))
+    return shas
+
+
+def yuv_planes(bgr: np.ndarray, matrix: int) -> list:
+    """8-bit full-range 4:2:0 planes of a BGR image in matrix coefficients
+    6 (BT.601), 7 (SMPTE 240), 4 (FCC) or 8 (YCgCo), for libaom_encode
+    (chroma the mean of each 2x2 block, rounded)."""
+    b, g, r = (bgr[..., k].astype(np.float64) for k in range(3))
+    if matrix == 8:
+        y = r / 4 + g / 2 + b / 4
+        u = -r / 4 + g / 2 - b / 4 + 128
+        v = r / 2 - b / 2 + 128
+    else:
+        kr, kb = {6: (0.299, 0.114), 7: (0.212, 0.087),
+                  4: (0.30, 0.11)}[matrix]
+        y = kr * r + (1 - kr - kb) * g + kb * b
+        u = (b - y) / (2 * (1 - kb)) + 128
+        v = (r - y) / (2 * (1 - kr)) + 128
+    h, w = y.shape
+
+    def sub(c):
+        c = np.pad(c, ((0, h % 2), (0, w % 2)), mode="edge")
+        return (c[0::2, 0::2] + c[0::2, 1::2] + c[1::2, 0::2] +
+                c[1::2, 1::2]) / 4
+    return [np.clip(np.rint(a), 0, 255).astype(np.int64)
+            for a in (y, sub(u), sub(v))]
+
+
+def libavif_mid_file(bgr: np.ndarray, k: int) -> bytes:
+    """View k of AVIF_MID_LIBAVIF: LIBAVIF_MID_KINDS in turn."""
+    import torch_avif_oracles as oracle
+
+    kind = LIBAVIF_MID_KINDS[k % len(LIBAVIF_MID_KINDS)]
+    if kind == "libavif":
+        matrix = (7, 8, 4)[(k // 3) % 3]
+        return oracle.encoded_avif(yuv_planes(bgr, matrix), 8, 1, 1,
+                                   controls={"cq-level": 20},
+                                   colr=oracle.nclx(1, 13, matrix, True))
+    planes = yuv_planes(bgr, 6)
+    if kind == "superres":
+        d = 9 + (k // 3) % 8
+        return oracle.encoded_avif(planes, 8, 1, 1, superres=(1, d, d),
+                                   controls={"cq-level": 20,
+                                             "enable-restoration": 1})
+    return oracle.encoded_avif(planes, 8, 1, 1, controls={
+        "cq-level": 20, "deltaq-mode": 3, "deltalf-mode": 1})
+
+
+def generate_libavif(folder: str = FOLDER, mid_scene: str | None = None
+                     ) -> dict:
+    """This slice's fixtures: AVIF_LIBAVIF_CASES (but avif_smpte240.avif
+    and avis_tkhd_scaled.avif, which generate_colour and generate_avis
+    write), avif_iloc_method2.avif, AVIF_UNPORTED, LIBAVIF_TIMING's views
+    (and, given the folder of make_synth_scene --preset mid,
+    AVIF_MID_LIBAVIF's views); returns the SHA-256s of cv2's decodes of
+    the timing views."""
+    import hashlib
+
+    import cv2
+
+    import torch_avif_oracles as oracle
+    from gsplat_tpu_torch.utils.image_io import decode_av1
+
+    p = lambda name: os.path.join(folder, name)       # noqa: E731
+
+    def save(name, data):
+        with open(p(name), "wb") as f:
+            f.write(data)
+    rng = np.random.default_rng(41)
+    photo = oracle.avif_image("photo", 100, 150, rng)
+    sub = {"420": (1, 1), "422": (1, 0), "444": (0, 0)}
+
+    def planes(img, depth, fmt):
+        a = oracle.deepen(img, rng).astype(np.int64) >> (16 - depth)
+        sx, sy = sub[fmt]
+        return [a[..., 0], a[::1 + sy, ::1 + sx, 1], a[::1 + sy, ::1 + sx, 2]]
+    # superres and the delta loop filter (libaom's own encoder)
+    for name, depth, fmt, denom in (("avif_superres_d8.avif", 8, "420", 13),
+                                    ("avif_superres_d10_444.avif", 10,
+                                     "444", 9),
+                                    ("avif_superres_d12_422.avif", 12,
+                                     "422", 16)):
+        save(name, oracle.encoded_avif(
+            planes(photo, depth, fmt), depth, *sub[fmt],
+            superres=(1, denom, denom),
+            controls={"enable-restoration": 1, "cq-level": 24}))
+    wide = oracle.avif_image("photo", 64, 520, rng)
+    save("avif_superres_tiles.avif", oracle.encoded_avif(
+        yuv_planes(wide, 6), 8, 1, 1, superres=(1, 12, 12),
+        controls={"enable-restoration": 1, "tile-columns": 1,
+                  "cq-level": 30}))
+    big = oracle.avif_image("photo", 160, 300, rng)
+    deltalf = oracle.encoded_avif(yuv_planes(big, 6), 8, 1, 1, controls={
+        "deltaq-mode": 3, "deltalf-mode": 1, "cq-level": 40})
+    save("avif_deltalf.avif", deltalf)
+    stream, _ = oracle.item_parts(deltalf)
+    info = decode_av1(stream)[1]
+    bit = 8 * info[23] + info[45] + 3          # delta_lf_multi
+    edit = bytearray(deltalf)
+    at = len(deltalf) - len(stream) + bit // 8
+    edit[at] |= 0x80 >> (bit % 8)
+    save("avif_deltalf_multi.avif", bytes(edit))
+    save("avif_deltalf_superres_d10.avif", oracle.encoded_avif(
+        planes(big, 10, "420"), 10, 1, 1, superres=(1, 11, 11), controls={
+            "deltaq-mode": 3, "deltalf-mode": 1, "cq-level": 40}))
+    # libavif's own conversion
+    cv2_file = oracle.cv2_avif(oracle.avif_image("photo", 48, 64, rng))
+    for name, nclx in (("avif_fcc.avif", (1, 13, 4, True)),
+                       ("avif_ycgco.avif", (1, 13, 8, True)),
+                       ("avif_m15.avif", (1, 13, 15, True)),
+                       ("avif_cdncl_p11.avif", (11, 13, 12, True)),
+                       ("avif_cdncl_p22_limited.avif", (22, 13, 12, False))):
+        save(name, oracle.with_colr(cv2_file, [oracle.nclx(*nclx)]))
+    deep = oracle.deepen(photo, rng)
+    yuv = deep.astype(np.int64) >> 6
+    save("avif_ycgco_re_d10.avif", oracle.with_colr(oracle.libavif_encode(
+        [yuv[..., 0] >> 2, yuv[..., 1], yuv[..., 2]], 10, "444"),
+        [oracle.nclx(1, 13, 16, True)]))
+    save("avif_identity_limited.avif", oracle.with_colr(
+        oracle.libavif_encode([yuv[..., 0], yuv[..., 1], yuv[..., 2]], 10,
+                              "444", False), [oracle.nclx(1, 13, 0, False)]))
+    colour = oracle.with_colr(oracle.libavif_encode(
+        [yuv[..., 0], yuv[::2, ::2, 1], yuv[::2, ::2, 2]], 10, "420"),
+        [oracle.nclx(1, 13, 7, True)])
+    alpha = oracle.libavif_encode([rng.integers(0, 1024, photo.shape[:2])],
+                                  10, "400")
+    save("avif_smpte240_prem_d10.avif", oracle.alpha_file(colour, alpha,
+                                                          True))
+    # a monochrome frame under a colour av1C
+    gray = photo[..., 1]
+
+    def colour_av1c(data: bytes) -> bytes:
+        s, e = oracle.find_box(data, (b"meta", b"iprp", b"ipco"))
+        at = [bs for k, _, bs, _ in oracle.boxes(data, s + 8, e)
+              if k == b"av1C"][0]
+        d = bytearray(data)
+        d[at + 2] &= ~0x10
+        return bytes(d)
+    save("avif_mono_frame_d10.avif", colour_av1c(oracle.cv2_avif(
+        gray.astype(np.uint16) << 2, 60, 10)))
+    save("avif_mono_frame_limited.avif", oracle.with_colr(colour_av1c(
+        oracle.cv2_avif(gray, 60)), [oracle.nclx(1, 13, 6, False)]))
+    g12 = oracle.libavif_encode([gray.astype(np.int64) << 4], 12, "400")
+    a12 = oracle.libavif_encode([rng.integers(0, 4096, gray.shape)], 12,
+                                "400")
+    keep = [(b, e) for b, e in oracle.item_props(g12, 1)
+            if b[4:8] not in (b"av1C", b"colr")]
+    aprops = [(b, e) for b, e in oracle.item_props(a12, 1)
+              if b[4:8] != b"colr"] + [(oracle.ALPHA_AUXC, False)]
+    save("avif_mono_frame_alpha_d12.avif", oracle.build_items(
+        [(1, b"av01", oracle.item_parts(g12)[0],
+          keep + [(oracle.av1c_box(12, 1, 1), True),
+                  (oracle.nclx(1, 13, 1, True), False)]),
+         (2, b"av01", oracle.item_parts(a12)[0], aprops)],
+        [(b"auxl", 2, [1]), (b"prem", 1, [2])]))
+    # frames libavif scales
+
+    def with_ispe(data, w, h):
+        obu, _ = oracle.item_parts(data)
+        props = [(oracle.ispe_box(w, h) if b[4:8] == b"ispe" else b, e)
+                 for b, e in oracle.item_props(data, 1)]
+        return oracle.build_items([(1, b"av01", obu, props)], [])
+    small = oracle.avif_image("photo", 48, 64, rng)
+    save("avif_ispe_up.avif", with_ispe(oracle.cv2_avif(small), 100, 75))
+    save("avif_ispe_down.avif", with_ispe(oracle.cv2_avif(small), 24, 18))
+    save("avif_ispe_d12.avif", with_ispe(oracle.cv2_avif(
+        oracle.deepen(small, rng) >> 4, 60, 12), 90, 40))
+    rgba = np.dstack([small, rng.integers(0, 256, (48, 64)).astype(
+        np.uint8)])
+    cobu, cprops, _, aprops = oracle.alpha_parts(oracle.pillow_avif(
+        rgba, alpha_premultiplied=True))
+    tiny = np.dstack([small[::2, ::2], rng.integers(
+        0, 256, (24, 32)).astype(np.uint8)])
+    aobu = oracle.alpha_parts(oracle.pillow_avif(tiny))[2]
+    save("avif_alpha_scaled_prem.avif", oracle.build_items(
+        [(1, b"av01", cobu, cprops), (2, b"av01", aobu, aprops)],
+        [(b"auxl", 2, [1]), (b"prem", 1, [2])]))
+    tiles = [oracle.tile_item(oracle.cv2_avif(t)) for t in oracle.split_tiles(
+        oracle.avif_image("photo", 64, 96, rng), 2, 3, 32, 32)]
+    tiles = [(obu, [(oracle.ispe_box(64, 64) if b[4:8] == b"ispe" else b, e)
+                    for b, e in props]) for obu, props in tiles]
+    save("avif_grid_scaled.avif", oracle.grid_avif(tiles, 2, 3, 192, 128))
+    seq = oracle.pillow_sequence(rgba)
+    (samples, props, w, h, _), (asamples, aprops2, *_) = \
+        oracle.sequence_parts(seq)[:2]
+    save("avis_alpha_tkhd_scaled.avif", oracle.build_sequence(
+        samples, props, w, h, tkhd_size=(96, 72), alpha=(asamples, aprops2),
+        alpha_tkhd_size=(96, 72), prem_by=2))
+    # the container and stream kinds
+    obu, props = oracle.item_parts(cv2_file)
+    parts = [oracle.obu(t, p) for t, _, p in oracle.obus(obu)]
+    bits = "00001110" + "01" + "100" + "000" + "0000000010000000" * 4 + "1"
+    bits += "0" * (-len(bits) % 8)
+    meta = oracle.obu(5, bytes([3]) + int(bits, 2).to_bytes(len(bits) // 8,
+                                                             "big"))
+    save("avif_scalability.avif", oracle.build_avif(
+        b"".join(parts[:2]) + meta + b"".join(parts[2:]), props))
+    method = bytearray(oracle.build_avif(obu, props, iloc_version=1))
+    method[method.find(b"iloc") + 15] = 2
+    save("avif_iloc_method2.avif", bytes(method))
+    still, sprops = oracle.item_parts(oracle.cv2_avif(
+        oracle.avif_image("photo", 96, 128, rng)))
+    for kind in ("intra_only", "hidden_key"):
+        save(f"avif_{kind}.avif", oracle.build_avif(
+            oracle.frame_of_kind(still, kind), sprops))
+    # the full-size views
+    view = cv2.imread(p(TIMING))
+    save("timing_superres_1297x840.avif", oracle.encoded_avif(
+        yuv_planes(view, 6), 8, 1, 1, superres=(1, 12, 12),
+        controls={"enable-restoration": 1, "cq-level": 28}))
+    save("timing_deltalf_1297x840.avif", oracle.encoded_avif(
+        yuv_planes(view, 6), 8, 1, 1, controls={
+            "deltaq-mode": 3, "deltalf-mode": 1, "cq-level": 28}))
+    save("timing_ycgco_1297x840.avif", oracle.encoded_avif(
+        yuv_planes(view, 8), 8, 1, 1, controls={"cq-level": 28},
+        colr=oracle.nclx(1, 13, 8, True)))
+    save("timing_scaled_1297x840.avif", with_ispe(oracle.cv2_avif(
+        cv2.resize(view, (1040, 672), interpolation=cv2.INTER_AREA)),
+        1297, 840))
+    shas = {}
+    for name in LIBAVIF_TIMING:
+        dec = np.ascontiguousarray(cv2.imread(p(name))[..., ::-1])
+        shas[name] = hashlib.sha256(dec.tobytes()).hexdigest()
+    if mid_scene is not None:
+        src = os.path.join(mid_scene, "images_4")
+        os.makedirs(p(AVIF_MID_LIBAVIF), exist_ok=True)
+        for k, name in enumerate(sorted(os.listdir(src))):
+            save(os.path.join(AVIF_MID_LIBAVIF, name[:-4] + ".avif"),
+                 libavif_mid_file(cv2.imread(os.path.join(src, name)), k))
     return shas
 
 
@@ -2716,6 +2999,15 @@ if __name__ == "__main__":
         _write_wants(AVIF_COLOUR_CASES + TIFF_COLOUR_CASES)
         _check_cv2_refuses()
         print(f"colour SHA-256s for TIMING_AVIF and TIMING_TIFF = {shas!r}")
+        sys.exit(0)
+    if sys.argv[1:2] == ["--libavif"]:      # superres, delta LF,
+        shas = generate_libavif(            # libavif's own path and
+            mid_scene=(sys.argv[2:] or [None])[0])   # scaling; --libavif
+        _write_wants(AVIF_LIBAVIF_CASES)    # SCENE also the mid views
+        _check_cv2_refuses()
+        print(f"libavif SHA-256s for TIMING_AVIF = {shas!r}")
+        result = check()
+        print({k: v for k, v in result.items() if not v})
         sys.exit(0)
     if sys.argv[1:] == ["--webp"]:          # the WebP fixtures alone
         sha = generate_webp()
