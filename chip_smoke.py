@@ -111,10 +111,11 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   its views, from Pillow's screen-content 4:2:2 RGBA copies and from
   Pillow's film grain copies, image sequences and colour kinds, and from
   copies in libaom's superres and delta loop filter and in the matrices
-  libavif converts on its own path (the views of those kinds and of a
-  frame libavif scales decoded to cv2's SHA-256 too, each shown using its
-  tool), each AVIF leg's last l1 within the JPEG leg's bound of the PNG
-  leg's.
+  libavif converts on its own path, and from libaom's key-frame-plus-inter
+  copies (the views of those kinds, of a frame libavif scales and of a
+  key frame then an inter frame decoded to cv2's SHA-256 too, each shown
+  using its tool), each AVIF leg's last l1 within the JPEG leg's bound of
+  the PNG leg's.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -1612,14 +1613,14 @@ def at_scale_path(rz, dev):
         png_leg, tiff_leg, webp_leg, jp2_leg, gif_leg = image_formats_path(
             rz, scene, root)
         mid_png_leg, avif_leg, avif_screen_leg, avif_grain_leg, \
-            avif_avis_leg, avif_colour_leg, avif_libavif_leg = \
-            avif_path(rz, root)
+            avif_avis_leg, avif_colour_leg, avif_libavif_leg, \
+            avif_inter_leg = avif_path(rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
             gif_leg, mid_png_leg, avif_leg, avif_screen_leg,
             avif_grain_leg, avif_avis_leg, avif_colour_leg,
-            avif_libavif_leg), scale_rows
+            avif_libavif_leg, avif_inter_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -2204,7 +2205,8 @@ def image_formats_path(rz, scene, root):
 # orientation 6 (irot), and cv2's default file with a BT.709 limited nclx;
 # libaom's superres (denominator 12) and delta loop filter files of it,
 # one in YCgCo (libavif's own path) and cv2's file of it at 1040x672 under
-# an ispe of 1297x840 (libavif scales it: LIBAVIF_TOOLS)
+# an ispe of 1297x840 (libavif scales it: LIBAVIF_TOOLS); libaom's
+# key frame of it translated, then an inter frame of it (INTER_TOOLS)
 AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_d12_1297x840.avif", "timing_lossless_320x208.avif",
               "timing_screen_1297x840.avif", "timing_422_1297x840.avif",
@@ -2217,7 +2219,7 @@ AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_irot_1297x840.avif", "timing_bt709_1297x840.avif",
               "timing_superres_1297x840.avif",
               "timing_deltalf_1297x840.avif", "timing_ycgco_1297x840.avif",
-              "timing_scaled_1297x840.avif")
+              "timing_scaled_1297x840.avif", "timing_inter_1297x840.avif")
 AVIF_REPS = 3
 # the view whose palette and intra block copy blocks the phase counts
 AVIF_SCREEN_VIEW = "timing_screen_1297x840.avif"
@@ -2253,6 +2255,15 @@ LIBAVIF_TOOLS = {
 }
 
 
+# each view of the inter slice's kinds and what its decode must count above
+# 0 (decode_av1's counters of the whole data): frames decoded, inter blocks
+# (of any MV mode), NEWMV blocks
+INTER_TOOLS = {
+    "timing_inter_1297x840.avif": ("frames_after_the_first", "inter_blocks",
+                                   "newmv_blocks"),
+}
+
+
 def avif_path(rz, root):
     """AVIF scenes on the card: (a) every committed AVIF view
     (torch_make_image_fixtures.TIMING_AVIF: cv2's default, 10-bit, 12-bit
@@ -2276,15 +2287,17 @@ def avif_path(rz, root):
     the committed AVIF_MID_COLOUR views (Pillow's ICC profile, EXIF
     orientations 2, 3 and 6, limited range and premultiplied RGBA in turn)
     and the committed AVIF_MID_LIBAVIF views (libaom's superres, its delta
-    loop filter, the matrices libavif converts itself, in turn); each
-    view's mean |AVIF - PNG|; (c) run_garden_7k over iterations
+    loop filter, the matrices libavif converts itself, in turn) and the
+    committed AVIF_MID_INTER views (libaom's key frame of the view
+    translated, then an inter frame of it); each view's mean |AVIF - PNG|; (c) run_garden_7k over iterations
     0..JPEG_ITERS - 1 of the RGB schedule from the PNG scene and from each
     AVIF scene, each AVIF leg's last logged l1 within d + JPEG_L1_DRIFT ·
     l1_png of the PNG leg's (d the largest per-view mean |AVIF - PNG| of its
     views, the JPEG and GIF legs' rule), every leg's it/s.  → (the PNG
     leg's launches, the cv2 AVIF leg's, the screen AVIF leg's, the grain
-    AVIF leg's, the avis leg's, the colour leg's, the libavif leg's).
-    LIBAVIF_TOOLS' views are shown using their tools."""
+    AVIF leg's, the avis leg's, the colour leg's, the libavif leg's, the
+    inter leg's).  LIBAVIF_TOOLS' and INTER_TOOLS' views are shown using
+    their tools."""
     import hashlib
 
     import torch
@@ -2383,6 +2396,23 @@ def avif_path(rz, root):
         print(f"  {name}: {json.dumps(tools)}", flush=True)
         check(all(tools[k] > 0 for k in needs),
               f"{name}: the decode used none of some of {needs}: {tools}")
+    for name, needs in INTER_TOOLS.items():
+        with open(os.path.join(fx.FOLDER, name), "rb") as f:
+            heif = image_io._Heif(f.read(), name)
+        heif.parse()
+        info = image_io.decode_av1(heif.primary_item()[0])[1]
+        tools = dict(frames_after_the_first=info[46] - 1,
+                     intra_only_frames=info[47], show_existing=info[48],
+                     inter_blocks=sum(info[49:53]),
+                     blocks_by_mode=dict(zip(
+                         ("nearestmv", "nearmv", "globalmv", "newmv"),
+                         info[49:53])), newmv_blocks=info[52],
+                     blocks_by_filters=dict(zip(
+                         ("regular", "smooth", "sharp", "bilinear", "dual"),
+                         info[53:58])))
+        print(f"  {name}: {json.dumps(tools)}", flush=True)
+        check(all(tools[k] > 0 for k in needs),
+              f"{name}: the decode used none of some of {needs}: {tools}")
     # (b) the mid scene, from PNG and from the committed AVIFs
     scene = os.path.join(root, "mid")
     preset = make_synth_scene.PRESETS["mid"]
@@ -2402,7 +2432,8 @@ def avif_path(rz, root):
                          ("avif_grain", fx.AVIF_MID_GRAIN),
                          ("avif_avis", fx.AVIF_MID_AVIS),
                          ("avif_colour", fx.AVIF_MID_COLOUR),
-                         ("avif_libavif", fx.AVIF_MID_LIBAVIF)):
+                         ("avif_libavif", fx.AVIF_MID_LIBAVIF),
+                         ("avif_inter", fx.AVIF_MID_INTER)):
         sc, images, _ = _format_scene(scene, root, f"scene_{kind}", ".avif")
         committed = os.path.join(fx.FOLDER, folder)
         avifs = sorted(os.listdir(committed))
@@ -2449,7 +2480,7 @@ def avif_path(rz, root):
     png = l1_by_iteration(runs["png"][2])
     ps = runs["png"][0]
     for kind in ("avif", "avif_screen", "avif_grain", "avif_avis",
-                 "avif_colour", "avif_libavif"):
+                 "avif_colour", "avif_libavif", "avif_inter"):
         l1 = l1_by_iteration(runs[kind][2])
         check(len(l1) >= JPEG_ITERS // 50 and
               all(np.isfinite(list(l1.values()))),
@@ -2473,7 +2504,8 @@ def avif_path(rz, root):
           flush=True)
     return runs["png"][1], runs["avif"][1], runs["avif_screen"][1], \
         runs["avif_grain"][1], runs["avif_avis"][1], \
-        runs["avif_colour"][1], runs["avif_libavif"][1]
+        runs["avif_colour"][1], runs["avif_libavif"][1], \
+        runs["avif_inter"][1]
 
 
 def finite(x):
@@ -3810,7 +3842,8 @@ def main() -> int:
     (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg, at_scale_png,
      at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif, mid_png,
      mid_avif, mid_avif_screen, mid_avif_grain, mid_avif_avis,
-     mid_avif_colour, mid_avif_libavif), scale_rows = at_scale_path(rz, dev)
+     mid_avif_colour, mid_avif_libavif, mid_avif_inter), \
+        scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -3864,6 +3897,7 @@ def main() -> int:
              "mid AVIF avis run": mid_avif_avis,
              "mid AVIF colour run": mid_avif_colour,
              "mid AVIF libavif run": mid_avif_libavif,
+             "mid AVIF inter run": mid_avif_inter,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

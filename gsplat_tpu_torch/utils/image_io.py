@@ -2917,6 +2917,8 @@ def _load_avif_codec():
     lib.av1_lr_wiener.restype = lib.av1_lr_sgr.restype = None
     lib.av1_lr_wiener.argtypes = [vp, i, vp, i, i, i, vp, i]
     lib.av1_lr_sgr.argtypes = [vp, i, vp, i, i, i, i, vp, i]
+    lib.av1_inter_convolve.restype = None
+    lib.av1_inter_convolve.argtypes = [vp, i, vp, i, i, i, i, i, i, i, i]
     return lib
 
 
@@ -4439,8 +4441,12 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
     none) and the coded width (the width above is the upscaled frame's),
     whether the delta loop filter is present and multi, the blocks with a
     nonzero delta and the frame header's bit of delta_lf_present (-1
-    without delta q).  With ``grain`` False the planes are the frame
-    before its film grain."""
+    without delta q); then the counters of the whole data: frames decoded,
+    intra-only frames, show_existing_frame headers, inter blocks by mode
+    (NEARESTMV, NEARMV, GLOBALMV, NEWMV) and by interpolation filters (both
+    regular, smooth, sharp, bilinear, or two different ones).  The fields
+    before those counters describe the last frame decoded.  With ``grain``
+    False the planes are the frame before its film grain."""
     import ctypes
 
     lib = _load_avif_codec()
@@ -4455,7 +4461,7 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
                                f"does)")
         raise RuntimeError(f"{path}: AV1 data cv2 does not read: {msg}")
     try:
-        info = (ctypes.c_longlong * 46)()
+        info = (ctypes.c_longlong * 58)()
         lib.av1_info(handle, info)
         info = list(info)
         width, height, _, subx, suby, mono = info[:6]
@@ -4674,12 +4680,16 @@ def read_avif(path) -> np.ndarray:
     ``libavif_builtin_rgb``); superres and the delta loop filter; frames
     libavif scales to their item's ispe or their track's tkhd
     (``avif_scale``: libyuv's box filter), alphas too; a monochrome frame
-    under a colour av1C at any depth and range; scalability metadata.
-    Raises ``RuntimeError`` naming the file where cv2 returns None
-    (OpenCV's own 500-byte signature test included; an iloc construction
-    method 2), and naming the kind for what the port does not read yet
-    (frames other than a shown key frame first: an intra-only frame, a
-    hidden key frame, inter frames)."""
+    under a colour av1C at any depth and range; scalability metadata;
+    several frames (libaom outputs the last one shown): intra-only
+    frames, hidden key and inter frames that a show_existing_frame header
+    shows, inter frames predicted from single references.  Raises
+    ``RuntimeError`` naming the file where cv2 returns None (OpenCV's own
+    500-byte signature test included; an iloc construction method 2), and
+    naming the tool for what the port does not read yet (compound
+    prediction, skip mode, inter-intra, OBMC, local warped motion,
+    non-identity global motion, motion-field projection, references of
+    another size or with superres, switch frames)."""
     with open(path, "rb") as f:
         data = f.read()
     return _decode_avif_bytes(data, path)
@@ -4698,11 +4708,11 @@ def read_image(fn: str) -> np.ndarray:
     chroma format, the screen content tools, film grain and the alpha item
     that cv2's and Pillow's writers make, grids and image sequences, every
     colour and orientation option of Pillow's, superres and the delta loop
-    filter, every matrix libavif converts, frames it scales;
-    ``read_avif``).  A kind of AVIF the port does not read yet (frames
-    other than a shown key frame first, as ``read_avif`` lists) raises
-    ``RuntimeError`` naming the file and the kind; any other file raises
-    naming the file."""
+    filter, every matrix libavif converts, frames it scales, intra-only,
+    hidden and single-reference inter frames; ``read_avif``).  A kind of
+    AVIF the port does not read yet (the inter tools ``read_avif`` lists)
+    raises ``RuntimeError`` naming the file and the tool; any other file
+    raises naming the file."""
     with open(fn, "rb") as f:
         head = f.read(512)
     if head.startswith(PNG_SIGNATURE):

@@ -337,8 +337,9 @@ def test_last_shown_frame_is_the_image(cv2, tmp_path, layout):
 def test_inter_frame_after_the_key_frame_is_not_read_yet(cv2, pil,
                                                          tmp_path):
     # Pillow's second sample is an inter frame: in the first sample's data
-    # libaom decodes it on the key frame; the port does not decode inter
-    # frames
+    # libaom decodes it on the key frame; the port reads single-reference
+    # inter frames, but Pillow's (libaom's defaults) project the motion
+    # field (use_ref_frame_mvs), which it does not read yet
     img = oracle.avif_image("photo", 96, 128, np.random.default_rng(3))
     samples, props, w, h, _ = oracle.sequence_parts(
         oracle.pillow_sequence(img))[0]
@@ -347,8 +348,8 @@ def test_inter_frame_after_the_key_frame_is_not_read_yet(cv2, pil,
     path.write_bytes(oracle.build_sequence([samples[0] + inter, samples[1]],
                                            props, w, h))
     assert cv2.imread(str(path)) is not None
-    with pytest.raises(RuntimeError, match="inter.avif.*inter frame.*not "
-                                           "read yet"):
+    with pytest.raises(RuntimeError, match="inter.avif.*motion-field "
+                                           "projection.*not read yet"):
         read_avif(str(path))
 
 

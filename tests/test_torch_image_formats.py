@@ -426,10 +426,19 @@ def test_pnm_writer_matches_cv2_bytes(cv2, tmp_path, ext):
 
 
 # kinds of a format cv2 reads that the port does not yet: extension ->
-# (the kind as the port names it, Pillow's save options, the edit the file
-# is written again with: its frame made an intra-only frame, an AV1 frame
-# other than a shown key frame first)
-_UNPORTED = {"avif": (r"with an intra-only frame", dict(), "intra_only")}
+# (the kind as the port names it, the edit of the two-frame sequence Pillow
+# writes: its first sample made to hold both frames, libaom decoding the
+# second, an inter frame projecting the motion field, as the image)
+def _both_frames(data: bytes) -> bytes:
+    import torch_avif_oracles as oracle
+
+    samples, props, w, h, _ = oracle.sequence_parts(data)[0]
+    inter = oracle.obu(6, oracle.obus(samples[1])[-1][2])
+    return oracle.build_sequence([samples[0] + inter, samples[1]], props, w,
+                                 h)
+
+
+_UNPORTED = {"avif": (r"with motion-field projection", _both_frames)}
 
 
 @pytest.mark.parametrize("ext", list(_UNPORTED))
@@ -437,16 +446,14 @@ def test_unported_formats_raise_naming_the_format(cv2, tmp_path, ext):
     # a file Pillow writes, edited, and cv2 reads: the port says it does
     # not read the kind yet
     pytest.importorskip("PIL.AvifImagePlugin")
-    import torch_avif_oracles as oracle
     from PIL import Image
 
-    kind, opts, frame = _UNPORTED[ext]
+    kind, edit = _UNPORTED[ext]
     path = tmp_path / f"view.{ext}"
     img = fx.fixture_image(12, 16, seed=1)
-    Image.fromarray(img).save(str(path), **opts)
-    obu, props = oracle.item_parts(path.read_bytes())
-    path.write_bytes(oracle.build_avif(oracle.frame_of_kind(obu, frame),
-                                       props))
+    frames = [Image.fromarray(img), Image.fromarray(img[::-1].copy())]
+    frames[0].save(str(path), save_all=True, append_images=frames[1:])
+    path.write_bytes(edit(path.read_bytes()))
     assert cv2.imread(str(path)) is not None
     with pytest.raises(RuntimeError,
                        match=f"view.{ext}: an {ext.upper()} (image|file) "

@@ -406,9 +406,10 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     # the card's machine has no cv2: PNGs, JPEGs, WebPs and AVIFs load
     # through utils/image_io, equal to what JAX reads with cv2 (Pillow's
     # 4:2:2 and film grain AVIFs and a grid too, against cv2's recorded
-    # decodes, and cv2's file with a SMPTE 240 nclx, which libavif converts
-    # on its own path); a kind the port does not read yet (here an
-    # intra-only frame first) raises an error naming the file and the kind
+    # decodes, cv2's file with a SMPTE 240 nclx, which libavif converts on
+    # its own path, and an intra-only frame first); a kind the port does
+    # not read yet (here OBMC in an inter frame) raises an error naming the
+    # file and the kind
     cv2 = pytest.importorskip("cv2")
     from gsplat_tpu_torch.models.splatter import load_scene_camera_groups, \
         read_image
@@ -432,16 +433,15 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     np.testing.assert_array_equal(read_image(str(avif)), want_avif)
     images = os.path.join(os.path.dirname(__file__), "torch_images")
     for name in ("avif_pil_422", "avif_pil_grain", "avif_grid",
-                 "avif_smpte240"):
+                 "avif_smpte240", "avif_intra_only"):
         np.testing.assert_array_equal(
             read_image(os.path.join(images, name + ".avif")),
             read_png(os.path.join(images, name + ".want.png")))
-    other = tmp_path / "photo_intra_only.avif"
-    other.write_bytes(open(os.path.join(images, "avif_intra_only.avif"),
+    other = tmp_path / "photo_obmc.avif"
+    other.write_bytes(open(os.path.join(images, "avif_unported_obmc.avif"),
                            "rb").read())
-    with pytest.raises(RuntimeError, match="photo_intra_only.avif: an AVIF "
-                                           "image with an intra-only frame.*"
-                                           "not read yet"):
+    with pytest.raises(RuntimeError, match="photo_obmc.avif: an AVIF "
+                                           "image with OBMC.*not read yet"):
         read_image(str(other))
 
 

@@ -1201,6 +1201,235 @@ def frame_of_kind(stream: bytes, kind: str) -> bytes:
     return full_headers(stream, still=0, frame_kind=kind)
 
 
+def seq_fields(payload: bytes) -> dict:
+    """The fields of a full sequence header without timing info (as
+    libaom's encoder writes it) that a frame header's first bits depend
+    on: the frame size bits, frame ids and their delta bits, order hint
+    bits, the screen content and integer MV choices."""
+    bits = _bits(payload)
+    assert bits[4] == "0" and bits[5] == "0", "reduced or with timing info"
+    delay = bits[6] == "1"
+    n_ops = int(bits[7:12], 2) + 1
+    p = 12
+    for _ in range(n_ops):
+        level = int(bits[p + 12:p + 17], 2)
+        p += 17 + (level > 7)
+        if delay:
+            p += 1 + 4 * (bits[p] == "1")
+    fwb, fhb = int(bits[p:p + 4], 2) + 1, int(bits[p + 4:p + 8], 2) + 1
+    p += 8 + fwb + fhb
+    frame_ids = bits[p] == "1"
+    p += 1
+    id_bits = delta_bits = 0
+    if frame_ids:
+        delta_bits = int(bits[p:p + 4], 2) + 2
+        id_bits = int(bits[p + 4:p + 7], 2) + delta_bits + 1
+        p += 7
+    p += 7                                     # sb128 .. dual filter
+    order_hint = bits[p] == "1"
+    p += 1 + 2 * order_hint
+    force_sct = 2 if bits[p] == "1" else int(bits[p + 1])
+    p += 1 + (bits[p] == "0")
+    force_imv = 2
+    if force_sct:
+        force_imv = 2 if bits[p] == "1" else int(bits[p + 1])
+        p += 1 + (bits[p] == "0")
+    hint_bits = int(bits[p:p + 3], 2) + 1 if order_hint else 0
+    return dict(id_bits=id_bits, delta_bits=delta_bits, hint_bits=hint_bits,
+                force_sct=force_sct, force_imv=force_imv, fwb=fwb, fhb=fhb)
+
+
+def switch_last_frame(stream: bytes) -> bytes:
+    """Several frames' OBUs (``libaom_encode_frames``' with
+    error-resilient-mode, no film grain) with the last frame, an error
+    resilient inter frame, made a switch frame (frame_type 3): its
+    error_resilient_mode, frame_size_override_flag and refresh_frame_flags
+    dropped (a switch frame implies them), its size written.  libaom
+    decodes it as the inter frame it was."""
+    _, _, info = port_grain_params(stream)
+    gbit, hbytes = info[24:26]
+    parts = obus(stream)
+    seq = seq_fields([p for k, _, p in parts if k == 1][0])
+    last = max(i for i, (k, _, _) in enumerate(parts) if k == 6)
+    kind, head, payload = parts[last]
+    bits = _bits(payload[:hbytes])[:gbit]
+    assert bits[:5] == "00111", "not a shown error resilient inter frame"
+    p = 6
+    sct = seq["force_sct"]
+    if sct == 2:
+        sct = int(bits[p])
+        p += 1
+    if sct and seq["force_imv"] == 2:
+        p += 1
+    override = p + seq["id_bits"]
+    assert bits[override] == "0", "a frame size override"
+    refresh = override + 1 + seq["hint_bits"]
+    # after the slots' order hints: frame_refs_short_signaling, then
+    # ref_frame_idx[] with their delta frame ids, then frame_size()
+    size_at = refresh + 8 + 8 * seq["hint_bits"] + 1 + 7 * (
+        3 + seq["delta_bits"])
+    w, h = info[:2]
+    size = format(w - 1, f"0{seq['fwb']}b") + format(h - 1,
+                                                     f"0{seq['fhb']}b")
+    new = "0111" + bits[5:override] + bits[override + 1:refresh] + \
+        bits[refresh + 8:size_at] + size + bits[size_at:]
+    payload = _bytes(new) + payload[hbytes:]
+    out = b"".join(parts[i][1] + _leb(len(parts[i][2])) + parts[i][2]
+                   for i in range(last))
+    return out + head + _leb(len(payload)) + payload
+
+
+def short_signal_last_frame(stream: bytes) -> bytes:
+    """Several frames' OBUs (``libaom_encode_frames``', no error
+    resilience, no film grain) with the last frame's references
+    short-signaled (frame_refs_short_signaling 1): its LAST and GOLDEN
+    slots kept, the other five left to the decoder's set_frame_refs, which
+    libaom's ``av1_set_frame_refs`` and the port's each work out from the
+    slots' order hints."""
+    _, _, info = port_grain_params(stream)
+    gbit, hbytes = info[24:26]
+    parts = obus(stream)
+    seq = seq_fields([p for k, _, p in parts if k == 1][0])
+    assert seq["hint_bits"], "no order hints"
+    last = max(i for i, (k, _, _) in enumerate(parts) if k == 6)
+    kind, head, payload = parts[last]
+    bits = _bits(payload[:hbytes])[:gbit]
+    assert bits[:5] == "00110", "not a shown inter frame"
+    p = 6
+    sct = seq["force_sct"]
+    if sct == 2:
+        sct = int(bits[p])
+        p += 1
+    if sct and seq["force_imv"] == 2:
+        p += 1
+    p += seq["id_bits"] + 1 + seq["hint_bits"] + 3 + 8
+    assert bits[p] == "0", "short signaled already"
+    idx = [bits[p + 1 + 3 * i:p + 4 + 3 * i] for i in range(7)]
+    assert not seq["id_bits"], "frame ids"
+    new = bits[:p] + "1" + idx[0] + idx[3] + bits[p + 22:]
+    payload = _bytes(new) + payload[hbytes:]
+    out = b"".join(parts[i][1] + _leb(len(parts[i][2])) + parts[i][2]
+                   for i in range(last))
+    return out + head + _leb(len(payload)) + payload
+
+
+def hide_last_frame(stream: bytes) -> bytes:
+    """Several frames' OBUs (``libaom_encode_frames``', no film grain)
+    with the last frame, an inter frame, hidden (show_frame 0,
+    showable_frame 1) and a frame header OBU after it whose
+    show_existing_frame shows it, from the first slot its
+    refresh_frame_flags names: libaom outputs that frame as the image."""
+    _, _, info = port_grain_params(stream)
+    gbit, hbytes = info[24:26]
+    parts = obus(stream)
+    seq = seq_fields([p for k, _, p in parts if k == 1][0])
+    last = max(i for i, (k, _, _) in enumerate(parts) if k == 6)
+    kind, head, payload = parts[last]
+    bits = _bits(payload[:hbytes])[:gbit]
+    assert bits[:4] == "0011", "not a shown inter frame"
+    # after show_frame: error_resilient_mode, disable_cdf_update, the
+    # screen content tools and integer MV choices, the frame id,
+    # frame_size_override_flag, order_hint, primary_ref_frame
+    p = 4
+    er = bits[p] == "1"
+    p += 2
+    sct = seq["force_sct"]
+    if sct == 2:
+        sct = int(bits[p])
+        p += 1
+    if sct and seq["force_imv"] == 2:
+        p += 1
+    p += seq["id_bits"] + 1 + seq["hint_bits"] + (0 if er else 3)
+    refresh = int(bits[p:p + 8], 2)
+    assert refresh, "the last frame refreshes no slot"
+    slot = next(i for i in range(8) if (refresh >> i) & 1)
+    new = bits[:3] + "0" + "1" + bits[4:]
+    payload = _bytes(new) + payload[hbytes:]
+    show = "1" + format(slot, "03b") + "0" * seq["id_bits"]
+    out = b"".join(parts[i][1] + _leb(len(parts[i][2])) + parts[i][2]
+                   for i in range(last))
+    out += head + _leb(len(payload)) + payload
+    return out + obu(3, _bytes(show + "1"))
+
+
+# ------------------------------------------------- inter prediction
+
+_FILTER_PARAMS = None
+
+
+def _filter_params(interp: int, n: int) -> int:
+    """The address of libaom's InterpFilterParams of filter ``interp`` for
+    a block side of n samples (av1_get_interp_filter_params_with_block_size:
+    av1_interp_4tap at 4 or fewer, else av1_interp_filter_params_list)."""
+    global _FILTER_PARAMS
+    if _FILTER_PARAMS is None:
+        libaom_function("aom_codec_version", ctypes.c_int)   # loads _AOM
+        elf = Elf(_wheel_lib("libaom-*.so*"))
+        base = _AOM[1]
+        _FILTER_PARAMS = {k: base + elf.symbols[k][0] for k in (
+            "av1_interp_4tap", "av1_interp_filter_params_list")}
+    table = "av1_interp_4tap" if n <= 4 else "av1_interp_filter_params_list"
+    return _FILTER_PARAMS[table] + 16 * interp
+
+
+def libaom_convolve(src: np.ndarray, w: int, h: int, filter_x: int,
+                    filter_y: int, subpel_x: int, subpel_y: int, depth: int,
+                    kind: str = "2d") -> np.ndarray:
+    """libaom's own single-reference convolution by symbol on a block:
+    ``src`` (h + 7, w + 7) samples, the block at [3:-4, 3:-4]; ``kind``
+    "2d" (av1_convolve_2d_sr_c, av1_highbd_convolve_2d_sr_c above 8 bits),
+    "x" (av1_*convolve_x_sr_c: subpel_y must be 0) or "y"
+    (av1_*convolve_y_sr_c: subpel_x must be 0); filters are InterpFilter,
+    subpel positions in 1/16 → (h, w) uint16."""
+    hbd = depth > 8
+    dt = np.uint16 if hbd else np.uint8
+    s = np.ascontiguousarray(src.astype(dt))
+    dst = np.zeros((h, w), dt)
+    at = s.ctypes.data + (3 * s.shape[1] + 3) * s.itemsize
+    # ConvolveParams: do_average, dst, dst_stride, round_0, round_1, plane,
+    # is_compound, use_dist_wtd_comp_avg, fwd_offset, bck_offset
+    round0 = 5 if depth == 12 else 3
+    conv = struct.pack("<i4xQiiiiiiii", 0, 0, 0, round0, 14 - round0, 0, 0,
+                       0, 0, 0)
+    fx, fy = _filter_params(filter_x, w), _filter_params(filter_y, h)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    pre = "av1_highbd_convolve_" if hbd else "av1_convolve_"
+    d = dst.ctypes.data
+    if kind == "2d":
+        args = [vp, i, vp, i, i, i, vp, vp, i, i, ctypes.c_char_p]
+        call = [at, s.shape[1], d, w, w, h, fx, fy, subpel_x, subpel_y,
+                conv]
+    elif kind == "x":
+        assert subpel_y == 0
+        args = [vp, i, vp, i, i, i, vp, i, ctypes.c_char_p]
+        call = [at, s.shape[1], d, w, w, h, fx, subpel_x, conv]
+    else:
+        assert subpel_x == 0
+        args = [vp, i, vp, i, i, i, vp, i]
+        call = [at, s.shape[1], d, w, w, h, fy, subpel_y]
+    if hbd:
+        args.append(i)
+        call.append(depth)
+    fn = libaom_function(f"{pre}{kind}_sr_c", None, *args)
+    fn(*call)
+    return dst.astype(np.uint16)
+
+
+def port_convolve(src: np.ndarray, w: int, h: int, filter_x: int,
+                  filter_y: int, subpel_x: int, subpel_y: int,
+                  depth: int) -> np.ndarray:
+    """The codec's inter predictor filter alone (``av1_inter_convolve``) on
+    the block of ``libaom_convolve``'s ``src``."""
+    from gsplat_tpu_torch.utils import image_io
+    lib = image_io._load_avif_codec()
+    s = np.ascontiguousarray(src.astype(np.uint16))
+    dst = np.zeros((h, w), np.uint16)
+    lib.av1_inter_convolve(s.ctypes.data + (3 * s.shape[1] + 3) * 2,
+                           s.shape[1], dst.ctypes.data, w, w, h, filter_x,
+                           filter_y, subpel_x, subpel_y, depth)
+    return dst
+
+
 # ---------------------------------------------------- loop restoration
 
 # libaom's radii of each self-guided set (av1_sgr_params: r0, r1)
@@ -1507,6 +1736,29 @@ def aom_control_ids() -> dict:
     return out
 
 
+# the controls of the inter tools (aomcx.h's AV1E_SET_*), each the id the
+# library's encoder_ctrl_maps pairs with ctrl_set_<name with underscores>
+AOM_INTER_CONTROLS = {
+    "enable-obmc": 61, "enable-warped-motion": 96, "enable-global-motion": 95,
+    "enable-ref-frame-mvs": 84, "enable-onesided-comp": 89,
+    "enable-masked-comp": 88, "enable-dist-wtd-comp": 83,
+    "enable-diff-wtd-comp": 92, "enable-interintra-comp": 90,
+    "enable-interinter-wedge": 93, "enable-interintra-wedge": 94,
+    "enable-smooth-interintra": 91, "enable-dual-filter": 86,
+    "enable-reduced-reference-set": 125, "max-reference-frames": 124,
+    "superblock-size": 56, "aq-mode": 40, "film-grain-test-vector": 112,
+    "error-resilient-mode": 38}
+# the tools of the next slice switched off: libaom's good-quality encoder
+# then writes single-reference inter frames the port reads
+INTER_TOOLS_OFF = {
+    "enable-obmc": 0, "enable-warped-motion": 0, "enable-global-motion": 0,
+    "enable-ref-frame-mvs": 0, "enable-onesided-comp": 0,
+    "enable-masked-comp": 0, "enable-dist-wtd-comp": 0,
+    "enable-diff-wtd-comp": 0, "enable-interintra-comp": 0,
+    "enable-interinter-wedge": 0, "enable-interintra-wedge": 0,
+    "enable-smooth-interintra": 0}
+
+
 def libaom_encode(planes, depth: int, subx: int, suby: int, *,
                   usage: int = 2, superres=None, controls=None) -> bytes:
     """One frame's OBUs (a temporal unit: temporal delimiter, sequence
@@ -1519,9 +1771,26 @@ def libaom_encode(planes, depth: int, subx: int, suby: int, *,
     ``deltalf-mode``, ``cq-level``, ...).  ``usage`` 2 is all-intra (what
     libavif takes for a still image), 0 good quality (its sequences).
     planes: [Y, U, V] at their own sizes, any depth 8/10/12."""
+    return libaom_encode_frames([planes], depth, subx, suby, usage=usage,
+                                superres=superres, controls=controls)
+
+
+def libaom_encode_frames(frames, depth: int, subx: int, suby: int, *,
+                         usage: int = 0, superres=None, resize=None,
+                         sframe_dist: int = 0, flags=None, mono=False,
+                         controls=None) -> bytes:
+    """``libaom_encode`` of several frames (each [Y, U, V]) with no lag:
+    their temporal units one after another, the first a key frame, the
+    others (usage 0, good quality) inter frames; ``controls`` may also name
+    ``AOM_INTER_CONTROLS`` (``INTER_TOOLS_OFF`` switches off the inter
+    tools the port does not read yet); ``resize`` = (mode, denominator,
+    key-frame denominator) sets ``rc_resize_*`` (frames coded at another
+    size than their references), ``sframe_dist`` the distance of switch
+    frames, ``flags`` {frame index: its aom_enc_frame_flags_t}; ``mono``
+    codes the luma alone (4:0:0; each frame may be [Y])."""
     lib = _aom_encoder()
     iface = ctypes.c_void_p(lib.aom_codec_av1_cx())
-    h, w = planes[0].shape
+    h, w = frames[0][0].shape
     cfg = ctypes.create_string_buffer(4096)
     assert lib.aom_codec_enc_config_default(iface, cfg, usage) == 0
     # aom_codec_enc_cfg_t: g_usage, g_threads, g_profile, g_w, g_h,
@@ -1530,13 +1799,20 @@ def libaom_encode(planes, depth: int, subx: int, suby: int, *,
     # superres mode/den/kf den/qthresh/kf qthresh, rc_end_usage
     f = list(struct.unpack_from("<25I", cfg.raw, 0))
     f[2] = 2 if depth == 12 or (subx and not suby) else 1 if not subx else 0
-    f[3], f[4], f[5] = w, h, 1
+    f[3], f[4], f[5] = w, h, len(frames)
     f[8] = f[9] = depth
     f[14] = 0
     if superres is not None:
         f[19], f[20], f[21] = superres
+    if resize is not None:
+        f[16], f[17], f[18] = resize
     f[24] = 3                                   # AOM_Q
     struct.pack_into("<25I", cfg, 0, *f)
+    # kf_mode, kf_min_dist, kf_max_dist, sframe_dist, sframe_mode (1 by
+    # default), large_scale_tile, monochrome
+    assert struct.unpack_from("<I", cfg.raw, 4 * 50)[0] == 1
+    struct.pack_into("<I", cfg, 4 * 49, sframe_dist)
+    struct.pack_into("<I", cfg, 4 * 52, int(mono))
     ctx = ctypes.create_string_buffer(256)
     hbd = depth > 8
     res = lib.aom_codec_enc_init_ver(ctx, iface, cfg,
@@ -1545,22 +1821,30 @@ def libaom_encode(planes, depth: int, subx: int, suby: int, *,
     img = None
     try:
         for name, value in {"cq-level": 30, **(controls or {})}.items():
-            res = lib.aom_codec_control(ctx, AOM_CONTROLS[name],
-                                        ctypes.c_int(value))
+            cid = AOM_CONTROLS.get(name) or AOM_INTER_CONTROLS[name]
+            res = lib.aom_codec_control(ctx, cid, ctypes.c_int(value))
             assert res == 0, f"{name}: {lib.aom_codec_error_detail(ctx)}"
         fmt = {(1, 1): 0x102, (1, 0): 0x105, (0, 0): 0x106}[(subx, suby)]
         img = lib.aom_img_alloc(None, fmt | (0x800 if hbd else 0), w, h, 16)
         ptrs = struct.unpack("<3Q", ctypes.string_at(img + 64, 24))
         strides = struct.unpack("<3i", ctypes.string_at(img + 88, 12))
-        for p, a in enumerate(planes):
-            a = np.ascontiguousarray(a.astype(np.uint16 if hbd else np.uint8))
-            for r in range(a.shape[0]):
-                ctypes.memmove(ptrs[p] + r * strides[p], a[r].ctypes.data,
-                               a[r].nbytes)
         out = b""
-        for frame in (ctypes.c_void_p(img), None):
-            res = lib.aom_codec_encode(ctx, frame, ctypes.c_int64(0),
-                                       ctypes.c_ulong(1), ctypes.c_long(0))
+        for pts, planes in enumerate(list(frames) + [None]):
+            if planes is not None:
+                if mono:
+                    c = np.full(((h + suby) >> suby, (w + subx) >> subx),
+                                128 << (depth - 8))
+                    planes = [planes[0], c, c]
+                for p, a in enumerate(planes):
+                    a = np.ascontiguousarray(
+                        a.astype(np.uint16 if hbd else np.uint8))
+                    for r in range(a.shape[0]):
+                        ctypes.memmove(ptrs[p] + r * strides[p],
+                                       a[r].ctypes.data, a[r].nbytes)
+            frame = None if planes is None else ctypes.c_void_p(img)
+            flag = (flags or {}).get(pts, 0) if planes is not None else 0
+            res = lib.aom_codec_encode(ctx, frame, ctypes.c_int64(pts),
+                                       ctypes.c_ulong(1), ctypes.c_long(flag))
             assert res == 0, lib.aom_codec_error_detail(ctx)
             it = ctypes.c_void_p(0)
             while True:

@@ -41,6 +41,24 @@ libavif's 4:4:4 and 4:2:2 with an alpha, premultiplied or not); files
 whose frames libavif scales (an item's ispe, an alpha item's, a grid's
 tiles, a sequence's colour and alpha tkhd); and monochrome frames under a
 colour av1C.  Files the writer refuses or crashes on are counted apart.
+
+With ``--inter`` every file is instead several frames (``random_inter``):
+libaom's own good-quality (or, in a fifth, realtime) encoder
+(``libaom_encode_frames``, in a forked child) on 2-4 frames of a random
+content, each moved by a random shift from the one before and the last in
+part darkened, at 8, 10 or 12 bits in any chroma format (4:0:0 too), at a
+random speed, quantizer, tiling, superblock size, aq-mode, CDEF and loop
+restoration, dual filter, reference count, error resilience, film grain
+(a tenth) and superres or resizing (a twentieth each), each inter tool of
+the next slice (``INTER_TOOLS_OFF``) on at random; a tenth each with the
+last frame hidden and shown by a show_existing_frame header
+(``hide_last_frame``), with its references short-signaled
+(``short_signal_last_frame``) and made a switch frame
+(``switch_last_frame``, where it is error resilient), a tenth in a grid,
+an alpha item or a track; and
+one in twenty cv2's still as an intra-only frame or a hidden key frame
+(``frame_of_kind``).  The files the port does not read yet are counted
+by the tool it names.
 """
 
 import argparse
@@ -374,6 +392,101 @@ def random_libavif(rng):
         (h, w, "400", dict(writer="mono_frame", nclx=nclx, depth=depth))
 
 
+_INTER_FMTS = {"420": (1, 1), "422": (1, 0), "444": (0, 0), "400": (1, 1)}
+
+
+def random_inter(rng):
+    """(bytes or None where the writer failed, a description) of one file
+    of ``--inter``'s kinds."""
+    import torch_make_image_fixtures as fx
+
+    top = 800 if rng.random() < 0.05 else 240
+    h, w = (int(np.exp(rng.uniform(np.log(8), np.log(top)))) for _ in
+            range(2))
+    img = oracle.avif_image(str(rng.choice(oracle.KINDS)), h, w, rng)
+    if rng.random() < 0.05:
+        kind = str(rng.choice(["intra_only", "hidden_key"]))
+        depth = int(rng.choice([8, 10, 12]))
+        if depth > 8:
+            img = oracle.deepen(img, rng) >> (16 - depth)
+        obu, props = oracle.item_parts(oracle.cv2_avif(
+            img, int(rng.integers(0, 100)), None if depth == 8 else depth))
+        return oracle.build_avif(oracle.frame_of_kind(obu, kind), props), \
+            (h, w, "420", dict(writer="libaom", kind=kind, depth=depth))
+    depth = int(rng.choice([8, 10, 12]))
+    fmt = str(rng.choice(list(_INTER_FMTS)))
+    n = int(rng.integers(2, 5))
+    frames = fx.inter_frames(img, n, int(rng.integers(-6, 7)),
+                             int(rng.integers(-6, 7)))
+    usage = 1 if rng.random() < 0.2 else 0
+    controls = {k: int(rng.random() < 0.25)
+                for k in oracle.INTER_TOOLS_OFF}
+    slow = rng.random() < 0.1 and h * w < 40000
+    controls.update({
+        "cpu-used": int(rng.integers(0, 3)) if slow else
+        int(rng.integers(3, 7 if usage == 0 else 11)),
+        "cq-level": int(rng.integers(0, 64)),
+        "tile-columns": int(rng.integers(0, 3)),
+        "tile-rows": int(rng.integers(0, 3)),
+        "superblock-size": int(rng.integers(0, 3)),
+        "aq-mode": int(rng.choice([0, 0, 1, 2, 3])),
+        "enable-cdef": int(rng.random() < 0.8),
+        "enable-restoration": int(rng.random() < 0.5),
+        "enable-dual-filter": int(rng.random() < 0.5),
+        "max-reference-frames": int(rng.integers(3, 8)),
+        "enable-reduced-reference-set": int(rng.random() < 0.3),
+        "error-resilient-mode": int(rng.random() < 0.1)})
+    grain = rng.random() < 0.1
+    if grain:
+        controls["film-grain-test-vector"] = int(rng.integers(1, 17))
+    kw = {}
+    r = rng.random()
+    if r < 0.05:
+        d = int(rng.integers(9, 17))
+        kw["superres"] = tuple(int(x) for x in rng.choice(
+            [(1, d, d), (1, d, 8), (1, 8, d)]))
+    elif r < 0.1:
+        kw["resize"] = (1, int(rng.integers(9, 17)), 8)
+    planes = [fx.inter_planes(f, depth, fmt) for f in frames]
+    sx, sy = _INTER_FMTS[fmt]
+    stream = _forked(oracle.libaom_encode_frames, planes, depth, sx, sy,
+                     usage=usage, mono=fmt == "400", controls=controls,
+                     **kw)
+    desc = dict(writer="libaom", depth=depth, fmt=fmt, frames=n,
+                usage=usage, grain=grain, **controls, **kw)
+    if stream is None:
+        return None, (h, w, fmt, desc)
+    edit = rng.random()
+    if not grain and edit < 0.3:
+        # the last frame hidden and shown by show_existing_frame, its
+        # references short-signaled, or made a switch frame
+        how = ("hidden", "short_signaled", "switch")[int(edit * 10)]
+        try:
+            stream = {"hidden": oracle.hide_last_frame,
+                      "short_signaled": oracle.short_signal_last_frame,
+                      "switch": oracle.switch_last_frame}[how](stream)
+            desc[how] = True
+        except (AssertionError, RuntimeError):
+            pass
+    data = fx.inter_avif(stream, w, h, depth, fmt)
+    r = rng.random()
+    if r < 0.03 and h >= 64 and w >= 64 and fmt != "400":
+        tile = oracle.tile_item(data)
+        data = oracle.grid_avif([tile, tile], 1, 2, 2 * w, h)
+        desc["grid"] = True
+    elif r < 0.06 and fmt != "400":
+        alpha = fx.inter_avif(_forked(
+            oracle.libaom_encode_frames, [p[:1] for p in planes], depth, 1,
+            1, mono=True, controls=controls) or b"", w, h, depth, "400")
+        data = oracle.alpha_file(data, alpha, bool(rng.random() < 0.5))
+        desc["alpha"] = True
+    elif r < 0.1:
+        obu, props = oracle.item_parts(data)
+        data = oracle.build_sequence([obu], props, w, h)
+        desc["track"] = True
+    return data, (h, w, fmt, desc)
+
+
 def tools(data: bytes):
     """decode_av1's info on a file's primary item, or its colour track's
     first sample."""
@@ -404,6 +517,8 @@ def main():
                    help="image sequences only")
     p.add_argument("--libavif", action="store_true",
                    help="libavif's own path, scaling, superres, delta LF")
+    p.add_argument("--inter", action="store_true",
+                   help="several frames: intra-only, hidden, inter")
     a = p.parse_args()
     rng = np.random.default_rng(a.seed)
     counts = dict(files=0, equal=0, both_refuse=0, not_yet=0, writer_fail=0,
@@ -411,13 +526,20 @@ def main():
                   alpha_scaled=0, tkhd_scaled=0, mono_frame=0, superres=0,
                   delta_lf=0, grid=0, grain=0, palette=0,
                   intrabc=0, restoration=0, segmentation=0, limited=0,
-                  icc=0, premultiplied=0, exif=0, not_yet_kinds={})
+                  icc=0, premultiplied=0, exif=0, not_yet_kinds={},
+                  multi_frame=0, intra_only=0, show_existing=0, nearestmv=0,
+                  nearmv=0, globalmv=0, newmv=0, smooth_or_sharp=0,
+                  dual_filter=0)
     end = time.time() + a.seconds
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sweep.avif")
         while time.time() < end:
             try:
-                if a.libavif:
+                if a.inter:
+                    data, desc = random_inter(rng)
+                    if data is None:
+                        raise RuntimeError("the writer failed")
+                elif a.libavif:
                     data, desc = random_libavif(rng)
                     if data is None:
                         raise RuntimeError("the writer failed")
@@ -469,6 +591,14 @@ def main():
                 counts["segmentation"] += info[31] > 0
                 counts["superres"] += info[40] != 8
                 counts["delta_lf"] += info[42] > 0
+                counts["multi_frame"] += info[46] + info[48] > 1
+                counts["intra_only"] += info[47] > 0
+                counts["show_existing"] += info[48] > 0
+                for k, name in enumerate(("nearestmv", "nearmv", "globalmv",
+                                          "newmv")):
+                    counts[name] += info[49 + k] > 0
+                counts["smooth_or_sharp"] += info[54] + info[55] > 0
+                counts["dual_filter"] += info[57] > 0
             else:
                 counts["mismatch"] += 1
                 keep(a.keep, data, counts)

@@ -1,6 +1,6 @@
 """Writes the generated table block of
 ``gsplat_tpu_torch/csrc/avif_codec.cpp``: the constant tables of the AV1
-intra decoder (the default CDFs, the quantizer lookups and matrices, the
+decoder (the default CDFs, the quantizer lookups and matrices, the
 default scans, the intra predictors' tables, film grain's Gaussian
 sequence), read out of the libaom that
 cv2's wheel bundles (``opencv_python.libs/libaom-*.so.3.*``).
@@ -22,12 +22,23 @@ specification's forms: CDFs ascending, ending in 32768 and a zero count, and
 scans and quantizer matrices indexed ``row * width + column``.  Each table is
 checked against the specification's first and last rows before the block
 between the ``BEGIN GENERATED TABLES`` and ``END GENERATED TABLES`` lines of
-the codec is replaced.  The codec builds from the committed source alone;
+the codec is replaced.
+
+The inter frames' mode CDFs (y modes by size group, is_inter, the
+reference frames, the MV modes and DRL, interpolation filters, motion
+modes, skip mode, the segment id prediction) have no symbol either: they
+are read out of the frame context that libaom's own
+``av1_init_mode_probs`` fills (called by its ELF symbol), at the offsets
+of libaom 3.14.1's ``FRAME_CONTEXT`` (``FC_LAYOUT``), which are checked
+first against the tables that do have a symbol.  The inter predictor's
+sub-pixel filters are ``av1_sub_pel_filters_*`` and
+``av1_bilinear_filters``.  The codec builds from the committed source alone;
 this script is needed only to regenerate the block.
 """
 
 from __future__ import annotations
 
+import ctypes
 import glob
 import os
 import struct
@@ -245,6 +256,8 @@ SPEC_ROWS = {
     "kSgrParams": ([2, 140, 1, 3236], [2, 22, 0, -1]),
     "kGaussianSequence": ([56, 568, -180, 172, 124, -84, 172, -64],
                           [428, -484]),
+    "kSubpelFilters": ([0, 0, 0, 128, 0, 0, 0, 0, 0, 2, -6, 126, 8, -2],
+                       None),
 }
 
 
@@ -447,9 +460,130 @@ def collect(elf: Elf):
     # Upscale_Filter), 64 phases of 8 taps
     t["kUpscaleFilter"] = ("int16_t", elf.table(
         "av1_resize_filter_normative", i16, (64, 8)))
-    for name, (_, arr) in t.items():
-        check_rows(name, arr)
     return t, nz
+
+
+# libaom 3.14.1's FRAME_CONTEXT (av1/common/entropymode.h): each field in
+# order with its shape in uint16 (a CDF of n symbols keeps n + 1)
+FC_LAYOUT = [
+    ("txb_skip", (5, 13, 3)), ("eob_extra", (5, 2, 9, 3)),
+    ("dc_sign", (2, 3, 3)), ("eob16", (2, 2, 6)), ("eob32", (2, 2, 7)),
+    ("eob64", (2, 2, 8)), ("eob128", (2, 2, 9)), ("eob256", (2, 2, 10)),
+    ("eob512", (2, 2, 11)), ("eob1024", (2, 2, 12)),
+    ("coeff_base_eob", (5, 2, 4, 4)), ("coeff_base", (5, 2, 42, 5)),
+    ("coeff_br", (5, 2, 21, 5)), ("newmv", (6, 3)), ("zeromv", (2, 3)),
+    ("refmv", (6, 3)), ("drl", (3, 3)), ("inter_compound_mode", (8, 9)),
+    ("compound_type", (22, 3)), ("wedge_idx", (22, 17)),
+    ("interintra", (4, 3)), ("wedge_interintra", (22, 3)),
+    ("interintra_mode", (4, 5)), ("motion_mode", (22, 4)),
+    ("obmc", (22, 3)), ("palette_y_size", (7, 8)),
+    ("palette_uv_size", (7, 8)), ("palette_y_color_index", (7, 5, 9)),
+    ("palette_uv_color_index", (7, 5, 9)), ("palette_y_mode", (7, 3, 3)),
+    ("palette_uv_mode", (2, 3)), ("comp_inter", (5, 3)),
+    ("single_ref", (3, 6, 3)), ("comp_ref_type", (5, 3)),
+    ("uni_comp_ref", (3, 3, 3)), ("comp_ref", (3, 3, 3)),
+    ("comp_bwdref", (3, 2, 3)), ("txfm_partition", (21, 3)),
+    ("compound_index", (6, 3)), ("comp_group_idx", (6, 3)),
+    ("skip_mode", (3, 3)), ("skip_txfm", (3, 3)), ("intra_inter", (4, 3)),
+    ("nmvc", (143,)), ("ndvc", (143,)), ("intrabc", (3,)),
+    ("seg_pred", (3, 3)), ("seg_spatial", (3, 9)),
+    ("filter_intra", (22, 3)), ("filter_intra_mode", (6,)),
+    ("switchable_restore", (4,)), ("wiener_restore", (3,)),
+    ("sgrproj_restore", (3,)), ("y_mode", (4, 14)), ("uv_mode", (2, 13, 15)),
+    ("partition", (20, 11)), ("switchable_interp", (16, 4)),
+    ("kf_y", (5, 5, 14)), ("angle_delta", (8, 8)), ("tx_size", (4, 3, 4)),
+    ("delta_q", (5,)), ("delta_lf_multi", (4, 5)), ("delta_lf", (5,)),
+    ("intra_ext_tx", (3, 4, 13, 17)), ("inter_ext_tx", (4, 4, 17)),
+    ("cfl_sign", (9,)), ("cfl_alpha", (6, 17))]
+# the fields checked against the library's tables of the same values
+FC_ANCHORS = {"kf_y": "default_kf_y_mode_cdf", "uv_mode": "default_uv_mode_cdf",
+              "partition": "default_partition_cdf",
+              "wedge_idx": "default_wedge_idx_cdf",
+              "palette_y_color_index": "default_palette_y_color_index_cdf",
+              "palette_uv_color_index": "default_palette_uv_color_index_cdf",
+              "intra_ext_tx": "default_intra_ext_tx_cdf",
+              "inter_ext_tx": "default_inter_ext_tx_cdf"}
+
+
+# and those checked against the specification's values above (the fields
+# between the tables with a symbol)
+FC_SPEC_ANCHORS = {"skip_txfm": (SKIP, 2), "intrabc": (INTRABC, 2),
+                   "seg_spatial": (SEGMENT_ID, 8),
+                   "txfm_partition": (TXFM_SPLIT, 2),
+                   "filter_intra": (FILTER_INTRA, 2),
+                   "filter_intra_mode": (FILTER_INTRA_MODE, 5),
+                   "switchable_restore": (RESTORATION_TYPE, 3),
+                   "wiener_restore": (USE_WIENER, 2),
+                   "sgrproj_restore": (USE_SGRPROJ, 2),
+                   "palette_y_size": (PALETTE_Y_SIZE, 7),
+                   "palette_uv_size": (PALETTE_UV_SIZE, 7),
+                   "palette_y_mode": (PALETTE_Y_MODE, 2),
+                   "palette_uv_mode": (PALETTE_UV_MODE, 2),
+                   "angle_delta": (ANGLE_DELTA, 7), "delta_q": (DELTA_Q, 4),
+                   "cfl_sign": (CFL_SIGN, 8), "cfl_alpha": (CFL_ALPHA, 16)}
+
+
+def default_frame_context(elf: Elf, path: str) -> dict:
+    """{field of FC_LAYOUT: uint16 array} of the frame context libaom's
+    ``av1_init_mode_probs`` fills (the library loaded, the function called
+    at its symbol's address), each anchor field checked."""
+    lib = ctypes.CDLL(path)
+    base = ctypes.cast(lib.aom_codec_version, ctypes.c_void_p).value - \
+        elf.functions["aom_codec_version"][0]
+    init = ctypes.CFUNCTYPE(None, ctypes.c_void_p)(
+        base + elf.functions["av1_init_mode_probs"][0])
+    size = sum(int(np.prod(shape)) for _, shape in FC_LAYOUT)
+    buf = (ctypes.c_uint16 * (size + 4096))()   # and its int fields
+    init(ctypes.addressof(buf))
+    flat = np.frombuffer(bytes(buf), "<u2")
+    out, off = {}, 0
+    for name, shape in FC_LAYOUT:
+        n = int(np.prod(shape))
+        out[name] = flat[off:off + n].reshape(shape)
+        off += n
+    for field, sym in FC_ANCHORS.items():
+        want = elf.table(sym, "<u2", out[field].shape)
+        if not (want == out[field]).all():
+            sys.exit(f"FRAME_CONTEXT layout: {field} is not {sym}")
+    for field, (rows, nsym) in FC_SPEC_ANCHORS.items():
+        got = cdf_from_icdf(out[field][..., :nsym + 1], nsym)[..., :nsym - 1]
+        if got.shape != np.shape(rows) or (got != np.asarray(rows)).any():
+            sys.exit(f"FRAME_CONTEXT layout: {field} is not the "
+                     f"specification's")
+    return out
+
+
+def collect_inter(elf: Elf, path: str, t: dict):
+    """The inter frames' tables (see the module's docstring)."""
+    fc = default_frame_context(elf, path)
+    for name, field, nsym in (
+            ("kYModeCdf", "y_mode", 13), ("kIntraInterCdf", "intra_inter", 2),
+            ("kCompModeCdf", "comp_inter", 2),
+            ("kSingleRefCdf", "single_ref", 2), ("kNewMvCdf", "newmv", 2),
+            ("kZeroMvCdf", "zeromv", 2), ("kRefMvCdf", "refmv", 2),
+            ("kDrlModeCdf", "drl", 2), ("kInterIntraCdf", "interintra", 2),
+            ("kMotionModeCdf", "motion_mode", 3), ("kObmcCdf", "obmc", 2),
+            ("kSkipModeCdf", "skip_mode", 2), ("kSegPredCdf", "seg_pred", 2),
+            ("kInterpFilterCdf", "switchable_interp", 3)):
+        t[name] = ("uint16_t", cdf_from_icdf(fc[field], nsym))
+    # the MV context's fractional and high precision CDFs (default_nmv_context)
+    nmv = elf.table("default_nmv_context", "<u2", (143,))
+    comp = [nmv[5 + 69 * c:5 + 69 * (c + 1)] for c in range(2)]
+    t["kMvClass0FrCdf"] = ("uint16_t", np.stack([cdf_from_icdf(
+        c[12:22].reshape(2, 5), 4) for c in comp]))
+    t["kMvFrCdf"] = ("uint16_t", np.stack([cdf_from_icdf(c[22:27], 4)
+                                           for c in comp]))
+    t["kMvClass0HpCdf"] = ("uint16_t", np.stack([cdf_from_icdf(c[30:33], 2)
+                                                 for c in comp]))
+    t["kMvHpCdf"] = ("uint16_t", np.stack([cdf_from_icdf(c[33:36], 2)
+                                           for c in comp]))
+    # Subpel_Filters: regular, smooth, sharp, bilinear, and the 4-tap
+    # regular and smooth of blocks 4 or fewer samples wide or high
+    t["kSubpelFilters"] = ("int16_t", np.stack([elf.table(
+        n, "<i2", (16, 8)) for n in (
+            "av1_sub_pel_filters_8", "av1_sub_pel_filters_8smooth",
+            "av1_sub_pel_filters_8sharp", "av1_bilinear_filters",
+            "av1_sub_pel_filters_4", "av1_sub_pel_filters_4smooth")]))
 
 
 def base_ctx_offset(w: int, h: int, row: int, col: int) -> int:
@@ -489,6 +623,9 @@ def main():
     lib = find_libaom()
     elf = Elf(lib)
     tables, nz = collect(elf)
+    collect_inter(elf, lib, tables)
+    for name, (_, arr) in tables.items():
+        check_rows(name, arr)
     for (w, h), a in nz.items():
         for p, v in enumerate(a):
             got = base_ctx_offset(w, h, p // w, p % w)
