@@ -112,10 +112,12 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   Pillow's film grain copies, image sequences and colour kinds, and from
   copies in libaom's superres and delta loop filter and in the matrices
   libavif converts on its own path, and from libaom's key-frame-plus-inter
-  copies (the views of those kinds, of a frame libavif scales and of a
-  key frame then an inter frame decoded to cv2's SHA-256 too, each shown
-  using its tool), each AVIF leg's last l1 within the JPEG leg's bound of
-  the PNG leg's.
+  copies and its copies at its default inter tools (motion-field
+  projection, warped and global motion, OBMC, inter-intra) (the views of
+  those kinds, of a frame libavif scales, of a key frame then an inter
+  frame and of four frames at libaom's default inter tools decoded to
+  cv2's SHA-256 too, each shown using its tool), each AVIF leg's last l1
+  within the JPEG leg's bound of the PNG leg's.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -1614,13 +1616,13 @@ def at_scale_path(rz, dev):
             rz, scene, root)
         mid_png_leg, avif_leg, avif_screen_leg, avif_grain_leg, \
             avif_avis_leg, avif_colour_leg, avif_libavif_leg, \
-            avif_inter_leg = avif_path(rz, root)
+            avif_inter_leg, avif_default_leg = avif_path(rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
             gif_leg, mid_png_leg, avif_leg, avif_screen_leg,
             avif_grain_leg, avif_avis_leg, avif_colour_leg,
-            avif_libavif_leg, avif_inter_leg), scale_rows
+            avif_libavif_leg, avif_inter_leg, avif_default_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -2206,7 +2208,9 @@ def image_formats_path(rz, scene, root):
 # libaom's superres (denominator 12) and delta loop filter files of it,
 # one in YCgCo (libavif's own path) and cv2's file of it at 1040x672 under
 # an ispe of 1297x840 (libavif scales it: LIBAVIF_TOOLS); libaom's
-# key frame of it translated, then an inter frame of it (INTER_TOOLS)
+# key frame of it translated, then an inter frame of it, and libaom at its
+# default inter tools on the view translated twice, then the view itself
+# (INTER_TOOLS)
 AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_d12_1297x840.avif", "timing_lossless_320x208.avif",
               "timing_screen_1297x840.avif", "timing_422_1297x840.avif",
@@ -2219,7 +2223,8 @@ AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_irot_1297x840.avif", "timing_bt709_1297x840.avif",
               "timing_superres_1297x840.avif",
               "timing_deltalf_1297x840.avif", "timing_ycgco_1297x840.avif",
-              "timing_scaled_1297x840.avif", "timing_inter_1297x840.avif")
+              "timing_scaled_1297x840.avif", "timing_inter_1297x840.avif",
+              "timing_tools_1297x840.avif")
 AVIF_REPS = 3
 # the view whose palette and intra block copy blocks the phase counts
 AVIF_SCREEN_VIEW = "timing_screen_1297x840.avif"
@@ -2255,12 +2260,16 @@ LIBAVIF_TOOLS = {
 }
 
 
-# each view of the inter slice's kinds and what its decode must count above
+# each view of the inter slices' kinds and what its decode must count above
 # 0 (decode_av1's counters of the whole data): frames decoded, inter blocks
-# (of any MV mode), NEWMV blocks
+# (of any MV mode), NEWMV blocks; frames with motion-field projection and
+# blocks whose MV stack took a temporal candidate (libaom's default inter
+# tools; the phase prints the warped, OBMC and inter-intra counts too)
 INTER_TOOLS = {
     "timing_inter_1297x840.avif": ("frames_after_the_first", "inter_blocks",
                                    "newmv_blocks"),
+    "timing_tools_1297x840.avif": ("frames_after_the_first",
+                                   "ref_mvs_frames", "temporal_blocks"),
 }
 
 
@@ -2289,15 +2298,18 @@ def avif_path(rz, root):
     and the committed AVIF_MID_LIBAVIF views (libaom's superres, its delta
     loop filter, the matrices libavif converts itself, in turn) and the
     committed AVIF_MID_INTER views (libaom's key frame of the view
-    translated, then an inter frame of it); each view's mean |AVIF - PNG|; (c) run_garden_7k over iterations
+    translated, then an inter frame of it) and the committed
+    AVIF_MID_DEFAULT views (libaom at its default inter tools: a key frame,
+    then two inter frames); each view's mean |AVIF - PNG|; (c)
+    run_garden_7k over iterations
     0..JPEG_ITERS - 1 of the RGB schedule from the PNG scene and from each
     AVIF scene, each AVIF leg's last logged l1 within d + JPEG_L1_DRIFT ·
     l1_png of the PNG leg's (d the largest per-view mean |AVIF - PNG| of its
     views, the JPEG and GIF legs' rule), every leg's it/s.  → (the PNG
     leg's launches, the cv2 AVIF leg's, the screen AVIF leg's, the grain
     AVIF leg's, the avis leg's, the colour leg's, the libavif leg's, the
-    inter leg's).  LIBAVIF_TOOLS' and INTER_TOOLS' views are shown using
-    their tools."""
+    inter leg's, the default inter tools' leg's).  LIBAVIF_TOOLS' and
+    INTER_TOOLS' views are shown using their tools."""
     import hashlib
 
     import torch
@@ -2409,7 +2421,12 @@ def avif_path(rz, root):
                          info[49:53])), newmv_blocks=info[52],
                      blocks_by_filters=dict(zip(
                          ("regular", "smooth", "sharp", "bilinear", "dual"),
-                         info[53:58])))
+                         info[53:58])), **dict(zip(
+                             ("ref_mvs_frames", "temporal_blocks",
+                              "localwarp_blocks", "localwarp_invalid",
+                              "global_motion_refs", "global_warped_blocks",
+                              "obmc_blocks", "interintra_smooth_blocks",
+                              "interintra_wedge_blocks"), info[58:67])))
         print(f"  {name}: {json.dumps(tools)}", flush=True)
         check(all(tools[k] > 0 for k in needs),
               f"{name}: the decode used none of some of {needs}: {tools}")
@@ -2433,7 +2450,8 @@ def avif_path(rz, root):
                          ("avif_avis", fx.AVIF_MID_AVIS),
                          ("avif_colour", fx.AVIF_MID_COLOUR),
                          ("avif_libavif", fx.AVIF_MID_LIBAVIF),
-                         ("avif_inter", fx.AVIF_MID_INTER)):
+                         ("avif_inter", fx.AVIF_MID_INTER),
+                         ("avif_default", fx.AVIF_MID_DEFAULT)):
         sc, images, _ = _format_scene(scene, root, f"scene_{kind}", ".avif")
         committed = os.path.join(fx.FOLDER, folder)
         avifs = sorted(os.listdir(committed))
@@ -2456,7 +2474,7 @@ def avif_path(rz, root):
               f"|AVIF - PNG| a view: min {min(means[kind]):.5f} max "
               f"{max(means[kind]):.5f}", flush=True)
         scenes[kind] = sc
-    # (c) the four legs
+    # (c) the legs
     runs = {}
     for kind, sc in scenes.items():
         summary, tr, launches, records, log = run_7k(rz, [
@@ -2480,7 +2498,7 @@ def avif_path(rz, root):
     png = l1_by_iteration(runs["png"][2])
     ps = runs["png"][0]
     for kind in ("avif", "avif_screen", "avif_grain", "avif_avis",
-                 "avif_colour", "avif_libavif", "avif_inter"):
+                 "avif_colour", "avif_libavif", "avif_inter", "avif_default"):
         l1 = l1_by_iteration(runs[kind][2])
         check(len(l1) >= JPEG_ITERS // 50 and
               all(np.isfinite(list(l1.values()))),
@@ -2505,7 +2523,7 @@ def avif_path(rz, root):
     return runs["png"][1], runs["avif"][1], runs["avif_screen"][1], \
         runs["avif_grain"][1], runs["avif_avis"][1], \
         runs["avif_colour"][1], runs["avif_libavif"][1], \
-        runs["avif_inter"][1]
+        runs["avif_inter"][1], runs["avif_default"][1]
 
 
 def finite(x):
@@ -3842,7 +3860,8 @@ def main() -> int:
     (scene_build, at_scale_rgb, at_scale_sh, at_scale_jpeg, at_scale_png,
      at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif, mid_png,
      mid_avif, mid_avif_screen, mid_avif_grain, mid_avif_avis,
-     mid_avif_colour, mid_avif_libavif, mid_avif_inter), \
+     mid_avif_colour, mid_avif_libavif, mid_avif_inter,
+     mid_avif_default), \
         scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
@@ -3898,6 +3917,7 @@ def main() -> int:
              "mid AVIF colour run": mid_avif_colour,
              "mid AVIF libavif run": mid_avif_libavif,
              "mid AVIF inter run": mid_avif_inter,
+             "mid AVIF default inter tools run": mid_avif_default,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

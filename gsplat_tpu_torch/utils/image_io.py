@@ -2919,6 +2919,20 @@ def _load_avif_codec():
     lib.av1_lr_sgr.argtypes = [vp, i, vp, i, i, i, i, vp, i]
     lib.av1_inter_convolve.restype = None
     lib.av1_inter_convolve.argtypes = [vp, i, vp, i, i, i, i, i, i, i, i]
+    for name, args in (
+            ("av1_warp", [vp, vp, vp] + [i] * 3 + [vp] + [i] * 8),
+            ("av1_shear", [vp, vp]),
+            ("av1_projection", [i, vp, vp] + [i] * 6 + [vp, vp]),
+            ("av1_select_samples", [i, i, vp, vp, i, i, i]),
+            ("av1_mv_projection", [i] * 4 + [vp]),
+            ("av1_obmc_blend", [vp, i, vp, i, i, i, i]),
+            ("av1_interintra_blend", [vp, i, vp, i] + [i] * 7),
+            ("av1_wedge_mask", [i, i, i, vp]),
+            ("av1_refsubexpfin", [vp, ll, i, i, vp])):
+        getattr(lib, name).argtypes = args
+    lib.av1_warp.restype = lib.av1_obmc_blend.restype = None
+    lib.av1_mv_projection.restype = lib.av1_wedge_mask.restype = None
+    lib.av1_interintra_blend.restype = None
     return lib
 
 
@@ -4444,7 +4458,12 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
     without delta q); then the counters of the whole data: frames decoded,
     intra-only frames, show_existing_frame headers, inter blocks by mode
     (NEARESTMV, NEARMV, GLOBALMV, NEWMV) and by interpolation filters (both
-    regular, smooth, sharp, bilinear, or two different ones).  The fields
+    regular, smooth, sharp, bilinear, or two different ones), frames with
+    use_ref_frame_mvs (motion-field projection), blocks whose MV stack took
+    a temporal candidate, LOCALWARP blocks and those of them whose model
+    was invalid, references with non-identity global motion (each
+    frame's), GLOBALMV blocks warped by it, OBMC blocks, inter-intra blocks
+    (smooth, wedge).  The fields
     before those counters describe the last frame decoded.  With ``grain``
     False the planes are the frame before its film grain."""
     import ctypes
@@ -4461,7 +4480,7 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
                                f"does)")
         raise RuntimeError(f"{path}: AV1 data cv2 does not read: {msg}")
     try:
-        info = (ctypes.c_longlong * 58)()
+        info = (ctypes.c_longlong * 67)()
         lib.av1_info(handle, info)
         info = list(info)
         width, height, _, subx, suby, mono = info[:6]
@@ -4683,13 +4702,14 @@ def read_avif(path) -> np.ndarray:
     under a colour av1C at any depth and range; scalability metadata;
     several frames (libaom outputs the last one shown): intra-only
     frames, hidden key and inter frames that a show_existing_frame header
-    shows, inter frames predicted from single references.  Raises
-    ``RuntimeError`` naming the file where cv2 returns None (OpenCV's own
-    500-byte signature test included; an iloc construction method 2), and
-    naming the tool for what the port does not read yet (compound
-    prediction, skip mode, inter-intra, OBMC, local warped motion,
-    non-identity global motion, motion-field projection, references of
-    another size or with superres, switch frames)."""
+    shows, inter frames predicted from single references with
+    motion-field projection, local warped and global motion, OBMC and
+    inter-intra (the inter tools libaom's encoder uses at its defaults).
+    Raises ``RuntimeError`` naming the file where cv2 returns None
+    (OpenCV's own 500-byte signature test included; an iloc construction
+    method 2), and naming the tool for what the port does not read yet
+    (compound prediction, skip mode, references of another size or with
+    superres, switch frames)."""
     with open(path, "rb") as f:
         data = f.read()
     return _decode_avif_bytes(data, path)
@@ -4709,7 +4729,8 @@ def read_image(fn: str) -> np.ndarray:
     that cv2's and Pillow's writers make, grids and image sequences, every
     colour and orientation option of Pillow's, superres and the delta loop
     filter, every matrix libavif converts, frames it scales, intra-only,
-    hidden and single-reference inter frames; ``read_avif``).  A kind of
+    hidden and single-reference inter frames with libaom's default inter
+    tools; ``read_avif``).  A kind of
     AVIF the port does not read yet (the inter tools ``read_avif`` lists)
     raises ``RuntimeError`` naming the file and the tool; any other file
     raises naming the file."""

@@ -337,9 +337,9 @@ def test_last_shown_frame_is_the_image(cv2, tmp_path, layout):
 def test_inter_frame_after_the_key_frame_is_not_read_yet(cv2, pil,
                                                          tmp_path):
     # Pillow's second sample is an inter frame: in the first sample's data
-    # libaom decodes it on the key frame; the port reads single-reference
-    # inter frames, but Pillow's (libaom's defaults) project the motion
-    # field (use_ref_frame_mvs), which it does not read yet
+    # libaom decodes it on the key frame; Pillow's (libaom's default inter
+    # tools: the motion field projected, use_ref_frame_mvs) is read since
+    # the inter tools' slice, as cv2 reads it
     img = oracle.avif_image("photo", 96, 128, np.random.default_rng(3))
     samples, props, w, h, _ = oracle.sequence_parts(
         oracle.pillow_sequence(img))[0]
@@ -347,10 +347,9 @@ def test_inter_frame_after_the_key_frame_is_not_read_yet(cv2, pil,
     path = tmp_path / "inter.avif"
     path.write_bytes(oracle.build_sequence([samples[0] + inter, samples[1]],
                                            props, w, h))
-    assert cv2.imread(str(path)) is not None
-    with pytest.raises(RuntimeError, match="inter.avif.*motion-field "
-                                           "projection.*not read yet"):
-        read_avif(str(path))
+    want = cv2.imread(str(path))
+    assert want is not None
+    np.testing.assert_array_equal(read_avif(str(path)), want[..., ::-1])
 
 
 @pytest.mark.parametrize("copy", ["frame_header_twice", "redundant_same",

@@ -426,19 +426,22 @@ def test_pnm_writer_matches_cv2_bytes(cv2, tmp_path, ext):
 
 
 # kinds of a format cv2 reads that the port does not yet: extension ->
-# (the kind as the port names it, the edit of the two-frame sequence Pillow
-# writes: its first sample made to hold both frames, libaom decoding the
-# second, an inter frame projecting the motion field, as the image)
+# (the kind as the port names it, Pillow's options, the edit of the
+# two-frame sequence Pillow writes: its first sample made to hold both
+# frames, libaom decoding the second as the image, an error resilient
+# inter frame rewritten as a switch frame)
 def _both_frames(data: bytes) -> bytes:
     import torch_avif_oracles as oracle
 
     samples, props, w, h, _ = oracle.sequence_parts(data)[0]
     inter = oracle.obu(6, oracle.obus(samples[1])[-1][2])
-    return oracle.build_sequence([samples[0] + inter, samples[1]], props, w,
-                                 h)
+    return oracle.build_sequence([oracle.switch_last_frame(
+        samples[0] + inter), samples[1]], props, w, h)
 
 
-_UNPORTED = {"avif": (r"with motion-field projection", _both_frames)}
+_UNPORTED = {"avif": (r"with a switch frame",
+                      dict(advanced={"error-resilient": "1"}),
+                      _both_frames)}
 
 
 @pytest.mark.parametrize("ext", list(_UNPORTED))
@@ -448,11 +451,12 @@ def test_unported_formats_raise_naming_the_format(cv2, tmp_path, ext):
     pytest.importorskip("PIL.AvifImagePlugin")
     from PIL import Image
 
-    kind, edit = _UNPORTED[ext]
+    kind, opts, edit = _UNPORTED[ext]
     path = tmp_path / f"view.{ext}"
     img = fx.fixture_image(12, 16, seed=1)
     frames = [Image.fromarray(img), Image.fromarray(img[::-1].copy())]
-    frames[0].save(str(path), save_all=True, append_images=frames[1:])
+    frames[0].save(str(path), save_all=True, append_images=frames[1:],
+                   **opts)
     path.write_bytes(edit(path.read_bytes()))
     assert cv2.imread(str(path)) is not None
     with pytest.raises(RuntimeError,

@@ -407,9 +407,9 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     # through utils/image_io, equal to what JAX reads with cv2 (Pillow's
     # 4:2:2 and film grain AVIFs and a grid too, against cv2's recorded
     # decodes, cv2's file with a SMPTE 240 nclx, which libavif converts on
-    # its own path, and an intra-only frame first); a kind the port does
-    # not read yet (here OBMC in an inter frame) raises an error naming the
-    # file and the kind
+    # its own path, an intra-only frame first and libaom's OBMC); a kind the
+    # port does not read yet (here compound prediction in an inter frame)
+    # raises an error naming the file and the kind
     cv2 = pytest.importorskip("cv2")
     from gsplat_tpu_torch.models.splatter import load_scene_camera_groups, \
         read_image
@@ -433,15 +433,17 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     np.testing.assert_array_equal(read_image(str(avif)), want_avif)
     images = os.path.join(os.path.dirname(__file__), "torch_images")
     for name in ("avif_pil_422", "avif_pil_grain", "avif_grid",
-                 "avif_smpte240", "avif_intra_only"):
+                 "avif_smpte240", "avif_intra_only", "avif_unported_obmc"):
         np.testing.assert_array_equal(
             read_image(os.path.join(images, name + ".avif")),
             read_png(os.path.join(images, name + ".want.png")))
-    other = tmp_path / "photo_obmc.avif"
-    other.write_bytes(open(os.path.join(images, "avif_unported_obmc.avif"),
+    other = tmp_path / "photo_compound.avif"
+    other.write_bytes(open(os.path.join(images,
+                                        "avif_unported_compound.avif"),
                            "rb").read())
-    with pytest.raises(RuntimeError, match="photo_obmc.avif: an AVIF "
-                                           "image with OBMC.*not read yet"):
+    with pytest.raises(RuntimeError, match="photo_compound.avif: an AVIF "
+                                           "image with compound prediction"
+                                           ".*not read yet"):
         read_image(str(other))
 
 

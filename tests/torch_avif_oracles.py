@@ -38,6 +38,7 @@ bundled libraries through ctypes:
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import io
 import os
@@ -1757,6 +1758,11 @@ INTER_TOOLS_OFF = {
     "enable-diff-wtd-comp": 0, "enable-interintra-comp": 0,
     "enable-interinter-wedge": 0, "enable-interintra-wedge": 0,
     "enable-smooth-interintra": 0}
+# the controls of compound prediction (and so skip mode) among them, the
+# next slice's tools
+COMPOUND_TOOLS = ("enable-onesided-comp", "enable-masked-comp",
+                  "enable-dist-wtd-comp", "enable-diff-wtd-comp",
+                  "enable-interinter-wedge")
 
 
 def libaom_encode(planes, depth: int, subx: int, suby: int, *,
@@ -2125,3 +2131,312 @@ def libaom_delta_lf(data: bytes, n: int, disable_update: bool = False):
                          ctypes.c_void_p, ctypes.c_void_p)
     return [fn(ctypes.addressof(reader), ctypes.addressof(cdf))
             for _ in range(n)]
+
+
+# ----------------------------------------------- the inter tools, by symbol
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _aom_address(name: str) -> int:
+    """The loaded libaom's address of an object symbol."""
+    libaom_function("aom_codec_version", ctypes.c_int)   # loads _AOM
+    return _AOM[1] + Elf(_wheel_lib("libaom-*.so*")).symbols[name][0]
+
+
+@functools.lru_cache(maxsize=None)
+def _aom_init_tables():
+    """libaom's run-time CPU dispatch and its wedge and inter-intra masks
+    (av1_init_wedge_masks), as its decoder sets them up (once)."""
+    for fn in ("aom_dsp_rtcd", "av1_rtcd", "av1_init_wedge_masks"):
+        libaom_function(fn, None)()
+
+
+def _hbd(a: np.ndarray) -> int:
+    """libaom's CONVERT_TO_BYTEPTR of a uint16 array."""
+    return a.ctypes.data >> 1
+
+
+def _warp_params(mat, wmtype: int = 3) -> ctypes.Array:
+    """libaom's WarpedMotionParams: wmmat[6], alpha, beta, gamma, delta,
+    wmtype, invalid (36 bytes)."""
+    buf = ctypes.create_string_buffer(36)
+    struct.pack_into("<6i4hbb", buf, 0, *[int(v) for v in mat], 0, 0, 0, 0,
+                     wmtype, 0)
+    return buf
+
+
+def _warp_out(buf):
+    v = struct.unpack_from("<6i4h", buf.raw, 0)
+    return list(v[:6]), list(v[6:10])
+
+
+def libaom_shear(mat):
+    """av1_get_shear_params on a model: (valid, mat, [alpha, beta, gamma,
+    delta])."""
+    buf = _warp_params(mat)
+    ok = libaom_function("av1_get_shear_params", _I, _VP)(buf)
+    return (ok,) + _warp_out(buf)
+
+
+def port_shear(mat):
+    lib = _port()
+    m = np.array(mat, np.int32)
+    sh = np.zeros(4, np.int16)
+    ok = lib.av1_shear(m.ctypes.data, sh.ctypes.data)
+    return ok, m.tolist(), sh.tolist()
+
+
+# libaom's BLOCK_SIZE of a block's (width, height) in pixels
+BLOCK_SIZES = [(4, 4), (4, 8), (8, 4), (8, 8), (8, 16), (16, 8), (16, 16),
+               (16, 32), (32, 16), (32, 32), (32, 64), (64, 32), (64, 64),
+               (64, 128), (128, 64), (128, 128), (4, 16), (16, 4), (8, 32),
+               (32, 8), (16, 64), (64, 16)]
+
+
+def libaom_projection(pts, pts_ref, bsize: int, mvy: int, mvx: int,
+                      mi_row: int, mi_col: int):
+    """av1_find_projection: (valid, mat, shear) of n samples."""
+    n = len(pts) // 2
+    p1 = (ctypes.c_int * 16)(*pts)
+    p2 = (ctypes.c_int * 16)(*pts_ref)
+    buf = _warp_params([0, 0, 1 << 16, 0, 0, 1 << 16])
+    fail = libaom_function("av1_find_projection", _I, _I, _VP, _VP, _I, _I,
+                           _I, _VP, _I, _I)(n, p1, p2, bsize, mvy, mvx, buf,
+                                            mi_row, mi_col)
+    return (int(not fail),) + _warp_out(buf)
+
+
+def port_projection(pts, pts_ref, bsize: int, mvy: int, mvx: int,
+                    mi_row: int, mi_col: int):
+    lib = _port()
+    w, h = BLOCK_SIZES[bsize]
+    p1 = np.array(pts, np.int32)
+    p2 = np.array(pts_ref, np.int32)
+    m = np.zeros(6, np.int32)
+    sh = np.zeros(4, np.int16)
+    ok = lib.av1_projection(len(pts) // 2, p1.ctypes.data, p2.ctypes.data,
+                            w, h, mvy, mvx, mi_row, mi_col, m.ctypes.data,
+                            sh.ctypes.data)
+    return ok, m.tolist(), sh.tolist()
+
+
+def libaom_select_samples(mv_row: int, mv_col: int, pts, pts_ref,
+                          bsize: int):
+    """av1_selectSamples: (count, the samples kept)."""
+    n = len(pts) // 2
+    mv = struct.pack("<hh", mv_row, mv_col)
+    p1 = (ctypes.c_int * 16)(*pts)
+    p2 = (ctypes.c_int * 16)(*pts_ref)
+    k = libaom_function("av1_selectSamples", ctypes.c_uint8, ctypes.c_char_p,
+                        _VP, _VP, _I, _I)(mv, p1, p2, n, bsize)
+    return k, list(p1)[:2 * k], list(p2)[:2 * k]
+
+
+def port_select_samples(mv_row: int, mv_col: int, pts, pts_ref,
+                        bsize: int):
+    lib = _port()
+    w, h = BLOCK_SIZES[bsize]
+    p1 = np.zeros(16, np.int32)
+    p2 = np.zeros(16, np.int32)
+    p1[:len(pts)], p2[:len(pts_ref)] = pts, pts_ref
+    k = lib.av1_select_samples(mv_row, mv_col, p1.ctypes.data,
+                               p2.ctypes.data, len(pts) // 2, w, h)
+    return k, p1[:2 * k].tolist(), p2[:2 * k].tolist()
+
+
+def libaom_mv_projection(row: int, col: int, num: int, den: int):
+    """av1_get_mv_projection (its MV by value: row, col in one word)."""
+    out = ctypes.create_string_buffer(4)
+    ref = (row & 0xFFFF) | ((col & 0xFFFF) << 16)
+    libaom_function("av1_get_mv_projection", None, _VP, ctypes.c_uint32, _I,
+                    _I)(out, ref, num, den)
+    return list(struct.unpack("<hh", out.raw))
+
+
+def port_mv_projection(row: int, col: int, num: int, den: int):
+    out = np.zeros(2, np.int32)
+    _port().av1_mv_projection(row, col, num, den, out.ctypes.data)
+    return out.tolist()
+
+
+def libaom_warp(mat, shear, ref: np.ndarray, p_col: int, p_row: int,
+                pw: int, ph: int, ssx: int, ssy: int, depth: int):
+    """av1_warp_affine_c (av1_highbd_warp_affine_c above 8 bits) of the pw x
+    ph block at (p_col, p_row) of a plane from ``ref`` (the reference
+    plane), single reference → (ph, pw) uint16."""
+    hbd = depth > 8
+    dt = np.uint16 if hbd else np.uint8
+    r = np.ascontiguousarray(ref.astype(dt))
+    pred = np.zeros((ph, pw), dt)
+    m = (ctypes.c_int32 * 6)(*mat)
+    round0 = 5 if depth == 12 else 3
+    conv = struct.pack("<i4xQiiiiiiii", 0, 0, 0, round0, 14 - round0, 0, 0,
+                       0, 0, 0)
+    h16 = ctypes.c_int16
+    if hbd:
+        fn = libaom_function("av1_highbd_warp_affine_c", None, _VP, _VP, _I,
+                             _I, _I, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
+                             ctypes.c_char_p, h16, h16, h16, h16)
+        fn(m, r.ctypes.data, r.shape[1], r.shape[0], r.shape[1],
+           pred.ctypes.data, p_col, p_row, pw, ph, pw, ssx, ssy, depth, conv,
+           *shear)
+    else:
+        fn = libaom_function("av1_warp_affine_c", None, _VP, _VP, _I, _I, _I,
+                             _VP, _I, _I, _I, _I, _I, _I, _I,
+                             ctypes.c_char_p, h16, h16, h16, h16)
+        fn(m, r.ctypes.data, r.shape[1], r.shape[0], r.shape[1],
+           pred.ctypes.data, p_col, p_row, pw, ph, pw, ssx, ssy, conv, *shear)
+    return pred.astype(np.uint16)
+
+
+def port_warp(mat, shear, ref: np.ndarray, p_col: int, p_row: int, pw: int,
+              ph: int, ssx: int, ssy: int, depth: int):
+    r = np.ascontiguousarray(ref.astype(np.uint16))
+    pred = np.zeros((ph, pw), np.uint16)
+    m = np.array(mat, np.int32)
+    sh = np.array(shear, np.int16)
+    _port().av1_warp(m.ctypes.data, sh.ctypes.data, r.ctypes.data,
+                     r.shape[1], r.shape[0], r.shape[1], pred.ctypes.data,
+                     p_col, p_row, pw, ph, pw, ssx, ssy, depth)
+    return pred
+
+
+def libaom_obmc_blend(dst: np.ndarray, src: np.ndarray, direction: int,
+                      depth: int) -> np.ndarray:
+    """OBMC's blend as libaom runs it: av1_get_obmc_mask of the overlap
+    (rows from above, direction 0; columns from the left, 1) and
+    aom_blend_a64_vmask_c / hmask_c (their highbd forms above 8 bits) of
+    src over dst (h, w)."""
+    h, w = dst.shape
+    hbd = depth > 8
+    dt = np.uint16 if hbd else np.uint8
+    d = np.ascontiguousarray(dst.astype(dt))
+    s = np.ascontiguousarray(src.astype(dt))
+    mask = libaom_function("av1_get_obmc_mask", _VP, _I)(w if direction
+                                                           else h)
+    kind = "hmask" if direction else "vmask"
+    args = [_VP, ctypes.c_uint32] * 3 + [_VP, _I, _I]
+    if hbd:
+        fn = libaom_function(f"aom_highbd_blend_a64_{kind}_c", None,
+                             *args, _I)
+        fn(_hbd(d), w, _hbd(d), w, _hbd(s), w, mask, w, h, depth)
+    else:
+        fn = libaom_function(f"aom_blend_a64_{kind}_c", None, *args)
+        fn(d.ctypes.data, w, d.ctypes.data, w, s.ctypes.data, w, mask, w, h)
+    return d.astype(np.uint16)
+
+
+def port_obmc_blend(dst: np.ndarray, src: np.ndarray, direction: int
+                    ) -> np.ndarray:
+    h, w = dst.shape
+    d = np.ascontiguousarray(dst.astype(np.uint16))
+    s = np.ascontiguousarray(src.astype(np.uint16))
+    _port().av1_obmc_blend(d.ctypes.data, w, s.ctypes.data, w, w, h,
+                           direction)
+    return d
+
+
+def libaom_wedge_mask(bsize: int, neg: int, index: int) -> np.ndarray:
+    """The mask libaom's av1_init_wedge_masks builds for a block size, sign
+    and wedge index (av1_wedge_params_lookup[bsize].masks[neg][index])."""
+    _aom_init_tables()
+    w, h = BLOCK_SIZES[bsize]
+    at = _aom_address("av1_wedge_params_lookup") + 32 * bsize
+    n, _, _, masks = struct.unpack("<i4xQQQ", ctypes.string_at(at, 32))
+    assert n == 16, (bsize, n)
+    ptr, = struct.unpack("<Q", ctypes.string_at(masks + 8 * (16 * neg +
+                                                             index), 8))
+    return np.frombuffer(ctypes.string_at(ptr, w * h), np.uint8).reshape(h, w)
+
+
+def port_wedge_mask(bsize: int, neg: int, index: int) -> np.ndarray:
+    w, h = BLOCK_SIZES[bsize]
+    out = np.zeros((h, w), np.uint8)
+    _port().av1_wedge_mask(bsize, neg, index, out.ctypes.data)
+    return out
+
+
+def libaom_interintra_blend(intra: np.ndarray, inter: np.ndarray,
+                            bsize: int, sx: int, sy: int, mode: int,
+                            wedge: int, index: int, depth: int
+                            ) -> np.ndarray:
+    """combine_interintra's blend as libaom runs it: aom_blend_a64_mask_c
+    (aom_highbd_blend_a64_mask_c above 8 bits) of the intra prediction
+    over the inter one with the block's wedge mask (sign 0, subsampled to
+    the plane) or the plane's smooth mask of the mode
+    (smooth_interintra_mask_buf), both from av1_init_wedge_masks."""
+    _aom_init_tables()
+    h, w = intra.shape
+    hbd = depth > 8
+    dt = np.uint16 if hbd else np.uint8
+    a = np.ascontiguousarray(intra.astype(dt))
+    b = np.ascontiguousarray(inter.astype(dt))
+    d = np.zeros_like(a)
+    bw = BLOCK_SIZES[bsize][0]
+    if wedge:
+        mask = libaom_wedge_mask(bsize, 0, index)
+        mstride, subw, subh = bw, int(w * 2 == bw), int(h * 2 ==
+                                                         BLOCK_SIZES[bsize][1])
+    else:
+        psz = BLOCK_SIZES.index((w, h))
+        at = _aom_address("smooth_interintra_mask_buf") + \
+            (mode * 22 + psz) * 1024
+        mask = np.frombuffer(ctypes.string_at(at, w * h), np.uint8)
+        mstride, subw, subh = w, 0, 0
+    m = np.ascontiguousarray(mask)
+    args = [_VP, ctypes.c_uint32] * 3 + [_VP, ctypes.c_uint32, _I, _I, _I,
+                                         _I]
+    if hbd:
+        fn = libaom_function("aom_highbd_blend_a64_mask_c", None, *args, _I)
+        fn(_hbd(d), w, _hbd(a), w, _hbd(b), w, m.ctypes.data, mstride, w, h,
+           subw, subh, depth)
+    else:
+        fn = libaom_function("aom_blend_a64_mask_c", None, *args)
+        fn(d.ctypes.data, w, a.ctypes.data, w, b.ctypes.data, w,
+           m.ctypes.data, mstride, w, h, subw, subh)
+    return d.astype(np.uint16)
+
+
+def port_interintra_blend(intra: np.ndarray, inter: np.ndarray, bsize: int,
+                          sx: int, sy: int, mode: int, wedge: int,
+                          index: int) -> np.ndarray:
+    h, w = intra.shape
+    d = np.ascontiguousarray(intra.astype(np.uint16))
+    b = np.ascontiguousarray(inter.astype(np.uint16))
+    psz = BLOCK_SIZES.index((w, h))
+    _port().av1_interintra_blend(d.ctypes.data, w, b.ctypes.data, w, bsize,
+                                 psz, sx, sy, mode, wedge, index)
+    return d
+
+
+class _BitBuffer(ctypes.Structure):
+    # aom_read_bit_buffer
+    _fields_ = [("buf", ctypes.c_void_p), ("end", ctypes.c_void_p),
+                ("offset", ctypes.c_uint32), ("data", ctypes.c_void_p),
+                ("handler", ctypes.c_void_p)]
+
+
+def libaom_refsubexpfin(data: bytes, n: int, ref: int):
+    """aom_rb_read_signed_primitive_refsubexpfin with SUBEXPFIN_K (3):
+    (value, bits read)."""
+    buf = ctypes.create_string_buffer(data, len(data))
+    rb = _BitBuffer(ctypes.addressof(buf), ctypes.addressof(buf) + len(data),
+                    0, None, None)
+    v = libaom_function("aom_rb_read_signed_primitive_refsubexpfin",
+                        ctypes.c_int16, ctypes.POINTER(_BitBuffer),
+                        ctypes.c_uint16, ctypes.c_uint16, ctypes.c_int16)(
+        ctypes.byref(rb), n, 3, ref)
+    return v, rb.offset
+
+
+def port_refsubexpfin(data: bytes, n: int, ref: int):
+    bits = ctypes.c_int(0)
+    v = _port().av1_refsubexpfin(data, len(data), n, ref, ctypes.byref(bits))
+    return v, bits.value
+
+
+def _port():
+    from gsplat_tpu_torch.utils import image_io
+    return image_io._load_avif_codec()

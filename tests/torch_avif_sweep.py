@@ -46,11 +46,15 @@ With ``--inter`` every file is instead several frames (``random_inter``):
 libaom's own good-quality (or, in a fifth, realtime) encoder
 (``libaom_encode_frames``, in a forked child) on 2-4 frames of a random
 content, each moved by a random shift from the one before and the last in
-part darkened, at 8, 10 or 12 bits in any chroma format (4:0:0 too), at a
-random speed, quantizer, tiling, superblock size, aq-mode, CDEF and loop
-restoration, dual filter, reference count, error resilience, film grain
-(a tenth) and superres or resizing (a twentieth each), each inter tool of
-the next slice (``INTER_TOOLS_OFF``) on at random; a tenth each with the
+part darkened (a quarter instead rotated, zoomed and moved:
+``warped_frames``), at 8, 10 or 12 bits in any chroma format (4:0:0 too),
+at a random speed, quantizer, tiling, superblock size, aq-mode, CDEF and
+loop restoration, dual filter, reference count, error resilience, film
+grain (a tenth) and superres or resizing (a twentieth each), each inter
+tool of ``INTER_TOOLS_OFF`` on at random: those the port reads
+(motion-field projection, warped and global motion, OBMC, inter-intra)
+in three files of four, as libaom has them by default, compound
+prediction's in one of four; a tenth each with the
 last frame hidden and shown by a show_existing_frame header
 (``hide_last_frame``), with its references short-signaled
 (``short_signal_last_frame``) and made a switch frame
@@ -58,7 +62,11 @@ last frame hidden and shown by a show_existing_frame header
 an alpha item or a track; and
 one in twenty cv2's still as an intra-only frame or a hidden key frame
 (``frame_of_kind``).  The files the port does not read yet are counted
-by the tool it names.
+by the tool it names; the equal ones by the inter tools they use.
+
+With ``--flips`` every file is instead a committed multi-frame fixture
+(``AVIF_INTER_CASES`` and ``AVIF_TOOLS_CASES``) with one bit of its OBUs
+flipped (``random_flip``), held to cv2's verdict as above.
 """
 
 import argparse
@@ -416,10 +424,19 @@ def random_inter(rng):
     depth = int(rng.choice([8, 10, 12]))
     fmt = str(rng.choice(list(_INTER_FMTS)))
     n = int(rng.integers(2, 5))
-    frames = fx.inter_frames(img, n, int(rng.integers(-6, 7)),
-                             int(rng.integers(-6, 7)))
+    if rng.random() < 0.25:
+        frames = fx.warped_frames(img, n, float(rng.uniform(-4, 4)),
+                                  float(rng.uniform(0.95, 1.05)),
+                                  float(rng.uniform(-3, 3)),
+                                  float(rng.uniform(-3, 3)))
+    else:
+        frames = fx.inter_frames(img, n, int(rng.integers(-6, 7)),
+                                 int(rng.integers(-6, 7)))
     usage = 1 if rng.random() < 0.2 else 0
-    controls = {k: int(rng.random() < 0.25)
+    # the tools the port reads on in three files of four (libaom's default
+    # is on), compound prediction's in one of four
+    controls = {k: int(rng.random() < (0.25 if k in oracle.COMPOUND_TOOLS
+                                       else 0.75))
                 for k in oracle.INTER_TOOLS_OFF}
     slow = rng.random() < 0.1 and h * w < 40000
     controls.update({
@@ -487,6 +504,22 @@ def random_inter(rng):
     return data, (h, w, fmt, desc)
 
 
+def random_flip(rng):
+    """(bytes, a description) of a committed multi-frame fixture with one
+    bit of its OBUs flipped."""
+    import torch_make_image_fixtures as fx
+
+    names = fx.AVIF_INTER_CASES + fx.AVIF_TOOLS_CASES
+    name = names[int(rng.integers(len(names)))]
+    with open(os.path.join(fx.FOLDER, name), "rb") as f:
+        obu, props = oracle.item_parts(f.read())
+    data = bytearray(obu)
+    at, bit = int(rng.integers(len(data))), int(rng.integers(8))
+    data[at] ^= 1 << bit
+    return oracle.build_avif(bytes(data), props), (0, 0, "", dict(
+        writer="libaom", file=name, byte=at, bit=bit))
+
+
 def tools(data: bytes):
     """decode_av1's info on a file's primary item, or its colour track's
     first sample."""
@@ -519,6 +552,8 @@ def main():
                    help="libavif's own path, scaling, superres, delta LF")
     p.add_argument("--inter", action="store_true",
                    help="several frames: intra-only, hidden, inter")
+    p.add_argument("--flips", action="store_true",
+                   help="one-bit flips of the committed inter fixtures")
     a = p.parse_args()
     rng = np.random.default_rng(a.seed)
     counts = dict(files=0, equal=0, both_refuse=0, not_yet=0, writer_fail=0,
@@ -529,13 +564,17 @@ def main():
                   icc=0, premultiplied=0, exif=0, not_yet_kinds={},
                   multi_frame=0, intra_only=0, show_existing=0, nearestmv=0,
                   nearmv=0, globalmv=0, newmv=0, smooth_or_sharp=0,
-                  dual_filter=0)
+                  dual_filter=0, ref_frame_mvs=0, temporal=0, local_warp=0,
+                  local_warp_invalid=0, global_motion=0, global_warped=0,
+                  obmc=0, interintra_smooth=0, interintra_wedge=0)
     end = time.time() + a.seconds
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sweep.avif")
         while time.time() < end:
             try:
-                if a.inter:
+                if a.flips:
+                    data, desc = random_flip(rng)
+                elif a.inter:
                     data, desc = random_inter(rng)
                     if data is None:
                         raise RuntimeError("the writer failed")
@@ -599,6 +638,12 @@ def main():
                     counts[name] += info[49 + k] > 0
                 counts["smooth_or_sharp"] += info[54] + info[55] > 0
                 counts["dual_filter"] += info[57] > 0
+                for k, name in enumerate((
+                        "ref_frame_mvs", "temporal", "local_warp",
+                        "local_warp_invalid", "global_motion",
+                        "global_warped", "obmc", "interintra_smooth",
+                        "interintra_wedge")):
+                    counts[name] += info[58 + k] > 0
             else:
                 counts["mismatch"] += 1
                 keep(a.keep, data, counts)

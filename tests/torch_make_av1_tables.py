@@ -564,8 +564,12 @@ def collect_inter(elf: Elf, path: str, t: dict):
             ("kDrlModeCdf", "drl", 2), ("kInterIntraCdf", "interintra", 2),
             ("kMotionModeCdf", "motion_mode", 3), ("kObmcCdf", "obmc", 2),
             ("kSkipModeCdf", "skip_mode", 2), ("kSegPredCdf", "seg_pred", 2),
-            ("kInterpFilterCdf", "switchable_interp", 3)):
+            ("kInterpFilterCdf", "switchable_interp", 3),
+            ("kInterIntraModeCdf", "interintra_mode", 4),
+            ("kWedgeInterIntraCdf", "wedge_interintra", 2),
+            ("kWedgeIdxCdf", "wedge_idx", 16)):
         t[name] = ("uint16_t", cdf_from_icdf(fc[field], nsym))
+    collect_inter_tools(elf, path, t)
     # the MV context's fractional and high precision CDFs (default_nmv_context)
     nmv = elf.table("default_nmv_context", "<u2", (143,))
     comp = [nmv[5 + 69 * c:5 + 69 * (c + 1)] for c in range(2)]
@@ -584,6 +588,61 @@ def collect_inter(elf: Elf, path: str, t: dict):
             "av1_sub_pel_filters_8", "av1_sub_pel_filters_8smooth",
             "av1_sub_pel_filters_8sharp", "av1_bilinear_filters",
             "av1_sub_pel_filters_4", "av1_sub_pel_filters_4smooth")]))
+
+
+def collect_inter_tools(elf: Elf, path: str, t: dict):
+    """The tables of the inter tools: the warp filter (``av1_warped_filter``),
+    the divisor lookups of the warp's shear and least squares (``div_lut``)
+    and of MV projection (``div_mult``), inter-intra's smooth weights
+    (``ii_weights1d``, ``ii_size_scales``), OBMC's masks (``obmc_mask_1`` to
+    ``obmc_mask_32`` one after another: the mask of length n at n - 1), and
+    the wedges: each block size's codebook, sign flips and the three master
+    rows, read out of ``av1_wedge_params_lookup`` and ``wedge_mask_obl`` of
+    the loaded library after its own ``av1_init_wedge_masks``."""
+    t["kWarpedFilter"] = ("int16_t", elf.table("av1_warped_filter", "<i2",
+                                               (193, 8)))
+    t["kDivLut"] = ("uint16_t", elf.table("div_lut", "<u2", (257,)))
+    t["kDivMult"] = ("int32_t", elf.table("div_mult", "<i4", (32,)))
+    t["kIiWeights1d"] = ("uint8_t", elf.table("ii_weights1d", "u1", (128,)))
+    t["kIiSizeScales"] = ("uint8_t", elf.table("ii_size_scales", "u1",
+                                               (22,)))
+    t["kObmcMask"] = ("uint8_t", np.concatenate([elf.table(
+        f"obmc_mask_{n}", "u1", (n,)) for n in (1, 2, 4, 8, 16, 32)]))
+    lib = ctypes.CDLL(path)
+    base = ctypes.cast(lib.aom_codec_version, ctypes.c_void_p).value - \
+        elf.functions["aom_codec_version"][0]
+    for fn in ("aom_dsp_rtcd", "av1_rtcd", "av1_init_wedge_masks"):
+        ctypes.CFUNCTYPE(None)(base + elf.functions[fn][0])()
+    books = {base + elf.symbols[n][0]: n for n in (
+        "wedge_codebook_16_hgtw", "wedge_codebook_16_hltw",
+        "wedge_codebook_16_heqw")}
+    lookup = base + elf.symbols["av1_wedge_params_lookup"][0]
+    code = np.zeros((22, 16, 3), np.int8)
+    flips = np.zeros((22, 16), np.uint8)
+    for b in range(22):
+        n, book, flip = struct.unpack("<i4xQQ", ctypes.string_at(
+            lookup + 32 * b, 24))
+        if n == 0:
+            continue
+        if n != 16 or book not in books:
+            sys.exit(f"av1_wedge_params_lookup[{b}]: {n} wedges at {book:x}")
+        code[b] = np.frombuffer(ctypes.string_at(book, 192),
+                                "<i4").reshape(16, 3)
+        flips[b] = np.frombuffer(ctypes.string_at(flip, 16), np.uint8)
+    t["kWedgeCodebook"] = ("int8_t", code)
+    t["kWedgeSignflip"] = ("uint8_t", flips)
+    # the masters (oblique even and odd rows, vertical): the vertical one
+    # has no symbol, and is row 0 of wedge_mask_obl[0][WEDGE_VERTICAL]
+    obl = np.frombuffer(ctypes.string_at(
+        base + elf.symbols["wedge_mask_obl"][0], 2 * 6 * 4096),
+        np.uint8).reshape(2, 6, 64, 64)
+    even = elf.table("wedge_master_oblique_even", "u1", (64,))
+    odd = elf.table("wedge_master_oblique_odd", "u1", (64,))
+    # WEDGE_OBLIQUE63's first rows: even shifted by 16, odd by 15
+    if not ((obl[0, 3, 0, 16:] == even[:48]).all() and
+            (obl[0, 3, 1, 15:] == odd[:49]).all()):
+        sys.exit("wedge_mask_obl: WEDGE_OBLIQUE63 is not at index 3")
+    t["kWedgeMaster"] = ("uint8_t", np.stack([even, odd, obl[0, 1, 0]]))
 
 
 def base_ctx_offset(w: int, h: int, row: int, col: int) -> int:

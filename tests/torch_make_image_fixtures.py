@@ -356,16 +356,48 @@ AVIF_CASES += AVIF_INTER_CASES
 AVIF_INTER_UNPORTED = {
     "avif_unported_compound.avif": "compound prediction",
     "avif_unported_skip_mode.avif": "skip mode",
-    "avif_unported_interintra.avif": "inter-intra prediction",
-    "avif_unported_obmc.avif": "OBMC",
-    "avif_unported_warped.avif": "local warped motion",
-    "avif_unported_global.avif": "non-identity global motion",
-    "avif_unported_ref_frame_mvs.avif": "motion-field projection",
     "avif_unported_ref_size.avif": "a reference frame of another size",
     "avif_unported_superres_inter.avif": "superres in an inter frame",
     "avif_unported_superres_ref.avif": "superres in a reference frame",
     "avif_unported_switch.avif": "a switch frame"}
 AVIF_UNPORTED = list(AVIF_INTER_UNPORTED)
+# the inter tools libaom's encoder uses at its defaults (generate_inter_tools):
+# the five files the inter slice found refused for motion-field projection,
+# local warped motion, non-identity global motion, OBMC and inter-intra
+# (each libaom's with that tool alone on); libaom's good-quality encoder at
+# its default inter tools (but compound prediction's, and files that used
+# skip mode passed over) on 4 frames at 8, 10 and 12 bits in every chroma
+# format, speeds 0-6 and quantizers 12-52 (each taking temporal MV
+# candidates), 128x128 superblocks in 2x2
+# tiles, film grain; one file for each tool with that tool alone on (a seed
+# search: the first file that uses it); a file whose frames are rotated and
+# zoomed (warped_frames: global motion above a translation, warped); a
+# one-bit flip of avif_tools_d8_444.avif that cv2 reads with a LOCALWARP
+# block whose model is invalid (libaom's encoder writes none; a seeded
+# search over flips)
+AVIF_TOOLS_MOVED = ["avif_unported_ref_frame_mvs.avif",
+                    "avif_unported_warped.avif", "avif_unported_global.avif",
+                    "avif_unported_obmc.avif",
+                    "avif_unported_interintra.avif"]
+AVIF_TOOLS_FORMATS = [(d, f) for d in (8, 10, 12)
+                      for f in ("420", "422", "444", "400")
+                      if (d, f) != (12, "400")]
+AVIF_TOOLS_ALONE = {"ref_frame_mvs": "enable-ref-frame-mvs",
+                    "warped": "enable-warped-motion",
+                    "global": "enable-global-motion",
+                    "obmc": "enable-obmc",
+                    "interintra_smooth": "enable-smooth-interintra",
+                    "interintra_wedge": "enable-interintra-wedge"}
+# each alone-on file's counter in tools_info
+AVIF_TOOLS_COUNTER = {"ref_frame_mvs": 1, "warped": 2, "global": 5,
+                      "obmc": 6, "interintra_smooth": 7,
+                      "interintra_wedge": 8}
+AVIF_TOOLS_CASES = AVIF_TOOLS_MOVED + [
+    f"avif_tools_d{d}_{f}.avif" for d, f in AVIF_TOOLS_FORMATS] + [
+    "avif_tools_sb128_tiles.avif", "avif_tools_grain.avif"] + [
+    f"avif_tool_{t}.avif" for t in AVIF_TOOLS_ALONE] + [
+    "avif_tools_rotzoom.avif", "avif_tools_invalid_warp.avif"]
+AVIF_CASES += AVIF_TOOLS_CASES
 CASES += AVIF_CASES + TIFF_COLOUR_CASES
 REFUSED += AVIF_REFUSED
 # full-size AVIF views for chip_smoke's decode seconds and the SHA-256 of
@@ -482,6 +514,14 @@ TIMING_INTER = "timing_inter_1297x840.avif"
 TIMING_INTER_SHIFT = (3, -5)
 TIMING_AVIF[TIMING_INTER] = ("a1fc231400adb1118b4bd47877efdc98"
                              "d2fd116d43adcc24cd37084e2e2004fd")
+# the full-size view of libaom's default inter tools (generate_inter_tools):
+# TIMING translated three times, twice and once by TIMING_INTER_SHIFT, then
+# TIMING itself (speed 3; its last frame takes temporal MV candidates: in
+# libaom's low-delay order the third frame's LAST counts as an overlay of
+# its GOLDEN and nothing is projected onto it)
+TIMING_TOOLS = "timing_tools_1297x840.avif"
+TIMING_AVIF[TIMING_TOOLS] = ("b12a21884d251f30c3b30f3b7faa3abb"
+                             "af6a4789dd1b7fbf3c83b7ae31f50e37")
 # cv2's default AVIF copies of make_synth_scene --preset mid's 24 views
 AVIF_MID = "avif_mid"
 # Pillow's copies of the same views with film grain: views 0-15 libaom's
@@ -513,6 +553,10 @@ LIBAVIF_MID_KINDS = ("superres", "deltalf", "libavif")
 # key-frame-plus-inter copies of the same views (inter_mid_file: view k's
 # key frame translated by inter_mid_shift(k), then an inter frame of it)
 AVIF_MID_INTER = "avif_mid_inter"
+# copies of the same views at libaom's default inter tools (tools_mid_file:
+# a key frame of view k translated twice by inter_mid_shift(k), an inter
+# frame of it translated once, then one of the view)
+AVIF_MID_DEFAULT = "avif_mid_default"
 
 
 def colour_alpha(h: int, w: int) -> np.ndarray:
@@ -1591,6 +1635,33 @@ def inter_frames(img: np.ndarray, n: int, dy: int, dx: int) -> list:
     return out
 
 
+def warped_frames(img: np.ndarray, n: int, angle: float, zoom: float,
+                  dy: float = 0.0, dx: float = 0.0) -> list:
+    """n BGR frames of img, each rotated by ``angle`` degrees, scaled by
+    ``zoom`` and moved by (dy, dx) about the centre from the one before
+    (the last is img; bilinear, edges clamped): global motion above a
+    translation between frames."""
+    h, w = img.shape[:2]
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    cy, cx = (h - 1) / 2, (w - 1) / 2
+    out = []
+    for k in range(n):
+        t = n - 1 - k
+        a, z = np.deg2rad(angle * t), zoom ** t
+        u = ((xx - cx) * np.cos(a) - (yy - cy) * np.sin(a)) / z + cx - dx * t
+        v = ((xx - cx) * np.sin(a) + (yy - cy) * np.cos(a)) / z + cy - dy * t
+        u, v = np.clip(u, 0, w - 1), np.clip(v, 0, h - 1)
+        x0, y0 = np.floor(u).astype(int), np.floor(v).astype(int)
+        x1, y1 = np.minimum(x0 + 1, w - 1), np.minimum(y0 + 1, h - 1)
+        fu, fv = (u - x0)[..., None], (v - y0)[..., None]
+        f = img.astype(np.float64)
+        top = f[y0, x0] * (1 - fu) + f[y0, x1] * fu
+        bot = f[y1, x0] * (1 - fu) + f[y1, x1] * fu
+        out.append(np.clip(np.round(top * (1 - fv) + bot * fv), 0,
+                           255).astype(np.uint8))
+    return out
+
+
 def inter_item(frames, depth: int, fmt: str, **kw) -> bytes:
     """libaom_encode_frames' stream of BGR frames as a one-item AVIF."""
     import torch_avif_oracles as oracle
@@ -1801,6 +1872,142 @@ def generate_inter(folder: str = FOLDER, mid_scene: str | None = None
             save(os.path.join(AVIF_MID_INTER, name[:-4] + ".avif"),
                  inter_mid_file(cv2.imread(os.path.join(src, name)), k))
     return {TIMING_INTER: hashlib.sha256(dec.tobytes()).hexdigest()}
+
+
+def tools_info(data: bytes) -> list:
+    """decode_av1's counters of an item's inter tools (info[58:67]): frames
+    with motion-field projection, blocks with a temporal candidate,
+    LOCALWARP blocks and invalid ones, references with global motion,
+    warped GLOBALMV blocks, OBMC blocks, inter-intra blocks (smooth,
+    wedge); then the frames decoded."""
+    from gsplat_tpu_torch.utils import image_io
+
+    heif = image_io._Heif(data, "tools")
+    heif.parse()
+    info = image_io.decode_av1(heif.primary_item()[0])[1]
+    return info[58:67] + [info[46]]
+
+
+def tools_mid_file(bgr: np.ndarray, k: int) -> bytes:
+    """View k of AVIF_MID_DEFAULT: libaom at its default inter tools on the
+    view translated twice by inter_mid_shift(k), once, then the view."""
+    import torch_avif_oracles as oracle
+
+    dy, dx = inter_mid_shift(k)
+    stream = oracle.libaom_encode_frames(
+        [yuv_planes(translated(bgr, dy * t, dx * t), 6) for t in (2, 1, 0)],
+        8, 1, 1, controls={"cpu-used": 6, "cq-level": 20})
+    return inter_avif(stream, bgr.shape[1], bgr.shape[0], 8, "420")
+
+
+def generate_inter_tools(folder: str = FOLDER, mid_scene: str | None = None
+                         ) -> dict:
+    """The inter tools' fixtures: AVIF_TOOLS_CASES but the moved files
+    (each a seeded search for the first file that cv2 reads as the port
+    does and that uses what the file is for), the TIMING_TOOLS view (and,
+    given the folder of make_synth_scene --preset mid, AVIF_MID_DEFAULT's
+    views); returns the SHA-256 of cv2's decode of TIMING_TOOLS."""
+    import hashlib
+
+    import cv2
+
+    import torch_avif_oracles as oracle
+    from gsplat_tpu_torch.utils.image_io import read_avif
+
+    p = lambda name: os.path.join(folder, name)       # noqa: E731
+    # compound prediction's controls, off in every file here: libaom's
+    # files that use it, or skip mode, are passed over
+    no_compound = dict.fromkeys(oracle.COMPOUND_TOOLS, 0)
+
+    def find(name, make, uses, tries=200):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "probe.avif")
+            for seed in range(tries):
+                data = make(np.random.default_rng(seed))
+                with open(path, "wb") as f:
+                    f.write(data)
+                want = cv2.imread(path)
+                try:
+                    got = read_avif(path)
+                except RuntimeError:
+                    continue
+                if want is not None and (got == want[..., ::-1]).all() \
+                        and uses(tools_info(data)):
+                    with open(p(name), "wb") as f:
+                        f.write(data)
+                    return
+        raise SystemExit(f"no file of {tries} makes {name}")
+
+    def frames(r, n, warped=False, kind=None):
+        h, w = int(r.integers(56, 120)), int(r.integers(64, 160))
+        img = oracle.avif_image(kind or str(r.choice(["photo", "smooth",
+                                                      "noise"])), h, w, r)
+        if warped:
+            return warped_frames(img, n, float(r.uniform(-8, 8)),
+                                 float(r.uniform(0.9, 1.1)),
+                                 float(r.uniform(-3, 3)),
+                                 float(r.uniform(-3, 3)))
+        return inter_frames(img, n, int(r.integers(-4, 5)),
+                            int(r.integers(-4, 5)))
+
+    for i, (depth, fmt) in enumerate(AVIF_TOOLS_FORMATS):
+        ctl = {**no_compound, "cpu-used": i % 7, "cq-level": 12 + 4 * i}
+        find(f"avif_tools_d{depth}_{fmt}.avif", lambda r: inter_item(
+            frames(r, 4, warped=i % 3 == 2, kind="photo"), depth, fmt,
+            controls=ctl), lambda t: t[0] > 0 and t[1] > 0)
+    find("avif_tools_sb128_tiles.avif", lambda r: inter_item(
+        inter_frames(oracle.avif_image("photo", 136, 296, r), 4,
+                     int(r.integers(-4, 5)), int(r.integers(-4, 5))), 8,
+        "420", controls={**no_compound, "cpu-used": 3, "superblock-size": 1,
+                         "tile-columns": 1, "tile-rows": 1}),
+        lambda t: t[0] > 0 and t[1] > 0)
+    find("avif_tools_grain.avif", lambda r: inter_item(
+        frames(r, 4, kind="photo"), 10, "420", controls={
+            **no_compound, "cpu-used": 4, "film-grain-test-vector": 3}),
+        lambda t: t[0] > 0 and t[1] > 0)
+    for tool, ctl in AVIF_TOOLS_ALONE.items():
+        on = {ctl: 1}
+        if tool.startswith("interintra"):
+            on["enable-interintra-comp"] = 1
+        find(f"avif_tool_{tool}.avif", lambda r: inter_item(
+            frames(r, int(r.integers(3, 5)), warped=tool == "global"), 8,
+            "420", controls={**oracle.INTER_TOOLS_OFF, **on,
+                             "cpu-used": int(r.integers(0, 5)),
+                             "cq-level": int(r.integers(10, 50))}),
+            lambda t: t[AVIF_TOOLS_COUNTER[tool]] > 0)
+    find("avif_tools_rotzoom.avif", lambda r: inter_item(
+        frames(r, 4, warped=True), 8, "420", controls={
+            **no_compound, "cpu-used": int(r.integers(0, 5)),
+            "cq-level": int(r.integers(10, 40))}),
+        lambda t: t[4] > 0 and t[5] > 0 and t[2] > 0)
+
+    def flipped(r, name="avif_tools_d8_444.avif"):
+        with open(p(name), "rb") as f:
+            obu, props = oracle.item_parts(f.read())
+        data = bytearray(obu)
+        data[int(r.integers(len(data) // 3, len(data)))] ^= \
+            1 << int(r.integers(8))
+        return oracle.build_avif(bytes(data), props)
+    find("avif_tools_invalid_warp.avif", flipped, lambda t: t[3] > 0,
+         tries=20000)
+    view = cv2.imread(p(TIMING))
+    dy, dx = TIMING_INTER_SHIFT
+    stream = oracle.libaom_encode_frames(
+        [yuv_planes(translated(view, dy * t, dx * t), 6)
+         for t in (3, 2, 1, 0)], 8, 1, 1,
+        controls={"cpu-used": 3, "cq-level": 28})
+    with open(p(TIMING_TOOLS), "wb") as f:
+        f.write(inter_avif(stream, view.shape[1], view.shape[0], 8, "420"))
+    dec = np.ascontiguousarray(cv2.imread(p(TIMING_TOOLS))[..., ::-1])
+    if mid_scene is not None:
+        src = os.path.join(mid_scene, "images_4")
+        os.makedirs(p(AVIF_MID_DEFAULT), exist_ok=True)
+        for k, name in enumerate(sorted(os.listdir(src))):
+            with open(p(os.path.join(AVIF_MID_DEFAULT, name[:-4] + ".avif")),
+                      "wb") as f:
+                f.write(tools_mid_file(cv2.imread(os.path.join(src, name)),
+                                       k))
+    return {TIMING_TOOLS: hashlib.sha256(dec.tobytes()).hexdigest()}
 
 
 _JPEGW = r"""
@@ -3315,6 +3522,15 @@ if __name__ == "__main__":
         _write_wants(AVIF_INTER_CASES)
         _check_cv2_refuses()
         print(f"inter SHA-256 for TIMING_AVIF = {shas!r}")
+        result = check()
+        print({k: v for k, v in result.items() if not v})
+        sys.exit(0)
+    if sys.argv[1:2] == ["--inter-tools"]:  # the inter tools at libaom's
+        shas = generate_inter_tools(        # defaults; --inter-tools SCENE
+            mid_scene=(sys.argv[2:] or [None])[0])   # also the mid views
+        _write_wants(AVIF_TOOLS_CASES)
+        _check_cv2_refuses()
+        print(f"inter tools SHA-256 for TIMING_AVIF = {shas!r}")
         result = check()
         print({k: v for k, v in result.items() if not v})
         sys.exit(0)
