@@ -113,11 +113,13 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   copies in libaom's superres and delta loop filter and in the matrices
   libavif converts on its own path, and from libaom's key-frame-plus-inter
   copies and its copies at its default inter tools (motion-field
-  projection, warped and global motion, OBMC, inter-intra) (the views of
-  those kinds, of a frame libavif scales, of a key frame then an inter
-  frame and of four frames at libaom's default inter tools decoded to
-  cv2's SHA-256 too, each shown using its tool), each AVIF leg's last l1
-  within the JPEG leg's bound of the PNG leg's.
+  projection, warped and global motion, OBMC, inter-intra) and at every
+  default of libaom, compound prediction and skip mode among them (the
+  views of those kinds, of a frame libavif scales, of a key frame then an
+  inter frame, of four frames at libaom's default inter tools and of four
+  at every default decoded to cv2's SHA-256 too, each shown using its
+  tool, the compound view timed beside cv2's default file), each AVIF
+  leg's last l1 within the JPEG leg's bound of the PNG leg's.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -1616,13 +1618,15 @@ def at_scale_path(rz, dev):
             rz, scene, root)
         mid_png_leg, avif_leg, avif_screen_leg, avif_grain_leg, \
             avif_avis_leg, avif_colour_leg, avif_libavif_leg, \
-            avif_inter_leg, avif_default_leg = avif_path(rz, root)
+            avif_inter_leg, avif_default_leg, avif_compound_leg = \
+            avif_path(rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
             gif_leg, mid_png_leg, avif_leg, avif_screen_leg,
             avif_grain_leg, avif_avis_leg, avif_colour_leg,
-            avif_libavif_leg, avif_inter_leg, avif_default_leg), scale_rows
+            avif_libavif_leg, avif_inter_leg, avif_default_leg,
+            avif_compound_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -2210,7 +2214,9 @@ def image_formats_path(rz, scene, root):
 # an ispe of 1297x840 (libavif scales it: LIBAVIF_TOOLS); libaom's
 # key frame of it translated, then an inter frame of it, and libaom at its
 # default inter tools on the view translated twice, then the view itself
-# (INTER_TOOLS)
+# (INTER_TOOLS); libaom at every default, compound prediction's too, on
+# the view moved three times with sensor noise, then the view (its compound
+# and skip-mode blocks: COMPOUND_VIEW, timed against AVIF_TIMED's first)
 AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_d12_1297x840.avif", "timing_lossless_320x208.avif",
               "timing_screen_1297x840.avif", "timing_422_1297x840.avif",
@@ -2224,7 +2230,10 @@ AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_superres_1297x840.avif",
               "timing_deltalf_1297x840.avif", "timing_ycgco_1297x840.avif",
               "timing_scaled_1297x840.avif", "timing_inter_1297x840.avif",
-              "timing_tools_1297x840.avif")
+              "timing_tools_1297x840.avif", "timing_compound_1297x840.avif")
+# the view of compound prediction and skip mode, whose decode must count
+# compound blocks and skip-mode blocks (decode_av1's info[67:72])
+COMPOUND_VIEW = "timing_compound_1297x840.avif"
 AVIF_REPS = 3
 # the view whose palette and intra block copy blocks the phase counts
 AVIF_SCREEN_VIEW = "timing_screen_1297x840.avif"
@@ -2300,7 +2309,10 @@ def avif_path(rz, root):
     committed AVIF_MID_INTER views (libaom's key frame of the view
     translated, then an inter frame of it) and the committed
     AVIF_MID_DEFAULT views (libaom at its default inter tools: a key frame,
-    then two inter frames); each view's mean |AVIF - PNG|; (c)
+    then two inter frames) and the committed AVIF_MID_COMPOUND views
+    (libaom at every default, compound prediction's too: a key frame, then
+    three inter frames, their compound and skip-mode blocks counted above
+    0); each view's mean |AVIF - PNG|; (c)
     run_garden_7k over iterations
     0..JPEG_ITERS - 1 of the RGB schedule from the PNG scene and from each
     AVIF scene, each AVIF leg's last logged l1 within d + JPEG_L1_DRIFT ·
@@ -2308,8 +2320,10 @@ def avif_path(rz, root):
     views, the JPEG and GIF legs' rule), every leg's it/s.  → (the PNG
     leg's launches, the cv2 AVIF leg's, the screen AVIF leg's, the grain
     AVIF leg's, the avis leg's, the colour leg's, the libavif leg's, the
-    inter leg's, the default inter tools' leg's).  LIBAVIF_TOOLS' and
-    INTER_TOOLS' views are shown using their tools."""
+    inter leg's, the default inter tools' leg's, the compound leg's).
+    LIBAVIF_TOOLS' and INTER_TOOLS' views are shown using their tools,
+    COMPOUND_VIEW's compound and skip-mode blocks counted and its
+    read_avif seconds printed beside AVIF_TIMED's first's."""
     import hashlib
 
     import torch
@@ -2408,6 +2422,17 @@ def avif_path(rz, root):
         print(f"  {name}: {json.dumps(tools)}", flush=True)
         check(all(tools[k] > 0 for k in needs),
               f"{name}: the decode used none of some of {needs}: {tools}")
+    default, comp = np.mean(secs[AVIF_TIMED[0]]), np.mean(secs[COMPOUND_VIEW])
+    print(f"  {COMPOUND_VIEW}: read_avif {comp:.4f} s a call, "
+          f"{comp / default:.2f}x {AVIF_TIMED[0]}'s {default:.4f} s (this "
+          f"call, host: {host})", flush=True)
+    with open(os.path.join(fx.FOLDER, COMPOUND_VIEW), "rb") as f:
+        counts = compound_counts(fx.compound_info(f.read()))
+    print(f"  {COMPOUND_VIEW}: {json.dumps(counts)}", flush=True)
+    check(sum(counts["compound_blocks"].values()) > 0 and
+          counts["skip_mode_blocks"] > 0,
+          f"{COMPOUND_VIEW} decoded no compound or no skip-mode block: "
+          f"{counts}")
     for name, needs in INTER_TOOLS.items():
         with open(os.path.join(fx.FOLDER, name), "rb") as f:
             heif = image_io._Heif(f.read(), name)
@@ -2451,7 +2476,8 @@ def avif_path(rz, root):
                          ("avif_colour", fx.AVIF_MID_COLOUR),
                          ("avif_libavif", fx.AVIF_MID_LIBAVIF),
                          ("avif_inter", fx.AVIF_MID_INTER),
-                         ("avif_default", fx.AVIF_MID_DEFAULT)):
+                         ("avif_default", fx.AVIF_MID_DEFAULT),
+                         ("avif_compound", fx.AVIF_MID_COMPOUND)):
         sc, images, _ = _format_scene(scene, root, f"scene_{kind}", ".avif")
         committed = os.path.join(fx.FOLDER, folder)
         avifs = sorted(os.listdir(committed))
@@ -2468,6 +2494,22 @@ def avif_path(rz, root):
                   f"{avif}: {a.shape} vs the PNG's {b.shape}")
             means[kind].append(float(np.mean(np.abs(
                 a.astype(np.float64) - b))) / 255.0)
+        if kind == "avif_compound":
+            views = []
+            for n in avifs:
+                with open(os.path.join(committed, n), "rb") as f:
+                    views.append(compound_counts(fx.compound_info(f.read())))
+            used = sum(sum(v["compound_blocks"].values()) > 0 and
+                       v["skip_mode_blocks"] > 0 for v in views)
+            total = {t: sum(v["compound_blocks"][t] for v in views)
+                     for t in views[0]["compound_blocks"]}
+            skips = sum(v["skip_mode_blocks"] for v in views)
+            print(f"  {folder}: {used} of {len(views)} views with compound "
+                  f"and skip-mode blocks; compound blocks by type "
+                  f"{json.dumps(total)}, skip-mode blocks {skips}",
+                  flush=True)
+            check(sum(total.values()) > 0 and skips > 0,
+                  f"{folder}: no compound or skip-mode block decoded")
         size = sum(os.path.getsize(os.path.join(committed, n))
                    for n in avifs)
         print(f"  {folder}: {len(avifs)} AVIF views, {size} bytes; mean "
@@ -2498,7 +2540,8 @@ def avif_path(rz, root):
     png = l1_by_iteration(runs["png"][2])
     ps = runs["png"][0]
     for kind in ("avif", "avif_screen", "avif_grain", "avif_avis",
-                 "avif_colour", "avif_libavif", "avif_inter", "avif_default"):
+                 "avif_colour", "avif_libavif", "avif_inter", "avif_default",
+                 "avif_compound"):
         l1 = l1_by_iteration(runs[kind][2])
         check(len(l1) >= JPEG_ITERS // 50 and
               all(np.isfinite(list(l1.values()))),
@@ -2523,7 +2566,17 @@ def avif_path(rz, root):
     return runs["png"][1], runs["avif"][1], runs["avif_screen"][1], \
         runs["avif_grain"][1], runs["avif_avis"][1], \
         runs["avif_colour"][1], runs["avif_libavif"][1], \
-        runs["avif_inter"][1], runs["avif_default"][1]
+        runs["avif_inter"][1], runs["avif_default"][1], \
+        runs["avif_compound"][1]
+
+
+def compound_counts(t) -> dict:
+    """torch_make_image_fixtures.compound_info's counts of an AVIF item,
+    named: compound blocks by type, skip-mode blocks, single-reference
+    blocks beside a compound neighbour."""
+    return dict(compound_blocks=dict(zip(
+        ("average", "distance", "wedge", "diffwtd"), t[:4])),
+        skip_mode_blocks=t[4], single_beside_compound=t[5])
 
 
 def finite(x):
@@ -3861,7 +3914,7 @@ def main() -> int:
      at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif, mid_png,
      mid_avif, mid_avif_screen, mid_avif_grain, mid_avif_avis,
      mid_avif_colour, mid_avif_libavif, mid_avif_inter,
-     mid_avif_default), \
+     mid_avif_default, mid_avif_compound), \
         scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
@@ -3918,6 +3971,7 @@ def main() -> int:
              "mid AVIF libavif run": mid_avif_libavif,
              "mid AVIF inter run": mid_avif_inter,
              "mid AVIF default inter tools run": mid_avif_default,
+             "mid AVIF compound run": mid_avif_compound,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

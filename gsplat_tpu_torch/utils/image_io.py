@@ -2918,9 +2918,9 @@ def _load_avif_codec():
     lib.av1_lr_wiener.argtypes = [vp, i, vp, i, i, i, vp, i]
     lib.av1_lr_sgr.argtypes = [vp, i, vp, i, i, i, i, vp, i]
     lib.av1_inter_convolve.restype = None
-    lib.av1_inter_convolve.argtypes = [vp, i, vp, i, i, i, i, i, i, i, i]
+    lib.av1_inter_convolve.argtypes = [vp, i, vp, i, i, i, i, i, i, i, i, i]
     for name, args in (
-            ("av1_warp", [vp, vp, vp] + [i] * 3 + [vp] + [i] * 8),
+            ("av1_warp", [vp, vp, vp] + [i] * 3 + [vp] + [i] * 9),
             ("av1_shear", [vp, vp]),
             ("av1_projection", [i, vp, vp] + [i] * 6 + [vp, vp]),
             ("av1_select_samples", [i, i, vp, vp, i, i, i]),
@@ -2928,11 +2928,19 @@ def _load_avif_codec():
             ("av1_obmc_blend", [vp, i, vp, i, i, i, i]),
             ("av1_interintra_blend", [vp, i, vp, i] + [i] * 7),
             ("av1_wedge_mask", [i, i, i, vp]),
-            ("av1_refsubexpfin", [vp, ll, i, i, vp])):
+            ("av1_refsubexpfin", [vp, ll, i, i, vp]),
+            ("av1_comp_average", [vp, i, vp, vp] + [i] * 6),
+            ("av1_comp_mask_blend", [vp, i, vp, vp, i, vp] + [i] * 6),
+            ("av1_diffwtd_mask", [vp, i, vp, vp] + [i] * 4),
+            ("av1_dist_weights", [i] * 4 + [vp]),
+            ("av1_ref_contexts", [i] * 10 + [vp])):
         getattr(lib, name).argtypes = args
     lib.av1_warp.restype = lib.av1_obmc_blend.restype = None
     lib.av1_mv_projection.restype = lib.av1_wedge_mask.restype = None
     lib.av1_interintra_blend.restype = None
+    for name in ("av1_comp_average", "av1_comp_mask_blend",
+                 "av1_diffwtd_mask", "av1_dist_weights", "av1_ref_contexts"):
+        getattr(lib, name).restype = None
     return lib
 
 
@@ -4480,7 +4488,7 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
                                f"does)")
         raise RuntimeError(f"{path}: AV1 data cv2 does not read: {msg}")
     try:
-        info = (ctypes.c_longlong * 67)()
+        info = (ctypes.c_longlong * 73)()
         lib.av1_info(handle, info)
         info = list(info)
         width, height, _, subx, suby, mono = info[:6]
@@ -4702,14 +4710,13 @@ def read_avif(path) -> np.ndarray:
     under a colour av1C at any depth and range; scalability metadata;
     several frames (libaom outputs the last one shown): intra-only
     frames, hidden key and inter frames that a show_existing_frame header
-    shows, inter frames predicted from single references with
-    motion-field projection, local warped and global motion, OBMC and
-    inter-intra (the inter tools libaom's encoder uses at its defaults).
+    shows, inter frames with motion-field projection, local warped and
+    global motion, OBMC, inter-intra, compound prediction and skip mode
+    (the inter tools libaom's encoder uses at its defaults).
     Raises ``RuntimeError`` naming the file where cv2 returns None
     (OpenCV's own 500-byte signature test included; an iloc construction
     method 2), and naming the tool for what the port does not read yet
-    (compound prediction, skip mode, references of another size or with
-    superres, switch frames)."""
+    (references of another size or with superres, switch frames)."""
     with open(path, "rb") as f:
         data = f.read()
     return _decode_avif_bytes(data, path)

@@ -407,9 +407,10 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     # through utils/image_io, equal to what JAX reads with cv2 (Pillow's
     # 4:2:2 and film grain AVIFs and a grid too, against cv2's recorded
     # decodes, cv2's file with a SMPTE 240 nclx, which libavif converts on
-    # its own path, an intra-only frame first and libaom's OBMC); a kind the
-    # port does not read yet (here compound prediction in an inter frame)
-    # raises an error naming the file and the kind
+    # its own path, an intra-only frame first, libaom's OBMC and compound
+    # prediction); a kind the port does not read yet (here a reference
+    # frame of another size than the inter frame) raises an error naming
+    # the file and the kind
     cv2 = pytest.importorskip("cv2")
     from gsplat_tpu_torch.models.splatter import load_scene_camera_groups, \
         read_image
@@ -433,17 +434,18 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     np.testing.assert_array_equal(read_image(str(avif)), want_avif)
     images = os.path.join(os.path.dirname(__file__), "torch_images")
     for name in ("avif_pil_422", "avif_pil_grain", "avif_grid",
-                 "avif_smpte240", "avif_intra_only", "avif_unported_obmc"):
+                 "avif_smpte240", "avif_intra_only", "avif_unported_obmc",
+                 "avif_unported_compound"):
         np.testing.assert_array_equal(
             read_image(os.path.join(images, name + ".avif")),
             read_png(os.path.join(images, name + ".want.png")))
-    other = tmp_path / "photo_compound.avif"
+    other = tmp_path / "photo_ref_size.avif"
     other.write_bytes(open(os.path.join(images,
-                                        "avif_unported_compound.avif"),
+                                        "avif_unported_ref_size.avif"),
                            "rb").read())
-    with pytest.raises(RuntimeError, match="photo_compound.avif: an AVIF "
-                                           "image with compound prediction"
-                                           ".*not read yet"):
+    with pytest.raises(RuntimeError, match="photo_ref_size.avif: an AVIF "
+                                           "image with a reference frame of "
+                                           "another size.*not read yet"):
         read_image(str(other))
 
 

@@ -1418,16 +1418,17 @@ def libaom_convolve(src: np.ndarray, w: int, h: int, filter_x: int,
 
 def port_convolve(src: np.ndarray, w: int, h: int, filter_x: int,
                   filter_y: int, subpel_x: int, subpel_y: int,
-                  depth: int) -> np.ndarray:
+                  depth: int, compound: bool = False) -> np.ndarray:
     """The codec's inter predictor filter alone (``av1_inter_convolve``) on
-    the block of ``libaom_convolve``'s ``src``."""
+    the block of ``libaom_convolve``'s ``src``: samples, or with
+    ``compound`` a compound prediction's intermediate precision."""
     from gsplat_tpu_torch.utils import image_io
     lib = image_io._load_avif_codec()
     s = np.ascontiguousarray(src.astype(np.uint16))
     dst = np.zeros((h, w), np.uint16)
     lib.av1_inter_convolve(s.ctypes.data + (3 * s.shape[1] + 3) * 2,
                            s.shape[1], dst.ctypes.data, w, w, h, filter_x,
-                           filter_y, subpel_x, subpel_y, depth)
+                           filter_y, subpel_x, subpel_y, depth, int(compound))
     return dst
 
 
@@ -1749,8 +1750,10 @@ AOM_INTER_CONTROLS = {
     "enable-reduced-reference-set": 125, "max-reference-frames": 124,
     "superblock-size": 56, "aq-mode": 40, "film-grain-test-vector": 112,
     "error-resilient-mode": 38}
-# the tools of the next slice switched off: libaom's good-quality encoder
-# then writes single-reference inter frames the port reads
+# libaom's inter tools switched off (each is on by default): its
+# good-quality encoder then writes single-reference inter frames with
+# neither motion-field projection nor warped, global, OBMC or inter-intra
+# prediction
 INTER_TOOLS_OFF = {
     "enable-obmc": 0, "enable-warped-motion": 0, "enable-global-motion": 0,
     "enable-ref-frame-mvs": 0, "enable-onesided-comp": 0,
@@ -1758,8 +1761,7 @@ INTER_TOOLS_OFF = {
     "enable-diff-wtd-comp": 0, "enable-interintra-comp": 0,
     "enable-interinter-wedge": 0, "enable-interintra-wedge": 0,
     "enable-smooth-interintra": 0}
-# the controls of compound prediction (and so skip mode) among them, the
-# next slice's tools
+# the controls of compound prediction (and so skip mode) among them
 COMPOUND_TOOLS = ("enable-onesided-comp", "enable-masked-comp",
                   "enable-dist-wtd-comp", "enable-diff-wtd-comp",
                   "enable-interinter-wedge")
@@ -1784,12 +1786,14 @@ def libaom_encode(planes, depth: int, subx: int, suby: int, *,
 def libaom_encode_frames(frames, depth: int, subx: int, suby: int, *,
                          usage: int = 0, superres=None, resize=None,
                          sframe_dist: int = 0, flags=None, mono=False,
-                         controls=None) -> bytes:
-    """``libaom_encode`` of several frames (each [Y, U, V]) with no lag:
-    their temporal units one after another, the first a key frame, the
-    others (usage 0, good quality) inter frames; ``controls`` may also name
-    ``AOM_INTER_CONTROLS`` (``INTER_TOOLS_OFF`` switches off the inter
-    tools the port does not read yet); ``resize`` = (mode, denominator,
+                         lag: int = 0, controls=None) -> bytes:
+    """``libaom_encode`` of several frames (each [Y, U, V]) with ``lag``
+    frames of lookahead (0: none; libaom's own default, 35, lets it code a
+    later frame first as a hidden ALTREF, a backward reference): their
+    temporal units one after another, the first a key frame, the others
+    (usage 0, good quality) inter frames; ``controls`` may also name
+    ``AOM_INTER_CONTROLS`` (``INTER_TOOLS_OFF`` switches every inter
+    tool off); ``resize`` = (mode, denominator,
     key-frame denominator) sets ``rc_resize_*`` (frames coded at another
     size than their references), ``sframe_dist`` the distance of switch
     frames, ``flags`` {frame index: its aom_enc_frame_flags_t}; ``mono``
@@ -1807,7 +1811,7 @@ def libaom_encode_frames(frames, depth: int, subx: int, suby: int, *,
     f[2] = 2 if depth == 12 or (subx and not suby) else 1 if not subx else 0
     f[3], f[4], f[5] = w, h, len(frames)
     f[8] = f[9] = depth
-    f[14] = 0
+    f[14] = lag
     if superres is not None:
         f[19], f[20], f[21] = superres
     if resize is not None:
@@ -1835,7 +1839,9 @@ def libaom_encode_frames(frames, depth: int, subx: int, suby: int, *,
         ptrs = struct.unpack("<3Q", ctypes.string_at(img + 64, 24))
         strides = struct.unpack("<3i", ctypes.string_at(img + 88, 12))
         out = b""
-        for pts, planes in enumerate(list(frames) + [None]):
+        # the frames, then flushes (None) until the lookahead is drained
+        flushes = 1 + min(lag, len(frames))
+        for pts, planes in enumerate(list(frames) + [None] * flushes):
             if planes is not None:
                 if mono:
                     c = np.full(((h + suby) >> suby, (w + subx) >> subx),
@@ -2292,14 +2298,14 @@ def libaom_warp(mat, shear, ref: np.ndarray, p_col: int, p_row: int,
 
 
 def port_warp(mat, shear, ref: np.ndarray, p_col: int, p_row: int, pw: int,
-              ph: int, ssx: int, ssy: int, depth: int):
+              ph: int, ssx: int, ssy: int, depth: int, compound: bool = False):
     r = np.ascontiguousarray(ref.astype(np.uint16))
     pred = np.zeros((ph, pw), np.uint16)
     m = np.array(mat, np.int32)
     sh = np.array(shear, np.int16)
     _port().av1_warp(m.ctypes.data, sh.ctypes.data, r.ctypes.data,
                      r.shape[1], r.shape[0], r.shape[1], pred.ctypes.data,
-                     p_col, p_row, pw, ph, pw, ssx, ssy, depth)
+                     p_col, p_row, pw, ph, pw, ssx, ssy, depth, int(compound))
     return pred
 
 
@@ -2409,6 +2415,283 @@ def port_interintra_blend(intra: np.ndarray, inter: np.ndarray, bsize: int,
     _port().av1_interintra_blend(d.ctypes.data, w, b.ctypes.data, w, bsize,
                                  psz, sx, sy, mode, wedge, index)
     return d
+
+
+# ------------------------------------------------- compound prediction
+
+
+def _conv_params(depth: int, dst16: int = 0, stride: int = 0,
+                 average: int = 0, dist=None) -> ctypes.Array:
+    """libaom's ConvolveParams of a compound prediction
+    (get_conv_params_no_round with is_compound): do_average, dst (its
+    CONV_BUF), dst_stride, round_0 (3; 5 at 12 bits), round_1 (7), plane,
+    is_compound, use_dist_wtd_comp_avg, fwd_offset, bck_offset."""
+    fwd, bck = dist or (8, 8)
+    return ctypes.create_string_buffer(struct.pack(
+        "<i4xQiiiiiiii", average, dst16, stride, 5 if depth == 12 else 3, 7,
+        0, 1, int(dist is not None), fwd, bck))
+
+
+_COMP_KINDS = {"2d": "2d", "x": "x", "y": "y", "copy": "2d_copy"}
+
+
+def libaom_comp_convolve(src: np.ndarray, w: int, h: int, filter_x: int,
+                         filter_y: int, subpel_x: int, subpel_y: int,
+                         depth: int, kind: str = "2d", second=None,
+                         dist=None) -> np.ndarray:
+    """libaom's compound convolution by symbol
+    (av1_dist_wtd_convolve_{2d,x,y,2d_copy}_c, their highbd forms above 8
+    bits) of the block of ``src`` (as ``libaom_convolve``'s; "x" wants
+    subpel_y 0, "y" subpel_x 0, "copy" both): the prediction's intermediate
+    precision (its CONV_BUF, (h, w) uint16); with ``second`` = (src,
+    subpel_x, subpel_y) of a second prediction, the two averaged (with
+    ``dist`` = (fwd, bck), weighted) to samples."""
+    hbd = depth > 8
+    dt = np.uint16 if hbd else np.uint8
+    conv = np.zeros((h, w), np.uint16)
+    out = np.zeros((h, w), dt)
+    fx, fy = _filter_params(filter_x, w), _filter_params(filter_y, h)
+    pre = "av1_highbd_dist_wtd_convolve_" if hbd else "av1_dist_wtd_convolve_"
+    fn_args = {"2d": [_VP, _VP, _I, _I], "x": [_VP, _I], "y": [_VP, _I],
+               "copy": []}[kind]
+    fn = libaom_function(f"{pre}{_COMP_KINDS[kind]}_c", None, _VP, _I, _VP,
+                         _I, _I, _I, *fn_args, _VP, *([_I] if hbd else []))
+
+    def call(block, sx, sy, params):
+        b = np.ascontiguousarray(block.astype(dt))
+        at = b.ctypes.data + (3 * b.shape[1] + 3) * b.itemsize
+        extra = {"2d": [fx, fy, sx, sy], "x": [fx, sx], "y": [fy, sy],
+                 "copy": []}[kind]
+        fn(at, b.shape[1], out.ctypes.data, w, w, h, *extra, params,
+           *([depth] if hbd else []))
+    call(src, subpel_x, subpel_y, _conv_params(depth, conv.ctypes.data, w))
+    if second is None:
+        return conv
+    call(second[0], second[1], second[2], _conv_params(
+        depth, conv.ctypes.data, w, 1, dist))
+    return out.astype(np.uint16)
+
+
+def libaom_comp_warp(mat, shear, ref: np.ndarray, p_col: int, p_row: int,
+                     pw: int, ph: int, ssx: int, ssy: int, depth: int
+                     ) -> np.ndarray:
+    """av1_warp_affine_c (av1_highbd_warp_affine_c above 8 bits) of a
+    compound prediction: the block's intermediate precision (its CONV_BUF,
+    (ph, pw) uint16)."""
+    hbd = depth > 8
+    dt = np.uint16 if hbd else np.uint8
+    r = np.ascontiguousarray(ref.astype(dt))
+    pred = np.zeros((ph, pw), dt)
+    conv = np.zeros((ph, pw), np.uint16)
+    m = (ctypes.c_int32 * 6)(*mat)
+    params = _conv_params(depth, conv.ctypes.data, pw)
+    h16 = ctypes.c_int16
+    head = [_VP, _VP, _I, _I, _I, _VP, _I, _I, _I, _I, _I, _I, _I]
+    if hbd:
+        libaom_function("av1_highbd_warp_affine_c", None, *head, _I, _VP,
+                        h16, h16, h16, h16)(
+            m, r.ctypes.data, r.shape[1], r.shape[0], r.shape[1],
+            pred.ctypes.data, p_col, p_row, pw, ph, pw, ssx, ssy, depth,
+            params, *shear)
+    else:
+        libaom_function("av1_warp_affine_c", None, *head, _VP, h16, h16, h16,
+                        h16)(
+            m, r.ctypes.data, r.shape[1], r.shape[0], r.shape[1],
+            pred.ctypes.data, p_col, p_row, pw, ph, pw, ssx, ssy, params,
+            *shear)
+    return conv
+
+
+def port_comp_average(p0: np.ndarray, p1: np.ndarray, depth: int,
+                      dist=None) -> np.ndarray:
+    """The codec's compound average (with ``dist`` = (fwd, bck), distance
+    weights) of two intermediate-precision predictions."""
+    h, w = p0.shape
+    a = np.ascontiguousarray(p0.astype(np.uint16))
+    b = np.ascontiguousarray(p1.astype(np.uint16))
+    out = np.zeros((h, w), np.uint16)
+    fwd, bck = dist or (8, 8)
+    _port().av1_comp_average(out.ctypes.data, w, a.ctypes.data,
+                             b.ctypes.data, w, w, h, fwd, bck, depth)
+    return out
+
+
+def libaom_mask_blend(p0: np.ndarray, p1: np.ndarray, mask: np.ndarray,
+                      subw: int, subh: int, depth: int) -> np.ndarray:
+    """aom_lowbd_blend_a64_d16_mask_c (aom_highbd_blend_a64_d16_mask_c above
+    8 bits): two intermediate-precision predictions of a plane, (h, w),
+    blended by a mask at the luma block's size (subsampled by subw,
+    subh)."""
+    h, w = p0.shape
+    hbd = depth > 8
+    a = np.ascontiguousarray(p0.astype(np.uint16))
+    b = np.ascontiguousarray(p1.astype(np.uint16))
+    m = np.ascontiguousarray(mask.astype(np.uint8))
+    d = np.zeros((h, w), np.uint16 if hbd else np.uint8)
+    u32 = ctypes.c_uint32
+    args = [_VP, u32, _VP, u32, _VP, u32, _VP, u32, _I, _I, _I, _I, _VP]
+    params = _conv_params(depth)
+    if hbd:
+        libaom_function("aom_highbd_blend_a64_d16_mask_c", None, *args, _I)(
+            _hbd(d), w, a.ctypes.data, w, b.ctypes.data, w, m.ctypes.data,
+            m.shape[1], w, h, subw, subh, params, depth)
+    else:
+        libaom_function("aom_lowbd_blend_a64_d16_mask_c", None, *args)(
+            d.ctypes.data, w, a.ctypes.data, w, b.ctypes.data, w,
+            m.ctypes.data, m.shape[1], w, h, subw, subh, params)
+    return d.astype(np.uint16)
+
+
+def port_mask_blend(p0: np.ndarray, p1: np.ndarray, mask: np.ndarray,
+                    subw: int, subh: int, depth: int) -> np.ndarray:
+    h, w = p0.shape
+    a = np.ascontiguousarray(p0.astype(np.uint16))
+    b = np.ascontiguousarray(p1.astype(np.uint16))
+    m = np.ascontiguousarray(mask.astype(np.uint8))
+    out = np.zeros((h, w), np.uint16)
+    _port().av1_comp_mask_blend(out.ctypes.data, w, a.ctypes.data,
+                                b.ctypes.data, w, m.ctypes.data, m.shape[1],
+                                w, h, subw, subh, depth)
+    return out
+
+
+def libaom_diffwtd_mask(p0: np.ndarray, p1: np.ndarray, inverse: int,
+                        depth: int) -> np.ndarray:
+    """av1_build_compound_diffwtd_mask_d16_c: the difference-weighted mask
+    (DIFFWTD_38, or DIFFWTD_38_INV) of two luma predictions."""
+    h, w = p0.shape
+    a = np.ascontiguousarray(p0.astype(np.uint16))
+    b = np.ascontiguousarray(p1.astype(np.uint16))
+    mask = np.zeros((h, w), np.uint8)
+    libaom_function("av1_build_compound_diffwtd_mask_d16_c", None, _VP, _I,
+                    _VP, _I, _VP, _I, _I, _I, _VP, _I)(
+        mask.ctypes.data, inverse, a.ctypes.data, w, b.ctypes.data, w, h, w,
+        _conv_params(depth), depth)
+    return mask
+
+
+def port_diffwtd_mask(p0: np.ndarray, p1: np.ndarray, inverse: int,
+                      depth: int) -> np.ndarray:
+    h, w = p0.shape
+    a = np.ascontiguousarray(p0.astype(np.uint16))
+    b = np.ascontiguousarray(p1.astype(np.uint16))
+    mask = np.zeros((h, w), np.uint8)
+    _port().av1_diffwtd_mask(mask.ctypes.data, inverse, a.ctypes.data,
+                             b.ctypes.data, w, w, h, depth)
+    return mask
+
+
+def libaom_dist_weights(cur: int, first: int, second: int, bits: int):
+    """av1_dist_wtd_comp_weight_assign of a compound block (compound_idx 0)
+    whose references LAST and ALTREF have order hints first and second,
+    in a frame of order hint cur (``bits`` OrderHintBits, 0: none): (fwd,
+    bck).  Its AV1_COMMON and MB_MODE_INFO are laid out here at the
+    offsets the library reads (remapped_ref_idx, ref_frame_map, cur_frame,
+    seq_params' order hint fields; ref_frame, compound_idx)."""
+    keep = [ctypes.create_string_buffer(16) for _ in range(3)]
+    for buf, hint in zip(keep, (cur, first, second)):
+        struct.pack_into("<i", buf, 4, hint)          # order_hint
+    seq = ctypes.create_string_buffer(64)
+    struct.pack_into("<ii", seq, 0x28, int(bits > 0), max(bits - 1, 0))
+    cm = ctypes.create_string_buffer(0x6090)
+    struct.pack_into("<7i", cm, 0xF0, 0, -1, -1, -1, -1, -1, 1)
+    struct.pack_into("<QQ", cm, 0x1A0, ctypes.addressof(keep[1]),
+                     ctypes.addressof(keep[2]))
+    struct.pack_into("<Q", cm, 0xE8, ctypes.addressof(keep[0]))
+    struct.pack_into("<Q", cm, 0x6088, ctypes.addressof(seq))
+    mbmi = ctypes.create_string_buffer(0xB0)
+    struct.pack_into("<bb", mbmi, 0x10, 1, 7)
+    fwd, bck, use = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    libaom_function("av1_dist_wtd_comp_weight_assign", None, _VP, _VP, _VP,
+                    _VP, _VP, _I)(cm, mbmi, ctypes.byref(fwd),
+                                  ctypes.byref(bck), ctypes.byref(use), 1)
+    assert use.value == 1
+    return fwd.value, bck.value
+
+
+def port_dist_weights(cur: int, first: int, second: int, bits: int):
+    out = np.zeros(2, np.int32)
+    _port().av1_dist_weights(cur, first, second, bits, out.ctypes.data)
+    return tuple(out.tolist())
+
+
+# libaom's functions of the reference contexts, each to the port's context
+# it equals (av1_ref_contexts' out[2:9]: the single reference's bits 1-6,
+# then LAST2 against LAST3 and GOLDEN)
+REF_CONTEXT_FUNCTIONS = {
+    "av1_get_pred_context_single_ref_p1": 0,
+    "av1_get_pred_context_single_ref_p2": 1,
+    "av1_get_pred_context_single_ref_p3": 2,
+    "av1_get_pred_context_single_ref_p4": 3,
+    "av1_get_pred_context_single_ref_p5": 4,
+    "av1_get_pred_context_single_ref_p6": 5,
+    "av1_get_pred_context_uni_comp_ref_p": 0,
+    "av1_get_pred_context_uni_comp_ref_p1": 6,
+    "av1_get_pred_context_uni_comp_ref_p2": 4,
+    "av1_get_pred_context_comp_ref_p": 2,
+    "av1_get_pred_context_comp_ref_p1": 3,
+    "av1_get_pred_context_comp_ref_p2": 4,
+    "av1_get_pred_context_comp_bwdref_p": 1,
+    "av1_get_pred_context_comp_bwdref_p1": 5}
+
+
+def libaom_ref_contexts(above, left, cur) -> list:
+    """libaom's contexts of a block's references and filters by symbol:
+    av1_get_reference_mode_context, av1_get_comp_reference_type_context,
+    the fourteen av1_get_pred_context_*_ref_p* (in REF_CONTEXT_FUNCTIONS'
+    order) and av1_get_pred_context_switchable_interp of each direction.
+    above, left: None (unavailable) or the neighbour's (ref_frame[0],
+    ref_frame[1], y filter, x filter); cur: the block's (ref_frame[0],
+    ref_frame[1]).  The MACROBLOCKD and MB_MODE_INFOs are laid out here at
+    the offsets the library reads; neighbors_ref_counts is filled as
+    libaom's av1_collect_neighbors_ref_counts (inlined there) fills it."""
+    def mbmi(r0, r1, fy=0, fx=0):
+        b = ctypes.create_string_buffer(0xB0)
+        struct.pack_into("<bb", b, 0x10, r0, r1)
+        struct.pack_into("<HH", b, 0x14, fy, fx)       # interp_filters
+        return b
+    blocks = [mbmi(*cur), mbmi(*(above or (0, -1))),
+              mbmi(*(left or (0, -1)))]
+    # xd->mi: the block's pointer, left of it the left neighbour's, a
+    # stride of 2 before it the above one's
+    grid = (ctypes.c_void_p * 4)(None, ctypes.addressof(blocks[1]),
+                                 ctypes.addressof(blocks[2]),
+                                 ctypes.addressof(blocks[0]))
+    xd = ctypes.create_string_buffer(0x3000)
+    struct.pack_into("<i", xd, 0x8, 2)                      # mi_stride
+    struct.pack_into("<Q", xd, 0x1EB8, ctypes.addressof(grid) + 24)
+    struct.pack_into("<??", xd, 0x1EC0, above is not None, left is not None)
+    struct.pack_into("<QQ", xd, 0x1EC8,
+                     ctypes.addressof(blocks[2]) if left else 0,
+                     ctypes.addressof(blocks[1]) if above else 0)
+    counts = [0] * 8
+    for nb in (above, left):
+        if nb is not None and nb[0] > 0:
+            counts[nb[0]] += 1
+            if nb[1] > 0:
+                counts[nb[1]] += 1
+    struct.pack_into("<8B", xd, 0x298A, *counts)
+    out = [libaom_function(name, _I, _VP)(xd) for name in (
+        "av1_get_reference_mode_context",
+        "av1_get_comp_reference_type_context", *REF_CONTEXT_FUNCTIONS)]
+    interp = libaom_function("av1_get_pred_context_switchable_interp", _I,
+                             _VP, _I)
+    return out + [interp(xd, 0), interp(xd, 1)]
+
+
+def port_ref_contexts(above, left, cur) -> list:
+    """The codec's contexts of the same (``av1_ref_contexts``), in
+    ``libaom_ref_contexts``' order."""
+    out = np.zeros(11, np.int32)
+    a = above or (0, -1, 0, 0)
+    lf = left or (0, -1, 0, 0)
+    _port().av1_ref_contexts(above is not None, a[0], a[1], a[2] | a[3] << 2,
+                             left is not None, lf[0], lf[1],
+                             lf[2] | lf[3] << 2, cur[0], cur[1],
+                             out.ctypes.data)
+    v = out.tolist()
+    return v[:2] + [v[2 + k] for k in REF_CONTEXT_FUNCTIONS.values()] + \
+        v[9:]
 
 
 class _BitBuffer(ctypes.Structure):

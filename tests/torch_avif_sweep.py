@@ -51,10 +51,11 @@ part darkened (a quarter instead rotated, zoomed and moved:
 at a random speed, quantizer, tiling, superblock size, aq-mode, CDEF and
 loop restoration, dual filter, reference count, error resilience, film
 grain (a tenth) and superres or resizing (a twentieth each), each inter
-tool of ``INTER_TOOLS_OFF`` on at random: those the port reads
-(motion-field projection, warped and global motion, OBMC, inter-intra)
-in three files of four, as libaom has them by default, compound
-prediction's in one of four; a tenth each with the
+tool of ``INTER_TOOLS_OFF`` on in three files of four (libaom has every
+one on by default: motion-field projection, warped and global motion,
+OBMC, inter-intra, and compound prediction's controls), libaom's default
+lookahead (35 frames: a hidden ALTREF, backward references) in a third;
+a tenth each with the
 last frame hidden and shown by a show_existing_frame header
 (``hide_last_frame``), with its references short-signaled
 (``short_signal_last_frame``) and made a switch frame
@@ -65,7 +66,8 @@ one in twenty cv2's still as an intra-only frame or a hidden key frame
 by the tool it names; the equal ones by the inter tools they use.
 
 With ``--flips`` every file is instead a committed multi-frame fixture
-(``AVIF_INTER_CASES`` and ``AVIF_TOOLS_CASES``) with one bit of its OBUs
+(``AVIF_INTER_CASES``, ``AVIF_TOOLS_CASES``, ``AVIF_COMPOUND_CASES``) with
+one bit of its OBUs
 flipped (``random_flip``), held to cv2's verdict as above.
 """
 
@@ -433,11 +435,9 @@ def random_inter(rng):
         frames = fx.inter_frames(img, n, int(rng.integers(-6, 7)),
                                  int(rng.integers(-6, 7)))
     usage = 1 if rng.random() < 0.2 else 0
-    # the tools the port reads on in three files of four (libaom's default
-    # is on), compound prediction's in one of four
-    controls = {k: int(rng.random() < (0.25 if k in oracle.COMPOUND_TOOLS
-                                       else 0.75))
-                for k in oracle.INTER_TOOLS_OFF}
+    # each inter tool on in three files of four (libaom's default is on)
+    controls = {k: int(rng.random() < 0.75) for k in oracle.INTER_TOOLS_OFF}
+    lag = 35 if usage == 0 and rng.random() < 1 / 3 else 0
     slow = rng.random() < 0.1 and h * w < 40000
     controls.update({
         "cpu-used": int(rng.integers(0, 3)) if slow else
@@ -467,10 +467,10 @@ def random_inter(rng):
     planes = [fx.inter_planes(f, depth, fmt) for f in frames]
     sx, sy = _INTER_FMTS[fmt]
     stream = _forked(oracle.libaom_encode_frames, planes, depth, sx, sy,
-                     usage=usage, mono=fmt == "400", controls=controls,
-                     **kw)
+                     usage=usage, mono=fmt == "400", lag=lag,
+                     controls=controls, **kw)
     desc = dict(writer="libaom", depth=depth, fmt=fmt, frames=n,
-                usage=usage, grain=grain, **controls, **kw)
+                usage=usage, lag=lag, grain=grain, **controls, **kw)
     if stream is None:
         return None, (h, w, fmt, desc)
     edit = rng.random()
@@ -509,7 +509,8 @@ def random_flip(rng):
     bit of its OBUs flipped."""
     import torch_make_image_fixtures as fx
 
-    names = fx.AVIF_INTER_CASES + fx.AVIF_TOOLS_CASES
+    names = fx.AVIF_INTER_CASES + fx.AVIF_TOOLS_CASES + \
+        fx.AVIF_COMPOUND_CASES
     name = names[int(rng.integers(len(names)))]
     with open(os.path.join(fx.FOLDER, name), "rb") as f:
         obu, props = oracle.item_parts(f.read())
@@ -566,7 +567,10 @@ def main():
                   nearmv=0, globalmv=0, newmv=0, smooth_or_sharp=0,
                   dual_filter=0, ref_frame_mvs=0, temporal=0, local_warp=0,
                   local_warp_invalid=0, global_motion=0, global_warped=0,
-                  obmc=0, interintra_smooth=0, interintra_wedge=0)
+                  obmc=0, interintra_smooth=0, interintra_wedge=0,
+                  compound_average=0, compound_distance=0, compound_wedge=0,
+                  compound_diffwtd=0, skip_mode=0, single_by_compound=0,
+                  lookahead=0)
     end = time.time() + a.seconds
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sweep.avif")
@@ -642,8 +646,12 @@ def main():
                         "ref_frame_mvs", "temporal", "local_warp",
                         "local_warp_invalid", "global_motion",
                         "global_warped", "obmc", "interintra_smooth",
-                        "interintra_wedge")):
+                        "interintra_wedge", "compound_average",
+                        "compound_distance", "compound_wedge",
+                        "compound_diffwtd", "skip_mode",
+                        "single_by_compound")):
                     counts[name] += info[58 + k] > 0
+                counts["lookahead"] += bool(desc[3].get("lag"))
             else:
                 counts["mismatch"] += 1
                 keep(a.keep, data, counts)

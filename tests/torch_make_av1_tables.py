@@ -567,9 +567,26 @@ def collect_inter(elf: Elf, path: str, t: dict):
             ("kInterpFilterCdf", "switchable_interp", 3),
             ("kInterIntraModeCdf", "interintra_mode", 4),
             ("kWedgeInterIntraCdf", "wedge_interintra", 2),
-            ("kWedgeIdxCdf", "wedge_idx", 16)):
+            ("kWedgeIdxCdf", "wedge_idx", 16),
+            ("kCompRefTypeCdf", "comp_ref_type", 2),
+            ("kUniCompRefCdf", "uni_comp_ref", 2),
+            ("kCompRefCdf", "comp_ref", 2),
+            ("kCompBwdRefCdf", "comp_bwdref", 2),
+            ("kCompoundModeCdf", "inter_compound_mode", 8),
+            ("kCompGroupIdxCdf", "comp_group_idx", 2),
+            ("kCompoundIdxCdf", "compound_index", 2),
+            ("kCompoundTypeCdf", "compound_type", 2)):
         t[name] = ("uint16_t", cdf_from_icdf(fc[field], nsym))
     collect_inter_tools(elf, path, t)
+    # compound prediction: compound_mode's context by the single
+    # reference's REFMV and NEWMV contexts, the distance weights and the
+    # distances that choose them
+    t["kCompoundModeCtxMap"] = ("uint8_t", elf.table(
+        "compound_mode_ctx_map", "<i2", (3, 5)))
+    t["kQuantDistLookup"] = ("uint8_t", elf.table(
+        "quant_dist_lookup_table", "<i4", (4, 2)))
+    t["kQuantDistWeight"] = ("uint8_t", elf.table(
+        "quant_dist_weight", "<i4", (4, 2)))
     # the MV context's fractional and high precision CDFs (default_nmv_context)
     nmv = elf.table("default_nmv_context", "<u2", (143,))
     comp = [nmv[5 + 69 * c:5 + 69 * (c + 1)] for c in range(2)]

@@ -354,8 +354,6 @@ AVIF_CASES += AVIF_INTER_CASES
 # file, libaom's, uses one tool of the next slice (the search that found
 # it: generate_inter)
 AVIF_INTER_UNPORTED = {
-    "avif_unported_compound.avif": "compound prediction",
-    "avif_unported_skip_mode.avif": "skip mode",
     "avif_unported_ref_size.avif": "a reference frame of another size",
     "avif_unported_superres_inter.avif": "superres in an inter frame",
     "avif_unported_superres_ref.avif": "superres in a reference frame",
@@ -398,6 +396,37 @@ AVIF_TOOLS_CASES = AVIF_TOOLS_MOVED + [
     f"avif_tool_{t}.avif" for t in AVIF_TOOLS_ALONE] + [
     "avif_tools_rotzoom.avif", "avif_tools_invalid_warp.avif"]
 AVIF_CASES += AVIF_TOOLS_CASES
+# compound prediction and skip mode (generate_compound): the two files the
+# inter slice found refused for them (libaom's, with enable-onesided-comp
+# on and the other inter tools off); libaom's good-quality encoder at every
+# default (compound_item: photo crops, 3-6 frames, speeds 0-2, where libaom
+# takes compound prediction) at 8, 10 and 12 bits in every chroma format,
+# every other file with libaom's default lookahead (a hidden ALTREF: a
+# backward reference, bidirectional pairs); a file for each control of
+# COMPOUND_TOOLS on alone (the masked types' with enable-masked-comp,
+# which gates them, and the two-sided ones with the lookahead), its
+# compound type in use; skip mode with a backward reference; a file whose
+# single-reference blocks read their references beside compound ones (the
+# neighbour counts of both references); each a seeded search for the first
+# file that cv2 reads as the port does and whose last frame shown uses what
+# it is for (the file cut after it: compound_prefix)
+AVIF_COMPOUND_MOVED = ["avif_unported_compound.avif",
+                       "avif_unported_skip_mode.avif"]
+# each control alone: (the controls on over INTER_TOOLS_OFF, the lookahead,
+# the compound_info counter that must be above 0)
+AVIF_COMPOUND_ALONE = {
+    "onesided": ({"enable-onesided-comp": 1}, 0, 0),
+    "dist_wtd": ({"enable-dist-wtd-comp": 1}, 35, 1),
+    "masked": ({"enable-masked-comp": 1}, 35, 0),
+    "interinter_wedge": ({"enable-masked-comp": 1,
+                          "enable-interinter-wedge": 1}, 35, 2),
+    "diff_wtd": ({"enable-masked-comp": 1, "enable-diff-wtd-comp": 1}, 35,
+                 3)}
+AVIF_COMPOUND_CASES = AVIF_COMPOUND_MOVED + [
+    f"avif_compound_d{d}_{f}.avif" for d, f in AVIF_TOOLS_FORMATS] + [
+    f"avif_compound_{t}.avif" for t in AVIF_COMPOUND_ALONE] + [
+    "avif_compound_skip_mode.avif", "avif_compound_neighbours.avif"]
+AVIF_CASES += AVIF_COMPOUND_CASES
 CASES += AVIF_CASES + TIFF_COLOUR_CASES
 REFUSED += AVIF_REFUSED
 # full-size AVIF views for chip_smoke's decode seconds and the SHA-256 of
@@ -522,6 +551,14 @@ TIMING_AVIF[TIMING_INTER] = ("a1fc231400adb1118b4bd47877efdc98"
 TIMING_TOOLS = "timing_tools_1297x840.avif"
 TIMING_AVIF[TIMING_TOOLS] = ("b12a21884d251f30c3b30f3b7faa3abb"
                              "af6a4789dd1b7fbf3c83b7ae31f50e37")
+# the full-size view of compound prediction (generate_compound): libaom at
+# every default on noisy_frames of TIMING (moved by TIMING_INTER_SHIFT,
+# sensor noise on each frame but the last), speed COMPOUND_SPEED, the
+# noise's seed the first that makes libaom take compound and skip-mode
+# blocks (seeds 0 and 1 make it take none)
+TIMING_COMPOUND = "timing_compound_1297x840.avif"
+TIMING_AVIF[TIMING_COMPOUND] = ("0b4669116111e9b923e63f87be3a94a7"
+                                "89cee79d9cb14f9f394b6167a6eb8502")
 # cv2's default AVIF copies of make_synth_scene --preset mid's 24 views
 AVIF_MID = "avif_mid"
 # Pillow's copies of the same views with film grain: views 0-15 libaom's
@@ -557,6 +594,16 @@ AVIF_MID_INTER = "avif_mid_inter"
 # a key frame of view k translated twice by inter_mid_shift(k), an inter
 # frame of it translated once, then one of the view)
 AVIF_MID_DEFAULT = "avif_mid_default"
+# copies of the same views at every libaom default, compound prediction's
+# too (compound_mid_file: noisy_frames of view k moved by
+# inter_mid_shift(k): a key frame, then COMPOUND_MID_FRAMES - 1 inter
+# frames, the last the view itself)
+AVIF_MID_COMPOUND = "avif_mid_compound"
+COMPOUND_MID_FRAMES = 4
+# the sensor noise of noisy_frames (its standard deviation, 8-bit levels),
+# libaom's speed and quantizer of the compound views (libaom takes compound
+# prediction at speeds 0-2)
+COMPOUND_NOISE, COMPOUND_SPEED, COMPOUND_CQ = 3.0, 1, 36
 
 
 def colour_alpha(h: int, w: int) -> np.ndarray:
@@ -1804,11 +1851,7 @@ def generate_inter(folder: str = FOLDER, mid_scene: str | None = None
     save("avif_inter_hidden.avif", inter_avif(
         oracle.hide_last_frame(stream), 100, 72, 8, "420"))
     # one file for each tool of the next slice
-    on = {"avif_unported_compound.avif": (
-              "compound prediction", {"enable-onesided-comp": 1}, {}),
-          "avif_unported_skip_mode.avif": (
-              "skip mode", {"enable-onesided-comp": 1}, {}),
-          "avif_unported_interintra.avif": (
+    on = {"avif_unported_interintra.avif": (
               "inter-intra prediction", {"enable-interintra-comp": 1,
                                          "enable-smooth-interintra": 1,
                                          "enable-interintra-wedge": 1}, {}),
@@ -1888,6 +1931,34 @@ def tools_info(data: bytes) -> list:
     return info[58:67] + [info[46]]
 
 
+def find_fixture(path: str, make, uses, tries: int = 200):
+    """Writes to path the first of make(rng) over seeds 0.. (None: passed
+    over) that cv2 reads as the port does and of which uses(data) holds."""
+    import cv2
+
+    from gsplat_tpu_torch.utils.image_io import read_avif
+
+    with tempfile.TemporaryDirectory() as tmp:
+        probe = os.path.join(tmp, "probe.avif")
+        for seed in range(tries):
+            data = make(np.random.default_rng(seed))
+            if data is None:
+                continue
+            with open(probe, "wb") as f:
+                f.write(data)
+            want = cv2.imread(probe)
+            try:
+                got = read_avif(probe)
+            except RuntimeError:
+                continue
+            if want is not None and (got == want[..., ::-1]).all() \
+                    and uses(data):
+                with open(path, "wb") as f:
+                    f.write(data)
+                return seed
+    raise SystemExit(f"no file of {tries} makes {os.path.basename(path)}")
+
+
 def tools_mid_file(bgr: np.ndarray, k: int) -> bytes:
     """View k of AVIF_MID_DEFAULT: libaom at its default inter tools on the
     view translated twice by inter_mid_shift(k), once, then the view."""
@@ -1912,7 +1983,6 @@ def generate_inter_tools(folder: str = FOLDER, mid_scene: str | None = None
     import cv2
 
     import torch_avif_oracles as oracle
-    from gsplat_tpu_torch.utils.image_io import read_avif
 
     p = lambda name: os.path.join(folder, name)       # noqa: E731
     # compound prediction's controls, off in every file here: libaom's
@@ -1920,23 +1990,8 @@ def generate_inter_tools(folder: str = FOLDER, mid_scene: str | None = None
     no_compound = dict.fromkeys(oracle.COMPOUND_TOOLS, 0)
 
     def find(name, make, uses, tries=200):
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "probe.avif")
-            for seed in range(tries):
-                data = make(np.random.default_rng(seed))
-                with open(path, "wb") as f:
-                    f.write(data)
-                want = cv2.imread(path)
-                try:
-                    got = read_avif(path)
-                except RuntimeError:
-                    continue
-                if want is not None and (got == want[..., ::-1]).all() \
-                        and uses(tools_info(data)):
-                    with open(p(name), "wb") as f:
-                        f.write(data)
-                    return
-        raise SystemExit(f"no file of {tries} makes {name}")
+        find_fixture(os.path.join(folder, name), make,
+                     lambda data: uses(tools_info(data)), tries)
 
     def frames(r, n, warped=False, kind=None):
         h, w = int(r.integers(56, 120)), int(r.integers(64, 160))
@@ -2008,6 +2063,165 @@ def generate_inter_tools(folder: str = FOLDER, mid_scene: str | None = None
                 f.write(tools_mid_file(cv2.imread(os.path.join(src, name)),
                                        k))
     return {TIMING_TOOLS: hashlib.sha256(dec.tobytes()).hexdigest()}
+
+
+def compound_info(data: bytes) -> list:
+    """decode_av1's counters of compound prediction (info[67:73]): compound
+    blocks by type (average, distance weights, wedge, difference-weighted),
+    skip-mode blocks, single-reference blocks beside a compound neighbour;
+    then the frames decoded."""
+    from gsplat_tpu_torch.utils import image_io
+
+    heif = image_io._Heif(data, "compound")
+    heif.parse()
+    info = image_io.decode_av1(heif.primary_item()[0])[1]
+    return info[67:73] + [info[46]]
+
+
+def temporal_units(data: bytes) -> list:
+    """A one-item file cut after each of its temporal units: the files of
+    its first 1, 2, ... units (cv2 shows the last frame shown of each, so
+    every shown frame is seen in one of them)."""
+    import torch_avif_oracles as oracle
+
+    obu, props = oracle.item_parts(data)
+    ob = oracle.obus(obu)
+    ends = [i for i, (kind, _, _) in enumerate(ob) if kind == 2][1:] + \
+        [len(ob)]
+    return [oracle.build_avif(b"".join(
+        head + oracle._leb(len(pay)) + pay for _, head, pay in ob[:e]),
+        props) for e in ends]
+
+
+def compound_prefix(data: bytes, uses):
+    """The file cut after the first temporal unit that decodes one frame
+    whose own compound_info (the counts of that frame alone) satisfies
+    uses: the last frame shown is then the one that uses the tool; None
+    where no unit does."""
+    prev = None
+    for item in temporal_units(data):
+        info = compound_info(item)
+        if prev is not None:
+            own = [a - b for a, b in zip(info, prev)]
+            if own[6] == 1 and uses(own):
+                return item
+        prev = info
+    return None
+
+
+def compound_item(r, depth: int, fmt: str, *, lag: int = 0,
+                  controls=None, size=None) -> bytes:
+    """An item of libaom at every default where it takes compound
+    prediction: a photo crop of 64-159 x 64-199 (or ``size``), 3-6 frames
+    each moved by up to 4 pixels from the one before (inter_frames), speed
+    0-2, a quantizer of 10-49, ``controls`` over those, ``lag`` frames of
+    lookahead."""
+    import torch_avif_oracles as oracle
+
+    h, w = int(r.integers(64, 160)), int(r.integers(64, 200))
+    if size is not None:
+        h, w = size
+    img = oracle.avif_image("photo", h, w, r)
+    frames = inter_frames(img, int(r.integers(3, 7)), int(r.integers(-4, 5)),
+                          int(r.integers(-4, 5)))
+    ctl = {"cpu-used": int(r.integers(0, 3)),
+           "cq-level": int(r.integers(10, 50)), **(controls or {})}
+    return inter_item(frames, depth, fmt, controls=ctl, lag=lag)
+
+
+def noisy_frames(bgr: np.ndarray, n: int, dy: int, dx: int, rng,
+                 sigma: float = COMPOUND_NOISE) -> list:
+    """n frames of a view, each moved by (dy, dx) from the one before, the
+    last the view itself; each but the last with Gaussian noise of sigma
+    (a capture's sensor noise, which averaging two references takes out:
+    libaom's encoder then takes compound prediction)."""
+    out = []
+    for t in range(n - 1, -1, -1):
+        f = translated(bgr, dy * t, dx * t)
+        if t:
+            f = np.clip(np.round(f + rng.normal(0.0, sigma, f.shape)), 0,
+                        255).astype(np.uint8)
+        out.append(f)
+    return out
+
+
+def compound_view(frames) -> bytes:
+    """libaom at every default on BGR frames (BT.601 full-range 4:2:0,
+    COMPOUND_SPEED, COMPOUND_CQ, no lookahead: the last frame shown predicts
+    from the frames before it)."""
+    import torch_avif_oracles as oracle
+
+    h, w = frames[0].shape[:2]
+    stream = oracle.libaom_encode_frames(
+        [yuv_planes(f, 6) for f in frames], 8, 1, 1, controls={
+            "cpu-used": COMPOUND_SPEED, "cq-level": COMPOUND_CQ})
+    return inter_avif(stream, w, h, 8, "420")
+
+
+def compound_mid_file(bgr: np.ndarray, k: int) -> bytes:
+    """View k of AVIF_MID_COMPOUND: compound_view of noisy_frames of the view
+    moved by inter_mid_shift(k), the noise seeded by k."""
+    return compound_view(noisy_frames(bgr, COMPOUND_MID_FRAMES,
+                                      *inter_mid_shift(k),
+                                      np.random.default_rng(k)))
+
+
+def _compound_mid_job(args):
+    path, k, out = args
+    import cv2
+
+    with open(out, "wb") as f:
+        f.write(compound_mid_file(cv2.imread(path), k))
+
+
+def generate_compound(folder: str = FOLDER, mid_scene: str | None = None
+                      ) -> dict:
+    """Compound prediction's fixtures: AVIF_COMPOUND_CASES but the moved
+    files (each a seeded search, find_fixture, over compound_item), the
+    TIMING_COMPOUND view (and, given the folder of make_synth_scene --preset
+    mid, AVIF_MID_COMPOUND's views, four processes at a time); returns the
+    SHA-256 of cv2's decode of TIMING_COMPOUND."""
+    import hashlib
+    import multiprocessing
+
+    import cv2
+
+    import torch_avif_oracles as oracle
+
+    p = lambda name: os.path.join(folder, name)       # noqa: E731
+
+    def find(name, make, uses):
+        find_fixture(p(name), lambda r: compound_prefix(make(r), uses),
+                     lambda data: True)
+
+    def any_compound(t):
+        return sum(t[:4]) > 0
+    for i, (depth, fmt) in enumerate(AVIF_TOOLS_FORMATS):
+        find(f"avif_compound_d{depth}_{fmt}.avif", lambda r: compound_item(
+            r, depth, fmt, lag=35 * (i % 2)), any_compound)
+    for tool, (on, lag, counter) in AVIF_COMPOUND_ALONE.items():
+        find(f"avif_compound_{tool}.avif", lambda r: compound_item(
+            r, 8, "420", lag=lag, controls={**oracle.INTER_TOOLS_OFF, **on}),
+            lambda t: t[counter] > 0)
+    find("avif_compound_skip_mode.avif", lambda r: compound_item(
+        r, 10, "420", lag=35), lambda t: t[4] > 0)
+    find("avif_compound_neighbours.avif", lambda r: compound_item(
+        r, 8, "444"), lambda t: t[5] > 0 and any_compound(t))
+    view = cv2.imread(p(TIMING))
+    find_fixture(p(TIMING_COMPOUND), lambda r: compound_view(noisy_frames(
+        view, COMPOUND_MID_FRAMES, *TIMING_INTER_SHIFT, r)),
+        lambda data: any_compound(compound_info(data)) and
+        compound_info(data)[4] > 0)
+    dec = np.ascontiguousarray(cv2.imread(p(TIMING_COMPOUND))[..., ::-1])
+    if mid_scene is not None:
+        src = os.path.join(mid_scene, "images_4")
+        os.makedirs(p(AVIF_MID_COMPOUND), exist_ok=True)
+        jobs = [(os.path.join(src, name), k,
+                 p(os.path.join(AVIF_MID_COMPOUND, name[:-4] + ".avif")))
+                for k, name in enumerate(sorted(os.listdir(src)))]
+        with multiprocessing.get_context("spawn").Pool(4) as pool:
+            pool.map(_compound_mid_job, jobs)
+    return {TIMING_COMPOUND: hashlib.sha256(dec.tobytes()).hexdigest()}
 
 
 _JPEGW = r"""
@@ -3531,6 +3745,15 @@ if __name__ == "__main__":
         _write_wants(AVIF_TOOLS_CASES)
         _check_cv2_refuses()
         print(f"inter tools SHA-256 for TIMING_AVIF = {shas!r}")
+        result = check()
+        print({k: v for k, v in result.items() if not v})
+        sys.exit(0)
+    if sys.argv[1:2] == ["--compound"]:     # compound prediction and skip
+        shas = generate_compound(           # mode; --compound SCENE also
+            mid_scene=(sys.argv[2:] or [None])[0])   # the mid views
+        _write_wants(AVIF_COMPOUND_CASES)
+        _check_cv2_refuses()
+        print(f"compound SHA-256 for TIMING_AVIF = {shas!r}")
         result = check()
         print({k: v for k, v in result.items() if not v})
         sys.exit(0)
