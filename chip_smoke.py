@@ -114,12 +114,14 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   libavif converts on its own path, and from libaom's key-frame-plus-inter
   copies and its copies at its default inter tools (motion-field
   projection, warped and global motion, OBMC, inter-intra) and at every
-  default of libaom, compound prediction and skip mode among them (the
-  views of those kinds, of a frame libavif scales, of a key frame then an
-  inter frame, of four frames at libaom's default inter tools and of four
-  at every default decoded to cv2's SHA-256 too, each shown using its
-  tool, the compound view timed beside cv2's default file), each AVIF
-  leg's last l1 within the JPEG leg's bound of the PNG leg's.
+  default of libaom, compound prediction and skip mode among them, and
+  from copies whose inter frames predict from references of another size
+  (libaom's resize and superres) (the views of those kinds, of a frame
+  libavif scales, of a key frame then an inter frame, of four frames at
+  libaom's default inter tools, of four at every default and of four
+  resized ones decoded to cv2's SHA-256 too, each shown using its tool,
+  the compound and resized views timed beside cv2's default file), each
+  AVIF leg's last l1 within the JPEG leg's bound of the PNG leg's.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -1618,15 +1620,15 @@ def at_scale_path(rz, dev):
             rz, scene, root)
         mid_png_leg, avif_leg, avif_screen_leg, avif_grain_leg, \
             avif_avis_leg, avif_colour_leg, avif_libavif_leg, \
-            avif_inter_leg, avif_default_leg, avif_compound_leg = \
-            avif_path(rz, root)
+            avif_inter_leg, avif_default_leg, avif_compound_leg, \
+            avif_scaled_leg = avif_path(rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
             gif_leg, mid_png_leg, avif_leg, avif_screen_leg,
             avif_grain_leg, avif_avis_leg, avif_colour_leg,
             avif_libavif_leg, avif_inter_leg, avif_default_leg,
-            avif_compound_leg), scale_rows
+            avif_compound_leg, avif_scaled_leg), scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -2216,7 +2218,10 @@ def image_formats_path(rz, scene, root):
 # default inter tools on the view translated twice, then the view itself
 # (INTER_TOOLS); libaom at every default, compound prediction's too, on
 # the view moved three times with sensor noise, then the view (its compound
-# and skip-mode blocks: COMPOUND_VIEW, timed against AVIF_TIMED's first)
+# and skip-mode blocks: COMPOUND_VIEW, timed against AVIF_TIMED's first);
+# libaom's key frame of it translated three times, then inter frames coded
+# at 8/12 of its size predicting from it (its scaled blocks: RESIZE_VIEW,
+# timed against AVIF_TIMED's first)
 AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_d12_1297x840.avif", "timing_lossless_320x208.avif",
               "timing_screen_1297x840.avif", "timing_422_1297x840.avif",
@@ -2230,10 +2235,15 @@ AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_superres_1297x840.avif",
               "timing_deltalf_1297x840.avif", "timing_ycgco_1297x840.avif",
               "timing_scaled_1297x840.avif", "timing_inter_1297x840.avif",
-              "timing_tools_1297x840.avif", "timing_compound_1297x840.avif")
+              "timing_tools_1297x840.avif", "timing_compound_1297x840.avif",
+              "timing_resize_1297x840.avif")
 # the view of compound prediction and skip mode, whose decode must count
 # compound blocks and skip-mode blocks (decode_av1's info[67:72])
 COMPOUND_VIEW = "timing_compound_1297x840.avif"
+# the view of inter frames predicted from a reference of another size,
+# whose decode must count blocks predicted from a scaled reference
+# (decode_av1's info[73])
+RESIZE_VIEW = "timing_resize_1297x840.avif"
 AVIF_REPS = 3
 # the view whose palette and intra block copy blocks the phase counts
 AVIF_SCREEN_VIEW = "timing_screen_1297x840.avif"
@@ -2312,7 +2322,10 @@ def avif_path(rz, root):
     then two inter frames) and the committed AVIF_MID_COMPOUND views
     (libaom at every default, compound prediction's too: a key frame, then
     three inter frames, their compound and skip-mode blocks counted above
-    0); each view's mean |AVIF - PNG|; (c)
+    0) and the committed AVIF_MID_SCALED views (libaom's key frame, then
+    two inter frames resized to 8/d of it or coded with superres at 8/d,
+    in turn; the views that predicted from a scaled reference counted
+    above 0); each view's mean |AVIF - PNG|; (c)
     run_garden_7k over iterations
     0..JPEG_ITERS - 1 of the RGB schedule from the PNG scene and from each
     AVIF scene, each AVIF leg's last logged l1 within d + JPEG_L1_DRIFT ·
@@ -2320,10 +2333,11 @@ def avif_path(rz, root):
     views, the JPEG and GIF legs' rule), every leg's it/s.  → (the PNG
     leg's launches, the cv2 AVIF leg's, the screen AVIF leg's, the grain
     AVIF leg's, the avis leg's, the colour leg's, the libavif leg's, the
-    inter leg's, the default inter tools' leg's, the compound leg's).
-    LIBAVIF_TOOLS' and INTER_TOOLS' views are shown using their tools,
-    COMPOUND_VIEW's compound and skip-mode blocks counted and its
-    read_avif seconds printed beside AVIF_TIMED's first's."""
+    inter leg's, the default inter tools' leg's, the compound leg's, the
+    scaled leg's).  LIBAVIF_TOOLS' and INTER_TOOLS' views are shown using
+    their tools, COMPOUND_VIEW's compound and skip-mode blocks and
+    RESIZE_VIEW's scaled blocks counted and their read_avif seconds
+    printed beside AVIF_TIMED's first's."""
     import hashlib
 
     import torch
@@ -2433,6 +2447,16 @@ def avif_path(rz, root):
           counts["skip_mode_blocks"] > 0,
           f"{COMPOUND_VIEW} decoded no compound or no skip-mode block: "
           f"{counts}")
+    resized = np.mean(secs[RESIZE_VIEW])
+    print(f"  {RESIZE_VIEW}: read_avif {resized:.4f} s a call, "
+          f"{resized / default:.2f}x {AVIF_TIMED[0]}'s {default:.4f} s (this "
+          f"call, host: {host})", flush=True)
+    with open(os.path.join(fx.FOLDER, RESIZE_VIEW), "rb") as f:
+        counts = scaled_counts(fx.scaled_info(f.read()))
+    print(f"  {RESIZE_VIEW}: {json.dumps(counts)}", flush=True)
+    check(counts["scaled_blocks"] > 0,
+          f"{RESIZE_VIEW} decoded no block from a scaled reference: "
+          f"{counts}")
     for name, needs in INTER_TOOLS.items():
         with open(os.path.join(fx.FOLDER, name), "rb") as f:
             heif = image_io._Heif(f.read(), name)
@@ -2477,7 +2501,8 @@ def avif_path(rz, root):
                          ("avif_libavif", fx.AVIF_MID_LIBAVIF),
                          ("avif_inter", fx.AVIF_MID_INTER),
                          ("avif_default", fx.AVIF_MID_DEFAULT),
-                         ("avif_compound", fx.AVIF_MID_COMPOUND)):
+                         ("avif_compound", fx.AVIF_MID_COMPOUND),
+                         ("avif_scaled", fx.AVIF_MID_SCALED)):
         sc, images, _ = _format_scene(scene, root, f"scene_{kind}", ".avif")
         committed = os.path.join(fx.FOLDER, folder)
         avifs = sorted(os.listdir(committed))
@@ -2510,6 +2535,18 @@ def avif_path(rz, root):
                   flush=True)
             check(sum(total.values()) > 0 and skips > 0,
                   f"{folder}: no compound or skip-mode block decoded")
+        if kind == "avif_scaled":
+            views = []
+            for n in avifs:
+                with open(os.path.join(committed, n), "rb") as f:
+                    views.append(scaled_counts(fx.scaled_info(f.read())))
+            used = sum(v["scaled_blocks"] > 0 for v in views)
+            blocks = sum(v["scaled_blocks"] for v in views)
+            superres = sum(v["superres_inter_frames"] > 0 for v in views)
+            print(f"  {folder}: {used} of {len(views)} views predicted "
+                  f"from a scaled reference ({blocks} blocks), {superres} "
+                  f"with superres inter frames", flush=True)
+            check(used > 0, f"{folder}: no block from a scaled reference")
         size = sum(os.path.getsize(os.path.join(committed, n))
                    for n in avifs)
         print(f"  {folder}: {len(avifs)} AVIF views, {size} bytes; mean "
@@ -2541,7 +2578,7 @@ def avif_path(rz, root):
     ps = runs["png"][0]
     for kind in ("avif", "avif_screen", "avif_grain", "avif_avis",
                  "avif_colour", "avif_libavif", "avif_inter", "avif_default",
-                 "avif_compound"):
+                 "avif_compound", "avif_scaled"):
         l1 = l1_by_iteration(runs[kind][2])
         check(len(l1) >= JPEG_ITERS // 50 and
               all(np.isfinite(list(l1.values()))),
@@ -2567,7 +2604,7 @@ def avif_path(rz, root):
         runs["avif_grain"][1], runs["avif_avis"][1], \
         runs["avif_colour"][1], runs["avif_libavif"][1], \
         runs["avif_inter"][1], runs["avif_default"][1], \
-        runs["avif_compound"][1]
+        runs["avif_compound"][1], runs["avif_scaled"][1]
 
 
 def compound_counts(t) -> dict:
@@ -2577,6 +2614,15 @@ def compound_counts(t) -> dict:
     return dict(compound_blocks=dict(zip(
         ("average", "distance", "wedge", "diffwtd"), t[:4])),
         skip_mode_blocks=t[4], single_beside_compound=t[5])
+
+
+def scaled_counts(t) -> dict:
+    """torch_make_image_fixtures.scaled_info's counts of an AVIF item,
+    named."""
+    return dict(zip(("scaled_blocks", "superres_inter_frames",
+                     "switch_frames", "unwarped_blocks",
+                     "superres_reference_frames", "scaled_compound_blocks",
+                     "scaled_obmc_blocks", "frames"), t))
 
 
 def finite(x):
@@ -3914,7 +3960,7 @@ def main() -> int:
      at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif, mid_png,
      mid_avif, mid_avif_screen, mid_avif_grain, mid_avif_avis,
      mid_avif_colour, mid_avif_libavif, mid_avif_inter,
-     mid_avif_default, mid_avif_compound), \
+     mid_avif_default, mid_avif_compound, mid_avif_scaled), \
         scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
@@ -3972,6 +4018,7 @@ def main() -> int:
              "mid AVIF inter run": mid_avif_inter,
              "mid AVIF default inter tools run": mid_avif_default,
              "mid AVIF compound run": mid_avif_compound,
+             "mid AVIF scaled run": mid_avif_scaled,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

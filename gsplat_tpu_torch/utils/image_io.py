@@ -2933,8 +2933,13 @@ def _load_avif_codec():
             ("av1_comp_mask_blend", [vp, i, vp, vp, i, vp] + [i] * 6),
             ("av1_diffwtd_mask", [vp, i, vp, vp] + [i] * 4),
             ("av1_dist_weights", [i] * 4 + [vp]),
-            ("av1_ref_contexts", [i] * 10 + [vp])):
+            ("av1_ref_contexts", [i] * 10 + [vp]),
+            ("av1_scale_convolve", [vp, i, vp] + [i] * 11),
+            ("av1_scale_factors", [i] * 4 + [vp]),
+            ("av1_scaled_position", [i, i])):
         getattr(lib, name).argtypes = args
+    lib.av1_scale_convolve.restype = None
+    lib.av1_scale_factors.restype = lib.av1_scaled_position.restype = i
     lib.av1_warp.restype = lib.av1_obmc_blend.restype = None
     lib.av1_mv_projection.restype = lib.av1_wedge_mask.restype = None
     lib.av1_interintra_blend.restype = None
@@ -4471,7 +4476,15 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
     a temporal candidate, LOCALWARP blocks and those of them whose model
     was invalid, references with non-identity global motion (each
     frame's), GLOBALMV blocks warped by it, OBMC blocks, inter-intra blocks
-    (smooth, wedge).  The fields
+    (smooth, wedge); compound blocks by type (average, distance weights,
+    wedge, difference-weighted), skip-mode blocks, single-reference blocks
+    beside a compound neighbour; blocks predicted from a scaled reference
+    (another size than the frame's, or the frame coded with superres),
+    inter frames coded with superres, switch frames, blocks whose warp a
+    scaled reference turned into a translation, inter frames that name a
+    reference coded with superres, compound blocks with a scaled reference
+    and OBMC blocks that predicted from one (their own or a neighbour's).
+    The fields
     before those counters describe the last frame decoded.  With ``grain``
     False the planes are the frame before its film grain."""
     import ctypes
@@ -4488,7 +4501,7 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
                                f"does)")
         raise RuntimeError(f"{path}: AV1 data cv2 does not read: {msg}")
     try:
-        info = (ctypes.c_longlong * 73)()
+        info = (ctypes.c_longlong * 80)()
         lib.av1_info(handle, info)
         info = list(info)
         width, height, _, subx, suby, mono = info[:6]
@@ -4712,11 +4725,14 @@ def read_avif(path) -> np.ndarray:
     frames, hidden key and inter frames that a show_existing_frame header
     shows, inter frames with motion-field projection, local warped and
     global motion, OBMC, inter-intra, compound prediction and skip mode
-    (the inter tools libaom's encoder uses at its defaults).
+    (the inter tools libaom's encoder uses at its defaults), inter frames
+    predicted from references of another size (libaom's resize) or coded
+    with superres, and switch frames.
     Raises ``RuntimeError`` naming the file where cv2 returns None
     (OpenCV's own 500-byte signature test included; an iloc construction
-    method 2), and naming the tool for what the port does not read yet
-    (references of another size or with superres, switch frames)."""
+    method 2; a reference more than twice or less than a sixteenth of the
+    frame), and naming the kind for what the port does not read yet (a
+    reference slot libaom rebuilds from ref_order_hint)."""
     with open(path, "rb") as f:
         data = f.read()
     return _decode_avif_bytes(data, path)
@@ -4736,9 +4752,9 @@ def read_image(fn: str) -> np.ndarray:
     that cv2's and Pillow's writers make, grids and image sequences, every
     colour and orientation option of Pillow's, superres and the delta loop
     filter, every matrix libavif converts, frames it scales, intra-only,
-    hidden and single-reference inter frames with libaom's default inter
-    tools; ``read_avif``).  A kind of
-    AVIF the port does not read yet (the inter tools ``read_avif`` lists)
+    hidden and inter frames with libaom's default inter tools, its resize
+    and superres, switch frames; ``read_avif``).  A kind of
+    AVIF the port does not read yet (the kind ``read_avif`` names)
     raises ``RuntimeError`` naming the file and the tool; any other file
     raises naming the file."""
     with open(fn, "rb") as f:

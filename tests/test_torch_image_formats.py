@@ -429,17 +429,20 @@ def test_pnm_writer_matches_cv2_bytes(cv2, tmp_path, ext):
 # (the kind as the port names it, Pillow's options, the edit of the
 # two-frame sequence Pillow writes: its first sample made to hold both
 # frames, libaom decoding the second as the image, an error resilient
-# inter frame rewritten as a switch frame)
+# inter frame with its LAST slot's ref_order_hint rewritten, which libaom
+# rebuilds as a neutral-grey frame)
 def _both_frames(data: bytes) -> bytes:
     import torch_avif_oracles as oracle
 
     samples, props, w, h, _ = oracle.sequence_parts(data)[0]
     inter = oracle.obu(6, oracle.obus(samples[1])[-1][2])
-    return oracle.build_sequence([oracle.switch_last_frame(
-        samples[0] + inter), samples[1]], props, w, h)
+    order, idx = oracle.ref_order_hints(samples[0] + inter)
+    return oracle.build_sequence([oracle.with_ref_order_hint(
+        samples[0] + inter, idx[0], order[idx[0]] + 1), samples[1]], props,
+        w, h)
 
 
-_UNPORTED = {"avif": (r"with a switch frame",
+_UNPORTED = {"avif": (r"with a reference slot rebuilt from ref_order_hint",
                       dict(advanced={"error-resilient": "1"}),
                       _both_frames)}
 

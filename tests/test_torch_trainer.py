@@ -408,9 +408,9 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     # 4:2:2 and film grain AVIFs and a grid too, against cv2's recorded
     # decodes, cv2's file with a SMPTE 240 nclx, which libavif converts on
     # its own path, an intra-only frame first, libaom's OBMC and compound
-    # prediction); a kind the port does not read yet (here a reference
-    # frame of another size than the inter frame) raises an error naming
-    # the file and the kind
+    # prediction, an inter frame from a reference of another size); a kind
+    # the port does not read yet (here a reference slot libaom rebuilds
+    # from ref_order_hint) raises an error naming the file and the kind
     cv2 = pytest.importorskip("cv2")
     from gsplat_tpu_torch.models.splatter import load_scene_camera_groups, \
         read_image
@@ -435,17 +435,17 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     images = os.path.join(os.path.dirname(__file__), "torch_images")
     for name in ("avif_pil_422", "avif_pil_grain", "avif_grid",
                  "avif_smpte240", "avif_intra_only", "avif_unported_obmc",
-                 "avif_unported_compound"):
+                 "avif_unported_compound", "avif_unported_ref_size"):
         np.testing.assert_array_equal(
             read_image(os.path.join(images, name + ".avif")),
             read_png(os.path.join(images, name + ".want.png")))
-    other = tmp_path / "photo_ref_size.avif"
-    other.write_bytes(open(os.path.join(images,
-                                        "avif_unported_ref_size.avif"),
-                           "rb").read())
-    with pytest.raises(RuntimeError, match="photo_ref_size.avif: an AVIF "
-                                           "image with a reference frame of "
-                                           "another size.*not read yet"):
+    other = tmp_path / "photo_ref_order_hint.avif"
+    other.write_bytes(open(os.path.join(
+        images, "avif_unported_ref_order_hint.avif"), "rb").read())
+    with pytest.raises(RuntimeError, match="photo_ref_order_hint.avif: an "
+                                           "AVIF image with a reference "
+                                           "slot rebuilt from ref_order_hint"
+                                           ".*not read yet"):
         read_image(str(other))
 
 

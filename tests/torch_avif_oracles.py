@@ -1240,21 +1240,25 @@ def seq_fields(payload: bytes) -> dict:
                 force_sct=force_sct, force_imv=force_imv, fwb=fwb, fhb=fhb)
 
 
-def switch_last_frame(stream: bytes) -> bytes:
-    """Several frames' OBUs (``libaom_encode_frames``' with
-    error-resilient-mode, no film grain) with the last frame, an error
-    resilient inter frame, made a switch frame (frame_type 3): its
-    error_resilient_mode, frame_size_override_flag and refresh_frame_flags
-    dropped (a switch frame implies them), its size written.  libaom
-    decodes it as the inter frame it was."""
+def _last_inter_frame(stream: bytes, resilient: bool = True) -> dict:
+    """The last frame OBU of several frames' OBUs (``libaom_encode_frames``',
+    no film grain), a shown inter frame, error resilient where
+    ``resilient``: ``before`` (the OBUs before it), ``head`` (its OBU
+    header), ``payload``, ``bits`` (its header's bits up to the film grain
+    fields), ``hbytes`` (the header's bytes), ``seq`` (the sequence
+    header's fields), ``info`` (decode_av1's of the stream) and where its
+    frame_size_override_flag, refresh_frame_flags, ref_order_hint[]
+    (error resilient), ref_frame_idx[] and, after them, the frame's size
+    start (``override``, ``refresh``, ``hints``, ``idx``, ``size``)."""
     _, _, info = port_grain_params(stream)
     gbit, hbytes = info[24:26]
     parts = obus(stream)
     seq = seq_fields([p for k, _, p in parts if k == 1][0])
     last = max(i for i, (k, _, _) in enumerate(parts) if k == 6)
-    kind, head, payload = parts[last]
+    _, head, payload = parts[last]
     bits = _bits(payload[:hbytes])[:gbit]
-    assert bits[:5] == "00111", "not a shown error resilient inter frame"
+    assert bits[:5] == ("00111" if resilient else "00110"), \
+        "not a shown inter frame of that kind"
     p = 6
     sct = seq["force_sct"]
     if sct == 2:
@@ -1263,21 +1267,93 @@ def switch_last_frame(stream: bytes) -> bytes:
     if sct and seq["force_imv"] == 2:
         p += 1
     override = p + seq["id_bits"]
-    assert bits[override] == "0", "a frame size override"
-    refresh = override + 1 + seq["hint_bits"]
+    refresh = override + 1 + seq["hint_bits"] + (0 if resilient else 3)
+    hints = refresh + 8
     # after the slots' order hints: frame_refs_short_signaling, then
-    # ref_frame_idx[] with their delta frame ids, then frame_size()
-    size_at = refresh + 8 + 8 * seq["hint_bits"] + 1 + 7 * (
-        3 + seq["delta_bits"])
-    w, h = info[:2]
-    size = format(w - 1, f"0{seq['fwb']}b") + format(h - 1,
-                                                     f"0{seq['fhb']}b")
-    new = "0111" + bits[5:override] + bits[override + 1:refresh] + \
-        bits[refresh + 8:size_at] + size + bits[size_at:]
-    payload = _bytes(new) + payload[hbytes:]
-    out = b"".join(parts[i][1] + _leb(len(parts[i][2])) + parts[i][2]
-                   for i in range(last))
-    return out + head + _leb(len(payload)) + payload
+    # ref_frame_idx[] with their delta frame ids
+    idx = hints + (8 * seq["hint_bits"] if resilient else 0) + \
+        (1 if seq["hint_bits"] else 0)
+    before = b"".join(parts[i][1] + _leb(len(parts[i][2])) + parts[i][2]
+                      for i in range(last))
+    return dict(before=before, head=head, payload=payload, bits=bits,
+                hbytes=hbytes, seq=seq, info=info, override=override,
+                refresh=refresh, hints=hints, idx=idx,
+                size=idx + 7 * (3 + seq["delta_bits"]))
+
+
+def _with_header(frame: dict, bits: str) -> bytes:
+    """``_last_inter_frame``'s stream with the frame's header bits (up to
+    its film grain fields) replaced."""
+    payload = _bytes(bits) + frame["payload"][frame["hbytes"]:]
+    return frame["before"] + frame["head"] + _leb(len(payload)) + payload
+
+
+def _frame_size_bits(seq: dict, width: int, height: int) -> str:
+    return format(width - 1, f"0{seq['fwb']}b") + format(
+        height - 1, f"0{seq['fhb']}b")
+
+
+def switch_last_frame(stream: bytes) -> bytes:
+    """Several frames' OBUs (``libaom_encode_frames``' with
+    error-resilient-mode, no film grain) with the last frame, an error
+    resilient inter frame, made a switch frame (frame_type 3): its
+    error_resilient_mode, frame_size_override_flag and refresh_frame_flags
+    dropped (a switch frame implies them), its size written.  libaom
+    decodes it as the inter frame it was."""
+    f = _last_inter_frame(stream)
+    bits, override, refresh = f["bits"], f["override"], f["refresh"]
+    assert bits[override] == "0", "a frame size override"
+    size = _frame_size_bits(f["seq"], *f["info"][:2])
+    return _with_header(f, "0111" + bits[5:override] +
+                        bits[override + 1:refresh] +
+                        bits[refresh + 8:f["size"]] + size +
+                        bits[f["size"]:])
+
+
+def with_ref_order_hint(stream: bytes, slot: int, hint: int) -> bytes:
+    """Several frames' OBUs (``libaom_encode_frames``' with
+    error-resilient-mode and order hints, no film grain) with the last
+    frame's ref_order_hint[slot] rewritten to ``hint``: a slot whose order
+    hint differs from the frame's own, which libaom's decoder rebuilds as
+    a neutral-grey frame of that order hint (set_planes_to_neutral_grey)."""
+    f = _last_inter_frame(stream)
+    n = f["seq"]["hint_bits"]
+    assert n, "no order hints"
+    at = f["hints"] + n * slot
+    return _with_header(f, f["bits"][:at] + format(hint % (1 << n),
+                                                   f"0{n}b") +
+                        f["bits"][at + n:])
+
+
+def ref_order_hints(stream: bytes) -> tuple:
+    """The last frame's ref_order_hint[] and ref_frame_idx[] (as
+    ``with_ref_order_hint`` takes its stream)."""
+    f = _last_inter_frame(stream)
+    bits, seq, n = f["bits"], f["seq"], f["seq"]["hint_bits"]
+    order = [int(bits[f["hints"] + n * i:][:n], 2) for i in range(8)]
+    idx = [int(bits[f["idx"] + i * (3 + seq["delta_bits"]):][:3], 2)
+           for i in range(7)]
+    return order, idx
+
+
+def with_frame_size(stream: bytes, width: int, height: int) -> bytes:
+    """Several frames' OBUs (``libaom_encode_frames``', no film grain) with
+    the last frame given another size: written over the size an error
+    resilient frame gives (frame_size_override_flag 1: libaom's
+    ``resize``), or given one by frame_size_override_flag 1 (without error
+    resilience after seven found_ref bits of 0).  Its references are then
+    of another scale; where its mi grid is the same (each side within the
+    same 8 samples), the tile data still decodes."""
+    payload = [p for k, _, p in obus(stream) if k == 6][-1]
+    resilient = _bits(payload[:1])[4] == "1"
+    f = _last_inter_frame(stream, resilient)
+    bits, override, at = f["bits"], f["override"], f["size"]
+    size = _frame_size_bits(f["seq"], width, height)
+    if bits[override] == "1":
+        assert resilient, "a frame size from found_ref"
+        return _with_header(f, bits[:at] + size + bits[at + len(size):])
+    return _with_header(f, bits[:override] + "1" + bits[override + 1:at] +
+                        ("" if resilient else "0" * 7) + size + bits[at:])
 
 
 def short_signal_last_frame(stream: bytes) -> bytes:
@@ -2470,6 +2546,105 @@ def libaom_comp_convolve(src: np.ndarray, w: int, h: int, filter_x: int,
     call(second[0], second[1], second[2], _conv_params(
         depth, conv.ctypes.data, w, 1, dist))
     return out.astype(np.uint16)
+
+
+# ----------------------------------------- references of another size
+
+
+def scale_src_shape(w: int, h: int, subpel_x: int, x_step: int,
+                    subpel_y: int, y_step: int):
+    """(rows, columns) of the source a scaled w x h block reads: from 3
+    before its origin to 4 after its last position, each way."""
+    return (((h - 1) * y_step + subpel_y) >> 10) + 8, \
+        (((w - 1) * x_step + subpel_x) >> 10) + 8
+
+
+def libaom_scale_convolve(src: np.ndarray, w: int, h: int, filter_x: int,
+                          filter_y: int, subpel_x: int, x_step: int,
+                          subpel_y: int, y_step: int, depth: int,
+                          compound: bool = False) -> np.ndarray:
+    """libaom's predictor from a scaled reference by symbol
+    (av1_convolve_2d_scale_c, av1_highbd_convolve_2d_scale_c above 8 bits)
+    on the block of ``src`` (``scale_src_shape``, the block's origin at
+    [3, 3]): positions and steps at 1/1024 of a sample, filters
+    InterpFilter (each side's 4-tap rule by the block's size) → (h, w)
+    uint16 samples, or with ``compound`` the intermediate precision (its
+    CONV_BUF: conv_params' dst, do_average 0)."""
+    hbd = depth > 8
+    dt = np.uint16 if hbd else np.uint8
+    s = np.ascontiguousarray(src.astype(dt))
+    at = s.ctypes.data + (3 * s.shape[1] + 3) * s.itemsize
+    dst = np.zeros((h, w), dt)
+    conv = np.zeros((h, w), np.uint16)
+    if compound:
+        params = _conv_params(depth, conv.ctypes.data, w)
+    else:
+        round0 = 5 if depth == 12 else 3
+        params = ctypes.create_string_buffer(struct.pack(
+            "<i4xQiiiiiiii", 0, 0, 0, round0, 14 - round0, 0, 0, 0, 0, 0))
+    fx, fy = _filter_params(filter_x, w), _filter_params(filter_y, h)
+    args = [_VP, _I, _VP, _I, _I, _I, _VP, _VP, _I, _I, _I, _I, _VP]
+    name = "av1_highbd_convolve_2d_scale_c" if hbd else \
+        "av1_convolve_2d_scale_c"
+    fn = libaom_function(name, None, *args, *([_I] if hbd else []))
+    fn(at, s.shape[1], dst.ctypes.data, w, w, h, fx, fy, subpel_x, x_step,
+       subpel_y, y_step, params, *([depth] if hbd else []))
+    return conv if compound else dst.astype(np.uint16)
+
+
+def port_scale_convolve(src: np.ndarray, w: int, h: int, filter_x: int,
+                        filter_y: int, subpel_x: int, x_step: int,
+                        subpel_y: int, y_step: int, depth: int,
+                        compound: bool = False) -> np.ndarray:
+    """The codec's predictor from a scaled reference alone
+    (``av1_scale_convolve``) on ``libaom_scale_convolve``'s block."""
+    from gsplat_tpu_torch.utils import image_io
+    lib = image_io._load_avif_codec()
+    s = np.ascontiguousarray(src.astype(np.uint16))
+    dst = np.zeros((h, w), np.uint16)
+    lib.av1_scale_convolve(s.ctypes.data + (3 * s.shape[1] + 3) * 2,
+                           s.shape[1], dst.ctypes.data, w, w, h, filter_x,
+                           filter_y, subpel_x, x_step, subpel_y, y_step,
+                           depth, int(compound))
+    return dst
+
+
+def libaom_scale_factors(ref_w: int, ref_h: int, w: int, h: int):
+    """av1_setup_scale_factors_for_frame by symbol: (x scale, y scale at
+    1/16384, x step, y step at 1/1024), the scales -1 where the sizes are
+    not valid_ref_frame_size's."""
+    sf = (ctypes.c_int * 4)(0, 0, 0, 0)
+    libaom_function("av1_setup_scale_factors_for_frame", None, _VP, _I, _I,
+                    _I, _I)(sf, ref_w, ref_h, w, h)
+    return tuple(sf)
+
+
+def port_scale_factors(ref_w: int, ref_h: int, w: int, h: int):
+    """The codec's scale factors (``av1_scale_factors``): (the four of
+    ``libaom_scale_factors``, whether the sizes are valid)."""
+    from gsplat_tpu_torch.utils import image_io
+    lib = image_io._load_avif_codec()
+    out = (ctypes.c_int * 4)()
+    ok = lib.av1_scale_factors(ref_w, ref_h, w, h, out)
+    return tuple(out), bool(ok)
+
+
+def libaom_scale_mv(mv_row: int, mv_col: int, x: int, y: int,
+                    x_scale: int, y_scale: int):
+    """av1_scale_mv by symbol: an MV at 1/16 of a sample at (x, y) in the
+    frame as (row, col) at 1/1024 of a reference sample, by the scales at
+    1/16384 (scaled_y(y·16 + row) − scaled_y(y·16), the same in x)."""
+    mv = (ctypes.c_int16 * 2)(mv_row, mv_col)
+    sf = (ctypes.c_int * 4)(x_scale, y_scale, 0, 0)
+    r = libaom_function("av1_scale_mv", ctypes.c_uint64, _VP, _I, _I, _VP)(
+        mv, x, y, sf)
+    return struct.unpack("<ii", struct.pack("<Q", r))
+
+
+def port_scaled_position(v: int, scale: int) -> int:
+    """The codec's scaled_x (``av1_scaled_position``)."""
+    from gsplat_tpu_torch.utils import image_io
+    return image_io._load_avif_codec().av1_scaled_position(v, scale)
 
 
 def libaom_comp_warp(mat, shear, ref: np.ndarray, p_col: int, p_row: int,

@@ -63,7 +63,17 @@ last frame hidden and shown by a show_existing_frame header
 an alpha item or a track; and
 one in twenty cv2's still as an intra-only frame or a hidden key frame
 (``frame_of_kind``).  The files the port does not read yet are counted
-by the tool it names; the equal ones by the inter tools they use.
+by the tool it names; the equal ones by the inter tools they use (frames
+predicted from a reference of another size or with superres, switch
+frames among them).
+
+With ``--scaled`` every file is ``--inter``'s kind with frames coded at
+another size than their references: libaom's ``resize`` (a denominator
+9-16 for inter frames, 8 or another for key frames) or ``superres`` (a
+denominator 9-16 for inter frames, key frames or both), or both, in
+every file, at 8, 10 or 12 bits in any chroma format; a third of the
+files with compound prediction's controls on at speeds 0-2 (where libaom
+takes it), and no intra-only or hidden key frame files.
 
 With ``--flips`` every file is instead a committed multi-frame fixture
 (``AVIF_INTER_CASES``, ``AVIF_TOOLS_CASES``, ``AVIF_COMPOUND_CASES``) with
@@ -405,16 +415,17 @@ def random_libavif(rng):
 _INTER_FMTS = {"420": (1, 1), "422": (1, 0), "444": (0, 0), "400": (1, 1)}
 
 
-def random_inter(rng):
+def random_inter(rng, scaled: bool = False):
     """(bytes or None where the writer failed, a description) of one file
-    of ``--inter``'s kinds."""
+    of ``--inter``'s kinds (``scaled``: of ``--scaled``'s)."""
     import torch_make_image_fixtures as fx
 
-    top = 800 if rng.random() < 0.05 else 240
+    compound = scaled and rng.random() < 1 / 3
+    top = 160 if compound else 800 if rng.random() < 0.05 else 240
     h, w = (int(np.exp(rng.uniform(np.log(8), np.log(top)))) for _ in
             range(2))
     img = oracle.avif_image(str(rng.choice(oracle.KINDS)), h, w, rng)
-    if rng.random() < 0.05:
+    if not scaled and rng.random() < 0.05:
         kind = str(rng.choice(["intra_only", "hidden_key"]))
         depth = int(rng.choice([8, 10, 12]))
         if depth > 8:
@@ -438,7 +449,9 @@ def random_inter(rng):
     # each inter tool on in three files of four (libaom's default is on)
     controls = {k: int(rng.random() < 0.75) for k in oracle.INTER_TOOLS_OFF}
     lag = 35 if usage == 0 and rng.random() < 1 / 3 else 0
-    slow = rng.random() < 0.1 and h * w < 40000
+    slow = compound or (rng.random() < 0.1 and h * w < 40000)
+    if compound:
+        controls.update({k: 1 for k in oracle.COMPOUND_TOOLS})
     controls.update({
         "cpu-used": int(rng.integers(0, 3)) if slow else
         int(rng.integers(3, 7 if usage == 0 else 11)),
@@ -458,12 +471,13 @@ def random_inter(rng):
         controls["film-grain-test-vector"] = int(rng.integers(1, 17))
     kw = {}
     r = rng.random()
-    if r < 0.05:
+    if r < 0.05 or (scaled and r < 0.6):
         d = int(rng.integers(9, 17))
         kw["superres"] = tuple(int(x) for x in rng.choice(
             [(1, d, d), (1, d, 8), (1, 8, d)]))
-    elif r < 0.1:
-        kw["resize"] = (1, int(rng.integers(9, 17)), 8)
+    if 0.05 <= r < 0.1 or (scaled and r >= 0.4):
+        kd = int(rng.choice([8, int(rng.integers(9, 17))])) if scaled else 8
+        kw["resize"] = (1, int(rng.integers(9, 17)), kd)
     planes = [fx.inter_planes(f, depth, fmt) for f in frames]
     sx, sy = _INTER_FMTS[fmt]
     stream = _forked(oracle.libaom_encode_frames, planes, depth, sx, sy,
@@ -553,6 +567,9 @@ def main():
                    help="libavif's own path, scaling, superres, delta LF")
     p.add_argument("--inter", action="store_true",
                    help="several frames: intra-only, hidden, inter")
+    p.add_argument("--scaled", action="store_true",
+                   help="several frames, of another size than their "
+                        "references: resize and superres")
     p.add_argument("--flips", action="store_true",
                    help="one-bit flips of the committed inter fixtures")
     a = p.parse_args()
@@ -570,7 +587,9 @@ def main():
                   obmc=0, interintra_smooth=0, interintra_wedge=0,
                   compound_average=0, compound_distance=0, compound_wedge=0,
                   compound_diffwtd=0, skip_mode=0, single_by_compound=0,
-                  lookahead=0)
+                  lookahead=0, scaled_prediction=0, superres_inter=0,
+                  switch_frame=0, scaled_unwarped=0, superres_ref=0,
+                  resize_drawn=0, superres_drawn=0)
     end = time.time() + a.seconds
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sweep.avif")
@@ -578,8 +597,8 @@ def main():
             try:
                 if a.flips:
                     data, desc = random_flip(rng)
-                elif a.inter:
-                    data, desc = random_inter(rng)
+                elif a.inter or a.scaled:
+                    data, desc = random_inter(rng, a.scaled)
                     if data is None:
                         raise RuntimeError("the writer failed")
                 elif a.libavif:
@@ -607,6 +626,8 @@ def main():
             counts["premultiplied"] += bool(desc[3].get(
                 "alpha_premultiplied"))
             counts["exif"] += "exif" in desc[3]
+            counts["resize_drawn"] += "resize" in desc[3]
+            counts["superres_drawn"] += "superres" in desc[3]
             want = cv2.imread(path)
             try:
                 got = read_image(path)
@@ -651,6 +672,10 @@ def main():
                         "compound_diffwtd", "skip_mode",
                         "single_by_compound")):
                     counts[name] += info[58 + k] > 0
+                for k, name in enumerate((
+                        "scaled_prediction", "superres_inter",
+                        "switch_frame", "scaled_unwarped", "superres_ref")):
+                    counts[name] += info[73 + k] > 0
                 counts["lookahead"] += bool(desc[3].get("lag"))
             else:
                 counts["mismatch"] += 1

@@ -350,14 +350,13 @@ AVIF_INTER_CASES = [
     "avif_inter_grain_ref.avif", "avif_inter_switchable.avif",
     "avif_inter_hidden.avif"]
 AVIF_CASES += AVIF_INTER_CASES
-# cv2 reads each; the port does not yet, and raises naming the tool: each
-# file, libaom's, uses one tool of the next slice (the search that found
-# it: generate_inter)
+# cv2 reads each; the port does not yet, and raises naming the kind:
+# libaom's error resilient stream with one slot's ref_order_hint rewritten
+# (torch_avif_oracles.with_ref_order_hint: libaom rebuilds the slot as a
+# neutral-grey frame; generate_scaled)
 AVIF_INTER_UNPORTED = {
-    "avif_unported_ref_size.avif": "a reference frame of another size",
-    "avif_unported_superres_inter.avif": "superres in an inter frame",
-    "avif_unported_superres_ref.avif": "superres in a reference frame",
-    "avif_unported_switch.avif": "a switch frame"}
+    "avif_unported_ref_order_hint.avif":
+        "a reference slot rebuilt from ref_order_hint"}
 AVIF_UNPORTED = list(AVIF_INTER_UNPORTED)
 # the inter tools libaom's encoder uses at its defaults (generate_inter_tools):
 # the five files the inter slice found refused for motion-field projection,
@@ -427,8 +426,42 @@ AVIF_COMPOUND_CASES = AVIF_COMPOUND_MOVED + [
     f"avif_compound_{t}.avif" for t in AVIF_COMPOUND_ALONE] + [
     "avif_compound_skip_mode.avif", "avif_compound_neighbours.avif"]
 AVIF_CASES += AVIF_COMPOUND_CASES
+# frames predicted from references of another size, and switch frames
+# (generate_scaled): the four files the inter slice found refused for a
+# reference of another size, superres in an inter frame and in a
+# reference (libaom's, generate_inter's searches) and a switch frame
+# (switch_last_frame); libaom's resize (a key frame, then inter frames at
+# 8/d of its size, d 9 or 16, the ends of libaom's range) at 8, 10 and 12
+# bits in every chroma format; its superres of inter and key frames
+# (1, d, d), of inter frames (1, d, 8) and of the key frame alone (1, 8, d)
+# at d 9 and 16; compound blocks from a scaled reference (speed 0-2, with
+# libaom's lookahead), OBMC blocks beside one; each a seeded search for the
+# first file that cv2 reads as the port does and whose last frame shown
+# uses what it is for (cut after it: compound_prefix over scaled_info);
+# global motion that a
+# scaled reference turns into a translation and a frame wider than its
+# sequence's maximum (each an inter tools fixture's frame rewritten to
+# another width: torch_avif_oracles.with_frame_size)
+AVIF_SCALED_MOVED = ["avif_unported_ref_size.avif",
+                     "avif_unported_superres_inter.avif",
+                     "avif_unported_superres_ref.avif",
+                     "avif_unported_switch.avif"]
+AVIF_SUPERRES_KINDS = {"both": lambda d: (1, d, d),
+                       "inter": lambda d: (1, d, 8),
+                       "key": lambda d: (1, 8, d)}
+AVIF_SCALED_CASES = AVIF_SCALED_MOVED + [
+    f"avif_resize_d{d}_{f}.avif" for d, f in AVIF_TOOLS_FORMATS] + [
+    f"avif_superres_{k}_{d}.avif" for k in AVIF_SUPERRES_KINDS
+    for d in (9, 16)] + [
+    "avif_scaled_compound.avif", "avif_scaled_obmc.avif",
+    "avif_scaled_global.avif", "avif_scaled_over_max.avif"]
+AVIF_CASES += AVIF_SCALED_CASES
+# libaom's error resilient stream resized to half the key frame's width,
+# its last frame's width rewritten one sample narrower (with_frame_size): a
+# reference more than twice the frame, which libaom refuses
+AVIF_SCALED_REFUSED = ["avif_ref_too_large.avif"]
 CASES += AVIF_CASES + TIFF_COLOUR_CASES
-REFUSED += AVIF_REFUSED
+REFUSED += AVIF_REFUSED + AVIF_SCALED_REFUSED
 # full-size AVIF views for chip_smoke's decode seconds and the SHA-256 of
 # cv2's decode of each (RGB, row-major bytes): TIMING by cv2 at its
 # default, at 10 and 12 bits (from TIMING * 257 as uint16), a lossless
@@ -559,6 +592,14 @@ TIMING_AVIF[TIMING_TOOLS] = ("b12a21884d251f30c3b30f3b7faa3abb"
 TIMING_COMPOUND = "timing_compound_1297x840.avif"
 TIMING_AVIF[TIMING_COMPOUND] = ("0b4669116111e9b923e63f87be3a94a7"
                                 "89cee79d9cb14f9f394b6167a6eb8502")
+# the full-size view of references of another size (generate_scaled):
+# TIMING translated three times, twice and once by TIMING_INTER_SHIFT,
+# then TIMING itself, libaom's inter frames coded at 8/12 of the key
+# frame's size (resize (1, 12, 8); speed 3; libavif scales the last one to
+# the ispe)
+TIMING_RESIZE = "timing_resize_1297x840.avif"
+TIMING_AVIF[TIMING_RESIZE] = ("17165dece7e5926b870799ba8d146831"
+                              "97d76cdfa0e3dcda7fde94a3b3e16340")
 # cv2's default AVIF copies of make_synth_scene --preset mid's 24 views
 AVIF_MID = "avif_mid"
 # Pillow's copies of the same views with film grain: views 0-15 libaom's
@@ -604,6 +645,12 @@ COMPOUND_MID_FRAMES = 4
 # libaom's speed and quantizer of the compound views (libaom takes compound
 # prediction at speeds 0-2)
 COMPOUND_NOISE, COMPOUND_SPEED, COMPOUND_CQ = 3.0, 1, 36
+# copies of the same views whose inter frames predict from references of
+# another size (scaled_mid_file): a key frame of view k translated twice by
+# inter_mid_shift(k), then inter frames of it translated once and of the
+# view, libaom's inter frames resized to 8/d (even k) or coded with
+# superres at 8/d (odd k), d = 9 + k // 2 % 8
+AVIF_MID_SCALED = "avif_mid_scaled"
 
 
 def colour_alpha(h: int, w: int) -> np.ndarray:
@@ -2093,17 +2140,17 @@ def temporal_units(data: bytes) -> list:
         props) for e in ends]
 
 
-def compound_prefix(data: bytes, uses):
+def compound_prefix(data: bytes, uses, info_of=None):
     """The file cut after the first temporal unit that decodes one frame
-    whose own compound_info (the counts of that frame alone) satisfies
-    uses: the last frame shown is then the one that uses the tool; None
-    where no unit does."""
+    whose own compound_info (or ``info_of``'s counts, the frames decoded
+    last; the counts of that frame alone) satisfies uses: the last frame
+    shown is then the one that uses the tool; None where no unit does."""
     prev = None
     for item in temporal_units(data):
-        info = compound_info(item)
+        info = (info_of or compound_info)(item)
         if prev is not None:
             own = [a - b for a, b in zip(info, prev)]
-            if own[6] == 1 and uses(own):
+            if own[-1] == 1 and uses(own):
                 return item
         prev = info
     return None
@@ -2222,6 +2269,163 @@ def generate_compound(folder: str = FOLDER, mid_scene: str | None = None
         with multiprocessing.get_context("spawn").Pool(4) as pool:
             pool.map(_compound_mid_job, jobs)
     return {TIMING_COMPOUND: hashlib.sha256(dec.tobytes()).hexdigest()}
+
+
+def scaled_info(data: bytes) -> list:
+    """decode_av1's counters of references of another size (info[73:80]):
+    blocks predicted from a scaled reference, inter frames coded with
+    superres, switch frames, blocks whose warp a scaled reference turned
+    into a translation, inter frames that name a reference coded with
+    superres, compound blocks with a scaled reference, OBMC blocks that
+    predicted from one; then the frames decoded."""
+    from gsplat_tpu_torch.utils import image_io
+
+    heif = image_io._Heif(data, "scaled")
+    heif.parse()
+    info = image_io.decode_av1(heif.primary_item()[0])[1]
+    return info[73:80] + [info[46]]
+
+
+def scaled_item(r, depth: int, fmt: str, *, controls=None, **kw) -> bytes:
+    """An item of libaom's good-quality encoder with ``resize`` or
+    ``superres`` (kw): a photo crop of 64-143 x 64-175, 3-5 frames each
+    moved by up to 4 pixels from the one before (inter_frames), speed 3-5,
+    a quantizer of 10-49, ``controls`` over those."""
+    import torch_avif_oracles as oracle
+
+    h, w = int(r.integers(64, 144)), int(r.integers(64, 176))
+    img = oracle.avif_image("photo", h, w, r)
+    seq = inter_frames(img, int(r.integers(3, 6)), int(r.integers(-4, 5)),
+                       int(r.integers(-4, 5)))
+    ctl = {"cpu-used": int(r.integers(3, 6)),
+           "cq-level": int(r.integers(10, 50)), **(controls or {})}
+    return inter_item(seq, depth, fmt, controls=ctl, **kw)
+
+
+def scaled_view(frames, **kw) -> bytes:
+    """libaom's good-quality encoder at its default tools on BGR frames
+    (BT.601 full-range 4:2:0, speed 6, cq 20) with ``resize`` or
+    ``superres`` (kw)."""
+    import torch_avif_oracles as oracle
+
+    h, w = frames[0].shape[:2]
+    stream = oracle.libaom_encode_frames(
+        [yuv_planes(f, 6) for f in frames], 8, 1, 1,
+        controls={"cpu-used": 6, "cq-level": 20}, **kw)
+    return inter_avif(stream, w, h, 8, "420")
+
+
+def scaled_mid_file(bgr: np.ndarray, k: int) -> bytes:
+    """View k of AVIF_MID_SCALED: scaled_view of the view translated twice
+    by inter_mid_shift(k), once, then the view, resized (even k) or with
+    superres (odd k) at 8/d, d = 9 + k // 2 % 8."""
+    dy, dx = inter_mid_shift(k)
+    d = 9 + k // 2 % 8
+    kw = {"superres": (1, d, 8)} if k % 2 else {"resize": (1, d, 8)}
+    return scaled_view([translated(bgr, dy * t, dx * t)
+                        for t in (2, 1, 0)], **kw)
+
+
+def _scaled_mid_job(args):
+    path, k, out = args
+    import cv2
+
+    with open(out, "wb") as f:
+        f.write(scaled_mid_file(cv2.imread(path), k))
+
+
+def generate_scaled(folder: str = FOLDER, mid_scene: str | None = None
+                    ) -> dict:
+    """The fixtures of references of another size and of switch frames:
+    AVIF_SCALED_CASES but the moved files (each a seeded search,
+    find_fixture, over scaled_item, cut after the first frame that uses
+    its kind), AVIF_SCALED_REFUSED, AVIF_INTER_UNPORTED, the TIMING_RESIZE
+    view (and, given the folder of make_synth_scene --preset mid,
+    AVIF_MID_SCALED's views, four processes at a time); returns the SHA-256
+    of cv2's decode of TIMING_RESIZE."""
+    import hashlib
+    import multiprocessing
+
+    import cv2
+
+    import torch_avif_oracles as oracle
+
+    p = lambda name: os.path.join(folder, name)       # noqa: E731
+
+    def find(name, make, uses):
+        find_fixture(p(name), lambda r: compound_prefix(
+            make(r), uses, scaled_info), lambda data: True)
+
+    for i, (depth, fmt) in enumerate(AVIF_TOOLS_FORMATS):
+        d = 16 if i % 2 else 9
+        find(f"avif_resize_d{depth}_{fmt}.avif", lambda r: scaled_item(
+            r, depth, fmt, resize=(1, d, 8)), lambda t: t[0] > 0)
+    formats = iter(AVIF_TOOLS_FORMATS[::2])
+    for kind, sr in AVIF_SUPERRES_KINDS.items():
+        for d in (9, 16):
+            depth, fmt = next(formats)
+            # superres of the key frame alone: its inter frames name a
+            # reference coded with superres, at its own upscaled size
+            uses = (lambda t: t[4] > 0) if kind == "key" else \
+                (lambda t: t[0] > 0 and t[1] > 0)
+            find(f"avif_superres_{kind}_{d}.avif", lambda r: scaled_item(
+                r, depth, fmt, superres=sr(d)), uses)
+    # compound prediction (libaom takes it at speeds 0-2, and beside a
+    # scaled reference with its lookahead's backward references), OBMC
+    find("avif_scaled_compound.avif", lambda r: scaled_item(
+        r, 8, "420", controls={"cpu-used": int(r.integers(0, 3))},
+        resize=(1, int(r.integers(9, 17)), 8), lag=35), lambda t: t[5] > 0)
+    find("avif_scaled_obmc.avif", lambda r: scaled_item(
+        r, 10, "444", controls={**oracle.INTER_TOOLS_OFF, "enable-obmc": 1},
+        resize=(1, int(r.integers(9, 17)), 8)), lambda t: t[6] > 0)
+    # libaom codes no global motion in a frame of another size (none in
+    # resize's or superres' files), so the global file is avif_tool_global's
+    # first three frames with the third's width one sample less (the same mi
+    # grid: the tile data decodes as before, every reference now scaled);
+    # and a frame one sample wider than the sequence's maximum, which libaom
+    # reads where the size is not a reference's (setup_frame_size_with_refs
+    # holds no maximum)
+    for name, src, unit, dw in (
+            ("avif_scaled_global.avif", "avif_tool_global.avif", 2, -1),
+            ("avif_scaled_over_max.avif", "avif_unported_global.avif", 1,
+             1)):
+        with open(p(src), "rb") as f:
+            obu, props = oracle.item_parts(temporal_units(f.read())[unit])
+        w, h = struct.unpack_from(">II", props[b"ispe"], 12)
+        data = oracle.build_avif(oracle.with_frame_size(obu, w + dw, h),
+                                 props)
+        with open(p(name), "wb") as f:
+            f.write(data)
+    # a reference more than twice the frame: libaom's resize to half the
+    # key frame's width, the last frame's width one sample less
+    img = oracle.avif_image("photo", 72, 100, np.random.default_rng(26))
+    stream = oracle.libaom_encode_frames(
+        [inter_planes(f, 8, "420") for f in inter_frames(img, 4, 2, -3)],
+        8, 1, 1, resize=(1, 16, 8), controls={
+            "cpu-used": 4, "error-resilient-mode": 1})
+    with open(p("avif_ref_too_large.avif"), "wb") as f:
+        f.write(inter_avif(oracle.with_frame_size(stream, 49, 36), 100, 72,
+                           8, "420"))
+    # a slot's ref_order_hint rewritten: the LAST frame's slot
+    order, idx = oracle.ref_order_hints(stream)
+    with open(p("avif_unported_ref_order_hint.avif"), "wb") as f:
+        f.write(inter_avif(oracle.with_ref_order_hint(
+            stream, idx[0], order[idx[0]] + 1), 100, 72, 8, "420"))
+    view = cv2.imread(p(TIMING))
+    find_fixture(p(TIMING_RESIZE), lambda r: scaled_view(
+        [translated(view, TIMING_INTER_SHIFT[0] * t,
+                    TIMING_INTER_SHIFT[1] * t) for t in (3, 2, 1, 0)],
+        resize=(1, 12, 8)), lambda data: scaled_info(data)[0] > 0, tries=1)
+    dec = np.ascontiguousarray(cv2.imread(p(TIMING_RESIZE))[..., ::-1])
+    if mid_scene is not None:
+        src = os.path.join(mid_scene, "images_4")
+        os.makedirs(p(AVIF_MID_SCALED), exist_ok=True)
+        jobs = [(os.path.join(src, name), k,
+                 p(os.path.join(AVIF_MID_SCALED, name[:-4] + ".avif")))
+                for k, name in enumerate(sorted(os.listdir(src)))]
+        with multiprocessing.get_context("spawn").Pool(4) as pool:
+            pool.map(_scaled_mid_job, jobs)
+    return {TIMING_RESIZE: hashlib.sha256(dec.tobytes()).hexdigest()}
 
 
 _JPEGW = r"""
@@ -3745,6 +3949,15 @@ if __name__ == "__main__":
         _write_wants(AVIF_TOOLS_CASES)
         _check_cv2_refuses()
         print(f"inter tools SHA-256 for TIMING_AVIF = {shas!r}")
+        result = check()
+        print({k: v for k, v in result.items() if not v})
+        sys.exit(0)
+    if sys.argv[1:2] == ["--scaled"]:       # references of another size
+        shas = generate_scaled(             # and switch frames; --scaled
+            mid_scene=(sys.argv[2:] or [None])[0])   # SCENE also the mid
+        _write_wants(AVIF_SCALED_CASES)              # views
+        _check_cv2_refuses()
+        print(f"scaled SHA-256 for TIMING_AVIF = {shas!r}")
         result = check()
         print({k: v for k, v in result.items() if not v})
         sys.exit(0)
