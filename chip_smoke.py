@@ -1621,14 +1621,15 @@ def at_scale_path(rz, dev):
         mid_png_leg, avif_leg, avif_screen_leg, avif_grain_leg, \
             avif_avis_leg, avif_colour_leg, avif_libavif_leg, \
             avif_inter_leg, avif_default_leg, avif_compound_leg, \
-            avif_scaled_leg = avif_path(rz, root)
+            avif_scaled_leg, tiff_mid_kinds_leg = avif_path(rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
             gif_leg, mid_png_leg, avif_leg, avif_screen_leg,
             avif_grain_leg, avif_avis_leg, avif_colour_leg,
             avif_libavif_leg, avif_inter_leg, avif_default_leg,
-            avif_compound_leg, avif_scaled_leg), scale_rows
+            avif_compound_leg, avif_scaled_leg, tiff_mid_kinds_leg), \
+        scale_rows
 
 
 def jpeg_capture_path(rz, scene, root, png_log):
@@ -2325,16 +2326,22 @@ def avif_path(rz, root):
     0) and the committed AVIF_MID_SCALED views (libaom's key frame, then
     two inter frames resized to 8/d of it or coded with superres at 8/d,
     in turn; the views that predicted from a scaled reference counted
-    above 0); each view's mean |AVIF - PNG|; (c)
+    above 0), and a TIFF copy (tiff_mid_kinds) whose views are AVIF_MID's
+    decodes written on the host in turn as 16-bit CIELab, 4:2:0 YCbCr
+    under LZW and Predictor 2 and old-style LZW RGB
+    (torch_make_image_fixtures.tiff_mid_file), each decode held to the
+    SHA-256 of cv2's (TIFF_MID_SHA256) and the views that took each kind
+    counted above 0; each view's mean |AVIF (or TIFF) - PNG|; (c)
     run_garden_7k over iterations
     0..JPEG_ITERS - 1 of the RGB schedule from the PNG scene and from each
-    AVIF scene, each AVIF leg's last logged l1 within d + JPEG_L1_DRIFT ·
-    l1_png of the PNG leg's (d the largest per-view mean |AVIF - PNG| of its
-    views, the JPEG and GIF legs' rule), every leg's it/s.  → (the PNG
-    leg's launches, the cv2 AVIF leg's, the screen AVIF leg's, the grain
-    AVIF leg's, the avis leg's, the colour leg's, the libavif leg's, the
-    inter leg's, the default inter tools' leg's, the compound leg's, the
-    scaled leg's).  LIBAVIF_TOOLS' and INTER_TOOLS' views are shown using
+    AVIF scene and the TIFF one, each such leg's last logged l1 within d +
+    JPEG_L1_DRIFT · l1_png of the PNG leg's (d the largest per-view mean
+    |AVIF (or TIFF) - PNG| of its views, the JPEG and GIF legs' rule),
+    every leg's it/s.  → (the PNG leg's launches, the cv2 AVIF leg's, the
+    screen AVIF leg's, the grain AVIF leg's, the avis leg's, the colour
+    leg's, the libavif leg's, the inter leg's, the default inter tools'
+    leg's, the compound leg's, the scaled leg's, the TIFF kinds leg's).
+    LIBAVIF_TOOLS' and INTER_TOOLS' views are shown using
     their tools, COMPOUND_VIEW's compound and skip-mode blocks and
     RESIZE_VIEW's scaled blocks counted and their read_avif seconds
     printed beside AVIF_TIMED's first's."""
@@ -2353,7 +2360,8 @@ def avif_path(rz, root):
 
     host = host_cpu()
     phase(f"AVIF: the committed views through read_avif, the mid scene "
-          f"from AVIF through run_garden_7k (host: {host})")
+          f"from AVIF and from the TIFF kinds through run_garden_7k (host: "
+          f"{host})")
     # (a) the committed views
     secs, shas = {}, []
     for name, want in fx.TIMING_AVIF.items():
@@ -2553,6 +2561,43 @@ def avif_path(rz, root):
               f"|AVIF - PNG| a view: min {min(means[kind]):.5f} max "
               f"{max(means[kind]):.5f}", flush=True)
         scenes[kind] = sc
+    # the TIFF kinds cv2 reads that the port took last: AVIF_MID's views,
+    # decoded, written here in turn as 16-bit CIELab, 4:2:0 YCbCr under
+    # LZW and Predictor 2 and old-style LZW RGB (tiff_mid_file), each read
+    # held to the SHA-256 of cv2's decode and shown taking its kind
+    t0 = time.perf_counter()
+    sc, images, _ = _format_scene(scene, root, "scene_tiff_mid_kinds", ".tif")
+    committed = os.path.join(fx.FOLDER, fx.AVIF_MID)
+    avifs = sorted(os.listdir(committed))
+    took = dict.fromkeys(fx.TIFF_MID_KINDS, 0)
+    means["tiff_mid_kinds"], size = [], 0
+    for k, (png, avif) in enumerate(zip(pngs, avifs)):
+        name = png[:-4] + ".tif"
+        path = os.path.join(images, name)
+        with open(path, "wb") as f:
+            f.write(fx.tiff_mid_file(image_io.read_avif(
+                os.path.join(committed, avif)), k))
+        size += os.path.getsize(path)
+        info = {}
+        a = image_io.read_tiff(path, info)
+        sha = hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+        check(sha == fx.TIFF_MID_SHA256[name], f"{name}: decode SHA-256 "
+              f"{sha} is not cv2's {fx.TIFF_MID_SHA256[name]}")
+        kind = fx.TIFF_MID_KINDS[k % len(fx.TIFF_MID_KINDS)]
+        took[kind] += int(info[kind] > 0)
+        b = image_io.read_png(os.path.join(src, png))
+        check(a.shape == b.shape, f"{name}: {a.shape} vs the PNG's {b.shape}")
+        means["tiff_mid_kinds"].append(float(np.mean(np.abs(
+            a.astype(np.float64) - b))) / 255.0)
+    print(f"  tiff_mid_kinds: {len(avifs)} TIFF views written on the host "
+          f"from {fx.AVIF_MID} in {time.perf_counter() - t0:.1f} s, {size} "
+          f"bytes, each decode cv2's (SHA-256); views that took each kind "
+          f"{json.dumps(took)}; mean |TIFF - PNG| a view: min "
+          f"{min(means['tiff_mid_kinds']):.5f} max "
+          f"{max(means['tiff_mid_kinds']):.5f}", flush=True)
+    check(all(v > 0 for v in took.values()),
+          f"tiff_mid_kinds: a kind no view took: {took}")
+    scenes["tiff_mid_kinds"] = sc
     # (c) the legs
     runs = {}
     for kind, sc in scenes.items():
@@ -2578,7 +2623,7 @@ def avif_path(rz, root):
     ps = runs["png"][0]
     for kind in ("avif", "avif_screen", "avif_grain", "avif_avis",
                  "avif_colour", "avif_libavif", "avif_inter", "avif_default",
-                 "avif_compound", "avif_scaled"):
+                 "avif_compound", "avif_scaled", "tiff_mid_kinds"):
         l1 = l1_by_iteration(runs[kind][2])
         check(len(l1) >= JPEG_ITERS // 50 and
               all(np.isfinite(list(l1.values()))),
@@ -2589,11 +2634,12 @@ def avif_path(rz, root):
         last = max(both)
         bound = max(means[kind]) + JPEG_L1_DRIFT * png[last]
         avs = runs[kind][0]
+        fmt = "TIFF" if kind.startswith("tiff") else "AVIF"
         print(f"  {kind.upper()} leg, iteration {last}: l1 {l1[last]:.4f} "
-              f"from AVIF, {png[last]:.4f} from PNG, |difference| "
+              f"from {fmt}, {png[last]:.4f} from PNG, |difference| "
               f"{abs(l1[last] - png[last]):.4f} <= bound {bound:.4f}; final "
               f"PSNR {avs['final_psnr']} SSIM {avs['final_ssim']} (PNG "
-              f"{ps['final_psnr']} {ps['final_ssim']}); it/s AVIF "
+              f"{ps['final_psnr']} {ps['final_ssim']}); it/s {fmt} "
               f"{runs[kind][3]:.2f} PNG {runs['png'][3]:.2f}; launches "
               f"{json.dumps(runs[kind][1])}", flush=True)
         check(abs(l1[last] - png[last]) <= bound,
@@ -2604,7 +2650,8 @@ def avif_path(rz, root):
         runs["avif_grain"][1], runs["avif_avis"][1], \
         runs["avif_colour"][1], runs["avif_libavif"][1], \
         runs["avif_inter"][1], runs["avif_default"][1], \
-        runs["avif_compound"][1], runs["avif_scaled"][1]
+        runs["avif_compound"][1], runs["avif_scaled"][1], \
+        runs["tiff_mid_kinds"][1]
 
 
 def compound_counts(t) -> dict:
@@ -3960,8 +4007,8 @@ def main() -> int:
      at_scale_tiff, at_scale_webp, at_scale_jp2, at_scale_gif, mid_png,
      mid_avif, mid_avif_screen, mid_avif_grain, mid_avif_avis,
      mid_avif_colour, mid_avif_libavif, mid_avif_inter,
-     mid_avif_default, mid_avif_compound, mid_avif_scaled), \
-        scale_rows = at_scale_path(rz, dev)
+     mid_avif_default, mid_avif_compound, mid_avif_scaled,
+     mid_tiff_kinds), scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -4019,6 +4066,7 @@ def main() -> int:
              "mid AVIF default inter tools run": mid_avif_default,
              "mid AVIF compound run": mid_avif_compound,
              "mid AVIF scaled run": mid_avif_scaled,
+             "mid TIFF kinds run": mid_tiff_kinds,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

@@ -4,7 +4,7 @@
 // Decoder (jpeg_info, jpeg_decode): baseline, extended sequential and
 // progressive frames, Huffman (SOF0, SOF1, SOF2) or arithmetic coded
 // (SOF9, SOF10, with DAC conditioning), and lossless Huffman frames (SOF3:
-// predictors 1-7, point transform, 1x1 sampling); 8-bit samples, 1, 3 or 4
+// predictors 1-7, point transform, any sampling); 8-bit samples, 1, 3 or 4
 // components, integral sampling factors; restart markers, 0xFF00
 // stuffing, fill bytes.  It follows jdhuff.c / jdphuff.c / jdarith.c /
 // jdlhuff.c (entropy decoding), jddiffct.c and jdlossls.c (lossless
@@ -30,8 +30,9 @@
 // Not supported (each raises): hierarchical frames, 12-bit samples and 2
 // components (cv2 refuses all three), lossless grayscale and lossless
 // YCbCr / YCCK (libjpeg-turbo refuses to convert them to the color cv2
-// asks for), arithmetic-coded lossless and subsampled lossless frames, and
-// malformed data.  Built at first use with the system C++ compiler
+// asks for), arithmetic-coded lossless frames, lossless restart
+// intervals that split an MCU row and interleaved scans of more than 10
+// blocks an MCU (libjpeg-turbo 3 refuses all three), and malformed data.  Built at first use with the system C++ compiler
 // (ops/cuda_build.load_host_library) and loaded by utils/image_io.py.
 
 #include <algorithm>
@@ -492,7 +493,9 @@ struct Decoder {
             marker == 0xCD || marker == 0xCE || marker == 0xCF)
             fail("hierarchical JPEG is not supported (nor by libjpeg)");
         if (marker == 0xCB)
-            fail("arithmetic-coded lossless JPEG is not supported yet");
+            fail("arithmetic-coded lossless JPEG (SOF11) is not supported "
+                 "(nor by cv2: libjpeg-turbo 3 has no lossless arithmetic "
+                 "decoder and refuses the frame before its data)");
         lossless = marker == 0xC3;
         arith = marker >= 0xC9;
         progressive = marker == 0xC2 || marker == 0xCA;
@@ -524,8 +527,6 @@ struct Decoder {
             hmax = std::max(hmax, c.h);
             vmax = std::max(vmax, c.v);
         }
-        if (lossless && (hmax > 1 || vmax > 1))
-            fail("subsampled lossless JPEG is not supported yet");
         const int bs = lossless ? 1 : 8;   // a lossless "block" is a sample
         mcux = (width + bs * hmax - 1) / (bs * hmax);
         mcuy = (height + bs * vmax - 1) / (bs * vmax);
@@ -617,6 +618,14 @@ struct Decoder {
             c->ac_tbl = tbl & 15;
             if (c->dc_tbl > 3 || c->ac_tbl > 3) fail("bad SOS table");
             sc.push_back(c);
+        }
+        if (ns > 1) {        // jdinput.c per_scan_setup: D_MAX_BLOCKS_IN_MCU
+            int blocks = 0;
+            for (const Component* c : sc) blocks += c->h * c->v;
+            if (blocks > 10)
+                fail("an interleaved scan of more than 10 blocks (or "
+                     "lossless samples) an MCU (nor by cv2: libjpeg "
+                     "refuses it)");
         }
         int Ss = at(p + 1 + 2 * ns), Se = at(p + 2 + 2 * ns);
         int Ah = at(p + 3 + 2 * ns) >> 4, Al = at(p + 3 + 2 * ns) & 15;
@@ -983,72 +992,121 @@ struct Decoder {
     };
 
     // A lossless scan (jdlhuff.c, jddiffct.c, jdlossls.c): Huffman-coded
-    // differences, undone row by row with predictor `psv` and point
-    // transform `pt`; every component is sampled 1x1.
+    // differences in MCUs (h x v samples of each component of an
+    // interleaved scan, one sample of a lone component), undone an iMCU
+    // row at a time (v rows of each component) with predictor `psv` and
+    // point transform `pt`.  A restart (whole MCU rows only: libjpeg-turbo
+    // refuses others) or data that ran out before an MCU row (its
+    // differences then zero) starts every component's prediction anew at
+    // the next row undone, which in a lone component's iMCU row is its
+    // first.
     void lossless_scan(const std::vector<Component*>& sc, int psv, int pt) {
-        int ns = int(sc.size());
-        if (restart_interval && restart_interval % width)
-            fail("lossless JPEG with restarts inside a row is not supported");
-        int restart_rows = restart_interval / width;
+        const int ns = int(sc.size());
+        const bool lone = ns == 1;
+        const int per_row = lone ? sc[0]->dw : mcux;        // MCUs_per_row
+        const int imcu_rows = lone ? (sc[0]->dh + sc[0]->v - 1) / sc[0]->v
+                                   : mcuy;
+        if (restart_interval && restart_interval % per_row)
+            fail("lossless JPEG with a restart interval that splits an MCU "
+                 "row (nor by cv2: libjpeg-turbo refuses it)");
+        const int restart_rows = restart_interval / per_row;
         BitReader br(data, size, pos);
-        std::vector<std::vector<int>> diff(ns, std::vector<int>(width)),
-            prev(ns, std::vector<int>(width)), cur(ns, std::vector<int>(width));
-        bool first_row = true;
-        int next_rst = 0;
-        for (int y = 0; y < height; y++) {
-            if (restart_rows && y > 0 && y % restart_rows == 0) {
-                bool found;
-                size_t q = restart_marker(br.pos, next_rst, found);
-                br.reset(q, found);
-                if (found) br.insufficient = false;
-                next_rst = (next_rst + 1) & 7;
-                first_row = true;
-            }
-            for (int x = 0; x < width; x++)
-                for (int ci = 0; ci < ns; ci++) {
-                    int d = 0;
-                    if (!br.insufficient) {
-                        int s = br.decode(dc[sc[ci]->dc_tbl]);
-                        if (s == 16) d = 32768;
-                        else if (s > 16) fail("corrupt lossless difference");
-                        else if (s) d = extend(br.get(s), s);
-                    }
-                    diff[ci][x] = d;
+        // each component's differences and undone samples for one iMCU
+        // row: v rows of per_row · (h, or 1 in a lone scan) samples
+        std::vector<int> mw(ns), mh(ns);
+        std::vector<std::vector<int>> diff(ns), undiff(ns), prev(ns);
+        std::vector<bool> first(ns, true);
+        for (int ci = 0; ci < ns; ci++) {
+            mw[ci] = lone ? 1 : sc[ci]->h;
+            mh[ci] = lone ? 1 : sc[ci]->v;
+            diff[ci].assign(size_t(sc[ci]->v) * per_row * mw[ci], 0);
+            undiff[ci].assign(size_t(sc[ci]->v) * sc[ci]->dw, 0);
+            prev[ci].assign(size_t(sc[ci]->dw), 0);
+        }
+        int rows_to_go = restart_rows, next_rst = 0;
+        for (int iy = 0; iy < imcu_rows; iy++) {
+            // the MCU rows of this iMCU row (a lone component's last one
+            // holds what is left)
+            int mrows = 1;
+            if (lone)
+                mrows = std::min(sc[0]->v, sc[0]->dh - iy * sc[0]->v);
+            for (int yo = 0; yo < mrows; yo++) {
+                if (restart_rows && rows_to_go == 0) {
+                    bool found;
+                    size_t q = restart_marker(br.pos, next_rst, found);
+                    br.reset(q, found);
+                    if (found) br.insufficient = false;
+                    next_rst = (next_rst + 1) & 7;
+                    rows_to_go = restart_rows;
+                    std::fill(first.begin(), first.end(), true);
                 }
-            for (int ci = 0; ci < ns; ci++) {
-                const int* df = diff[ci].data();
-                int* out = cur[ci].data();
-                const int* up = prev[ci].data();
-                int ra;
-                if (first_row) {
-                    ra = (df[0] + (1 << (8 - pt - 1))) & 0xFFFF;
-                    out[0] = ra;
-                    for (int x = 1; x < width; x++)
-                        out[x] = ra = (df[x] + ra) & 0xFFFF;
+                if (br.insufficient) {
+                    for (int ci = 0; ci < ns; ci++)
+                        for (int r = 0; r < mh[ci]; r++)
+                            std::fill_n(diff[ci].data() + size_t(yo + r) *
+                                        per_row * mw[ci],
+                                        size_t(per_row) * mw[ci], 0);
+                    std::fill(first.begin(), first.end(), true);
                 } else {
-                    int rb = up[0], rc;
-                    out[0] = ra = (df[0] + rb) & 0xFFFF;
-                    for (int x = 1; x < width; x++) {
-                        rc = rb;
-                        rb = up[x];
-                        int p;
-                        switch (psv) {
-                        case 1: p = ra; break;
-                        case 2: p = rb; break;
-                        case 3: p = rc; break;
-                        case 4: p = ra + rb - rc; break;
-                        case 5: p = ra + ((rb - rc) >> 1); break;
-                        case 6: p = rb + ((ra - rc) >> 1); break;
-                        default: p = (ra + rb) >> 1; break;
-                        }
-                        out[x] = ra = (df[x] + p) & 0xFFFF;
-                    }
+                    for (int mx = 0; mx < per_row; mx++)
+                        for (int ci = 0; ci < ns; ci++)
+                            for (int r = 0; r < mh[ci]; r++)
+                                for (int c = 0; c < mw[ci]; c++) {
+                                    int s = br.decode(
+                                        dc[sc[ci]->dc_tbl]), d = 0;
+                                    if (s == 16) d = 32768;
+                                    else if (s > 16)
+                                        fail("corrupt lossless difference");
+                                    else if (s) d = extend(br.get(s), s);
+                                    diff[ci][size_t(yo + r) * per_row *
+                                             mw[ci] + size_t(mx) * mw[ci] +
+                                             c] = d;
+                                }
                 }
-                u8* dst = sc[ci]->samples.data() + size_t(y) * width;
-                for (int x = 0; x < width; x++) dst[x] = u8(out[x] << pt);
-                std::swap(prev[ci], cur[ci]);
+                rows_to_go--;
             }
-            first_row = false;
+            for (int ci = 0; ci < ns; ci++) {
+                Component& cp = *sc[ci];
+                const int w = cp.dw;
+                const int rows = std::min(cp.v, cp.dh - iy * cp.v);
+                const size_t stride = size_t(per_row) * mw[ci];
+                for (int r = 0; r < rows; r++) {
+                    const int* df = diff[ci].data() + size_t(r) * stride;
+                    int* out = undiff[ci].data() + size_t(r) * w;
+                    const int* up = r ? out - w : prev[ci].data();
+                    int ra;
+                    if (first[ci]) {
+                        ra = (df[0] + (1 << (8 - pt - 1))) & 0xFFFF;
+                        out[0] = ra;
+                        for (int x = 1; x < w; x++)
+                            out[x] = ra = (df[x] + ra) & 0xFFFF;
+                        first[ci] = false;
+                    } else {
+                        int rb = up[0], rc;
+                        out[0] = ra = (df[0] + rb) & 0xFFFF;
+                        for (int x = 1; x < w; x++) {
+                            rc = rb;
+                            rb = up[x];
+                            int p;
+                            switch (psv) {
+                            case 1: p = ra; break;
+                            case 2: p = rb; break;
+                            case 3: p = rc; break;
+                            case 4: p = ra + rb - rc; break;
+                            case 5: p = ra + ((rb - rc) >> 1); break;
+                            case 6: p = rb + ((ra - rc) >> 1); break;
+                            default: p = (ra + rb) >> 1; break;
+                            }
+                            out[x] = ra = (df[x] + p) & 0xFFFF;
+                        }
+                    }
+                    u8* dst = cp.samples.data() +
+                              size_t(iy * cp.v + r) * w;
+                    for (int x = 0; x < w; x++) dst[x] = u8(out[x] << pt);
+                    if (r == rows - 1)
+                        std::copy(out, out + w, prev[ci].begin());
+                }
+            }
         }
         if (br.insufficient) hit_end = true;
         pos = br.pos;
@@ -1448,9 +1506,15 @@ void decode(Decoder& d, u8* rgb, int transform) {
     std::vector<std::vector<u8>> full(nc);
     for (int ci = 0; ci < nc; ci++) {
         Component& c = d.comps[ci];
-        if (d.lossless) {
-            if (c.samples.empty()) c.samples.assign(size_t(W) * H, 0);
-            full[ci] = c.samples;
+        if (d.lossless) {   // jdsample.c's replication (no fancy upsampling
+                            // where a sample is a block)
+            if (c.samples.empty()) c.samples.assign(size_t(c.dw) * c.dh, 0);
+            const int fx = d.hmax / c.h, fy = d.vmax / c.v;
+            full[ci].resize(size_t(W) * H);
+            for (int y = 0; y < H; y++)
+                for (int x = 0; x < W; x++)
+                    full[ci][size_t(y) * W + x] =
+                        c.samples[size_t(y / fy) * c.dw + x / fx];
             continue;
         }
         if (c.coef.empty()) c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
@@ -1880,8 +1944,9 @@ void set_error(char* err, int errlen, const char* msg) {
 
 extern "C" {
 
-// info[0..3] = width, height, components, EXIF orientation (1-8) of the
-// stored image.  Returns 0, or -1 with a message in err.
+// info[0..4] = width, height, components, EXIF orientation (1-8) of the
+// stored image, and 1 for a lossless frame of subsampled components (else
+// 0).  Returns 0, or -1 with a message in err.
 int jpeg_info(const uint8_t* buf, long long len, int* info, char* err,
               int errlen) {
     try {
@@ -1897,6 +1962,7 @@ int jpeg_info(const uint8_t* buf, long long len, int* info, char* err,
         info[1] = d.height;
         info[2] = int(d.comps.size());
         info[3] = d.orientation;
+        info[4] = int(d.lossless && (d.hmax > 1 || d.vmax > 1));
         return 0;
     } catch (const std::exception& e) {
         set_error(err, errlen, e.what());

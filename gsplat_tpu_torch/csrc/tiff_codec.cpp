@@ -1,6 +1,7 @@
 // TIFF strip and tile codecs (ctypes ABI) for utils/image_io.py, which
 // parses the file's directory itself: LZW (TIFF 6.0 section 13, as
-// libtiff's tif_lzw.c decodes and encodes it) and PackBits (tif_packbits.c)
+// libtiff's tif_lzw.c decodes and encodes it; also the old-style,
+// LSB-first codes of LZWDecodeCompat) and PackBits (tif_packbits.c)
 // decoding, and the LZW encoding of what cv2.imwrite(name.tif, img) writes
 // by default, byte for byte.  Deflate strips are inflated by Python's zlib
 // and need nothing here.  Built at first use with the system C++ compiler
@@ -24,11 +25,12 @@ extern "C" {
 
 // One LZW strip (MSB-first codes, the early width change) into dst (cap
 // bytes).  Returns the bytes written: decoding stops at EOI, at the end of
-// the data, or when dst is full; -1 for a corrupt code or an old-style
-// (LSB-first) strip.
+// the data, or when dst is full; -1 for a corrupt code.  libtiff takes a
+// file whose first strip's first byte is 0 and whose second has bit 0 set
+// for old-style codes (LZWPreDecode): the caller then decodes every strip
+// with tiff_lzw_decode_compat.
 long long tiff_lzw_decode(const uint8_t* src, long long n, uint8_t* dst,
                           long long cap) {
-    if (n >= 2 && src[0] == 0 && (src[1] & 1)) return -1;   // old-style
     static thread_local int prefix[4096];
     static thread_local u8 suffix[4096], first[4096];
     static thread_local int length[4096];
@@ -90,6 +92,86 @@ long long tiff_lzw_decode(const uint8_t* src, long long n, uint8_t* dst,
         free_ent++;
         if (free_ent > (1 << nbits) - 2 && nbits < kBitsMax) nbits++;
         old = code;
+    }
+    return out;
+}
+
+// One strip of old-style LZW codes, as libtiff's LZWDecodeCompat reads
+// them: LSB first, and the code width grows one code later than in the
+// new style, once the next free entry passes 2^nbits - 1.  Returns the
+// bytes written (EOI, the end of the data or a full dst stop it), or -1
+// for a corrupt strip: a code before the first CLEAR, a code past the
+// free entry, a code after CLEAR that is not a byte.
+long long tiff_lzw_decode_compat(const uint8_t* src, long long n,
+                                 uint8_t* dst, long long cap) {
+    static thread_local int prefix[4096 + 1024];
+    static thread_local u8 suffix[4096 + 1024], first[4096 + 1024];
+    static thread_local int length[4096 + 1024];
+    constexpr int kSize = 4096 + 1024;              // tif_lzw.c CSIZE
+    for (int i = 0; i < 256; i++) {
+        prefix[i] = -1;
+        suffix[i] = first[i] = u8(i);
+        length[i] = 1;
+    }
+    for (int i = 256; i < kSize; i++) length[i] = 0;
+    long long pos = 0, out = 0;
+    uint64_t acc = 0;
+    int nacc = 0, nbits = kBitsMin, free_ent = kFirst, old = -1;
+    int maxcode = (1 << kBitsMin) - 1;
+    auto next = [&]() -> int {
+        if ((n - pos) * 8 + nacc < nbits) return -2;   // out of data
+        while (nacc < nbits) {
+            acc |= uint64_t(src[pos++]) << nacc;
+            nacc += 8;
+        }
+        int code = int(acc & ((1u << nbits) - 1));
+        acc >>= nbits;
+        nacc -= nbits;
+        return code;
+    };
+    auto emit = [&](int code) {
+        int len = length[code];
+        if (out + len > cap) len = int(cap - out);
+        int c = code;
+        for (int skip = length[code] - len; skip > 0; skip--) c = prefix[c];
+        for (int i = len - 1; i >= 0; i--) {
+            dst[out + i] = suffix[c];
+            c = prefix[c];
+        }
+        out += len;
+    };
+    while (out < cap) {
+        int code = next();
+        if (code == -2 || code == kEoi) break;
+        if (code == kClear) {
+            do {
+                free_ent = kFirst;
+                for (int i = kFirst; i < kSize; i++) length[i] = 0;
+                nbits = kBitsMin;
+                maxcode = (1 << kBitsMin) - 1;
+                code = next();
+            } while (code == kClear);
+            if (code == -2 || code == kEoi) break;
+            if (code > kClear) return -1;
+            emit(code);
+            old = code;
+            continue;
+        }
+        // no CLEAR yet, or the table full: a corrupt table
+        if (old < 0 || free_ent >= kSize) return -1;
+        // the new entry: the previous string and the first byte of this
+        // one (of the previous one where the code is the entry itself)
+        prefix[free_ent] = old;
+        length[free_ent] = length[old] + 1;
+        first[free_ent] = first[old];
+        suffix[free_ent] = code < free_ent ? first[code] : first[old];
+        if (++free_ent > maxcode) {
+            if (++nbits > kBitsMax) nbits = kBitsMax;
+            maxcode = (1 << nbits) - 1;
+        }
+        old = code;
+        if (code >= 256 && length[code] == 0) return -1;
+        emit(code);
     }
     return out;
 }

@@ -267,19 +267,24 @@ def _apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
         5: t, 6: t[:, ::-1], 7: t[::-1, ::-1], 8: t[::-1]}[orientation])
 
 
-def _decode_jpeg_bytes(data: bytes, path, transform: int = -1):
+def _decode_jpeg_bytes(data: bytes, path, transform: int = -1,
+                       kinds: dict | None = None):
     """JPEG bytes → ((H, W, 3) uint8 RGB in the stored orientation, EXIF
     orientation, warning or None).  ``transform``: -1 the color space the
     markers give (libjpeg's default), 0 the components as they are, 1
-    YCbCr (what libtiff asks libjpeg for in a TIFF)."""
+    YCbCr (what libtiff asks libjpeg for in a TIFF).  ``kinds``, where
+    given, gets ``subsampled_lossless`` (1 for a lossless frame of
+    subsampled components)."""
     import ctypes
 
     lib = _load_jpeg_codec()
     err = ctypes.create_string_buffer(_ERRLEN)
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * 5)()
     if lib.jpeg_info(data, len(data), info, err, _ERRLEN) != 0:
         raise ValueError(f"{path}: {err.value.decode()}")
-    width, height, _, orientation = info
+    width, height, _, orientation = info[:4]
+    if kinds is not None:
+        kinds["subsampled_lossless"] = info[4]
     img = np.empty((height, width, 3), np.uint8)
     rc = lib.jpeg_decode(data, len(data), transform,
                          img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
@@ -289,21 +294,24 @@ def _decode_jpeg_bytes(data: bytes, path, transform: int = -1):
     return img, orientation, (err.value.decode() if rc == 1 else None)
 
 
-def read_jpeg(path) -> np.ndarray:
+def read_jpeg(path, info: dict | None = None) -> np.ndarray:
     """A JPEG file → (H, W, 3) uint8 RGB, bit for bit what
     ``cv2.imread(path)[..., ::-1]`` gives (libjpeg-turbo's default
     decompression, EXIF orientation applied; a CMYK or YCCK file through
-    OpenCV's CMYK → BGR).  A file whose data ends early decodes as libjpeg
-    decodes it, with a ``RuntimeWarning`` that names the file.  Raises
-    ``ValueError`` naming the file for what cv2 does not read either
-    (hierarchical frames, 12-bit samples, 2 components, lossless
-    grayscale), for what the codec does not decode yet (arithmetic-coded or
-    subsampled lossless) and for malformed data."""
+    OpenCV's CMYK → BGR; a lossless frame of subsampled components
+    upsampled by replication).  A file whose data ends early decodes as
+    libjpeg decodes it, with a ``RuntimeWarning`` that names the file.
+    Raises ``ValueError`` naming the file for what cv2 does not read
+    either (hierarchical frames, 12-bit samples, 2 components, lossless
+    grayscale, arithmetic-coded lossless, lossless restart intervals that
+    split an MCU row) and for malformed data.  ``info``, where given, gets
+    ``subsampled_lossless`` (1 for a lossless frame of subsampled
+    components)."""
     import warnings
 
     with open(path, "rb") as f:
         data = f.read()
-    img, orientation, warning = _decode_jpeg_bytes(data, path)
+    img, orientation, warning = _decode_jpeg_bytes(data, path, kinds=info)
     if warning:
         warnings.warn(f"{path}: {warning}", RuntimeWarning, stacklevel=2)
     return _apply_orientation(img, orientation)
@@ -660,8 +668,8 @@ def _load_tiff_codec():
 
     lib = load_host_library("tiff_codec")
     u8p = ctypes.POINTER(ctypes.c_uint8)
-    for fn in (lib.tiff_lzw_decode, lib.tiff_packbits_decode,
-               lib.tiff_lzw_encode):
+    for fn in (lib.tiff_lzw_decode, lib.tiff_lzw_decode_compat,
+               lib.tiff_packbits_decode, lib.tiff_lzw_encode):
         fn.restype = ctypes.c_longlong
         fn.argtypes = [ctypes.c_char_p, ctypes.c_longlong, u8p,
                        ctypes.c_longlong]
@@ -713,8 +721,16 @@ def _tiff_directory(data: bytes, path):
     return e, tags
 
 
-def _tiff_chunk(lib, raw: bytes, comp: int, nbytes: int, path) -> bytes:
-    """One strip or tile, decompressed to (at least) its nbytes."""
+def _tiff_old_lzw(raw: bytes) -> bool:
+    """Whether libtiff's LZWPreDecode takes an LZW strip or tile for
+    old-style codes: its first byte 0 and bit 0 of its second set."""
+    return len(raw) >= 2 and raw[0] == 0 and raw[1] & 1 == 1
+
+
+def _tiff_chunk(lib, raw: bytes, comp: int, nbytes: int, path,
+                old_lzw: bool = False) -> bytes:
+    """One strip or tile, decompressed to (at least) its nbytes
+    (``old_lzw``: LZW in old-style codes, libtiff's LZWDecodeCompat)."""
     import ctypes
 
     if comp == 1:
@@ -727,16 +743,30 @@ def _tiff_chunk(lib, raw: bytes, comp: int, nbytes: int, path) -> bytes:
                 from None
     else:
         buf = np.empty(nbytes, np.uint8)
-        fn = lib.tiff_lzw_decode if comp == 5 else lib.tiff_packbits_decode
+        fn = lib.tiff_packbits_decode if comp != 5 else \
+            lib.tiff_lzw_decode_compat if old_lzw else lib.tiff_lzw_decode
         got = fn(raw, len(raw), buf.ctypes.data_as(
             ctypes.POINTER(ctypes.c_uint8)), nbytes)
         if got < 0:
-            raise ValueError(f"{path}: corrupt (or old-style) LZW TIFF data")
+            raise ValueError(f"{path}: corrupt LZW TIFF data")
         out = buf[:got].tobytes()
     if len(out) < nbytes:
         raise ValueError(f"{path}: a TIFF strip or tile holds "
                          f"{len(out)} bytes, not {nbytes}")
     return out[:nbytes]
+
+
+def _tiff_raw_tile_check(count: int, size: int, reverse: bool, path):
+    """libtiff reads an uncompressed tile only where its byte count is the
+    tile's size, and with FillOrder 2 (read into a buffer of whole KiB,
+    not mapped) only where that size is whole KiB; cv2 refuses the rest.
+    (A FillOrder 2 tile short of whole KiB that rounds up to its size cv2
+    reads as something else than its samples; the port refuses it too.)"""
+    if count != size or (reverse and size % 1024):
+        raise ValueError(f"{path}: an uncompressed TIFF tile of {count} "
+                         f"bytes{' (FillOrder 2)' if reverse else ''} for "
+                         f"{size} is not supported (nor by cv2: libtiff "
+                         f"refuses it)")
 
 
 def _tiff_jpeg_chunk(raw: bytes, tables, transform: int, path):
@@ -748,20 +778,30 @@ def _tiff_jpeg_chunk(raw: bytes, tables, transform: int, path):
     return _decode_jpeg_bytes(raw, path, transform)[0]
 
 
-def read_tiff(path) -> np.ndarray:
+def read_tiff(path, info: dict | None = None) -> np.ndarray:
     """The first image of a TIFF or BigTIFF → (H, W, 3) uint8 RGB, what
     ``cv2.imread(path)[..., ::-1]`` gives (OpenCV's ``TiffDecoder``, which
     reads 8-bit output through libtiff's RGBA interface): II or MM, strips
-    or tiles, chunky or planar; no compression, LZW, Deflate, PackBits or
-    JPEG, the horizontal predictor at 8 and 16 bits; bilevel, 8- and 16-bit
-    gray (white or black is zero, 16 bits cut to the high byte), RGB at 8
-    or 16 bits (16 bits rounded to 8 as libtiff rounds them, an unassociated
-    alpha multiplied in, the alpha then dropped), palettes of 1-8 bits,
-    8-bit CMYK, 8-bit YCbCr (subsampled 1, 2 or 4 across, its
-    ReferenceBlackWhite and YCbCrCoefficients) and CIELab through libtiff's
-    tables; the orientation tag applied.  Raises ``ValueError`` naming
-    the file and the tag for the rest (cv2 refuses some of them too: 2- and
-    4-bit gray, gray with alpha, float samples)."""
+    or tiles, chunky or planar; no compression, LZW (old-style codes too),
+    Deflate, PackBits or JPEG, the horizontal predictor at 8 and 16 bits;
+    bilevel, 8- and 16-bit gray (white or black is zero, 16 bits cut to
+    the high byte; extra samples too), RGB at 8 or 16 bits (16 bits
+    rounded to 8 as libtiff rounds them, an unassociated alpha multiplied
+    in, the alpha then dropped), palettes of 1-8 bits, 8-bit CMYK, 8-bit
+    YCbCr (subsampled 1, 2 or 4 across, under the predictor as libtiff
+    undoes it, its ReferenceBlackWhite and YCbCrCoefficients) and 8- and
+    16-bit CIELab through libtiff's tables; the orientation tag applied.
+    Raises ``ValueError`` naming the file and the tag for the rest, most
+    of which cv2 does not read either (2- and 4-bit gray, float samples,
+    more than 4 samples, 16-bit YCbCr, YCbCr or CIELab with extra samples,
+    old-style JPEG; orientations 5-8 of a non-square image, which cv2
+    fails on; ROADMAP §3).  ``info``, where given, gets the
+    counts of the kinds the file took: ``cielab16`` (1 for 16-bit CIELab),
+    ``ycbcr_predictor_chunks`` (strips or tiles of subsampled YCbCr whose
+    differences were undone), ``ycbcr_predictor_skipped`` (those libtiff
+    leaves differenced: not whole rows of its row size, or rows not of
+    whole pixels), ``old_lzw_chunks`` (strips or tiles decoded as
+    old-style LZW)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:4] not in TIFF_SIGNATURES:
@@ -775,8 +815,8 @@ def read_tiff(path) -> np.ndarray:
             raise ValueError(f"{path}: TIFF without tag {t}")
         return default
 
-    def refuse(what):
-        return ValueError(f"{path}: TIFF {what} is not supported")
+    def refuse(what, why=""):
+        return ValueError(f"{path}: TIFF {what} is not supported{why}")
 
     width, height = tag(256), tag(257)
     spp = tag(277, 1)
@@ -789,6 +829,9 @@ def read_tiff(path) -> np.ndarray:
         raise refuse(f"tag 258 (BitsPerSample {bps_all}, mixed)")
     if tag(339, 1) not in (1, 2):
         raise refuse(f"tag 339 (SampleFormat {tag(339)}: float)")
+    if comp == 6:
+        raise refuse("old-style JPEG (tag 259 = 6)", " (nor by cv2: its "
+                     "libtiff has no OJPEG codec)")
     if comp not in _TIFF_COMPRESSIONS:
         raise refuse(f"tag 259 (Compression {comp})")
     if comp in (1, 32773):     # libtiff applies a predictor only to LZW,
@@ -797,33 +840,50 @@ def read_tiff(path) -> np.ndarray:
         raise refuse(f"tag 317 (Predictor {predictor} at {bps} bits)")
     if tag(266, 1) not in (1, 2):
         raise refuse(f"tag 266 (FillOrder {tag(266)})")
+    if spp > 4:
+        raise refuse(f"{spp} samples a pixel (tag 277)", " (nor by cv2: "
+                     "OpenCV reads at most 4)")
     if photo in (0, 1):
-        if spp != 1:
-            raise refuse(f"gray with {spp} samples a pixel (tag 277; cv2 "
-                         f"does not read it either)")
-        if bps not in (1, 8, 16):
-            raise refuse(f"{bps}-bit gray (tag 258; cv2 does not read it "
-                         f"either)")
+        if bps not in (1, 8, 16) or (spp > 1 and bps == 1):
+            raise refuse(f"{bps}-bit gray of {spp} samples (tags 258, 277)",
+                         " (nor by cv2: libtiff's RGBA interface has no "
+                         "routine for it)")
     elif photo == 2:
         if spp < 3 or bps not in (8, 16):
             raise refuse(f"RGB with {spp} samples of {bps} bits (tags "
                          f"277, 258)")
     elif photo == 3:
-        if spp != 1 or bps not in (1, 4, 8) or 320 not in tags:
-            raise refuse(f"palette of {bps} bits (tags 258, 320; cv2 reads "
-                         f"no 2-bit one either)")
+        # extra samples: chunky 8-bit ones alone (TIFFRGBAImageOK, and no
+        # routine for separate planes)
+        if bps not in (1, 4, 8) or 320 not in tags or \
+                (spp > 1 and (bps != 8 or planar != 1)):
+            raise refuse(f"palette of {bps} bits and {spp} samples, planar "
+                         f"{planar} (tags 258, 277, 284, 320; cv2 reads no "
+                         f"2-bit one either)")
     elif photo == 5:
         if spp < 4 or bps != 8 or tag(332, 1) != 1:
             raise refuse(f"separated (tag 262 = 5) with {spp} samples of "
                          f"{bps} bits")
     elif photo in (6, 8) and comp != 7:
         what = "YCbCr" if photo == 6 else "CIELab"
-        # libtiff's RGBA interface reads separate planes of YCbCr alone
-        if spp != 3 or bps != 8 or (planar != 1 and photo == 8):
+        # what libtiff refuses: chunky YCbCr of other than 3 samples its
+        # strip size (TIFFVStripSize64), CIELab of other than 3 samples or
+        # 8 or 16 bits its RGBA check (TIFFRGBAImageOK), the rest its RGBA
+        # setup, which has no routine for them (TIFFRGBAImageBegin)
+        by = "TIFFRGBAImageBegin"
+        if photo == 6 and planar == 1 and spp != 3:
+            by = "TIFFVStripSize64"
+        elif photo == 8 and (spp != 3 or bps not in (8, 16)):
+            by = "TIFFRGBAImageOK"
+        if spp != 3 or bps != 8 and (photo == 6 or bps != 16) or \
+                (planar != 1 and photo == 8):
             raise refuse(f"{what} (tag 262 = {photo}) with {spp} samples "
-                         f"of {bps} bits, planar {planar}")
+                         f"of {bps} bits, planar {planar}",
+                         f" (nor by cv2: libtiff's {by} refuses it)")
     elif not (photo == 6 and comp == 7):
-        raise refuse(f"tag 262 (Photometric {photo})")
+        raise refuse(f"tag 262 (Photometric {photo})", " (nor by cv2: "
+                     "libtiff's TIFFRGBAImageOK refuses it)" if photo in
+                     (9, 10) else "")
     if comp == 7 and (bps != 8 or photo not in (1, 2, 6) or planar != 1):
         raise refuse(f"JPEG compression with tag 262 = {photo}, 258 = "
                      f"{bps}, 284 = {planar}")
@@ -834,22 +894,19 @@ def read_tiff(path) -> np.ndarray:
     if sub not in ((1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (1, 2)) \
             or (sub != (1, 1) and planar != 1):
         raise refuse(f"YCbCr subsampling {sub} (tag 530), planar {planar}")
-    if sub != (1, 1) and predictor != 1:
-        raise ValueError(f"{path}: a TIFF of subsampled YCbCr under a "
-                         f"predictor, which the port does not read yet")
     tiled = 322 in tags
     if tiled:
         cw, ch = tag(322), tag(323)
-        offsets, counts = tags.get(324), tags.get(325)
+        offsets, sizes = tags.get(324), tags.get(325)
     else:
         cw, ch = width, min(tag(278, 2 ** 32 - 1), height)
-        offsets, counts = tags.get(273), tags.get(279)
-    if offsets is None or counts is None or cw <= 0 or ch <= 0:
+        offsets, sizes = tags.get(273), tags.get(279)
+    if offsets is None or sizes is None or cw <= 0 or ch <= 0:
         raise ValueError(f"{path}: TIFF without strip or tile offsets")
     nplanes = spp if planar == 2 else 1
     cspp = 1 if planar == 2 else spp               # samples in a chunk
     across, down = -(-width // cw), -(-height // ch)
-    if len(offsets) < across * down * nplanes or len(counts) < len(offsets):
+    if len(offsets) < across * down * nplanes or len(sizes) < len(offsets):
         raise ValueError(f"{path}: TIFF with too few strips or tiles")
     row_bytes = (cw * cspp * bps + 7) // 8
     wide = np.dtype(e + "u2") if bps == 16 else np.dtype(np.uint8)
@@ -858,28 +915,55 @@ def read_tiff(path) -> np.ndarray:
     lib = _load_tiff_codec() if comp in (5, 32773) else None
     transform = 1 if photo == 6 else 0
     reverse = tag(266, 1) == 2 and comp != 7
+    counts = dict(cielab16=int(photo == 8 and bps == 16),
+                  ycbcr_predictor_chunks=0, ycbcr_predictor_skipped=0,
+                  old_lzw_chunks=0)
+
+    def chunk(k):
+        raw = data[offsets[k]:offsets[k] + sizes[k]]
+        if reverse:
+            raw = np.unpackbits(np.frombuffer(raw, np.uint8))
+            raw = np.packbits(raw.reshape(-1, 8)[:, ::-1]).tobytes()
+        return raw
+    # libtiff's LZW codec takes the style of the first chunk it decodes
+    # (LZWPreDecode, the first strip or tile of plane 0) for the whole
+    # file: old-style codes there, LZWDecodeCompat for every chunk
+    old = comp == 5 and _tiff_old_lzw(chunk(0))
+    counts["old_lzw_chunks"] = across * down * nplanes if old else 0
     k = 0
     for plane in range(nplanes):
         for ty in range(down):
             for tx in range(across):
                 y0, x0 = ty * ch, tx * cw
                 rows = ch if tiled else min(ch, height - y0)
-                raw = data[offsets[k]:offsets[k] + counts[k]]
-                k += 1
-                if reverse:
-                    raw = np.unpackbits(np.frombuffer(raw, np.uint8))
-                    raw = np.packbits(raw.reshape(-1, 8)[:, ::-1]).tobytes()
+                raw = chunk(k)
+                if tiled and comp == 1:
+                    _tiff_raw_tile_check(sizes[k], _ycbcr_unit_bytes(
+                        rows, cw, sub) if sub != (1, 1) else rows * row_bytes,
+                        reverse, path)
                 if comp == 7:
                     block = _tiff_jpeg_chunk(raw, tags.get(347), transform,
                                              path)
                     if photo == 1:
                         block = block[..., :1]
                 elif sub != (1, 1):
-                    block = _ycbcr_units(_tiff_chunk(
-                        lib, raw, comp, _ycbcr_unit_bytes(rows, cw, sub),
-                        path), rows, cw, sub)
+                    full = _ycbcr_unit_bytes(rows, cw, sub)
+                    n, rowsize = _ycbcr_decoded(rows, cw, sub, tiled, full)
+                    buf = _tiff_chunk(lib, raw, comp, n, path, old)
+                    if predictor == 2:
+                        whole = n % rowsize == 0 and rowsize % 3 == 0
+                        if whole:          # horAcc8, 3 bytes back
+                            buf = np.cumsum(np.frombuffer(buf, np.uint8)
+                                            .reshape(n // rowsize, -1, 3),
+                                            axis=1, dtype=np.uint8).tobytes()
+                        counts["ycbcr_predictor_chunks" if whole else
+                               "ycbcr_predictor_skipped"] += 1
+                    block = _ycbcr_units(buf + bytes(full - n), rows, cw,
+                                         sub, min(cw, width - x0) if tiled
+                                         else cw)
                 else:
-                    buf = _tiff_chunk(lib, raw, comp, rows * row_bytes, path)
+                    buf = _tiff_chunk(lib, raw, comp, rows * row_bytes, path,
+                                      old)
                     if bps >= 8:
                         block = np.frombuffer(buf, wide).reshape(
                             rows, cw, cspp)
@@ -893,17 +977,21 @@ def read_tiff(path) -> np.ndarray:
                         weights = 1 << np.arange(bps - 1, -1, -1)
                         block = (bits.reshape(rows, cw, bps) * weights).sum(
                             2, dtype=np.uint8)[..., None]
+                k += 1
                 h = min(rows, height - y0, block.shape[0])
                 w = min(cw, width - x0, block.shape[1])
                 sl = slice(plane, plane + 1) if planar == 2 else slice(None)
                 samples[y0:y0 + h, x0:x0 + w, sl] = block[:h, :w]
+    if info is not None:
+        info.update(counts)
     if photo == 6 and comp != 7:
         img = tiff_ycbcr_to_rgb(samples, _tiff_floats(tags.get(529)),
                                 _tiff_floats(tags.get(532)))
     elif photo == 8:
-        img = tiff_cielab_to_rgb(samples, _tiff_floats(tags.get(318)))
+        img = tiff_cielab_to_rgb(samples, _tiff_floats(tags.get(318)), bps)
     else:
-        img = _tiff_rgb(samples, photo, bps, extra, tags.get(320), path)
+        img = _tiff_rgb(samples, photo, bps, extra, tags.get(320), path,
+                        planar)
     orientation = tag(274, 1)
     if orientation > 4 and width != height:
         raise ValueError(f"{path}: TIFF orientation {orientation} (tag 274) "
@@ -913,9 +1001,15 @@ def read_tiff(path) -> np.ndarray:
 
 
 def _tiff_rgb(px: np.ndarray, photo: int, bps: int, extra, colormap,
-              path) -> np.ndarray:
+              path, planar: int = 1) -> np.ndarray:
     """Decoded samples (H, W, spp) → RGB as libtiff's TIFFRGBAImage gives
-    them to OpenCV."""
+    them to OpenCV.  Gray in separate planes with extra samples is read as
+    RGB of three equal planes (gtStripSeparate, PickSeparateCase): neither
+    cut to the high byte nor inverted for white-is-zero, its alpha the
+    second plane."""
+    if photo in (0, 1) and planar == 2 and px.shape[2] > 1:
+        px = np.concatenate([np.repeat(px[..., :1], 3, 2), px[..., 1:2]], 2)
+        return _tiff_rgb(px, 2, bps, extra, colormap, path)
     if photo in (0, 1):
         if bps == 1:
             v = px[..., 0] * np.uint8(255)
@@ -957,17 +1051,41 @@ def _ycbcr_unit_bytes(rows: int, cols: int, sub) -> int:
     return -(-rows // vs) * -(-cols // hs) * (hs * vs + 2)
 
 
-def _ycbcr_units(buf: bytes, rows: int, cols: int, sub) -> np.ndarray:
-    """A chunk of subsampled YCbCr data units → (rows, cols, 3) samples,
-    each block's Cb and Cr over all its pixels, as libtiff's
-    ``putcontig8bitYCbCrXYtile`` routines read them."""
+def _ycbcr_decoded(rows: int, cols: int, sub, tiled: bool, full: int):
+    """(the bytes libtiff decodes of a chunk of subsampled 8-bit YCbCr,
+    the row size its predictor works in).  A tile: all of it, in rows of
+    TIFFTileRowSize (the tile's width times 3).  A strip: nrowsub ·
+    TIFFScanlineSize, where nrowsub is its rows rounded up to the vertical
+    subsampling and TIFFScanlineSize a row of sample blocks over the
+    vertical subsampling, rounded down (gtStripContig's read size; short
+    of the strip where the row of blocks is not a multiple of it, the rest
+    of libtiff's buffer zero), in rows of TIFFScanlineSize."""
     hs, vs = sub
-    by, bx = -(-rows // vs), -(-cols // hs)
-    units = np.frombuffer(buf, np.uint8).reshape(by, bx, hs * vs + 2)
+    if tiled:
+        return full, cols * 3
+    scan = -(-cols // hs) * (hs * vs + 2) // vs
+    return min(full, -(-rows // vs) * vs * scan), scan
+
+
+def _ycbcr_units(buf: bytes, rows: int, cols: int, sub, shown: int
+                 ) -> np.ndarray:
+    """A chunk of subsampled YCbCr data units, ``cols`` wide, of which
+    ``shown`` columns lie in the image → (rows, shown, 3) samples, each
+    block's Cb and Cr over all its pixels, as libtiff's
+    ``putcontig8bitYCbCrXYtile`` routines read them: each row of blocks
+    the shown blocks, then a skip of the (cols - shown) // hs blocks left
+    (gtTileContig's fromskew), which the 4x4 routine counts at 10 bytes a
+    block (``(fromskew / 4) * (4 * 2 + 2)``), not 18."""
+    hs, vs = sub
+    unit = hs * vs + 2
+    by, bx = -(-rows // vs), -(-shown // hs)
+    skip = (cols - shown) // hs * (10 if sub == (4, 4) else unit)
+    at = np.arange(by)[:, None] * (bx * unit + skip) + np.arange(bx * unit)
+    units = np.frombuffer(buf, np.uint8)[at].reshape(by, bx, unit)
     y = units[..., :hs * vs].reshape(by, bx, vs, hs).transpose(
         0, 2, 1, 3).reshape(by * vs, bx * hs)
     chroma = np.repeat(np.repeat(units[..., hs * vs:], vs, 0), hs, 1)
-    return np.dstack([y[..., None], chroma])[:rows, :cols]
+    return np.dstack([y[..., None], chroma])[:rows, :shown]
 
 
 def _tiff_floats(values):
@@ -1064,11 +1182,13 @@ def _cielab_table() -> np.ndarray:
     return _CIELAB_TABLE
 
 
-def tiff_cielab_to_rgb(px: np.ndarray, white=None) -> np.ndarray:
-    """8-bit CIELab samples (H, W, 3: L unsigned, a and b signed) → RGB as
-    libtiff 4.7.1's RGBA interface gives them to OpenCV
-    (``putcontig8bitCIELab8``): ``TIFFCIELabToXYZ`` (through
-    ``TIFFCIELab16ToXYZ`` on L · 257, a · 256, b · 256) against the white
+def tiff_cielab_to_rgb(px: np.ndarray, white=None, bps: int = 8
+                       ) -> np.ndarray:
+    """CIELab samples (H, W, 3: L unsigned, a and b signed) of ``bps`` 8 or
+    16 bits → RGB as libtiff 4.7.1's RGBA interface gives them to OpenCV
+    (``putcontig8bitCIELab8``, ``putcontig8bitCIELab16``):
+    ``TIFFCIELab16ToXYZ`` on L, a and b (8 bits: through
+    ``TIFFCIELabToXYZ``, on L · 257, a · 256, b · 256) against the white
     point of tag 318 (default D50), then ``TIFFXYZToRGB`` with
     display_sRGB's matrix, clip and gamma table, all in float."""
     f32 = np.float32
@@ -1079,11 +1199,14 @@ def tiff_cielab_to_rgb(px: np.ndarray, white=None) -> np.ndarray:
     ref_y = f32(100)
     ref_x = wx / wy * ref_y
     ref_z = (f32(1) - wx - wy) / wy * ref_y
-    lum = (px[..., 0].astype(np.int64) * 257).astype(np.float32)
-    a = (px[..., 1].astype(np.int8).astype(np.int64) * 256).astype(
-        np.float32)
-    b = (px[..., 2].astype(np.int8).astype(np.int64) * 256).astype(
-        np.float32)
+    if bps == 16:
+        lum = px[..., 0].astype(np.float32)
+        a, b = (px[..., k].astype(np.int16).astype(np.float32)
+                for k in (1, 2))
+    else:
+        lum = (px[..., 0].astype(np.int64) * 257).astype(np.float32)
+        a, b = ((px[..., k].astype(np.int8).astype(np.int64) * 256).astype(
+            np.float32) for k in (1, 2))
     L = lum * f32(100) / f32(65535)
     low = L < f32(8.856)
     y_low = L * ref_y / f32(903.292)

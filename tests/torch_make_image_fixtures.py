@@ -19,6 +19,9 @@ installed (the tier-1 tests, the card's machine).
     python tests/torch_make_image_fixtures.py --inter  # AV1 frames after
                                                        # the first (libaom's
                                                        # encoder, ctypes)
+    python tests/torch_make_image_fixtures.py --kinds  # the TIFF and JPEG
+                                                       # kinds written here
+                                                       # (KINDS_CASES; cv2)
 
 Each ``<name>.<ext>`` has ``<name>.want.png``, ``cv2.imread``'s decode of
 it (as RGB).  ``REFUSED`` names the files cv2 does not read (its
@@ -462,6 +465,72 @@ AVIF_CASES += AVIF_SCALED_CASES
 AVIF_SCALED_REFUSED = ["avif_ref_too_large.avif"]
 CASES += AVIF_CASES + TIFF_COLOUR_CASES
 REFUSED += AVIF_REFUSED + AVIF_SCALED_REFUSED
+# the TIFF and JPEG kinds cv2 reads beyond the others (kinds_files): 16-bit
+# CIELab in every compression, with the predictor, in tiles, big-endian,
+# rotated and under another white point; subsampled YCbCr under Predictor 2
+# at each subsampling (strips; tiles whose predictor libtiff undoes and
+# whose it leaves; an odd row of 4x4 blocks, which libtiff decodes short
+# and leaves differenced;
+# differences no reader undoes), and 4x4 tiles cut at the image's edge;
+# old-style LZW (a long strip past 12-bit codes and CLEARs, the
+# predictor, 16-bit big-endian gray, tiles, separate planes, FillOrder 2);
+# lossless JPEG of subsampled components (interleaved with and without
+# restarts, a scan a component, cut short); and what the TIFF sweep found
+# besides: gray with an unassociated alpha in planes (libtiff's RGB way),
+# 8-bit palette with an extra sample.  TIFF_KINDS_USES: what each
+# file's counters show it took (read_tiff's and read_jpeg's ``info``).
+TIFF_KINDS_USES = {
+    "tiff_lab16_none.tif": "cielab16", "tiff_lab16_lzw_pred.tif": "cielab16",
+    "tiff_lab16_deflate_pred.tif": "cielab16",
+    "tiff_lab16_packbits.tif": "cielab16",
+    "tiff_lab16_tiles_mm.tif": "cielab16",
+    "tiff_lab16_orient3.tif": "cielab16", "tiff_lab16_orient6.tif": "cielab16",
+    "tiff_lab16_white.tif": "cielab16",
+    "tiff_ycbcr_pred_12.tif": "ycbcr_predictor_chunks",
+    "tiff_ycbcr_pred_21.tif": "ycbcr_predictor_chunks",
+    "tiff_ycbcr_pred_22.tif": "ycbcr_predictor_chunks",
+    "tiff_ycbcr_pred_41.tif": "ycbcr_predictor_chunks",
+    "tiff_ycbcr_pred_42.tif": "ycbcr_predictor_chunks",
+    "tiff_ycbcr_pred_44.tif": "ycbcr_predictor_chunks",
+    "tiff_ycbcr_pred_22_deflate.tif": "ycbcr_predictor_chunks",
+    "tiff_ycbcr_pred_22_tiles.tif": "ycbcr_predictor_chunks",
+    "tiff_ycbcr_pred_42_tiles.tif": "ycbcr_predictor_skipped",
+    "tiff_ycbcr_pred_44_odd.tif": "ycbcr_predictor_skipped",
+    "tiff_ycbcr_pred_pixels.tif": "ycbcr_predictor_chunks",
+    "tiff_ycbcr_44_edge_tiles.tif": None,
+    "tiff_lzw_old_rgb.tif": "old_lzw_chunks",
+    "tiff_lzw_old_pred.tif": "old_lzw_chunks",
+    "tiff_lzw_old_gray16_mm.tif": "old_lzw_chunks",
+    "tiff_lzw_old_tiles.tif": "old_lzw_chunks",
+    "tiff_lzw_old_planar.tif": "old_lzw_chunks",
+    "tiff_lzw_old_fill2.tif": "old_lzw_chunks",
+    "tiff_gray16_alpha_planar.tif": None, "tiff_palette_extra.tif": None,
+    "jpeg_lossless_sub22.jpg": "subsampled_lossless",
+    "jpeg_lossless_sub21_restart.jpg": "subsampled_lossless",
+    "jpeg_lossless_sub_mixed.jpg": "subsampled_lossless",
+    "jpeg_lossless_sub_scans.jpg": "subsampled_lossless",
+    "jpeg_lossless_sub_cut.jpg": "subsampled_lossless",
+}
+KINDS_CASES = list(TIFF_KINDS_USES)
+# the kinds cv2 refuses too (kinds_files): 16-bit YCbCr (subsampled or
+# not), YCbCr and CIELab with an extra sample (8 and 16 bits), CIELab in
+# separate planes, ICCLab and ITULab, old-style JPEG (compression 6), RGB
+# of 5 samples (OpenCV reads at most 4), an uncompressed 16x16 RGB tile
+# under FillOrder 2 (768 bytes, not whole KiB);
+# arithmetic-coded lossless JPEG (SOF11, its scan Huffman-coded), a
+# lossless restart interval that splits an MCU row, an interleaved scan
+# of more than 10 samples an MCU
+KINDS_REFUSED = [
+    "tiff_refused_ycbcr16.tif", "tiff_refused_ycbcr16_sub.tif",
+    "tiff_refused_ycbcr_extra.tif", "tiff_refused_ycbcr16_extra.tif",
+    "tiff_refused_lab_extra.tif", "tiff_refused_lab16_extra.tif",
+    "tiff_refused_lab_planar.tif", "tiff_refused_icclab.tif",
+    "tiff_refused_itulab.tif", "tiff_refused_ojpeg.tif",
+    "tiff_refused_rgb_5_samples.tif", "tiff_refused_fill2_tile.tif",
+    "jpeg_refused_sof11.jpg", "jpeg_refused_split_restart.jpg",
+    "jpeg_refused_mcu_samples.jpg"]
+CASES += KINDS_CASES
+REFUSED += KINDS_REFUSED
 # full-size AVIF views for chip_smoke's decode seconds and the SHA-256 of
 # cv2's decode of each (RGB, row-major bytes): TIMING by cv2 at its
 # default, at 10 and 12 bits (from TIMING * 257 as uint16), a lossless
@@ -651,6 +720,62 @@ COMPOUND_NOISE, COMPOUND_SPEED, COMPOUND_CQ = 3.0, 1, 36
 # view, libaom's inter frames resized to 8/d (even k) or coded with
 # superres at 8/d (odd k), d = 9 + k // 2 % 8
 AVIF_MID_SCALED = "avif_mid_scaled"
+# chip_smoke's tiff_mid_kinds views (tiff_mid_file), written on the card's
+# host from the decodes of AVIF_MID's views: view k as 16-bit CIELab
+# (Deflate, Predictor 2) for k % 3 == 0, as 4:2:0 YCbCr under LZW and
+# Predictor 2 for k % 3 == 1, as old-style LZW RGB for k % 3 == 2; the
+# SHA-256 of cv2's decode of each
+TIFF_MID_KINDS = ("cielab16", "ycbcr_predictor_chunks", "old_lzw_chunks")
+TIFF_MID_SHA256 = {
+    "img_000.tif": ("277426976267d09f15cfff2dff225390"
+                    "88b1792a76ae2a5db32c764754efc548"),
+    "img_001.tif": ("e19f98b4f51bd33b3f4be806ea9f5566"
+                    "26872122f76d3dff3d5733e4dfd692f9"),
+    "img_002.tif": ("36af7acc3cab5357b753aa08d0f50551"
+                    "88bdb175a05ca2e290b0cc392e106d15"),
+    "img_003.tif": ("42223674edb414348c4a1b32b34e53cf"
+                    "952d37a90396d516a7b82179a9caab91"),
+    "img_004.tif": ("df6f3119daa0d648ffd83d362145f2f3"
+                    "9293de83e244858496b9f5ca05a28681"),
+    "img_005.tif": ("0ea1ced50cbb4d9a0829e9bb0d55c324"
+                    "db9ce885d83660479b56504dc02cfd63"),
+    "img_006.tif": ("64cf8f80ba02bb0a70ff4d827f7ec82a"
+                    "d70003cea7a4472ee0fabb595cdf287d"),
+    "img_007.tif": ("ba5369a69c4a331598f01c8237fa992d"
+                    "ca0a53b6d0da975581ce21c496fb2f47"),
+    "img_008.tif": ("742cdb872c0c59af0931a87bea59b87b"
+                    "b4f3e1eb16346a80e3e283f4685047e0"),
+    "img_009.tif": ("4f1d7fb8306d15202c390cd48a9340a2"
+                    "103778203cbfcbf6480a04d5b57df7de"),
+    "img_010.tif": ("95d08cdca7aaf29f9b07751d74773e6a"
+                    "8674e53625ef8523f6650bf9ff90c403"),
+    "img_011.tif": ("4700f3ae85cadb320f61c9f67edb0d1d"
+                    "7d30dc45a2822bac2e635bec4ff52d5b"),
+    "img_012.tif": ("af40a5690362509f10b7d73bb48ba469"
+                    "58b4dc79d4ff69773dd65e402ca53bc1"),
+    "img_013.tif": ("ba2c657321c9a9cd13257cc9af59e28c"
+                    "fbe890b3971be98628d1b049c351a3ce"),
+    "img_014.tif": ("206dad91465c7f3f9e171364ba3e1a43"
+                    "a31935394f39da5ae0da8d000abc8583"),
+    "img_015.tif": ("4a69e3dcbcad78fc6a10a16d15bc98e9"
+                    "14558b8d7cd7e12813dfdd9723da6780"),
+    "img_016.tif": ("3ec093c5161be4341936ef93b69d8fe4"
+                    "e383f85ee327d68ae3a0d82708845aa3"),
+    "img_017.tif": ("601ab850ae246ce47c8f57e2a158650c"
+                    "cd223d0cd11c1a389234aac167a9f6aa"),
+    "img_018.tif": ("ccc7f5038a2207cf1dccd2e8e9bd9671"
+                    "41f6427be4dfbaffbc142e54623e4ce6"),
+    "img_019.tif": ("4725d12243bece3c19330f62f4456b60"
+                    "4ded599ebc41c4fb83a0956b48cc8a7f"),
+    "img_020.tif": ("7047787f45aea34511cd3754ffebc3ed"
+                    "0a39f929b470437de3bb7d53943801b4"),
+    "img_021.tif": ("d30946eb386c88d9a521f87f17ff90d6"
+                    "4c7305c814af0a316a9232cfa30ed964"),
+    "img_022.tif": ("723f27fa6f904668686a8728ba466ec1"
+                    "48f3a18473496f0693d75fdef4e3cf32"),
+    "img_023.tif": ("4240c13f75921e071b71ac0d160c2545"
+                    "27b4e2d3b549c10e12342df883e84a72"),
+}
 
 
 def colour_alpha(h: int, w: int) -> np.ndarray:
@@ -2619,6 +2744,159 @@ def _cut(data: bytes, fraction: float) -> bytes:
     raise ValueError("no scan data past the cut")
 
 
+# the hand lossless frames' one Huffman table (counts of codes by length
+# 1-16): difference categories 0-13 in 4 bits, 14-16 in 5 (no code is all
+# ones)
+_LOSSLESS_BITS = (0, 0, 0, 14, 3) + (0,) * 11
+
+
+def _huffman_codes(bits) -> dict:
+    """A DHT table's canonical codes: symbol (0, 1, ...) -> (code, length)."""
+    codes, code, sym = {}, 0, 0
+    for length, count in enumerate(bits, 1):
+        for _ in range(count):
+            codes[sym] = (code, length)
+            code, sym = code + 1, sym + 1
+        code <<= 1
+    return codes
+
+
+class _BitWriter:
+    """JPEG entropy-coded bytes: MSB-first bits, 0xFF stuffed with 0x00,
+    one bits padding a byte before a marker."""
+
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, value: int, n: int):
+        self.acc, self.n = (self.acc << n) | (value & ((1 << n) - 1)), \
+            self.n + n
+        while self.n >= 8:
+            byte = (self.acc >> (self.n - 8)) & 0xFF
+            self.out += b"\xff\x00" if byte == 0xFF else bytes([byte])
+            self.n -= 8
+        self.acc &= (1 << self.n) - 1
+
+    def flush(self):
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)
+
+    def marker(self, code: int):
+        self.flush()
+        self.out += bytes([0xFF, code])
+
+
+def _segment(code: int, body: bytes) -> bytes:
+    return bytes([0xFF, code]) + struct.pack(">H", len(body) + 2) + body
+
+
+def _lossless_prediction(p: np.ndarray, first_rows, psv: int,
+                         pt: int) -> np.ndarray:
+    """The differences of a component's point-transformed samples ``p``
+    under predictor ``psv``, as libjpeg-turbo undoes them: Ra along each
+    row in ``first_rows`` (its first sample from 1 << (7 - pt)), Rb for
+    the first sample of every other row, the predictor elsewhere; mod
+    2^16 as signed values."""
+    d = np.zeros(p.shape, np.int64)
+    for y in range(p.shape[0]):
+        for x in range(p.shape[1]):
+            ra = p[y, x - 1] if x else 0
+            if y in first_rows:
+                pred = ra if x else 1 << (7 - pt)
+            elif x == 0:
+                pred = p[y - 1, 0]
+            else:
+                rb, rc = p[y - 1, x], p[y - 1, x - 1]
+                pred = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+                        rb + ((ra - rc) >> 1), (ra + rb) >> 1)[psv - 1]
+            v = (int(p[y, x]) - int(pred)) & 0xFFFF
+            d[y, x] = v - 0x10000 if v >= 0x8000 else v
+    return d
+
+
+def _lossless_difference(bw: _BitWriter, codes: dict, d: int):
+    s = abs(d).bit_length()
+    bw.put(*codes[s])
+    if 0 < s < 16:
+        bw.put(d if d > 0 else d + (1 << s) - 1, s)
+
+
+def lossless_jpeg(planes, height: int, width: int, sampling=None, psv=1,
+                  pt=0, restart=0, marker=0xC3, interleave=True) -> bytes:
+    """A lossless JPEG (T.81 Annex H) written by hand, for the kinds no
+    writer here makes: components sampled ``sampling`` ((h, v) each,
+    default 1 x 1), a restart interval of ``restart`` MCUs (any count, the
+    RST markers where it puts them), the frame marker ``marker`` (0xC3, or
+    0xCB, SOF11, which labels the Huffman-coded scan arithmetic-coded),
+    one interleaved scan or (``interleave`` False) a scan a component.
+    ``planes`` holds each component's 8-bit samples at its own size,
+    ceil(height · v / vmax) x ceil(width · h / hmax).  Like libjpeg-turbo
+    3's lossless RGB files: an Adobe marker of transform 0, components
+    'R', 'G', 'B', one DHT table.  The prediction is the decoder's
+    (jddiffct.c, jdlossls.c): a component's rows are undone an iMCU row (v
+    rows) at a time, and the first row undone after the scan's start or a
+    restart (whole MCU rows only; an interval that splits a row resets
+    nothing) takes Ra, whichever of the iMCU row's MCU rows the restart
+    came before; samples padding an MCU past a component's edge are coded
+    as 0."""
+    ncomp = len(planes)
+    sampling = sampling or [(1, 1)] * ncomp
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    codes = _huffman_codes(_LOSSLESS_BITS)
+    ids = [b"RGB"[k] if ncomp == 3 else k + 1 for k in range(ncomp)]
+    out = b"\xff\xd8" + _segment(0xEE, b"Adobe\x00\x64" + bytes(5))
+    sof = bytes([8]) + struct.pack(">HHB", height, width, ncomp)
+    for k, (h, v) in enumerate(sampling):
+        sof += bytes([ids[k], h << 4 | v, 0])
+    out += _segment(marker, sof)
+    out += _segment(0xC4, bytes([0]) + bytes(_LOSSLESS_BITS)
+                    + bytes(range(17)))
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    scans = [list(range(ncomp))] if interleave else [[k] for k in
+                                                       range(ncomp)]
+    for scan in scans:
+        lone = len(scan) == 1
+        sos = bytes([len(scan)])
+        for k in scan:
+            sos += bytes([ids[k], 0])
+        out += _segment(0xDA, sos + bytes([psv, 0, pt]))
+        # the scan's MCU grid: one sample of a lone component, else each
+        # component's h x v samples
+        per_row = planes[scan[0]].shape[1] if lone else -(-width // hmax)
+        mrows = planes[scan[0]].shape[0] if lone else -(-height // vmax)
+        diffs = {}
+        for k in scan:
+            h, v = sampling[k]
+            plane = planes[k].astype(np.int64) >> pt
+            mh = 1 if lone else v
+            # the MCU rows after which a restart comes, and so the first
+            # row of each iMCU row (v rows) that holds one
+            firsts = {0}
+            if restart and restart % per_row == 0:
+                for m in range(restart, per_row * mrows, restart):
+                    firsts.add(m // per_row * mh // v * v)
+            diffs[k] = _lossless_prediction(plane, firsts, psv, pt)
+        bw = _BitWriter()
+        for m in range(per_row * mrows):
+            if restart and m and m % restart == 0:
+                bw.marker(0xD0 + (m // restart - 1) % 8)
+            my, mx = divmod(m, per_row)
+            for k in scan:
+                h, v = (1, 1) if lone else sampling[k]
+                d = diffs[k]
+                for yy in range(v):
+                    for xx in range(h):
+                        y, x = my * v + yy, mx * h + xx
+                        _lossless_difference(
+                            bw, codes, int(d[y, x]) if y < d.shape[0]
+                            and x < d.shape[1] else 0)
+        bw.flush()
+        out += bytes(bw.out)
+    return out + b"\xff\xd9"
+
+
 # ------------------------------------------------------------ WebP writers
 
 
@@ -2924,11 +3202,140 @@ def _lzw(data: bytes) -> bytes:
     return bytes(out)
 
 
-def write_tiff_file(path, samples, bps=8, photometric=None, compression=1,
-                    predictor=1, planar=1, tile=None, rows_per_strip=None,
-                    endian="<", colormap=None, extra_samples=None):
+def lzw_old_style(data: bytes, clear_at: int = 4094,
+                  stats: dict | None = None) -> bytes:
+    """Old-style TIFF LZW, the codes libtiff decodes with LZWDecodeCompat:
+    LSB first, a CLEAR first and whenever the next free entry reaches
+    ``clear_at``, the code width grown once the decoder's next free entry
+    passes 2^nbits - 1 (one code after the new style's early change), EOI
+    last.  Plain Python.  ``stats``, where given, gets the widest code
+    (``max_bits``) and the CLEARs after the first (``clears``)."""
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, nbits):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += nbits
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+    # the decoder's state: its next free entry, its width, and whether the
+    # next code is the first after a CLEAR (which adds no entry)
+    dec = {"free": 258, "nbits": 9, "fresh": True}
+
+    def emit(code):
+        put(code, dec["nbits"])
+        if dec["fresh"]:
+            dec["fresh"] = False
+            return
+        dec["free"] += 1
+        if dec["free"] > (1 << dec["nbits"]) - 1 and dec["nbits"] < 12:
+            dec["nbits"] += 1
+            seen["max_bits"] = max(seen.get("max_bits", 9), dec["nbits"])
+
+    def clear():
+        seen["max_bits"] = max(seen.get("max_bits", 9), dec["nbits"])
+        put(256, dec["nbits"])
+        dec.update(free=258, nbits=9, fresh=True)
+        seen["clears"] += 1
+    seen = {"clears": -1}
+    clear()
+    table, free = {}, 258
+    if data:
+        cur = data[0]
+        for c in data[1:]:
+            if (cur, c) in table:
+                cur = table[(cur, c)]
+                continue
+            emit(cur)
+            table[(cur, c)] = free
+            free += 1
+            cur = c
+            if free == clear_at:
+                clear()
+                table, free = {}, 258
+        emit(cur)
+    put(257, dec["nbits"])
+    if nacc:
+        out.append(acc & 0xFF)
+    if stats is not None:
+        stats.update(clears=seen["clears"], max_bits=seen["max_bits"])
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits (tif_packbits.c's format): runs of 3 or more equal bytes as
+    a repeat, the rest as literals of up to 128 bytes."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (
+                j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def horizontal_differences(buf: bytes, rowsize: int, stride: int) -> bytes:
+    """8-bit Predictor 2 as libtiff's horDiff8 writes it: each row of
+    ``rowsize`` bytes differenced ``stride`` bytes back (mod 256)."""
+    a = np.frombuffer(buf, np.uint8).reshape(-1, rowsize // stride, stride)
+    d = a.copy()
+    d[:, 1:] -= a[:, :-1]
+    return d.tobytes()
+
+
+def ycbcr_units(px: np.ndarray, rows: int, cols: int, hs: int,
+                vs: int) -> bytes:
+    """The data units of (rows, cols) YCbCr samples subsampled hs x vs: hs ·
+    vs luma samples, then the block's Cb and Cr (its top-left sample's);
+    blocks past the edge padded with the edge's samples."""
+    ys = np.minimum(np.arange(-(-rows // vs) * vs), px.shape[0] - 1)
+    xs = np.minimum(np.arange(-(-cols // hs) * hs), px.shape[1] - 1)
+    full = px[ys][:, xs].astype(np.uint8)
+    by, bx = full.shape[0] // vs, full.shape[1] // hs
+    y = full[..., 0].reshape(by, vs, bx, hs).transpose(0, 2, 1, 3).reshape(
+        by, bx, vs * hs)
+    chroma = full[::vs, ::hs, 1:]
+    return np.concatenate([y, chroma], 2).tobytes()
+
+
+def write_tiff_file(path, samples, **kw):
+    """``tiff_bytes(samples, **kw)`` written to ``path``."""
+    with open(path, "wb") as f:
+        f.write(tiff_bytes(samples, **kw))
+
+
+def tiff_bytes(samples, bps=8, photometric=None, compression=1, predictor=1,
+               planar=1, tile=None, rows_per_strip=None, endian="<",
+               colormap=None, extra_samples=None, subsampling=None,
+               old_lzw=False, fill_order=1, orientation=None, tags=None,
+               ycbcr_rows="libtiff") -> bytes:
     """A one-image TIFF: strips or tiles, chunky or planar, II or MM, no
-    compression, LZW or Deflate, predictor 2 at 8 or 16 bits."""
+    compression, LZW (``old_lzw``: old-style codes), Deflate (8 or 32946)
+    or PackBits, predictor 2 at 8 or 16 bits; FillOrder 2 (each chunk's
+    bytes bit-reversed), an orientation, and any other SHORT, LONG or
+    RATIONAL ``tags`` ({tag: (type, values)}, a RATIONAL's values as
+    numerator, denominator pairs).  With ``subsampling`` (YCbCr, photometric
+    6, 8 bits, chunky) each strip or tile holds data units
+    (``ycbcr_units``), the size libtiff reads, and Predictor 2 differences
+    them as libtiff's predictor undoes them (``ycbcr_rows`` "libtiff"):
+    rows of TIFFScanlineSize (a row of sample blocks over the vertical
+    subsampling) in a strip, of the tile's width times 3 bytes in a tile,
+    3 bytes back, over the bytes libtiff decodes (a strip's whole rows of
+    blocks cut to nrowsub · TIFFScanlineSize), none where a tile is not a
+    whole number of such rows or a row not of whole 3-byte groups;
+    "pixels" differences each row of blocks unit by unit instead, what no
+    reader undoes."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[..., None]
@@ -2937,6 +3344,18 @@ def write_tiff_file(path, samples, bps=8, photometric=None, compression=1,
         photometric = 1 if spp == 1 else 2
     planes = ([samples[..., k:k + 1] for k in range(spp)] if planar == 2
               else [samples])
+
+    def compress(raw):
+        if compression == 5:
+            raw = lzw_old_style(raw) if old_lzw else _lzw(raw)
+        elif compression in (8, 32946):
+            raw = zlib.compress(raw)
+        elif compression == 32773:
+            raw = packbits(raw)
+        if fill_order == 2:
+            raw = np.packbits(np.unpackbits(np.frombuffer(raw, np.uint8))
+                              .reshape(-1, 8)[:, ::-1]).tobytes()
+        return raw
 
     def encode(block):
         rows, cols, n = block.shape
@@ -2953,7 +3372,26 @@ def write_tiff_file(path, samples, bps=8, photometric=None, compression=1,
             bits = ((flat[..., None] >> np.arange(bps - 1, -1, -1)) & 1
                     ).astype(np.uint8).reshape(rows, -1)
             raw = np.packbits(bits, axis=1).tobytes()
-        return {1: raw, 5: _lzw(raw), 8: zlib.compress(raw)}[compression]
+        return compress(raw)
+
+    def encode_units(block, rows, tiled):
+        hs, vs = subsampling
+        cols = block.shape[1]
+        raw = ycbcr_units(block, rows, cols, hs, vs)
+        if predictor == 2:
+            unit = hs * vs + 2
+            if ycbcr_rows == "pixels":
+                raw = horizontal_differences(raw, -(-cols // hs) * unit,
+                                             unit)
+            elif tiled:
+                if len(raw) % (3 * cols) == 0:
+                    raw = horizontal_differences(raw, 3 * cols, 3)
+            else:
+                scan = -(-w // hs) * unit // vs
+                n = min(len(raw), -(-rows // vs) * vs * scan)
+                if scan % 3 == 0:
+                    raw = horizontal_differences(raw[:n], scan, 3) + raw[n:]
+        return compress(raw)
 
     chunks = []
     for plane in planes:
@@ -2964,47 +3402,283 @@ def write_tiff_file(path, samples, bps=8, photometric=None, compression=1,
                     blk = np.zeros((th, tw, plane.shape[2]), plane.dtype)
                     part = plane[ty:ty + th, tx:tx + tw]
                     blk[:part.shape[0], :part.shape[1]] = part
-                    chunks.append(encode(blk))
+                    if subsampling:
+                        blk[part.shape[0]:] = blk[part.shape[0] - 1]
+                        blk[:, part.shape[1]:] = blk[:, part.shape[1] - 1:
+                                                     part.shape[1]]
+                        chunks.append(encode_units(blk, th, True))
+                    else:
+                        chunks.append(encode(blk))
         else:
             rps = rows_per_strip or h
-            chunks += [encode(plane[y:y + rps]) for y in range(0, h, rps)]
+            for y in range(0, h, rps):
+                part = plane[y:y + rps]
+                chunks.append(encode_units(part, part.shape[0], False)
+                              if subsampling else encode(part))
     e = endian
     body = bytearray(b"II*\x00" if e == "<" else b"MM\x00*") + bytes(4)
     offsets = []
     for c in chunks:
         offsets.append(len(body))
         body += c + b"\x00" * (len(c) % 2)
-    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bps] * spp),
-            259: (3, [compression]), 262: (3, [photometric]),
-            277: (3, [spp]), 284: (3, [planar])}
+    fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [bps] * spp),
+              259: (3, [compression]), 262: (3, [photometric]),
+              277: (3, [spp]), 284: (3, [planar])}
     if predictor != 1:
-        tags[317] = (3, [predictor])
+        fields[317] = (3, [predictor])
     if tile:
-        tags.update({322: (3, [tile[0]]), 323: (3, [tile[1]]),
-                     324: (4, offsets), 325: (4, [len(c) for c in chunks])})
+        fields.update({322: (3, [tile[0]]), 323: (3, [tile[1]]),
+                       324: (4, offsets),
+                       325: (4, [len(c) for c in chunks])})
     else:
-        tags.update({273: (4, offsets), 279: (4, [len(c) for c in chunks]),
-                     278: (4, [rows_per_strip or h])})
+        fields.update({273: (4, offsets),
+                       279: (4, [len(c) for c in chunks]),
+                       278: (4, [rows_per_strip or h])})
     if colormap is not None:
-        tags[320] = (3, list(np.asarray(colormap).T.reshape(-1)))
+        fields[320] = (3, list(np.asarray(colormap).T.reshape(-1)))
     if extra_samples is not None:
-        tags[338] = (3, list(extra_samples))
+        fields[338] = (3, list(extra_samples))
+    if subsampling is not None:
+        fields[530] = (3, list(subsampling))
+    if fill_order != 1:
+        fields[266] = (3, [fill_order])
+    if orientation is not None:
+        fields[274] = (3, [orientation])
+    fields.update(tags or {})
     entries = []
-    for t in sorted(tags):
-        typ, vals = tags[t]
-        raw = struct.pack(e + {3: "H", 4: "I"}[typ] * len(vals), *vals)
+    for t in sorted(fields):
+        typ, vals = fields[t]
+        code = {3: "H", 4: "I", 5: "II"}[typ]
+        count = len(vals) // 2 if typ == 5 else len(vals)
+        raw = struct.pack(e + code[0] * len(vals), *vals)
         if len(raw) > 4:
-            entries.append(struct.pack(e + "HHII", t, typ, len(vals),
+            entries.append(struct.pack(e + "HHII", t, typ, count,
                                        len(body)))
             body += raw + b"\x00" * (len(raw) % 2)
         else:
-            entries.append(struct.pack(e + "HHI", t, typ, len(vals))
+            entries.append(struct.pack(e + "HHI", t, typ, count)
                            + raw.ljust(4, b"\x00"))
     ifd = len(body)
     body += struct.pack(e + "H", len(entries)) + b"".join(entries) + bytes(4)
     body[4:8] = struct.pack(e + "I", ifd)
-    with open(path, "wb") as f:
-        f.write(bytes(body))
+    return bytes(body)
+
+
+# the D50 white point and display_sRGB of libtiff's RGBA interface
+# (tif_getimage.c), for the CIELab writers below
+_D50 = (96.4250, 100.0, 82.4680)
+_SRGB = np.array([[3.2410, -1.5374, -0.4986], [-0.9692, 1.8760, 0.0416],
+                  [0.0556, -0.2040, 1.0570]])
+
+
+def rgb_to_cielab16(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 RGB → 16-bit CIELab samples (L · 65535 / 100, a and
+    b · 256 as int16 in uint16), the inverse of libtiff's display_sRGB
+    conversion (gamma 2.4 over light output 1-100, its matrix, D50)."""
+    lum = 1 + 99 * (rgb.astype(np.float64) / 255) ** 2.4
+    xyz = lum @ np.linalg.inv(_SRGB).T
+    ref = np.array(_D50)
+
+    def f(t):
+        return np.where(t > 0.008856, np.cbrt(t), 7.787 * t + 16 / 116)
+    fx_, fy, fz = (f(xyz[..., k] / ref[k]) for k in range(3))
+    L = np.where(xyz[..., 1] / ref[1] > 0.008856, 116 * fy - 16,
+                 903.292 * xyz[..., 1] / ref[1])
+    a, b = 500 * (fx_ - fy), 200 * (fy - fz)
+    out = np.stack([np.clip(np.rint(L / 100 * 65535), 0, 65535),
+                    np.clip(np.rint(a * 256), -32768, 32767),
+                    np.clip(np.rint(b * 256), -32768, 32767)], -1)
+    return out.astype(np.int64).astype(np.uint16)
+
+
+def rgb_to_ycbcr(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 RGB → full-range BT.601 YCbCr samples (libtiff's
+    default YCbCrCoefficients and ReferenceBlackWhite)."""
+    x = rgb.astype(np.float64)
+    y = x @ np.array([0.299, 0.587, 0.114])
+    cb = 128 + (x[..., 2] - y) / 1.772
+    cr = 128 + (x[..., 0] - y) / 1.402
+    return np.clip(np.rint(np.stack([y, cb, cr], -1)), 0, 255).astype(
+        np.uint8)
+
+
+def _noise(shape, hi: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, hi, shape)
+
+
+def kinds_files() -> dict:
+    """name -> bytes of KINDS_CASES and KINDS_REFUSED, written here with
+    numpy and the standard library alone (fixture_image and seeded
+    noise)."""
+    out = {}
+    img = fixture_image(37, 45, seed=27)
+    lab = rgb_to_cielab16(img)
+    # the signed ends of a and b, and L's
+    lab[0, :4] = [(0, 0x8000, 0x7FFF), (65535, 0x7FFF, 0x8000),
+                  (0, 0, 0xFFFF), (65535, 0xFFFF, 0)]
+    for name, kw in (("none", {}),
+                     ("lzw_pred", dict(compression=5, predictor=2,
+                                       rows_per_strip=8)),
+                     ("deflate_pred", dict(compression=8, predictor=2,
+                                           rows_per_strip=5)),
+                     ("packbits", dict(compression=32773)),
+                     ("tiles_mm", dict(compression=5, predictor=2,
+                                       tile=(16, 32), endian=">"))):
+        out[f"tiff_lab16_{name}.tif"] = tiff_bytes(lab, bps=16,
+                                                   photometric=8, **kw)
+    square = rgb_to_cielab16(fixture_image(32, 32, seed=28))
+    for o in (3, 6):
+        out[f"tiff_lab16_orient{o}.tif"] = tiff_bytes(
+            square, bps=16, photometric=8, compression=8, orientation=o)
+    out["tiff_lab16_white.tif"] = tiff_bytes(
+        _noise((20, 30, 3), 1 << 16, 29), bps=16, photometric=8,
+        tags={318: (5, [31271, 100000, 32902, 100000])})
+    ycc = rgb_to_ycbcr(img)
+    # widths whose rows of sample blocks libtiff's predictor undoes
+    # (TIFFScanlineSize a multiple of 3)
+    for sub, w in (((1, 2), 45), ((2, 1), 42), ((2, 2), 45), ((4, 1), 45),
+                   ((4, 2), 45), ((4, 4), 45)):
+        out[f"tiff_ycbcr_pred_{sub[0]}{sub[1]}.tif"] = tiff_bytes(
+            ycc[:, :w], photometric=6, subsampling=sub, compression=5,
+            predictor=2, rows_per_strip=8)
+    out["tiff_ycbcr_pred_22_deflate.tif"] = tiff_bytes(
+        ycc, photometric=6, subsampling=(2, 2), compression=8, predictor=2,
+        rows_per_strip=6)
+    for sub in ((2, 2), (4, 2)):
+        out[f"tiff_ycbcr_pred_{sub[0]}{sub[1]}_tiles.tif"] = tiff_bytes(
+            ycc, photometric=6, subsampling=sub, compression=5, predictor=2,
+            tile=(16, 16))
+    odd = rgb_to_ycbcr(fixture_image(37, 50, seed=30))  # 13 blocks a row
+    out["tiff_ycbcr_pred_44_odd.tif"] = tiff_bytes(
+        odd, photometric=6, subsampling=(4, 4), compression=8, predictor=2,
+        rows_per_strip=8)
+    out["tiff_ycbcr_pred_pixels.tif"] = tiff_bytes(
+        ycc, photometric=6, subsampling=(2, 2), compression=5, predictor=2,
+        rows_per_strip=8, ycbcr_rows="pixels")
+    out["tiff_ycbcr_44_edge_tiles.tif"] = tiff_bytes(
+        ycc, photometric=6, subsampling=(4, 4), tile=(16, 16))
+    out["tiff_lzw_old_rgb.tif"] = tiff_bytes(
+        _noise((64, 64, 3), 256, 31), compression=5, old_lzw=True)
+    out["tiff_lzw_old_pred.tif"] = tiff_bytes(
+        img, compression=5, predictor=2, old_lzw=True, rows_per_strip=16)
+    out["tiff_lzw_old_gray16_mm.tif"] = tiff_bytes(
+        _noise((29, 38), 1 << 16, 32), bps=16, compression=5, predictor=2,
+        old_lzw=True, endian=">", rows_per_strip=10)
+    out["tiff_lzw_old_tiles.tif"] = tiff_bytes(
+        img, compression=5, old_lzw=True, tile=(16, 16))
+    out["tiff_lzw_old_planar.tif"] = tiff_bytes(
+        img, compression=5, old_lzw=True, planar=2, rows_per_strip=12)
+    out["tiff_lzw_old_fill2.tif"] = tiff_bytes(
+        img, compression=5, old_lzw=True, fill_order=2, rows_per_strip=20)
+    out["tiff_gray16_alpha_planar.tif"] = tiff_bytes(
+        _noise((23, 31, 2), 1 << 16, 38), bps=16, photometric=1, planar=2,
+        extra_samples=[2], compression=8, predictor=2)
+    out["tiff_palette_extra.tif"] = tiff_bytes(
+        np.concatenate([img[..., :1], img[..., 1:2]], 2), photometric=3,
+        extra_samples=[0], colormap=_noise((256, 3), 1 << 16, 39),
+        compression=5)
+    h, w = 29, 38
+    rgb = fixture_image(h, w, seed=33)
+
+    def planes(sampling):
+        hmax = max(a for a, _ in sampling)
+        vmax = max(b for _, b in sampling)
+        return [rgb[::vmax // v, ::hmax // hh, k]
+                for k, (hh, v) in enumerate(sampling)]
+    s22 = [(2, 2), (1, 1), (1, 1)]
+    out["jpeg_lossless_sub22.jpg"] = lossless_jpeg(planes(s22), h, w, s22)
+    s21 = [(2, 1), (1, 1), (1, 1)]
+    out["jpeg_lossless_sub21_restart.jpg"] = lossless_jpeg(
+        planes(s21), h, w, s21, psv=5, pt=2, restart=2 * 19)
+    mixed = [(2, 2), (2, 1), (1, 2)]
+    out["jpeg_lossless_sub_mixed.jpg"] = lossless_jpeg(planes(mixed), h, w,
+                                                       mixed, psv=7)
+    out["jpeg_lossless_sub_scans.jpg"] = lossless_jpeg(
+        planes(s22), h, w, s22, psv=4, interleave=False)
+    out["jpeg_lossless_sub_cut.jpg"] = _cut(out["jpeg_lossless_sub22.jpg"],
+                                            0.6)
+    # the refused kinds
+    v8, v16 = _noise((12, 16, 3), 256, 34), _noise((12, 16, 3), 1 << 16, 35)
+    x8, x16 = _noise((12, 16, 4), 256, 36), _noise((12, 16, 4), 1 << 16, 37)
+    out["tiff_refused_ycbcr16.tif"] = tiff_bytes(
+        v16, bps=16, photometric=6, tags={530: (3, [1, 1])})
+    out["tiff_refused_ycbcr16_sub.tif"] = tiff_bytes(
+        v16, bps=16, photometric=6, tags={530: (3, [2, 2])})
+    out["tiff_refused_ycbcr_extra.tif"] = tiff_bytes(
+        x8, photometric=6, extra_samples=[0], tags={530: (3, [1, 1])})
+    out["tiff_refused_ycbcr16_extra.tif"] = tiff_bytes(
+        x16, bps=16, photometric=6, extra_samples=[2])
+    out["tiff_refused_lab_extra.tif"] = tiff_bytes(
+        x8, photometric=8, extra_samples=[0])
+    out["tiff_refused_lab16_extra.tif"] = tiff_bytes(
+        x16, bps=16, photometric=8, extra_samples=[2])
+    out["tiff_refused_lab_planar.tif"] = tiff_bytes(
+        v16, bps=16, photometric=8, planar=2)
+    out["tiff_refused_icclab.tif"] = tiff_bytes(v8, photometric=9)
+    out["tiff_refused_itulab.tif"] = tiff_bytes(v16, bps=16, photometric=10)
+    out["tiff_refused_rgb_5_samples.tif"] = tiff_bytes(
+        _noise((12, 16, 5), 256, 40), extra_samples=[0, 0])
+    out["tiff_refused_fill2_tile.tif"] = tiff_bytes(
+        _noise((20, 20, 3), 256, 41), tile=(16, 16), fill_order=2)
+    out["tiff_refused_ojpeg.tif"] = tiff_bytes(
+        v8, photometric=6, compression=6,
+        tags={512: (3, [1]), 513: (4, [8]), 514: (4, [0])})
+    one = [rgb[..., k] for k in range(3)]
+    out["jpeg_refused_sof11.jpg"] = lossless_jpeg(one, h, w, marker=0xCB)
+    out["jpeg_refused_split_restart.jpg"] = lossless_jpeg(one, h, w,
+                                                          restart=5)
+    big = [(4, 4), (2, 2), (1, 1)]
+    out["jpeg_refused_mcu_samples.jpg"] = lossless_jpeg(planes(big), h, w,
+                                                        big)
+    return out
+
+
+def tiff_mid_file(rgb: np.ndarray, k: int) -> bytes:
+    """View k of chip_smoke's tiff_mid_kinds leg (TIFF_MID_KINDS[k % 3]):
+    16-bit CIELab (Deflate, Predictor 2, strips of 8 rows), 4:2:0 YCbCr
+    (chroma averaged over each 2x2 block; LZW, Predictor 2, strips of 8
+    rows) or old-style LZW RGB (strips of 16 rows)."""
+    kind = k % 3
+    if kind == 0:
+        return tiff_bytes(rgb_to_cielab16(rgb), bps=16, photometric=8,
+                          compression=8, predictor=2, rows_per_strip=8)
+    if kind == 1:
+        h, w = rgb.shape[:2]
+        ycc = rgb_to_ycbcr(rgb).astype(np.float64)
+        pad = np.pad(ycc, ((0, h % 2), (0, w % 2), (0, 0)), mode="edge")
+        mean = pad.reshape(pad.shape[0] // 2, 2, pad.shape[1] // 2, 2,
+                           3).mean((1, 3))
+        ycc[..., 1:] = np.repeat(np.repeat(mean, 2, 0), 2, 1)[:h, :w, 1:]
+        return tiff_bytes(np.rint(ycc).astype(np.uint8), photometric=6,
+                          subsampling=(2, 2), compression=5, predictor=2,
+                          rows_per_strip=8)
+    return tiff_bytes(rgb, compression=5, old_lzw=True, rows_per_strip=16)
+
+
+def generate_kinds(folder: str = FOLDER) -> dict:
+    """KINDS_CASES and KINDS_REFUSED (kinds_files); returns the SHA-256 of
+    cv2's decode of each tiff_mid_file view of AVIF_MID's views, for
+    TIFF_MID_SHA256."""
+    import hashlib
+
+    import cv2
+
+    for name, data in kinds_files().items():
+        with open(os.path.join(folder, name), "wb") as f:
+            f.write(data)
+    shas = {}
+    src = os.path.join(folder, AVIF_MID)
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, name in enumerate(sorted(os.listdir(src))):
+            rgb = np.ascontiguousarray(cv2.imread(os.path.join(
+                src, name))[..., ::-1])
+            path = os.path.join(tmp, name[:-5] + ".tif")
+            with open(path, "wb") as f:
+                f.write(tiff_mid_file(rgb, k))
+            dec = np.ascontiguousarray(cv2.imread(path)[..., ::-1])
+            shas[os.path.basename(path)] = hashlib.sha256(
+                dec.tobytes()).hexdigest()
+    return shas
 
 
 def write_jpeg_tiff(path, jpeg: bytes, h: int, w: int, subsampling):
@@ -3970,6 +4644,14 @@ if __name__ == "__main__":
         result = check()
         print({k: v for k, v in result.items() if not v})
         sys.exit(0)
+    if sys.argv[1:] == ["--kinds"]:         # the TIFF and JPEG kinds of
+        shas = generate_kinds()             # KINDS_CASES and KINDS_REFUSED
+        _write_wants(KINDS_CASES)
+        _check_cv2_refuses()
+        print(f"TIFF_MID_SHA256 = {shas!r}")
+        result = check()
+        print({k: v for k, v in result.items() if not v})
+        sys.exit(0 if all(result.values()) else 1)
     if sys.argv[1:] == ["--webp"]:          # the WebP fixtures alone
         sha = generate_webp()
         _write_wants([n for n in CASES if n.endswith(".webp")])
