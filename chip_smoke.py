@@ -121,7 +121,10 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   libaom's default inter tools, of four at every default and of four
   resized ones decoded to cv2's SHA-256 too, each shown using its tool,
   the compound and resized views timed beside cv2's default file), each
-  AVIF leg's last l1 within the JPEG leg's bound of the PNG leg's.
+  AVIF leg's last l1 within the JPEG leg's bound of the PNG leg's; and
+  from copies in JPEG 2000's HT code-blocks (raw codestreams and JPH
+  files written on the host, lossless), whose log equals the cv2 AVIF
+  leg's bit for bit.
   It prints the scene build's seconds, it/s and pairs a view before and
   after the K growth, the peak memory and the TEST PSNR/SSIM beside the
   committed 7001-iteration run's (runs/torch_7k_hard_rgb) and JAX's;
@@ -1621,14 +1624,16 @@ def at_scale_path(rz, dev):
         mid_png_leg, avif_leg, avif_screen_leg, avif_grain_leg, \
             avif_avis_leg, avif_colour_leg, avif_libavif_leg, \
             avif_inter_leg, avif_default_leg, avif_compound_leg, \
-            avif_scaled_leg, tiff_mid_kinds_leg = avif_path(rz, root)
+            avif_scaled_leg, tiff_mid_kinds_leg, j2k_mid_ht_leg = \
+            avif_path(rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
             gif_leg, mid_png_leg, avif_leg, avif_screen_leg,
             avif_grain_leg, avif_avis_leg, avif_colour_leg,
             avif_libavif_leg, avif_inter_leg, avif_default_leg,
-            avif_compound_leg, avif_scaled_leg, tiff_mid_kinds_leg), \
+            avif_compound_leg, avif_scaled_leg, tiff_mid_kinds_leg,
+            j2k_mid_ht_leg), \
         scale_rows
 
 
@@ -1989,9 +1994,27 @@ def image_formats_path(rz, scene, root):
         tiff_shas.append(sha[:16] + "...")
     print(f"  the committed YCbCr and CIELab TIFF views decode as cv2 does "
           f"(SHA-256 {', '.join(tiff_shas)})", flush=True)
+    # a JPH file of HT code-blocks of the 1297x840 view, written on the host
+    # (j2k_mid_file, lossless): its decode is cv2's (SHA-256) and the view
+    garden = image_io.read_image(os.path.join(here, ARITH_VIEW))
+    jph = os.path.join(root, "timing.jph")
+    t0 = time.perf_counter()
+    with open(jph, "wb") as f:
+        f.write(fx.j2k_mid_file(garden, 1))
+    t_jph = time.perf_counter() - t0
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dec = image_io.read_image(jph)
+        secs.setdefault("jph read", []).append(time.perf_counter() - t0)
+    sha = hashlib.sha256(np.ascontiguousarray(dec).tobytes()).hexdigest()
+    check(sha == fx.TIMING_JPH_SHA256 and np.array_equal(dec, garden),
+          f"the JPH view: decode SHA-256 {sha} is not cv2's "
+          f"{fx.TIMING_JPH_SHA256}, or not the view")
+    print(f"  the JPH (HT) view: {os.path.getsize(jph)} bytes written in "
+          f"{t_jph:.1f} s by the test-side writer, its decode cv2's "
+          f"(SHA-256 {sha[:16]}...) and the view", flush=True)
     # cv2's default JP2 (X1000 = 250, rate 4) of the committed 1297x840
     # view, byte for byte: its SHA-256 (torch_make_image_fixtures.TIMING_CV2)
-    garden = image_io.read_image(os.path.join(here, ARITH_VIEW))
     rate4 = os.path.join(root, "rate4.jp2")
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2331,16 +2354,24 @@ def avif_path(rz, root):
     under LZW and Predictor 2 and old-style LZW RGB
     (torch_make_image_fixtures.tiff_mid_file), each decode held to the
     SHA-256 of cv2's (TIFF_MID_SHA256) and the views that took each kind
-    counted above 0; each view's mean |AVIF (or TIFF) - PNG|; (c)
+    counted above 0, and a JPEG 2000 copy (j2k_mid_ht) whose views are
+    AVIF_MID's decodes written on the host in turn as a raw codestream of
+    HT cleanup passes and as a JPH file whose SigProp and MagRef passes
+    finish plane 0 (torch_make_image_fixtures.j2k_mid_file, lossless), each
+    decode held to the SHA-256 of cv2's (J2K_MID_SHA256) and to its AVIF
+    decode, each kind counted above 0; each view's mean |AVIF (or TIFF,
+    JPEG 2000) - PNG|; (c)
     run_garden_7k over iterations
     0..JPEG_ITERS - 1 of the RGB schedule from the PNG scene and from each
     AVIF scene and the TIFF one, each such leg's last logged l1 within d +
     JPEG_L1_DRIFT · l1_png of the PNG leg's (d the largest per-view mean
     |AVIF (or TIFF) - PNG| of its views, the JPEG and GIF legs' rule),
-    every leg's it/s.  → (the PNG leg's launches, the cv2 AVIF leg's, the
-    screen AVIF leg's, the grain AVIF leg's, the avis leg's, the colour
-    leg's, the libavif leg's, the inter leg's, the default inter tools'
-    leg's, the compound leg's, the scaled leg's, the TIFF kinds leg's).
+    every leg's it/s; the JPEG 2000 leg's logged lines, pairs a step,
+    final PSNR/SSIM and launches equal to the cv2 AVIF leg's.  → (the PNG
+    leg's launches, the cv2 AVIF leg's, the screen AVIF leg's, the grain
+    AVIF leg's, the avis leg's, the colour leg's, the libavif leg's, the
+    inter leg's, the default inter tools' leg's, the compound leg's, the
+    scaled leg's, the TIFF kinds leg's, the JPEG 2000 HT leg's).
     LIBAVIF_TOOLS' and INTER_TOOLS' views are shown using
     their tools, COMPOUND_VIEW's compound and skip-mode blocks and
     RESIZE_VIEW's scaled blocks counted and their read_avif seconds
@@ -2360,8 +2391,8 @@ def avif_path(rz, root):
 
     host = host_cpu()
     phase(f"AVIF: the committed views through read_avif, the mid scene "
-          f"from AVIF and from the TIFF kinds through run_garden_7k (host: "
-          f"{host})")
+          f"from AVIF, from the TIFF kinds and from HT JPEG 2000 through "
+          f"run_garden_7k (host: {host})")
     # (a) the committed views
     secs, shas = {}, []
     for name, want in fx.TIMING_AVIF.items():
@@ -2598,6 +2629,59 @@ def avif_path(rz, root):
     check(all(v > 0 for v in took.values()),
           f"tiff_mid_kinds: a kind no view took: {took}")
     scenes["tiff_mid_kinds"] = sc
+    # JPEG 2000's HT code-blocks: AVIF_MID's views, decoded, written on the
+    # host in turn as a raw codestream of cleanup passes and as a JPH file
+    # whose SigProp and MagRef passes finish plane 0 (j2k_mid_file,
+    # lossless), each read held to the SHA-256 of cv2's decode, each kind
+    # counted
+    t0 = time.perf_counter()
+    sc, images, sparse = _format_scene(scene, root, "scene_j2k_mid_ht",
+                                       ".j2c")
+    names = [png[:-4] + (".jph" if k % 2 else ".j2c")
+             for k, png in enumerate(pngs)]
+    with open(os.path.join(sparse, "images.bin"), "rb") as f:
+        images_bin = f.read()
+    for n in names:
+        if n.endswith(".jph"):
+            images_bin = images_bin.replace(n[:-4].encode() + b".j2c\x00",
+                                            n.encode() + b"\x00")
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(images_bin)
+    took = dict.fromkeys(fx.J2K_MID_KINDS, 0)
+    means["j2k_mid_ht"], size, blocks = [], 0, {1: 0, 2: 0, 3: 0}
+    t_write = 0.0
+    for k, (png, avif, name) in enumerate(zip(pngs, avifs, names)):
+        view = image_io.read_avif(os.path.join(committed, avif))
+        stats = {}
+        t1 = time.perf_counter()
+        data = fx.j2k_mid_file(view, k, stats)
+        t_write += time.perf_counter() - t1
+        path = os.path.join(images, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        size += len(data)
+        a = image_io.read_image(path)
+        sha = hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+        check(sha == fx.J2K_MID_SHA256[name], f"{name}: decode SHA-256 "
+              f"{sha} is not cv2's {fx.J2K_MID_SHA256[name]}")
+        check(np.array_equal(a, view), f"{name}: not its AVIF decode")
+        for n, c in stats["passes"].items():
+            blocks[n] += c
+        took["cleanup" if k % 2 == 0 else "refined"] += int(
+            stats["passes"][1 if k % 2 == 0 else 3] > 0)
+        b = image_io.read_png(os.path.join(src, png))
+        means["j2k_mid_ht"].append(float(np.mean(np.abs(
+            a.astype(np.float64) - b))) / 255.0)
+    t_all = time.perf_counter() - t0
+    print(f"  j2k_mid_ht: {len(names)} HT JPEG 2000 views written on the "
+          f"host from {fx.AVIF_MID} in {t_write:.1f} s ({t_all:.1f} s with "
+          f"the reads), {size} bytes, each decode cv2's "
+          f"(SHA-256) and its AVIF decode; views that took each kind "
+          f"{json.dumps(took)}; code-blocks by passes {json.dumps(blocks)}",
+          flush=True)
+    check(all(v > 0 for v in took.values()),
+          f"j2k_mid_ht: a kind no view took: {took}")
+    scenes["j2k_mid_ht"] = sc
     # (c) the legs
     runs = {}
     for kind, sc in scenes.items():
@@ -2614,7 +2698,7 @@ def avif_path(rz, root):
         check(launches == want, f"mid {kind} leg launches {launches} != "
               f"{want}")
         rate, pairs = step_rate(records, 1, JPEG_ITERS)
-        runs[kind] = (summary, launches, log, rate)
+        runs[kind] = (summary, launches, log, rate, [r[2] for r in records])
         print(f"  mid {kind.upper()} leg: {rate:.2f} it/s at {pairs:.0f} "
               f"pairs a view; {' | '.join(_trainer_lines(log))}", flush=True)
         del tr
@@ -2623,7 +2707,8 @@ def avif_path(rz, root):
     ps = runs["png"][0]
     for kind in ("avif", "avif_screen", "avif_grain", "avif_avis",
                  "avif_colour", "avif_libavif", "avif_inter", "avif_default",
-                 "avif_compound", "avif_scaled", "tiff_mid_kinds"):
+                 "avif_compound", "avif_scaled", "tiff_mid_kinds",
+                 "j2k_mid_ht"):
         l1 = l1_by_iteration(runs[kind][2])
         check(len(l1) >= JPEG_ITERS // 50 and
               all(np.isfinite(list(l1.values()))),
@@ -2634,7 +2719,8 @@ def avif_path(rz, root):
         last = max(both)
         bound = max(means[kind]) + JPEG_L1_DRIFT * png[last]
         avs = runs[kind][0]
-        fmt = "TIFF" if kind.startswith("tiff") else "AVIF"
+        fmt = "TIFF" if kind.startswith("tiff") else \
+            "JPEG 2000" if kind.startswith("j2k") else "AVIF"
         print(f"  {kind.upper()} leg, iteration {last}: l1 {l1[last]:.4f} "
               f"from {fmt}, {png[last]:.4f} from PNG, |difference| "
               f"{abs(l1[last] - png[last]):.4f} <= bound {bound:.4f}; final "
@@ -2644,6 +2730,25 @@ def avif_path(rz, root):
               f"{json.dumps(runs[kind][1])}", flush=True)
         check(abs(l1[last] - png[last]) <= bound,
               f"{kind} leg l1 {l1[last]} vs PNG {png[last]}: beyond {bound}")
+    # lossless: the HT JPEG 2000 leg is the cv2 AVIF leg, bit for bit
+    js, jl, jlog, _, jp = runs["j2k_mid_ht"]
+    as_, al, alog, _, ap = runs["avif"]
+    jlines, alines = _trainer_lines(jlog), _trainer_lines(alog)
+    check(bool(alines) and any(x.startswith("TEST") for x in alines),
+          "the AVIF leg logged no TEST line")
+    check(jlines == alines, f"j2k_mid_ht leg lines {jlines} != AVIF "
+          f"{alines}")
+    check(jp == ap, "the j2k_mid_ht leg's pairs a step differ from the "
+          "AVIF leg's")
+    check((js["final_psnr"], js["final_ssim"]) == (as_["final_psnr"],
+                                                   as_["final_ssim"]),
+          f"j2k_mid_ht final PSNR/SSIM {js['final_psnr']} "
+          f"{js['final_ssim']} vs AVIF {as_['final_psnr']} "
+          f"{as_['final_ssim']}")
+    check(jl == al, f"j2k_mid_ht launches {jl} vs AVIF {al}")
+    print(f"  the J2K_MID_HT leg equals the AVIF leg: {len(jlines)} logged "
+          f"lines, {len(jp)} steps' pair counts, final PSNR "
+          f"{js['final_psnr']} SSIM {js['final_ssim']}", flush=True)
     print(f"  the AVIF phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return runs["png"][1], runs["avif"][1], runs["avif_screen"][1], \
@@ -2651,7 +2756,7 @@ def avif_path(rz, root):
         runs["avif_colour"][1], runs["avif_libavif"][1], \
         runs["avif_inter"][1], runs["avif_default"][1], \
         runs["avif_compound"][1], runs["avif_scaled"][1], \
-        runs["tiff_mid_kinds"][1]
+        runs["tiff_mid_kinds"][1], runs["j2k_mid_ht"][1]
 
 
 def compound_counts(t) -> dict:
@@ -4008,7 +4113,7 @@ def main() -> int:
      mid_avif, mid_avif_screen, mid_avif_grain, mid_avif_avis,
      mid_avif_colour, mid_avif_libavif, mid_avif_inter,
      mid_avif_default, mid_avif_compound, mid_avif_scaled,
-     mid_tiff_kinds), scale_rows = at_scale_path(rz, dev)
+     mid_tiff_kinds, mid_j2k_ht), scale_rows = at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -4067,6 +4172,7 @@ def main() -> int:
              "mid AVIF compound run": mid_avif_compound,
              "mid AVIF scaled run": mid_avif_scaled,
              "mid TIFF kinds run": mid_tiff_kinds,
+             "mid JPEG 2000 HT run": mid_j2k_ht,
              **{f"bench {label}": {name: out["launches"].get(name, 0)
                                    for name in KERNELS}
                 for label, (out, _) in bench.items()}}

@@ -1,18 +1,25 @@
 // JPEG 2000 codec (ctypes ABI) for utils/image_io.py, which parses the JP2
 // boxes itself and hands this file the codestream.
 //
-// Decoder: a Part-1 codestream as OpenJPEG 2.5.3 (the copy cv2 5.0.0 links)
+// Decoder: a codestream as OpenJPEG 2.5.3 (the copy cv2 5.0.0 links)
 // decodes it, in its order and with its rules for what it refuses:
 //   1. the main and tile-part headers (SIZ, COD, COC, QCD, QCC, RGN, POC,
-//      PPM, PPT, TLM, PLM, PLT, CRG, COM; several tile-parts a tile);
+//      PPM, PPT, TLM, PLM, PLT, CRG, COM; several tile-parts a tile; Part
+//      15's CAP and CPF, which OpenJPEG skips; Part 2's CBD, MCT, MCC and
+//      MCO as far as OpenJPEG reads them: CBD's precisions and signs, an
+//      MCC offset array as the components' DC level shifts);
 //   2. tier-2: packet headers in the five progression orders and POC, tag
-//      trees, Lblock, SOP/EPH, precincts, code-word segments;
+//      trees, Lblock, SOP/EPH, precincts, code-word segments (an HT
+//      code-block's as OpenJPEG numbers them);
 //   3. tier-1: EBCOT's three passes with the MQ decoder, every code-block
-//      style (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM);
+//      style (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM); HT code-blocks
+//      (Part 15): the cleanup, SigProp and MagRef passes;
 //   4. dequantisation (OpenJPEG's mid-point values, 5/3's truncating / 2,
 //      9/7's float step sizes), RGN maxshift;
 //   5. the 5/3 integer and 9/7 float inverse wavelet transforms, the
 //      inverse RCT and ICT, the DC level shift and OpenJPEG's rounding.
+// A few allocations past OpenJPEG's practical reach are refused with a
+// message that starts "limit: ".
 // The 9/7 path is float throughout, rounded where OpenJPEG's SSE code
 // rounds: every product and sum below is one IEEE single operation, and
 // FMA contraction is switched off (gcc on x86-64 emits none without
@@ -473,6 +480,998 @@ struct T1 {
     }
 };
 
+// ------------------------------------------------ HT code-blocks (Part 15)
+//
+// The HT block decoder of ITU-T T.814 (ISO/IEC 15444-15) as OpenJPEG 2.5.3
+// runs it (its ht_dec.c): the cleanup pass (MagSgn read forward from the
+// segment's start; MEL forward and VLC backward in its Scup-byte suffix),
+// then the SigProp pass in stripes of four rows and the MagRef pass read
+// backward from the end of the second segment.  Each bit reader keeps
+// OpenJPEG's buffering: its stuffing rules, the 0xFF (MagSgn, MEL) or 0x00
+// (VLC, SigProp, MagRef) it feeds past the end, and the bit a stuffed byte's
+// MSB ORs into the next byte.  A sample is kept sign-magnitude with its
+// magnitude one bit up (bit 0 the half-bin) until the block's end, then
+// turned into the integers Part 1's tier-1 hands on.
+//
+// kHtVlc0 (first quad row) and kHtVlc1 (the rows below) are T.814's
+// context-VLC code (its Annex C tables), in OpenJPEG's layout: 8 contexts
+// of 128 entries, indexed by (context << 7) | the next 7 VLC bits; an entry
+// holds the codeword's length (bits 0-2), u_off (bit 3), rho (4-7), e_1
+// (8-11) and e_k (12-15).
+const uint16_t kHtVlc0[1024] = {
+    0x0023, 0x00a5, 0x0043, 0x0066, 0x0083, 0xa8ee, 0x0014, 0xd8df, 0x0023, 0x10be,
+    0x0043, 0xf5ff, 0x0083, 0x207e, 0x0055, 0x515f, 0x0023, 0x0035, 0x0043, 0x444e,
+    0x0083, 0xc4ce, 0x0014, 0xcccf, 0x0023, 0xe2fe, 0x0043, 0x99ff, 0x0083, 0x0096,
+    0x00c5, 0x313f, 0x0023, 0x00a5, 0x0043, 0x445e, 0x0083, 0xc8ce, 0x0014, 0x11df,
+    0x0023, 0xf4fe, 0x0043, 0xfcff, 0x0083, 0x009e, 0x0055, 0x0077, 0x0023, 0x0035,
+    0x0043, 0xf1ff, 0x0083, 0x88ae, 0x0014, 0x00b7, 0x0023, 0xf8fe, 0x0043, 0xe4ef,
+    0x0083, 0x888e, 0x00c5, 0x111f, 0x0023, 0x00a5, 0x0043, 0x0066, 0x0083, 0xa8ee,
+    0x0014, 0x54df, 0x0023, 0x10be, 0x0043, 0x22ef, 0x0083, 0x207e, 0x0055, 0x227f,
+    0x0023, 0x0035, 0x0043, 0x444e, 0x0083, 0xc4ce, 0x0014, 0x11bf, 0x0023, 0xe2fe,
+    0x0043, 0x00f7, 0x0083, 0x0096, 0x00c5, 0x223f, 0x0023, 0x00a5, 0x0043, 0x445e,
+    0x0083, 0xc8ce, 0x0014, 0x00d7, 0x0023, 0xf4fe, 0x0043, 0xbaff, 0x0083, 0x009e,
+    0x0055, 0x006f, 0x0023, 0x0035, 0x0043, 0xe6ff, 0x0083, 0x88ae, 0x0014, 0xa2af,
+    0x0023, 0xf8fe, 0x0043, 0x00e7, 0x0083, 0x888e, 0x00c5, 0x222f, 0x0002, 0x00c5,
+    0x0084, 0x207e, 0x0002, 0xc4ce, 0x0024, 0x00f7, 0x0002, 0xa2fe, 0x0044, 0x0056,
+    0x0002, 0x009e, 0x0014, 0x00d7, 0x0002, 0x10be, 0x0084, 0x0066, 0x0002, 0x88ae,
+    0x0024, 0x11df, 0x0002, 0xa8ee, 0x0044, 0x0036, 0x0002, 0x888e, 0x0014, 0x111f,
+    0x0002, 0x00c5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0x88ff, 0x0002, 0xb8fe,
+    0x0044, 0x444e, 0x0002, 0x0096, 0x0014, 0x00b7, 0x0002, 0xe4fe, 0x0084, 0x445e,
+    0x0002, 0x00a6, 0x0024, 0x00e7, 0x0002, 0x54de, 0x0044, 0x222e, 0x0002, 0x003e,
+    0x0014, 0x0077, 0x0002, 0x00c5, 0x0084, 0x207e, 0x0002, 0xc4ce, 0x0024, 0xf1ff,
+    0x0002, 0xa2fe, 0x0044, 0x0056, 0x0002, 0x009e, 0x0014, 0x11bf, 0x0002, 0x10be,
+    0x0084, 0x0066, 0x0002, 0x88ae, 0x0024, 0x22ef, 0x0002, 0xa8ee, 0x0044, 0x0036,
+    0x0002, 0x888e, 0x0014, 0x227f, 0x0002, 0x00c5, 0x0084, 0x006e, 0x0002, 0x88ce,
+    0x0024, 0xe4ef, 0x0002, 0xb8fe, 0x0044, 0x444e, 0x0002, 0x0096, 0x0014, 0xa2af,
+    0x0002, 0xe4fe, 0x0084, 0x445e, 0x0002, 0x00a6, 0x0024, 0xd8df, 0x0002, 0x54de,
+    0x0044, 0x222e, 0x0002, 0x003e, 0x0014, 0x515f, 0x0002, 0x0055, 0x0084, 0x0066,
+    0x0002, 0x88de, 0x0024, 0x32ff, 0x0002, 0x11fe, 0x0044, 0x444e, 0x0002, 0x00ae,
+    0x0014, 0x00b7, 0x0002, 0x317e, 0x0084, 0x515e, 0x0002, 0x00c6, 0x0024, 0x00d7,
+    0x0002, 0x20ee, 0x0044, 0x111e, 0x0002, 0x009e, 0x0014, 0x0077, 0x0002, 0x0055,
+    0x0084, 0x545e, 0x0002, 0x44ce, 0x0024, 0x00e7, 0x0002, 0xf1fe, 0x0044, 0x0036,
+    0x0002, 0x00a6, 0x0014, 0x555f, 0x0002, 0x74fe, 0x0084, 0x113e, 0x0002, 0x20be,
+    0x0024, 0x747f, 0x0002, 0xc4de, 0x0044, 0xf8ff, 0x0002, 0x0096, 0x0014, 0x222f,
+    0x0002, 0x0055, 0x0084, 0x0066, 0x0002, 0x88de, 0x0024, 0x00f7, 0x0002, 0x11fe,
+    0x0044, 0x444e, 0x0002, 0x00ae, 0x0014, 0x888f, 0x0002, 0x317e, 0x0084, 0x515e,
+    0x0002, 0x00c6, 0x0024, 0xc8cf, 0x0002, 0x20ee, 0x0044, 0x111e, 0x0002, 0x009e,
+    0x0014, 0x006f, 0x0002, 0x0055, 0x0084, 0x545e, 0x0002, 0x44ce, 0x0024, 0xd1df,
+    0x0002, 0xf1fe, 0x0044, 0x0036, 0x0002, 0x00a6, 0x0014, 0x227f, 0x0002, 0x74fe,
+    0x0084, 0x113e, 0x0002, 0x20be, 0x0024, 0x22bf, 0x0002, 0xc4de, 0x0044, 0x22ef,
+    0x0002, 0x0096, 0x0014, 0x323f, 0x0003, 0xd4de, 0xf4fd, 0xfcff, 0x0014, 0x113e,
+    0x0055, 0x888f, 0x0003, 0x32be, 0x0085, 0x00e7, 0x0025, 0x515e, 0xaafe, 0x727f,
+    0x0003, 0x44ce, 0xf8fd, 0x44ef, 0x0014, 0x647e, 0x0045, 0xa2af, 0x0003, 0x00a6,
+    0x555d, 0x99df, 0xf1fd, 0x0036, 0xf5fe, 0x626f, 0x0003, 0xd1de, 0xf4fd, 0xe6ff,
+    0x0014, 0x717e, 0x0055, 0xb1bf, 0x0003, 0x88ae, 0x0085, 0xd5df, 0x0025, 0x444e,
+    0xf2fe, 0x667f, 0x0003, 0x00c6, 0xf8fd, 0xe2ef, 0x0014, 0x545e, 0x0045, 0x119f,
+    0x0003, 0x0096, 0x555d, 0xc8cf, 0xf1fd, 0x111e, 0xc8ee, 0x0067, 0x0003, 0xd4de,
+    0xf4fd, 0xf3ff, 0x0014, 0x113e, 0x0055, 0x11bf, 0x0003, 0x32be, 0x0085, 0xd8df,
+    0x0025, 0x515e, 0xaafe, 0x222f, 0x0003, 0x44ce, 0xf8fd, 0x00f7, 0x0014, 0x647e,
+    0x0045, 0x989f, 0x0003, 0x00a6, 0x555d, 0x00d7, 0xf1fd, 0x0036, 0xf5fe, 0x446f,
+    0x0003, 0xd1de, 0xf4fd, 0xb9ff, 0x0014, 0x717e, 0x0055, 0x00b7, 0x0003, 0x88ae,
+    0x0085, 0xdcdf, 0x0025, 0x444e, 0xf2fe, 0x0077, 0x0003, 0x00c6, 0xf8fd, 0xe4ef,
+    0x0014, 0x545e, 0x0045, 0x737f, 0x0003, 0x0096, 0x555d, 0xb8bf, 0xf1fd, 0x111e,
+    0xc8ee, 0x323f, 0x0002, 0x00a5, 0x0084, 0x407e, 0x0002, 0x10de, 0x0024, 0x11df,
+    0x0002, 0x72fe, 0x0044, 0x0056, 0x0002, 0xa8ae, 0x0014, 0xb2bf, 0x0002, 0x0096,
+    0x0084, 0x0066, 0x0002, 0x00c6, 0x0024, 0x00e7, 0x0002, 0xc8ee, 0x0044, 0x222e,
+    0x0002, 0x888e, 0x0014, 0x0077, 0x0002, 0x00a5, 0x0084, 0x006e, 0x0002, 0x88ce,
+    0x0024, 0x00f7, 0x0002, 0x91fe, 0x0044, 0x0036, 0x0002, 0xa2ae, 0x0014, 0xaaaf,
+    0x0002, 0xb8fe, 0x0084, 0x005e, 0x0002, 0x00be, 0x0024, 0xc4cf, 0x0002, 0x44ee,
+    0x0044, 0xf4ff, 0x0002, 0x223e, 0x0014, 0x111f, 0x0002, 0x00a5, 0x0084, 0x407e,
+    0x0002, 0x10de, 0x0024, 0x99ff, 0x0002, 0x72fe, 0x0044, 0x0056, 0x0002, 0xa8ae,
+    0x0014, 0x00b7, 0x0002, 0x0096, 0x0084, 0x0066, 0x0002, 0x00c6, 0x0024, 0x00d7,
+    0x0002, 0xc8ee, 0x0044, 0x222e, 0x0002, 0x888e, 0x0014, 0x444f, 0x0002, 0x00a5,
+    0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0xe2ef, 0x0002, 0x91fe, 0x0044, 0x0036,
+    0x0002, 0xa2ae, 0x0014, 0x447f, 0x0002, 0xb8fe, 0x0084, 0x005e, 0x0002, 0x00be,
+    0x0024, 0x009f, 0x0002, 0x44ee, 0x0044, 0x76ff, 0x0002, 0x223e, 0x0014, 0x313f,
+    0x0003, 0x00c6, 0x0085, 0xd9ff, 0xf2fd, 0x647e, 0xf1fe, 0x99bf, 0x0003, 0xa2ae,
+    0x0025, 0x66ef, 0xf4fd, 0x0056, 0xe2ee, 0x737f, 0x0003, 0x98be, 0x0045, 0x00f7,
+    0xf8fd, 0x0066, 0x76fe, 0x889f, 0x0003, 0x888e, 0x0015, 0xd5df, 0x00a5, 0x222e,
+    0x98de, 0x444f, 0x0003, 0xb2be, 0x0085, 0xfcff, 0xf2fd, 0x226e, 0x0096, 0x00b7,
+    0x0003, 0xaaae, 0x0025, 0xd1df, 0xf4fd, 0x0036, 0xd4de, 0x646f, 0x0003, 0xa8ae,
+    0x0045, 0xeaef, 0xf8fd, 0x445e, 0xe8ee, 0x717f, 0x0003, 0x323e, 0x0015, 0xc4cf,
+    0x00a5, 0xfaff, 0x88ce, 0x313f, 0x0003, 0x00c6, 0x0085, 0x77ff, 0xf2fd, 0x647e,
+    0xf1fe, 0xb3bf, 0x0003, 0xa2ae, 0x0025, 0x00e7, 0xf4fd, 0x0056, 0xe2ee, 0x0077,
+    0x0003, 0x98be, 0x0045, 0xe4ef, 0xf8fd, 0x0066, 0x76fe, 0x667f, 0x0003, 0x888e,
+    0x0015, 0x00d7, 0x00a5, 0x222e, 0x98de, 0x333f, 0x0003, 0xb2be, 0x0085, 0x75ff,
+    0xf2fd, 0x226e, 0x0096, 0x919f, 0x0003, 0xaaae, 0x0025, 0x99df, 0xf4fd, 0x0036,
+    0xd4de, 0x515f, 0x0003, 0xa8ae, 0x0045, 0xecef, 0xf8fd, 0x445e, 0xe8ee, 0x727f,
+    0x0003, 0x323e, 0x0015, 0xb1bf, 0x00a5, 0xf3ff, 0x88ce, 0x111f, 0x0003, 0x54de,
+    0xf2fd, 0x111e, 0x0014, 0x647e, 0xf8fe, 0xcccf, 0x0003, 0x91be, 0x0045, 0x22ef,
+    0x0025, 0x222e, 0xf3fe, 0x888f, 0x0003, 0x00c6, 0x0085, 0x00f7, 0x0014, 0x115e,
+    0xfcfe, 0xa8af, 0x0003, 0x00a6, 0x0035, 0xc8df, 0xf1fd, 0x313e, 0x66fe, 0x646f,
+    0x0003, 0xc8ce, 0xf2fd, 0xf5ff, 0x0014, 0x0066, 0xf4fe, 0xbabf, 0x0003, 0x22ae,
+    0x0045, 0x00e7, 0x0025, 0x323e, 0xeafe, 0x737f, 0x0003, 0xb2be, 0x0085, 0x55df,
+    0x0014, 0x0056, 0x717e, 0x119f, 0x0003, 0x0096, 0x0035, 0xc4cf, 0xf1fd, 0x333e,
+    0xe8ee, 0x444f, 0x0003, 0x54de, 0xf2fd, 0x111e, 0x0014, 0x647e, 0xf8fe, 0x99bf,
+    0x0003, 0x91be, 0x0045, 0xe2ef, 0x0025, 0x222e, 0xf3fe, 0x667f, 0x0003, 0x00c6,
+    0x0085, 0xe4ef, 0x0014, 0x115e, 0xfcfe, 0x989f, 0x0003, 0x00a6, 0x0035, 0x00d7,
+    0xf1fd, 0x313e, 0x66fe, 0x226f, 0x0003, 0xc8ce, 0xf2fd, 0xb9ff, 0x0014, 0x0066,
+    0xf4fe, 0x00b7, 0x0003, 0x22ae, 0x0045, 0xd1df, 0x0025, 0x323e, 0xeafe, 0x0077,
+    0x0003, 0xb2be, 0x0085, 0xecef, 0x0014, 0x0056, 0x717e, 0x727f, 0x0003, 0x0096,
+    0x0035, 0xb8bf, 0xf1fd, 0x333e, 0xe8ee, 0x545f, 0xf1fc, 0xd1de, 0xfafd, 0x00d7,
+    0xf8fc, 0x0016, 0xfffd, 0x747f, 0xf4fc, 0x717e, 0xf3fd, 0xb3bf, 0xf2fc, 0xeaef,
+    0xe8ee, 0x444f, 0xf1fc, 0x22ae, 0x0005, 0xb8bf, 0xf8fc, 0x00f7, 0xfcfe, 0x0077,
+    0xf4fc, 0x115e, 0xf5fd, 0x757f, 0xf2fc, 0xd8df, 0xe2ee, 0x333f, 0xf1fc, 0xb2be,
+    0xfafd, 0x88cf, 0xf8fc, 0xfbff, 0xfffd, 0x737f, 0xf4fc, 0x006e, 0xf3fd, 0x00b7,
+    0xf2fc, 0x66ef, 0xf9fe, 0x313f, 0xf1fc, 0x009e, 0x0005, 0xbabf, 0xf8fc, 0xfdff,
+    0xf6fe, 0x0067, 0xf4fc, 0x0026, 0xf5fd, 0x888f, 0xf2fc, 0xdcdf, 0xd4de, 0x222f,
+    0xf1fc, 0xd1de, 0xfafd, 0xc4cf, 0xf8fc, 0x0016, 0xfffd, 0x727f, 0xf4fc, 0x717e,
+    0xf3fd, 0x99bf, 0xf2fc, 0xecef, 0xe8ee, 0x0047, 0xf1fc, 0x22ae, 0x0005, 0x00a7,
+    0xf8fc, 0xf7ff, 0xfcfe, 0x0057, 0xf4fc, 0x115e, 0xf5fd, 0x0097, 0xf2fc, 0xd5df,
+    0xe2ee, 0x0037, 0xf1fc, 0xb2be, 0xfafd, 0x00c7, 0xf8fc, 0xfeff, 0xfffd, 0x667f,
+    0xf4fc, 0x006e, 0xf3fd, 0xa8af, 0xf2fc, 0x00e7, 0xf9fe, 0x323f, 0xf1fc, 0x009e,
+    0x0005, 0xb1bf, 0xf8fc, 0xe4ef, 0xf6fe, 0x545f, 0xf4fc, 0x0026, 0xf5fd, 0x0087,
+    0xf2fc, 0x99df, 0xd4de, 0x111f,
+};
+const uint16_t kHtVlc1[1024] = {
+    0x0013, 0x0065, 0x0043, 0x00de, 0x0083, 0x888d, 0x0023, 0x444e, 0x0013, 0x00a5,
+    0x0043, 0x88ae, 0x0083, 0x0035, 0x0023, 0x00d7, 0x0013, 0x00c5, 0x0043, 0x009e,
+    0x0083, 0x0055, 0x0023, 0x222e, 0x0013, 0x0095, 0x0043, 0x007e, 0x0083, 0x10fe,
+    0x0023, 0x0077, 0x0013, 0x0065, 0x0043, 0x88ce, 0x0083, 0x888d, 0x0023, 0x111e,
+    0x0013, 0x00a5, 0x0043, 0x005e, 0x0083, 0x0035, 0x0023, 0x00e7, 0x0013, 0x00c5,
+    0x0043, 0x00be, 0x0083, 0x0055, 0x0023, 0x11ff, 0x0013, 0x0095, 0x0043, 0x003e,
+    0x0083, 0x40ee, 0x0023, 0xa2af, 0x0013, 0x0065, 0x0043, 0x00de, 0x0083, 0x888d,
+    0x0023, 0x444e, 0x0013, 0x00a5, 0x0043, 0x88ae, 0x0083, 0x0035, 0x0023, 0x44ef,
+    0x0013, 0x00c5, 0x0043, 0x009e, 0x0083, 0x0055, 0x0023, 0x222e, 0x0013, 0x0095,
+    0x0043, 0x007e, 0x0083, 0x10fe, 0x0023, 0x00b7, 0x0013, 0x0065, 0x0043, 0x88ce,
+    0x0083, 0x888d, 0x0023, 0x111e, 0x0013, 0x00a5, 0x0043, 0x005e, 0x0083, 0x0035,
+    0x0023, 0xc4cf, 0x0013, 0x00c5, 0x0043, 0x00be, 0x0083, 0x0055, 0x0023, 0x00f7,
+    0x0013, 0x0095, 0x0043, 0x003e, 0x0083, 0x40ee, 0x0023, 0x006f, 0x0001, 0x0084,
+    0x0001, 0x0056, 0x0001, 0x0014, 0x0001, 0x00d7, 0x0001, 0x0024, 0x0001, 0x0096,
+    0x0001, 0x0045, 0x0001, 0x0077, 0x0001, 0x0084, 0x0001, 0x00c6, 0x0001, 0x0014,
+    0x0001, 0x888f, 0x0001, 0x0024, 0x0001, 0x00f7, 0x0001, 0x0035, 0x0001, 0x222f,
+    0x0001, 0x0084, 0x0001, 0x40fe, 0x0001, 0x0014, 0x0001, 0x00b7, 0x0001, 0x0024,
+    0x0001, 0x00bf, 0x0001, 0x0045, 0x0001, 0x0067, 0x0001, 0x0084, 0x0001, 0x00a6,
+    0x0001, 0x0014, 0x0001, 0x444f, 0x0001, 0x0024, 0x0001, 0x00e7, 0x0001, 0x0035,
+    0x0001, 0x113f, 0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0014, 0x0001, 0x00cf,
+    0x0001, 0x0024, 0x0001, 0x0096, 0x0001, 0x0045, 0x0001, 0x006f, 0x0001, 0x0084,
+    0x0001, 0x00c6, 0x0001, 0x0014, 0x0001, 0x009f, 0x0001, 0x0024, 0x0001, 0x00ef,
+    0x0001, 0x0035, 0x0001, 0x323f, 0x0001, 0x0084, 0x0001, 0x40fe, 0x0001, 0x0014,
+    0x0001, 0x00af, 0x0001, 0x0024, 0x0001, 0x44ff, 0x0001, 0x0045, 0x0001, 0x005f,
+    0x0001, 0x0084, 0x0001, 0x00a6, 0x0001, 0x0014, 0x0001, 0x007f, 0x0001, 0x0024,
+    0x0001, 0x00df, 0x0001, 0x0035, 0x0001, 0x111f, 0x0001, 0x0024, 0x0001, 0x0056,
+    0x0001, 0x0085, 0x0001, 0x00bf, 0x0001, 0x0014, 0x0001, 0x00f7, 0x0001, 0x00c6,
+    0x0001, 0x0077, 0x0001, 0x0024, 0x0001, 0xf8ff, 0x0001, 0x0045, 0x0001, 0x007f,
+    0x0001, 0x0014, 0x0001, 0x00df, 0x0001, 0x00a6, 0x0001, 0x313f, 0x0001, 0x0024,
+    0x0001, 0x222e, 0x0001, 0x0085, 0x0001, 0x00b7, 0x0001, 0x0014, 0x0001, 0x44ef,
+    0x0001, 0xa2ae, 0x0001, 0x0067, 0x0001, 0x0024, 0x0001, 0x51ff, 0x0001, 0x0045,
+    0x0001, 0x0097, 0x0001, 0x0014, 0x0001, 0x00cf, 0x0001, 0x0036, 0x0001, 0x223f,
+    0x0001, 0x0024, 0x0001, 0x0056, 0x0001, 0x0085, 0x0001, 0xb2bf, 0x0001, 0x0014,
+    0x0001, 0x40ef, 0x0001, 0x00c6, 0x0001, 0x006f, 0x0001, 0x0024, 0x0001, 0x72ff,
+    0x0001, 0x0045, 0x0001, 0x009f, 0x0001, 0x0014, 0x0001, 0x00d7, 0x0001, 0x00a6,
+    0x0001, 0x444f, 0x0001, 0x0024, 0x0001, 0x222e, 0x0001, 0x0085, 0x0001, 0xa8af,
+    0x0001, 0x0014, 0x0001, 0x00e7, 0x0001, 0xa2ae, 0x0001, 0x005f, 0x0001, 0x0024,
+    0x0001, 0x44ff, 0x0001, 0x0045, 0x0001, 0x888f, 0x0001, 0x0014, 0x0001, 0xaaaf,
+    0x0001, 0x0036, 0x0001, 0x111f, 0x0002, 0xf8fe, 0x0024, 0x0056, 0x0002, 0x00b6,
+    0x0085, 0x66ff, 0x0002, 0x00ce, 0x0014, 0x111e, 0x0002, 0x0096, 0x0035, 0xa8af,
+    0x0002, 0x00f6, 0x0024, 0x313e, 0x0002, 0x00a6, 0x0045, 0xb3bf, 0x0002, 0xb2be,
+    0x0014, 0xf5ff, 0x0002, 0x0066, 0x517e, 0x545f, 0x0002, 0xf2fe, 0x0024, 0x222e,
+    0x0002, 0x22ae, 0x0085, 0x44ef, 0x0002, 0x00c6, 0x0014, 0xf4ff, 0x0002, 0x0076,
+    0x0035, 0x447f, 0x0002, 0x40de, 0x0024, 0x323e, 0x0002, 0x009e, 0x0045, 0x00d7,
+    0x0002, 0x88be, 0x0014, 0xfaff, 0x0002, 0x115e, 0xf1fe, 0x444f, 0x0002, 0xf8fe,
+    0x0024, 0x0056, 0x0002, 0x00b6, 0x0085, 0xc8ef, 0x0002, 0x00ce, 0x0014, 0x111e,
+    0x0002, 0x0096, 0x0035, 0x888f, 0x0002, 0x00f6, 0x0024, 0x313e, 0x0002, 0x00a6,
+    0x0045, 0x44df, 0x0002, 0xb2be, 0x0014, 0xa8ff, 0x0002, 0x0066, 0x517e, 0x006f,
+    0x0002, 0xf2fe, 0x0024, 0x222e, 0x0002, 0x22ae, 0x0085, 0x00e7, 0x0002, 0x00c6,
+    0x0014, 0xe2ef, 0x0002, 0x0076, 0x0035, 0x727f, 0x0002, 0x40de, 0x0024, 0x323e,
+    0x0002, 0x009e, 0x0045, 0xb1bf, 0x0002, 0x88be, 0x0014, 0x73ff, 0x0002, 0x115e,
+    0xf1fe, 0x333f, 0x0001, 0x0084, 0x0001, 0x20ee, 0x0001, 0x00c5, 0x0001, 0xc4cf,
+    0x0001, 0x0044, 0x0001, 0x32ff, 0x0001, 0x0015, 0x0001, 0x888f, 0x0001, 0x0084,
+    0x0001, 0x0066, 0x0001, 0x0025, 0x0001, 0x00af, 0x0001, 0x0044, 0x0001, 0x22ef,
+    0x0001, 0x00a6, 0x0001, 0x005f, 0x0001, 0x0084, 0x0001, 0x444e, 0x0001, 0x00c5,
+    0x0001, 0xcccf, 0x0001, 0x0044, 0x0001, 0x00f7, 0x0001, 0x0015, 0x0001, 0x006f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0025, 0x0001, 0x009f, 0x0001, 0x0044,
+    0x0001, 0x00df, 0x0001, 0x30fe, 0x0001, 0x222f, 0x0001, 0x0084, 0x0001, 0x20ee,
+    0x0001, 0x00c5, 0x0001, 0xc8cf, 0x0001, 0x0044, 0x0001, 0x11ff, 0x0001, 0x0015,
+    0x0001, 0x0077, 0x0001, 0x0084, 0x0001, 0x0066, 0x0001, 0x0025, 0x0001, 0x007f,
+    0x0001, 0x0044, 0x0001, 0x00e7, 0x0001, 0x00a6, 0x0001, 0x0037, 0x0001, 0x0084,
+    0x0001, 0x444e, 0x0001, 0x00c5, 0x0001, 0x00b7, 0x0001, 0x0044, 0x0001, 0x00bf,
+    0x0001, 0x0015, 0x0001, 0x003f, 0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0025,
+    0x0001, 0x0097, 0x0001, 0x0044, 0x0001, 0x00d7, 0x0001, 0x30fe, 0x0001, 0x111f,
+    0x0002, 0xa8ee, 0x0044, 0x888e, 0x0002, 0x00d6, 0x00c5, 0xf3ff, 0x0002, 0xfcfe,
+    0x0025, 0x003e, 0x0002, 0x00b6, 0x0055, 0xd8df, 0x0002, 0xf8fe, 0x0044, 0x0066,
+    0x0002, 0x207e, 0x0085, 0x99ff, 0x0002, 0x00e6, 0x00f5, 0x0036, 0x0002, 0x00a6,
+    0x0015, 0x009f, 0x0002, 0xf2fe, 0x0044, 0x0076, 0x0002, 0x44ce, 0x00c5, 0x76ff,
+    0x0002, 0xf1fe, 0x0025, 0x444e, 0x0002, 0x00ae, 0x0055, 0xc8cf, 0x0002, 0xf4fe,
+    0x0044, 0x445e, 0x0002, 0x10be, 0x0085, 0xe4ef, 0x0002, 0x54de, 0x00f5, 0x111e,
+    0x0002, 0x0096, 0x0015, 0x222f, 0x0002, 0xa8ee, 0x0044, 0x888e, 0x0002, 0x00d6,
+    0x00c5, 0xfaff, 0x0002, 0xfcfe, 0x0025, 0x003e, 0x0002, 0x00b6, 0x0055, 0x11bf,
+    0x0002, 0xf8fe, 0x0044, 0x0066, 0x0002, 0x207e, 0x0085, 0x22ef, 0x0002, 0x00e6,
+    0x00f5, 0x0036, 0x0002, 0x00a6, 0x0015, 0x227f, 0x0002, 0xf2fe, 0x0044, 0x0076,
+    0x0002, 0x44ce, 0x00c5, 0xd5ff, 0x0002, 0xf1fe, 0x0025, 0x444e, 0x0002, 0x00ae,
+    0x0055, 0x006f, 0x0002, 0xf4fe, 0x0044, 0x445e, 0x0002, 0x10be, 0x0085, 0x11df,
+    0x0002, 0x54de, 0x00f5, 0x111e, 0x0002, 0x0096, 0x0015, 0x515f, 0x0003, 0x00f6,
+    0x0014, 0x111e, 0x0044, 0x888e, 0x00a5, 0xd4df, 0x0003, 0xa2ae, 0x0055, 0x76ff,
+    0x0024, 0x223e, 0x00b6, 0xaaaf, 0x0003, 0x00e6, 0x0014, 0xf5ff, 0x0044, 0x0066,
+    0x0085, 0xcccf, 0x0003, 0x009e, 0x00c5, 0x44ef, 0x0024, 0x0036, 0xf8fe, 0x317f,
+    0x0003, 0xe8ee, 0x0014, 0xf1ff, 0x0044, 0x0076, 0x00a5, 0xc4cf, 0x0003, 0x227e,
+    0x0055, 0xd1df, 0x0024, 0x444e, 0xf4fe, 0x515f, 0x0003, 0x00d6, 0x0014, 0xe2ef,
+    0x0044, 0x445e, 0x0085, 0x22bf, 0x0003, 0x0096, 0x00c5, 0xc8df, 0x0024, 0x222e,
+    0xf2fe, 0x226f, 0x0003, 0x00f6, 0x0014, 0x111e, 0x0044, 0x888e, 0x00a5, 0xb1bf,
+    0x0003, 0xa2ae, 0x0055, 0x33ff, 0x0024, 0x223e, 0x00b6, 0xa8af, 0x0003, 0x00e6,
+    0x0014, 0xb9ff, 0x0044, 0x0066, 0x0085, 0xa8bf, 0x0003, 0x009e, 0x00c5, 0xe4ef,
+    0x0024, 0x0036, 0xf8fe, 0x646f, 0x0003, 0xe8ee, 0x0014, 0xfcff, 0x0044, 0x0076,
+    0x00a5, 0xc8cf, 0x0003, 0x227e, 0x0055, 0xeaef, 0x0024, 0x444e, 0xf4fe, 0x747f,
+    0x0003, 0x00d6, 0x0014, 0xfaff, 0x0044, 0x445e, 0x0085, 0xb2bf, 0x0003, 0x0096,
+    0x00c5, 0x44df, 0x0024, 0x222e, 0xf2fe, 0x313f, 0x00f3, 0xfafe, 0xf1fd, 0x0036,
+    0x0004, 0x32be, 0x0075, 0x11df, 0x00f3, 0x54de, 0xf2fd, 0xe4ef, 0x00d5, 0x717e,
+    0xfcfe, 0x737f, 0x00f3, 0xf3fe, 0xf8fd, 0x111e, 0x0004, 0x0096, 0x0055, 0xb1bf,
+    0x00f3, 0x00ce, 0x00b5, 0xd8df, 0xf4fd, 0x0066, 0xb9fe, 0x545f, 0x00f3, 0x76fe,
+    0xf1fd, 0x0026, 0x0004, 0x00a6, 0x0075, 0x009f, 0x00f3, 0x00ae, 0xf2fd, 0xf7ff,
+    0x00d5, 0x0046, 0xf5fe, 0x747f, 0x00f3, 0x00e6, 0xf8fd, 0x0016, 0x0004, 0x0086,
+    0x0055, 0x888f, 0x00f3, 0x00c6, 0x00b5, 0xe2ef, 0xf4fd, 0x115e, 0xa8ee, 0x113f,
+    0x00f3, 0xfafe, 0xf1fd, 0x0036, 0x0004, 0x32be, 0x0075, 0xd1df, 0x00f3, 0x54de,
+    0xf2fd, 0xfbff, 0x00d5, 0x717e, 0xfcfe, 0x447f, 0x00f3, 0xf3fe, 0xf8fd, 0x111e,
+    0x0004, 0x0096, 0x0055, 0x727f, 0x00f3, 0x00ce, 0x00b5, 0x22ef, 0xf4fd, 0x0066,
+    0xb9fe, 0x444f, 0x00f3, 0x76fe, 0xf1fd, 0x0026, 0x0004, 0x00a6, 0x0075, 0x11bf,
+    0x00f3, 0x00ae, 0xf2fd, 0xffff, 0x00d5, 0x0046, 0xf5fe, 0x323f, 0x00f3, 0x00e6,
+    0xf8fd, 0x0016, 0x0004, 0x0086, 0x0055, 0x006f, 0x00f3, 0x00c6, 0x00b5, 0xb8bf,
+    0xf4fd, 0x115e, 0xa8ee, 0x222f,
+};
+
+inline u32 rd_le32(const u8* p) {
+    return (u32)p[0] | ((u32)p[1] << 8) | ((u32)p[2] << 16) | ((u32)p[3] << 24);
+}
+
+inline u32 popcount32(u32 v) { return (u32)__builtin_popcount(v); }
+inline u32 clz32(u32 v) { return v ? (u32)__builtin_clz(v) : 32u; }
+
+// MEL: forward, MSB first, a 0xFF byte's successor loses its MSB; the
+// suffix's last byte has its low nibble (Scup's) read as 0xF; 0xFF past it
+struct HtMel {
+    const u8* data;
+    uint64_t tmp;
+    int bits, size;
+    bool unstuff;
+    int k, num_runs;
+    uint64_t runs;
+};
+
+void mel_read(HtMel& m) {
+    if (m.bits > 32) return;
+    u32 val = 0xFFFFFFFFu;
+    if (m.size > 4) {
+        val = rd_le32(m.data);
+        m.data += 4;
+        m.size -= 4;
+    } else if (m.size > 0) {
+        int i = 0;
+        while (m.size > 1) {
+            u32 v = *m.data++;
+            u32 msk = ~(0xFFu << i);
+            val = (val & msk) | (v << i);
+            --m.size;
+            i += 8;
+        }
+        u32 v = *m.data++;
+        v |= 0xF;
+        u32 msk = ~(0xFFu << i);
+        val = (val & msk) | (v << i);
+        --m.size;
+    }
+    int bits = 32 - (int)m.unstuff;
+    u32 t = val & 0xFF;
+    bool unstuff = (val & 0xFF) == 0xFF;
+    bits -= (int)unstuff;
+    t = t << (8 - (int)unstuff);
+    t |= (val >> 8) & 0xFF;
+    unstuff = ((val >> 8) & 0xFF) == 0xFF;
+    bits -= (int)unstuff;
+    t = t << (8 - (int)unstuff);
+    t |= (val >> 16) & 0xFF;
+    unstuff = ((val >> 16) & 0xFF) == 0xFF;
+    bits -= (int)unstuff;
+    t = t << (8 - (int)unstuff);
+    t |= (val >> 24) & 0xFF;
+    m.unstuff = ((val >> 24) & 0xFF) == 0xFF;
+    m.tmp |= (uint64_t)t << (64 - bits - m.bits);
+    m.bits += bits;
+}
+
+// false: a 0xFF then a byte over 0x8F among the first bytes OpenJPEG
+// reads one at a time (up to the data's next 4-byte boundary)
+bool mel_init(HtMel& m, const u8* buf, int lcup, int scup) {
+    m.data = buf + lcup - scup;
+    m.bits = 0;
+    m.tmp = 0;
+    m.unstuff = false;
+    m.size = scup - 1;
+    m.k = 0;
+    m.num_runs = 0;
+    m.runs = 0;
+    int num = 4 - (int)((uintptr_t)m.data & 3);
+    for (int i = 0; i < num; ++i) {
+        if (m.unstuff && m.data[0] > 0x8F) return false;
+        uint64_t d = m.size > 0 ? *m.data : 0xFF;
+        if (m.size == 1) d |= 0xF;
+        m.data += m.size-- > 0;
+        int d_bits = 8 - (int)m.unstuff;
+        m.tmp = (m.tmp << d_bits) | d;
+        m.bits += d_bits;
+        m.unstuff = (d & 0xFF) == 0xFF;
+    }
+    m.tmp <<= (64 - m.bits);
+    return true;
+}
+
+void mel_decode(HtMel& m) {
+    static const int mel_exp[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+    if (m.bits < 6) mel_read(m);
+    while (m.bits >= 6 && m.num_runs < 8) {
+        int eval = mel_exp[m.k];
+        int run;
+        if (m.tmp & (1ull << 63)) {
+            run = (1 << eval) - 1;
+            m.k = m.k + 1 < 12 ? m.k + 1 : 12;
+            m.tmp <<= 1;
+            m.bits -= 1;
+            run = run << 1;
+        } else {
+            run = (int)(m.tmp >> (63 - eval)) & ((1 << eval) - 1);
+            m.k = m.k - 1 > 0 ? m.k - 1 : 0;
+            m.tmp <<= eval + 1;
+            m.bits -= eval + 1;
+            run = (run << 1) + 1;
+        }
+        int at = m.num_runs * 7;
+        m.runs &= ~((uint64_t)0x3F << at);
+        m.runs |= (uint64_t)run << at;
+        m.num_runs++;
+    }
+}
+
+int mel_get_run(HtMel& m) {
+    if (m.num_runs == 0) mel_decode(m);
+    int t = (int)(m.runs & 0x7F);
+    m.runs >>= 7;
+    m.num_runs--;
+    return t;
+}
+
+// VLC and MagRef: backward, LSB first; a byte whose predecessor is over 0x8F
+// and whose low 7 bits are all set gives 7 bits; 0x00 past the start
+struct HtRev {
+    const u8* data;
+    uint64_t tmp;
+    u32 bits;
+    int size;
+    bool unstuff;
+};
+
+void rev_read(HtRev& v) {
+    if (v.bits > 32) return;
+    u32 val = 0;
+    if (v.size > 3) {
+        val = rd_le32(v.data - 3);
+        v.data -= 4;
+        v.size -= 4;
+    } else if (v.size > 0) {
+        int i = 24;
+        while (v.size > 0) {
+            u32 b = *v.data--;
+            val |= b << i;
+            --v.size;
+            i -= 8;
+        }
+    }
+    u32 tmp = val >> 24;
+    u32 bits = 8u - ((v.unstuff && (((val >> 24) & 0x7F) == 0x7F)) ? 1u : 0u);
+    bool unstuff = (val >> 24) > 0x8F;
+    tmp |= ((val >> 16) & 0xFF) << bits;
+    bits += 8u - ((unstuff && (((val >> 16) & 0x7F) == 0x7F)) ? 1u : 0u);
+    unstuff = ((val >> 16) & 0xFF) > 0x8F;
+    tmp |= ((val >> 8) & 0xFF) << bits;
+    bits += 8u - ((unstuff && (((val >> 8) & 0x7F) == 0x7F)) ? 1u : 0u);
+    unstuff = ((val >> 8) & 0xFF) > 0x8F;
+    tmp |= (val & 0xFF) << bits;
+    bits += 8u - ((unstuff && ((val & 0x7F) == 0x7F)) ? 1u : 0u);
+    unstuff = (val & 0xFF) > 0x8F;
+    v.tmp |= (uint64_t)tmp << v.bits;
+    v.bits += bits;
+    v.unstuff = unstuff;
+}
+
+// the VLC stream: from the upper nibble of the suffix's second-last byte
+void rev_init(HtRev& v, const u8* data, int lcup, int scup) {
+    v.data = data + lcup - 2;
+    v.size = scup - 2;
+    u32 d = *v.data--;
+    v.tmp = d >> 4;
+    v.bits = 4 - ((v.tmp & 7) == 7);
+    v.unstuff = (d | 0xF) > 0x8F;
+    int num = 1 + (int)((uintptr_t)v.data & 3);
+    int tnum = num < v.size ? num : v.size;
+    for (int i = 0; i < tnum; ++i) {
+        uint64_t b = *v.data--;
+        u32 d_bits = 8 - ((v.unstuff && ((b & 0x7F) == 0x7F)) ? 1 : 0);
+        v.tmp |= b << v.bits;
+        v.bits += d_bits;
+        v.unstuff = b > 0x8F;
+    }
+    v.size -= tnum;
+    rev_read(v);
+}
+
+// the MagRef stream: from the last byte of the second segment
+void rev_init_mrp(HtRev& m, const u8* data, int lcup, int len2) {
+    m.data = data + lcup + len2 - 1;
+    m.size = len2;
+    m.unstuff = true;
+    m.bits = 0;
+    m.tmp = 0;
+    int num = 1 + (int)((uintptr_t)m.data & 3);
+    for (int i = 0; i < num; ++i) {
+        uint64_t d = (m.size-- > 0) ? *m.data-- : 0;
+        u32 d_bits = 8 - ((m.unstuff && ((d & 0x7F) == 0x7F)) ? 1 : 0);
+        m.tmp |= d << m.bits;
+        m.bits += d_bits;
+        m.unstuff = d > 0x8F;
+    }
+    rev_read(m);
+}
+
+u32 rev_fetch(HtRev& v) {
+    if (v.bits < 32) {
+        rev_read(v);
+        if (v.bits < 32) rev_read(v);
+    }
+    return (u32)v.tmp;
+}
+
+u32 rev_advance(HtRev& v, u32 n) {
+    v.tmp >>= n;
+    v.bits -= n;
+    return (u32)v.tmp;
+}
+
+// MagSgn and SigProp: forward, LSB first, a 0xFF byte's successor gives 7
+// bits; X (0xFF for MagSgn, 0 for SigProp) past the end
+struct HtFwd {
+    const u8* data;
+    uint64_t tmp;
+    u32 bits;
+    bool unstuff;
+    int size;
+    u32 X;
+};
+
+void frwd_read(HtFwd& f) {
+    u32 val;
+    if (f.size > 3) {
+        val = rd_le32(f.data);
+        f.data += 4;
+        f.size -= 4;
+    } else if (f.size > 0) {
+        int i = 0;
+        val = f.X != 0 ? 0xFFFFFFFFu : 0;
+        while (f.size > 0) {
+            u32 v = *f.data++;
+            u32 m = ~(0xFFu << i);
+            val = (val & m) | (v << i);
+            --f.size;
+            i += 8;
+        }
+    } else {
+        val = f.X != 0 ? 0xFFFFFFFFu : 0;
+    }
+    u32 bits = 8u - (f.unstuff ? 1u : 0u);
+    u32 t = val & 0xFF;
+    bool unstuff = (val & 0xFF) == 0xFF;
+    t |= ((val >> 8) & 0xFF) << bits;
+    bits += 8u - (unstuff ? 1u : 0u);
+    unstuff = ((val >> 8) & 0xFF) == 0xFF;
+    t |= ((val >> 16) & 0xFF) << bits;
+    bits += 8u - (unstuff ? 1u : 0u);
+    unstuff = ((val >> 16) & 0xFF) == 0xFF;
+    t |= ((val >> 24) & 0xFF) << bits;
+    bits += 8u - (unstuff ? 1u : 0u);
+    f.unstuff = ((val >> 24) & 0xFF) == 0xFF;
+    f.tmp |= (uint64_t)t << f.bits;
+    f.bits += bits;
+}
+
+void frwd_init(HtFwd& f, const u8* data, int size, u32 X) {
+    f.data = data;
+    f.tmp = 0;
+    f.bits = 0;
+    f.unstuff = false;
+    f.size = size;
+    f.X = X;
+    int num = 4 - (int)((uintptr_t)data & 3);
+    for (int i = 0; i < num; ++i) {
+        uint64_t d = f.size-- > 0 ? *f.data++ : f.X;
+        f.tmp |= d << f.bits;
+        f.bits += 8u - (f.unstuff ? 1u : 0u);
+        f.unstuff = (d & 0xFF) == 0xFF;
+    }
+    frwd_read(f);
+}
+
+u32 frwd_fetch(HtFwd& f) {
+    if (f.bits < 32) {
+        frwd_read(f);
+        if (f.bits < 32) frwd_read(f);
+    }
+    return (u32)f.tmp;
+}
+
+void frwd_advance(HtFwd& f, u32 n) {
+    f.tmp >>= n;
+    f.bits -= n;
+}
+
+// u for a quad pair, kappa 1 (the rows below add their E term later);
+// returns the bits used.  mode: the pair's u_off bits; in the first row
+// both set read a MEL event first (mode 4 when it is 1: each u past 2),
+// and with the event 0 a first u past 2 leaves the second one bit
+u32 decode_uvlc(u32 vlc, u32 mode, u32* u, bool first) {
+    // per 3-bit prefix: prefix length (2 bits), suffix length (3), u_pfx (3)
+    static const u8 dec[8] = {
+        3 | (5 << 2) | (5 << 5), 1 | (0 << 2) | (1 << 5),
+        2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5),
+        3 | (1 << 2) | (3 << 5), 1 | (0 << 2) | (1 << 5),
+        2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5)};
+    u32 consumed = 0;
+    if (mode == 0) {
+        u[0] = u[1] = 1;
+    } else if (mode <= 2) {
+        u32 d = dec[vlc & 0x7];
+        vlc >>= d & 0x3;
+        consumed += d & 0x3;
+        u32 sl = (d >> 2) & 0x7;
+        consumed += sl;
+        d = (d >> 5) + (vlc & ((1U << sl) - 1));
+        u[0] = (mode == 1) ? d + 1 : 1;
+        u[1] = (mode == 1) ? 1 : d + 1;
+    } else if (first && mode == 3 && (dec[vlc & 0x7] & 0x3) > 2) {
+        u32 d1 = dec[vlc & 0x7];
+        vlc >>= d1 & 0x3;
+        consumed += d1 & 0x3;
+        u[1] = (vlc & 1) + 1 + 1;
+        ++consumed;
+        vlc >>= 1;
+        u32 sl = (d1 >> 2) & 0x7;
+        consumed += sl;
+        d1 = (d1 >> 5) + (vlc & ((1U << sl) - 1));
+        u[0] = d1 + 1;
+    } else if (mode <= 4) {
+        u32 add = first && mode == 4 ? 3 : 1;
+        u32 d1 = dec[vlc & 0x7];
+        vlc >>= d1 & 0x3;
+        consumed += d1 & 0x3;
+        u32 d2 = dec[vlc & 0x7];
+        vlc >>= d2 & 0x3;
+        consumed += d2 & 0x3;
+        u32 sl = (d1 >> 2) & 0x7;
+        consumed += sl;
+        d1 = (d1 >> 5) + (vlc & ((1U << sl) - 1));
+        u[0] = d1 + add;
+        vlc >>= sl;
+        sl = (d2 >> 2) & 0x7;
+        consumed += sl;
+        d2 = (d2 >> 5) + (vlc & ((1U << sl) - 1));
+        u[1] = d2 + add;
+    }
+    return consumed;
+}
+
+// one significant sample of a quad: n its position (0-3), q the quad's
+// info, U its exponent bound; the value, sign-magnitude, at bit p - 1
+inline u32 ht_sample(HtFwd& ms, u32 q, u32 n, u32 U, u32 p, u32* vn_out) {
+    u32 ms_val = frwd_fetch(ms);
+    u32 m_n = U - ((q >> (12 + n)) & 1);
+    frwd_advance(ms, m_n);
+    u32 val = ms_val << 31;
+    u32 v_n = ms_val & ((1U << m_n) - 1);
+    v_n |= ((q >> (8 + n)) & 1) << m_n;
+    v_n |= 1;
+    *vn_out = v_n;
+    return val | ((v_n + 2) << (p - 1));
+}
+
+// a stripe's MagRef bits: sig the significance of its rows (4 a nibble, 8
+// columns a word), dpp its first row
+void ht_magref(HtRev& magref, const u32* cur_sig, u32* dpp, i32 width, i32 stride, u32 p) {
+    u32 half = 1u << (p - 2);
+    for (i32 i = 0; i < width; i += 8) {
+        u32 cwd = rev_fetch(magref);
+        u32 sig = *cur_sig++;
+        u32 col_mask = 0xFu;
+        u32* dp = dpp + i;
+        if (sig) {
+            for (int j = 0; j < 8; ++j, dp++) {
+                if (sig & col_mask) {
+                    u32 sample_mask = 0x11111111u & col_mask;
+                    for (int r = 0; r < 4; ++r) {
+                        if (sig & sample_mask) {
+                            u32 sym = cwd & 1;
+                            dp[r * stride] ^= (1 - sym) << (p - 1);
+                            dp[r * stride] |= half;
+                            cwd >>= 1;
+                        }
+                        sample_mask += sample_mask;
+                    }
+                }
+                col_mask <<= 4;
+            }
+        }
+        rev_advance(magref, popcount32(sig));
+    }
+}
+
+// a stripe's membership from its own significance: its 8 neighbours
+void ht_stripe_mbr(const u32* sig, u32* mbr, i32 width) {
+    u32 prev = 0;
+    for (i32 i = 0; i < width; i += 8, mbr++, sig++) {
+        mbr[0] = sig[0];
+        mbr[0] |= prev >> 28;
+        mbr[0] |= sig[0] << 4;
+        mbr[0] |= sig[0] >> 4;
+        mbr[0] |= sig[1] << 28;
+        prev = sig[0];
+        u32 t = mbr[0], z = mbr[0];
+        z |= (t & 0x77777777) << 1;
+        z |= (t & 0xEEEEEEEE) >> 1;
+        mbr[0] = z & ~sig[0];
+    }
+}
+
+// the next stripe's first row joins this stripe's membership (not under
+// the vertically causal style); then the known significant samples leave
+void ht_mbr_from_next(const u32* cur_sig, u32* cur_mbr, const u32* nxt_sig, i32 width,
+                      bool stripe_causal) {
+    u32 prev = 0;
+    for (i32 i = 0; i < width; i += 8, cur_mbr++, cur_sig++, nxt_sig++) {
+        u32 t = nxt_sig[0];
+        t |= prev >> 28;
+        t |= nxt_sig[0] << 4;
+        t |= nxt_sig[0] >> 4;
+        t |= nxt_sig[1] << 28;
+        prev = nxt_sig[0];
+        if (!stripe_causal) cur_mbr[0] |= (t & 0x11111111u) << 3;
+        cur_mbr[0] &= ~cur_sig[0];
+    }
+}
+
+// a stripe's SigProp: the members' significance bits, each half-group's
+// signs after its bits; new samples pass membership on in scan order and
+// to the next stripe's first row
+void ht_sigprop(HtFwd& sigprop, u32* cur_sig, u32* cur_mbr, u32* nxt_sig, u32* nxt_mbr,
+                u32* dp0, i32 width, i32 stride, u32 p, u32 pattern) {
+    u32 val = 3u << (p - 2);
+    for (i32 i = 0; i < width; i += 8, cur_sig++, cur_mbr++, nxt_sig++, nxt_mbr++) {
+        u32 mbr = *cur_mbr & pattern;
+        u32 new_sig = 0;
+        if (mbr) {
+            for (i32 n = 0; n < 8; n += 4) {
+                u32 cwd = frwd_fetch(sigprop);
+                u32 cnt = 0;
+                u32* dp = dp0 + i + n;
+                u32 col_mask = 0xFu << (4 * n);
+                u32 inv_sig = ~cur_sig[0] & pattern;
+                i32 end = n + 4 + i < width ? n + 4 : width - i;
+                static const u32 prop[4] = {0x32u, 0x74u, 0xE8u, 0xC0u};
+                for (i32 j = n; j < end; ++j, ++dp, col_mask <<= 4) {
+                    if ((col_mask & mbr) == 0) continue;
+                    u32 sample_mask = 0x11111111u & col_mask;
+                    for (int r = 0; r < 4; ++r) {
+                        if (mbr & sample_mask) {
+                            if (cwd & 1) {
+                                new_sig |= sample_mask;
+                                u32 t = prop[r] << (j * 4);
+                                mbr |= t & inv_sig;
+                            }
+                            cwd >>= 1;
+                            ++cnt;
+                        }
+                        sample_mask += sample_mask;
+                    }
+                }
+                if (new_sig & (0xFFFFu << (4 * n))) {
+                    u32* sp = dp0 + i + n;
+                    u32 cm = 0xFu << (4 * n);
+                    for (i32 j = n; j < end; ++j, ++sp, cm <<= 4) {
+                        if ((cm & new_sig) == 0) continue;
+                        u32 sample_mask = 0x11111111u & cm;
+                        for (int r = 0; r < 4; ++r) {
+                            if (new_sig & sample_mask) {
+                                sp[r * stride] |= ((cwd & 1) << 31) | val;
+                                cwd >>= 1;
+                                ++cnt;
+                            }
+                            sample_mask += sample_mask;
+                        }
+                    }
+                }
+                frwd_advance(sigprop, cnt);
+                if (n == 4) {
+                    u32 t = new_sig >> 28;
+                    t |= ((t & 0xE) >> 1) | ((t & 7) << 1);
+                    cur_mbr[1] |= t & ~cur_sig[1];
+                }
+            }
+        }
+        new_sig |= cur_sig[0];
+        u32 ux = (new_sig & 0x88888888) >> 3;
+        u32 tx = ux | (ux << 4) | (ux >> 4);
+        if (i > 0) nxt_mbr[-1] |= (ux << 28) & ~nxt_sig[-1];
+        nxt_mbr[0] |= tx & ~nxt_sig[0];
+        nxt_mbr[1] |= (ux >> 28) & ~nxt_sig[1];
+    }
+}
+
+// opj_t1_ht_decode_cblk on one code-block: cblkdata its segments joined
+// (segment 0 the cleanup pass, segment 1 SigProp and MagRef), data the
+// w x h samples (zeroed); Mb the band's bit-planes, numbps Mb minus the
+// zero bit-planes the tag tree gave; nseg0/len0 and nseg1/len1 the first
+// two segments' passes and lengths
+void ht_decode_cblk(const u8* coded_data, u32 cblk_len, i32* data, i32 width, i32 height,
+                    u32 Mb, u32 numbps, u32 nsegs, u32 np0, u32 len0, u32 np1, u32 len1,
+                    u32 cblksty) {
+    bool stripe_causal = (cblksty & 8) != 0;
+    u32 zero_bplanes = (Mb + 1) - numbps;
+    u32 num_passes = nsegs > 0 ? np0 : 0;
+    num_passes += nsegs > 1 ? np1 : 0;
+    u32 lengths1 = num_passes > 0 ? len0 : 0;
+    u32 lengths2 = num_passes > 1 ? len1 : 0;
+    i32 stride = width;
+    u32* decoded_data = reinterpret_cast<u32*>(data);
+    if (num_passes > 1 && lengths2 == 0) num_passes = 1;
+    if (num_passes > 3)
+        fail(fmt("We do not support more than 3 coding passes in an HT codeblock; "
+                 "This codeblocks has %lld passes.", num_passes));
+    if (Mb > 30)
+        fail(fmt("32 bits are not enough to decode this codeblock, since the number "
+                 "of bitplane, %lld, is larger than 30.", Mb));
+    if (zero_bplanes > Mb)
+        fail(fmt("Malformed HT codeblock. Decoding this codeblock is stopped. There "
+                 "are %lld zero bitplanes in %lld bitplanes.", zero_bplanes, Mb));
+    else if (zero_bplanes == Mb && num_passes > 1)
+        num_passes = 1;
+    u32 p = numbps;
+    u32 zero_bplanes_p1 = zero_bplanes + 1;
+    if (lengths1 < 2 || lengths1 > cblk_len || lengths1 + lengths2 > cblk_len)
+        fail("Malformed HT codeblock. Invalid codeblock length values.");
+    int lcup = (int)lengths1;
+    int scup = (((int)coded_data[lcup - 1]) << 4) + (coded_data[lcup - 2] & 0xF);
+    if (scup < 2 || scup > lcup || scup > 4079)
+        fail("Malformed HT codeblock. One of the following condition is not met: "
+             "2 <= Scup <= min(Lcup, 4079)");
+    HtMel mel;
+    HtRev vlc, magref;
+    HtFwd magsgn, sigprop;
+    if (!mel_init(mel, coded_data, lcup, scup))
+        fail("Malformed HT codeblock. Incorrect MEL segment sequence.");
+    rev_init(vlc, coded_data, lcup, scup);
+    frwd_init(magsgn, coded_data, lcup - scup, 0xFF);
+    if (num_passes > 1) frwd_init(sigprop, coded_data + lengths1, (int)lengths2, 0);
+    if (num_passes > 2) rev_init_mrp(magref, coded_data, (int)lengths1, (int)lengths2);
+
+    // OpenJPEG's flags buffer: four arrays of 132 words, then the line state
+    u32 sigma1[132] = {}, sigma2[132] = {}, mbr1[132] = {}, mbr2[132] = {};
+    u8 line_state[528] = {};
+    u32* sip = sigma1;
+    u32 sip_shift = 0;
+    u8* lsp = line_state;
+    lsp[0] = 0;
+    int run = mel_get_run(mel);
+    u32 qinf[2] = {0, 0};
+    u32 c_q = 0;
+    u32* sp = decoded_data;
+    u32 vlc_val;
+    auto quad_samples = [&](u32 q, u32 U, u32 locs, u32 lbase) {
+        // samples 0-3 of a quad at sp (columns sp[0], sp[1]); line state
+        // updates at lsp[0] (then lsp advances by one)
+        u32 v_n;
+        if (q & 0x10) {
+            sp[0] = ht_sample(magsgn, q, 0, U, p, &v_n);
+        } else if (locs & (0x1 << lbase)) {
+            sp[0] = 0;
+        }
+        if (q & 0x20) {
+            sp[stride] = ht_sample(magsgn, q, 1, U, p, &v_n);
+            u32 t = lsp[0] & 0x7F;
+            v_n = 32 - clz32(v_n);
+            lsp[0] = (u8)(0x80 | (t > v_n ? t : v_n));
+        } else if (locs & (0x2 << lbase)) {
+            sp[stride] = 0;
+        }
+        ++lsp;
+        ++sp;
+        if (q & 0x40) {
+            sp[0] = ht_sample(magsgn, q, 2, U, p, &v_n);
+        } else if (locs & (0x4 << lbase)) {
+            sp[0] = 0;
+        }
+        lsp[0] = 0;
+        if (q & 0x80) {
+            sp[stride] = ht_sample(magsgn, q, 3, U, p, &v_n);
+            lsp[0] = (u8)(0x80 | (32 - clz32(v_n)));
+        } else if (locs & (0x8 << lbase)) {
+            sp[stride] = 0;
+        }
+        ++sp;
+    };
+
+    // the first row pair
+    for (i32 x = 0; x < width; x += 4) {
+        u32 U_q[2];
+        vlc_val = rev_fetch(vlc);
+        qinf[0] = kHtVlc0[(c_q << 7) | (vlc_val & 0x7F)];
+        if (c_q == 0) {
+            run -= 2;
+            qinf[0] = (run == -1) ? qinf[0] : 0;
+            if (run < 0) run = mel_get_run(mel);
+        }
+        c_q = ((qinf[0] & 0x10) >> 4) | ((qinf[0] & 0xE0) >> 5);
+        vlc_val = rev_advance(vlc, qinf[0] & 0x7);
+        *sip |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xC0) >> 2)) << sip_shift;
+        qinf[1] = 0;
+        if (x + 2 < width) {
+            qinf[1] = kHtVlc0[(c_q << 7) | (vlc_val & 0x7F)];
+            if (c_q == 0) {
+                run -= 2;
+                qinf[1] = (run == -1) ? qinf[1] : 0;
+                if (run < 0) run = mel_get_run(mel);
+            }
+            c_q = ((qinf[1] & 0x10) >> 4) | ((qinf[1] & 0xE0) >> 5);
+            vlc_val = rev_advance(vlc, qinf[1] & 0x7);
+        }
+        *sip |= (((qinf[1] & 0x30) | ((qinf[1] & 0xC0) << 2))) << (4 + sip_shift);
+        sip += x & 0x7 ? 1 : 0;
+        sip_shift ^= 0x10;
+        u32 uvlc_mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+        if (uvlc_mode == 3) {
+            run -= 2;
+            uvlc_mode += (run == -1) ? 1 : 0;
+            if (run < 0) run = mel_get_run(mel);
+        }
+        u32 consumed_bits = decode_uvlc(vlc_val, uvlc_mode, U_q, true);
+        if (U_q[0] > zero_bplanes_p1 || U_q[1] > zero_bplanes_p1)
+            fail("Malformed HT codeblock. Decoding this codeblock is stopped. U_q is "
+                 "larger than zero bitplanes + 1");
+        vlc_val = rev_advance(vlc, consumed_bits);
+        u32 locs = 0xFF;
+        if (x + 4 > width) locs >>= (x + 4 - width) << 1;
+        locs = height > 1 ? locs : (locs & 0x55);
+        if ((((qinf[0] & 0xF0) >> 4) | (qinf[1] & 0xF0)) & ~locs)
+            fail("Malformed HT codeblock. VLC code produces significant samples "
+                 "outside the codeblock area.");
+        quad_samples(qinf[0], U_q[0], locs, 0);
+        quad_samples(qinf[1], U_q[1], locs, 4);
+    }
+
+    // the row pairs below
+    for (i32 y = 2; y < height;) {
+        sip_shift ^= 0x2;
+        sip_shift &= 0xFFFFFFEFu;
+        u32* sipr = y & 0x4 ? sigma2 : sigma1;
+        lsp = line_state;
+        u8 ls0 = lsp[0];
+        lsp[0] = 0;
+        sp = decoded_data + y * stride;
+        c_q = 0;
+        for (i32 x = 0; x < width; x += 4) {
+            u32 U_q[2];
+            c_q |= (ls0 >> 7);
+            c_q |= (lsp[1] >> 5) & 0x4;
+            vlc_val = rev_fetch(vlc);
+            qinf[0] = kHtVlc1[(c_q << 7) | (vlc_val & 0x7F)];
+            if (c_q == 0) {
+                run -= 2;
+                qinf[0] = (run == -1) ? qinf[0] : 0;
+                if (run < 0) run = mel_get_run(mel);
+            }
+            c_q = ((qinf[0] & 0x40) >> 5) | ((qinf[0] & 0x80) >> 6);
+            vlc_val = rev_advance(vlc, qinf[0] & 0x7);
+            *sipr |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xC0) >> 2)) << sip_shift;
+            qinf[1] = 0;
+            if (x + 2 < width) {
+                c_q |= (lsp[1] >> 7);
+                c_q |= (lsp[2] >> 5) & 0x4;
+                qinf[1] = kHtVlc1[(c_q << 7) | (vlc_val & 0x7F)];
+                if (c_q == 0) {
+                    run -= 2;
+                    qinf[1] = (run == -1) ? qinf[1] : 0;
+                    if (run < 0) run = mel_get_run(mel);
+                }
+                c_q = ((qinf[1] & 0x40) >> 5) | ((qinf[1] & 0x80) >> 6);
+                vlc_val = rev_advance(vlc, qinf[1] & 0x7);
+            }
+            *sipr |= (((qinf[1] & 0x30) | ((qinf[1] & 0xC0) << 2))) << (4 + sip_shift);
+            sipr += x & 0x7 ? 1 : 0;
+            sip_shift ^= 0x10;
+            u32 uvlc_mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+            u32 consumed_bits = decode_uvlc(vlc_val, uvlc_mode, U_q, false);
+            vlc_val = rev_advance(vlc, consumed_bits);
+            if ((qinf[0] & 0xF0) & ((qinf[0] & 0xF0) - 1)) {
+                u32 E = (ls0 & 0x7Fu);
+                E = E > (lsp[1] & 0x7Fu) ? E : (lsp[1] & 0x7Fu);
+                U_q[0] += E > 2 ? E - 2 : 0;
+            }
+            if ((qinf[1] & 0xF0) & ((qinf[1] & 0xF0) - 1)) {
+                u32 E = (lsp[1] & 0x7Fu);
+                E = E > (lsp[2] & 0x7Fu) ? E : (lsp[2] & 0x7Fu);
+                U_q[1] += E > 2 ? E - 2 : 0;
+            }
+            if (U_q[0] > zero_bplanes_p1 || U_q[1] > zero_bplanes_p1)
+                fail("Malformed HT codeblock. Decoding this codeblock is stopped. U_q is "
+                     "larger than bitplanes + 1");
+            ls0 = lsp[2];
+            lsp[1] = lsp[2] = 0;
+            u32 locs = 0xFF;
+            if (x + 4 > width) locs >>= (x + 4 - width) << 1;
+            locs = y + 2 <= height ? locs : (locs & 0x55);
+            if ((((qinf[0] & 0xF0) >> 4) | (qinf[1] & 0xF0)) & ~locs)
+                fail("Malformed HT codeblock. VLC code produces significant samples "
+                     "outside the codeblock area.");
+            quad_samples(qinf[0], U_q[0], locs, 0);
+            quad_samples(qinf[1], U_q[1], locs, 4);
+        }
+        y += 2;
+        if (num_passes > 1 && (y & 3) == 0) {
+            if (num_passes > 2) {
+                u32* cur_sig = y & 0x4 ? sigma1 : sigma2;
+                ht_magref(magref, cur_sig, decoded_data + (y - 4) * stride, width, stride, p);
+            }
+            if (y >= 4) {
+                u32* sig = y & 0x4 ? sigma1 : sigma2;
+                u32* mbr = y & 0x4 ? mbr1 : mbr2;
+                ht_stripe_mbr(sig, mbr, width);
+            }
+            if (y >= 8) {
+                u32* cur_sig = y & 0x4 ? sigma2 : sigma1;
+                u32* cur_mbr = y & 0x4 ? mbr2 : mbr1;
+                u32* nxt_sig = y & 0x4 ? sigma1 : sigma2;
+                u32* nxt_mbr = y & 0x4 ? mbr1 : mbr2;
+                ht_mbr_from_next(cur_sig, cur_mbr, nxt_sig, width, stripe_causal);
+                ht_sigprop(sigprop, cur_sig, cur_mbr, nxt_sig, nxt_mbr,
+                           decoded_data + (y - 8) * stride, width, stride, p, 0xFFFFFFFFu);
+                memset(cur_sig, 0, ((((u32)width + 7u) >> 3) + 1u) << 2);
+            }
+        }
+    }
+
+    // the last stripes
+    if (num_passes > 1) {
+        if (num_passes > 2 && ((height & 3) == 1 || (height & 3) == 2)) {
+            u32* cur_sig = height & 0x4 ? sigma2 : sigma1;
+            ht_magref(magref, cur_sig, decoded_data + (height & 0xFFFFFC) * stride, width,
+                      stride, p);
+        }
+        if ((height & 3) == 1 || (height & 3) == 2) {
+            u32* sig = height & 0x4 ? sigma2 : sigma1;
+            u32* mbr = height & 0x4 ? mbr2 : mbr1;
+            ht_stripe_mbr(sig, mbr, width);
+        }
+        i32 st = height;
+        st -= height > 6 ? (((height + 1) & 3) + 3) : height;
+        for (i32 y = st; y < height; y += 4) {
+            u32 pattern = 0xFFFFFFFFu;
+            if (height - y == 3) pattern = 0x77777777u;
+            else if (height - y == 2) pattern = 0x33333333u;
+            else if (height - y == 1) pattern = 0x11111111u;
+            u32* cur_sig = y & 0x4 ? sigma2 : sigma1;
+            u32* cur_mbr = y & 0x4 ? mbr2 : mbr1;
+            u32* nxt_sig = y & 0x4 ? sigma1 : sigma2;
+            u32* nxt_mbr = y & 0x4 ? mbr1 : mbr2;
+            if (height - y > 4) ht_mbr_from_next(cur_sig, cur_mbr, nxt_sig, width, stripe_causal);
+            ht_sigprop(sigprop, cur_sig, cur_mbr, nxt_sig, nxt_mbr, decoded_data + y * stride,
+                       width, stride, p, pattern);
+        }
+    }
+
+    // sign-magnitude to integers
+    for (i32 y = 0; y < height; ++y) {
+        i32* s = data + (size_t)y * stride;
+        for (i32 x = 0; x < width; ++x) {
+            u32 v = (u32)s[x];
+            i32 m = (i32)(v & 0x7FFFFFFF);
+            s[x] = (v & 0x80000000u) ? -m : m;
+        }
+    }
+}
+
 // --------------------------------------------------------- coding params
 
 constexpr int MAXRLVLS = 33, MAXBANDS = 3 * MAXRLVLS - 2;
@@ -499,8 +1498,23 @@ struct PPx {
     std::vector<u8> data;
 };
 
+// Part 2's array-based component transform records (MCT and MCC markers),
+// as OpenJPEG keeps them: an MCC names MCT records by their index
+struct MctRec {
+    u32 index = 0, element_type = 0;
+    std::vector<u8> data;
+};
+
+struct MccRec {
+    u32 index = 0, nb_comps = 0;
+    i32 deco = -1, offset = -1;   // MCT records, by position
+};
+
 struct TCP {
     u32 csty = 0, numlayers = 0, mct = 0;
+    std::vector<MctRec> mcts;
+    std::vector<MccRec> mccs;     // mccs[nb_mcc] may hold a half-read record
+    u32 nb_mcc = 0;
     i32 prg = 0;
     bool cod = false;
     std::vector<TCCP> tccps;
@@ -587,6 +1601,7 @@ struct Chunk {
 
 struct Cblk {
     i32 x0, y0, x1, y1;
+    u32 Mb = 0;   // the band's bit-planes, set at the first inclusion
     u32 numbps = 0, numlenbits = 0, numnewpasses = 0, numsegs = 0;
     u32 real_num_segs = 0;
     std::vector<Seg> segs;
@@ -1069,12 +2084,164 @@ struct Decoder {
                 break;
             case M_COM: break;
             case M_SOT: read_sot(p, n); break;
+            // Part 15's capabilities and profile: OpenJPEG reads neither
+            case M_CAP: case M_CPF: break;
+            case M_CBD: read_cbd(p, n); break;
+            case M_MCT: read_mct(p, n); break;
+            case M_MCC: read_mcc(p, n); break;
+            case M_MCO: read_mco(p, n); break;
+            default: fail("Not sure how that happened.");
+        }
+    }
+
+    // ---- Part 2's markers (opj_j2k_read_cbd, _mct, _mcc, _mco)
+
+    // CBD: each component's precision and sign, over SIZ's
+    void read_cbd(const u8* p, u32 n) {
+        if (n != numcomps + 2) fail("Crror reading CBD marker");
+        if (rd(p, 2) != numcomps) fail("Crror reading CBD marker");
+        for (u32 i = 0; i < numcomps; i++) {
+            u32 def = p[2 + i];
+            comps[i].sgnd = (def >> 7) & 1;
+            comps[i].prec = (def & 0x7F) + 1;
+            if (comps[i].prec > 31)
+                fail(fmt("Invalid values for comp = %lld : prec=%lld (should be between 1 and "
+                         "38 according to the JPEG2000 norm. OpenJPEG only supports up to 31)",
+                         i, comps[i].prec));
+        }
+    }
+
+    // MCT: one record (Zmct and Ymct 0: the rest is skipped), kept by its
+    // index with its element and array types
+    void read_mct(const u8* p, u32 n) {
+        TCP& tcp = cur_tcp();
+        if (n < 2) fail("Error reading MCT marker");
+        if (rd(p, 2) != 0) return;   // "Cannot take in charge mct data within multiple MCT records"
+        if (n <= 6) fail("Error reading MCT marker");
+        u32 tmp = rd(p + 2, 2);
+        u32 indix = tmp & 0xFF;
+        size_t i = 0;
+        while (i < tcp.mcts.size() && tcp.mcts[i].index != indix) i++;
+        if (i == tcp.mcts.size()) tcp.mcts.emplace_back();
+        MctRec& r = tcp.mcts[i];
+        r.data.clear();
+        r.index = indix;
+        r.element_type = (tmp >> 10) & 3;
+        if (rd(p + 4, 2) != 0) return;   // "Cannot take in charge multiple MCT markers"
+        r.data.assign(p + 6, p + n);
+    }
+
+    // MCC: one collection of array decorrelation over components 0..n-1 in
+    // order, naming its decorrelation and offset MCT records
+    void read_mcc(const u8* p, u32 n) {
+        TCP& tcp = cur_tcp();
+        if (n < 2) fail("Error reading MCC marker");
+        if (rd(p, 2) != 0) return;   // "Cannot take in charge multiple data spanning"
+        if (n < 7) fail("Error reading MCC marker");
+        u32 indix = p[2];
+        u32 i = 0;
+        while (i < tcp.nb_mcc && tcp.mccs[i].index != indix) i++;
+        bool fresh = i == tcp.nb_mcc;
+        if (fresh && tcp.mccs.size() == tcp.nb_mcc) tcp.mccs.emplace_back();
+        MccRec& r = tcp.mccs[i];
+        r.index = indix;
+        if (rd(p + 3, 2) != 0) return;   // "Cannot take in charge multiple data spanning"
+        u32 ncoll = rd(p + 5, 2);
+        if (ncoll > 1) return;           // "Cannot take in charge multiple collections"
+        p += 7;
+        n -= 7;
+        for (u32 c = 0; c < ncoll; c++) {
+            if (n < 3) fail("Error reading MCC marker");
+            if (p[0] != 1) return;   // "... collections other than array decorrelation"
+            u32 nb = rd(p + 1, 2);
+            p += 3;
+            n -= 3;
+            u32 w = 1 + (nb >> 15);
+            r.nb_comps = nb & 0x7FFF;
+            if (n < w * r.nb_comps + 2) fail("Error reading MCC marker");
+            n -= w * r.nb_comps + 2;
+            for (u32 j = 0; j < r.nb_comps; j++, p += w)
+                if (rd(p, (int)w) != j) return;   // "... collections with indix shuffle"
+            nb = rd(p, 2);
+            p += 2;
+            w = 1 + (nb >> 15);
+            nb &= 0x7FFF;
+            if (nb != r.nb_comps) return;   // "... without same number of indixes"
+            if (n < w * r.nb_comps + 3) fail("Error reading MCC marker");
+            n -= w * r.nb_comps + 3;
+            for (u32 j = 0; j < r.nb_comps; j++, p += w)
+                if (rd(p, (int)w) != j) return;
+            u32 t = rd(p, 3);
+            p += 3;
+            r.deco = r.offset = -1;
+            auto find = [&](u32 idx) {
+                for (size_t k = 0; k < tcp.mcts.size(); k++)
+                    if (tcp.mcts[k].index == idx) return (i32)k;
+                fail("Error reading MCC marker");
+            };
+            if (t & 0xFF) r.deco = find(t & 0xFF);
+            if ((t >> 8) & 0xFF) r.offset = find((t >> 8) & 0xFF);
+        }
+        if (n != 0) fail("Error reading MCC marker");
+        if (fresh) tcp.nb_mcc++;
+    }
+
+    // an MCT element as OpenJPEG's opj_j2k_read_*_to_int32 gives it: 16-bit
+    // elements unsigned, floats truncated (x86's INT_MIN out of range)
+    static i32 mct_int(const MctRec& r, u32 k) {
+        const u8* q = r.data.data();
+        switch (r.element_type) {
+            case 0: return (i32)rd(q + 2 * k, 2);
+            case 1: return (i32)rd(q + 4 * k, 4);
+            case 2: {
+                u32 b = rd(q + 4 * k, 4);
+                float f;
+                memcpy(&f, &b, 4);
+                return f >= -2147483648.0f && f < 2147483648.0f ? (i32)f : INT_MIN;
+            }
             default: {
-                char b[96];
-                snprintf(b, sizeof b, "a Part 2 or Part 15 marker (0x%04X)", m);
-                fail(std::string("unported: ") + b);
+                uint64_t b = ((uint64_t)rd(q + 8 * k, 4) << 32) | rd(q + 8 * k + 4, 4);
+                double f;
+                memcpy(&f, &b, 8);
+                return f > -2147483649.0 && f < 2147483648.0 ? (i32)f : INT_MIN;
             }
         }
+    }
+
+    // opj_j2k_add_mct: the stage's MCC record (OpenJPEG's search compares
+    // the first record only), its arrays' sizes checked, its offsets made
+    // the components' DC level shifts; its decorrelation matrix would act
+    // only under COD's MCT byte 2, which read_cod refuses
+    bool add_mct(TCP& tcp, u32 index) {
+        static const u32 esize[4] = {2, 4, 4, 8};
+        u32 i = 0;
+        while (i < tcp.nb_mcc && tcp.mccs[0].index != index) i++;
+        if (i == tcp.nb_mcc) return true;
+        const MccRec& r = tcp.mccs[0];
+        if (r.nb_comps != numcomps) return true;
+        if (r.deco >= 0) {
+            const MctRec& d = tcp.mcts[r.deco];
+            if (d.data.size() != esize[d.element_type] * numcomps * numcomps) return false;
+        }
+        if (r.offset >= 0) {
+            const MctRec& o = tcp.mcts[r.offset];
+            if (o.data.size() != esize[o.element_type] * numcomps) return false;
+            for (u32 c = 0; c < numcomps; c++) tcp.tccps[c].dc_shift = mct_int(o, c);
+        }
+        return true;
+    }
+
+    // MCO: one stage at most; every DC level shift is cleared first
+    void read_mco(const u8* p, u32 n) {
+        TCP& tcp = cur_tcp();
+        if (n < 1) fail("Error reading MCO marker");
+        u32 stages = p[0];
+        if (stages > 1) return;   // "Cannot take in charge multiple transformation stages."
+        if (n != stages + 1) fail("Error reading MCO marker");
+        for (auto& t : tcp.tccps) t.dc_shift = 0;
+        for (u32 i = 0; i < stages; i++)
+            if (!add_mct(tcp, p[1 + i]))
+                fail("Marker handler function failed to read the marker segment");
     }
 
     // the scan of opj_j2k_read_unk: known marker or error
@@ -1384,7 +2551,7 @@ struct Decoder {
                 if (rs.pw && 0xFFFFFFFFu / rs.pw < rs.ph)
                     fail("Size of tile data exceeds system limits");
                 u32 nprec = rs.pw * rs.ph;
-                if (nprec > (1u << 26)) fail("unported: more than 2^26 precincts in a resolution");
+                if (nprec > (1u << 26)) fail("limit: a resolution of more than 2^26 precincts");
                 i32 cbgx0, cbgy0;
                 u32 cbgwe, cbghe;
                 if (r == 0) {
@@ -1443,7 +2610,7 @@ struct Decoder {
                         if (pc.cw && 0xFFFFFFFFu / pc.cw < pc.ch)
                             fail("Size of code block data exceeds system limits");
                         if ((uint64_t)pc.cw * pc.ch > (1u << 24))
-                            fail("unported: a precinct of more than 2^24 code-blocks");
+                            fail("limit: a precinct of more than 2^24 code-blocks");
                         u32 ncb = pc.cw * pc.ch;
                         pc.cblks.assign(ncb, Cblk());
                         for (u32 k = 0; k < ncb; k++) {
@@ -1482,7 +2649,7 @@ struct Decoder {
                  step_l = (uint64_t)max_res * step_r;
         if (step_l > 0xFFFFFFFFull / (tcp.numlayers + 1ull)) fail("packet iterator too large");
         uint64_t incsize = (tcp.numlayers + 1ull) * step_l;
-        if (incsize > (1ull << 31)) fail("unported: a packet iterator of more than 2^31 packets");
+        if (incsize > (1ull << 31)) fail("limit: a tile of more than 2^31 packets");
         std::vector<u8> include(incsize, 0);
         u32 npoc = tcp.has_poc ? tcp.numpocs + 1 : 1;
         for (u32 pi = 0; pi < npoc; pi++) {
@@ -1653,7 +2820,6 @@ struct Decoder {
         TileComp& tc = tcs[pp.compno];
         Res& rs = tc.res[pp.resno];
         u32 cblksty = tcp.tccps[pp.compno].cblksty;
-        if (cblksty & STY_HT) fail("unported: HT (Part 15) code-blocks");
         if (pp.layno == 0) {
             for (u32 b = 0; b < rs.numbands; b++) {
                 Band& bd = rs.bands[b];
@@ -1717,6 +2883,7 @@ struct Decoder {
                     if (!cb.numsegs) {
                         u32 i = 0;
                         while (!tgt_decode(bio, pc.imsb, k, (i32)i)) ++i;
+                        cb.Mb = (u32)bd.numbps;
                         cb.numbps = (u32)bd.numbps + 1 - i;
                         cb.numlenbits = 3;
                     }
@@ -1735,9 +2902,13 @@ struct Decoder {
                         }
                     }
                     i32 n = (i32)cb.numnewpasses;
+                    // HT: the cleanup pass alone in the first segment, every
+                    // later pass of the packet in the next (OpenJPEG's rule)
+                    bool ht = (cblksty & STY_HT) != 0;
                     do {
                         Seg& s = cb.segs[segno];
-                        s.numnewpasses = (u32)std::min<i32>((i32)(s.maxpasses - s.numpasses), n);
+                        if (ht) s.numnewpasses = segno == 0 ? 1 : (u32)n;
+                        else s.numnewpasses = (u32)std::min<i32>((i32)(s.maxpasses - s.numpasses), n);
                         u32 bits = cb.numlenbits + ufloorlog2(s.numnewpasses);
                         if (bits > 32) fail("Invalid bit number in opj_t2_read_packet_header()");
                         s.newlen = bits ? bio.read(bits) : 0;
@@ -1839,6 +3010,32 @@ struct Decoder {
         int w = cb.x1 - cb.x0, h = cb.y1 - cb.y0;
         if (w < 0) w = 0;
         if (h < 0) h = 0;
+        if (tccp.cblksty & STY_HT) {
+            // opj_t1_ht_decode_cblk: one chunk is read where it lies (its
+            // address mod 4 OpenJPEG's, the tile's data being as aligned),
+            // several are joined in a buffer of their own
+            if (tccp.roishift != 0) fail("We do not support ROI in decoding HT codeblocks");
+            t1.setup(w, h);
+            if (cb.Mb == 0 || cb.chunks.empty()) return;
+            size_t total = 0;
+            for (auto& ch : cb.chunks) total += ch.len;
+            const u8* cdata = cb.chunks[0].data;
+            if (cb.chunks.size() > 1) {
+                segbuf.resize(total);
+                size_t at = 0;
+                for (auto& ch : cb.chunks) {
+                    memcpy(segbuf.data() + at, ch.data, ch.len);
+                    at += ch.len;
+                }
+                cdata = segbuf.data();
+            }
+            u32 ns = cb.numsegs;
+            ht_decode_cblk(cdata, (u32)total, t1.data.data(), w, h, cb.Mb, cb.numbps, ns,
+                           ns > 0 ? cb.segs[0].real_num_passes : 0, ns > 0 ? cb.segs[0].len : 0,
+                           ns > 1 ? cb.segs[1].real_num_passes : 0, ns > 1 ? cb.segs[1].len : 0,
+                           tccp.cblksty);
+            return;
+        }
         t1.setup(w, h);
         t1.zc = g_zc[orient];
         t1.vsc = (tccp.cblksty & STY_VSC) != 0;
@@ -1888,7 +3085,7 @@ struct Decoder {
             Res& top = tc.res[tc.numres - 1];
             size_t tw_ = (size_t)(top.x1 - top.x0), th_ = (size_t)(top.y1 - top.y0);
             if (th_ > 0 && tw_ > SIZE_MAX / th_) fail("Size of tile data exceeds system limits");
-            if (tw_ * th_ > (size_t)1 << 31) fail("unported: a tile-component past 2^31 samples");
+            if (tw_ * th_ > (size_t)1 << 31) fail("limit: a tile-component of more than 2^31 samples");
             tc.data.assign(tw_ * th_, 0);
             for (u32 r = 0; r < tc.numres; r++)
                 for (u32 b = 0; b < tc.res[r].numbands; b++)
@@ -2099,9 +3296,10 @@ struct Decoder {
             for (i32 j = 0; j < h; j++) {
                 i32* p = &tc.data[(size_t)j * stride];
                 if (tccp.qmfbid == 1) {
+                    // OpenJPEG adds in 32 bits (an MCC offset may wrap it)
                     for (i32 i = 0; i < w; i++) {
-                        i64 v = (i64)p[i] + tccp.dc_shift;
-                        p[i] = (i32)(v < lo ? lo : (v > hi ? hi : v));
+                        i32 v = (i32)((u32)p[i] + (u32)tccp.dc_shift);
+                        p[i] = v < lo ? lo : (v > hi ? hi : v);
                     }
                 } else {
                     for (i32 i = 0; i < w; i++) {

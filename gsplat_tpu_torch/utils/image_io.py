@@ -37,7 +37,8 @@ run-length scanlines; the blocks, headers and colours here), PFM, PAM and
 Sun raster (numpy).
 
 JPEG 2000 (``csrc/jpeg2000_codec.cpp`` for the codestream: OpenJPEG 2.5.3's
-decoding, every Part-1 option; the JP2 boxes, palettes, channel
+decoding, every Part-1 option, HT code-blocks and the Part 2 and 15
+markers it reads; the JP2 and JPH boxes, palettes, channel
 definitions and cv2's colour rules here); ``write_jpeg2000`` writes cv2's
 JP2 byte for byte at any ``IMWRITE_JPEG2000_COMPRESSION_X1000``: lossless
 at 1000, else OpenJPEG's rate allocation (cv2's default is 250).
@@ -2816,12 +2817,12 @@ def _yuv_to_rgb(y, u, v) -> np.ndarray:
 
 
 def _j2k_error(path, err, what: str) -> RuntimeError:
-    """The codec's refusal: OpenJPEG's reason, or a kind the port does not
-    decode yet (its message starts ``unported: ``)."""
+    """The codec's refusal: OpenJPEG's reason, or an allocation past the
+    port's limits (its message starts ``limit: ``)."""
     msg = err.value.decode(errors="replace")
-    if msg.startswith("unported: "):
-        return RuntimeError(f"{path}: a JPEG 2000 codestream with {msg[10:]}"
-                            f", which the port does not read yet (cv2 does)")
+    if msg.startswith("limit: "):
+        return RuntimeError(f"{path}: a JPEG 2000 codestream with {msg[7:]}"
+                            f", past what the port allocates")
     return RuntimeError(f"{path}: {what} cv2 does not read: {msg}")
 
 
@@ -2910,19 +2911,20 @@ def _decode_jpeg2000_bytes(data: bytes, path):
 
 
 def read_jpeg2000(path) -> np.ndarray:
-    """A JPEG 2000 file (JP2 or a raw codestream) → (H, W, 3) uint8 RGB, bit
-    for bit what ``cv2.imread(path)[..., ::-1]`` gives (cv2 5.0.0 with
-    OpenJPEG 2.5.3; the port's own decoder in ``csrc/jpeg2000_codec.cpp``,
-    the JP2 boxes parsed here): every progression, code-block style and
-    transform of Part 1, tiles and tile-parts, layers cut by a rate, ROI,
-    palettes (pclr/cmap) and channel definitions (cdef); a gray image
-    copied into three channels, sYCC through cv2's YUV → BGR, samples past
-    8 bits cut to their top 8, alpha dropped.  Raises ``RuntimeError``
+    """A JPEG 2000 file (JP2, JPH or a raw codestream) → (H, W, 3) uint8
+    RGB, bit for bit what ``cv2.imread(path)[..., ::-1]`` gives (cv2 5.0.0
+    with OpenJPEG 2.5.3; the port's own decoder in
+    ``csrc/jpeg2000_codec.cpp``, the JP2 boxes parsed here): every
+    progression, code-block style and transform of Part 1, tiles and
+    tile-parts, layers cut by a rate, ROI, palettes (pclr/cmap) and channel
+    definitions (cdef); HT code-blocks and the CAP and CPF markers of Part
+    15; Part 2's CBD, MCT, MCC and MCO as OpenJPEG applies them; a gray
+    image copied into three channels, sYCC through cv2's YUV → BGR, samples
+    past 8 bits cut to their top 8, alpha dropped.  Raises ``RuntimeError``
     naming the file where cv2 returns None (a file cut short, signed or
     offset or subsampled components, a raw gray codestream, 2 or more than
     4 components, fewer than 8 bits, CMYK or e-sYCC, a corrupt box or
-    codestream), and for the kinds the port does not decode yet (HT
-    code-blocks, Part 2 markers)."""
+    codestream, what OpenJPEG refuses of HT and Part 2)."""
     with open(path, "rb") as f:
         data = f.read()
     return _decode_jpeg2000_bytes(data, path)
@@ -3118,10 +3120,6 @@ class _Heif:
     def bad(self, why: str) -> RuntimeError:
         return RuntimeError(f"{self.path}: an AVIF file cv2 does not read: "
                             f"{why}")
-
-    def unported(self, what: str) -> RuntimeError:
-        return RuntimeError(f"{self.path}: an AVIF file with {what}, which "
-                            f"the port does not read yet (cv2 does)")
 
     def boxes(self, start: int, end: int, top: bool = False):
         """(type, payload start, end) of the boxes of a span; at the top

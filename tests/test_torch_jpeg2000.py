@@ -25,6 +25,7 @@ import torch
 
 from gsplat_tpu_torch.utils.image_io import read_image, write_jpeg2000
 
+import torch_j2k_ht as ht
 import torch_make_image_fixtures as fx
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,11 +49,9 @@ def _cv2_read(cv2, path):
         return None
 
 
-def _same_as_cv2(cv2, path, data=None, unported_ok=False):
+def _same_as_cv2(cv2, path, data=None):
     """The port's decode against cv2's: equal bit for bit, or cv2 refuses
-    and the port raises naming the file.  ``unported_ok``: the port may
-    also raise naming a kind it does not read yet (HT code-blocks, Part 2
-    markers), which a corrupted byte can make.  → whether cv2 read it."""
+    and the port raises naming the file.  → whether cv2 read it."""
     if data is not None:
         path.write_bytes(data)
     want = _cv2_read(cv2, path)
@@ -60,12 +59,7 @@ def _same_as_cv2(cv2, path, data=None, unported_ok=False):
         with pytest.raises(RuntimeError, match=os.path.basename(str(path))):
             read_image(str(path))
         return False
-    try:
-        got = read_image(str(path))
-    except RuntimeError as err:
-        if unported_ok and "does not read yet" in str(err):
-            return True
-        raise
+    got = read_image(str(path))
     assert got.dtype == np.uint8 and got.shape == want.shape
     np.testing.assert_array_equal(got, want[..., ::-1])
     return True
@@ -436,14 +430,26 @@ def _fuzz_bases():
         fx.openjpeg_encode(planes, layers=[20, 10], numres=3,
                            extra=["TLM=YES"], roi=(0, 4), pocs=[
                                (0, 0, 2, 3, 3, "RPCL"),
-                               (0, 0, 2, 6, 3, "LRCP")])]
+                               (0, 0, 2, 6, 3, "LRCP")]),
+        # HT code-blocks (tests/torch_j2k_ht.py): the cleanup pass with
+        # SigProp and MagRef, 5/3 and layers; a JPH file of tiles; 9/7
+        ht.ht_codestream(planes, numres=3, passes=3, plane=1, layers=2,
+                         layer_of=lambda *k: sum(k) % 2, fallback=False),
+        ht.jph_file(ht.ht_codestream(planes, numres=2, cblk=(3, 4),
+                                     tiles=(24, 24), passes=2, plane=2,
+                                     fallback=False), 3, 40, 52),
+        ht.ht_codestream(coeffs=[[(np.asarray(p, np.int64) - 128) * 5
+                                  for p in planes]], size=(40, 52),
+                         numres=1, reversible=False, expn=12, passes=3,
+                         plane=2)]
 
 
 @pytest.mark.parametrize("chunk", range(4))
 def test_byte_flips_and_cuts_match_cv2(cv2, tmp_path, chunk):
     # 4 x 80 seeded mutations (1-3 random bytes, one flipped bit, a cut)
-    # of six files: equal, or both refuse (or the port names a kind it does
-    # not read yet).  Bytes are not flipped in SIZ's image and tile sizes,
+    # of nine files, three of HT code-blocks: equal, or both refuse (a
+    # byte that makes a code-block HT is read as cv2 reads it).  Bytes are
+    # not flipped in SIZ's image and tile sizes,
     # where a flip asks for a canvas of gigabytes (both then refuse or
     # decode zeros, slowly)
     bases = _fuzz_bases()
@@ -464,8 +470,7 @@ def test_byte_flips_and_cuts_match_cv2(cv2, tmp_path, chunk):
                     data[pos] = int(rng.integers(256))
                 else:
                     data[pos] ^= 1 << int(rng.integers(8))
-        _same_as_cv2(cv2, tmp_path / f"f{i}.jp2", bytes(data),
-                     unported_ok=True)
+        _same_as_cv2(cv2, tmp_path / f"f{i}.jp2", bytes(data))
 
 
 # ------------------------------------------------------------ the writer

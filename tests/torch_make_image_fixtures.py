@@ -197,6 +197,20 @@ J2K_REFUSED = [
 ]
 CASES += J2K_CASES
 REFUSED += J2K_REFUSED
+# HT code-blocks (Part 15), CAP and CPF, JPH files and Part 2's CBD, MCT,
+# MCC and MCO (tests/torch_j2k_ht.py's writer; libopenjp2's opj_set_MCT)
+J2K_HT_CASES = [
+    "j2k_ht_cleanup.j2k", "j2k_ht_refined.j2k", "j2k_ht_sigprop.j2k",
+    "j2k_ht_97.j2k", "j2k_ht_layers_tiles.j2k", "j2k_ht_vsc_4x4.j2k",
+    "j2k_ht_coc.j2k", "j2k_ht_cap_cpf.j2k", "j2k_ht.jph",
+    "j2k_ht_gray16.jph", "j2k_part2_offsets.j2k", "j2k_part2_cbd.j2k",
+]
+J2K_HT_REFUSED = [
+    "j2k_ht_roi.j2k", "j2k_ht_passes_past_set.j2k", "j2k_ht_mixed.j2k",
+    "j2k_ht_cut.j2k", "j2k_part2_mct2.j2k",
+]
+CASES += J2K_HT_CASES
+REFUSED += J2K_HT_REFUSED
 # write_jpeg2000's bytes against cv2's lossless JP2 of ENCODED_J2K_SRC
 # (cv2's writer needs 32 pixels a side, more than enc_src.png has)
 ENCODED_J2K = ["enc_j2k.jp2"]
@@ -776,6 +790,65 @@ TIFF_MID_SHA256 = {
     "img_023.tif": ("4240c13f75921e071b71ac0d160c2545"
                     "27b4e2d3b549c10e12342df883e84a72"),
 }
+# chip_smoke's j2k_mid_ht leg: AVIF_MID's decodes written in turn as a raw
+# codestream of HT code-blocks (cleanup passes at plane 0, 5/3, RCT) and as
+# a JPH file whose blocks' SigProp and MagRef passes finish plane 0
+# (torch_j2k_ht.j2k_mid_file); the SHA-256 of cv2's decode of each (the
+# AVIF decode itself: both are lossless)
+J2K_MID_KINDS = ("cleanup", "refined")
+J2K_MID_SHA256 = {
+    "img_000.j2c": ("d1137773bab93dbaac0205b62e30998b"
+                    "c5035838565d542ea092e5653fef5777"),
+    "img_001.jph": ("7deec60a06452a0a6ec3c5b8b9b7b8f1"
+                    "50bb341437a74ef79c7e34b945deb9f1"),
+    "img_002.j2c": ("36af7acc3cab5357b753aa08d0f50551"
+                    "88bdb175a05ca2e290b0cc392e106d15"),
+    "img_003.jph": ("6740e19f56d2e00494c27dd4386dd3f4"
+                    "2f61c02dbd8b79c8619dd8d70cf57b5c"),
+    "img_004.j2c": ("74f065ba3ad5dfe8921e19bce87c8dbb"
+                    "37d661e9ae99bbec962e5acfe274dd30"),
+    "img_005.jph": ("0ea1ced50cbb4d9a0829e9bb0d55c324"
+                    "db9ce885d83660479b56504dc02cfd63"),
+    "img_006.j2c": ("a545d0e2908afc097dc2a1685a548724"
+                    "44cbdd4bc7e0f9b92fefddf377b6fdbe"),
+    "img_007.jph": ("c2f44bb36ca2bdb1c44e178be0f32ce6"
+                    "afab6c098c9a3a5948faf9067c0b7283"),
+    "img_008.j2c": ("742cdb872c0c59af0931a87bea59b87b"
+                    "b4f3e1eb16346a80e3e283f4685047e0"),
+    "img_009.jph": ("97f07614f7c16df3a148c0529583e1b0"
+                    "670e1210927f68793352b497ac795ed1"),
+    "img_010.j2c": ("769701b9d6f7e405205157daae072b80"
+                    "39b55ea88067f50f7e70e05396d1fe9f"),
+    "img_011.jph": ("4700f3ae85cadb320f61c9f67edb0d1d"
+                    "7d30dc45a2822bac2e635bec4ff52d5b"),
+    "img_012.j2c": ("4a3e7f80b9f760d1725dbdd4f1d64a80"
+                    "7806abad10874231559c4d73f6bb6104"),
+    "img_013.jph": ("8460021db4b9f7d61cc003eb542989d1"
+                    "90d66a0a1abc0d6b507d9fe84cc84aa0"),
+    "img_014.j2c": ("206dad91465c7f3f9e171364ba3e1a43"
+                    "a31935394f39da5ae0da8d000abc8583"),
+    "img_015.jph": ("cc12422feb979311306c292ae561c95a"
+                    "34d2d4780645f08728ac0c32991185cc"),
+    "img_016.j2c": ("8b70e345c135b7c1165e80c300e0557c"
+                    "8ef70dd3be579bc13f9472668eea9563"),
+    "img_017.jph": ("601ab850ae246ce47c8f57e2a158650c"
+                    "cd223d0cd11c1a389234aac167a9f6aa"),
+    "img_018.j2c": ("ac09c2b74ca5167a7cc634d77ac81ba3"
+                    "13ad5cd8ecd005c2d44519d3b87b1545"),
+    "img_019.jph": ("3d459a9d9567f711e029d9f01a74ecc5"
+                    "675336b93089d36c67a5d556f452941b"),
+    "img_020.j2c": ("7047787f45aea34511cd3754ffebc3ed"
+                    "0a39f929b470437de3bb7d53943801b4"),
+    "img_021.jph": ("51e0e532488f222e22b970302cfcc961"
+                    "1909fff97889cd9926909d67fc3db15d"),
+    "img_022.j2c": ("26dcd1040c0e27475d5a09b268a0158e"
+                    "569adc442870a2fba21b352d57b3f4af"),
+    "img_023.jph": ("4240c13f75921e071b71ac0d160c2545"
+                    "27b4e2d3b549c10e12342df883e84a72"),
+}
+# the JPH of TIMING's decode (j2k_mid_file(view, 1)): cv2's decode, hashed
+TIMING_JPH_SHA256 = ("5ecbfcd59d9427c8264c980ed02f3158"
+                     "fd7ccab4bbd671247d8ec3a1e4c505f6")
 
 
 def colour_alpha(h: int, w: int) -> np.ndarray:
@@ -907,7 +980,7 @@ def openjpeg_encode(planes, prec=8, sgnd=0, dx=None, dy=None, jp2=False,
                     offset=(0, 0), tile=None, layers=None, numres=None,
                     cblk=None, mode=0, irreversible=False, roi=None,
                     precincts=None, prog="LRCP", pocs=None, csty=0, mct=None,
-                    tile_parts=None, extra=None) -> bytes:
+                    tile_parts=None, extra=None, mct_array=None) -> bytes:
     """A codestream (or, with jp2, a JP2 file) from the system libopenjp2's
     encoder (2.5.0 here; ctypes over openjpeg.h's structures): ``planes``
     are the components' sample arrays; ``mode`` the code-block style bits
@@ -915,7 +988,10 @@ def openjpeg_encode(planes, prec=8, sgnd=0, dx=None, dy=None, jp2=False,
     rates, one a layer (none: one lossless layer); ``pocs`` (resno0,
     compno0, layno1, resno1, compno1, order) tuples; ``csty`` 2 SOP, 4 EPH;
     ``tile_parts`` 'R', 'L' or 'C'; ``extra`` options such as 'PLT=YES' or
-    'TLM=YES'.  Raises when the library refuses the parameters."""
+    'TLM=YES'; ``mct_array`` (matrix, offsets) through ``opj_set_MCT``: the
+    Part 2 array-based transform (the 9/7, COD's MCT byte 2, and the CBD,
+    MCT, MCC and MCO markers).  Raises when the library refuses the
+    parameters."""
     import ctypes as c
 
     params_t, cmpt_t, image_t = _opj_types()
@@ -986,6 +1062,14 @@ def openjpeg_encode(planes, prec=8, sgnd=0, dx=None, dy=None, jp2=False,
         p.tcp_mct = bytes([mct])
     if tile_parts:
         p.tp_on, p.tp_flag = b"\x01", tile_parts.encode()
+    if mct_array is not None:
+        mat = (c.c_float * (n * n))(*np.asarray(mct_array[0], np.float32)
+                                    .ravel().tolist())
+        off = (c.c_int32 * n)(*[int(v) for v in mct_array[1]])
+        lib.opj_set_MCT.argtypes = [c.POINTER(params_t), c.c_void_p,
+                                    c.c_void_p, c.c_uint32]
+        if not lib.opj_set_MCT(c.byref(p), mat, off, n):
+            raise RuntimeError("libopenjp2 refused the MCT array")
     codec = lib.opj_create_compress(2 if jp2 else 0)
     ok = lib.opj_setup_encoder(codec, c.byref(p), img)
     if ok and extra:
@@ -1255,6 +1339,106 @@ def generate_jpeg2000(folder: str = FOLDER) -> dict:
         dec = np.ascontiguousarray(cv2.imread(p(name))[..., ::-1])
         shas[name] = hashlib.sha256(dec.tobytes()).hexdigest()
     return shas
+
+def j2k_mid_file(rgb: np.ndarray, k: int, stats=None) -> bytes:
+    """View k of chip_smoke's j2k_mid_ht leg (torch_j2k_ht.j2k_mid_file):
+    even k a raw codestream of HT cleanup passes, odd k a JPH file whose
+    SigProp and MagRef passes finish plane 0; both lossless."""
+    import torch_j2k_ht
+
+    return torch_j2k_ht.j2k_mid_file(rgb, k, stats)
+
+
+def generate_j2k_ht(folder: str = FOLDER) -> tuple:
+    """The fixtures of J2K_HT_CASES and J2K_HT_REFUSED; returns
+    (J2K_MID_SHA256, TIMING_JPH_SHA256): the SHA-256 of cv2's decode of
+    each j2k_mid_file view of AVIF_MID's decodes, and of the JPH of
+    TIMING's decode (both lossless: cv2's decode is the source)."""
+    import hashlib
+
+    import cv2
+    import torch_j2k_ht as ht
+
+    from gsplat_tpu_torch.utils.image_io import read_avif
+
+    img = fixture_image(seed=21)
+    h, w = img.shape[:2]
+    pl = [img[..., k] for k in range(3)]
+    p = lambda name: os.path.join(folder, name)       # noqa: E731
+
+    def save(name, data):
+        with open(p(name), "wb") as f:
+            f.write(data)
+    rng = np.random.default_rng(22)
+    co = [(rng.integers(-500, 501, (h, w)) * (rng.random((h, w)) < 0.7))
+          for _ in range(3)]
+    save("j2k_ht_cleanup.j2k", ht.ht_codestream(pl, numres=3, mct=1))
+    save("j2k_ht_refined.j2k", ht.ht_codestream(pl, numres=3, passes=3,
+                                                plane=1, fallback=False))
+    save("j2k_ht_sigprop.j2k", ht.ht_codestream(pl, numres=2, passes=2,
+                                                plane=2))
+    save("j2k_ht_97.j2k", ht.ht_codestream(
+        coeffs=[co], size=(h, w), numres=3, reversible=False, qstyle=1,
+        expn=12, mant=900, passes=3, plane=2))
+    save("j2k_ht_layers_tiles.j2k", ht.ht_codestream(
+        pl, numres=3, tiles=(16, 24), layers=3,
+        layer_of=lambda *k: sum(k) % 3, precincts=[(3, 3), (4, 4), (4, 4)],
+        cblk=(2, 3), prog="RLCP", sop=True, eph=True, passes=3, plane=1))
+    save("j2k_ht_vsc_4x4.j2k", ht.ht_codestream(pl, numres=2, cblk=(2, 2),
+                                                style=0x48, passes=3,
+                                                plane=1, fallback=False))
+    theirs = ht.part1_packets(pl, 3)
+    save("j2k_ht_coc.j2k", ht.ht_codestream(
+        pl, numres=3, style=0, coc_styles={1: 0x40}, passes=3, plane=1,
+        packets_of=lambda t, l, r, c, q: None if c == 1 else theirs[(r, c)]))
+    save("j2k_ht_cap_cpf.j2k", ht.ht_codestream(
+        pl, numres=2, cap=ht.cap_marker(bytes(range(9))),
+        cpf=ht.cpf_marker((0x4000, 0x1234))))
+    cs = ht.ht_codestream(pl, numres=3, passes=3, plane=1)
+    save("j2k_ht.jph", ht.jph_file(cs, 3, h, w))
+    gray = (pl[1].astype(np.int64) << 8) + rng.integers(0, 256, (h, w))
+    save("j2k_ht_gray16.jph", ht.jph_file(
+        ht.ht_codestream([gray], prec=16, numres=3, passes=3, plane=1), 1,
+        h, w, colr=17, bpc=15))
+    part2 = openjpeg_encode(pl, mct_array=(np.eye(3), (30, -40, 7)))
+    ms, rest = ht.main_markers(part2)
+    for code, body in ms:
+        if code == 0xFF52:
+            body[4] = 0
+    save("j2k_part2_offsets.j2k", ht.join_markers(ms, rest))
+    at = next(i for i, m in enumerate(ms) if m[0] == 0xFF78)
+    save("j2k_part2_cbd.j2k", ht.join_markers(
+        ms[:at] + [ht.cbd([9, 7, 9])] + ms[at + 1:], rest))
+    # what cv2 refuses
+    save("j2k_part2_mct2.j2k", part2)
+    save("j2k_ht_roi.j2k", ht.ht_codestream(pl, numres=2, rgn=(0, 3)))
+    save("j2k_ht_passes_past_set.j2k", ht.ht_codestream(
+        pl, numres=2, passes=3, plane=1, extra_passes=3))
+    save("j2k_ht_mixed.j2k", ht.ht_codestream(pl, numres=2, style=0xC0))
+    whole = ht.ht_codestream(pl, numres=3, passes=3, plane=1)
+    save("j2k_ht_cut.j2k", whole[:len(whole) * 6 // 10])
+    # the mid views and the timing JPH
+    mid = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(folder, AVIF_MID)
+        for k, name in enumerate(sorted(os.listdir(src))):
+            view = read_avif(os.path.join(src, name))
+            ext = ".jph" if k % 2 else ".j2c"
+            out = os.path.join(tmp, name[:-5] + ext)
+            with open(out, "wb") as f:
+                f.write(j2k_mid_file(view, k))
+            dec = np.ascontiguousarray(cv2.imread(out)[..., ::-1])
+            assert (dec == view).all(), name
+            mid[name[:-5] + ext] = hashlib.sha256(dec.tobytes()).hexdigest()
+        view = np.ascontiguousarray(cv2.imread(p(TIMING))[..., ::-1])
+        out = os.path.join(tmp, "timing.jph")
+        with open(out, "wb") as f:
+            f.write(j2k_mid_file(view, 1))
+        dec = np.ascontiguousarray(cv2.imread(out)[..., ::-1])
+        assert (dec == view).all()
+        timing = hashlib.sha256(dec.tobytes()).hexdigest()
+    return mid, timing
+
 
 def generate_avif(folder: str = FOLDER, mid_scene: str | None = None
                   ) -> dict:
@@ -4644,6 +4828,15 @@ if __name__ == "__main__":
         result = check()
         print({k: v for k, v in result.items() if not v})
         sys.exit(0)
+    if sys.argv[1:] == ["--j2k-ht"]:        # HT, JPH and Part 2 JPEG 2000
+        mid, timing = generate_j2k_ht()     # (also the system libopenjp2)
+        _write_wants(J2K_HT_CASES)
+        _check_cv2_refuses()
+        print(f"J2K_MID_SHA256 = {mid!r}")
+        print(f"TIMING_JPH_SHA256 = {timing!r}")
+        result = check()
+        print({k: v for k, v in result.items() if not v})
+        sys.exit(0 if all(result.values()) else 1)
     if sys.argv[1:] == ["--kinds"]:         # the TIFF and JPEG kinds of
         shas = generate_kinds()             # KINDS_CASES and KINDS_REFUSED
         _write_wants(KINDS_CASES)
