@@ -116,11 +116,13 @@ Then it drives the port's paths on the bench scene (506,627 gaussians,
   projection, warped and global motion, OBMC, inter-intra) and at every
   default of libaom, compound prediction and skip mode among them, and
   from copies whose inter frames predict from references of another size
-  (libaom's resize and superres) (the views of those kinds, of a frame
-  libavif scales, of a key frame then an inter frame, of four frames at
-  libaom's default inter tools, of four at every default and of four
-  resized ones decoded to cv2's SHA-256 too, each shown using its tool,
-  the compound and resized views timed beside cv2's default file), each
+  (libaom's resize and superres), and from copies whose reference slots
+  libaom rebuilds from ref_order_hint (each decode cv2's SHA-256) (the
+  views of those kinds, of a frame libavif scales, of a key frame then an
+  inter frame, of four frames at libaom's default inter tools, of four at
+  every default, of four resized ones and of three with a slot rebuilt
+  decoded to cv2's SHA-256 too, each shown using its tool, the compound,
+  resized and rebuilt views timed beside cv2's default file), each
   AVIF leg's last l1 within the JPEG leg's bound of the PNG leg's; and
   from copies in JPEG 2000's HT code-blocks (raw codestreams and JPH
   files written on the host, lossless), whose log equals the cv2 AVIF
@@ -1624,16 +1626,16 @@ def at_scale_path(rz, dev):
         mid_png_leg, avif_leg, avif_screen_leg, avif_grain_leg, \
             avif_avis_leg, avif_colour_leg, avif_libavif_leg, \
             avif_inter_leg, avif_default_leg, avif_compound_leg, \
-            avif_scaled_leg, tiff_mid_kinds_leg, j2k_mid_ht_leg = \
-            avif_path(rz, root)
+            avif_scaled_leg, avif_rebuilt_leg, tiff_mid_kinds_leg, \
+            j2k_mid_ht_leg = avif_path(rz, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return (build, rgb, sh, jpeg, png_leg, tiff_leg, webp_leg, jp2_leg,
             gif_leg, mid_png_leg, avif_leg, avif_screen_leg,
             avif_grain_leg, avif_avis_leg, avif_colour_leg,
             avif_libavif_leg, avif_inter_leg, avif_default_leg,
-            avif_compound_leg, avif_scaled_leg, tiff_mid_kinds_leg,
-            j2k_mid_ht_leg), \
+            avif_compound_leg, avif_scaled_leg, avif_rebuilt_leg,
+            tiff_mid_kinds_leg, j2k_mid_ht_leg), \
         scale_rows
 
 
@@ -2218,7 +2220,7 @@ def image_formats_path(rz, scene, root):
     check(not bad and len(got) == len(fx.CASES) + len(fx.REFUSED)
           + len(fx.GARBLED) + len(fx.ENCODED) + len(fx.ENCODED_J2K)
           + len(fx.ENCODED_J2K_RATE) + len(fx.RESIZED) + len(fx.TIMING_CV2)
-          + len(fx.ROUND_TRIP) + len(fx.AVIF_UNPORTED) + len(fx.TIMING_AVIF)
+          + len(fx.ROUND_TRIP) + len(fx.TIMING_AVIF)
           + len(fx.TIMING_TIFF),
           f"image fixtures differ: {bad}")
     return pl, runs["tiff"][1], runs["webp"][1], runs["jp2"][1], \
@@ -2245,7 +2247,10 @@ def image_formats_path(rz, scene, root):
 # and skip-mode blocks: COMPOUND_VIEW, timed against AVIF_TIMED's first);
 # libaom's key frame of it translated three times, then inter frames coded
 # at 8/12 of its size predicting from it (its scaled blocks: RESIZE_VIEW,
-# timed against AVIF_TIMED's first)
+# timed against AVIF_TIMED's first); libaom's error resilient frames of it
+# translated twice, then of it, the last frame's LAST slot rebuilt from
+# ref_order_hint (its rebuilt slot and the blocks that predict from it:
+# REBUILT_VIEW, timed against AVIF_TIMED's first)
 AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_d12_1297x840.avif", "timing_lossless_320x208.avif",
               "timing_screen_1297x840.avif", "timing_422_1297x840.avif",
@@ -2260,7 +2265,7 @@ AVIF_TIMED = ("timing_default_1297x840.avif", "timing_d10_1297x840.avif",
               "timing_deltalf_1297x840.avif", "timing_ycgco_1297x840.avif",
               "timing_scaled_1297x840.avif", "timing_inter_1297x840.avif",
               "timing_tools_1297x840.avif", "timing_compound_1297x840.avif",
-              "timing_resize_1297x840.avif")
+              "timing_resize_1297x840.avif", "timing_rebuilt_1297x840.avif")
 # the view of compound prediction and skip mode, whose decode must count
 # compound blocks and skip-mode blocks (decode_av1's info[67:72])
 COMPOUND_VIEW = "timing_compound_1297x840.avif"
@@ -2268,6 +2273,10 @@ COMPOUND_VIEW = "timing_compound_1297x840.avif"
 # whose decode must count blocks predicted from a scaled reference
 # (decode_av1's info[73])
 RESIZE_VIEW = "timing_resize_1297x840.avif"
+# the view of a reference slot rebuilt from ref_order_hint, whose decode
+# must count a slot rebuilt and blocks predicted from it (decode_av1's
+# info[80:84])
+REBUILT_VIEW = "timing_rebuilt_1297x840.avif"
 AVIF_REPS = 3
 # the view whose palette and intra block copy blocks the phase counts
 AVIF_SCREEN_VIEW = "timing_screen_1297x840.avif"
@@ -2349,7 +2358,14 @@ def avif_path(rz, root):
     0) and the committed AVIF_MID_SCALED views (libaom's key frame, then
     two inter frames resized to 8/d of it or coded with superres at 8/d,
     in turn; the views that predicted from a scaled reference counted
-    above 0), and a TIFF copy (tiff_mid_kinds) whose views are AVIF_MID's
+    above 0) and the committed AVIF_MID_REBUILT views (libaom's error
+    resilient frames with a reference slot rebuilt from ref_order_hint, in
+    turn one the last frame's blocks predict from, the same with inter
+    frames resized to half (a 2x reference), and one whose buffer kept an
+    earlier frame's state that a later frame without error resilience
+    reads; each decode held to the SHA-256 of cv2's, REBUILT_MID_SHA256,
+    and the views of each kind counted above 0 by the decoder), and a TIFF
+    copy (tiff_mid_kinds) whose views are AVIF_MID's
     decodes written on the host in turn as 16-bit CIELab, 4:2:0 YCbCr
     under LZW and Predictor 2 and old-style LZW RGB
     (torch_make_image_fixtures.tiff_mid_file), each decode held to the
@@ -2371,10 +2387,11 @@ def avif_path(rz, root):
     leg's launches, the cv2 AVIF leg's, the screen AVIF leg's, the grain
     AVIF leg's, the avis leg's, the colour leg's, the libavif leg's, the
     inter leg's, the default inter tools' leg's, the compound leg's, the
-    scaled leg's, the TIFF kinds leg's, the JPEG 2000 HT leg's).
-    LIBAVIF_TOOLS' and INTER_TOOLS' views are shown using
-    their tools, COMPOUND_VIEW's compound and skip-mode blocks and
-    RESIZE_VIEW's scaled blocks counted and their read_avif seconds
+    scaled leg's, the rebuilt leg's, the TIFF kinds leg's, the JPEG 2000
+    HT leg's).  LIBAVIF_TOOLS' and INTER_TOOLS' views are shown using
+    their tools, COMPOUND_VIEW's compound and skip-mode blocks,
+    RESIZE_VIEW's scaled blocks and REBUILT_VIEW's rebuilt slot and the
+    blocks that predict from it counted and their read_avif seconds
     printed beside AVIF_TIMED's first's."""
     import hashlib
 
@@ -2496,6 +2513,16 @@ def avif_path(rz, root):
     check(counts["scaled_blocks"] > 0,
           f"{RESIZE_VIEW} decoded no block from a scaled reference: "
           f"{counts}")
+    rebuilt = np.mean(secs[REBUILT_VIEW])
+    print(f"  {REBUILT_VIEW}: read_avif {rebuilt:.4f} s a call, "
+          f"{rebuilt / default:.2f}x {AVIF_TIMED[0]}'s {default:.4f} s (this "
+          f"call, host: {host})", flush=True)
+    with open(os.path.join(fx.FOLDER, REBUILT_VIEW), "rb") as f:
+        counts = rebuilt_counts(fx.rebuilt_info(f.read()))
+    print(f"  {REBUILT_VIEW}: {json.dumps(counts)}", flush=True)
+    check(counts["slots_rebuilt"] > 0 and counts["blocks_from_rebuilt"] > 0,
+          f"{REBUILT_VIEW} rebuilt no slot or predicted no block from one: "
+          f"{counts}")
     for name, needs in INTER_TOOLS.items():
         with open(os.path.join(fx.FOLDER, name), "rb") as f:
             heif = image_io._Heif(f.read(), name)
@@ -2541,7 +2568,8 @@ def avif_path(rz, root):
                          ("avif_inter", fx.AVIF_MID_INTER),
                          ("avif_default", fx.AVIF_MID_DEFAULT),
                          ("avif_compound", fx.AVIF_MID_COMPOUND),
-                         ("avif_scaled", fx.AVIF_MID_SCALED)):
+                         ("avif_scaled", fx.AVIF_MID_SCALED),
+                         ("avif_rebuilt", fx.AVIF_MID_REBUILT)):
         sc, images, _ = _format_scene(scene, root, f"scene_{kind}", ".avif")
         committed = os.path.join(fx.FOLDER, folder)
         avifs = sorted(os.listdir(committed))
@@ -2586,6 +2614,32 @@ def avif_path(rz, root):
                   f"from a scaled reference ({blocks} blocks), {superres} "
                   f"with superres inter frames", flush=True)
             check(used > 0, f"{folder}: no block from a scaled reference")
+        if kind == "avif_rebuilt":
+            # each decode the SHA-256 of cv2's; each kind's views counted by
+            # the decoder: a slot rebuilt and blocks predicted from it
+            # (named, scaled: those blocks from a scaled reference too), and
+            # reads of what the rebuilt buffer kept (leftover)
+            took = dict.fromkeys(fx.REBUILT_KINDS, 0)
+            for k, n in enumerate(avifs):
+                a = image_io.read_avif(os.path.join(images, n))
+                sha = hashlib.sha256(np.ascontiguousarray(a).tobytes()
+                                     ).hexdigest()
+                check(sha == fx.REBUILT_MID_SHA256[n], f"{n}: decode SHA-256 "
+                      f"{sha} is not cv2's {fx.REBUILT_MID_SHA256[n]}")
+                with open(os.path.join(committed, n), "rb") as f:
+                    data = f.read()
+                c = rebuilt_counts(fx.rebuilt_info(data))
+                kind_k = fx.REBUILT_KINDS[k % len(fx.REBUILT_KINDS)]
+                took[kind_k] += int(c["slots_rebuilt"] > 0 and (
+                    c["leftover_reads"] > 0 if kind_k == "leftover" else
+                    c["blocks_from_rebuilt"] > 0 and (
+                        kind_k == "named" or
+                        scaled_counts(fx.scaled_info(data))[
+                            "scaled_blocks"] > 0)))
+            print(f"  {folder}: each decode cv2's (SHA-256); views that took "
+                  f"each kind {json.dumps(took)}", flush=True)
+            check(all(v > 0 for v in took.values()),
+                  f"{folder}: a kind no view took: {took}")
         size = sum(os.path.getsize(os.path.join(committed, n))
                    for n in avifs)
         print(f"  {folder}: {len(avifs)} AVIF views, {size} bytes; mean "
@@ -2707,8 +2761,8 @@ def avif_path(rz, root):
     ps = runs["png"][0]
     for kind in ("avif", "avif_screen", "avif_grain", "avif_avis",
                  "avif_colour", "avif_libavif", "avif_inter", "avif_default",
-                 "avif_compound", "avif_scaled", "tiff_mid_kinds",
-                 "j2k_mid_ht"):
+                 "avif_compound", "avif_scaled", "avif_rebuilt",
+                 "tiff_mid_kinds", "j2k_mid_ht"):
         l1 = l1_by_iteration(runs[kind][2])
         check(len(l1) >= JPEG_ITERS // 50 and
               all(np.isfinite(list(l1.values()))),
@@ -2756,7 +2810,8 @@ def avif_path(rz, root):
         runs["avif_colour"][1], runs["avif_libavif"][1], \
         runs["avif_inter"][1], runs["avif_default"][1], \
         runs["avif_compound"][1], runs["avif_scaled"][1], \
-        runs["tiff_mid_kinds"][1], runs["j2k_mid_ht"][1]
+        runs["avif_rebuilt"][1], runs["tiff_mid_kinds"][1], \
+        runs["j2k_mid_ht"][1]
 
 
 def compound_counts(t) -> dict:
@@ -2766,6 +2821,13 @@ def compound_counts(t) -> dict:
     return dict(compound_blocks=dict(zip(
         ("average", "distance", "wedge", "diffwtd"), t[:4])),
         skip_mode_blocks=t[4], single_beside_compound=t[5])
+
+
+def rebuilt_counts(t) -> dict:
+    """torch_make_image_fixtures.rebuilt_info's counts of an AVIF item,
+    named."""
+    return dict(zip(("slots_rebuilt", "frames_naming_rebuilt",
+                     "blocks_from_rebuilt", "leftover_reads", "frames"), t))
 
 
 def scaled_counts(t) -> dict:
@@ -4113,7 +4175,8 @@ def main() -> int:
      mid_avif, mid_avif_screen, mid_avif_grain, mid_avif_avis,
      mid_avif_colour, mid_avif_libavif, mid_avif_inter,
      mid_avif_default, mid_avif_compound, mid_avif_scaled,
-     mid_tiff_kinds, mid_j2k_ht), scale_rows = at_scale_path(rz, dev)
+     mid_avif_rebuilt, mid_tiff_kinds, mid_j2k_ht), scale_rows = \
+        at_scale_path(rz, dev)
     at_scale = {name: {} for name in KERNELS}
     for leg, rows in scale_rows.items():
         for name, row in rows.items():
@@ -4171,6 +4234,7 @@ def main() -> int:
              "mid AVIF default inter tools run": mid_avif_default,
              "mid AVIF compound run": mid_avif_compound,
              "mid AVIF scaled run": mid_avif_scaled,
+             "mid AVIF rebuilt run": mid_avif_rebuilt,
              "mid TIFF kinds run": mid_tiff_kinds,
              "mid JPEG 2000 HT run": mid_j2k_ht,
              **{f"bench {label}": {name: out["launches"].get(name, 0)

@@ -4604,8 +4604,12 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
     inter frames coded with superres, switch frames, blocks whose warp a
     scaled reference turned into a translation, inter frames that name a
     reference coded with superres, compound blocks with a scaled reference
-    and OBMC blocks that predicted from one (their own or a neighbour's).
-    The fields
+    and OBMC blocks that predicted from one (their own or a neighbour's);
+    slots rebuilt from ref_order_hint (libaom's neutral-grey buffer), inter
+    frames that name a rebuilt slot, blocks predicted from one, and reads of
+    what a rebuilt buffer kept of its last frame (a primary reference
+    frame's state, a motion-field projection, film grain, a
+    show_existing_frame).  The fields
     before those counters describe the last frame decoded.  With ``grain``
     False the planes are the frame before its film grain."""
     import ctypes
@@ -4616,13 +4620,9 @@ def decode_av1(obu: bytes, path="image", grain: bool = True):
                             _AVIF_ERRLEN)
     if not handle:
         msg = err.value.decode(errors="replace")
-        if msg.startswith("unported: "):
-            raise RuntimeError(f"{path}: an AVIF image with {msg[10:]}, "
-                               f"which the port does not read yet (cv2 "
-                               f"does)")
         raise RuntimeError(f"{path}: AV1 data cv2 does not read: {msg}")
     try:
-        info = (ctypes.c_longlong * 80)()
+        info = (ctypes.c_longlong * 84)()
         lib.av1_info(handle, info)
         info = list(info)
         width, height, _, subx, suby, mono = info[:6]
@@ -4848,12 +4848,13 @@ def read_avif(path) -> np.ndarray:
     global motion, OBMC, inter-intra, compound prediction and skip mode
     (the inter tools libaom's encoder uses at its defaults), inter frames
     predicted from references of another size (libaom's resize) or coded
-    with superres, and switch frames.
+    with superres, switch frames, and error resilient frames whose
+    ref_order_hint differs from a slot's (libaom rebuilds the slot as a
+    neutral-grey buffer of its pool that keeps the rest of what it held).
     Raises ``RuntimeError`` naming the file where cv2 returns None
     (OpenCV's own 500-byte signature test included; an iloc construction
     method 2; a reference more than twice or less than a sixteenth of the
-    frame), and naming the kind for what the port does not read yet (a
-    reference slot libaom rebuilds from ref_order_hint)."""
+    frame)."""
     with open(path, "rb") as f:
         data = f.read()
     return _decode_avif_bytes(data, path)
@@ -4874,10 +4875,9 @@ def read_image(fn: str) -> np.ndarray:
     colour and orientation option of Pillow's, superres and the delta loop
     filter, every matrix libavif converts, frames it scales, intra-only,
     hidden and inter frames with libaom's default inter tools, its resize
-    and superres, switch frames; ``read_avif``).  A kind of
-    AVIF the port does not read yet (the kind ``read_avif`` names)
-    raises ``RuntimeError`` naming the file and the tool; any other file
-    raises naming the file."""
+    and superres, switch frames, reference slots rebuilt from
+    ref_order_hint; ``read_avif``).  A file cv2 does not read raises
+    naming the file."""
     with open(fn, "rb") as f:
         head = f.read(512)
     if head.startswith(PNG_SIGNATURE):

@@ -6,8 +6,9 @@ a track's first sample, at 8, 10 and 12 bits in every chroma format.
 
 The inter frames come from libaom's own good-quality encoder
 (``torch_avif_oracles.libaom_encode_frames``, through its C API) with the
-tools the port does not read yet switched off (``INTER_TOOLS_OFF``); the
-files that use one of them are refused naming it.  The predictor is held
+inter tools the slice came before switched off (``INTER_TOOLS_OFF``; later
+test files hold each of them, and every file the slice refused reads as
+cv2 reads it now).  The predictor is held
 to libaom's own ``av1_*convolve_*_sr_c`` by ELF symbol.  No cv2 is needed
 by the tests of the committed files (``tests/torch_images/``, written by
 ``torch_make_image_fixtures.py --inter``).
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from gsplat_tpu_torch.utils import image_io
-from gsplat_tpu_torch.utils.image_io import read_avif
+from gsplat_tpu_torch.utils.image_io import read_avif, read_png
 
 import torch_avif_oracles as oracle
 import torch_make_image_fixtures as fx
@@ -230,16 +231,17 @@ def test_inter_frames_in_grid_alpha_and_track(cv2, tmp_path):
 # ------------------------------------------------- the committed files
 
 
-@pytest.mark.parametrize("name", list(fx.AVIF_INTER_UNPORTED))
+@pytest.mark.parametrize("name", fx.AVIF_REBUILT_MOVED)
 def test_next_slice_tools_are_refused(name):
-    # no cv2 here: each file uses one tool of the next slice (cv2 reads
-    # it: torch_make_image_fixtures --inter checks), and the port raises
-    # naming the file and the tool
-    with pytest.raises(RuntimeError) as err:
-        read_avif(os.path.join(fx.FOLDER, name))
-    msg = str(err.value)
-    assert name in msg and fx.AVIF_INTER_UNPORTED[name] in msg
-    assert "which the port does not read yet (cv2 does)" in msg
+    # no cv2 here: the file the inter slice found refused for the last kind
+    # it did not read (a slot libaom rebuilds from ref_order_hint) now reads
+    # as cv2 read it, the slot rebuilt and blocks predicted from it
+    path = os.path.join(fx.FOLDER, name)
+    np.testing.assert_array_equal(read_avif(path), read_png(
+        os.path.join(fx.FOLDER, fx._want(name))))
+    with open(path, "rb") as f:
+        info = fx.rebuilt_info(f.read())
+    assert info[0] > 0 and info[2] > 0
 
 
 # each committed inter fixture and what its decode counts (decode_av1's

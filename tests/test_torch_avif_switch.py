@@ -8,10 +8,10 @@ refresh_frame_flags implied, its size written), at 8, 10 and 12 bits in
 every chroma format; the decoder counts the switch frames it read.
 
 A slot's ``ref_order_hint`` rewritten (``torch_avif_oracles.
-with_ref_order_hint``) is what libaom repairs with a neutral-grey frame:
-cv2 reads such files, and the port refuses them naming the kind, which it
-does not read yet.  The committed files (``tests/torch_images/``, written
-by ``torch_make_image_fixtures.py --scaled``) need no cv2.
+with_ref_order_hint``) is what libaom repairs with a neutral-grey buffer:
+cv2 reads such files, and so does the port (``test_torch_avif_rebuilt.py``
+holds every kind of it).  The committed files (``tests/torch_images/``,
+written by ``torch_make_image_fixtures.py --scaled``) need no cv2.
 """
 
 import os
@@ -99,19 +99,21 @@ def test_switch_frame_with_every_inter_tool(cv2, tmp_path):
 def test_rebuilt_slots_are_refused_as_cv2_reads_them(cv2, tmp_path, depth):
     # one slot's ref_order_hint rewritten in the last frame, a slot its
     # references name or one they do not: cv2 reads the file (libaom
-    # rebuilds the slot), the port raises naming the kind
+    # rebuilds the slot as a neutral-grey buffer), and the port reads it as
+    # cv2 does, counting the slot rebuilt and, where named, the blocks that
+    # predict from it
     stream = _stream(depth, depth, "420")
     order, idx = oracle.ref_order_hints(stream)
     for slot in (idx[0], max(set(range(8)) - set(idx))):
         path = tmp_path / f"slot{slot}.avif"
-        path.write_bytes(fx.inter_avif(oracle.with_ref_order_hint(
-            stream, slot, order[slot] + 1), 80, 56, depth, "420"))
-        assert cv2.imread(str(path)) is not None
-        with pytest.raises(RuntimeError, match=f"slot{slot}.avif: an AVIF "
-                           "image with a reference slot rebuilt from "
-                           "ref_order_hint, which the port does not read "
-                           "yet"):
-            read_avif(str(path))
+        data = fx.inter_avif(oracle.with_ref_order_hint(
+            stream, slot, order[slot] + 1), 80, 56, depth, "420")
+        path.write_bytes(data)
+        want = cv2.imread(str(path))
+        assert want is not None
+        np.testing.assert_array_equal(read_avif(str(path)), want[..., ::-1])
+        info = fx.rebuilt_info(data)
+        assert info[0] == 1 and (info[2] > 0) == (slot == idx[0])
 
 
 def test_committed_switch_file_matches_cv2():

@@ -73,7 +73,7 @@ def fixture_results(tmp_path_factory):
                          + fx.ENCODED + fx.ENCODED_J2K
                          + list(fx.ENCODED_J2K_RATE) + list(fx.RESIZED)
                          + list(fx.TIMING_CV2) + fx.ROUND_TRIP
-                         + fx.AVIF_UNPORTED + list(fx.TIMING_AVIF)
+                         + list(fx.TIMING_AVIF)
                          + list(fx.TIMING_TIFF))
 def test_committed_fixture(fixture_results, name):
     # no cv2 here: each file against cv2's recorded decode (REFUSED, and
@@ -82,9 +82,7 @@ def test_committed_fixture(fixture_results, name):
     # cv2's; RESIZED: downsample_area's pixels are cv2.resize's;
     # TIMING_CV2: the full-size bytes and pixels hash as cv2's;
     # ROUND_TRIP: the writer's file reads back as its source;
-    # AVIF_UNPORTED: the port raises naming the file and the kind it does
-    # not read yet; TIMING_AVIF, TIMING_TIFF: the full-size decodes hash as
-    # cv2's)
+    # TIMING_AVIF, TIMING_TIFF: the full-size decodes hash as cv2's)
     assert fixture_results[name] is True
 
 
@@ -425,12 +423,12 @@ def test_pnm_writer_matches_cv2_bytes(cv2, tmp_path, ext):
 # ----------------------------------------------------- unported formats
 
 
-# kinds of a format cv2 reads that the port does not yet: extension ->
-# (the kind as the port names it, Pillow's options, the edit of the
-# two-frame sequence Pillow writes: its first sample made to hold both
-# frames, libaom decoding the second as the image, an error resilient
-# inter frame with its LAST slot's ref_order_hint rewritten, which libaom
-# rebuilds as a neutral-grey frame)
+# the kinds of a format cv2 reads that the port took last: extension ->
+# (the decoder's info entry that must be above 0, Pillow's options, the
+# edit of the two-frame sequence Pillow writes: its first sample made to
+# hold both frames, libaom decoding the second as the image, an error
+# resilient inter frame with its LAST slot's ref_order_hint rewritten,
+# which libaom rebuilds as a neutral-grey buffer)
 def _both_frames(data: bytes) -> bytes:
     import torch_avif_oracles as oracle
 
@@ -442,30 +440,34 @@ def _both_frames(data: bytes) -> bytes:
         w, h)
 
 
-_UNPORTED = {"avif": (r"with a reference slot rebuilt from ref_order_hint",
-                      dict(advanced={"error-resilient": "1"}),
+_UNPORTED = {"avif": (80, dict(advanced={"error-resilient": "1"}),
                       _both_frames)}
 
 
 @pytest.mark.parametrize("ext", list(_UNPORTED))
 def test_unported_formats_raise_naming_the_format(cv2, tmp_path, ext):
-    # a file Pillow writes, edited, and cv2 reads: the port says it does
-    # not read the kind yet
+    # a file Pillow writes, edited, and cv2 reads: the port reads it as cv2
+    # does, and its decoder shows the kind in use (a slot rebuilt)
     pytest.importorskip("PIL.AvifImagePlugin")
     from PIL import Image
 
-    kind, opts, edit = _UNPORTED[ext]
+    from gsplat_tpu_torch.utils import image_io
+
+    entry, opts, edit = _UNPORTED[ext]
     path = tmp_path / f"view.{ext}"
     img = fx.fixture_image(12, 16, seed=1)
     frames = [Image.fromarray(img), Image.fromarray(img[::-1].copy())]
     frames[0].save(str(path), save_all=True, append_images=frames[1:],
                    **opts)
     path.write_bytes(edit(path.read_bytes()))
-    assert cv2.imread(str(path)) is not None
-    with pytest.raises(RuntimeError,
-                       match=f"view.{ext}: an {ext.upper()} (image|file) "
-                             f"{kind}.*not read yet"):
-        read_image(str(path))
+    want = cv2.imread(str(path))
+    assert want is not None
+    np.testing.assert_array_equal(read_image(str(path)), want[..., ::-1])
+    heif = image_io._Heif(path.read_bytes(), "view")
+    heif.parse()
+    obu = heif.track_image(heif.colour_track()[0])[0] \
+        if heif.source == "tracks" else heif.primary_item()[0]
+    assert image_io.decode_av1(obu)[1][entry] > 0
 
 
 def test_not_an_image_raises_naming_the_file(tmp_path):

@@ -408,9 +408,16 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     # 4:2:2 and film grain AVIFs and a grid too, against cv2's recorded
     # decodes, cv2's file with a SMPTE 240 nclx, which libavif converts on
     # its own path, an intra-only frame first, libaom's OBMC and compound
-    # prediction, an inter frame from a reference of another size); a kind
-    # the port does not read yet (here a reference slot libaom rebuilds
-    # from ref_order_hint) raises an error naming the file and the kind
+    # prediction, an inter frame from a reference of another size, a
+    # reference slot libaom rebuilds from ref_order_hint); and a scene
+    # whose first view is such a rebuilt-slot AVIF (written under the
+    # view's own name: both packages read by signature) loads to what
+    # JAX's Splatter loads with cv2
+    import shutil
+
+    import torch_avif_oracles as oracle
+    import torch_make_image_fixtures as fx
+
     cv2 = pytest.importorskip("cv2")
     from gsplat_tpu_torch.models.splatter import load_scene_camera_groups, \
         read_image
@@ -425,28 +432,41 @@ def test_scene_loads_without_cv2(scene, tmp_path, monkeypatch):
     avif = tmp_path / "photo.avif"
     cv2.imwrite(str(avif), view)
     want_avif = cv2.cvtColor(cv2.imread(str(avif)), cv2.COLOR_BGR2RGB)
+    # the rebuilt-slot copy of the scene
+    rebuilt = str(tmp_path / "rebuilt_scene")
+    shutil.copytree(scene, rebuilt)
+    images4 = _paths(rebuilt)[1]
+    first = sorted(os.listdir(images4))[0]
+    bgr = cv2.imread(os.path.join(images4, first))
+    h, w = bgr.shape[:2]
+    stream = oracle.libaom_encode_frames(
+        [fx.yuv_planes(fx.translated(bgr, t, -t), 6) for t in (2, 1, 0)], 8,
+        1, 1, controls={"cpu-used": 5, "error-resilient-mode": 1})
+    wrap = lambda st: fx.inter_avif(st, w, h, 8, "420")   # noqa: E731
+    data = wrap(fx.rebuilt_stream(stream, "named", np.random.default_rng(0),
+                                  wrap))
+    assert fx.rebuilt_info(data)[2] > 0
+    with open(os.path.join(images4, first), "wb") as f:
+        f.write(data)
+    ref_rebuilt = np.asarray(_j_splat(rebuilt).cameras.images)
     monkeypatch.setitem(sys.modules, "cv2", None)
     groups = load_scene_camera_groups(*_paths(scene), 4, device="cpu")
     assert groups[0].images.shape == (9, 3, 48, 64)
     np.testing.assert_array_equal(groups[0].images.numpy(), np.asarray(ref))
+    groups = load_scene_camera_groups(*_paths(rebuilt), 4, device="cpu")
+    np.testing.assert_array_equal(groups[0].images.numpy(), ref_rebuilt)
+    assert not np.array_equal(ref_rebuilt, np.asarray(ref))
     np.testing.assert_array_equal(read_image(str(jpg)), want)
     np.testing.assert_array_equal(read_image(str(webp)), want_webp)
     np.testing.assert_array_equal(read_image(str(avif)), want_avif)
     images = os.path.join(os.path.dirname(__file__), "torch_images")
     for name in ("avif_pil_422", "avif_pil_grain", "avif_grid",
                  "avif_smpte240", "avif_intra_only", "avif_unported_obmc",
-                 "avif_unported_compound", "avif_unported_ref_size"):
+                 "avif_unported_compound", "avif_unported_ref_size",
+                 "avif_unported_ref_order_hint"):
         np.testing.assert_array_equal(
             read_image(os.path.join(images, name + ".avif")),
             read_png(os.path.join(images, name + ".want.png")))
-    other = tmp_path / "photo_ref_order_hint.avif"
-    other.write_bytes(open(os.path.join(
-        images, "avif_unported_ref_order_hint.avif"), "rb").read())
-    with pytest.raises(RuntimeError, match="photo_ref_order_hint.avif: an "
-                                           "AVIF image with a reference "
-                                           "slot rebuilt from ref_order_hint"
-                                           ".*not read yet"):
-        read_image(str(other))
 
 
 def test_densify_k_guard_grows_k(scene):

@@ -1073,7 +1073,7 @@ def full_headers(stream: bytes, *, still: int = 1, timing: bool = False,
                  decoder_model: bool = False, ops=((0, None),),
                  frame_ids: bool = False, order_hint_bits: int = 7,
                  display_delay: bool = False, extension=None,
-                 frame_kind: str = "0001") -> bytes:
+                 frame_kind: str = "0001", hints=(0,) * 8) -> bytes:
     """An item's OBUs of a reduced still-picture sequence header (cv2's and
     Pillow's still images) rewritten with a full one: the timing and
     decoder model info, the operating points ``ops`` ((idc, level or None
@@ -1085,7 +1085,9 @@ def full_headers(stream: bytes, *, still: int = 1, timing: bool = False,
     show_existing_frame, frame_type and show_frame (a shown key frame by
     default; others leave the rest of the header as a key frame's), or
     "intra_only" (a shown intra-only frame: error_resilient_mode and
-    refresh_frame_flags written too) or "hidden_key" (a key frame not
+    refresh_frame_flags written too; "intra_only_resilient" the same error
+    resilient, its eight ref_order_hint[] ``hints``, which name slots no
+    frame filled: libaom rebuilds each) or "hidden_key" (a key frame not
     shown, showable, refreshing slot 0, then a frame header OBU whose
     show_existing_frame shows it): frames ``frame_of_kind`` makes.  With
     ``extension`` (temporal id,
@@ -1151,16 +1153,17 @@ def full_headers(stream: bytes, *, still: int = 1, timing: bool = False,
             p += 1
             if allow_sct:
                 p += 1
-            kind_bits = {"intra_only": "0101", "hidden_key": "0000"}.get(
-                frame_kind, frame_kind)
+            intra_only = frame_kind.startswith("intra_only")
+            kind_bits = {"intra_only": "0101", "intra_only_resilient": "0101",
+                         "hidden_key": "0000"}.get(frame_kind, frame_kind)
             shown = kind_bits[3] == "1"
             new = kind_bits                         # a shown key frame
             if timing and decoder_model and shown:
                 new += "0" * 10                     # frame_presentation_time
             if frame_kind == "hidden_key":
                 new += "1"                          # showable_frame
-            if frame_kind in ("intra_only", "hidden_key"):
-                new += "0"                          # error_resilient_mode
+            if intra_only or frame_kind == "hidden_key":   # error resilient
+                new += str(int(frame_kind == "intra_only_resilient"))
             # disable_cdf_update; allow_screen_content_tools and
             # force_integer_mv chosen per frame: the reduced header's values
             new += bits[:2] + (bits[2] if allow_sct else "")
@@ -1169,8 +1172,11 @@ def full_headers(stream: bytes, *, still: int = 1, timing: bool = False,
             new += "0" + "0" * order_hint_bits      # size override, hint
             if decoder_model:
                 new += "1" + "0" * 10 * len(ops)
-            if frame_kind in ("intra_only", "hidden_key"):
+            if intra_only or frame_kind == "hidden_key":
                 new += "00000001"                   # refresh_frame_flags
+            if frame_kind == "intra_only_resilient" and order_hint_bits:
+                new += "".join(format(h, f"0{order_hint_bits}b")
+                               for h in hints)      # ref_order_hint[]
             new += bits[2 + allow_sct:p]            # sizes, render, intrabc
             if bits[0] == "0":
                 new += "1"                          # no end update
@@ -1240,26 +1246,34 @@ def seq_fields(payload: bytes) -> dict:
                 force_sct=force_sct, force_imv=force_imv, fwb=fwb, fhb=fhb)
 
 
-def _last_inter_frame(stream: bytes, resilient: bool = True) -> dict:
-    """The last frame OBU of several frames' OBUs (``libaom_encode_frames``',
-    no film grain), a shown inter frame, error resilient where
-    ``resilient``: ``before`` (the OBUs before it), ``head`` (its OBU
+def _inter_frame(stream: bytes, resilient=True, frame: int = -1
+                      ) -> dict:
+    """A frame OBU of several frames' OBUs (``libaom_encode_frames``', no
+    film grain): the last (or the ``frame``-th of the frame OBUs), an inter
+    frame, shown or not, error resilient where ``resilient`` (None: either):
+    ``before`` and ``after`` (the OBUs around it), ``head`` (its OBU
     header), ``payload``, ``bits`` (its header's bits up to the film grain
     fields), ``hbytes`` (the header's bytes), ``seq`` (the sequence
-    header's fields), ``info`` (decode_av1's of the stream) and where its
-    frame_size_override_flag, refresh_frame_flags, ref_order_hint[]
-    (error resilient), ref_frame_idx[] and, after them, the frame's size
-    start (``override``, ``refresh``, ``hints``, ``idx``, ``size``)."""
-    _, _, info = port_grain_params(stream)
-    gbit, hbytes = info[24:26]
+    header's fields), ``info`` (decode_av1's of the stream cut after it),
+    ``resilient``, ``order_hint``, ``primary`` (primary_ref_frame, 7 where
+    none) and where its frame_size_override_flag, refresh_frame_flags,
+    ref_order_hint[] (error resilient), ref_frame_idx[] and, after them,
+    the frame's size start (``override``, ``refresh``, ``hints``, ``idx``,
+    ``size``)."""
     parts = obus(stream)
+    at = [i for i, (k, _, _) in enumerate(parts) if k == 6][frame]
+    join = lambda ps: b"".join(h + _leb(len(x)) + x        # noqa: E731
+                               for _, h, x in ps)
+    _, _, info = port_grain_params(join(parts[:at + 1]))
+    gbit, hbytes = info[24:26]
     seq = seq_fields([p for k, _, p in parts if k == 1][0])
-    last = max(i for i, (k, _, _) in enumerate(parts) if k == 6)
-    _, head, payload = parts[last]
+    _, head, payload = parts[at]
     bits = _bits(payload[:hbytes])[:gbit]
-    assert bits[:5] == ("00111" if resilient else "00110"), \
-        "not a shown inter frame of that kind"
-    p = 6
+    assert bits[:3] == "001", "not an inter frame"
+    p = 5 if bits[3] == "1" else 6          # showable_frame where hidden
+    er = bits[p - 1] == "1"
+    assert resilient is None or er == resilient, "not a frame of that kind"
+    p += 1
     sct = seq["force_sct"]
     if sct == 2:
         sct = int(bits[p])
@@ -1267,25 +1281,27 @@ def _last_inter_frame(stream: bytes, resilient: bool = True) -> dict:
     if sct and seq["force_imv"] == 2:
         p += 1
     override = p + seq["id_bits"]
-    refresh = override + 1 + seq["hint_bits"] + (0 if resilient else 3)
+    n = seq["hint_bits"]
+    hint = int(bits[override + 1:override + 1 + n] or "0", 2)
+    primary = 7 if er else int(bits[override + 1 + n:][:3], 2)
+    refresh = override + 1 + n + (0 if er else 3)
     hints = refresh + 8
     # after the slots' order hints: frame_refs_short_signaling, then
     # ref_frame_idx[] with their delta frame ids
-    idx = hints + (8 * seq["hint_bits"] if resilient else 0) + \
-        (1 if seq["hint_bits"] else 0)
-    before = b"".join(parts[i][1] + _leb(len(parts[i][2])) + parts[i][2]
-                      for i in range(last))
-    return dict(before=before, head=head, payload=payload, bits=bits,
-                hbytes=hbytes, seq=seq, info=info, override=override,
-                refresh=refresh, hints=hints, idx=idx,
-                size=idx + 7 * (3 + seq["delta_bits"]))
+    idx = hints + (8 * n if er else 0) + (1 if n else 0)
+    return dict(before=join(parts[:at]), after=join(parts[at + 1:]),
+                head=head, payload=payload, bits=bits, hbytes=hbytes,
+                seq=seq, info=info, resilient=er, order_hint=hint,
+                primary=primary, override=override, refresh=refresh,
+                hints=hints, idx=idx, size=idx + 7 * (3 + seq["delta_bits"]))
 
 
 def _with_header(frame: dict, bits: str) -> bytes:
-    """``_last_inter_frame``'s stream with the frame's header bits (up to
+    """``_inter_frame``'s stream with the frame's header bits (up to
     its film grain fields) replaced."""
     payload = _bytes(bits) + frame["payload"][frame["hbytes"]:]
-    return frame["before"] + frame["head"] + _leb(len(payload)) + payload
+    return frame["before"] + frame["head"] + _leb(len(payload)) + payload + \
+        frame["after"]
 
 
 def _frame_size_bits(seq: dict, width: int, height: int) -> str:
@@ -1300,7 +1316,7 @@ def switch_last_frame(stream: bytes) -> bytes:
     error_resilient_mode, frame_size_override_flag and refresh_frame_flags
     dropped (a switch frame implies them), its size written.  libaom
     decodes it as the inter frame it was."""
-    f = _last_inter_frame(stream)
+    f = _inter_frame(stream)
     bits, override, refresh = f["bits"], f["override"], f["refresh"]
     assert bits[override] == "0", "a frame size override"
     size = _frame_size_bits(f["seq"], *f["info"][:2])
@@ -1310,13 +1326,16 @@ def switch_last_frame(stream: bytes) -> bytes:
                         bits[f["size"]:])
 
 
-def with_ref_order_hint(stream: bytes, slot: int, hint: int) -> bytes:
-    """Several frames' OBUs (``libaom_encode_frames``' with
-    error-resilient-mode and order hints, no film grain) with the last
-    frame's ref_order_hint[slot] rewritten to ``hint``: a slot whose order
-    hint differs from the frame's own, which libaom's decoder rebuilds as
-    a neutral-grey frame of that order hint (set_planes_to_neutral_grey)."""
-    f = _last_inter_frame(stream)
+def with_ref_order_hint(stream: bytes, slot: int, hint: int,
+                        frame: int = -1) -> bytes:
+    """Several frames' OBUs (``libaom_encode_frames``' with error resilient
+    frames and order hints, no film grain) with the last (or the
+    ``frame``-th) frame's ref_order_hint[slot] rewritten to ``hint``, an
+    error resilient inter frame's: a slot whose order hint differs from the
+    frame's own, which libaom's decoder rebuilds as a neutral-grey buffer
+    of that order hint (set_planes_to_neutral_grey) that keeps the rest of
+    what it last held."""
+    f = _inter_frame(stream, frame=frame)
     n = f["seq"]["hint_bits"]
     assert n, "no order hints"
     at = f["hints"] + n * slot
@@ -1325,15 +1344,29 @@ def with_ref_order_hint(stream: bytes, slot: int, hint: int) -> bytes:
                         f["bits"][at + n:])
 
 
-def ref_order_hints(stream: bytes) -> tuple:
-    """The last frame's ref_order_hint[] and ref_frame_idx[] (as
-    ``with_ref_order_hint`` takes its stream)."""
-    f = _last_inter_frame(stream)
+def ref_order_hints(stream: bytes, frame: int = -1) -> tuple:
+    """The last (or the ``frame``-th) frame's ref_order_hint[] and
+    ref_frame_idx[] (as ``with_ref_order_hint`` takes its stream)."""
+    f = _inter_frame(stream, frame=frame)
     bits, seq, n = f["bits"], f["seq"], f["seq"]["hint_bits"]
     order = [int(bits[f["hints"] + n * i:][:n], 2) for i in range(8)]
+    return order, frame_refs(stream, frame)["idx"]
+
+
+def frame_refs(stream: bytes, frame: int = -1) -> dict:
+    """Of the last (or the ``frame``-th) frame OBU, an inter frame:
+    ``idx`` its ref_frame_idx[] (LAST .. ALTREF), ``refresh`` its
+    refresh_frame_flags, ``primary`` its primary_ref_frame (7: none),
+    ``resilient`` its error_resilient_mode, ``order_hint`` and ``shown``."""
+    f = _inter_frame(stream, None, frame)
+    bits, seq = f["bits"], f["seq"]
+    assert bits[f["idx"] - 1] == "0" or not seq["hint_bits"], \
+        "short signaled"
     idx = [int(bits[f["idx"] + i * (3 + seq["delta_bits"]):][:3], 2)
            for i in range(7)]
-    return order, idx
+    return dict(idx=idx, refresh=int(bits[f["refresh"]:][:8], 2),
+                primary=f["primary"], resilient=f["resilient"],
+                order_hint=f["order_hint"], shown=bits[3] == "1")
 
 
 def with_frame_size(stream: bytes, width: int, height: int) -> bytes:
@@ -1346,7 +1379,7 @@ def with_frame_size(stream: bytes, width: int, height: int) -> bytes:
     same 8 samples), the tile data still decodes."""
     payload = [p for k, _, p in obus(stream) if k == 6][-1]
     resilient = _bits(payload[:1])[4] == "1"
-    f = _last_inter_frame(stream, resilient)
+    f = _inter_frame(stream, resilient)
     bits, override, at = f["bits"], f["override"], f["size"]
     size = _frame_size_bits(f["seq"], width, height)
     if bits[override] == "1":
@@ -1837,6 +1870,8 @@ INTER_TOOLS_OFF = {
     "enable-diff-wtd-comp": 0, "enable-interintra-comp": 0,
     "enable-interinter-wedge": 0, "enable-interintra-wedge": 0,
     "enable-smooth-interintra": 0}
+# aom_enc_frame_flags_t (aomcx.h): a frame coded error resilient
+AOM_EFLAG_ERROR_RESILIENT = 1 << 28
 # the controls of compound prediction (and so skip mode) among them
 COMPOUND_TOOLS = ("enable-onesided-comp", "enable-masked-comp",
                   "enable-dist-wtd-comp", "enable-diff-wtd-comp",

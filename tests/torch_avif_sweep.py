@@ -19,9 +19,8 @@ With ``--avis`` every file is instead an image sequence: Pillow's
 ``save_all=True`` of two frames (the second a copy of the first, or the
 image flipped) at a random speed (1-9), quality, subsampling, ``aq-mode``
 and the options above, from RGB or RGBA (an alpha track).
-``read_image`` must equal ``cv2.imread(path)[..., ::-1]`` bit for bit; a
-file of a kind the port does not decode yet (where a random option makes
-one) is counted apart, by kind.  Prints one JSON line of counts (and the
+``read_image`` must equal ``cv2.imread(path)[..., ::-1]`` bit for bit, or
+both refuse the file.  Prints one JSON line of counts (and the
 files that used palette, intra block copy, loop restoration and
 segmentation, and Pillow's files with limited range, an ICC profile, a
 premultiplied alpha and an EXIF orientation: a quarter, a fifth, half the
@@ -62,10 +61,15 @@ last frame hidden and shown by a show_existing_frame header
 (``switch_last_frame``, where it is error resilient), a tenth in a grid,
 an alpha item or a track; and
 one in twenty cv2's still as an intra-only frame or a hidden key frame
-(``frame_of_kind``).  The files the port does not read yet are counted
-by the tool it names; the equal ones by the inter tools they use (frames
-predicted from a reference of another size or with superres, switch
-frames among them).
+(``frame_of_kind``); and in a third of the files (3-7 frames, error
+resilient in every frame or in random ones: ``AOM_EFLAG_ERROR_RESILIENT``)
+1-3 slots' ``ref_order_hint`` rewritten in a random error resilient frame
+(``rewrite_hints``: libaom rebuilds each slot that then differs; a fifth
+of them then show a rewritten slot by a show_existing_frame header).  The
+equal files are counted by the inter tools they use (frames predicted
+from a reference of another size or with superres, switch frames, slots
+rebuilt, frames and blocks that read them, reads of what a rebuilt
+buffer kept, among them).
 
 With ``--scaled`` every file is ``--inter``'s kind with frames coded at
 another size than their references: libaom's ``resize`` (a denominator
@@ -436,7 +440,10 @@ def random_inter(rng, scaled: bool = False):
             (h, w, "420", dict(writer="libaom", kind=kind, depth=depth))
     depth = int(rng.choice([8, 10, 12]))
     fmt = str(rng.choice(list(_INTER_FMTS)))
-    n = int(rng.integers(2, 5))
+    # a third of the files (with order hints: all but realtime's) have a
+    # slot's ref_order_hint rewritten in an error resilient frame
+    rebuilt = not scaled and rng.random() < 1 / 3
+    n = int(rng.integers(3, 8)) if rebuilt else int(rng.integers(2, 5))
     if rng.random() < 0.25:
         frames = fx.warped_frames(img, n, float(rng.uniform(-4, 4)),
                                   float(rng.uniform(0.95, 1.05)),
@@ -445,7 +452,7 @@ def random_inter(rng, scaled: bool = False):
     else:
         frames = fx.inter_frames(img, n, int(rng.integers(-6, 7)),
                                  int(rng.integers(-6, 7)))
-    usage = 1 if rng.random() < 0.2 else 0
+    usage = 1 if rng.random() < 0.2 and not rebuilt else 0
     # each inter tool on in three files of four (libaom's default is on)
     controls = {k: int(rng.random() < 0.75) for k in oracle.INTER_TOOLS_OFF}
     lag = 35 if usage == 0 and rng.random() < 1 / 3 else 0
@@ -466,6 +473,14 @@ def random_inter(rng, scaled: bool = False):
         "max-reference-frames": int(rng.integers(3, 8)),
         "enable-reduced-reference-set": int(rng.random() < 0.3),
         "error-resilient-mode": int(rng.random() < 0.1)})
+    # error resilience in every frame (frame ids too), or in some frames
+    # alone (AOM_EFLAG_ERROR_RESILIENT: frames without it after them)
+    flags = None
+    if rebuilt:
+        controls["error-resilient-mode"] = int(rng.random() < 0.3)
+        if not controls["error-resilient-mode"]:
+            flags = {int(i): oracle.AOM_EFLAG_ERROR_RESILIENT
+                     for i in rng.integers(1, n, int(rng.integers(1, n)))}
     grain = rng.random() < 0.1
     if grain:
         controls["film-grain-test-vector"] = int(rng.integers(1, 17))
@@ -481,12 +496,14 @@ def random_inter(rng, scaled: bool = False):
     planes = [fx.inter_planes(f, depth, fmt) for f in frames]
     sx, sy = _INTER_FMTS[fmt]
     stream = _forked(oracle.libaom_encode_frames, planes, depth, sx, sy,
-                     usage=usage, mono=fmt == "400", lag=lag,
+                     usage=usage, mono=fmt == "400", lag=lag, flags=flags,
                      controls=controls, **kw)
     desc = dict(writer="libaom", depth=depth, fmt=fmt, frames=n,
                 usage=usage, lag=lag, grain=grain, **controls, **kw)
     if stream is None:
         return None, (h, w, fmt, desc)
+    if rebuilt:
+        stream = rewrite_hints(stream, rng, desc)
     edit = rng.random()
     if not grain and edit < 0.3:
         # the last frame hidden and shown by show_existing_frame, its
@@ -516,6 +533,41 @@ def random_inter(rng, scaled: bool = False):
         data = oracle.build_sequence([obu], props, w, h)
         desc["track"] = True
     return data, (h, w, fmt, desc)
+
+
+def rewrite_hints(stream: bytes, rng, desc: dict) -> bytes:
+    """The stream with ref_order_hint[] rewritten in a random error
+    resilient inter frame: 1-3 random slots given random order hints
+    (libaom rebuilds each that then differs), the frame and the slots in
+    ``desc``; in a fifth, a show_existing_frame header of a rewritten slot
+    after the last frame (where the sequence has no frame ids)."""
+    frames = sum(1 for k, _, _ in oracle.obus(stream) if k == 6)
+    er = []
+    for k in range(frames):
+        try:
+            if oracle.frame_refs(stream, k)["resilient"]:
+                er.append(k)
+        except AssertionError:           # an intra frame
+            pass
+    if not er:
+        return stream
+    k = er[int(rng.integers(len(er)))]
+    f = oracle._inter_frame(stream, None, k)
+    seq, bits = f["seq"], f["bits"]
+    slots = sorted(set(int(i) for i in rng.integers(0, 8, int(
+        rng.integers(1, 4)))))
+    n = seq["hint_bits"]
+    for slot in slots:
+        at = f["hints"] + n * slot
+        bits = bits[:at] + format(int(rng.integers(1 << n)), f"0{n}b") + \
+            bits[at + n:]
+    stream = oracle._with_header(f, bits)
+    desc.update(rebuilt_frame=k, rebuilt_slots=slots)
+    if not seq["id_bits"] and rng.random() < 0.2:
+        stream += oracle.obu(3, oracle._bytes("1" + format(slots[0], "03b") +
+                                              "1"))
+        desc["show_rebuilt"] = True
+    return stream
 
 
 def random_flip(rng):
@@ -574,12 +626,12 @@ def main():
                    help="one-bit flips of the committed inter fixtures")
     a = p.parse_args()
     rng = np.random.default_rng(a.seed)
-    counts = dict(files=0, equal=0, both_refuse=0, not_yet=0, writer_fail=0,
+    counts = dict(files=0, equal=0, both_refuse=0, writer_fail=0,
                   mismatch=0, cv2=0, pillow=0, libaom=0, colr=0, scaled=0,
                   alpha_scaled=0, tkhd_scaled=0, mono_frame=0, superres=0,
                   delta_lf=0, grid=0, grain=0, palette=0,
                   intrabc=0, restoration=0, segmentation=0, limited=0,
-                  icc=0, premultiplied=0, exif=0, not_yet_kinds={},
+                  icc=0, premultiplied=0, exif=0,
                   multi_frame=0, intra_only=0, show_existing=0, nearestmv=0,
                   nearmv=0, globalmv=0, newmv=0, smooth_or_sharp=0,
                   dual_filter=0, ref_frame_mvs=0, temporal=0, local_warp=0,
@@ -589,7 +641,9 @@ def main():
                   compound_diffwtd=0, skip_mode=0, single_by_compound=0,
                   lookahead=0, scaled_prediction=0, superres_inter=0,
                   switch_frame=0, scaled_unwarped=0, superres_ref=0,
-                  resize_drawn=0, superres_drawn=0)
+                  resize_drawn=0, superres_drawn=0, rebuilt_drawn=0,
+                  rebuilt=0, rebuilt_named=0, rebuilt_predicted=0,
+                  rebuilt_leftover=0)
     end = time.time() + a.seconds
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sweep.avif")
@@ -628,18 +682,13 @@ def main():
             counts["exif"] += "exif" in desc[3]
             counts["resize_drawn"] += "resize" in desc[3]
             counts["superres_drawn"] += "superres" in desc[3]
+            counts["rebuilt_drawn"] += "rebuilt_frame" in desc[3]
             want = cv2.imread(path)
             try:
                 got = read_image(path)
             except RuntimeError as err:
                 if want is None:
                     counts["both_refuse"] += 1
-                elif "not read yet" in str(err):
-                    counts["not_yet"] += 1
-                    why = str(err).split(": an AVIF ")[-1]
-                    kinds = counts["not_yet_kinds"]
-                    kinds[why] = kinds.get(why, 0) + 1
-                    print("not yet", desc, err, file=sys.stderr)
                 else:
                     counts["mismatch"] += 1
                     keep(a.keep, data, counts)
@@ -676,6 +725,10 @@ def main():
                         "scaled_prediction", "superres_inter",
                         "switch_frame", "scaled_unwarped", "superres_ref")):
                     counts[name] += info[73 + k] > 0
+                for k, name in enumerate((
+                        "rebuilt", "rebuilt_named", "rebuilt_predicted",
+                        "rebuilt_leftover")):
+                    counts[name] += info[80 + k] > 0
                 counts["lookahead"] += bool(desc[3].get("lag"))
             else:
                 counts["mismatch"] += 1

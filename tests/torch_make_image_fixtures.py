@@ -34,10 +34,10 @@ X1000 250, 100 and 500, and one of ``enc_j2k_src2.png``);
 at fractional and enlarging factors, and ``TIMING_CV2`` the SHA-256s of
 cv2's default JP2 bytes and of two resizes of the 1297x840 timing view;
 ``ROUND_TRIP`` names what the port writes and must read back as
-``enc_src.png`` (WebP).  ``AVIF_UNPORTED`` names AVIF files cv2 reads with
-a tool the port does not decode yet (it must raise naming them, the tool
-of ``AVIF_INTER_UNPORTED`` and saying so), ``AVIF_INTER_CASES`` the
-intra-only, hidden and inter frames it reads, ``TIMING_AVIF`` the SHA-256s
+``enc_src.png`` (WebP).  ``AVIF_INTER_CASES`` names the intra-only,
+hidden and inter frames the port reads, ``AVIF_REBUILT_CASES`` the files
+whose reference slots libaom rebuilds from ref_order_hint (the last kind
+the port came to read), ``TIMING_AVIF`` the SHA-256s
 of cv2's decodes of the full-size AVIF
 views, ``AVIF_MID`` holds cv2's default AVIF copies of the 24 views of
 ``make_synth_scene`` ``mid`` (seed 0), ``AVIF_MID_SCREEN`` Pillow's
@@ -367,14 +367,6 @@ AVIF_INTER_CASES = [
     "avif_inter_grain_ref.avif", "avif_inter_switchable.avif",
     "avif_inter_hidden.avif"]
 AVIF_CASES += AVIF_INTER_CASES
-# cv2 reads each; the port does not yet, and raises naming the kind:
-# libaom's error resilient stream with one slot's ref_order_hint rewritten
-# (torch_avif_oracles.with_ref_order_hint: libaom rebuilds the slot as a
-# neutral-grey frame; generate_scaled)
-AVIF_INTER_UNPORTED = {
-    "avif_unported_ref_order_hint.avif":
-        "a reference slot rebuilt from ref_order_hint"}
-AVIF_UNPORTED = list(AVIF_INTER_UNPORTED)
 # the inter tools libaom's encoder uses at its defaults (generate_inter_tools):
 # the five files the inter slice found refused for motion-field projection,
 # local warped motion, non-identity global motion, OBMC and inter-intra
@@ -477,6 +469,45 @@ AVIF_CASES += AVIF_SCALED_CASES
 # its last frame's width rewritten one sample narrower (with_frame_size): a
 # reference more than twice the frame, which libaom refuses
 AVIF_SCALED_REFUSED = ["avif_ref_too_large.avif"]
+# reference slots libaom rebuilds from ref_order_hint (generate_rebuilt):
+# the file the inter slice found refused for it (libaom's error resilient
+# stream resized to half the key frame's width, its last frame's LAST slot
+# rewritten; generate_scaled writes it); libaom's own streams with one
+# frame's hint rewritten (rebuilt_item): a slot the last frame's
+# references name, at the frame's size ("named") and with the inter frames
+# resized to half the key frame's ("scaled": the grey slot a 2x
+# reference), and a slot whose buffer held a decoded frame, read by a later
+# frame without error resilience ("leftover"), at 8, 10 and 12 bits in
+# 4:2:0, 4:4:4 and 4:0:0; a slot no reference names; eight empty slots
+# rebuilt by an error resilient intra-only frame first
+# (torch_avif_oracles.full_headers); a show_existing_frame header of a
+# rebuilt slot, plain and with the film grain its buffer kept
+# (rebuilt_shown)
+AVIF_REBUILT_MOVED = ["avif_unported_ref_order_hint.avif"]
+AVIF_REBUILT_FORMATS = [(8, "420"), (10, "444"), (12, "420"), (8, "400")]
+REBUILT_KINDS = ("named", "scaled", "leftover")
+AVIF_REBUILT_CASES = AVIF_REBUILT_MOVED + [
+    f"avif_rebuilt_{k}_d{d}_{f}.avif" for k in REBUILT_KINDS
+    for d, f in AVIF_REBUILT_FORMATS] + [
+    "avif_rebuilt_unnamed.avif", "avif_rebuilt_empty.avif",
+    "avif_rebuilt_shown.avif", "avif_rebuilt_shown_grain.avif"]
+AVIF_CASES += AVIF_REBUILT_CASES
+# the rebuilt_info counter each file's decode must hold above 0 (blocks
+# predicted from a rebuilt slot, reads of what its buffer kept; elsewhere
+# the slots rebuilt)
+AVIF_REBUILT_COUNTER = {
+    "avif_unported_ref_order_hint.avif": 2,
+    **{f"avif_rebuilt_{k}_d{d}_{f}.avif": 3 if k == "leftover" else 2
+       for k in REBUILT_KINDS for d, f in AVIF_REBUILT_FORMATS},
+    "avif_rebuilt_shown.avif": 3, "avif_rebuilt_shown_grain.avif": 3}
+# libaom refuses: a rebuilt slot past twice the frame's size; a
+# show_existing_frame of a rebuilt buffer no frame was decoded into (not
+# showable); the primary reference frame of a frame in one (its entropy
+# context uninitialised)
+AVIF_REBUILT_REFUSED = ["avif_rebuilt_too_large.avif",
+                        "avif_rebuilt_fresh_shown.avif",
+                        "avif_rebuilt_fresh_primary.avif"]
+REFUSED += AVIF_REBUILT_REFUSED
 CASES += AVIF_CASES + TIFF_COLOUR_CASES
 REFUSED += AVIF_REFUSED + AVIF_SCALED_REFUSED
 # the TIFF and JPEG kinds cv2 reads beyond the others (kinds_files): 16-bit
@@ -683,6 +714,14 @@ TIMING_AVIF[TIMING_COMPOUND] = ("0b4669116111e9b923e63f87be3a94a7"
 TIMING_RESIZE = "timing_resize_1297x840.avif"
 TIMING_AVIF[TIMING_RESIZE] = ("17165dece7e5926b870799ba8d146831"
                               "97d76cdfa0e3dcda7fde94a3b3e16340")
+# the full-size view of a reference slot rebuilt from ref_order_hint
+# (generate_rebuilt, rebuilt_timing_view): TIMING translated twice and once
+# by TIMING_INTER_SHIFT, then TIMING itself, libaom's error resilient
+# frames (speed 6), the last one's first slot a block predicts from
+# rebuilt neutral grey
+TIMING_REBUILT = "timing_rebuilt_1297x840.avif"
+TIMING_AVIF[TIMING_REBUILT] = ("03fc02a218f3f0bfe152a8560121fde5"
+                               "bb7462b99f0dec994666d96bd4086777")
 # cv2's default AVIF copies of make_synth_scene --preset mid's 24 views
 AVIF_MID = "avif_mid"
 # Pillow's copies of the same views with film grain: views 0-15 libaom's
@@ -734,6 +773,62 @@ COMPOUND_NOISE, COMPOUND_SPEED, COMPOUND_CQ = 3.0, 1, 36
 # view, libaom's inter frames resized to 8/d (even k) or coded with
 # superres at 8/d (odd k), d = 9 + k // 2 % 8
 AVIF_MID_SCALED = "avif_mid_scaled"
+# copies of the same views whose reference slots libaom rebuilds
+# (rebuilt_mid_file): view k of kind REBUILT_KINDS[k % 3] ("named": the
+# last frame's slot a block predicts from; "scaled": the same, the inter
+# frames at half the key frame's size; "leftover": an earlier frame's,
+# read by a later frame without error resilience); the SHA-256 of cv2's
+# decode of each
+AVIF_MID_REBUILT = "avif_mid_rebuilt"
+REBUILT_MID_SHA256 = {
+    "img_000.avif": ("69706199c753b8177038bc94e5043d6f"
+                     "9e201a1484194196dc0ba2f4b6adec21"),
+    "img_001.avif": ("ada1a2c79e81d52ea99fe9177bad836b"
+                     "a1d8dd1d174e2b9a84540030485b4a33"),
+    "img_002.avif": ("e4d10773ee8797840fb96a061d67fb31"
+                     "4635a7ee01eb0dd55920a670b01d078b"),
+    "img_003.avif": ("b6ceb6374db055780b91b731c68113af"
+                     "3ea76b12ec1df699f9218db5d654ae2b"),
+    "img_004.avif": ("30d5c31ebd619774fcd0a48445c96943"
+                     "188150fc192f5b79e679bb84211b88fa"),
+    "img_005.avif": ("257a386c69b96685169076a4d3918f81"
+                     "41af11e055abc8f33b64a6314b5aa0ee"),
+    "img_006.avif": ("500b922d341b05aa31390d2fb3bee6bf"
+                     "7220bef9b8a977afb2c4033155769c81"),
+    "img_007.avif": ("ce0d88ffc58944f2821b3e2e27219be0"
+                     "17a3194118c831bd1ff90b74320e6268"),
+    "img_008.avif": ("20a46152f29090595c36c417021e7c81"
+                     "8ad8f9a912a49d9f423a42ac1f555ba3"),
+    "img_009.avif": ("c9e0c9f9f4f22a89f473f5b03dc87917"
+                     "6171cb4ffb904dcfab039fcb4adbbf67"),
+    "img_010.avif": ("62fd2060055a4bd951d8e92da5d0d426"
+                     "74f809de48a6a1c7aa5828efe67dec74"),
+    "img_011.avif": ("d306ba81c08020680287f812d32e6be3"
+                     "0e63bb964bab9d5c4467ec147065d81c"),
+    "img_012.avif": ("a26748d6687be76d9d0c55f2bb7f3e3e"
+                     "2329219c3bd0a01fac79cb6787e6ccc5"),
+    "img_013.avif": ("058d5645358116d9098f18b2843a3a93"
+                     "a24e60ce49c41848eb77baf5f4bbfacc"),
+    "img_014.avif": ("0ab8735f9992e55bb9752e630dc8f02e"
+                     "cca49cdd561d55c33d76f46779f0e5e1"),
+    "img_015.avif": ("75e54240dbf83294401f371df25fff79"
+                     "ec02862e6784d242a9c85a0550b78c3d"),
+    "img_016.avif": ("a691763982ee161cb838705f31e33a55"
+                     "a1a9ac5c83eec8da6c1df9a760f27369"),
+    "img_017.avif": ("bad8196b1d0312808f5eaa7ee7a1aa80"
+                     "9d7823929ca9e536cb3d6b18671c4b00"),
+    "img_018.avif": ("2a1952f657b23900a4d9b20f5a5045a2"
+                     "bf8ad0193a5b16a0d2c02bfb010730a9"),
+    "img_019.avif": ("133286beace86162a26ca668093f167e"
+                     "ec29dadc0e54f8290eb4380e7b03a1e5"),
+    "img_020.avif": ("ff06409e0b3681f1afcee62dbfcd9661"
+                     "ef550cb6f2caf0688e8199d4f04d41cd"),
+    "img_021.avif": ("f03098f7069c9aaae7508570d4666d44"
+                     "1a21ad6222277eb0708c1ce3ff8e3b2e"),
+    "img_022.avif": ("70d27a329be52b5d7208954edf739200"
+                     "ce2dc9fa94c9dabd3e1bef96b36eab0e"),
+    "img_023.avif": ("90621a1695df48c6ca95ce1f9578ec35"
+                     "6c064311ea6d4265fe851962fd001ce2")}
 # chip_smoke's tiff_mid_kinds views (tiff_mid_file), written on the card's
 # host from the decodes of AVIF_MID's views: view k as 16-bit CIELab
 # (Deflate, Predictor 2) for k % 3 == 0, as 4:2:0 YCbCr under LZW and
@@ -1442,7 +1537,7 @@ def generate_j2k_ht(folder: str = FOLDER) -> tuple:
 
 def generate_avif(folder: str = FOLDER, mid_scene: str | None = None
                   ) -> dict:
-    """The AVIF fixtures of AVIF_CASES, AVIF_REFUSED, AVIF_UNPORTED and
+    """The AVIF fixtures of AVIF_CASES, AVIF_REFUSED and
     TIMING_AVIF (and, given the folder of make_synth_scene --preset mid,
     AVIF_MID's, AVIF_MID_SCREEN's and AVIF_MID_GRAIN's views); returns
     TIMING_AVIF's SHA-256s."""
@@ -1823,7 +1918,7 @@ def generate_libavif(folder: str = FOLDER, mid_scene: str | None = None
                      ) -> dict:
     """This slice's fixtures: AVIF_LIBAVIF_CASES (but avif_smpte240.avif
     and avis_tkhd_scaled.avif, which generate_colour and generate_avis
-    write), avif_iloc_method2.avif, AVIF_UNPORTED, LIBAVIF_TIMING's views
+    write), avif_iloc_method2.avif, LIBAVIF_TIMING's views
     (and, given the folder of make_synth_scene --preset mid,
     AVIF_MID_LIBAVIF's views); returns the SHA-256s of cv2's decodes of
     the timing views."""
@@ -2114,32 +2209,13 @@ def inter_mid_file(bgr: np.ndarray, k: int) -> bytes:
                                                    "cq-level": 20})
 
 
-def _refused_by(data: bytes, tool: str, tmp: str) -> bool:
-    """cv2 reads the file; the port raises naming the tool as one it does
-    not read yet."""
-    import cv2
-
-    from gsplat_tpu_torch.utils.image_io import read_avif
-
-    path = os.path.join(tmp, "probe.avif")
-    with open(path, "wb") as f:
-        f.write(data)
-    if cv2.imread(path) is None:
-        return False
-    try:
-        read_avif(path)
-    except RuntimeError as err:
-        return tool in str(err) and "not read yet" in str(err)
-    return False
-
-
 def generate_inter(folder: str = FOLDER, mid_scene: str | None = None
                    ) -> dict:
     """The inter slice's fixtures: AVIF_INTER_CASES (but avif_intra_only.avif
-    and avif_hidden_key.avif, which generate_libavif writes),
-    AVIF_INTER_UNPORTED
-    (each found by a search over seeds of random content and options, the
-    first file cv2 reads and the port refuses naming its tool), the
+    and avif_hidden_key.avif, which generate_libavif writes; the
+    avif_unported_*.avif files the port refused then, each found by a
+    search for the first file cv2 read and the port refused naming its
+    tool, stay as committed: the port reads every one now), the
     TIMING_INTER view (and, given the folder of make_synth_scene --preset
     mid, AVIF_MID_INTER's views); returns the SHA-256 of cv2's decode of
     TIMING_INTER."""
@@ -2206,60 +2282,6 @@ def generate_inter(folder: str = FOLDER, mid_scene: str | None = None
         1, 1, controls={**off, "cpu-used": 5})
     save("avif_inter_hidden.avif", inter_avif(
         oracle.hide_last_frame(stream), 100, 72, 8, "420"))
-    # one file for each tool of the next slice
-    on = {"avif_unported_interintra.avif": (
-              "inter-intra prediction", {"enable-interintra-comp": 1,
-                                         "enable-smooth-interintra": 1,
-                                         "enable-interintra-wedge": 1}, {}),
-          "avif_unported_obmc.avif": ("OBMC", {"enable-obmc": 1}, {}),
-          "avif_unported_warped.avif": (
-              "local warped motion", {"enable-warped-motion": 1}, {}),
-          "avif_unported_global.avif": (
-              "non-identity global motion", {"enable-global-motion": 1}, {}),
-          "avif_unported_ref_frame_mvs.avif": (
-              "motion-field projection", {"enable-ref-frame-mvs": 1}, {}),
-          "avif_unported_ref_size.avif": (
-              "a reference frame of another size", {},
-              {"resize": (1, 12, 8)}),
-          "avif_unported_superres_inter.avif": (
-              "superres in an inter frame", {}, {"superres": (1, 16, 8)}),
-          "avif_unported_superres_ref.avif": (
-              "superres in a reference frame", {}, {"superres": (1, 8, 12)}),
-          "avif_unported_switch.avif": (
-              "a switch frame", {"error-resilient-mode": 1},
-              {"switch": True})}
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, (tool, ctl, kw) in on.items():
-            assert AVIF_INTER_UNPORTED[name] == tool
-            for seed in range(400):
-                r = np.random.default_rng(seed)
-                h, w = int(r.integers(48, 160)), int(r.integers(48, 200))
-                kind = str(r.choice(["photo", "smooth", "noise"]))
-                img = oracle.avif_image(kind, h, w, r)
-                frames = inter_frames(img, int(r.integers(3, 7)),
-                                      int(r.integers(-4, 5)),
-                                      int(r.integers(-4, 5)))
-                controls = {**off, **ctl, "cpu-used": int(r.integers(0, 5)),
-                            "cq-level": int(r.integers(10, 50))}
-                if kw.get("switch"):
-                    # an error resilient stream's last frame made a switch
-                    # frame (libaom's encoder writes none)
-                    stream = oracle.libaom_encode_frames(
-                        [inter_planes(f, 8, "420") for f in frames], 8, 1,
-                        1, controls=controls)
-                    try:
-                        data = inter_avif(oracle.switch_last_frame(stream),
-                                          w, h, 8, "420")
-                    except AssertionError:  # not an error resilient frame
-                        continue
-                else:
-                    data = inter_item(frames, 8, "420", controls=controls,
-                                      **kw)
-                if _refused_by(data, tool, tmp):
-                    save(name, data)
-                    break
-            else:
-                raise SystemExit(f"no file of 400 uses {tool}")
     view = cv2.imread(p(TIMING))
     save(TIMING_INTER, inter_view(view, *TIMING_INTER_SHIFT, **{
         "cpu-used": 3, "cq-level": 28}))
@@ -2648,7 +2670,8 @@ def generate_scaled(folder: str = FOLDER, mid_scene: str | None = None
     """The fixtures of references of another size and of switch frames:
     AVIF_SCALED_CASES but the moved files (each a seeded search,
     find_fixture, over scaled_item, cut after the first frame that uses
-    its kind), AVIF_SCALED_REFUSED, AVIF_INTER_UNPORTED, the TIMING_RESIZE
+    its kind), AVIF_SCALED_REFUSED, avif_unported_ref_order_hint.avif (of
+    AVIF_REBUILT_CASES), the TIMING_RESIZE
     view (and, given the folder of make_synth_scene --preset mid,
     AVIF_MID_SCALED's views, four processes at a time); returns the SHA-256
     of cv2's decode of TIMING_RESIZE."""
@@ -2736,6 +2759,340 @@ def generate_scaled(folder: str = FOLDER, mid_scene: str | None = None
             pool.map(_scaled_mid_job, jobs)
     return {TIMING_RESIZE: hashlib.sha256(dec.tobytes()).hexdigest()}
 
+
+
+# ------------------------------------------- reference slots rebuilt
+
+def rebuilt_info(data: bytes) -> list:
+    """decode_av1's counters of reference slots rebuilt from ref_order_hint
+    (info[80:84]): slots rebuilt, inter frames that name one, blocks
+    predicted from one, reads of what a rebuilt buffer kept of its last
+    frame; then the frames decoded."""
+    from gsplat_tpu_torch.utils import image_io
+
+    heif = image_io._Heif(data, "rebuilt")
+    heif.parse()
+    info = image_io.decode_av1(heif.primary_item()[0])[1]
+    return info[80:84] + [info[46]]
+
+
+def _frame_refs(stream: bytes) -> list:
+    """torch_avif_oracles.frame_refs of each frame OBU (None: an intra
+    frame)."""
+    import torch_avif_oracles as oracle
+
+    out = []
+    for k in range(sum(1 for t, _, _ in oracle.obus(stream) if t == 6)):
+        try:
+            out.append(oracle.frame_refs(stream, k))
+        except AssertionError:
+            out.append(None)
+    return out
+
+
+def rebuilt_stream(stream: bytes, kind: str, r, wrap, score=None):
+    """libaom's stream with a slot's ref_order_hint rewritten (a hint 1-64
+    past the slot's), of ``kind``: "named", the last frame's, a slot its
+    references name (the first of them that a block predicts from after
+    the rewrite); "unnamed", the last frame's, a slot they do not name;
+    "leftover", an error resilient frame's, a slot a later frame without
+    error resilience names and no frame between refreshes, the first such
+    whose rebuilt buffer the later frame reads through its primary
+    reference frame or a motion-field projection (rebuilt_info[3] > 0:
+    the buffer held a decoded frame before). ``wrap`` makes a file of a
+    stream (for rebuilt_info); with ``score`` (of the file) the slot of the
+    highest score is taken, not the first. None where no slot does."""
+    import torch_avif_oracles as oracle
+
+    refs = _frame_refs(stream)
+    last = len(refs) - 1
+    if kind == "leftover":
+        options = []
+        for k, fk in enumerate(refs):
+            if not fk or not fk["resilient"]:
+                continue
+            for j in range(k + 1, len(refs)):
+                if not refs[j] or refs[j]["resilient"]:
+                    continue
+                for slot in sorted(set(refs[j]["idx"])):
+                    if not any(refs[m] is None or (refs[m]["refresh"] >> slot)
+                               & 1 for m in range(k, j)):
+                        options.append((k, slot))
+    else:
+        if not refs[last] or not refs[last]["resilient"]:
+            return None
+        named = refs[last]["idx"]
+        slots = list(dict.fromkeys(named)) if kind == "named" else \
+            [i for i in range(8) if i not in named]
+        options = [(last, slot) for slot in slots]
+    best = None
+    for k, slot in dict.fromkeys(options):
+        order, _ = oracle.ref_order_hints(stream, k)
+        out = oracle.with_ref_order_hint(stream, slot, order[slot] + int(
+            r.integers(1, 65)), k)
+        try:
+            got = rebuilt_info(wrap(out))
+        except RuntimeError:           # refused: a fresh buffer's state
+            continue
+        if kind == "unnamed" or got[3 if kind == "leftover" else 2] > 0:
+            if score is None:
+                return out
+            got = score(wrap(out))
+            if best is None or got > best[0]:
+                best = (got, out)
+    return None if best is None else best[1]
+
+
+def rebuilt_shown(stream: bytes, r, showable: bool, wrap):
+    """libaom's stream (no frame ids) with a slot's ref_order_hint
+    rewritten in an error resilient frame, a slot no later frame refreshes,
+    and a show_existing_frame header of that slot after the last frame:
+    the first such whose rebuilt buffer held a decoded, showable frame
+    (libaom shows the neutral-grey buffer, with the film grain it kept), or
+    with ``showable`` False one that did not (libaom refuses the file);
+    ``wrap`` makes a file of a stream. None where no slot does."""
+    import torch_avif_oracles as oracle
+
+    refs = _frame_refs(stream)
+    for k, fk in enumerate(refs):
+        if not fk or not fk["resilient"]:
+            continue
+        for slot in range(8):
+            if any(refs[m] is None or (refs[m]["refresh"] >> slot) & 1
+                   for m in range(k, len(refs))):
+                continue
+            order, _ = oracle.ref_order_hints(stream, k)
+            out = oracle.with_ref_order_hint(stream, slot, order[slot] + int(
+                r.integers(1, 65)), k)
+            try:
+                rebuilt_info(wrap(out))     # the frames decode
+            except RuntimeError:
+                continue
+            out += oracle.obu(3, oracle._bytes("1" + format(slot, "03b") +
+                                               "1"))
+            try:
+                rebuilt_info(wrap(out))
+            except RuntimeError:
+                if not showable:
+                    return out
+                continue
+            if showable:
+                return out
+    return None
+
+
+# an error resilient frame, and the same frame without its last-frame,
+# golden and altref refreshes (then a later frame's LAST can be a slot it
+# rebuilt)
+REBUILT_FLAGS = {"leftover": {3: 1 << 28, 5: (1 << 28) | (7 << 23)}}
+
+
+def rebuilt_item(r, depth: int, fmt: str, kind: str):
+    """A one-item AVIF of libaom's good-quality encoder at its default
+    tools (speed 4-6, a quantizer of 10-49) on a photo crop of 48-111 x
+    48-143, frames each moved by up to 3 pixels from the one
+    before (inter_frames), with a slot rebuilt (rebuilt_stream): "named"
+    and "unnamed" on 3 frames, each error resilient; "scaled" the same
+    with libaom's resize of inter frames to half the key frame's size (the
+    rebuilt slot, at the sequence's maximum size, is then a 2x reference);
+    "leftover" on 7 frames, error resilient from the fourth to the sixth
+    (REBUILT_FLAGS), the others not. None where no slot does."""
+    import torch_avif_oracles as oracle
+
+    h, w = int(r.integers(48, 112)), int(r.integers(48, 144))
+    img = oracle.avif_image("photo", h, w, r)
+    n = 7 if kind == "leftover" else 3
+    frames = inter_frames(img, n, int(r.integers(-3, 4)),
+                          int(r.integers(-3, 4)))
+    ctl = {"cpu-used": int(r.integers(4, 7)),
+           "cq-level": int(r.integers(10, 50))}
+    kw = {}
+    if kind != "leftover":
+        ctl["error-resilient-mode"] = 1
+    if kind == "scaled":
+        kw["resize"] = (1, 16, 8)
+    sx, sy = {"420": (1, 1), "422": (1, 0), "444": (0, 0),
+              "400": (1, 1)}[fmt]
+    stream = oracle.libaom_encode_frames(
+        [inter_planes(f, depth, fmt) for f in frames], depth, sx, sy,
+        mono=fmt == "400", flags=REBUILT_FLAGS.get(kind), controls=ctl,
+        **kw)
+    wrap = lambda st: inter_avif(st, w, h, depth, fmt)   # noqa: E731
+    out = rebuilt_stream(stream, "named" if kind == "scaled" else kind, r,
+                         wrap)
+    return None if out is None else wrap(out)
+
+
+def rebuilt_mid_file(bgr: np.ndarray, k: int) -> bytes:
+    """View k of AVIF_MID_REBUILT, of kind REBUILT_KINDS[k % 3]: libaom's
+    good-quality encoder (speed 6, cq 20; 8-bit BT.601 full-range 4:2:0)
+    on the view translated by inter_mid_shift(k) n - 1 times, ..., once,
+    then the view itself (n = 3; 7-10 for "leftover"), every frame error
+    resilient ("leftover": REBUILT_FLAGS'), "scaled" with the inter frames
+    resized to half (resize (1, 16, 8)); the slot rebuilt of those
+    rebuilt_stream takes the one whose decode is nearest the view (PSNR:
+    a grey reference mars the blocks that predict from it)."""
+    import torch_avif_oracles as oracle
+    from gsplat_tpu_torch.utils import image_io
+
+    kind = REBUILT_KINDS[k % 3]
+    dy, dx = inter_mid_shift(k)
+    h, w = bgr.shape[:2]
+    ctl = {"cpu-used": 6, "cq-level": 20}
+    if kind != "leftover":
+        ctl["error-resilient-mode"] = 1
+    wrap = lambda st: inter_avif(st, w, h, 8, "420")     # noqa: E731
+    rgb = bgr[..., ::-1].astype(np.float64)
+
+    def nearness(data):                 # PSNR's order: less squared error
+        err = image_io._decode_avif_bytes(data, "view") - rgb
+        return -float(np.mean(err * err))
+    # where no slot of 7 frames is of the kind, 8, 9 or 10 frames
+    for n in (3,) if kind != "leftover" else (7, 8, 9, 10):
+        stream = oracle.libaom_encode_frames(
+            [yuv_planes(translated(bgr, dy * t, dx * t), 6)
+             for t in range(n - 1, -1, -1)], 8, 1, 1,
+            flags=REBUILT_FLAGS.get(kind), controls=ctl,
+            **({"resize": (1, 16, 8)} if kind == "scaled" else {}))
+        out = rebuilt_stream(stream, "named" if kind == "scaled" else kind,
+                             np.random.default_rng(k), wrap, nearness)
+        if out is not None:
+            return wrap(out)
+    raise AssertionError(f"view {k}: no slot of kind {kind}")
+
+
+def _rebuilt_mid_job(args):
+    path, k, out = args
+    import cv2
+
+    with open(out, "wb") as f:
+        f.write(rebuilt_mid_file(cv2.imread(path), k))
+
+
+def generate_rebuilt(folder: str = FOLDER, mid_scene: str | None = None
+                     ) -> tuple:
+    """The fixtures of reference slots libaom rebuilds from ref_order_hint:
+    AVIF_REBUILT_CASES but the moved file (each kind's files a seeded
+    search, find_fixture, over rebuilt_item or rebuilt_shown for the first
+    that cv2 reads as the port does and that uses its kind),
+    AVIF_REBUILT_REFUSED, the TIMING_REBUILT view (and, given the folder
+    of make_synth_scene --preset mid, AVIF_MID_REBUILT's views, four
+    processes at a time); returns (the SHA-256 of cv2's decode of
+    TIMING_REBUILT, those of AVIF_MID_REBUILT's views: {} without the
+    scene)."""
+    import hashlib
+    import multiprocessing
+
+    import cv2
+
+    import torch_avif_oracles as oracle
+
+    p = lambda name: os.path.join(folder, name)       # noqa: E731
+
+    def save(name, data):
+        with open(p(name), "wb") as f:
+            f.write(data)
+    for kind in REBUILT_KINDS:
+        for depth, fmt in AVIF_REBUILT_FORMATS:
+            name = f"avif_rebuilt_{kind}_d{depth}_{fmt}.avif"
+            at = AVIF_REBUILT_COUNTER[name]
+            find_fixture(p(name), lambda r: rebuilt_item(
+                r, depth, fmt, kind), lambda d: rebuilt_info(d)[at] > 0)
+    find_fixture(p("avif_rebuilt_unnamed.avif"), lambda r: rebuilt_item(
+        r, 10, "444", "unnamed"), lambda d: rebuilt_info(d)[:3] == [1, 0, 0])
+    # eight empty slots: cv2's 12-bit still as an error resilient intra-only
+    # frame first
+    rng = np.random.default_rng(29)
+    img = oracle.deepen(oracle.avif_image("photo", 40, 56, rng), rng) >> 4
+    obu, props = oracle.item_parts(oracle.cv2_avif(img, 60, 12))
+    empty = oracle.full_headers(obu, still=0, frame_kind="intra_only_"
+                                "resilient", hints=(5, 9, 0, 3, 127, 1, 2,
+                                                    64))
+    save("avif_rebuilt_empty.avif", oracle.build_avif(empty, props))
+    # a show_existing_frame of a rebuilt slot: shown (grey, its buffer's
+    # grain), and refused where the buffer held no frame
+    for name, depth, fmt, grain, showable in (
+            ("avif_rebuilt_shown.avif", 10, "444", 0, True),
+            ("avif_rebuilt_shown_grain.avif", 8, "420", 1, True),
+            ("avif_rebuilt_fresh_shown.avif", 8, "420", 0, False)):
+        def make(r):
+            img = oracle.avif_image("photo", 56, 72, r)
+            sx, sy = {"420": (1, 1), "444": (0, 0)}[fmt]
+            ctl = {"cpu-used": 5}
+            if grain:
+                ctl["film-grain-test-vector"] = 3
+            stream = oracle.libaom_encode_frames(
+                [inter_planes(f, depth, fmt) for f in inter_frames(
+                    img, 7, 1, 2)], depth, sx, sy,
+                flags=REBUILT_FLAGS["leftover"], controls=ctl)
+            wrap = lambda s: inter_avif(s, 72, 56, depth, fmt)  # noqa
+            out = rebuilt_shown(stream, r, showable, wrap)
+            return None if out is None else wrap(out)
+        if showable:
+            find_fixture(p(name), make, lambda d: rebuilt_info(d)[3] > 0)
+        else:
+            save(name, make(np.random.default_rng(8)))
+    # a rebuilt slot past twice the frame: key and inter frames at half of
+    # the sequence's 88-sample maximum, the last rewritten 43 wide
+    img = oracle.avif_image("photo", 64, 88, np.random.default_rng(3))
+    stream = oracle.libaom_encode_frames(
+        [inter_planes(f, 8, "420") for f in inter_frames(img, 3, 1, 2)], 8,
+        1, 1, resize=(1, 16, 16),
+        controls={"cpu-used": 5, "error-resilient-mode": 1})
+    order, idx = oracle.ref_order_hints(stream)
+    save("avif_rebuilt_too_large.avif", inter_avif(
+        oracle.with_ref_order_hint(oracle.with_frame_size(stream, 43, 32),
+                                   idx[0], order[idx[0]] + 1), 88, 64, 8,
+        "420"))
+    # the primary reference frame of a frame a buffer no frame was decoded
+    # into (the frame before rebuilt its slot and refreshed none)
+    img = oracle.avif_image("photo", 48, 64, np.random.default_rng(12))
+    stream = oracle.libaom_encode_frames(
+        [inter_planes(f, 8, "420") for f in inter_frames(img, 5, 1, 2)], 8,
+        1, 1, flags={2: oracle.AOM_EFLAG_ERROR_RESILIENT | (7 << 23)},
+        controls={"cpu-used": 5})
+    refs = oracle.frame_refs(stream, 3)
+    slot = refs["idx"][refs["primary"]]
+    order, _ = oracle.ref_order_hints(stream, 2)
+    save("avif_rebuilt_fresh_primary.avif", inter_avif(
+        oracle.with_ref_order_hint(stream, slot, order[slot] + 3, 2), 64, 48,
+        8, "420"))
+    view = cv2.imread(p(TIMING))
+    find_fixture(p(TIMING_REBUILT), lambda r: rebuilt_timing_view(view, r),
+                 lambda data: rebuilt_info(data)[2] > 0, tries=1)
+    dec = np.ascontiguousarray(cv2.imread(p(TIMING_REBUILT))[..., ::-1])
+    mid = {}
+    if mid_scene is not None:
+        src = os.path.join(mid_scene, "images_4")
+        os.makedirs(p(AVIF_MID_REBUILT), exist_ok=True)
+        jobs = [(os.path.join(src, name), k,
+                 p(os.path.join(AVIF_MID_REBUILT, name[:-4] + ".avif")))
+                for k, name in enumerate(sorted(os.listdir(src)))]
+        with multiprocessing.get_context("spawn").Pool(4) as pool:
+            pool.map(_rebuilt_mid_job, jobs)
+        for _, _, out in jobs:
+            d = np.ascontiguousarray(cv2.imread(out)[..., ::-1])
+            mid[os.path.basename(out)] = hashlib.sha256(
+                d.tobytes()).hexdigest()
+    return {TIMING_REBUILT: hashlib.sha256(dec.tobytes()).hexdigest()}, mid
+
+
+def rebuilt_timing_view(bgr: np.ndarray, r) -> bytes:
+    """TIMING_REBUILT: libaom's error resilient frames (speed 6, cq 20) of
+    the view translated twice and once by TIMING_INTER_SHIFT, then the
+    view, the last frame's first slot its references name and a block
+    predicts from rebuilt (rebuilt_stream)."""
+    import torch_avif_oracles as oracle
+
+    h, w = bgr.shape[:2]
+    stream = oracle.libaom_encode_frames(
+        [yuv_planes(translated(bgr, TIMING_INTER_SHIFT[0] * t,
+                               TIMING_INTER_SHIFT[1] * t), 6)
+         for t in (2, 1, 0)], 8, 1, 1, controls={
+            "cpu-used": 6, "cq-level": 20, "error-resilient-mode": 1})
+    wrap = lambda st: inter_avif(st, w, h, 8, "420")     # noqa: E731
+    out = rebuilt_stream(stream, "named", r, wrap)
+    return None if out is None else wrap(out)
 
 _JPEGW = r"""
 #include <stdio.h>
@@ -4624,7 +4981,7 @@ def _check_cv2_refuses(folder: str = FOLDER):
             assert cv2.imread(os.path.join(folder, name)) is None, name
         except cv2.error:                     # cv2's size check raises
             pass
-    for name in GARBLED + AVIF_UNPORTED:
+    for name in GARBLED:
         assert cv2.imread(os.path.join(folder, name)) is not None, name
 
 
@@ -4641,9 +4998,8 @@ def check(folder: str = FOLDER, scratch: str | None = None) -> dict:
     ``downsample_area`` gives cv2.resize's pixels; for ``TIMING_CV2``,
     where the port's JP2 bytes and pyramids of TIMING's decode hash as
     cv2's; for ``ROUND_TRIP``, where the port's file reads back as its
-    source; for ``AVIF_UNPORTED``, where it raises naming the file and
-    saying it does not read the kind yet; for ``TIMING_AVIF``, where the
-    decode hashes as cv2's.  ``scratch`` is a directory for the writers' files (a
+    source; for ``TIMING_AVIF``, where the decode hashes as cv2's.
+    ``scratch`` is a directory for the writers' files (a
     temporary one by default).  Warnings of cut-short files are expected
     and silenced."""
     import hashlib
@@ -4667,13 +5023,6 @@ def check(folder: str = FOLDER, scratch: str | None = None) -> dict:
             out[name] = False
         except (ValueError, RuntimeError) as err:
             out[name] = name in str(err)
-    for name in AVIF_UNPORTED:
-        try:
-            read_image(os.path.join(folder, name))
-            out[name] = False
-        except RuntimeError as err:
-            out[name] = name in str(err) and "not read yet" in str(err) \
-                and AVIF_INTER_UNPORTED[name] in str(err)
     for name, sha in {**TIMING_AVIF, **TIMING_TIFF}.items():
         got = np.ascontiguousarray(read_image(os.path.join(folder, name)))
         out[name] = hashlib.sha256(got.tobytes()).hexdigest() == sha
@@ -4816,6 +5165,16 @@ if __name__ == "__main__":
         _write_wants(AVIF_SCALED_CASES)              # views
         _check_cv2_refuses()
         print(f"scaled SHA-256 for TIMING_AVIF = {shas!r}")
+        result = check()
+        print({k: v for k, v in result.items() if not v})
+        sys.exit(0)
+    if sys.argv[1:2] == ["--rebuilt"]:      # reference slots rebuilt from
+        shas, mid = generate_rebuilt(       # ref_order_hint; --rebuilt
+            mid_scene=(sys.argv[2:] or [None])[0])   # SCENE also the mid
+        _write_wants(AVIF_REBUILT_CASES)             # views
+        _check_cv2_refuses()
+        print(f"rebuilt SHA-256 for TIMING_AVIF = {shas!r}")
+        print(f"REBUILT_MID_SHA256 = {mid!r}")
         result = check()
         print({k: v for k, v in result.items() if not v})
         sys.exit(0)
