@@ -36,6 +36,7 @@ from gsplat_tpu_torch.utils.colmap import camera_focals, read_cameras_binary, \
     read_images_binary, read_points3d_arrays
 from gsplat_tpu_torch.utils.image_io import read_image
 from gsplat_tpu_torch.utils.so3 import quat_to_rotmat_np
+from gsplat_tpu_torch.utils.timer import span
 
 
 @dataclass
@@ -146,35 +147,36 @@ def make_specs(grid: TileGrid, cfg: SplatConfig):
     return bspec, rspec
 
 
-def render_padded(params: dict, live, w2c_rot, w2c_tran, grid: TileGrid,
-                  cfg: SplatConfig, bspec: BinningSpec, rspec: RasterSpec,
-                  sh_vecs=None, preset: bool = False):
-    """Table params → padded (3, Hp, Wp) image and diagnostics.
-
-    ``sh_vecs`` (4, 3) is the camera's RayInfo, needed with SH color.
-    ``preset`` renders through the bf16 render preset (RGB or SH,
-    render-only).  ``aux`` carries the visibility mask and the binning
-    counters.
-    """
-    proj = project_gaussians(
-        params["pos"], params["quat"], params["scale"],
-        w2c_rot, w2c_tran,
-        near=cfg.near,
-        half_width=grid.width * 1.2 / 2 / grid.focal_x,
-        half_height=grid.height * 1.2 / 2 / grid.focal_y,
-        scale_activation=cfg.scale_activation,
-    )
-    visible = proj.visible & live
-    opa = torch.sigmoid(params["opa"])
-    color = params["rgb"] if cfg.use_sh_coeff \
-        else torch.sigmoid(params["rgb"])
-    geom_n = torch.cat([proj.mean2d, proj.cov2d, opa[:, None],
-                        torch.zeros_like(opa)[:, None]], dim=1)
+def _render(params, live, w2c_rot, w2c_tran, grid, cfg, bspec, rspec,
+            sh_vecs, preset, crop: bool):
+    """:func:`render_padded`, and with ``crop`` :func:`render_cropped`, in
+    the spans ``step.project``, ``step.pack`` and ``step.composite``."""
+    with span("step.project"):
+        proj = project_gaussians(
+            params["pos"], params["quat"], params["scale"],
+            w2c_rot, w2c_tran,
+            near=cfg.near,
+            half_width=grid.width * 1.2 / 2 / grid.focal_x,
+            half_height=grid.height * 1.2 / 2 / grid.focal_y,
+            scale_activation=cfg.scale_activation,
+        )
+        visible = proj.visible & live
+        opa = torch.sigmoid(params["opa"])
+        color = params["rgb"] if cfg.use_sh_coeff \
+            else torch.sigmoid(params["rgb"])
+        geom_n = torch.cat([proj.mean2d, proj.cov2d, opa[:, None],
+                            torch.zeros_like(opa)[:, None]], dim=1)
     packed = pack_sorted(bspec, geom_n, color, proj.depth, visible)
-    if preset:
-        img = rasterize_preset(pack_preset(bspec, packed), rspec, sh_vecs)
-    else:
-        img = rasterize(packed, rspec, sh_vecs)
+    with span("step.composite"):
+        if preset:
+            img = rasterize_preset(pack_preset(bspec, packed), rspec,
+                                   sh_vecs)
+        else:
+            img = rasterize(packed, rspec, sh_vecs)
+        if crop:
+            img = torch.clamp(img, 0.0, 1.0)
+            t, l = grid.crop_top, grid.crop_left
+            img = img[:, t:t + grid.height, l:l + grid.width]
     aux = {
         "visible": visible,
         "n_pairs": packed.n_pairs,
@@ -185,14 +187,25 @@ def render_padded(params: dict, live, w2c_rot, w2c_tran, grid: TileGrid,
     return img, aux
 
 
+def render_padded(params: dict, live, w2c_rot, w2c_tran, grid: TileGrid,
+                  cfg: SplatConfig, bspec: BinningSpec, rspec: RasterSpec,
+                  sh_vecs=None, preset: bool = False):
+    """Table params → padded (3, Hp, Wp) image and diagnostics.
+
+    ``sh_vecs`` (4, 3) is the camera's RayInfo, needed with SH color.
+    ``preset`` renders through the bf16 render preset (RGB or SH,
+    render-only).  ``aux`` carries the visibility mask and the binning
+    counters.
+    """
+    return _render(params, live, w2c_rot, w2c_tran, grid, cfg, bspec, rspec,
+                   sh_vecs, preset, crop=False)
+
+
 def render_cropped(params, live, w2c_rot, w2c_tran, grid, cfg, bspec, rspec,
                    sh_vecs=None, preset: bool = False):
     """Padded render, clamped to [0, 1] and centre-cropped → (3, H, W)."""
-    img, aux = render_padded(params, live, w2c_rot, w2c_tran, grid, cfg,
-                             bspec, rspec, sh_vecs, preset)
-    img = torch.clamp(img, 0.0, 1.0)
-    t, l = grid.crop_top, grid.crop_left
-    return img[:, t:t + grid.height, l:l + grid.width], aux
+    return _render(params, live, w2c_rot, w2c_tran, grid, cfg, bspec, rspec,
+                   sh_vecs, preset, crop=True)
 
 
 class Splatter:

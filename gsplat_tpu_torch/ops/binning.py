@@ -46,6 +46,8 @@ from typing import NamedTuple
 
 import torch
 
+from gsplat_tpu_torch.utils.timer import span
+
 
 class BinningSpec(NamedTuple):
     """Grid geometry and tile-culling rule of one camera."""
@@ -178,62 +180,64 @@ def pack_sorted(spec: BinningSpec, geom_n: torch.Tensor,
       depth: (N,) camera depth (ordering only).
       visible: (N,) bool frustum mask.
     """
-    dev = geom_n.device
-    n = depth.shape[0]
-    K, T = spec.max_tiles_per_gaussian, spec.n_tiles
+    with span("step.pack"):
+        dev = geom_n.device
+        n = depth.shape[0]
+        K, T = spec.max_tiles_per_gaussian, spec.n_tiles
 
-    # ---- depth order -----------------------------------------------------
-    depth = depth.detach()
-    depth_key = torch.where(visible, depth,
-                            torch.full_like(depth, float("inf")))
-    order = torch.sort(depth_key, stable=True).indices          # (N,)
-    geom_o = geom_n.detach()[order]     # ordering and bboxes: no gradient
-    vis_o = visible[order]
+        # ---- depth order -------------------------------------------------
+        depth = depth.detach()
+        depth_key = torch.where(visible, depth,
+                                torch.full_like(depth, float("inf")))
+        order = torch.sort(depth_key, stable=True).indices      # (N,)
+        geom_o = geom_n.detach()[order]  # ordering and bboxes: no gradient
+        vis_o = visible[order]
 
-    # ---- per-gaussian tile rectangles, K cap -----------------------------
-    x0, y0, rw, rh = _tile_bbox_rows(
-        spec, geom_o[:, 0], geom_o[:, 1], geom_o[:, 2], geom_o[:, 3],
-        geom_o[:, 4], geom_o[:, 5], vis_o)
-    cover = rw * rh
-    count = torch.clamp_max(cover, K)
-    n_clipped = torch.clamp_min(cover - K, 0).sum()
-    n_max_tiles = cover.max() if n else torch.zeros((), dtype=torch.int64,
-                                                   device=dev)
+        # ---- per-gaussian tile rectangles, K cap -------------------------
+        x0, y0, rw, rh = _tile_bbox_rows(
+            spec, geom_o[:, 0], geom_o[:, 1], geom_o[:, 2], geom_o[:, 3],
+            geom_o[:, 4], geom_o[:, 5], vis_o)
+        cover = rw * rh
+        count = torch.clamp_max(cover, K)
+        n_clipped = torch.clamp_min(cover - K, 0).sum()
+        n_max_tiles = cover.max() if n else torch.zeros(
+            (), dtype=torch.int64, device=dev)
 
-    # ---- expand to pairs: gaussian g emits its bbox tiles k < count[g],
-    # row-major, in depth order (rank g ascending) ------------------------
-    total = int(count.sum())
-    rank = torch.repeat_interleave(torch.arange(n, device=dev), count,
-                                   output_size=total)           # (P,)
-    first = torch.cumsum(count, 0) - count
-    k = torch.arange(total, device=dev) - first[rank]
-    rw_g = torch.clamp_min(rw, 1)[rank]
-    ky = torch.div(k, rw_g, rounding_mode="floor")
-    kx = k - ky * rw_g
-    tile = (x0[rank] + kx) + (y0[rank] + ky) * spec.n_tile_x
-    if spec.method == "dist":
-        # refine: tile-centre distance test (gaussian.cu:124-128)
-        tcx = spec.leftmost + (x0[rank] + kx + 0.5) * spec.tile_len_x
-        tcy = spec.topmost + (y0[rank] + ky + 0.5) * spec.tile_len_y
-        d2 = (geom_o[rank, 0] - tcx) ** 2 + (geom_o[rank, 1] - tcy) ** 2
-        keep = d2 < spec.thresh
-        rank, tile = rank[keep], tile[keep]
+        # ---- expand to pairs: gaussian g emits its bbox tiles k < count[g],
+        # row-major, in depth order (rank g ascending) --------------------
+        with span("sync.pack"):
+            total = int(count.sum())
+        rank = torch.repeat_interleave(torch.arange(n, device=dev), count,
+                                       output_size=total)       # (P,)
+        first = torch.cumsum(count, 0) - count
+        k = torch.arange(total, device=dev) - first[rank]
+        rw_g = torch.clamp_min(rw, 1)[rank]
+        ky = torch.div(k, rw_g, rounding_mode="floor")
+        kx = k - ky * rw_g
+        tile = (x0[rank] + kx) + (y0[rank] + ky) * spec.n_tile_x
+        if spec.method == "dist":
+            # refine: tile-centre distance test (gaussian.cu:124-128)
+            tcx = spec.leftmost + (x0[rank] + kx + 0.5) * spec.tile_len_x
+            tcy = spec.topmost + (y0[rank] + ky + 0.5) * spec.tile_len_y
+            d2 = (geom_o[rank, 0] - tcx) ** 2 + (geom_o[rank, 1] - tcy) ** 2
+            keep = d2 < spec.thresh
+            rank, tile = rank[keep], tile[keep]
 
-    # ---- one stable sort by tile keeps depth order within each tile ------
-    tile_sorted, perm = torch.sort(tile, stable=True)
-    src = order[rank[perm]]                                      # table rows
-    tile_start = torch.searchsorted(
-        tile_sorted, torch.arange(T + 1, device=dev, dtype=tile.dtype))
+        # ---- one stable sort by tile keeps depth order within each tile --
+        tile_sorted, perm = torch.sort(tile, stable=True)
+        src = order[rank[perm]]                                  # table rows
+        tile_start = torch.searchsorted(
+            tile_sorted, torch.arange(T + 1, device=dev, dtype=tile.dtype))
 
-    return PackedPairs(
-        geom=geom_n[src],           # the differentiable gathers
-        color=color_n[src],
-        tile_start=tile_start.to(torch.int32),
-        n_pairs=torch.tensor(tile.shape[0], device=dev),
-        n_clipped=n_clipped,
-        n_visible=visible.sum(),
-        n_max_tiles=n_max_tiles,
-    )
+        return PackedPairs(
+            geom=geom_n[src],           # the differentiable gathers
+            color=color_n[src],
+            tile_start=tile_start.to(torch.int32),
+            n_pairs=torch.tensor(tile.shape[0], device=dev),
+            n_clipped=n_clipped,
+            n_visible=visible.sum(),
+            n_max_tiles=n_max_tiles,
+        )
 
 
 def pack_preset(spec: BinningSpec, packed: PackedPairs) -> PresetPairs:

@@ -28,6 +28,7 @@ import torch.distributed as dist
 
 from gsplat_tpu_torch.train import COUNTERS, GROUP_ORDER, AdamState, \
     TrainState, apply_grads, make_grad_fn, step_metrics
+from gsplat_tpu_torch.utils.timer import span
 
 METRICS = ("l1", "ssim", "psnr", "loss")
 
@@ -68,10 +69,10 @@ def make_dp_train_step(splat, tcfg, group: int = 0, process_group=None):
                      for k, p in zip(GROUP_ORDER, pieces)}
             visible = pieces[len(GROUP_ORDER)] if mean_accum else None
             metrics = dict(zip(METRICS, pieces[-1].unbind()))
-            new = apply_grads(st, grads, visible, lrs, tcfg)
-            return new, step_metrics(metrics, dict(zip(COUNTERS,
-                                                       counters.unbind())),
-                                     grads)
+            with span("step.adam"):
+                new = apply_grads(st, grads, visible, lrs, tcfg)
+                return new, step_metrics(
+                    metrics, dict(zip(COUNTERS, counters.unbind())), grads)
 
     return dp_step
 

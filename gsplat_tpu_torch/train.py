@@ -37,6 +37,7 @@ import dataclasses
 import os
 import tempfile
 import time
+from pprint import pprint
 from typing import NamedTuple
 
 import numpy as np
@@ -49,8 +50,9 @@ from gsplat_tpu_torch.models.splatter import Splatter, gt_to_float, \
     render_cropped
 from gsplat_tpu_torch.ops.binning import sqrt_rn
 from gsplat_tpu_torch.ops.losses import l1_loss, psnr, ssim
+from gsplat_tpu_torch.utils import timer
 from gsplat_tpu_torch.utils.image_io import write_png
-from gsplat_tpu_torch.utils.timer import StageTimer
+from gsplat_tpu_torch.utils.timer import StageTimer, span
 
 GROUP_ORDER = ("opa", "rgb", "pos", "scale", "quat")  # train.py:56-62
 
@@ -154,24 +156,26 @@ def make_loss_fn(grid, cfg, tcfg: TrainConfig, bspec, rspec):
     def loss_fn(params, live, rot, tran, gt, shv=None):
         img, aux = render_cropped(params, live, rot, tran, grid, cfg,
                                   bspec, rspec, shv)
-        l1 = l1_loss(img, gt)
-        if ssim_w > 0:
-            s = ssim(img, gt, data_range=1.0, layout="chw")
-            loss = (1 - ssim_w) * l1 + ssim_w * (1.0 - s)
-        else:
-            s = torch.ones((), dtype=torch.float32, device=img.device)
-            loss = l1
-        n_live = torch.clamp_min(live.sum(), 1)
-        if tcfg.scale_reg > 0:
-            loss = loss + tcfg.scale_reg * torch.sum(
-                torch.abs(params["scale"]) * live[:, None]) / (3 * n_live)
-        if tcfg.opa_reg > 0:
-            op = torch.sigmoid(params["opa"])
-            loss = loss + tcfg.opa_reg * torch.sum(
-                op * (1 - op) * live) / n_live
-        metrics = {"l1": l1.detach(), "ssim": s.detach(),
-                   "psnr": psnr(img.detach(), gt, data_range=1.0),
-                   "loss": loss.detach()}
+        with span("step.loss"):
+            l1 = l1_loss(img, gt)
+            if ssim_w > 0:
+                s = ssim(img, gt, data_range=1.0, layout="chw")
+                loss = (1 - ssim_w) * l1 + ssim_w * (1.0 - s)
+            else:
+                s = torch.ones((), dtype=torch.float32, device=img.device)
+                loss = l1
+            n_live = torch.clamp_min(live.sum(), 1)
+            if tcfg.scale_reg > 0:
+                loss = loss + tcfg.scale_reg * torch.sum(
+                    torch.abs(params["scale"]) * live[:, None]) \
+                    / (3 * n_live)
+            if tcfg.opa_reg > 0:
+                op = torch.sigmoid(params["opa"])
+                loss = loss + tcfg.opa_reg * torch.sum(
+                    op * (1 - op) * live) / n_live
+            metrics = {"l1": l1.detach(), "ssim": s.detach(),
+                       "psnr": psnr(img.detach(), gt, data_range=1.0),
+                       "loss": loss.detach()}
         return loss, (metrics, aux, img)
 
     return loss_fn
@@ -198,9 +202,10 @@ def make_grad_fn(splat: Splatter, tcfg: TrainConfig, group: int = 0):
         with torch.enable_grad():
             loss, (metrics, aux, _img) = loss_fn(params, st.live, rot, tran,
                                                  gt, cams.sh_vecs[cam_idx])
-            grads = dict(zip(GROUP_ORDER, torch.autograd.grad(
-                loss, [params[k] for k in GROUP_ORDER], allow_unused=True,
-                materialize_grads=True)))
+            with span("step.backward"):
+                grads = dict(zip(GROUP_ORDER, torch.autograd.grad(
+                    loss, [params[k] for k in GROUP_ORDER],
+                    allow_unused=True, materialize_grads=True)))
         return grads, metrics, aux
 
     return grad_fn
@@ -262,9 +267,10 @@ def make_train_step(splat: Splatter, tcfg: TrainConfig, group: int = 0):
 
     def train_step(st: TrainState, cam_idx: int, lrs):
         grads, metrics, aux = grad_fn(st, cam_idx)
-        new = apply_grads(st, grads, aux["visible"].to(torch.float32), lrs,
-                          tcfg)
-        return new, step_metrics(metrics, aux, grads)
+        with span("step.adam"):
+            new = apply_grads(st, grads, aux["visible"].to(torch.float32),
+                              lrs, tcfg)
+            return new, step_metrics(metrics, aux, grads)
 
     return train_step
 
@@ -429,12 +435,14 @@ class Trainer:
         ac = (i_iter > 600 and i_iter < t.adaptive_control_end_iter
               and i_iter % t.n_adaptive_control == 0)
         if ac or ac_delete:
-            self._densify(i_iter, ac, in_reset)
+            with span("trainer.densify"):
+                self._densify(i_iter, ac, in_reset)
         if reset_opa:
-            self._sync_table_from_state()
-            self.splat.table = reset_opacity(self.splat.table)
-            self.state = self.state._replace(
-                params=self.splat.table.params())
+            with span("trainer.opacity_reset"):
+                self._sync_table_from_state()
+                self.splat.table = reset_opacity(self.splat.table)
+                self.state = self.state._replace(
+                    params=self.splat.table.params())
         if ac or ac_delete or reset_opa:
             self._replicate_state()
 
@@ -460,14 +468,13 @@ class Trainer:
         """The step of iteration ``i_iter`` on a camera drawn as
         :meth:`_draw_camera` draws it, without its host events → (the
         camera's group, the step's metrics)."""
-        if self._pre_clear(i_iter):
-            self.state = self.state._replace(
-                accum_grad=torch.zeros_like(self.state.accum_grad),
-                grad_counter=torch.zeros_like(self.state.grad_counter))
-        g, cam = self._draw_camera(group)
-        step = self._train_step_for(g)
-        with StageTimer("train_step", debug=self.tcfg.debug,
-                        device=self.device):
+        with span("trainer.step", id=i_iter):
+            if self._pre_clear(i_iter):
+                self.state = self.state._replace(
+                    accum_grad=torch.zeros_like(self.state.accum_grad),
+                    grad_counter=torch.zeros_like(self.state.grad_counter))
+            g, cam = self._draw_camera(group)
+            step = self._train_step_for(g)
             self.state, metrics = step(self.state, cam, self.lrs_at(i_iter))
         return g, metrics
 
@@ -655,7 +662,10 @@ class Trainer:
         with the window's metrics (:func:`window_metrics`: the densify's K
         guard sees the window max of the binning counters).  Each window is
         logged; at iteration 400 it moves to the target image pyramid level,
-        and it evaluates and saves on the TEST and save cadences."""
+        and it evaluates and saves on the TEST and save cadences.  With
+        ``tcfg.debug`` it turns the spans on (``utils/timer.py``), steps one
+        iteration a window and prints the spans' per-name means every 100
+        iterations."""
         t = self.tcfg
         n_iters = n_iters or t.n_iters
         if (start > 400 and t.render_downsample_start != t.render_downsample
@@ -664,6 +674,8 @@ class Trainer:
             # was built at the warm-start level, apply the switch again
             self.splat.switch_resolution(t.render_downsample)
             self._rebuild_after_capacity_change()
+        if t.debug:
+            timer.enable(True)
         t_start = time.perf_counter()
         i = start
         while i < n_iters:
@@ -672,18 +684,21 @@ class Trainer:
                    and j - i + 1 < metrics_every
                    and not self._is_host_boundary(j)):
                 j += 1
-            g, metrics = None, None
-            for k in range(i, j + 1):   # no host event before j
-                g, m = self._step(k, g)
-                metrics = window_metrics(metrics, m)
-            self._last_metrics = metrics
-            self._post_step(j)
-            l1, p = float(metrics["l1"]), float(metrics["psnr"])
-            self.history["l1"].append(l1)
-            self.history["psnr"].append(p)
-            its = (j + 1 - start) / (time.perf_counter() - t_start)
-            log(f"iter {j}: l1={l1:.4f} psnr={p:.2f} "
-                f"pairs={int(metrics['n_pairs'])} {its:.1f} it/s")
+            with span("trainer.window", id=j):
+                g, metrics = None, None
+                for k in range(i, j + 1):   # no host event before j
+                    g, m = self._step(k, g)
+                    metrics = window_metrics(metrics, m)
+                self._last_metrics = metrics
+                self._post_step(j)
+                with span("sync.log"):
+                    l1, p = float(metrics["l1"]), float(metrics["psnr"])
+                    n_pairs = int(metrics["n_pairs"])
+                self.history["l1"].append(l1)
+                self.history["psnr"].append(p)
+                its = (j + 1 - start) / (time.perf_counter() - t_start)
+                log(f"iter {j}: l1={l1:.4f} psnr={p:.2f} "
+                    f"pairs={n_pairs} {its:.1f} it/s")
             if (j == 400 and t.render_downsample_start
                     != t.render_downsample):
                 # reference train.py:233-234: the target pyramid level after
@@ -699,7 +714,7 @@ class Trainer:
                 self.save()
                 self.save_render(j)
             if t.debug and j % 100 == 0 and j > 0:
-                StageTimer.show_recorder()
+                pprint(timer.summary(timer.take()))
             i = j + 1
         return self.history
 
